@@ -1,0 +1,316 @@
+"""zoo-Keras layers on PyTorch — the ones the NCF slice uses.
+
+Counterpart of ``analytics_zoo_tpu/keras/layers.py``: the activation
+table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Merge`` /
+``merge`` and ``FusedEmbeddings`` over ``_EmbedTable``. Layers are config
+objects; execution happens inside the one ``GraphModule`` (engine.py).
+Parameter names follow the flax tree: ``<dense>.weight`` / ``.bias``
+(``nn.Linear``, the flax kernel transposed) and ``<table>.embedding``.
+The rest of the layer library waits for later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from analytics_zoo_tpu_torch.keras.engine import KerasLayer as _KerasLayerBase
+from analytics_zoo_tpu_torch.keras.engine import Node
+
+
+class KerasLayer(_KerasLayerBase):
+    """Layer base that records ``input_shape`` (used when a layer opens a
+    Sequential) and snapshots the dtype policy at construction."""
+
+    def __init__(self, name=None, input_shape=None):
+        super().__init__(name)
+        self.input_shape = tuple(input_shape) if input_shape is not None \
+            else None
+        from analytics_zoo_tpu_torch.keras import policy as _policy
+        self.compute_dtype = _policy.compute_dtype()
+
+
+# ---------------- activations (flax semantics) ----------------
+
+_ACTIVATIONS = {
+    "relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "softmax": lambda x: F.softmax(x, dim=-1),
+    "log_softmax": lambda x: F.log_softmax(x, dim=-1),
+    "softplus": F.softplus, "softsign": F.softsign,
+    # flax's gelu is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "elu": F.elu, "selu": F.selu, "swish": F.silu, "silu": F.silu,
+    "leaky_relu": F.leaky_relu, "relu6": lambda x: torch.clamp(x, 0, 6),
+    "hard_sigmoid": lambda x: torch.clamp(0.2 * x + 0.5, 0.0, 1.0),
+    "tanh_shrink": lambda x: x - torch.tanh(x),
+    "softmin": lambda x: F.softmax(-x, dim=-1),
+    "log_sigmoid": F.logsigmoid,
+    "linear": lambda x: x, "identity": lambda x: x, None: lambda x: x,
+}
+
+
+def get_activation(act):
+    if callable(act):
+        return act
+    if act in _ACTIVATIONS:
+        return _ACTIVATIONS[act]
+    raise ValueError(f"unknown activation {act!r}")
+
+
+# ---------------- init helpers (keras init strings) ----------------
+#
+# Each fills a torch-layout tensor in place from the graph's generator.
+# Values never match flax's (its RNG is derived from module paths): parity
+# with the JAX package goes through convert.py, not through init.
+
+def _glorot_uniform(t: torch.Tensor, g: torch.Generator):
+    limit = math.sqrt(6.0 / (t.shape[0] + t.shape[-1]))
+    t.uniform_(-limit, limit, generator=g)
+
+
+_INITS: Dict[str, Callable[[torch.Tensor, torch.Generator], None]] = {
+    "glorot_uniform": _glorot_uniform,
+    "normal": lambda t, g: t.normal_(0.0, 0.05, generator=g),
+    # keras-1 'uniform' is symmetric U(-0.05, 0.05)
+    "uniform": lambda t, g: t.uniform_(-0.05, 0.05, generator=g),
+    "zero": lambda t, g: t.zero_(), "zeros": lambda t, g: t.zero_(),
+    "one": lambda t, g: t.fill_(1.0), "ones": lambda t, g: t.fill_(1.0),
+}
+
+
+def get_init(init):
+    if callable(init):
+        return init
+    if init in _INITS:
+        return _INITS[init]
+    raise ValueError(f"unknown init {init!r}")
+
+
+# ---------------- core layers ----------------
+
+class Dense(KerasLayer):
+    """(ref keras/layers/core.py Dense)"""
+
+    def __init__(self, output_dim: int, activation=None,
+                 init="glorot_uniform", bias: bool = True, input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self.output_dim = int(output_dim)
+        self.activation = get_activation(activation)
+        self.init = get_init(init)
+        self.bias = bias
+
+    def make_modules(self, in_shapes, generator):
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown; give the "
+                             "model's Input a shape")
+        lin = nn.Linear(int(s[-1]), self.output_dim, bias=self.bias)
+        with torch.no_grad():
+            self.init(lin.weight, generator)
+            if self.bias:
+                lin.bias.zero_()
+        return {self.name: lin}
+
+    def apply(self, modules, args, train):
+        lin = modules[self.name]
+        x = args[0]
+        if self.compute_dtype is None:
+            y = lin(x)
+        else:
+            cd = self.compute_dtype
+            y = F.linear(x.to(cd), lin.weight.to(cd),
+                         None if lin.bias is None else lin.bias.to(cd))
+        return self.activation(y)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (s[:-1] + (self.output_dim,)) if s else None
+
+
+class Activation(KerasLayer):
+    def __init__(self, activation, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = get_activation(activation)
+
+    def apply(self, modules, args, train):
+        return self.fn(args[0])
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class Dropout(KerasLayer):
+    def __init__(self, p: float, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.p = p
+
+    def apply(self, modules, args, train):
+        return F.dropout(args[0], self.p, training=train)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class Flatten(KerasLayer):
+    def apply(self, modules, args, train):
+        x = args[0]
+        return x.reshape(x.shape[0], -1)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (math.prod(s),) if s else None
+
+
+# ---------------- embeddings ----------------
+
+class _EmbedTable(nn.Module):
+    """Bare embedding-table parameter named ``embedding``, as in the flax
+    tree; ``forward`` returns the table itself so callers feed the fused
+    lookup kernel (ops/embedding_bag.py)."""
+
+    def __init__(self, vocab: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(vocab, features))
+
+    def forward(self):
+        return self.embedding
+
+
+class FusedEmbeddings(KerasLayer):
+    """N per-column embedding tables served by ONE fused lookup.
+
+    ``specs``: sequence of ``(table_name, vocab, dim)``. The input is
+    ``[batch, n_tables]`` ids (a float input is cast to int32 by
+    truncation) — ``ids[:, t]`` indexes table ``t`` — and the rows combine
+    per ``combine``: "concat" (side by side, the NCF-MLP pattern) or
+    "sum"/"mean"/"mul" (elementwise, equal dims; "mul" is the NCF GMF
+    branch). On CUDA the lookup is the kernel of ops/csrc/embedding_bag.cu.
+
+    Each table is a top-level module named ``table_name``, so the
+    ``state_dict`` carries the flax tree's names (``mlp_user_embed.
+    embedding``)."""
+
+    def __init__(self, specs, combine: str = "concat", init="uniform",
+                 zero_based_id: bool = True, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.specs = [(str(n), int(v), int(d)) for n, v, d in specs]
+        if not self.specs:
+            raise ValueError("FusedEmbeddings needs at least one table")
+        if combine not in ("concat", "sum", "mean", "mul"):
+            raise ValueError(f"unknown combine {combine!r}")
+        if combine != "concat":
+            dims = {d for _, _, d in self.specs}
+            if len(dims) != 1:
+                raise ValueError(f"combine={combine!r} needs equal dims, "
+                                 f"got {sorted(dims)}")
+        self.combine = combine
+        self.init = get_init(init)
+        self.zero_based_id = zero_based_id
+
+    def make_modules(self, in_shapes, generator):
+        mods = {}
+        for tname, vocab, dim in self.specs:
+            table = _EmbedTable(vocab, dim)
+            with torch.no_grad():
+                self.init(table.embedding, generator)
+            mods[tname] = table
+        return mods
+
+    def apply(self, modules, args, train):
+        from analytics_zoo_tpu_torch.ops.embedding_bag import (
+            fused_embedding_lookup,
+        )
+        ids = args[0].to(torch.int32)
+        if not self.zero_based_id:
+            ids = ids - 1
+        tables = []
+        for tname, _, _ in self.specs:
+            t = modules[tname]()
+            if self.compute_dtype is not None:
+                t = t.to(self.compute_dtype)
+            tables.append(t)
+        return fused_embedding_lookup(tables, ids, combine=self.combine)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        d = (sum(d for _, _, d in self.specs) if self.combine == "concat"
+             else self.specs[0][2])
+        return tuple(s[:-1]) + (d,)
+
+
+# ---------------- merge ----------------
+
+class Merge(KerasLayer):
+    """(ref keras/layers Merge mode=sum/mul/concat/ave/dot/max...)"""
+
+    def __init__(self, layers=None, mode: str = "sum", concat_axis: int = -1,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.mode = mode
+        self.concat_axis = concat_axis
+
+    def apply(self, modules, args, train):
+        m = self.mode
+        if m in ("sum", "add"):
+            out = args[0]
+            for a in args[1:]:
+                out = out + a
+            return out
+        if m == "sub":
+            return args[0] - args[1]
+        if m == "mul":
+            out = args[0]
+            for a in args[1:]:
+                out = out * a
+            return out
+        if m == "div":
+            return args[0] / args[1]
+        if m in ("ave", "avg"):
+            return sum(args) / len(args)
+        if m == "max":
+            return torch.stack(args).amax(0)
+        if m == "min":
+            return torch.stack(args).amin(0)
+        if m == "concat":
+            return torch.cat(args, dim=self.concat_axis)
+        if m == "dot":
+            return torch.sum(args[0] * args[1], dim=-1, keepdim=True)
+        if m == "cos":
+            a = args[0] / torch.linalg.norm(args[0], dim=-1, keepdim=True)
+            b = args[1] / torch.linalg.norm(args[1], dim=-1, keepdim=True)
+            return torch.sum(a * b, dim=-1, keepdim=True)
+        raise ValueError(f"unknown merge mode {m!r}")
+
+    def _infer_shape(self, in_shapes):
+        # the flax layer infers no shape; the port needs one so a Dense
+        # after a merge knows its input width when modules are built
+        if any(s is None for s in in_shapes):
+            return None
+        if self.mode == "concat":
+            nd = len(in_shapes[0])
+            # a positive axis counts the batch dimension, shapes do not
+            ax = self.concat_axis + nd if self.concat_axis < 0 \
+                else self.concat_axis - 1
+            out = list(in_shapes[0])
+            out[ax] = sum(s[ax] for s in in_shapes)
+            return tuple(out)
+        if self.mode in ("dot", "cos"):
+            return tuple(in_shapes[0][:-1]) + (1,)
+        return tuple(in_shapes[0])
+
+
+def merge_op(mode: str, concat_axis: int = -1) -> Merge:
+    return Merge(mode=mode, concat_axis=concat_axis)
+
+
+def merge(inputs: List[Node], mode: str = "sum", concat_axis: int = -1
+          ) -> Node:
+    """Functional merge (ref pyzoo keras merge())."""
+    return Merge(mode=mode, concat_axis=concat_axis)(inputs)

@@ -1,0 +1,7 @@
+"""Model zoo (ref ``zoo/.../models/`` + ``pyzoo/zoo/models/``): the
+models ported so far."""
+
+from analytics_zoo_tpu_torch.models.common import ZooModel, registry
+from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+
+__all__ = ["ZooModel", "registry", "NeuralCF"]
