@@ -10,12 +10,17 @@ Entry points (``InferenceModel``, ``ClusterServing``, model ``predict``)
 run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA
 and without an explicit CPU device they raise.
 
-Subpackages ported so far (the NCF serving slice):
+Subpackages ported so far (the NCF and BERT serving slices):
 
-- ``common``    — device resolution, the batch-bucket ladder
-- ``ops``       — the fused embedding lookup kernel and its build
-- ``keras``     — graph engine, the layers NCF uses, ``Model``/``Sequential``
+- ``common``    — device resolution, the batch-bucket ladder, the flax
+  layers the models build on (``flax_compat``)
+- ``ops``       — the fused embedding lookup and flash-attention forward
+  kernels and their build, attention
+- ``keras``     — graph engine, the layers NCF and BERT use,
+  ``Model``/``Sequential``
 - ``models``    — ``ZooModel`` and ``NeuralCF``
+- ``text``      — BERT, the GPT-style transformer, the task heads, the
+  HuggingFace weight import
 - ``inference`` — ``InferenceModel``
 - ``serving``   — broker, wire schema, ``InputQueue``/``OutputQueue``,
   ``ClusterServing``

@@ -7,6 +7,8 @@ passes ``device="cpu"``), shared by all callers; a semaphore bounds
 in-flight predicts at ``concurrent_num``, the reference's backpressure.
 
 - ``load_zoo(model)`` / ``load(path)`` — a zoo keras model or ZooModel
+- ``load_torch(module, sample_input)`` — any ``nn.Module`` of the port
+  (e.g. the BERT classifier of ``text/estimators.py``)
 - ``predict`` — chunked batch predict; with a bucket ladder the tail
   chunk pads to its nearest rung
 - ``predict_async`` / ``predict_fetch`` — the serving engine's staged
@@ -66,6 +68,19 @@ class InferenceModel:
         """Load a saved ZooModel directory (ref doLoadBigDL from file)."""
         from analytics_zoo_tpu_torch.models.common import ZooModel
         return self.load_zoo(ZooModel.load_model(path))
+
+    def load_torch(self, module: torch.nn.Module, sample_input
+                   ) -> "InferenceModel":
+        """Load a PyTorch module of the port (ref doLoadPyTorch,
+        InferenceModel.scala:249; the counterpart of the JAX package's
+        ``load_flax``). ``sample_input`` (an array or a tuple of arrays)
+        fixes how many inputs ``predict`` feeds the module. The module is
+        copied, so later changes to it do not reach this model."""
+        copy_ = copy.deepcopy(module).to(self.device).eval()
+        with self._lock:
+            self._module = copy_
+            self._n_inputs = len(_as_tuple(sample_input))
+        return self
 
     def set_ladder(self, ladder, max_batch_size: Optional[int] = None
                    ) -> "InferenceModel":

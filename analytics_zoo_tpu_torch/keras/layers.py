@@ -1,12 +1,15 @@
-"""zoo-Keras layers on PyTorch — the ones the NCF slice uses.
+"""zoo-Keras layers on PyTorch — the ones the NCF and BERT slices use.
 
 Counterpart of ``analytics_zoo_tpu/keras/layers.py``: the activation
 table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Merge`` /
-``merge`` and ``FusedEmbeddings`` over ``_EmbedTable``. Layers are config
-objects; execution happens inside the one ``GraphModule`` (engine.py).
-Parameter names follow the flax tree: ``<dense>.weight`` / ``.bias``
-(``nn.Linear``, the flax kernel transposed) and ``<table>.embedding``.
-The rest of the layer library waits for later slices.
+``merge``, ``FusedEmbeddings`` over ``_EmbedTable``,
+``LayerNormalization``, ``MultiHeadAttention``, ``TransformerLayer`` and
+``BERT``. Layers are config objects; execution happens inside the one
+``GraphModule`` (engine.py). Parameter names follow the flax tree:
+``<dense>.weight`` / ``.bias`` (``nn.Linear``, the flax kernel
+transposed), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``)
+and the submodule names of text/bert.py under the layer's name. The rest
+of the layer library waits for later slices.
 """
 
 from __future__ import annotations
@@ -105,11 +108,13 @@ class Dense(KerasLayer):
         self.bias = bias
 
     def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.common import flax_compat
         s = in_shapes[0]
         if not s or s[-1] is None:
             raise ValueError(f"{self.name}: input width unknown; give the "
                              "model's Input a shape")
-        lin = nn.Linear(int(s[-1]), self.output_dim, bias=self.bias)
+        lin = flax_compat.Dense(int(s[-1]), self.output_dim, bias=self.bias,
+                                dtype=self.compute_dtype)
         with torch.no_grad():
             self.init(lin.weight, generator)
             if self.bias:
@@ -117,15 +122,7 @@ class Dense(KerasLayer):
         return {self.name: lin}
 
     def apply(self, modules, args, train):
-        lin = modules[self.name]
-        x = args[0]
-        if self.compute_dtype is None:
-            y = lin(x)
-        else:
-            cd = self.compute_dtype
-            y = F.linear(x.to(cd), lin.weight.to(cd),
-                         None if lin.bias is None else lin.bias.to(cd))
-        return self.activation(y)
+        return self.activation(modules[self.name](args[0]))
 
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]
@@ -314,3 +311,145 @@ def merge(inputs: List[Node], mode: str = "sum", concat_axis: int = -1
           ) -> Node:
     """Functional merge (ref pyzoo keras merge())."""
     return Merge(mode=mode, concat_axis=concat_axis)(inputs)
+
+
+# ---------------- normalization ----------------
+
+def _seed_from(generator: torch.Generator) -> int:
+    """A numpy seed drawn from the graph's generator."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+
+
+class LayerNormalization(KerasLayer):
+    def __init__(self, epsilon: float = 1e-6, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.epsilon = epsilon
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.common.flax_compat import LayerNorm
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown")
+        return {self.name: LayerNorm(int(s[-1]), eps=self.epsilon,
+                                     dtype=self.compute_dtype)}
+
+    def apply(self, modules, args, train):
+        return modules[self.name](args[0])
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+# ---------------- attention / transformer / BERT ----------------
+
+class MultiHeadAttention(KerasLayer):
+    """Dot-product multi-head attention (ref pyzoo self_attention.py /
+    Scala TransformerLayer.scala:56) over ops/attention.py. Call on
+    ``[q]``, ``[q, kv]`` or ``[q, kv, mask]``."""
+
+    def __init__(self, num_heads: int, head_dim: int, dropout: float = 0.0,
+                 causal: bool = False, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.dropout, self.causal = dropout, causal
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.ops.attention import AttentionModule
+        from analytics_zoo_tpu_torch.text.bert import init_bert_weights
+        q = in_shapes[0]
+        kv = in_shapes[1] if len(in_shapes) > 1 else q
+        if not q or not kv or q[-1] is None or kv[-1] is None:
+            raise ValueError(f"{self.name}: input widths unknown")
+        module = AttentionModule(
+            num_heads=self.num_heads, head_dim=self.head_dim,
+            q_features=int(q[-1]), kv_features=int(kv[-1]),
+            dropout=self.dropout, causal=self.causal,
+            dtype=self.compute_dtype)
+        return {self.name: init_bert_weights(module, _seed_from(generator))}
+
+    def apply(self, modules, args, train):
+        q = args[0]
+        kv = args[1] if len(args) > 1 else q
+        mask = args[2] if len(args) > 2 else None
+        return modules[self.name](q, kv, mask=mask, train=train)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class TransformerLayer(KerasLayer):
+    """GPT-style causal transformer over token ids
+    (ref zoo/.../keras/layers/TransformerLayer.scala:56). Input: [b, L]
+    token ids; output: [b, L, hidden_size]."""
+
+    def __init__(self, vocab: int, hidden_size: int = 768, n_block: int = 12,
+                 n_head: int = 12, seq_len: int = 512,
+                 hidden_drop: float = 0.1, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.vocab, self.hidden_size = vocab, hidden_size
+        self.n_block, self.n_head = n_block, n_head
+        self.seq_len, self.hidden_drop = seq_len, hidden_drop
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (None if s is None else s[0], self.hidden_size) \
+            if s and len(s) == 1 else (s + (self.hidden_size,) if s else None)
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.text.bert import (TransformerModule,
+                                                       init_bert_weights)
+        module = TransformerModule(
+            vocab=self.vocab, hidden_size=self.hidden_size,
+            n_block=self.n_block, n_head=self.n_head,
+            hidden_drop=self.hidden_drop, max_position_len=self.seq_len,
+            dtype=self.compute_dtype)
+        return {self.name: init_bert_weights(module, _seed_from(generator))}
+
+    def apply(self, modules, args, train):
+        return modules[self.name](args[0], train=train)
+
+
+class BERT(KerasLayer):
+    """BERT encoder layer (ref zoo/.../keras/layers/BERT.scala:66).
+
+    Call on ``[ids]`` or ``[ids, token_types, mask]`` nodes. ``output``:
+    ``"pooled"`` (default, [b, hidden]) or ``"sequence"`` ([b, L,
+    hidden]). Attention auto-selects (``use_flash=None``), as in the JAX
+    layer.
+    """
+
+    def __init__(self, vocab: int = 30522, hidden_size: int = 768,
+                 n_block: int = 12, n_head: int = 12,
+                 intermediate_size: int = 3072, max_position_len: int = 512,
+                 hidden_drop: float = 0.1, attn_drop: float = 0.1,
+                 output: str = "pooled", input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        from analytics_zoo_tpu_torch.text.bert import BertConfig
+        if output not in ("pooled", "sequence"):
+            raise ValueError("output must be 'pooled' or 'sequence'")
+        self.config = BertConfig(
+            vocab=vocab, hidden_size=hidden_size, n_block=n_block,
+            n_head=n_head, intermediate_size=intermediate_size,
+            max_position_len=max_position_len, hidden_drop=hidden_drop,
+            attn_drop=attn_drop, dtype=self.compute_dtype)
+        self.output = output
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if self.output == "pooled":
+            return (self.config.hidden_size,)
+        return (None if s is None else s[0], self.config.hidden_size)
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.text.bert import (BertModule,
+                                                       init_bert_weights)
+        module = BertModule(self.config)
+        return {self.name: init_bert_weights(
+            module, _seed_from(generator), self.config.initializer_range)}
+
+    def apply(self, modules, args, train):
+        ids = args[0]
+        seg = args[1] if len(args) > 1 else None
+        mask = args[2] if len(args) > 2 else None
+        seq, pooled = modules[self.name](ids, seg, mask, train=train)
+        return pooled if self.output == "pooled" else seq

@@ -28,11 +28,20 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: kernel library name -> source file under ops/csrc
-SOURCES = {"embedding_bag": "embedding_bag.cu"}
+SOURCES = {"embedding_bag": "embedding_bag.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+#: flags of one library on top of NVCC_FLAGS. The lookup is held bitwise
+#: to its plain version, so nvcc may not contract its adds into FMAs;
+#: attention is held to a tolerance and needs the FMA rate.
+EXTRA_FLAGS = {"embedding_bag": ("--fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 #: nvcc's output of each library built by this process (registers, spills)
 build_logs: Dict[str, str] = {}
@@ -95,7 +104,8 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -113,7 +123,8 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     procs = []
     for name, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
+               str(_CSRC / SOURCES[name])]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -1,0 +1,258 @@
+"""Flash attention, forward, in PyTorch and CUDA.
+
+Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
+
+- ``blockwise_attention`` — chunked online-softmax attention in plain
+  PyTorch, the path the JAX package takes off the TPU. It mirrors the JAX
+  function op for op, down to its scale in q's dtype (bf16 rounds the
+  scores there).
+- ``flash_attention`` / ``flash_attention_with_lse`` — on a CUDA tensor
+  they launch the kernel of ``csrc/flash_attention.cu`` (which replaces
+  the Pallas ``_flash_fwd_kernel``) or raise; for tensors on the CPU they
+  run its plain version ``_flash_fwd_ref``. Forward only: the backward
+  kernels come with the training slice (ROADMAP B4, B5), so a CUDA call
+  whose inputs require grad raises.
+- ``default_use_flash`` — the auto-select the sequence-parallel
+  compositions use, with the CUDA device where the JAX code asks for the
+  TPU.
+
+All take the public layout ``[b, s, h, d]``; the lse is ``[b*h, sq]``
+fp32. The kernel reads q, k and v through their strides (the head dim
+must be contiguous), so the slices of a packed QKV projection need no
+copy. Masked keys follow the Pallas kernel: scores of -1e30, bottom-right
+causal with offset ``sk - sq``, and keys past ``sk`` masked in the ragged
+tail. A row that sees no key at all gives zeros (see the source's note).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from analytics_zoo_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+#: largest head dim the kernel takes
+MAX_HEAD_DIM = 128
+#: keys per tile of the kernel (kBK in csrc/flash_attention.cu)
+BLOCK_K = 64
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+#: launches of the CUDA kernel (the plain version never counts)
+launches = _build.launch_counter("flash_attention_fwd")
+
+
+def ceil_to(x: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``x``."""
+    return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------- blockwise
+
+def blockwise_attention(q, k, v, causal: bool = False, block_k: int = 128,
+                        return_lse: bool = False):
+    """q, k, v: [b, s, h, d] -> [b, s, h, d]; O(s*block_k) memory.
+    ``return_lse``: also return the per-row logsumexp as [b*h, s] fp32."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    block_k = min(block_k, sk)
+    nk = (sk + block_k - 1) // block_k
+    pad = nk * block_k - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    # 1 / sqrt(d) in q's dtype: sqrt in fp32, cast, then the reciprocal
+    root = torch.tensor(np.float32(np.sqrt(d)), dtype=q.dtype,
+                        device=q.device)
+    scale = 1.0 / root
+    q_pos = torch.arange(sq, device=q.device)
+    causal_off = sk - sq
+    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for kb in range(nk):
+        k_blk = k[:, kb * block_k:(kb + 1) * block_k]
+        v_blk = v[:, kb * block_k:(kb + 1) * block_k]
+        s = (torch.einsum("bqhd,bkhd->bhqk", q, k_blk) * scale).float()
+        k_pos = kb * block_k + torch.arange(block_k, device=q.device)
+        valid = k_pos < sk
+        if causal:
+            valid = valid[None, :] & (k_pos[None, :]
+                                      <= q_pos[:, None] + causal_off)
+            s = torch.where(valid[None, None], s, NEG_INF)
+        else:
+            s = torch.where(valid[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                               v_blk.float())
+        m = m_new
+    l_fin = torch.clamp(l, min=1e-37)
+    out = (o / l_fin[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l_fin)).reshape(b * h, sq)
+    return out
+
+
+def default_use_flash(seq: int, head_dim: int, block: int = 128) -> bool:
+    """Auto-select for the sequence-parallel compositions (ring /
+    Ulysses): the kernel when a CUDA device is present, the sequence fills
+    at least one block and the head dim fits the kernel."""
+    return (torch.cuda.is_available() and seq >= block
+            and head_dim <= MAX_HEAD_DIM)
+
+
+# ---------------------------------------------------------- plain version
+
+def _check(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash attention takes [b, s, h, d] q, k and v")
+    if k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[2:] != k.shape[2:]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit [b, s, h, d]")
+    if k.shape[1] == 0:
+        raise ValueError("flash attention needs at least one key")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must live on one device")
+
+
+def _flash_fwd_ref(q, k, v, causal: bool = False, return_lse: bool = False,
+                   block_k: int = BLOCK_K):
+    """The kernel's arithmetic in plain PyTorch, over the same key tiles
+    of ``block_k`` (the Pallas kernel's are 128): fp32 scores of the
+    widened inputs times an fp32 scale, masked scores of -1e30 with p = 0,
+    an online softmax whose p is rounded to v's dtype at the running
+    maximum before P.V, fp32 sums, the sum floored at 1e-37, output in q's
+    dtype. Only the order of the fp32 sums and the last bit of exp differ
+    from the kernel's."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    sm_scale = float(np.float32(1.0 / math.sqrt(d)))
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    q_pos = torch.arange(sq, device=q.device)
+    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, block_k):
+        k_blk, v_blk = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = torch.matmul(qf, k_blk.transpose(-1, -2)) * sm_scale
+        masked = None
+        if causal:
+            k_pos = k0 + torch.arange(k_blk.shape[2], device=q.device)
+            masked = k_pos[None, :] > q_pos[:, None] + (sk - sq)
+            s = torch.where(masked, NEG_INF, s)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        if masked is not None:
+            p = torch.where(masked, 0.0, p)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.matmul(p.to(v.dtype).float(), v_blk)
+        m = m_new
+    l_fin = torch.clamp(l, min=1e-37)
+    out = (o / l_fin[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l_fin)).reshape(b * h, sq)
+    return out
+
+
+# ----------------------------------------------------------------- kernel
+
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        lib = _build.load("flash_attention")
+        lib.zoo_flash_fwd.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 9
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.zoo_flash_fwd.restype = ctypes.c_int
+        lib.zoo_flash_error_string.argtypes = [ctypes.c_int]
+        lib.zoo_flash_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, return_lse: bool):
+    """Launch the CUDA kernel on the tensors' device and current stream."""
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"flash attention kernel takes float32/bfloat16, "
+                        f"got {q.dtype}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    # the kernel walks b, s and h by stride; the head dim must be dense
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    dev = q.device
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=dev) \
+        if return_lse else None
+    if b * h * sq == 0:
+        return (out, lse) if return_lse else out
+    sm_scale = float(np.float32(1.0 / math.sqrt(d)))
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.zoo_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, sq, sk, d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            int(causal), sm_scale, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError("flash attention kernel launch failed: "
+                           + lib.zoo_flash_error_string(err).decode())
+    launches.add()
+    return (out, lse) if return_lse else out
+
+
+# ------------------------------------------------------------- dispatcher
+
+def _flash_fwd(q, k, v, causal: bool, return_lse: bool):
+    _check(q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return _flash_fwd_ref(q, k, v, causal, return_lse)
+    if dev.type == "cuda":
+        if any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash attention on CUDA is forward only: its backward "
+                "kernels come with the BERT fine-tuning slice (ROADMAP B4, "
+                "B5); run under torch.inference_mode() or no_grad()")
+        return _flash_fwd_cuda(q, k, v, causal, return_lse)
+    raise ValueError(f"no flash attention for device {dev}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """Attention of q [b, sq, h, d] over k, v [b, sk, h, d] -> [b, sq, h, d]
+    in q's dtype. CUDA tensors launch the kernel (its own 64 x 64 tile),
+    CPU tensors run the plain version."""
+    return _flash_fwd(q, k, v, causal, False)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like ``flash_attention`` but also returns the per-row logsumexp
+    ([b*h, sq] fp32), what ring attention merges its partial softmaxes
+    with."""
+    return _flash_fwd(q, k, v, causal, True)

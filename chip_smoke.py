@@ -6,11 +6,19 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. card    — name and power limit, from nvidia-smi
-2. build   — nvcc builds every CUDA kernel from ops/csrc into build/kernels
+2. build   — nvcc builds every CUDA kernel from ops/csrc into build/kernels,
+             one nvcc per source, all started together
 3. kernels — each kernel against its plain PyTorch version on the same
-             CUDA tensors, bitwise (NaN rows compare as NaN), at the main
-             path's shapes plus a ragged batch; kernel, plain and one-call
-             library times (CUDA events) beside the device-memory bound
+             CUDA tensors, at the main paths' shapes plus ragged ones,
+             with kernel, plain and one-call library times (CUDA events)
+             beside the least time the card could take:
+             - the fused lookup, bitwise (NaN rows compare as NaN)
+             - flash attention forward, fp32 within FLASH_ATOL, bf16
+               within FLASH_BF16_* (two faulty controls must fail that
+               limit): BERT-Base's shape (b 32, s 512, h 12, d 64, q/k/v
+               strided views of the packed projection), causal s 512,
+               ragged s 500, causal sq 128 over sk 512, and one case with
+               the lse
 4. slice   — NeuralCF at MovieLens-1M width (6040 users, 3706 items, 5
              classes, embeddings of 20, hidden (40, 20, 10), GMF 20), with
              weights drawn from a numpy seed, served by
@@ -19,11 +27,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. serving — the Python broker + ClusterServing answer a burst of records
              and a run of single requests; every result is held against
              the direct predict
+6. BERT    — the BERT-Base, Uncased classifier (2 classes, use_flash=True,
+             weights drawn from a numpy seed) predicts 32 x 512 tokens
+             through InferenceModel(device="cuda").load_torch, fp32 with
+             TF32 off: held against the same weights with use_flash=False
+             (the einsum chain on cuBLAS) over the whole batch and against
+             the CPU on 2 rows; then bf16 against its own use_flash=False
+7. BERT serving — a burst of 128 records at batch 32 and 20 single
+             requests of int32 input_ids / token_type_ids through the
+             Python broker + ClusterServing; every answer equals predict
 
-Launch counts are reset right before phase 4 and read right after phase 5:
-every kernel of the path must have launched there. The second-to-last
-line is the kernels JSON, the last ``{"ok": true, "device": {...}}``.
-Details go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
+Launch counts are set to 0 right before each path (phases 4-5, the NCF
+path; phases 6-7, the BERT path) and read right after it: every kernel of
+the path must have launched there. The second-to-last line is the kernels
+JSON, the last ``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +54,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 NCF = dict(user_count=6040, item_count=3706, class_num=5, user_embed=20,
            item_embed=20, hidden_layers=(40, 20, 10), include_mf=True,
            mf_embed=20)
@@ -46,6 +65,32 @@ SLICE_ATOL = 1e-5   # fp32 GEMMs sum in another order on cuBLAS than on CPU
 N_BURST = 512
 N_SINGLE = 100
 SERVE_BATCH = 256
+# BERT-Base, Uncased (google-research/bert uncased_L-12_H-768_A-12): the
+# defaults of BertConfig; 2-class head, full-length inputs, no mask
+BERT_VOCAB = 30522
+BERT_BATCH = 32
+BERT_LEN = 512
+BERT_CLASSES = 2
+BERT_CPU_ROWS = 2
+BERT_BURST = 128
+BERT_SINGLE = 20
+# fp32: cuBLAS and the CPU sum in other orders (CPU estimate at 2-4 blocks:
+# 2e-7 between flash and the einsum chain on logits of ~0.3)
+BERT_ATOL = 1e-4
+# bf16: the kernel keeps fp32 scores where the einsum chain rounds scores
+# and probabilities to bf16 (CPU estimate at 2-4 blocks: 1e-3 to 2e-3)
+BERT_BF16_ATOL = 5e-2
+# kernel vs plain, which rounds at the same points over the same key tiles:
+# fp32 sums in another order
+FLASH_ATOL = 1e-5
+# bf16: |kernel - plain| <= atol + FLASH_BF16_ULPS bf16 ulps of the plain
+# value everywhere (a rounding flip is one ulp; atol covers the fp32 sums
+# near zero), and at most FLASH_BF16_SHARE of the elements differ at all.
+# The two controls (p left unrounded; the output truncated) must fail it.
+FLASH_BF16_ULPS = 2
+FLASH_BF16_ATOL = 1e-5
+FLASH_BF16_SHARE = 1e-2
+LSE_ATOL = 1e-5
 
 
 def log(msg: str):
@@ -100,6 +145,43 @@ def max_abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs()[ok].max())
 
 
+def bf16_reading(got, want):
+    """(largest |got - want| over its bf16 limit, share of elements that
+    differ): within the limit when the first is <= 1 and the second <=
+    FLASH_BF16_SHARE."""
+    import torch
+    g, w = got.float(), want.float()
+    # one bf16 ulp of w: |w| in [2^(e-1), 2^e) has 7 stored bits below
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    ulp = torch.where(w == 0, 0.0, ulp)
+    ratio = (g - w).abs() / (FLASH_BF16_ATOL + FLASH_BF16_ULPS * ulp)
+    return float(ratio.max()), float((got != want).float().mean())
+
+
+def bf16_within(reading) -> bool:
+    return reading[0] <= 1.0 and reading[1] <= FLASH_BF16_SHARE
+
+
+def truncate_to_bf16(x):
+    """fp32 ``x`` rounded toward zero to bf16 (a wrong rounding mode)."""
+    import torch
+    return (x.view(torch.int32) & -65536).view(torch.float32).to(
+        torch.bfloat16)
+
+
+def bf16_controls(fa, q, k, v, causal, want):
+    """Readings of two faulty versions of the bf16 kernel against the
+    plain version; each must fail the bf16 limit."""
+    import torch
+    controls = {
+        "p_unrounded": fa._flash_fwd_ref(q.float(), k.float(), v.float(),
+                                         causal).to(torch.bfloat16),
+        # v stays bf16, so p still rounds; the fp32 output is truncated
+        "output_truncated": truncate_to_bf16(
+            fa._flash_fwd_ref(q.float(), k.float(), v, causal))}
+    return {name: bf16_reading(c, want) for name, c in controls.items()}
+
+
 def lookup_bound(tables, ids, combine):
     """Least time for one fused lookup: bytes it must move (ids read,
     each distinct valid row gathered once, output written) over the
@@ -134,6 +216,125 @@ def library_call(tables, ids, combine):
     for r in rows[1:]:
         acc = acc * r if combine == "mul" else acc + r
     return acc / len(rows) if combine == "mean" else acc
+
+
+def attention_bound(b, sq, sk, h, d, causal, dtype, with_lse):
+    """Least time for one attention forward: the q/k/v/o (and lse) bytes
+    over the memory rate, or 4*d flops per visible (query, key) pair over
+    the rate of the dtype (fp32 CUDA cores, bf16 tensor cores)."""
+    import torch
+    item = torch.empty((), dtype=dtype).element_size()
+    moved = (2 * b * sq + 2 * b * sk) * h * d * item
+    moved += 4 * b * h * sq if with_lse else 0
+    if causal:      # bottom-right: row i sees keys <= i + sk - sq
+        rows = torch.arange(sq) + (sk - sq) + 1
+        pairs = int(rows.clamp(0, sk).sum())
+    else:
+        pairs = sq * sk
+    flops = 4 * b * h * pairs * d
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def sdpa_call(q, k, v, causal):
+    """One-call PyTorch yardstick (timed only, never used by the port):
+    scaled_dot_product_attention with the same bottom-right causal mask."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not causal:
+        return F.scaled_dot_product_attention(qt, kt, vt)
+    if sq == sk:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=causal_lower_right(sq, sk))
+
+
+def phase_flash(torch, fa):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    b, h, d = BERT_BATCH, 12, 64
+    # (name, sq, sk, causal, packed, with_lse)
+    shapes = [("bert_base", BERT_LEN, BERT_LEN, False, True, False),
+              ("causal", BERT_LEN, BERT_LEN, True, False, False),
+              ("ragged", 500, 500, False, False, False),
+              ("causal_cross", 128, BERT_LEN, True, False, False),
+              ("bert_base_lse", BERT_LEN, BERT_LEN, False, True, True)]
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, sq, sk, causal, packed, with_lse in shapes:
+            if packed:
+                # q, k, v as the packed projection hands them over
+                qkv = torch.randn(b, sq, 3, h, d, generator=gen).to(dev,
+                                                                    dtype)
+                q, k, v = qkv.unbind(2)
+            else:
+                q = torch.randn(b, sq, h, d, generator=gen).to(dev, dtype)
+                k, v = (torch.randn(b, sk, h, d, generator=gen).to(dev, dtype)
+                        for _ in range(2))
+            if with_lse:
+                got, lse = fa.flash_attention_with_lse(q, k, v, causal)
+                want, want_lse = fa._flash_fwd_ref(q, k, v, causal, True)
+            else:
+                got = fa.flash_attention(q, k, v, causal)
+                want = fa._flash_fwd_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            reading = controls = None
+            if dtype == torch.float32:
+                ok = err <= FLASH_ATOL
+                limit = f"atol {FLASH_ATOL}"
+            else:
+                reading = bf16_reading(got, want)
+                ok = bf16_within(reading)
+                limit = (f"{reading[0]:.3g} of the limit, share "
+                         f"{reading[1]:.3g}")
+                if name == "bert_base":
+                    controls = bf16_controls(fa, q, k, v, causal, want)
+                    log(f"  flash bf16 controls (limit, share): {controls}")
+            if not (ok and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"kernel != plain: flash {name} {dtype}"
+                                     f" max_abs_err={err} ({limit})")
+            for cname, creading in (controls or {}).items():
+                if bf16_within(creading):
+                    raise AssertionError(f"bf16 limit passes the faulty "
+                                         f"control {cname}: {creading}")
+            lse_err = None
+            if with_lse:
+                lse_err = max_abs_err(lse, want_lse)
+                if lse_err > LSE_ATOL:
+                    raise AssertionError(f"kernel lse != plain: {name} "
+                                         f"{dtype} {lse_err}")
+            bound, bound_by = attention_bound(b, sq, sk, h, d, causal, dtype,
+                                              with_lse)
+            if with_lse:
+                kernel = lambda: fa.flash_attention_with_lse(q, k, v, causal)
+                plain = lambda: fa._flash_fwd_ref(q, k, v, causal, True)
+            else:
+                kernel = lambda: fa.flash_attention(q, k, v, causal)
+                plain = lambda: fa._flash_fwd_ref(q, k, v, causal)
+            rec = dict(case=name, dtype=str(dtype), b=b, sq=sq, sk=sk, h=h,
+                       d=d, causal=causal, lse=with_lse, max_abs_err=err,
+                       bf16_reading=reading, bf16_controls=controls,
+                       lse_err=lse_err,
+                       ms=cuda_ms(kernel, iters=20),
+                       plain_ms=cuda_ms(plain, iters=20),
+                       library_ms=cuda_ms(lambda: sdpa_call(q, k, v, causal),
+                                          iters=20),
+                       bound_ms=bound, bound_by=bound_by)
+            results.append(rec)
+            log(f"  flash {name:14s} {str(dtype):15s} sq{sq} sk{sk} "
+                f"max_abs_err {err:.3g} ({limit})  kernel "
+                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+                f"library {rec['library_ms']:.4f} ms  bound "
+                f"{bound:.4f} ms ({bound_by})")
+            del q, k, v, got, want
+    return results
 
 
 def phase_kernels(torch, eb):
@@ -211,6 +412,141 @@ def ncf_weights(module, seed: int):
     module.load_state_dict(state)
 
 
+def bert_inputs(rng, n):
+    """int32 input_ids over the whole vocab and token_type_ids that switch
+    from segment A to B at a random position; no mask."""
+    import numpy as np
+    ids = rng.randint(0, BERT_VOCAB, (n, BERT_LEN)).astype(np.int32)
+    cut = rng.randint(1, BERT_LEN, (n, 1))
+    seg = (np.arange(BERT_LEN)[None] >= cut).astype(np.int32)
+    return ids, seg
+
+
+def bert_classifier(state, **config):
+    """The 2-class BERT-Base classifier holding ``state`` (None: weights
+    drawn from the numpy seed)."""
+    from analytics_zoo_tpu_torch.text import BertConfig, init_bert_weights
+    from analytics_zoo_tpu_torch.text.estimators import _ClassifierModule
+    module = _ClassifierModule(BertConfig(**config), BERT_CLASSES)
+    if state is None:
+        return init_bert_weights(module, SEED)
+    module.load_state_dict(state)
+    return module
+
+
+def timed_predict(im, x, reps: int):
+    """(output, mean host ms per predict of the whole batch)."""
+    y = im.predict(x, batch_size=BERT_BATCH)           # warm up
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        im.predict(x, batch_size=BERT_BATCH)
+    return y, (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_bert(torch, np, InferenceModel, fa, kind):
+    """Phase 6. Returns (the fp32 InferenceModel, its predict of the
+    batch, the inputs, the report)."""
+    x = bert_inputs(np.random.RandomState(SEED), BERT_BATCH)
+    base = bert_classifier(None, use_flash=True)
+    state = base.state_dict()
+    sample = tuple(a[:BERT_CPU_ROWS] for a in x)
+    rep = {}
+
+    im = InferenceModel(device="cuda").load_torch(base, sample)
+    before = fa.launches.value
+    y, rep["predict_ms"] = timed_predict(im, x, reps=5)
+    rep["launches_per_predict"] = (fa.launches.value - before) / 6
+    if y.shape != (BERT_BATCH, BERT_CLASSES) or not np.isfinite(y).all():
+        raise AssertionError(f"bad BERT predict output {y.shape}")
+    y_chain = InferenceModel(device="cuda").load_torch(
+        bert_classifier(state, use_flash=False), sample).predict(
+        x, batch_size=BERT_BATCH)
+    rep["max_abs_diff_einsum"] = float(np.abs(y - y_chain).max())
+    y_cpu = InferenceModel(device="cpu").load_torch(base, sample).predict(
+        sample)
+    rep["max_abs_diff_cpu"] = float(np.abs(y[:BERT_CPU_ROWS] - y_cpu).max())
+    for what in ("einsum", "cpu"):
+        if rep[f"max_abs_diff_{what}"] > BERT_ATOL:
+            raise AssertionError(f"BERT fp32 predict vs {what}: "
+                                 f"{rep[f'max_abs_diff_{what}']}")
+    log(f"BERT-Base classifier fp32 predict {BERT_BATCH}x{BERT_LEN} on "
+        f"{kind}: {rep['predict_ms']:.3f} ms/call (host clock), "
+        f"{rep['launches_per_predict']:.0f} flash launches per predict; "
+        f"max |flash - einsum chain| = {rep['max_abs_diff_einsum']:.3g}, "
+        f"max |cuda - cpu| ({BERT_CPU_ROWS} rows) = "
+        f"{rep['max_abs_diff_cpu']:.3g} (atol {BERT_ATOL})")
+
+    bf16 = dict(dtype=torch.bfloat16)
+    y16, rep["bf16_predict_ms"] = timed_predict(
+        InferenceModel(device="cuda").load_torch(
+            bert_classifier(state, use_flash=True, **bf16), sample), x,
+        reps=5)
+    y16_chain = InferenceModel(device="cuda").load_torch(
+        bert_classifier(state, use_flash=False, **bf16), sample).predict(
+        x, batch_size=BERT_BATCH)
+    rep["bf16_max_abs_diff_einsum"] = float(np.abs(y16 - y16_chain).max())
+    rep["bf16_max_abs_diff_fp32"] = float(np.abs(y16 - y).max())
+    if not np.isfinite(y16).all() or \
+            rep["bf16_max_abs_diff_einsum"] > BERT_BF16_ATOL:
+        raise AssertionError(f"BERT bf16 flash vs einsum chain: "
+                             f"{rep['bf16_max_abs_diff_einsum']}")
+    log(f"BERT-Base classifier bf16 predict: {rep['bf16_predict_ms']:.3f} "
+        f"ms/call; max |flash - einsum chain| = "
+        f"{rep['bf16_max_abs_diff_einsum']:.3g} (atol {BERT_BF16_ATOL}), "
+        f"max |bf16 - fp32| = {rep['bf16_max_abs_diff_fp32']:.3g}")
+    return im, y, x, rep
+
+
+def phase_bert_serving(np, im, y, x, fa, serving_api, kind):
+    """Phase 7: burst and single requests; every answer equals predict."""
+    Broker, ClusterServing, InputQueue, OutputQueue = serving_api
+    ids, seg = x
+    before = fa.launches.value
+    with Broker.launch(backend="python") as broker, \
+            ClusterServing(im, broker.port, batch_size=BERT_BATCH) as serving:
+        iq = InputQueue(port=broker.port)
+        oq = OutputQueue(port=broker.port)
+        t0 = time.perf_counter()
+        uris = iq.enqueue_batch(
+            (f"b{i}", {"input_ids": ids[i % BERT_BATCH],
+                       "token_type_ids": seg[i % BERT_BATCH]})
+            for i in range(BERT_BURST))
+        got = oq.query_many(uris, timeout=300, poll_interval=0.002)
+        burst_s = time.perf_counter() - t0
+        lat = []
+        for i in range(BERT_SINGLE):
+            t1 = time.perf_counter()
+            uri = iq.enqueue(f"s{i}", input_ids=ids[i % BERT_BATCH],
+                             token_type_ids=seg[i % BERT_BATCH])
+            got[uri] = oq.query(uri, timeout=60, poll_interval=0.0005)
+            lat.append(time.perf_counter() - t1)
+        metrics = serving.metrics()
+        iq.close()
+        oq.close()
+    rows = {f"b{i}": i % BERT_BATCH for i in range(BERT_BURST)}
+    rows.update({f"s{i}": i % BERT_BATCH for i in range(BERT_SINGLE)})
+    worst = 0.0
+    for uri, i in rows.items():
+        if got.get(uri) is None:
+            raise AssertionError(f"no BERT result for {uri}")
+        worst = max(worst, float(np.abs(got[uri] - y[i]).max()))
+    if worst > BERT_ATOL:
+        raise AssertionError(f"served BERT result differs from predict: "
+                             f"{worst}")
+    served = fa.launches.value - before
+    if served <= 0:
+        raise AssertionError("BERT serving did not launch flash attention")
+    rep = dict(records_per_s=BERT_BURST / burst_s,
+               p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               max_abs_diff=worst, launches=served, metrics=metrics)
+    log(f"BERT serving on {kind}: {BERT_BURST} records in {burst_s:.3f} s "
+        f"= {rep['records_per_s']:.2f} records/s (batch {BERT_BATCH}); "
+        f"single-request p50 {rep['p50_ms']:.3f} ms over {BERT_SINGLE}; "
+        f"max |served - predict| = {worst:.3g}; flash launches while "
+        f"serving: {served}; {metrics}")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -223,6 +559,7 @@ def main() -> int:
     from analytics_zoo_tpu_torch.models import NeuralCF
     from analytics_zoo_tpu_torch.ops import _build
     from analytics_zoo_tpu_torch.ops import embedding_bag as eb
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
     from analytics_zoo_tpu_torch.serving import (Broker, ClusterServing,
                                                  InputQueue, OutputQueue)
 
@@ -245,12 +582,14 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     # 3. kernel vs plain
-    log("kernels vs plain (bitwise):")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("kernels vs plain (lookup bitwise):")
     cases = phase_kernels(torch, eb)
     report["kernel_cases"] = cases
+    flash_cases = phase_flash(torch, fa)
+    report["flash_cases"] = flash_cases
 
-    # 4. slice — the main path starts here
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # 4. slice — the NCF path starts here
     ncf = NeuralCF(**NCF)
     ncf_weights(ncf.model.module, SEED)
     rng = np.random.RandomState(SEED)
@@ -320,28 +659,53 @@ def main() -> int:
     report["serving"] = dict(records_per_s=rps, p50_ms=p50,
                              max_abs_diff=worst, launches=served,
                              metrics=metrics)
-    counts = _build.launch_counts()
-    if counts.get("fused_embedding_lookup", 0) <= 0:
-        raise AssertionError(f"main path launched no lookup kernel: {counts}")
+    ncf_counts = _build.launch_counts()
+    if ncf_counts.get("fused_embedding_lookup", 0) <= 0:
+        raise AssertionError(
+            f"NCF path launched no lookup kernel: {ncf_counts}")
 
-    # 6. kernels line: the NCF concat lookup at the predict shape
+    # 6. BERT slice, 7. BERT serving — the BERT path
+    _build.reset_launch_counts()
+    bert_im, bert_y, bert_x, report["bert"] = phase_bert(
+        torch, np, InferenceModel, fa, kind)
+    report["bert_serving"] = phase_bert_serving(
+        np, bert_im, bert_y, bert_x, fa,
+        (Broker, ClusterServing, InputQueue, OutputQueue), kind)
+    bert_counts = _build.launch_counts()
+    if bert_counts.get("flash_attention_fwd", 0) <= 0:
+        raise AssertionError(
+            f"BERT path launched no flash attention kernel: {bert_counts}")
+    report["launches"] = {"ncf": ncf_counts, "bert": bert_counts}
+
+    # kernels line: each kernel's times at its path's headline shape, its
+    # largest error over every case it was checked in
     head = next(c for c in cases if c["case"] == "ncf_concat"
                 and c["dtype"] == "torch.float32" and c["batch"] == BATCH)
+    fhead = next(c for c in flash_cases if c["case"] == "bert_base"
+                 and c["dtype"] == "torch.float32")
     kernels = {"kernels": [{
         "name": "fused_embedding_lookup", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/ops/csrc/embedding_bag.cu",
         "replaces": "analytics_zoo_tpu/ops/embedding_bag.py:102",
-        "launches": counts["fused_embedding_lookup"],
+        "launches": ncf_counts["fused_embedding_lookup"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]}
+        "library_ms": head["library_ms"]}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "analytics_zoo_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:156",
+        "launches": bert_counts["flash_attention_fwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
+        "ms": fhead["ms"], "plain_ms": fhead["plain_ms"],
+        "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
+        "library_ms": fhead["library_ms"]}]}
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(json.dumps(kernels))
-    # 7. result
+    # result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,16 +7,16 @@ with ``use_kernel=True``), for every combine, fp32 and bf16, mixed concat
 widths and ids out of range. "Bitwise" treats every NaN as one value: a
 NaN row's payload is not part of the contract. Inputs come from numpy
 seeds. The CUDA kernel against the plain version runs on the card only
-(marker ``cuda``).
+(marker ``cuda``). JAX is imported by a fixture, so on a machine without
+it (the GPU machine) the comparisons with JAX skip and the ``cuda`` tests
+run: ``python -m pytest --noconftest -m cuda
+tests/test_torch_embedding_bag.py``.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from analytics_zoo_tpu.ops import embedding_bag as jeb
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import embedding_bag as teb
 
@@ -56,7 +56,14 @@ def _ids(tables, batch=9, seed=1, out_of_range=False):
     return np.stack(cols, 1).astype(np.int32)
 
 
+@pytest.fixture(scope="module")
+def jeb():
+    """The JAX package's lookup module."""
+    return pytest.importorskip("analytics_zoo_tpu.ops.embedding_bag")
+
+
 def _jax(tables, dtype):
+    import jax.numpy as jnp
     jt = [jnp.asarray(t) for t in tables]
     return [t.astype(jnp.bfloat16) for t in jt] if dtype == "bf16" else jt
 
@@ -70,7 +77,7 @@ def _np(x):
     """Host float32 copy (bf16 widens exactly)."""
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
-    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+    return np.asarray(x.astype("float32"))
 
 
 def _assert_same_bits(got, want):
@@ -88,7 +95,8 @@ CASES = [("concat", [8, 16, 4]), ("concat", [20, 20]), ("sum", [8, 8, 8]),
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("combine,widths", CASES)
-def test_plain_matches_jax_reference_bitwise(combine, widths, dtype):
+def test_plain_matches_jax_reference_bitwise(jeb, combine, widths, dtype):
+    import jax.numpy as jnp
     tables = _tables(widths)
     ids = _ids(tables, batch=40, out_of_range=True)
     want = jeb._fused_ref(_jax(tables, dtype), jnp.asarray(ids), combine)
@@ -101,7 +109,9 @@ def test_plain_matches_jax_reference_bitwise(combine, widths, dtype):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("combine,widths", CASES)
-def test_plain_matches_jax_pallas_kernel_bitwise(combine, widths, dtype):
+def test_plain_matches_jax_pallas_kernel_bitwise(jeb, combine, widths,
+                                                 dtype):
+    import jax.numpy as jnp
     # the interpreted Pallas kernel clamps ids outside [-V, V) (the TPU
     # kernel never sees one): compare over the ids where it is defined,
     # negative wrapping ids included
@@ -114,7 +124,8 @@ def test_plain_matches_jax_pallas_kernel_bitwise(combine, widths, dtype):
     _assert_same_bits(got, want)
 
 
-def test_out_of_range_ids_follow_jnp_take():
+def test_out_of_range_ids_follow_jnp_take(jeb):
+    import jax.numpy as jnp
     table = np.arange(12, dtype=np.float32).reshape(6, 2)
     ids = np.array([0, 5, 6, -1, -6, -7, 100], np.int32)
     want = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(ids), axis=0))
@@ -124,7 +135,8 @@ def test_out_of_range_ids_follow_jnp_take():
     np.testing.assert_array_equal(want[3], table[5])  # -1 wraps
 
 
-def test_float_ids_truncate_like_astype():
+def test_float_ids_truncate_like_astype(jeb):
+    import jax.numpy as jnp
     tables = _tables([4, 4])
     ids = np.array([[1.7, 2.9], [0.2, 11.99]], np.float32)
     want = jeb._fused_ref(_jax(tables, "fp32"),

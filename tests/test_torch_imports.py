@@ -39,7 +39,10 @@ def test_importing_every_module_loads_no_jax():
                          check=True, capture_output=True, text=True,
                          timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "analytics_zoo_tpu_torch.serving.engine" in loaded
+    for mod in ("serving.engine", "ops.flash_attention", "ops.attention",
+                "text.bert", "text.estimators", "text.hf_import",
+                "common.flax_compat"):
+        assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -174,11 +174,12 @@ def test_cluster_serving_matches_direct_predict(broker):
 def test_malformed_records_get_error_results(broker):
     im = _model()
     x = _pairs(4)
+    iq, oq = InputQueue(port=broker.port), OutputQueue(port=broker.port)
+    # queued before serving starts, so all three arrive in one batch
+    uris = iq.enqueue_batch([("ok0", {"x": x[0]}), ("ok1", {"x": x[1]}),
+                             ("bad", {"x": np.ones(3, np.float32)})])
     with ClusterServing(im, broker.port, batch_size=8, block_ms=200) \
             as serving:
-        iq, oq = InputQueue(port=broker.port), OutputQueue(port=broker.port)
-        uris = iq.enqueue_batch([("ok0", {"x": x[0]}), ("ok1", {"x": x[1]}),
-                                 ("bad", {"x": np.ones(3, np.float32)})])
         res = oq.query_many(["ok0", "ok1"], timeout=30)
         assert all(res[u] is not None for u in ("ok0", "ok1"))
         with pytest.raises(ServingError, match="tensor shapes"):
