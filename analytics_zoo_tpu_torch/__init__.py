@@ -6,25 +6,29 @@ kernel of the JAX package becomes a kernel written by hand for Hopper
 (``ops/csrc``), built on first use. The package imports no jax, flax or
 optax and nothing of ``analytics_zoo_tpu``.
 
-Entry points (``InferenceModel``, ``ClusterServing``, model ``predict``)
-run on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA
-and without an explicit CPU device they raise.
+Entry points (``InferenceModel``, ``ClusterServing``, model ``predict``,
+``Estimator.from_torch``) run on ``cuda`` unless the caller passes
+``device="cpu"``; without CUDA and without an explicit CPU device they
+raise.
 
-Subpackages ported so far (the NCF and BERT serving slices):
+Subpackages ported so far (the NCF and BERT serving slices, BERT
+fine-tuning):
 
 - ``common``    — device resolution, the batch-bucket ladder, the flax
   layers the models build on (``flax_compat``)
 - ``ops``       — the fused embedding lookup and flash-attention forward
-  kernels and their build, attention
+  and backward kernels and their build, attention
+- ``data``      — fixed-shape minibatches in the JAX package's order
+- ``learn``     — ``Estimator.from_torch``, losses, metrics, optimizers
 - ``keras``     — graph engine, the layers NCF and BERT use,
   ``Model``/``Sequential``
 - ``models``    — ``ZooModel`` and ``NeuralCF``
-- ``text``      — BERT, the GPT-style transformer, the task heads, the
-  HuggingFace weight import
+- ``text``      — BERT, the GPT-style transformer, the task heads,
+  ``BERTClassifier``, the HuggingFace weight import
 - ``inference`` — ``InferenceModel``
 - ``serving``   — broker, wire schema, ``InputQueue``/``OutputQueue``,
   ``ClusterServing``
-- ``convert``   — flax parameter trees to torch state dicts
+- ``convert``   — flax parameter trees to torch state dicts and back
 """
 
 from analytics_zoo_tpu_torch.version import __version__  # noqa: F401

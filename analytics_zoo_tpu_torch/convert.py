@@ -1,4 +1,4 @@
-"""Turn the JAX package's parameters into the port's.
+"""Turn the JAX package's parameters into the port's, and back.
 
 ``flax_to_state_dict`` takes a flax parameter tree as numpy arrays (from
 ``jax.device_get(variables["params"])``) and returns the torch
@@ -15,9 +15,15 @@
 - ``scale`` (LayerNorm) -> ``weight``.
 - ``embedding`` stays ``[vocab, dim]``.
 
+``state_dict_to_flax`` is its inverse: the port's ``state_dict`` as a
+flax tree of numpy arrays, shaped like a given flax tree (a 2-D weight
+cannot say how its dims split into ``[in, h, d]``, so the tree's leaves
+give the shapes).
+
 flax derives its initial values from module paths, so the two packages
 never initialise alike: this is how tests make both compute the same
-function. Reading a saved ``state.msgpack`` checkpoint is later work.
+function, and compare the parameters after training. Reading a saved
+``state.msgpack`` checkpoint is later work (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -57,4 +63,25 @@ def flax_to_state_dict(params: Mapping, prefix: str = ""
             arr = arr.reshape(-1)
         out[f"{prefix}{_LEAVES[name]}"] = torch.tensor(
             np.ascontiguousarray(arr), dtype=torch.float32)
+    return out
+
+
+def state_dict_to_flax(state_dict: Mapping, like: Mapping, prefix: str = ""
+                       ) -> Dict:
+    """The inverse of ``flax_to_state_dict``: a flax ``params`` tree of
+    fp32 numpy arrays with the structure and leaf shapes of ``like`` (any
+    tree whose leaves have ``.shape``), filled from ``state_dict``."""
+    out: Dict = {}
+    for name, sub in like.items():
+        key = f"{prefix}{name}"
+        if isinstance(sub, Mapping):
+            out[name] = state_dict_to_flax(state_dict, sub, prefix=key + ".")
+            continue
+        if name not in _LEAVES:
+            raise KeyError(f"no torch counterpart for flax leaf {key!r}")
+        arr = state_dict[f"{prefix}{_LEAVES[name]}"].detach().cpu().float()
+        arr = arr.numpy()
+        if name == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        out[name] = np.ascontiguousarray(arr.reshape(tuple(sub.shape)))
     return out

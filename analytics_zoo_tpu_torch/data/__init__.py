@@ -1,0 +1,3 @@
+from analytics_zoo_tpu_torch.data.dataset import (  # noqa: F401
+    ShardedDataset, to_sharded_dataset,
+)

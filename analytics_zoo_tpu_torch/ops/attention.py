@@ -5,10 +5,11 @@ Counterpart of ``analytics_zoo_tpu/ops/attention.py``:
 - ``dot_product_attention`` — the flash path (``ops/flash_attention.py``)
   when asked for or when auto-select picks it, and only without a mask;
   otherwise the plain einsum chain ``_reference_attention``. On CUDA the
-  flash path launches the kernel with its own tile (there is no autotuner
+  flash path launches the forward kernel with its own tile and, under
+  autograd, the dq and dk/dv backward kernels (there is no autotuner
   yet, so no verdict: the port's autotuner will choose among kernels,
   never the plain chain). On the CPU it runs ``blockwise_attention``, as
-  the JAX package does off the TPU.
+  the JAX package does off the TPU, differentiated by autograd.
 - ``AttentionModule`` — head projections, attention, output projection,
   with the JAX parameter names: ``query`` / ``key`` / ``value`` hold
   ``weight [h*d, in]`` and ``bias [h*d]`` (the flax ``[in, h, d]`` kernel

@@ -1,4 +1,4 @@
-"""Flash attention, forward, in PyTorch and CUDA.
+"""Flash attention, forward and backward, in PyTorch and CUDA.
 
 Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
 
@@ -7,21 +7,26 @@ Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
   function op for op, down to its scale in q's dtype (bf16 rounds the
   scores there).
 - ``flash_attention`` / ``flash_attention_with_lse`` — on a CUDA tensor
-  they launch the kernel of ``csrc/flash_attention.cu`` (which replaces
-  the Pallas ``_flash_fwd_kernel``) or raise; for tensors on the CPU they
-  run its plain version ``_flash_fwd_ref``. Forward only: the backward
-  kernels come with the training slice (ROADMAP B4, B5), so a CUDA call
-  whose inputs require grad raises.
+  they launch the kernels of ``csrc/flash_attention.cu`` (the forward,
+  which replaces the Pallas ``_flash_fwd_kernel``) and, under autograd,
+  ``csrc/flash_attention_bwd.cu`` (dq and dk/dv, which replace
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), or raise; for
+  tensors on the CPU they run the plain versions ``_flash_fwd_ref`` and
+  ``_flash_bwd_ref``. When an input requires grad the call goes through a
+  ``torch.autograd.Function`` whose forward saves q, k, v, the output and
+  the lse; the lse output of ``flash_attention_with_lse`` is
+  differentiable (its cotangent ``glse`` folds into the softmax term).
 - ``default_use_flash`` — the auto-select the sequence-parallel
   compositions use, with the CUDA device where the JAX code asks for the
   TPU.
 
 All take the public layout ``[b, s, h, d]``; the lse is ``[b*h, sq]``
-fp32. The kernel reads q, k and v through their strides (the head dim
-must be contiguous), so the slices of a packed QKV projection need no
-copy. Masked keys follow the Pallas kernel: scores of -1e30, bottom-right
-causal with offset ``sk - sq``, and keys past ``sk`` masked in the ragged
-tail. A row that sees no key at all gives zeros (see the source's note).
+fp32. The kernels read q, k, v (and the output's cotangent) through their
+strides (the head dim must be contiguous), so the slices of a packed QKV
+projection need no copy. Masked keys follow the Pallas kernel: scores of
+-1e30, bottom-right causal with offset ``sk - sq``, and keys past ``sk``
+masked in the ragged tail. A row that sees no key at all gives zeros and
+zero gradients (see the sources' notes).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from analytics_zoo_tpu_torch.ops import _build
 
@@ -42,8 +48,10 @@ MAX_HEAD_DIM = 128
 BLOCK_K = 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-#: launches of the CUDA kernel (the plain version never counts)
+#: launches of the CUDA kernels (the plain versions never count)
 launches = _build.launch_counter("flash_attention_fwd")
+launches_bwd_dq = _build.launch_counter("flash_attention_bwd_dq")
+launches_bwd_dkv = _build.launch_counter("flash_attention_bwd_dkv")
 
 
 def ceil_to(x: int, m: int) -> int:
@@ -168,6 +176,72 @@ def _flash_fwd_ref(q, k, v, causal: bool = False, return_lse: bool = False,
     return out
 
 
+def _row_delta(o, do) -> torch.Tensor:
+    """Δ = rowsum(dO ⊙ O) in fp32 as [b*h, sq], from O in its stored
+    dtype; both backward versions take it from here, as the JAX package
+    computes it outside its kernels."""
+    b, sq, h, _ = o.shape
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(
+        b * h, sq)
+
+
+def _p_ds(q, k, v, lse, do, delta, causal: bool, glse):
+    """The tiles' shared math over the whole score matrix: (p, ds) as fp32
+    [b, h, sq, sk], with q, k and dO widened and laid out [b, h, s, d]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    sm_scale = float(np.float32(1.0 / math.sqrt(d)))
+    qf, kf, vf, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    p = torch.exp(s - lse.float().reshape(b, h, sq, 1))
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)
+        k_pos = torch.arange(sk, device=q.device)
+        masked = k_pos[None, :] > q_pos[:, None] + (sk - sq)
+        p = torch.where(masked, 0.0, p)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    g = 0.0 if glse is None else glse.float().reshape(b, h, sq, 1)
+    ds = p * (dp - delta.reshape(b, h, sq, 1) + g) * sm_scale
+    return p, ds, qf, kf, dof
+
+
+def _bshd(t, dtype):
+    """[b, h, s, d] fp32 -> contiguous [b, s, h, d] in ``dtype``."""
+    return t.permute(0, 2, 1, 3).contiguous().to(dtype)
+
+
+def _flash_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool = False,
+                      glse=None):
+    """The dq kernel's arithmetic in plain PyTorch (see _flash_bwd_ref)."""
+    _, ds, _, kf, _ = _p_ds(q, k, v, lse, do, delta, causal, glse)
+    return _bshd(torch.matmul(ds.to(q.dtype).float(), kf), q.dtype)
+
+
+def _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool = False,
+                       glse=None):
+    """The dk/dv kernel's arithmetic in plain PyTorch: (dk, dv)."""
+    p, ds, qf, _, dof = _p_ds(q, k, v, lse, do, delta, causal, glse)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    return _bshd(dk, q.dtype), _bshd(dv, q.dtype)
+
+
+def _flash_bwd_ref(q, k, v, o, lse, do, causal: bool = False, glse=None):
+    """Both backward kernels' arithmetic in plain PyTorch: (dq, dk, dv).
+
+    fp32 scores of the widened inputs times an fp32 scale; p = exp(s -
+    lse) from the forward's lse, and p = 0 for a masked key (a row that
+    sees no key gets dq = 0 and adds nothing to dk or dv); dp = dO·Vᵀ in
+    fp32; ds = p·(dp − Δ + glse)·scale; dq = round(ds)·K, dv =
+    round(p)ᵀ·dO, dk = round(ds)ᵀ·Q with round() to the inputs' dtype and
+    fp32 sums; outputs in the inputs' dtype. p comes from the saved lse,
+    not a running maximum, so the kernels' tiles change nothing but the
+    order of the fp32 sums, and this version takes one pass."""
+    do = do.to(q.dtype)
+    args = (q, k, v, do, lse, _row_delta(o, do), causal, glse)
+    return (_flash_bwd_dq_ref(*args), *_flash_bwd_dkv_ref(*args))
+
+
 # ----------------------------------------------------------------- kernel
 
 _lib_handle: Optional[ctypes.CDLL] = None
@@ -224,29 +298,142 @@ def _flash_fwd_cuda(q, k, v, causal: bool, return_lse: bool):
     return (out, lse) if return_lse else out
 
 
+_bwd_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _bwd_lib_handle
+    if _bwd_lib_handle is None:
+        lib = _build.load("flash_attention_bwd")
+        common = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                  + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                     ctypes.c_void_p])
+        lib.zoo_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + common
+        lib.zoo_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + common
+        lib.zoo_flash_bwd_dq.restype = ctypes.c_int
+        lib.zoo_flash_bwd_dkv.restype = ctypes.c_int
+        lib.zoo_flash_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.zoo_flash_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib_handle = lib
+    return _bwd_lib_handle
+
+
+def _bwd_launch(name, counter, q, k, v, do, lse, delta, causal, glse,
+                outs):
+    """Launch backward kernel ``name`` writing ``outs`` (contiguous, q's
+    dtype) on the tensors' device and current stream."""
+    b, sq, h, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for what, t in (("lse", lse), ("delta", delta), ("glse", glse)):
+        if t is not None and tuple(t.shape) != (b * h, sq):
+            raise ValueError(f"{what} {tuple(t.shape)} is not [b*h, sq] = "
+                             f"{(b * h, sq)}")
+    if b * h * sq == 0:
+        return
+    q, k, v, do = (t if t.stride(3) == 1 else t.contiguous()
+                   for t in (q, k, v, do))
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    glse = None if glse is None else glse.float().contiguous()
+    sm_scale = float(np.float32(1.0 / math.sqrt(d)))
+    lib = _bwd_lib()
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if glse is None else glse.data_ptr(),
+            *(t.data_ptr() for t in outs), b, h, sq, k.shape[1], d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            do.stride(0), do.stride(1), do.stride(2),
+            int(causal), sm_scale, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed "
+                           f"({name}): "
+                           + lib.zoo_flash_bwd_error_string(err).decode())
+    counter.add()
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, glse=None):
+    """Launch the dq kernel: dq [b, sq, h, d], contiguous, q's dtype."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("zoo_flash_bwd_dq", launches_bwd_dq, q, k, v, do, lse,
+                delta, causal, glse, [dq])
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, glse=None):
+    """Launch the dk/dv kernel: (dk, dv) [b, sk, h, d], contiguous. The
+    kernel writes every key row; with no query rows it does not run, and
+    the gradients are zeros."""
+    alloc = torch.zeros if q.shape[1] == 0 else torch.empty
+    dk = alloc(k.shape, dtype=q.dtype, device=q.device)
+    dv = alloc(k.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("zoo_flash_bwd_dkv", launches_bwd_dkv, q, k, v, do, lse,
+                delta, causal, glse, [dk, dv])
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, glse=None):
+    """Both backward kernels: (dq, dk, dv), contiguous, in q's dtype."""
+    do = do.to(q.dtype)
+    delta = _row_delta(o, do)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, glse)
+    return (dq, *_flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, glse))
+
+
 # ------------------------------------------------------------- dispatcher
 
-def _flash_fwd(q, k, v, causal: bool, return_lse: bool):
-    _check(q, k, v)
-    dev = q.device
-    if dev.type == "cpu":
+def _fwd_impl(q, k, v, causal: bool, return_lse: bool):
+    if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, return_lse)
-    if dev.type == "cuda":
-        if any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash attention on CUDA is forward only: its backward "
-                "kernels come with the BERT fine-tuning slice (ROADMAP B4, "
-                "B5); run under torch.inference_mode() or no_grad()")
-        return _flash_fwd_cuda(q, k, v, causal, return_lse)
-    raise ValueError(f"no flash attention for device {dev}")
+    return _flash_fwd_cuda(q, k, v, causal, return_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with the lse saved, and both backward kernels.
+    With ``return_lse`` the lse is a second, differentiable output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, return_lse: bool):
+        out, lse = _fwd_impl(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        # an unused output's cotangent arrives as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return (out, lse) if return_lse else out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out, g_lse=None):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        bwd = _flash_bwd_ref if q.device.type == "cpu" else _flash_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, out, lse, g_out, ctx.causal, g_lse)
+        return dq, dk, dv, None, None
+
+
+def _flash(q, k, v, causal: bool, return_lse: bool):
+    _check(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, return_lse)
+    return _fwd_impl(q, k, v, causal, return_lse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Attention of q [b, sq, h, d] over k, v [b, sk, h, d] -> [b, sq, h, d]
-    in q's dtype. CUDA tensors launch the kernel (its own 64 x 64 tile),
-    CPU tensors run the plain version."""
-    return _flash_fwd(q, k, v, causal, False)
+    in q's dtype. CUDA tensors launch the kernels (their own 64 x 64
+    tiles), CPU tensors run the plain versions; differentiable in q, k and
+    v."""
+    return _flash(q, k, v, causal, False)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -254,5 +441,5 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like ``flash_attention`` but also returns the per-row logsumexp
     ([b*h, sq] fp32), what ring attention merges its partial softmaxes
-    with."""
-    return _flash_fwd(q, k, v, causal, True)
+    with; both outputs are differentiable."""
+    return _flash(q, k, v, causal, True)

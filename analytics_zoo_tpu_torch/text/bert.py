@@ -12,9 +12,11 @@ embeddings, bidirectional blocks, pooled [CLS]) and ``TransformerModule``
 Attention goes through ``ops/attention.py``: with ``use_flash=True`` and
 no mask, the flash kernel on CUDA. ``dtype`` is the computation dtype of
 every block, norms included (parameters stay fp32); embeddings are
-looked up and summed in fp32. Inference only: dropout runs when
-``train=True``, but training waits for a later slice, as do
-``remat`` and the tensor-parallel rules.
+looked up and summed in fp32. The modules train under autograd
+(``learn/estimator.py``): dropout runs when ``train=True``, and with
+``use_flash=True`` on CUDA the attention's gradients come from the flash
+backward kernels. ``remat`` and the tensor-parallel rules are not ported
+yet.
 """
 
 from __future__ import annotations

@@ -1,21 +1,34 @@
-"""BERT task heads — classification, NER, SQuAD.
+"""BERT task heads and estimators — classification, NER, SQuAD.
 
-Counterpart of the head modules of ``analytics_zoo_tpu/text/estimators.py``
-(ref pyzoo/zoo/tfpark/text/estimator/: ``BERTClassifier``, ``BERTNER``,
-``BERTSQuAD``): each is a ``BertModule`` named ``bert`` plus one dense
-head under the flax tree's name. Inputs are ``(input_ids,
+Counterpart of ``analytics_zoo_tpu/text/estimators.py`` (ref
+pyzoo/zoo/tfpark/text/estimator/: ``BERTClassifier``, ``BERTNER``,
+``BERTSQuAD``). The head modules are each a ``BertModule`` named ``bert``
+plus one dense head under the flax tree's name. Inputs are ``(input_ids,
 token_type_ids, input_mask)`` of shape [b, L]; the last two may be left
-out (zeros and no mask). The estimators that fit and evaluate these heads
-wait for the training slice.
+out of a module call (zeros and no mask).
+
+``BERTClassifier`` fits, evaluates and predicts its head through
+``learn/estimator.py``'s ``TorchEstimator``. Like the JAX estimator it
+fills a missing ``input_mask`` with ones and passes it on, so its
+attention is the masked einsum chain under autograd and never the flash
+kernels (ROADMAP C5). The ``BERTNER`` and ``BERTSQuAD`` estimators are
+not ported yet (ROADMAP A3); their head modules are.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
+import torch
 import torch.nn.functional as F
 from torch import nn
 
+from analytics_zoo_tpu_torch.common.device import DeviceLike
 from analytics_zoo_tpu_torch.common.flax_compat import Dense
-from analytics_zoo_tpu_torch.text.bert import BertConfig, BertModule
+from analytics_zoo_tpu_torch.learn.estimator import Estimator, TorchEstimator
+from analytics_zoo_tpu_torch.text.bert import (BertConfig, BertModule,
+                                               init_bert_weights)
 
 
 class _BertHead(nn.Module):
@@ -70,3 +83,83 @@ class _SQuADModule(_BertHead):
                            train=train)
         logits = self.qa(seq)
         return logits[..., 0], logits[..., 1]
+
+
+class _BertTaskEstimator:
+    """Shared surface (ref BERTBaseEstimator: fit/evaluate/predict over
+    bert feature arrays). The head's weights are drawn from ``seed``
+    (``init_bert_weights``)."""
+
+    def __init__(self, module, loss, optimizer, metrics, config: BertConfig,
+                 seq_len: int, model_dir, strategy, seed: int,
+                 device: DeviceLike):
+        self.config = config
+        self.seq_len = seq_len
+        self.estimator: TorchEstimator = Estimator.from_torch(
+            model=init_bert_weights(module, seed), loss=loss,
+            optimizer=optimizer, metrics=metrics, model_dir=model_dir,
+            strategy=strategy, seed=seed, device=device)
+
+    @staticmethod
+    def _xy(input_ids, token_type_ids=None, input_mask=None, labels=None):
+        ids = np.asarray(input_ids)
+        seg = (np.zeros_like(ids) if token_type_ids is None
+               else np.asarray(token_type_ids))
+        msk = (np.ones_like(ids) if input_mask is None
+               else np.asarray(input_mask))
+        x = (ids, seg, msk)
+        return x if labels is None else (x, np.asarray(labels))
+
+    def fit(self, input_ids, labels, token_type_ids=None, input_mask=None,
+            epochs: int = 1, batch_size: int = 32, **kw):
+        data = self._xy(input_ids, token_type_ids, input_mask, labels)
+        return self.estimator.fit(data, epochs=epochs,
+                                  batch_size=batch_size, **kw)
+
+    def evaluate(self, input_ids, labels, token_type_ids=None,
+                 input_mask=None, batch_size: int = 32):
+        data = self._xy(input_ids, token_type_ids, input_mask, labels)
+        return self.estimator.evaluate(data, batch_size=batch_size)
+
+    def predict(self, input_ids, token_type_ids=None, input_mask=None,
+                batch_size: int = 32):
+        x = self._xy(input_ids, token_type_ids, input_mask)
+        # TorchEstimator.predict treats a tuple as multi-input features
+        return self.estimator.predict(x, batch_size=batch_size)
+
+    def save(self, path: str):
+        return self.estimator.save(path)
+
+    def load(self, path: str):
+        self.estimator.load(path)
+        return self
+
+    def load_hf(self, state_dict_or_path):
+        """Initialise the encoder from a HuggingFace-format BERT checkpoint
+        (a state dict, a live ``transformers`` module, or a ``torch.save``
+        path); the task head keeps its weights. Fine-tune as usual
+        afterwards."""
+        from analytics_zoo_tpu_torch.text.hf_import import hf_bert_params
+        src = state_dict_or_path
+        if isinstance(src, str):
+            src = torch.load(src, map_location="cpu", weights_only=True)
+        self.estimator.model.bert.load_state_dict(
+            hf_bert_params(src, self.config))
+        # as the JAX estimator does, the optimizer state starts afresh
+        self.estimator._opt_state = None
+        return self
+
+
+class BERTClassifier(_BertTaskEstimator):
+    """Sequence classification on the pooled output (ref
+    tfpark/text/estimator BERTClassifier)."""
+
+    def __init__(self, num_classes: int, config: Optional[BertConfig] = None,
+                 seq_len: int = 128, optimizer="adam", metrics=None,
+                 model_dir=None, strategy="dp", seed: int = 0,
+                 device: DeviceLike = None):
+        config = config or BertConfig()
+        super().__init__(
+            _ClassifierModule(config, num_classes),
+            "sparse_categorical_crossentropy_logits", optimizer, metrics,
+            config, seq_len, model_dir, strategy, seed, device)

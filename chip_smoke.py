@@ -19,6 +19,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
                strided views of the packed projection), causal s 512,
                ragged s 500, causal sq 128 over sk 512, and one case with
                the lse
+             - flash attention backward, the dq and dk/dv kernels
+               (phase 3c), fp32 within BWD_ATOL of the largest gradient,
+               bf16 within BWD_BF16_* (a faulty control, ds left
+               unrounded, must fail it), two launches bit for bit: the
+               fine-tuning shape (b 32, s 128, h 12, d 64, q/k/v strided
+               views of the packed projection, dO strided), the serving
+               shape s 512, causal s 512, ragged s 500, causal sq 128
+               over sk 512, rows that see no key (96 over 40) and a case
+               with a random lse cotangent; the library yardstick is the
+               backward of scaled_dot_product_attention (its forward plus
+               backward less its forward, each replayed from a CUDA graph
+               so that the autograd engine's host time does not enter)
 4. slice   — NeuralCF at MovieLens-1M width (6040 users, 3706 items, 5
              classes, embeddings of 20, hidden (40, 20, 10), GMF 20), with
              weights drawn from a numpy seed, served by
@@ -37,9 +49,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
              requests of int32 input_ids / token_type_ids through the
              Python broker + ClusterServing; every answer equals predict
 
+8. BERT fine-tuning — the same classifier at 32 x 128 tokens: (a) one
+             step's loss and every gradient with use_flash=True against
+             use_flash=False (the einsum chain under autograd), dropout
+             off, fp32 with TF32 off and bf16; (b) Estimator.from_torch(
+             ..., optimizer="adam").fit for 10 steps with dropout 0.1, in
+             fp32 and bf16 (finite losses, step ms on the host clock after
+             a warm-up step, samples/s), then evaluate and predict; (c)
+             each of the three flash kernels launched 12 times per step
+
 Launch counts are set to 0 right before each path (phases 4-5, the NCF
-path; phases 6-7, the BERT path) and read right after it: every kernel of
-the path must have launched there. The second-to-last line is the kernels
+path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
+path) and read right after it: every kernel of the path must have
+launched there. The second-to-last line is the kernels
 JSON, the last ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -91,6 +113,30 @@ FLASH_BF16_ULPS = 2
 FLASH_BF16_ATOL = 1e-5
 FLASH_BF16_SHARE = 1e-2
 LSE_ATOL = 1e-5
+# BERT fine-tuning: bench.py's batch of 32 x 128 tokens, 10 timed steps
+TRAIN_BATCH = 32
+TRAIN_LEN = 128
+TRAIN_STEPS = 10
+# backward kernels vs plain, which rounds at the same points from the same
+# lse: fp32 sums in another order, |kernel - plain| <= BWD_ATOL x the
+# largest |plain| of that gradient; bf16 within FLASH_BF16_ULPS ulps of
+# the plain value + BWD_BF16_ATOL x the largest |plain|, with at most
+# BWD_BF16_SHARE of the elements differing (the control with ds left
+# unrounded before dS.K must fail it)
+BWD_ATOL = 2e-5
+BWD_BF16_ATOL = 1e-3
+BWD_BF16_SHARE = 2e-2
+# one training step, flash kernels vs the einsum chain under autograd,
+# BERT-Base at 32 x 128, dropout off: the loss within TRAIN_LOSS_ATOL and
+# every gradient within TRAIN_GRAD_RTOL of its largest element (fp32, TF32
+# off) or TRAIN_BF16_GRAD_RTOL (bf16, each against its own chain), from
+# the CPU estimate at 2 and 4 blocks (dev/estimate_bert_train_limits.py)
+# (fp32: loss equal, gradients within 2.4e-6; bf16: loss within 7.1e-4,
+# gradients within 0.028, growing with depth)
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_BF16_LOSS_ATOL = 1e-2
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_BF16_GRAD_RTOL = 0.25
 
 
 def log(msg: str):
@@ -145,21 +191,20 @@ def max_abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs()[ok].max())
 
 
-def bf16_reading(got, want):
-    """(largest |got - want| over its bf16 limit, share of elements that
-    differ): within the limit when the first is <= 1 and the second <=
-    FLASH_BF16_SHARE."""
+def bf16_reading(got, want, atol: float = FLASH_BF16_ATOL):
+    """(largest |got - want| over its bf16 limit, atol + FLASH_BF16_ULPS
+    ulps of want, and the share of elements that differ)."""
     import torch
     g, w = got.float(), want.float()
     # one bf16 ulp of w: |w| in [2^(e-1), 2^e) has 7 stored bits below
     ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
     ulp = torch.where(w == 0, 0.0, ulp)
-    ratio = (g - w).abs() / (FLASH_BF16_ATOL + FLASH_BF16_ULPS * ulp)
+    ratio = (g - w).abs() / (atol + FLASH_BF16_ULPS * ulp)
     return float(ratio.max()), float((got != want).float().mean())
 
 
-def bf16_within(reading) -> bool:
-    return reading[0] <= 1.0 and reading[1] <= FLASH_BF16_SHARE
+def bf16_within(reading, share: float = FLASH_BF16_SHARE) -> bool:
+    return reading[0] <= 1.0 and reading[1] <= share
 
 
 def truncate_to_bf16(x):
@@ -226,17 +271,47 @@ def attention_bound(b, sq, sk, h, d, causal, dtype, with_lse):
     item = torch.empty((), dtype=dtype).element_size()
     moved = (2 * b * sq + 2 * b * sk) * h * d * item
     moved += 4 * b * h * sq if with_lse else 0
-    if causal:      # bottom-right: row i sees keys <= i + sk - sq
-        rows = torch.arange(sq) + (sk - sq) + 1
-        pairs = int(rows.clamp(0, sk).sum())
-    else:
-        pairs = sq * sk
-    flops = 4 * b * h * pairs * d
+    flops = 4 * b * h * visible_pairs(sq, sk, causal) * d
+    return roofline(moved, flops, dtype)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs that are not masked; bottom-right causal: row i
+    sees keys <= i + sk - sq."""
+    if not causal:
+        return sq * sk
+    return sum(min(max(i + sk - sq + 1, 0), sk) for i in range(sq))
+
+
+def roofline(moved: int, flops: int, dtype):
+    """(least ms, "bytes" or "operations"): the bytes over the memory
+    rate or the flops over the dtype's rate (fp32 CUDA cores, bf16 tensor
+    cores), whichever is larger."""
+    import torch
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / rate * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
+
+
+def attention_bwd_bound(kernel, b, sq, sk, h, d, causal, dtype, with_glse):
+    """Least time for one backward kernel: q, k, v, dO, lse, delta (and
+    glse) read once and its gradients written once, or its flops per
+    visible pair (dq: q.k, dO.v, ds.k = 6d; dk/dv: q.k, dO.v, p.dO, ds.q
+    = 8d)."""
+    import torch
+    item = torch.empty((), dtype=dtype).element_size()
+    moved = (2 * b * sq + 2 * b * sk) * h * d * item
+    moved += (3 if with_glse else 2) * 4 * b * h * sq
+    pairs = visible_pairs(sq, sk, causal) * b * h
+    if kernel == "dq":
+        moved += b * sq * h * d * item
+        flops = 6 * d * pairs
+    else:
+        moved += 2 * b * sk * h * d * item
+        flops = 8 * d * pairs
+    return roofline(moved, flops, dtype)
 
 
 def sdpa_call(q, k, v, causal):
@@ -337,6 +412,155 @@ def phase_flash(torch, fa):
     return results
 
 
+def graphed_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` captured once in a CUDA graph and
+    replayed back to back, so that host-side cost (the autograd engine's)
+    does not enter."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def sdpa_bwd_ms(q, k, v, do, causal) -> float:
+    """One-call PyTorch yardstick for the whole attention backward (timed
+    only, never used by the port): scaled_dot_product_attention's forward
+    plus backward, less its forward, on leaves that require grad, each
+    timed from a CUDA graph."""
+    import torch
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    dot = do.transpose(1, 2)
+    fwd = lambda: sdpa_call(*leaves, causal)
+    both = lambda: torch.autograd.grad(fwd(), leaves, dot)
+    return graphed_ms(both) - graphed_ms(fwd)
+
+
+def bwd_reading(got, want, dtype):
+    """fp32: (largest |got - want| over BWD_ATOL x the largest |want|,
+    0); bf16: bf16_reading with BWD_BF16_ATOL x the largest |want|.
+    Within the limit when bwd_within."""
+    import torch
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        err = float((got.float() - want.float()).abs().max())
+        return err / (BWD_ATOL * max(top, 1e-30)), 0.0
+    return bf16_reading(got, want, BWD_BF16_ATOL * top)
+
+
+def bwd_within(reading) -> bool:
+    return bf16_within(reading, BWD_BF16_SHARE)
+
+
+def phase_flash_bwd(torch, fa):
+    """Phase 3c: the dq and dk/dv kernels against their plain versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    b, h, d = TRAIN_BATCH, 12, 64
+    # (name, sq, sk, causal, packed, with_glse)
+    shapes = [("bert_train", TRAIN_LEN, TRAIN_LEN, False, True, False),
+              ("bert_serving", BERT_LEN, BERT_LEN, False, True, False),
+              ("causal", BERT_LEN, BERT_LEN, True, False, False),
+              ("ragged", 500, 500, False, False, False),
+              ("causal_cross", 128, BERT_LEN, True, False, False),
+              ("no_key_rows", 96, 40, True, False, False),
+              ("bert_train_glse", TRAIN_LEN, TRAIN_LEN, False, True, True)]
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, sq, sk, causal, packed, with_glse in shapes:
+            randn = lambda *shape: torch.randn(*shape, generator=gen).to(
+                dev, dtype)
+            if packed:
+                # q, k, v as the packed projection hands them over, and a
+                # strided cotangent
+                q, k, v = randn(b, sq, 3, h, d).unbind(2)
+                do = randn(b, h, sq, d).transpose(1, 2)
+            else:
+                q, k, v = randn(b, sq, h, d), randn(b, sk, h, d), \
+                    randn(b, sk, h, d)
+                do = randn(b, sq, h, d)
+            glse = torch.randn(b * h, sq, generator=gen).to(dev) \
+                if with_glse else None
+            o, lse = fa.flash_attention_with_lse(q, k, v, causal)
+            delta = fa._row_delta(o, do)
+            args = (q, k, v, do, lse, delta, causal, glse)
+            got = (fa._flash_bwd_dq_cuda(*args),
+                   *fa._flash_bwd_dkv_cuda(*args))
+            again = (fa._flash_bwd_dq_cuda(*args),
+                     *fa._flash_bwd_dkv_cuda(*args))
+            torch.cuda.synchronize()
+            want = (fa._flash_bwd_dq_ref(*args), *fa._flash_bwd_dkv_ref(*args))
+            rec = dict(case=name, dtype=str(dtype), b=b, sq=sq, sk=sk, h=h,
+                       d=d, causal=causal, glse=with_glse)
+            for grad, g1, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(g1, g2):
+                    raise AssertionError(f"flash backward {name} {dtype} "
+                                         f"{grad}: two launches differ")
+                reading = bwd_reading(g1, w, dtype)
+                err = max_abs_err(g1, w)
+                if not (bwd_within(reading)
+                        and bool(torch.isfinite(g1).all())):
+                    raise AssertionError(
+                        f"kernel != plain: flash backward {name} {dtype} "
+                        f"{grad} max_abs_err={err} reading={reading}")
+                rec[f"{grad}_max_abs_err"] = err
+                rec[f"{grad}_reading"] = reading
+            if name == "no_key_rows" and bool(got[0][:, :sq - sk].any()):
+                raise AssertionError("rows that see no key got dq != 0")
+            if dtype == torch.bfloat16 and name == "bert_train":
+                # faulty control: ds left unrounded before dS.K (q, k, v
+                # widened, dO kept in bf16 so p still rounds)
+                wide = (q.float(), k.float(), v.float(), do, lse, delta,
+                        causal, glse)
+                controls = {
+                    "dq_ds_unrounded": bwd_reading(
+                        fa._flash_bwd_dq_ref(*wide).to(dtype), want[0],
+                        dtype),
+                    "dk_ds_unrounded": bwd_reading(
+                        fa._flash_bwd_dkv_ref(*wide)[0].to(dtype), want[1],
+                        dtype)}
+                log(f"  flash backward bf16 controls (limit, share): "
+                    f"{controls}")
+                for cname, creading in controls.items():
+                    if bwd_within(creading):
+                        raise AssertionError(f"bf16 backward limit passes "
+                                             f"the faulty control {cname}: "
+                                             f"{creading}")
+                rec["bf16_controls"] = controls
+            for kernel, launch, plain in (
+                    ("dq", lambda: fa._flash_bwd_dq_cuda(*args),
+                     lambda: fa._flash_bwd_dq_ref(*args)),
+                    ("dkv", lambda: fa._flash_bwd_dkv_cuda(*args),
+                     lambda: fa._flash_bwd_dkv_ref(*args))):
+                bound, bound_by = attention_bwd_bound(
+                    kernel, b, sq, sk, h, d, causal, dtype, with_glse)
+                rec[f"{kernel}_ms"] = cuda_ms(launch, iters=20)
+                rec[f"{kernel}_plain_ms"] = cuda_ms(plain, iters=20)
+                rec[f"{kernel}_bound_ms"] = bound
+                rec[f"{kernel}_bound_by"] = bound_by
+            # SDPA has no answer of ours for rows that see no key
+            rec["library_ms"] = None if name == "no_key_rows" else \
+                sdpa_bwd_ms(q, k, v, do, causal)
+            results.append(rec)
+            log(f"  flash bwd {name:15s} {str(dtype):15s} sq{sq} sk{sk} "
+                f"max_abs_err dq {rec['dq_max_abs_err']:.3g} dk "
+                f"{rec['dk_max_abs_err']:.3g} dv {rec['dv_max_abs_err']:.3g}"
+                f"  dq {rec['dq_ms']:.4f} ms (plain {rec['dq_plain_ms']:.4f}"
+                f", bound {rec['dq_bound_ms']:.4f} {rec['dq_bound_by']})  "
+                f"dk/dv {rec['dkv_ms']:.4f} ms (plain "
+                f"{rec['dkv_plain_ms']:.4f}, bound {rec['dkv_bound_ms']:.4f}"
+                f" {rec['dkv_bound_by']})  library bwd "
+                f"{fmt_ms(rec['library_ms'])} ms")
+            del q, k, v, do, o, lse, delta, got, again, want
+    return results
+
+
 def phase_kernels(torch, eb):
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -432,6 +656,24 @@ def bert_classifier(state, **config):
         return init_bert_weights(module, SEED)
     module.load_state_dict(state)
     return module
+
+
+def grad_reading(got, want):
+    """(largest relative gradient difference, the parameter it is in),
+    over dicts of gradients by parameter name. Each gradient is held
+    against its own largest element, but for the attention key biases: a
+    key bias shifts every score of a query alike, which softmax ignores,
+    so its gradient is zero but for rounding and is held against the
+    largest gradient element of the whole model."""
+    scale = max(float(g.float().abs().max()) for g in want.values())
+    rel = {}
+    for name, g in want.items():
+        top = scale if name.endswith("attention.key.bias") else \
+            float(g.float().abs().max())
+        rel[name] = float((got[name].float() - g.float()).abs().max()
+                          / max(top, 1e-30))
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
 
 
 def timed_predict(im, x, reps: int):
@@ -547,6 +789,109 @@ def phase_bert_serving(np, im, y, x, fa, serving_api, kind):
     return rep
 
 
+def train_inputs(rng, n):
+    """int32 token ids over the whole vocab and 2-class labels; ids
+    alone, as bench.py's classifier takes them."""
+    ids = rng.randint(0, BERT_VOCAB, (n, TRAIN_LEN)).astype("int32")
+    return ids, rng.randint(0, BERT_CLASSES, n).astype("int32")
+
+
+def step_grads(torch, module, ids, labels):
+    """One training step's loss and gradients by parameter name."""
+    from analytics_zoo_tpu_torch.learn import losses
+    dev = next(module.parameters()).device
+    logits = module(torch.from_numpy(ids).to(dev), train=True)
+    loss = losses.get("sparse_categorical_crossentropy_logits")(
+        torch.from_numpy(labels).to(dev), logits).mean()
+    names, params = zip(*module.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def phase_bert_train_grads(torch, np, state):
+    """Phase 8(a): one step with the flash kernels against the einsum
+    chain under autograd, dropout off."""
+    ids, labels = train_inputs(np.random.RandomState(SEED), TRAIN_BATCH)
+    rep = {}
+    for label, dtype, loss_atol, rtol in (
+            ("fp32", None, TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL),
+            ("bf16", torch.bfloat16, TRAIN_BF16_LOSS_ATOL,
+             TRAIN_BF16_GRAD_RTOL)):
+        cfg = dict(hidden_drop=0.0, attn_drop=0.0, dtype=dtype)
+        lf, gf = step_grads(torch, bert_classifier(
+            state, use_flash=True, **cfg).cuda(), ids, labels)
+        lc, gc = step_grads(torch, bert_classifier(
+            state, use_flash=False, **cfg).cuda(), ids, labels)
+        rel, worst = grad_reading(gf, gc)
+        rep[label] = dict(loss_flash=lf, loss_chain=lc,
+                          loss_diff=abs(lf - lc), max_rel_grad_diff=rel,
+                          worst_param=worst)
+        log(f"BERT-Base train step {TRAIN_BATCH}x{TRAIN_LEN} {label}: loss "
+            f"flash {lf:.6f} vs einsum chain {lc:.6f} (atol {loss_atol}); "
+            f"largest gradient difference {rel:.3g} of its scale in "
+            f"{worst} (limit {rtol})")
+        if not (np.isfinite(lf) and abs(lf - lc) <= loss_atol
+                and rel <= rtol):
+            raise AssertionError(f"BERT {label} train step, flash vs einsum "
+                                 f"chain: {rep[label]}")
+        del gf, gc
+    return rep
+
+
+def phase_bert_fit(torch, np, state, Estimator, kind):
+    """Phase 8(b): Estimator.from_torch(...).fit, evaluate and predict,
+    fp32 and bf16, dropout 0.1; each precision's report holds the
+    launches of each kernel in its timed fit."""
+    from analytics_zoo_tpu_torch.ops import _build
+    ids, labels = train_inputs(np.random.RandomState(SEED + 1),
+                               TRAIN_BATCH * TRAIN_STEPS)
+    rep = {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        est = Estimator.from_torch(
+            model=bert_classifier(state, use_flash=True, dtype=dtype),
+            loss="sparse_categorical_crossentropy_logits", optimizer="adam",
+            seed=SEED)
+        batch = (ids[:TRAIN_BATCH], labels[:TRAIN_BATCH])
+        est.fit(batch, epochs=1, batch_size=TRAIN_BATCH)     # warm up
+        torch.cuda.synchronize()
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        # the fit's last loss read-back waits for the device
+        hist = est.fit((ids, labels), epochs=1, batch_size=TRAIN_BATCH)
+        fit_s = time.perf_counter() - t0
+        launches = {n: c - before.get(n, 0)
+                    for n, c in _build.launch_counts().items()}
+        losses = est.step_losses[-TRAIN_STEPS:]
+        ev = est.evaluate(batch, batch_size=TRAIN_BATCH)
+        pred = est.predict(batch[0], batch_size=TRAIN_BATCH)
+        rep[label] = dict(
+            step_ms=fit_s / TRAIN_STEPS * 1e3,
+            samples_per_s=TRAIN_STEPS * TRAIN_BATCH / fit_s,
+            losses=losses, epoch_loss=hist["loss"][0],
+            eval_loss=ev["loss"], launches=launches,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"BERT-Base fine-tuning {label} on {kind}: {TRAIN_STEPS} steps "
+            f"of {TRAIN_BATCH}x{TRAIN_LEN} at {rep[label]['step_ms']:.3f} "
+            f"ms/step (host clock), {rep[label]['samples_per_s']:.2f} "
+            f"samples/s; losses {[round(x, 4) for x in losses]}; evaluate "
+            f"loss {ev['loss']:.4f}; launches {launches}")
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"BERT {label} fit losses: {losses}")
+        if not (np.isfinite(ev["loss"]) and pred.shape == (TRAIN_BATCH,
+                                                           BERT_CLASSES)
+                and np.isfinite(pred).all()):
+            raise AssertionError(f"BERT {label} evaluate/predict: {ev}, "
+                                 f"{pred.shape}")
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            if launches.get(name) != 12 * TRAIN_STEPS:
+                raise AssertionError(f"BERT {label} fit: {name} launched "
+                                     f"{launches.get(name)} times in "
+                                     f"{TRAIN_STEPS} steps, not 12 a step")
+        del est
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -556,6 +901,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.learn import Estimator
     from analytics_zoo_tpu_torch.models import NeuralCF
     from analytics_zoo_tpu_torch.ops import _build
     from analytics_zoo_tpu_torch.ops import embedding_bag as eb
@@ -588,6 +934,8 @@ def main() -> int:
     report["kernel_cases"] = cases
     flash_cases = phase_flash(torch, fa)
     report["flash_cases"] = flash_cases
+    bwd_cases = phase_flash_bwd(torch, fa)
+    report["flash_bwd_cases"] = bwd_cases
 
     # 4. slice — the NCF path starts here
     ncf = NeuralCF(**NCF)
@@ -675,7 +1023,20 @@ def main() -> int:
     if bert_counts.get("flash_attention_fwd", 0) <= 0:
         raise AssertionError(
             f"BERT path launched no flash attention kernel: {bert_counts}")
-    report["launches"] = {"ncf": ncf_counts, "bert": bert_counts}
+    # 8. BERT fine-tuning: (a) compares, (b) is the path
+    torch.cuda.reset_peak_memory_stats()
+    state = bert_classifier(None, use_flash=True).state_dict()
+    report["bert_train_grads"] = phase_bert_train_grads(torch, np, state)
+    _build.reset_launch_counts()
+    report["bert_fit"] = phase_bert_fit(torch, np, state, Estimator, kind)
+    train_counts = _build.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if train_counts.get(name, 0) <= 0:
+            raise AssertionError(f"the fine-tuning path launched no {name}:"
+                                 f" {train_counts}")
+    report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
+                          "bert_train": train_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -700,6 +1061,24 @@ def main() -> int:
         "ms": fhead["ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_ms"], "bound_by": fhead["bound_by"],
         "library_ms": fhead["library_ms"]}]}
+    # the backward kernels at the fine-tuning shape (fp32); library_ms is
+    # the whole SDPA backward, which one call computes for both
+    bhead = next(c for c in bwd_cases if c["case"] == "bert_train"
+                 and c["dtype"] == "torch.float32")
+    for kernel, line, grads in (("dq", 345, ("dq",)),
+                                ("dkv", 376, ("dk", "dv"))):
+        kernels["kernels"].append({
+            "name": f"flash_attention_bwd_{kernel}", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/ops/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": f"analytics_zoo_tpu/ops/flash_attention.py:{line}",
+            "launches": train_counts[f"flash_attention_bwd_{kernel}"],
+            "max_abs_err": max(c[f"{g}_max_abs_err"] for c in bwd_cases
+                               for g in grads),
+            "ms": bhead[f"{kernel}_ms"], "plain_ms": bhead[f"{kernel}_plain_ms"],
+            "bound_ms": bhead[f"{kernel}_bound_ms"],
+            "bound_by": bhead[f"{kernel}_bound_by"],
+            "library_ms": bhead["library_ms"]})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -11,7 +11,9 @@
   rtol 2e-4 / atol 2e-5 (sums in another order), bf16 within 2e-2 (both
   round the scores to bf16; one bf16 ulp at |x| < 4 is under 2e-2).
 - The dispatch rules: CPU tensors take the plain version and count no
-  launch; other devices never do; CUDA inputs that require grad raise.
+  launch; other devices never do. (The backward, which CUDA inputs that
+  require grad go through, is tested in
+  ``tests/test_torch_flash_attention_bwd.py``.)
 - On the card only (marker ``cuda``): the kernel against its plain version,
   fp32 within 1e-5; bf16 within 2 bf16 ulps + 1e-5 with at most 1% of
   the elements differing at all.
@@ -203,15 +205,6 @@ def test_build_knows_the_kernel_source():
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel)")
-
-
-@pytest.mark.cuda
-def test_cuda_call_that_requires_grad_raises():
-    _need_cuda()
-    q, k, v = (t.cuda() for t in _t(_qkv(64, 64, seed=2)))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B4"):
-        tfa.flash_attention(q, k, v)
 
 
 @pytest.mark.cuda
