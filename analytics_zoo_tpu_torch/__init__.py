@@ -11,23 +11,25 @@ Entry points (``InferenceModel``, ``ClusterServing``, model ``predict``,
 ``device="cpu"``; without CUDA and without an explicit CPU device they
 raise.
 
-Subpackages ported so far (the NCF and BERT serving slices, BERT
-fine-tuning):
+Subpackages ported so far (the NCF, BERT and Seq2Seq decode serving
+slices, BERT fine-tuning):
 
 - ``common``    — device resolution, the batch-bucket ladder, the flax
   layers the models build on (``flax_compat``)
-- ``ops``       — the fused embedding lookup and flash-attention forward
-  and backward kernels and their build, attention
+- ``ops``       — the fused embedding lookup, the flash-attention forward
+  and backward, the paged gather and paged decode attention kernels and
+  their build, attention
 - ``data``      — fixed-shape minibatches in the JAX package's order
 - ``learn``     — ``Estimator.from_torch``, losses, metrics, optimizers
-- ``keras``     — graph engine, the layers NCF and BERT use,
+- ``keras``     — graph engine, the layers NCF, BERT and Seq2Seq use,
   ``Model``/``Sequential``
-- ``models``    — ``ZooModel`` and ``NeuralCF``
+- ``models``    — ``ZooModel``, ``NeuralCF`` and ``Seq2Seq``
 - ``text``      — BERT, the GPT-style transformer, the task heads,
   ``BERTClassifier``, the HuggingFace weight import
-- ``inference`` — ``InferenceModel``
+- ``inference`` — ``InferenceModel`` (predict and decode), generation,
+  the step-level ``DecodeScheduler`` over a paged KV pool, KV int8
 - ``serving``   — broker, wire schema, ``InputQueue``/``OutputQueue``,
-  ``ClusterServing``
+  ``ClusterServing`` (predict and generate records)
 - ``convert``   — flax parameter trees to torch state dicts and back
 """
 

@@ -14,6 +14,12 @@
 - ``bias`` -> ``bias``, flattened.
 - ``scale`` (LayerNorm) -> ``weight``.
 - ``embedding`` stays ``[vocab, dim]``.
+- flax's RNN cells (``GRUCell_0``, ``OptimizedLSTMCell_0``,
+  ``SimpleCell_0``) are trees of Denses named ``ir``/``iz``/``in``/
+  ``hr``/``hz``/``hn`` (GRU), ``ii``/``if``/``ig``/``io``/``hi``/... (LSTM)
+  or ``i``/``h``; their kernels and biases follow the rules above, and the
+  port's cells (keras/layers.py) register their Linears under the same
+  names, ``in`` and ``if`` included.
 
 ``state_dict_to_flax`` is its inverse: the port's ``state_dict`` as a
 flax tree of numpy arrays, shaped like a given flax tree (a 2-D weight

@@ -13,9 +13,15 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
   chunk pads to its nearest rung
 - ``predict_async`` / ``predict_fetch`` — the serving engine's staged
   dispatch: launch one batch on the device, fetch its host result later
+- decode, for a 2-input (encoder, decoder) model such as ``Seq2Seq``:
+  ``decode_step_fn`` / ``paged_decode_step_fn`` (the step seams of
+  inference/decode_scheduler.py; the paged one gathers the page pool on
+  the device with the paged gather kernel), ``warm_decode`` and
+  ``generate`` (greedy / sample / raw, optionally speculative with a
+  draft model)
 
 There is no CPU failover: a model on ``cuda`` runs there or raises.
-Quantization, sharding and decode wait for later slices.
+Quantization and sharding wait for later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from __future__ import annotations
 import collections
 import copy
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -188,6 +194,170 @@ class InferenceModel:
         probs = np.asarray(self.predict(x, batch_size))
         classes = np.argmax(probs, axis=-1)
         return classes if zero_based_label else classes + 1
+
+    # --------------------------------------------------------------- decode
+    def _decode_module(self):
+        """The loaded module, checked to be a 2-input encoder/decoder."""
+        module, n_inputs, ladder = self._snapshot()
+        if n_inputs != 2:
+            raise ValueError("decode needs a 2-input (encoder, decoder) "
+                             f"model, got {n_inputs} inputs")
+        return module, ladder
+
+    def decode_step_fn(self):
+        """The scheduler-facing step seam: one wide ``(enc, dec) -> out``
+        forward on this model's device, host arrays in and out."""
+        self._decode_module()
+
+        def step(enc, dec):
+            return self.predict_fetch(self.predict_async((enc, dec)))
+
+        return step
+
+    def paged_decode_step_fn(self):
+        """Paged counterpart of :meth:`decode_step_fn`: one wide ``(enc,
+        pool, scales, table, lengths) -> out`` forward where the host pool
+        goes to the device and the paged gather kernel
+        (ops/paged_attention.py) assembles the decoder input there, at
+        ``table_width * page_size`` positions. That buffer is bitwise the
+        host-gathered one, so outputs at live positions match the plain
+        seam bit for bit. The pool is copied to the device every step (the
+        JAX package hands the step the host pool too); keeping it on the
+        device is later speed work (ROADMAP A8)."""
+        self._decode_module()
+
+        def step(enc, pool, scales, table, lengths):
+            from analytics_zoo_tpu_torch.ops.paged_attention import (
+                paged_gather,
+            )
+            module, _ = self._decode_module()
+            with torch.inference_mode():
+                dec = paged_gather(as_tensor(pool, self.device), table,
+                                   lengths, scales=as_tensor(scales,
+                                                             self.device))
+                out = module(as_tensor(enc, self.device), dec)
+            return to_numpy(out)
+
+        return step
+
+    def _decode_shapes(self, module):
+        """(encoder sample shape, decoder width) from the model's graph
+        inputs, or None where the graph leaves one unknown."""
+        nodes = {n.id: n for n in getattr(module, "order", ())}
+        shapes = [getattr(nodes.get(i), "shape", None)
+                  for i in getattr(module, "graph_inputs", ())]
+        if len(shapes) != 2 or shapes[0] is None or shapes[1] is None:
+            return None
+        enc, dec = shapes
+        if None in enc or dec[-1] is None:
+            return None
+        return tuple(int(d) for d in enc), int(dec[-1])
+
+    def warm_decode(self, max_seq_len: int, rungs=None, seq_rungs=None,
+                    verify_k: int = 0, block: bool = True, paged_pool=None):
+        """Run every (batch rung × seq rung) decode shape a ``generate``
+        up to ``max_seq_len`` can present once on zeros, so that the
+        kernels' build and every first-touch cost fall before any timed
+        step. PyTorch has nothing to compile ahead; this is the whole of
+        the JAX package's ahead-of-time decode grid here. ``rungs``
+        defaults to the attached batch ladder's (none without one);
+        ``verify_k > 0`` extends the seq grid for speculative verify
+        steps. ``paged_pool=(n_pages, page_size)`` also runs the paged
+        step at every (batch rung × table width), on a pool of
+        ``ZOO_KV_DTYPE``. The encoder shape comes from the model's graph
+        (``Seq2Seq(encoder_seq_len=...)``); without one nothing runs.
+        ``block=False`` runs in a thread and returns it."""
+        from analytics_zoo_tpu_torch.inference import generation, quantize
+
+        module, ladder = self._decode_module()
+        shapes = self._decode_shapes(module)
+        if seq_rungs is None:
+            seq_rungs = generation.seq_ladder(
+                int(max_seq_len) + max(0, int(verify_k))).rungs
+        if rungs is None:
+            rungs = ladder.rungs if ladder is not None else ()
+        rungs = sorted({int(r) for r in rungs})
+        seq_rungs = sorted({int(s) for s in seq_rungs})
+        if shapes is None or not rungs:
+            return None
+        (enc_shape, dim) = shapes
+
+        def run():
+            step = self.decode_step_fn()
+            for r in rungs:
+                enc = np.zeros((r,) + enc_shape, np.float32)
+                for sr in seq_rungs:
+                    step(enc, np.zeros((r, sr, dim), np.float32))
+            if paged_pool is None:
+                return
+            n_pages, page_size = (int(v) for v in paged_pool)
+            pool = np.zeros((n_pages, page_size, dim),
+                            quantize.resolve_kv_dtype(None))
+            scales = np.ones((n_pages,), np.float32)
+            paged = self.paged_decode_step_fn()
+            widths = sorted({-(-sr // page_size) for sr in seq_rungs})
+            for r in rungs:
+                enc = np.zeros((r,) + enc_shape, np.float32)
+                for w in widths:
+                    paged(enc, pool, scales, np.zeros((r, w), np.int32),
+                          np.zeros((r,), np.int32))
+
+        if block:
+            run()
+            return None
+        t = threading.Thread(target=run, daemon=True, name="zoo-warm-decode")
+        t.start()
+        return t
+
+    def generate(self, input_seq, start_sign, max_new_tokens: int = 16, *,
+                 mode: str = "greedy", temperature: float = 1.0,
+                 seed: Optional[int] = None, ladder=None,
+                 trace_ids: Sequence[str] = (), draft=None,
+                 spec_k: int = 4) -> np.ndarray:
+        """Autoregressive generation over the seq-length rungs; the loaded
+        model must be a 2-input encoder/decoder (e.g. ``Seq2Seq`` via
+        ``load_zoo``). ``ladder=None`` takes ``seq_ladder(max_new_tokens
+        + 1)``.
+
+        ``draft`` (another InferenceModel, or a bare ``(enc, dec)``
+        callable) switches to speculative decoding through the step
+        scheduler: the draft proposes ``spec_k`` tokens per step and this
+        model verifies them in one wide step, greedy output bitwise the
+        plain decode's. Every wide step then pads to the whole batch, so
+        the row count of every product stays that of the plain loop as
+        sequences finish. Each row keeps a private rng stream under
+        ``draft`` (seeded ``seed + row``). ``trace_ids`` is ignored (no
+        telemetry yet). Returns ``[batch, max_new_tokens, output_dim]``."""
+        from analytics_zoo_tpu_torch.inference import generation
+
+        self._decode_module()
+        if draft is not None:
+            from analytics_zoo_tpu_torch.inference import decode_scheduler
+
+            draft_fn = (draft.decode_step_fn()
+                        if hasattr(draft, "decode_step_fn") else draft)
+            input_seq = np.asarray(input_seq)
+            start = np.asarray(start_sign, np.float32)
+            n = max(1, int(input_seq.shape[0]))
+            sched = decode_scheduler.DecodeScheduler(
+                self.decode_step_fn(), max_batch=n,
+                max_seq=int(max_new_tokens) + 1,
+                batch_ladder=compile_ahead.BucketLadder(n, n),
+                draft_fn=draft_fn, spec_k=spec_k)
+            seqs = [sched.admit(
+                        input_seq[i], start[i], max_new_tokens,
+                        mode=mode, temperature=temperature,
+                        seed=None if seed is None else int(seed) + i,
+                        tag=i)
+                    for i in range(input_seq.shape[0])]
+            sched.drain()
+            return np.stack([s.result for s in seqs])
+        if ladder is None:
+            ladder = generation.seq_ladder(int(max_new_tokens) + 1)
+        return generation.decode_loop(
+            self.decode_step_fn(), input_seq, start_sign,
+            max_new_tokens, ladder=ladder, mode=mode,
+            temperature=temperature, seed=seed)
 
     # java-flavoured aliases (ref AbstractInferenceModel.java)
     do_predict = predict

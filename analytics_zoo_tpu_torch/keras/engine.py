@@ -12,11 +12,15 @@ flax tree maps key for key onto the ``state_dict`` (see ``convert.py``).
 Calling one layer object on two nodes reuses its modules (weight sharing).
 Modules are built when the ``GraphModule`` is, in topological order, with
 their input widths taken from the nodes' inferred shapes and their initial
-values drawn from one ``torch.Generator`` seeded by the caller.
+values drawn from one ``torch.Generator`` seeded by the caller. A layer
+whose flax module is named by flax itself (an RNN cell: ``GRUCell_0``)
+takes that name from :func:`flax_autoname`, which counts per class in
+creation order within the graph being built, as flax does.
 """
 
 from __future__ import annotations
 
+import contextvars
 import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -30,6 +34,23 @@ _name_counters: Dict[str, itertools.count] = {}
 def fresh_name(prefix: str) -> str:
     c = _name_counters.setdefault(prefix, itertools.count(1))
     return f"{prefix}_{next(c)}"
+
+
+#: per-class counters of the GraphModule being built
+_autonames: contextvars.ContextVar = contextvars.ContextVar(
+    "zoo_flax_autonames", default=None)
+
+
+def flax_autoname(cls_name: str) -> str:
+    """The name flax gives the next unnamed ``cls_name`` submodule of the
+    graph being built: ``GRUCell_0``, ``GRUCell_1``, ..."""
+    counts = _autonames.get()
+    if counts is None:
+        raise RuntimeError("flax_autoname is only valid while a "
+                           "GraphModule builds its modules")
+    n = counts.get(cls_name, 0)
+    counts[cls_name] = n + 1
+    return f"{cls_name}_{n}"
 
 
 class Node:
@@ -116,6 +137,13 @@ class GraphModule(nn.Module):
         generator = torch.Generator().manual_seed(int(seed))
         # layer name -> the top-level module names it owns
         self._layer_keys: Dict[str, Tuple[str, ...]] = {}
+        token = _autonames.set({})
+        try:
+            self._build(generator)
+        finally:
+            _autonames.reset(token)
+
+    def _build(self, generator: torch.Generator) -> None:
         for node in self.order:
             layer = node.layer
             if node.id in self.graph_inputs or layer.name in \

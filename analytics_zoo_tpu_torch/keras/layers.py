@@ -1,28 +1,31 @@
-"""zoo-Keras layers on PyTorch — the ones the NCF and BERT slices use.
+"""zoo-Keras layers on PyTorch — the ones the NCF, BERT and Seq2Seq slices
+use.
 
 Counterpart of ``analytics_zoo_tpu/keras/layers.py``: the activation
-table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Merge`` /
-``merge``, ``FusedEmbeddings`` over ``_EmbedTable``,
-``LayerNormalization``, ``MultiHeadAttention``, ``TransformerLayer`` and
-``BERT``. Layers are config objects; execution happens inside the one
-``GraphModule`` (engine.py). Parameter names follow the flax tree:
+table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Lambda``,
+``Merge`` / ``merge``, ``FusedEmbeddings`` over ``_EmbedTable``,
+``LayerNormalization``, ``MultiHeadAttention``, ``TransformerLayer``,
+``BERT``, the recurrent ``LSTM`` / ``GRU`` / ``SimpleRNN`` and
+``TimeDistributed``. Layers are config objects; execution happens inside
+the one ``GraphModule`` (engine.py). Parameter names follow the flax tree:
 ``<dense>.weight`` / ``.bias`` (``nn.Linear``, the flax kernel
-transposed), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``)
-and the submodule names of text/bert.py under the layer's name. The rest
-of the layer library waits for later slices.
+transposed), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``),
+the submodule names of text/bert.py under the layer's name, and the flax
+cells' own names for the recurrent layers (``GRUCell_0.ir.weight``). The
+rest of the layer library waits for later slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.keras.engine import KerasLayer as _KerasLayerBase
-from analytics_zoo_tpu_torch.keras.engine import Node
+from analytics_zoo_tpu_torch.keras.engine import Node, flax_autoname
 
 
 class KerasLayer(_KerasLayerBase):
@@ -161,6 +164,26 @@ class Flatten(KerasLayer):
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]
         return (math.prod(s),) if s else None
+
+
+class Lambda(KerasLayer):
+    """Wrap an arbitrary torch function (ref autograd.py Lambda:393).
+    ``output_shape`` (without the batch dimension) is the port's addition:
+    a layer after it that owns parameters needs its input width when the
+    modules are built, and the function cannot say."""
+
+    def __init__(self, function: Callable, output_shape=None,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.function = function
+        self.output_shape = tuple(output_shape) \
+            if output_shape is not None else None
+
+    def apply(self, modules, args, train):
+        return self.function(*args)
+
+    def _infer_shape(self, in_shapes):
+        return self.output_shape
 
 
 # ---------------- embeddings ----------------
@@ -311,6 +334,227 @@ def merge(inputs: List[Node], mode: str = "sum", concat_axis: int = -1
           ) -> Node:
     """Functional merge (ref pyzoo keras merge())."""
     return Merge(mode=mode, concat_axis=concat_axis)(inputs)
+
+
+# ---------------- recurrent ----------------
+#
+# Each cell mirrors flax's arithmetic with a loop over time and a zero
+# initial carry. Not nn.GRU / nn.LSTM: cuDNN splits the biases and sums in
+# its own way. Every product is one time step at [batch, .]: a product over
+# [batch * time, .] would give cuBLAS a row count that grows with the
+# decode rung, and with it possibly another kernel and other bits at live
+# positions. The gates of one side (input or recurrent) run as one product
+# of the concatenated weights; flax's OptimizedLSTMCell does the same, its
+# GRUCell does not, so the port agrees with flax within fp32 rounding.
+
+def _linear(in_f: int, out_f: int, bias: bool,
+            generator: torch.Generator) -> nn.Linear:
+    lin = nn.Linear(int(in_f), int(out_f), bias=bias)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 1.0 / math.sqrt(in_f), generator=generator)
+        if bias:
+            lin.bias.zero_()
+    return lin
+
+
+class _RNNCell(nn.Module):
+    """A flax RNN cell's parameters: one ``nn.Linear`` per flax Dense,
+    named as flax names them (``in`` and ``if`` are Python keywords, so
+    they are registered with ``add_module``)."""
+
+    #: (name, has a bias) of the input-side and of the recurrent Denses
+    INPUT: Tuple[Tuple[str, bool], ...]
+    RECURRENT: Tuple[Tuple[str, bool], ...]
+
+    def __init__(self, in_features: int, features: int, activation,
+                 generator: torch.Generator):
+        super().__init__()
+        for gates, fan_in in ((self.INPUT, in_features),
+                              (self.RECURRENT, features)):
+            for name, bias in gates:
+                self.add_module(name, _linear(fan_in, features, bias,
+                                              generator))
+        self.features = int(features)
+        self.activation = activation
+
+    def _side(self, gates):
+        mods = [self._modules[n] for n, _ in gates]
+        w = torch.cat([m.weight for m in mods])
+        if not any(b for _, b in gates):
+            return w, None
+        # a gate without a flax bias (GRU's hr, hz) adds a zero one: x + 0
+        # is x
+        return w, torch.cat([m.bias if m.bias is not None
+                             else torch.zeros_like(m.weight[:, 0])
+                             for m in mods])
+
+    def weights(self):
+        """The concatenated input-side and recurrent weights and biases,
+        made once per forward."""
+        return self._side(self.INPUT), self._side(self.RECURRENT)
+
+    def init_carry(self, x0: torch.Tensor):
+        return x0.new_zeros((x0.shape[0], self.features))
+
+    def output(self, carry) -> torch.Tensor:
+        return carry
+
+
+class GRUCellModule(_RNNCell):
+    """flax ``GRUCell``: ``r = σ(ir x + hr h)``, ``z = σ(iz x + hz h)``,
+    ``n = act(in x + r ⊙ (hn h + b_hn))``, ``h' = (1 - z) ⊙ n + z ⊙ h``."""
+
+    INPUT = (("ir", True), ("iz", True), ("in", True))
+    RECURRENT = (("hr", False), ("hz", False), ("hn", True))
+
+    def step(self, x, h, w):
+        (wi, bi), (wh, bh) = w
+        gi = F.linear(x, wi, bi)
+        gh = F.linear(h, wh, bh)
+        f = self.features
+        rz = torch.sigmoid(gi[:, :2 * f] + gh[:, :2 * f])
+        r, z = rz[:, :f], rz[:, f:]
+        n = self.activation(gi[:, 2 * f:] + r * gh[:, 2 * f:])
+        return (1.0 - z) * n + z * h
+
+
+class OptimizedLSTMCellModule(_RNNCell):
+    """flax ``OptimizedLSTMCell``: ``s = (h W_h + b_h) + x W_i`` in one
+    product per side; ``i, f, o = σ(s)``, ``g = act(s)``, ``c' = f ⊙ c + i ⊙
+    g``, ``h' = o ⊙ act(c')``."""
+
+    INPUT = (("ii", False), ("if", False), ("ig", False), ("io", False))
+    RECURRENT = (("hi", True), ("hf", True), ("hg", True), ("ho", True))
+
+    def init_carry(self, x0):
+        zero = x0.new_zeros((x0.shape[0], self.features))
+        return zero, zero
+
+    def output(self, carry):
+        return carry[1]
+
+    def step(self, x, carry, w):
+        (wi, _), (wh, bh) = w
+        c, h = carry
+        s = F.linear(h, wh, bh) + F.linear(x, wi)
+        f = self.features
+        sig = torch.sigmoid(s)
+        g = self.activation(s[:, 2 * f:3 * f])
+        c = sig[:, f:2 * f] * c + sig[:, :f] * g
+        return c, sig[:, 3 * f:] * self.activation(c)
+
+
+class SimpleCellModule(_RNNCell):
+    """flax ``SimpleCell``: ``h' = act(i x + h h)``."""
+
+    INPUT = (("i", True),)
+    RECURRENT = (("h", False),)
+
+    def step(self, x, h, w):
+        (wi, bi), (wh, _) = w
+        return self.activation(F.linear(x, wi, bi) + F.linear(h, wh))
+
+
+class _RNNBase(KerasLayer):
+    cell_cls = None
+    #: the flax cell's class name, which names its parameters
+    flax_cell = None
+
+    def __init__(self, output_dim: int, activation="tanh",
+                 return_sequences: bool = False, go_backwards: bool = False,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.output_dim = int(output_dim)
+        self.activation = activation
+        self.return_sequences = return_sequences
+        self.go_backwards = go_backwards
+
+    def make_modules(self, in_shapes, generator):
+        if self.compute_dtype is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__} runs in float32 only; a compute "
+                "dtype policy for the recurrent layers waits for a later "
+                "slice")
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown; give the "
+                             "model's Input a shape")
+        cell = self.cell_cls(int(s[-1]), self.output_dim,
+                             get_activation(self.activation), generator)
+        return {flax_autoname(self.flax_cell): cell}
+
+    def apply(self, modules, args, train):
+        (cell,) = modules.values()
+        x = args[0]
+        if self.go_backwards:
+            # flax RNN(reverse=True, keep_order=False): outputs in the
+            # order the sequence was read
+            x = torch.flip(x, dims=(1,))
+        steps = x.transpose(0, 1).contiguous()     # [time, batch, in]
+        w = cell.weights()
+        carry = cell.init_carry(steps[0])
+        outs = []
+        for x_t in steps:
+            carry = cell.step(x_t, carry, w)
+            outs.append(cell.output(carry))
+        if not self.return_sequences:
+            return outs[-1]
+        return torch.stack(outs, dim=1)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        return (s[0], self.output_dim) if self.return_sequences \
+            else (self.output_dim,)
+
+
+class LSTM(_RNNBase):
+    """(ref keras/layers/recurrent LSTM; flax's OptimizedLSTMCell)"""
+    cell_cls = OptimizedLSTMCellModule
+    flax_cell = "OptimizedLSTMCell"
+
+
+class GRU(_RNNBase):
+    cell_cls = GRUCellModule
+    flax_cell = "GRUCell"
+
+
+class SimpleRNN(_RNNBase):
+    cell_cls = SimpleCellModule
+    flax_cell = "SimpleCell"
+
+
+class TimeDistributed(KerasLayer):
+    """Apply a layer to every time step (ref keras TimeDistributed). The
+    JAX layer folds time into the batch; here the inner layer runs once per
+    step at ``[batch, ...]``, so its products' row count never depends on
+    the sequence length (see the recurrent layers above)."""
+
+    def __init__(self, layer: KerasLayer, name=None):
+        super().__init__(name)
+        self.layer = layer
+
+    def make_modules(self, in_shapes, generator):
+        # a user-chosen inner name is kept (save/load keys on it); only an
+        # auto-generated one is replaced to keep the tree deterministic
+        if getattr(self.layer, "_auto_named", False):
+            self.layer.name = f"{self.name}_inner"
+        s = in_shapes[0]
+        return self.layer.make_modules([None if s is None else s[1:]],
+                                       generator)
+
+    def apply(self, modules, args, train):
+        steps = args[0].transpose(0, 1).contiguous()
+        return torch.stack([self.layer.apply(modules, [x_t], train)
+                            for x_t in steps], dim=1)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        inner = self.layer._infer_shape([s[1:]])
+        return None if inner is None else (s[0],) + tuple(inner)
 
 
 # ---------------- normalization ----------------

@@ -3,5 +3,6 @@ models ported so far."""
 
 from analytics_zoo_tpu_torch.models.common import ZooModel, registry
 from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+from analytics_zoo_tpu_torch.models.seq2seq import Seq2Seq
 
-__all__ = ["ZooModel", "registry", "NeuralCF"]
+__all__ = ["ZooModel", "registry", "NeuralCF", "Seq2Seq"]

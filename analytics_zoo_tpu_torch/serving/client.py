@@ -3,8 +3,9 @@
 Counterpart of ``analytics_zoo_tpu/serving/client.py`` (ref
 pyzoo/zoo/serving/client.py: ``InputQueue:82`` with ``enqueue:144``,
 ``OutputQueue:234`` with ``query``): enqueue named tensors under a uri,
-poll the result hash for the answer. The telemetry hooks, priorities,
-deadlines, images and the Arrow format wait for later slices.
+poll the result hash for the answer; a ``generate`` request asks for an
+autoregressive generation instead of one prediction. The telemetry hooks,
+priorities, deadlines, images and the Arrow format wait for later slices.
 """
 
 from __future__ import annotations
@@ -31,27 +32,39 @@ class InputQueue:
         self.stream = stream
         self.cipher = cipher
 
-    def _encode(self, uri: Optional[str], inputs: Dict) -> "tuple[str, str]":
+    def _encode(self, uri: Optional[str], inputs: Dict,
+                generate: Optional[Dict] = None) -> "tuple[str, str]":
         if not inputs:
             raise ValueError("enqueue needs at least one named tensor")
+        gen = schema.validate_generate(generate)
         uri = schema.validate_uri(uri or uuid.uuid4().hex)
         return uri, schema.encode_record(
-            uri, {k: np.asarray(v) for k, v in inputs.items()}, self.cipher)
+            uri, {k: np.asarray(v) for k, v in inputs.items()}, self.cipher,
+            generate=gen)
 
-    def enqueue(self, uri: Optional[str] = None, **inputs) -> str:
+    def enqueue(self, uri: Optional[str] = None,
+                generate: Optional[Dict] = None, **inputs) -> str:
         """``enqueue("rec1", x=ndarray)``; returns the uri (generated when
-        not given). Multi-input models pass several named tensors."""
-        uri, payload = self._encode(uri, inputs)
+        not given). Multi-input models pass several named tensors.
+
+        ``generate`` (``{"max_new_tokens": 16, "mode": "greedy",
+        "temperature": 1.0, "seed": None}``, all optional) makes the
+        record a generate request: it carries the encoder tensor and a
+        ``start`` tensor (the decoder start sign), and the engine answers
+        with the generated ``[steps, dim]`` sequence. ``generate`` is
+        therefore reserved and cannot name an input tensor."""
+        uri, payload = self._encode(uri, inputs, generate)
         self._client.xadd(self.stream, payload)
         return uri
 
-    def enqueue_batch(self, records) -> "list[str]":
+    def enqueue_batch(self, records,
+                      generate: Optional[Dict] = None) -> "list[str]":
         """Enqueue many ``(uri, {name: tensor, ...})`` records in pipelined
         socket writes (pass ``None`` as a uri to have one generated).
-        Returns the uris in order."""
+        ``generate`` applies to every record. Returns the uris in order."""
         uris, cmds = [], []
         for uri, inputs in records:
-            uri, payload = self._encode(uri, inputs)
+            uri, payload = self._encode(uri, inputs, generate)
             uris.append(uri)
             cmds.append(("XADD", self.stream, payload))
         self._client.pipeline(cmds)

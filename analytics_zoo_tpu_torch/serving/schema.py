@@ -6,8 +6,9 @@ to what this slice uses. A record is one JSON object — ``{"uri",
 b64 raw bytes (C-order), the whole record b64-wrapped for the line
 protocol. Records and results are byte-compatible with the JAX package's.
 Optional record encryption plugs in as an (encrypt, decrypt) byte-callable
-pair. Images, priority lanes, deadlines, generate requests and the Arrow
-format wait for later slices.
+pair. A generate request rides the record's side channel as the JAX
+client writes it (``{"trace": {"g": {"n", "m", "t", "s"}}}``). Images,
+priority lanes, deadlines and the Arrow format wait for later slices.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import base64
 import json
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +30,45 @@ _URI_RE = re.compile(r"^[A-Za-z0-9._:-]{1,256}$")
 
 class ServingError(RuntimeError):
     """An error result stored in place of a prediction."""
+
+
+#: generation feedback modes a generate record may request (mirrors
+#: inference/generation.MODES, kept here so the wire schema needs no torch)
+GENERATE_MODES = ("raw", "greedy", "sample")
+
+
+def validate_generate(generate) -> Optional[Dict[str, Any]]:
+    """Normalize a client ``generate`` request into the compact wire form
+    carried on the record's side channel (the ``"g"`` key): ``{"n":
+    steps[, "m": mode, "t": temperature, "s": seed]}``, defaults (greedy,
+    temperature 1.0, no seed) omitted. Accepts the long keys
+    ``max_new_tokens``/``mode``/``temperature``/``seed`` or the wire keys;
+    ``None`` passes through (not a generate record)."""
+    if generate is None:
+        return None
+    if not isinstance(generate, dict):
+        raise ValueError("generate must be a dict of decode options")
+    g = dict(generate)
+    n = g.pop("max_new_tokens", g.pop("n", 16))
+    mode = g.pop("mode", g.pop("m", "greedy"))
+    temperature = g.pop("temperature", g.pop("t", 1.0))
+    seed = g.pop("seed", g.pop("s", None))
+    if g:
+        raise ValueError(f"unknown generate keys: {sorted(g)}")
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"generate max_new_tokens must be >= 1, got {n}")
+    if mode not in GENERATE_MODES:
+        raise ValueError(
+            f"bad generate mode {mode!r}: one of {GENERATE_MODES}")
+    out: Dict[str, Any] = {"n": n}
+    if mode != "greedy":
+        out["m"] = str(mode)
+    if float(temperature) != 1.0:
+        out["t"] = float(temperature)
+    if seed is not None:
+        out["s"] = int(seed)
+    return out
 
 
 def validate_uri(uri: str) -> str:
@@ -65,19 +105,30 @@ def _unwrap(payload_b64: str, cipher: Cipher) -> dict:
 
 
 def encode_record(uri: str, inputs: Dict[str, np.ndarray],
-                  cipher: Cipher = None) -> str:
-    return _wrap({"uri": uri,
-                  "inputs": {k: encode_tensor(np.asarray(v))
-                             for k, v in inputs.items()}}, cipher)
+                  cipher: Cipher = None,
+                  generate: Optional[Dict[str, Any]] = None) -> str:
+    """``generate``: a request in wire form (``validate_generate``),
+    written where the JAX client writes it."""
+    obj: Dict[str, Any] = {"uri": uri,
+                           "inputs": {k: encode_tensor(np.asarray(v))
+                                      for k, v in inputs.items()}}
+    if generate is not None:
+        obj["trace"] = {"g": generate}
+    return _wrap(obj, cipher)
 
 
-def decode_record(payload_b64: str, cipher: Cipher = None
-                  ) -> Tuple[str, Dict[str, np.ndarray]]:
-    """(uri, inputs). A record's other fields (the JAX client's trace
-    stamp) are ignored."""
+def decode_record(payload_b64: str, cipher: Cipher = None,
+                  with_generate: bool = False):
+    """(uri, inputs), or with ``with_generate`` (uri, inputs, g) where
+    ``g`` is the record's generate request as it came (None for a plain
+    record). The JAX client's other trace fields are ignored."""
     obj = _unwrap(payload_b64, cipher)
-    return obj["uri"], {k: decode_tensor(v)
-                        for k, v in obj["inputs"].items()}
+    inputs = {k: decode_tensor(v) for k, v in obj["inputs"].items()}
+    if not with_generate:
+        return obj["uri"], inputs
+    meta = obj.get("trace")
+    g = meta.get("g") if isinstance(meta, dict) else None
+    return obj["uri"], inputs, g
 
 
 def encode_result(arr: np.ndarray, cipher: Cipher = None) -> str:

@@ -57,11 +57,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
              fp32 and bf16 (finite losses, step ms on the host clock after
              a warm-up step, samples/s), then evaluate and predict; (c)
              each of the three flash kernels launched 12 times per step
+9. decode  — bench.py's decode configuration: Seq2Seq(8, 8, hidden 64,
+             GRU, encoder 8, decoder 4), weights from a numpy seed, batch
+             8, 32 greedy steps, page size 8. (a) InferenceModel(
+             device="cuda").load_zoo, warm_decode(33), greedy generate
+             (tokens/s, p99 step ms on the host clock); raw generate over
+             the rungs bitwise the exact-length loop and within
+             DECODE_RAW_ATOL of the CPU; (b) 4 streams through one
+             DecodeScheduler, interleaved and one at a time, bitwise (a);
+             (c) self-drafted speculative generate (spec_k 4) bitwise (a),
+             its accept ratio; (d) paged="force" bitwise "off" and (a), in
+             fp32 and under ZOO_KV_DTYPE=int8 (paged tokens/s, tune_paged's
+             speedup, KV bytes per sequence); (e) paged_attention on the
+             scheduler's live pool, tables and lengths mid-drain against
+             its plain version; (f) ClusterServing answers a burst of 32
+             generate records (32 tokens, engine batch 8) and 10 single
+             ones, each bitwise greedy generate of its row (records/s,
+             tokens/s, single-request p50)
+
+Phase 3d holds the paged kernels against their plain versions: the
+gather bitwise (fp32 and int8; the decode slice's shapes, the serving
+engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
+a page boundary, mid-page and full; dead pages poisoned; table entries
+out of range; an out_len trim), the decode attention within PAGED_RTOL /
+PAGED_ATOL (JAX's limit for its kernel) with empty rows exactly zero and
+dead pages invisible.
 
 Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
-path) and read right after it: every kernel of the path must have
-launched there. The second-to-last line is the kernels
+path; phase 9, the decode path) and read right after it: every kernel of
+the path must have launched there. The second-to-last line is the kernels
 JSON, the last ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -137,6 +162,24 @@ TRAIN_LOSS_ATOL = 1e-5
 TRAIN_BF16_LOSS_ATOL = 1e-2
 TRAIN_GRAD_RTOL = 1e-4
 TRAIN_BF16_GRAD_RTOL = 0.25
+# decode: bench.py's measure_decode configuration
+DECODE = dict(input_dim=8, output_dim=8, hidden_size=64, rnn_type="gru",
+              encoder_seq_len=8, decoder_seq_len=4)
+DECODE_BATCH = 8
+DECODE_STEPS = 32
+DECODE_STREAMS = 4
+DECODE_SPEC_K = 4
+PAGE_SIZE = 8
+GEN_BURST = 32
+GEN_SINGLE = 10
+# raw generation feeds each output back for 32 steps; cuBLAS and the CPU
+# sum the GRU's products in other orders
+DECODE_RAW_ATOL = 1e-4
+# paged decode attention vs its plain version: the limit JAX holds its
+# Pallas kernel to (tests/test_paged_attention.py), online vs two-pass
+# softmax in fp32
+PAGED_RTOL = 2e-5
+PAGED_ATOL = 2e-6
 
 
 def log(msg: str):
@@ -621,9 +664,10 @@ def phase_kernels(torch, eb):
     return results
 
 
-def ncf_weights(module, seed: int):
-    """The model's parameters drawn from a numpy seed: tables U(-0.05,
-    0.05), dense kernels glorot-uniform, biases U(-0.05, 0.05)."""
+def seeded_weights(module, seed: int):
+    """The model's parameters drawn from a numpy seed: weights (dense
+    kernels, RNN gates) glorot-uniform, tables and biases U(-0.05,
+    0.05)."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
@@ -892,6 +936,428 @@ def phase_bert_fit(torch, np, state, Estimator, kind):
     return rep
 
 
+def gather_bound(pool, table, lengths, out_len):
+    """Least time for one paged gather: the live rows (and, for int8,
+    their pages' scales) read once, the output written, the table and
+    lengths read, over the memory rate; int8 does one multiply per live
+    element."""
+    import torch
+    ps, d = pool.shape[1], pool.shape[2]
+    live = lengths.long().clamp(0, out_len)
+    moved = int(live.sum()) * d * pool.element_size()
+    moved += table.shape[0] * out_len * d * 4 + table.numel() * 4 \
+        + lengths.numel() * 4
+    flops = 0
+    if pool.dtype == torch.int8:
+        moved += int(((live + ps - 1) // ps).sum()) * 4
+        flops = int(live.sum()) * d
+    return roofline(moved, flops, torch.float32)
+
+
+def paged_attention_bound(q, pool, lengths, width):
+    """Least time for one paged decode attention: the live K and V rows
+    read once, q read and the output written, over the memory rate, or
+    4 * sum(len) * d flops (q.k and w.v) over the fp32 rate."""
+    import torch
+    ps, d = pool.shape[1], pool.shape[2]
+    live = int(lengths.long().clamp(0, width * ps).sum())
+    moved = 2 * live * d * pool.element_size() + 2 * q.numel() * 4 \
+        + lengths.numel() * 4 + q.shape[0] * width * 4
+    return roofline(moved, 4 * live * d, torch.float32)
+
+
+def paged_case(torch, gen, dev, dtype, n_pages, ps, d, batch, width):
+    """A pool of ``dtype`` with per-page scales, a table with entries out
+    of range, lengths with 0, a page boundary, mid-page and full."""
+    if dtype == torch.int8:
+        pool = torch.randint(-127, 128, (n_pages, ps, d), generator=gen,
+                             dtype=torch.int32).to(torch.int8)
+        scales = torch.rand(n_pages, generator=gen) * 0.045 + 0.005
+    else:
+        pool = torch.randn(n_pages, ps, d, generator=gen)
+        scales = torch.ones(n_pages)
+    table = torch.randint(0, n_pages, (batch, width), generator=gen,
+                          dtype=torch.int32)
+    table[0, 0], table[-1, -1] = -1, n_pages + 5      # clamped
+    cap = width * ps
+    lengths = torch.randint(0, cap + 1, (batch,), generator=gen,
+                            dtype=torch.int32)
+    for i, n in enumerate((0, ps, min(ps + ps // 2, cap), cap)):
+        if i < batch:
+            lengths[i] = n
+    return (pool.to(dev), scales.to(dev), table.to(dev), lengths.to(dev))
+
+
+def dead_pages(table, lengths, ps, n_pages):
+    """Pages that no live position of any row reads."""
+    live = set()
+    for row, n in zip(table.tolist(), lengths.tolist()):
+        for p in range(-(-max(n, 0) // ps)):
+            live.add(min(max(row[p], 0), n_pages - 1))
+    return [p for p in range(n_pages) if p not in live]
+
+
+def poisoned(torch, pool, dead):
+    out = pool.clone()
+    if dead:
+        out[dead] = 127 if pool.dtype == torch.int8 else float("nan")
+    return out
+
+
+def paged_close(got, want) -> bool:
+    return bool(((got - want).abs()
+                 <= PAGED_ATOL + PAGED_RTOL * want.abs()).all())
+
+
+def phase_paged(torch, pa):
+    """Phase 3d: the paged gather (bitwise) and the paged decode attention
+    (within PAGED_RTOL / PAGED_ATOL) against their plain versions."""
+    from analytics_zoo_tpu_torch.inference import generation
+    from analytics_zoo_tpu_torch.inference.decode_scheduler import (
+        default_pool_pages,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    slice_pages = default_pool_pages(DECODE_BATCH, DECODE_STEPS, spec_k=0,
+                                     page_size=PAGE_SIZE)
+    rungs = generation.seq_ladder(DECODE_STEPS + 1,
+                                  min_rung=PAGE_SIZE).rungs
+    serve_pages = default_pool_pages(
+        DECODE_BATCH, generation.DEFAULT_SEQ_RUNGS[1], DECODE_SPEC_K,
+        PAGE_SIZE)
+    serve_width = -(-(generation.DEFAULT_SEQ_RUNGS[1] + DECODE_SPEC_K + 1)
+                    // PAGE_SIZE)
+    # (name, n_pages, page_size, dim, batch, width, out_len trim)
+    gather_shapes = [(f"slice_w{-(-r // PAGE_SIZE)}", slice_pages,
+                      PAGE_SIZE, DECODE["output_dim"], DECODE_BATCH,
+                      -(-r // PAGE_SIZE), 0) for r in rungs]
+    gather_shapes += [("serving", serve_pages, PAGE_SIZE,
+                       DECODE["output_dim"], DECODE_BATCH, serve_width, 3),
+                      ("wide", 32 * 256, 16, 128, 32, 256, 0)]
+    attn_shapes = [("slice", slice_pages, PAGE_SIZE, DECODE["output_dim"],
+                    DECODE_BATCH, -(-rungs[-1] // PAGE_SIZE)),
+                   ("jax_tests", 7, 4, 8, 4, 2),
+                   ("wide", 32 * 256, 16, 128, 32, 256)]
+    gathers, attns = [], []
+    for dtype in (torch.float32, torch.int8):
+        for name, n_pages, ps, d, batch, width, trim in gather_shapes:
+            pool, scales, table, lengths = paged_case(
+                torch, gen, dev, dtype, n_pages, ps, d, batch, width)
+            out_len = width * ps - trim
+            got = pa.paged_gather(pool, table, lengths, scales, out_len)
+            want = pa.paged_gather_ref(pool, table, lengths, scales, out_len)
+            dead = dead_pages(table, lengths, ps, n_pages)
+            again = pa.paged_gather(poisoned(torch, pool, dead), table,
+                                    lengths, scales, out_len)
+            torch.cuda.synchronize()
+            if not (same_bits(got, want) and same_bits(again, want)):
+                raise AssertionError(
+                    f"paged gather != plain: {name} {dtype} max_abs_err="
+                    f"{max_abs_err(got, want)}, poisoned "
+                    f"{max_abs_err(again, want)}")
+            bound, bound_by = gather_bound(pool, table, lengths, out_len)
+            idx = table.long().clamp(0, n_pages - 1)
+            rec = dict(case=name, dtype=str(dtype), n_pages=n_pages, ps=ps,
+                       d=d, batch=batch, width=width, out_len=out_len,
+                       dead_pages=len(dead), max_abs_err=0.0,
+                       ms=cuda_ms(lambda: pa.paged_gather(
+                           pool, table, lengths, scales, out_len)),
+                       plain_ms=cuda_ms(lambda: pa.paged_gather_ref(
+                           pool, table, lengths, scales, out_len)),
+                       take_ms=cuda_ms(lambda: pool[idx]),
+                       library_ms=None, bound_ms=bound, bound_by=bound_by)
+            gathers.append(rec)
+            log(f"  paged gather {name:9s} {str(dtype):13s} b{batch} "
+                f"w{width} ps{ps} d{d} out_len {out_len}: bitwise ok "
+                f"({len(dead)} dead pages poisoned)  kernel "
+                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+                f"pool[table] {rec['take_ms']:.4f} ms  bound "
+                f"{bound:.6f} ms ({bound_by})")
+            del pool, table, got, want, again
+        for name, n_pages, ps, d, batch, width in attn_shapes:
+            kp, ks, table, lengths = paged_case(
+                torch, gen, dev, dtype, n_pages, ps, d, batch, width)
+            vp, vs, _, _ = paged_case(torch, gen, dev, dtype, n_pages, ps,
+                                      d, batch, width)
+            q = torch.randn(batch, d, generator=gen).to(dev)
+            kw = dict(k_scales=ks, v_scales=vs)
+            got = pa.paged_attention(q, kp, vp, table, lengths, **kw)
+            want = pa.paged_attention_ref(q, kp, vp, table, lengths, **kw)
+            dead = dead_pages(table, lengths, ps, n_pages)
+            again = pa.paged_attention(q, poisoned(torch, kp, dead),
+                                       poisoned(torch, vp, dead), table,
+                                       lengths, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            empty = bool(got[lengths == 0].eq(0).all())
+            if not (paged_close(got, want) and same_bits(again, got)
+                    and empty and bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    f"paged attention != plain: {name} {dtype} max_abs_err="
+                    f"{err}, poisoned differs {not same_bits(again, got)}, "
+                    f"empty rows zero {empty}")
+            bound, bound_by = paged_attention_bound(q, kp, lengths, width)
+            rec = dict(case=name, dtype=str(dtype), n_pages=n_pages, ps=ps,
+                       d=d, batch=batch, width=width, dead_pages=len(dead),
+                       max_abs_err=err,
+                       ms=cuda_ms(lambda: pa.paged_attention(
+                           q, kp, vp, table, lengths, **kw)),
+                       plain_ms=cuda_ms(lambda: pa.paged_attention_ref(
+                           q, kp, vp, table, lengths, **kw)),
+                       library_ms=None, bound_ms=bound, bound_by=bound_by)
+            attns.append(rec)
+            log(f"  paged attention {name:9s} {str(dtype):13s} b{batch} "
+                f"w{width} ps{ps} d{d}: max_abs_err {err:.3g} (rtol "
+                f"{PAGED_RTOL}, atol {PAGED_ATOL}), empty rows zero, "
+                f"{len(dead)} dead pages invisible  kernel {rec['ms']:.4f}"
+                f" ms  plain {rec['plain_ms']:.4f} ms  bound {bound:.6f} "
+                f"ms ({bound_by})")
+            del kp, vp, table, got, want, again
+    return gathers, attns
+
+
+def counted(torch, fn):
+    """(fn's result, the kernel launches it made, its host seconds after
+    a device sync)."""
+    from analytics_zoo_tpu_torch.ops import _build
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, {n: c - before.get(n, 0)
+                 for n, c in _build.launch_counts().items()}, dt
+
+
+def phase_decode(torch, np, pa, kind):
+    """Phase 9 (a)-(e). Returns (the InferenceModel, its greedy
+    generation, the inputs, the report)."""
+    from analytics_zoo_tpu_torch.common.compile_ahead import BucketLadder
+    from analytics_zoo_tpu_torch.inference import (InferenceModel,
+                                                   decode_scheduler,
+                                                   generation)
+    from analytics_zoo_tpu_torch.models import Seq2Seq
+    b, steps = DECODE_BATCH, DECODE_STEPS
+    m = Seq2Seq(**DECODE)
+    seeded_weights(m.model.module, SEED)
+    rng = np.random.default_rng(7)
+    enc = rng.standard_normal((b, 8, DECODE["input_dim"])).astype(np.float32)
+    start = np.zeros((b, DECODE["output_dim"]), np.float32)
+    n_pool = decode_scheduler.default_pool_pages(b, steps, spec_k=0,
+                                                 page_size=PAGE_SIZE)
+    rep = {}
+
+    # (a) greedy generate, raw over the rungs vs exact and vs the CPU
+    im = InferenceModel(device="cuda").load_zoo(m)
+    im.set_ladder(BucketLadder(b, b))
+    t0 = time.perf_counter()
+    im.warm_decode(steps + 1, paged_pool=(n_pool, PAGE_SIZE))
+    rep["warm_decode_s"] = time.perf_counter() - t0
+    step = im.decode_step_fn()
+    step_times = []
+
+    def timed_step(e, d):
+        t1 = time.perf_counter()
+        out = step(e, d)
+        step_times.append(time.perf_counter() - t1)
+        return out
+
+    ladder = generation.seq_ladder(steps + 1)
+    generation.decode_loop(timed_step, enc, start, steps, ladder=ladder,
+                           mode="greedy")                 # untimed
+    step_times.clear()
+    greedy, _, dt = counted(torch, lambda: generation.decode_loop(
+        timed_step, enc, start, steps, ladder=ladder, mode="greedy"))
+    if not np.array_equal(greedy, im.generate(enc, start, steps)):
+        raise AssertionError("generate differs from its own decode loop")
+    raw = im.generate(enc, start, steps, mode="raw", ladder=ladder)
+    raw_exact = generation.decode_loop(step, enc, start, steps, ladder=None,
+                                       mode="raw")
+    raw_cpu = InferenceModel(device="cpu").load_zoo(m).generate(
+        enc, start, steps, mode="raw")
+    rep["a"] = dict(tokens_per_s=b * steps / dt,
+                    p99_step_ms=float(np.percentile(step_times, 99)) * 1e3,
+                    p50_step_ms=float(np.percentile(step_times, 50)) * 1e3,
+                    raw_max_abs_diff_cpu=float(np.abs(raw - raw_cpu).max()),
+                    greedy_one_hot=bool((greedy.sum(-1) == 1).all()))
+    if not np.array_equal(raw, raw_exact):
+        raise AssertionError("raw generate over the rungs differs from the "
+                             "exact-length loop")
+    if not (np.isfinite(raw).all() and rep["a"]["greedy_one_hot"]
+            and rep["a"]["raw_max_abs_diff_cpu"] <= DECODE_RAW_ATOL):
+        raise AssertionError(f"decode (a): {rep['a']}")
+    log(f"decode (a) greedy generate {b} x {steps} on {kind}: "
+        f"{rep['a']['tokens_per_s']:.1f} tokens/s, step p50 "
+        f"{rep['a']['p50_step_ms']:.3f} / p99 {rep['a']['p99_step_ms']:.3f} "
+        f"ms (host clock); raw over the rungs bitwise exact-length, max "
+        f"|cuda - cpu| {rep['a']['raw_max_abs_diff_cpu']:.3g} (atol "
+        f"{DECODE_RAW_ATOL}); warm_decode {rep['warm_decode_s']:.2f} s")
+
+    # (b) streams through one scheduler, interleaved vs one at a time
+    def run_streams(interleaved):
+        sched = decode_scheduler.DecodeScheduler(
+            step, max_batch=b, max_seq=steps, spec_k=0,
+            batch_ladder=BucketLadder(b, b))
+        seqs = []
+        for i in range(DECODE_STREAMS):
+            seqs.append(sched.admit(enc[i], start[i], steps, mode="greedy"))
+            if not interleaved:
+                sched.drain()
+        sched.drain()
+        return seqs
+
+    run_streams(True)                                      # untimed
+    serial, _, dt_serial = counted(torch, lambda: run_streams(False))
+    inter, _, dt_conc = counted(torch, lambda: run_streams(True))
+    for i in range(DECODE_STREAMS):
+        if not (np.array_equal(serial[i].result, greedy[i])
+                and np.array_equal(inter[i].result, greedy[i])):
+            raise AssertionError(f"decode (b) stream {i} differs from (a)")
+    rep["b"] = dict(concurrent_tokens_per_s=DECODE_STREAMS * steps / dt_conc,
+                    single_stream_tokens_per_s=DECODE_STREAMS * steps
+                    / dt_serial, concurrent_speedup=dt_serial / dt_conc)
+    log(f"decode (b) {DECODE_STREAMS} streams: interleaved "
+        f"{rep['b']['concurrent_tokens_per_s']:.1f} tokens/s, one at a time "
+        f"{rep['b']['single_stream_tokens_per_s']:.1f}, speedup "
+        f"{rep['b']['concurrent_speedup']:.3f}; bitwise (a)")
+
+    # (c) self-drafted speculative decoding
+    p0, a0 = (decode_scheduler.spec_proposed_total,
+              decode_scheduler.spec_accepted_total)
+    spec, _, dt_spec = counted(torch, lambda: im.generate(
+        enc, start, steps, draft=im, spec_k=DECODE_SPEC_K))
+    proposed = decode_scheduler.spec_proposed_total - p0
+    accepted = decode_scheduler.spec_accepted_total - a0
+    if not np.array_equal(spec, greedy) or proposed <= 0:
+        raise AssertionError(f"decode (c): speculative differs from (a) or "
+                             f"proposed nothing ({proposed})")
+    rep["c"] = dict(accept_ratio=accepted / proposed, proposed=proposed,
+                    tokens_per_s=b * steps / dt_spec)
+    log(f"decode (c) speculative (spec_k {DECODE_SPEC_K}, self-drafted): "
+        f"bitwise (a), accept ratio {rep['c']['accept_ratio']:.3f} of "
+        f"{proposed}, {rep['c']['tokens_per_s']:.1f} tokens/s")
+
+    # (d) paged force vs off, fp32 and int8; (e) attention on the live pool
+    paged_fn = im.paged_decode_step_fn()
+
+    def run_paged(paged, probe=False):
+        sched = decode_scheduler.DecodeScheduler(
+            step, max_batch=b, max_seq=steps, spec_k=0,
+            batch_ladder=BucketLadder(b, b), paged_step_fn=paged_fn,
+            paged=paged)
+        seqs = [sched.admit(enc[i], start[i], steps, mode="greedy")
+                for i in range(DECODE_STREAMS)]
+        att = None
+        if probe:
+            for _ in range(steps // 2):
+                sched.step()
+            pool, scales, table, lengths = sched.live_state()
+            pool_t = torch.from_numpy(pool).cuda()
+            q = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+                (len(lengths), DECODE["output_dim"])).astype(
+                    np.float32)).cuda()
+            kw = dict(k_scales=scales, v_scales=scales)
+            got = pa.paged_attention(q, pool_t, pool_t, table, lengths, **kw)
+            want = pa.paged_attention_ref(q, pool_t, pool_t, table, lengths,
+                                          **kw)
+            torch.cuda.synchronize()
+            att = dict(max_abs_err=max_abs_err(got, want),
+                       close=paged_close(got, want), lengths=lengths.tolist(),
+                       width=int(table.shape[1]))
+        sched.drain()
+        return sched, seqs, att
+
+    rep["d"] = {}
+    prev_kv = os.environ.get("ZOO_KV_DTYPE")
+    for kv in ("float32", "int8"):
+        os.environ["ZOO_KV_DTYPE"] = kv
+        try:
+            run_paged("force")                               # untimed
+            (sched, pseqs, _), launches, dt_paged = counted(
+                torch, lambda: run_paged("force"))
+            _, oseqs, _ = run_paged("off")
+            _, _, att = run_paged("force", probe=True)
+        finally:
+            os.environ.pop("ZOO_KV_DTYPE")
+            if prev_kv is not None:
+                os.environ["ZOO_KV_DTYPE"] = prev_kv
+        for i in range(DECODE_STREAMS):
+            if not (np.array_equal(pseqs[i].result, greedy[i])
+                    and np.array_equal(oseqs[i].result, greedy[i])):
+                raise AssertionError(f"decode (d) {kv} stream {i}: paged or "
+                                     f"off differs from (a)")
+        if not att["close"]:
+            raise AssertionError(f"decode (e) {kv}: paged attention on the "
+                                 f"live pool != plain: {att}")
+        alloc = sched.allocator
+        top = generation.seq_ladder(steps + 1, min_rung=PAGE_SIZE).rung_for(
+            steps + 1)
+        tune = sched.tune_paged(batch_rung=b, seq_rung=top,
+                                enc_shape=enc[0].shape)
+        rep["d"][kv] = dict(
+            tokens_per_s=DECODE_STREAMS * steps / dt_paged,
+            paged_steps=sched.paged_steps, launches=launches,
+            kv_bytes_per_seq=alloc.pages_for(1 + steps) * alloc.page_nbytes,
+            tune_paged=tune, live_attention=att)
+        log(f"decode (d) paged {kv}: force bitwise off and (a), "
+            f"{rep['d'][kv]['tokens_per_s']:.1f} tokens/s, "
+            f"{sched.paged_steps} paged steps, gather launches "
+            f"{launches.get('paged_gather')}; tune_paged speedup "
+            f"{tune['speedup']:.3f} (paged {tune['best_ms']:.3f} ms vs "
+            f"gather {tune['reference_ms']:.3f} ms); KV bytes per sequence "
+            f"{rep['d'][kv]['kv_bytes_per_seq']}; (e) live-pool attention "
+            f"max_abs_err {att['max_abs_err']:.3g}")
+    return im, greedy, (enc, start), rep
+
+
+def phase_decode_serving(np, im, greedy, inputs, serving_api, kind):
+    """Phase 9 (f): generate records through the broker and
+    ClusterServing; every answer equals greedy generate of its row."""
+    Broker, ClusterServing, InputQueue, OutputQueue = serving_api
+    enc, start = inputs
+    gen = {"max_new_tokens": DECODE_STEPS}
+    with Broker.launch(backend="python") as broker, \
+            ClusterServing(im, broker.port,
+                           batch_size=DECODE_BATCH) as serving:
+        iq = InputQueue(port=broker.port)
+        oq = OutputQueue(port=broker.port)
+        t0 = time.perf_counter()
+        uris = iq.enqueue_batch(
+            ((f"g{i}", {"x": enc[i % DECODE_BATCH],
+                        "start": start[i % DECODE_BATCH]})
+             for i in range(GEN_BURST)), generate=gen)
+        got = oq.query_many(uris, timeout=300, poll_interval=0.002)
+        burst_s = time.perf_counter() - t0
+        lat = []
+        for i in range(GEN_SINGLE):
+            t1 = time.perf_counter()
+            uri = iq.enqueue(f"s{i}", generate=gen,
+                             x=enc[i % DECODE_BATCH],
+                             start=start[i % DECODE_BATCH])
+            got[uri] = oq.query(uri, timeout=60, poll_interval=0.0005)
+            lat.append(time.perf_counter() - t1)
+        metrics = serving.metrics()
+        iq.close()
+        oq.close()
+    rows = {f"g{i}": i % DECODE_BATCH for i in range(GEN_BURST)}
+    rows.update({f"s{i}": i % DECODE_BATCH for i in range(GEN_SINGLE)})
+    for uri, i in rows.items():
+        if got.get(uri) is None or not np.array_equal(got[uri], greedy[i]):
+            raise AssertionError(f"served generation {uri} differs from "
+                                 f"greedy generate of row {i}")
+    rep = dict(records_per_s=GEN_BURST / burst_s,
+               tokens_per_s=GEN_BURST * DECODE_STEPS / burst_s,
+               single_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               metrics=metrics)
+    log(f"decode (f) serving on {kind}: {GEN_BURST} generate records of "
+        f"{DECODE_STEPS} tokens in {burst_s:.3f} s = "
+        f"{rep['records_per_s']:.2f} records/s, {rep['tokens_per_s']:.1f} "
+        f"tokens/s (engine batch {DECODE_BATCH}); single-request p50 "
+        f"{rep['single_p50_ms']:.3f} ms over {GEN_SINGLE}; every answer "
+        f"bitwise greedy generate; {metrics}")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -906,6 +1372,7 @@ def main() -> int:
     from analytics_zoo_tpu_torch.ops import _build
     from analytics_zoo_tpu_torch.ops import embedding_bag as eb
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops import paged_attention as pa
     from analytics_zoo_tpu_torch.serving import (Broker, ClusterServing,
                                                  InputQueue, OutputQueue)
 
@@ -936,10 +1403,14 @@ def main() -> int:
     report["flash_cases"] = flash_cases
     bwd_cases = phase_flash_bwd(torch, fa)
     report["flash_bwd_cases"] = bwd_cases
+    log("paged kernels vs plain (gather bitwise):")
+    gather_cases, attn_cases = phase_paged(torch, pa)
+    report["paged_gather_cases"] = gather_cases
+    report["paged_attention_cases"] = attn_cases
 
     # 4. slice — the NCF path starts here
     ncf = NeuralCF(**NCF)
-    ncf_weights(ncf.model.module, SEED)
+    seeded_weights(ncf.model.module, SEED)
     rng = np.random.RandomState(SEED)
     x = np.stack([rng.randint(1, NCF["user_count"] + 1, BATCH),
                   rng.randint(1, NCF["item_count"] + 1, BATCH)],
@@ -1035,8 +1506,29 @@ def main() -> int:
         if train_counts.get(name, 0) <= 0:
             raise AssertionError(f"the fine-tuning path launched no {name}:"
                                  f" {train_counts}")
+    # 9. decode: (a)-(e) through InferenceModel and DecodeScheduler, (f)
+    # through ClusterServing
+    _build.reset_launch_counts()
+    dec_im, greedy, dec_inputs, report["decode"] = phase_decode(
+        torch, np, pa, kind)
+    served_before = pa.gather_launches.value
+    report["decode_serving"] = phase_decode_serving(
+        np, dec_im, greedy, dec_inputs,
+        (Broker, ClusterServing, InputQueue, OutputQueue), kind)
+    served_gathers = pa.gather_launches.value - served_before
+    decode_counts = _build.launch_counts()
+    if report["decode"]["d"]["float32"]["launches"].get("paged_gather", 0) \
+            <= 0 or served_gathers <= 0:
+        raise AssertionError(f"the decode path did not launch paged_gather "
+                             f"in (d) and in (f): {report['decode']['d']}, "
+                             f"serving {served_gathers}")
+    if decode_counts.get("paged_attention", 0) <= 0:
+        raise AssertionError(f"the live pool launched no paged_attention: "
+                             f"{decode_counts}")
+    report["decode_serving"]["gather_launches"] = served_gathers
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
-                          "bert_train": train_counts}
+                          "bert_train": train_counts,
+                          "decode": decode_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -1079,6 +1571,24 @@ def main() -> int:
             "bound_ms": bhead[f"{kernel}_bound_ms"],
             "bound_by": bhead[f"{kernel}_bound_by"],
             "library_ms": bhead["library_ms"]})
+    # the paged kernels at the decode slice's shape (fp32, the top rung's
+    # table width); no single PyTorch call computes either function
+    for name, line, recs, head_case in (
+            ("paged_gather", 77, gather_cases,
+             max((c for c in gather_cases if c["case"].startswith("slice")),
+                 key=lambda c: c["width"])["case"]),
+            ("paged_attention", 174, attn_cases, "slice")):
+        head = next(c for c in recs if c["case"] == head_case
+                    and c["dtype"] == "torch.float32")
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": f"analytics_zoo_tpu/ops/paged_attention.py:{line}",
+            "launches": decode_counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in recs),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -64,7 +64,7 @@ def main() -> int:
     out = {"card": chip_smoke.card_line(),
            "torch": torch.__version__}
     ncf = NeuralCF(**chip_smoke.NCF)
-    chip_smoke.ncf_weights(ncf.model.module, chip_smoke.SEED)
+    chip_smoke.seeded_weights(ncf.model.module, chip_smoke.SEED)
     rng = np.random.RandomState(chip_smoke.SEED)
     n = chip_smoke.BATCH
     x = np.stack([rng.randint(1, chip_smoke.NCF["user_count"] + 1, n),

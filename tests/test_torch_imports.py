@@ -41,7 +41,9 @@ def test_importing_every_module_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("serving.engine", "ops.flash_attention", "ops.attention",
                 "text.bert", "text.estimators", "text.hf_import",
-                "common.flax_compat"):
+                "common.flax_compat", "ops.paged_attention",
+                "inference.generation", "inference.decode_scheduler",
+                "inference.quantize", "models.seq2seq.seq2seq"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
