@@ -7,22 +7,25 @@ kernel of the JAX package becomes a kernel written by hand for Hopper
 optax and nothing of ``analytics_zoo_tpu``.
 
 Entry points (``InferenceModel``, ``ClusterServing``, model ``predict``,
-``Estimator.from_torch``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without CUDA and without an explicit CPU device they
-raise.
+keras ``compile``/``fit``, ``Estimator.from_torch``) run on ``cuda``
+unless the caller passes ``device="cpu"``; without CUDA and without an
+explicit CPU device they raise.
 
 Subpackages ported so far (the NCF, BERT and Seq2Seq decode serving
-slices, BERT fine-tuning):
+slices, BERT fine-tuning, NCF training):
 
 - ``common``    — device resolution, the batch-bucket ladder, the flax
   layers the models build on (``flax_compat``)
-- ``ops``       — the fused embedding lookup, the flash-attention forward
-  and backward, the paged gather and paged decode attention kernels and
-  their build, attention
-- ``data``      — fixed-shape minibatches in the JAX package's order
+- ``ops``       — the fused embedding lookup, the multi-hot bag and their
+  scatter-add backward, the flash-attention forward and backward, the
+  paged gather and paged decode attention kernels and their build,
+  attention
+- ``data``      — fixed-shape minibatches in the JAX package's order,
+  XShards and DataFrames
 - ``learn``     — ``Estimator.from_torch``, losses, metrics, optimizers
 - ``keras``     — graph engine, the layers NCF, BERT and Seq2Seq use,
-  ``Model``/``Sequential``
+  ``Embedding``, ``Model``/``Sequential`` with ``compile``/``fit``/
+  ``evaluate``/``predict``
 - ``models``    — ``ZooModel``, ``NeuralCF`` and ``Seq2Seq``
 - ``text``      — BERT, the GPT-style transformer, the task heads,
   ``BERTClassifier``, the HuggingFace weight import

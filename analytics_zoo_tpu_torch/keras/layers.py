@@ -3,7 +3,8 @@ use.
 
 Counterpart of ``analytics_zoo_tpu/keras/layers.py``: the activation
 table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Lambda``,
-``Merge`` / ``merge``, ``FusedEmbeddings`` over ``_EmbedTable``,
+``Merge`` / ``merge``, ``FusedEmbeddings``, ``Embedding`` and
+``SparseEmbedding`` over ``_EmbedTable``,
 ``LayerNormalization``, ``MultiHeadAttention``, ``TransformerLayer``,
 ``BERT``, the recurrent ``LSTM`` / ``GRU`` / ``SimpleRNN`` and
 ``TimeDistributed``. Layers are config objects; execution happens inside
@@ -102,9 +103,14 @@ class Dense(KerasLayer):
     """(ref keras/layers/core.py Dense)"""
 
     def __init__(self, output_dim: int, activation=None,
-                 init="glorot_uniform", bias: bool = True, input_shape=None,
+                 init="glorot_uniform", bias: bool = True,
+                 W_regularizer=None, b_regularizer=None, input_shape=None,
                  name=None):
         super().__init__(name, input_shape)
+        if W_regularizer is not None or b_regularizer is not None:
+            raise NotImplementedError(
+                "parameter penalties (keras/regularizers.py) are not ported "
+                "yet (ROADMAP A5)")
         self.output_dim = int(output_dim)
         self.activation = get_activation(activation)
         self.init = get_init(init)
@@ -263,6 +269,69 @@ class FusedEmbeddings(KerasLayer):
         d = (sum(d for _, _, d in self.specs) if self.combine == "concat"
              else self.specs[0][2])
         return tuple(s[:-1]) + (d,)
+
+
+class Embedding(KerasLayer):
+    """(ref keras/layers/embeddings.py; Scala Embedding.scala).
+
+    ``pooling``: None (default) keeps the per-id lookup ``[..., k] →
+    [..., k, dim]`` (flax ``nn.Embed``: ``jnp.take``'s rule, the table
+    cast to the policy's dtype first); "sum"/"mean" treat the last input
+    axis as a bag of ids and pool their rows into one ``[..., dim]``
+    vector per bag through ``embedding_bag`` (the CUDA bag kernel on the
+    card). Ids are cast to int32 by truncation; ``zero_based_id=False``
+    subtracts 1 first (1-based vocab ids). The table is registered as
+    ``<name>.embedding``, as in the flax tree."""
+
+    def __init__(self, input_dim: int, output_dim: int, init="uniform",
+                 input_length=None, input_shape=None, name=None,
+                 zero_based_id: bool = True, pooling=None):
+        super().__init__(name, input_shape)
+        if pooling not in (None, "sum", "mean"):
+            raise ValueError(f"pooling must be None/'sum'/'mean', got "
+                             f"{pooling!r}")
+        self.input_dim, self.output_dim = int(input_dim), int(output_dim)
+        self.init = get_init(init)
+        self.zero_based_id = zero_based_id
+        self.pooling = pooling
+
+    def make_modules(self, in_shapes, generator):
+        table = _EmbedTable(self.input_dim, self.output_dim)
+        with torch.no_grad():
+            self.init(table.embedding, generator)
+        return {self.name: table}
+
+    def apply(self, modules, args, train):
+        from analytics_zoo_tpu_torch.ops.embedding_bag import (
+            embedding_bag, embedding_lookup,
+        )
+        ids = args[0].to(torch.int32)
+        if not self.zero_based_id:
+            ids = ids - 1
+        table = modules[self.name]()
+        if self.compute_dtype is not None:
+            table = table.to(self.compute_dtype)
+        if self.pooling is not None:
+            return embedding_bag(table, ids, mode=self.pooling)
+        if self.input_dim == 1:
+            # flax nn.Embed broadcasts a one-row table, whatever the id
+            return table[0].expand(*ids.shape, self.output_dim)
+        return embedding_lookup(table, ids)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        if self.pooling is not None:
+            return tuple(s[:-1]) + (self.output_dim,)
+        return tuple(s) + (self.output_dim,)
+
+
+class SparseEmbedding(Embedding):
+    """(ref embeddings.py SparseEmbedding). As in the JAX package this is
+    ``Embedding``: the gradient of a lookup is a dense table either way,
+    and ``pooling="sum"/"mean"`` rides the bag kernel for multi-hot
+    columns."""
 
 
 # ---------------- merge ----------------

@@ -1,11 +1,16 @@
-"""Sequential / Model topologies with predict and weight persistence.
+"""Sequential / Model topologies with compile/fit/evaluate/predict and
+weight persistence.
 
 Counterpart of ``analytics_zoo_tpu/keras/models.py`` (``KerasNet``,
 ``Model``, ``Sequential``). A built model is one ``GraphModule``
 (engine.py), made once from the graph with layer names canonicalized
 exactly as the JAX package does, so the same architecture gets the same
-parameter names in both packages. Training (``compile``/``fit``/
-``evaluate``) waits for a later slice; this slice serves.
+parameter names in both packages. Training delegates to the port's
+``TorchEstimator`` (learn/estimator.py), as the JAX package delegates to
+its estimator: ``compile(optimizer, loss, metrics, device=None)`` picks
+the device (``cuda`` unless ``device="cpu"``), and ``fit`` / ``evaluate``
+/ ``predict`` run there. The estimator trains the model's own module, so
+weights loaded before ``compile`` (or a second ``compile``) are kept.
 """
 
 from __future__ import annotations
@@ -20,9 +25,13 @@ from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
 from analytics_zoo_tpu_torch.keras.engine import (GraphModule, Input,
                                                   KerasLayer, Node, topo_sort)
 
+#: what the port leaves out of KerasNet, and the ROADMAP item it waits on
+_NOT_PORTED = "is not ported yet (ROADMAP A5)"
+
 
 class KerasNet:
-    """Shared predict/persistence surface (ref Topology.scala KerasNet).
+    """Shared compile/fit/predict/persistence surface (ref Topology.scala
+    KerasNet).
 
     ``seed`` seeds the ``torch.Generator`` the parameters are drawn from
     when the module is first built."""
@@ -30,6 +39,9 @@ class KerasNet:
     def __init__(self, seed: int = 0):
         self.seed = int(seed)
         self._module: Optional[GraphModule] = None
+        self._estimator = None
+        self._compile_args: Optional[dict] = None
+        self._strategy = "dp"
 
     # -- to be provided by subclass --
     def _graph(self) -> Tuple[List[Node], List[Node]]:
@@ -100,12 +112,112 @@ class KerasNet:
                      for s in shapes)
         return arrs[0] if len(arrs) == 1 else arrs
 
+    # -- training (ref Topology.scala compile:139, fit:347) --
+    def compile(self, optimizer, loss, metrics: Optional[List] = None,
+                device: DeviceLike = None) -> "KerasNet":
+        """Set the optimizer (an ``Optimizer`` or a name), the loss and
+        the metrics (keras names: ``"accuracy"``, ...). ``device`` is the
+        port's addition: where ``fit``/``evaluate``/``predict`` run
+        (default ``cuda``, which raises without CUDA; the tests pass
+        ``"cpu"``). Compiling keeps the current parameters (loaded weights,
+        earlier training) and starts a fresh optimizer state."""
+        self._compile_args = dict(optimizer=optimizer, loss=loss,
+                                  metrics=metrics, device=device)
+        self._estimator = None
+        return self
+
+    def set_strategy(self, strategy: str, param_rules=None) -> "KerasNet":
+        """Only ``"dp"`` on one device: meshes and sharding rules are
+        ROADMAP A9. Parameters are kept, as in JAX."""
+        if strategy != "dp" or param_rules is not None:
+            raise NotImplementedError(
+                f"strategy {strategy!r}: the port trains on one device; "
+                "meshes and sharding rules are ROADMAP A9")
+        self._strategy = strategy
+        self._estimator = None
+        return self
+
+    def _ensure_estimator(self, for_training: bool = False):
+        if self._estimator is None:
+            args = self._compile_args
+            if args is None:
+                if for_training:
+                    raise RuntimeError(
+                        "call compile(optimizer, loss) before fit/evaluate")
+                # weights-only use before compile is legal, as in JAX
+                args = dict(optimizer="adam", loss="mse", metrics=None,
+                            device=None)
+            from analytics_zoo_tpu_torch.learn.estimator import (
+                TorchEstimator,
+            )
+            self._estimator = TorchEstimator(
+                self.module, loss=args["loss"], optimizer=args["optimizer"],
+                metrics=args["metrics"], strategy=self._strategy,
+                device=args["device"])
+        return self._estimator
+
+    @property
+    def estimator(self):
+        """The training engine (built with adam/mse defaults if the model
+        is not compiled, as in JAX)."""
+        return self._ensure_estimator()
+
+    def set_constant_gradient_clipping(self, min_value, max_value):
+        self._ensure_estimator().set_constant_gradient_clipping(min_value,
+                                                                max_value)
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm):
+        self._ensure_estimator().set_l2_norm_gradient_clipping(clip_norm)
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        raise NotImplementedError(f"set_tensorboard {_NOT_PORTED}")
+
+    def set_checkpoint(self, path: str):
+        raise NotImplementedError(f"set_checkpoint {_NOT_PORTED}; use "
+                                  "save_weights or estimator.save")
+
+    @staticmethod
+    def _as_x(x):
+        return tuple(x) if isinstance(x, (list, tuple)) else x
+
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
+            validation_data=None, distributed: bool = True, shuffle=True,
+            feature_cols=None, label_cols=None, **kwargs):
+        """(ref Topology.scala fit:347; py keras fit(x, y, batch_size,
+        nb_epoch, validation_data)). ``x`` is an array, a list of arrays
+        for a multi-input model, or XShards / a DataFrame with
+        ``feature_cols``; returns ``{"loss": [...], "val_<metric>": [...]}``
+        with one value per epoch."""
+        est = self._ensure_estimator(for_training=True)
+        data = self._as_x(x) if y is None else (self._as_x(x), y)
+        if isinstance(validation_data, tuple) and len(validation_data) == 2:
+            validation_data = (self._as_x(validation_data[0]),
+                               validation_data[1])
+        return est.fit(data, epochs=nb_epoch, batch_size=batch_size,
+                       validation_data=validation_data, shuffle=shuffle,
+                       feature_cols=feature_cols, label_cols=label_cols,
+                       **kwargs)
+
+    def evaluate(self, x, y=None, batch_size: int = 32, **kwargs):
+        """The mean loss and each compiled metric over every row."""
+        est = self._ensure_estimator(for_training=True)
+        data = self._as_x(x) if y is None else (self._as_x(x), y)
+        return est.evaluate(data, batch_size=batch_size, **kwargs)
+
     # -- inference --
-    def predict(self, x, batch_size: int = 256,
+    def predict(self, x, batch_size: int = 256, distributed: bool = True,
                 device: DeviceLike = None) -> np.ndarray:
-        """Forward ``x`` (ndarray, or a tuple of them for a multi-input
-        model) in chunks of ``batch_size`` on ``device`` (default
-        ``cuda``); the module moves there."""
+        """Forward ``x`` (ndarray, or a list or tuple of them for a
+        multi-input model) in chunks of ``batch_size``. Once compiled,
+        through the estimator on the compiled device (``device``, if
+        given, must be it); before, on ``device`` (default ``cuda``), to
+        which the module moves."""
+        if self._compile_args is not None or self._estimator is not None:
+            est = self._ensure_estimator()
+            if device is not None and resolve_device(device) != est.device:
+                raise ValueError(f"the model is compiled for {est.device}, "
+                                 f"not {device}")
+            return est.predict(self._as_x(x), batch_size=batch_size)
         dev = resolve_device(device)
         module = self.module.to(dev).eval()
         xs = tuple(x) if isinstance(x, (list, tuple)) else (x,)
@@ -135,8 +247,29 @@ class KerasNet:
         torch.save(self.module.state_dict(), path)
 
     def load_weights(self, path: str):
+        """Load into the module in place, on whatever device it is: a
+        compiled model trains on from the loaded weights."""
         state = torch.load(path, map_location="cpu", weights_only=True)
         self.module.load_state_dict(state)
+
+    def get_weights(self) -> dict:
+        """A copy of the parameters as ``{"<layer>.<leaf>": ndarray}`` (the
+        JAX package returns its flax tree; ``convert.state_dict_to_flax``
+        maps between the two)."""
+        return {k: to_numpy(v).copy()
+                for k, v in self.module.state_dict().items()}
+
+    def save(self, path: str):
+        raise NotImplementedError(f"save with a pickled topology "
+                                  f"{_NOT_PORTED}; use save_weights")
+
+    @staticmethod
+    def load(path: str):
+        raise NotImplementedError(f"load of a pickled topology "
+                                  f"{_NOT_PORTED}; use load_weights")
+
+    def summary(self):
+        raise NotImplementedError(f"summary {_NOT_PORTED}")
 
 
 class Sequential(KerasNet):

@@ -50,11 +50,29 @@ from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
 from analytics_zoo_tpu_torch.data.dataset import (ShardedDataset,
                                                   to_sharded_dataset,
                                                   tree_map)
+from analytics_zoo_tpu_torch.data.shard import HostXShards, XShards
 from analytics_zoo_tpu_torch.learn import losses as loss_lib
 from analytics_zoo_tpu_torch.learn import metrics as metric_lib
 from analytics_zoo_tpu_torch.learn.optimizers import Optimizer
 
 CHECKPOINT = "estimator.pt"
+
+
+def _n_inputs(model: nn.Module, sig: inspect.Signature) -> Optional[int]:
+    """How many inputs the model's forward takes: a keras graph's input
+    count, else its required positional parameters (None when it takes
+    ``*args``)."""
+    graph_inputs = getattr(model, "graph_inputs", None)
+    if graph_inputs is not None:
+        return len(graph_inputs)
+    n = 0
+    for p in sig.parameters.values():
+        if p.kind == p.VAR_POSITIONAL:
+            return None
+        if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD) and \
+                p.default is p.empty:
+            n += 1
+    return n
 
 
 class Estimator:
@@ -101,8 +119,9 @@ class TorchEstimator:
         self._grad_clip = None  # ("norm", v) | ("const", min, max)
         self._epoch = 0
         self._py_step = 0
-        self._takes_train = "train" in inspect.signature(
-            self.model.forward).parameters
+        sig = inspect.signature(self.model.forward)
+        self._takes_train = "train" in sig.parameters
+        self._n_inputs = _n_inputs(self.model, sig)
 
     # ------------- gradient clipping (ref spark_estimator.py:150-180) ----
     def set_constant_gradient_clipping(self, min_value: float,
@@ -170,14 +189,27 @@ class TorchEstimator:
         return loss.detach()
 
     # ------------- public API --------------------------------------------
+    def _dataset(self, data, feature_cols, label_cols) -> ShardedDataset:
+        """``data`` as a ShardedDataset. A single-input model fed one
+        input per DataFrame column (the reference's DataFrame
+        convention) gets the scalar columns stacked into one matrix."""
+        ds = to_sharded_dataset(data, feature_cols, label_cols)
+        if (self._n_inputs == 1 and isinstance(ds.x, tuple)
+                and all(np.ndim(a) == 1 for a in ds.x)):
+            return ShardedDataset(np.column_stack(ds.x), ds.y)
+        return ds
+
     def fit(self, data, epochs: int = 1, batch_size: int = 32,
-            validation_data=None, summary_interval: int = 20,
+            feature_cols=None, label_cols=None, validation_data=None,
+            summary_interval: int = 20,
             shuffle: bool = True) -> Dict[str, List[float]]:
         """(ref orca/learn/tf/estimator.py fit:486) One optimizer step per
         batch of ``batch_size``; returns ``{"loss": [mean loss of each
-        epoch], "val_<metric>": [...]}``."""
-        ds = to_sharded_dataset(data)
-        val_ds = (to_sharded_dataset(validation_data)
+        epoch], "val_<metric>": [...]}``. ``data`` and ``validation_data``
+        take what ``to_sharded_dataset`` takes (``feature_cols`` and
+        ``label_cols`` name a DataFrame's columns)."""
+        ds = self._dataset(data, feature_cols, label_cols)
+        val_ds = (self._dataset(validation_data, feature_cols, label_cols)
                   if validation_data is not None else None)
         history: Dict[str, List[float]] = {"loss": []}
         target = self._epoch + epochs
@@ -214,11 +246,12 @@ class TorchEstimator:
         flush()
         return float(np.mean(losses)) if losses else float("nan")
 
-    def evaluate(self, data, batch_size: int = 32) -> Dict[str, float]:
+    def evaluate(self, data, batch_size: int = 32, feature_cols=None,
+                 label_cols=None) -> Dict[str, float]:
         """(ref orca/learn/tf/estimator.py evaluate:656) The mean loss and
         each metric over every row; the padded rows of the final batch are
         masked out."""
-        ds = to_sharded_dataset(data)
+        ds = self._dataset(data, feature_cols, label_cols)
         states = [m.init_state(self.device) for m in self.metrics]
         sums, counts = [], []
         self.model.train(False)
@@ -242,13 +275,15 @@ class TorchEstimator:
             out[metric.name] = metric.result(s)
         return out
 
-    def predict(self, data, batch_size: int = 32):
+    def predict(self, data, batch_size: int = 32, feature_cols=None):
         """(ref estimator.py predict:598-654) The model's outputs for every
-        row, as numpy (a tuple of arrays for a model with several)."""
+        row, as numpy (a tuple of arrays for a model with several); given
+        XShards, ``HostXShards([{"prediction": outputs}])``."""
+        was_shards = isinstance(data, XShards)
         if isinstance(data, tuple):
             # predict takes features only: a tuple is a multi-input x
             data = {"x": data}
-        ds = to_sharded_dataset(data)
+        ds = self._dataset(data, feature_cols, None)
         if ds.n == 0:
             raise ValueError("predict called on an empty dataset")
         outs = []
@@ -263,9 +298,13 @@ class TorchEstimator:
                     preds = tree_map(lambda a: a[:valid], preds)
                 outs.append(preds)
         if isinstance(outs[0], tuple):
-            return tuple(np.concatenate([o[i] for o in outs])
-                         for i in range(len(outs[0])))
-        return np.concatenate(outs)
+            merged = tuple(np.concatenate([o[i] for o in outs])
+                           for i in range(len(outs[0])))
+        else:
+            merged = np.concatenate(outs)
+        if was_shards:
+            return HostXShards([{"prediction": merged}])
+        return merged
 
     # ------------- persistence -------------------------------------------
     def save(self, path: str) -> str:

@@ -1,5 +1,6 @@
 """ZooModel base (ref ``zoo/.../models/common/ZooModel.scala:154``):
-a prebuilt Keras-graph model with predict plus save/load.
+a prebuilt Keras-graph model with compile/fit/evaluate/predict plus
+save/load, delegated to its ``KerasNet``.
 
 Counterpart of ``analytics_zoo_tpu/models/common.py``. ``save_model``
 writes the port's own format: ``config.json`` (the class and its
@@ -23,8 +24,32 @@ class ZooModel:
     def __init__(self):
         self.model = None  # subclasses set in build_model()
 
+    # the training surface delegates to the inner KerasNet
+    def compile(self, optimizer, loss, metrics=None,
+                device: DeviceLike = None):
+        return self.model.compile(optimizer, loss, metrics, device=device)
+
+    def fit(self, *args, **kwargs):
+        return self.model.fit(*args, **kwargs)
+
+    def evaluate(self, *args, **kwargs):
+        return self.model.evaluate(*args, **kwargs)
+
     def predict(self, x, batch_size: int = 256, device: DeviceLike = None):
         return self.model.predict(x, batch_size=batch_size, device=device)
+
+    def set_strategy(self, strategy, param_rules=None):
+        """Only ``"dp"`` (one device)."""
+        return self.model.set_strategy(strategy, param_rules)
+
+    def summary(self):
+        return self.model.summary()
+
+    def set_tensorboard(self, log_dir, app_name):
+        self.model.set_tensorboard(log_dir, app_name)
+
+    def set_checkpoint(self, path):
+        self.model.set_checkpoint(path)
 
     # -- persistence (ref ZooModel.saveModel / load_model) --
     def _config(self) -> dict:

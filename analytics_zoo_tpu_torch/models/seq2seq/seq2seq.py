@@ -7,8 +7,9 @@ last output into the decoder, a decoder that sees its teacher-forced input
 concatenated with the bridged context at every step, and a
 ``TimeDistributed`` Dense head. ``predict`` runs ``[encoder_input,
 decoder_input]``; ``infer`` generates autoregressively through
-inference/generation.py. Training waits for the keras training engine
-(ROADMAP A5).
+inference/generation.py. ``fit`` is not ported yet (ROADMAP A5): the
+keras training engine exists, its parity through the recurrent layers is
+not tested.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ class Seq2Seq(ZooModel):
 
     def fit(self, x, y=None, **kwargs):
         raise NotImplementedError(
-            "Seq2Seq.fit waits for the keras training engine (ROADMAP A5)")
+            "Seq2Seq.fit is not ported yet (ROADMAP A5)")
 
     def predict(self, x, batch_size: int = 256, device: DeviceLike = None):
         """``x``: the ``[enc_input, dec_input]`` pair."""

@@ -74,6 +74,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
              generate records (32 tokens, engine batch 8) and 10 single
              ones, each bitwise greedy generate of its row (records/s,
              tokens/s, single-request p50)
+10. NCF training — bench.py's measure_ncf (NeuralCF at MovieLens-1M
+             width, Adam(1e-3), batch 8000, 400 000 rows, weights from a
+             numpy seed) through keras compile/fit: (a) one step on the
+             card against the same step on the CPU, the loss and every
+             parameter within NCF_STEP_*_ATOL and every table moved; (b)
+             fit one epoch (50 steps) after a warm-up step (step ms on the
+             host clock, samples/s, finite losses), evaluate and predict;
+             (c) 2 lookup and 4 scatter-add launches a step; (d) the same
+             for NCF with a pooled item-history column (Embedding(3707,
+             20, pooling="mean") over 8 ids): 1 bag and 5 scatter-add
+             launches a step
 
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
@@ -83,11 +94,22 @@ out of range; an out_len trim), the decode attention within PAGED_RTOL /
 PAGED_ATOL (JAX's limit for its kernel) with empty rows exactly zero and
 dead pages invisible.
 
+Phase 3e holds the bag kernel and the scatter-add kernel (the backward
+of the lookup and the bag) against their plain versions bitwise: the
+bag at the history column's shape (b 8000, bag 8, d 20), with lengths 0,
+partial and full and ids out of range before and past the length, and a
+wide case (b 4096, bag 64, d 128, V 100 000), sum and mean, fp32 and
+bf16; the scatter for each combine of the lookup at NCF's tables (ids
+out of range dropped), for the bag, and with every id one row, each
+launched twice for the same bits; with F.embedding_bag and index_add_
+as the one-call yardsticks.
+
 Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
-path; phase 9, the decode path) and read right after it: every kernel of
-the path must have launched there. The second-to-last line is the kernels
-JSON, the last ``{"ok": true, "device": {...}}``. Details go to
+path; phase 9, the decode path; phase 10(b)-(d), the NCF training path)
+and read right after it: every kernel of the path must have launched
+there. The second-to-last line is the kernels JSON, the last
+``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
 
@@ -180,6 +202,25 @@ DECODE_RAW_ATOL = 1e-4
 # softmax in fp32
 PAGED_RTOL = 2e-5
 PAGED_ATOL = 2e-6
+# NCF training: bench.py's measure_ncf (bench.py:25-29, 65-82), uncut:
+# 400 000 rows of 1-based ids from numpy default_rng(0), label (u + i) % 5,
+# batch 8000 (50 steps an epoch), Adam(1e-3), fp32
+NCF_TRAIN_ROWS = 400_000
+NCF_LR = 1e-3
+NCF_STEPS = NCF_TRAIN_ROWS // BATCH
+# the item-history column: the Friesian pipeline's add_hist_seq(max_len=8)
+# and mask_pad(seq_len=8) (bench.py:1618, 1643-1650): pad id 0
+HIST_LEN = 8
+# the bag kernel's wide case: (batch, bag, dim, vocab)
+WIDE_BAG = (4096, 64, 128, 100_000)
+# phase 10(a): one Adam step on the card against the same step on the CPU,
+# from the same weights and batch: the loss within NCF_STEP_LOSS_ATOL and
+# every parameter within NCF_STEP_PARAM_ATOL. The CPU estimate of a step
+# whose sums run in another order (the batch reversed,
+# dev/estimate_ncf_train_limits.py): loss 1.2e-7 apart, parameters 1.2e-7
+# (NCF) and 4.5e-7 (with the history column)
+NCF_STEP_LOSS_ATOL = 1e-5
+NCF_STEP_PARAM_ATOL = 1e-5
 
 
 def log(msg: str):
@@ -194,10 +235,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 100) -> float:
+def cuda_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back launches."""
     import torch
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1358,6 +1399,371 @@ def phase_decode_serving(np, im, greedy, inputs, serving_api, kind):
     return rep
 
 
+def bag_bound(table, ids, lengths, mean):
+    """Least time for one bag: the live slots' ids and the lengths read,
+    each distinct live row gathered once, the output written; or its fp32
+    flops (one add per live slot and column, a divide per output for
+    mean)."""
+    import torch
+    item = table.element_size()
+    batch, bag = ids.shape
+    dim = table.shape[1]
+    live = torch.arange(bag, device=ids.device)[None, :] < lengths[:, None]
+    n_live = int(live.sum())
+    distinct = torch.unique(ids[live]).numel()
+    moved = n_live * 4 + batch * 4 + (distinct + batch) * dim * item
+    flops = n_live * dim + (batch * dim if mean else 0)
+    return roofline(moved, flops, torch.float32)
+
+
+def bag_library_call(torch, table, ids, lengths, mode):
+    """One-call PyTorch yardstick (timed only, never used by the port):
+    ``F.embedding_bag`` over the live slots, offsets from the lengths."""
+    import torch.nn.functional as F
+    bag = ids.shape[1]
+    live = torch.arange(bag, device=ids.device)[None, :] < lengths[:, None]
+    flat = ids[live].long()
+    counts = torch.clamp(lengths.long(), 0, bag)
+    offsets = torch.cumsum(counts, 0) - counts
+    return lambda: F.embedding_bag(flat, table, offsets, mode=mode)
+
+
+def scatter_bound(torch, keys, vocab, g_rows, dim, item, extra_reads=0,
+                  extra_flops=0):
+    """Least time for one scatter launch: the sorted keys (4 bytes) and
+    the permutation (8) of every position read, ``g_rows`` gradient rows
+    read, ``extra_reads`` bytes (the other tables' rows, the lengths),
+    each touched row written once; or one fp32 add per kept position and
+    column plus ``extra_flops``."""
+    kept = keys[keys < vocab]
+    moved = keys.numel() * 12 + extra_reads + (
+        g_rows + int(torch.unique(kept).numel())) * dim * item
+    return roofline(moved, kept.numel() * dim + extra_flops, torch.float32)
+
+
+def ncf_train_data(np):
+    """bench.py's NCF training rows (build_ncf) and, drawn on from the
+    same generator, an item history per row: a length in [1, HIST_LEN],
+    item ids in [1, items], pad id 0 after the length."""
+    users, items = NCF["user_count"], NCF["item_count"]
+    rng = np.random.default_rng(SEED)
+    u = rng.integers(1, users + 1, NCF_TRAIN_ROWS)
+    i = rng.integers(1, items + 1, NCF_TRAIN_ROWS)
+    x = np.stack([u, i], 1).astype(np.float32)
+    y = ((u + i) % NCF["class_num"]).astype(np.int32)
+    lengths = rng.integers(1, HIST_LEN + 1, NCF_TRAIN_ROWS)
+    ids = rng.integers(1, items + 1, (NCF_TRAIN_ROWS, HIST_LEN))
+    hist = np.where(np.arange(HIST_LEN)[None, :] < lengths[:, None], ids,
+                    0).astype(np.int32)
+    return x, y, hist
+
+
+def hist_graph():
+    """Configuration 2: NeuralCF at MovieLens-1M width with a pooled
+    item-history column, ``Embedding(items + 1, 20, pooling="mean")`` over
+    HIST_LEN ids, concatenated with the MLP tower's embeddings; built from
+    the port's keras layers as the JAX package's layers build it."""
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras import layers as zl
+    users, items = NCF["user_count"], NCF["item_count"]
+    ui = Input(shape=(2,))
+    hist = Input(shape=(HIST_LEN,))
+    mlp = zl.FusedEmbeddings(
+        [("mlp_user_embed", users + 1, NCF["user_embed"]),
+         ("mlp_item_embed", items + 1, NCF["item_embed"])],
+        combine="concat", init="uniform", name="mlp_embed_bag")(ui)
+    pooled = zl.Embedding(items + 1, NCF["item_embed"], init="uniform",
+                          pooling="mean", name="hist_embed")(hist)
+    linear = zl.merge([mlp, pooled], mode="concat")
+    for units in NCF["hidden_layers"]:
+        linear = zl.Dense(units, activation="relu")(linear)
+    mf = zl.FusedEmbeddings(
+        [("mf_user_embed", users + 1, NCF["mf_embed"]),
+         ("mf_item_embed", items + 1, NCF["mf_embed"])],
+        combine="mul", init="uniform", name="mf_embed_bag")(ui)
+    out = zl.Dense(NCF["class_num"], activation="softmax")(
+        zl.merge([linear, mf], mode="concat"))
+    return Model(input=[ui, hist], output=out)
+
+
+def train_model(config: str):
+    """A fresh KerasNet of ``config`` ("ncf" or "hist") with weights drawn
+    from the numpy seed."""
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    net = NeuralCF(**NCF).model if config == "ncf" else hist_graph()
+    seeded_weights(net.module, SEED)
+    return net
+
+
+def train_inputs_of(config, x, hist, lo, hi):
+    return x[lo:hi] if config == "ncf" else [x[lo:hi], hist[lo:hi]]
+
+
+def phase_bag(torch, eb):
+    """Phase 3e: the bag kernel and the scatter kernel against their plain
+    versions, bitwise; two scatter launches bit for bit. Returns (bag
+    cases, scatter cases)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    vocab = NCF["item_count"] + 1
+    dim = NCF["item_embed"]
+    _, _, hist = ncf_train_data(np)
+    slice_ids = torch.from_numpy(hist[:BATCH]).to(dev)
+    slice_len = (slice_ids > 0).sum(1).to(torch.int32)
+    bags = []
+    # (name, batch, bag, dim, vocab, ids, lengths); None: drawn here
+    specs = [("slice", BATCH, HIST_LEN, dim, vocab, slice_ids, slice_len),
+             ("ragged_out_of_range", BATCH, HIST_LEN, dim, vocab, None,
+              None),
+             ("wide", *WIDE_BAG, None, None)]
+    for name, batch, bag, d, v, ids, lengths in specs:
+        if ids is None:
+            # ids past either end of the table, before and after the
+            # length; lengths 0 (empty bags), partial and full
+            ids = torch.randint(-10, v + 10, (batch, bag), generator=gen)
+            lengths = torch.randint(0, bag + 1, (batch,), generator=gen)
+            lengths[:3] = torch.tensor([0, bag, 1])
+            ids, lengths = ids.to(dev), lengths.to(dev, torch.int32)
+        table32 = torch.randn(v, d, generator=gen).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            table = table32.to(dtype)
+            cids = torch.clamp(ids.to(torch.int32), 0, v - 1)
+            for mode in ("sum", "mean"):
+                mean = mode == "mean"
+                got = eb.embedding_bag(table, ids, lengths, mode)
+                want = eb._bag_ref(table, cids, lengths, mean)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    raise AssertionError(
+                        f"bag kernel != plain: {name} {mode} {dtype} "
+                        f"max_abs_err={max_abs_err(got, want)}")
+                bound, bound_by = bag_bound(table, cids, lengths, mean)
+                rec = dict(case=name, mode=mode, dtype=str(dtype),
+                           batch=batch, bag=bag, dim=d, vocab=v,
+                           max_abs_err=max_abs_err(got, want),
+                           ms=cuda_ms(lambda: eb._bag_cuda(
+                               table, cids, lengths, mean)),
+                           plain_ms=cuda_ms(lambda: eb._bag_ref(
+                               table, cids, lengths, mean), iters=20),
+                           library_ms=cuda_ms(bag_library_call(
+                               torch, table, cids, lengths, mode)),
+                           bound_ms=bound, bound_by=bound_by)
+                bags.append(rec)
+                log(f"  bag {name:20s} {mode:4s} {str(dtype):15s} bitwise ok"
+                    f"  kernel {rec['ms']:.4f} ms  plain "
+                    f"{rec['plain_ms']:.4f} ms  library "
+                    f"{rec['library_ms']:.4f} ms  bound "
+                    f"{rec['bound_ms']:.5f} ms ({bound_by})")
+    return bags, phase_scatter(torch, eb, dev, gen, slice_ids, slice_len)
+
+
+def _check_scatter(name, got, want, again):
+    for a, b, c in zip(got, want, again):
+        if not same_bits(a, b):
+            raise AssertionError(f"scatter kernel != plain: {name} "
+                                 f"max_abs_err={max_abs_err(a, b)}")
+        if not same_bits(a, c):
+            raise AssertionError(f"two scatter launches differ: {name}")
+
+
+def phase_scatter(torch, eb, dev, gen, slice_ids, slice_len):
+    """Phase 3e, the backward: the scatter kernel for each combine of the
+    fused lookup at NCF's tables and batch, and for the bag at the history
+    column's shape (sum, mean), fp32 and bf16, plus a batch whose ids are
+    all one row; against the plain backward and a second launch."""
+    shapes = [(NCF["user_count"] + 1, NCF["user_embed"]),
+              (NCF["item_count"] + 1, NCF["item_embed"])]
+    recs = []
+
+    def timed(name, dtype, launch, plain, library, bound, err, slow=False):
+        rec = dict(case=name, dtype=str(dtype), max_abs_err=err,
+                   ms=cuda_ms(launch),
+                   plain_ms=cuda_ms(plain, iters=1 if slow else 3,
+                                    warmup=0 if slow else 1),
+                   library_ms=cuda_ms(library), bound_ms=bound[0],
+                   bound_by=bound[1])
+        recs.append(rec)
+        log(f"  scatter {name:28s} {str(dtype):15s} bitwise, 2 launches "
+            f"equal  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f}"
+            f" ms  index_add_ {rec['library_ms']:.4f} ms  bound "
+            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tables = [torch.randn(v, d, generator=gen).to(dev, dtype)
+                  for v, d in shapes]
+        cases = [(c, False, False) for c in ("concat", "sum", "mean", "mul")]
+        cases += [("mul", True, False), ("concat", True, False),
+                  ("concat", False, True)]
+        for combine, oob, same in cases:
+            ids = torch.stack([torch.randint(
+                -2 * v if oob else 1, 2 * v if oob else v, (BATCH,),
+                generator=gen) for v, _ in shapes], 1).to(dev, torch.int32)
+            if same:
+                ids[:] = 7
+            name = f"ncf_{combine}" + ("_out_of_range" if oob else "") + (
+                "_one_row" if same else "")
+            d_out = sum(d for _, d in shapes) if combine == "concat" \
+                else shapes[0][1]
+            g = torch.randn(BATCH, d_out, generator=gen).to(dev, dtype)
+            got = eb._fused_bwd_cuda(tables, ids, g, combine)
+            want = eb._fused_bwd_ref(tables, ids, g, combine)
+            again = eb._fused_bwd_cuda(tables, ids, g, combine)
+            torch.cuda.synchronize()
+            _check_scatter(f"{name} {dtype}", got, want, again)
+            # timed: the item table's launch alone, keys sorted beforehand
+            i = 1
+            keys, args, cc, sc = eb._fused_scatter_plan(tables, ids, g,
+                                                        combine, i)
+            skeys, perm = torch.sort(keys, stable=True)
+            out = torch.zeros_like(tables[i])
+            upd = eb._fused_updates(tables, ids, g, combine, i)
+            kept = keys < shapes[i][0]
+            rows, kept_upd = keys[kept].long(), upd[kept]
+            other = 0 if combine != "mul" else int(torch.unique(
+                ids[:, 0]).numel()) * shapes[0][1] * g.element_size()
+            bound = scatter_bound(torch, keys, shapes[i][0], BATCH,
+                                  shapes[i][1], g.element_size(), other,
+                                  int(kept.sum()) * shapes[i][1] * (
+                                      combine in ("mul", "mean")))
+            timed(name, dtype,
+                  lambda: eb._scatter_launch(out, skeys, perm, g, args, cc,
+                                             sc),
+                  lambda: eb._scatter_ref(shapes[i][0], keys, upd),
+                  lambda: out.index_add_(0, rows, kept_upd), bound,
+                  max(max_abs_err(a, b) for a, b in zip(got, want)),
+                  slow=same)
+        vocab, dim = shapes[1]
+        table = torch.randn(vocab, dim, generator=gen).to(dev, dtype)
+        for name, ids, lengths in (
+                ("bag_slice", slice_ids, slice_len),
+                ("bag_one_row", torch.full_like(slice_ids, 5),
+                 torch.full_like(slice_len, HIST_LEN))):
+            for mode in ("sum", "mean") if name == "bag_slice" else ("sum",):
+                mean = mode == "mean"
+                cids = ids.to(torch.int32)
+                g = torch.randn(BATCH, dim, generator=gen).to(dev, dtype)
+                got = eb._bag_bwd_cuda(vocab, dtype, cids, lengths, g, mean)
+                want = eb._bag_bwd_ref(vocab, dtype, cids, lengths, g, mean)
+                again = eb._bag_bwd_cuda(vocab, dtype, cids, lengths, g,
+                                         mean)
+                torch.cuda.synchronize()
+                _check_scatter(f"{name} {mode} {dtype}", [got],
+                               [want], [again])
+                gc = g.contiguous()
+                keys, args, cc, sc = eb._bag_scatter_plan(vocab, cids,
+                                                          lengths, gc, mean)
+                skeys, perm = torch.sort(keys, stable=True)
+                out = torch.zeros_like(table)
+                upd = eb._bag_updates(gc, lengths, dtype, mean)
+                kept = keys < vocab
+                rows = keys[kept].long()
+                kept_upd = upd.repeat_interleave(HIST_LEN, 0)[kept]
+                bound = scatter_bound(torch, keys, vocab, BATCH, dim,
+                                      g.element_size(), BATCH * 4,
+                                      int(kept.sum()) * dim * mean)
+                timed(f"{name}_{mode}", dtype,
+                      lambda: eb._scatter_launch(out, skeys, perm, gc, args,
+                                                 cc, sc),
+                      lambda: eb._scatter_ref(vocab, keys, upd,
+                                              bag=HIST_LEN),
+                      lambda: out.index_add_(0, rows, kept_upd), bound,
+                      max_abs_err(got, want), slow=True)
+    return recs
+
+
+def step_reading(np, before, cpu, card):
+    """(largest |card - cpu| over every parameter after one step, the
+    names of the tables the card's step left unmoved)."""
+    worst = max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu)
+    unmoved = [k for k in card if k.endswith(".embedding")
+               and np.array_equal(card[k], before[k])]
+    return worst, unmoved
+
+
+def phase_train_step(np, config, x, y, hist):
+    """Phase 10(a): one step through compile/fit on the card and on the
+    CPU, same weights, same batch; the loss, every parameter, and every
+    table moved on the card."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        net = train_model(config)
+        net.compile(optimizer=Adam(NCF_LR),
+                    loss="sparse_categorical_crossentropy", device=dev)
+        nets[dev] = net
+    before = nets["cpu"].get_weights()
+    losses = {}
+    for dev, net in nets.items():
+        net.fit(train_inputs_of(config, x, hist, 0, BATCH), y[:BATCH],
+                batch_size=BATCH, nb_epoch=1, shuffle=False)
+        losses[dev] = net.estimator.step_losses[-1]
+    worst, unmoved = step_reading(np, before, nets["cpu"].get_weights(),
+                                  nets["cuda"].get_weights())
+    loss_diff = abs(losses["cuda"] - losses["cpu"])
+    log(f"NCF training step ({config}) on the card vs the CPU: loss "
+        f"{losses['cuda']:.7f} vs {losses['cpu']:.7f} (|diff| "
+        f"{loss_diff:.3g}, atol {NCF_STEP_LOSS_ATOL}); parameters within "
+        f"{worst:.3g} (atol {NCF_STEP_PARAM_ATOL}); tables unmoved on the "
+        f"card: {unmoved}")
+    if loss_diff > NCF_STEP_LOSS_ATOL or worst > NCF_STEP_PARAM_ATOL:
+        raise AssertionError(f"{config} step: card vs CPU loss {loss_diff}, "
+                             f"parameters {worst}")
+    if unmoved:
+        raise AssertionError(f"{config} step left tables unmoved: {unmoved}")
+    return dict(loss_cuda=losses["cuda"], loss_cpu=losses["cpu"],
+                max_param_diff=worst)
+
+
+def phase_fit(torch, np, config, x, y, hist, kind):
+    """Phase 10(b)-(d): ``compile`` then ``fit`` one epoch (NCF_STEPS steps
+    of BATCH) on the card after a warm-up step, then ``evaluate`` and
+    ``predict``; the launches of each kernel per step."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    net = train_model(config)
+    net.compile(optimizer=Adam(NCF_LR),
+                loss="sparse_categorical_crossentropy")
+    net.fit(train_inputs_of(config, x, hist, 0, BATCH), y[:BATCH],
+            batch_size=BATCH, nb_epoch=1)            # warm up
+    torch.cuda.synchronize()
+    hist_out, launches, fit_s = counted(torch, lambda: net.fit(
+        train_inputs_of(config, x, hist, 0, NCF_TRAIN_ROWS), y,
+        batch_size=BATCH, nb_epoch=1))
+    losses = net.estimator.step_losses[-NCF_STEPS:]
+    n_eval = 5 * BATCH
+    ev = net.evaluate(train_inputs_of(config, x, hist, 0, n_eval),
+                      y[:n_eval], batch_size=BATCH)
+    pred = net.predict(train_inputs_of(config, x, hist, 0, BATCH),
+                       batch_size=BATCH)
+    per_step = {k: v / NCF_STEPS for k, v in launches.items() if v}
+    rep = dict(step_ms=fit_s / NCF_STEPS * 1e3,
+               samples_per_s=NCF_TRAIN_ROWS / fit_s,
+               first_loss=losses[0], last_loss=losses[-1],
+               epoch_loss=hist_out["loss"][0], eval_loss=ev["loss"],
+               launches=launches, launches_per_step=per_step,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"NCF training ({config}) on {kind}: {NCF_STEPS} steps of {BATCH} "
+        f"at {rep['step_ms']:.3f} ms/step (host clock), "
+        f"{rep['samples_per_s']:.1f} samples/s; loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; evaluate loss {ev['loss']:.5f}; kernel "
+        f"launches per step {per_step}")
+    if len(losses) != NCF_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{config} fit losses: {losses}")
+    if not (np.isfinite(ev["loss"]) and pred.shape == (BATCH, NCF[
+            "class_num"]) and np.isfinite(pred).all()):
+        raise AssertionError(f"{config} evaluate/predict: {ev}, "
+                             f"{pred.shape}")
+    want = {"fused_embedding_lookup": 2,
+            "embedding_scatter_add": 4 if config == "ncf" else 5,
+            "embedding_bag": 0 if config == "ncf" else 1}
+    for name, n in want.items():
+        if launches.get(name, 0) != n * NCF_STEPS:
+            raise AssertionError(f"{config} fit: {name} launched "
+                                 f"{launches.get(name, 0)} times in "
+                                 f"{NCF_STEPS} steps, not {n} a step")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1407,6 +1813,10 @@ def main() -> int:
     gather_cases, attn_cases = phase_paged(torch, pa)
     report["paged_gather_cases"] = gather_cases
     report["paged_attention_cases"] = attn_cases
+    log("bag and scatter kernels vs plain (bitwise):")
+    bag_cases, scatter_cases = phase_bag(torch, eb)
+    report["bag_cases"] = bag_cases
+    report["scatter_cases"] = scatter_cases
 
     # 4. slice — the NCF path starts here
     ncf = NeuralCF(**NCF)
@@ -1526,9 +1936,25 @@ def main() -> int:
         raise AssertionError(f"the live pool launched no paged_attention: "
                              f"{decode_counts}")
     report["decode_serving"]["gather_launches"] = served_gathers
+    # 10. NCF training: (a) compares, (b)-(d) are the path
+    x_tr, y_tr, hist_tr = ncf_train_data(np)
+    report["ncf_train_step"] = {
+        c: phase_train_step(np, c, x_tr, y_tr, hist_tr)
+        for c in ("ncf", "hist")}
+    _build.reset_launch_counts()
+    report["ncf_fit"] = {
+        c: phase_fit(torch, np, c, x_tr, y_tr, hist_tr, kind)
+        for c in ("ncf", "hist")}
+    ncf_train_counts = _build.launch_counts()
+    for name in ("fused_embedding_lookup", "embedding_bag",
+                 "embedding_scatter_add"):
+        if ncf_train_counts.get(name, 0) <= 0:
+            raise AssertionError(f"the NCF training path launched no "
+                                 f"{name}: {ncf_train_counts}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
-                          "decode": decode_counts}
+                          "decode": decode_counts,
+                          "ncf_train": ncf_train_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -1589,6 +2015,26 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None})
+    # the bag at the history column's shape (mean, fp32); the scatter at
+    # NCF's item table (concat, fp32), its launch alone from sorted keys
+    bag_head = next(c for c in bag_cases if c["case"] == "slice"
+                    and c["mode"] == "mean" and c["dtype"] == "torch.float32")
+    sc_head = next(c for c in scatter_cases if c["case"] == "ncf_concat"
+                   and c["dtype"] == "torch.float32")
+    for name, replaces, recs, head in (
+            ("embedding_bag", "analytics_zoo_tpu/ops/embedding_bag.py:155",
+             bag_cases, bag_head),
+            ("embedding_scatter_add",
+             "analytics_zoo_tpu/ops/embedding_bag.py:222 _fused_bwd and "
+             ":261 _bag_bwd (plain JAX)", scatter_cases, sc_head)):
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/ops/csrc/embedding_bag.cu",
+            "replaces": replaces, "launches": ncf_train_counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in recs),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"]})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
