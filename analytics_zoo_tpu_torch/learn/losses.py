@@ -75,9 +75,17 @@ def categorical_crossentropy(y_true, y_pred):
     return -(y_true * torch.log(p)).sum(-1)
 
 
-def _take_label(logp: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
+def _take_label(values: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(values, labels[..., None], -1)[..., 0]`` under
+    JAX's rule: labels in ``[-C, C)`` index the last axis (negative ones
+    wrap), any other label gives NaN. The index is clamped into range
+    first, so no device reads out of bounds."""
+    c = values.shape[-1]
     idx = y_true.to(torch.int64)
-    return torch.take_along_dim(logp, idx[..., None], dim=-1)[..., 0]
+    valid = (idx >= -c) & (idx < c)
+    idx = torch.clamp(torch.where(idx < 0, idx + c, idx), 0, c - 1)
+    taken = torch.take_along_dim(values, idx[..., None], dim=-1)[..., 0]
+    return torch.where(valid, taken, float("nan"))
 
 
 def sparse_categorical_crossentropy(y_true, y_pred):

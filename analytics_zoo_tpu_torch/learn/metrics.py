@@ -18,6 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.learn.losses import _take_label
+
 _EPS = 1e-7
 
 
@@ -165,9 +167,7 @@ class SparseCategoricalCrossentropy(Metric):
 
     def _per_sample(self, y_true, y_pred):
         p = torch.clamp(y_pred, _EPS, 1.0)
-        idx = y_true.to(torch.int64)
-        return -torch.log(torch.take_along_dim(p, idx[..., None],
-                                               dim=-1))[..., 0]
+        return -torch.log(_take_label(p, y_true))
 
 
 class KLDivergence(Metric):

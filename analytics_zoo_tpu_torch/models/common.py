@@ -35,8 +35,9 @@ class ZooModel:
     def evaluate(self, *args, **kwargs):
         return self.model.evaluate(*args, **kwargs)
 
-    def predict(self, x, batch_size: int = 256, device: DeviceLike = None):
-        return self.model.predict(x, batch_size=batch_size, device=device)
+    def predict(self, *args, **kwargs):
+        """``KerasNet.predict(x, batch_size, distributed, device)``."""
+        return self.model.predict(*args, **kwargs)
 
     def set_strategy(self, strategy, param_rules=None):
         """Only ``"dp"`` (one device)."""

@@ -5,7 +5,7 @@ Counterpart of ``analytics_zoo_tpu/models/recommendation/recommender.py``
 ``predict_user_item_pair``, ``recommend_for_user`` and
 ``recommend_for_item`` over XShards of ``UserItemFeature`` (the port's
 ``data/shard.py``). ``predict_user_item_pair`` also takes a plain list
-and then returns a plain list.
+of features, as one shard, and returns HostXShards either way.
 """
 
 from __future__ import annotations
@@ -54,20 +54,19 @@ class Recommender(ZooModel):
 
     def predict_user_item_pair(
             self, feature_shards: Union[XShards, List[UserItemFeature]],
-            batch_size: int = 1024, device: DeviceLike = None):
+            batch_size: int = 1024, device: DeviceLike = None
+    ) -> HostXShards:
         """(ref Recommender.predictUserItemPair): the most likely class
         (1-based) and its probability for every pair, as HostXShards of
-        lists (a list, given a list)."""
-        if not isinstance(feature_shards, XShards):
-            return self._predict_shard(list(feature_shards), batch_size,
-                                       device)
+        lists, one per input shard (a plain list is one shard)."""
+        shards = (feature_shards.collect()
+                  if isinstance(feature_shards, XShards)
+                  else [list(feature_shards)])
         return HostXShards([self._predict_shard(shard, batch_size, device)
-                            for shard in feature_shards.collect()])
+                            for shard in shards])
 
     def _top(self, feature_shards, key: str, limit: int,
              device: DeviceLike) -> HostXShards:
-        if not isinstance(feature_shards, XShards):
-            feature_shards = HostXShards([list(feature_shards)])
         preds = self.predict_user_item_pair(feature_shards, device=device)
         groups: Dict[int, List[UserItemPrediction]] = {}
         for shard in preds.collect():

@@ -78,11 +78,11 @@ class Seq2Seq(ZooModel):
         raise NotImplementedError(
             "Seq2Seq.fit is not ported yet (ROADMAP A5)")
 
-    def predict(self, x, batch_size: int = 256, device: DeviceLike = None):
-        """``x``: the ``[enc_input, dec_input]`` pair."""
+    def predict(self, x, **kwargs):
+        """``x``: the ``[enc_input, dec_input]`` pair; ``kwargs`` as
+        ``KerasNet.predict`` takes them."""
         return self.model.predict(
-            tuple(x) if isinstance(x, (list, tuple)) else x,
-            batch_size=batch_size, device=device)
+            tuple(x) if isinstance(x, (list, tuple)) else x, **kwargs)
 
     def infer(self, input_seq: np.ndarray, start_sign: np.ndarray,
               max_seq_len: int = 30, mode: str = "raw",

@@ -25,14 +25,22 @@
 //    The wrapper clamps ids into [0, V-1] as JAX does; the kernel clamps
 //    again, so no read leaves the table.
 //
-// 3. scatter_add_kernel is the backward of both. JAX writes it in plain JAX
+// 3. The scatter-add is the backward of both. JAX writes it in plain JAX
 //    (_fused_bwd :222, _bag_bwd :261): a scatter-add into a zero table of
 //    the table's dtype, one update per looked-up position. It must be
 //    deterministic, so it uses no atomics: the wrapper stably sorts the
-//    positions by row (a library sort), and one warp per distinct row adds
-//    that row's updates in position order, each add rounded to the table
-//    dtype (bf16: every add, as JAX's scatter in bf16 rounds). Update of
-//    position p (batch row b = p / bag), per column c:
+//    positions by row (a library sort), and every row's run of updates is
+//    summed in a fixed order that depends on the inputs alone, never on the
+//    launch or the device, each add rounded to the table dtype (bf16: every
+//    add, as JAX's scatter in bf16 rounds). With C = SCATTER_RUN_CHUNK:
+//      a run of n <= C updates   added in position order from zero;
+//      a run of n > C updates    cut into chunks of C from its start, each
+//                                chunk summed in position order from zero,
+//                                then the chunk sums added in chunk order
+//                                from zero.
+//    So short runs keep the bits of a plain left-to-right sum (JAX's
+//    autodiff route on the CPU), and a padding id's long run is spread over
+//    warps. Update of position p (batch row b = p / bag), per column c:
 //      combine copy  g[b, offset + c]
 //      combine mul   g[b, c] times the other tables' rows ids[b, j] (j != t,
 //                    ascending, jnp.take's NaN rows), one __fmul_rn each
@@ -49,14 +57,28 @@
 // thread per output element in a grid-stride loop over the flattened
 // output, so neighbouring threads write neighbouring addresses; rows are
 // read element-wise (NCF's rows are 20 floats: 16-byte vector loads would
-// need an alignment the tables do not promise). The scatter runs one warp
-// per sorted position; only the first position of each row's run works, and
-// its lanes own columns. It walks the run 32 positions at a time: the lanes
-// load 32 keys and batch rows together (coalesced) into shared memory, then
-// each lane issues the 32 gradient loads of its column before it adds them
-// in order, so the loads overlap and only the adds are serial. A row with
-// many updates (a padding id) is walked by one warp alone: making that
-// parallel without changing the order of the adds is later work.
+// need an alignment the tables do not promise). The scatter takes two
+// launches, a warp per sorted position in each, the lanes owning columns:
+//   scatter_chunk_kernel  the warp of a chunk's first position sums the
+//                         chunk (the others exit after reading one or two
+//                         keys). A position finds its run's start by a
+//                         32-way search over the sorted keys (each step the
+//                         lanes probe 32 points: 4 steps for 64 000
+//                         positions), searched only when the run reaches C
+//                         positions back. It walks the chunk 32 positions
+//                         at a time: the lanes load 32 keys and batch rows
+//                         together (coalesced) into shared memory, then
+//                         each lane issues the 32 gradient loads of its
+//                         column before it adds them in order, so the loads
+//                         overlap and only the adds are serial. A short run
+//                         writes its row; a chunk of a long run writes its
+//                         sum into a scratch row [n_pos, dim] (the wrapper's
+//                         torch.empty) at its first position.
+//   scatter_runs_kernel   the warp of a long run's first position adds the
+//                         run's chunk sums, 32 loads ahead, and writes the
+//                         row.
+// A run of n updates thus costs about min(n, C) dependent adds plus n / C
+// in the second pass, where one warp alone used to add all n.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -254,8 +276,10 @@ static void launch_bag(const int* ids, const int* lengths, const void* table,
 
 // ------------------------------------------------------------- scatter-add
 
-#define SCATTER_WARPS 8  // warps (sorted positions) per block
-#define SCATTER_CHUNK 32  // positions of a run staged at a time
+#define SCATTER_WARPS 8        // warps (sorted positions) per block
+#define SCATTER_STAGE 32       // positions of a chunk staged at a time
+#define SCATTER_RUN_CHUNK 256  // C: positions per chunk of a long run
+                               // (RUN_CHUNK in ops/embedding_bag.py)
 
 // The update of batch row b to column c of table a.target, rounded to T.
 template <typename T, int COMBINE, int SCALE>
@@ -281,79 +305,165 @@ __device__ __forceinline__ float scatter_update(const ScatterArgs& a,
   return round_to<T>(u);
 }
 
+// First sorted index of the run of `key`, known to lie in [0, hi] with
+// keys[hi] == key. Each step the 32 lanes probe 32 points of [lo, hi] and
+// keep the gap between the last probe before the run and the first in it.
+__device__ __forceinline__ long long run_start(const int* __restrict__ keys,
+                                               int key, long long hi,
+                                               int lane) {
+  long long lo = 0;
+  while (lo < hi) {
+    const long long span = hi - lo;
+    const bool in_run = keys[lo + span * lane / 32] == key;
+    const unsigned ball = __ballot_sync(0xffffffffu, in_run);
+    if (ball & 1u) return lo;  // lane 0 probes lo itself
+    const int f = ball ? __ffs(ball) - 1 : 32;  // first probe in the run
+    if (f < 32) hi = lo + span * f / 32;
+    lo = lo + span * (f - 1) / 32 + 1;  // past the last probe before it
+  }
+  return lo;
+}
+
+// Pass 1: the warp of position p sums the chunk that starts at p, if one
+// does: a short run's sum goes to its row of `out`, a chunk of a long run's
+// to row p of `partial`.
 template <typename T, int COMBINE, int SCALE>
 __global__ void __launch_bounds__(SCATTER_WARPS * 32)
-    scatter_add_kernel(const int* __restrict__ keys,
-                       const long long* __restrict__ perm, long long n_pos,
-                       const T* __restrict__ g, const ScatterArgs a,
-                       long long vocab, T* __restrict__ out) {
-  __shared__ long long s_row[SCATTER_WARPS][SCATTER_CHUNK];
+    scatter_chunk_kernel(const int* __restrict__ keys,
+                         const long long* __restrict__ perm, long long n_pos,
+                         const T* __restrict__ g, const ScatterArgs a,
+                         long long vocab, T* __restrict__ out,
+                         T* __restrict__ partial) {
+  __shared__ long long s_row[SCATTER_WARPS][SCATTER_STAGE];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const long long p = (long long)blockIdx.x * SCATTER_WARPS + w;
   if (p >= n_pos) return;  // warp-uniform from here on
   const int key = keys[p];
-  if (key < 0 || key >= vocab) return;      // dropped positions sort last
-  if (p > 0 && keys[p - 1] == key) return;  // not the first of its run
+  if (key < 0 || key >= vocab) return;  // dropped positions sort last
+  bool long_run = true;
+  if (p > 0 && keys[p - 1] == key) {
+    // inside a run: a chunk starts here only if the run began a multiple
+    // of C positions back, so at least C back
+    if (p < SCATTER_RUN_CHUNK || keys[p - SCATTER_RUN_CHUNK] != key) return;
+    const long long s = run_start(keys, key, p - SCATTER_RUN_CHUNK, lane);
+    if ((p - s) % SCATTER_RUN_CHUNK != 0) return;
+  } else {
+    long_run = p + SCATTER_RUN_CHUNK < n_pos &&
+               keys[p + SCATTER_RUN_CHUNK] == key;
+  }
+  const long long end =
+      p + SCATTER_RUN_CHUNK < n_pos ? p + SCATTER_RUN_CHUNK : n_pos;
+  T* dst = long_run ? partial + p * a.dim : out + (long long)key * a.dim;
   for (int c0 = 0; c0 < a.dim; c0 += 32) {
     const int c = c0 + lane;
     float acc = 0.f;  // the zero table
-    for (long long q = p;; q += SCATTER_CHUNK) {
+    for (long long q = p; q < end; q += SCATTER_STAGE) {
       const long long mine = q + lane;
-      const bool in_run = mine < n_pos && keys[mine] == key;
-      // keys are sorted, so the run's positions are a prefix of the chunk
+      const bool in_run = mine < end && keys[mine] == key;
+      // keys are sorted, so the run's positions are a prefix of the stage
       const int n = __popc(__ballot_sync(0xffffffffu, in_run));
       if (in_run) s_row[w][lane] = perm[mine] / a.bag;
       __syncwarp();
       if (c < a.dim) {
-        float u[SCATTER_CHUNK];
+        float u[SCATTER_STAGE];
 #pragma unroll
-        for (int j = 0; j < SCATTER_CHUNK; ++j) {
+        for (int j = 0; j < SCATTER_STAGE; ++j) {
           if (j < n) u[j] = scatter_update<T, COMBINE, SCALE>(a, g,
                                                               s_row[w][j], c);
         }
 #pragma unroll
-        for (int j = 0; j < SCATTER_CHUNK; ++j) {
+        for (int j = 0; j < SCATTER_STAGE; ++j) {
           if (j < n) acc = round_to<T>(__fadd_rn(acc, u[j]));
         }
       }
       __syncwarp();
-      if (n < SCATTER_CHUNK) break;
+      if (n < SCATTER_STAGE) break;
     }
-    if (c < a.dim) store_f32(out + (long long)key * a.dim + c, acc);
+    if (c < a.dim) store_f32(dst + c, acc);
+  }
+}
+
+// Pass 2: the warp of a long run's first position adds the run's chunk
+// sums in chunk order, from zero, and writes the row.
+template <typename T>
+__global__ void __launch_bounds__(SCATTER_WARPS * 32)
+    scatter_runs_kernel(const int* __restrict__ keys, long long n_pos,
+                        long long vocab, int dim,
+                        const T* __restrict__ partial, T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long p =
+      (long long)blockIdx.x * SCATTER_WARPS + (threadIdx.x >> 5);
+  if (p >= n_pos) return;
+  const int key = keys[p];
+  if (key < 0 || key >= vocab) return;
+  if (p > 0 && keys[p - 1] == key) return;  // not the first of its run
+  if (p + SCATTER_RUN_CHUNK >= n_pos || keys[p + SCATTER_RUN_CHUNK] != key)
+    return;  // a short run: pass 1 wrote its row
+  for (int c0 = 0; c0 < dim; c0 += 32) {
+    const int c = c0 + lane;
+    float acc = 0.f;
+    for (long long k0 = p;; k0 += (long long)SCATTER_STAGE *
+                                  SCATTER_RUN_CHUNK) {
+      const long long mine = k0 + (long long)lane * SCATTER_RUN_CHUNK;
+      const bool in_run = mine < n_pos && keys[mine] == key;
+      const int n = __popc(__ballot_sync(0xffffffffu, in_run));
+      if (c < dim) {
+        float u[SCATTER_STAGE];
+#pragma unroll
+        for (int j = 0; j < SCATTER_STAGE; ++j) {
+          if (j < n)
+            u[j] = to_f32(partial[(k0 + (long long)j * SCATTER_RUN_CHUNK) *
+                                      dim + c]);
+        }
+#pragma unroll
+        for (int j = 0; j < SCATTER_STAGE; ++j) {
+          if (j < n) acc = round_to<T>(__fadd_rn(acc, u[j]));
+        }
+      }
+      if (n < SCATTER_STAGE) break;
+    }
+    if (c < dim) store_f32(out + (long long)key * dim + c, acc);
   }
 }
 
 template <typename T, int COMBINE, int SCALE>
-static void launch_scatter_mode(const int* keys, const long long* perm,
-                                long long n_pos, const void* g,
-                                const ScatterArgs& a, void* out,
-                                long long vocab, cudaStream_t stream) {
+static cudaError_t launch_scatter_mode(const int* keys, const long long* perm,
+                                       long long n_pos, const void* g,
+                                       const ScatterArgs& a, void* out,
+                                       long long vocab, void* partial,
+                                       cudaStream_t stream) {
   const long long blocks = (n_pos + SCATTER_WARPS - 1) / SCATTER_WARPS;
-  scatter_add_kernel<T, COMBINE, SCALE>
+  scatter_chunk_kernel<T, COMBINE, SCALE>
       <<<(unsigned)blocks, SCATTER_WARPS * 32, 0, stream>>>(
           keys, perm, n_pos, static_cast<const T*>(g), a, vocab,
-          static_cast<T*>(out));
+          static_cast<T*>(out), static_cast<T*>(partial));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scatter_runs_kernel<T><<<(unsigned)blocks, SCATTER_WARPS * 32, 0, stream>>>(
+      keys, n_pos, vocab, a.dim, static_cast<const T*>(partial),
+      static_cast<T*>(out));
+  return cudaGetLastError();
 }
 
 template <typename T>
-static void launch_scatter(int combine, int scale, const int* keys,
-                           const long long* perm, long long n_pos,
-                           const void* g, const ScatterArgs& a, void* out,
-                           long long vocab, cudaStream_t stream) {
-  if (combine == kMulOthers) {
-    launch_scatter_mode<T, kMulOthers, kScaleNone>(keys, perm, n_pos, g, a,
-                                                   out, vocab, stream);
-  } else if (scale == kScaleRecip) {
-    launch_scatter_mode<T, kCopy, kScaleRecip>(keys, perm, n_pos, g, a, out,
-                                               vocab, stream);
-  } else if (scale == kScaleLength) {
-    launch_scatter_mode<T, kCopy, kScaleLength>(keys, perm, n_pos, g, a,
-                                                out, vocab, stream);
-  } else {
-    launch_scatter_mode<T, kCopy, kScaleNone>(keys, perm, n_pos, g, a, out,
-                                              vocab, stream);
-  }
+static cudaError_t launch_scatter(int combine, int scale, const int* keys,
+                                  const long long* perm, long long n_pos,
+                                  const void* g, const ScatterArgs& a,
+                                  void* out, long long vocab, void* partial,
+                                  cudaStream_t stream) {
+  if (combine == kMulOthers)
+    return launch_scatter_mode<T, kMulOthers, kScaleNone>(
+        keys, perm, n_pos, g, a, out, vocab, partial, stream);
+  if (scale == kScaleRecip)
+    return launch_scatter_mode<T, kCopy, kScaleRecip>(
+        keys, perm, n_pos, g, a, out, vocab, partial, stream);
+  if (scale == kScaleLength)
+    return launch_scatter_mode<T, kCopy, kScaleLength>(
+        keys, perm, n_pos, g, a, out, vocab, partial, stream);
+  return launch_scatter_mode<T, kCopy, kScaleNone>(keys, perm, n_pos, g, a,
+                                                   out, vocab, partial,
+                                                   stream);
 }
 
 extern "C" {
@@ -402,12 +512,14 @@ int zoo_embedding_bag(const void* ids, const void* lengths, const void* table,
 // (vocab for a dropped position); perm: [n_pos] int64, the position each
 // sorted slot came from; grad: the output gradient; out: [vocab, args->dim]
 // of the table's dtype, zero-filled by the caller (rows that get no update
-// stay zero).
+// stay zero); partial: [n_pos, args->dim] scratch of the table's dtype,
+// uninitialised (the chunk sums of long runs). Launches the two passes on
+// `stream` and returns the first launch error (0 when both were accepted).
 int zoo_embedding_scatter_add(const void* sorted_keys, const void* perm,
                               long long n_pos, const void* grad,
                               const ScatterArgs* args, void* out,
                               long long vocab, int combine, int scale,
-                              int is_bf16, void* stream) {
+                              int is_bf16, void* partial, void* stream) {
   if (combine < kCopy || combine > kMulOthers || scale < kScaleNone ||
       scale > kScaleLength || args->bag < 1 || args->dim < 0 ||
       (combine == kMulOthers &&
@@ -417,14 +529,13 @@ int zoo_embedding_scatter_add(const void* sorted_keys, const void* perm,
   const int* k = static_cast<const int*>(sorted_keys);
   const long long* pm = static_cast<const long long*>(perm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch_scatter<__nv_bfloat16>(combine, scale, k, pm, n_pos, grad, *args,
-                                  out, vocab, s);
-  } else {
-    launch_scatter<float>(combine, scale, k, pm, n_pos, grad, *args, out,
-                          vocab, s);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      is_bf16 ? launch_scatter<__nv_bfloat16>(combine, scale, k, pm, n_pos,
+                                              grad, *args, out, vocab,
+                                              partial, s)
+              : launch_scatter<float>(combine, scale, k, pm, n_pos, grad,
+                                      *args, out, vocab, partial, s);
+  return (int)err;
 }
 
 const char* zoo_cuda_error_string(int err) {

@@ -18,9 +18,13 @@ Counterpart of ``analytics_zoo_tpu/ops/embedding_bag.py``:
 Both kernels sit behind a ``torch.autograd.Function``. Their backward is
 JAX's plain scatter-add (``_fused_bwd`` / ``_bag_bwd``): each gradient
 table starts at zero and takes one update per looked-up position. On CUDA
-that is one scatter kernel (``csrc/embedding_bag.cu``), deterministic: a
-stable sort of the positions by row, then one warp per row adding its
-updates in position order. A CUDA tensor launches the kernels or raises;
+that is one scatter kernel of two passes (``csrc/embedding_bag.cu``),
+deterministic: a stable sort of the positions by row, then a fixed
+two-level sum per row that depends on the inputs alone. A run of at most
+``RUN_CHUNK`` updates is added in position order; a longer run (a
+padding id) is cut into chunks of ``RUN_CHUNK`` that warps sum in
+parallel, and a second pass adds the chunk sums in chunk order. A CUDA
+tensor launches the kernels or raises;
 the plain versions (``_fused_ref``, ``_bag_ref``, ``_fused_bwd_ref``,
 ``_bag_bwd_ref``) run only for tensors on the CPU, and accumulate in the
 kernels' order and precision, so the two agree bitwise.
@@ -46,6 +50,10 @@ from analytics_zoo_tpu_torch.ops import _build
 _COMBINES = ("concat", "sum", "mean", "mul")
 _COMBINE_CODE = {"concat": 0, "sum": 1, "mean": 2, "mul": 3}
 MAX_TABLES = 8
+#: updates a row's run takes before the scatter sums it in two levels:
+#: chunks of RUN_CHUNK positions, then the chunk sums (SCATTER_RUN_CHUNK in
+#: csrc/embedding_bag.cu)
+RUN_CHUNK = 256
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 #: launches of each CUDA kernel (the plain versions never count)
@@ -187,12 +195,20 @@ def _scatter_ref(vocab: int, keys: torch.Tensor, updates: torch.Tensor,
                  bag: int = 1) -> torch.Tensor:
     """Zeros ``[vocab, d]`` in the updates' dtype, plus update
     ``updates[p // bag]`` at row ``keys[p]`` for every position ``p``
-    whose key is below ``vocab``, added in position order, each add
-    rounded to the dtype (JAX's scatter-add into a zero table).
+    whose key is below ``vocab``, each add rounded to the dtype (JAX's
+    scatter-add into a zero table), in the kernel's fixed two-level order:
 
-    Deterministic on any device: positions are stably sorted by row, and
-    the k-th update of every row is added in round k, where each row
-    appears at most once."""
+    - a row's run of n <= RUN_CHUNK updates is added in position order,
+      starting from zero;
+    - a longer run is cut into chunks of RUN_CHUNK from its start, each
+      chunk summed in position order from zero, then the chunk sums added
+      in chunk order from zero.
+
+    The order depends on the inputs alone. Deterministic on any device:
+    positions are stably sorted by row; round r adds the r-th update of
+    every chunk (at most RUN_CHUNK rounds), then round k adds the k-th
+    chunk sum of every row (at most ceil(n / RUN_CHUNK) rounds), and no
+    chunk or row appears twice in a round."""
     out = torch.zeros((vocab, updates.shape[1]), dtype=updates.dtype,
                       device=updates.device)
     pos = torch.nonzero(keys < vocab).reshape(-1)
@@ -204,15 +220,30 @@ def _scatter_ref(vocab: int, keys: torch.Tensor, updates: torch.Tensor,
     first = torch.ones_like(rows, dtype=torch.bool)
     first[1:] = rows[1:] != rows[:-1]
     rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
-    by_rank = torch.argsort(rank, stable=True)
-    bounds = torch.bincount(rank).cumsum(0).tolist()
-    lo = 0
-    for hi in bounds:
-        sel = by_rank[lo:hi]
-        r = rows[sel]
-        out[r] = out[r] + updates[pos[sel] // bag]
-        lo = hi
+    in_chunk = rank % RUN_CHUNK
+    # level 1: chunk sums, kept at the sorted index of each chunk's start
+    partial = torch.zeros((rows.numel(), updates.shape[1]),
+                          dtype=updates.dtype, device=updates.device)
+    for sel in _rounds(in_chunk):
+        head = idx[sel] - in_chunk[sel]
+        partial[head] = partial[head] + updates[pos[sel] // bag]
+    # level 2: each row's chunk sums in chunk order (one for a short run)
+    heads = torch.nonzero(in_chunk == 0).reshape(-1)
+    for sel in _rounds(rank[heads] // RUN_CHUNK):
+        head = heads[sel]
+        out[rows[head]] = out[rows[head]] + partial[head]
     return out
+
+
+def _rounds(r: torch.Tensor):
+    """Indices into ``r`` grouped by value, smallest value first, in
+    index order within a group."""
+    by_round = torch.argsort(r, stable=True)
+    lo = 0
+    for hi in torch.bincount(r).cumsum(0).tolist():
+        if hi > lo:
+            yield by_round[lo:hi]
+        lo = hi
 
 
 def _fused_updates(tables: Sequence[torch.Tensor], ids: torch.Tensor,
@@ -323,7 +354,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.POINTER(_ScatterArgs), ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.zoo_embedding_scatter_add.restype = ctypes.c_int
         lib.zoo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.zoo_cuda_error_string.restype = ctypes.c_char_p
@@ -414,20 +445,25 @@ def _bag_cuda(table: torch.Tensor, ids: torch.Tensor, lengths: torch.Tensor,
 def _scatter_launch(out: torch.Tensor, sorted_keys: torch.Tensor,
                     perm: torch.Tensor, g: torch.Tensor, args: _ScatterArgs,
                     combine: int, scale: int) -> torch.Tensor:
-    """One launch of the scatter kernel into ``out`` (zero-filled
-    ``[vocab, dim]``): ``sorted_keys`` int32 and ``perm`` int64 from a
-    stable sort of the positions' rows."""
+    """One launch of the scatter kernel (its two passes, one count) into
+    ``out`` (zero-filled ``[vocab, dim]``): ``sorted_keys`` int32 and
+    ``perm`` int64 from a stable sort of the positions' rows. The chunk
+    sums of long runs go through a scratch ``[n_pos, dim]`` of the table's
+    dtype."""
     n_pos = int(sorted_keys.numel())
     if n_pos == 0 or out.shape[1] == 0:
         return out
     args.dim = int(out.shape[1])
+    partial = torch.empty((n_pos, args.dim), dtype=out.dtype,
+                          device=out.device)
     lib = _lib()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = lib.zoo_embedding_scatter_add(
             sorted_keys.data_ptr(), perm.data_ptr(), n_pos, g.data_ptr(),
             ctypes.byref(args), out.data_ptr(), int(out.shape[0]), combine,
-            scale, int(out.dtype == torch.bfloat16), stream)
+            scale, int(out.dtype == torch.bfloat16), partial.data_ptr(),
+            stream)
     _check_launch(lib, err, "embedding scatter-add")
     scatter_launches.add()
     return out

@@ -23,7 +23,11 @@ Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
 All take the public layout ``[b, s, h, d]``; the lse is ``[b*h, sq]``
 fp32. The kernels read q, k, v (and the output's cotangent) through their
 strides (the head dim must be contiguous), so the slices of a packed QKV
-projection need no copy. Masked keys follow the Pallas kernel: scores of
+projection need no copy. The forward kernel copies rows in 16-byte pieces:
+a tensor whose rows do not start on 16 bytes is first copied, on the
+card, into a contiguous one with rows zero-padded to 16 bytes. In bf16
+the forward runs both products on the tensor cores (``mma.sync``, fp32
+accumulation); in fp32 it stays on CUDA cores, register-tiled. Masked keys follow the Pallas kernel: scores of
 -1e30, bottom-right causal with offset ``sk - sq``, and keys past ``sk``
 masked in the ragged tail. A row that sees no key at all gives zeros and
 zero gradients (see the sources' notes).
@@ -141,8 +145,9 @@ def _flash_fwd_ref(q, k, v, causal: bool = False, return_lse: bool = False,
     widened inputs times an fp32 scale, masked scores of -1e30 with p = 0,
     an online softmax whose p is rounded to v's dtype at the running
     maximum before P.V, fp32 sums, the sum floored at 1e-37, output in q's
-    dtype. Only the order of the fp32 sums and the last bit of exp differ
-    from the kernel's."""
+    dtype. Only the order of the fp32 sums (on the tensor cores in bf16)
+    and the last bits of exp differ from the kernel's; in bf16 either can
+    round a p to its other neighbour (see chip_smoke.py's bf16 limit)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     sm_scale = float(np.float32(1.0 / math.sqrt(d)))
@@ -247,23 +252,50 @@ def _flash_bwd_ref(q, k, v, o, lse, do, causal: bool = False, glse=None):
 _lib_handle: Optional[ctypes.CDLL] = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the forward's C entry points on a loaded library."""
+    lib.zoo_flash_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 9
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.zoo_flash_fwd.restype = ctypes.c_int
+    lib.zoo_flash_error_string.argtypes = [ctypes.c_int]
+    lib.zoo_flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
-        lib = _build.load("flash_attention")
-        lib.zoo_flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 9
-            + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.zoo_flash_fwd.restype = ctypes.c_int
-        lib.zoo_flash_error_string.argtypes = [ctypes.c_int]
-        lib.zoo_flash_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
+        _lib_handle = _bind(_build.load("flash_attention"))
     return _lib_handle
 
 
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [b, s, h, d] as the kernel reads it: every row of the head dim
+    dense and starting on 16 bytes (the kernel copies rows in 16-byte
+    pieces with cp.async). A tensor that is not (a pointer, a stride of a
+    dimension longer than 1 or d not a multiple of 16 bytes) is copied on
+    its device into a contiguous tensor whose rows are zero-padded to 16
+    bytes; the kernel reads the first d columns of it and zeros after."""
+    vec = 16 // t.element_size()
+    d = t.shape[3]
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0 and d % vec == 0
+            and all(t.stride(i) % vec == 0 or t.shape[i] == 1
+                    for i in range(3))):
+        return t
+    out = torch.zeros((*t.shape[:3], ceil_to(d, vec)), dtype=t.dtype,
+                      device=t.device)
+    out[..., :d] = t
+    return out
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, return_lse: bool):
-    """Launch the CUDA kernel on the tensors' device and current stream."""
+    """Launch the CUDA kernel on the tensors' device and current stream.
+    q, k and v are read through their strides, without a copy, when their
+    rows start on 16 bytes (the packed QKV projection's slices do);
+    otherwise ``_rows_aligned`` copies them first. There is no other
+    route."""
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash attention kernel takes float32/bfloat16, "
                         f"got {q.dtype}")
@@ -272,8 +304,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, return_lse: bool):
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
-    # the kernel walks b, s and h by stride; the head dim must be dense
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_rows_aligned(t) for t in (q, k, v))
     dev = q.device
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=dev) \
@@ -430,9 +461,9 @@ def _flash(q, k, v, causal: bool, return_lse: bool):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Attention of q [b, sq, h, d] over k, v [b, sk, h, d] -> [b, sq, h, d]
-    in q's dtype. CUDA tensors launch the kernels (their own 64 x 64
-    tiles), CPU tensors run the plain versions; differentiable in q, k and
-    v."""
+    in q's dtype. CUDA tensors launch the kernels (key tiles of
+    BLOCK_K), CPU tensors run the plain versions; differentiable in q, k
+    and v."""
     return _flash(q, k, v, causal, False)
 
 

@@ -13,12 +13,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              with kernel, plain and one-call library times (CUDA events)
              beside the least time the card could take:
              - the fused lookup, bitwise (NaN rows compare as NaN)
-             - flash attention forward, fp32 within FLASH_ATOL, bf16
-               within FLASH_BF16_* (two faulty controls must fail that
-               limit): BERT-Base's shape (b 32, s 512, h 12, d 64, q/k/v
-               strided views of the packed projection), causal s 512,
-               ragged s 500, causal sq 128 over sk 512, and one case with
-               the lse
+             - flash attention forward (bf16 on the tensor cores, fp32
+               on CUDA cores), fp32 within FLASH_ATOL, bf16 within
+               FLASH_BF16_* (two faulty controls must fail that limit):
+               BERT-Base's shape (b 32, s 512, h 12, d 64, q/k/v strided
+               views of the packed projection), causal s 512, ragged s
+               500, causal sq 128 over sk 512, one case with the lse, the
+               fine-tuning shape (s 128, packed, with the lse) and d 128
              - flash attention backward, the dq and dk/dv kernels
                (phase 3c), fp32 within BWD_ATOL of the largest gradient,
                bf16 within BWD_BF16_* (a faulty control, ds left
@@ -100,9 +101,11 @@ bag at the history column's shape (b 8000, bag 8, d 20), with lengths 0,
 partial and full and ids out of range before and past the length, and a
 wide case (b 4096, bag 64, d 128, V 100 000), sum and mean, fp32 and
 bf16; the scatter for each combine of the lookup at NCF's tables (ids
-out of range dropped), for the bag, and with every id one row, each
-launched twice for the same bits; with F.embedding_bag and index_add_
-as the one-call yardsticks.
+out of range dropped), for the bag, for the bag as the training path
+feeds it (no lengths: pad id 0 takes about 28 000 of 64 000 updates, a
+run the scatter sums in two levels), and with every id one row (8000 and
+64 000 updates), each launched twice for the same bits; with
+F.embedding_bag and index_add_ as the one-call yardsticks.
 
 Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
@@ -155,10 +158,24 @@ FLASH_ATOL = 1e-5
 # bf16: |kernel - plain| <= atol + FLASH_BF16_ULPS bf16 ulps of the plain
 # value everywhere (a rounding flip is one ulp; atol covers the fp32 sums
 # near zero), and at most FLASH_BF16_SHARE of the elements differ at all.
+# The forward kernel's scores come from the tensor cores, whose fp32 sums
+# of the exact bf16 products round in another order than the plain
+# version's fp32 matmul, and its exp is ex2.approx where the plain version
+# takes torch.exp: either can round a p = exp(s - m) to its other bf16
+# neighbour, which moves every output of the row by up to 2^-8 |v| / l
+# (bf16_flip_scale), for a small output many of its own ulps. So the
+# forward is also allowed FLASH_BF16_FLIPS such flips per element. Basis
+# (dev/flash_bf16_limit.py --seeds 4, H100): at phase 3's bf16 shapes
+# over 4 seeds and on the q, k, v of a bf16 BERT-Base predict's 12 layers
+# the kernel's largest excess over 2 ulps + atol is 0.94 of one flip
+# (share at most 0.24%); the p_unrounded control's is 2.58 flips (share
+# 0.39), and the output_truncated control differs on half the elements.
+# Two flips leave room on both sides and pass two flips that coincide.
 # The two controls (p left unrounded; the output truncated) must fail it.
 FLASH_BF16_ULPS = 2
 FLASH_BF16_ATOL = 1e-5
 FLASH_BF16_SHARE = 1e-2
+FLASH_BF16_FLIPS = 2
 LSE_ATOL = 1e-5
 # BERT fine-tuning: bench.py's batch of 32 x 128 tokens, 10 timed steps
 TRAIN_BATCH = 32
@@ -275,16 +292,43 @@ def max_abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs()[ok].max())
 
 
-def bf16_reading(got, want, atol: float = FLASH_BF16_ATOL):
+def bf16_reading(got, want, atol: float = FLASH_BF16_ATOL, flip=None):
     """(largest |got - want| over its bf16 limit, atol + FLASH_BF16_ULPS
-    ulps of want, and the share of elements that differ)."""
+    ulps of want (+ FLASH_BF16_FLIPS x ``flip``, where given), and the
+    share of elements that differ)."""
     import torch
     g, w = got.float(), want.float()
     # one bf16 ulp of w: |w| in [2^(e-1), 2^e) has 7 stored bits below
     ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
     ulp = torch.where(w == 0, 0.0, ulp)
-    ratio = (g - w).abs() / (atol + FLASH_BF16_ULPS * ulp)
+    limit = atol + FLASH_BF16_ULPS * ulp
+    if flip is not None:
+        limit = limit + FLASH_BF16_FLIPS * flip
+    ratio = (g - w).abs() / limit
     return float(ratio.max()), float((got != want).float().mean())
+
+
+def bf16_flip_scale(q, k, v, causal, lse):
+    """What one bf16 rounding flip of one p moves each output by, at
+    most, as [b, sq, h, d]: 2^-8 (p < 1 has a bf16 ulp of at most 2^-8)
+    times max_j |v_j| of the column over the row's sum l, with
+    1 / l = exp(m - lse) for the row's largest score m."""
+    import math
+    import torch
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    rows = []
+    for i in range(b):   # one batch row at a time bounds the memory
+        s = torch.einsum("qhd,khd->hqk", q[i].float(), k[i].float()) * scale
+        if causal:
+            qp = torch.arange(sq, device=q.device)[:, None]
+            kp = torch.arange(sk, device=q.device)[None, :]
+            s = torch.where(kp > qp + (sk - sq), -1e30, s)
+        rows.append(s.amax(-1))
+    inv_l = torch.exp(torch.stack(rows) - lse.reshape(b, h, sq))
+    vmax = v.float().abs().amax(1)                      # [b, h, d]
+    return 2.0 ** -8 * inv_l.permute(0, 2, 1)[..., None] * vmax[:, None]
 
 
 def bf16_within(reading, share: float = FLASH_BF16_SHARE) -> bool:
@@ -298,7 +342,7 @@ def truncate_to_bf16(x):
         torch.bfloat16)
 
 
-def bf16_controls(fa, q, k, v, causal, want):
+def bf16_controls(fa, q, k, v, causal, want, flip):
     """Readings of two faulty versions of the bf16 kernel against the
     plain version; each must fail the bf16 limit."""
     import torch
@@ -308,7 +352,8 @@ def bf16_controls(fa, q, k, v, causal, want):
         # v stays bf16, so p still rounds; the fp32 output is truncated
         "output_truncated": truncate_to_bf16(
             fa._flash_fwd_ref(q.float(), k.float(), v, causal))}
-    return {name: bf16_reading(c, want) for name, c in controls.items()}
+    return {name: bf16_reading(c, want, flip=flip)
+            for name, c in controls.items()}
 
 
 def lookup_bound(tables, ids, combine):
@@ -417,16 +462,19 @@ def sdpa_call(q, k, v, causal):
 def phase_flash(torch, fa):
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    b, h, d = BERT_BATCH, 12, 64
-    # (name, sq, sk, causal, packed, with_lse)
-    shapes = [("bert_base", BERT_LEN, BERT_LEN, False, True, False),
-              ("causal", BERT_LEN, BERT_LEN, True, False, False),
-              ("ragged", 500, 500, False, False, False),
-              ("causal_cross", 128, BERT_LEN, True, False, False),
-              ("bert_base_lse", BERT_LEN, BERT_LEN, False, True, True)]
+    b, h = BERT_BATCH, 12
+    # (name, sq, sk, causal, packed, with_lse, d)
+    shapes = [("bert_base", BERT_LEN, BERT_LEN, False, True, False, 64),
+              ("causal", BERT_LEN, BERT_LEN, True, False, False, 64),
+              ("ragged", 500, 500, False, False, False, 64),
+              ("causal_cross", 128, BERT_LEN, True, False, False, 64),
+              ("bert_base_lse", BERT_LEN, BERT_LEN, False, True, True, 64),
+              ("bert_train", TRAIN_LEN, TRAIN_LEN, False, True, True, 64),
+              ("head_dim_128", BERT_LEN, BERT_LEN, False, False, False,
+               128)]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, sq, sk, causal, packed, with_lse in shapes:
+        for name, sq, sk, causal, packed, with_lse, d in shapes:
             if packed:
                 # q, k, v as the packed projection hands them over
                 qkv = torch.randn(b, sq, 3, h, d, generator=gen).to(dev,
@@ -438,10 +486,9 @@ def phase_flash(torch, fa):
                         for _ in range(2))
             if with_lse:
                 got, lse = fa.flash_attention_with_lse(q, k, v, causal)
-                want, want_lse = fa._flash_fwd_ref(q, k, v, causal, True)
             else:
                 got = fa.flash_attention(q, k, v, causal)
-                want = fa._flash_fwd_ref(q, k, v, causal)
+            want, want_lse = fa._flash_fwd_ref(q, k, v, causal, True)
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             reading = controls = None
@@ -449,12 +496,13 @@ def phase_flash(torch, fa):
                 ok = err <= FLASH_ATOL
                 limit = f"atol {FLASH_ATOL}"
             else:
-                reading = bf16_reading(got, want)
+                flip = bf16_flip_scale(q, k, v, causal, want_lse)
+                reading = bf16_reading(got, want, flip=flip)
                 ok = bf16_within(reading)
                 limit = (f"{reading[0]:.3g} of the limit, share "
                          f"{reading[1]:.3g}")
                 if name == "bert_base":
-                    controls = bf16_controls(fa, q, k, v, causal, want)
+                    controls = bf16_controls(fa, q, k, v, causal, want, flip)
                     log(f"  flash bf16 controls (limit, share): {controls}")
             if not (ok and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"kernel != plain: flash {name} {dtype}"
@@ -492,7 +540,7 @@ def phase_flash(torch, fa):
                 f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
                 f"library {rec['library_ms']:.4f} ms  bound "
                 f"{bound:.4f} ms ({bound_by})")
-            del q, k, v, got, want
+            del q, k, v, got, want, want_lse
     return results
 
 
@@ -1635,11 +1683,16 @@ def phase_scatter(torch, eb, dev, gen, slice_ids, slice_len):
                   slow=same)
         vocab, dim = shapes[1]
         table = torch.randn(vocab, dim, generator=gen).to(dev, dtype)
+        # bag_pad_row: the history column as the training path feeds it,
+        # no lengths, so pad id 0 takes about 28 000 of the 64 000 updates;
+        # bag_one_row: all 64 000 updates into one row
+        full = torch.full_like(slice_len, HIST_LEN)
         for name, ids, lengths in (
                 ("bag_slice", slice_ids, slice_len),
-                ("bag_one_row", torch.full_like(slice_ids, 5),
-                 torch.full_like(slice_len, HIST_LEN))):
-            for mode in ("sum", "mean") if name == "bag_slice" else ("sum",):
+                ("bag_pad_row", slice_ids, full),
+                ("bag_one_row", torch.full_like(slice_ids, 5), full)):
+            for mode in ("sum",) if name == "bag_one_row" else ("sum",
+                                                                  "mean"):
                 mean = mode == "mean"
                 cids = ids.to(torch.int32)
                 g = torch.randn(BATCH, dim, generator=gen).to(dev, dtype)

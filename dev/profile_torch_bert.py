@@ -33,7 +33,7 @@ def _shares(window: dict) -> dict:
     groups = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
     for name, k in window["kernels"].items():
         low = name.lower()
-        if "flash_fwd_kernel" in low:
+        if "flash_fwd_bf16_kernel" in low or "flash_fwd_f32_kernel" in low:
             groups["flash"] += k["device_ms"]
         elif any(g in low for g in GEMM_NAMES):
             groups["gemm"] += k["device_ms"]

@@ -34,7 +34,8 @@ GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 #: kernel-name substring -> group, checked in this order
 GROUPS = (("fused_lookup_kernel", "lookup"),
           ("bag_kernel", "bag"),
-          ("scatter_add_kernel", "scatter"),
+          ("scatter_chunk_kernel", "scatter"),
+          ("scatter_runs_kernel", "scatter"),
           ("sort", "sort"),
           ("multi_tensor_apply", "optimizer"))
 

@@ -24,9 +24,18 @@ On the CPU (the plain versions), with inputs from numpy seeds:
 - Both autograd Functions pass ``torch.autograd.gradcheck`` in float64;
   duplicate ids sum in position order (against a Python loop).
 
+Long runs: past ``RUN_CHUNK`` (C) updates a row's gradient is summed in
+two levels (chunks of C, then the chunk sums), so for rows taking C, C + 1
+and 3C + 17 updates, the history column's padding row and a ``mul`` run,
+both JAX routes are held to the bound of two summation orders, and the
+plain version, bit for bit, to the two-level order written out as a numpy
+loop in this file.
+
 On the card only (marker ``cuda``): the bag and scatter kernels against
-their plain versions bit for bit, two scatter launches giving the same
-bits, and one NCF training step on the card moving all four tables.
+their plain versions bit for bit, also at long runs (C, C + 1, 3C + 17, a
+row taking all 64 000 updates of the history column's batch, that batch's
+padding row), two scatter launches giving the same bits, and one NCF
+training step on the card moving all four tables.
 JAX is imported by a fixture, so on a machine without it the ``cuda``
 tests run: ``python -m pytest --noconftest -m cuda
 tests/test_torch_embedding_bag_bwd.py``.
@@ -300,6 +309,133 @@ def test_fused_backward_matches_jax(jeb, combine, widths, dtype):
             _assert_same_bits(got, routes[True][i])
 
 
+# ---------------------------------------------- long runs (two-level sum)
+
+C = teb.RUN_CHUNK
+LONG_CASES = [("one_row", C), ("one_row", C + 1), ("one_row", 3 * C + 17),
+              ("bag_pad_sum", None), ("bag_pad_mean", None),
+              ("mul", C + 30)]
+
+
+def _bf16_round(x):
+    """float32 ``x`` rounded to the nearest bf16, ties to even (finite
+    values), kept as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _two_level_numpy(vocab, keys, updates, bag, bf16):
+    """The scatter's order, written out: each row's updates in position
+    order; a run of at most C summed from zero, a longer one cut into
+    chunks of C from its start, each chunk summed from zero, then the
+    chunk sums summed from zero; every add in fp32, rounded to bf16 after
+    each add for a bf16 table."""
+    rnd = _bf16_round if bf16 else (lambda x: x)
+    updates = np.asarray(updates, np.float32)
+
+    def seq(xs):
+        acc = np.zeros(updates.shape[1], np.float32)
+        for x in xs:
+            acc = rnd((acc + x).astype(np.float32))
+        return acc
+
+    out = np.zeros((vocab, updates.shape[1]), np.float32)
+    for row in range(vocab):
+        ups = [updates[p // bag] for p in range(len(keys)) if keys[p] == row]
+        sums = [seq(ups[i:i + C]) for i in range(0, len(ups), C)]
+        if sums:
+            out[row] = sums[0] if len(sums) == 1 else seq(sums)
+    return out
+
+
+def _long_case(jeb, case, n_hot, dtype):
+    """(port grads, JAX grads through both routes, per-table (keys,
+    updates, bag, vocab)) of one long-run case."""
+    rng = np.random.RandomState(11 if n_hot is None else n_hot)
+    if case.startswith("bag_pad"):
+        # the history column: pad id 0 after a length in [1, 8], no
+        # lengths reaching the layer, so row 0 takes about 450 updates
+        mode = case.rsplit("_", 1)[1]
+        batch, bag, vocab = 128, 8, 13
+        table = rng.randn(vocab, 5).astype(np.float32)
+        lengths = rng.randint(1, bag + 1, batch)
+        ids = np.where(np.arange(bag)[None, :] < lengths[:, None],
+                       rng.randint(1, vocab, (batch, bag)), 0).astype(np.int32)
+        g = rng.randn(batch, 5).astype(np.float32)
+        jt, tt = _cast(table, dtype)
+        jg, tg = _cast(g, dtype)
+        tw = tt.clone().requires_grad_(True)
+        teb.embedding_bag(tw, ids, None, mode).backward(tg)
+        routes = [_jax_vjp(lambda t: jeb.embedding_bag(
+            t, ids, None, mode, use_kernel=uk), (jt,), jg)[0]
+            for uk in (False, True)]
+        full = torch.full((batch,), bag, dtype=torch.int32)
+        keys = teb._bag_keys(torch.from_numpy(ids), full, vocab).numpy()
+        upd = _np(teb._bag_updates(tg, full, tt.dtype, mode == "mean"))
+        return [tw.grad], [routes], [(keys, upd, bag, vocab)]
+    combine = "mul" if case == "mul" else "concat"
+    batch, vocab = n_hot + 40, 11
+    widths = [4, 4] if combine == "mul" else [3, 5]
+    tables = [rng.randn(vocab + i, w).astype(np.float32)
+              for i, w in enumerate(widths)]
+    ids = np.stack([rng.randint(0, t.shape[0], batch) for t in tables], 1)
+    hot = 1 if combine == "mul" else 0
+    col = np.where(ids[:, hot] == 3, 4, ids[:, hot])
+    col[rng.permutation(batch)[:n_hot]] = 3   # row 3 takes n_hot updates
+    ids[:, hot] = col
+    ids = ids.astype(np.int32)
+    d_out = sum(widths) if combine == "concat" else widths[0]
+    g = rng.randn(batch, d_out).astype(np.float32)
+    pairs = [_cast(t, dtype) for t in tables]
+    jts, tts = [p[0] for p in pairs], [p[1] for p in pairs]
+    jg, tg = _cast(g, dtype)
+    tws = [t.clone().requires_grad_(True) for t in tts]
+    teb.fused_embedding_lookup(tws, ids, combine).backward(tg)
+    routes = [_jax_vjp(lambda *ts: jeb.fused_embedding_lookup(
+        ts, ids, combine, use_kernel=uk), jts, jg) for uk in (False, True)]
+    per_table = [(teb._fused_keys(torch.from_numpy(ids[:, i]),
+                                  t.shape[0]).numpy(),
+                  _np(teb._fused_updates(tts, torch.from_numpy(ids), tg,
+                                         combine, i)), 1, t.shape[0])
+                 for i, t in enumerate(tables)]
+    return ([tw.grad for tw in tws],
+            [[r[i] for r in routes] for i in range(len(tables))], per_table)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case,n_hot", LONG_CASES)
+def test_long_run_backward_within_pair_bound_of_jax(jeb, case, n_hot,
+                                                    dtype):
+    # past C updates a row's sum runs in two levels, so JAX's order and the
+    # port's differ: both routes within the bound of two summation orders
+    grads, routes, per_table = _long_case(jeb, case, n_hot, dtype)
+    unit = 2.0 ** -24 if dtype == "fp32" else 2.0 ** -8
+    longest = 0
+    for got, jax_grads, (keys, upd, bag, vocab) in zip(grads, routes,
+                                                       per_table):
+        bound = _pair_bound(keys, np.repeat(upd, bag, 0), vocab, unit)
+        for want in jax_grads:
+            want = _np(want)
+            assert want.shape == tuple(got.shape)
+            assert (np.abs(_np(got) - want) <= bound).all()
+        longest = max(longest, int(np.bincount(keys[keys < vocab]).max()))
+    assert longest > C if n_hot is None else longest == n_hot
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case,n_hot", LONG_CASES)
+def test_scatter_plain_version_follows_the_two_level_order(jeb, case, n_hot,
+                                                           dtype):
+    grads, _, per_table = _long_case(jeb, case, n_hot, dtype)
+    for got, (keys, upd, bag, vocab) in zip(grads, per_table):
+        want = _two_level_numpy(vocab, keys, upd, bag, dtype == "bf16")
+        _assert_same_bits(got, want)
+        plain = teb._scatter_ref(vocab, torch.from_numpy(keys),
+                                 torch.from_numpy(upd).to(got.dtype), bag)
+        _assert_same_bits(plain, want)
+
+
 def test_duplicate_ids_sum_in_position_order():
     # every id the same: the row's gradient is the sequential fp32 sum
     rng = np.random.RandomState(7)
@@ -390,6 +526,60 @@ def test_cuda_fused_backward_matches_plain_bitwise(combine, dtype):
     got = teb._fused_bwd_cuda(tables, ids, g, combine)
     want = teb._fused_bwd_ref(tables, ids, g, combine)
     again = teb._fused_bwd_cuda(tables, ids, g, combine)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        _assert_same_bits(a, b)
+        _assert_same_bits(a, c)
+
+
+def _history_batch(rng, batch=8000, bag=8, items=3706):
+    """The item-history column's batch: a length in [1, bag], item ids in
+    [1, items], pad id 0 after the length."""
+    lengths = rng.randint(1, bag + 1, batch)
+    ids = rng.randint(1, items + 1, (batch, bag))
+    return np.where(np.arange(bag)[None, :] < lengths[:, None], ids,
+                    0).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["run_C", "run_C_plus_1", "run_3C_plus_17",
+                                  "one_row_64000", "history_pad_row",
+                                  "history_pad_row_mean", "mul_long_run"])
+def test_cuda_scatter_long_runs_match_plain_bitwise(case, dtype):
+    dev = _cuda()
+    rng = np.random.RandomState(len(case))
+    if case.startswith(("history", "one_row")):
+        # the bag's backward, pads counted (no lengths reach the layer):
+        # row 0 takes about 28 000 of 64 000 updates, or row 5 all of them
+        ids = _history_batch(rng) if case.startswith("history") else \
+            np.full((8000, 8), 5, np.int32)
+        ids = torch.from_numpy(ids).to(dev)
+        lengths = torch.full((8000,), 8, dtype=torch.int32, device=dev)
+        g = torch.from_numpy(rng.randn(8000, 20).astype(np.float32)).to(
+            dev, dtype)
+        mean = case.endswith("mean")
+        got = [teb._bag_bwd_cuda(3707, dtype, ids, lengths, g, mean)]
+        want = [teb._bag_bwd_ref(3707, dtype, ids, lengths, g, mean)]
+        again = [teb._bag_bwd_cuda(3707, dtype, ids, lengths, g, mean)]
+    else:
+        n_hot = {"run_C": C, "run_C_plus_1": C + 1, "run_3C_plus_17":
+                 3 * C + 17, "mul_long_run": 2 * C + 5}[case]
+        combine = "mul" if case.startswith("mul") else "concat"
+        batch = n_hot + 300
+        tables = [torch.from_numpy(rng.randn(500 + i, 20).astype(
+            np.float32)).to(dev, dtype) for i in range(2)]
+        ids = np.stack([rng.randint(0, 500, batch) for _ in range(2)], 1)
+        col = np.where(ids[:, 1] == 7, 8, ids[:, 1])
+        col[rng.permutation(batch)[:n_hot]] = 7
+        ids[:, 1] = col
+        ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        d_out = 40 if combine == "concat" else 20
+        g = torch.from_numpy(rng.randn(batch, d_out).astype(np.float32)).to(
+            dev, dtype)
+        got = teb._fused_bwd_cuda(tables, ids, g, combine)
+        want = teb._fused_bwd_ref(tables, ids, g, combine)
+        again = teb._fused_bwd_cuda(tables, ids, g, combine)
     torch.cuda.synchronize()
     for a, b, c in zip(got, want, again):
         _assert_same_bits(a, b)

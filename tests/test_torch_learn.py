@@ -118,6 +118,77 @@ def test_sequence_cross_entropy_means_over_time(jlearn):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+# labels out of range: JAX's take_along_axis fills NaN, negative labels in
+# [-C, 0) wrap (ROADMAP C9); uniform 0.2 predictions over 5 classes
+OUT_OF_RANGE = np.array([0, 4, 5, -1, -6, 7, -5], np.int32)
+SPARSE_NAMES = ["sparse_categorical_crossentropy",
+                "sparse_categorical_crossentropy_logits"]
+
+
+def _out_of_range_inputs(name):
+    n = len(OUT_OF_RANGE)
+    if name.endswith("_logits"):
+        return OUT_OF_RANGE, np.zeros((n, C), np.float32)
+    return OUT_OF_RANGE, np.full((n, C), 0.2, np.float32)
+
+
+def _assert_same_nans(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got[~np.isnan(got)], want[~np.isnan(want)],
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", SPARSE_NAMES)
+def test_sparse_loss_labels_out_of_range_give_nan_as_jax(jlearn, name):
+    y_true, y_pred = _out_of_range_inputs(name)
+    want = np.asarray(jlearn[0].get(name)(y_true, y_pred))
+    got = tlosses.get(name)(torch.from_numpy(y_true),
+                            torch.from_numpy(y_pred)).numpy()
+    # 1.609438 = -log(0.2) at 0, 4, -1 and -5; NaN at 5, -6 and 7
+    assert np.isnan(want).tolist() == [False, False, True, False, True,
+                                       True, False]
+    np.testing.assert_allclose(want[0], 1.609438, rtol=1e-6)
+    _assert_same_nans(got, want)
+
+
+def test_sparse_metric_labels_out_of_range_give_nan_as_jax(jlearn):
+    import jax.numpy as jnp
+    name = "sparse_categorical_crossentropy"
+    y_true, y_pred = _out_of_range_inputs(name)
+    jm, tm = jlearn[1].get(name), tmetrics.get(name)
+    _assert_same_nans(tm._per_sample(torch.from_numpy(y_true),
+                                     torch.from_numpy(y_pred)).numpy(),
+                      jm._per_sample(jnp.asarray(y_true),
+                                     jnp.asarray(y_pred)))
+    # a label in range everywhere but one row: the running result is NaN
+    state = tm.update(tm.init_state(), torch.from_numpy(y_true),
+                      torch.from_numpy(y_pred))
+    assert np.isnan(tm.result(state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPARSE_NAMES)
+def test_cuda_sparse_loss_labels_out_of_range_give_nan(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    y_true, y_pred = _out_of_range_inputs(name)
+    want = tlosses.get(name)(torch.from_numpy(y_true),
+                             torch.from_numpy(y_pred))
+    got = tlosses.get(name)(torch.from_numpy(y_true).cuda(),
+                            torch.from_numpy(y_pred).cuda())
+    torch.cuda.synchronize()   # a device assert would surface here
+    _assert_same_nans(got.cpu().numpy(), want.numpy())
+    metric = tmetrics.get("sparse_categorical_crossentropy")
+    _assert_same_nans(
+        metric._per_sample(torch.from_numpy(y_true).cuda(),
+                           torch.softmax(torch.from_numpy(y_pred).cuda(),
+                                         -1)).cpu().numpy(),
+        metric._per_sample(torch.from_numpy(y_true),
+                           torch.softmax(torch.from_numpy(y_pred),
+                                         -1)).numpy())
+
+
 def test_loss_lookup_errors():
     with pytest.raises(ValueError, match="unknown loss"):
         tlosses.get("nope")

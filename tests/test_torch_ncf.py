@@ -18,6 +18,7 @@ from analytics_zoo_tpu.keras import Sequential as JSequential
 from analytics_zoo_tpu.keras import layers as jl
 from analytics_zoo_tpu.models.recommendation import NeuralCF as JNeuralCF
 from analytics_zoo_tpu_torch.convert import flax_to_state_dict
+from analytics_zoo_tpu_torch.data import HostXShards
 from analytics_zoo_tpu_torch.inference import InferenceModel
 from analytics_zoo_tpu_torch.keras import Sequential, layers as tl, policy
 from analytics_zoo_tpu_torch.models import NeuralCF, ZooModel
@@ -142,9 +143,20 @@ def test_predict_user_item_pair_matches_jax():
     got = ncf.predict_user_item_pair(
         [UserItemFeature(int(u), int(i), np.array([u, i]))
          for u, i in x], device="cpu")
+    assert isinstance(got, HostXShards)
+    got = got.collect()[0]
     assert [p.prediction for p in got] == list(probs.argmax(-1) + 1)
     np.testing.assert_allclose([p.probability for p in got],
                                probs.max(-1), rtol=RTOL, atol=ATOL)
+
+
+def test_zoo_model_predict_passes_its_arguments_through():
+    # JAX's ZooModel.predict(*args, **kwargs): distributed= is accepted
+    jax_predict, ncf, _ = _port_pair(True)
+    x = _pairs(10, seed=6)
+    got = ncf.predict(x, batch_size=4, distributed=False, device="cpu")
+    np.testing.assert_allclose(got, jax_predict(x), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(ncf.predict(x, 4, False, "cpu"), got)
 
 
 def test_two_builds_get_the_same_names():
