@@ -23,11 +23,12 @@ Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
 All take the public layout ``[b, s, h, d]``; the lse is ``[b*h, sq]``
 fp32. The kernels read q, k, v (and the output's cotangent) through their
 strides (the head dim must be contiguous), so the slices of a packed QKV
-projection need no copy. The forward kernel copies rows in 16-byte pieces:
-a tensor whose rows do not start on 16 bytes is first copied, on the
-card, into a contiguous one with rows zero-padded to 16 bytes. In bf16
-the forward runs both products on the tensor cores (``mma.sync``, fp32
-accumulation); in fp32 it stays on CUDA cores, register-tiled. Masked keys follow the Pallas kernel: scores of
+projection need no copy. The kernels copy rows in 16-byte pieces: a
+tensor whose rows do not start on 16 bytes is first copied, on the card,
+into a contiguous one with rows zero-padded to 16 bytes. In bf16 the
+forward and both backward kernels run their products on the tensor cores
+(``mma.sync``, fp32 accumulation); in fp32 they stay on CUDA cores,
+register-tiled. Masked keys follow the Pallas kernel: scores of
 -1e30, bottom-right causal with offset ``sk - sq``, and keys past ``sk``
 masked in the ragged tail. A row that sees no key at all gives zeros and
 zero gradients (see the sources' notes).
@@ -279,10 +280,11 @@ def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
     its device into a contiguous tensor whose rows are zero-padded to 16
     bytes; the kernel reads the first d columns of it and zeros after."""
     vec = 16 // t.element_size()
-    d = t.shape[3]
-    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0 and d % vec == 0
-            and all(t.stride(i) % vec == 0 or t.shape[i] == 1
-                    for i in range(3))):
+    # unrolled: this runs for every tensor of every launch, on the host
+    (n0, n1, n2, d), (s0, s1, s2, s3) = t.shape, t.stride()
+    if (s3 == 1 and d % vec == 0 and t.data_ptr() % 16 == 0
+            and (s0 % vec == 0 or n0 == 1) and (s1 % vec == 0 or n1 == 1)
+            and (s2 % vec == 0 or n2 == 1)):
         return t
     out = torch.zeros((*t.shape[:3], ceil_to(d, vec)), dtype=t.dtype,
                       device=t.device)
@@ -332,27 +334,33 @@ def _flash_fwd_cuda(q, k, v, causal: bool, return_lse: bool):
 _bwd_lib_handle: Optional[ctypes.CDLL] = None
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the backward's C entry points on a loaded library."""
+    common = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+              + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_void_p])
+    lib.zoo_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + common
+    lib.zoo_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + common
+    lib.zoo_flash_bwd_dq.restype = ctypes.c_int
+    lib.zoo_flash_bwd_dkv.restype = ctypes.c_int
+    lib.zoo_flash_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.zoo_flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_lib() -> ctypes.CDLL:
     global _bwd_lib_handle
     if _bwd_lib_handle is None:
-        lib = _build.load("flash_attention_bwd")
-        common = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
-                  + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                     ctypes.c_void_p])
-        lib.zoo_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + common
-        lib.zoo_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + common
-        lib.zoo_flash_bwd_dq.restype = ctypes.c_int
-        lib.zoo_flash_bwd_dkv.restype = ctypes.c_int
-        lib.zoo_flash_bwd_error_string.argtypes = [ctypes.c_int]
-        lib.zoo_flash_bwd_error_string.restype = ctypes.c_char_p
-        _bwd_lib_handle = lib
+        _bwd_lib_handle = _bind_bwd(_build.load("flash_attention_bwd"))
     return _bwd_lib_handle
 
 
 def _bwd_launch(name, counter, q, k, v, do, lse, delta, causal, glse,
                 outs):
     """Launch backward kernel ``name`` writing ``outs`` (contiguous, q's
-    dtype) on the tensors' device and current stream."""
+    dtype) on the tensors' device and current stream. q, k, v and dO are
+    read through their strides when their rows start on 16 bytes;
+    otherwise ``_rows_aligned`` copies them first."""
     b, sq, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
@@ -363,8 +371,7 @@ def _bwd_launch(name, counter, q, k, v, do, lse, delta, causal, glse,
                              f"{(b * h, sq)}")
     if b * h * sq == 0:
         return
-    q, k, v, do = (t if t.stride(3) == 1 else t.contiguous()
-                   for t in (q, k, v, do))
+    q, k, v, do = (_rows_aligned(t) for t in (q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     glse = None if glse is None else glse.float().contiguous()
     sm_scale = float(np.float32(1.0 / math.sqrt(d)))

@@ -34,8 +34,8 @@ GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 #: kernel-name substring -> group, checked in this order
 GROUPS = (("flash_fwd_bf16_kernel", "flash_fwd"),
           ("flash_fwd_f32_kernel", "flash_fwd"),
-          ("flash_bwd_dq_kernel", "flash_bwd_dq"),
-          ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+          ("flash_bwd_dq", "flash_bwd_dq"),
+          ("flash_bwd_dkv", "flash_bwd_dkv"),
           ("multi_tensor_apply", "optimizer"))
 
 

@@ -16,12 +16,17 @@
   ``flash_attention_with_lse`` (interpreted).
 - Query rows that see no key (causal, sq > sk) get zero gradients and add
   nothing to dk and dv.
+- chip_smoke.py's bf16 limit for the backward kernels (2 bf16 ulps + 1e-3
+  of the largest gradient + BWD_BF16_FLIPS rounding flips of one ds or p,
+  ``bwd_flip_scale``, with at most 2% of elements differing) passes the
+  plain version with one ds or p flipped to its other bf16 neighbour by
+  hand, and fails its three faulty controls (ds or p left unrounded).
 - On the card only (marker ``cuda``): the kernels against the plain
   version on the same CUDA tensors, fp32 within 1e-5 of the largest
-  gradient, bf16 within 2 bf16 ulps of the plain value plus 1e-3 of the
-  largest gradient with at most 2% of elements differing; two launches
-  give the same bits; and one training step of a small BERT classifier
-  through ``Estimator.from_torch`` launches both kernels once per block.
+  gradient, bf16 within chip_smoke.py's limit; d 128, d 40 and rows the
+  wrapper copies (d 20); two launches give the same bits; and one
+  training step of a small BERT classifier through
+  ``Estimator.from_torch`` launches both kernels once per block.
 
 Inputs come from numpy seeds, b*h <= 4 and s <= 256 (interpreted Pallas
 is slow). JAX is imported by a fixture, so on a machine without it the
@@ -295,6 +300,111 @@ def test_launch_wrappers_marshal_the_kernel_arguments(monkeypatch):
         tfa._flash_bwd_dkv_cuda(q, k, v, do.double(), lse, delta, True)
 
 
+def test_launch_wrappers_copy_rows_that_do_not_start_on_16_bytes(
+        monkeypatch):
+    # the kernels copy rows in 16-byte pieces: a view one element into its
+    # storage (q) and a head dim of 20 bf16 (k, v: 40-byte rows) reach the
+    # kernel as copies with rows zero-padded to 16 bytes; aligned q, dO
+    # pass as they are
+    import contextlib
+    import types
+    lib = _FakeBwdLib()
+    monkeypatch.setattr(tfa, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    seen = []
+    aligned = tfa._rows_aligned
+    monkeypatch.setattr(tfa, "_rows_aligned",
+                        lambda t: seen.append(aligned(t)) or seen[-1])
+    b, s, h = 2, 24, 3
+    for dtype, d in ((torch.float32, 16), (torch.bfloat16, 20)):
+        seen.clear()
+        n = b * s * h * d
+        q = torch.randn(n + 1).to(dtype)[1:].view(b, s, h, d)
+        assert q.data_ptr() % 16 != 0
+        k, v, do = (torch.randn(b, s, h, d).to(dtype) for _ in range(3))
+        lse, delta = torch.randn(b * h, s), torch.randn(b * h, s)
+        lib.calls.clear()
+        tfa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, False)
+        (_, args), = lib.calls
+        qa, ka, va, doa = seen
+        vec = 16 // q.element_size()
+        pad = -(-d // vec) * vec
+        for got, t in zip((qa, ka, va, doa), (q, k, v, do)):
+            assert torch.equal(got[..., :d], t)
+            assert got.data_ptr() % 16 == 0
+            assert all(st % vec == 0 for st in got.stride()[:3])
+            assert not bool(got[..., d:].any())
+        assert qa.data_ptr() != q.data_ptr() and qa.shape[3] == pad
+        if d % vec == 0:
+            # aligned tensors are read where they lie
+            assert doa.data_ptr() == do.data_ptr()
+        else:
+            assert doa.data_ptr() != do.data_ptr()
+        assert list(args[:4]) == [t.data_ptr() for t in seen]
+        # the kernel is told the true head dim and the copies' strides
+        assert args[8 + 4] == d
+        assert args[8 + 5:8 + 17] == tuple(
+            st for t in seen for st in t.stride()[:3])
+
+
+# ------------------------------------------------- the bf16 limit (CPU)
+
+def _cs():
+    import chip_smoke
+    return chip_smoke
+
+
+def _flipped(x, at):
+    """bf16 ``x`` rounded from fp32, with element ``at`` moved to the
+    other bf16 neighbour of the fp32 value (a rounding flip)."""
+    cs = _cs()
+    xb = x.to(torch.bfloat16)
+    lo = cs.truncate_to_bf16(x[at].reshape(1))        # toward zero
+    hi = (lo.view(torch.int16) + 1).view(torch.bfloat16)
+    out = xb.clone()
+    out[at] = (hi if bool(xb[at] == lo[0]) else lo)[0]
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_limit_passes_one_flip_and_fails_the_controls(causal):
+    # the plain version with one ds (dq, dk) or one p (dv) moved to its
+    # other bf16 neighbour, at the largest ds or p of the score matrix,
+    # stays within chip_smoke.py's limit; ds or p left unrounded (its
+    # three faulty controls) does not
+    cs = _cs()
+    b, h, s, d = 2, 3, 128, 64
+    rng = np.random.RandomState(7 + causal)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, s, h, d).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    o, lse = tfa._flash_fwd_ref(q, k, v, causal, return_lse=True)
+    delta = tfa._row_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal, None)
+    want = (tfa._flash_bwd_dq_ref(*args), *tfa._flash_bwd_dkv_ref(*args))
+    flips = cs.bwd_flip_scale(tfa, *args)
+    p, ds, qf, kf, dof = tfa._p_ds(q, k, v, lse, do, delta, causal, None)
+    at_ds = np.unravel_index(int(ds.abs().argmax()), ds.shape)
+    at_p = np.unravel_index(int(p.argmax()), p.shape)
+    dsf = _flipped(ds, at_ds).float()
+    pf = _flipped(p, at_p).float()
+    one_flip = (tfa._bshd(torch.matmul(dsf, kf), torch.bfloat16),
+                tfa._bshd(torch.matmul(dsf.transpose(-1, -2), qf),
+                          torch.bfloat16),
+                tfa._bshd(torch.matmul(pf.transpose(-1, -2), dof),
+                          torch.bfloat16))
+    for name, got, w, flip in zip(("dq", "dk", "dv"), one_flip, want,
+                                  flips):
+        assert not torch.equal(got, w), name
+        reading = cs.bwd_reading(got, w, torch.bfloat16, flip)
+        assert cs.bwd_within(reading), (name, reading)
+    for name, reading in cs.bwd_bf16_controls(tfa, args, want,
+                                               flips).items():
+        assert not cs.bwd_within(reading), (name, reading)
+
+
 # ------------------------------------------------------------- on the card
 
 def _need_cuda():
@@ -302,24 +412,19 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernels)")
 
 
-def _bf16_within(got, want, atol):
-    w = want.float()
-    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
-    ulp = torch.where(w == 0, 0.0, ulp)
-    ok = (got.float() - w).abs() <= atol + 2 * ulp
-    return bool(ok.all()) and float((got != want).float().mean()) <= 2e-2
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,sk,causal,packed,with_glse", [
-    (128, 128, False, True, False), (128, 128, False, True, True),
-    (256, 256, True, False, False), (200, 200, False, False, True),
-    (64, 192, True, False, False), (96, 40, True, False, False)])
-def test_cuda_kernels_match_plain(sq, sk, causal, packed, with_glse, dtype):
+@pytest.mark.parametrize("sq,sk,causal,packed,with_glse,d", [
+    (128, 128, False, True, False, 64), (128, 128, False, True, True, 64),
+    (256, 256, True, False, False, 64), (200, 200, False, False, True, 64),
+    (64, 192, True, False, False, 64), (96, 40, True, False, False, 64),
+    (256, 256, False, True, False, 128), (200, 200, True, False, True, 128),
+    (200, 200, True, False, True, 40), (128, 128, False, True, False, 20)])
+def test_cuda_kernels_match_plain(sq, sk, causal, packed, with_glse, d,
+                                  dtype):
     _need_cuda()
-    b, h, d = 2, 3, 64
-    gen = torch.Generator().manual_seed(sq + sk)
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(sq + sk + d)
     if packed:
         qkv = torch.randn(b, sq, 3, h, d, generator=gen).cuda().to(dtype)
         q, k, v = qkv.unbind(2)
@@ -341,13 +446,20 @@ def test_cuda_kernels_match_plain(sq, sk, causal, packed, with_glse, dtype):
     assert after["flash_attention_bwd_dkv"] == \
         before["flash_attention_bwd_dkv"] + 2
     want = tfa._flash_bwd_ref(q, k, v, o, lse, do, causal, glse)
-    for name, a, a2, w in zip("qkv", got, again, want):
+    flips = (None,) * 3
+    if dtype == torch.bfloat16:
+        cs = _cs()
+        flips = cs.bwd_flip_scale(tfa, q, k, v, do, lse,
+                                  tfa._row_delta(o, do), causal, glse)
+    for name, a, a2, w, flip in zip("qkv", got, again, want, flips):
         assert torch.equal(a, a2), f"d{name} differs between two launches"
+        assert a.shape == w.shape and a.is_contiguous()
         top = float(w.float().abs().max())
         if dtype == torch.float32:
             torch.testing.assert_close(a, w, rtol=0, atol=1e-5 * top)
         else:
-            assert _bf16_within(a, w, 1e-3 * top), name
+            reading = cs.bwd_reading(a, w, dtype, flip)
+            assert cs.bwd_within(reading), (name, reading)
 
 
 @pytest.mark.cuda
