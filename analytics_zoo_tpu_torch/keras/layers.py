@@ -196,8 +196,9 @@ class Lambda(KerasLayer):
 
 class _EmbedTable(nn.Module):
     """Bare embedding-table parameter named ``embedding``, as in the flax
-    tree; ``forward`` returns the table itself so callers feed the fused
-    lookup kernel (ops/embedding_bag.py)."""
+    tree; ``forward`` returns the table itself. The embedding layers read
+    ``.embedding`` directly and feed it to the lookup kernels
+    (ops/embedding_bag.py)."""
 
     def __init__(self, vocab: int, features: int):
         super().__init__()
@@ -256,7 +257,9 @@ class FusedEmbeddings(KerasLayer):
             ids = ids - 1
         tables = []
         for tname, _, _ in self.specs:
-            t = modules[tname]()
+            # the parameter itself: a module call's hook checks cost host
+            # time on every forward
+            t = modules[tname].embedding
             if self.compute_dtype is not None:
                 t = t.to(self.compute_dtype)
             tables.append(t)
@@ -308,7 +311,7 @@ class Embedding(KerasLayer):
         ids = args[0].to(torch.int32)
         if not self.zero_based_id:
             ids = ids - 1
-        table = modules[self.name]()
+        table = modules[self.name].embedding
         if self.compute_dtype is not None:
             table = table.to(self.compute_dtype)
         if self.pooling is not None:

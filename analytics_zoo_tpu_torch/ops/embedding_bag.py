@@ -15,7 +15,15 @@ Counterpart of ``analytics_zoo_tpu/ops/embedding_bag.py``:
 - ``embedding_bag_ragged`` — offsets-form bags, plain PyTorch (the JAX
   function is plain ``segment_sum``).
 
-Both kernels sit behind a ``torch.autograd.Function``. Their backward is
+Both kernels sit behind a ``torch.autograd.Function`` when a gradient is
+wanted (grad mode on and a table that requires grad); otherwise the public
+function checks its arguments once and calls the launcher itself, which
+makes one launch: no autograd, no device guard (the C entry point takes
+the device index and the raw stream and switches device only when the
+calling thread's differs), the lookup's argument block taken from a small
+cache keyed by the tables' storage and shapes, and for the bag no lengths
+tensor and no clamp on the host (the kernel reads a null lengths pointer
+as full bags and clamps each id it reads). Their backward is
 JAX's plain scatter-add (``_fused_bwd`` / ``_bag_bwd``): each gradient
 table starts at zero and takes one update per looked-up position. On CUDA
 that is one scatter kernel of two passes (``csrc/embedding_bag.cu``),
@@ -32,15 +40,18 @@ kernels' order and precision, so the two agree bitwise.
 Ids: the fused lookup follows ``jnp.take`` (ids in ``[-V, V)`` index the
 table, negative ones wrapping, any other id gives a NaN row) and its
 backward follows ``.at[ids].add`` (negative ids wrap, ids outside
-``[-V, V)`` scatter nowhere). The bag clamps its ids into ``[0, V-1]``
-before either route, as the JAX dispatcher does. Neither kernel reads
-outside a table. There is no autotuner here.
+``[-V, V)`` scatter nowhere). The bag clamps its ids into ``[0, V-1]``,
+as the JAX dispatcher does: the CPU route clamps before the plain version,
+the kernel as it reads each id, and the backward's keys (``_bag_keys``)
+from the saved ids. Neither kernel reads outside a table. There is no
+autotuner here.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Union
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +61,8 @@ from analytics_zoo_tpu_torch.ops import _build
 _COMBINES = ("concat", "sum", "mean", "mul")
 _COMBINE_CODE = {"concat": 0, "sum": 1, "mean": 2, "mul": 3}
 MAX_TABLES = 8
+#: argument blocks of the fused lookup kept at once (``_fused_args``)
+ARGS_CACHE_SIZE = 64
 #: updates a row's run takes before the scatter sums it in two levels:
 #: chunks of RUN_CHUNK positions, then the chunk sums (SCATTER_RUN_CHUNK in
 #: csrc/embedding_bag.cu)
@@ -184,11 +197,13 @@ def _fused_keys(col: torch.Tensor, vocab: int) -> torch.Tensor:
 def _bag_keys(ids: torch.Tensor, lengths: torch.Tensor,
               vocab: int) -> torch.Tensor:
     """The row each bag slot scatters into, flattened in (batch, slot)
-    order; masked slots get ``vocab`` (dropped: JAX adds +0.0 there,
-    which leaves every bit of a sum that started at +0.0 as it was)."""
+    order: the id clamped into ``[0, V-1]`` (the forward read that row);
+    masked slots get ``vocab`` (dropped: JAX adds +0.0 there, which leaves
+    every bit of a sum that started at +0.0 as it was)."""
     pos = torch.arange(ids.shape[1], device=ids.device)
     live = pos[None, :] < lengths[:, None]
-    return torch.where(live, ids, vocab).to(torch.int32).reshape(-1)
+    return torch.where(live, torch.clamp(ids, 0, vocab - 1),
+                       vocab).to(torch.int32).reshape(-1)
 
 
 def _scatter_ref(vocab: int, keys: torch.Tensor, updates: torch.Tensor,
@@ -314,7 +329,10 @@ class _FusedArgs(ctypes.Structure):
                 ("dim", ctypes.c_int * MAX_TABLES),
                 ("offset", ctypes.c_int * MAX_TABLES),
                 ("n_tables", ctypes.c_int),
-                ("d_out", ctypes.c_int)]
+                ("d_out", ctypes.c_int),
+                ("combine", ctypes.c_int),
+                ("is_bf16", ctypes.c_int),
+                ("inv_n", ctypes.c_float)]
 
 
 class _ScatterArgs(ctypes.Structure):
@@ -342,13 +360,13 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("embedding_bag")
         lib.zoo_fused_lookup.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(_FusedArgs), ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         lib.zoo_fused_lookup.restype = ctypes.c_int
         lib.zoo_embedding_bag.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
         lib.zoo_embedding_bag.restype = ctypes.c_int
         lib.zoo_embedding_scatter_add.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -356,10 +374,18 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.zoo_embedding_scatter_add.restype = ctypes.c_int
+        lib.zoo_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.zoo_empty_launch.restype = ctypes.c_int
         lib.zoo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.zoo_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, as an int (no
+    ``Stream`` object is made)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -381,62 +407,85 @@ def _check_kernel_tables(tables: Sequence[torch.Tensor], what: str) -> None:
             raise ValueError(f"{what} kernel needs contiguous tables")
 
 
-def _fused_cuda(tables: Sequence[torch.Tensor], ids: torch.Tensor,
-                combine: str) -> torch.Tensor:
-    """Launch the fused lookup kernel on the tensors' device and current
-    stream."""
-    _check_kernel_tables(tables, "fused lookup")
-    dev = tables[0].device
-    dtype = tables[0].dtype
-    dims = [int(t.shape[1]) for t in tables]
-    d_out = sum(dims) if combine == "concat" else dims[0]
-    batch = int(ids.shape[0])
-    ids = ids.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((batch, d_out), dtype=dtype, device=dev)
-    if batch == 0 or d_out == 0:
-        return out
+_args_cache: Dict[tuple, _FusedArgs] = {}
+_args_lock = threading.Lock()
+
+
+def _fused_args(tables: Sequence[torch.Tensor], combine: str) -> _FusedArgs:
+    """The lookup's argument block for these tables and ``combine``, built
+    once and kept. The key holds everything the block holds (each table's
+    address, rows and width, the dtype and the combine), so a table freed
+    and reallocated at the same address with the same shape gets an equal
+    block. At most ARGS_CACHE_SIZE blocks are kept: past it the oldest
+    goes. Lookups are lock-free; inserts take a lock, so serving threads
+    may call at once. A block is never written after it is cached."""
+    key = (combine, tables[0].dtype,
+           *[(t.data_ptr(), t.shape) for t in tables])
+    args = _args_cache.get(key)
+    if args is not None:
+        return args
     args = _FusedArgs()
     args.n_tables = len(tables)
-    args.d_out = d_out
     off = 0
     for i, t in enumerate(tables):
         args.table[i] = t.data_ptr()
         args.vocab[i] = int(t.shape[0])
-        args.dim[i] = dims[i]
+        args.dim[i] = int(t.shape[1])
         args.offset[i] = off
-        off += dims[i]
+        off += int(t.shape[1])
+    args.d_out = off if combine == "concat" else int(tables[0].shape[1])
+    args.combine = _COMBINE_CODE[combine]
+    args.is_bf16 = int(tables[0].dtype == torch.bfloat16)
+    args.inv_n = _recip(len(tables), torch.float32)
+    with _args_lock:
+        while len(_args_cache) >= ARGS_CACHE_SIZE:
+            _args_cache.pop(next(iter(_args_cache)))
+        _args_cache[key] = args
+    return args
+
+
+def _fused_cuda(tables: Sequence[torch.Tensor], ids: torch.Tensor,
+                combine: str) -> torch.Tensor:
+    """Launch the fused lookup kernel on the tables' device and its current
+    stream: ``ids`` int32 ``[batch, n_tables]``, contiguous, on that device
+    (the public function makes them so)."""
+    _check_kernel_tables(tables, "fused lookup")
+    args = _fused_args(tables, combine)
+    out = tables[0].new_empty((ids.shape[0], args.d_out))
+    if out.numel() == 0:
+        return out
+    index = tables[0].get_device()
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zoo_fused_lookup(
-            ids.data_ptr(), ctypes.byref(args), out.data_ptr(), batch,
-            _COMBINE_CODE[combine], int(dtype == torch.bfloat16),
-            _recip(len(tables), torch.float32), stream)
+    err = lib.zoo_fused_lookup(ids.data_ptr(), ctypes.byref(args),
+                               out.data_ptr(), out.shape[0], index,
+                               _raw_stream(index))
     _check_launch(lib, err, "fused lookup")
     launches.add()
     return out
 
 
-def _bag_cuda(table: torch.Tensor, ids: torch.Tensor, lengths: torch.Tensor,
-              mean: bool) -> torch.Tensor:
-    """Launch the bag kernel; ``ids`` int32 ``[batch, bag]`` (clamped),
-    ``lengths`` int32 ``[batch]``, both on the table's device."""
-    _check_kernel_tables([table], "embedding bag")
-    dev = table.device
-    batch, bag = (int(s) for s in ids.shape)
-    dim = int(table.shape[1])
-    ids = ids.contiguous()
-    lengths = lengths.contiguous()
-    out = torch.empty((batch, dim), dtype=table.dtype, device=dev)
-    if batch == 0 or dim == 0:
+def _bag_cuda(table: torch.Tensor, ids: torch.Tensor,
+              lengths: Optional[torch.Tensor], mean: bool) -> torch.Tensor:
+    """Launch the bag kernel on the table's device and its current stream:
+    ``ids`` int32 ``[batch, bag]``, contiguous, on that device, as they
+    come (the kernel clamps each id it reads into ``[0, V-1]``);
+    ``lengths`` int32 ``[batch]``, contiguous, or None for full bags."""
+    if table.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"embedding bag kernel takes float32/bfloat16 "
+                        f"tables, got {table.dtype}")
+    if not table.is_contiguous():
+        raise ValueError("embedding bag kernel needs contiguous tables")
+    batch, bag = ids.shape
+    out = table.new_empty((batch, table.shape[1]))
+    if out.numel() == 0:
         return out
+    index = table.get_device()
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zoo_embedding_bag(
-            ids.data_ptr(), lengths.data_ptr(), table.data_ptr(),
-            int(table.shape[0]), dim, batch, bag, int(mean),
-            int(table.dtype == torch.bfloat16), out.data_ptr(), stream)
+    err = lib.zoo_embedding_bag(
+        ids.data_ptr(), None if lengths is None else lengths.data_ptr(),
+        table.data_ptr(), table.shape[0], table.shape[1], batch, bag, mean,
+        table.dtype == torch.bfloat16, out.data_ptr(), index,
+        _raw_stream(index))
     _check_launch(lib, err, "embedding bag")
     bag_launches.add()
     return out
@@ -542,6 +591,34 @@ def _bag_bwd_cuda(vocab: int, dtype: torch.dtype, ids: torch.Tensor,
                          _bag_scatter_plan(vocab, ids, lengths, g, mean))
 
 
+# -------------------------------------------------------------- forwards
+
+def _fused_forward(tables: Sequence[torch.Tensor], ids: torch.Tensor,
+                   combine: str) -> torch.Tensor:
+    """The lookup without autograd: the plain version for tables on the
+    CPU, the kernel for any other (the public function admits only CUDA
+    besides the CPU)."""
+    if tables[0].is_cpu:
+        return _fused_ref(tables, ids, combine)
+    return _fused_cuda(tables, ids, combine)
+
+
+def _bag_forward(table: torch.Tensor, ids: torch.Tensor,
+                 lengths: Optional[torch.Tensor], mean: bool) -> torch.Tensor:
+    """The bag without autograd, from int32 ids as they come. On the CPU in
+    JAX's order: the ids clamped into ``[0, V-1]`` (the Pallas kernel's
+    index_map fetches every slot's row before the mask applies), full
+    lengths for None, then the plain version. Off the CPU the kernel, which
+    clamps each id it reads and takes None as full bags."""
+    if not table.is_cpu:
+        return _bag_cuda(table, ids, lengths, mean)
+    if lengths is None:
+        lengths = torch.full((ids.shape[0],), ids.shape[1],
+                             dtype=torch.int32)
+    return _bag_ref(table, torch.clamp(ids, 0, table.shape[0] - 1), lengths,
+                    mean)
+
+
 # ------------------------------------------------------- autograd Functions
 
 class _FusedLookup(torch.autograd.Function):
@@ -552,9 +629,7 @@ class _FusedLookup(torch.autograd.Function):
     def forward(ctx, combine: str, ids: torch.Tensor, *tables: torch.Tensor):
         ctx.combine = combine
         ctx.save_for_backward(ids, *tables)
-        if tables[0].is_cuda:
-            return _fused_cuda(tables, ids, combine)
-        return _fused_ref(tables, ids, combine)
+        return _fused_forward(tables, ids, combine)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -566,24 +641,26 @@ class _FusedLookup(torch.autograd.Function):
 
 class _Bag(torch.autograd.Function):
     """The bag with its scatter-add backward: kernels on CUDA, plain
-    versions on the CPU."""
+    versions on the CPU. Saves the ids as they come; the backward's keys
+    clamp them (``_bag_keys``)."""
 
     @staticmethod
     def forward(ctx, mean: bool, table: torch.Tensor, ids: torch.Tensor,
-                lengths: torch.Tensor):
+                lengths: Optional[torch.Tensor]):
         ctx.mean = mean
         ctx.vocab = int(table.shape[0])
         ctx.dtype = table.dtype
         ctx.save_for_backward(ids, lengths)
-        if table.is_cuda:
-            return _bag_cuda(table, ids, lengths, mean)
-        return _bag_ref(table, ids, lengths, mean)
+        return _bag_forward(table, ids, lengths, mean)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         ids, lengths = ctx.saved_tensors
         if not ctx.needs_input_grad[1]:
             return None, None, None, None
+        if lengths is None:
+            lengths = torch.full((ids.shape[0],), ids.shape[1],
+                                 dtype=torch.int32, device=ids.device)
         bwd = _bag_bwd_cuda if g.is_cuda else _bag_bwd_ref
         return (None, bwd(ctx.vocab, ctx.dtype, ids, lengths, g, ctx.mean),
                 None, None)
@@ -607,30 +684,44 @@ def fused_embedding_lookup(tables: Sequence[torch.Tensor],
     ``astype(int32)`` does. ``device`` defaults to the tables' device and,
     when given, must be it; ids move there. CPU tensors run the plain
     version, CUDA tensors the kernel; gradients reach the tables through
-    the scatter-add backward."""
+    the scatter-add backward. Without a gradient to keep (grad mode off, or
+    no table that requires grad) the call skips autograd: int32 ids on the
+    tables' device make it one kernel launch."""
     if combine not in _COMBINES:
         raise ValueError(f"unknown combine {combine!r}; one of {_COMBINES}")
     tables = tuple(tables)
     if not tables:
         raise ValueError("fused lookup needs at least one table")
-    dev = tables[0].device
-    want = None if device is None else torch.device(device)
-    if want is not None and (want.type != dev.type or want.index not in (
-            None, dev.index)):
-        raise ValueError(f"tables live on {dev}, not {want}")
+    first = tables[0]
+    dev = first.device
+    if device is not None:
+        want = torch.device(device)
+        if want.type != dev.type or want.index not in (None, dev.index):
+            raise ValueError(f"tables live on {dev}, not {want}")
+    dtype = first.dtype
     for t in tables:
-        if t.ndim != 2 or t.device != dev or t.dtype != tables[0].dtype:
+        if t.ndim != 2 or t.dtype != dtype or (t is not first
+                                               and t.device != dev):
             raise ValueError("tables must be 2-D, of one dtype, on one "
                              "device")
-    if combine != "concat" and len({int(t.shape[1]) for t in tables}) != 1:
-        raise ValueError(f"combine={combine!r} needs equal widths, got "
-                         f"{[int(t.shape[1]) for t in tables]}")
-    ids = torch.as_tensor(ids)
+    if combine != "concat":
+        width = first.shape[1]
+        for t in tables:
+            if t.shape[1] != width:
+                raise ValueError(f"combine={combine!r} needs equal widths, "
+                                 f"got {[int(t.shape[1]) for t in tables]}")
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.as_tensor(ids)
     if ids.ndim != 2 or ids.shape[1] != len(tables):
         raise ValueError(f"ids {tuple(ids.shape)} vs {len(tables)} tables")
     _on_kernel_device(dev, "fused lookup")
-    ids = ids.to(device=dev, dtype=torch.int32)
-    return _FusedLookup.apply(combine, ids, *tables)
+    if ids.dtype != torch.int32 or ids.device != dev:
+        ids = ids.to(device=dev, dtype=torch.int32)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return _FusedLookup.apply(combine, ids, *tables)
+    return _fused_forward(tables, ids, combine)
 
 
 def embedding_bag(table: torch.Tensor, ids: Union[torch.Tensor, np.ndarray],
@@ -643,27 +734,36 @@ def embedding_bag(table: torch.Tensor, ids: Union[torch.Tensor, np.ndarray],
     into ``[0, V-1]``; slots past the valid length are never read. The
     result has the table's dtype. CPU tensors run the plain version, CUDA
     tensors the kernel; the gradient reaches the table through the
-    scatter-add backward."""
+    scatter-add backward. Without a gradient to keep (grad mode off, or a
+    table that does not require grad) the call skips autograd: int32 ids
+    on the table's device and no lengths make it one kernel launch."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
     if table.ndim != 2:
         raise ValueError(f"table must be 2-D, got {tuple(table.shape)}")
-    vocab = int(table.shape[0])
-    if vocab == 0:
+    if table.shape[0] == 0:
         raise ValueError("embedding bag over an empty table")
     dev = table.device
     _on_kernel_device(dev, "embedding bag")
-    ids = torch.as_tensor(ids, device=dev)
+    if not isinstance(ids, torch.Tensor) or ids.device != dev:
+        ids = torch.as_tensor(ids, device=dev)
     if ids.ndim != 2:
         raise ValueError(f"ids must be [batch, bag], got {tuple(ids.shape)}")
-    ids = ids.to(torch.int32)
-    batch, bag = (int(s) for s in ids.shape)
-    if lengths is None:
-        lengths = torch.full((batch,), bag, dtype=torch.int32, device=dev)
-    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
-    if tuple(lengths.shape) != (batch,):
-        raise ValueError(f"lengths {tuple(lengths.shape)} vs batch {batch}")
-    # JAX clamps before either route: the Pallas kernel's index_map DMAs
-    # every slot's row before the mask applies
-    ids = torch.clamp(ids, 0, vocab - 1)
-    return _Bag.apply(mode == "mean", table, ids, lengths)
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    if lengths is not None:
+        if not isinstance(lengths, torch.Tensor) or lengths.device != dev:
+            lengths = torch.as_tensor(lengths, device=dev)
+        if lengths.dtype != torch.int32:
+            lengths = lengths.to(torch.int32)
+        if lengths.shape != (ids.shape[0],):
+            raise ValueError(f"lengths {tuple(lengths.shape)} vs batch "
+                             f"{ids.shape[0]}")
+        if not lengths.is_contiguous():
+            lengths = lengths.contiguous()
+    mean = mode == "mean"
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Bag.apply(mean, table, ids, lengths)
+    return _bag_forward(table, ids, lengths, mean)

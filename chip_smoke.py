@@ -12,7 +12,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              CUDA tensors, at the main paths' shapes plus ragged ones,
              with kernel, plain and one-call library times (CUDA events)
              beside the least time the card could take:
-             - the fused lookup, bitwise (NaN rows compare as NaN)
+             - the binding's floor: an empty kernel launched through the
+               lookups' ctypes path
+             - the fused lookup, bitwise (NaN rows compare as NaN): NCF's
+               tables, mixed widths, ids out of range, the user table's
+               rows one element past 16 bytes, and a wide case (b 65 536,
+               8 tables of 100 000 x 64, concat and sum), fp32 and bf16;
+               timed as the public call, the launcher alone and the
+               public call replayed from a CUDA graph (device time); one
+               public call under torch.inference_mode() makes exactly one
+               launch (launch counts and the profiler)
              - flash attention forward (bf16 on the tensor cores, fp32
                on CUDA cores), fp32 within FLASH_ATOL, bf16 within
                FLASH_BF16_* (two faulty controls must fail that limit):
@@ -102,10 +111,13 @@ dead pages invisible.
 
 Phase 3e holds the bag kernel and the scatter-add kernel (the backward
 of the lookup and the bag) against their plain versions bitwise: the
-bag at the history column's shape (b 8000, bag 8, d 20), with lengths 0,
-partial and full and ids out of range before and past the length, and a
-wide case (b 4096, bag 64, d 128, V 100 000), sum and mean, fp32 and
-bf16; the scatter for each combine of the lookup at NCF's tables (ids
+bag at the history column's shape (b 8000, bag 8, d 20) with its lengths
+and without (as the keras layer calls it), with lengths 0, partial and
+full and ids out of range before and past the length, with table rows
+one element past 16 bytes, and a wide case (b 4096, bag 64, d 128, V
+100 000), sum and mean, fp32 and bf16, timed as the lookup is (phase 3
+checks first that one public bag under inference mode is one launch);
+the scatter for each combine of the lookup at NCF's tables (ids
 out of range dropped), for the bag, for the bag as the training path
 feeds it (no lengths: pad id 0 takes about 28 000 of 64 000 updates, a
 run the scatter sums in two levels), and with every id one row (8000 and
@@ -260,6 +272,10 @@ NCF_STEPS = NCF_TRAIN_ROWS // BATCH
 HIST_LEN = 8
 # the bag kernel's wide case: (batch, bag, dim, vocab)
 WIDE_BAG = (4096, 64, 128, 100_000)
+# the lookup's wide case: (batch, tables, vocab, dim)
+WIDE_LOOKUP = (65_536, 8, 100_000, 64)
+# calls of the lookups captured in one CUDA graph for their device time
+REPLAYED = 20
 # phase 10(a): one Adam step on the card against the same step on the CPU,
 # from the same weights and batch: the loss within NCF_STEP_LOSS_ATOL and
 # every parameter within NCF_STEP_PARAM_ATOL. The CPU estimate of a step
@@ -579,10 +595,12 @@ def phase_flash(torch, fa):
     return results
 
 
-def graphed_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` captured once in a CUDA graph and
-    replayed back to back, so that host-side cost (the autograd engine's)
-    does not enter."""
+def graphed_ms(fn, iters: int = 20, per_graph: int = 1) -> float:
+    """Mean device time of ``fn`` captured ``per_graph`` times in a CUDA
+    graph and replayed back to back, so that host-side cost (the autograd
+    engine's) does not enter. A graph's own launch costs about 5 us on the
+    host, so a call shorter than that needs ``per_graph`` > 1 to read its
+    device time."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -592,8 +610,9 @@ def graphed_ms(fn, iters: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, iters)
+        for _ in range(per_graph):
+            fn()
+    return cuda_ms(graph.replay, iters) / per_graph
 
 
 def sdpa_bwd_ms(q, k, v, do, causal) -> float:
@@ -761,7 +780,115 @@ def phase_flash_bwd(torch, fa):
     return results
 
 
+def offset_table(torch, table):
+    """A contiguous copy of ``table`` whose rows start one element past a
+    16-byte boundary (a view into a buffer one element longer), so the
+    kernels take their narrowest loads."""
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype,
+                       device=table.device)
+    view = flat[1:].view(table.shape)
+    view.copy_(table)
+    return view
+
+
+def one_launch(torch, kernel: str, symbol: str, fn,
+               tries: int = 3) -> dict:
+    """``fn``, a public call, run under torch.inference_mode(): exactly one
+    launch of ``kernel`` counted (launch_counts, all others 0), and in the
+    profiler exactly one launch call (no copy or fill either) and one
+    device activity, the kernel named ``symbol``. A trace whose device
+    activity the profiler did not deliver is taken again, up to ``tries``
+    traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.ops import _build
+    for attempt in range(1, tries + 1):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in _build.launch_counts().items() if v}
+        events = prof.events()
+        device = [e.name for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = [e.name for e in events if e.name.startswith(
+            ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+             "cuMemcpy", "cuMemset", "cudaGraphLaunch"))]
+        rec = dict(counts=counts, device=device, launch_calls=calls,
+                   traces=attempt)
+        if device:
+            break
+    if counts != {kernel: 1} or len(calls) != 1 or len(device) != 1 \
+            or symbol not in device[0]:
+        raise AssertionError(f"one public {kernel} call under inference "
+                             f"mode: {rec}")
+    return rec
+
+
+def single_launches(torch, eb) -> dict:
+    """Phase 3's first check, before any kernel is timed or captured in a
+    graph: a public lookup (NCF's tables, int32 ids on the card) and a
+    public bag (the history column's shape, no lengths) under
+    torch.inference_mode() launch one kernel each and nothing else."""
+    import numpy as np
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    users, items = NCF["user_count"] + 1, NCF["item_count"] + 1
+    tables = [torch.randn(users, NCF["user_embed"], generator=gen).to(dev),
+              torch.randn(items, NCF["item_embed"], generator=gen).to(dev)]
+    ids = torch.stack([torch.randint(0, users, (BATCH,), generator=gen),
+                       torch.randint(0, items, (BATCH,), generator=gen)],
+                      1).to(dev, torch.int32)
+    _, _, hist = ncf_train_data(np)
+    hist_ids = torch.from_numpy(hist[:BATCH]).to(dev)
+    recs = {"fused_embedding_lookup": one_launch(
+        torch, "fused_embedding_lookup", "fused_concat_kernel",
+        lambda: eb.fused_embedding_lookup(tables, ids)),
+        "embedding_bag": one_launch(
+            torch, "embedding_bag", "bag_kernel",
+            lambda: eb.embedding_bag(tables[1], hist_ids, mode="mean"))}
+    for name, rec in recs.items():
+        log(f"  one public {name} under inference_mode: {rec}")
+    return recs
+
+
+def binding_floor(torch, eb) -> dict:
+    """The binding's own cost: an empty kernel launched through the
+    lookups' library, by the same ctypes path and device check, timed as
+    the kernels are (CUDA events over back-to-back calls; CUDA-graph
+    replay), with the stream read as the wrappers read it
+    (``_raw_stream``) and through the public ``torch.cuda.current_stream``
+    for comparison."""
+    lib = eb._lib()
+    index = torch.cuda.current_device()
+
+    def launch(stream_of):
+        def call():
+            eb._check_launch(lib, lib.zoo_empty_launch(index,
+                                                       stream_of(index)),
+                             "empty")
+        return call
+
+    raw = launch(eb._raw_stream)
+    public = launch(lambda i: torch.cuda.current_stream(i).cuda_stream)
+    rec = dict(ms=cuda_ms(raw, iters=1000),
+               device_ms=graphed_ms(raw, per_graph=REPLAYED),
+               public_stream_ms=cuda_ms(public, iters=1000))
+    log(f"  binding floor (empty kernel through ctypes): "
+        f"{rec['ms']:.4f} ms a call, replayed {rec['device_ms']:.4f} ms; "
+        f"with torch.cuda.current_stream {rec['public_stream_ms']:.4f} ms")
+    return rec
+
+
 def phase_kernels(torch, eb):
+    """Phase 3, the lookup: each case bitwise against the plain version;
+    the public call's time (``ms``), the launcher's alone
+    (``launch_ms``), the public call replayed from a CUDA graph
+    (``device_ms``), the plain version's and the library yardstick's."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -779,6 +906,8 @@ def phase_kernels(torch, eb):
     ncf_shapes = [(NCF["user_count"] + 1, NCF["user_embed"]),
                   (NCF["item_count"] + 1, NCF["item_embed"])]
     mixed = [(1000, 8), (2000, 16), (3000, 4)]
+    wide_batch, n_wide, wide_vocab, wide_dim = WIDE_LOOKUP
+    wide = [(wide_vocab, wide_dim)] * n_wide
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for batch in (BATCH, RAGGED):
@@ -792,9 +921,18 @@ def phase_kernels(torch, eb):
                       True))
         cases.append(("out_of_range_concat", ncf_shapes, "concat", dtype,
                       BATCH, True))
+        # the user table's rows start one element past 16 bytes
+        for combine in ("concat", "sum"):
+            cases.append((f"misaligned_{combine}", ncf_shapes, combine,
+                          dtype, BATCH, False))
+        for combine in ("concat", "sum"):
+            cases.append((f"wide_{combine}", wide, combine, dtype,
+                          wide_batch, False))
     results = []
     for name, shapes, combine, dtype, batch, oob in cases:
         tables = tables_of(shapes, dtype)
+        if name.startswith("misaligned"):
+            tables[0] = offset_table(torch, tables[0])
         ids = ids_of(shapes, batch, oob)
         got = eb.fused_embedding_lookup(tables, ids, combine)
         want = eb._fused_ref(tables, ids, combine)
@@ -803,10 +941,13 @@ def phase_kernels(torch, eb):
             raise AssertionError(f"kernel != plain: {name} {dtype} b{batch}"
                                  f" max_abs_err={max_abs_err(got, want)}")
         bound, bound_by = lookup_bound(tables, ids, combine)
+        public = lambda: eb.fused_embedding_lookup(tables, ids, combine)
         rec = dict(case=name, combine=combine, dtype=str(dtype),
                    batch=batch, max_abs_err=max_abs_err(got, want),
-                   ms=cuda_ms(lambda: eb.fused_embedding_lookup(
+                   ms=cuda_ms(public),
+                   launch_ms=cuda_ms(lambda: eb._fused_cuda(
                        tables, ids, combine)),
+                   device_ms=graphed_ms(public, per_graph=REPLAYED),
                    plain_ms=cuda_ms(lambda: eb._fused_ref(
                        tables, ids, combine)),
                    # index_select faults on ids out of range: no yardstick
@@ -815,9 +956,11 @@ def phase_kernels(torch, eb):
                    bound_ms=bound, bound_by=bound_by)
         results.append(rec)
         log(f"  {name:20s} {str(dtype):15s} b{batch:<5d} bitwise ok  "
-            f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-            f"library {fmt_ms(rec['library_ms'])} ms  "
-            f"bound {rec['bound_ms']:.5f} ms ({bound_by})")
+            f"public {rec['ms']:.4f} ms  launcher {rec['launch_ms']:.4f} ms"
+            f"  device {rec['device_ms']:.4f} ms  plain "
+            f"{rec['plain_ms']:.4f} ms  library {fmt_ms(rec['library_ms'])}"
+            f" ms  bound {rec['bound_ms']:.5f} ms ({bound_by})")
+        del tables, ids, got, want
     return results
 
 
@@ -1534,8 +1677,13 @@ def bag_bound(table, ids, lengths, mean):
 
 def bag_library_call(torch, table, ids, lengths, mode):
     """One-call PyTorch yardstick (timed only, never used by the port):
-    ``F.embedding_bag`` over the live slots, offsets from the lengths."""
+    ``F.embedding_bag`` on the bag's own inputs. Without lengths (every
+    slot live) that is the ``[batch, bag]`` id matrix as it is; with
+    lengths, the live slots flattened and offsets from the lengths, both
+    made before the timed call."""
     import torch.nn.functional as F
+    if lengths is None:
+        return lambda: F.embedding_bag(ids, table, mode=mode)
     bag = ids.shape[1]
     live = torch.arange(bag, device=ids.device)[None, :] < lengths[:, None]
     flat = ids[live].long()
@@ -1617,8 +1765,9 @@ def train_inputs_of(config, x, hist, lo, hi):
 
 def phase_bag(torch, eb):
     """Phase 3e: the bag kernel and the scatter kernel against their plain
-    versions, bitwise; two scatter launches bit for bit. Returns (bag
-    cases, scatter cases)."""
+    versions, bitwise; two scatter launches bit for bit. The bag's times
+    as the lookup's (phase 3): public call, launcher, CUDA-graph replay.
+    Returns (bag cases, scatter cases)."""
     import numpy as np
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
@@ -1628,46 +1777,68 @@ def phase_bag(torch, eb):
     slice_ids = torch.from_numpy(hist[:BATCH]).to(dev)
     slice_len = (slice_ids > 0).sum(1).to(torch.int32)
     bags = []
-    # (name, batch, bag, dim, vocab, ids, lengths); None: drawn here
+    # (name, batch, bag, dim, vocab, ids, lengths); "draw": drawn here.
+    # slice_no_lengths is the history column as the keras layer calls it
+    # (no lengths: pad id 0 counted); misaligned's table rows start one
+    # element past 16 bytes
     specs = [("slice", BATCH, HIST_LEN, dim, vocab, slice_ids, slice_len),
-             ("ragged_out_of_range", BATCH, HIST_LEN, dim, vocab, None,
+             ("slice_no_lengths", BATCH, HIST_LEN, dim, vocab, slice_ids,
               None),
-             ("wide", *WIDE_BAG, None, None)]
+             ("ragged_out_of_range", BATCH, HIST_LEN, dim, vocab, "draw",
+              "draw"),
+             ("misaligned", BATCH, HIST_LEN, dim, vocab, "draw", "draw"),
+             ("wide", *WIDE_BAG, "draw", "draw")]
     for name, batch, bag, d, v, ids, lengths in specs:
-        if ids is None:
+        if isinstance(ids, str):
             # ids past either end of the table, before and after the
             # length; lengths 0 (empty bags), partial and full
             ids = torch.randint(-10, v + 10, (batch, bag), generator=gen)
             lengths = torch.randint(0, bag + 1, (batch,), generator=gen)
             lengths[:3] = torch.tensor([0, bag, 1])
-            ids, lengths = ids.to(dev), lengths.to(dev, torch.int32)
+            ids, lengths = ids.to(dev, torch.int32), lengths.to(dev,
+                                                                torch.int32)
         table32 = torch.randn(v, d, generator=gen).to(dev)
+        full = torch.full((batch,), bag, dtype=torch.int32, device=dev)
+        live = full if lengths is None else lengths
+        cids = torch.clamp(ids, 0, v - 1)
         for dtype in (torch.float32, torch.bfloat16):
             table = table32.to(dtype)
-            cids = torch.clamp(ids.to(torch.int32), 0, v - 1)
+            if name == "misaligned":
+                table = offset_table(torch, table)
             for mode in ("sum", "mean"):
                 mean = mode == "mean"
                 got = eb.embedding_bag(table, ids, lengths, mode)
-                want = eb._bag_ref(table, cids, lengths, mean)
+                want = eb._bag_ref(table, cids, live, mean)
                 torch.cuda.synchronize()
                 if not same_bits(got, want):
                     raise AssertionError(
                         f"bag kernel != plain: {name} {mode} {dtype} "
                         f"max_abs_err={max_abs_err(got, want)}")
-                bound, bound_by = bag_bound(table, cids, lengths, mean)
+                bound, bound_by = bag_bound(table, cids, live, mean)
+                public = lambda: eb.embedding_bag(table, ids, lengths, mode)
                 rec = dict(case=name, mode=mode, dtype=str(dtype),
                            batch=batch, bag=bag, dim=d, vocab=v,
                            max_abs_err=max_abs_err(got, want),
-                           ms=cuda_ms(lambda: eb._bag_cuda(
-                               table, cids, lengths, mean)),
+                           ms=cuda_ms(public),
+                           launch_ms=cuda_ms(lambda: eb._bag_cuda(
+                               table, ids, lengths, mean)),
+                           device_ms=graphed_ms(public,
+                                                per_graph=REPLAYED),
                            plain_ms=cuda_ms(lambda: eb._bag_ref(
-                               table, cids, lengths, mean), iters=20),
+                               table, cids, live, mean), iters=20),
                            library_ms=cuda_ms(bag_library_call(
                                torch, table, cids, lengths, mode)),
                            bound_ms=bound, bound_by=bound_by)
+                if lengths is None:
+                    # the same sums through the offsets form, its flat ids
+                    # and offsets made before the timed call
+                    rec["library_offsets_ms"] = cuda_ms(bag_library_call(
+                        torch, table, cids, live, mode))
                 bags.append(rec)
                 log(f"  bag {name:20s} {mode:4s} {str(dtype):15s} bitwise ok"
-                    f"  kernel {rec['ms']:.4f} ms  plain "
+                    f"  public {rec['ms']:.4f} ms  launcher "
+                    f"{rec['launch_ms']:.4f} ms  device "
+                    f"{rec['device_ms']:.4f} ms  plain "
                     f"{rec['plain_ms']:.4f} ms  library "
                     f"{rec['library_ms']:.4f} ms  bound "
                     f"{rec['bound_ms']:.5f} ms ({bound_by})")
@@ -1924,6 +2095,8 @@ def main() -> int:
     # 3. kernel vs plain
     torch.backends.cuda.matmul.allow_tf32 = False
     log("kernels vs plain (lookup bitwise):")
+    report["single_launches"] = single_launches(torch, eb)
+    report["binding_floor"] = binding_floor(torch, eb)
     cases = phase_kernels(torch, eb)
     report["kernel_cases"] = cases
     flash_cases = phase_flash(torch, fa)
@@ -2089,7 +2262,8 @@ def main() -> int:
         "replaces": "analytics_zoo_tpu/ops/embedding_bag.py:102",
         "launches": ncf_counts["fused_embedding_lookup"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "launch_ms": head["launch_ms"],
+        "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"]}, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2136,9 +2310,10 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None})
-    # the bag at the history column's shape (mean, fp32); the scatter at
-    # NCF's item table (concat, fp32), its launch alone from sorted keys
-    bag_head = next(c for c in bag_cases if c["case"] == "slice"
+    # the bag at the history column's shape as the keras layer calls it
+    # (no lengths, mean, fp32); the scatter at NCF's item table (concat,
+    # fp32), its launch alone from sorted keys
+    bag_head = next(c for c in bag_cases if c["case"] == "slice_no_lengths"
                     and c["mode"] == "mean" and c["dtype"] == "torch.float32")
     sc_head = next(c for c in scatter_cases if c["case"] == "ncf_concat"
                    and c["dtype"] == "torch.float32")
@@ -2156,6 +2331,9 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"]})
+        if name == "embedding_bag":
+            kernels["kernels"][-1].update(launch_ms=head["launch_ms"],
+                                          device_ms=head["device_ms"])
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -32,7 +32,8 @@ STEPS = 5
 #: substrings of the cuBLAS / CUTLASS GEMM kernels' names
 GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 #: kernel-name substring -> group, checked in this order
-GROUPS = (("fused_lookup_kernel", "lookup"),
+GROUPS = (("fused_concat_kernel", "lookup"),
+          ("fused_combine_kernel", "lookup"),
           ("bag_kernel", "bag"),
           ("scatter_chunk_kernel", "scatter"),
           ("scatter_runs_kernel", "scatter"),

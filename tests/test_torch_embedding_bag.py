@@ -6,8 +6,13 @@ the JAX Pallas kernel run by the CPU interpreter (``ZOO_PALLAS_INTERPRET``
 with ``use_kernel=True``), for every combine, fp32 and bf16, mixed concat
 widths and ids out of range. "Bitwise" treats every NaN as one value: a
 NaN row's payload is not part of the contract. Inputs come from numpy
-seeds. The CUDA kernel against the plain version runs on the card only
-(marker ``cuda``). JAX is imported by a fixture, so on a machine without
+seeds. The host path: without a gradient to keep, the public function
+calls the launcher directly (the autograd Function only under a gradient);
+the launcher's argument block is cached per set of tables and combine,
+within a bound, safely across threads. The CUDA kernel against the plain
+version runs on the card only (marker ``cuda``), also at a wide shape and
+with rows that do not start on 16 bytes, and one public call under
+inference mode is one launch. JAX is imported by a fixture, so on a machine without
 it (the GPU machine) the comparisons with JAX skip and the ``cuda`` tests
 run: ``python -m pytest --noconftest -m cuda
 tests/test_torch_embedding_bag.py``.
@@ -221,3 +226,155 @@ def test_cuda_kernel_matches_plain_bitwise(combine, widths, dtype):
     torch.cuda.synchronize()
     assert teb.launches.value == before + 1
     _assert_same_bits(got.cpu(), want.cpu())
+
+
+# ------------------------------------------------- the host path's routes
+
+def _kernel_route(monkeypatch):
+    """Meta tensors taken as the card's: the device check passes them, the
+    launcher is a recorder and the plain version is gone. Returns (the
+    launcher's calls, the autograd Function's applies)."""
+    calls, applied = [], []
+
+    def launcher(tables, ids, combine):
+        calls.append((combine, ids.dtype))
+        return torch.empty((ids.shape[0], tables[0].shape[1]), device="meta")
+
+    monkeypatch.setattr(teb, "_on_kernel_device", lambda dev, what: None)
+    monkeypatch.setattr(teb, "_fused_cuda", launcher)
+    monkeypatch.setattr(teb, "_fused_ref", None)
+    apply = teb._FusedLookup.apply
+    monkeypatch.setattr(teb._FusedLookup, "apply",
+                        lambda *a: applied.append(a[0]) or apply(*a))
+    return calls, applied
+
+
+@pytest.mark.parametrize("context", ["grad_mode", "no_grad", "inference"])
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_kernel_route_skips_autograd_unless_a_gradient_is_wanted(
+        monkeypatch, context, requires_grad):
+    calls, applied = _kernel_route(monkeypatch)
+    tables = [torch.empty((6, 4), device="meta",
+                          requires_grad=requires_grad) for _ in range(2)]
+    ids = torch.zeros((3, 2), dtype=torch.int32, device="meta")
+    ctx = {"grad_mode": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[context]
+    with ctx():
+        out = teb.fused_embedding_lookup(tables, ids, "sum")
+    wanted = requires_grad and context == "grad_mode"
+    assert calls == [("sum", torch.int32)]
+    assert applied == (["sum"] if wanted else [])
+    assert out.requires_grad == wanted
+
+
+def test_fused_args_are_built_once_per_set_of_tables(monkeypatch):
+    monkeypatch.setattr(teb, "_args_cache", {})
+    tables = _torch(_tables([4, 4], vocab=20), "fp32")
+    a = teb._fused_args(tables, "concat")
+    assert (a.n_tables, a.d_out, a.combine, a.is_bf16) == (2, 8, 0, 0)
+    assert list(a.table[:2]) == [t.data_ptr() for t in tables]
+    assert list(a.vocab[:2]) == [20, 21] and list(a.dim[:2]) == [4, 4]
+    assert list(a.offset[:2]) == [0, 4]
+    assert a.inv_n == np.float32(0.5)
+    # an equal key (a view of the same storage and shape) gets the block
+    assert teb._fused_args([t.view(t.shape) for t in tables], "concat") is a
+    changed = {
+        "combine": (tables, "sum"),
+        "storage": ([tables[0].clone(), tables[1]], "concat"),
+        "shape": ([tables[0][:7], tables[1]], "concat"),
+        "dtype": ([t.to(torch.bfloat16) for t in tables], "concat")}
+    blocks = {k: teb._fused_args(*v) for k, v in changed.items()}
+    for name, b in blocks.items():
+        assert b is not a and bytes(b) != bytes(a), name
+    assert blocks["combine"].d_out == 4 and blocks["combine"].combine == 1
+    assert blocks["storage"].table[0] == changed["storage"][0][0].data_ptr()
+    assert blocks["shape"].vocab[0] == 7
+    assert blocks["dtype"].is_bf16 == 1
+    # built again for an equal key, a block has the same bytes
+    monkeypatch.setattr(teb, "_args_cache", {})
+    assert bytes(teb._fused_args(tables, "concat")) == bytes(a)
+
+
+def test_fused_args_cache_stays_within_its_bound_under_threads(monkeypatch):
+    # more threads than cores, switching often: every block a thread gets
+    # matches its own tables, and the cache never outgrows its bound
+    import os
+    import sys
+    import threading
+    monkeypatch.setattr(teb, "_args_cache", {})
+    base = torch.zeros((4 * teb.ARGS_CACHE_SIZE, 3))
+    errors, sizes = [], []
+
+    def worker(lo):
+        try:
+            for n in range(lo, lo + teb.ARGS_CACHE_SIZE):
+                args = teb._fused_args([base[:n + 1]], "concat")
+                if args.vocab[0] != n + 1 or args.d_out != 3:
+                    errors.append((n, args.vocab[0], args.d_out))
+                sizes.append(len(teb._args_cache))
+        except Exception as exc:   # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i * 7,))
+               for i in range(2 * (os.cpu_count() or 4))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors
+    assert max(sizes) <= teb.ARGS_CACHE_SIZE
+    assert 0 < len(teb._args_cache) <= teb.ARGS_CACHE_SIZE
+    last = teb._fused_args([base[:5]], "sum")
+    assert next(reversed(teb._args_cache.values())) is last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("combine", ["concat", "sum", "mean", "mul"])
+@pytest.mark.parametrize("case", ["wide", "misaligned", "mixed_misaligned",
+                                  "wide_rows"])
+def test_cuda_kernel_wide_and_misaligned_match_plain_bitwise(case, combine,
+                                                             dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    if case == "wide":
+        # 8 tables of 100 000 x 64 (the chip script's wide case, fewer rows)
+        widths, vocab, batch = [64] * 8, 100_000, 4096
+    elif case == "wide_rows":
+        # more vectors a row than a warp has lanes
+        widths, vocab, batch = [260, 260], 500, 1000
+    else:
+        widths = [20, 20] if case == "misaligned" or combine != "concat" \
+            else [8, 16, 4, 20]
+        vocab, batch = 500, 1000
+    tables = [t.cuda() for t in _torch(_tables(widths, vocab=vocab), dtype)]
+    if case.endswith("misaligned"):
+        # a view whose rows start one element past 16 bytes
+        flat = torch.empty(tables[0].numel() + 1, dtype=tables[0].dtype,
+                           device="cuda")
+        tables[0] = flat[1:].view(tables[0].shape).copy_(tables[0])
+    ids = torch.from_numpy(_ids(tables, batch=batch,
+                                out_of_range=True)).cuda()
+    got = teb.fused_embedding_lookup(tables, ids, combine)
+    want = teb._fused_ref(tables, ids, combine)
+    torch.cuda.synchronize()
+    _assert_same_bits(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_public_call_under_inference_mode_is_one_launch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import chip_smoke   # its check: launch counts and the profiler's trace
+    tables = [t.cuda() for t in _torch(_tables([20, 20], vocab=500), "fp32")]
+    ids = torch.from_numpy(_ids(tables, batch=1000)).cuda()
+    rec = chip_smoke.one_launch(
+        torch, "fused_embedding_lookup", "fused_concat_kernel",
+        lambda: teb.fused_embedding_lookup(tables, ids))
+    assert rec["counts"] == {"fused_embedding_lookup": 1}

@@ -23,6 +23,10 @@ On the CPU (the plain versions), with inputs from numpy seeds:
   2^-8 bf16).
 - Both autograd Functions pass ``torch.autograd.gradcheck`` in float64;
   duplicate ids sum in position order (against a Python loop).
+- The bag saves its ids as they come and the backward's keys clamp them
+  (JAX's gradient with ids out of range); ``lengths=None`` gives the bits
+  of full lengths forward and backward; without a gradient to keep the
+  public function skips the autograd Function.
 
 Long runs: past ``RUN_CHUNK`` (C) updates a row's gradient is summed in
 two levels (chunks of C, then the chunk sums), so for rows taking C, C + 1
@@ -32,7 +36,8 @@ plain version, bit for bit, to the two-level order written out as a numpy
 loop in this file.
 
 On the card only (marker ``cuda``): the bag and scatter kernels against
-their plain versions bit for bit, also at long runs (C, C + 1, 3C + 17, a
+their plain versions bit for bit (the bag also wide, with rows off 16
+bytes, without lengths, with more slots or vectors than lanes), also at long runs (C, C + 1, 3C + 17, a
 row taking all 64 000 updates of the history column's batch, that batch's
 padding row), two scatter launches giving the same bits, and one NCF
 training step on the card moving all four tables.
@@ -258,6 +263,84 @@ def test_bag_backward_matches_jax(jeb, case, mode, dtype):
                         table.shape[0], unit)
     assert (np.abs(_np(got) - ref_route) <= bound).all()
     assert ref_route.shape == tuple(got.shape)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("case", ["partial", "clamped",
+                                  "past_length_out_of_range"])
+def test_bag_backward_clamps_the_saved_ids_as_jax(jeb, case, mode):
+    # the forward saves the ids as they come; the backward's keys clamp
+    # them, giving the keys the clamped ids gave, and JAX's gradient
+    import jax.numpy as jnp
+    table, ids, lengths = _bag_case(case, seed=4, batch=40)
+    vocab = table.shape[0]
+    tids, tlen = torch.from_numpy(ids), torch.from_numpy(lengths)
+    live = np.arange(ids.shape[1])[None, :] < lengths[:, None]
+    want_keys = np.where(live, np.clip(ids, 0, vocab - 1), vocab)
+    np.testing.assert_array_equal(teb._bag_keys(tids, tlen, vocab).numpy(),
+                                  want_keys.reshape(-1))
+    g = np.random.RandomState(5).randn(ids.shape[0],
+                                       table.shape[1]).astype(np.float32)
+    got = teb._bag_bwd_ref(vocab, torch.float32, tids, tlen,
+                           torch.from_numpy(g), mode == "mean")
+    want = _jax_vjp(lambda t: jeb.embedding_bag(
+        t, ids, lengths, mode, use_kernel=True), (jnp.asarray(table),),
+        jnp.asarray(g))[0]
+    _assert_same_bits(got, want)
+    saved = []
+    tw = torch.from_numpy(table).requires_grad_(True)
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        out = teb.embedding_bag(tw, ids, lengths, mode)
+    assert any(torch.equal(t, tids) for t in saved)
+    out.backward(torch.from_numpy(g))
+    _assert_same_bits(tw.grad, want)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_without_lengths_equals_full_lengths(mode, dtype):
+    # None is read as every slot live: the same bits forward and backward
+    table, ids, _ = _bag_case("clamped", seed=8)
+    full = np.full(ids.shape[0], ids.shape[1], np.int32)
+    g = torch.from_numpy(np.random.RandomState(9).randn(
+        ids.shape[0], table.shape[1]).astype(np.float32))
+    outs, grads = [], []
+    for lengths in (None, full):
+        tw = torch.from_numpy(table)
+        if dtype == "bf16":
+            tw = tw.to(torch.bfloat16)
+        tw.requires_grad_(True)
+        out = teb.embedding_bag(tw, ids, lengths, mode)
+        out.backward(g.to(out.dtype))
+        outs.append(out.detach())
+        grads.append(tw.grad)
+    with torch.inference_mode():
+        outs.append(teb.embedding_bag(torch.from_numpy(table).to(
+            outs[0].dtype), ids, None, mode))
+    _assert_same_bits(outs[0], outs[1])
+    _assert_same_bits(outs[2], outs[1])
+    _assert_same_bits(grads[0], grads[1])
+
+
+def test_bag_route_skips_autograd_unless_a_gradient_is_wanted(monkeypatch):
+    calls, applied = [], []
+    monkeypatch.setattr(teb, "_on_kernel_device", lambda dev, what: None)
+    monkeypatch.setattr(teb, "_bag_ref", None)
+    monkeypatch.setattr(teb, "_bag_cuda", lambda table, ids, lengths, mean:
+                        calls.append((ids.dtype, lengths, mean)) or
+                        torch.empty((ids.shape[0], table.shape[1]),
+                                    device="meta"))
+    apply = teb._Bag.apply
+    monkeypatch.setattr(teb._Bag, "apply",
+                        lambda *a: applied.append(a[0]) or apply(*a))
+    ids = torch.zeros((3, 4), dtype=torch.int64, device="meta")
+    table = torch.empty((6, 2), device="meta")
+    with torch.inference_mode():
+        teb.embedding_bag(table, ids, mode="mean")
+    assert calls == [(torch.int32, None, True)] and applied == []
+    out = teb.embedding_bag(table.requires_grad_(True), ids, mode="sum")
+    assert applied == [False] and out.requires_grad and len(calls) == 2
 
 
 FUSED_CASES = [("concat", [3, 5]), ("sum", [4, 4, 4]), ("mean", [4, 4, 4]),
@@ -611,3 +694,46 @@ def test_cuda_training_step_moves_every_table():
     state = module.state_dict()
     for name, old in tables.items():
         assert not torch.equal(state[name].cpu(), old), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("case", ["wide", "misaligned", "no_lengths",
+                                  "d_4", "d_260"])
+def test_cuda_bag_wide_misaligned_and_full_match_plain_bitwise(case, mode,
+                                                               dtype):
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(4)
+    # d 4: more slots than lanes; d 260: more vectors a row than lanes
+    batch, bag, dim, vocab = {"wide": (4096, 64, 128, 100_000),
+                              "d_4": (1000, 40, 4, 3707),
+                              "d_260": (1000, 8, 260, 1000)}.get(
+        case, (1000, 8, 20, 3707))
+    table = torch.randn(vocab, dim, generator=gen).to(dev, dtype)
+    if case == "misaligned":
+        # rows one element past 16 bytes: the narrowest loads
+        flat = torch.empty(table.numel() + 1, dtype=dtype, device=dev)
+        table = flat[1:].view(table.shape).copy_(table)
+    ids = torch.randint(-5, vocab + 5, (batch, bag), generator=gen,
+                        dtype=torch.int32).to(dev)
+    lengths = None if case == "no_lengths" else torch.randint(
+        0, bag + 1, (batch,), generator=gen, dtype=torch.int32).to(dev)
+    full = torch.full((batch,), bag, dtype=torch.int32, device=dev)
+    got = teb.embedding_bag(table, ids, lengths, mode)
+    want = teb._bag_ref(table, torch.clamp(ids, 0, vocab - 1),
+                        full if lengths is None else lengths, mode == "mean")
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_public_bag_under_inference_mode_is_one_launch():
+    dev = _cuda()
+    import chip_smoke   # its check: launch counts and the profiler's trace
+    table = torch.randn(3707, 20, device=dev)
+    ids = torch.randint(0, 3707, (8000, 8), dtype=torch.int32, device=dev)
+    rec = chip_smoke.one_launch(
+        torch, "embedding_bag", "bag_kernel",
+        lambda: teb.embedding_bag(table, ids, mode="mean"))
+    assert rec["counts"] == {"embedding_bag": 1}
