@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -89,6 +91,12 @@ def reset_launch_counts() -> None:
     with _counters_lock:
         for c in _counters.values():
             c.reset()
+
+
+def raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, as an int (no
+    ``Stream`` object is made), for a C entry point's ``stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def nvcc_path() -> str:

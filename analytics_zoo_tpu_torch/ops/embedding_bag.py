@@ -382,12 +382,6 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
-def _raw_stream(index: int) -> int:
-    """The handle of device ``index``'s current stream, as an int (no
-    ``Stream`` object is made)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
 def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -458,7 +452,7 @@ def _fused_cuda(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     lib = _lib()
     err = lib.zoo_fused_lookup(ids.data_ptr(), ctypes.byref(args),
                                out.data_ptr(), out.shape[0], index,
-                               _raw_stream(index))
+                               _build.raw_stream(index))
     _check_launch(lib, err, "fused lookup")
     launches.add()
     return out
@@ -485,7 +479,7 @@ def _bag_cuda(table: torch.Tensor, ids: torch.Tensor,
         ids.data_ptr(), None if lengths is None else lengths.data_ptr(),
         table.data_ptr(), table.shape[0], table.shape[1], batch, bag, mean,
         table.dtype == torch.bfloat16, out.data_ptr(), index,
-        _raw_stream(index))
+        _build.raw_stream(index))
     _check_launch(lib, err, "embedding bag")
     bag_launches.add()
     return out

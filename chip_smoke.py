@@ -85,7 +85,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              fp32 and under ZOO_KV_DTYPE=int8 (paged tokens/s, tune_paged's
              speedup, KV bytes per sequence); (e) paged_attention on the
              scheduler's live pool, tables and lengths mid-drain against
-             its plain version; (f) ClusterServing answers a burst of 32
+             its plain version (in float64); (f) ClusterServing answers a burst of 32
              generate records (32 tokens, engine batch 8) and 10 single
              ones, each bitwise greedy generate of its row (records/s,
              tokens/s, single-request p50)
@@ -106,8 +106,21 @@ gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
 a page boundary, mid-page and full; dead pages poisoned; table entries
 out of range; an out_len trim), the decode attention within PAGED_RTOL /
-PAGED_ATOL (JAX's limit for its kernel) with empty rows exactly zero and
-dead pages invisible.
+PAGED_ATOL (JAX's limit for its kernel) of its plain version computed in
+float64 (JAX's float32 one is timed, and its distance from the float64
+one recorded) with empty rows exactly zero and dead pages invisible (the
+slice, JAX's test shape, a wide pool of 4096 positions and a long one of
+32 768 at d 128, batch 8), and where the plan splits the rows (wide,
+long) the combine within the same limit of its plain version on the
+split kernel's partials. It first checks, under torch.inference_mode(),
+that a public gather is one launch and a public attention one launch
+unsplit and two split (launch counts and the profiler). Each case is
+timed as the public call (events), replayed from a CUDA graph (device
+time; the split kernel and the combine apart from the profiler), beside
+its plain version, its bound, and for information the two-call route
+pool[table] + scaled_dot_product_attention (not a yardstick: it computes
+more). The decode path (phase 9) must launch the gather and the
+attention; phase 3d's public calls the attention and its combine.
 
 Phase 3e holds the bag kernel and the scatter-add kernel (the backward
 of the lookup and the bag) against their plain versions bitwise: the
@@ -136,6 +149,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -791,17 +805,31 @@ def offset_table(torch, table):
     return view
 
 
+def keep_cupti() -> None:
+    """Keep the profiler's CUPTI attached between traces (kineto's
+    TEARDOWN_CUPTI=0) from a process's first trace on: torn down after
+    each trace, it can leave the kernels that the process first launches
+    between two traces out of every later trace (the paged kernels' card
+    tests after the lookups' in one process). Set here, it does not cover
+    every order (the lookups' tests after the paged kernels' still lose
+    their kernels); exported before the process starts, it does."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+
+
 def one_launch(torch, kernel: str, symbol: str, fn,
-               tries: int = 3) -> dict:
+               tries: int = 3, then=None) -> dict:
     """``fn``, a public call, run under torch.inference_mode(): exactly one
     launch of ``kernel`` counted (launch_counts, all others 0), and in the
     profiler exactly one launch call (no copy or fill either) and one
-    device activity, the kernel named ``symbol``. A trace whose device
+    device activity, the kernel named ``symbol``. With ``then`` = (a second
+    kernel, its symbol), exactly one launch of each: two launch calls and
+    two device activities, one of each name. A trace whose device
     activity the profiler did not deliver is taken again, up to ``tries``
     traces."""
     from torch.profiler import ProfilerActivity, profile
 
     from analytics_zoo_tpu_torch.ops import _build
+    keep_cupti()
     for attempt in range(1, tries + 1):
         with torch.inference_mode():
             fn()
@@ -822,8 +850,15 @@ def one_launch(torch, kernel: str, symbol: str, fn,
                    traces=attempt)
         if device:
             break
-    if counts != {kernel: 1} or len(calls) != 1 or len(device) != 1 \
-            or symbol not in device[0]:
+    want = {kernel: 1}
+    symbols = [symbol]
+    if then is not None:
+        want[then[0]] = 1
+        symbols.append(then[1])
+    named = all(any(sym in d for sym in symbols) for d in device) \
+        and all(any(sym in d for d in device) for sym in symbols)
+    if counts != want or len(calls) != len(symbols) \
+            or len(device) != len(symbols) or not named:
         raise AssertionError(f"one public {kernel} call under inference "
                              f"mode: {rec}")
     return rec
@@ -856,13 +891,64 @@ def single_launches(torch, eb) -> dict:
     return recs
 
 
+def paged_single_launches(torch, pa) -> dict:
+    """Phase 3d's first check, before any kernel is timed or captured in a
+    graph: under torch.inference_mode(), with the table and lengths on
+    the card, a public gather on the decode slice's pool is one launch, a
+    public attention there one (one block reaches the slice's rows in one
+    round: the plan does not split them) and one over rows of 64 page
+    slots two (split and combine)."""
+    from analytics_zoo_tpu_torch.inference.decode_scheduler import (
+        default_pool_pages,
+    )
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    n_pages = default_pool_pages(DECODE_BATCH, DECODE_STEPS, spec_k=0,
+                                 page_size=PAGE_SIZE)
+    width = -(-(DECODE_STEPS + 1) // PAGE_SIZE)
+    d = DECODE["output_dim"]
+    n_sm = pa._sm_count(torch.cuda.current_device())
+    pool, _, table, lengths = paged_case(torch, gen, dev, torch.float32,
+                                         n_pages, PAGE_SIZE, d, DECODE_BATCH,
+                                         width)
+    q = torch.randn(DECODE_BATCH, d, generator=gen).to(dev)
+    long_width = 64
+    lpool, _, ltable, llengths = paged_case(
+        torch, gen, dev, torch.float32, DECODE_BATCH * long_width, PAGE_SIZE,
+        d, DECODE_BATCH, long_width)
+    recs = {"paged_gather": one_launch(
+        torch, "paged_gather", "paged_gather_kernel",
+        lambda: pa.paged_gather(pool, table, lengths)),
+        "paged_attention_one_split": one_launch(
+            torch, "paged_attention", "paged_attention_kernel",
+            lambda: pa.paged_attention(q, pool, pool, table, lengths)),
+        "paged_attention_split": one_launch(
+            torch, "paged_attention", "paged_attention_kernel",
+            lambda: pa.paged_attention(q, lpool, lpool, ltable, llengths),
+            then=("paged_attention_combine",
+                  "paged_attention_combine_kernel"))}
+    splits = {"paged_attention_one_split": pa._attention_plan(
+        DECODE_BATCH, width, PAGE_SIZE, d, False, n_sm)[0],
+        "paged_attention_split": pa._attention_plan(
+            DECODE_BATCH, long_width, PAGE_SIZE, d, False, n_sm)[0]}
+    if splits["paged_attention_split"] < 2 \
+            or splits["paged_attention_one_split"] != 1:
+        raise AssertionError(f"the split plan at the checks' shapes: "
+                             f"{splits}")
+    for name, rec in recs.items():
+        rec["splits"] = splits.get(name)
+        log(f"  one public {name} under inference_mode: {rec}")
+    return recs
+
+
 def binding_floor(torch, eb) -> dict:
     """The binding's own cost: an empty kernel launched through the
     lookups' library, by the same ctypes path and device check, timed as
     the kernels are (CUDA events over back-to-back calls; CUDA-graph
     replay), with the stream read as the wrappers read it
-    (``_raw_stream``) and through the public ``torch.cuda.current_stream``
-    for comparison."""
+    (``_build.raw_stream``) and through the public
+    ``torch.cuda.current_stream`` for comparison."""
+    from analytics_zoo_tpu_torch.ops import _build
     lib = eb._lib()
     index = torch.cuda.current_device()
 
@@ -873,7 +959,7 @@ def binding_floor(torch, eb) -> dict:
                              "empty")
         return call
 
-    raw = launch(eb._raw_stream)
+    raw = launch(_build.raw_stream)
     public = launch(lambda i: torch.cuda.current_stream(i).cuda_stream)
     rec = dict(ms=cuda_ms(raw, iters=1000),
                device_ms=graphed_ms(raw, per_graph=REPLAYED),
@@ -1309,9 +1395,110 @@ def paged_close(got, want) -> bool:
                  <= PAGED_ATOL + PAGED_RTOL * want.abs()).all())
 
 
+def paged_share(got, want) -> float:
+    """The largest share of the PAGED_RTOL / PAGED_ATOL limit that ``got``
+    takes from ``want`` (over 1 fails ``paged_close``)."""
+    err = (got.double() - want.double()).abs()
+    return float((err / (PAGED_ATOL + PAGED_RTOL
+                         * want.double().abs())).max())
+
+
+def two_call_ms(torch, q, kp, vp, table, lengths):
+    """For information, not a yardstick (it computes more than the
+    kernel: it reads every slot of the table and softmaxes over the dead
+    positions' mask): ``pool[table]`` for K and V, then
+    ``scaled_dot_product_attention`` with the length mask, each made
+    ahead. Event ms of the calls; float32 pools only (int8 would add the
+    dequant calls); None for int8."""
+    import torch.nn.functional as F
+    if kp.dtype != torch.float32:
+        return None
+    b, d = q.shape
+    n_pages, ps, _ = kp.shape
+    idx = table.long().clamp(0, n_pages - 1)
+    n = idx.shape[1] * ps
+    mask = (torch.arange(n, device=q.device)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+    q4 = q[:, None, None, :]
+
+    def call():
+        k = kp[idx].view(b, 1, n, d)
+        v = vp[idx].view(b, 1, n, d)
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+    return cuda_ms(call)
+
+
+def kernel_device_ms(torch, fn, symbols, calls: int = 20,
+                     tries: int = 3) -> dict:
+    """Device ms a launch of each kernel named by (a substring of) one of
+    ``symbols`` while ``fn`` runs ``calls`` times, from the profiler's
+    kernel records (the mean of those delivered; a record of the call
+    made before the trace may arrive in it): the time of a launch that
+    follows another in the same call, which events around the call cannot
+    part. A trace without a record of each kernel is taken again, up to
+    ``tries`` traces."""
+    from torch.profiler import ProfilerActivity, profile
+    keep_cupti()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        out = {sym: [e.time_range.elapsed_us() for e in device
+                     if sym in e.name] for sym in symbols}
+        if all(out.values()):
+            return {sym: sum(t) / len(t) / 1e3 for sym, t in out.items()}
+    raise AssertionError(f"no kernel records of {symbols} in {tries} "
+                         f"traces: {[e.name for e in device]}")
+
+
+def combine_reading(torch, pa, q, kp, vp, table, lengths, kw,
+                    splits: int) -> dict:
+    """The combine, the attention's second launch where the plan splits
+    the rows: its output held to its plain version (``_combine_splits_ref``
+    of the partials that the split kernel kept in ``work``) within
+    PAGED_RTOL / PAGED_ATOL; the device time a call of the split kernel
+    and of the combine from the profiler's trace of the public call; the
+    plain version's time; its bound, the partials read and the output
+    written over the memory rate."""
+    b, d = q.shape
+    work = torch.empty((b, splits, d + 2), device=q.device)
+    quantized = kp.dtype == torch.int8
+    got = pa._attention_cuda(q, kp, vp, table, lengths,
+                             kw["k_scales"] if quantized else None,
+                             kw["v_scales"] if quantized else None,
+                             1.0 / math.sqrt(d), splits=splits, work=work)
+    want = pa._combine_splits_ref(work)
+    torch.cuda.synchronize()
+    if not paged_close(got, want):
+        raise AssertionError(f"paged combine != plain: max_abs_err "
+                             f"{max_abs_err(got, want)}")
+    bound, bound_by = roofline(work.numel() * 4 + got.numel() * 4,
+                               3 * work.numel(), torch.float32)
+    split_sym, combine_sym = ("paged_attention_kernel",
+                              "paged_attention_combine_kernel")
+    device = kernel_device_ms(torch, lambda: pa.paged_attention(
+        q, kp, vp, table, lengths, **kw), (split_sym, combine_sym))
+    return dict(combine_max_abs_err=max_abs_err(got, want),
+                combine_limit_share=paged_share(got, want),
+                combine_device_ms=device[combine_sym],
+                split_device_ms=device[split_sym],
+                combine_plain_ms=cuda_ms(lambda: pa._combine_splits_ref(
+                    work)),
+                combine_bound_ms=bound, combine_bound_by=bound_by)
+
+
 def phase_paged(torch, pa):
     """Phase 3d: the paged gather (bitwise) and the paged decode attention
-    (within PAGED_RTOL / PAGED_ATOL) against their plain versions."""
+    (within PAGED_RTOL / PAGED_ATOL) against their plain versions (the
+    attention's in float64; its float32 one, JAX's, is timed). Returns
+    the gather's and the attention's cases and the launches of one public
+    attention call a case (``public_calls``)."""
     from analytics_zoo_tpu_torch.inference import generation
     from analytics_zoo_tpu_torch.inference.decode_scheduler import (
         default_pool_pages,
@@ -1337,8 +1524,11 @@ def phase_paged(torch, pa):
     attn_shapes = [("slice", slice_pages, PAGE_SIZE, DECODE["output_dim"],
                     DECODE_BATCH, -(-rungs[-1] // PAGE_SIZE)),
                    ("jax_tests", 7, 4, 8, 4, 2),
-                   ("wide", 32 * 256, 16, 128, 32, 256)]
+                   ("wide", 32 * 256, 16, 128, 32, 256),
+                   ("long", 8 * 2048, 16, 128, 8, 2048)]
     gathers, attns = [], []
+    public_calls = {"paged_attention": 0, "paged_attention_combine": 0}
+    n_sm = pa._sm_count(torch.cuda.current_device())
     for dtype in (torch.float32, torch.int8):
         for name, n_pages, ps, d, batch, width, trim in gather_shapes:
             pool, scales, table, lengths = paged_case(
@@ -1365,14 +1555,21 @@ def phase_paged(torch, pa):
                        plain_ms=cuda_ms(lambda: pa.paged_gather_ref(
                            pool, table, lengths, scales, out_len)),
                        take_ms=cuda_ms(lambda: pool[idx]),
+                       device_ms=graphed_ms(lambda: pa.paged_gather(
+                           pool, table, lengths, scales, out_len),
+                           per_graph=REPLAYED),
+                       take_device_ms=graphed_ms(lambda: pool[idx],
+                                                 per_graph=REPLAYED),
                        library_ms=None, bound_ms=bound, bound_by=bound_by)
             gathers.append(rec)
             log(f"  paged gather {name:9s} {str(dtype):13s} b{batch} "
                 f"w{width} ps{ps} d{d} out_len {out_len}: bitwise ok "
                 f"({len(dead)} dead pages poisoned)  kernel "
-                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-                f"pool[table] {rec['take_ms']:.4f} ms  bound "
-                f"{bound:.6f} ms ({bound_by})")
+                f"{rec['ms']:.4f} ms (replayed {rec['device_ms']:.5f})  "
+                f"plain {rec['plain_ms']:.4f} ms  pool[table] "
+                f"{rec['take_ms']:.4f} ms (replayed "
+                f"{rec['take_device_ms']:.5f})  bound {bound:.6f} ms "
+                f"({bound_by})")
             del pool, table, got, want, again
         for name, n_pages, ps, d, batch, width in attn_shapes:
             kp, ks, table, lengths = paged_case(
@@ -1382,7 +1579,9 @@ def phase_paged(torch, pa):
             q = torch.randn(batch, d, generator=gen).to(dev)
             kw = dict(k_scales=ks, v_scales=vs)
             got = pa.paged_attention(q, kp, vp, table, lengths, **kw)
-            want = pa.paged_attention_ref(q, kp, vp, table, lengths, **kw)
+            want = pa.paged_attention_ref(q, kp, vp, table, lengths,
+                                          dtype=torch.float64, **kw)
+            ref32 = pa.paged_attention_ref(q, kp, vp, table, lengths, **kw)
             dead = dead_pages(table, lengths, ps, n_pages)
             again = pa.paged_attention(q, poisoned(torch, kp, dead),
                                        poisoned(torch, vp, dead), table,
@@ -1397,23 +1596,64 @@ def phase_paged(torch, pa):
                     f"{err}, poisoned differs {not same_bits(again, got)}, "
                     f"empty rows zero {empty}")
             bound, bound_by = paged_attention_bound(q, kp, lengths, width)
+            splits = pa._attention_plan(batch, width, ps, d,
+                                        dtype == torch.int8, n_sm)[0]
+            before = (pa.attention_launches.value,
+                      pa.attention_combine_launches.value)
+            pa.paged_attention(q, kp, vp, table, lengths, **kw)
+            launched = (pa.attention_launches.value - before[0],
+                        pa.attention_combine_launches.value - before[1])
+            public_calls["paged_attention"] += launched[0]
+            public_calls["paged_attention_combine"] += launched[1]
+            per_call = sum(launched)
+            if per_call != 1 + (splits > 1):
+                raise AssertionError(f"paged attention {name}: {per_call} "
+                                     f"launches a call with {splits} splits")
             rec = dict(case=name, dtype=str(dtype), n_pages=n_pages, ps=ps,
                        d=d, batch=batch, width=width, dead_pages=len(dead),
-                       max_abs_err=err,
+                       max_abs_err=err, splits=splits,
+                       launches_per_call=per_call,
+                       limit_share=paged_share(got, want),
+                       ref32_max_abs_err=max_abs_err(ref32, want),
+                       ref32_limit_share=paged_share(ref32, want),
                        ms=cuda_ms(lambda: pa.paged_attention(
                            q, kp, vp, table, lengths, **kw)),
+                       device_ms=graphed_ms(lambda: pa.paged_attention(
+                           q, kp, vp, table, lengths, **kw),
+                           per_graph=REPLAYED),
                        plain_ms=cuda_ms(lambda: pa.paged_attention_ref(
                            q, kp, vp, table, lengths, **kw)),
+                       two_call_ms=two_call_ms(torch, q, kp, vp, table,
+                                               lengths),
                        library_ms=None, bound_ms=bound, bound_by=bound_by)
+            if splits > 1:
+                rec.update(combine_reading(torch, pa, q, kp, vp, table,
+                                           lengths, kw, splits))
             attns.append(rec)
             log(f"  paged attention {name:9s} {str(dtype):13s} b{batch} "
-                f"w{width} ps{ps} d{d}: max_abs_err {err:.3g} (rtol "
-                f"{PAGED_RTOL}, atol {PAGED_ATOL}), empty rows zero, "
-                f"{len(dead)} dead pages invisible  kernel {rec['ms']:.4f}"
-                f" ms  plain {rec['plain_ms']:.4f} ms  bound {bound:.6f} "
-                f"ms ({bound_by})")
-            del kp, vp, table, got, want, again
-    return gathers, attns
+                f"w{width} ps{ps} d{d}: max_abs_err {err:.3g} from the "
+                f"float64 plain, {rec['limit_share']:.3f} of the limit "
+                f"(rtol {PAGED_RTOL}, atol {PAGED_ATOL}; the float32 "
+                f"plain {rec['ref32_max_abs_err']:.3g}, "
+                f"{rec['ref32_limit_share']:.3f}), empty rows zero, "
+                f"{len(dead)} dead pages invisible, {splits} splits, "
+                f"{per_call} launches  kernel {rec['ms']:.4f} ms (replayed "
+                f"{rec['device_ms']:.5f})  plain {rec['plain_ms']:.4f} ms  "
+                f"two calls (not a yardstick) {fmt_ms(rec['two_call_ms'])}"
+                f"  bound {bound:.6f} ms ({bound_by})"
+                + (f"; combine max_abs_err "
+                   f"{rec['combine_max_abs_err']:.3g} from plain ("
+                   f"{rec['combine_limit_share']:.3f} of the limit), device "
+                   f"{rec['combine_device_ms']:.5f} ms a call (split "
+                   f"kernel {rec['split_device_ms']:.5f}; profiler), "
+                   f"plain {rec['combine_plain_ms']:.4f}, bound "
+                   f"{rec['combine_bound_ms']:.6f}" if splits > 1 else ""))
+            del kp, vp, table, got, want, again, ref32
+    for name in public_calls:
+        if public_calls[name] <= 0:
+            raise AssertionError(f"phase 3d's public attention calls "
+                                 f"launched no {name}: {public_calls}")
+    return gathers, attns, public_calls
 
 
 def counted(torch, fn):
@@ -1559,7 +1799,7 @@ def phase_decode(torch, np, pa, kind):
             kw = dict(k_scales=scales, v_scales=scales)
             got = pa.paged_attention(q, pool_t, pool_t, table, lengths, **kw)
             want = pa.paged_attention_ref(q, pool_t, pool_t, table, lengths,
-                                          **kw)
+                                          dtype=torch.float64, **kw)
             torch.cuda.synchronize()
             att = dict(max_abs_err=max_abs_err(got, want),
                        close=paged_close(got, want), lengths=lengths.tolist(),
@@ -2096,6 +2336,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log("kernels vs plain (lookup bitwise):")
     report["single_launches"] = single_launches(torch, eb)
+    report["paged_single_launches"] = paged_single_launches(torch, pa)
     report["binding_floor"] = binding_floor(torch, eb)
     cases = phase_kernels(torch, eb)
     report["kernel_cases"] = cases
@@ -2104,7 +2345,7 @@ def main() -> int:
     bwd_cases = phase_flash_bwd(torch, fa)
     report["flash_bwd_cases"] = bwd_cases
     log("paged kernels vs plain (gather bitwise):")
-    gather_cases, attn_cases = phase_paged(torch, pa)
+    gather_cases, attn_cases, paged_calls = phase_paged(torch, pa)
     report["paged_gather_cases"] = gather_cases
     report["paged_attention_cases"] = attn_cases
     log("bag and scatter kernels vs plain (bitwise):")
@@ -2293,7 +2534,12 @@ def main() -> int:
             "bound_by": bhead[f"{kernel}_bound_by"],
             "library_ms": bhead["library_ms"]})
     # the paged kernels at the decode slice's shape (fp32, the top rung's
-    # table width); no single PyTorch call computes either function
+    # table width); no single PyTorch call computes either function. The
+    # combine, the attention's second launch where the plan splits the
+    # rows (the live pool's rows fit one block's round and are not split),
+    # at the wide case (fp32, 4096 positions): its device time a launch
+    # from the profiler (it cannot be called alone), its launches from
+    # phase 3d's public calls
     for name, line, recs, head_case in (
             ("paged_gather", 77, gather_cases,
              max((c for c in gather_cases if c["case"].startswith("slice")),
@@ -2307,9 +2553,27 @@ def main() -> int:
             "replaces": f"analytics_zoo_tpu/ops/paged_attention.py:{line}",
             "launches": decode_counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in recs),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None})
+    kernels["kernels"][-1]["splits"] = head["splits"]
+    whead = next(c for c in attn_cases if c["case"] == "wide"
+                 and c["dtype"] == "torch.float32")
+    kernels["kernels"].append({
+        "name": "paged_attention_combine", "route": "cuda",
+        "source": "analytics_zoo_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "analytics_zoo_tpu/ops/paged_attention.py:174 "
+                    "(_attn_kernel's flush, across splits)",
+        "launches": paged_calls["paged_attention_combine"],
+        "launches_on": "phase 3d's public attention calls",
+        "max_abs_err": max(c["combine_max_abs_err"] for c in attn_cases
+                           if "combine_max_abs_err" in c),
+        "ms": whead["combine_device_ms"], "ms_by": "profiler",
+        "device_ms": whead["combine_device_ms"],
+        "plain_ms": whead["combine_plain_ms"],
+        "bound_ms": whead["combine_bound_ms"],
+        "bound_by": whead["combine_bound_by"], "library_ms": None})
     # the bag at the history column's shape as the keras layer calls it
     # (no lengths, mean, fp32); the scatter at NCF's item table (concat,
     # fp32), its launch alone from sorted keys

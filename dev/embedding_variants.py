@@ -301,6 +301,7 @@ def variants() -> dict:
     import torch
 
     import chip_smoke as cs
+    from analytics_zoo_tpu_torch.ops import _build
     from analytics_zoo_tpu_torch.ops import embedding_bag as eb
 
     libs, regs = build_variants()
@@ -312,13 +313,13 @@ def variants() -> dict:
             ids.data_ptr(), None if lengths is None else lengths.data_ptr(),
             table.data_ptr(), table.shape[0], table.shape[1], ids.shape[0],
             ids.shape[1], mean, table.dtype == torch.bfloat16,
-            out.data_ptr(), index, eb._raw_stream(index))
+            out.data_ptr(), index, _build.raw_stream(index))
         eb._check_launch(lib, err, "variant bag")
 
     def lookup_call(lib, tables, ids, combine, out):
         err = lib.zoo_fused_lookup(
             ids.data_ptr(), ctypes.byref(eb._fused_args(tables, combine)),
-            out.data_ptr(), ids.shape[0], index, eb._raw_stream(index))
+            out.data_ptr(), ids.shape[0], index, _build.raw_stream(index))
         eb._check_launch(lib, err, "variant lookup")
 
     cases = {}
