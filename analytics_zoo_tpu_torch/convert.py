@@ -28,16 +28,27 @@ give the shapes).
 
 flax derives its initial values from module paths, so the two packages
 never initialise alike: this is how tests make both compute the same
-function, and compare the parameters after training. Reading a saved
-``state.msgpack`` checkpoint is later work (ROADMAP A6).
+function, and compare the parameters after training.
+
+``flax_layout(module)`` gives that tree's shapes without JAX: each module
+of the port that owns parameters knows its flax leaves (an ``nn.Linear``
+a ``kernel [in, out]`` and a ``bias [out]``, or the shapes its
+``flax_kernel_shape`` / ``flax_bias_shape`` attributes name, as the
+attention projections' ``[in, h, d]`` and ``[h, d, out]``; a LayerNorm a
+``scale`` and a ``bias``; an embedding table its ``embedding``).
+``ParamLayout`` uses it to turn the parameters, and anything shaped like
+them (Adam's moments, a momentum trace), into the flax tree a checkpoint
+holds (learn/checkpoint.py), and back. A module with a parameter outside
+those rules keeps its torch names, nested at the dots.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 #: flax leaf name -> torch leaf name
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
@@ -91,3 +102,102 @@ def state_dict_to_flax(state_dict: Mapping, like: Mapping, prefix: str = ""
             arr = arr.T
         out[name] = np.ascontiguousarray(arr.reshape(tuple(sub.shape)))
     return out
+
+
+def _flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
+                 ) -> Optional[Dict[str, tuple]]:
+    """``{flax leaf: (torch leaf, flax shape)}`` of the parameters a
+    module owns directly, or None when it follows no flax rule."""
+    if isinstance(module, nn.Linear):
+        out, inp = module.weight.shape
+        leaves = {"kernel": ("weight", getattr(
+            module, "flax_kernel_shape", (inp, out)))}
+        if module.bias is not None:
+            leaves["bias"] = ("bias", getattr(module, "flax_bias_shape",
+                                              (out,)))
+        return leaves
+    if isinstance(module, nn.LayerNorm) and set(params) == {"weight", "bias"}:
+        shape = tuple(module.weight.shape)
+        return {"scale": ("weight", shape), "bias": ("bias", shape)}
+    if set(params) == {"embedding"}:
+        return {"embedding": ("embedding", tuple(params["embedding"].shape))}
+    return None
+
+
+def _sort_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _sort_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def nest(flat: Mapping[str, object]) -> Dict:
+    """``{"a.b.c": x}`` as ``{"a": {"b": {"c": x}}}``, keys sorted."""
+    tree: Dict = {}
+    for key, val in flat.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return _sort_tree(tree)
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    out: Dict[str, object] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def flax_layout(module: nn.Module) -> Optional[Dict]:
+    """The flax ``params`` tree of ``module`` as meta tensors of the flax
+    leaf shapes (keys sorted, as ``jax.tree_util`` rebuilds a tree), or
+    None when a parameter has no flax counterpart."""
+    tree: Dict = {}
+    covered = set()
+    for mname, mod in module.named_modules():
+        direct = dict(mod.named_parameters(recurse=False))
+        if not direct:
+            continue
+        leaves = _flax_leaves(mod, direct)
+        if leaves is None:
+            return None
+        node = tree
+        for part in mname.split(".") if mname else ():
+            node = node.setdefault(part, {})
+        for fname, (tname, shape) in leaves.items():
+            node[fname] = torch.empty(tuple(shape), device="meta",
+                                      dtype=direct[tname].dtype)
+            covered.add(f"{mname}.{tname}" if mname else tname)
+    if covered != {n for n, _ in module.named_parameters()}:
+        return None
+    return _sort_tree(tree)
+
+
+class ParamLayout:
+    """How a module's parameters map onto a checkpoint's ``params`` tree:
+    flax's names and layouts where ``flax_layout`` knows the module, else
+    the torch names nested at the dots. ``to_tree`` takes tensors keyed
+    like the parameters (the parameters themselves, or optimizer state
+    shaped like them) and gives host arrays; ``from_tree`` inverts it."""
+
+    def __init__(self, module: nn.Module):
+        self.names: List[str] = [n for n, _ in module.named_parameters()]
+        like = flax_layout(module)
+        self.flax = like is not None
+        self.like = like if self.flax else nest({
+            n: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta")
+            for n, p in module.named_parameters()})
+
+    def to_tree(self, tensors: Mapping[str, torch.Tensor]) -> Dict:
+        if self.flax:
+            return state_dict_to_flax(tensors, self.like)
+        return nest({n: tensors[n].detach().cpu() for n in self.names})
+
+    def from_tree(self, tree: Mapping) -> Dict[str, torch.Tensor]:
+        if self.flax:
+            return flax_to_state_dict(tree)
+        return {n: torch.as_tensor(v) for n, v in flatten(tree).items()}

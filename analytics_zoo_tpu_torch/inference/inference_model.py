@@ -7,6 +7,7 @@ passes ``device="cpu"``), shared by all callers; a semaphore bounds
 in-flight predicts at ``concurrent_num``, the reference's backpressure.
 
 - ``load_zoo(model)`` / ``load(path)`` — a zoo keras model or ZooModel
+  (``load`` reads a ``save_model`` directory written by either package)
 - ``load_torch(module, sample_input)`` — any ``nn.Module`` of the port
   (e.g. the BERT classifier of ``text/estimators.py``)
 - ``predict`` — chunked batch predict; with a bucket ladder the tail
@@ -71,7 +72,9 @@ class InferenceModel:
         return self
 
     def load(self, path: str) -> "InferenceModel":
-        """Load a saved ZooModel directory (ref doLoadBigDL from file)."""
+        """Load a ZooModel directory that ``save_model`` of either package
+        wrote (``config.json`` + ``weights/ckpt-<n>/``; ref doLoadBigDL
+        from file)."""
         from analytics_zoo_tpu_torch.models.common import ZooModel
         return self.load_zoo(ZooModel.load_model(path))
 

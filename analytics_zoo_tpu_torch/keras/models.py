@@ -11,10 +11,21 @@ its estimator: ``compile(optimizer, loss, metrics, device=None)`` picks
 the device (``cuda`` unless ``device="cpu"``), and ``fit`` / ``evaluate``
 / ``predict`` run there. The estimator trains the model's own module, so
 weights loaded before ``compile`` (or a second ``compile``) are kept.
+
+Persistence is the JAX package's: ``save_weights``/``load_weights`` go
+through the estimator's ``save``/``load`` (``<path>/ckpt-<step>/``, flax's
+tree, learn/checkpoint.py), so weights written by either package load in
+the other; an uncompiled model saves and loads against the adam/mse
+defaults, optimizer state included, as in JAX. ``set_checkpoint`` sets
+the estimator's ``model_dir``. ``save``/``load`` add the pickled topology
+(``topology.pkl``) beside ``weights/``; only the port reads the port's
+pickle (its layers are PyTorch objects).
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,6 +38,43 @@ from analytics_zoo_tpu_torch.keras.engine import (GraphModule, Input,
 
 #: what the port leaves out of KerasNet, and the ROADMAP item it waits on
 _NOT_PORTED = "is not ported yet (ROADMAP A5)"
+
+
+def _registry_names():
+    """Callables a layer may hold that pickle by name: the activations
+    and the init functions (module-level lambdas among them)."""
+    from analytics_zoo_tpu_torch.keras.layers import _ACTIVATIONS, _INITS
+    names = {id(fn): ("activation", name)
+             for name, fn in _ACTIVATIONS.items()}
+    names.update({id(fn): ("init", name) for name, fn in _INITS.items()})
+    return names
+
+
+class _TopologyPickler(pickle.Pickler):
+    """Reduces the registry callables layers hold (activations, inits) to
+    their names; everything else pickles normally (a ``Lambda`` needs a
+    named, importable function)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._names = _registry_names()
+
+    def persistent_id(self, obj):
+        if callable(obj) and not isinstance(obj, type):
+            return self._names.get(id(obj))
+        return None
+
+
+class _TopologyUnpickler(pickle.Unpickler):
+    def persistent_load(self, pid):
+        from analytics_zoo_tpu_torch.keras.layers import (get_activation,
+                                                          get_init)
+        kind, name = pid
+        if kind == "activation":
+            return get_activation(name)
+        if kind == "init":
+            return get_init(name)
+        raise pickle.UnpicklingError(f"unknown persistent id {pid!r}")
 
 
 class KerasNet:
@@ -42,6 +90,7 @@ class KerasNet:
         self._estimator = None
         self._compile_args: Optional[dict] = None
         self._strategy = "dp"
+        self.model_dir: Optional[str] = None
 
     # -- to be provided by subclass --
     def _graph(self) -> Tuple[List[Node], List[Node]]:
@@ -152,9 +201,22 @@ class KerasNet:
             )
             self._estimator = TorchEstimator(
                 self.module, loss=args["loss"], optimizer=args["optimizer"],
-                metrics=args["metrics"], strategy=self._strategy,
-                device=args["device"])
+                metrics=args["metrics"], model_dir=self.model_dir,
+                strategy=self._strategy, device=args["device"])
         return self._estimator
+
+    def _weights_estimator(self):
+        """The estimator ``save_weights``/``load_weights`` go through: the
+        model's own once there is one, else one with the adam/mse defaults
+        on the device the module is on (JAX builds the same defaults; a
+        later ``compile`` starts a fresh optimizer state either way)."""
+        if self._compile_args is not None or self._estimator is not None:
+            return self._ensure_estimator()
+        from analytics_zoo_tpu_torch.learn.estimator import TorchEstimator
+        param = next(self.module.parameters(), None)
+        device = param.device if param is not None else "cpu"
+        return TorchEstimator(self.module, loss="mse", optimizer="adam",
+                              device=device)
 
     @property
     def estimator(self):
@@ -173,8 +235,11 @@ class KerasNet:
         raise NotImplementedError(f"set_tensorboard {_NOT_PORTED}")
 
     def set_checkpoint(self, path: str):
-        raise NotImplementedError(f"set_checkpoint {_NOT_PORTED}; use "
-                                  "save_weights or estimator.save")
+        """Snapshot into ``path`` during ``fit`` (the estimator's
+        ``model_dir``; kept across a later ``compile``)."""
+        self.model_dir = path
+        if self._estimator is not None:
+            self._estimator.model_dir = path
 
     @staticmethod
     def _as_x(x):
@@ -242,15 +307,16 @@ class KerasNet:
         classes = np.argmax(np.asarray(probs), axis=-1)
         return classes if zero_based_label else classes + 1
 
-    # -- persistence: torch.save of the state dict --
+    # -- persistence (the JAX layout, through the estimator) --
     def save_weights(self, path: str):
-        torch.save(self.module.state_dict(), path)
+        """Parameters and optimizer state into ``path/ckpt-<step>/``."""
+        self._weights_estimator().save(path)
 
     def load_weights(self, path: str):
-        """Load into the module in place, on whatever device it is: a
-        compiled model trains on from the loaded weights."""
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        self.module.load_state_dict(state)
+        """Load what ``save_weights`` (of either package) wrote into the
+        module in place, on whatever device it is: a compiled model
+        trains on from the loaded weights and optimizer state."""
+        self._weights_estimator().load(path)
 
     def get_weights(self) -> dict:
         """A copy of the parameters as ``{"<layer>.<leaf>": ndarray}`` (the
@@ -259,14 +325,33 @@ class KerasNet:
         return {k: to_numpy(v).copy()
                 for k, v in self.module.state_dict().items()}
 
-    def save(self, path: str):
-        raise NotImplementedError(f"save with a pickled topology "
-                                  f"{_NOT_PORTED}; use save_weights")
+    def save(self, path: str) -> str:
+        """The whole model (ref Topology.scala saveModule): the pickled
+        topology (layers, compile settings) in ``topology.pkl`` and the
+        weights in ``weights/``. Only the port reads the port's pickle."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "topology.pkl"), "wb") as fh:
+            _TopologyPickler(fh, protocol=pickle.HIGHEST_PROTOCOL).dump(self)
+        self.save_weights(os.path.join(path, "weights"))
+        return path
 
     @staticmethod
-    def load(path: str):
-        raise NotImplementedError(f"load of a pickled topology "
-                                  f"{_NOT_PORTED}; use load_weights")
+    def load(path: str) -> "KerasNet":
+        """(ref Net.load for keras models) A model ``save`` wrote, with
+        its weights and, if it was compiled, its optimizer state.
+        Unpickling runs code: load only what you saved yourself."""
+        with open(os.path.join(path, "topology.pkl"), "rb") as fh:
+            model = _TopologyUnpickler(fh).load()
+        model.load_weights(os.path.join(path, "weights"))
+        return model
+
+    def __getstate__(self):
+        # topology and settings only: the module and the estimator are
+        # rebuilt on load, and the weights travel in weights/
+        state = dict(self.__dict__)
+        state["_estimator"] = None
+        state["_module"] = None
+        return state
 
     def summary(self):
         raise NotImplementedError(f"summary {_NOT_PORTED}")

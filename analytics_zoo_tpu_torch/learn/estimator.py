@@ -25,37 +25,65 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
 - **evaluate** pads the final batch and masks the padded rows out of the
   loss and the metrics; **predict** runs in ``torch.inference_mode()`` and
   drops the padded rows.
-- **save**/**load** write and read ``estimator.pt`` (``torch.save``):
-  the module's ``state_dict``, the optimizer state and the step and epoch
-  counts. Reading the JAX package's checkpoints is ROADMAP A6.
+- **Checkpoints** are the JAX package's, byte for byte
+  (learn/checkpoint.py): ``save``/``load`` and the ``model_dir``
+  snapshots write ``ckpt-<step>/state.msgpack`` holding ``{"model_state",
+  "opt_state", "params", "step"}`` with flax's names and layouts
+  (``convert.ParamLayout``) and the optimizer state as optax's tree
+  (learn/optimizers.py), so each package reads what the other wrote.
+- **Snapshots and retries** mirror ``JaxEstimator.fit``: with
+  ``model_dir`` set, ``checkpoint_trigger`` (default ``EveryEpoch()``) is
+  tested after every step with the last loss read back, and again after
+  each epoch; a failed epoch reloads the newest snapshot and goes on, up
+  to ``failure_retry_times`` times (``auto_resume=True``: the newest one
+  that validates, and ``ZOO_FIT_MAX_RESUMES``). A resume inside this fit
+  skips the batches of its epoch that the snapshot already took, so the
+  run ends bitwise where an unfaulted one does. Triggers read host values
+  only: no step adds a read-back.
 
-Not ported yet (ROADMAP A3): meshes and strategies other than ``"dp"`` on
-one device, ``steps_per_loop``, ``cache="device"``, checkpoint triggers
-and ``model_dir`` snapshots, ``auto_resume``, TensorBoard writers and
-``profile``.
+Not ported yet: meshes and strategies other than ``"dp"`` on one device
+(ROADMAP A9); ``steps_per_loop``, ``cache="device"`` and ``profile``
+(ROADMAP A3); TensorBoard writers (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import inspect
+import itertools
+import logging
 import os
+import warnings
+from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from analytics_zoo_tpu_torch.common import resilience
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
+from analytics_zoo_tpu_torch.convert import ParamLayout, flatten, nest
 from analytics_zoo_tpu_torch.data.dataset import (ShardedDataset,
                                                   to_sharded_dataset,
                                                   tree_map)
 from analytics_zoo_tpu_torch.data.shard import HostXShards, XShards
+from analytics_zoo_tpu_torch.learn import checkpoint as ckpt_lib
 from analytics_zoo_tpu_torch.learn import losses as loss_lib
 from analytics_zoo_tpu_torch.learn import metrics as metric_lib
 from analytics_zoo_tpu_torch.learn.optimizers import Optimizer
+from analytics_zoo_tpu_torch.learn.trigger import EveryEpoch, MaxScore, Trigger
+from analytics_zoo_tpu_torch.learn.trigger import fire as _fire_trigger
 
-CHECKPOINT = "estimator.pt"
+logger = logging.getLogger(__name__)
+
+
+def _trigger_needs_score(trigger) -> bool:
+    """True if the trigger (transitively) contains a MaxScore."""
+    if isinstance(trigger, MaxScore):
+        return True
+    return any(_trigger_needs_score(t)
+               for t in getattr(trigger, "triggers", ()))
 
 
 def _n_inputs(model: nn.Module, sig: inspect.Signature) -> Optional[int]:
@@ -90,6 +118,12 @@ class Estimator:
                               metrics=metrics, model_dir=model_dir,
                               strategy=strategy, seed=seed, device=device)
 
+    @staticmethod
+    def latest_checkpoint(model_dir: str) -> Optional[str]:
+        """The newest ``ckpt-<n>`` under ``model_dir``, or None."""
+        found = ckpt_lib.find_latest_checkpoint(model_dir)
+        return found[0] if found else None
+
 
 class TorchEstimator:
     """The engine (ref Scala Estimator zoo/.../pipeline/estimator/
@@ -102,19 +136,22 @@ class TorchEstimator:
             raise NotImplementedError(
                 f"strategy {strategy!r}: the port trains on one device; "
                 "meshes and sharding strategies are ROADMAP A9")
-        if model_dir is not None:
-            raise NotImplementedError(
-                "model_dir snapshots and checkpoint triggers are not ported "
-                "yet (ROADMAP A3); use save()/load()")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_lib.get(loss)
         self.optimizer = Optimizer.get(optimizer)
         self.metrics = [metric_lib.get(m) for m in (metrics or [])]
         self.seed = int(seed)
+        self.model_dir = model_dir
+        # ref Topology.scala:1256 bigdl.failure.retryTimes
+        self.failure_retry_times = 5
         #: every step's loss, read back once per summary window
         self.step_losses: List[float] = []
-        self._params = [p for p in self.model.parameters() if p.requires_grad]
+        trainable = [(n, p) for n, p in self.model.named_parameters()
+                     if p.requires_grad]
+        self._names = [n for n, _ in trainable]
+        self._params = [p for _, p in trainable]
+        self._layout: Optional[ParamLayout] = None
         self._opt_state: Optional[dict] = None
         self._grad_clip = None  # ("norm", v) | ("const", min, max)
         self._epoch = 0
@@ -201,49 +238,133 @@ class TorchEstimator:
 
     def fit(self, data, epochs: int = 1, batch_size: int = 32,
             feature_cols=None, label_cols=None, validation_data=None,
-            summary_interval: int = 20,
-            shuffle: bool = True) -> Dict[str, List[float]]:
+            checkpoint_trigger: Optional[Trigger] = None,
+            summary_interval: int = 20, shuffle: bool = True,
+            auto_resume: bool = False) -> Dict[str, List[float]]:
         """(ref orca/learn/tf/estimator.py fit:486) One optimizer step per
         batch of ``batch_size``; returns ``{"loss": [mean loss of each
         epoch], "val_<metric>": [...]}``. ``data`` and ``validation_data``
         take what ``to_sharded_dataset`` takes (``feature_cols`` and
-        ``label_cols`` name a DataFrame's columns)."""
+        ``label_cols`` name a DataFrame's columns).
+
+        With ``model_dir`` set, ``checkpoint_trigger`` (default
+        ``EveryEpoch()``) snapshots the state, and a failed epoch is
+        retried from the newest snapshot up to ``failure_retry_times``
+        times (ref Topology.scala:1255-1337). ``auto_resume=True`` reloads
+        the newest snapshot that validates against this model, walking
+        past torn or mismatched ones, within ``ZOO_FIT_MAX_RESUMES``
+        resumes: the step and epoch counts, the optimizer state and the
+        data order come back, so the run ends bitwise where an unfaulted
+        one does."""
         ds = self._dataset(data, feature_cols, label_cols)
         val_ds = (self._dataset(validation_data, feature_cols, label_cols)
                   if validation_data is not None else None)
+        if checkpoint_trigger is None and self.model_dir:
+            checkpoint_trigger = EveryEpoch()
+        if checkpoint_trigger is not None and \
+                _trigger_needs_score(checkpoint_trigger) and val_ds is None:
+            warnings.warn(
+                "checkpoint_trigger contains MaxScore but fit() got no "
+                "validation_data: the trigger can never fire and no "
+                "checkpoints will be written")
+        trigger = checkpoint_trigger if self.model_dir else None
         history: Dict[str, List[float]] = {"loss": []}
         target = self._epoch + epochs
+        start = (self._py_step, self._epoch, len(self.step_losses),
+                 ds.n // batch_size)
+        retries, skip = 0, 0
         while self._epoch < target:
-            history["loss"].append(self._run_epoch(
-                ds, batch_size, shuffle, max(1, int(summary_interval))))
+            try:
+                epoch_loss = self._run_epoch(
+                    ds, batch_size, shuffle, max(1, int(summary_interval)),
+                    trigger, skip)
+            except Exception as e:
+                # retry from the newest snapshot (ref Topology.scala:1255)
+                retries += 1
+                limit = self.failure_retry_times
+                if auto_resume:
+                    resilience.note_backend_loss(e)
+                    limit = resilience.fit_max_resumes(limit)
+                if not self.model_dir or retries > limit:
+                    raise
+                if auto_resume:
+                    path = self._auto_resume_reload()
+                    if path is None:
+                        raise
+                else:
+                    path = Estimator.latest_checkpoint(self.model_dir)
+                    if path is None:
+                        raise
+                    self.load_orca_checkpoint(path)
+                logger.exception("training step failed; retry %d/%d from %s",
+                                 retries, limit, path)
+                skip = self._resume_point(start, history)
+                continue
+            skip = 0
+            history["loss"].append(epoch_loss)
             self._epoch += 1
+            val_score = None
             if val_ds is not None:
-                for k, v in self.evaluate(val_ds, batch_size).items():
+                val_score = self.evaluate(val_ds, batch_size)
+                for k, v in val_score.items():
                     history.setdefault("val_" + k, []).append(v)
+            if trigger is not None and _fire_trigger(
+                    trigger, self._epoch, self._py_step, epoch_loss,
+                    val_score):
+                self._save_snapshot()
         return history
 
+    def _resume_point(self, start, history) -> int:
+        """After a reload inside ``fit``: how many batches of the restored
+        epoch the snapshot already took. The history and the read-back
+        step losses go back to the snapshot, so the epoch's mean covers
+        each of its steps once. A snapshot from before this fit (or one
+        that does not fall inside its epochs) restarts its epoch, as the
+        JAX estimator does."""
+        step0, epoch0, base, per_epoch = start
+        done = self._py_step - (step0 + (self._epoch - epoch0) * per_epoch)
+        if self._epoch < epoch0 or not 0 <= done <= per_epoch:
+            return 0
+        for vals in history.values():
+            del vals[self._epoch - epoch0:]
+        del self.step_losses[base + self._py_step - step0:]
+        return done
+
     def _run_epoch(self, ds: ShardedDataset, batch_size: int, shuffle: bool,
-                   summary_interval: int) -> float:
-        losses: List[float] = []
+                   summary_interval: int, trigger: Optional[Trigger],
+                   skip: int = 0) -> float:
+        """One epoch from its ``skip``-th batch; the mean loss of all its
+        steps (those before ``skip`` are the last ``skip`` read back)."""
+        start = len(self.step_losses) - skip
         pending: List[torch.Tensor] = []
 
         def flush():
             # one read-back per window of step losses
             if pending:
-                vals = torch.stack(pending).double().cpu().tolist()
-                losses.extend(vals)
-                self.step_losses.extend(vals)
+                self.step_losses.extend(
+                    torch.stack(pending).double().cpu().tolist())
                 pending.clear()
 
         self.model.train(True)
-        for x, y, _ in ds.iter_batches(batch_size, shuffle, seed=self.seed,
-                                       epoch=self._epoch,
-                                       drop_remainder=True):
+        batches = ds.iter_batches(batch_size, shuffle, seed=self.seed,
+                                  epoch=self._epoch, drop_remainder=True)
+        for x, y, _ in itertools.islice(batches, skip, None):
+            # fault-injection seam: one arrival per train step
+            resilience.maybe_fault("step")
             pending.append(self._train_step(x, y))
             self._py_step += 1
             if len(pending) >= summary_interval:
                 flush()
+            # iteration-granular snapshots, e.g. SeveralIteration(n), on
+            # the last loss read back (ref Topology.scala checkpointTrigger)
+            if trigger is not None and trigger(
+                    self._epoch, self._py_step,
+                    self.step_losses[-1] if len(self.step_losses) > start
+                    else None):
+                flush()
+                self._save_snapshot()
         flush()
+        losses = self.step_losses[start:]
         return float(np.mean(losses)) if losses else float("nan")
 
     def evaluate(self, data, batch_size: int = 32, feature_cols=None,
@@ -306,28 +427,117 @@ class TorchEstimator:
             return HostXShards([{"prediction": merged}])
         return merged
 
-    # ------------- persistence -------------------------------------------
+    # ------------- persistence (JAX layout, learn/checkpoint.py) -------
+    def _param_layout(self) -> ParamLayout:
+        if self._layout is None:
+            self._layout = ParamLayout(self.model)
+        return self._layout
+
+    def _state_tree(self, spec: bool = False) -> dict:
+        """The JAX estimator's state tree, ``{"model_state", "opt_state",
+        "params", "step"}``, as host arrays; with ``spec`` the same tree
+        with meta tensors for leaves (shapes and dtypes only), to restore
+        and validate against."""
+        layout = self._param_layout()
+        named = dict(self.model.named_parameters())
+        buffers = {k: v for k, v in self.model.state_dict(
+            keep_vars=True).items() if k not in named}
+        if spec:
+            opt_state = (self._opt_state if self._opt_state is not None
+                         else defaultdict(lambda: None, count=0))
+            opt = self.optimizer.optax_state(opt_state,
+                                             lambda _: layout.like)
+            params = layout.like
+            model_state = nest({k: v.to("meta")
+                                 for k, v in buffers.items()})
+        else:
+            def tree(tensors):
+                given = dict(zip(self._names, tensors))
+                for n, p in named.items():
+                    if n not in given:      # frozen: optax keeps zeros
+                        given[n] = torch.zeros_like(p)
+                return layout.to_tree(given)
+            opt = self.optimizer.optax_state(self._ensure_opt_state(), tree)
+            params = layout.to_tree(named)
+            model_state = nest({k: v.detach().cpu()
+                                 for k, v in buffers.items()})
+        if self._grad_clip is not None:
+            # the JAX _tx() chains the clip in front: {"0": {}, "1": tx}
+            opt = {"0": {}, "1": opt}
+        return {"model_state": model_state, "opt_state": opt,
+                "params": params,
+                "step": np.asarray(self._py_step, np.int32)}
+
+    def _restore(self, state: dict) -> None:
+        """Copy a restored state tree into the module (in place) and the
+        optimizer state."""
+        layout = self._param_layout()
+        named = dict(self.model.named_parameters())
+        values = layout.from_tree(state["params"])
+        buffers = {k: v for k, v in self.model.state_dict(
+            keep_vars=True).items() if k not in named}
+        saved = {k: torch.as_tensor(v) for k, v in
+                 flatten(state["model_state"]).items()}
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(values[n])
+            for k, b in buffers.items():
+                b.copy_(saved[k])
+
+        def untree(tree):
+            vals = layout.from_tree(tree)
+            return [vals[n].to(self.device, named[n].dtype, copy=True)
+                    for n in self._names]
+        opt = state["opt_state"]
+        if self._grad_clip is not None:
+            opt = opt["1"]
+        self._opt_state = self.optimizer.from_optax_state(opt, untree)
+
+    def _save_snapshot(self) -> str:
+        path = ckpt_lib.save_checkpoint(self.model_dir, self._state_tree(),
+                                        self._py_step, self._epoch)
+        logger.info("checkpoint saved: %s", path)
+        return path
+
     def save(self, path: str) -> str:
-        """Weights, optimizer state and counters into ``path/estimator.pt``
-        (ref spark_estimator.save)."""
+        """Weights, optimizer state and step into ``path/ckpt-<step>/``, as
+        ``JaxEstimator.save`` writes them (ref spark_estimator.save)."""
         os.makedirs(path, exist_ok=True)
-        torch.save({"model": self.model.state_dict(),
-                    "opt_state": self._ensure_opt_state(),
-                    "step": self._py_step, "epoch": self._epoch},
-                   os.path.join(path, CHECKPOINT))
+        ckpt_lib.save_checkpoint(path, self._state_tree(), self._py_step,
+                                 self._epoch, max_to_keep=10 ** 9)
         return path
 
     def load(self, path: str) -> "TorchEstimator":
-        """Restore what ``save`` wrote (``path`` is its directory or the
-        file)."""
-        if os.path.isdir(path):
-            path = os.path.join(path, CHECKPOINT)
-        ckpt = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(ckpt["model"])
-        self._opt_state = ckpt["opt_state"]
-        self._py_step = int(ckpt["step"])
-        self._epoch = int(ckpt["epoch"])
+        """Restore the newest ``ckpt-<n>`` under ``path`` (or ``path``
+        itself when it is one), written by either package."""
+        found = ckpt_lib.find_latest_checkpoint(path)
+        return self.load_orca_checkpoint(path if found is None else found[0])
+
+    def load_orca_checkpoint(self, path: str, version: Optional[int] = None
+                             ) -> "TorchEstimator":
+        """(ref orca/learn/tf/estimator.py:270-289) Restore ``path`` (or
+        ``path/ckpt-<version>``), validated against this model."""
+        if version is not None:
+            path = os.path.join(path, f"ckpt-{version}")
+        state, meta = ckpt_lib.load_checkpoint(path,
+                                               self._state_tree(spec=True))
+        self._restore(state)
+        self._epoch = int(meta.get("epoch", 0))
+        self._py_step = int(meta.get("iteration", 0))
         return self
+
+    def _auto_resume_reload(self) -> Optional[str]:
+        """Reload the newest snapshot in ``model_dir`` that validates
+        against this model; its path, or None when none is usable."""
+        loaded = ckpt_lib.load_latest_checkpoint(self.model_dir,
+                                                 self._state_tree(spec=True))
+        if loaded is None:
+            return None
+        state, meta, path = loaded
+        self._restore(state)
+        self._epoch = int(meta.get("epoch", 0))
+        self._py_step = int(meta.get("iteration", 0))
+        return path
 
     def get_model(self) -> nn.Module:
         """The trained module (ref spark_estimator.get_model)."""

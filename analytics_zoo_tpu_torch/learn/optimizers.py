@@ -19,6 +19,17 @@ launches over all parameters rather than a few per parameter:
 - A schedule is evaluated at optax's count, the number of updates taken
   before this one, so the first update uses ``schedule(0)``.
 
+Each optimizer also says how its state maps onto the tree of the optax
+transformation the JAX package builds from it (``optax_state`` and
+``from_optax_state``), which is what a checkpoint holds
+(learn/checkpoint.py): ``adam`` is ``{"0": {"count", "mu", "nu"}, "1":
+{}}``, ``adamw`` ``{"0": adam, "1": {}, "2": {}}`` and ``sgd`` ``{"0":
+{"0": {"trace"} or {}, "1": {}}}``, with ``{"0": {}, "1": ...}`` around
+it when it decays weights. A schedule's optax state is ``{"count"}`` in
+place of the last ``{}``; ``count`` is an int32 scalar. The moments and
+the trace are trees shaped like the parameters, made by the caller's
+``tree``.
+
 The other optimizer names of the JAX package (rmsprop, adagrad, adadelta,
 adamax, nadam, lars, lamb, lbfgs) raise: porting them is ROADMAP A3.
 """
@@ -26,7 +37,7 @@ adamax, nadam, lars, lamb, lbfgs) raise: porting them is ROADMAP A3.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -158,13 +169,49 @@ _NOT_PORTED = ("rmsprop", "adagrad", "adadelta", "adamax", "nadam", "lars",
                "lamb", "lbfgs")
 
 
+def _has_schedule(schedule: Optional[LRSchedule]) -> bool:
+    """Whether the JAX package gives optax a schedule (a state with a
+    count) rather than a constant rate."""
+    return schedule is not None and not isinstance(schedule, Default)
+
+
+def _count(count: int) -> np.ndarray:
+    return np.asarray(count, np.int32)
+
+
 class Optimizer:
     """An update rule over a list of parameters. ``init`` makes its state;
     ``step`` applies one update in place, given the gradients and the
-    number of updates taken before it (optax's count)."""
+    number of updates taken before it (optax's count). ``_lr`` (the rate
+    as a function of the count) is rebuilt after unpickling."""
 
     def init(self, params: List[torch.Tensor]) -> Dict[str, list]:
         return {}
+
+    def _make_lr(self):
+        raise NotImplementedError
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_lr", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lr = self._make_lr()
+
+    def optax_state(self, state: dict, tree: Callable[[list], dict]) -> dict:
+        """``state`` (with its ``count``) as the optax tree; ``tree`` turns
+        a list of per-parameter tensors into a parameter-shaped tree."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no optax state mapping")
+
+    def from_optax_state(self, opt: dict, untree: Callable[[dict], list]
+                         ) -> dict:
+        """The inverse of ``optax_state``; ``untree`` turns a
+        parameter-shaped tree back into the list of tensors."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no optax state mapping")
 
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
              state: Dict[str, list], count: int) -> None:
@@ -201,12 +248,32 @@ class SGD(Optimizer):
                  leaningrate_schedule: Optional[LRSchedule] = None):
         self.lr, self.momentum, self.nesterov = learningrate, momentum, nesterov
         self.weightdecay, self.schedule = weightdecay, leaningrate_schedule
-        self._lr = _lr(learningrate, leaningrate_schedule)
+        self._lr = self._make_lr()
+
+    def _make_lr(self):
+        return _lr(self.lr, self.schedule)
 
     def init(self, params):
         if not self.momentum:
             return {}
         return {"trace": [torch.zeros_like(p) for p in params]}
+
+    def optax_state(self, state, tree):
+        # optax.sgd: chain(trace or identity, scale_by_learning_rate),
+        # inside the JAX wrapper's chain (after add_decayed_weights)
+        inner = {"0": ({"trace": tree(state["trace"])} if self.momentum
+                       else {}),
+                 "1": ({"count": _count(state["count"])}
+                       if _has_schedule(self.schedule) else {})}
+        return {"0": {}, "1": inner} if self.weightdecay else {"0": inner}
+
+    def from_optax_state(self, opt, untree):
+        inner = opt["1"] if self.weightdecay else opt["0"]
+        # without a schedule optax keeps no count; the rate is constant
+        out = {"count": int(inner["1"].get("count", 0))}
+        if self.momentum:
+            out["trace"] = untree(inner["0"]["trace"])
+        return out
 
     def step(self, params, grads, state, count):
         g = list(grads)
@@ -230,11 +297,35 @@ class Adam(Optimizer):
         self.lr, self.b1, self.b2, self.eps = (learningrate, beta1, beta2,
                                                epsilon)
         self.schedule = leaningrate_schedule
-        self._lr = _lr(learningrate, leaningrate_schedule)
+        self._lr = self._make_lr()
+
+    def _make_lr(self):
+        return _lr(self.lr, self.schedule)
 
     def init(self, params):
         return {"mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
+
+    #: empty optax states between scale_by_adam and the rate (adamw's
+    #: add_decayed_weights)
+    _decay_states = 0
+
+    def _scheduled(self) -> bool:
+        return _has_schedule(self.schedule)
+
+    def optax_state(self, state, tree):
+        # chain(scale_by_adam, [add_decayed_weights,] scale_by_learning_rate)
+        count = _count(state["count"])
+        parts = [{"count": count, "mu": tree(state["mu"]),
+                  "nu": tree(state["nu"])}]
+        parts += [{}] * self._decay_states
+        parts.append({"count": count} if self._scheduled() else {})
+        return {str(i): p for i, p in enumerate(parts)}
+
+    def from_optax_state(self, opt, untree):
+        adam = opt["0"]
+        return {"count": int(adam["count"]), "mu": untree(adam["mu"]),
+                "nu": untree(adam["nu"])}
 
     def _adam(self, grads, state, count) -> List[torch.Tensor]:
         """optax ``scale_by_adam``: updates the moments in place and
@@ -267,12 +358,21 @@ class AdamWeightDecay(Adam):
                  beta1: float = 0.9, beta2: float = 0.999,
                  epsilon: float = 1e-6, total: int = -1,
                  warmup_portion: float = -1.0):
-        super().__init__(learningrate, beta1, beta2, epsilon)
         self.wd = weight_decay
         self.total, self.warmup_portion = total, warmup_portion
-        if total > 0 and warmup_portion > 0:
-            self._lr = _warmup_cosine(0.0, learningrate,
-                                      int(total * warmup_portion), total)
+        super().__init__(learningrate, beta1, beta2, epsilon)
+
+    _decay_states = 1
+
+    def _scheduled(self) -> bool:
+        return self.total > 0 and self.warmup_portion > 0
+
+    def _make_lr(self):
+        if self._scheduled():
+            return _warmup_cosine(0.0, self.lr,
+                                  int(self.total * self.warmup_portion),
+                                  self.total)
+        return _lr(self.lr, None)
 
     def step(self, params, grads, state, count):
         upd = self._adam(grads, state, count)

@@ -3,9 +3,10 @@ a prebuilt Keras-graph model with compile/fit/evaluate/predict plus
 save/load, delegated to its ``KerasNet``.
 
 Counterpart of ``analytics_zoo_tpu/models/common.py``. ``save_model``
-writes the port's own format: ``config.json`` (the class and its
-constructor arguments, as the JAX package writes it) and ``weights.pt``,
-``torch.save`` of the module's state dict.
+writes the JAX package's layout: ``config.json`` (the class and its
+constructor arguments) and ``weights/ckpt-<step>/`` (``save_weights``,
+learn/checkpoint.py), so a model saved by either package loads in the
+other.
 """
 
 from __future__ import annotations
@@ -14,8 +15,6 @@ import json
 import os
 
 from analytics_zoo_tpu_torch.common.device import DeviceLike
-
-WEIGHTS_FILE = "weights.pt"
 
 
 class ZooModel:
@@ -63,7 +62,7 @@ class ZooModel:
             raise FileExistsError(f"{cfg_path} exists; pass over_write=True")
         with open(cfg_path, "w") as fh:
             json.dump({"class": type(self).__name__, **self._config()}, fh)
-        self.model.save_weights(os.path.join(path, WEIGHTS_FILE))
+        self.model.save_weights(os.path.join(path, "weights"))
 
     @classmethod
     def load_model(cls, path: str) -> "ZooModel":
@@ -71,7 +70,7 @@ class ZooModel:
             cfg = json.load(fh)
         klass = cfg.pop("class")
         obj = registry.get(klass)(**cfg)
-        obj.model.load_weights(os.path.join(path, WEIGHTS_FILE))
+        obj.model.load_weights(os.path.join(path, "weights"))
         return obj
 
 

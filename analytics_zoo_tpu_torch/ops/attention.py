@@ -109,6 +109,14 @@ class AttentionModule(nn.Module):
         self.key = Dense(kv_features, h * d, dtype=dtype)
         self.value = Dense(kv_features, h * d, dtype=dtype)
         self.out = Dense(h * d, q_features, dtype=dtype)
+        # the flax layout (DenseGeneral): [in, h, d] projections and an
+        # [h, d, out] output, which a checkpoint holds (convert.py)
+        for proj, fan_in in ((self.query, q_features),
+                             (self.key, kv_features),
+                             (self.value, kv_features)):
+            proj.flax_kernel_shape = (fan_in, h, d)
+            proj.flax_bias_shape = (h, d)
+        self.out.flax_kernel_shape = (h, d, q_features)
 
     def forward(self, q_in, kv_in=None, mask=None, train: bool = False):
         self_attn = (self.self_attention if self.self_attention is not None

@@ -11,8 +11,11 @@ out of a module call (zeros and no mask).
 ``learn/estimator.py``'s ``TorchEstimator``. Like the JAX estimator it
 fills a missing ``input_mask`` with ones and passes it on, so its
 attention is the masked einsum chain under autograd and never the flash
-kernels (ROADMAP C5). The ``BERTNER`` and ``BERTSQuAD`` estimators are
-not ported yet (ROADMAP A3); their head modules are.
+kernels (ROADMAP C5). ``save``/``load`` write and read the JAX
+package's layout (``<path>/ckpt-<step>/``, the flax BERT tree with its
+``[in, h, d]`` attention projections), so a classifier saved by either
+package loads in the other. The ``BERTNER`` and ``BERTSQuAD`` estimators
+are not ported yet (ROADMAP A3); their head modules are.
 """
 
 from __future__ import annotations
@@ -128,9 +131,11 @@ class _BertTaskEstimator:
         return self.estimator.predict(x, batch_size=batch_size)
 
     def save(self, path: str):
+        """Weights and optimizer state into ``path/ckpt-<step>/``."""
         return self.estimator.save(path)
 
     def load(self, path: str):
+        """Restore what ``save`` (of either package) wrote."""
         self.estimator.load(path)
         return self
 

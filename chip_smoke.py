@@ -100,6 +100,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              for NCF with a pooled item-history column (Embedding(3707,
              20, pooling="mean") over 8 ids): 1 bag and 5 scatter-add
              launches a step
+11. checkpoints — the JAX package's layout (learn/checkpoint.py): (a)
+             NCF at MovieLens-1M width (Adam(1e-3), batch 8000, 2 epochs
+             of 12 steps) fit with set_checkpoint and SeveralIteration(5),
+             once plain and once with ZOO_FAULT_PLAN failing step 18 and
+             auto_resume=True (resumed from ckpt-15, 3 batches into its
+             epoch): parameters, optimizer state, step, step losses and
+             history bitwise equal; (b) save_model of the trained model,
+             InferenceModel(device="cuda").load of it predicts bitwise
+             what the live model predicts, and serves a burst through
+             ClusterServing; (c) the JAX package's checkpoints committed
+             in tests/data/jax_checkpoints load on the card and predict
+             within CKPT_JAX_ATOL of JAX's stored predictions (Seq2Seq:
+             the same greedy tokens); (d) the history-column NCF and the
+             BERT-Base classifier (all 12 blocks, one Adam step at 32 x
+             128) round-trip through save/load with bitwise equal
+             parameters, optimizer state and predictions (the BERT
+             predict of 32 x 512 through the flash kernel); (e) write
+             and read ms and MB of (a) and (d), host clock, beside the
+             card's name and power limit
 
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
@@ -139,8 +158,8 @@ F.embedding_bag and index_add_ as the one-call yardsticks.
 
 Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
-path; phase 9, the decode path; phase 10(b)-(d), the NCF training path)
-and read right after it: every kernel of the path must have launched
+path; phase 9, the decode path; phase 10(b)-(d), the NCF training path;
+phase 11, the checkpoint paths) and read right after it: every kernel of the path must have launched
 there. The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -298,6 +317,25 @@ REPLAYED = 20
 # (NCF) and 4.5e-7 (with the history column)
 NCF_STEP_LOSS_ATOL = 1e-5
 NCF_STEP_PARAM_ATOL = 1e-5
+# phase 11: checkpoints. (a) fits CKPT_EPOCHS epochs of CKPT_EPOCH_STEPS
+# steps with a snapshot every CKPT_EVERY steps; CKPT_FAULT fails a step
+# past the third snapshot
+CKPT_EPOCH_STEPS = 12
+CKPT_EPOCHS = 2
+CKPT_EVERY = 5
+CKPT_FAULT = "wedge@step:18"
+CKPT_RESUMED_FROM = 15
+# where phase 11 writes (inside the checkout, removed after)
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "phase11")
+# the checkpoints the JAX package wrote (dev/make_jax_checkpoints.py)
+JAX_CKPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "data", "jax_checkpoints")
+# (c): the card against JAX's CPU predictions, fp32 sums in other orders
+# (the NCF parity tests' limit)
+CKPT_JAX_ATOL = 1e-5
+# (e): write and read repeated, the median kept
+CKPT_IO_REPS = 3
 
 
 def log(msg: str):
@@ -2296,6 +2334,261 @@ def phase_fit(torch, np, config, x, y, hist, kind):
     return rep
 
 
+def dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def io_times(torch, write, read, path: str) -> dict:
+    """Median host ms of ``write(path)`` and ``read(path)`` (each ended by
+    a device sync) over CKPT_IO_REPS, and the MB written."""
+    import shutil
+    w, r = [], []
+    for _ in range(CKPT_IO_REPS):
+        shutil.rmtree(path, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write(path)
+        torch.cuda.synchronize()
+        w.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        read(path)
+        torch.cuda.synchronize()
+        r.append((time.perf_counter() - t0) * 1e3)
+    mb = dir_mb(path)
+    w_ms, r_ms = sorted(w)[len(w) // 2], sorted(r)[len(r) // 2]
+    return dict(mb=mb, write_ms=w_ms, read_ms=r_ms,
+                write_mb_per_s=mb / (w_ms / 1e3),
+                read_mb_per_s=mb / (r_ms / 1e3), write_all_ms=w,
+                read_all_ms=r)
+
+
+def same_state(torch, a, b) -> bool:
+    """Two estimators hold bitwise the same parameters, optimizer state
+    and step."""
+    if a._py_step != b._py_step or a._epoch != b._epoch:
+        return False
+    pa, pb = a.model.state_dict(), b.model.state_dict()
+    if any(not torch.equal(pa[k], pb[k]) for k in pa):
+        return False
+    sa, sb = a._opt_state, b._opt_state
+    return sa["count"] == sb["count"] and all(
+        torch.equal(x, y) for k in sa if k != "count"
+        for x, y in zip(sa[k], sb[k]))
+
+
+def ckpt_resume(torch, np, root, x, y, card):
+    """Phase 11(a): a plain and a faulted, auto-resumed fit end bitwise
+    alike. Returns (report, the plain run's NeuralCF)."""
+    from analytics_zoo_tpu_torch.common import resilience
+    from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.learn.trigger import SeveralIteration
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    rows = CKPT_EPOCH_STEPS * BATCH
+    runs = {}
+    for label in ("plain", "faulted"):
+        ncf = NeuralCF(**NCF)
+        seeded_weights(ncf.model.module, SEED)
+        ncf.compile(optimizer=Adam(NCF_LR),
+                    loss="sparse_categorical_crossentropy")
+        mdir = os.path.join(root, label)
+        ncf.set_checkpoint(mdir)
+        if label == "faulted":
+            os.environ["ZOO_FAULT_PLAN"] = CKPT_FAULT
+        resilience.reset_for_tests()
+        try:
+            t0 = time.perf_counter()
+            hist = ncf.fit(x[:rows], y[:rows], batch_size=BATCH,
+                           nb_epoch=CKPT_EPOCHS,
+                           checkpoint_trigger=SeveralIteration(CKPT_EVERY),
+                           auto_resume=label == "faulted")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            inj = resilience.get_injector()
+            arrivals = inj.counts().get("step", 0) if inj else None
+        finally:
+            os.environ.pop("ZOO_FAULT_PLAN", None)
+            resilience.reset_for_tests()
+        runs[label] = dict(ncf=ncf, hist=hist, fit_s=fit_s,
+                           arrivals=arrivals,
+                           versions=sorted(ckpt._list_versions(mdir)))
+    a, b = (runs[k]["ncf"].model.estimator for k in ("plain", "faulted"))
+    total = CKPT_EPOCHS * CKPT_EPOCH_STEPS
+    rep = dict(steps=a._py_step, versions=runs["plain"]["versions"],
+               faulted_versions=runs["faulted"]["versions"],
+               faulted_step_arrivals=runs["faulted"]["arrivals"],
+               plain_fit_s=runs["plain"]["fit_s"],
+               faulted_fit_s=runs["faulted"]["fit_s"],
+               bitwise=same_state(torch, a, b),
+               same_losses=a.step_losses == b.step_losses,
+               same_history=runs["plain"]["hist"] == runs["faulted"]["hist"])
+    # the fault struck at step 18, and the resume from ckpt-15 ran the
+    # last 9 steps once more: 18 + 9 arrivals
+    want_arrivals = int(CKPT_FAULT.split(":")[1]) + total - \
+        CKPT_RESUMED_FROM
+    log(f"checkpoints (a) NCF fit {total} steps with a snapshot every "
+        f"{CKPT_EVERY} on {card}: versions {rep['versions']}; faulted run "
+        f"({CKPT_FAULT}, auto_resume) {rep['faulted_step_arrivals']} step "
+        f"arrivals (want {want_arrivals}), bitwise equal state "
+        f"{rep['bitwise']}, step losses {rep['same_losses']}, history "
+        f"{rep['same_history']}; fit {rep['plain_fit_s']:.3f} s plain, "
+        f"{rep['faulted_fit_s']:.3f} s faulted (host clock)")
+    if not (rep["bitwise"] and rep["same_losses"] and rep["same_history"]
+            and a._py_step == total
+            and rep["faulted_step_arrivals"] == want_arrivals
+            and rep["versions"] == list(range(CKPT_EVERY, total + 1,
+                                              CKPT_EVERY))):
+        raise AssertionError(f"phase 11(a): {rep}")
+    return rep, runs["plain"]["ncf"]
+
+
+def ckpt_serve(np, ncf, root, x, serving_api, card):
+    """Phase 11(b): save_model, InferenceModel.load, predict bitwise equal
+    to the live model, a burst through ClusterServing."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import embedding_bag as eb
+    Broker, ClusterServing, InputQueue, OutputQueue = serving_api
+    path = os.path.join(root, "ncf_model")
+    ncf.save_model(path)
+    im = InferenceModel(device="cuda").load(path)
+    live = ncf.predict(x, batch_size=BATCH)
+    got = im.predict(x, batch_size=BATCH)
+    before = eb.launches.value
+    with Broker.launch(backend="python") as broker, \
+            ClusterServing(im, broker.port, batch_size=SERVE_BATCH):
+        iq = InputQueue(port=broker.port)
+        oq = OutputQueue(port=broker.port)
+        uris = iq.enqueue_batch((f"c{i}", {"x": x[i]})
+                                for i in range(N_BURST))
+        served = oq.query_many(uris, timeout=120, poll_interval=0.002)
+        iq.close()
+        oq.close()
+    launches = eb.launches.value - before
+    worst = max(float(np.abs(served[f"c{i}"] - got[i]).max())
+                for i in range(N_BURST))
+    rep = dict(bitwise=bool(np.array_equal(got, live)), served_max_abs_diff=worst,
+               serving_lookup_launches=launches)
+    log(f"checkpoints (b) save_model -> InferenceModel.load on {card}: "
+        f"predict bitwise equal to the live model {rep['bitwise']}; "
+        f"{N_BURST} records served, max |served - predict| {worst:.3g}, "
+        f"lookup launches while serving {launches}")
+    if not rep["bitwise"] or worst > SLICE_ATOL or launches <= 0:
+        raise AssertionError(f"phase 11(b): {rep}")
+    return rep
+
+
+def ckpt_jax_files(np, card):
+    """Phase 11(c): the JAX package's committed checkpoints on the card."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+
+    def arr(name):
+        return np.load(os.path.join(JAX_CKPTS, name + ".npy"))
+    ncf = InferenceModel(device="cuda").load(os.path.join(JAX_CKPTS, "ncf"))
+    ncf_diff = float(np.abs(ncf.predict(arr("ncf_x")) -
+                            arr("ncf_pred")).max())
+    s2s = InferenceModel(device="cuda").load(
+        os.path.join(JAX_CKPTS, "seq2seq"))
+    enc, dec, start = arr("seq2seq_enc"), arr("seq2seq_dec"), \
+        arr("seq2seq_start")
+    s2s_diff = float(np.abs(s2s.predict((enc, dec)) -
+                            arr("seq2seq_pred")).max())
+    greedy = s2s.generate(enc, start, arr("seq2seq_greedy").shape[1])
+    rep = dict(ncf_max_abs_diff=ncf_diff, seq2seq_max_abs_diff=s2s_diff,
+               greedy_equal=bool(np.array_equal(greedy,
+                                                arr("seq2seq_greedy"))))
+    log(f"checkpoints (c) the JAX package's files on {card}: NCF predict "
+        f"within {ncf_diff:.3g}, Seq2Seq within {s2s_diff:.3g} of JAX's "
+        f"(atol {CKPT_JAX_ATOL}); greedy tokens equal {rep['greedy_equal']}")
+    if max(ncf_diff, s2s_diff) > CKPT_JAX_ATOL or not rep["greedy_equal"]:
+        raise AssertionError(f"phase 11(c): {rep}")
+    return rep
+
+
+def ckpt_roundtrips(torch, np, root, x, y, hist, card):
+    """Phase 11(d)-(e): the history-column NCF and BERT-Base round trips,
+    with write and read times."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.text import BERTClassifier, BertConfig
+    rep = {}
+    # the history-column NCF: two steps, then save_weights / load_weights
+    nets = []
+    for _ in range(2):
+        net = train_model("hist")
+        net.compile(optimizer=Adam(NCF_LR),
+                    loss="sparse_categorical_crossentropy")
+        nets.append(net)
+    src, dst = nets
+    inputs = train_inputs_of("hist", x, hist, 0, 2 * BATCH)
+    src.fit(inputs, y[:2 * BATCH], batch_size=BATCH, nb_epoch=1)
+    io = io_times(torch, src.save_weights, dst.load_weights,
+                  os.path.join(root, "hist"))
+    probe = train_inputs_of("hist", x, hist, 0, BATCH)
+    io.update(state_bitwise=same_state(torch, src.estimator, dst.estimator),
+              predict_bitwise=bool(np.array_equal(
+                  src.predict(probe, batch_size=BATCH),
+                  dst.predict(probe, batch_size=BATCH))))
+    rep["hist"] = io
+    # BERT-Base: one Adam step at the fine-tuning shape, save, load into a
+    # classifier drawn from another seed
+    config = BertConfig(use_flash=True)
+    ids, labels = train_inputs(np.random.RandomState(SEED + 2), TRAIN_BATCH)
+    a = BERTClassifier(BERT_CLASSES, config=config, seq_len=TRAIN_LEN,
+                       seed=SEED)
+    a.fit(ids, labels, epochs=1, batch_size=TRAIN_BATCH)
+    b = BERTClassifier(BERT_CLASSES, config=config, seq_len=TRAIN_LEN,
+                       seed=SEED + 1)
+    io = io_times(torch, a.save, b.load, os.path.join(root, "bert"))
+    xb = bert_inputs(np.random.RandomState(SEED), BERT_BATCH)
+    sample = tuple(t[:BERT_CPU_ROWS] for t in xb)
+    ya = InferenceModel(device="cuda").load_torch(
+        a.estimator.model, sample).predict(xb, batch_size=BERT_BATCH)
+    yb = InferenceModel(device="cuda").load_torch(
+        b.estimator.model, sample).predict(xb, batch_size=BERT_BATCH)
+    io.update(state_bitwise=same_state(torch, a.estimator, b.estimator),
+              predict_bitwise=bool(np.array_equal(ya, yb)), blocks=config.n_block)
+    rep["bert"] = io
+    for name, r in rep.items():
+        log(f"checkpoints (d)/(e) {name} round trip on {card}: "
+            f"{r['mb']:.1f} MB, write {r['write_ms']:.1f} ms "
+            f"({r['write_mb_per_s']:.0f} MB/s), read {r['read_ms']:.1f} ms "
+            f"({r['read_mb_per_s']:.0f} MB/s) (host clock, median of "
+            f"{CKPT_IO_REPS}); state bitwise {r['state_bitwise']}, predict "
+            f"bitwise {r['predict_bitwise']}")
+        if not (r["state_bitwise"] and r["predict_bitwise"]):
+            raise AssertionError(f"phase 11(d) {name}: {r}")
+    del a, b
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_checkpoints(torch, np, x, y, hist, serving_api, card):
+    """Phase 11 (a)-(e); the directory it writes is removed after."""
+    import shutil
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    try:
+        rep = {}
+        rep["resume"], ncf = ckpt_resume(torch, np, CKPT_DIR, x, y, card)
+        rep["serve"] = ckpt_serve(np, ncf, CKPT_DIR, x[:BATCH],
+                                  serving_api, card)
+        rep["jax_files"] = ckpt_jax_files(np, card)
+        rep["roundtrips"] = ckpt_roundtrips(torch, np, CKPT_DIR, x, y, hist,
+                                            card)
+        rep["a_io"] = io_times(torch, ncf.model.estimator.save,
+                               ncf.model.estimator.load,
+                               os.path.join(CKPT_DIR, "ncf_io"))
+        log(f"checkpoints (e) NCF at MovieLens-1M width with Adam on "
+            f"{card}: {rep['a_io']['mb']:.2f} MB, write "
+            f"{rep['a_io']['write_ms']:.2f} ms, read "
+            f"{rep['a_io']['read_ms']:.2f} ms (host clock, median of "
+            f"{CKPT_IO_REPS})")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2486,10 +2779,22 @@ def main() -> int:
         if ncf_train_counts.get(name, 0) <= 0:
             raise AssertionError(f"the NCF training path launched no "
                                  f"{name}: {ncf_train_counts}")
+    # 11. checkpoints: every part is the path
+    _build.reset_launch_counts()
+    report["checkpoints"] = phase_checkpoints(
+        torch, np, x_tr, y_tr, hist_tr,
+        (Broker, ClusterServing, InputQueue, OutputQueue), card)
+    ckpt_counts = _build.launch_counts()
+    for name in ("fused_embedding_lookup", "embedding_bag",
+                 "embedding_scatter_add", "flash_attention_fwd"):
+        if ckpt_counts.get(name, 0) <= 0:
+            raise AssertionError(f"the checkpoint paths launched no {name}:"
+                                 f" {ckpt_counts}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
-                          "ncf_train": ncf_train_counts}
+                          "ncf_train": ncf_train_counts,
+                          "checkpoints": ckpt_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in

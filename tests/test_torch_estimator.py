@@ -20,13 +20,16 @@
   within the same tolerance; ``BERTClassifier`` (which passes the input
   mask, so its attention is the masked einsum chain in both packages)
   fits, evaluates and predicts like JAX's ``BERTClassifier``.
-- ``device=None`` raises without CUDA; strategies other than "dp" and
-  ``model_dir`` raise; dropout draws the same bits for the same seed and
-  leaves the caller's random state alone; ``save``/``load`` restore
-  training exactly.
+- ``device=None`` raises without CUDA; strategies other than "dp"
+  raise, ``model_dir`` snapshots; dropout draws the same bits for the
+  same seed and leaves the caller's random state alone; ``save``/``load``
+  write the JAX package's layout and restore training exactly (more in
+  tests/test_torch_checkpoint.py).
 
 JAX is imported by fixtures only.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -302,13 +305,17 @@ def test_device_none_raises_without_cuda(monkeypatch):
         BERTClassifier(2, config=BertConfig(**SMALL))
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Estimator.from_torch(model=MLP(), loss=LOSS, strategy="fsdp",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Estimator.from_torch(model=MLP(), loss=LOSS, model_dir="/nowhere",
-                             device="cpu")
+    # model_dir is ported: fit snapshots there (EveryEpoch by default)
+    est = Estimator.from_torch(model=MLP(), loss=LOSS, device="cpu",
+                               model_dir=str(tmp_path / "m"))
+    x, y = _mlp_data(32, 3)
+    est.fit((x, y), epochs=2, batch_size=16)
+    assert Estimator.latest_checkpoint(str(tmp_path / "m")).endswith(
+        "ckpt-4")
 
 
 def _dropout_classifier(seed=0):
@@ -343,6 +350,9 @@ def test_save_and_load_restore_training(tmp_path):
                              device="cpu")
     a.fit((x, y), epochs=1, batch_size=16)
     a.save(str(tmp_path / "ckpt"))
+    # the JAX package's layout: ckpt-<step>/state.msgpack + meta.json
+    assert sorted(os.listdir(tmp_path / "ckpt" / "ckpt-3")) == [
+        "meta.json", "state.msgpack"]
     b = Estimator.from_torch(model=MLP(), loss=LOSS, optimizer="adam",
                              device="cpu").load(str(tmp_path / "ckpt"))
     assert b._py_step == a._py_step == 3 and b._epoch == 1

@@ -11,6 +11,8 @@ one-hot sequences, which is exact only where no step has a near tie, so
 the test first checks that JAX's top-2 margin exceeds 1e-4 at every step.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -191,6 +193,10 @@ def test_seq2seq_save_load_and_fit(tmp_path):
     m = Seq2Seq(input_dim=3, output_dim=3, hidden_size=4, rnn_type="gru",
                 encoder_seq_len=2)
     m.save_model(str(tmp_path / "s2s"))
+    # the JAX package's layout: config.json + weights/ckpt-<step>/
+    assert sorted(os.listdir(tmp_path / "s2s")) == ["config.json",
+                                                    "weights"]
+    assert os.listdir(tmp_path / "s2s" / "weights") == ["ckpt-0"]
     back = Seq2Seq.load_model(str(tmp_path / "s2s"))
     for k, v in m.model.module.state_dict().items():
         assert torch.equal(v, back.model.module.state_dict()[k])

@@ -1,6 +1,8 @@
 """The port stands alone: importing analytics_zoo_tpu_torch (every
 module) loads no jax, flax or optax and nothing of analytics_zoo_tpu, and
-no source of the port or of chip_smoke.py imports them."""
+no source of the port or of chip_smoke.py imports them. Nor msgpack or
+ml_dtypes, which the card's machine lacks: the port writes and reads
+flax's checkpoint encoding itself (learn/checkpoint.py)."""
 
 import ast
 import json
@@ -14,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "analytics_zoo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu",
+             "msgpack", "ml_dtypes")
 
 
 def _forbidden(name: str) -> bool:
@@ -43,7 +46,9 @@ def test_importing_every_module_loads_no_jax():
                 "text.bert", "text.estimators", "text.hf_import",
                 "common.flax_compat", "ops.paged_attention",
                 "inference.generation", "inference.decode_scheduler",
-                "inference.quantize", "models.seq2seq.seq2seq"):
+                "inference.quantize", "models.seq2seq.seq2seq",
+                "learn.checkpoint", "learn.trigger", "common.resilience",
+                "common.context"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
