@@ -12,21 +12,26 @@ unless the caller passes ``device="cpu"``; without CUDA and without an
 explicit CPU device they raise.
 
 Subpackages ported so far (the NCF, BERT and Seq2Seq decode serving
-slices, BERT fine-tuning, NCF training):
+slices, BERT fine-tuning, NCF training, checkpoints, the keras training
+surface and the zoo models whose layers exist):
 
 - ``common``    — device resolution, the batch-bucket ladder, the flax
-  layers the models build on (``flax_compat``)
+  layers the models build on (``flax_compat``), the TensorBoard event
+  writer (``summary``), fault plans
 - ``ops``       — the fused embedding lookup, the multi-hot bag and their
   scatter-add backward, the flash-attention forward and backward, the
   paged gather and paged decode attention kernels and their build,
   attention
 - ``data``      — fixed-shape minibatches in the JAX package's order,
   XShards and DataFrames
-- ``learn``     — ``Estimator.from_torch``, losses, metrics, optimizers
-- ``keras``     — graph engine, the layers NCF, BERT and Seq2Seq use,
-  ``Embedding``, ``Model``/``Sequential`` with ``compile``/``fit``/
-  ``evaluate``/``predict``
-- ``models``    — ``ZooModel``, ``NeuralCF`` and ``Seq2Seq``
+- ``learn``     — ``Estimator.from_torch``, losses, metrics, optimizers,
+  checkpoints and triggers, the training summaries
+- ``keras``     — graph engine, the layers NCF, BERT, Seq2Seq and the
+  zoo models use, ``Embedding``, the weight regularizers,
+  ``Model``/``Sequential`` with ``compile``/``fit``/``evaluate``/
+  ``predict``/``summary``/``set_tensorboard``
+- ``models``    — ``ZooModel``, ``NeuralCF``, ``WideAndDeep``,
+  ``SessionRecommender``, ``AnomalyDetector`` and ``Seq2Seq``
 - ``text``      — BERT, the GPT-style transformer, the task heads,
   ``BERTClassifier``, the HuggingFace weight import
 - ``inference`` — ``InferenceModel`` (predict and decode), generation,

@@ -27,7 +27,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def as_tensor(a, device: torch.device) -> torch.Tensor:
     """One model input as a tensor on ``device``. float64 arrays become
-    float32, as JAX (without x64) treats them."""
+    float32, as JAX (without x64) treats them; a tensor is moved as it is
+    (float64 cast likewise)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.float32 if a.dtype == torch.float64
+                    else a.dtype)
     arr = np.ascontiguousarray(a)
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)

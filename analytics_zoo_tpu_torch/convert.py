@@ -104,7 +104,7 @@ def state_dict_to_flax(state_dict: Mapping, like: Mapping, prefix: str = ""
     return out
 
 
-def _flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
+def flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
                  ) -> Optional[Dict[str, tuple]]:
     """``{flax leaf: (torch leaf, flax shape)}`` of the parameters a
     module owns directly, or None when it follows no flax rule."""
@@ -162,7 +162,7 @@ def flax_layout(module: nn.Module) -> Optional[Dict]:
         direct = dict(mod.named_parameters(recurse=False))
         if not direct:
             continue
-        leaves = _flax_leaves(mod, direct)
+        leaves = flax_leaves(mod, direct)
         if leaves is None:
             return None
         node = tree

@@ -31,7 +31,8 @@ from analytics_zoo_tpu_torch.keras.engine import Node, flax_autoname
 
 class KerasLayer(_KerasLayerBase):
     """Layer base that records ``input_shape`` (used when a layer opens a
-    Sequential) and snapshots the dtype policy at construction."""
+    Sequential), snapshots the dtype policy at construction and holds the
+    layer's weight regularizers."""
 
     def __init__(self, name=None, input_shape=None):
         super().__init__(name)
@@ -39,6 +40,27 @@ class KerasLayer(_KerasLayerBase):
             else None
         from analytics_zoo_tpu_torch.keras import policy as _policy
         self.compute_dtype = _policy.compute_dtype()
+        # flax leaf name ("kernel"/"bias") -> regularizer; the model adds
+        # them up into one penalty on the training loss (ref BigDL
+        # wRegularizer/bRegularizer on every layer)
+        self.param_regularizers = {}
+
+    def _set_regularizers(self, W_regularizer=None, b_regularizer=None):
+        from analytics_zoo_tpu_torch.keras import regularizers as reg_lib
+        if W_regularizer is not None:
+            self.param_regularizers["kernel"] = reg_lib.get(W_regularizer)
+        if b_regularizer is not None:
+            self.param_regularizers["bias"] = reg_lib.get(b_regularizer)
+
+    def penalty(self, lparams):
+        """The regularization penalty of this layer's parameters, given as
+        ``{flax leaf name: tensor}``. A kernel enters in the torch layout:
+        Σ|w| and Σw² do not depend on it."""
+        total = 0.0
+        for key, reg in self.param_regularizers.items():
+            if key in lparams:
+                total += reg(lparams[key])
+        return total
 
 
 # ---------------- activations (flax semantics) ----------------
@@ -107,14 +129,11 @@ class Dense(KerasLayer):
                  W_regularizer=None, b_regularizer=None, input_shape=None,
                  name=None):
         super().__init__(name, input_shape)
-        if W_regularizer is not None or b_regularizer is not None:
-            raise NotImplementedError(
-                "parameter penalties (keras/regularizers.py) are not ported "
-                "yet (ROADMAP A5)")
         self.output_dim = int(output_dim)
         self.activation = get_activation(activation)
         self.init = get_init(init)
         self.bias = bias
+        self._set_regularizers(W_regularizer, b_regularizer)
 
     def make_modules(self, in_shapes, generator):
         from analytics_zoo_tpu_torch.common import flax_compat
@@ -174,9 +193,12 @@ class Flatten(KerasLayer):
 
 class Lambda(KerasLayer):
     """Wrap an arbitrary torch function (ref autograd.py Lambda:393).
-    ``output_shape`` (without the batch dimension) is the port's addition:
-    a layer after it that owns parameters needs its input width when the
-    modules are built, and the function cannot say."""
+    A layer after it that owns parameters needs its input width when the
+    modules are built: the output shape is found by calling the function
+    once on meta tensors (a batch of 2, no data), or given as
+    ``output_shape`` (without the batch dimension, the port's addition)
+    where that cannot work (an input of unknown length, a function that
+    leaves torch)."""
 
     def __init__(self, function: Callable, output_shape=None,
                  input_shape=None, name=None):
@@ -189,7 +211,17 @@ class Lambda(KerasLayer):
         return self.function(*args)
 
     def _infer_shape(self, in_shapes):
-        return self.output_shape
+        if self.output_shape is not None:
+            return self.output_shape
+        if any(s is None or None in s for s in in_shapes):
+            return None
+        try:
+            out = self.function(*[torch.empty((2,) + tuple(s), device="meta")
+                                  for s in in_shapes])
+        except Exception:
+            return None
+        return tuple(out.shape[1:]) if isinstance(out, torch.Tensor) \
+            else None
 
 
 # ---------------- embeddings ----------------

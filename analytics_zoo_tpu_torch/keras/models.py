@@ -12,6 +12,11 @@ the device (``cuda`` unless ``device="cpu"``), and ``fit`` / ``evaluate``
 / ``predict`` run there. The estimator trains the model's own module, so
 weights loaded before ``compile`` (or a second ``compile``) are kept.
 
+The layers' weight regularizers (``Dense(W_regularizer=...)``) add up
+into one penalty on the training loss (``_param_penalty_fn``);
+``set_tensorboard`` names where the estimator writes its summaries;
+``summary()`` prints the JAX package's table, name for name.
+
 Persistence is the JAX package's: ``save_weights``/``load_weights`` go
 through the estimator's ``save``/``load`` (``<path>/ckpt-<step>/``, flax's
 tree, learn/checkpoint.py), so weights written by either package load in
@@ -33,11 +38,10 @@ import torch
 
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
+from analytics_zoo_tpu_torch.convert import (flatten, flax_layout,
+                                             flax_leaves, nest)
 from analytics_zoo_tpu_torch.keras.engine import (GraphModule, Input,
                                                   KerasLayer, Node, topo_sort)
-
-#: what the port leaves out of KerasNet, and the ROADMAP item it waits on
-_NOT_PORTED = "is not ported yet (ROADMAP A5)"
 
 
 def _registry_names():
@@ -91,6 +95,7 @@ class KerasNet:
         self._compile_args: Optional[dict] = None
         self._strategy = "dp"
         self.model_dir: Optional[str] = None
+        self._tensorboard: Optional[Tuple[str, str]] = None
 
     # -- to be provided by subclass --
     def _graph(self) -> Tuple[List[Node], List[Node]]:
@@ -202,8 +207,49 @@ class KerasNet:
             self._estimator = TorchEstimator(
                 self.module, loss=args["loss"], optimizer=args["optimizer"],
                 metrics=args["metrics"], model_dir=self.model_dir,
-                strategy=self._strategy, device=args["device"])
+                strategy=self._strategy, device=args["device"],
+                param_penalty=self._param_penalty_fn())
+            # (a model pickled before set_tensorboard existed has no
+            # _tensorboard)
+            if getattr(self, "_tensorboard", None) is not None:
+                self._estimator.set_tensorboard(*self._tensorboard)
         return self._estimator
+
+    def _param_penalty_fn(self):
+        """The layers' W/b regularizers as one ``{parameter name: tensor}
+        -> scalar`` penalty for the train step, summed layer by layer in
+        topological order as the JAX package sums them (its
+        keras/models.py ``_param_penalty_fn``); None when no layer
+        regularizes."""
+        module = self.module
+        pairs, seen = [], set()
+        for node in module.order:
+            layer = node.layer
+            if layer is None or id(layer) in seen:
+                continue
+            seen.add(id(layer))
+            if not getattr(layer, "param_regularizers", None):
+                continue
+            # flax leaf -> torch parameter name, over the layer's modules
+            names = {}
+            for key in module._layer_keys.get(layer.name, ()):
+                mod = module._modules[key]
+                direct = dict(mod.named_parameters(recurse=False))
+                for fleaf, (tleaf, _) in (flax_leaves(mod, direct)
+                                          or {}).items():
+                    names[fleaf] = f"{key}.{tleaf}"
+            pairs.append((layer, names))
+        if not pairs:
+            return None
+
+        def penalty(params):
+            total = 0.0
+            for layer, names in pairs:
+                total += layer.penalty({f: params[n] for f, n in names.items()
+                                        if n in params})
+            return total
+
+        return penalty
 
     def _weights_estimator(self):
         """The estimator ``save_weights``/``load_weights`` go through: the
@@ -232,7 +278,12 @@ class KerasNet:
         self._ensure_estimator().set_l2_norm_gradient_clipping(clip_norm)
 
     def set_tensorboard(self, log_dir: str, app_name: str):
-        raise NotImplementedError(f"set_tensorboard {_NOT_PORTED}")
+        """Write the training and validation summaries under
+        ``<log_dir>/<app_name>/{train,validation}`` (kept across a later
+        ``compile``)."""
+        self._tensorboard = (log_dir, app_name)
+        if self._estimator is not None:
+            self._estimator.set_tensorboard(log_dir, app_name)
 
     def set_checkpoint(self, path: str):
         """Snapshot into ``path`` during ``fit`` (the estimator's
@@ -353,8 +404,27 @@ class KerasNet:
         state["_module"] = None
         return state
 
-    def summary(self):
-        raise NotImplementedError(f"summary {_NOT_PORTED}")
+    def summary(self) -> str:
+        """(ref Topology.scala summary) Prints and returns the parameter
+        count of each top-level name of the flax tree and the total: the
+        JAX package's text for the same model."""
+        module = self.module
+        tree = flax_layout(module)
+        if tree is None:
+            tree = nest({n: p for n, p in module.named_parameters()})
+        total = 0
+        lines = ["_" * 64, f"{'Layer (type)':<34}{'Param #':>12}", "=" * 64]
+        for name, sub in tree.items():
+            leaves = [sub] if isinstance(sub, torch.Tensor) else \
+                flatten(sub).values()
+            n = sum(int(np.prod(t.shape)) for t in leaves)
+            total += n
+            lines.append(f"{name:<34}{n:>12,}")
+        lines.append("=" * 64)
+        lines.append(f"Total params: {total:,}")
+        text = "\n".join(lines)
+        print(text)
+        return text
 
 
 class Sequential(KerasNet):

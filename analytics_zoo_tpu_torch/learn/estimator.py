@@ -10,7 +10,9 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
 - **The step** follows ``step_fn``: the module's forward with
   ``train=True`` when its ``forward`` takes ``train`` (and
   ``module.train()`` for layers that read it), the mean of the
-  per-sample loss, its gradients, clipping, the optimizer's update.
+  per-sample loss plus ``param_penalty`` of the parameters (the keras
+  regularizers; the reported loss includes it, as JAX's does), its
+  gradients, clipping, the optimizer's update.
   Dropout draws from the device's generator seeded from ``seed`` and the
   step, inside ``torch.random.fork_rng`` so the caller's streams are left
   as they were (the bits differ from JAX's).
@@ -22,6 +24,14 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   in the JAX package's order (``data/dataset.py``) and returns the mean
   loss of each epoch. Step losses stay on the device and are read back
   once per ``summary_interval`` steps, never once per step.
+- **Summaries** are the JAX package's TensorBoard events
+  (common/summary.py): at each read-back window ``Loss`` (the last step
+  read), ``Throughput`` (samples/s over the window, host clock) and
+  ``LearningRate`` at the step count, and after each epoch with
+  validation data every validation metric, under ``set_tensorboard``'s
+  ``<log_dir>/<app_name>/{train,validation}``, else ``<model_dir>/...``
+  or ``./zoo_tpu_logs/...``. The writer sees only the values the window
+  already read back.
 - **evaluate** pads the final batch and masks the padded rows out of the
   loss and the metrics; **predict** runs in ``torch.inference_mode()`` and
   drops the padded rows.
@@ -43,7 +53,8 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
 
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
 (ROADMAP A9); ``steps_per_loop``, ``cache="device"`` and ``profile``
-(ROADMAP A3); TensorBoard writers (ROADMAP A10).
+(ROADMAP A3); the telemetry registry the JAX package mirrors the
+summaries into (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import inspect
 import itertools
 import logging
 import os
+import time
 import warnings
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -63,6 +75,7 @@ from torch import nn
 from analytics_zoo_tpu_torch.common import resilience
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
+from analytics_zoo_tpu_torch.common.summary import SummaryWriter
 from analytics_zoo_tpu_torch.convert import ParamLayout, flatten, nest
 from analytics_zoo_tpu_torch.data.dataset import (ShardedDataset,
                                                   to_sharded_dataset,
@@ -76,6 +89,9 @@ from analytics_zoo_tpu_torch.learn.trigger import EveryEpoch, MaxScore, Trigger
 from analytics_zoo_tpu_torch.learn.trigger import fire as _fire_trigger
 
 logger = logging.getLogger(__name__)
+
+#: where the summaries go without ``set_tensorboard`` or ``model_dir``
+DEFAULT_LOG_DIR = os.path.join(".", "zoo_tpu_logs")
 
 
 def _trigger_needs_score(trigger) -> bool:
@@ -131,7 +147,8 @@ class TorchEstimator:
 
     def __init__(self, model: nn.Module, loss, optimizer="adam",
                  metrics=None, model_dir: Optional[str] = None,
-                 strategy="dp", seed: int = 0, device: DeviceLike = None):
+                 strategy="dp", seed: int = 0, device: DeviceLike = None,
+                 param_penalty=None):
         if strategy not in (None, "dp"):
             raise NotImplementedError(
                 f"strategy {strategy!r}: the port trains on one device; "
@@ -143,6 +160,11 @@ class TorchEstimator:
         self.metrics = [metric_lib.get(m) for m in (metrics or [])]
         self.seed = int(seed)
         self.model_dir = model_dir
+        #: ``{parameter name: tensor} -> scalar`` added to the loss
+        self.param_penalty = param_penalty
+        self._tb_dirs = None
+        self._train_writer: Optional[SummaryWriter] = None
+        self._val_writer: Optional[SummaryWriter] = None
         # ref Topology.scala:1256 bigdl.failure.retryTimes
         self.failure_retry_times = 5
         #: every step's loss, read back once per summary window
@@ -202,8 +224,10 @@ class TorchEstimator:
         kwargs = {"train": train} if self._takes_train else {}
         return self.model(*args, **kwargs)
 
-    def _train_step(self, x, y) -> torch.Tensor:
-        state = self._ensure_opt_state()
+    def _loss_and_grads(self, x, y):
+        """One batch's loss (the penalty included) and the gradient of
+        each trainable parameter, from the forward with ``train=True``
+        under the step's dropout seed."""
         x, y = self._tensors(x), self._tensors(y)
         cuda = self.device.type == "cuda"
         devices = [self.device.index if self.device.index is not None
@@ -216,14 +240,59 @@ class TorchEstimator:
                     torch.cuda.manual_seed(step_seed)
             preds = self._forward(x, train=True)
         loss = self.loss_fn(y, preds).mean()
+        if self.param_penalty is not None:
+            loss = loss + self.param_penalty(dict(zip(self._names,
+                                                      self._params)))
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._params, grads)]
+        return loss.detach(), grads
+
+    def _train_step(self, x, y) -> torch.Tensor:
+        state = self._ensure_opt_state()
+        loss, grads = self._loss_and_grads(x, y)
         with torch.no_grad():
             self.optimizer.step(self._params, self._clip(grads), state,
                                 state["count"])
         state["count"] += 1
-        return loss.detach()
+        return loss
+
+    # ------------- summaries (ref estimator.py:167-220) ----------------
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Write the summaries under ``<log_dir>/<app_name>/train`` and
+        ``.../validation`` from now on."""
+        self._tb_dirs = (os.path.join(log_dir, app_name, "train"),
+                         os.path.join(log_dir, app_name, "validation"))
+        if self._train_writer is not None:
+            self._train_writer.close()
+            self._val_writer.close()
+            self._train_writer = self._val_writer = None
+
+    def _writers(self):
+        if self._train_writer is None:
+            if self._tb_dirs is None:
+                base = self.model_dir or DEFAULT_LOG_DIR
+                self._tb_dirs = (os.path.join(base, "train"),
+                                 os.path.join(base, "validation"))
+            self._train_writer = SummaryWriter(self._tb_dirs[0])
+            self._val_writer = SummaryWriter(self._tb_dirs[1])
+        return self._train_writer, self._val_writer
+
+    def get_train_summary(self, tag: str):
+        """``[(step, value)]`` of a training scalar ("Loss",
+        "Throughput", "LearningRate"; ref Topology.scala:208-240)."""
+        return self._train_writer.get_scalar(tag) if self._train_writer \
+            else []
+
+    def get_validation_summary(self, tag: str):
+        """``[(step, value)]`` of a validation metric ("loss",
+        "accuracy", ...)."""
+        return self._val_writer.get_scalar(tag) if self._val_writer else []
+
+    def _current_lr(self, step: int) -> Optional[float]:
+        """The optimizer's rate at ``step``, where it has one."""
+        lr = getattr(self.optimizer, "_lr", None)
+        return None if lr is None else float(lr(step))
 
     # ------------- public API --------------------------------------------
     def _dataset(self, data, feature_cols, label_cols) -> ShardedDataset:
@@ -268,6 +337,7 @@ class TorchEstimator:
                 "validation_data: the trigger can never fire and no "
                 "checkpoints will be written")
         trigger = checkpoint_trigger if self.model_dir else None
+        train_writer, val_writer = self._writers()
         history: Dict[str, List[float]] = {"loss": []}
         target = self._epoch + epochs
         start = (self._py_step, self._epoch, len(self.step_losses),
@@ -277,7 +347,7 @@ class TorchEstimator:
             try:
                 epoch_loss = self._run_epoch(
                     ds, batch_size, shuffle, max(1, int(summary_interval)),
-                    trigger, skip)
+                    trigger, train_writer, skip)
             except Exception as e:
                 # retry from the newest snapshot (ref Topology.scala:1255)
                 retries += 1
@@ -308,10 +378,13 @@ class TorchEstimator:
                 val_score = self.evaluate(val_ds, batch_size)
                 for k, v in val_score.items():
                     history.setdefault("val_" + k, []).append(v)
+                    val_writer.add_scalar(k, v, self._py_step)
             if trigger is not None and _fire_trigger(
                     trigger, self._epoch, self._py_step, epoch_loss,
                     val_score):
                 self._save_snapshot()
+        train_writer.flush()
+        val_writer.flush()
         return history
 
     def _resume_point(self, start, history) -> int:
@@ -332,18 +405,32 @@ class TorchEstimator:
 
     def _run_epoch(self, ds: ShardedDataset, batch_size: int, shuffle: bool,
                    summary_interval: int, trigger: Optional[Trigger],
-                   skip: int = 0) -> float:
+                   writer: SummaryWriter, skip: int = 0) -> float:
         """One epoch from its ``skip``-th batch; the mean loss of all its
         steps (those before ``skip`` are the last ``skip`` read back)."""
         start = len(self.step_losses) - skip
         pending: List[torch.Tensor] = []
+        t_window = time.perf_counter()
 
         def flush():
-            # one read-back per window of step losses
-            if pending:
-                self.step_losses.extend(
-                    torch.stack(pending).double().cpu().tolist())
-                pending.clear()
+            # one read-back per window of step losses, and the window's
+            # summaries from what it read (JAX's flush_window)
+            nonlocal t_window
+            if not pending:
+                return
+            vals = torch.stack(pending).double().cpu().tolist()
+            self.step_losses.extend(vals)
+            step = self._py_step
+            writer.add_scalar("Loss", vals[-1], step)
+            dt = time.perf_counter() - t_window
+            writer.add_scalar("Throughput",
+                              len(pending) * batch_size / max(dt, 1e-9),
+                              step)
+            lr = self._current_lr(step)
+            if lr is not None:
+                writer.add_scalar("LearningRate", lr, step)
+            t_window = time.perf_counter()
+            pending.clear()
 
         self.model.train(True)
         batches = ds.iter_batches(batch_size, shuffle, seed=self.seed,

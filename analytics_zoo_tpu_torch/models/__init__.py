@@ -1,8 +1,13 @@
 """Model zoo (ref ``zoo/.../models/`` + ``pyzoo/zoo/models/``): the
 models ported so far."""
 
+from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.common import ZooModel, registry
-from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+from analytics_zoo_tpu_torch.models.recommendation import (
+    ColumnFeatureInfo, NeuralCF, SessionRecommender, WideAndDeep,
+)
 from analytics_zoo_tpu_torch.models.seq2seq import Seq2Seq
 
-__all__ = ["ZooModel", "registry", "NeuralCF", "Seq2Seq"]
+__all__ = ["ZooModel", "registry", "NeuralCF", "WideAndDeep",
+           "ColumnFeatureInfo", "SessionRecommender", "AnomalyDetector",
+           "Seq2Seq"]

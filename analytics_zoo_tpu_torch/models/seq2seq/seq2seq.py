@@ -5,11 +5,10 @@ Counterpart of ``analytics_zoo_tpu/models/seq2seq/seq2seq.py`` (ref Scala
 names: a multi-layer LSTM/GRU encoder, a dense ``bridge`` carrying its
 last output into the decoder, a decoder that sees its teacher-forced input
 concatenated with the bridged context at every step, and a
-``TimeDistributed`` Dense head. ``predict`` runs ``[encoder_input,
-decoder_input]``; ``infer`` generates autoregressively through
-inference/generation.py. ``fit`` is not ported yet (ROADMAP A5): the
-keras training engine exists, its parity through the recurrent layers is
-not tested.
+``TimeDistributed`` Dense head. ``fit`` trains teacher-forced on
+``[encoder_input, decoder_input]`` and the targets, ``predict`` runs the
+pair; ``infer`` generates autoregressively through
+inference/generation.py.
 """
 
 from __future__ import annotations
@@ -75,8 +74,10 @@ class Seq2Seq(ZooModel):
         return Model(input=[enc_in, dec_in], output=out)
 
     def fit(self, x, y=None, **kwargs):
-        raise NotImplementedError(
-            "Seq2Seq.fit is not ported yet (ROADMAP A5)")
+        """``x``: the ``[enc_input, dec_input]`` pair (teacher forcing),
+        ``y``: the targets; ``kwargs`` as ``KerasNet.fit`` takes them."""
+        return self.model.fit(
+            tuple(x) if isinstance(x, (list, tuple)) else x, y, **kwargs)
 
     def predict(self, x, **kwargs):
         """``x``: the ``[enc_input, dec_input]`` pair; ``kwargs`` as

@@ -120,6 +120,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and read ms and MB of (a) and (d), host clock, beside the
              card's name and power limit
 
+12. zoo models — the keras training surface: (a) Wide&Deep wide_n_deep at
+             bench.py's measure_widedeep_train width (WND_DIMS, batch
+             1024, Adam, its data from numpy seed 4): the lookup and the
+             scatter-add at its tables (8 and 64 wide) bitwise against
+             their plain versions; one step card against CPU (loss and
+             every parameter within WND_ATOL, both tables moved); with
+             set_tensorboard on, a warm-up fit of one step, then a fit of
+             WND_STEPS steps (1 lookup and 2 scatter launches a step, the
+             Loss, Throughput and LearningRate events read back at the
+             flush steps, its ms a step), then bench.py's step window
+             (widedeep_train_step_ms and _samples_per_sec: the batch on
+             the card, STEP_WARMUP steps, STEP_WINDOW timed, host clock);
+             predict against the CPU and save_model ->
+             InferenceModel.load -> predict bitwise; the wide and deep
+             variants one step (against the CPU) and one predict each;
+             (b) SessionRecommender at MovieLens-1M's 3706 items (session
+             and history 8, batch 1024): one step against the CPU at the
+             CPU test's limits, a short fit, recommend_for_session's top
+             SR_TOPK equal to the CPU's; (c) AnomalyDetector (8, 32, 15):
+             one step with dropouts 0 against the CPU, a fit with
+             dropouts 0.2 whose loss falls, detect_anomalies finding the
+             spikes put into the targets; (d) Seq2Seq.fit at the decode
+             configuration: one step against the CPU, a short fit, greedy
+             infer bitwise the exact-length loop and generate; each of
+             (a)-(d) also holds one batch's gradients on the card against
+             the CPU's (each leaf within ZOO_GRAD_RTOL of its largest),
+             and times its step in the step window; (e) a regularized
+             Sequential's loss, penalty included, equal to the CPU's
+             within WND_ATOL, its gradients as (a)-(d)'s; (f) the JAX
+             package's committed Wide&Deep predicts within CKPT_JAX_ATOL of
+             JAX. It writes under build/phase12/ and removes it.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -159,7 +191,8 @@ F.embedding_bag and index_add_ as the one-call yardsticks.
 Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
 path; phase 9, the decode path; phase 10(b)-(d), the NCF training path;
-phase 11, the checkpoint paths) and read right after it: every kernel of the path must have launched
+phase 11, the checkpoint paths; phase 12 from (a)'s warm-up step, the
+zoo paths) and read right after it: every kernel of the path must have launched
 there. The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -336,6 +369,59 @@ JAX_CKPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CKPT_JAX_ATOL = 1e-5
 # (e): write and read repeated, the median kept
 CKPT_IO_REPS = 3
+# phase 12: the keras training surface and the zoo models. (a) is bench.py's
+# measure_widedeep_train (WND_DIMS, batch 1024, Adam, sparse CE, 2
+# classes; its data from numpy seed 4), its one batch tiled for the fit's
+# WND_STEPS steps as bench.py steps one batch
+WND_DIMS = dict(wide_base=(16, 100), wide_cross=(1000,), indicator=(9, 6),
+                embed_in=(16, 1000), embed_out=(8, 64), n_continuous=2)
+WND_BATCH = 1024
+WND_STEPS = 50
+WND_SUMMARY_EVERY = 10
+# each model's step time as bench.py's _measure_step_time takes it: the
+# batch on the card once, STEP_WARMUP steps, then STEP_WINDOW steps on the
+# host clock between two syncs (the window as long as NCF's fit, phase 10)
+STEP_WARMUP = 2
+STEP_WINDOW = 50
+# one Adam step card against CPU (loss, every parameter) and predict: the
+# NCF step's limit (phase 10(a))
+WND_ATOL = 1e-5
+# (b) SessionRecommender at MovieLens-1M's item width, bench.py's
+# RECSYS_SEQ session length, with an 8-item history; (c) AnomalyDetector's
+# default layers over windows of AD_WINDOW; (d) bench.py's measure_decode
+# Seq2Seq (DECODE); (e) a regularized Sequential
+SR = dict(item_count=3706, item_embed=20, rnn_hidden_layers=(40, 20),
+          session_length=8, include_history=True, mlp_hidden_layers=(40, 20),
+          history_length=8)
+ZOO_BATCH = 1024
+ZOO_FIT_STEPS = 4
+SR_TOPK = 5
+SR_ROWS_RECOMMENDED = 256
+AD_WINDOW = 24
+AD_ANOMALIES = (100, 1700, 3300)
+S2S_BATCH = 256
+REG_WIDTHS = (256, 128, 10)
+# (b)-(e) card against CPU: the CPU tests' limits
+# (tests/test_torch_{zoo_models,recurrent_train,keras_surface}.py): the
+# loss within rtol ZOO_LOSS_RTOL; after one Adam step every parameter
+# within ZOO_PARAM_ATOL in all but ZOO_PARAM_SHARE of each leaf and
+# within 2 lr everywhere; predictions within ZOO_PRED_ATOL
+ZOO_LOSS_RTOL = 1e-5
+ZOO_PARAM_ATOL = 1e-5
+ZOO_PARAM_SHARE = 1e-2
+ZOO_PRED_ATOL = 1e-5
+ZOO_LR = 1e-3
+# every model of phase 12: one batch's gradients on the card against the
+# CPU's from the same weights, each leaf within ZOO_GRAD_RTOL of its
+# largest |gradient| (Adam's first step shows only each gradient's sign).
+# Measured on the H100: 1.46e-6 at worst (SessionRecommender's second
+# GRU, back-propagated through 8 steps of batch 1024, sums in cuBLAS's
+# order), 5.3e-7 or less in every other model; a gradient scaled or with
+# elements flipped is off by its whole size
+ZOO_GRAD_RTOL = 5e-6
+# where phase 12 writes (inside the checkout, removed after)
+ZOO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "phase12")
 
 
 def log(msg: str):
@@ -2589,6 +2675,525 @@ def phase_checkpoints(torch, np, x, y, hist, serving_api, card):
     return rep
 
 
+def wnd_info():
+    """bench.py's Wide&Deep column set (WND_DIMS)."""
+    from analytics_zoo_tpu_torch.models import ColumnFeatureInfo
+    d = WND_DIMS
+    return ColumnFeatureInfo(
+        wide_base_cols=[f"wb{i}" for i in range(len(d["wide_base"]))],
+        wide_base_dims=list(d["wide_base"]),
+        wide_cross_cols=[f"wc{i}" for i in range(len(d["wide_cross"]))],
+        wide_cross_dims=list(d["wide_cross"]),
+        indicator_cols=[f"ind{i}" for i in range(len(d["indicator"]))],
+        indicator_dims=list(d["indicator"]),
+        embed_cols=[f"em{i}" for i in range(len(d["embed_in"]))],
+        embed_in_dims=list(d["embed_in"]),
+        embed_out_dims=list(d["embed_out"]),
+        continuous_cols=[f"con{i}" for i in range(d["n_continuous"])])
+
+
+def wnd_data(np):
+    """bench.py's Wide&Deep batch (measure_widedeep_train, seed 4):
+    ``([wide, indicator, embed, continuous], y)``."""
+    d = WND_DIMS
+    rng = np.random.default_rng(4)
+    b = WND_BATCH
+    wide = (rng.random((b, sum(d["wide_base"]) + sum(d["wide_cross"])))
+            < 0.05).astype(np.float32)
+    ind = (rng.random((b, sum(d["indicator"]))) < 0.2).astype(np.float32)
+    emb = np.stack([rng.integers(0, n, b) for n in d["embed_in"]],
+                   1).astype(np.float32)
+    con = rng.standard_normal((b, d["n_continuous"])).astype(np.float32)
+    y = rng.integers(0, 2, b).astype(np.int32)
+    return [wide, ind, emb, con], y
+
+
+def seeded_zoo(make):
+    """A fresh zoo model from ``make()`` with weights from the numpy
+    seed."""
+    m = make()
+    seeded_weights(m.model.module, SEED)
+    return m
+
+
+def adam_reading(np, cpu, card):
+    """(largest |card - cpu| over every parameter, the largest share of a
+    leaf's elements past ZOO_PARAM_ATOL)."""
+    worst = max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu)
+    share = max(float(np.mean(np.abs(card[k] - cpu[k]) > ZOO_PARAM_ATOL))
+                for k in cpu)
+    return worst, share
+
+
+def card_cpu_grads(np, make_net, x, y, loss, what):
+    """One batch's gradients through the estimator's loss (the penalty
+    included) on the card and on the CPU, each from a fresh
+    ``make_net()`` (a keras net with weights from the numpy seed): every
+    leaf within ZOO_GRAD_RTOL of its largest |gradient| on the CPU."""
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        net = make_net()
+        net.compile(optimizer="sgd", loss=loss, device=dev)
+        est = net.estimator
+        _, g = est._loss_and_grads(x, y)
+        grads[dev] = {n: t.cpu().numpy() for n, t in zip(est._names, g)}
+    rel = {}
+    for n, want in grads["cpu"].items():
+        scale = float(np.abs(want).max())
+        diff = float(np.abs(grads["cuda"][n] - want).max())
+        rel[n] = diff / scale if scale > 0 else diff
+    worst = max(rel, key=rel.get)
+    rep = dict(grad_max_rel_diff=rel[worst], grad_worst_leaf=worst,
+               grad_leaves=len(rel))
+    log(f"  {what}: one batch's gradients on the card vs the CPU: each of "
+        f"{len(rel)} leaves within {rel[worst]:.3g} of its largest "
+        f"|gradient| (worst {worst}; limit {ZOO_GRAD_RTOL})")
+    if rel[worst] > ZOO_GRAD_RTOL:
+        raise AssertionError(f"{what} gradients, card vs CPU: {rel}")
+    return rep
+
+
+def step_window(torch, net, x, y) -> float:
+    """ms a training step of the compiled keras ``net`` on the card, as
+    bench.py's _measure_step_time takes it: the batch on the card once,
+    STEP_WARMUP steps, then STEP_WINDOW steps on the host clock between
+    two syncs (no data feed, no read-back, no summaries)."""
+    est = net.estimator
+    xs, ys = est._tensors(x), est._tensors(y)
+    for _ in range(STEP_WARMUP):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEP_WINDOW):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / STEP_WINDOW * 1e3
+
+
+def card_cpu_step(np, make, x, y, loss, what, strict):
+    """One Adam step through compile/fit on the card and on the CPU from
+    the same weights and batch. ``strict``: the loss and every parameter
+    within WND_ATOL (Wide&Deep); else the CPU tests' limits. Then the
+    batch's gradients (card_cpu_grads). Returns (the card's model, the
+    reading)."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    models, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = seeded_zoo(make)
+        if dev == "cpu":
+            before = m.model.get_weights()
+        m.compile(optimizer=Adam(ZOO_LR), loss=loss, device=dev)
+        m.fit(x, y, batch_size=len(y), nb_epoch=1, shuffle=False)
+        models[dev] = m
+        losses[dev] = m.model.estimator.step_losses[-1]
+    cpu, card = models["cpu"].model.get_weights(), \
+        models["cuda"].model.get_weights()
+    worst, share = adam_reading(np, cpu, card)
+    unmoved = [k for k in card if k.endswith(".embedding")
+               and np.array_equal(card[k], before[k])]
+    loss_diff = abs(losses["cuda"] - losses["cpu"])
+    rep = dict(loss_card=losses["cuda"], loss_cpu=losses["cpu"],
+               loss_diff=loss_diff, max_param_diff=worst,
+               share_past_atol=share, unmoved_tables=unmoved)
+    if strict:
+        ok = loss_diff <= WND_ATOL and worst <= WND_ATOL
+        limit = f"atol {WND_ATOL}"
+    else:
+        ok = (loss_diff <= ZOO_LOSS_RTOL * abs(losses["cpu"])
+              and share <= ZOO_PARAM_SHARE and worst <= 2 * ZOO_LR)
+        limit = (f"loss rtol {ZOO_LOSS_RTOL}; parameters within "
+                 f"{ZOO_PARAM_ATOL} in all but {ZOO_PARAM_SHARE:.0%} of "
+                 f"each leaf, {2 * ZOO_LR} everywhere")
+    log(f"  {what}: one step on the card vs the CPU: loss "
+        f"{losses["cuda"]:.7f} vs {losses['cpu']:.7f} (|diff| "
+        f"{loss_diff:.3g}); parameters within {worst:.3g} ({share:.2%} of "
+        f"a leaf past {ZOO_PARAM_ATOL}); tables unmoved {unmoved}; {limit}")
+    if not ok or unmoved:
+        raise AssertionError(f"{what} step, card vs CPU: {rep}")
+    rep.update(card_cpu_grads(np, lambda: seeded_zoo(make).model, x, y,
+                              loss, what))
+    return models["cuda"], rep
+
+
+def wnd_kernels(torch, np, eb, x):
+    """Phase 12(a)'s kernels at Wide&Deep's shapes, against their plain
+    versions bitwise (tables of 17 x 8 and 1001 x 64, concat, the batch's
+    float ids cast by truncation as the layer casts them): the lookup, and
+    the scatter-add of both tables for a random gradient, with times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    shapes = [(n + 1, d) for n, d in zip(WND_DIMS["embed_in"],
+                                         WND_DIMS["embed_out"])]
+    tables = [torch.randn(v, d, generator=gen).to(dev) for v, d in shapes]
+    ids = torch.from_numpy(x[2]).to(dev).to(torch.int32)
+    got = eb.fused_embedding_lookup(tables, ids, "concat")
+    want = eb._fused_ref(tables, ids, "concat")
+    g = torch.randn(got.shape, generator=gen).to(dev)
+    grads = eb._fused_bwd_cuda(tables, ids, g, "concat")
+    grads_ref = eb._fused_bwd_ref(tables, ids, g, "concat")
+    again = eb._fused_bwd_cuda(tables, ids, g, "concat")
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        raise AssertionError(f"Wide&Deep lookup kernel != plain: "
+                             f"{max_abs_err(got, want)}")
+    _check_scatter("wide_and_deep", grads, grads_ref, again)
+    bound, bound_by = lookup_bound(tables, ids, "concat")
+    lookup = dict(case="wide_and_deep", max_abs_err=max_abs_err(got, want),
+                  ms=cuda_ms(lambda: eb.fused_embedding_lookup(
+                      tables, ids, "concat")),
+                  plain_ms=cuda_ms(lambda: eb._fused_ref(tables, ids,
+                                                         "concat")),
+                  library_ms=cuda_ms(lambda: library_call(tables, ids,
+                                                          "concat")),
+                  bound_ms=bound, bound_by=bound_by)
+    # the scatter: the wider table's launch alone, keys sorted beforehand
+    i = 1
+    keys, args, cc, sc = eb._fused_scatter_plan(tables, ids, g, "concat", i)
+    skeys, perm = torch.sort(keys, stable=True)
+    out = torch.zeros_like(tables[i])
+    upd = eb._fused_updates(tables, ids, g, "concat", i)
+    rows = keys.long()
+    bound = scatter_bound(torch, keys, shapes[i][0], WND_BATCH, shapes[i][1],
+                          g.element_size())
+    scatter = dict(case="wide_and_deep_embed_1",
+                   max_abs_err=max(max_abs_err(a, b)
+                                   for a, b in zip(grads, grads_ref)),
+                   ms=cuda_ms(lambda: eb._scatter_launch(
+                       out, skeys, perm, g, args, cc, sc)),
+                   plain_ms=cuda_ms(lambda: eb._scatter_ref(
+                       shapes[i][0], keys, upd), iters=3, warmup=1),
+                   library_ms=cuda_ms(lambda: out.index_add_(0, rows, upd)),
+                   bound_ms=bound[0], bound_by=bound[1])
+    for name, rec in (("lookup", lookup), ("scatter", scatter)):
+        log(f"  {name} at Wide&Deep's tables (8 + 64 wide, b {WND_BATCH}) "
+            f"bitwise: kernel {rec['ms']:.4f} ms  plain "
+            f"{rec['plain_ms']:.4f} ms  library {rec['library_ms']:.4f} ms"
+            f"  bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return lookup, scatter
+
+
+def events_of(log_dir):
+    """The scalars of the one events file under ``log_dir``, read back
+    from disk."""
+    import glob
+    from analytics_zoo_tpu_torch.common.summary import read_scalars
+    (path,) = glob.glob(os.path.join(log_dir, "events.out.tfevents.*"))
+    return read_scalars(path)
+
+
+def phase_widedeep(torch, np, eb, card):
+    """Phase 12(a): Wide&Deep wide_n_deep at bench.py's width through
+    compile/fit/predict on the card."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    x, y = wnd_data(np)
+    rep = {}
+    rep["lookup"], rep["scatter"] = wnd_kernels(torch, np, eb, x)
+    loss = "sparse_categorical_crossentropy"
+
+    def make(variant="wide_n_deep"):
+        return lambda: WideAndDeep(2, wnd_info(), model_type=variant)
+    net, rep["step"] = card_cpu_step(np, make(), x, y, loss,
+                                     "Wide&Deep wide_n_deep", strict=True)
+    # the path starts here (the launches above compare): the summaries on,
+    # a warm-up fit of one step (it opens the events files), then a fit of
+    # WND_STEPS steps and bench.py's step window
+    from analytics_zoo_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    log_dir = os.path.join(ZOO_DIR, "tensorboard")
+    net.set_tensorboard(log_dir, "widedeep")
+    _, warm, _ = counted(torch, lambda: net.fit(x, y, batch_size=WND_BATCH,
+                                                nb_epoch=1, shuffle=False))
+    first = net.model.estimator._py_step
+    xs = [np.tile(a, (WND_STEPS, 1)) for a in x]
+    _, launches, fit_s = counted(torch, lambda: net.fit(
+        xs, np.tile(y, WND_STEPS), batch_size=WND_BATCH, nb_epoch=1,
+        shuffle=False, summary_interval=WND_SUMMARY_EVERY))
+    losses = net.model.estimator.step_losses[-WND_STEPS:]
+    per_step = {k: v / WND_STEPS for k, v in launches.items() if v}
+    step_ms = step_window(torch, net.model, x, y)
+    rep["fit"] = dict(widedeep_train_step_ms=step_ms,
+                      widedeep_train_samples_per_sec=WND_BATCH / step_ms
+                      * 1e3, fit_step_ms=fit_s / WND_STEPS * 1e3,
+                      first_loss=losses[0], last_loss=losses[-1],
+                      launches=launches, launches_per_step=per_step,
+                      warm_up_launches=warm)
+    log(f"Wide&Deep training on {card}: widedeep_train_step_ms "
+        f"{step_ms:.3f}, widedeep_train_samples_per_sec "
+        f"{rep['fit']['widedeep_train_samples_per_sec']:.1f} ({STEP_WINDOW} "
+        f"steps of {WND_BATCH} after {STEP_WARMUP}, the batch on the card, "
+        f"host clock); fit of {WND_STEPS} steps, summaries on: "
+        f"{rep['fit']['fit_step_ms']:.3f} ms a step; loss {losses[0]:.5f} "
+        f"-> {losses[-1]:.5f}; kernel launches per step {per_step}")
+    if launches.get("fused_embedding_lookup", 0) != WND_STEPS or \
+            launches.get("embedding_scatter_add", 0) != 2 * WND_STEPS:
+        raise AssertionError(f"Wide&Deep fit: {launches} in {WND_STEPS} "
+                             "steps, not 1 lookup and 2 scatters a step")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"Wide&Deep fit losses: {losses}")
+    # the summaries, read back from the events files: the warm-up fit's
+    # flush, then the long fit's
+    flushes = [first] + [first + s for s in range(
+        WND_SUMMARY_EVERY, WND_STEPS + 1, WND_SUMMARY_EVERY)]
+    events = events_of(os.path.join(log_dir, "widedeep", "train"))
+    want_loss = [(s, float(np.float32(net.model.estimator.step_losses[
+        s - 1]))) for s in flushes]
+    rep["summaries"] = dict(events)
+    if (events.get("Loss") != want_loss
+            or [s for s, _ in events.get("Throughput", [])] != flushes
+            or not all(v > 0 for _, v in events["Throughput"])
+            or events.get("LearningRate") != [
+                (s, float(np.float32(ZOO_LR))) for s in flushes]):
+        raise AssertionError(f"Wide&Deep summaries: {events}, want Loss "
+                             f"{want_loss} at {flushes}")
+    log(f"  summaries read back: Loss, Throughput and LearningRate at "
+        f"steps {flushes}")
+    # predict against the CPU from the card's weights; save_model ->
+    # InferenceModel.load -> predict bitwise
+    pred = net.predict(x, batch_size=WND_BATCH)
+    cpu = WideAndDeep(2, wnd_info())
+    cpu.model.module.load_state_dict({
+        k: torch.from_numpy(v) for k, v in net.model.get_weights().items()})
+    pred_cpu = cpu.predict(x, batch_size=WND_BATCH, device="cpu")
+    path = os.path.join(ZOO_DIR, "widedeep_model")
+    net.save_model(path)
+    loaded = InferenceModel(device="cuda").load(path).predict(
+        tuple(x), batch_size=WND_BATCH)
+    rep["predict"] = dict(max_abs_diff_cpu=float(np.abs(pred - pred_cpu)
+                                                 .max()),
+                          loaded_bitwise=bool(np.array_equal(pred, loaded)))
+    log(f"  predict {WND_BATCH} rows: max |card - cpu| "
+        f"{rep['predict']['max_abs_diff_cpu']:.3g} (atol {WND_ATOL}); "
+        f"save_model -> InferenceModel.load -> predict bitwise "
+        f"{rep['predict']['loaded_bitwise']}")
+    if pred.shape != (WND_BATCH, 2) or \
+            rep["predict"]["max_abs_diff_cpu"] > WND_ATOL or \
+            not rep["predict"]["loaded_bitwise"]:
+        raise AssertionError(f"phase 12(a) predict: {rep['predict']}")
+    # the other two variants: one step and one predict each
+    for variant in ("wide", "deep"):
+        xv = x[0] if variant == "wide" else x[1:]
+        m, rep[variant] = card_cpu_step(np, make(variant), xv, y, loss,
+                                        f"Wide&Deep {variant}", strict=True)
+        p = m.predict(xv, batch_size=WND_BATCH)
+        if p.shape != (WND_BATCH, 2) or not np.isfinite(p).all():
+            raise AssertionError(f"Wide&Deep {variant} predict {p.shape}")
+    return rep
+
+
+def same_topk(got, want, probs) -> bool:
+    """The card's top-k items equal the CPU's, rank for rank, where an
+    item may stand in for another only if their CPU probabilities lie
+    within ZOO_PRED_ATOL (a near tie)."""
+    return all(abs(p[a] - p[b]) <= ZOO_PRED_ATOL
+               for g, w, p in zip(got, want, probs)
+               for (a, _), (b, _) in zip(g, w))
+
+
+def phase_session(torch, np, card):
+    """Phase 12(b): SessionRecommender at MovieLens-1M's item width."""
+    from analytics_zoo_tpu_torch.models import SessionRecommender
+    items = SR["item_count"]
+    rng = np.random.default_rng(12)
+    n = ZOO_BATCH * ZOO_FIT_STEPS
+    xs = rng.integers(1, items + 1, (n, SR["session_length"])).astype(
+        np.float32)
+    xh = rng.integers(1, items + 1, (n, SR["history_length"])).astype(
+        np.float32)
+    y = rng.integers(0, items, n).astype(np.int32)
+    loss = "sparse_categorical_crossentropy"
+    make = lambda: SessionRecommender(**SR)  # noqa: E731
+    m, rep = card_cpu_step(np, make, [xs[:ZOO_BATCH], xh[:ZOO_BATCH]],
+                           y[:ZOO_BATCH], loss, "SessionRecommender",
+                           strict=False)
+    _, launches, _ = counted(torch, lambda: m.fit(
+        [xs, xh], y, batch_size=ZOO_BATCH, nb_epoch=1))
+    step_ms = step_window(torch, m.model, [xs[:ZOO_BATCH], xh[:ZOO_BATCH]],
+                          y[:ZOO_BATCH])
+    n_rec = SR_ROWS_RECOMMENDED
+    sessions = [xs[:n_rec], xh[:n_rec]]
+    got = m.recommend_for_session(sessions, SR_TOPK)
+    cpu = make()
+    cpu.model.module.load_state_dict({
+        k: torch.from_numpy(v) for k, v in m.model.get_weights().items()})
+    probs = cpu.predict(sessions, device="cpu")
+    want = cpu.recommend_for_session(sessions, SR_TOPK, device="cpu")
+    rep.update(step_ms=step_ms, samples_per_s=ZOO_BATCH / step_ms * 1e3,
+               launches=launches,
+               topk_equal=same_topk(got, want, probs),
+               topk_exactly_equal=[[i for i, _ in r] for r in got]
+               == [[i for i, _ in r] for r in want])
+    log(f"SessionRecommender (3706 items, session 8, history 8) on {card}: "
+        f"a fit of {ZOO_FIT_STEPS} steps of {ZOO_BATCH}, then "
+        f"{rep['step_ms']:.3f} ms a step over {STEP_WINDOW} (host clock), "
+        f"{rep['samples_per_s']:.1f} samples/s; recommend_for_session top "
+        f"{SR_TOPK} of {n_rec} sessions equal to the CPU's "
+        f"{rep['topk_equal']} (exactly {rep['topk_exactly_equal']})")
+    if not rep["topk_equal"]:
+        raise AssertionError(f"phase 12(b): {rep}")
+    return rep
+
+
+def phase_anomaly(torch, np, card):
+    """Phase 12(c): AnomalyDetector with its default layers."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import AnomalyDetector
+    t = np.arange(ZOO_BATCH * ZOO_FIT_STEPS + AD_WINDOW, dtype=np.float32)
+    rng = np.random.default_rng(13)
+    series = (np.sin(t / 8) + 0.1 * rng.standard_normal(t.shape)).astype(
+        np.float32)
+    x, y = AnomalyDetector.unroll(series, AD_WINDOW)
+    x, y = x[:ZOO_BATCH * ZOO_FIT_STEPS], y[:ZOO_BATCH * ZOO_FIT_STEPS]
+    _, rep = card_cpu_step(
+        np, lambda: AnomalyDetector((AD_WINDOW, 1), dropouts=(0, 0, 0)),
+        x[:ZOO_BATCH], y[:ZOO_BATCH], "mse", "AnomalyDetector dropouts 0",
+        strict=False)
+    m = seeded_zoo(lambda: AnomalyDetector((AD_WINDOW, 1)))
+    m.compile(optimizer=Adam(1e-2), loss="mse", device="cuda")
+    hist = m.fit(x, y, batch_size=ZOO_BATCH, nb_epoch=3)
+    pred = m.predict(x, batch_size=ZOO_BATCH)
+    spiked = y.copy()
+    spiked[list(AD_ANOMALIES)] += np.float32(10.0)
+    found = sorted(AnomalyDetector.detect_anomalies(
+        spiked, pred, len(AD_ANOMALIES)).tolist())
+    # the step window after the predictions: its steps move the weights
+    step_ms = step_window(torch, m.model, x[:ZOO_BATCH], y[:ZOO_BATCH])
+    rep.update(losses=hist["loss"], step_ms=step_ms,
+               samples_per_s=ZOO_BATCH / step_ms * 1e3, found=found)
+    log(f"AnomalyDetector (8, 32, 15) over windows of {AD_WINDOW} on {card}:"
+        f" dropouts 0.2, 3 epochs of {ZOO_FIT_STEPS} steps, loss "
+        f"{hist['loss'][0]:.5f} -> {hist['loss'][-1]:.5f}; detect_anomalies "
+        f"on the card's predictions: {found}; then {step_ms:.3f} ms a step "
+        f"over {STEP_WINDOW} (host clock)")
+    if not hist["loss"][-1] < hist["loss"][0] or \
+            found != sorted(AD_ANOMALIES) or not np.isfinite(pred).all():
+        raise AssertionError(f"phase 12(c): {rep}")
+    return rep
+
+
+def phase_seq2seq_fit(torch, np, card):
+    """Phase 12(d): Seq2Seq.fit at bench.py's decode configuration, then
+    greedy infer bitwise the decode paths."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel, generation
+    from analytics_zoo_tpu_torch.models import Seq2Seq
+    rng = np.random.default_rng(14)
+    n = S2S_BATCH * ZOO_FIT_STEPS
+    enc = rng.standard_normal((n, 8, DECODE["input_dim"])).astype(np.float32)
+    dec = rng.standard_normal((n, 4, DECODE["output_dim"])).astype(
+        np.float32)
+    tgt = rng.standard_normal((n, 4, DECODE["output_dim"])).astype(
+        np.float32)
+    make = lambda: Seq2Seq(**DECODE)  # noqa: E731
+    m, rep = card_cpu_step(np, make, [enc[:S2S_BATCH], dec[:S2S_BATCH]],
+                           tgt[:S2S_BATCH], "mse", "Seq2Seq", strict=False)
+    hist = m.fit([enc, dec], tgt, batch_size=S2S_BATCH, nb_epoch=1)
+    step_ms = step_window(torch, m.model, [enc[:S2S_BATCH], dec[:S2S_BATCH]],
+                          tgt[:S2S_BATCH])
+    b, steps = DECODE_BATCH, DECODE_STEPS
+    start = np.zeros((b, DECODE["output_dim"]), np.float32)
+    greedy = m.infer(enc[:b], start, max_seq_len=steps + 1, mode="greedy")
+    im = InferenceModel(device="cuda").load_zoo(m)
+    exact = generation.decode_loop(im.decode_step_fn(), enc[:b], start,
+                                   steps, ladder=None, mode="greedy")
+    generated = im.generate(enc[:b], start, steps)
+    rep.update(step_ms=step_ms, samples_per_s=S2S_BATCH / step_ms * 1e3,
+               loss=hist["loss"],
+               infer_equals_exact=bool(np.array_equal(greedy, exact)),
+               infer_equals_generate=bool(np.array_equal(greedy, generated)))
+    log(f"Seq2Seq.fit (GRU, hidden 64) on {card}: a fit of {ZOO_FIT_STEPS} "
+        f"steps of {S2S_BATCH}, then {step_ms:.3f} ms a step over "
+        f"{STEP_WINDOW} (host clock); "
+        f"greedy infer {b} x {steps} bitwise the exact-length loop "
+        f"{rep['infer_equals_exact']} and InferenceModel.generate "
+        f"{rep['infer_equals_generate']}")
+    if not (rep["infer_equals_exact"] and rep["infer_equals_generate"]
+            and np.isfinite(hist["loss"]).all()):
+        raise AssertionError(f"phase 12(d): {rep}")
+    return rep
+
+
+def regularized_model():
+    from analytics_zoo_tpu_torch.keras import Sequential
+    from analytics_zoo_tpu_torch.keras import layers as zl
+    from analytics_zoo_tpu_torch.keras import regularizers as reg
+    net = Sequential()
+    net.add(zl.Dense(REG_WIDTHS[1], activation="relu",
+                     input_shape=(REG_WIDTHS[0],),
+                     W_regularizer=reg.l2(1e-3), b_regularizer=reg.l1(1e-3)))
+    net.add(zl.Dense(REG_WIDTHS[2], activation="softmax",
+                     W_regularizer=reg.l1_l2(1e-4, 1e-3)))
+    return net
+
+
+def phase_regularized(torch, np, card):
+    """Phase 12(e): the penalty on the card equals the CPU's."""
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((ZOO_BATCH, REG_WIDTHS[0])).astype(np.float32)
+    y = rng.integers(0, REG_WIDTHS[2], ZOO_BATCH).astype(np.int32)
+    losses, penalties = {}, {}
+    for dev in ("cpu", "cuda"):
+        net = regularized_model()
+        seeded_weights(net.module, SEED)
+        net.compile(optimizer="sgd", loss="sparse_categorical_crossentropy",
+                    device=dev)
+        params = dict(net.module.named_parameters())
+        with torch.no_grad():
+            penalties[dev] = float(net.estimator.param_penalty(params))
+        net.fit(x, y, batch_size=ZOO_BATCH, nb_epoch=1, shuffle=False)
+        losses[dev] = net.estimator.step_losses[-1]
+    rep = dict(loss_card=losses["cuda"], loss_cpu=losses["cpu"],
+               penalty_card=penalties["cuda"], penalty_cpu=penalties["cpu"],
+               loss_diff=abs(losses["cuda"] - losses["cpu"]))
+    log(f"regularized Sequential on {card}: loss with the penalty "
+        f"{losses["cuda"]:.7f} vs the CPU's {losses['cpu']:.7f} (|diff| "
+        f"{rep['loss_diff']:.3g}, atol {WND_ATOL}); penalty "
+        f"{penalties["cuda"]:.7f} vs {penalties['cpu']:.7f}")
+    if rep["loss_diff"] > WND_ATOL or penalties["cuda"] <= 0 or \
+            abs(penalties["cuda"] - penalties["cpu"]) > WND_ATOL:
+        raise AssertionError(f"phase 12(e): {rep}")
+
+    def seeded():
+        net = regularized_model()
+        seeded_weights(net.module, SEED)
+        return net
+    rep.update(card_cpu_grads(np, seeded, x, y,
+                              "sparse_categorical_crossentropy",
+                              "regularized Sequential"))
+    return rep
+
+
+def zoo_jax_wide_and_deep(np, card):
+    """Phase 12(f): the JAX package's committed Wide&Deep on the card."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    xs = tuple(np.load(os.path.join(JAX_CKPTS, f"wide_and_deep_{n}.npy"))
+               for n in ("wide", "indicator", "embed", "continuous"))
+    want = np.load(os.path.join(JAX_CKPTS, "wide_and_deep_pred.npy"))
+    im = InferenceModel(device="cuda").load(os.path.join(JAX_CKPTS,
+                                                       "wide_and_deep"))
+    diff = float(np.abs(im.predict(xs) - want).max())
+    log(f"the JAX package's Wide&Deep checkpoint on {card}: predict within "
+        f"{diff:.3g} of JAX's (atol {CKPT_JAX_ATOL})")
+    if diff > CKPT_JAX_ATOL:
+        raise AssertionError(f"phase 12(f): {diff}")
+    return dict(max_abs_diff=diff)
+
+
+def phase_zoo(torch, np, eb, card):
+    """Phase 12 (a)-(f); the directory it writes is removed after."""
+    import shutil
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    os.makedirs(ZOO_DIR)
+    try:
+        return dict(widedeep=phase_widedeep(torch, np, eb, card),
+                    session=phase_session(torch, np, card),
+                    anomaly=phase_anomaly(torch, np, card),
+                    seq2seq=phase_seq2seq_fit(torch, np, card),
+                    regularized=phase_regularized(torch, np, card),
+                    jax_widedeep=zoo_jax_wide_and_deep(np, card))
+    finally:
+        shutil.rmtree(ZOO_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2790,11 +3395,20 @@ def main() -> int:
         if ckpt_counts.get(name, 0) <= 0:
             raise AssertionError(f"the checkpoint paths launched no {name}:"
                                  f" {ckpt_counts}")
+    # 12. the zoo models: (a)'s kernel cases and one-step comparisons come
+    # first, then the counts restart and the Wide&Deep path runs, then
+    # (b)-(f)
+    report["zoo"] = phase_zoo(torch, np, eb, card)
+    zoo_counts = _build.launch_counts()
+    for name in ("fused_embedding_lookup", "embedding_scatter_add"):
+        if zoo_counts.get(name, 0) <= 0:
+            raise AssertionError(f"the zoo paths launched no {name}: "
+                                 f"{zoo_counts}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
                           "ncf_train": ncf_train_counts,
-                          "checkpoints": ckpt_counts}
+                          "checkpoints": ckpt_counts, "zoo": zoo_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -2903,6 +3517,21 @@ def main() -> int:
         if name == "embedding_bag":
             kernels["kernels"][-1].update(launch_ms=head["launch_ms"],
                                           device_ms=head["device_ms"])
+    # Wide&Deep's path (phase 12): the lookup and the scatter at its
+    # tables, their launches there and per training step
+    wnd = report["zoo"]["widedeep"]
+    for row in kernels["kernels"]:
+        rec = {"fused_embedding_lookup": wnd["lookup"],
+               "embedding_scatter_add": wnd["scatter"]}.get(row["name"])
+        if rec is None:
+            continue
+        row.update(
+            widedeep_launches=zoo_counts[row["name"]],
+            widedeep_launches_per_step=wnd["fit"]["launches_per_step"][
+                row["name"]],
+            **{f"widedeep_{k}": rec[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")})
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

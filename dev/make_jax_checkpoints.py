@@ -14,7 +14,13 @@ tests:
   ``seq2seq_pred.npy`` its prediction, and ``seq2seq_start.npy`` a start
   token with ``seq2seq_greedy.npy`` its 10 greedy steps (each step's top
   two scores apart by more than 1e-4, so the tokens are robust to
-  rounding).
+  rounding);
+- ``wide_and_deep/``: a ``wide_n_deep`` ``WideAndDeep`` (wide base (10,
+  10), cross (20,), indicator (4,), embed in (30, 40) out (8, 16), 1
+  continuous, hidden (16, 8), 2 classes), compiled with ``Adam(1e-2)``;
+  ``wide_and_deep_{wide,indicator,embed,continuous}.npy`` hold 64 rows of
+  its four inputs and ``wide_and_deep_pred.npy`` the JAX package's
+  predictions.
 
 The weights are flax's initial values from the models' seeds: the files
 do not depend on how many devices JAX sees. ``tests/test_torch_checkpoint
@@ -43,6 +49,14 @@ SEQ2SEQ_ARGS = dict(input_dim=4, output_dim=4, hidden_size=16,
                     rnn_type="gru", num_layers=1, encoder_seq_len=5,
                     decoder_seq_len=4)
 GREEDY_STEPS = 10
+WND_COLUMNS = dict(
+    wide_base_cols=["a", "b"], wide_base_dims=[10, 10],
+    wide_cross_cols=["ab"], wide_cross_dims=[20],
+    indicator_cols=["c"], indicator_dims=[4],
+    embed_cols=["u", "i"], embed_in_dims=[30, 40], embed_out_dims=[8, 16],
+    continuous_cols=["age"])
+WND_ARGS = dict(class_num=2, model_type="wide_n_deep", hidden_layers=(16, 8))
+WND_INPUTS = ("wide", "indicator", "embed", "continuous")
 
 
 def ncf_inputs() -> np.ndarray:
@@ -60,15 +74,32 @@ def seq2seq_inputs():
     return enc, dec, start
 
 
+def wide_and_deep_inputs():
+    """64 rows of the four inputs: one-hot wide and indicator blocks, ids
+    in ``[0, in_dim]``, normal continuous values."""
+    rng = np.random.default_rng(5)
+    n = 64
+    wide = np.zeros((n, 40), np.float32)
+    wide[np.arange(n), rng.integers(0, 40, n)] = 1.0
+    ind = np.zeros((n, 4), np.float32)
+    ind[np.arange(n), rng.integers(0, 4, n)] = 1.0
+    emb = np.stack([rng.integers(0, 31, n), rng.integers(0, 41, n)],
+                   1).astype(np.float32)
+    con = rng.normal(size=(n, 1)).astype(np.float32)
+    return wide, ind, emb, con
+
+
 def write_all(out: str) -> None:
-    """Write both models and their arrays under ``out`` (replaced)."""
+    """Write the three models and their arrays under ``out`` (replaced)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from analytics_zoo_tpu.inference import InferenceModel
     from analytics_zoo_tpu.inference import generation
     from analytics_zoo_tpu.learn.optimizers import Adam
     from analytics_zoo_tpu.models import Seq2Seq
-    from analytics_zoo_tpu.models.recommendation import NeuralCF
+    from analytics_zoo_tpu.models.recommendation import (ColumnFeatureInfo,
+                                                         NeuralCF,
+                                                         WideAndDeep)
 
     if os.path.isdir(out):
         shutil.rmtree(out)
@@ -105,6 +136,17 @@ def write_all(out: str) -> None:
         raise RuntimeError(f"greedy margins too small to pin: {margins}")
     np.save(os.path.join(out, "seq2seq_start.npy"), start)
     np.save(os.path.join(out, "seq2seq_greedy.npy"), np.asarray(greedy))
+
+    wnd = WideAndDeep(column_info=ColumnFeatureInfo(**WND_COLUMNS),
+                      **WND_ARGS)
+    wnd.compile(optimizer=Adam(1e-2),
+                loss="sparse_categorical_crossentropy")
+    wnd.save_model(os.path.join(out, "wide_and_deep"))
+    xs = wide_and_deep_inputs()
+    for name, arr in zip(WND_INPUTS, xs):
+        np.save(os.path.join(out, f"wide_and_deep_{name}.npy"), arr)
+    np.save(os.path.join(out, "wide_and_deep_pred.npy"),
+            np.asarray(wnd.predict(list(xs))))
 
 
 def main(argv=None) -> int:

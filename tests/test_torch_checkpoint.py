@@ -551,6 +551,20 @@ def test_port_reads_the_committed_jax_checkpoints():
         np.load(os.path.join(DATA, "seq2seq_greedy.npy")))
 
 
+def test_port_reads_the_committed_jax_wide_and_deep():
+    xs = [np.load(os.path.join(DATA, f"wide_and_deep_{n}.npy"))
+          for n in ("wide", "indicator", "embed", "continuous")]
+    want = np.load(os.path.join(DATA, "wide_and_deep_pred.npy"))
+    im = InferenceModel(device="cpu").load(os.path.join(DATA,
+                                                        "wide_and_deep"))
+    np.testing.assert_allclose(im.predict(tuple(xs)), want, rtol=0,
+                               atol=1e-5)
+    wnd = ZooModel.load_model(os.path.join(DATA, "wide_and_deep"))
+    assert wnd.model_type == "wide_n_deep"
+    np.testing.assert_allclose(wnd.predict(xs, device="cpu"), want, rtol=0,
+                               atol=1e-5)
+
+
 # ------------------------------------- counterparts of the JAX package's
 
 class MLP(nn.Module):

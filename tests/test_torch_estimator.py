@@ -392,6 +392,24 @@ def test_unused_parameters_get_zero_gradients():
     assert torch.equal(module.unused.weight, before)
 
 
+def test_a_step_applies_the_loss_and_gradients_it_reports():
+    # _loss_and_grads is the step's own loss and gradients: SGD moves each
+    # parameter by lr times them, and the batch given as tensors gives
+    # what the numpy batch gives
+    from analytics_zoo_tpu_torch.learn.optimizers import SGD
+    x, y = _mlp_data(16, 5)
+    torch.manual_seed(0)
+    est = TorchEstimator(MLP(), loss=LOSS, optimizer=SGD(0.5), device="cpu")
+    before = [p.detach().clone() for p in est._params]
+    loss, grads = est._loss_and_grads(torch.from_numpy(x),
+                                      torch.from_numpy(y))
+    assert float(est._train_step(x, y)) == float(loss)
+    for b, g, p in zip(before, grads, est._params):
+        torch.testing.assert_close(p.detach(), b - 0.5 * g, rtol=0,
+                                   atol=1e-7)
+        assert float(g.abs().max()) > 0
+
+
 def test_bert_classifier_load_hf_replaces_the_encoder(tmp_path):
     transformers = pytest.importorskip("transformers")
     from analytics_zoo_tpu_torch.text import hf_bert_params

@@ -201,8 +201,16 @@ def test_seq2seq_save_load_and_fit(tmp_path):
     for k, v in m.model.module.state_dict().items():
         assert torch.equal(v, back.model.module.state_dict()[k])
     assert back._config() == m._config()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        m.fit(None)
+    # fit as the keras models fit: compile first (training parity with
+    # JAX is held in tests/test_torch_recurrent_train.py)
+    rng = np.random.RandomState(0)
+    enc = rng.randn(8, 2, 3).astype(np.float32)
+    dec = rng.randn(8, 2, 3).astype(np.float32)
+    with pytest.raises(RuntimeError, match="compile"):
+        back.fit([enc, dec], dec, batch_size=4)
+    back.compile(optimizer="sgd", loss="mse", device="cpu")
+    hist = back.fit([enc, dec], dec, batch_size=4, nb_epoch=2)
+    assert len(hist["loss"]) == 2 and np.isfinite(hist["loss"]).all()
     with pytest.raises(ValueError, match="lstm|gru"):
         Seq2Seq(input_dim=3, output_dim=3, rnn_type="rnn")
 

@@ -48,7 +48,10 @@ def test_importing_every_module_loads_no_jax():
                 "inference.generation", "inference.decode_scheduler",
                 "inference.quantize", "models.seq2seq.seq2seq",
                 "learn.checkpoint", "learn.trigger", "common.resilience",
-                "common.context"):
+                "common.context", "common.summary", "keras.regularizers",
+                "models.recommendation.wide_and_deep",
+                "models.recommendation.session_recommender",
+                "models.anomalydetection.anomaly_detector"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

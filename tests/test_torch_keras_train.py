@@ -29,7 +29,9 @@ Also: compiling after ``load_weights`` keeps the weights; ``fit`` and
 ``Embedding(pooling=None)`` against flax ``nn.Embed``;
 ``zero_based_id=False``; ``SparseEmbedding``; the names ``convert.py``
 maps; XShards, DataFrames and ``recommend_for_user``/``_item`` against
-JAX's; the unported surfaces raise. JAX is imported by fixtures only.
+JAX's. The regularizers, ``summary`` and ``set_tensorboard`` are held in
+tests/test_torch_keras_surface.py, ``Seq2Seq.fit`` in
+tests/test_torch_recurrent_train.py. JAX is imported by fixtures only.
 """
 
 import numpy as np
@@ -42,7 +44,7 @@ from analytics_zoo_tpu_torch.data import HostXShards, XShards
 from analytics_zoo_tpu_torch.keras import Input, Model, Sequential
 from analytics_zoo_tpu_torch.keras import layers as tl
 from analytics_zoo_tpu_torch.learn.optimizers import SGD, Adam
-from analytics_zoo_tpu_torch.models import NeuralCF, Seq2Seq
+from analytics_zoo_tpu_torch.models import NeuralCF
 from analytics_zoo_tpu_torch.models.recommendation import UserItemFeature
 
 USERS, ITEMS, WIDTH, HIST = 50, 40, 8, 8
@@ -282,18 +284,6 @@ def test_clipping_reaches_the_estimator():
     assert ncf.model.estimator._grad_clip == ("norm", 0.5)
     ncf.model.set_constant_gradient_clipping(-0.1, 0.2)
     assert ncf.model.estimator._grad_clip == ("const", -0.1, 0.2)
-
-
-@pytest.mark.parametrize("call", [
-    lambda m: tl.Dense(4, b_regularizer="l1"), lambda m: m.summary(),
-    lambda m: Seq2Seq(input_dim=3, output_dim=3).fit(None),
-    lambda m: m.set_tensorboard("a", "b"),
-    lambda m: tl.Dense(4, W_regularizer="l2")])
-def test_unported_surfaces_raise_and_name_the_roadmap(call):
-    # set_checkpoint and save/load with a topology are ported
-    # (tests/test_torch_checkpoint.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        call(NeuralCF(**NCF_ARGS).model)
 
 
 # ------------------------------------------------------------- embeddings
