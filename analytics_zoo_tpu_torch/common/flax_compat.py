@@ -11,6 +11,15 @@
 - ``Embed`` — ``nn.Embed``: one ``embedding [num, features]`` table read
   with ``jnp.take``'s rule (ops/embedding_bag.py), so an id out of range
   gives a row of NaN and never reads outside the table.
+- ``Conv`` — ``nn.Conv`` over ``[batch, time, features]`` (1-D, stride 1,
+  ``padding="VALID"``, ``kernel_dilation``): flax's kernel ``[k, in,
+  out]`` is held flattened to ``[k * in, out]`` and transposed, ``weight
+  [out, k * in]``, so ``convert`` carries it as it carries a Dense kernel;
+  the forward views it as torch's ``[out, in, k]`` (both are
+  cross-correlations: transposed, never flipped) and calls ``F.conv1d``.
+  ``dtype`` follows ``Dense``'s rule. Under fp32 on the card cuDNN may
+  take TF32 unless ``torch.backends.cudnn.allow_tf32`` is off
+  (``init_orca_context``'s precision).
 """
 
 from __future__ import annotations
@@ -76,3 +85,34 @@ class Embed(nn.Module):
 
     def forward(self, ids):
         return embedding_lookup(self.embedding, ids)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(out_features, (kernel_size,), kernel_dilation=
+    (dilation,), padding="VALID")`` on ``[batch, time, in_features]``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel_size: int, dilation: int = 1, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_features, self.out_features = int(in_features), \
+            int(out_features)
+        self.kernel_size, self.dilation = int(kernel_size), int(dilation)
+        self.weight = nn.Parameter(torch.empty(
+            self.out_features, self.kernel_size * self.in_features))
+        self.bias = nn.Parameter(torch.zeros(self.out_features)) \
+            if bias else None
+        #: the flax kernel's shape (``convert.flax_leaves``)
+        self.flax_kernel_shape = (self.kernel_size, self.in_features,
+                                  self.out_features)
+        self.compute_dtype = dtype
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x):
+        cd = promote(self.compute_dtype, x, self.weight)
+        w = self.weight.view(self.out_features, self.kernel_size,
+                             self.in_features).transpose(1, 2)
+        y = F.conv1d(x.to(cd).transpose(1, 2), w.to(cd),
+                     None if self.bias is None else self.bias.to(cd),
+                     dilation=self.dilation)
+        return y.transpose(1, 2)

@@ -34,7 +34,9 @@ function, and compare the parameters after training.
 of the port that owns parameters knows its flax leaves (an ``nn.Linear``
 a ``kernel [in, out]`` and a ``bias [out]``, or the shapes its
 ``flax_kernel_shape`` / ``flax_bias_shape`` attributes name, as the
-attention projections' ``[in, h, d]`` and ``[h, d, out]``; a LayerNorm a
+attention projections' ``[in, h, d]`` and ``[h, d, out]``, or a
+``flax_compat.Conv`` (a 2-D ``weight`` too) its ``[k, in, out]``; a
+LayerNorm a
 ``scale`` and a ``bias``; an embedding table its ``embedding``).
 ``ParamLayout`` uses it to turn the parameters, and anything shaped like
 them (Adam's moments, a momentum trace), into the flax tree a checkpoint
@@ -108,7 +110,8 @@ def flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
                  ) -> Optional[Dict[str, tuple]]:
     """``{flax leaf: (torch leaf, flax shape)}`` of the parameters a
     module owns directly, or None when it follows no flax rule."""
-    if isinstance(module, nn.Linear):
+    if isinstance(module, nn.Linear) or hasattr(module,
+                                                "flax_kernel_shape"):
         out, inp = module.weight.shape
         leaves = {"kernel": ("weight", getattr(
             module, "flax_kernel_shape", (inp, out)))}

@@ -51,6 +51,16 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   run ends bitwise where an unfaulted one does. Triggers read host values
   only: no step adds a read-back.
 
+- **Data**: ``fit``, ``evaluate`` and ``predict`` take what
+  ``data.to_sharded_dataset`` takes; XShards in a tier other than DRAM
+  (``OrcaContext.train_data_store = "DISK_n"``) and a
+  ``StreamingShardedDataset`` stream window by window, so the store's
+  residency bound holds through training; nothing reads a streaming set's
+  ``x``. A resume inside ``fit`` skips batches of the stream as of an
+  in-memory set, and lands bitwise the same way.
+- **Device**: ``device=None`` takes the active context's first device
+  (``init_orca_context``), else ``cuda``.
+
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
 (ROADMAP A9); ``steps_per_loop``, ``cache="device"`` and ``profile``
 (ROADMAP A3); the telemetry registry the JAX package mirrors the
@@ -73,11 +83,13 @@ import torch
 from torch import nn
 
 from analytics_zoo_tpu_torch.common import resilience
+from analytics_zoo_tpu_torch.common.context import active_context
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
 from analytics_zoo_tpu_torch.common.summary import SummaryWriter
 from analytics_zoo_tpu_torch.convert import ParamLayout, flatten, nest
 from analytics_zoo_tpu_torch.data.dataset import (ShardedDataset,
+                                                  StreamingShardedDataset,
                                                   to_sharded_dataset,
                                                   tree_map)
 from analytics_zoo_tpu_torch.data.shard import HostXShards, XShards
@@ -153,6 +165,8 @@ class TorchEstimator:
             raise NotImplementedError(
                 f"strategy {strategy!r}: the port trains on one device; "
                 "meshes and sharding strategies are ROADMAP A9")
+        if device is None and active_context() is not None:
+            device = active_context().devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_lib.get(loss)
@@ -298,8 +312,11 @@ class TorchEstimator:
     def _dataset(self, data, feature_cols, label_cols) -> ShardedDataset:
         """``data`` as a ShardedDataset. A single-input model fed one
         input per DataFrame column (the reference's DataFrame
-        convention) gets the scalar columns stacked into one matrix."""
+        convention) gets the scalar columns stacked into one matrix (not
+        a streaming set, as in JAX: its rows never gather)."""
         ds = to_sharded_dataset(data, feature_cols, label_cols)
+        if isinstance(ds, StreamingShardedDataset):
+            return ds
         if (self._n_inputs == 1 and isinstance(ds.x, tuple)
                 and all(np.ndim(a) == 1 for a in ds.x)):
             return ShardedDataset(np.column_stack(ds.x), ds.y)

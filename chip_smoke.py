@@ -152,6 +152,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
              package's committed Wide&Deep predicts within CKPT_JAX_ATOL of
              JAX. It writes under build/phase12/ and removes it.
 
+13. Zouwu's TCN — bench.py's measure_tcn (TemporalConvNet, channels (32,
+             32, 32), kernel 7, dropout 0.2, batch 256 x 96 x 8, Adam, mse)
+             through the Orca entry points: (a) init_orca_context() with
+             default_matmul_precision "float32" (the device count, the
+             mesh, both TF32 flags off); (b) bench.py's step window
+             (measure_tcn's batch from default_rng(2) on the card, 3
+             warm-up steps, 20 timed, host clock) in fp32 with TF32 off,
+             under the context's default "bfloat16" (TF32), and under the
+             mixed_bfloat16 policy: ms a step, tcn_steps_per_sec,
+             tcn_samples_per_sec; (c) one Adam step at dropout 0 on the
+             card against the CPU (loss and every parameter within
+             TCN_STEP_*_ATOL, basis dev/estimate_tcn_train_limits.py) and
+             one batch's gradients (each leaf within ZOO_GRAD_RTOL of its
+             largest); (d) 10 240 windows with the CPU tests' linear target
+             in 16 XShards under DISK_4, TCNForecaster.fit through the
+             streaming feed (a warm-up epoch, then 2 epochs of 40 steps,
+             timed): every row once an epoch, peak_window_rows within a
+             window of 4 shards plus a batch, the loss falling; then with
+             shuffle=False the DISK_4 fit ends bitwise where the DRAM fit
+             ends (cuDNN's deterministic algorithms for both); (e) predict
+             and evaluate (mse, mae, smape) against the CPU from the same
+             checkpoint, save/restore on the card bitwise, the JAX
+             package's committed TCNForecaster within CKPT_JAX_ATOL of
+             JAX, and LSTMForecaster and Seq2SeqForecaster fits card
+             against CPU at the CPU tests' limits. No kernel of the port
+             runs on this path (cuDNN's convolutions; JAX's TCN runs
+             outside Pallas). It writes under build/phase13/ and removes
+             it, and restores the precision flags and the knobs.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -192,8 +221,10 @@ Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
 path; phase 9, the decode path; phase 10(b)-(d), the NCF training path;
 phase 11, the checkpoint paths; phase 12 from (a)'s warm-up step, the
-zoo paths) and read right after it: every kernel of the path must have launched
-there. The second-to-last line is the kernels JSON, the last
+zoo paths; phase 13, which launches none) and read right after it:
+every kernel of the path must have launched there. Phase 13's seconds
+and the whole run's are printed before the kernels line. The
+second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -422,6 +453,30 @@ ZOO_GRAD_RTOL = 5e-6
 # where phase 12 writes (inside the checkout, removed after)
 ZOO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "build", "phase12")
+
+# phase 13: Zouwu's TCN, bench.py's measure_tcn (batch 256, 96 steps back,
+# 8 features, channels (32, 32, 32), kernel 7, dropout 0.2, Adam, mse),
+# timed as its _measure_step_time times it
+TCN = dict(future_seq_len=1, num_channels=(32, 32, 32), kernel_size=7)
+TCN_BATCH, TCN_LOOKBACK, TCN_FEATURES = 256, 96, 8
+TCN_WARMUP, TCN_TIMED = 3, 20
+# (c): one Adam step on the card against the CPU at dropout 0, from the
+# same weights and batch, fp32 with TF32 off. The CPU estimate of a step
+# whose sums run in another order (the batch reversed,
+# dev/estimate_tcn_train_limits.py): loss 9.5e-7 apart (of 15.3),
+# parameters 2.4e-7; the NCF limits hold it with a tenfold margin
+TCN_STEP_LOSS_ATOL = 1e-5
+TCN_STEP_PARAM_ATOL = 1e-5
+# (d): the streaming fit: windows with the CPU tests' linear target, in
+# 16 shards under DISK_4 (a window of 4 shards, 2560 rows)
+TCN_STREAM_ROWS, TCN_STREAM_SHARDS = 10_240, 16
+TCN_STREAM_TIER = "DISK_4"
+TCN_STREAM_EPOCHS = 2
+# (e): the CPU tests' small forecasters (tests/test_torch_zouwu.py)
+FC_ROWS, FC_LOOKBACK, FC_FEATURES, FC_BATCH, FC_EPOCHS = 96, 16, 3, 16, 2
+FC_LR = 1e-2
+TCN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "phase13")
 
 
 def log(msg: str):
@@ -3194,6 +3249,330 @@ def phase_zoo(torch, np, eb, card):
         shutil.rmtree(ZOO_DIR, ignore_errors=True)
 
 
+def tcn_bench_data(np):
+    """bench.py's measure_tcn batch: default_rng(2), x then y."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((TCN_BATCH, TCN_LOOKBACK, TCN_FEATURES)
+                            ).astype(np.float32)
+    y = rng.standard_normal((TCN_BATCH, 1)).astype(np.float32)
+    return x, y
+
+
+def tcn_estimator(dropout=0.2, dtype=None, device=None):
+    """measure_tcn's model, weights from the numpy seed, through
+    Estimator.from_torch with Adam and mse."""
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.zouwu.model.nets import TemporalConvNet
+    net = TemporalConvNet(TCN_FEATURES, dropout=dropout, dtype=dtype, **TCN)
+    seeded_weights(net, SEED)
+    return Estimator.from_torch(model=net, loss="mse", optimizer="adam",
+                                device=device)
+
+
+def tcn_window(torch, est, x, y) -> float:
+    """ms a step as bench.py's _measure_step_time takes it: the batch on
+    the card once, TCN_WARMUP steps, then TCN_TIMED steps on the host clock
+    between two syncs."""
+    xs, ys = est._tensors(x), est._tensors(y)
+    for _ in range(TCN_WARMUP):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TCN_TIMED):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / TCN_TIMED * 1e3
+
+
+def tcn_windows(torch, np, precisions, x, y):
+    """(b): ms a step, steps/s and samples/s in each of ``precisions``
+    (name -> compute dtype), under the context's current flags."""
+    out = {}
+    for name, dtype in precisions.items():
+        ms = tcn_window(torch, tcn_estimator(dtype=dtype), x, y)
+        out[name] = dict(step_ms=ms, tcn_steps_per_sec=1e3 / ms,
+                         tcn_samples_per_sec=TCN_BATCH * 1e3 / ms,
+                         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                         matmul_precision=torch.get_float32_matmul_precision())
+        log(f"  TCN {name}: {ms:.3f} ms a step, tcn_steps_per_sec "
+            f"{out[name]['tcn_steps_per_sec']:.1f}, tcn_samples_per_sec "
+            f"{out[name]['tcn_samples_per_sec']:.1f} ({TCN_TIMED} steps "
+            f"after {TCN_WARMUP}, batch {TCN_BATCH}, host clock; matmul "
+            f"{out[name]['matmul_precision']}, cudnn TF32 "
+            f"{out[name]['cudnn_allow_tf32']})")
+    return out
+
+
+def tcn_card_cpu(torch, np, x, y, card):
+    """(c): one Adam step at dropout 0 on the card and on the CPU from the
+    same weights and batch, then one batch's gradients."""
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        est = tcn_estimator(dropout=0.0, device=dev)
+        loss = float(est._train_step(x, y))
+        steps[dev] = (loss, {n: p.detach().cpu().numpy()
+                             for n, p in est.model.named_parameters()})
+    (l_cpu, p_cpu), (l_card, p_card) = steps["cpu"], steps["cuda"]
+    worst = max(float(np.abs(p_card[k] - p_cpu[k]).max()) for k in p_cpu)
+    rep = dict(loss_card=l_card, loss_cpu=l_cpu,
+               loss_diff=abs(l_card - l_cpu), max_param_diff=worst)
+    log(f"  TCN step on {card} vs the CPU (dropout 0, fp32, TF32 off): "
+        f"loss {l_card:.7f} vs {l_cpu:.7f} (|diff| {rep['loss_diff']:.3g}, "
+        f"atol {TCN_STEP_LOSS_ATOL}); parameters within {worst:.3g} (atol "
+        f"{TCN_STEP_PARAM_ATOL})")
+    if rep["loss_diff"] > TCN_STEP_LOSS_ATOL or worst > TCN_STEP_PARAM_ATOL:
+        raise AssertionError(f"phase 13(c) step: {rep}")
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        est = tcn_estimator(dropout=0.0, device=dev)
+        _, g = est._loss_and_grads(x, y)
+        grads[dev] = {n: t.cpu().numpy() for n, t in zip(est._names, g)}
+    rel = {}
+    for n, want in grads["cpu"].items():
+        scale = float(np.abs(want).max())
+        diff = float(np.abs(grads["cuda"][n] - want).max())
+        rel[n] = diff / scale if scale > 0 else diff
+    leaf = max(rel, key=rel.get)
+    rep.update(grad_max_rel_diff=rel[leaf], grad_worst_leaf=leaf,
+               grad_leaves=len(rel))
+    log(f"  TCN gradients on the card vs the CPU: each of {len(rel)} leaves "
+        f"within {rel[leaf]:.3g} of its largest |gradient| (worst {leaf}; "
+        f"limit {ZOO_GRAD_RTOL})")
+    if rel[leaf] > ZOO_GRAD_RTOL:
+        raise AssertionError(f"phase 13(c) gradients: {rel}")
+    return rep
+
+
+def tcn_stream_data(np):
+    """(d)'s windows: the CPU tests' linear target of the last step."""
+    rng = np.random.RandomState(SEED)
+    x = rng.normal(size=(TCN_STREAM_ROWS, TCN_LOOKBACK, TCN_FEATURES)
+                   ).astype(np.float32)
+    return x, (x[:, -1:, 0] * 0.5 + 0.1).astype(np.float32)
+
+
+def tcn_stream_fit(torch, np, x, y, card):
+    """(d): TCNForecaster.fit through the streaming feed under DISK_4,
+    every row once an epoch, the residency bound; then shuffle=False
+    against DRAM, bitwise."""
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.data import (StreamingShardedDataset,
+                                              XShards, to_sharded_dataset)
+    from analytics_zoo_tpu_torch.zouwu.model import TCNForecaster
+    OrcaContext.train_data_store = TCN_STREAM_TIER
+    t0 = time.perf_counter()
+    shards = XShards.partition({"x": x, "y": y},
+                               num_shards=TCN_STREAM_SHARDS)
+    spill_s = time.perf_counter() - t0
+    ds = to_sharded_dataset(shards)
+    if not isinstance(ds, StreamingShardedDataset):
+        raise AssertionError(f"phase 13(d): {type(ds).__name__}")
+    seen = []
+    feed = ds.iter_batches
+
+    def recorded(*a, **kw):
+        keys = []
+        seen.append(keys)
+        for bx, by, m in feed(*a, **kw):
+            keys.append(bx[:, 0, 0].copy())
+            yield bx, by, m
+    ds.iter_batches = recorded
+    f = TCNForecaster(**TCN)
+    f.fit(ds, epochs=1, batch_size=TCN_BATCH)         # warm-up epoch
+    steps = TCN_STREAM_EPOCHS * (TCN_STREAM_ROWS // TCN_BATCH)
+    t0 = time.perf_counter()
+    hist = f.fit(ds, epochs=TCN_STREAM_EPOCHS, batch_size=TCN_BATCH)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) / steps * 1e3
+    want = np.sort(x[:, 0, 0])
+    once = all(np.array_equal(np.sort(np.concatenate(k)), want)
+               for k in seen)
+    bound = TCN_STREAM_ROWS // TCN_STREAM_SHARDS * math.ceil(
+        TCN_STREAM_SHARDS / int(TCN_STREAM_TIER.split("_")[1])) + TCN_BATCH
+    rep = dict(fit_step_ms=fit_ms, fit_steps=steps, loss=hist["loss"],
+               epochs_seen=len(seen), every_row_once=once,
+               peak_window_rows=ds.peak_window_rows, bound_rows=bound,
+               window_shards=ds.window_shards, spill_s=spill_s)
+    log(f"  TCN streaming fit on {card}: {TCN_STREAM_ROWS} windows in "
+        f"{TCN_STREAM_SHARDS} shards under {TCN_STREAM_TIER} (spilled in "
+        f"{spill_s:.3f} s), {TCN_STREAM_EPOCHS} epochs of "
+        f"{steps // TCN_STREAM_EPOCHS} steps after a warm-up epoch: "
+        f"{fit_ms:.3f} ms a step (host clock, the feed included); loss "
+        f"{hist['loss']}; every row once an epoch {once} ({len(seen)} "
+        f"epochs); peak_window_rows {ds.peak_window_rows} (bound {bound})")
+    if not once or ds.peak_window_rows > bound or \
+            not np.isfinite(hist["loss"]).all() or \
+            not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError(f"phase 13(d) fit: {rep}")
+    # shuffle=False: the DISK_4 stream feeds the DRAM order, so the fits
+    # end bitwise (cuDNN's deterministic algorithms for both, so that
+    # only the feed could differ)
+    ends = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tier in ("DRAM", TCN_STREAM_TIER):
+            OrcaContext.train_data_store = tier
+            g = TCNForecaster(**TCN)
+            g.fit(XShards.partition({"x": x, "y": y},
+                                    num_shards=TCN_STREAM_SHARDS),
+                  epochs=TCN_STREAM_EPOCHS, batch_size=TCN_BATCH,
+                  shuffle=False)
+            ends[tier] = [p.detach().clone()
+                          for p in g._est.model.parameters()]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        OrcaContext.train_data_store = "DRAM"
+    rep["disk_equals_dram"] = all(torch.equal(a, b) for a, b in zip(
+        ends["DRAM"], ends[TCN_STREAM_TIER]))
+    log(f"  shuffle=False: the {TCN_STREAM_TIER} fit ends bitwise where the "
+        f"DRAM fit ends: {rep['disk_equals_dram']}")
+    if not rep["disk_equals_dram"]:
+        raise AssertionError("phase 13(d): DISK_4 and DRAM fits differ")
+    return f, rep
+
+
+def forecaster_card_cpu(torch, np, make, horizon, what):
+    """A short fit of a small forecaster on the card and on the CPU from
+    the same seed and data: epoch losses within ZOO_LOSS_RTOL, every
+    parameter within ZOO_PARAM_ATOL in all but ZOO_PARAM_SHARE of each
+    leaf and within 2 lr a step everywhere (the CPU tests' limits)."""
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(FC_ROWS, FC_LOOKBACK, FC_FEATURES)).astype(
+        np.float32)
+    y = (x[:, -horizon:, 0] * 0.5 + 0.1).astype(np.float32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        f = make(dev)
+        hist = f.fit(x, y, epochs=FC_EPOCHS, batch_size=FC_BATCH)
+        runs[dev] = (hist["loss"], {n: p.detach().cpu().numpy() for n, p in
+                                    f._est.model.named_parameters()})
+    (l_cpu, p_cpu), (l_card, p_card) = runs["cpu"], runs["cuda"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    worst = max(float(np.abs(p_card[k] - p_cpu[k]).max()) for k in p_cpu)
+    share = max(float(np.mean(np.abs(p_card[k] - p_cpu[k])
+                              > ZOO_PARAM_ATOL)) for k in p_cpu)
+    steps = FC_EPOCHS * (FC_ROWS // FC_BATCH)
+    rep = dict(loss_max_rel_diff=loss_rel, max_param_diff=worst,
+               share_past_atol=share)
+    log(f"  {what}: a fit of {steps} steps on the card vs the CPU: losses "
+        f"within {loss_rel:.3g} relative (rtol {ZOO_LOSS_RTOL}); parameters "
+        f"within {worst:.3g} ({share:.2%} of a leaf past {ZOO_PARAM_ATOL})")
+    if loss_rel > ZOO_LOSS_RTOL or share > ZOO_PARAM_SHARE or \
+            worst > 2 * FC_LR * steps:
+        raise AssertionError(f"phase 13(e) {what}: {rep}")
+    return rep
+
+
+def tcn_serve(torch, np, f, x, y, card):
+    """(e): predict and evaluate after the streaming fit, against the CPU
+    from the same checkpoint; save/restore on the card bitwise; the JAX
+    package's TCN checkpoint; the LSTM and Seq2Seq forecasters."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.zouwu.model import (LSTMForecaster,
+                                                     Seq2SeqForecaster,
+                                                     TCNForecaster)
+    rows = slice(0, 10 * TCN_BATCH)
+    pred = f.predict(x[rows], batch_size=TCN_BATCH)
+    ev = f.evaluate(x[rows], y[rows], metrics=("mse", "mae", "smape"),
+                    batch_size=TCN_BATCH)
+    path = os.path.join(TCN_DIR, "tcn")
+    f.save(path)
+    g = TCNForecaster(**TCN)
+    g.restore(path, sample_x=x[:1])
+    same = np.array_equal(g.predict(x[rows], batch_size=TCN_BATCH), pred) \
+        and all(torch.equal(a, b) for a, b in zip(
+            f._est.model.parameters(), g._est.model.parameters()))
+    cpu = TCNForecaster(device="cpu", **TCN)
+    cpu.restore(path, sample_x=x[:1])
+    cpu_diff = float(np.abs(cpu.predict(x[rows], batch_size=TCN_BATCH)
+                            - pred).max())
+    ev_cpu = cpu.evaluate(x[rows], y[rows], metrics=tuple(ev),
+                          batch_size=TCN_BATCH)
+    ev_rel = max(abs(ev[m] - ev_cpu[m]) / abs(ev_cpu[m]) for m in ev)
+    rep = dict(evaluate=ev, evaluate_cpu=ev_cpu, evaluate_max_rel_diff=ev_rel,
+               restore_bitwise=bool(same), predict_max_abs_diff_cpu=cpu_diff)
+    log(f"  TCN predict {len(pred)} rows on {card}: evaluate {ev} (the CPU "
+        f"from the same checkpoint within {ev_rel:.3g} relative, rtol "
+        f"{ZOO_LOSS_RTOL}); max |card - cpu| {cpu_diff:.3g} (atol "
+        f"{ZOO_PRED_ATOL}); save -> restore -> predict bitwise {same}")
+    if pred.shape != (len(pred), 1) or not np.isfinite(pred).all() or \
+            not same or cpu_diff > ZOO_PRED_ATOL or ev_rel > ZOO_LOSS_RTOL:
+        raise AssertionError(f"phase 13(e): {rep}")
+    jx = np.load(os.path.join(JAX_CKPTS, "tcn_x.npy"))
+    want = np.load(os.path.join(JAX_CKPTS, "tcn_pred.npy"))
+    j = TCNForecaster(future_seq_len=2, num_channels=(8, 8), kernel_size=3)
+    j.restore(os.path.join(JAX_CKPTS, "tcn"), sample_x=jx)
+    rep["jax_tcn_max_abs_diff"] = float(np.abs(j.predict(jx) - want).max())
+    log(f"  the JAX package's TCNForecaster checkpoint on {card}: predict "
+        f"within {rep['jax_tcn_max_abs_diff']:.3g} of JAX's (atol "
+        f"{CKPT_JAX_ATOL})")
+    if rep["jax_tcn_max_abs_diff"] > CKPT_JAX_ATOL:
+        raise AssertionError(f"phase 13(e) JAX TCN: {rep}")
+    rep["lstm"] = forecaster_card_cpu(
+        torch, np, lambda dev: LSTMForecaster(
+            target_dim=1, lstm_units=(8,), dropouts=(0.0,),
+            optimizer=Adam(FC_LR), device=dev), 1, "LSTMForecaster")
+    rep["seq2seq"] = forecaster_card_cpu(
+        torch, np, lambda dev: Seq2SeqForecaster(
+            future_seq_len=3, latent_dim=8, dropout=0.0,
+            optimizer=Adam(FC_LR), device=dev), 3, "Seq2SeqForecaster")
+    return rep
+
+
+def phase_tcn(torch, np, card):
+    """Phase 13 (a)-(e); the directory it writes is removed after."""
+    import shutil
+    from analytics_zoo_tpu_torch import (OrcaContext, init_orca_context,
+                                         stop_orca_context)
+    from analytics_zoo_tpu_torch.learn import estimator
+    shutil.rmtree(TCN_DIR, ignore_errors=True)
+    os.makedirs(TCN_DIR)
+    log_dir = estimator.DEFAULT_LOG_DIR
+    estimator.DEFAULT_LOG_DIR = os.path.join(TCN_DIR, "logs")
+    rep = {}
+    try:
+        # (a) the context, fp32 with TF32 off
+        OrcaContext.default_matmul_precision = "float32"
+        ctx = init_orca_context()
+        rep["context"] = dict(
+            devices=[str(d) for d in ctx.devices], mesh=repr(ctx.mesh),
+            matmul_precision=torch.get_float32_matmul_precision(),
+            matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+            cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+        log(f"Zouwu TCN on {card}: {ctx!r}; matmul TF32 "
+            f"{rep['context']['matmul_allow_tf32']}, cudnn TF32 "
+            f"{rep['context']['cudnn_allow_tf32']}")
+        if ctx.num_devices != torch.cuda.device_count() or \
+                rep["context"]["cudnn_allow_tf32"] or \
+                rep["context"]["matmul_allow_tf32"]:
+            raise AssertionError(f"phase 13(a): {rep['context']}")
+        x, y = tcn_bench_data(np)
+        rep["window"] = tcn_windows(torch, np, {"float32": None}, x, y)
+        rep["card_cpu"] = tcn_card_cpu(torch, np, x, y, card)
+        xs, ys = tcn_stream_data(np)
+        f, rep["stream"] = tcn_stream_fit(torch, np, xs, ys, card)
+        rep["serve"] = tcn_serve(torch, np, f, xs, ys, card)
+        # (b) again under the context's default precision: TF32, and the
+        # mixed_bfloat16 policy
+        stop_orca_context()
+        OrcaContext.default_matmul_precision = "bfloat16"
+        init_orca_context()
+        rep["window"].update(tcn_windows(
+            torch, np, {"tf32": None, "mixed_bfloat16": torch.bfloat16},
+            x, y))
+        rep["window"]["fit_step_ms_streaming"] = rep["stream"]["fit_step_ms"]
+        log(f"  the streaming fit's {rep['stream']['fit_step_ms']:.3f} ms a "
+            f"step against the fp32 window's "
+            f"{rep['window']['float32']['step_ms']:.3f}: the feed (spill "
+            f"reads, unpickling, pageable copies) and the summaries")
+    finally:
+        stop_orca_context()
+        OrcaContext.default_matmul_precision = "bfloat16"
+        estimator.DEFAULT_LOG_DIR = log_dir
+        shutil.rmtree(TCN_DIR, ignore_errors=True)
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3212,6 +3591,7 @@ def main() -> int:
     from analytics_zoo_tpu_torch.serving import (Broker, ClusterServing,
                                                  InputQueue, OutputQueue)
 
+    t_start = time.perf_counter()
     report = {}
     # 1. card
     card = card_line()
@@ -3404,11 +3784,22 @@ def main() -> int:
         if zoo_counts.get(name, 0) <= 0:
             raise AssertionError(f"the zoo paths launched no {name}: "
                                  f"{zoo_counts}")
+    # 13. Zouwu's TCN through init_orca_context, XShards under DISK_4 and
+    # the streaming feed, the forecasters: no kernel of the port on its
+    # path (cuDNN's convolutions, as JAX's TCN runs outside Pallas)
+    _build.reset_launch_counts()
+    t13 = time.perf_counter()
+    report["tcn"] = phase_tcn(torch, np, card)
+    report["tcn"]["seconds"] = time.perf_counter() - t13
+    tcn_counts = _build.launch_counts()
+    log(f"phase 13: {report['tcn']['seconds']:.1f} s; the port's kernel "
+        f"launches on the TCN path: {tcn_counts}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
                           "ncf_train": ncf_train_counts,
-                          "checkpoints": ckpt_counts, "zoo": zoo_counts}
+                          "checkpoints": ckpt_counts, "zoo": zoo_counts,
+                          "tcn": tcn_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -3533,6 +3924,8 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")})
     report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {report['seconds']:.1f} s in all")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

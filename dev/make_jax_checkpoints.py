@@ -20,7 +20,11 @@ tests:
   continuous, hidden (16, 8), 2 classes), compiled with ``Adam(1e-2)``;
   ``wide_and_deep_{wide,indicator,embed,continuous}.npy`` hold 64 rows of
   its four inputs and ``wide_and_deep_pred.npy`` the JAX package's
-  predictions.
+  predictions;
+- ``tcn/``: a Zouwu ``TCNForecaster`` (future 2, channels (8, 8), kernel
+  3, Adam) as ``Forecaster.save`` writes it (``ckpt-0/``); ``tcn_x.npy``
+  holds 32 windows of 16 steps and 3 features and ``tcn_pred.npy`` the
+  JAX package's forecasts.
 
 The weights are flax's initial values from the models' seeds: the files
 do not depend on how many devices JAX sees. ``tests/test_torch_checkpoint
@@ -57,6 +61,7 @@ WND_COLUMNS = dict(
     continuous_cols=["age"])
 WND_ARGS = dict(class_num=2, model_type="wide_n_deep", hidden_layers=(16, 8))
 WND_INPUTS = ("wide", "indicator", "embed", "continuous")
+TCN_ARGS = dict(future_seq_len=2, num_channels=(8, 8), kernel_size=3)
 
 
 def ncf_inputs() -> np.ndarray:
@@ -89,8 +94,13 @@ def wide_and_deep_inputs():
     return wide, ind, emb, con
 
 
+def tcn_inputs() -> np.ndarray:
+    return np.random.default_rng(9).normal(size=(32, 16, 3)).astype(
+        np.float32)
+
+
 def write_all(out: str) -> None:
-    """Write the three models and their arrays under ``out`` (replaced)."""
+    """Write the four models and their arrays under ``out`` (replaced)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from analytics_zoo_tpu.inference import InferenceModel
@@ -100,6 +110,7 @@ def write_all(out: str) -> None:
     from analytics_zoo_tpu.models.recommendation import (ColumnFeatureInfo,
                                                          NeuralCF,
                                                          WideAndDeep)
+    from analytics_zoo_tpu.zouwu.model.forecast import TCNForecaster
 
     if os.path.isdir(out):
         shutil.rmtree(out)
@@ -147,6 +158,13 @@ def write_all(out: str) -> None:
         np.save(os.path.join(out, f"wide_and_deep_{name}.npy"), arr)
     np.save(os.path.join(out, "wide_and_deep_pred.npy"),
             np.asarray(wnd.predict(list(xs))))
+
+    tcn = TCNForecaster(**TCN_ARGS)
+    x = tcn_inputs()
+    tcn._ensure_est(x)
+    tcn.save(os.path.join(out, "tcn"))
+    np.save(os.path.join(out, "tcn_x.npy"), x)
+    np.save(os.path.join(out, "tcn_pred.npy"), tcn.predict(x))
 
 
 def main(argv=None) -> int:

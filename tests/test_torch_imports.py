@@ -51,9 +51,14 @@ def test_importing_every_module_loads_no_jax():
                 "common.context", "common.summary", "keras.regularizers",
                 "models.recommendation.wide_and_deep",
                 "models.recommendation.session_recommender",
-                "models.anomalydetection.anomaly_detector"):
+                "models.anomalydetection.anomaly_detector",
+                "parallel.mesh", "data.shard", "data.dataset",
+                "data.pandas.preprocessing", "automl.metrics",
+                "zouwu.model.nets", "zouwu.model.forecast"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+    # pandas is imported inside the functions that handle a DataFrame
+    assert "pandas" not in loaded
 
 
 @pytest.mark.parametrize("path", sorted(
