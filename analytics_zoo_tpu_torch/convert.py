@@ -39,8 +39,9 @@ attention projections' ``[in, h, d]`` and ``[h, d, out]``, or a
 LayerNorm a
 ``scale`` and a ``bias``; an embedding table its ``embedding``).
 ``ParamLayout`` uses it to turn the parameters, and anything shaped like
-them (Adam's moments, a momentum trace), into the flax tree a checkpoint
-holds (learn/checkpoint.py), and back. A module with a parameter outside
+them (Adam's moments, a momentum trace, L-BFGS's memories with a slot
+axis in front), into the flax tree a checkpoint holds
+(learn/checkpoint.py), and back. A module with a parameter outside
 those rules keeps its torch names, nested at the dots.
 """
 
@@ -57,52 +58,58 @@ _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
            "embedding": "embedding"}
 
 
-def _linear_weight(kernel: np.ndarray, bias) -> np.ndarray:
-    n_out = 1 if bias is None else max(np.ndim(bias), 1)
-    n_in = kernel.ndim - n_out
-    rows = int(np.prod(kernel.shape[:n_in]))
-    return kernel.reshape(rows, -1).T
+def _linear_weight(kernel: np.ndarray, bias, lead: int = 0) -> np.ndarray:
+    n_out = 1 if bias is None else max(np.ndim(bias) - lead, 1)
+    n_in = kernel.ndim - lead - n_out
+    rows = int(np.prod(kernel.shape[lead:lead + n_in]))
+    return np.swapaxes(kernel.reshape(kernel.shape[:lead] + (rows, -1)),
+                       -1, -2)
 
 
-def flax_to_state_dict(params: Mapping, prefix: str = ""
+def flax_to_state_dict(params: Mapping, prefix: str = "", lead: int = 0
                        ) -> Dict[str, torch.Tensor]:
-    """Flatten a flax ``params`` tree into a torch state dict."""
+    """Flatten a flax ``params`` tree into a torch state dict. With
+    ``lead``, every leaf has that many leading axes (an optimizer's
+    per-slot memories) and the rules apply past them."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
         key = f"{prefix}{name}"
         if isinstance(sub, Mapping):
-            out.update(flax_to_state_dict(sub, prefix=key + "."))
+            out.update(flax_to_state_dict(sub, prefix=key + ".", lead=lead))
             continue
         if name not in _LEAVES:
             raise KeyError(f"no torch counterpart for flax leaf {key!r}")
         arr = np.asarray(sub)
-        if name == "kernel" and arr.ndim >= 2:
-            arr = _linear_weight(arr, params.get("bias"))
+        if name == "kernel" and arr.ndim - lead >= 2:
+            arr = _linear_weight(arr, params.get("bias"), lead)
         elif name == "bias":
-            arr = arr.reshape(-1)
+            arr = arr.reshape(arr.shape[:lead] + (-1,))
         out[f"{prefix}{_LEAVES[name]}"] = torch.tensor(
             np.ascontiguousarray(arr), dtype=torch.float32)
     return out
 
 
-def state_dict_to_flax(state_dict: Mapping, like: Mapping, prefix: str = ""
-                       ) -> Dict:
+def state_dict_to_flax(state_dict: Mapping, like: Mapping, prefix: str = "",
+                       lead: tuple = ()) -> Dict:
     """The inverse of ``flax_to_state_dict``: a flax ``params`` tree of
     fp32 numpy arrays with the structure and leaf shapes of ``like`` (any
-    tree whose leaves have ``.shape``), filled from ``state_dict``."""
+    tree whose leaves have ``.shape``), filled from ``state_dict``; with
+    ``lead``, each tensor has those leading axes in front of its
+    parameter's shape, and so has each leaf of the tree."""
     out: Dict = {}
     for name, sub in like.items():
         key = f"{prefix}{name}"
         if isinstance(sub, Mapping):
-            out[name] = state_dict_to_flax(state_dict, sub, prefix=key + ".")
+            out[name] = state_dict_to_flax(state_dict, sub, key + ".", lead)
             continue
         if name not in _LEAVES:
             raise KeyError(f"no torch counterpart for flax leaf {key!r}")
         arr = state_dict[f"{prefix}{_LEAVES[name]}"].detach().cpu().float()
         arr = arr.numpy()
-        if name == "kernel" and arr.ndim == 2:
-            arr = arr.T
-        out[name] = np.ascontiguousarray(arr.reshape(tuple(sub.shape)))
+        if name == "kernel" and arr.ndim - len(lead) == 2:
+            arr = np.swapaxes(arr, -1, -2)
+        out[name] = np.ascontiguousarray(
+            arr.reshape(tuple(lead) + tuple(sub.shape)))
     return out
 
 
@@ -195,12 +202,26 @@ class ParamLayout:
             n: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta")
             for n, p in module.named_parameters()})
 
-    def to_tree(self, tensors: Mapping[str, torch.Tensor]) -> Dict:
+    def to_tree(self, tensors: Mapping[str, torch.Tensor],
+                lead: tuple = ()) -> Dict:
+        """``lead``: leading axes each tensor has in front of its
+        parameter's shape (L-BFGS's memories); the layout applies past
+        them."""
         if self.flax:
-            return state_dict_to_flax(tensors, self.like)
+            return state_dict_to_flax(tensors, self.like, lead=lead)
         return nest({n: tensors[n].detach().cpu() for n in self.names})
 
-    def from_tree(self, tree: Mapping) -> Dict[str, torch.Tensor]:
+    def from_tree(self, tree: Mapping, lead: int = 0
+                  ) -> Dict[str, torch.Tensor]:
         if self.flax:
-            return flax_to_state_dict(tree)
+            return flax_to_state_dict(tree, lead=lead)
         return {n: torch.as_tensor(v) for n, v in flatten(tree).items()}
+
+    def spec(self, lead: tuple = ()) -> Dict:
+        """``like`` with ``lead`` in front of every leaf's shape."""
+        def walk(tree):
+            if isinstance(tree, Mapping):
+                return {k: walk(v) for k, v in tree.items()}
+            return torch.empty(tuple(lead) + tuple(tree.shape),
+                               dtype=tree.dtype, device="meta")
+        return walk(self.like) if lead else self.like

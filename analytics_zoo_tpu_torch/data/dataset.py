@@ -27,14 +27,17 @@ The port's own copy of ``analytics_zoo_tpu/data/dataset.py``:
   ``label_cols``).
 
 One process feeds one device, so a global batch is a host batch.
-``device_iterator`` and ``device_scan_iterator`` (placement on a mesh,
-``steps_per_loop`` groups) wait for ROADMAP A9 and A3: the estimator
-moves each batch to its device itself. No module here imports pandas at
-import time; a DataFrame shard is told apart without importing it.
+``device_scan_iterator`` stacks ``steps_per_loop`` batches into one copy
+to the device for the estimator's ``fit(steps_per_loop=k)``;
+``device_iterator`` (placement on a mesh) waits for ROADMAP A9: the
+estimator moves each batch to its device itself. No module here imports
+pandas at import time; a DataFrame shard is told apart without importing
+it.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import time
@@ -63,6 +66,18 @@ def _tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [leaf for v in tree for leaf in _tree_leaves(v)]
     return [tree]
+
+
+def _stack_tree(trees, put):
+    """Leaf-wise ``np.stack`` of same-shaped trees, each stacked leaf
+    passed through ``put``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([t[k] for t in trees], put) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_tree([t[i] for t in trees], put)
+                           for i in range(len(first)))
+    return put(np.stack(trees))
 
 
 def _tree_take(data, idx):
@@ -213,6 +228,37 @@ class ShardedDataset:
         if self.n > full * batch_size and not drop_remainder:
             yield _padded_tail(self.x, self.y, order[full * batch_size:],
                                batch_size)
+
+    def device_scan_iterator(self, device, batch_size: int,
+                             steps_per_loop: int, shuffle: bool = False,
+                             seed: int = 0, epoch: int = 0, skip: int = 0):
+        """(JAX ``device_scan_iterator``) ``steps_per_loop`` full batches,
+        in ``iter_batches``' order, stacked into one ``[k, batch, ...]``
+        copy to ``device``: yields ``(x_stack, y_stack, k)`` with torch
+        tensors (``y_stack`` None without labels). The tail group may have
+        ``k < steps_per_loop``; rows that fill no batch are dropped. The
+        first ``skip`` batches are left out (a resume inside the epoch).
+        A ``StreamingShardedDataset`` groups the batches of its own
+        feed."""
+        from analytics_zoo_tpu_torch.common.device import as_tensor
+
+        def place(group):
+            xs, ys = zip(*group)
+            x = _stack_tree(xs, lambda a: as_tensor(a, device))
+            y = None if ys[0] is None else \
+                _stack_tree(ys, lambda a: as_tensor(a, device))
+            return x, y, len(group)
+
+        group = []
+        batches = self.iter_batches(batch_size, shuffle, seed, epoch,
+                                    drop_remainder=True)
+        for x, y, _ in itertools.islice(batches, skip, None):
+            group.append((x, y))
+            if len(group) == steps_per_loop:
+                yield place(group)
+                group = []
+        if group:
+            yield place(group)
 
 
 def _prefetch_default() -> int:

@@ -60,11 +60,34 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   in-memory set, and lands bitwise the same way.
 - **Device**: ``device=None`` takes the active context's first device
   (``init_orca_context``), else ``cuda``.
+- **Loop modes** (JAX ``fit``'s ``steps_per_loop``, ``cache``):
+  ``steps_per_loop=k`` copies ``k`` batches to the device as one stacked
+  tensor (``ShardedDataset.device_scan_iterator``) and takes ``k`` eager
+  steps from it; the fault seam ``step`` counts one arrival a loop (JAX's
+  fused scan counts once), and after each loop the checkpoint trigger is
+  tested at every step the loop took (at most one snapshot a loop, of the
+  loop's end). ``cache="device"`` copies a labelled in-memory dataset to
+  the device once per dataset object (a strong reference) and runs each
+  epoch's ``n // batch_size`` steps from it, the permutation drawn on the
+  device from a generator seeded from ``seed + 17`` and ``977 + epoch``
+  (JAX folds ``PRNGKey(seed + 17)`` with ``977 + epoch``; the bits differ,
+  ROADMAP C14); the epoch's losses are read back once, and summaries and
+  checkpoint triggers come at its end. No step of either mode differs
+  from the per-step fit's: with ``shuffle=False`` (and for the loop, with
+  any order) they end bitwise where it does. There is no CUDA graph: a
+  loop is ``k`` eager steps (capturing it is ROADMAP R6).
+- **Profile** (JAX ``_ProfileWindow``): ``profile=True`` or
+  ``profile_steps=(start, stop)`` (default ``(0, 20)``) runs
+  ``torch.profiler`` over the fit-relative steps ``[start, stop)``, each
+  step inside a ``zoo_step_<n>`` range, and writes the trace to
+  ``<tensorboard train dir>/plugins/profile``; the profiler starts and
+  stops between steps (between loops with ``steps_per_loop``) and stops
+  in ``fit``'s ``finally``.
 
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
-(ROADMAP A9); ``steps_per_loop``, ``cache="device"`` and ``profile``
-(ROADMAP A3); the telemetry registry the JAX package mirrors the
-summaries into (ROADMAP A10).
+(ROADMAP A9); the per-step telemetry (``zoo_step_flops``, ``zoo_mfu``)
+and the registry the JAX package mirrors the summaries into (ROADMAP
+A10).
 """
 
 from __future__ import annotations
@@ -131,6 +154,58 @@ def _n_inputs(model: nn.Module, sig: inspect.Signature) -> Optional[int]:
     return n
 
 
+class _ProfileWindow:
+    """(JAX ``_ProfileWindow``) ``torch.profiler`` over the absolute step
+    thresholds ``[start_step, stop_step)``, computed at fit start:
+    ``on_step`` after every optimizer step or loop starts it once the
+    step count reaches ``start_step`` and closes it at ``stop_step``;
+    ``close`` (from fit's ``finally``) writes the trace under
+    ``log_dir``."""
+
+    def __init__(self, log_dir: str, start_step: int, stop_step: int,
+                 device: torch.device):
+        if stop_step <= start_step:
+            raise ValueError(
+                f"profile_steps window must be non-empty, got "
+                f"({start_step}, {stop_step})")
+        self.log_dir = log_dir
+        self.start_step, self.stop_step = int(start_step), int(stop_step)
+        self.device = device
+        self.active = False
+        self.done = False
+        self._prof = None
+
+    def on_step(self, py_step: int) -> None:
+        if not self.active and not self.done and \
+                py_step >= self.start_step:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+                # no kernel of an earlier step is still in flight
+                torch.cuda.synchronize(self.device)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self.active = True
+            logger.info("torch profiler tracing steps [%d, %d) to %s",
+                        self.start_step, self.stop_step, self.log_dir)
+        if self.active and py_step >= self.stop_step:
+            self.close()
+
+    def close(self) -> None:
+        if self.active:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._prof.stop()
+            os.makedirs(self.log_dir, exist_ok=True)
+            self.path = os.path.join(
+                self.log_dir, f"zoo.{time.time_ns()}.pt.trace.json")
+            self._prof.export_chrome_trace(self.path)
+            self._prof = None
+            self.active = False
+            self.done = True
+
+
 class Estimator:
     """Factory (ref orca/learn/tf/estimator.py Estimator)."""
 
@@ -192,6 +267,10 @@ class TorchEstimator:
         self._grad_clip = None  # ("norm", v) | ("const", min, max)
         self._epoch = 0
         self._py_step = 0
+        #: cache="device": the dataset object held on the device, its
+        #: tensors, and the profile window of the last fit
+        self._cached = None
+        self._profile_window: Optional[_ProfileWindow] = None
         sig = inspect.signature(self.model.forward)
         self._takes_train = "train" in sig.parameters
         self._n_inputs = _n_inputs(self.model, sig)
@@ -326,6 +405,8 @@ class TorchEstimator:
             feature_cols=None, label_cols=None, validation_data=None,
             checkpoint_trigger: Optional[Trigger] = None,
             summary_interval: int = 20, shuffle: bool = True,
+            steps_per_loop: int = 1, cache: Optional[str] = None,
+            profile: bool = False, profile_steps=None,
             auto_resume: bool = False) -> Dict[str, List[float]]:
         """(ref orca/learn/tf/estimator.py fit:486) One optimizer step per
         batch of ``batch_size``; returns ``{"loss": [mean loss of each
@@ -341,8 +422,20 @@ class TorchEstimator:
         past torn or mismatched ones, within ``ZOO_FIT_MAX_RESUMES``
         resumes: the step and epoch counts, the optimizer state and the
         data order come back, so the run ends bitwise where an unfaulted
-        one does."""
+        one does.
+
+        ``steps_per_loop``, ``cache="device"``, ``profile`` and
+        ``profile_steps`` are the module docstring's loop modes and
+        profile window."""
+        if cache not in (None, "device"):
+            raise ValueError(f"unknown cache mode {cache!r} "
+                             "(supported: 'device')")
         ds = self._dataset(data, feature_cols, label_cols)
+        if cache == "device" and (getattr(ds, "x", None) is None
+                                  or ds.y is None):
+            raise ValueError("cache='device' needs a materialized labelled "
+                             "dataset (streaming/tiered feeds stay on the "
+                             "standard path)")
         val_ds = (self._dataset(validation_data, feature_cols, label_cols)
                   if validation_data is not None else None)
         if checkpoint_trigger is None and self.model_dir:
@@ -359,12 +452,44 @@ class TorchEstimator:
         target = self._epoch + epochs
         start = (self._py_step, self._epoch, len(self.step_losses),
                  ds.n // batch_size)
+        window = None
+        if profile or profile_steps is not None:
+            lo, hi = profile_steps if profile_steps is not None else (0, 20)
+            window = _ProfileWindow(
+                os.path.join(self._tb_dirs[0], "plugins", "profile"),
+                self._py_step + int(lo), self._py_step + int(hi),
+                self.device)
+        self._profile_window = window
+        try:
+            if window is not None:
+                window.on_step(self._py_step)
+            self._fit_epochs(ds, val_ds, target, batch_size, shuffle,
+                             max(1, int(summary_interval)), trigger,
+                             max(1, int(steps_per_loop)), cache, window,
+                             auto_resume, start, history)
+        finally:
+            if window is not None:
+                window.close()
+        train_writer.flush()
+        val_writer.flush()
+        return history
+
+    def _fit_epochs(self, ds, val_ds, target, batch_size, shuffle,
+                    summary_interval, trigger, steps_per_loop, cache,
+                    window, auto_resume, start, history) -> None:
+        """``fit``'s epochs, each retried from the newest snapshot on a
+        failure."""
         retries, skip = 0, 0
+        train_writer, val_writer = self._writers()
         while self._epoch < target:
             try:
-                epoch_loss = self._run_epoch(
-                    ds, batch_size, shuffle, max(1, int(summary_interval)),
-                    trigger, train_writer, skip)
+                if cache == "device":
+                    epoch_loss = self._run_epoch_cached(
+                        ds, batch_size, shuffle, train_writer, window, skip)
+                else:
+                    epoch_loss = self._run_epoch(
+                        ds, batch_size, shuffle, summary_interval, trigger,
+                        train_writer, skip, steps_per_loop, window)
             except Exception as e:
                 # retry from the newest snapshot (ref Topology.scala:1255)
                 retries += 1
@@ -400,9 +525,6 @@ class TorchEstimator:
                     trigger, self._epoch, self._py_step, epoch_loss,
                     val_score):
                 self._save_snapshot()
-        train_writer.flush()
-        val_writer.flush()
-        return history
 
     def _resume_point(self, start, history) -> int:
         """After a reload inside ``fit``: how many batches of the restored
@@ -420,9 +542,23 @@ class TorchEstimator:
         del self.step_losses[base + self._py_step - step0:]
         return done
 
+    def _step(self, x, y, window: Optional[_ProfileWindow]
+              ) -> torch.Tensor:
+        """One optimizer step (inside a ``zoo_step_<n>`` profiler range
+        while a window traces); the step count moves on."""
+        if window is not None and window.active:
+            with torch.profiler.record_function(f"zoo_step_{self._py_step}"):
+                loss = self._train_step(x, y)
+        else:
+            loss = self._train_step(x, y)
+        self._py_step += 1
+        return loss
+
     def _run_epoch(self, ds: ShardedDataset, batch_size: int, shuffle: bool,
                    summary_interval: int, trigger: Optional[Trigger],
-                   writer: SummaryWriter, skip: int = 0) -> float:
+                   writer: SummaryWriter, skip: int = 0,
+                   steps_per_loop: int = 1,
+                   window: Optional[_ProfileWindow] = None) -> float:
         """One epoch from its ``skip``-th batch; the mean loss of all its
         steps (those before ``skip`` are the last ``skip`` read back)."""
         start = len(self.step_losses) - skip
@@ -450,26 +586,96 @@ class TorchEstimator:
             pending.clear()
 
         self.model.train(True)
-        batches = ds.iter_batches(batch_size, shuffle, seed=self.seed,
-                                  epoch=self._epoch, drop_remainder=True)
-        for x, y, _ in itertools.islice(batches, skip, None):
-            # fault-injection seam: one arrival per train step
+        if steps_per_loop > 1:
+            # one stacked copy a loop, then its steps
+            loops = ds.device_scan_iterator(
+                self.device, batch_size, steps_per_loop, shuffle,
+                seed=self.seed, epoch=self._epoch, skip=skip)
+        else:
+            loops = ((x, y, 1) for x, y, _ in itertools.islice(
+                ds.iter_batches(batch_size, shuffle, seed=self.seed,
+                                epoch=self._epoch, drop_remainder=True),
+                skip, None))
+        for x, y, k in loops:
+            # fault-injection seam: one arrival per loop (a step, or a
+            # fused loop as JAX's scan counts once)
             resilience.maybe_fault("step")
-            pending.append(self._train_step(x, y))
-            self._py_step += 1
+            first = self._py_step
+            if steps_per_loop > 1:
+                for i in range(k):
+                    pending.append(self._step(
+                        tree_map(lambda a: a[i], x),
+                        tree_map(lambda a: a[i], y), window))
+            else:
+                pending.append(self._step(x, y, window))
             if len(pending) >= summary_interval:
                 flush()
             # iteration-granular snapshots, e.g. SeveralIteration(n), on
-            # the last loss read back (ref Topology.scala checkpointTrigger)
-            if trigger is not None and trigger(
-                    self._epoch, self._py_step,
-                    self.step_losses[-1] if len(self.step_losses) > start
-                    else None):
+            # the last loss read back (ref Topology.scala checkpointTrigger):
+            # every step of the loop is tested, one snapshot at most
+            last = (self.step_losses[-1] if len(self.step_losses) > start
+                    else None)
+            if trigger is not None and any(
+                    trigger(self._epoch, s, last)
+                    for s in range(first + 1, self._py_step + 1)):
                 flush()
                 self._save_snapshot()
+            if window is not None:
+                window.on_step(self._py_step)
         flush()
         losses = self.step_losses[start:]
         return float(np.mean(losses)) if losses else float("nan")
+
+    def _device_order(self, n: int, shuffle: bool) -> torch.Tensor:
+        """The cached epoch's row order, made on the device: a permutation
+        from a generator seeded from ``seed + 17`` and ``977 + epoch``
+        (ROADMAP C14), or ``arange(n)``."""
+        if not shuffle:
+            return torch.arange(n, device=self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((self.seed + 17) * 1000003 + 977 + self._epoch)
+                        & 0x7FFFFFFFFFFF)
+        return torch.randperm(n, generator=gen, device=self.device)
+
+    def _run_epoch_cached(self, ds: ShardedDataset, batch_size: int,
+                          shuffle: bool, writer: SummaryWriter,
+                          window: Optional[_ProfileWindow] = None,
+                          skip: int = 0) -> float:
+        """(JAX ``_run_epoch_cached``) One epoch over the device-resident
+        dataset: the permutation drawn on the device, every batch indexed
+        there, the losses read back once."""
+        if self._cached is None or self._cached[0] is not ds:
+            # a strong reference: an id() could alias a new dataset made
+            # at a freed one's address
+            self._cached = (ds, self._tensors(ds.x), self._tensors(ds.y))
+        _, cx, cy = self._cached
+        n_steps = ds.n // batch_size
+        if n_steps < 1:
+            raise ValueError(f"batch_size {batch_size} > dataset {ds.n}")
+        order = self._device_order(ds.n, shuffle)
+        idx = order[:n_steps * batch_size].view(n_steps, batch_size)
+        self.model.train(True)
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(skip, n_steps):
+            ib = idx[i]
+            losses.append(self._step(tree_map(lambda a: a[ib], cx),
+                                     tree_map(lambda a: a[ib], cy), window))
+            if window is not None:
+                window.on_step(self._py_step)
+        vals = torch.stack(losses).double().cpu().tolist() if losses else []
+        dt = time.perf_counter() - t0
+        self.step_losses.extend(vals)
+        if vals:
+            step = self._py_step
+            writer.add_scalar("Loss", vals[-1], step)
+            writer.add_scalar("Throughput",
+                              len(vals) * batch_size / max(dt, 1e-9), step)
+            lr = self._current_lr(step)
+            if lr is not None:
+                writer.add_scalar("LearningRate", lr, step)
+        done = self.step_losses[len(self.step_losses) - n_steps:]
+        return float(np.mean(done)) if done else float("nan")
 
     def evaluate(self, data, batch_size: int = 32, feature_cols=None,
                  label_cols=None) -> Dict[str, float]:
@@ -549,18 +755,18 @@ class TorchEstimator:
         if spec:
             opt_state = (self._opt_state if self._opt_state is not None
                          else defaultdict(lambda: None, count=0))
-            opt = self.optimizer.optax_state(opt_state,
-                                             lambda _: layout.like)
+            opt = self.optimizer.optax_state(
+                opt_state, lambda _, lead=(): layout.spec(lead))
             params = layout.like
             model_state = nest({k: v.to("meta")
                                  for k, v in buffers.items()})
         else:
-            def tree(tensors):
+            def tree(tensors, lead=()):
                 given = dict(zip(self._names, tensors))
                 for n, p in named.items():
                     if n not in given:      # frozen: optax keeps zeros
-                        given[n] = torch.zeros_like(p)
-                return layout.to_tree(given)
+                        given[n] = p.new_zeros(tuple(lead) + p.shape)
+                return layout.to_tree(given, lead)
             opt = self.optimizer.optax_state(self._ensure_opt_state(), tree)
             params = layout.to_tree(named)
             model_state = nest({k: v.detach().cpu()
@@ -588,8 +794,8 @@ class TorchEstimator:
             for k, b in buffers.items():
                 b.copy_(saved[k])
 
-        def untree(tree):
-            vals = layout.from_tree(tree)
+        def untree(tree, lead=0):
+            vals = layout.from_tree(tree, lead)
             return [vals[n].to(self.device, named[n].dtype, copy=True)
                     for n in self._names]
         opt = state["opt_state"]

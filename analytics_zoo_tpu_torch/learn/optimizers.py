@@ -30,8 +30,43 @@ place of the last ``{}``; ``count`` is an int32 scalar. The moments and
 the trace are trees shaped like the parameters, made by the caller's
 ``tree``.
 
-The other optimizer names of the JAX package (rmsprop, adagrad, adadelta,
-adamax, nadam, lars, lamb, lbfgs) raise: porting them is ROADMAP A3.
+The other eight follow optax 0.2.6's transformations, each in optax's
+order of rounding:
+
+- ``RMSprop`` (optax ``rmsprop``): ``nu = (1-d)·g² + d·nu`` from 0, the
+  update ``rsqrt(nu + eps)·g`` (eps inside the root); state ``{"0":
+  {"nu"}, "1": {}, "2": {}}``.
+- ``Adagrad`` (``adagrad``): the sum of squares starts at 0.1, ``t = g² +
+  t``, the update ``where(t > 0, rsqrt(t + 1e-7), 0)·g``; state ``{"0":
+  {"sum_of_squares"}, "1": {}}``.
+- ``Adadelta`` (``adadelta``, no weight decay): ``e_g`` from ``g²``, the
+  update ``sqrt(e_x + eps) / sqrt(e_g + eps)·g``, then ``e_x`` from the
+  update's square; state ``{"0": {}, "1": {"e_g", "e_x"}, "2": {}}``.
+- ``Adamax`` (``adamax``): ``mu`` as Adam's, ``nu = max(|g| + eps,
+  b2·nu)`` (the infinity norm), the update ``mu_hat / nu``; state
+  ``{"0": {"count", "mu", "nu"}, "1": {}}``.
+- ``Nadam`` (``nadam``, Adam with ``nesterov=True``): ``mu_hat = b1·mu /
+  (1 - b1^(t+1)) + (1-b1)·g / (1 - b1^t)``; Adam's state.
+- ``LARS`` (``lars``): weight decay, then the trust ratio ``0.001·|p| /
+  |u|`` (1 where either norm is 0), both under an all-true mask, then
+  ``-lr``, then the momentum trace; state ``{"0": {"inner_state": {}},
+  "1": {"inner_state": {}}, "2": {}, "3": {"trace"}}``.
+- ``LAMB`` (``lamb``): Adam's update with eps 1e-6, ``+ wd·p``, the
+  trust ratio ``|p| / |u|``, ``-lr``; state ``{"0": adam, "1": {}, "2":
+  {}, "3": {}}``.
+- ``LBFGS`` (``lbfgs(memory_size=ncorrection, linesearch=None)``): the
+  two-loop recursion over a ring of ``ncorrection`` parameter and gradient
+  differences, the first step scaled by ``min(1, 1/|g|)`` and later ones
+  by ``<dg, dp> / |dg|²``; state ``{"0": {"count", "params", "updates",
+  "diff_params_memory", "diff_updates_memory", "weights_memory"}, "1": {},
+  "2": {}}``, the two memories ``[ncorrection, *param.shape]`` (``tree``
+  is called with ``lead=(ncorrection,)`` for them). The loops visit only
+  the slots written so far: an unwritten slot holds zeros and weight 0,
+  and optax's step over it changes nothing.
+
+A state without a count in optax's tree (RMSprop, Adagrad, Adadelta,
+LARS; SGD without a schedule) restores with count 0: its rate is
+constant.
 """
 
 from __future__ import annotations
@@ -165,10 +200,6 @@ def _lr(learning_rate: float, schedule: Optional[LRSchedule]):
 
 # ---------------- optimizers (ref orca/learn/optimizers_impl.py) --------
 
-_NOT_PORTED = ("rmsprop", "adagrad", "adadelta", "adamax", "nadam", "lars",
-               "lamb", "lbfgs")
-
-
 def _has_schedule(schedule: Optional[LRSchedule]) -> bool:
     """Whether the JAX package gives optax a schedule (a state with a
     count) rather than a constant rate."""
@@ -200,16 +231,19 @@ class Optimizer:
         self.__dict__.update(state)
         self._lr = self._make_lr()
 
-    def optax_state(self, state: dict, tree: Callable[[list], dict]) -> dict:
+    def optax_state(self, state: dict, tree: Callable[..., dict]) -> dict:
         """``state`` (with its ``count``) as the optax tree; ``tree`` turns
-        a list of per-parameter tensors into a parameter-shaped tree."""
+        a list of per-parameter tensors into a parameter-shaped tree
+        (``tree(tensors, lead=(m,))`` for tensors with ``m`` slots in
+        front of each parameter's shape)."""
         raise NotImplementedError(
             f"{type(self).__name__} has no optax state mapping")
 
-    def from_optax_state(self, opt: dict, untree: Callable[[dict], list]
+    def from_optax_state(self, opt: dict, untree: Callable[..., list]
                          ) -> dict:
         """The inverse of ``optax_state``; ``untree`` turns a
-        parameter-shaped tree back into the list of tensors."""
+        parameter-shaped tree back into the list of tensors
+        (``untree(tree, lead=1)`` past one leading axis)."""
         raise NotImplementedError(
             f"{type(self).__name__} has no optax state mapping")
 
@@ -223,14 +257,13 @@ class Optimizer:
             return opt
         if isinstance(opt, str):
             name = opt.lower()
-            table = {"sgd": SGD, "adam": Adam, "adamw": AdamWeightDecay}
-            if name in table:
-                return table[name]()
-            if name in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"optimizer {opt!r} is not ported yet (ROADMAP A3); "
-                    "use sgd, adam or adamw")
-            raise ValueError(f"unknown optimizer {opt!r}")
+            table = {"sgd": SGD, "adam": Adam, "adamw": AdamWeightDecay,
+                     "rmsprop": RMSprop, "adagrad": Adagrad,
+                     "adadelta": Adadelta, "adamax": Adamax, "nadam": Nadam,
+                     "lars": LARS, "lamb": LAMB, "lbfgs": LBFGS}
+            if name not in table:
+                raise ValueError(f"unknown optimizer {opt!r}")
+            return table[name]()
         raise TypeError(f"cannot build optimizer from {type(opt)}")
 
 
@@ -238,6 +271,35 @@ def _apply(params, updates, lr: float) -> None:
     """p + (-lr)·u, rounded after the product as optax's ``scale`` then
     ``apply_updates`` do."""
     torch._foreach_add_(params, torch._foreach_mul(updates, -lr))
+
+
+def _moment(m, g, decay: float) -> None:
+    """optax ``update_moment``, in place: ``(1 - d)·g + d·m``, each
+    product rounded, then the sum (``g`` already raised to its order)."""
+    torch._foreach_mul_(m, decay)
+    torch._foreach_add_(m, torch._foreach_mul(g, 1 - decay))
+
+
+def _correction(decay: float, t: int) -> float:
+    """optax ``bias_correction``'s ``1 - decay^t``, in fp32 as optax takes
+    the power of a weak float to an int32 count."""
+    return float(1 - np.float32(decay) ** np.float32(t))
+
+
+def _trust_ratio(params, updates, coefficient: float, eps: float) -> None:
+    """optax ``scale_by_trust_ratio`` (``min_norm`` 0), in place:
+    ``u·(c·|p| / (|u| + eps))``, or ``u`` where either norm is 0."""
+    pn = torch.stack(torch._foreach_norm(params))
+    un = torch.stack(torch._foreach_norm(updates))
+    ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                        coefficient * pn / (un + eps))
+    torch._foreach_mul_(updates, list(ratio.unbind()))
+
+
+def _tree_vdot(xs, ys) -> torch.Tensor:
+    """optax ``tree.vdot``: each leaf's dot product, then their sum."""
+    return torch.stack([torch.dot(x.reshape(-1), y.reshape(-1))
+                        for x, y in zip(xs, ys)]).sum()
 
 
 class SGD(Optimizer):
@@ -327,21 +389,27 @@ class Adam(Optimizer):
         return {"count": int(adam["count"]), "mu": untree(adam["mu"]),
                 "nu": untree(adam["nu"])}
 
+    #: Nadam's Nesterov form of the first moment
+    _nesterov = False
+
     def _adam(self, grads, state, count) -> List[torch.Tensor]:
         """optax ``scale_by_adam``: updates the moments in place and
         returns ``mu_hat / (sqrt(nu_hat) + eps)``."""
         mu, nu = state["mu"], state["nu"]
         b1, b2 = self.b1, self.b2
         # (1 - b)·g^k + b·m, each product rounded, then the sum
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - b2))
-        # 1 - b^t in fp32, as optax takes the power of a weak float
-        t = np.float32(count + 1)
-        mu_hat = torch._foreach_div(mu, float(1 - np.float32(b1) ** t))
-        nu_hat = torch._foreach_div(nu, float(1 - np.float32(b2) ** t))
+        _moment(mu, grads, b1)
+        _moment(nu, torch._foreach_mul(grads, grads), b2)
+        t = count + 1
+        if self._nesterov:
+            # b1·mu / (1 - b1^(t+1)) + (1 - b1)·g / (1 - b1^t)
+            mu_hat = torch._foreach_mul(
+                torch._foreach_div(mu, _correction(b1, t + 1)), b1)
+            torch._foreach_add_(mu_hat, torch._foreach_mul(
+                torch._foreach_div(grads, _correction(b1, t)), 1 - b1))
+        else:
+            mu_hat = torch._foreach_div(mu, _correction(b1, t))
+        nu_hat = torch._foreach_div(nu, _correction(b2, t))
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, self.eps)
         return torch._foreach_div(mu_hat, denom)
@@ -378,3 +446,315 @@ class AdamWeightDecay(Adam):
         upd = self._adam(grads, state, count)
         torch._foreach_add_(upd, torch._foreach_mul(params, self.wd))
         _apply(params, upd, self._lr(count))
+
+
+class _Constant(Optimizer):
+    """An optimizer whose rate is a constant ``lr`` (the JAX wrapper
+    takes no schedule)."""
+
+    def _make_lr(self):
+        return _lr(self.lr, None)
+
+
+class RMSprop(_Constant):
+    """optax ``rmsprop(lr, decay, eps)``: eps inside the root, the second
+    moment from 0."""
+
+    def __init__(self, learningrate: float = 1e-2, decayrate: float = 0.9,
+                 epsilon: float = 1e-8):
+        self.lr, self.decay, self.eps = learningrate, decayrate, epsilon
+        self._lr = self._make_lr()
+
+    def init(self, params):
+        return {"nu": [torch.zeros_like(p) for p in params]}
+
+    def optax_state(self, state, tree):
+        # chain(scale_by_rms, scale_by_learning_rate, identity)
+        return {"0": {"nu": tree(state["nu"])}, "1": {}, "2": {}}
+
+    def from_optax_state(self, opt, untree):
+        return {"count": 0, "nu": untree(opt["0"]["nu"])}
+
+    def step(self, params, grads, state, count):
+        nu = state["nu"]
+        _moment(nu, torch._foreach_mul(grads, grads), self.decay)
+        scale = torch._foreach_rsqrt(torch._foreach_add(nu, self.eps))
+        _apply(params, torch._foreach_mul(scale, grads), self._lr(count))
+
+
+class Adagrad(_Constant):
+    """optax ``adagrad(lr)``: the sum of squares from 0.1, eps 1e-7."""
+
+    #: optax ``scale_by_rss``'s defaults
+    initial_accumulator_value, eps = 0.1, 1e-7
+
+    def __init__(self, learningrate: float = 1e-2):
+        self.lr = learningrate
+        self._lr = self._make_lr()
+
+    def init(self, params):
+        return {"sum_of_squares": [
+            torch.full_like(p, self.initial_accumulator_value)
+            for p in params]}
+
+    def optax_state(self, state, tree):
+        return {"0": {"sum_of_squares": tree(state["sum_of_squares"])},
+                "1": {}}
+
+    def from_optax_state(self, opt, untree):
+        return {"count": 0,
+                "sum_of_squares": untree(opt["0"]["sum_of_squares"])}
+
+    def step(self, params, grads, state, count):
+        sums = state["sum_of_squares"]
+        torch._foreach_add_(sums, torch._foreach_mul(grads, grads))
+        root = torch._foreach_rsqrt(torch._foreach_add(sums, self.eps))
+        scale = [torch.where(t > 0, r, torch.zeros_like(r))
+                 for t, r in zip(sums, root)]
+        _apply(params, torch._foreach_mul(scale, grads), self._lr(count))
+
+
+class Adadelta(_Constant):
+    """optax ``adadelta(lr, rho, eps)`` (its weight decay 0 adds
+    nothing)."""
+
+    def __init__(self, learningrate: float = 1.0, decayrate: float = 0.9,
+                 epsilon: float = 1e-6):
+        self.lr, self.rho, self.eps = learningrate, decayrate, epsilon
+        self._lr = self._make_lr()
+
+    def init(self, params):
+        return {"e_g": [torch.zeros_like(p) for p in params],
+                "e_x": [torch.zeros_like(p) for p in params]}
+
+    def optax_state(self, state, tree):
+        # chain(add_decayed_weights, scale_by_adadelta, scale_by_lr)
+        return {"0": {}, "1": {"e_g": tree(state["e_g"]),
+                               "e_x": tree(state["e_x"])}, "2": {}}
+
+    def from_optax_state(self, opt, untree):
+        return {"count": 0, "e_g": untree(opt["1"]["e_g"]),
+                "e_x": untree(opt["1"]["e_x"])}
+
+    def step(self, params, grads, state, count):
+        e_g, e_x = state["e_g"], state["e_x"]
+        _moment(e_g, torch._foreach_mul(grads, grads), self.rho)
+        ratio = torch._foreach_div(
+            torch._foreach_sqrt(torch._foreach_add(e_x, self.eps)),
+            torch._foreach_sqrt(torch._foreach_add(e_g, self.eps)))
+        upd = torch._foreach_mul(ratio, grads)
+        _moment(e_x, torch._foreach_mul(upd, upd), self.rho)
+        _apply(params, upd, self._lr(count))
+
+
+class Adamax(_Constant):
+    """optax ``adamax(lr, b1, b2)`` (eps 1e-8)."""
+
+    eps = 1e-8
+
+    def __init__(self, learningrate: float = 2e-3, beta1: float = 0.9,
+                 beta2: float = 0.999):
+        self.lr, self.b1, self.b2 = learningrate, beta1, beta2
+        self._lr = self._make_lr()
+
+    def init(self, params):
+        return {"mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    def optax_state(self, state, tree):
+        return {"0": {"count": _count(state["count"]),
+                      "mu": tree(state["mu"]), "nu": tree(state["nu"])},
+                "1": {}}
+
+    def from_optax_state(self, opt, untree):
+        part = opt["0"]
+        return {"count": int(part["count"]), "mu": untree(part["mu"]),
+                "nu": untree(part["nu"])}
+
+    def step(self, params, grads, state, count):
+        mu, nu = state["mu"], state["nu"]
+        _moment(mu, grads, self.b1)
+        # nu = max(|g| + eps, b2·nu)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_maximum_(nu, torch._foreach_add(
+            torch._foreach_abs(grads), self.eps))
+        mu_hat = torch._foreach_div(mu, _correction(self.b1, count + 1))
+        _apply(params, torch._foreach_div(mu_hat, nu), self._lr(count))
+
+
+class Nadam(Adam):
+    """optax ``nadam(lr)``: Adam with the Nesterov first moment."""
+
+    _nesterov = True
+
+    def __init__(self, learningrate: float = 2e-3):
+        super().__init__(learningrate)
+
+
+class LARS(_Constant):
+    """Layer-wise adaptive rate scaling: optax ``lars(lr, weight_decay,
+    momentum=momentum)`` (trust coefficient 0.001, masks all true)."""
+
+    trust_coefficient = 0.001
+
+    def __init__(self, learningrate: float = 1e-1, momentum: float = 0.9,
+                 weight_decay: float = 1e-4):
+        self.lr, self.momentum, self.wd = learningrate, momentum, weight_decay
+        self._lr = self._make_lr()
+
+    def init(self, params):
+        return {"trace": [torch.zeros_like(p) for p in params]}
+
+    def optax_state(self, state, tree):
+        # chain(masked(add_decayed_weights), masked(scale_by_trust_ratio),
+        #       scale_by_learning_rate, trace)
+        return {"0": {"inner_state": {}}, "1": {"inner_state": {}},
+                "2": {}, "3": {"trace": tree(state["trace"])}}
+
+    def from_optax_state(self, opt, untree):
+        return {"count": 0, "trace": untree(opt["3"]["trace"])}
+
+    def step(self, params, grads, state, count):
+        upd = torch._foreach_add(grads, torch._foreach_mul(params, self.wd))
+        _trust_ratio(params, upd, self.trust_coefficient, 0.0)
+        upd = torch._foreach_mul(upd, -self._lr(count))
+        trace = state["trace"]
+        # t = u + m·t
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, upd)
+        torch._foreach_add_(params, trace)
+
+
+class LAMB(Adam):
+    """optax ``lamb(lr, weight_decay=wd)``: Adam's update (eps 1e-6), the
+    decay, the trust ratio ``|p| / |u|``, then the rate."""
+
+    def __init__(self, learningrate: float = 1e-3, weight_decay: float = 0.0):
+        self.wd = weight_decay
+        super().__init__(learningrate, epsilon=1e-6)
+
+    def optax_state(self, state, tree):
+        out = super().optax_state(state, tree)
+        return {"0": out["0"], "1": {}, "2": {}, "3": {}}
+
+    def step(self, params, grads, state, count):
+        upd = self._adam(grads, state, count)
+        torch._foreach_add_(upd, torch._foreach_mul(params, self.wd))
+        _trust_ratio(params, upd, 1.0, 0.0)
+        _apply(params, upd, self._lr(count))
+
+
+class LBFGS(_Constant):
+    """Memory-limited BFGS (ref optimizers_impl.py:99 LBFGS): the JAX
+    package's ``optax.lbfgs(lr, memory_size=ncorrection,
+    linesearch=None)``, fixed steps of ``learningrate`` along the two-loop
+    direction. ``max_iter``, ``max_eval``, ``tolfun`` and ``tolx`` (BigDL's
+    inner loop) are accepted and ignored, as in JAX; a line search
+    raises."""
+
+    def __init__(self, max_iter: int = 20, max_eval=None,
+                 tolfun: float = 1e-5, tolx: float = 1e-9,
+                 ncorrection: int = 100, learningrate: float = 1.0,
+                 verbose: bool = False, linesearch=None,
+                 linesearch_options=None):
+        if linesearch is not None:
+            raise ValueError("custom line-search functions are not "
+                             "supported inside the jitted step; use the "
+                             "default fixed-step mode")
+        self.lr = learningrate
+        self.ncorrection = int(ncorrection)
+        if self.ncorrection < 1:
+            raise ValueError("memory_size must be >= 1")
+        self._lr = self._make_lr()
+
+    def init(self, params):
+        m = self.ncorrection
+        dev = params[0].device if params else None
+        return {"params": [torch.zeros_like(p) for p in params],
+                "updates": [torch.zeros_like(p) for p in params],
+                "diff_params_memory": [p.new_zeros((m, *p.shape))
+                                       for p in params],
+                "diff_updates_memory": [p.new_zeros((m, *p.shape))
+                                        for p in params],
+                "weights_memory": torch.zeros(m, device=dev)}
+
+    def optax_state(self, state, tree):
+        # chain(scale_by_lbfgs, scale_by_learning_rate, identity); the
+        # fields in ScaleByLBFGSState's order, as flax writes them
+        m = (self.ncorrection,)
+        weights = state["weights_memory"]      # None in a checkpoint spec
+        return {"0": {
+            "count": _count(state["count"]),
+            "params": tree(state["params"]),
+            "updates": tree(state["updates"]),
+            "diff_params_memory": tree(state["diff_params_memory"], lead=m),
+            "diff_updates_memory": tree(state["diff_updates_memory"],
+                                        lead=m),
+            "weights_memory": (torch.empty(m, device="meta")
+                               if weights is None
+                               else weights.detach().cpu())},
+            "1": {}, "2": {}}
+
+    def from_optax_state(self, opt, untree):
+        part = opt["0"]
+        w = torch.as_tensor(np.asarray(part["weights_memory"]))
+        out = {"count": int(part["count"]),
+               "params": untree(part["params"]),
+               "updates": untree(part["updates"]),
+               "diff_params_memory": untree(part["diff_params_memory"],
+                                            lead=1),
+               "diff_updates_memory": untree(part["diff_updates_memory"],
+                                             lead=1)}
+        dev = out["params"][0].device if out["params"] else None
+        out["weights_memory"] = w.to(dev, torch.float32, copy=True)
+        return out
+
+    def step(self, params, grads, state, count):
+        m = self.ncorrection
+        dw, du_mem = state["diff_params_memory"], state["diff_updates_memory"]
+        rho = state["weights_memory"]
+        prev = (count - 1) % m
+        # 1. the newest differences into slot count - 1 (zeros at count 0)
+        if count > 0:
+            dp = torch._foreach_sub(params, state["params"])
+            du = torch._foreach_sub(grads, state["updates"])
+            vd = _tree_vdot(du, dp)
+            weight = torch.where(vd == 0, torch.zeros_like(vd), 1.0 / vd)
+        else:
+            dp = [torch.zeros_like(p) for p in params]
+            du = [torch.zeros_like(p) for p in params]
+            weight = torch.zeros((), device=rho.device)
+        for mem, d in zip(dw, dp):
+            mem[prev].copy_(d)
+        for mem, d in zip(du_mem, du):
+            mem[prev].copy_(d)
+        rho[prev] = weight
+        # 2. the initial scale: <du, dp> / |du|² (1 where |du| is 0); at
+        # count 0, min(1, 1/|g|)
+        if count > 0:
+            den = torch.stack([torch.sum(d * d) for d in du]).sum()
+            scale = torch.where(den > 0, vd / den, torch.ones_like(den))
+        else:
+            norm = torch.sqrt(torch.stack([torch.sum(g * g)
+                                           for g in grads]).sum())
+            scale = torch.minimum(torch.ones_like(norm), 1.0 / norm)
+        # 3. the two loops over the ring, from the newest slot back; slots
+        # not yet written (zeros, weight 0) change nothing and are skipped
+        live = min(count, m)
+        order = [i for i in ((count % m + j) % m for j in range(m))
+                 if i < live]
+        vec = list(grads)
+        alphas = {}
+        for i in reversed(order):
+            a = rho[i] * _tree_vdot([mem[i] for mem in dw], vec)
+            vec = torch._foreach_add(vec, torch._foreach_mul(
+                [mem[i] for mem in du_mem], -a))
+            alphas[i] = a
+        vec = torch._foreach_mul(vec, scale)
+        for i in order:
+            b = rho[i] * _tree_vdot([mem[i] for mem in du_mem], vec)
+            vec = torch._foreach_add(vec, torch._foreach_mul(
+                [mem[i] for mem in dw], alphas[i] - b))
+        torch._foreach_copy_(state["params"], params)
+        torch._foreach_copy_(state["updates"], grads)
+        _apply(params, vec, self._lr(count))

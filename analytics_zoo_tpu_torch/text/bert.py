@@ -15,12 +15,25 @@ every block, norms included (parameters stay fp32); embeddings are
 looked up and summed in fp32. The modules train under autograd
 (``learn/estimator.py``): dropout runs when ``train=True``, and with
 ``use_flash=True`` on CUDA the attention's gradients come from the flash
-backward kernels. ``remat`` and the tensor-parallel rules are not ported
-yet.
+backward kernels.
+
+``BertConfig.remat`` (JAX's ``nn.remat`` of each block with
+``dots_with_no_batch_dims_saveable``) recomputes every encoder block in
+the backward pass: non-reentrant ``torch.utils.checkpoint`` per block,
+with the random state kept so dropout draws the same masks again, and a
+selective policy that keeps the outputs of the weight-stationary products
+(the packed projection, the attention output and the two FFN products:
+``aten.addmm`` / ``aten.mm``) and recomputes the rest, attention
+included. So the flash forward launches twice a block in a training step
+(its ``out`` and ``lse`` come back through checkpoint's saved-tensor
+hooks, and the recompute writes fresh buffers). Without a gradient to
+take (``torch.no_grad``, inference) the blocks run plainly. The
+tensor-parallel rules are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,6 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from analytics_zoo_tpu_torch.common.flax_compat import Dense, Embed, LayerNorm
 from analytics_zoo_tpu_torch.ops.attention import AttentionModule
@@ -55,6 +70,9 @@ class BertConfig:
     # attention: None -> auto-select, True -> the flash path (the kernel on
     # CUDA) whenever there is no mask, False -> the einsum chain
     use_flash: Optional[bool] = None
+    # recompute each encoder block in the backward pass, keeping the
+    # products' outputs (the module docstring)
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -62,6 +80,22 @@ class BertConfig:
             raise ValueError(f"hidden_size {self.hidden_size} is not a "
                              f"multiple of n_head {self.n_head}")
         return self.hidden_size // self.n_head
+
+
+#: the weight-stationary products whose outputs remat keeps (JAX's
+#: ``dots_with_no_batch_dims_saveable``: a batched product, attention's,
+#: is recomputed)
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.addmm.default,
+                             torch.ops.aten.mm.default})
+
+
+def _remat_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_remat_context = functools.partial(create_selective_checkpoint_contexts,
+                                   _remat_policy)
 
 
 def _gelu(x, exact: bool):
@@ -139,8 +173,15 @@ class BertModule(nn.Module):
             # [b, L] 1/0 -> [b, 1, 1, L], over heads and queries
             mask = torch.as_tensor(attention_mask,
                                    device=ids.device)[:, None, None, :]
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.n_block):
-            x = self._modules[f"block_{i}"](x, mask, train)
+            block = self._modules[f"block_{i}"]
+            if remat:
+                x = checkpoint(block, x, mask, train, use_reentrant=False,
+                               context_fn=_remat_context,
+                               preserve_rng_state=True)
+            else:
+                x = block(x, mask, train)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled
 

@@ -7,15 +7,20 @@ plus one dense head under the flax tree's name. Inputs are ``(input_ids,
 token_type_ids, input_mask)`` of shape [b, L]; the last two may be left
 out of a module call (zeros and no mask).
 
-``BERTClassifier`` fits, evaluates and predicts its head through
-``learn/estimator.py``'s ``TorchEstimator``. Like the JAX estimator it
-fills a missing ``input_mask`` with ones and passes it on, so its
-attention is the masked einsum chain under autograd and never the flash
-kernels (ROADMAP C5). ``save``/``load`` write and read the JAX
-package's layout (``<path>/ckpt-<step>/``, the flax BERT tree with its
-``[in, h, d]`` attention projections), so a classifier saved by either
-package loads in the other. The ``BERTNER`` and ``BERTSQuAD`` estimators
-are not ported yet (ROADMAP A3); their head modules are.
+``BERTClassifier``, ``BERTNER`` and ``BERTSQuAD`` fit, evaluate and
+predict their heads through ``learn/estimator.py``'s ``TorchEstimator``.
+Like the JAX estimators they fill a missing ``input_mask`` with ones and
+pass it on, so their attention is the masked einsum chain under autograd
+and never the flash kernels (ROADMAP C5). ``BERTNER`` trains on
+``_ner_loss`` (per-token cross-entropy over the labels that are not -1;
+``fit`` and ``evaluate`` write -1 where ``input_mask`` is 0) and
+``BERTSQuAD`` on ``_squad_loss`` (the mean of the start and end
+positions' cross-entropies); its ``predict`` returns ``(start, end)``
+logits. ``save``/``load`` write and read the JAX package's layout
+(``<path>/ckpt-<step>/``, the flax BERT tree with its ``[in, h, d]``
+attention projections, the heads under flax's ``classifier``, ``ner``
+and ``qa``), so an estimator saved by either package loads in the
+other.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 from analytics_zoo_tpu_torch.common.device import DeviceLike
 from analytics_zoo_tpu_torch.common.flax_compat import Dense
 from analytics_zoo_tpu_torch.learn.estimator import Estimator, TorchEstimator
+from analytics_zoo_tpu_torch.learn.losses import _take_label, logsumexp
 from analytics_zoo_tpu_torch.text.bert import (BertConfig, BertModule,
                                                init_bert_weights)
 
@@ -86,6 +92,30 @@ class _SQuADModule(_BertHead):
                            train=train)
         logits = self.qa(seq)
         return logits[..., 0], logits[..., 1]
+
+
+def _ner_loss(y_true, logits):
+    """(JAX ``_ner_loss``) Per-token cross-entropy with the positions
+    labelled below 0 left out (``BERTNER.fit`` writes -1 where the input
+    mask is 0), the mean over each row's labelled tokens."""
+    y = torch.as_tensor(y_true, device=logits.device).to(torch.int32)
+    logp = logits - logsumexp(logits)
+    ce = -_take_label(logp, torch.clamp(y, min=0))
+    valid = (y >= 0).to(ce.dtype)
+    return (ce * valid).sum(-1) / torch.clamp(valid.sum(-1), min=1.0)
+
+
+def _squad_loss(y_true, preds):
+    """(JAX ``_squad_loss``) ``y_true`` [b, 2] (start, end positions),
+    ``preds`` the (start, end) logits, each [b, L]: the mean of the two
+    cross-entropies."""
+    start_logits, end_logits = preds
+    y = torch.as_tensor(y_true, device=start_logits.device).to(torch.int32)
+
+    def ce(logits, idx):
+        return -_take_label(logits - logsumexp(logits), idx)
+
+    return 0.5 * (ce(start_logits, y[:, 0]) + ce(end_logits, y[:, 1]))
 
 
 class _BertTaskEstimator:
@@ -168,3 +198,51 @@ class BERTClassifier(_BertTaskEstimator):
             _ClassifierModule(config, num_classes),
             "sparse_categorical_crossentropy_logits", optimizer, metrics,
             config, seq_len, model_dir, strategy, seed, device)
+
+
+class BERTNER(_BertTaskEstimator):
+    """Token-level entity tagging on the sequence output (ref
+    tfpark/text/estimator BERTNER). Padded positions (input_mask 0) are
+    left out of the loss through -1 labels."""
+
+    def __init__(self, num_entities: int, config: Optional[BertConfig] = None,
+                 seq_len: int = 128, optimizer="adam", metrics=None,
+                 model_dir=None, strategy="dp", seed: int = 0,
+                 device: DeviceLike = None):
+        config = config or BertConfig()
+        super().__init__(
+            _NERModule(config, num_entities), _ner_loss, optimizer, metrics,
+            config, seq_len, model_dir, strategy, seed, device)
+
+    @staticmethod
+    def _masked(labels, input_mask):
+        if input_mask is None:
+            return labels
+        return np.where(np.asarray(input_mask) > 0, np.asarray(labels), -1)
+
+    def fit(self, input_ids, labels, token_type_ids=None, input_mask=None,
+            epochs: int = 1, batch_size: int = 32, **kw):
+        return super().fit(input_ids, self._masked(labels, input_mask),
+                           token_type_ids, input_mask, epochs=epochs,
+                           batch_size=batch_size, **kw)
+
+    def evaluate(self, input_ids, labels, token_type_ids=None,
+                 input_mask=None, batch_size: int = 32):
+        return super().evaluate(input_ids, self._masked(labels, input_mask),
+                                token_type_ids, input_mask,
+                                batch_size=batch_size)
+
+
+class BERTSQuAD(_BertTaskEstimator):
+    """Extractive QA: start and end logits a position (ref
+    tfpark/text/estimator BERTSQuAD); ``predict`` returns ``(start,
+    end)``, each [n, L]."""
+
+    def __init__(self, config: Optional[BertConfig] = None,
+                 seq_len: int = 128, optimizer="adam", metrics=None,
+                 model_dir=None, strategy="dp", seed: int = 0,
+                 device: DeviceLike = None):
+        config = config or BertConfig()
+        super().__init__(
+            _SQuADModule(config), _squad_loss, optimizer, metrics, config,
+            seq_len, model_dir, strategy, seed, device)

@@ -181,6 +181,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
              outside Pallas). It writes under build/phase13/ and removes
              it, and restores the precision flags and the knobs.
 
+14. the estimator's loop options and the BERT task estimators (ROADMAP
+             A3): (a) measure_ncf's NCF (Adam(1e-3), batch 8000, 400 000
+             rows) through TorchEstimator.fit per step,
+             fit(steps_per_loop=10) (bench.py's "staged") and
+             fit(cache="device") ("cached"), three epochs each with
+             shuffle off: staged and cached bitwise the per-step fit in
+             every parameter and step loss; two epochs of each timed in
+             turns (ms a step, samples/s), one profiled for host-to-device
+             copies and kernels a step over 10 steps after a lead of 2 (a
+             loop for the staged fit; the cached epoch makes no copy);
+             a shuffled cached epoch's order on the card covers every
+             row; (b) each of the eight optimizers (rmsprop, adagrad,
+             adadelta, adamax, nadam, lars, lamb, lbfgs with its 100
+             corrections), 20 NCF steps on the card: its updates replayed
+             on the CPU from the same parameters and the card's gradients
+             within NCF_STEP_PARAM_ATOL (L-BFGS: its last update, from the
+             card's state before it), and the fit against the CPU's
+             within NCF_STEP_*_ATOL in every step's loss and every
+             parameter (rmsprop, adadelta and lbfgs, whose trajectories
+             amplify the card's other order of summation, in the loss
+             within AMPLIFIED_LOSS_ATOL); a LAMB checkpoint read back
+             bitwise (bytes included); (c) the
+             BERT-Base classifier on token ids (32 x 128, dropout 0.1,
+             use_flash=True): a step with remat against one without from
+             the same weights and step seed within phase 8's limits (fp32,
+             TF32 off, and bf16); a bf16 remat fit launching the flash
+             forward 24 times a step and each backward kernel 12; peak
+             memory and ms a step with remat off and on at batches 32, 64
+             and 128; fit(steps_per_loop=16) ms a step and samples/s at
+             the same batches (bench.py's bert_scan_step_ms and its
+             sweep); a LAMB fit; (d) BERTNER (9 tags, 32 x 128) and
+             BERTSQuAD (12 x 384, AdamWeightDecay) with ragged masks: one
+             batch's loss and gradients at full width with 2 blocks on the
+             card against the CPU (ZOO_GRAD_RTOL of each leaf's largest;
+             SQuAD SQUAD_GRAD_RTOL),
+             then a 10-step fit at full depth (SQuAD with remat off and
+             on: peak memory, ms a step); (e) a profile_steps=(2, 5) fit
+             writes a trace holding exactly steps 2-4, its kernels inside
+             those steps' ranges on the card. It writes under
+             build/phase14/ and removes it.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -221,9 +262,11 @@ Launch counts are set to 0 right before each path (phases 4-5, the NCF
 path; phases 6-7, the BERT serving path; phase 8(b), the fine-tuning
 path; phase 9, the decode path; phase 10(b)-(d), the NCF training path;
 phase 11, the checkpoint paths; phase 12 from (a)'s warm-up step, the
-zoo paths; phase 13, which launches none) and read right after it:
-every kernel of the path must have launched there. Phase 13's seconds
-and the whole run's are printed before the kernels line. The
+zoo paths; phase 13, which launches none; phase 14, before each mode's
+NCF fits, the optimizers, the remat fit, each task fit and the profiled
+fit) and read right after it: every kernel of the path must have
+launched there. Phases 13's and 14's seconds and the whole run's are
+printed before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -477,6 +520,58 @@ FC_ROWS, FC_LOOKBACK, FC_FEATURES, FC_BATCH, FC_EPOCHS = 96, 16, 3, 16, 2
 FC_LR = 1e-2
 TCN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "build", "phase13")
+# phase 14: the estimator's loop modes at bench.py's measure_ncf
+# (STEPS_PER_LOOP = 10 for its "staged" number, cache="device" for its
+# "cached" one), timed NCF_LOOP_ROUNDS epochs each in turns; the eight
+# optimizers on NCF, each at its JAX wrapper's defaults, OPT_STEPS steps:
+# their updates on the card against the same updates on the CPU (the same
+# parameters, the card's own gradients) within NCF_STEP_PARAM_ATOL, and
+# the whole fit on the card against the fit on the CPU within phase 10's
+# limits (NCF_STEP_*_ATOL) for the optimizers whose trajectories do not
+# amplify rounding. RMSprop (eps inside the root, lr 1e-2), Adadelta and
+# L-BFGS (its curvature pairs) turn the card's other order of summation
+# in the GEMMs into differences that grow step by step on this near-flat
+# loss (measured on the H100 after 20 steps: 0.050, 1.8e-4 and 0.18 in a
+# Dense bias, losses within 1.1e-4, 1.3e-6, 6e-7; reversing each batch's
+# rows on the CPU moves L-BFGS by 0.16 too, dev/estimate_optimizer_limits
+# .py), while the updates of each agree given the same gradients: their
+# fits are held to finite losses within AMPLIFIED_LOSS_ATOL (9x the worst
+# measured) and reported. L-BFGS's recursion amplifies within the replay
+# too (its 20 updates replayed from the same start: 4.1e-5 on the H100),
+# so its replay is held at the last update, taken on the CPU from the
+# card's own parameters, memories and gradient before it
+NCF_LOOP = 10
+NCF_LOOP_ROUNDS = 2
+OPT_STEPS = 20
+AMPLIFYING = ("rmsprop", "adadelta", "lbfgs")
+AMPLIFIED_LOSS_ATOL = 1e-3
+OPTIMIZER_ARGS = [("rmsprop", "RMSprop", {}), ("adagrad", "Adagrad", {}),
+                  ("adadelta", "Adadelta", {}), ("adamax", "Adamax", {}),
+                  ("nadam", "Nadam", {}), ("lars", "LARS", {}),
+                  ("lamb", "LAMB", {}), ("lbfgs", "LBFGS", {})]
+BERT_SCAN_STEPS = 16
+BERT_SWEEP = (32, 64, 128)
+MEM_STEPS = 5
+# CoNLL-2003's BIO tags (O and B-/I- of PER, ORG, LOC, MISC) at 32 x 128;
+# SQuAD at google-research/bert run_squad.py's BERT-Base setting, 12 x 384
+NER_ENTITIES = 9
+NER_BATCH, NER_LEN = 32, 128
+SQUAD_BATCH, SQUAD_LEN = 12, 384
+TASK_STEPS = 10
+TASK_CPU_BLOCKS = 2
+# one batch's gradients on the card against the CPU, each leaf within its
+# task's limit of its largest |gradient| on the CPU: NER at ZOO_GRAD_RTOL
+# (measured on the H100: 7.3e-7); SQuAD at SQUAD_GRAD_RTOL: its loss is a
+# softmax over the 384 positions, whose gradient sums to zero over them,
+# so the gradients of the last block sum near-cancelling terms over 4608
+# positions (measured 7.4e-6 at block_1.output.bias, the other leaves
+# within 1.8e-6); the qa bias and the last norm's bias, zero in exact
+# arithmetic, are held against the model's largest gradient
+SQUAD_GRAD_RTOL = 2e-5
+PROFILE_STEPS = (2, 5)
+PROFILE_LEAD = 2
+PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase14")
 
 
 def log(msg: str):
@@ -3573,6 +3668,607 @@ def phase_tcn(torch, np, card):
     return rep
 
 
+# ---------------------------------------------------------------- phase 14
+
+def trace_events(path):
+    with open(path) as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def steady_counts(events, after_step):
+    """(host-to-device copies, kernels) on the card after the end of step
+    ``after_step``'s range on the card, in a trace's events."""
+    t0 = max((e["ts"] + e.get("dur", 0) for e in events
+              if e.get("cat") == "gpu_user_annotation"
+              and e.get("name") == f"zoo_step_{after_step}"), default=0.0)
+    late = [e for e in events if e.get("ts", -1) >= t0]
+    return (sum(1 for e in late if e.get("cat") == "gpu_memcpy"
+                and "HtoD" in e.get("name", "")),
+            sum(1 for e in late if e.get("cat") == "kernel"))
+
+
+def loop_fit(torch, np, est, ds, mode, epochs=1, **kw):
+    """One ``est.fit`` of ``ds`` in loop mode ``mode`` ("per_step",
+    "staged", "cached"), shuffle off unless given; (its launches, host
+    seconds after a sync)."""
+    args = {"per_step": {}, "staged": {"steps_per_loop": NCF_LOOP},
+            "cached": {"cache": "device"}}[mode]
+    args.update(dict(shuffle=False), **kw)
+    _, launches, dt = counted(torch, lambda: est.fit(
+        ds, epochs=epochs, batch_size=BATCH, **args))
+    return launches, dt
+
+
+def phase_ncf_loops(torch, np, x, y, kind):
+    """Phase 14(a): NCF at measure_ncf's configuration through
+    ``fit(steps_per_loop=NCF_LOOP)`` and ``fit(cache="device")`` against
+    the per-step fit: three epochs of NCF_STEPS steps each, shuffle off,
+    bitwise equal in every parameter and step loss; the second epoch
+    timed (the dataset object already on the card for the cached mode),
+    the third profiled over 10 steps for the host-to-device copies a
+    step; then a shuffled cached epoch visits every row once."""
+    from analytics_zoo_tpu_torch.data import ShardedDataset
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.ops import _build
+    ds = ShardedDataset(x, y)
+    warm = ShardedDataset(x[:NCF_LOOP * BATCH], y[:NCF_LOOP * BATCH])
+
+    def fresh():
+        net = train_model("ncf")
+        net.compile(optimizer=Adam(NCF_LR),
+                    loss="sparse_categorical_crossentropy")
+        return net.estimator
+
+    modes = ("per_step", "staged", "cached")
+    rep, ests, secs = {}, {}, {m: [] for m in modes}
+    for mode in modes:
+        loop_fit(torch, np, fresh(), warm, mode)          # warm up
+        est = ests[mode] = fresh()
+        _build.reset_launch_counts()
+        launches, first_s = loop_fit(torch, np, est, ds, mode)
+        rep[mode] = dict(
+            first_epoch_ms_per_step=first_s / NCF_STEPS * 1e3,
+            launches=launches,
+            launches_per_step={k: v / NCF_STEPS for k, v in launches.items()
+                               if v})
+        for name in ("fused_embedding_lookup", "embedding_scatter_add"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"NCF {mode} fit launched no {name}: "
+                                     f"{launches}")
+    # timed epochs in turns (p s c, then c s p): the host-bound step moves
+    # with its machine, so the modes are compared within one rotation
+    for r in range(NCF_LOOP_ROUNDS):
+        for mode in (modes if r % 2 == 0 else modes[::-1]):
+            secs[mode].append(loop_fit(torch, np, ests[mode], ds, mode)[1])
+    for mode in modes:
+        est = ests[mode]
+        dt = float(np.median(secs[mode]))
+        est.set_tensorboard(os.path.join(PHASE14_DIR, "ncf"), mode)
+        # the trace opens PROFILE_LEAD steps (a loop) before the 10 it
+        # counts: a trace that restarts CUPTI kept attached (keep_cupti)
+        # can miss its first activities
+        lead = NCF_LOOP if mode == "staged" else PROFILE_LEAD
+        base = est._py_step
+        loop_fit(torch, np, est, ds, mode, profile_steps=(0, lead + 10))
+        h2d, kernels = steady_counts(
+            trace_events(est._profile_window.path), base + lead - 1)
+        rep[mode].update(
+            step_ms=dt / NCF_STEPS * 1e3, samples_per_s=NCF_TRAIN_ROWS / dt,
+            epoch_ms_per_step=[t / NCF_STEPS * 1e3 for t in secs[mode]],
+            h2d_copies_per_step=h2d / 10, kernels_per_step=kernels / 10)
+        log(f"NCF fit {mode} on {kind}: {NCF_STEPS} steps of {BATCH} at "
+            f"{rep[mode]['step_ms']:.3f} ms/step (host clock, median of "
+            f"{NCF_LOOP_ROUNDS} epochs in turns: "
+            f"{[round(v, 3) for v in rep[mode]['epoch_ms_per_step']]}), "
+            f"{rep[mode]['samples_per_s']:.1f} samples/s (first epoch "
+            f"{rep[mode]['first_epoch_ms_per_step']:.3f} ms/step); "
+            f"host-to-device copies a step {h2d / 10:.2f}, kernels a step "
+            f"{kernels / 10:.1f} (profiler, 10 steps); launches a step "
+            f"{rep[mode]['launches_per_step']}")
+    if rep["cached"]["h2d_copies_per_step"] != 0:
+        raise AssertionError(f"the cached epoch copied to the card: "
+                             f"{rep['cached']}")
+    ref = ests["per_step"]
+    for mode in ("staged", "cached"):
+        est = ests[mode]
+        same = est.step_losses == ref.step_losses and all(
+            torch.equal(p, q) for p, q in zip(est.model.parameters(),
+                                              ref.model.parameters()))
+        rep[mode]["bitwise_per_step"] = same
+        epochs = 2 + NCF_LOOP_ROUNDS
+        if not same or est._py_step != epochs * NCF_STEPS:
+            raise AssertionError(f"NCF {mode} fit differs from the per-step "
+                                 f"fit after {est._py_step} steps")
+    log(f"  staged and cached fits bitwise the per-step fit after "
+        f"{epochs * NCF_STEPS} steps (parameters, step losses)")
+    # a shuffled cached epoch: the order drawn on the card covers every row
+    est = fresh()
+    orders = []
+    real = est._device_order
+    est._device_order = lambda n, sh: orders.append(real(n, sh)) or \
+        orders[-1]
+    _, shuffled_s = loop_fit(torch, np, est, ds, "cached", shuffle=True)
+    order = orders[0]
+    every = bool(torch.equal(order.sort().values,
+                             torch.arange(len(x), device=order.device)))
+    rep["cached_shuffled"] = dict(
+        step_ms=shuffled_s / NCF_STEPS * 1e3,
+        samples_per_s=NCF_TRAIN_ROWS / shuffled_s, every_row_once=every,
+        loss=est.step_losses[-1])
+    log(f"  a shuffled cached epoch: every row once {every}; "
+        f"{rep['cached_shuffled']['step_ms']:.3f} ms/step; bench.py's "
+        f"staged {rep['staged']['samples_per_s']:.1f} and cached "
+        f"{rep['cached']['samples_per_s']:.1f} samples/s against the "
+        f"per-step fit's {rep['per_step']['samples_per_s']:.1f}")
+    if not every or NCF_TRAIN_ROWS % BATCH or \
+            not np.isfinite(est.step_losses).all():
+        raise AssertionError(f"shuffled cached epoch: {rep}")
+    return rep
+
+
+def phase_optimizers(torch, np, x, y, card):
+    """Phase 14(b): each of the eight optimizers, OPT_STEPS steps of NCF on
+    the card: its updates replayed on the CPU from the same parameters
+    and the card's gradients (every parameter within NCF_STEP_PARAM_ATOL;
+    for L-BFGS the last update, taken from the card's state before it),
+    and the fit against the CPU's fit (every step's loss and every
+    parameter within NCF_STEP_*_ATOL; the AMPLIFYING ones' losses within
+    AMPLIFIED_LOSS_ATOL); a LAMB checkpoint written and read back
+    bitwise."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.learn import optimizers as opt_lib
+    rows = OPT_STEPS * BATCH
+    rep = {}
+    for name, cls, kw in OPTIMIZER_ARGS:
+        nets, secs = {}, {}
+        for dev in ("cpu", "cuda"):
+            net = train_model("ncf")
+            net.compile(optimizer=getattr(opt_lib, cls)(**kw),
+                        loss="sparse_categorical_crossentropy", device=dev)
+            if dev == "cuda":
+                start, grads, last = record_updates(net.estimator,
+                                                    OPT_STEPS - 1)
+            t0 = time.perf_counter()
+            net.fit(x[:rows], y[:rows], batch_size=BATCH, nb_epoch=1,
+                    shuffle=False)
+            secs[dev] = time.perf_counter() - t0
+            nets[dev] = net
+        # the card's updates again on the CPU: all of them from the same
+        # parameters with the card's gradients, and the last one from the
+        # card's own parameters and state before it
+        card_params = [p.detach().cpu()
+                       for p in nets["cuda"].estimator._params]
+        replay = getattr(opt_lib, cls)(**kw)
+        params = [p.clone() for p in start]
+        state = {"count": 0, **replay.init(params)}
+        for g in grads:
+            replay.step(params, g, state, state["count"])
+            state["count"] += 1
+        update_diff = max(float((p - q).abs().max())
+                          for p, q in zip(params, card_params))
+        params, state = last
+        replay.step(params, grads[-1], state, state["count"])
+        last_diff = max(float((p - q).abs().max())
+                        for p, q in zip(params, card_params))
+        lc = np.asarray(nets["cpu"].estimator.step_losses)
+        lg = np.asarray(nets["cuda"].estimator.step_losses)
+        wc, wg = nets["cpu"].get_weights(), nets["cuda"].get_weights()
+        loss_diff = float(np.abs(lc - lg).max())
+        per_leaf = {k: float(np.abs(wc[k] - wg[k]).max()) for k in wc}
+        worst = max(per_leaf, key=per_leaf.get)
+        amplifies = name in AMPLIFYING
+        rep[name] = dict(loss_first=float(lg[0]), loss_last=float(lg[-1]),
+                         update_max_diff=update_diff,
+                         last_update_max_diff=last_diff,
+                         max_loss_diff=loss_diff,
+                         max_param_diff=per_leaf[worst], worst_leaf=worst,
+                         amplifies=amplifies,
+                         card_ms_per_step=secs["cuda"] / OPT_STEPS * 1e3)
+        held = (f"{AMPLIFIED_LOSS_ATOL} in the loss alone: its trajectory "
+                f"amplifies rounding" if amplifies else
+                f"{NCF_STEP_LOSS_ATOL}, {NCF_STEP_PARAM_ATOL}")
+        log(f"  {name}: {OPT_STEPS} NCF steps on {card}: loss {lg[0]:.5f} "
+            f"-> {lg[-1]:.5f}, {rep[name]['card_ms_per_step']:.3f} ms/step;"
+            f" its updates replayed on the CPU within {update_diff:.3g}, "
+            f"the last from the card's state within {last_diff:.3g} (atol "
+            f"{NCF_STEP_PARAM_ATOL}{' for the last' * (name == 'lbfgs')}); "
+            f"the CPU's fit: every step's loss within {loss_diff:.3g}, "
+            f"every parameter within {per_leaf[worst]:.3g} (worst {worst}; "
+            f"atol {held})")
+        fit_ok = (loss_diff <= AMPLIFIED_LOSS_ATOL if amplifies else
+                  loss_diff <= NCF_STEP_LOSS_ATOL
+                  and per_leaf[worst] <= NCF_STEP_PARAM_ATOL)
+        replay_ok = last_diff <= NCF_STEP_PARAM_ATOL and (
+            name == "lbfgs" or update_diff <= NCF_STEP_PARAM_ATOL)
+        if not (np.isfinite(lg).all() and replay_ok and fit_ok):
+            raise AssertionError(f"optimizer {name}: card vs CPU "
+                                 f"{rep[name]}")
+        if name == "lamb":
+            est = nets["cuda"].estimator
+            path = os.path.join(PHASE14_DIR, "lamb")
+            shutil.rmtree(path, ignore_errors=True)
+            est.save(path)
+            back = train_model("ncf")
+            back.compile(optimizer=opt_lib.LAMB(),
+                         loss="sparse_categorical_crossentropy")
+            back.estimator.load(path)
+            got = back.estimator
+            found = ckpt.find_latest_checkpoint(path)
+            with open(os.path.join(found[0], "state.msgpack"), "rb") as fh:
+                data = fh.read()
+            same = (got._py_step == est._py_step
+                    and got._opt_state["count"] == est._opt_state["count"]
+                    and all(torch.equal(p, q) for p, q in zip(
+                        got.model.parameters(), est.model.parameters()))
+                    and all(torch.equal(p, q) for k in ("mu", "nu")
+                            for p, q in zip(got._opt_state[k],
+                                            est._opt_state[k]))
+                    and ckpt.to_bytes(got._state_tree()) == data)
+            rep[name]["checkpoint_bitwise"] = same
+            rep[name]["checkpoint_mb"] = len(data) / 1e6
+            log(f"  lamb checkpoint ({len(data) / 1e6:.1f} MB) read back "
+                f"bitwise: {same}")
+            if not same:
+                raise AssertionError("the LAMB checkpoint did not read back "
+                                     "bitwise")
+    return rep
+
+
+def host_copy(tree):
+    """A host copy of an optimizer state (dicts, lists, tensors, ints)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [host_copy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+def record_updates(est, last_count):
+    """Wrap ``est.optimizer.step`` to keep (host copies) the parameters
+    before the first update, every update's gradients, and the parameters
+    and optimizer state before update ``last_count``; returns (the
+    parameters, the gradient lists, that [parameters, state]), filled as
+    the fit runs."""
+    start, grads, last = [], [], []
+    real = est.optimizer.step
+
+    def step(params, g, state, count):
+        if not start:
+            start.extend(p.detach().cpu().clone() for p in params)
+        grads.append([t.detach().cpu().clone() for t in g])
+        if count == last_count:
+            last.extend((host_copy(list(params)), host_copy(state)))
+        return real(params, g, state, count)
+
+    est.optimizer.step = step
+    return start, grads, last
+
+
+def bert_task_inputs(np, rng, n, length, task):
+    """Token ids, segments, ragged input masks (at least a quarter of the
+    row) and labels: NER's tags, SQuAD's start <= end inside the mask."""
+    ids = rng.randint(0, BERT_VOCAB, (n, length)).astype(np.int32)
+    lens = rng.randint(length // 4, length + 1, (n, 1))
+    pos = np.arange(length)[None]
+    mask = (pos < lens).astype(np.int32)
+    seg = ((pos >= rng.randint(1, length // 4, (n, 1))) & (pos < lens)
+           ).astype(np.int32)
+    if task == "ner":
+        labels = rng.randint(0, NER_ENTITIES, (n, length)).astype(np.int32)
+    else:
+        a = rng.randint(0, lens[:, 0])
+        b = np.minimum(a + rng.randint(0, 30, n), lens[:, 0] - 1)
+        labels = np.stack([a, b], 1).astype(np.int32)
+    return ids, seg, mask, labels
+
+
+def task_estimator(task, config, dev, optimizer):
+    from analytics_zoo_tpu_torch.text import BERTNER, BERTSQuAD
+    if task == "ner":
+        return BERTNER(NER_ENTITIES, config=config, seq_len=NER_LEN,
+                       optimizer=optimizer, seed=SEED, device=dev)
+    return BERTSQuAD(config=config, seq_len=SQUAD_LEN, optimizer=optimizer,
+                     seed=SEED, device=dev)
+
+
+def zero_grad_reading(grads_cpu, grads_card, flat_leaves=()):
+    """(largest |card - cpu| over each leaf's largest |cpu| gradient, the
+    leaf): the attention key biases and ``flat_leaves`` (SQuAD's qa bias
+    and the last norm's bias, which shift every position's logit alike),
+    whose gradients are zero in exact arithmetic (softmax ignores a
+    shift), are held against the model's largest gradient instead."""
+    top = max(float(g.abs().max()) for g in grads_cpu.values())
+    rel = {}
+    for n, want in grads_cpu.items():
+        flat = n.endswith("attention.key.bias") or n in flat_leaves
+        scale = top if flat else float(want.abs().max())
+        rel[n] = float((grads_card[n].cpu() - want).abs().max()) / max(
+            scale, 1e-30)
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def phase_bert_tasks(torch, np, card):
+    """Phase 14(d): BERTNER (32 x 128, 9 tags) and BERTSQuAD (12 x 384,
+    AdamWeightDecay), ragged masks: one batch's loss and gradients at full
+    width with TASK_CPU_BLOCKS blocks on the card against the CPU, each
+    leaf within ZOO_GRAD_RTOL (SQuAD: SQUAD_GRAD_RTOL) of its largest; a
+    TASK_STEPS-step fit at
+    full depth, dropout 0.1 (SQuAD with remat off and on: peak memory and
+    ms a step)."""
+    from analytics_zoo_tpu_torch.learn.optimizers import AdamWeightDecay
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.text import BertConfig
+    rep = {}
+    rng = np.random.RandomState(SEED + 14)
+    for task, batch, length in (("ner", NER_BATCH, NER_LEN),
+                                ("squad", SQUAD_BATCH, SQUAD_LEN)):
+        ids, seg, mask, labels = bert_task_inputs(
+            np, rng, batch * TASK_STEPS, length, task)
+
+        def optimizer():
+            return "adam" if task == "ner" else AdamWeightDecay(3e-5)
+        one = {}
+        for dev in ("cpu", "cuda"):
+            cfg = BertConfig(n_block=TASK_CPU_BLOCKS, hidden_drop=0.0,
+                             attn_drop=0.0)
+            t = task_estimator(task, cfg, dev, optimizer())
+            y = t._masked(labels[:batch], mask[:batch]) if task == "ner" \
+                else labels[:batch]
+            loss, grads = t.estimator._loss_and_grads(
+                (ids[:batch], seg[:batch], mask[:batch]), y)
+            one[dev] = (float(loss), {n: g.detach().float().cpu() for n, g
+                                      in zip(t.estimator._names, grads)})
+            del t
+        flat = () if task == "ner" else (
+            "qa.bias", f"bert.block_{TASK_CPU_BLOCKS - 1}.ffn_norm.bias")
+        rel, worst = zero_grad_reading(one["cpu"][1], one["cuda"][1], flat)
+        loss_diff = abs(one["cpu"][0] - one["cuda"][0])
+        rep[task] = dict(loss_cpu=one["cpu"][0], loss_card=one["cuda"][0],
+                         loss_diff=loss_diff, grad_max_rel_diff=rel,
+                         grad_worst_leaf=worst)
+        log(f"BERT {task} ({batch} x {length}, {TASK_CPU_BLOCKS} blocks) "
+            f"one batch on {card} vs the CPU: loss {one['cuda'][0]:.6f} vs "
+            f"{one['cpu'][0]:.6f}; every gradient within {rel:.3g} of its "
+            f"largest (worst {worst}; limit "
+            f"{ZOO_GRAD_RTOL if task == 'ner' else SQUAD_GRAD_RTOL})")
+        limit = ZOO_GRAD_RTOL if task == "ner" else SQUAD_GRAD_RTOL
+        if loss_diff > NCF_STEP_LOSS_ATOL or rel > limit:
+            raise AssertionError(f"BERT {task} card vs CPU: {rep[task]}")
+        del one
+        for remat in ((False, True) if task == "squad" else (False,)):
+            t = task_estimator(task, BertConfig(remat=remat), "cuda",
+                               optimizer())
+            t.fit(ids[:batch], labels[:batch], token_type_ids=seg[:batch],
+                  input_mask=mask[:batch], epochs=1, batch_size=batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            hist, launches, dt = counted(torch, lambda: t.fit(
+                ids, labels, token_type_ids=seg, input_mask=mask, epochs=1,
+                batch_size=batch))
+            losses = t.estimator.step_losses[-TASK_STEPS:]
+            pred = t.predict(ids[:batch], seg[:batch], mask[:batch],
+                             batch_size=batch)
+            key = f"fit_remat_{remat}".lower()
+            rep[task][key] = dict(
+                step_ms=dt / TASK_STEPS * 1e3,
+                samples_per_s=TASK_STEPS * batch / dt,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                first_loss=losses[0], last_loss=losses[-1],
+                launches=launches)
+            log(f"  {task} fit, 12 blocks, remat {remat}: {TASK_STEPS} steps "
+                f"at {rep[task][key]['step_ms']:.3f} ms/step, peak "
+                f"{rep[task][key]['peak_memory_gb']:.2f} GB; loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}")
+            shapes = ([(batch, length, NER_ENTITIES)] if task == "ner"
+                      else [(batch, length)] * 2)
+            outs = pred if isinstance(pred, tuple) else (pred,)
+            if not np.isfinite(losses).all() or [o.shape for o in outs] \
+                    != shapes or not all(np.isfinite(o).all() for o in outs):
+                raise AssertionError(f"BERT {task} fit/predict: {losses}")
+            del t
+    return rep
+
+
+def phase_bert_remat(torch, np, state, Estimator, kind):
+    """Phase 14(c): bench.py's measure_bert classifier (token ids alone,
+    dropout 0.1, use_flash=True): one step with remat against one without
+    from the same weights and step seed (fp32 with TF32 off, bf16) within
+    phase 8's limits; a remat fit whose steps launch the flash forward 24
+    times and each backward kernel 12; peak memory and ms a step with
+    remat off and on at BERT_SWEEP batches (bf16); the steps_per_loop =
+    BERT_SCAN_STEPS sweep (bf16); one LAMB fit."""
+    from analytics_zoo_tpu_torch.learn.optimizers import LAMB
+    from analytics_zoo_tpu_torch.ops import _build
+    loss_name = "sparse_categorical_crossentropy_logits"
+
+    def make(dtype, remat, optimizer="adam"):
+        return Estimator.from_torch(
+            model=bert_classifier(state, use_flash=True, dtype=dtype,
+                                  remat=remat),
+            loss=loss_name, optimizer=optimizer, seed=SEED)
+
+    rep = {"step": {}}
+    ids, labels = train_inputs(np.random.RandomState(SEED + 2),
+                               max(BERT_SWEEP) * 2 * BERT_SCAN_STEPS)
+    b0 = (ids[:TRAIN_BATCH], labels[:TRAIN_BATCH])
+    for label, dtype, loss_atol, rtol in (
+            ("fp32", None, TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL),
+            ("bf16", torch.bfloat16, TRAIN_BF16_LOSS_ATOL,
+             TRAIN_BF16_GRAD_RTOL)):
+        out = {}
+        for remat in (False, True):
+            est = make(dtype, remat)
+            loss, grads = est._loss_and_grads(*b0)
+            out[remat] = (float(loss), dict(zip(est._names, grads)))
+            del est
+        rel, worst = grad_reading(out[True][1], out[False][1])
+        diff = abs(out[True][0] - out[False][0])
+        rep["step"][label] = dict(loss=out[False][0], loss_remat=out[True][0],
+                                  loss_diff=diff, max_rel_grad_diff=rel,
+                                  worst_param=worst)
+        log(f"BERT-Base step {label}, remat vs not (dropout 0.1, one step "
+            f"seed): loss {out[True][0]:.6f} vs {out[False][0]:.6f} "
+            f"(|diff| {diff:.3g}, atol {loss_atol}); gradients within "
+            f"{rel:.3g} of their scale (limit {rtol}; worst {worst})")
+        if not (np.isfinite(out[True][0]) and diff <= loss_atol
+                and rel <= rtol):
+            raise AssertionError(f"remat {label} step: {rep['step'][label]}")
+        del out
+    # the remat path: a fit whose steps recompute every block's forward
+    est = make(torch.bfloat16, True)
+    est.fit(b0, epochs=1, batch_size=TRAIN_BATCH)              # warm up
+    torch.cuda.synchronize()
+    rows = (ids[:TRAIN_BATCH * TRAIN_STEPS], labels[:TRAIN_BATCH *
+                                                   TRAIN_STEPS])
+    _build.reset_launch_counts()
+    _, launches, dt = counted(torch, lambda: est.fit(
+        rows, epochs=1, batch_size=TRAIN_BATCH))
+    rep["remat_fit"] = dict(step_ms=dt / TRAIN_STEPS * 1e3,
+                            launches=launches,
+                            losses=est.step_losses[-TRAIN_STEPS:])
+    log(f"  remat fit bf16 {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_LEN}:"
+        f" {rep['remat_fit']['step_ms']:.3f} ms/step; launches {launches}")
+    want = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 12,
+            "flash_attention_bwd_dkv": 12}
+    for name, n in want.items():
+        if launches.get(name) != n * TRAIN_STEPS:
+            raise AssertionError(f"remat fit: {name} launched "
+                                 f"{launches.get(name)} times in "
+                                 f"{TRAIN_STEPS} steps, not {n} a step")
+    if not np.isfinite(rep["remat_fit"]["losses"]).all():
+        raise AssertionError(f"remat fit losses: {rep['remat_fit']}")
+    del est
+    # peak memory and ms a step, remat off and on, bf16
+    rep["memory"] = {}
+    for b in BERT_SWEEP:
+        for remat in (False, True):
+            est = make(torch.bfloat16, remat)
+            xs, ys = est._tensors(ids[:b]), est._tensors(labels[:b])
+            est._train_step(xs, ys)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(MEM_STEPS):
+                est._train_step(xs, ys)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / MEM_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            rep["memory"][f"{b}_remat_{remat}".lower()] = dict(
+                step_ms=ms, peak_memory_gb=peak)
+            log(f"  bf16 batch {b} remat {remat}: peak {peak:.3f} GB, "
+                f"{ms:.3f} ms/step")
+            del est, xs, ys
+    # the scan sweep: fit(steps_per_loop=BERT_SCAN_STEPS), bf16
+    rep["scan"] = {}
+    for b in BERT_SWEEP:
+        est = make(torch.bfloat16, False)
+        k = BERT_SCAN_STEPS
+        est.fit((ids[:k * b], labels[:k * b]), epochs=1, batch_size=b,
+                steps_per_loop=k)                            # warm up
+        torch.cuda.synchronize()
+        _, _, dt = counted(torch, lambda: est.fit(
+            (ids[:2 * k * b], labels[:2 * k * b]), epochs=1, batch_size=b,
+            steps_per_loop=k))
+        rep["scan"][str(b)] = dict(step_ms=dt / (2 * k) * 1e3,
+                                   samples_per_s=2 * k * b / dt)
+        log(f"  steps_per_loop={k} bf16 batch {b}: "
+            f"{rep['scan'][str(b)]['step_ms']:.3f} ms/step, "
+            f"{rep['scan'][str(b)]['samples_per_s']:.1f} samples/s")
+        del est
+    est = make(torch.bfloat16, False, LAMB(1e-4))
+    est.fit(b0, epochs=1, batch_size=TRAIN_BATCH)
+    _, _, dt = counted(torch, lambda: est.fit(rows, epochs=1,
+                                              batch_size=TRAIN_BATCH))
+    losses = est.step_losses[-TRAIN_STEPS:]
+    rep["lamb"] = dict(step_ms=dt / TRAIN_STEPS * 1e3, losses=losses)
+    log(f"  LAMB fit bf16 at {TRAIN_BATCH}: {rep['lamb']['step_ms']:.3f} "
+        f"ms/step; losses {[round(v, 4) for v in losses]}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"LAMB fit losses: {losses}")
+    del est
+    return rep
+
+
+def phase_profile(torch, np, x, y, card):
+    """Phase 14(e): an NCF fit with ``profile_steps=PROFILE_STEPS`` writes
+    a trace holding exactly those steps' ranges, and its kernels run
+    inside them on the card."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    net = train_model("ncf")
+    net.compile(optimizer=Adam(NCF_LR),
+                loss="sparse_categorical_crossentropy")
+    net.set_tensorboard(os.path.join(PHASE14_DIR, "profile"), "ncf")
+    n = (PROFILE_STEPS[1] + 2) * BATCH
+    net.fit(x[:n], y[:n], batch_size=BATCH, nb_epoch=1,
+            profile_steps=PROFILE_STEPS)
+    path = net.estimator._profile_window.path
+    events = trace_events(path)
+    want = [f"zoo_step_{i}" for i in range(*PROFILE_STEPS)]
+    cpu = sorted({e["name"] for e in events if e.get("cat") ==
+                  "user_annotation" and e["name"].startswith("zoo_step_")})
+    gpu = [e for e in events if e.get("cat") == "gpu_user_annotation"
+           and e.get("name", "").startswith("zoo_step_")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    lo = min((e["ts"] for e in gpu), default=0.0)
+    hi = max((e["ts"] + e.get("dur", 0) for e in gpu), default=0.0)
+    outside = [e["name"] for e in kernels
+               if not lo <= e["ts"] <= hi]
+    rep = dict(trace=os.path.relpath(path), steps=cpu,
+               gpu_steps=sorted({e["name"] for e in gpu}),
+               kernels=len(kernels), kernels_outside=len(outside))
+    log(f"profile window {PROFILE_STEPS} on {card}: {os.path.basename(path)}"
+        f" holds {cpu} ({len(kernels)} kernels, {len(outside)} outside the "
+        f"steps' ranges on the card)")
+    if cpu != want or rep["gpu_steps"] != want or not kernels or outside:
+        raise AssertionError(f"profile window: {rep}; outside {outside[:5]}")
+    return rep
+
+
+def phase_a3(torch, np, eb, state, Estimator, x, y, kind, card):
+    """Phase 14 (a)-(e); the directory it writes is removed after. Each
+    part's paths zero the launch counts before they run."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import estimator
+    from analytics_zoo_tpu_torch.ops import _build
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    os.makedirs(PHASE14_DIR)
+    log_dir = estimator.DEFAULT_LOG_DIR
+    estimator.DEFAULT_LOG_DIR = os.path.join(PHASE14_DIR, "logs")
+    rep, counts = {}, {}
+    try:
+        rep["ncf_loops"] = phase_ncf_loops(torch, np, x, y, kind)
+        counts["ncf_loops"] = {m: rep["ncf_loops"][m]["launches"]
+                               for m in ("per_step", "staged", "cached")}
+        _build.reset_launch_counts()
+        rep["optimizers"] = phase_optimizers(torch, np, x, y, card)
+        counts["optimizers"] = _build.launch_counts()
+        rep["bert"] = phase_bert_remat(torch, np, state, Estimator, kind)
+        counts["bert_remat"] = rep["bert"]["remat_fit"]["launches"]
+        rep["tasks"] = phase_bert_tasks(torch, np, card)
+        counts["tasks"] = {t: rep["tasks"][t]["fit_remat_false"]["launches"]
+                           for t in ("ner", "squad")}
+        _build.reset_launch_counts()
+        rep["profile"] = phase_profile(torch, np, x, y, card)
+        counts["profile"] = _build.launch_counts()
+        for name in ("fused_embedding_lookup", "embedding_scatter_add"):
+            if counts["optimizers"].get(name, 0) <= 0 or \
+                    counts["profile"].get(name, 0) <= 0:
+                raise AssertionError(f"phase 14 launched no {name}: "
+                                     f"{counts}")
+    finally:
+        estimator.DEFAULT_LOG_DIR = log_dir
+        shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    rep["launches"] = counts
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3794,12 +4490,23 @@ def main() -> int:
     tcn_counts = _build.launch_counts()
     log(f"phase 13: {report['tcn']['seconds']:.1f} s; the port's kernel "
         f"launches on the TCN path: {tcn_counts}")
+    # 14. the estimator's loop modes at measure_ncf, the eight optimizers,
+    # remat, the BERT task estimators and the profile window: each part
+    # zeroes the counts before its paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t14 = time.perf_counter()
+    report["a3"] = phase_a3(torch, np, eb, state, Estimator, x_tr, y_tr,
+                            kind, card)
+    report["a3"]["seconds"] = time.perf_counter() - t14
+    a3_counts = report["a3"]["launches"]
+    log(f"phase 14: {report['a3']['seconds']:.1f} s; launches by path: "
+        f"{a3_counts}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
                           "ncf_train": ncf_train_counts,
                           "checkpoints": ckpt_counts, "zoo": zoo_counts,
-                          "tcn": tcn_counts}
+                          "tcn": tcn_counts, "a3": a3_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -3923,6 +4630,19 @@ def main() -> int:
             **{f"widedeep_{k}": rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")})
+    # phase 14's paths: the NCF loop modes, the optimizers and the profile
+    # window (B1, B1b), the remat fit (B3-B5)
+    loops = a3_counts["ncf_loops"]
+    for row in kernels["kernels"]:
+        name = row["name"]
+        if name in ("fused_embedding_lookup", "embedding_scatter_add"):
+            row["phase14_launches"] = dict(
+                **{f"ncf_{m}": loops[m].get(name, 0) for m in loops},
+                optimizers=a3_counts["optimizers"].get(name, 0),
+                profile=a3_counts["profile"].get(name, 0))
+        elif name.startswith("flash_attention"):
+            row["phase14_launches"] = dict(
+                bert_remat=a3_counts["bert_remat"].get(name, 0))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s in all")

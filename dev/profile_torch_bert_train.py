@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port's BERT fine-tuning step, on one
 GPU.
 
-    python3 dev/profile_torch_bert_train.py
+    python3 dev/profile_torch_bert_train.py [--remat]
 
 Builds the BERT-Base, Uncased classifier of chip_smoke.py (2 classes,
 use_flash=True, dropout 0.1, weights from the same numpy seed, TF32 off)
@@ -13,8 +13,11 @@ device time of every CUDA kernel and copy, the device's idle share, the
 device time of each kernel by name, and the shares of device time taken
 by the GEMMs, the flash forward, dq and dk/dv kernels, the optimizer's
 multi-tensor kernels and the rest (elementwise ops, norms, copies), and
-the operators that take the most host time.
-Writes chiprun_out/profile_torch_bert_train.json and prints it.
+the operators that take the most host time, and the peak memory of each
+window. ``--remat`` builds the classifier with ``BertConfig(remat=True)``
+(every block recomputed in the backward pass; the flash forward launches
+twice a block) and writes chiprun_out/profile_torch_bert_train_remat.json;
+without it, chiprun_out/profile_torch_bert_train.json. Prints it.
 """
 
 from __future__ import annotations
@@ -69,9 +72,16 @@ def _host_ops(prof, top: int = 20) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--remat", action="store_true",
+                        help="BertConfig(remat=True)")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("profile_torch_bert_train: CUDA is not available",
@@ -84,17 +94,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     b = chip_smoke.TRAIN_BATCH
     out = {"card": chip_smoke.card_line(), "torch": torch.__version__,
-           "batch": b, "seq": chip_smoke.TRAIN_LEN, "steps": STEPS}
+           "batch": b, "seq": chip_smoke.TRAIN_LEN, "steps": STEPS,
+           "remat": args.remat}
     ids, labels = chip_smoke.train_inputs(
         np.random.RandomState(chip_smoke.SEED), b * STEPS)
     state = chip_smoke.bert_classifier(None, use_flash=True).state_dict()
     for name, extra in (("fp32", {}), ("bf16", {"dtype": torch.bfloat16})):
         est = Estimator.from_torch(
-            model=chip_smoke.bert_classifier(state, use_flash=True, **extra),
+            model=chip_smoke.bert_classifier(state, use_flash=True,
+                                             remat=args.remat, **extra),
             loss="sparse_categorical_crossentropy_logits", optimizer="adam",
             seed=chip_smoke.SEED)
         est.fit((ids[:2 * b], labels[:2 * b]), epochs=1, batch_size=b)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -105,6 +118,7 @@ def main() -> int:
         window["groups"] = _shares(window)
         window["host_ops"] = _host_ops(prof)
         window["wall_ms_per_step"] = wall * 1e3 / STEPS
+        window["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out[f"fit_{name}"] = window
         print(name, json.dumps(window["groups"]), flush=True)
         del est
@@ -112,14 +126,16 @@ def main() -> int:
 
     os.makedirs(os.path.join(os.path.dirname(ROOT), "chiprun_out"),
                 exist_ok=True)
+    suffix = "_remat" if args.remat else ""
     with open(os.path.join(os.path.dirname(ROOT), "chiprun_out",
-                           "profile_torch_bert_train.json"), "w") as fh:
+                           f"profile_torch_bert_train{suffix}.json"),
+              "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps({k: v for k, v in out.items()
                       if not isinstance(v, dict)}
                      | {k: {f: v[f] for f in ("wall_ms", "device_ms",
                                               "idle_share", "groups",
-                                              "host_ops")}
+                                              "peak_memory_gb", "host_ops")}
                         for k, v in out.items() if isinstance(v, dict)},
                      indent=1))
     return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's NCF training step, on one GPU.
 
-    python3 dev/profile_torch_ncf_train.py
+    python3 dev/profile_torch_ncf_train.py [--loop K | --cache]
 
 Builds the two training configurations of chip_smoke.py at full width
 (NeuralCF at MovieLens-1M width, and the same with the pooled item-history
@@ -13,8 +13,17 @@ wall time, the summed device time of every CUDA kernel and copy, the
 device's idle share, the launches per step, the device time of each kernel
 by name and per group (GEMMs, the lookup, the bag, the scatter, the
 sort, the optimizer's multi-tensor kernels, the rest: elementwise ops,
-reductions, copies), and the operators that take the most host time.
-Writes chiprun_out/profile_torch_ncf_train.json and prints it.
+reductions, copies), the host-to-device copies per step, and the
+operators that take the most host time.
+
+``--loop K`` traces ``fit(steps_per_loop=K)`` over K steps (one stacked
+copy, then K steps) and ``--cache`` traces ``fit(cache="device")`` over
+5 steps of a dataset already on the card (the warm-up fit of the same
+dataset object copied it), so a staged or cached step splits into the
+same launches, copies and host ms. Both call ``TorchEstimator.fit`` on
+the compiled model's estimator with one dataset object.
+Writes chiprun_out/profile_torch_ncf_train[_loopK|_cache].json and prints
+it.
 """
 
 from __future__ import annotations
@@ -74,9 +83,19 @@ def _host_ops(prof, top: int = 20) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    parser = argparse.ArgumentParser()
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--loop", type=int, default=1,
+                      help="fit(steps_per_loop=K), traced over K steps")
+    mode.add_argument("--cache", action="store_true",
+                      help='fit(cache="device") of a dataset on the card')
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("profile_torch_ncf_train: CUDA is not available",
@@ -84,12 +103,20 @@ def main() -> int:
         return 2
     import chip_smoke
     from profile_torch_ncf import _window
+    from analytics_zoo_tpu_torch.data import ShardedDataset
     from analytics_zoo_tpu_torch.learn.optimizers import Adam
 
+    global STEPS
+    fit_args, suffix = {}, ""
+    if args.loop > 1:
+        STEPS, suffix = args.loop, f"_loop{args.loop}"
+        fit_args = {"steps_per_loop": args.loop}
+    elif args.cache:
+        suffix, fit_args = "_cache", {"cache": "device"}
     torch.backends.cuda.matmul.allow_tf32 = False
     b = chip_smoke.BATCH
     out = {"card": chip_smoke.card_line(), "torch": torch.__version__,
-           "batch": b, "steps": STEPS}
+           "batch": b, "steps": STEPS, "fit_args": fit_args}
     x, y, hist = chip_smoke.ncf_train_data(np)
     for config in ("ncf", "hist"):
         net = chip_smoke.train_model(config)
@@ -97,20 +124,30 @@ def main() -> int:
                     loss="sparse_categorical_crossentropy")
         net.fit(chip_smoke.train_inputs_of(config, x, hist, 0, 2 * b),
                 y[:2 * b], batch_size=b, nb_epoch=1)
+        xs = chip_smoke.train_inputs_of(config, x, hist, 2 * b,
+                                        (2 + STEPS) * b)
+        data = ShardedDataset(tuple(xs) if isinstance(xs, list) else xs,
+                              y[2 * b:(2 + STEPS) * b])
+        if fit_args:
+            # the mode's own warm-up: its loop shape, or the device copy
+            net.estimator.fit(data, batch_size=b, shuffle=False,
+                              **fit_args)
         torch.cuda.synchronize()
-        data = (chip_smoke.train_inputs_of(config, x, hist, 2 * b,
-                                           (2 + STEPS) * b),
-                y[2 * b:(2 + STEPS) * b])
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             # the fit ends by reading the step losses back: a sync
-            net.fit(*data, batch_size=b, nb_epoch=1, shuffle=False)
+            net.estimator.fit(data, batch_size=b, shuffle=False,
+                              **fit_args)
             wall = time.perf_counter() - t0
         window = _window(prof, wall)
         window["groups"] = _groups(window)
         window["launches_per_step"] = sum(
-            k["count"] for k in window["kernels"].values()) / STEPS
+            k["count"] for name, k in window["kernels"].items()
+            if "Memcpy" not in name and "Memset" not in name) / STEPS
+        window["h2d_copies_per_step"] = sum(
+            k["count"] for name, k in window["kernels"].items()
+            if "HtoD" in name) / STEPS
         window["host_ops"] = _host_ops(prof)
         window["wall_ms_per_step"] = wall * 1e3 / STEPS
         window["device_ms_per_step"] = window["device_ms"] / STEPS
@@ -122,15 +159,17 @@ def main() -> int:
     os.makedirs(os.path.join(os.path.dirname(ROOT), "chiprun_out"),
                 exist_ok=True)
     with open(os.path.join(os.path.dirname(ROOT), "chiprun_out",
-                           "profile_torch_ncf_train.json"), "w") as fh:
+                           f"profile_torch_ncf_train{suffix}.json"),
+              "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps({k: v for k, v in out.items()
                       if not isinstance(v, dict)}
                      | {k: {f: v[f] for f in (
                          "wall_ms_per_step", "device_ms_per_step",
-                         "idle_share", "launches_per_step", "groups",
-                         "host_ops")}
-                        for k, v in out.items() if isinstance(v, dict)},
+                         "idle_share", "launches_per_step",
+                         "h2d_copies_per_step", "groups", "host_ops")}
+                        for k, v in out.items() if k.startswith("fit_")
+                        and isinstance(v, dict) and "groups" in v},
                      indent=1))
     return 0
 

@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax():
                 "models.anomalydetection.anomaly_detector",
                 "parallel.mesh", "data.shard", "data.dataset",
                 "data.pandas.preprocessing", "automl.metrics",
-                "zouwu.model.nets", "zouwu.model.forecast"):
+                "zouwu.model.nets", "zouwu.model.forecast",
+                "learn.optimizers", "learn.estimator", "convert"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame
@@ -74,3 +75,31 @@ def test_sources_import_no_jax(path):
                 and node.level == 0 and _forbidden(node.module):
             bad.append(node.module)
     assert bad == [], f"{path} imports {bad}"
+
+
+def test_a3_surface_imports_without_jax():
+    """The estimator's loop options, the eight optimizers, the BERT task
+    estimators and remat load in a process that never saw JAX."""
+    code = (
+        "import sys, inspect\n"
+        "from analytics_zoo_tpu_torch.learn import optimizers as o\n"
+        "from analytics_zoo_tpu_torch.learn.estimator import "
+        "TorchEstimator\n"
+        "from analytics_zoo_tpu_torch.text import BERTNER, BERTSQuAD, "
+        "BertConfig\n"
+        "names = ['rmsprop', 'adagrad', 'adadelta', 'adamax', 'nadam', "
+        "'lars', 'lamb', 'lbfgs']\n"
+        "print([type(o.Optimizer.get(n)).__name__ for n in names])\n"
+        "p = inspect.signature(TorchEstimator.fit).parameters\n"
+        "assert {'steps_per_loop', 'cache', 'profile', 'profile_steps'} "
+        "<= set(p)\n"
+        "assert BertConfig(remat=True).remat\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=120)
+    assert out.stdout.strip() == str(["RMSprop", "Adagrad", "Adadelta",
+                                      "Adamax", "Nadam", "LARS", "LAMB",
+                                      "LBFGS"])
