@@ -26,33 +26,112 @@ card that holds when every product's row count is fixed: the scheduler
 pads each wide step to its batch rung, so pin ``batch_ladder`` to one
 rung where bitwise equality across loads matters.
 
-Where the JAX package records telemetry, the port keeps plain counters
-(ROADMAP A10): ``paged_steps``, ``paged_fallbacks``, ``spec_proposed`` and
-``spec_accepted`` on the scheduler, ``zeros_skipped`` and ``requants`` on
-the allocator, and the running totals :data:`spec_proposed_total` /
-:data:`spec_accepted_total` over every scheduler on this module (JAX's
-``zoo_spec_{proposed,accepted}_total``). Without the autotuner (ROADMAP
-A9), ``paged="auto"`` takes the paged step wherever a paged step function
-was given; ``tune_paged`` measures both routes but persists nothing.
+The process-wide counts ride the telemetry registry under the JAX
+package's names (``zoo_paged_attn_steps_total``,
+``zoo_paged_attn_fallback_total``, ``zoo_spec_{proposed,accepted}_total``,
+``zoo_spec_accept_ratio``, ``zoo_kv_page_zeros_skipped_total``,
+``zoo_kv_quant_requants_total``, ``zoo_kv_pages_{in_use,free}``,
+``zoo_kv_quant_pool_bytes``); each scheduler and allocator also keeps its
+own (``paged_steps``, ``paged_fallbacks``, ``spec_proposed``,
+``spec_accepted``; ``zeros_skipped``, ``requants``). A sequence carries
+its lane and its cost (``device_s``, its share of every wide step's wall
+time, and ``pages_held``), which the serving engine settles into the
+``zoo_request_cost_*`` histograms. Without the autotuner (ROADMAP A9),
+``paged="auto"`` takes the paged step wherever a paged step function was
+given; ``tune_paged`` measures both routes but persists nothing.
 """
 
 from __future__ import annotations
 
 import statistics
-import threading
 from time import perf_counter
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
-from analytics_zoo_tpu_torch.common import compile_ahead
+from analytics_zoo_tpu_torch.common import compile_ahead, telemetry
 from analytics_zoo_tpu_torch.inference import generation, quantize
 
 
-#: draft tokens proposed and accepted, over every scheduler
-spec_proposed_total = 0
-spec_accepted_total = 0
-_totals_lock = threading.Lock()
+# metric handles are resolved from the live registry on every write: a
+# handle taken at import would go stale when telemetry.reset_for_tests
+# swaps the registry
+def _m_pages_in_use():
+    return telemetry.get_registry().gauge(
+        "zoo_kv_pages_in_use",
+        "KV pages currently allocated to live decode sequences out of "
+        "the shared pool")
+
+
+def _m_pages_free():
+    return telemetry.get_registry().gauge(
+        "zoo_kv_pages_free",
+        "KV pages currently free in the shared pool — what admission "
+        "control checks before accepting a new generate sequence")
+
+
+def _m_spec_proposed():
+    return telemetry.get_registry().counter(
+        "zoo_spec_proposed_total",
+        "Draft tokens proposed by the speculative-decode draft model")
+
+
+def _m_spec_accepted():
+    return telemetry.get_registry().counter(
+        "zoo_spec_accepted_total",
+        "Draft tokens accepted by the target model's greedy verification")
+
+
+def _m_spec_ratio():
+    return telemetry.get_registry().gauge(
+        "zoo_spec_accept_ratio",
+        "Running accepted/proposed ratio of speculative decode — 1.0 "
+        "means every draft token survived verification")
+
+
+def _m_paged_steps():
+    return telemetry.get_registry().counter(
+        "zoo_paged_attn_steps_total",
+        "Wide decode steps dispatched through the paged seam — the page "
+        "pool consumed on device via the scalar-prefetched page table "
+        "instead of a host-side gather")
+
+
+def _m_paged_fallback():
+    return telemetry.get_registry().counter(
+        "zoo_paged_attn_fallback_total",
+        "Wide decode steps that took the host gather_into fallback on a "
+        "paged-capable scheduler (paged off, no verdict yet, or the "
+        "autotune verdict favored gather)")
+
+
+def _m_zeros_skipped():
+    return telemetry.get_registry().counter(
+        "zoo_kv_page_zeros_skipped_total",
+        "Recycled-page memsets skipped because the paged kernel's length "
+        "masking makes stale positions unreadable")
+
+
+def _m_kv_requants():
+    return telemetry.get_registry().counter(
+        "zoo_kv_quant_requants_total",
+        "int8 KV page requantizations — a later append raised a page's "
+        "running amax, so its existing rows were rescaled to the grown "
+        "per-page scale")
+
+
+def _m_kv_pool_bytes():
+    return telemetry.get_registry().gauge(
+        "zoo_kv_quant_pool_bytes",
+        "Resident bytes of the shared KV page pool including per-page "
+        "scales — ZOO_KV_DTYPE=int8 shows up here as a ~4x drop at a "
+        "fixed page count")
+
+
+def spec_totals() -> "tuple[int, int]":
+    """Draft tokens proposed and accepted so far, over every scheduler
+    (``zoo_spec_{proposed,accepted}_total``)."""
+    return (int(_m_spec_proposed().value), int(_m_spec_accepted().value))
 
 
 class PagePoolExhausted(RuntimeError):
@@ -85,7 +164,8 @@ class PagedKVAllocator:
     """
 
     def __init__(self, n_pages: int, page_size: int, dim: int,
-                 dtype=np.float32, kv_dtype=None, lazy_zero: bool = False):
+                 dtype=np.float32, kv_dtype=None, lazy_zero: bool = False,
+                 sync_gauges: bool = True):
         if int(n_pages) < 1 or int(page_size) < 1:
             raise ValueError("need n_pages >= 1 and page_size >= 1")
         self.page_size = int(page_size)
@@ -104,6 +184,10 @@ class PagedKVAllocator:
         self.lazy_zero = bool(lazy_zero)
         self.zeros_skipped = 0
         self.requants = 0
+        # the registry's pool gauges describe the live pool; a private
+        # allocator (tune_paged's) keeps out of them
+        self._gauges_on = bool(sync_gauges)
+        self._sync_gauges()
 
     @classmethod
     def for_grid(cls, max_batch: int, max_positions: int, dim: int,
@@ -159,6 +243,13 @@ class PagedKVAllocator:
         return int(self._pool.nbytes + self._scales.nbytes
                    + self._amax.nbytes)
 
+    def _sync_gauges(self):
+        if not self._gauges_on:
+            return
+        _m_pages_in_use().set(self.n_in_use)
+        _m_pages_free().set(self.n_free)
+        _m_kv_pool_bytes().set(self.pool_nbytes)
+
     def _grow(self, extra: int):
         """Extend the pool: a single request larger than the whole pool
         must still be servable."""
@@ -172,6 +263,7 @@ class PagedKVAllocator:
         self._amax = np.concatenate(
             [self._amax, np.zeros((int(extra),), np.float32)])
         self._free.extend(range(base + int(extra) - 1, base - 1, -1))
+        self._sync_gauges()
 
     # ------------------------------------------------------- alloc/free
     def alloc_pages(self, n: int) -> List[int]:
@@ -197,14 +289,17 @@ class PagedKVAllocator:
             # unreadable, and the host gather copies only positions <
             # length into a zeroed buffer: the memset is pure overhead
             self.zeros_skipped += len(pages)
+            _m_zeros_skipped().inc(len(pages))
         else:
             for p in pages:
                 self._pool[p].fill(0)
+        self._sync_gauges()
         return pages
 
     def free_pages(self, pages: Sequence[int]) -> None:
         """Return pages to the pool, reusable by the next admission."""
         self._free.extend(int(p) for p in pages)
+        self._sync_gauges()
 
     # -------------------------------------------------------- row access
     def write_row(self, page: int, off: int, vec: np.ndarray) -> None:
@@ -222,6 +317,7 @@ class PagedKVAllocator:
                 self._pool[page] = quantize.requantize_rows(
                     self._pool[page], self._scales[page], new_scale)
                 self.requants += 1
+                _m_kv_requants().inc()
             self._scales[page] = new_scale
             self._amax[page] = amax
         self._pool[page, off, :] = quantize.quantize_rows(
@@ -343,11 +439,12 @@ class DecodeSequence:
     Not thread-safe — owned by one scheduler."""
 
     __slots__ = ("enc", "cache", "prefill", "max_new_tokens", "mode",
-                 "temperature", "rng", "gen", "generated", "tag",
-                 "_prefill_pos", "_drafts")
+                 "temperature", "rng", "gen", "generated", "tag", "lane",
+                 "trace_uri", "_prefill_pos", "_drafts", "t_admit",
+                 "device_s", "pages_held")
 
     def __init__(self, enc, prefill, max_new_tokens, mode, temperature,
-                 seed, cache, tag):
+                 seed, cache, tag, lane="default", trace_uri=None):
         self.enc = enc
         self.prefill = prefill                  # [S, dim] teacher-forced
         self.max_new_tokens = int(max_new_tokens)
@@ -360,8 +457,17 @@ class DecodeSequence:
         self.gen = np.zeros((self.max_new_tokens, dim), np.float32)
         self.generated = 0
         self.tag = tag
+        self.lane = lane
+        self.trace_uri = trace_uri
         self._prefill_pos = 0
         self._drafts = 0
+        self.t_admit = perf_counter()
+        # cost attribution, settled by the serving engine when the
+        # sequence finishes: device_s accumulates this sequence's share of
+        # every wide step's wall time; pages_held is the cache's page high
+        # water (taken just before close frees the pages)
+        self.device_s = 0.0
+        self.pages_held = int(cache.n_pages)
 
     @property
     def prefilled(self) -> bool:
@@ -465,11 +571,13 @@ class DecodeScheduler:
 
     def admit(self, enc, start, max_new_tokens: int, *,
               mode: str = "greedy", temperature: float = 1.0,
-              seed: Optional[int] = None, tag=None) -> DecodeSequence:
+              seed: Optional[int] = None, tag=None, lane: str = "default",
+              trace_uri: Optional[str] = None) -> DecodeSequence:
         """Admit one generation: reserve its worst-case pages up front (a
         sequence the pool cannot hold right now raises
         :class:`PagePoolExhausted`) and queue its prefill, chunked across
-        the next steps."""
+        the next steps. ``lane`` is the record's priority lane (the
+        engine's preemption reads it)."""
         if mode not in generation.MODES:
             raise ValueError(
                 f"mode must be one of {generation.MODES}, got {mode!r}")
@@ -495,7 +603,7 @@ class DecodeScheduler:
         try:
             seq = DecodeSequence(enc, prefill, steps, mode, temperature,
                                  seed, PagedKVCache(self._alloc, pages),
-                                 tag)
+                                 tag, lane, trace_uri)
         except Exception:
             self._alloc.free_pages(pages)
             raise
@@ -582,7 +690,7 @@ class DecodeScheduler:
                        self._alloc.dtype)
         for i, s in enumerate(seqs):
             s.cache.gather_into(dec[i])
-        return compile_ahead.pad_to_rung((enc, dec), rung)
+        return compile_ahead.pad_to_rung((enc, dec), rung, site="decode")
 
     def _use_paged_step(self) -> bool:
         return self._paged_step_fn is not None and self._paged != "off"
@@ -593,10 +701,13 @@ class DecodeScheduler:
         rung = self._batch_rung(len(seqs))
         width = self._alloc.pages_for(seq_rung)
         (enc,) = compile_ahead.pad_to_rung(
-            (np.stack([s.enc for s in seqs]),), rung)
+            (np.stack([s.enc for s in seqs]),), rung, site="decode")
         table = np.stack([s.cache.page_table(width) for s in seqs])
         lengths = np.array([s.cache.length for s in seqs], np.int32)
-        table, lengths = compile_ahead.pad_to_rung((table, lengths), rung)
+        pad = rung - len(seqs)
+        if pad:
+            table = np.concatenate([table, np.repeat(table[-1:], pad, 0)])
+            lengths = np.concatenate([lengths, np.repeat(lengths[-1:], pad)])
         pool, scales = self._alloc.pool_view()
         return enc, pool, scales, table, lengths
 
@@ -611,6 +722,7 @@ class DecodeScheduler:
         # positions < length into a zeroed buffer)
         self._alloc.lazy_zero = True
         self.paged_steps += 1
+        _m_paged_steps().inc()
         return out
 
     def tune_paged(self, batch_rung: Optional[int] = None,
@@ -642,7 +754,8 @@ class DecodeScheduler:
         rng = np.random.default_rng(0)
         alloc = PagedKVAllocator(self._alloc.n_pages, self.page_size,
                                  self._alloc.dim,
-                                 kv_dtype=self._alloc.kv_dtype)
+                                 kv_dtype=self._alloc.kv_dtype,
+                                 sync_gauges=False)
         width = alloc.pages_for(seq_rung)
         fill = max(1, seq_rung - 1)
         caches = []
@@ -676,6 +789,7 @@ class DecodeScheduler:
 
     def _step_group(self, seqs: List[DecodeSequence]
                     ) -> List[DecodeSequence]:
+        t0 = perf_counter()
         spec = [s for s in seqs
                 if self._draft_fn is not None and self.spec_k > 0
                 and s.mode == "greedy"]
@@ -692,6 +806,7 @@ class DecodeScheduler:
             out = np.asarray(self._step_fn(enc, dec))
             if self._paged_step_fn is not None:
                 self.paged_fallbacks += 1
+                _m_paged_fallback().inc()
         finished = []
         for i, s in enumerate(seqs):
             before = s.generated
@@ -701,8 +816,14 @@ class DecodeScheduler:
                 s._feed(out[i, s.cache.length - 1, :])
             generation.count_decode_steps(s.generated - before)
             if s.done:
+                s.pages_held = max(s.pages_held, s.cache.n_pages)
                 s.cache.close()
                 finished.append(s)
+        # bill every participant an equal share of the wide step's wall
+        # time (the engine's zoo_request_cost_device_seconds)
+        share = (perf_counter() - t0) / max(1, len(seqs))
+        for s in seqs:
+            s.device_s += share
         return finished
 
     # ------------------------------------------------- speculative decode
@@ -767,7 +888,8 @@ class DecodeScheduler:
         self.spec_proposed += k
         self.spec_accepted += accepted
         s._drafts = 0
-        global spec_proposed_total, spec_accepted_total
-        with _totals_lock:
-            spec_proposed_total += k
-            spec_accepted_total += accepted
+        _m_spec_proposed().inc(k)
+        _m_spec_accepted().inc(accepted)
+        proposed, accepted_all = spec_totals()
+        if proposed:
+            _m_spec_ratio().set(accepted_all / proposed)

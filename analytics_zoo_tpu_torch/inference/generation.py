@@ -13,19 +13,18 @@ reference. On the card this also needs every product's shape to be
 independent of the rung (keras/layers.py runs the recurrence and
 ``TimeDistributed`` one time step at a time for that reason).
 
-The port has no telemetry yet (ROADMAP A10): the decode-steps counter is
-the plain integer :data:`decode_steps` on this module, and ``trace_ids``
-is accepted and ignored.
+Generated positions count on the registry's ``zoo_decode_steps_total``
+(common/telemetry.py, the JAX package's name); ``trace_ids`` is accepted
+and ignored (decode spans are ROADMAP A10's).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from analytics_zoo_tpu_torch.common import compile_ahead
+from analytics_zoo_tpu_torch.common import compile_ahead, telemetry
 
 #: generation modes: ``raw`` feeds the predicted vector straight back
 #: (the reference ``Seq2Seq.infer`` semantics); ``greedy`` feeds the
@@ -35,9 +34,21 @@ MODES = ("raw", "greedy", "sample")
 #: default seq-length ladder bounds for generate requests
 DEFAULT_SEQ_RUNGS = (8, 128)
 
-#: generated positions so far, over every decode loop and scheduler
-decode_steps = 0
-_steps_lock = threading.Lock()
+
+# metric handles are resolved from the live registry on every write: a
+# handle taken at import would go stale when telemetry.reset_for_tests
+# swaps the registry
+def _m_decode_steps():
+    return telemetry.get_registry().counter(
+        "zoo_decode_steps_total",
+        "Autoregressive decode steps executed (one per generated position "
+        "per batch dispatch)")
+
+
+def decode_steps() -> int:
+    """Generated positions so far, over every decode loop and scheduler
+    (``zoo_decode_steps_total``)."""
+    return int(_m_decode_steps().value)
 
 
 def seq_ladder(max_seq_len: int,
@@ -116,12 +127,11 @@ def feedback_rows(vec: np.ndarray, mode: str, temperature: float,
 
 
 def count_decode_steps(n: int) -> None:
-    """Add ``n`` generated positions to :data:`decode_steps` (the step
-    scheduler's wide steps account here alongside ``decode_loop``)."""
-    global decode_steps
+    """Add ``n`` generated positions to ``zoo_decode_steps_total`` (the
+    step scheduler's wide steps account here alongside
+    ``decode_loop``)."""
     if n > 0:
-        with _steps_lock:
-            decode_steps += int(n)
+        _m_decode_steps().inc(int(n))
 
 
 def decode_loop(predict_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],

@@ -13,7 +13,15 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
 - ``predict`` — chunked batch predict; with a bucket ladder the tail
   chunk pads to its nearest rung
 - ``predict_async`` / ``predict_fetch`` — the serving engine's staged
-  dispatch: launch one batch on the device, fetch its host result later
+  dispatch: launch one batch on the device and record a CUDA event after
+  it; the fetch waits for the event, then copies the batch to the host
+- ``warm_up`` / ``wait_warm`` / ``rung_ready`` — run one forward at each
+  batch rung of the ladder on a background thread (on the device's
+  default stream, the one the serving thread launches on, under
+  ``inference_mode``), so the kernels' build, cuBLAS's algorithm choice
+  and workspace, and the caching allocator's growth fall before the first
+  real request on that rung; the serving engine grows its batch bucket
+  only onto ready rungs
 - decode, for a 2-input (encoder, decoder) model such as ``Seq2Seq``:
   ``decode_step_fn`` / ``paged_decode_step_fn`` (the step seams of
   inference/decode_scheduler.py; the paged one gathers the page pool on
@@ -29,7 +37,9 @@ from __future__ import annotations
 
 import collections
 import copy
+import logging
 import threading
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,8 +50,22 @@ from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
 
 
+logger = logging.getLogger(__name__)
+
+
 def _as_tuple(x):
     return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+class _Pending:
+    """One launched batch: its output tensor(s) and, on the card, the
+    CUDA event recorded after the launch on the launching stream."""
+
+    __slots__ = ("out", "event")
+
+    def __init__(self, out, event):
+        self.out = out
+        self.event = event
 
 
 class InferenceModel:
@@ -55,6 +79,14 @@ class InferenceModel:
         self._module: Optional[torch.nn.Module] = None
         self._n_inputs = 1
         self._ladder: Optional[compile_ahead.BucketLadder] = None
+        # ((sample_shape, dtype), ...) per input: what warm_up builds its
+        # zero batches from
+        self._sample_spec = None
+        # rungs whose forward has run and synchronized for the loaded
+        # module, and the ones a warm-up thread is running now
+        self._ready_rungs: set = set()
+        self._warming: set = set()
+        self._warm_threads: list = []
 
     # ------------------------------------------------------------- loaders
     def load_zoo(self, model) -> "InferenceModel":
@@ -69,6 +101,8 @@ class InferenceModel:
         with self._lock:
             self._module = module
             self._n_inputs = len(module.graph_inputs)
+            self._sample_spec = None
+            self._ready_rungs = set()
         return self
 
     def load(self, path: str) -> "InferenceModel":
@@ -89,6 +123,8 @@ class InferenceModel:
         with self._lock:
             self._module = copy_
             self._n_inputs = len(_as_tuple(sample_input))
+            self._ready_rungs = set()
+        self._remember_spec(_as_tuple(sample_input), overwrite=True)
         return self
 
     def set_ladder(self, ladder, max_batch_size: Optional[int] = None
@@ -102,6 +138,124 @@ class InferenceModel:
         with self._lock:
             self._ladder = ladder
         return self
+
+    # ------------------------------------------------------------ warm-up
+    def _remember_spec(self, xs, overwrite: bool = False):
+        """Record the per-sample (shape, dtype) of every input (``xs`` is
+        batched). A loader's ``sample_input`` overwrites; shapes seen in a
+        predict only fill an empty spec."""
+        try:
+            xs = [a if isinstance(a, torch.Tensor) else np.asarray(a)
+                  for a in xs]
+            spec = tuple((tuple(a.shape[1:]), a.dtype) for a in xs)
+        except Exception:
+            return
+        with self._lock:
+            if overwrite or self._sample_spec is None:
+                self._sample_spec = spec
+
+    def has_warm_spec(self) -> bool:
+        """True once the input spec warm-up needs is known."""
+        with self._lock:
+            return self._sample_spec is not None
+
+    def _warm_rung(self, module, spec, rung: int) -> None:
+        """One forward at batch ``rung`` on zeros of the spec, then a sync
+        of an event recorded after it."""
+        def zeros(shape, dtype):
+            if isinstance(dtype, torch.dtype):
+                return torch.zeros((rung,) + tuple(shape), dtype=dtype,
+                                   device=self.device)
+            return as_tensor(np.zeros((rung,) + tuple(shape), dtype),
+                             self.device)
+
+        with torch.inference_mode():
+            module(*(zeros(shape, dtype) for shape, dtype in spec))
+        if self.device.type == "cuda":
+            # the default stream, not one of the warm thread's own: the
+            # caching allocator keeps a freed block for the stream that
+            # used it, and cuBLAS its workspace per stream, so a private
+            # stream would warm a pool the serving thread never draws from
+            # (dev/warmup_variants.py)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+
+    def warm_up(self, rungs=None, sample_input=None, block: bool = False):
+        """Run one forward at each batch ``rung`` (default: the attached
+        ladder's) that is not ready yet, on a background thread, on the
+        device's default stream, under ``inference_mode``, and wait for
+        it: the kernels' build, cuBLAS's algorithm choice and workspace,
+        and the caching allocator's growth to the rung's peak then fall
+        before the first real request. The forward shares the module with
+        the serving thread and writes no shared state, so results served
+        meanwhile keep their bits. ``sample_input`` (batched) records the input
+        spec when the loader did not. ``block=True`` runs on the caller's
+        thread. Returns the thread (None when nothing is left to warm or
+        the spec is unknown); ``wait_warm`` joins them all."""
+        if sample_input is not None:
+            self._remember_spec(_as_tuple(sample_input), overwrite=True)
+        with self._lock:
+            module, spec, ladder = \
+                self._module, self._sample_spec, self._ladder
+            if module is None or spec is None:
+                return None
+            if rungs is None:
+                rungs = ladder.rungs if ladder is not None else ()
+            todo = [r for r in sorted({int(r) for r in rungs})
+                    if r not in self._ready_rungs
+                    and r not in self._warming]
+            self._warming.update(todo)
+        if not todo:
+            return None
+
+        def run():
+            try:
+                for rung in todo:
+                    if compile_ahead.draining():
+                        break
+                    try:
+                        self._warm_rung(module, spec, rung)
+                    except Exception:
+                        logger.exception("warm-up of rung %d failed", rung)
+                        continue
+                    with self._lock:
+                        if self._module is module:
+                            self._ready_rungs.add(rung)
+            finally:
+                with self._lock:
+                    self._warming.difference_update(todo)
+
+        if block:
+            run()
+            return None
+        t = threading.Thread(target=run, daemon=True, name="zoo-warm-up")
+        compile_ahead.register_warmup_thread(t)
+        with self._lock:
+            self._warm_threads = [w for w in self._warm_threads
+                                  if w.is_alive()] + [t]
+        t.start()
+        return t
+
+    def wait_warm(self, timeout: Optional[float] = None
+                  ) -> "InferenceModel":
+        """Join every outstanding warm-up thread (within ``timeout``
+        seconds in all, when given)."""
+        with self._lock:
+            threads = list(self._warm_threads)
+        deadline = None if timeout is None else \
+            time.monotonic() + float(timeout)
+        for t in threads:
+            t.join(None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
+        return self
+
+    def rung_ready(self, rung: int) -> bool:
+        """True once a forward at batch ``rung`` has run and synchronized
+        for the loaded model — the serving engine's gate for growing its
+        batch bucket."""
+        with self._lock:
+            return int(rung) in self._ready_rungs
 
     # ------------------------------------------------------------- predict
     def _snapshot(self):
@@ -153,6 +307,8 @@ class InferenceModel:
         before chunk N's result is copied back. Thread-safe; at most
         ``concurrent_num`` predicts run at once."""
         module, n_inputs, ladder = self._snapshot()
+        if not hasattr(x, "__next__"):
+            self._remember_spec(self._coerce(x, n_inputs))
 
         def chunks():
             if hasattr(x, "__next__"):       # stream of batches
@@ -181,15 +337,28 @@ class InferenceModel:
 
     def predict_async(self, x):
         """Launch ONE already-batched input (ndarray or multi-input tuple)
-        without waiting for the device. Returns an opaque pending value;
-        pass it to ``predict_fetch`` for the host result. The caller owns
-        batching and padding and bounds its in-flight work, so the
-        ``concurrent_num`` semaphore is not taken here."""
+        without waiting for the device, and on the card record a CUDA
+        event after it on the current stream. Returns an opaque pending
+        value; pass it to ``predict_fetch`` for the host result. The
+        caller owns batching and padding and bounds its in-flight work, so
+        the ``concurrent_num`` semaphore is not taken here."""
         module, n_inputs, _ = self._snapshot()
-        return self._forward(module, self._coerce(x, n_inputs))
+        xs = self._coerce(x, n_inputs)
+        self._remember_spec(xs)
+        out = self._forward(module, xs)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return _Pending(out, event)
 
     def predict_fetch(self, pending):
-        """Blocking host side of ``predict_async``."""
+        """Blocking host side of ``predict_async``: wait for the batch's
+        event, then one host copy of its output."""
+        if isinstance(pending, _Pending):
+            if pending.event is not None:
+                pending.event.synchronize()
+            pending = pending.out
         return to_numpy(pending)
 
     def predict_classes(self, x, batch_size: Optional[int] = None,

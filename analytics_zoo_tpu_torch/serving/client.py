@@ -2,10 +2,13 @@
 
 Counterpart of ``analytics_zoo_tpu/serving/client.py`` (ref
 pyzoo/zoo/serving/client.py: ``InputQueue:82`` with ``enqueue:144``,
-``OutputQueue:234`` with ``query``): enqueue named tensors under a uri,
-poll the result hash for the answer; a ``generate`` request asks for an
-autoregressive generation instead of one prediction. The telemetry hooks,
-priorities, deadlines, images and the Arrow format wait for later slices.
+``OutputQueue:234`` with ``query``): enqueue named tensors under a uri on a
+priority lane, with an optional deadline or generate request, and poll the
+result hash for the answer. Records carry the client's dual-clock stamp
+(schema.py), which the engine reads as queue wait and end-to-end latency.
+A lane that admission control is shedding raises :class:`ShedError` at
+once, counted on ``zoo_serving_shed_total{stream,priority}``. Images and
+the reference's Arrow format are ROADMAP A7b's.
 """
 
 from __future__ import annotations
@@ -16,13 +19,15 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common import telemetry
 from analytics_zoo_tpu_torch.serving import schema
-from analytics_zoo_tpu_torch.serving.broker import BrokerClient
+from analytics_zoo_tpu_torch.serving.broker import BrokerClient, ShedError
 
 INPUT_STREAM = "serving_stream"
 RESULT_HASH = "result"
 
-__all__ = ["InputQueue", "OutputQueue", "INPUT_STREAM", "RESULT_HASH"]
+__all__ = ["InputQueue", "OutputQueue", "ShedError", "INPUT_STREAM",
+           "RESULT_HASH"]
 
 
 class InputQueue:
@@ -31,43 +36,109 @@ class InputQueue:
         self._client = BrokerClient(host, port)
         self.stream = stream
         self.cipher = cipher
+        self._tracer = telemetry.get_tracer()
+
+    def _shed_counter(self, priority: str):
+        """Client-observed shed rejections: an XADD the broker refused
+        never reaches the engine, so the client is the only process that
+        can count it."""
+        return telemetry.get_registry().counter(
+            "zoo_serving_shed_total",
+            "enqueues rejected by lane admission control",
+            ("stream", "priority")).labels(self.stream, priority)
 
     def _encode(self, uri: Optional[str], inputs: Dict,
-                generate: Optional[Dict] = None) -> "tuple[str, str]":
+                priority: Optional[str] = None,
+                deadline_ms: Optional[float] = None,
+                generate: Optional[Dict] = None
+                ) -> "tuple[str, str, tuple, str]":
+        """(uri, payload, (t_enqueue, sampled), lane)."""
         if not inputs:
             raise ValueError("enqueue needs at least one named tensor")
+        lane = schema.validate_priority(priority)
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         gen = schema.validate_generate(generate)
         uri = schema.validate_uri(uri or uuid.uuid4().hex)
-        return uri, schema.encode_record(
+        # dual-clock stamp: perf_counter is CLOCK_MONOTONIC on Linux
+        # (comparable across processes on one host — the engine checks
+        # plausibility before trusting it); t_wall is the cross-host
+        # fallback
+        sampled = self._tracer.should_sample()
+        t_pc = time.perf_counter()
+        trace = {"id": uri, "t_pc": t_pc, "t_wall": time.time(),
+                 "s": int(sampled)}
+        if lane != schema.DEFAULT_PRIORITY:
+            trace["p"] = lane
+        if deadline_ms is not None:
+            trace["d"] = float(deadline_ms)
+        if gen is not None:
+            trace["g"] = gen
+        payload = schema.encode_record(
             uri, {k: np.asarray(v) for k, v in inputs.items()}, self.cipher,
-            generate=gen)
+            trace=trace)
+        return uri, payload, (t_pc, sampled), lane
 
     def enqueue(self, uri: Optional[str] = None,
+                priority: Optional[str] = None,
+                deadline_ms: Optional[float] = None,
                 generate: Optional[Dict] = None, **inputs) -> str:
         """``enqueue("rec1", x=ndarray)``; returns the uri (generated when
         not given). Multi-input models pass several named tensors.
+
+        ``priority`` routes the record onto a broker lane
+        (``schema.PRIORITIES``; default "default") and ``deadline_ms``
+        bounds how stale a result is still useful — the engine stores an
+        explicit expired error once it lapses.
 
         ``generate`` (``{"max_new_tokens": 16, "mode": "greedy",
         "temperature": 1.0, "seed": None}``, all optional) makes the
         record a generate request: it carries the encoder tensor and a
         ``start`` tensor (the decoder start sign), and the engine answers
-        with the generated ``[steps, dim]`` sequence. ``generate`` is
-        therefore reserved and cannot name an input tensor."""
-        uri, payload = self._encode(uri, inputs, generate)
-        self._client.xadd(self.stream, payload)
+        with the generated ``[steps, dim]`` sequence.
+
+        ``priority``, ``deadline_ms`` and ``generate`` are therefore
+        reserved and cannot name input tensors. Raises
+        :class:`ShedError` at once when admission control is shedding the
+        lane."""
+        uri, payload, trace, lane = self._encode(uri, inputs, priority,
+                                                 deadline_ms, generate)
+        try:
+            self._client.xadd(self.stream, payload, lane=lane)
+        except ShedError:
+            self._shed_counter(lane).inc()
+            raise
+        if trace[1]:
+            self._tracer.record(uri, "client_enqueue", trace[0],
+                                time.perf_counter())
         return uri
 
-    def enqueue_batch(self, records,
+    def enqueue_batch(self, records, priority: Optional[str] = None,
+                      deadline_ms: Optional[float] = None,
                       generate: Optional[Dict] = None) -> "list[str]":
         """Enqueue many ``(uri, {name: tensor, ...})`` records in pipelined
         socket writes (pass ``None`` as a uri to have one generated).
-        ``generate`` applies to every record. Returns the uris in order."""
-        uris, cmds = [], []
+        ``priority`` / ``deadline_ms`` / ``generate`` apply to every
+        record. A shedding lane raises :class:`ShedError` (earlier records
+        of the batch may have been accepted; uris are returned only on full
+        success). Returns the uris in order."""
+        uris, cmds, traces = [], [], []
+        lane = schema.validate_priority(priority)
         for uri, inputs in records:
-            uri, payload = self._encode(uri, inputs, generate)
+            uri, payload, trace, _ = self._encode(uri, inputs, priority,
+                                                  deadline_ms, generate)
             uris.append(uri)
-            cmds.append(("XADD", self.stream, payload))
-        self._client.pipeline(cmds)
+            traces.append(trace)
+            cmds.append(("XADD", self.stream, payload, lane))
+        try:
+            self._client.pipeline(cmds)
+        except ShedError:
+            self._shed_counter(lane).inc()
+            raise
+        t1 = time.perf_counter()
+        for uri, trace in zip(uris, traces):
+            if trace[1]:
+                self._tracer.record(uri, "client_enqueue", trace[0], t1)
         return uris
 
     def __len__(self):
@@ -90,7 +161,8 @@ class OutputQueue:
         """Result for ``uri`` or None. ``timeout > 0`` polls until then.
         ``delete=True`` removes the entry once fetched. An error result
         raises :class:`~analytics_zoo_tpu_torch.serving.schema.
-        ServingError`."""
+        ServingError` (an expired deadline its subclass
+        ``DeadlineExpiredError``)."""
         deadline = time.monotonic() + timeout
         while True:
             val = self._client.hget(self.result_key, uri)
@@ -107,7 +179,7 @@ class OutputQueue:
                    delete: bool = False) -> Dict[str, Optional[np.ndarray]]:
         """Results for many uris, polling with pipelined HGETs. Returns
         ``{uri: ndarray | None}``; None marks uris still unanswered at the
-        deadline."""
+        deadline. An error result raises as ``query`` does."""
         pending = list(dict.fromkeys(uris))
         out: Dict[str, Optional[np.ndarray]] = {u: None for u in pending}
         deadline = time.monotonic() + timeout
@@ -124,6 +196,16 @@ class OutputQueue:
             if not pending or time.monotonic() >= deadline:
                 break
             time.sleep(poll_interval)
+        return out
+
+
+    def dequeue(self) -> Dict[str, np.ndarray]:
+        """Drain all available results (ref OutputQueue.dequeue)."""
+        out = {}
+        for uri in self._client.hkeys(self.result_key):
+            val = self._client.hget(self.result_key, uri)
+            if val is not None and self._client.hdel(self.result_key, uri):
+                out[uri] = schema.decode_result(val, self.cipher)
         return out
 
     def close(self):

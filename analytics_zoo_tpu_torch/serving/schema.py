@@ -1,14 +1,22 @@
 """Serving wire format — how tensors travel through the data plane.
 
-The port's own copy of ``analytics_zoo_tpu/serving/schema.py``, trimmed
-to what this slice uses. A record is one JSON object — ``{"uri",
-"inputs": {name: tensor}}`` — where each tensor carries dtype/shape plus
-b64 raw bytes (C-order), the whole record b64-wrapped for the line
-protocol. Records and results are byte-compatible with the JAX package's.
-Optional record encryption plugs in as an (encrypt, decrypt) byte-callable
-pair. A generate request rides the record's side channel as the JAX
-client writes it (``{"trace": {"g": {"n", "m", "t", "s"}}}``). Images,
-priority lanes, deadlines and the Arrow format wait for later slices.
+The port's own copy of ``analytics_zoo_tpu/serving/schema.py``. A record
+is one JSON object — ``{"uri", "inputs": {name: tensor}}`` — where each
+tensor carries dtype/shape plus b64 raw bytes (C-order), the whole record
+b64-wrapped for the line protocol. Records and results are byte-compatible
+with the JAX package's. Optional record encryption plugs in as an
+(encrypt, decrypt) byte-callable pair.
+
+A record's side channel (``"trace"``) carries the client's stamp: the
+enqueue time on both clocks (``t_pc`` from ``perf_counter``, ``t_wall``
+from ``time.time``), the sampling flag, the priority lane (``"p"``), the
+relative ``deadline_ms`` (``"d"``) and a generate request (``"g"``). A
+deadline that lapses before the engine serves the record gets a typed
+expired result, which decodes into :class:`DeadlineExpiredError`.
+
+Image records and the reference client's Arrow records (ROADMAP A7b)
+decode into :class:`UnsupportedInput` markers, so the engine answers
+them with a typed error result instead of dropping them.
 """
 
 from __future__ import annotations
@@ -30,6 +38,27 @@ _URI_RE = re.compile(r"^[A-Za-z0-9._:-]{1,256}$")
 
 class ServingError(RuntimeError):
     """An error result stored in place of a prediction."""
+
+
+class DeadlineExpiredError(ServingError):
+    """The record's ``deadline_ms`` elapsed before the engine could serve
+    it — the engine stored an explicit expired result (never a silent
+    drop), and decoding that result raises this."""
+
+
+#: priority lanes, highest first. The lane name doubles as the broker's
+#: lane tag and the ``priority`` label on serving metrics.
+PRIORITIES = ("interactive", "default", "batch")
+DEFAULT_PRIORITY = "default"
+
+
+def validate_priority(priority: Optional[str]) -> str:
+    if priority is None:
+        return DEFAULT_PRIORITY
+    if priority not in PRIORITIES:
+        raise ValueError(
+            f"bad priority {priority!r}: one of {PRIORITIES}")
+    return priority
 
 
 #: generation feedback modes a generate record may request (mirrors
@@ -71,6 +100,20 @@ def validate_generate(generate) -> Optional[Dict[str, Any]]:
     return out
 
 
+class UnsupportedInput:
+    """An input the port does not decode yet: ``kind`` is ``"image"`` (raw
+    encoded image bytes) or ``"arrow"`` (the reference client's Arrow
+    record); both are ROADMAP A7b's."""
+
+    __slots__ = ("kind",)
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __repr__(self) -> str:
+        return f"UnsupportedInput({self.kind!r})"
+
+
 def validate_uri(uri: str) -> str:
     if not _URI_RE.match(uri or ""):
         raise ValueError(
@@ -84,7 +127,9 @@ def encode_tensor(arr) -> dict:
             "data": base64.b64encode(arr.tobytes()).decode()}
 
 
-def decode_tensor(obj: dict) -> np.ndarray:
+def decode_tensor(obj: dict):
+    if "image" in obj:
+        return UnsupportedInput("image")
     raw = base64.b64decode(obj["data"])
     return np.frombuffer(raw, dtype=np.dtype(obj["dtype"])).reshape(
         obj["shape"]).copy()
@@ -106,41 +151,59 @@ def _unwrap(payload_b64: str, cipher: Cipher) -> dict:
 
 def encode_record(uri: str, inputs: Dict[str, np.ndarray],
                   cipher: Cipher = None,
-                  generate: Optional[Dict[str, Any]] = None) -> str:
-    """``generate``: a request in wire form (``validate_generate``),
-    written where the JAX client writes it."""
+                  trace: Optional[Dict[str, Any]] = None) -> str:
+    """``trace``: the client's side-channel stamp (``{"id", "t_pc",
+    "t_wall", "s"[, "p", "d", "g"]}``), written as the JAX client writes
+    it; ``"g"`` is a generate request in wire form
+    (``validate_generate``)."""
     obj: Dict[str, Any] = {"uri": uri,
                            "inputs": {k: encode_tensor(np.asarray(v))
                                       for k, v in inputs.items()}}
-    if generate is not None:
-        obj["trace"] = {"g": generate}
+    if trace:
+        obj["trace"] = trace
     return _wrap(obj, cipher)
 
 
-def decode_record(payload_b64: str, cipher: Cipher = None,
-                  with_generate: bool = False):
-    """(uri, inputs), or with ``with_generate`` (uri, inputs, g) where
-    ``g`` is the record's generate request as it came (None for a plain
-    record). The JAX client's other trace fields are ignored."""
+def decode_record_meta(payload_b64: str, cipher: Cipher = None
+                       ) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
+    """(uri, inputs, meta): the record's uri, its tensors and its side
+    channel (``{}`` when absent). An Arrow record (the reference client's
+    ``{"uri", "data"}``) decodes to ``{"data": UnsupportedInput("arrow")}``
+    and an image tensor to ``UnsupportedInput("image")``."""
     obj = _unwrap(payload_b64, cipher)
-    inputs = {k: decode_tensor(v) for k, v in obj["inputs"].items()}
-    if not with_generate:
-        return obj["uri"], inputs
+    if "data" in obj and "inputs" not in obj:
+        return obj["uri"], {"data": UnsupportedInput("arrow")}, {}
     meta = obj.get("trace")
-    g = meta.get("g") if isinstance(meta, dict) else None
-    return obj["uri"], inputs, g
+    return (obj["uri"],
+            {k: decode_tensor(v) for k, v in obj["inputs"].items()},
+            meta if isinstance(meta, dict) else {})
+
+
+def decode_record(payload_b64: str, cipher: Cipher = None
+                  ) -> Tuple[str, Dict[str, Any]]:
+    uri, inputs, _ = decode_record_meta(payload_b64, cipher)
+    return uri, inputs
 
 
 def encode_result(arr: np.ndarray, cipher: Cipher = None) -> str:
     return _wrap(encode_tensor(np.asarray(arr)), cipher)
 
 
-def encode_error(message: str, cipher: Cipher = None) -> str:
-    return _wrap({"error": str(message)[:2000]}, cipher)
+def encode_error(message: str, cipher: Cipher = None,
+                 code: Optional[str] = None) -> str:
+    """``code`` types the error for the decoding client: ``"expired"``
+    marks a deadline-expired record and decodes into
+    :class:`DeadlineExpiredError` instead of plain :class:`ServingError`."""
+    obj: Dict[str, Any] = {"error": str(message)[:2000]}
+    if code:
+        obj["code"] = code
+    return _wrap(obj, cipher)
 
 
 def decode_result(payload_b64: str, cipher: Cipher = None) -> np.ndarray:
     obj = _unwrap(payload_b64, cipher)
     if "error" in obj:
+        if obj.get("code") == "expired":
+            raise DeadlineExpiredError(obj["error"])
         raise ServingError(obj["error"])
     return decode_tensor(obj)

@@ -222,6 +222,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
              those steps' ranges on the card. It writes under
              build/phase14/ and removes it.
 
+15. Cluster Serving's scheduling and delivery (ROADMAP A7): (a) the
+             native broker built from the port's own zbroker.cpp
+             (backend="native", asserted), its lanes, XCLAIM, XSHED and
+             XPENDING DETAIL; (b) NCF at MovieLens-1M width (engine batch
+             256, max 1024, warm-up on) answering a burst of 512 (384
+             batch-lane and 128 interactive records, interleaved) and 50
+             single requests, on the Python and the native broker in turns
+             (records/s per lane, the engine's p50 and p99 per lane,
+             single-request p50), every result bitwise the predict at the
+             rung its batch rode; (c) BERT-Base bf16 (use_flash=True): a
+             fresh engine without warm-up whose first batch lands on rung
+             12, which no model of the process ran, then
+             ClusterServing(warmup=True) over rungs 8-32: seconds from
+             start() until every rung is ready, the ms of 4 requests one
+             after another on each, a burst of 192 whose bucket grows
+             only onto ready rungs, 12 flash launches a batch, every
+             result bitwise predict at its rung; (d) 64 records with
+             deadline_ms=1 behind 256 held ones end as typed expired
+             results, the rest as results, none pending; (e) an
+             SLOMonitor forced to burn sets XSHED on the batch lane (a
+             batch enqueue raises ShedError, interactive is served), and
+             clearing the burn clears it; (f) 32 entries a consumer read
+             and never acked are reclaimed under a 200 ms lease, each
+             result written once (time to recovery); (g) measure_decode's
+             Seq2Seq, paged: 24 batch-lane generate records of 32 tokens
+             with 32 interactive predicts interleaved (max wait 20 ms),
+             tokens bitwise greedy generate, preemptions above 0 and at
+             most 4 a step, one gather launch a paged step, one cost
+             entry a record; then self-drafted (spec_k 4), still bitwise;
+             (h) the HTTP frontend over (b)'s last engine: POST /predict
+             bitwise, 429 on a shed lane, 504 on a lapsed deadline, GET
+             /metrics' Prometheus text counting the records served,
+             /healthz, /slo and /query answering 200. Phases 5, 7, 9(f)
+             and 11 keep the Python broker and a pinned bucket without
+             warm-up, as before.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -264,9 +300,11 @@ path; phase 9, the decode path; phase 10(b)-(d), the NCF training path;
 phase 11, the checkpoint paths; phase 12 from (a)'s warm-up step, the
 zoo paths; phase 13, which launches none; phase 14, before each mode's
 NCF fits, the optimizers, the remat fit, each task fit and the profiled
-fit) and read right after it: every kernel of the path must have
-launched there. Phases 13's and 14's seconds and the whole run's are
-printed before the kernels line. The
+fit; phase 15, before each broker turn, after the BERT warm-up, and
+before the deadline, admission, lease and each decode path) and read
+right after it: every kernel of the path must have launched there.
+Phases 13's, 14's and 15's seconds and the whole run's are printed
+before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -572,6 +610,29 @@ PROFILE_STEPS = (2, 5)
 PROFILE_LEAD = 2
 PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "phase14")
+# phase 15: Cluster Serving's scheduling and delivery (ROADMAP A7)
+P15_NCF_BATCH = 256             # measure_serving's engine batch
+P15_NCF_MAX_BATCH = 1024
+P15_LANE_ROUNDS = 128           # 3 batch + 1 interactive records a round
+P15_SINGLE = 50
+P15_TURNS = 2                   # python, native, python, native
+P15_BERT_RUNGS = (8, 32)        # ladder 8, 16, 32
+P15_BERT_BURST = 192
+P15_COLD_RUNG = 12              # a rung no model of this process has run
+P15_BERT_SINGLES = 4
+P15_DEADLINE_HELD = 256
+P15_DEADLINE_RECORDS = 64
+P15_LEASE_RECORDS = 32
+P15_LEASE_MS = 200
+# generate records the default page pool holds at once (27 at batch 8 and
+# the 128-position seq ladder): a record the pool bounces back waits in
+# the assembly bucket under the batch lane's max-wait of 0, which makes
+# every later read dispatch at once, so no interactive record would wait
+# for a decode step to yield to
+P15_GEN_RECORDS = 24
+P15_GEN_PREDICTS = 32
+P15_DRAFT_RECORDS = 16
+P15_INTERACTIVE_WAIT_MS = 20    # ZOO_SERVING_MAX_WAIT_MS for interactive
 
 
 def log(msg: str):
@@ -1449,7 +1510,9 @@ def phase_bert_serving(np, im, y, x, fa, serving_api, kind):
     ids, seg = x
     before = fa.launches.value
     with Broker.launch(backend="python") as broker, \
-            ClusterServing(im, broker.port, batch_size=BERT_BATCH) as serving:
+            ClusterServing(im, broker.port, batch_size=BERT_BATCH,
+                           max_batch_size=BERT_BATCH,
+                           warmup=False) as serving:
         iq = InputQueue(port=broker.port)
         oq = OutputQueue(port=broker.port)
         t0 = time.perf_counter()
@@ -2036,12 +2099,11 @@ def phase_decode(torch, np, pa, kind):
         f"{rep['b']['concurrent_speedup']:.3f}; bitwise (a)")
 
     # (c) self-drafted speculative decoding
-    p0, a0 = (decode_scheduler.spec_proposed_total,
-              decode_scheduler.spec_accepted_total)
+    p0, a0 = decode_scheduler.spec_totals()
     spec, _, dt_spec = counted(torch, lambda: im.generate(
         enc, start, steps, draft=im, spec_k=DECODE_SPEC_K))
-    proposed = decode_scheduler.spec_proposed_total - p0
-    accepted = decode_scheduler.spec_accepted_total - a0
+    p1, a1 = decode_scheduler.spec_totals()
+    proposed, accepted = p1 - p0, a1 - a0
     if not np.array_equal(spec, greedy) or proposed <= 0:
         raise AssertionError(f"decode (c): speculative differs from (a) or "
                              f"proposed nothing ({proposed})")
@@ -2131,8 +2193,9 @@ def phase_decode_serving(np, im, greedy, inputs, serving_api, kind):
     enc, start = inputs
     gen = {"max_new_tokens": DECODE_STEPS}
     with Broker.launch(backend="python") as broker, \
-            ClusterServing(im, broker.port,
-                           batch_size=DECODE_BATCH) as serving:
+            ClusterServing(im, broker.port, batch_size=DECODE_BATCH,
+                           max_batch_size=DECODE_BATCH,
+                           warmup=False) as serving:
         iq = InputQueue(port=broker.port)
         oq = OutputQueue(port=broker.port)
         t0 = time.perf_counter()
@@ -2692,7 +2755,8 @@ def ckpt_serve(np, ncf, root, x, serving_api, card):
     got = im.predict(x, batch_size=BATCH)
     before = eb.launches.value
     with Broker.launch(backend="python") as broker, \
-            ClusterServing(im, broker.port, batch_size=SERVE_BATCH):
+            ClusterServing(im, broker.port, batch_size=SERVE_BATCH,
+                           max_batch_size=SERVE_BATCH, warmup=False):
         iq = InputQueue(port=broker.port)
         oq = OutputQueue(port=broker.port)
         uris = iq.enqueue_batch((f"c{i}", {"x": x[i]})
@@ -4231,6 +4295,685 @@ def phase_profile(torch, np, x, y, card):
     return rep
 
 
+# ------------------------------------------------------------- phase 15
+
+def p15_env(**knobs):
+    """Set serving knobs (environment variables read at engine
+    construction); returns a function that restores them."""
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+
+    def restore():
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore
+
+
+def p15_results(client, uris):
+    """{uri: the result hash's payload or None}: one pipelined read."""
+    uris = list(uris)
+    return dict(zip(uris, client.pipeline(("HGET", "result", u)
+                                          for u in uris)))
+
+
+def p15_arrivals(client, uris, timeout: float = 120.0):
+    """Poll the result hash through a BrokerClient until every uri has a
+    payload: ({uri: payload}, {uri: perf_counter time first seen})."""
+    got, seen = {}, {}
+    pending = list(uris)
+    deadline = time.perf_counter() + timeout
+    while pending and time.perf_counter() < deadline:
+        raw = p15_results(client, pending)
+        now = time.perf_counter()
+        for u, v in raw.items():
+            if v is not None:
+                got[u], seen[u] = v, now
+        pending = [u for u in pending if u not in got]
+        if pending:
+            time.sleep(0.0005)
+    if pending:
+        raise AssertionError(f"{len(pending)} records never answered, "
+                             f"e.g. {pending[:3]}")
+    return got, seen
+
+
+def p15_same_as_some_rung(np, got, refs, i) -> bool:
+    """Served ``got`` equals, bit for bit, row ``i`` of the predict at one
+    of the ladder's rungs (a product's row count picks cuBLAS's kernel,
+    so the reference is the predict at the batch the record rode)."""
+    return any(np.array_equal(got, ref[i]) for ref in refs.values())
+
+
+def p15_native_protocol(Broker, ShedError):
+    """15(a): the port's native broker, built from its own source."""
+    from analytics_zoo_tpu_torch.serving import broker as broker_mod
+    t0 = time.perf_counter()
+    binary = broker_mod.build_native_broker()
+    build_s = time.perf_counter() - t0
+    lanes = "interactive,default,batch"
+    with Broker.launch(backend="native") as b:
+        if b.backend != "native":
+            raise AssertionError(f"15(a): backend {b.backend}")
+        c = b.client()
+        ok = c.ping()
+        for payload, lane in (("YjA=", "batch"), ("ZDA=", "default"),
+                              ("aTA=", "interactive"), ("YjE=", "batch")):
+            c.xadd("s", payload, lane=lane)
+        read = c.xreadgroup("g", "dead", "s", 10, lanes=lanes)
+        claimed = c.xclaim("s", "g", "live", 0, 10, lanes=lanes)
+        detail = c.xpending_detail("s", "g")
+        c.xshed_set("s", "batch", True)
+        shed = c.xshed("s")
+        try:
+            c.xadd("s", "YQ==", lane="batch")
+            refused = False
+        except ShedError:
+            refused = True
+        c.xadd("s", "Yg==", lane="interactive")
+        c.xshed_set("s", "batch", False)
+        for eid, _, _ in claimed:
+            c.xack("s", "g", eid)
+        c.close()
+    order = [p for _, _, p in read]
+    if not (ok and order == ["aTA=", "ZDA=", "YjA=", "YjE="]
+            and [p for _, _, p in claimed] == order
+            and detail == {"live": 4} and shed == ["batch"] and refused):
+        raise AssertionError(f"15(a) native protocol: {order}, {claimed}, "
+                             f"{detail}, {shed}, {refused}")
+    log(f"phase 15(a): native broker {binary.name} (build {build_s:.2f} s "
+        f"or reused): lanes, XCLAIM, XSHED and XPENDING DETAIL held")
+    return dict(binary=binary.name, build_s=build_s)
+
+
+def p15_lane_burst(np, api, im, backend, x, refs, tag, frontend=None):
+    """One mixed burst (3 batch : 1 interactive, interleaved) and
+    P15_SINGLE single requests through ``backend``'s broker and a fresh
+    engine; every result equals predict's bits at some rung. With
+    ``frontend(broker, engine)`` the HTTP checks run on this engine."""
+    from analytics_zoo_tpu_torch.common import telemetry
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import schema
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    stream = f"p15_{tag}"
+    rep = {"backend": backend}
+    with Broker.launch(backend=backend) as b:
+        if b.backend != backend:
+            raise AssertionError(f"15(b): backend {b.backend}")
+        with ClusterServing(im, b.port, batch_size=P15_NCF_BATCH,
+                            max_batch_size=P15_NCF_MAX_BATCH,
+                            stream=stream) as eng:
+            eng.wait_warm(timeout=120)
+            _build.reset_launch_counts()
+            iq = InputQueue(port=b.port, stream=stream)
+            oq = OutputQueue(port=b.port)
+            lane_of, row_of = {}, {}
+            t0 = time.perf_counter()
+            for j in range(P15_LANE_ROUNDS):
+                rows = range(4 * j, 4 * j + 3)
+                iq.enqueue_batch(((f"{tag}b{k}", {"x": x[k]})
+                                  for k in rows), priority="batch")
+                k = 4 * j + 3
+                iq.enqueue(f"{tag}i{k}", priority="interactive", x=x[k])
+                lane_of.update({f"{tag}b{r}": "batch" for r in rows})
+                lane_of[f"{tag}i{k}"] = "interactive"
+                row_of.update({f"{tag}b{r}": r for r in rows})
+                row_of[f"{tag}i{k}"] = k
+            c = b.client()
+            got, seen = p15_arrivals(c, list(lane_of))
+            c.close()
+            singles = []
+            n0 = 4 * P15_LANE_ROUNDS
+            for k in range(P15_SINGLE):
+                t1 = time.perf_counter()
+                u = iq.enqueue(f"{tag}s{k}", x=x[n0 + k])
+                got[u] = schema.encode_result(
+                    oq.query(u, timeout=30, poll_interval=0.0005))
+                singles.append(time.perf_counter() - t1)
+                row_of[u] = n0 + k
+            if frontend is not None:
+                rep["frontend"] = frontend(b, eng, stream)
+            m = eng.metrics()
+            rep["launches"] = _build.launch_counts()
+            iq.close()
+            oq.close()
+        lat = telemetry.get_registry().histogram(
+            "zoo_serving_latency_seconds", "", ("stream", "priority"))
+        for lane in ("interactive", "batch"):
+            n = sum(1 for v in lane_of.values() if v == lane)
+            last = max(seen[u] for u, v in lane_of.items() if v == lane)
+            h = lat.labels(stream, lane)
+            rep[lane] = dict(records=n, records_per_s=n / (last - t0),
+                             p50_ms=h.quantile(0.5) * 1e3,
+                             p99_ms=h.quantile(0.99) * 1e3)
+        rep["records_per_s"] = len(lane_of) / (max(seen.values()) - t0)
+        rep["single_p50_ms"] = float(np.percentile(singles, 50)) * 1e3
+        rep["batches"] = m["batches"]
+        bad = [u for u, raw in got.items() if not p15_same_as_some_rung(
+            np, schema.decode_result(raw), refs, row_of[u])]
+        if bad:
+            raise AssertionError(f"15(b) {tag}: {len(bad)} results differ "
+                                 f"from predict at every rung, e.g. {bad[:3]}")
+        if m["records_out"] < len(got):
+            raise AssertionError(f"15(b) {tag}: metrics {m['records_out']}")
+    return rep
+
+
+def p15_frontend(np, x, refs):
+    """15(h): the HTTP frontend over (b)'s engine."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+    from analytics_zoo_tpu_torch.serving import FrontEnd, schema
+
+    def post(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict",
+            data=_json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, _json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, _json.loads(e.read())
+
+    def get(port, path, accept=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     headers={"Accept": accept} if accept
+                                     else {})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read().decode()
+
+    def run(broker, eng, stream):
+        import re
+        rep = {}
+        with FrontEnd(broker.port, engine=eng) as fe:
+            n0 = 4 * P15_LANE_ROUNDS + P15_SINGLE
+            lat = []
+            for k in range(8):
+                t1 = time.perf_counter()
+                code, body = post(fe.port, {
+                    "priority": "interactive", "deadline_ms": 30_000.0,
+                    "inputs": {"x": schema.encode_tensor(x[n0 + k])}})
+                lat.append(time.perf_counter() - t1)
+                if code != 200 or not p15_same_as_some_rung(
+                        np, schema.decode_tensor(body["result"]), refs,
+                        n0 + k):
+                    raise AssertionError(f"15(h) POST /predict: {code}")
+            rep["post_p50_ms"] = float(np.percentile(lat, 50)) * 1e3
+            c = broker.client()
+            c.xshed_set(stream, "batch", True)
+            code, body = post(fe.port, {
+                "priority": "batch",
+                "inputs": {"x": schema.encode_tensor(x[0])}})
+            c.xshed_set(stream, "batch", False)
+            c.close()
+            if (code, body.get("code")) != (429, "shed"):
+                raise AssertionError(f"15(h) shed lane: {code} {body}")
+            code, body = post(fe.port, {
+                "deadline_ms": 0.001,
+                "inputs": {"x": schema.encode_tensor(x[1])}})
+            if (code, body.get("code")) != (504, "expired"):
+                raise AssertionError(f"15(h) lapsed deadline: {code} {body}")
+            code, text = get(fe.port, "/metrics", accept="text/plain")
+            m = re.search(r'^zoo_serving_records_total\{stream="'
+                          + re.escape(stream) + r'"\} (\S+)$', text, re.M)
+            served = eng.metrics()["records_out"]
+            if code != 200 or m is None or float(m.group(1)) != served:
+                raise AssertionError(f"15(h) /metrics: {code}, "
+                                     f"{m and m.group(1)} vs {served}")
+            for path in ("/healthz", "/slo",
+                         "/query?name=zoo_serving_latency_seconds&agg=p99"):
+                code, text = get(fe.port, path)
+                if code != 200:
+                    raise AssertionError(f"15(h) {path}: {code}")
+            rep["query_p99"] = _json.loads(text)["points"]
+            rep["records_total"] = served
+        return rep
+
+    return run
+
+
+def p15_ncf_lanes(np, api, im, x):
+    """15(b) and (h): NCF at MovieLens-1M width behind the lanes, turns
+    of the Python and the native broker."""
+    n = 4 * P15_LANE_ROUNDS + P15_SINGLE + 8
+    rungs = (P15_NCF_BATCH, 2 * P15_NCF_BATCH, P15_NCF_MAX_BATCH)
+    # references first: the engine attaches its ladder to the model
+    refs = {r: im.predict(x[:n], batch_size=r) for r in rungs}
+    turns, counts = [], {}
+    front = p15_frontend(np, x, refs)
+    for t in range(P15_TURNS):
+        for backend in ("python", "native"):
+            last = t == P15_TURNS - 1 and backend == "native"
+            turns.append(p15_lane_burst(
+                np, api, im, backend, x, refs, f"{backend}{t}",
+                frontend=front if last else None))
+            counts[f"{backend}{t}"] = turns[-1].pop("launches")
+    for backend in ("python", "native"):
+        mine = [r for r in turns if r["backend"] == backend]
+        log(f"phase 15(b) NCF lanes on the {backend} broker (burst of "
+            f"{4 * P15_LANE_ROUNDS}: {3 * P15_LANE_ROUNDS} batch, "
+            f"{P15_LANE_ROUNDS} interactive; batch {P15_NCF_BATCH}, max "
+            f"{P15_NCF_MAX_BATCH}), per turn: " + "; ".join(
+                f"{r['records_per_s']:.1f} records/s, interactive "
+                f"{r['interactive']['records_per_s']:.1f}/s p50 "
+                f"{r['interactive']['p50_ms']:.3f} p99 "
+                f"{r['interactive']['p99_ms']:.3f} ms, batch "
+                f"{r['batch']['records_per_s']:.1f}/s p50 "
+                f"{r['batch']['p50_ms']:.3f} p99 "
+                f"{r['batch']['p99_ms']:.3f} ms, single p50 "
+                f"{r['single_p50_ms']:.3f} ms" for r in mine))
+    h = turns[-1]["frontend"]
+    log(f"phase 15(h) frontend: POST /predict p50 {h['post_p50_ms']:.3f} "
+        f"ms (8 requests, bitwise predict), 429 shed, 504 expired, "
+        f"/metrics records_total {h['records_total']}, /healthz /slo "
+        f"/query 200")
+    for tag, c in counts.items():
+        if c.get("fused_embedding_lookup", 0) <= 0:
+            raise AssertionError(f"15(b) {tag} launched no lookup: {c}")
+    return dict(turns=turns, launches=counts)
+
+
+def p15_bert_warmup(torch, np, api, state, kind):
+    """15(c): BERT-Base bf16 behind ClusterServing(warmup=True) over
+    rungs 8-32, after a fresh engine without warm-up whose first batch
+    lands on a rung no model of the process has run."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import _build
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    x = bert_inputs(np.random.RandomState(SEED + 15), P15_BERT_BURST)
+    sample = tuple(a[:1] for a in x)
+    bf16 = dict(use_flash=True, dtype=torch.bfloat16)
+    rep = {}
+
+    def singles(port, stream, n=P15_BERT_SINGLES):
+        """ms of ``n`` requests one after another, and their results."""
+        iq, oq = InputQueue(port=port, stream=stream), OutputQueue(port=port)
+        ms, outs = [], []
+        for k in range(n):
+            t0 = time.perf_counter()
+            u = iq.enqueue(f"{stream}{k}", input_ids=x[0][k],
+                           token_type_ids=x[1][k])
+            outs.append(oq.query(u, timeout=120, poll_interval=0.0005))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        iq.close()
+        oq.close()
+        return ms, outs
+
+    with Broker.launch(backend="native") as b:
+        cold = InferenceModel(device="cuda").load_torch(
+            bert_classifier(state, **bf16), sample)
+        with ClusterServing(cold, b.port, batch_size=P15_COLD_RUNG,
+                            max_batch_size=P15_COLD_RUNG, warmup=False,
+                            stream="p15_bert_cold"):
+            rep["cold_ms"], _ = singles(b.port, "p15_bert_cold")
+        # the warmed engine: start() until every rung is ready
+        im = InferenceModel(device="cuda").load_torch(
+            bert_classifier(state, **bf16), sample)
+        eng = ClusterServing(im, b.port, batch_size=P15_BERT_RUNGS[0],
+                             max_batch_size=P15_BERT_RUNGS[1],
+                             stream="p15_bert", pipeline_window=1)
+        grown = []
+        set_bucket = eng._set_bucket
+
+        def spy(rung, why):
+            grown.append((int(rung), im.rung_ready(rung)))
+            set_bucket(rung, why)
+
+        eng._set_bucket = spy
+        t0 = time.perf_counter()
+        eng.start()
+        eng.wait_warm(timeout=300)
+        torch.cuda.synchronize()
+        rep["warm_s"] = time.perf_counter() - t0
+        if not all(im.rung_ready(r) for r in eng.ladder.rungs):
+            raise AssertionError(f"15(c) rungs not ready: {eng.ladder}")
+        _build.reset_launch_counts()
+        rep["warm_ms"], firsts = singles(b.port, "p15_bert")
+        iq = InputQueue(port=b.port, stream="p15_bert")
+        oq = OutputQueue(port=b.port)
+        t0 = time.perf_counter()
+        uris = iq.enqueue_batch(
+            (f"c{i}", {"input_ids": x[0][i], "token_type_ids": x[1][i]})
+            for i in range(P15_BERT_BURST))
+        got = oq.query_many(uris, timeout=300, poll_interval=0.002)
+        rep["burst_records_per_s"] = P15_BERT_BURST / (
+            time.perf_counter() - t0)
+        iq.close()
+        oq.close()
+        eng.stop()
+    m = eng.metrics()
+    rep["launches"] = _build.launch_counts()
+    flash = rep["launches"].get("flash_attention_fwd", 0)
+    blocks = im._module.config.n_block
+    if flash != blocks * m["batches"] or m["batches"] <= 0:
+        raise AssertionError(f"15(c) flash launches {flash} for "
+                             f"{m['batches']} batches ({blocks} a batch)")
+    if not grown or not all(ready for _, ready in grown):
+        raise AssertionError(f"15(c) growth onto unready rungs or none: "
+                             f"{grown}")
+    rep.update(grown=grown, batches=m["batches"])
+    refs = {r: im.predict(x, batch_size=r) for r in eng.ladder.rungs}
+    bad = [u for i, u in enumerate(uris)
+           if not p15_same_as_some_rung(np, got[u], refs, i)]
+    # a lone request is its row padded to the bottom rung
+    bad += [k for k, out in enumerate(firsts) if not np.array_equal(
+        out, im.predict((x[0][k:k + 1], x[1][k:k + 1]),
+                        batch_size=P15_BERT_RUNGS[0])[0])]
+    if bad:
+        raise AssertionError(f"15(c) {len(bad)} results differ from "
+                             f"predict at every rung")
+    ms = lambda v: ", ".join(f"{t:.3f}" for t in v)  # noqa: E731
+    log(f"phase 15(c) BERT-Base bf16 on {kind}: a fresh engine without "
+        f"warm-up, first batch on rung {P15_COLD_RUNG} (no model of this "
+        f"process ran it): requests {ms(rep['cold_ms'])} ms; start() until "
+        f"rungs {list(eng.ladder.rungs)} ready {rep['warm_s']:.3f} s, then "
+        f"requests {ms(rep['warm_ms'])} ms; burst of {P15_BERT_BURST}: "
+        f"{rep['burst_records_per_s']:.2f} records/s, growth {grown}, "
+        f"{flash} flash launches for {m['batches']} batches; every result "
+        f"bitwise predict at its rung")
+    return rep
+
+
+def p15_deadlines(np, api, im, x, refs):
+    """15(d): deadline_ms=1 records behind a held batch expire, typed."""
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import schema
+    Broker, ClusterServing, InputQueue, _ = api
+    stream = "p15_deadline"
+    with Broker.launch(backend="native") as b:
+        iq = InputQueue(port=b.port, stream=stream)
+        held = iq.enqueue_batch((f"h{i}", {"x": x[i]})
+                                for i in range(P15_DEADLINE_HELD))
+        dead = iq.enqueue_batch(
+            ((f"d{i}", {"x": x[P15_DEADLINE_HELD + i]})
+             for i in range(P15_DEADLINE_RECORDS)), deadline_ms=1.0)
+        time.sleep(0.05)
+        _build.reset_launch_counts()
+        with ClusterServing(im, b.port, batch_size=P15_NCF_BATCH,
+                            max_batch_size=P15_NCF_BATCH, warmup=False,
+                            stream=stream) as eng:
+            c = b.client()
+            got, _ = p15_arrivals(c, held + dead)
+            c.close()
+            m = eng.metrics()
+        pending = b.client().xpending(stream, "serving")
+        iq.close()
+    outcome = {"result": 0, "expired": 0}
+    for i, u in enumerate(held + dead):
+        try:
+            val = schema.decode_result(got[u])
+            if not p15_same_as_some_rung(np, val, refs, i):
+                raise AssertionError(f"15(d) {u} differs from predict")
+            outcome["result"] += 1
+        except schema.DeadlineExpiredError:
+            outcome["expired"] += 1
+    want = {"result": P15_DEADLINE_HELD, "expired": P15_DEADLINE_RECORDS}
+    if outcome != want or m["records_expired"] != P15_DEADLINE_RECORDS \
+            or pending != 0:
+        raise AssertionError(f"15(d) outcomes {outcome}, metrics "
+                             f"{m['records_expired']}, pending {pending}")
+    log(f"phase 15(d) deadlines: {P15_DEADLINE_RECORDS} records with "
+        f"deadline_ms=1 behind {P15_DEADLINE_HELD} held: {outcome}; none "
+        f"pending, none silent")
+    return dict(outcome=outcome, launches=_build.launch_counts())
+
+
+def p15_admission(api, im, x):
+    """15(e): a burning SLO sheds the batch lane at the broker; clearing
+    the burn clears the flag."""
+    from analytics_zoo_tpu_torch.common import slo
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import ShedError
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    stream = "p15_admission"
+
+    def monitor(threshold_s):
+        return slo.SLOMonitor(slos=[slo.SLO(
+            name="serving_p99_latency_interactive", kind="latency",
+            objective=0.99, metric="zoo_serving_latency_seconds",
+            threshold_s=threshold_s,
+            labels=(("stream", stream), ("priority", "interactive")),
+            shed=False)], windows=(1.0,), shed_burn=2.0, tick_s=0.02)
+
+    def wait_shed(c, want, timeout=10.0):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if c.xshed(stream) == want:
+                return time.perf_counter()
+            time.sleep(0.005)
+        raise AssertionError(f"15(e) shed flags never became {want}")
+
+    restore = p15_env(ZOO_SERVING_ADMISSION_S="0.05")
+    rep = {}
+    try:
+        _build.reset_launch_counts()
+        # every interactive latency counts as bad: burn 100 against 2
+        slo.set_monitor(monitor(1e-6))
+        with Broker.launch(backend="native") as b, \
+                ClusterServing(im, b.port, batch_size=P15_NCF_BATCH,
+                               max_batch_size=P15_NCF_BATCH, warmup=False,
+                               stream=stream) as eng:
+            iq, oq = InputQueue(port=b.port, stream=stream), \
+                OutputQueue(port=b.port)
+            c = b.client()
+            t0 = time.perf_counter()
+            for k in range(8):
+                u = iq.enqueue(f"e{k}", priority="interactive", x=x[k])
+                oq.query(u, timeout=30, poll_interval=0.0005)
+            rep["shed_after_s"] = wait_shed(c, ["batch"]) - t0
+            try:
+                iq.enqueue("refused", priority="batch", x=x[8])
+                raise AssertionError("15(e) a batch enqueue was accepted")
+            except ShedError:
+                pass
+            u = iq.enqueue("still", priority="interactive", x=x[9])
+            if oq.query(u, timeout=30) is None:
+                raise AssertionError("15(e) interactive not served")
+            if not eng.metrics()["admission_shedding"]:
+                raise AssertionError("15(e) engine does not report it")
+            t0 = time.perf_counter()
+            slo.set_monitor(monitor(1e3))          # the burn clears
+            rep["cleared_after_s"] = wait_shed(c, []) - t0
+            u = iq.enqueue("accepted", priority="batch", x=x[10])
+            if oq.query(u, timeout=30) is None:
+                raise AssertionError("15(e) batch not served after clear")
+            c.close()
+            iq.close()
+            oq.close()
+    finally:
+        slo.set_monitor(None)
+        restore()
+    rep["launches"] = _build.launch_counts()
+    log(f"phase 15(e) admission: XSHED on batch {rep['shed_after_s']:.3f} "
+        f"s after the burn began; batch enqueue refused (ShedError), "
+        f"interactive served; cleared {rep['cleared_after_s']:.3f} s after "
+        f"the burn cleared")
+    return rep
+
+
+def p15_leases(np, api, im, x, refs):
+    """15(f): a consumer takes entries and never acks; the engine's
+    short lease reclaims them, each result written once."""
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import schema
+    Broker, ClusterServing, InputQueue, _ = api
+    stream = "p15_lease"
+    n = P15_LEASE_RECORDS
+    with Broker.launch(backend="native") as b:
+        iq = InputQueue(port=b.port, stream=stream)
+        uris = iq.enqueue_batch((f"l{i}", {"x": x[i]}) for i in range(n))
+        c = b.client()
+        if len(c.xreadgroup("serving", "ghost", stream, n)) != n:
+            raise AssertionError("15(f) the ghost consumer read short")
+        t_ghost = time.perf_counter()
+        _build.reset_launch_counts()
+        with ClusterServing(im, b.port, batch_size=P15_NCF_BATCH,
+                            max_batch_size=P15_NCF_BATCH, warmup=False,
+                            stream=stream, claim_min_idle_ms=P15_LEASE_MS,
+                            reclaim_interval_s=0.02) as eng:
+            t0 = time.perf_counter()
+            got, seen = p15_arrivals(c, uris)
+            recovery_s = max(seen.values()) - t0
+            for u in uris:                          # collect and delete
+                c.hdel("result", u)
+            time.sleep(3 * P15_LEASE_MS / 1000.0)
+            again = [u for u, v in p15_results(c, uris).items()
+                     if v is not None]
+            m = eng.metrics()
+        pending = c.xpending(stream, "serving")
+        c.close()
+        iq.close()
+    bad = [u for i, u in enumerate(uris) if not p15_same_as_some_rung(
+        np, schema.decode_result(got[u]), refs, i)]
+    if bad or again or m["records_redelivered"] != n or \
+            m["records_out"] != n or pending != 0:
+        raise AssertionError(f"15(f) differ {bad[:3]}, written again "
+                             f"{again[:3]}, metrics {m}, pending {pending}")
+    log(f"phase 15(f) leases: {n} entries a consumer never acked, "
+        f"reclaimed and served {recovery_s:.3f} s after the engine "
+        f"started ({max(seen.values()) - t_ghost:.3f} s after the ghost's "
+        f"read; lease {P15_LEASE_MS} ms); each result written once")
+    return dict(recovery_s=recovery_s, launches=_build.launch_counts())
+
+
+def p15_decode(np, api, dec_im, greedy, inputs, kind):
+    """15(g): batch-lane generate records with interactive predicts
+    interleaved, on the paged path; then self-drafted."""
+    from analytics_zoo_tpu_torch.common import telemetry
+    from analytics_zoo_tpu_torch.ops import _build
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    enc, start = inputs
+    b = DECODE_BATCH
+    rng = np.random.default_rng(15)
+    px = rng.standard_normal(
+        (P15_GEN_PREDICTS, 8, DECODE["input_dim"])).astype(np.float32)
+    py = rng.standard_normal(
+        (P15_GEN_PREDICTS, DECODE["decoder_seq_len"],
+         DECODE["output_dim"])).astype(np.float32)
+    want = dec_im.predict((px, py), batch_size=b)
+    gen = {"max_new_tokens": DECODE_STEPS}
+    rep = {}
+    restore = p15_env(ZOO_SERVING_MAX_WAIT_MS=(
+        f"interactive={P15_INTERACTIVE_WAIT_MS}"))
+    try:
+        for what, kw, n_gen in (
+                ("paged", {}, P15_GEN_RECORDS),
+                ("draft", dict(draft_model=dec_im, spec_k=DECODE_SPEC_K),
+                 P15_DRAFT_RECORDS)):
+            stream = f"p15_decode_{what}"
+            _build.reset_launch_counts()
+            with Broker.launch(backend="native") as bk, \
+                    ClusterServing(dec_im, bk.port, batch_size=b,
+                                   max_batch_size=b, warmup=False,
+                                   input_cols=["x", "y"], stream=stream,
+                                   **kw) as eng:
+                iq = InputQueue(port=bk.port, stream=stream)
+                oq = OutputQueue(port=bk.port)
+                t0 = time.perf_counter()
+                gens = iq.enqueue_batch(
+                    ((f"g{i}", {"x": enc[i % b], "start": start[i % b]})
+                     for i in range(n_gen)), priority="batch",
+                    generate=gen)
+                preds = []
+                if what == "paged":
+                    for k in range(P15_GEN_PREDICTS):
+                        preds.append(iq.enqueue(
+                            f"p{k}", priority="interactive", x=px[k],
+                            y=py[k]))
+                        time.sleep(0.01)
+                got = oq.query_many(gens + preds, timeout=300,
+                                    poll_interval=0.002)
+                dt = time.perf_counter() - t0
+                sched = eng._decode_sched
+                m = eng.metrics()
+                iq.close()
+                oq.close()
+            launches = _build.launch_counts()
+            preempt = int(eng._preempt_counter.value)
+            for i, u in enumerate(gens):
+                if got[u] is None or not np.array_equal(got[u],
+                                                        greedy[i % b]):
+                    raise AssertionError(f"15(g) {what}: {u} differs from "
+                                         f"greedy generate of row {i % b}")
+            for k, u in enumerate(preds):
+                if not np.array_equal(got[u], want[k]):
+                    raise AssertionError(f"15(g) predict {u} differs")
+            gathers = launches.get("paged_gather", 0)
+            if gathers <= 0 or gathers != m["paged_steps"]:
+                raise AssertionError(f"15(g) {what}: {gathers} gathers for "
+                                     f"{m['paged_steps']} paged steps")
+            bound = ClusterServing.DECODE_STARVATION_FLOOR * sched.steps_run
+            if what == "paged" and not 0 < preempt <= bound:
+                raise AssertionError(f"15(g) preemptions {preempt}, bound "
+                                     f"{bound}")
+            snap = telemetry.snapshot()
+            steps_h = snap["zoo_request_cost_decode_steps"][
+                f"stream={stream},priority=batch,kind=generate"]
+            enc_h = snap["zoo_request_cost_device_seconds"].get(
+                f"stream={stream},priority=interactive,kind=encode",
+                {"count": 0})
+            if steps_h["count"] != n_gen or enc_h["count"] != len(preds):
+                raise AssertionError(f"15(g) cost entries {steps_h['count']}"
+                                     f" / {enc_h['count']}")
+            rep[what] = dict(
+                generate_records=n_gen, predicts=len(preds), seconds=dt,
+                tokens_per_s=n_gen * DECODE_STEPS / dt,
+                preemptions=preempt, steps=sched.steps_run,
+                paged_steps=m["paged_steps"], gather_launches=gathers,
+                cost_steps_mean=steps_h["sum"] / steps_h["count"],
+                launches=launches)
+    finally:
+        restore()
+    p, d = rep["paged"], rep["draft"]
+    log(f"phase 15(g) decode on {kind}: {p['generate_records']} batch-lane "
+        f"generate records of {DECODE_STEPS} tokens with "
+        f"{p['predicts']} interactive predicts interleaved in "
+        f"{p['seconds']:.3f} s ({p['tokens_per_s']:.1f} tokens/s), "
+        f"{p['preemptions']} preemptions over {p['steps']} steps, "
+        f"{p['gather_launches']} gathers = paged steps; self-drafted "
+        f"{d['generate_records']} records {d['tokens_per_s']:.1f} tokens/s;"
+        f" tokens bitwise greedy generate, one cost entry a record")
+    return rep
+
+
+def phase_serving_a7(torch, np, api, im, x, state, dec, kind):
+    """Phase 15: Cluster Serving's scheduling and delivery."""
+    from analytics_zoo_tpu_torch.serving import ShedError
+    t0 = time.perf_counter()
+    rep = {"a": p15_native_protocol(api[0], ShedError)}
+    rep["b"] = p15_ncf_lanes(np, api, im, x)
+    refs = {P15_NCF_BATCH: im.predict(x[:P15_DEADLINE_HELD
+                                        + P15_DEADLINE_RECORDS],
+                                      batch_size=P15_NCF_BATCH)}
+    rep["c"] = p15_bert_warmup(torch, np, api, state, kind)
+    rep["d"] = p15_deadlines(np, api, im, x, refs)
+    rep["e"] = p15_admission(api, im, x)
+    rep["f"] = p15_leases(np, api, im, x, refs)
+    dec_im, greedy, inputs = dec
+    rep["g"] = p15_decode(np, api, dec_im, greedy, inputs, kind)
+    rep["seconds"] = time.perf_counter() - t0
+    ncf_lanes = {}
+    for counts in rep["b"]["launches"].values():
+        for name, n in counts.items():
+            ncf_lanes[name] = ncf_lanes.get(name, 0) + n
+    launches = {
+        "ncf_lanes": ncf_lanes, "bert": rep["c"]["launches"],
+        "deadline": rep["d"]["launches"],
+        "admission": rep["e"]["launches"], "lease": rep["f"]["launches"],
+        "decode": rep["g"]["paged"]["launches"],
+        "decode_draft": rep["g"]["draft"]["launches"]}
+    for path in ("deadline", "admission", "lease"):
+        if launches[path].get("fused_embedding_lookup", 0) <= 0:
+            raise AssertionError(f"15 {path} path launched no lookup: "
+                                 f"{launches[path]}")
+    rep["launches"] = launches
+    return rep
+
+
 def phase_a3(torch, np, eb, state, Estimator, x, y, kind, card):
     """Phase 14 (a)-(e); the directory it writes is removed after. Each
     part's paths zero the launch counts before they run."""
@@ -4358,7 +5101,9 @@ def main() -> int:
     # 5. serving
     before = eb.launches.value
     with Broker.launch(backend="python") as broker, \
-            ClusterServing(im, broker.port, batch_size=SERVE_BATCH) as serving:
+            ClusterServing(im, broker.port, batch_size=SERVE_BATCH,
+                           max_batch_size=SERVE_BATCH,
+                           warmup=False) as serving:
         iq = InputQueue(port=broker.port)
         oq = OutputQueue(port=broker.port)
         t0 = time.perf_counter()
@@ -4501,12 +5246,22 @@ def main() -> int:
     a3_counts = report["a3"]["launches"]
     log(f"phase 14: {report['a3']['seconds']:.1f} s; launches by path: "
         f"{a3_counts}")
+    # 15. Cluster Serving's scheduling and delivery: the native broker,
+    # lanes, warm-up, deadlines, admission, leases, preemption and the
+    # frontend; each part zeroes the counts before its paths
+    report["a7"] = phase_serving_a7(
+        torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), im,
+        x, state, (dec_im, greedy, dec_inputs), kind)
+    a7_counts = report["a7"]["launches"]
+    log(f"phase 15: {report['a7']['seconds']:.1f} s; launches by path: "
+        f"{a7_counts}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
                           "ncf_train": ncf_train_counts,
                           "checkpoints": ckpt_counts, "zoo": zoo_counts,
-                          "tcn": tcn_counts, "a3": a3_counts}
+                          "tcn": tcn_counts, "a3": a3_counts,
+                          "a7": a7_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -4643,6 +5398,14 @@ def main() -> int:
         elif name.startswith("flash_attention"):
             row["phase14_launches"] = dict(
                 bert_remat=a3_counts["bert_remat"].get(name, 0))
+    # phase 15's paths: NCF behind the lanes, deadlines, admission and
+    # leases (B1), BERT-Base behind warm-up (B3), generate records with
+    # preemption (B6)
+    for row in kernels["kernels"]:
+        p15 = {path: c.get(row["name"], 0) for path, c in a7_counts.items()
+               if c.get(row["name"], 0)}
+        if p15:
+            row["phase15_launches"] = p15
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s in all")

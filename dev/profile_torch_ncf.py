@@ -86,7 +86,9 @@ def main() -> int:
 
     with Broker.launch(backend="python") as broker, \
             ClusterServing(im, broker.port,
-                           batch_size=chip_smoke.SERVE_BATCH):
+                           batch_size=chip_smoke.SERVE_BATCH,
+                           max_batch_size=chip_smoke.SERVE_BATCH,
+                           warmup=False):
         iq = InputQueue(port=broker.port)
         oq = OutputQueue(port=broker.port)
         warm = iq.enqueue_batch((f"w{i}", {"x": x[i]}) for i in range(256))

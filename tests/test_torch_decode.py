@@ -413,10 +413,10 @@ def test_generate_wire_form_matches_jax():
     x = {"x": np.ones((2, 3), np.float32), "start": np.zeros(3, np.float32)}
     g = schema.validate_generate({"max_new_tokens": 4})
     uri, inputs, meta = jschema.decode_record_meta(
-        schema.encode_record("u", x, generate=g))
+        schema.encode_record("u", x, trace={"g": g}))
     assert meta == {"g": g} and set(inputs) == set(x)
     payload = jschema.encode_record("v", x, trace={"id": "v", "g": g})
-    assert schema.decode_record(payload, with_generate=True)[2] == g
+    assert schema.decode_record_meta(payload)[2]["g"] == g
     assert schema.decode_record(payload)[0] == "v"
 
 

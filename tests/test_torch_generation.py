@@ -109,9 +109,9 @@ def test_decode_loop_matches_jax_and_padding_is_bitwise(jax_gen, mode,
     start = np.eye(6, dtype=np.float32)[:3]
     kw = dict(mode=mode, temperature=0.7, seed=5)
     lad = generation.seq_ladder(steps + 1, min_rung=2)
-    before = generation.decode_steps
+    before = generation.decode_steps()
     padded = generation.decode_loop(fn, enc, start, steps, ladder=lad, **kw)
-    assert generation.decode_steps == before + 3 * steps
+    assert generation.decode_steps() == before + 3 * steps
     exact = generation.decode_loop(fn, enc, start, steps, ladder=None, **kw)
     want = jax_gen.decode_loop(fn, enc, start, steps,
                                ladder=jax_gen.seq_ladder(steps + 1,

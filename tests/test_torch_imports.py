@@ -55,7 +55,11 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.mesh", "data.shard", "data.dataset",
                 "data.pandas.preprocessing", "automl.metrics",
                 "zouwu.model.nets", "zouwu.model.forecast",
-                "learn.optimizers", "learn.estimator", "convert"):
+                "learn.optimizers", "learn.estimator", "convert",
+                "common.telemetry", "common.timeseries", "common.slo",
+                "common.pipeline_io", "common.compile_ahead",
+                "serving.broker", "serving.frontend", "serving.client",
+                "serving.schema"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame
@@ -103,3 +107,17 @@ def test_a3_surface_imports_without_jax():
     assert out.stdout.strip() == str(["RMSprop", "Adagrad", "Adadelta",
                                       "Adamax", "Nadam", "LARS", "LAMB",
                                       "LBFGS"])
+
+
+def test_native_broker_source_is_the_ports_own_file():
+    """The port builds its broker from its own copy of zbroker.cpp: a
+    regular file under analytics_zoo_tpu_torch, not a link into the JAX
+    package."""
+    own = PKG / "serving" / "native" / "zbroker.cpp"
+    jax_src = ROOT / "analytics_zoo_tpu" / "serving" / "native" / "zbroker.cpp"
+    assert own.is_file() and not own.is_symlink()
+    assert PKG.resolve() in own.resolve().parents
+    assert not os.path.samefile(own, jax_src)
+    from analytics_zoo_tpu_torch.serving import broker
+    assert broker.NATIVE_SRC.resolve() == own.resolve()
+    assert broker.BUILD_DIR == ROOT / "build" / "native"

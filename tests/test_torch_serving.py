@@ -144,9 +144,19 @@ def test_uncollected_results_expire():
         assert c.hget("h", "k") is None
 
 
-def test_only_the_python_backend():
-    with pytest.raises(ValueError, match="not ported"):
+def test_only_the_python_backend(monkeypatch, tmp_path):
+    """Where the native broker cannot be built, only the Python backend
+    runs: ``backend="native"`` raises with the build's error, ``"auto"``
+    falls back to Python and ``Broker.backend`` says so."""
+    from analytics_zoo_tpu_torch.serving import broker as broker_mod
+    monkeypatch.setattr(broker_mod, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="native broker build failed"):
         Broker.launch(backend="native")
+    with Broker.launch(backend="auto") as b:
+        assert b.backend == "python" and b.client().ping()
+    with pytest.raises(ValueError, match="backend"):
+        Broker.launch(backend="redis")
 
 
 # --------------------------------------------------------------- end to end
@@ -218,3 +228,102 @@ def test_inference_model_raises_without_cuda():
     assert InferenceModel(device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no model loaded"):
         InferenceModel(device="cpu").predict(np.zeros((1, 2)))
+
+
+# ------------------------------------------------- delivery and recovery
+# (the JAX package's test_serving.py counterparts, on both brokers)
+
+@pytest.fixture(params=["python", "native"])
+def any_broker(request):
+    b = Broker.launch(backend=request.param)
+    yield b
+    b.stop()
+
+
+def test_xclaim_redelivers_dead_consumer_pending(any_broker):
+    c = any_broker.client()
+    for _ in range(3):
+        c.xadd("s", "ZA==")
+    got = c.xreadgroup("g", "c0", "s", 3)
+    assert len(got) == 3 and c.xpending("s", "g") == 3
+    assert c.xreadgroup("g", "c1", "s", 3) == []
+    assert c.xclaim("s", "g", "c1", 60000, 10) == []
+    claimed = c.xclaim("s", "g", "c1", 0, 10)
+    assert [e[0] for e in claimed] == [e[0] for e in got]
+    assert claimed[0][1] == "ZA=="
+    for eid, _ in claimed:
+        c.xack("s", "g", eid)
+    assert c.xpending("s", "g") == 0 and c.xlen("s") == 0
+
+
+def test_engine_recovers_orphaned_pending(any_broker):
+    im = _model()
+    x = _pairs(1, seed=4)
+    in_q = InputQueue(port=any_broker.port)
+    in_q.enqueue("orphan", x=x[0])
+    ghost = any_broker.client().xreadgroup("serving", "dead",
+                                           "serving_stream", 10)
+    assert len(ghost) == 1
+    with ClusterServing(im, any_broker.port, batch_size=2,
+                        max_batch_size=2, claim_min_idle_ms=0,
+                        warmup=False) as serving:
+        got = OutputQueue(port=any_broker.port).query("orphan", timeout=20)
+        assert got is not None
+        m = serving.metrics()
+    np.testing.assert_allclose(got, im.predict(x)[0], rtol=1e-5, atol=1e-6)
+    assert m["records_redelivered"] == 1 and m["lease_reclaims"] == 1
+    assert any_broker.client().xpending("serving_stream", "serving") == 0
+
+
+def test_engine_survives_broker_restart():
+    im = _model()
+    x = _pairs(2, seed=5)
+    b1 = Broker.launch(backend="python")
+    port = b1.port
+    eng = ClusterServing(im, port, batch_size=2, max_batch_size=2,
+                         warmup=False).start()
+    try:
+        in_q, out_q = InputQueue(port=port), OutputQueue(port=port)
+        in_q.enqueue("before", x=x[0])
+        assert out_q.query("before", timeout=30.0) is not None
+        b1.stop()
+        b2 = Broker.launch(backend="python", port=port)
+        try:
+            InputQueue(port=port).enqueue("after", x=x[1])
+            assert OutputQueue(port=port).query("after", timeout=30.0) \
+                is not None, "the engine never redialed the new broker"
+        finally:
+            eng.stop()
+            b2.stop()
+    finally:
+        eng.stop()
+
+
+def test_one_bad_postprocess_keeps_rest_of_batch(any_broker):
+    im = _model()
+    x = _pairs(8, seed=3)
+    want = im.predict(x)
+    thr = float(np.median(want[:, 0]))
+    bad = {f"p{i}" for i in range(8) if want[i, 0] > thr}
+    assert bad and len(bad) < 8
+
+    def post(pred):
+        if pred[0] > thr:
+            raise ValueError("boom")
+        return pred
+
+    with ClusterServing(im, any_broker.port, batch_size=4, max_batch_size=4,
+                        postprocess=post, warmup=False):
+        in_q = InputQueue(port=any_broker.port)
+        out_q = OutputQueue(port=any_broker.port)
+        for i in range(8):
+            in_q.enqueue(f"p{i}", x=x[i])
+        for i in range(8):
+            uri = f"p{i}"
+            if uri in bad:
+                with pytest.raises(ServingError, match="postprocess"):
+                    out_q.query(uri, timeout=20.0)
+            else:
+                np.testing.assert_allclose(out_q.query(uri, timeout=20.0),
+                                           want[i], rtol=1e-5, atol=1e-6)
+    assert any_broker.client().xpending("serving_stream", "serving") == 0
