@@ -1,19 +1,26 @@
-"""Deterministic fault injection for ``fit(auto_resume=True)``.
+"""Deterministic fault injection: ``fit(auto_resume=True)`` and the
+replica-kill drill.
 
-Counterpart of the part of ``analytics_zoo_tpu/common/resilience.py``
-that the estimator's retry-from-snapshot uses. A fault plan
+Counterpart of the parts of ``analytics_zoo_tpu/common/resilience.py``
+that the estimator's retry-from-snapshot and the serving fleet's chaos
+drill use. A fault plan
 (``ZOO_FAULT_PLAN``, or :func:`install_plan`) is a comma-separated list of
 ``kind@site[:start[+more]]`` specs:
 
 - ``wedge@step:12``  — the 12th training step raises
 - ``wedge@step:5+2`` — steps 5 to 7 raise (start plus 2 more)
 - ``wedge@step``     — every step raises
+- ``kill@replica:1`` — the first :func:`maybe_kill_replica` SIGKILLs its
+  replica
 
 Sites count their arrivals per process, so a plan strikes the same call
 every run. :func:`is_backend_loss` tells a lost device from a model or
-data bug, and ``ZOO_FIT_MAX_RESUMES`` bounds the resumes. The JAX
-package's backend supervisor, serving replicas and CPU fallback are not
-here: the port has no CPU failover (ROADMAP A10 ports the supervisor).
+data bug, and ``ZOO_FIT_MAX_RESUMES`` bounds the resumes.
+:class:`ServingReplicaProc` runs one serving replica (engine and
+frontend over a shared broker, the :class:`Duck` model) in its own
+process, the unit the replica-kill seam strikes. The JAX package's
+backend supervisor and CPU fallback are not here: the port has no CPU
+failover (ROADMAP A10 ports the supervisor).
 """
 
 from __future__ import annotations
@@ -21,12 +28,19 @@ from __future__ import annotations
 import logging
 import os
 import re
+import signal
+import subprocess
+import sys
 import threading
+import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+import numpy as np
+
 __all__ = ["InjectedFault", "FaultInjector", "get_injector", "install_plan",
-           "maybe_fault", "fault_scope", "is_backend_loss",
+           "maybe_fault", "fault_scope", "fault_drill", "Duck",
+           "ServingReplicaProc", "maybe_kill_replica", "is_backend_loss",
            "fit_max_resumes", "note_backend_loss", "reset_for_tests"]
 
 logger = logging.getLogger(__name__)
@@ -176,6 +190,131 @@ def fault_scope(site: str):
         yield
     finally:
         sup.discard(site)
+
+
+@contextmanager
+def fault_drill(plan: str):
+    """Install ``plan`` with fresh counters for the block, and clear it
+    after."""
+    install_plan(plan)
+    try:
+        yield
+    finally:
+        install_plan(None)
+
+
+# ------------------------------------------------------- replica drill
+
+class Duck:
+    """A duck-typed doubler whose per-batch ``predict`` sleep models the
+    device round trip, so replica drills measure the delivery layer
+    without a device."""
+
+    def __init__(self, sleep_s: float = 0.0):
+        self.sleep_s = float(sleep_s)
+
+    def predict(self, x):
+        if self.sleep_s:
+            time.sleep(self.sleep_s)
+        return np.asarray(x) * 2.0
+
+
+_REPLICA_SCRIPT = """\
+import sys
+from analytics_zoo_tpu_torch.common.resilience import Duck
+from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+from analytics_zoo_tpu_torch.serving.frontend import FrontEnd
+
+sleep_ms, port, batch = float(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+eng = ClusterServing(Duck(sleep_ms / 1000.0), port, batch_size=batch,
+                     max_batch_size=batch, warmup=False).start()
+fe = FrontEnd(port, engine=eng).start()
+print("READY", fe.port, eng.replica_id, flush=True)
+sys.stdin.readline()
+eng.stop()
+fe.stop()
+"""
+
+#: the directory holding the package, for the replica's import path
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+class ServingReplicaProc:
+    """One serving replica in its own OS process (engine and frontend
+    over a shared broker, the :class:`Duck` model on the host): the unit
+    :func:`maybe_kill_replica` SIGKILLs. Lease and heartbeat knobs ride
+    ``env_extra``."""
+
+    def __init__(self, broker_port: int, batch_size: int = 4,
+                 predict_sleep_ms: float = 0.0,
+                 env_extra: Optional[Dict[str, str]] = None,
+                 ready_timeout_s: float = 60.0):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_PKG_ROOT, env.get("PYTHONPATH")) if p)
+        env.update(env_extra or {})
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _REPLICA_SCRIPT,
+             str(predict_sleep_ms), str(broker_port), str(batch_size)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True, env=env)
+        self._ready_line = ""
+        t = threading.Thread(target=self._read_ready, daemon=True)
+        t.start()
+        t.join(ready_timeout_s)
+        parts = self._ready_line.split()
+        if len(parts) != 3 or parts[0] != "READY":
+            self.kill()
+            raise RuntimeError("serving replica failed to come up (got "
+                               f"{self._ready_line!r})")
+        self.http_port = int(parts[1])
+        self.replica_id = parts[2]
+
+    def _read_ready(self):
+        self._ready_line = self.proc.stdout.readline()
+
+    @property
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def kill(self):
+        """SIGKILL — the crash path: no drain, no deregister; the
+        replica's pending entries become orphaned leases."""
+        if self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+    def stop(self, timeout_s: float = 30.0):
+        """The graceful path: closing stdin lets the replica drain (stop
+        reading, flush, ack, deregister)."""
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.close()
+            except OSError:
+                pass
+            try:
+                self.proc.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                self.kill()
+        else:
+            self.proc.wait()
+
+
+def maybe_kill_replica(replica: ServingReplicaProc) -> bool:
+    """The replica-kill fault seam: count one arrival at site
+    ``replica``; when the plan schedules a ``kill`` for it
+    (``kill@replica:N``), SIGKILL the subprocess and return True."""
+    inj = get_injector()
+    if inj is None or _suppressed("replica"):
+        return False
+    fault = inj.check("replica")
+    if fault is None or fault.kind != "kill":
+        return False
+    logger.warning("injected replica kill: SIGKILL pid %d (%s)",
+                   replica.proc.pid, getattr(replica, "replica_id", "?"))
+    replica.kill()
+    return True
 
 
 def is_backend_loss(err: Optional[BaseException]) -> bool:

@@ -2,8 +2,7 @@
 
 The port's own copy of ``analytics_zoo_tpu/common/telemetry.py``, without
 its XLA hooks (``instrument_jit``, ``traced_device_put`` / ``get``,
-``timed_block_until_ready``: their torch counterparts are ROADMAP A10's)
-and without ``dump_trace`` (the Chrome trace export is A7b's):
+``timed_block_until_ready``: their torch counterparts are ROADMAP A10's):
 
 - **MetricsRegistry** — thread-safe counters, gauges and histograms
   (fixed Prometheus buckets + a bounded quantile reservoir), the
@@ -15,6 +14,8 @@ and without ``dump_trace`` (the Chrome trace export is A7b's):
   id: the engine's dequeue/preprocess/dispatch/device/postprocess stages
   record spans against it.
 - ``observe_device_block`` — the host time blocked on device results.
+- ``dump_trace`` — the span store as Chrome Trace Event JSON
+  (common/profiling.py).
 
 Metric names and label sets are the JAX package's letter for letter, so
 one dashboard reads either package. Stdlib only.
@@ -35,7 +36,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "Span", "Tracer",
     "get_registry", "get_tracer", "prometheus_text", "snapshot",
-    "observe_device_block", "set_trace_sampling",
+    "observe_device_block", "set_trace_sampling", "dump_trace",
     "reset_for_tests",
 ]
 
@@ -770,6 +771,15 @@ def set_trace_sampling(rate: float):
     _TRACER.set_sampling(rate)
 
 
+def dump_trace(path: str, trace_id: Optional[str] = None) -> str:
+    """Write the tracer's span store as Chrome Trace Event JSON to
+    ``path`` (optionally one ``trace_id``); returns the path. A delegate
+    of :func:`profiling.dump_trace`, imported on use so telemetry does not
+    depend on the profiling layer."""
+    from analytics_zoo_tpu_torch.common import profiling
+    return profiling.dump_trace(path, trace_id=trace_id)
+
+
 def reset_for_tests():
     """Swap in a fresh registry/trace store (same objects, cleared state)
     — test isolation for the process-wide singletons."""
@@ -781,7 +791,7 @@ def reset_for_tests():
         _TRACER._hooks = []
     _TRACER.set_sampling(
         float(os.environ.get("ZOO_TELEMETRY_SAMPLE", "1.0")))
-    for name in ("slo", "timeseries"):
+    for name in ("profiling", "slo", "timeseries"):
         mod = sys.modules.get(f"analytics_zoo_tpu_torch.common.{name}")
         if mod is not None:
             mod.reset_for_tests()

@@ -29,8 +29,16 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
   ``generate`` (greedy / sample / raw, optionally speculative with a
   draft model)
 
+- ``quantize(min_elems, mode="weight"|"int8", calibration_data)`` — the
+  post-training int8 of inference/quantize.py: weight int8 resident on
+  the device, dequantized inside each forward; ``"int8"`` also
+  calibrates activation ranges and runs the calibrated Dense and Conv
+  layers as integer products (``_act_ranges`` holds the ranges by flax
+  path, ``_qtree`` the quantized parameter tree). Re-quantizing keeps
+  what was quantized; the warm rungs are dropped (the forward changed).
+
 There is no CPU failover: a model on ``cuda`` runs there or raises.
-Quantization and sharding wait for later slices.
+Sharding waits for a later slice (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -87,6 +95,10 @@ class InferenceModel:
         self._ready_rungs: set = set()
         self._warming: set = set()
         self._warm_threads: list = []
+        #: after ``quantize``: the quantized parameter tree and, in int8
+        #: mode, the calibrated activation ranges by flax path
+        self._qtree = None
+        self._act_ranges = None
 
     # ------------------------------------------------------------- loaders
     def load_zoo(self, model) -> "InferenceModel":
@@ -103,6 +115,7 @@ class InferenceModel:
             self._n_inputs = len(module.graph_inputs)
             self._sample_spec = None
             self._ready_rungs = set()
+            self._qtree = self._act_ranges = None
         return self
 
     def load(self, path: str) -> "InferenceModel":
@@ -124,7 +137,55 @@ class InferenceModel:
             self._module = copy_
             self._n_inputs = len(_as_tuple(sample_input))
             self._ready_rungs = set()
+            self._qtree = self._act_ranges = None
         self._remember_spec(_as_tuple(sample_input), overwrite=True)
+        return self
+
+    def quantize(self, min_elems: int = 1024, mode: str = "weight",
+                 calibration_data=None) -> "InferenceModel":
+        """Post-training int8 quantization (ref BigDL ``model.quantize()``).
+
+        ``mode="weight"``: every parameter leaf with ndim >= 2 and at
+        least ``min_elems`` elements is stored int8 under per-channel
+        scales on the device and dequantized inside each forward.
+        ``mode="int8"``: also a calibration pass over ``calibration_data``
+        (an array or tuple, or a list of batches) records each Dense and
+        Conv input's range, and those layers then run as ``int8 x int8 ->
+        int32`` products (inference/quantize.py). The quantized module
+        replaces the loaded one whole, as a load does."""
+        from analytics_zoo_tpu_torch.inference import quantize as qlib
+
+        if mode not in ("weight", "int8"):
+            raise ValueError(f"mode must be 'weight' or 'int8', got {mode!r}")
+        with self._lock:
+            if self._module is None:
+                raise RuntimeError("load a model before quantize")
+            module, n_inputs = self._module, self._n_inputs
+        batches = None
+        if mode == "int8":
+            if calibration_data is None:
+                raise ValueError(
+                    "mode='int8' needs calibration_data (a batch or list "
+                    "of batches) for the activation-range pass")
+            batches = calibration_data \
+                if isinstance(calibration_data, list) else [calibration_data]
+            if not batches:
+                raise ValueError(
+                    "mode='int8': calibration_data is empty — pass at "
+                    "least one batch to calibrate activation ranges")
+        module = copy.deepcopy(module)
+        qtree = qlib.quantize_module(module, min_elems)
+        act = None
+        if batches is not None:
+            act = qlib.calibrate_activations(
+                module, lambda b: self._forward(
+                    module, self._coerce(b, n_inputs)), batches)
+            qlib.int8_modules(module, act)
+        with self._lock:
+            self._module = module
+            self._qtree = qtree
+            self._act_ranges = act
+            self._ready_rungs = set()
         return self
 
     def set_ladder(self, ladder, max_batch_size: Optional[int] = None

@@ -84,10 +84,21 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   stops between steps (between loops with ``steps_per_loop``) and stops
   in ``fit``'s ``finally``.
 
+- **Step profiler** (JAX ``fit``'s ``StepProfiler``, always on):
+  ``common/profiling.StepProfiler`` with ``sample_every = max(2,
+  summary_interval // 2)`` takes each step's (each loop's, with
+  ``n_steps=k``) data wait, dispatch and callback time; every sampled
+  step is fenced (``torch.cuda.synchronize``) for its device time, gives
+  ``zoo_mfu`` and ``zoo_hbm_bytes`` and its ``train/step-<n>`` spans.
+  ``zoo_step_flops`` is counted once per estimator and batch shape
+  (``profiling.step_flops`` over one forward and backward of the batch):
+  under ``fork_rng``, each parameter's ``.grad`` and the buffers put back
+  after, no update applied, so a fit ends bitwise where it would without
+  the count. The count's own launches fall in the first fit of a shape.
+
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
-(ROADMAP A9); the per-step telemetry (``zoo_step_flops``, ``zoo_mfu``)
-and the registry the JAX package mirrors the summaries into (ROADMAP
-A10).
+(ROADMAP A9); the registry the JAX package mirrors the summaries into
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -105,7 +116,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from analytics_zoo_tpu_torch.common import resilience
+from analytics_zoo_tpu_torch.common import profiling, resilience
 from analytics_zoo_tpu_torch.common.context import active_context
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
@@ -127,6 +138,16 @@ logger = logging.getLogger(__name__)
 
 #: where the summaries go without ``set_tensorboard`` or ``model_dir``
 DEFAULT_LOG_DIR = os.path.join(".", "zoo_tpu_logs")
+
+
+def _leaves(tree) -> list:
+    """The arrays of a batch: a tensor or array, or a tuple, list or dict
+    of them."""
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [a for v in tree for a in _leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def _trigger_needs_score(trigger) -> bool:
@@ -271,6 +292,10 @@ class TorchEstimator:
         #: tensors, and the profile window of the last fit
         self._cached = None
         self._profile_window: Optional[_ProfileWindow] = None
+        #: step flops by batch signature (profiling.step_flops), and the
+        #: step profiler of the running fit
+        self._flops: Dict[tuple, Optional[float]] = {}
+        self._step_prof: Optional[profiling.StepProfiler] = None
         sig = inspect.signature(self.model.forward)
         self._takes_train = "train" in sig.parameters
         self._n_inputs = _n_inputs(self.model, sig)
@@ -340,6 +365,45 @@ class TorchEstimator:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._params, grads)]
         return loss.detach(), grads
+
+    def _step_flops(self, x, y) -> Optional[float]:
+        """The products of one step on batch ``(x, y)``, counted once per
+        batch signature. The counting pass runs the step's forward and
+        backward under ``fork_rng``, puts back each ``.grad`` and every
+        buffer, and applies no update: the fit does not move."""
+        key = tuple((tuple(a.shape), str(a.dtype)) for a in
+                    _leaves(x) + _leaves(y))
+        if key not in self._flops:
+            grads = [p.grad for p in self._params]
+            bufs = [(b, b.detach().clone()) for b in self.model.buffers()]
+            cuda = self.device.type == "cuda"
+            devices = [self.device.index if self.device.index is not None
+                       else torch.cuda.current_device()] if cuda else []
+            try:
+                with torch.random.fork_rng(devices=devices):
+                    self._flops[key] = profiling.step_flops(
+                        lambda: self._loss_and_grads(x, y))
+            finally:
+                with torch.no_grad():
+                    for p, g in zip(self._params, grads):
+                        p.grad = g
+                    for b, saved in bufs:
+                        b.copy_(saved)
+        return self._flops[key]
+
+    def _live_tensors(self):
+        """What ``zoo_hbm_bytes`` sums off the card: the parameters and
+        the optimizer state."""
+        return [self._params, self._opt_state or {}]
+
+    def _sampled_device_s(self, t1: float, x, y) -> float:
+        """A sampled step's fenced device time since its dispatch began at
+        ``t1``; then the step's flop count, once (its time is no phase's)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        device_s = time.perf_counter() - t1
+        self._step_prof.ensure_flops(lambda: self._step_flops(x, y))
+        return device_s
 
     def _train_step(self, x, y) -> torch.Tensor:
         state = self._ensure_opt_state()
@@ -460,6 +524,9 @@ class TorchEstimator:
                 self._py_step + int(lo), self._py_step + int(hi),
                 self.device)
         self._profile_window = window
+        self._step_prof = profiling.StepProfiler(
+            name="train", sample_every=max(2, int(summary_interval) // 2),
+            device=self.device, live_tensors=self._live_tensors)
         try:
             if window is not None:
                 window.on_step(self._py_step)
@@ -468,6 +535,7 @@ class TorchEstimator:
                              max(1, int(steps_per_loop)), cache, window,
                              auto_resume, start, history)
         finally:
+            self._step_prof = None
             if window is not None:
                 window.close()
         train_writer.flush()
@@ -596,7 +664,17 @@ class TorchEstimator:
                 ds.iter_batches(batch_size, shuffle, seed=self.seed,
                                 epoch=self._epoch, drop_remainder=True),
                 skip, None))
-        for x, y, k in loops:
+        prof = self._step_prof
+        loops = iter(loops)
+        while True:
+            # the step profiler's phases: the data wait is the next()
+            t0 = time.perf_counter()
+            try:
+                x, y, k = next(loops)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            sampled = prof.should_sample(self._py_step)
             # fault-injection seam: one arrival per loop (a step, or a
             # fused loop as JAX's scan counts once)
             resilience.maybe_fault("step")
@@ -608,6 +686,14 @@ class TorchEstimator:
                         tree_map(lambda a: a[i], y), window))
             else:
                 pending.append(self._step(x, y, window))
+            t2 = time.perf_counter()
+            device_s = None
+            if sampled:
+                if steps_per_loop > 1:
+                    x, y = tree_map(lambda a: a[0], x), \
+                        tree_map(lambda a: a[0], y)
+                device_s = self._sampled_device_s(t1, x, y)
+            t3 = time.perf_counter()
             if len(pending) >= summary_interval:
                 flush()
             # iteration-granular snapshots, e.g. SeveralIteration(n), on
@@ -622,6 +708,8 @@ class TorchEstimator:
                 self._save_snapshot()
             if window is not None:
                 window.on_step(self._py_step)
+            prof.observe_step(self._py_step, t0, t1 - t0, t2 - t1, device_s,
+                              time.perf_counter() - t3, n_steps=k)
         flush()
         losses = self.step_losses[start:]
         return float(np.mean(losses)) if losses else float("nan")
@@ -655,16 +743,26 @@ class TorchEstimator:
         order = self._device_order(ds.n, shuffle)
         idx = order[:n_steps * batch_size].view(n_steps, batch_size)
         self.model.train(True)
-        t0 = time.perf_counter()
+        prof = self._step_prof
+        t_epoch = time.perf_counter()
         losses = []
         for i in range(skip, n_steps):
+            t0 = time.perf_counter()
             ib = idx[i]
-            losses.append(self._step(tree_map(lambda a: a[ib], cx),
-                                     tree_map(lambda a: a[ib], cy), window))
+            x, y = tree_map(lambda a: a[ib], cx), tree_map(lambda a: a[ib],
+                                                           cy)
+            t1 = time.perf_counter()
+            sampled = prof.should_sample(self._py_step)
+            losses.append(self._step(x, y, window))
+            t2 = time.perf_counter()
+            device_s = self._sampled_device_s(t1, x, y) if sampled else None
+            t3 = time.perf_counter()
             if window is not None:
                 window.on_step(self._py_step)
+            prof.observe_step(self._py_step, t0, t1 - t0, t2 - t1, device_s,
+                              time.perf_counter() - t3)
         vals = torch.stack(losses).double().cpu().tolist() if losses else []
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t_epoch
         self.step_losses.extend(vals)
         if vals:
             step = self._py_step

@@ -40,15 +40,12 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     if use_flash is None:
         use_flash = _flash_ok(q, k, mask)
     if use_flash and mask is None:
-        if q.device.type == "cuda":
-            from analytics_zoo_tpu_torch.ops.flash_attention import (
-                flash_attention,
-            )
-            return flash_attention(q, k, v, causal=causal)
-        from analytics_zoo_tpu_torch.ops.flash_attention import (
-            blockwise_attention,
-        )
-        return blockwise_attention(q, k, v, causal=causal)
+        from analytics_zoo_tpu_torch.ops import flash_attention as fa
+        # while a step's products are counted the CPU takes the flash
+        # Function too, so the count does not depend on the route
+        if q.device.type == "cuda" or fa.counting():
+            return fa.flash_attention(q, k, v, causal=causal)
+        return fa.blockwise_attention(q, k, v, causal=causal)
     return _reference_attention(q, k, v, mask=mask, causal=causal)
 
 

@@ -19,6 +19,11 @@ Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
 - ``default_use_flash`` — the auto-select the sequence-parallel
   compositions use, with the CUDA device where the JAX code asks for the
   TPU.
+- ``counting_flops`` — while a step's products are counted
+  (``common/profiling.step_flops``), the forward and the backward run as
+  the operators ``zoo_torch::flash_fwd`` / ``zoo_torch::flash_bwd``, whose
+  bodies (kernel launches or plain versions, as always) the counter does
+  not see and whose registered counts are the einsum chain's.
 
 All take the public layout ``[b, s, h, d]``; the lse is ``[b*h, sq]``
 fp32. The kernels read q, k, v (and the output's cotangent) through their
@@ -38,6 +43,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import numpy as np
@@ -432,13 +439,85 @@ def _fwd_impl(q, k, v, causal: bool, return_lse: bool):
     return _flash_fwd_cuda(q, k, v, causal, return_lse)
 
 
+def _bwd_impl(q, k, v, o, lse, do, causal: bool, glse=None):
+    bwd = _flash_bwd_ref if q.device.type == "cpu" else _flash_bwd_cuda
+    return bwd(q, k, v, o, lse, do, causal, glse)
+
+
+# ------------------------------------------------------ counted operators
+
+#: > 0 while ``counting_flops`` is open (a process-wide depth: a CUDA
+#: backward runs on autograd's device thread, not the counting one)
+_counting = 0
+_count_lock = threading.Lock()
+_count_ops = None
+
+
+def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """QK^T and PV as the einsum chain computes them: the full square."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * sq * k_shape[1] * d
+
+
+def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """dV, dP, dQ and dK, each the size of a forward product; the
+    kernels' recompute of S is not model work."""
+    return 2 * _fwd_flops(q_shape, k_shape)
+
+
+def _counted_ops():
+    """The two counted operators, defined at first use."""
+    global _count_ops
+    with _count_lock:
+        if _count_ops is None:
+            from torch.library import custom_op
+            fwd = custom_op(
+                "zoo_torch::flash_fwd",
+                lambda q, k, v, causal: _fwd_impl(q, k, v, causal, True),
+                mutates_args=(),
+                schema="(Tensor q, Tensor k, Tensor v, bool causal) "
+                       "-> (Tensor, Tensor)")
+            bwd = custom_op(
+                "zoo_torch::flash_bwd", _bwd_impl, mutates_args=(),
+                schema="(Tensor q, Tensor k, Tensor v, Tensor o, "
+                       "Tensor lse, Tensor do, bool causal, Tensor? glse)"
+                       " -> (Tensor, Tensor, Tensor)")
+            _count_ops = (fwd, bwd)
+    return _count_ops
+
+
+@contextmanager
+def counting_flops():
+    """Route flash attention through the counted operators while the
+    block runs; yields ``{operator: count formula}`` for
+    ``FlopCounterMode(custom_mapping=...)``."""
+    global _counting
+    _counted_ops()
+    with _count_lock:
+        _counting += 1
+    try:
+        yield {torch.ops.zoo_torch.flash_fwd: _fwd_flops,
+               torch.ops.zoo_torch.flash_bwd: _bwd_flops}
+    finally:
+        with _count_lock:
+            _counting -= 1
+
+
+def counting() -> bool:
+    """True while ``counting_flops`` is open."""
+    return _counting > 0
+
+
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel with the lse saved, and both backward kernels.
     With ``return_lse`` the lse is a second, differentiable output."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, return_lse: bool):
-        out, lse = _fwd_impl(q, k, v, causal, True)
+        if _counting:
+            out, lse = torch.ops.zoo_torch.flash_fwd(q, k, v, causal)
+        else:
+            out, lse = _fwd_impl(q, k, v, causal, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         # an unused output's cotangent arrives as None, not as zeros
@@ -451,8 +530,12 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if g_out is None:
             g_out = torch.zeros_like(out)
-        bwd = _flash_bwd_ref if q.device.type == "cpu" else _flash_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, out, lse, g_out, ctx.causal, g_lse)
+        if _counting:
+            dq, dk, dv = torch.ops.zoo_torch.flash_bwd(
+                q, k, v, out, lse, g_out, ctx.causal, g_lse)
+        else:
+            dq, dk, dv = _bwd_impl(q, k, v, out, lse, g_out, ctx.causal,
+                                   g_lse)
         return dq, dk, dv, None, None
 
 
@@ -460,7 +543,8 @@ def _flash(q, k, v, causal: bool, return_lse: bool):
     _check(q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _counting or (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (q, k, v))):
         return _FlashAttention.apply(q, k, v, causal, return_lse)
     return _fwd_impl(q, k, v, causal, return_lse)
 

@@ -8,7 +8,7 @@ result hash for the answer. Records carry the client's dual-clock stamp
 (schema.py), which the engine reads as queue wait and end-to-end latency.
 A lane that admission control is shedding raises :class:`ShedError` at
 once, counted on ``zoo_serving_shed_total{stream,priority}``. Images and
-the reference's Arrow format are ROADMAP A7b's.
+the reference's Arrow format are ROADMAP A11's.
 """
 
 from __future__ import annotations

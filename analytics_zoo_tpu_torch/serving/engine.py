@@ -49,12 +49,21 @@ Scheduling and delivery, as in the JAX package:
   names and labels (common/telemetry.py), per-uri stage spans (queue
   wait, dequeue, preprocess, device, postprocess), per-request cost
   histograms, and ``metrics()`` with the JAX package's keys.
+  ``ZOO_FLIGHT_RECORDER=1`` arms the flight recorder at ``start()``
+  (common/profiling.py).
+- **The fleet.** With ``ZOO_FLEET_HEARTBEAT_S > 0`` (default 2 s)
+  ``start()`` heartbeats this replica's record (id, the frontend's
+  advertised host and port, wall-clock stamps, records out) into the
+  broker's ``fleet_replicas`` hash (common/fleet.py), so any frontend
+  lists and scrapes it, and runs a ``ReplicaSupervisor`` that classifies
+  pending entries of consumers with no live heartbeat as orphans and
+  runs this replica's next lease sweep at once. ``stop()`` drains and
+  acks before the heartbeat deregisters.
 
-Left out, each raising where a caller asks for it: fleet heartbeats and
-the replica supervisor (``replica_id`` only names the consumer here),
-image decode (``image_preprocess``) and Arrow records (ROADMAP A7b; such
-records get a typed error result); CPU failover (``ZOO_CPU_FALLBACK=1``)
-and the flight recorder (ROADMAP A10).
+Left out, each raising where a caller asks for it: image decode
+(``image_preprocess``) and Arrow records (ROADMAP A11; such records get
+a typed error result); CPU failover (``ZOO_CPU_FALLBACK=1``, ROADMAP
+A10).
 """
 
 from __future__ import annotations
@@ -64,13 +73,12 @@ import logging
 import os
 import threading
 import time
-import uuid
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from analytics_zoo_tpu_torch.common import compile_ahead, slo, telemetry, \
-    timeseries
+from analytics_zoo_tpu_torch.common import compile_ahead, fleet, profiling, \
+    slo, telemetry, timeseries
 from analytics_zoo_tpu_torch.common.pipeline_io import (  # noqa: F401
     Completed,
     DevicePipeline,
@@ -103,12 +111,6 @@ def _parse_lane_map(raw: str, defaults: Dict[str, float]) -> Dict[str, float]:
         k, _, v = part.partition("=")
         out[k.strip()] = float(v)
     return out
-
-
-def default_replica_id(stream: str = "serving") -> str:
-    """Unique, uri-charset-safe id: stream + pid + random suffix (two
-    replicas in one process must not collide)."""
-    return f"{stream}:{os.getpid()}:{uuid.uuid4().hex[:6]}"
 
 
 def _cpu_fallback_requested() -> bool:
@@ -169,7 +171,7 @@ class ClusterServing:
                  draft_model=None, spec_k: int = 4):
         if image_preprocess is not None:
             raise ValueError("image records are not served by the port yet "
-                             "(ROADMAP A7b): image_preprocess must be None")
+                             "(ROADMAP A11): image_preprocess must be None")
         if _cpu_fallback_requested():
             raise ValueError("ZOO_CPU_FALLBACK=1: the port has no CPU "
                              "failover (ROADMAP A10); unset it")
@@ -202,7 +204,7 @@ class ClusterServing:
         self.broker_host = broker_host
         self.broker_port = int(broker_port)
         self.stream, self.result_key = stream, result_key
-        self.replica_id = replica_id or default_replica_id(stream)
+        self.replica_id = replica_id or fleet.default_replica_id(stream)
         self.group = group
         self.consumer = consumer or self.replica_id
         self.input_cols = list(input_cols) if input_cols else None
@@ -253,6 +255,8 @@ class ClusterServing:
                 else max(0.5, self.claim_min_idle_ms / 2000.0)
         self._claim_interval_s = float(reclaim_interval_s)
         self._last_claim = 0.0
+        # the replica supervisor's "sweep now" signal to the serve thread
+        self._reclaim_asap = threading.Event()
         self._claim_backlog: Deque[Tuple[int, str, str]] = \
             collections.deque()
         # entry-id dedupe ring: ids in flight or finished by THIS consumer
@@ -276,6 +280,12 @@ class ClusterServing:
         self.lease_reclaims = 0
         self._tracer = telemetry.get_tracer()
         self._register_metrics(telemetry.get_registry(), stream)
+        # --- the fleet: where peers scrape this replica (set by its
+        # frontend; port 0 = headless), its heartbeat and supervisor
+        self._advertise = ("127.0.0.1", 0)
+        self._started_wall = 0.0
+        self._heartbeater: Optional[fleet.Heartbeater] = None
+        self._replica_supervisor: Optional[fleet.ReplicaSupervisor] = None
 
     def _register_metrics(self, reg, stream: str):
         self._rec_counter = reg.counter(
@@ -431,7 +441,9 @@ class ClusterServing:
         if self._claim_backlog:
             while self._claim_backlog and len(entries) < room:
                 entries.append(self._claim_backlog.popleft())
-        elif t_dq0 - self._last_claim >= self._claim_interval_s:
+        elif self._reclaim_asap.is_set() or \
+                t_dq0 - self._last_claim >= self._claim_interval_s:
+            self._reclaim_asap.clear()
             self._last_claim = t_dq0
             # lane-ordered reclaim: a dead peer's interactive entries
             # re-deliver before its batch-lane entries
@@ -503,7 +515,7 @@ class ClusterServing:
                                 if isinstance(v, schema.UnsupportedInput)})
                 if kinds:
                     self._error(uri, f"{' and '.join(kinds)} records are "
-                                "not served by the port yet (ROADMAP A7b)",
+                                "not served by the port yet (ROADMAP A11)",
                                 term_cmds)
                     term_acks.append(ack)
                     continue
@@ -1185,10 +1197,39 @@ class ClusterServing:
         if client is not None:
             client.close()
 
+    # -------------------------------------------------------------- fleet
+    def set_advertise(self, host: str, port: int):
+        """Where peers scrape this replica's ``/metrics`` — set by the
+        FrontEnd that owns this engine (port 0 = headless)."""
+        with self._state_lock:   # the heartbeater reads it on its thread
+            self._advertise = (host, int(port))
+
+    def _replica_info(self) -> fleet.ReplicaInfo:
+        with self._state_lock:
+            n = self.records_out
+            host, port = self._advertise
+            started = self._started_wall
+        # wall clock by design: heartbeat ages are compared across
+        # processes and hosts (common/fleet.py)
+        now = time.time()  # wallclock: ok
+        return fleet.ReplicaInfo(
+            replica_id=self.replica_id, host=host, port=port,
+            started_at=started, last_heartbeat=now,
+            records_total=n, stream=self.stream)
+
+    def _expedite_reclaim(self, n_orphans: int):
+        """ReplicaSupervisor callback: a stale peer left ``n_orphans``
+        unacked entries — run the next lease sweep at once (the entries
+        still wait out their lease in the broker)."""
+        self._reclaim_asap.set()
+
     # ---------------------------------------------------------------- api
     def start(self) -> "ClusterServing":
         if self._thread is not None:
             return self
+        # ZOO_FLIGHT_RECORDER=1: ring-buffer the serve loop's spans and
+        # dump a postmortem on SIGTERM
+        profiling.maybe_arm_from_env()
         # windowed history for /metrics/history, /query and the SLO
         # monitor's burn windows (idempotent; ZOO_TS_TICK_S=0 opts out)
         timeseries.get_store().start()
@@ -1198,15 +1239,40 @@ class ClusterServing:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="zoo-serving")
         self._thread.start()
+        # join the fleet (ZOO_FLEET_HEARTBEAT_S=0 opts out): heartbeats
+        # through the broker hash, and a supervisor that expedites this
+        # replica's lease sweep when a peer's entries are orphaned
+        if self._heartbeater is None and fleet.heartbeat_interval_s() > 0:
+            with self._state_lock:
+                self._started_wall = time.time()  # wallclock: ok
+            registry = fleet.ReplicaRegistry(self.broker_host,
+                                             self.broker_port)
+            self._heartbeater = fleet.Heartbeater(registry,
+                                                  self._replica_info)
+            self._heartbeater.start()
+            self._replica_supervisor = fleet.ReplicaSupervisor(
+                registry, self.stream, self.group,
+                broker_host=self.broker_host, broker_port=self.broker_port,
+                own_replica_id=self.replica_id,
+                on_orphans=self._expedite_reclaim)
+            self._replica_supervisor.start()
         return self
 
     def stop(self):
         """Stop reading, flush and ack every launched batch, join the
-        serve thread."""
+        serve thread; only then stop the supervisor and deregister the
+        heartbeat (deregistering first would hand a peer's supervisor this
+        replica's drain as orphans, a window for processing twice)."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        rsup, self._replica_supervisor = self._replica_supervisor, None
+        if rsup is not None:
+            rsup.stop()
+        hb, self._heartbeater = self._heartbeater, None
+        if hb is not None:
+            hb.stop()
 
     def decode_state(self) -> Dict:
         """Decode occupancy at a glance (the /healthz ``decode`` block):

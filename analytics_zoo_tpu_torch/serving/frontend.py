@@ -16,28 +16,37 @@ enqueues it and awaits the result). Endpoints:
   Prometheus 0.0.4 text of the process-wide registry when the request
   asks for it (``Accept:`` holding ``text/plain`` or ``openmetrics``, or
   ``?format=prometheus``); ``?format=snapshot`` the mergeable registry
-  snapshot.
+  snapshot. ``?scope=fleet`` federates: the live replicas of the fleet
+  registry (common/fleet.py) are scraped and merged
+  (``MetricsRegistry.merge_snapshot``) with this process's snapshot, in
+  either format; a peer that cannot be scraped counts
+  ``zoo_fleet_scrape_errors_total{replica}`` and the answer degrades to
+  ``partial``.
 - ``GET  /healthz``  → readiness JSON: broker reachability, queue depth
   (in all and per lane), the group's backlog, the shed lanes, the
-  engine's admission state, SLO burn rates and the decode occupancy. 503
-  when the broker is unreachable, when the depth passes ``max_backlog``,
-  or when the SLO monitor sheds (every window burning past
-  ``ZOO_SLO_SHED_BURN``).
+  engine's admission state, the fleet (live and stale replicas, pending
+  entries per replica, orphans), SLO burn rates, the decode occupancy and
+  the device backend (``profiling.backend_state``). 503 when the broker
+  is unreachable, when the depth passes ``max_backlog``, or when the SLO
+  monitor sheds (every window burning past ``ZOO_SLO_SHED_BURN``);
+  ``degraded`` when the backend probe reads wedged.
 - ``GET  /slo``      → the SLO monitor's report with the lane state.
 - ``GET  /metrics/history`` → the retained time-series rings
   (common/timeseries.py); ``?name=`` filters, ``?window=`` bounds the
   age, ``?format=windows`` renders snapshot-shaped windowed deltas
-  (``?windows=60,300``).
+  (``?windows=60,300``); ``?scope=fleet`` merges every live replica's
+  windowed deltas the same way.
 - ``GET  /query``    → one windowed aggregate, e.g.
   ``?name=zoo_serving_latency_seconds&window=60&agg=p99`` (other
   parameters filter labels, e.g. ``&priority=batch``).
+- ``GET  /trace``    → the span store as Chrome Trace Event JSON
+  (``profiling.chrome_trace``); ``?uri=`` (or ``?trace_id=``) one record.
 - ``GET  /``         → liveness.
 
-Fleet federation (``?scope=fleet``) and ``GET /trace`` are ROADMAP A7b's
-and answer 404 naming it. With an engine, requests ride the engine's
-stream and result hash (the JAX frontend always takes the default
-stream). stdlib ``ThreadingHTTPServer``; each request thread owns its
-broker clients.
+With an engine, requests ride the engine's stream and result hash (the
+JAX frontend always takes the default stream), and the frontend tells
+the engine its port (``set_advertise``) so peers can scrape it. stdlib
+``ThreadingHTTPServer``; each request thread owns its broker clients.
 """
 
 from __future__ import annotations
@@ -48,7 +57,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from analytics_zoo_tpu_torch.common import slo, telemetry, timeseries
+from analytics_zoo_tpu_torch.common import fleet, profiling, slo, \
+    telemetry, timeseries
 from analytics_zoo_tpu_torch.serving import schema
 from analytics_zoo_tpu_torch.serving.broker import BrokerClient, ShedError
 from analytics_zoo_tpu_torch.serving.client import (INPUT_STREAM,
@@ -57,11 +67,85 @@ from analytics_zoo_tpu_torch.serving.client import (INPUT_STREAM,
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-_NOT_PORTED = "not served by the port yet (ROADMAP A7b)"
+_NOT_PORTED = "not served by the port yet (ROADMAP A11)"
 
 #: the result poll's period: a request waits on average half of it past
 #: its result's flush (the JAX frontend polls every 10 ms)
 RESULT_POLL_S = 0.002
+
+#: per-peer timeout of a ``?scope=fleet`` scrape: one dead replica
+#: delays the federated answer, never wedges it
+FLEET_SCRAPE_TIMEOUT_S = 2.0
+
+
+def _federate(broker_host: str, broker_port: int, own_replica_id, local,
+              peer_path: str, merge, timeout_s: float):
+    """Fold every live peer's ``peer_path`` answer into ``local`` with
+    ``merge``; a peer with no advertised port, an HTTP error or an
+    unmergeable answer lands in ``failed`` and counts a scrape error."""
+    import urllib.request
+    live, stale = fleet.ReplicaRegistry(broker_host,
+                                        broker_port).partition()
+    errs = telemetry.get_registry().counter(
+        "zoo_fleet_scrape_errors_total",
+        "Replica snapshot scrapes that failed during fleet federation",
+        ("replica",))
+    merged, scraped, failed = local, [], []
+    for r in live:
+        if own_replica_id is not None and r.replica_id == own_replica_id:
+            scraped.append(r.replica_id)   # self = the local view
+            continue
+        try:
+            if r.port <= 0:
+                raise ValueError("replica advertises no scrape port")
+            with urllib.request.urlopen(
+                    f"http://{r.host}:{r.port}{peer_path}",
+                    timeout=timeout_s) as resp:
+                peer = json.loads(resp.read())
+            merged = merge(merged, peer)
+            scraped.append(r.replica_id)
+        except Exception:
+            errs.labels(r.replica_id).inc()
+            failed.append(r.replica_id)
+    return merged, {"scraped": scraped, "failed": failed,
+                    "stale": [r.replica_id for r in stale]}
+
+
+def scrape_fleet(broker_host: str, broker_port: int,
+                 own_replica_id: Optional[str] = None,
+                 timeout_s: float = FLEET_SCRAPE_TIMEOUT_S):
+    """Merge the local registry snapshot with every live replica's
+    ``/metrics?format=snapshot``. Returns ``(merged, meta)``, meta listing
+    the scraped, failed and stale replica ids. Raises the broker's
+    ``ConnectionError`` / ``OSError`` only when the registry itself is
+    unreachable."""
+    return _federate(broker_host, broker_port, own_replica_id,
+                     telemetry.snapshot(), "/metrics?format=snapshot",
+                     telemetry.MetricsRegistry.merge_snapshot, timeout_s)
+
+
+def scrape_fleet_history(broker_host: str, broker_port: int,
+                         own_replica_id: Optional[str] = None,
+                         windows=timeseries.DEFAULT_WINDOWS_S,
+                         timeout_s: float = FLEET_SCRAPE_TIMEOUT_S):
+    """Merge the local store's windowed deltas with every live replica's
+    ``/metrics/history?format=windows``, window by window through the
+    snapshot merge. A peer merges whole or not at all (a failed scrape);
+    the local windows are never mutated (the merge copies)."""
+    store = timeseries.get_store()
+    store.tick_if_stale()
+    wparam = ",".join(str(int(w)) for w in windows)
+
+    def merge(merged, answer):
+        peer = answer["windows"]
+        return {wname: telemetry.MetricsRegistry.merge_snapshot(
+                    snap_w, peer.get(wname, {}))
+                for wname, snap_w in merged.items()}
+
+    return _federate(broker_host, broker_port, own_replica_id,
+                     store.windows_delta(windows),
+                     f"/metrics/history?format=windows&windows={wparam}",
+                     merge, timeout_s)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -106,6 +190,9 @@ class _Handler(BaseHTTPRequestHandler):
         return "text/plain" in accept or "openmetrics" in accept
 
     def _metrics(self):
+        if (self._qs().get("scope") or [""])[0] == "fleet":
+            self._metrics_fleet()
+            return
         if "format=snapshot" in self.path:
             self._json(200, telemetry.snapshot(), path="/metrics")
             return
@@ -116,6 +203,43 @@ class _Handler(BaseHTTPRequestHandler):
         engine = self.server.engine  # type: ignore[attr-defined]
         self._json(200, engine.metrics() if engine else {},
                    path="/metrics")
+
+    def _own_replica(self):
+        engine = self.server.engine  # type: ignore[attr-defined]
+        return engine.replica_id if engine is not None else None
+
+    def _metrics_fleet(self):
+        srv = self.server  # type: ignore[assignment]
+        try:
+            merged, meta = scrape_fleet(srv.broker_host, srv.broker_port,
+                                        own_replica_id=self._own_replica())
+        except (ConnectionError, OSError) as e:
+            self._json(503, {"error": f"fleet registry unreachable: {e}"},
+                       path="/metrics")
+            return
+        if self._wants_prometheus():
+            # the fleet view speaks the same exposition as scope=self
+            self._text(200, telemetry.MetricsRegistry.from_snapshot(
+                merged).prometheus_text(), PROMETHEUS_CONTENT_TYPE)
+            return
+        self._json(200, {"scope": "fleet", "partial": bool(meta["failed"]),
+                         "replicas": meta, "metrics": merged},
+                   path="/metrics")
+
+    def _history_fleet(self, windows):
+        srv = self.server  # type: ignore[assignment]
+        try:
+            merged, meta = scrape_fleet_history(
+                srv.broker_host, srv.broker_port,
+                own_replica_id=self._own_replica(), windows=windows)
+        except (ConnectionError, OSError) as e:
+            self._json(503, {"error": f"fleet registry unreachable: {e}"},
+                       path="/metrics/history")
+            return
+        self._json(200, {"scope": "fleet",
+                         "partial": bool(meta["failed"]),
+                         "replicas": meta, "windows": merged},
+                   path="/metrics/history")
 
     def _history(self):
         q = self._qs()
@@ -128,6 +252,9 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(400, {"error": "bad windows= parameter"},
                            path="/metrics/history")
                 return
+        if (q.get("scope") or [""])[0] == "fleet":
+            self._history_fleet(windows)
+            return
         store = timeseries.get_store()
         store.tick_if_stale()
         if (q.get("format") or [""])[0] == "windows":
@@ -218,6 +345,8 @@ class _Handler(BaseHTTPRequestHandler):
         if engine is not None:
             out["lease_reclaims"] = engine.lease_reclaims
             out["records_redelivered"] = engine.records_redelivered
+        if out["broker"] == "up":
+            out["fleet"] = self._fleet_state(srv, engine, stream, group)
         # burn-rate shedding: the measured overload signal trips 503 while
         # the raw backlog may still look fine
         mon = slo.get_monitor()
@@ -228,12 +357,59 @@ class _Handler(BaseHTTPRequestHandler):
             out["status"] = "overloaded"
             out["reason"] = "slo-burn"
             code = 503
+        # the device backend, from a probe joined with a timeout: a
+        # wedged CUDA runtime can never hang /healthz
+        out["backend"] = profiling.backend_state(timeout_s=2.0)
         if engine is not None and hasattr(engine, "decode_state"):
             try:
                 out["decode"] = engine.decode_state()
             except Exception:
                 pass
+        if code == 200 and out["backend"].get("status") == "wedged":
+            out["status"] = "degraded"
         self._json(code, out, path="/healthz")
+
+    @staticmethod
+    def _fleet_state(srv, engine, stream: str, group: str) -> dict:
+        """Who is serving, by heartbeat age, read fresh from the registry
+        (the supervisor's cached sweep can predate a replica that just
+        joined), with the delivery state of the supervisor's last sweep
+        (pending entries per replica, orphans) or, without one, the
+        broker's pending entries per consumer."""
+        try:
+            live, stale = fleet.ReplicaRegistry(
+                srv.broker_host, srv.broker_port).partition()
+        except Exception:
+            return {"replicas": 0, "stale": 0}
+        out = {"replicas": len(live), "stale": len(stale)}
+        rsup = getattr(engine, "_replica_supervisor", None)
+        snap = rsup.snapshot() if rsup is not None else {}
+        if snap:
+            out.update(pending_per_replica=snap["pending_per_replica"],
+                       orphan_entries=snap["orphan_entries"],
+                       reclaim_sweeps=snap["sweeps"])
+        else:
+            try:
+                client = BrokerClient(host=srv.broker_host,
+                                      port=srv.broker_port, timeout=5.0)
+                try:
+                    out["pending_per_replica"] = client.xpending_detail(
+                        stream, group)
+                finally:
+                    client.close()
+            except Exception:
+                pass
+        if engine is not None:
+            out["lease_reclaims"] = engine.lease_reclaims
+            out["records_redelivered"] = engine.records_redelivered
+        return out
+
+    def _trace(self):
+        """The span store as Chrome Trace Event JSON (Perfetto,
+        chrome://tracing); ``?uri=`` / ``?trace_id=`` one record."""
+        q = self._qs()
+        trace_id = (q.get("uri") or q.get("trace_id") or [None])[0]
+        self._json(200, profiling.chrome_trace(trace_id), path="/trace")
 
     def _slo(self):
         mon = slo.get_monitor()
@@ -254,14 +430,12 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         path = self.path.split("?", 1)[0]
-        if (self._qs().get("scope") or [""])[0] == "fleet" \
-                or path == "/trace":
-            self._json(404, {"error": f"{path} fleet scope and traces are "
-                             f"{_NOT_PORTED}"}, path=path)
-        elif path == "/metrics":
+        if path == "/metrics":
             self._metrics()
         elif path == "/healthz":
             self._healthz()
+        elif path == "/trace":
+            self._trace()
         elif path == "/metrics/history":
             self._history()
         elif path == "/query":
@@ -375,6 +549,11 @@ class FrontEnd:
         # timeouts; keep our own name distinct
         self._httpd.timeout = None                  # type: ignore[attr-defined]
         self.port = self._httpd.server_address[1]
+        if engine is not None and hasattr(engine, "set_advertise"):
+            # where the engine's heartbeat tells peers to scrape; a
+            # wildcard bind advertises loopback (peers cannot dial 0.0.0.0)
+            adv = "127.0.0.1" if host in ("", "0.0.0.0", "::") else host
+            engine.set_advertise(adv, self.port)
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "FrontEnd":

@@ -14,7 +14,7 @@ relative ``deadline_ms`` (``"d"``) and a generate request (``"g"``). A
 deadline that lapses before the engine serves the record gets a typed
 expired result, which decodes into :class:`DeadlineExpiredError`.
 
-Image records and the reference client's Arrow records (ROADMAP A7b)
+Image records and the reference client's Arrow records (ROADMAP A11)
 decode into :class:`UnsupportedInput` markers, so the engine answers
 them with a typed error result instead of dropping them.
 """
@@ -103,7 +103,7 @@ def validate_generate(generate) -> Optional[Dict[str, Any]]:
 class UnsupportedInput:
     """An input the port does not decode yet: ``kind`` is ``"image"`` (raw
     encoded image bytes) or ``"arrow"`` (the reference client's Arrow
-    record); both are ROADMAP A7b's."""
+    record); both are ROADMAP A11's."""
 
     __slots__ = ("kind",)
 

@@ -258,6 +258,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and 11 keep the Python broker and a pinned bucket without
              warm-up, as before.
 
+16. the rest of Cluster Serving (ROADMAP A7b): (a) bench.py's
+             measure_int8_predict NCF half (MovieLens-1M width, 4096 rows,
+             calibration on 256, min_elems 1024): fp32, weight-only and
+             int8 predict ms (CUDA events), resident bytes, argmax
+             agreement >= 0.97 and nrmse < 0.1 against fp32 (JAX's
+             limits), each int8 layer's output bitwise the same layer on
+             the CPU fed the same input, B1 launched in every mode; (b)
+             phase 6's BERT-Base classifier at 32 x 512, fp32 (TF32 off)
+             and bf16: float, weight-only and int8 predict ms, resident
+             bytes, agreement and nrmse at (a)'s limits, 26 int8 products
+             a forward by the profiler's kernel names (the attention
+             projections stay float), 12 flash launches a predict; (f)
+             20-step fits of phase 8's BERT-Base bf16 (32 x 128) and phase
+             10's NCF (batch 8000) under the step profiler: zoo_step_flops
+             equal to the hand count of the step's products, 0 < zoo_mfu
+             <= 1, zoo_hbm_bytes, the phase medians, and NCF's ms a step
+             with and without the sampled fences in turns; (c) (a)'s int8
+             model served through ClusterServing on the native broker,
+             every result bitwise its predict; (e) a lone record's GET
+             /trace spans (dequeue, preprocess, device, postprocess) in
+             order, none negative, their sum within its end-to-end
+             latency; the flight recorder's dump holding spans and a
+             snapshot; /healthz's backend naming the card; (d) a replica
+             started from a config.yaml (python -m
+             analytics_zoo_tpu_torch.serving.start, on the card) and one in
+             this process on one native broker, heartbeat 0.25 s, stale
+             after 1 s, lease 300 ms: /healthz lists 2, a burst of 512
+             (the first half while the in-process replica is stopped, so
+             each replica takes a share) whose ?scope=fleet count equals
+             the replicas' own (512); a second burst that the subprocess
+             alone takes, frozen while it holds leased entries (XPENDING
+             DETAIL) and SIGKILLed, then the in-process replica started
+             again: every record answered, none pending, the survivor's
+             lease reclaims above 0, /healthz 1 live and 1 stale, the
+             seconds from the kill to the last answer. It writes under
+             build/phase16/ and removes it.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -301,9 +338,11 @@ phase 11, the checkpoint paths; phase 12 from (a)'s warm-up step, the
 zoo paths; phase 13, which launches none; phase 14, before each mode's
 NCF fits, the optimizers, the remat fit, each task fit and the profiled
 fit; phase 15, before each broker turn, after the BERT warm-up, and
-before the deadline, admission, lease and each decode path) and read
+before the deadline, admission, lease and each decode path; phase 16,
+before each int8 model's predicts, each fit, the served int8 model and
+the fleet) and read
 right after it: every kernel of the path must have launched there.
-Phases 13's, 14's and 15's seconds and the whole run's are printed
+Phases 13's to 16's seconds and the whole run's are printed
 before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -633,6 +672,29 @@ P15_GEN_RECORDS = 24
 P15_GEN_PREDICTS = 32
 P15_DRAFT_RECORDS = 16
 P15_INTERACTIVE_WAIT_MS = 20    # ZOO_SERVING_MAX_WAIT_MS for interactive
+# phase 16: the rest of Cluster Serving (ROADMAP A7b)
+P16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "phase16")
+P16_NCF_ROWS = 4096             # bench.py measure_int8_predict's NCF half
+P16_CALIB = 256
+P16_MIN_ELEMS = 1024
+P16_REPS = 20
+P16_BERT_CALIB = 8              # rows of the 32 x 512 batch
+# JAX's int8 limits (tests/test_inference_net.py test_int8_predictions_
+# match_fp32): argmax agreement with the float model, nrmse
+P16_AGREE = 0.97
+P16_NRMSE = 0.1
+# the int8 products of a BERT forward: each block's intermediate and
+# output, the pooler, the head (26 for BERT-Base); the attention
+# projections stay float
+# cuBLASLt's int8 GEMM kernels by name (H100, torch 2.11: CUTLASS
+# ..._i16832gemm_s8_... and ..._i161616gemm_s8_..., cuBLAS
+# sm90_xmma_gemm_i8i32_...)
+P16_INT8_KERNEL = r"(?i)(imma|igemm|gemm_s8|gemm_i8|i8i32|s8s8|int8gemm)"
+P16_BURST = 512
+P16_LEASE_MS = 300
+P16_FIT_STEPS = 20
+P16_FENCE_ROUNDS = 4
 
 
 def log(msg: str):
@@ -5012,6 +5074,658 @@ def phase_a3(torch, np, eb, state, Estimator, x, y, kind, card):
     return rep
 
 
+# ------------------------------------------------------------- phase 16
+
+def p16_nrmse(np, got, want) -> float:
+    """JAX's int8 reading (tests/test_inference_net.py): rms error over
+    the reference's spread."""
+    return float(np.sqrt(np.mean((got - want) ** 2)) / want.std())
+
+
+def p16_agree(np, got, want) -> float:
+    return float((got.argmax(-1) == want.argmax(-1)).mean())
+
+
+def p16_int8_layers_bitwise(torch, np, im, x):
+    """Each int8 layer's output on the card against the same layer on the
+    CPU fed the same input: (layers, those that differ)."""
+    import copy
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args, out):
+            seen.setdefault(name, (mod, args[0].detach().clone(),
+                                   out.detach().clone()))
+        return hook
+
+    for name, mod in im._module.named_modules():
+        if isinstance(mod, qlib._Int8):
+            hooks.append(mod.register_forward_hook(keep(name)))
+    try:
+        im.predict(x, batch_size=len(x[0]) if isinstance(x, tuple)
+                   else len(x))
+    finally:
+        for h in hooks:
+            h.remove()
+    differ = []
+    for name, (mod, a, out) in seen.items():
+        cpu = copy.deepcopy(mod).to("cpu")
+        with torch.inference_mode():
+            want = cpu(a.cpu())
+        if not same_bits(out.cpu(), want):
+            differ.append(name)
+    return sorted(seen), differ
+
+
+def p16_ncf_int8(torch, np, ncf, kind):
+    """16(a): bench.py's measure_int8_predict NCF half (MovieLens-1M
+    width, P16_NCF_ROWS rows, calibration on P16_CALIB rows, min_elems
+    1024): fp32, weight-only and int8 predict ms (CUDA events), the
+    resident parameter bytes, agreement and nrmse against fp32 at JAX's
+    limits, each int8 layer bitwise its CPU self, B1's launches."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    from analytics_zoo_tpu_torch.ops import _build
+    rng = np.random.RandomState(SEED + 16)
+    x = np.stack([rng.randint(1, NCF["user_count"] + 1, P16_NCF_ROWS),
+                  rng.randint(1, NCF["item_count"] + 1, P16_NCF_ROWS)],
+                 1).astype(np.float32)
+    rep, ims, outs = {}, {}, {}
+    _build.reset_launch_counts()
+    for mode in ("fp32", "weight", "int8"):
+        im = InferenceModel(device="cuda").load_zoo(ncf)
+        if mode != "fp32":
+            im.quantize(min_elems=P16_MIN_ELEMS, mode=mode,
+                        calibration_data=x[:P16_CALIB] if mode == "int8"
+                        else None)
+        before = _build.launch_counts().get("fused_embedding_lookup", 0)
+        outs[mode] = im.predict(x, batch_size=P16_NCF_ROWS)
+        ms = cuda_ms(lambda: im.predict(x, batch_size=P16_NCF_ROWS),
+                     iters=P16_REPS, warmup=2)
+        launches = _build.launch_counts().get(
+            "fused_embedding_lookup", 0) - before
+        rep[mode] = dict(predict_ms=ms, launches=launches,
+                         resident_bytes=qlib.resident_bytes(im._module))
+        if mode != "fp32":
+            rep[mode].update(
+                tree_nbytes=qlib.tree_nbytes(im._qtree),
+                agreement=p16_agree(np, outs[mode], outs["fp32"]),
+                nrmse=p16_nrmse(np, outs[mode], outs["fp32"]))
+        ims[mode] = im
+    rep["int8"]["layers"], rep["int8"]["layers_differ"] = \
+        p16_int8_layers_bitwise(torch, np, ims["int8"], x[:SERVE_BATCH])
+    log(f"phase 16(a) NCF int8 on {kind}, {P16_NCF_ROWS} rows: predict ms "
+        + ", ".join(f"{m} {rep[m]['predict_ms']:.4f}" for m in rep)
+        + "; resident bytes " + ", ".join(
+            f"{m} {rep[m]['resident_bytes']}" for m in rep)
+        + "; against fp32: " + ", ".join(
+            f"{m} agreement {rep[m]['agreement']:.4f} nrmse "
+            f"{rep[m]['nrmse']:.4g}" for m in ("weight", "int8"))
+        + f"; int8 layers {rep['int8']['layers']} bitwise their CPU selves"
+        f" (differ: {rep['int8']['layers_differ']}); lookup launches "
+        + ", ".join(f"{m} {rep[m]['launches']}" for m in rep))
+    for m in ("weight", "int8"):
+        if not (np.isfinite(outs[m]).all()
+                and rep[m]["agreement"] >= P16_AGREE
+                and rep[m]["nrmse"] < P16_NRMSE):
+            raise AssertionError(f"16(a) NCF {m}: {rep[m]}")
+    if rep["int8"]["layers_differ"] or not rep["int8"]["layers"] or \
+            any(rep[m]["launches"] <= 0 for m in rep):
+        raise AssertionError(f"16(a): {rep}")
+    return ims["int8"], x, outs["int8"], rep
+
+
+def p16_int8_products(torch, im, x):
+    """The int8 products of one forward, by the names of the kernels the
+    profiler saw on the card inside the last of three forwards' ranges
+    (a trace can miss its first activities, keep_cupti): (count, their
+    distinct names, every kernel name of that forward)."""
+    import re
+    pat = re.compile(P16_INT8_KERNEL)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(3):
+            with torch.profiler.record_function(f"p16_forward_{i}"):
+                im.predict(x, batch_size=len(x[0]))
+        torch.cuda.synchronize()
+    path = os.path.join(P16_DIR, "int8_forward.pt.trace.json")
+    prof.export_chrome_trace(path)
+    events = trace_events(path)
+    rng = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+           if e.get("cat") == "gpu_user_annotation"
+           and e.get("name") == "p16_forward_2"]
+    if not rng:
+        raise AssertionError("16(b): no range of the last forward on the "
+                             "card in the trace")
+    lo, hi = rng[0]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"
+             and lo <= e["ts"] <= hi]
+    hits = [n for n in names if pat.search(n)]
+    return len(hits), sorted(set(hits)), sorted(set(names))
+
+
+def state_blocks(state) -> int:
+    """The encoder blocks of a BERT classifier's state dict."""
+    return len({k.split(".")[1] for k in state if k.startswith("bert.block_")})
+
+
+def p16_bert_int8(torch, np, state, kind):
+    """16(b): the BERT-Base classifier of phase 6 at 32 x 512 in fp32
+    (TF32 off) and bf16: weight-only and int8 predict ms beside the
+    unquantized ones, resident bytes, agreement and nrmse at 16(a)'s
+    limits, the int8 products a forward (26: 12 x 2 FFN, the pooler, the
+    head) and B3's launches (12 a forward)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    x = bert_inputs(np.random.RandomState(SEED), BERT_BATCH)
+    sample = tuple(a[:BERT_CPU_ROWS] for a in x)
+    calib = tuple(a[:P16_BERT_CALIB] for a in x)
+    rep = {}
+    for label, cfg in (("fp32", {}), ("bf16", dict(dtype=torch.bfloat16))):
+        out, r = {}, {}
+        for mode in ("float", "weight", "int8"):
+            im = InferenceModel(device="cuda").load_torch(
+                bert_classifier(state, use_flash=True, **cfg), sample)
+            if mode != "float":
+                im.quantize(min_elems=P16_MIN_ELEMS, mode=mode,
+                            calibration_data=calib if mode == "int8"
+                            else None)
+            before = fa.launches.value
+            out[mode], ms = timed_predict(im, x, reps=5)
+            r[mode] = dict(predict_ms=ms,
+                           flash_launches_per_predict=(
+                               fa.launches.value - before) / 6,
+                           resident_bytes=qlib.resident_bytes(im._module))
+            if mode != "float":
+                r[mode].update(agreement=p16_agree(np, out[mode],
+                                                   out["float"]),
+                               nrmse=p16_nrmse(np, out[mode], out["float"]))
+            if mode == "int8":
+                n, hits, names = p16_int8_products(torch, im, x)
+                r[mode].update(int8_products=n, int8_kernel_names=hits,
+                               layers=len(im._act_ranges))
+                if n != 2 * im._module.config.n_block + 2:
+                    log(f"  kernels of one int8 forward: {names}")
+            del im
+            torch.cuda.empty_cache()
+        rep[label] = r
+        log(f"phase 16(b) BERT-Base {label} {BERT_BATCH}x{BERT_LEN} on "
+            f"{kind}: predict ms " + ", ".join(
+                f"{m} {r[m]['predict_ms']:.3f}" for m in r)
+            + "; resident bytes " + ", ".join(
+                f"{m} {r[m]['resident_bytes']}" for m in r)
+            + "; against float: " + ", ".join(
+                f"{m} agreement {r[m]['agreement']:.4f} nrmse "
+                f"{r[m]['nrmse']:.4g}" for m in ("weight", "int8"))
+            + f"; int8 products a forward {r['int8']['int8_products']} "
+            f"({r['int8']['int8_kernel_names']}), calibrated layers "
+            f"{r['int8']['layers']}; flash launches a predict "
+            f"{r['int8']['flash_launches_per_predict']:.0f}")
+        for m in ("weight", "int8"):
+            if not (np.isfinite(out[m]).all()
+                    and r[m]["agreement"] >= P16_AGREE
+                    and r[m]["nrmse"] < P16_NRMSE
+                    and r[m]["flash_launches_per_predict"]
+                    == state_blocks(state)):
+                raise AssertionError(f"16(b) {label} {m}: {r[m]}")
+        want = 2 * state_blocks(state) + 2
+        if r["int8"]["int8_products"] != want or \
+                r["int8"]["layers"] != want:
+            raise AssertionError(f"16(b) {label} int8 products: {r}")
+    return rep
+
+
+def p16_serve_int8(np, api, im8, x, y8, kind):
+    """16(c) and (e): 16(a)'s int8 model served through ClusterServing on
+    the native broker, every result bitwise the int8 predict; a lone
+    record's ``GET /trace`` spans in order, none negative, their sum
+    within its end-to-end latency; the flight recorder's dump; the
+    backend on ``/healthz``."""
+    import urllib.request
+    from analytics_zoo_tpu_torch.common import profiling, telemetry
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import FrontEnd
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    telemetry.set_trace_sampling(1.0)        # ZOO_TELEMETRY_SAMPLE=1
+    recorder = profiling.get_flight_recorder()   # attached from here on
+    n = N_BURST
+    _build.reset_launch_counts()
+    with Broker.launch(backend="native") as b, \
+            ClusterServing(im8, b.port, batch_size=SERVE_BATCH,
+                           max_batch_size=SERVE_BATCH,
+                           warmup=False) as eng, \
+            FrontEnd(b.port, engine=eng) as fe:
+        iq, oq = InputQueue(port=b.port), OutputQueue(port=b.port)
+        t0 = time.perf_counter()
+        uris = iq.enqueue_batch((f"c{i}", {"x": x[i]}) for i in range(n))
+        got = oq.query_many(uris, timeout=120, poll_interval=0.002)
+        burst_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        lone = iq.enqueue("c_lone", x=x[n])
+        got[lone] = oq.query(lone, timeout=30, poll_interval=0.0005)
+        t_got = time.perf_counter()
+        e2e_s = t_got - t1
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{fe.port}/trace?uri={lone}",
+                timeout=30) as resp:
+            trace = json.loads(resp.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{fe.port}/healthz",
+                                    timeout=30) as resp:
+            health = json.loads(resp.read())
+        iq.close()
+        oq.close()
+    launches = _build.launch_counts()
+    rows = {f"c{i}": i for i in range(n)}
+    rows[lone] = n
+    differ = [u for u, i in rows.items()
+              if got.get(u) is None or not np.array_equal(got[u], y8[i])]
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    stages = [e["name"] for e in sorted(spans, key=lambda e: e["ts"])
+              if e["name"] in ("dequeue", "preprocess", "device",
+                               "postprocess")]
+    stage_ms = {e["name"]: e["dur"] / 1e3 for e in spans
+                if e["name"] in stages}
+    # the engine's read may block before the record exists: each stage's
+    # time counts from the enqueue on (the tracer's clock is this
+    # process's perf_counter)
+    abs_spans = {sp.name: sp for sp in telemetry.get_tracer().get(lone)}
+    owned_ms = {k: (abs_spans[k].end - max(abs_spans[k].start, t1)) * 1e3
+                for k in stage_ms}
+    dump = recorder.dump_once(
+        "phase16", reason="phase 16(e)",
+        path=os.path.join(P16_DIR, "flightrec_phase16.json"))
+    with open(dump) as fh:
+        fr = json.load(fh)
+    rep = dict(records_per_s=n / burst_s, lone_e2e_ms=e2e_s * 1e3,
+               lone_stage_ms=stage_ms, lone_stage_ms_from_enqueue=owned_ms,
+               stages=stages, differ=len(differ),
+               launches=launches, backend=health.get("backend"),
+               flight_recorder=dict(path=os.path.relpath(dump),
+                                    spans=len(fr["spans"]),
+                                    metrics=len(fr["metrics"])))
+    log(f"phase 16(c) the int8 NCF served on the native broker on {kind}: "
+        f"{n} records at {rep['records_per_s']:.1f} records/s, {len(differ)}"
+        f" differ from the int8 predict; lookup launches {launches}")
+    log(f"phase 16(e) GET /trace?uri={lone}: stages {stages} "
+        f"{ {k: round(v, 4) for k, v in stage_ms.items()} } ms (from its "
+        f"enqueue on: sum {sum(owned_ms.values()):.4f} ms) within its "
+        f"{e2e_s * 1e3:.4f} ms end to end; /healthz backend "
+        f"{rep['backend']}; flight recorder {rep['flight_recorder']}")
+    if differ or launches.get("fused_embedding_lookup", 0) <= 0:
+        raise AssertionError(f"16(c): {len(differ)} differ ({differ[:3]}),"
+                             f" launches {launches}")
+    if stages != ["dequeue", "preprocess", "device", "postprocess"] or \
+            min(stage_ms.values()) < 0 or \
+            sum(owned_ms.values()) > e2e_s * 1e3 or \
+            abs_spans["postprocess"].end > t_got:
+        raise AssertionError(f"16(e) trace of {lone}: {trace}")
+    if rep["backend"].get("platform") != "gpu" or \
+            rep["backend"].get("device_kind") != kind or \
+            not fr["spans"] or not fr["metrics"]:
+        raise AssertionError(f"16(e): {rep}")
+    return rep
+
+
+def p16_get(url, timeout=5.0):
+    """A frontend's JSON answer, a 503's body included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read())
+
+
+def p16_records_total(snap) -> float:
+    fam = snap.get("zoo_serving_records_total", {})
+    return float(fam.get("stream=serving_stream", 0.0))
+
+
+def p16_fleet(np, api, ncf, y32, x, kind):
+    """16(d): a replica started from config.yaml in a subprocess
+    (``python -m analytics_zoo_tpu_torch.serving.start``) and one in this
+    process share the native broker's stream; the fleet's merged count
+    equals the replicas' own; the subprocess is SIGKILLed while it holds
+    leased entries and the survivor answers every record once."""
+    import threading
+    Broker = api[0]
+    model_dir = os.path.join(P16_DIR, "ncf")
+    ncf.save_model(model_dir, over_write=True)
+    knobs = dict(ZOO_FLEET_HEARTBEAT_S=0.25, ZOO_FLEET_STALE_S=1,
+                 ZOO_SERVING_LEASE_MS=P16_LEASE_MS,
+                 ZOO_SERVING_RECLAIM_S=0.25)
+    restore = p15_env(**knobs)
+    rep = {}
+    try:
+        with Broker.launch(backend="native") as b:
+            cfg = os.path.join(P16_DIR, "config.yaml")
+            with open(cfg, "w") as fh:
+                fh.write(f"model:\n  path: {model_dir}\n"
+                         f"data:\n  src: 127.0.0.1:{b.port}\n"
+                         f"params:\n  batch_size: {SERVE_BATCH}\n")
+            env = dict(os.environ, HTTP_PORT="0", BIND_HOST="127.0.0.1",
+                       PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "analytics_zoo_tpu_torch.serving.start", cfg,
+                 "--device", "cuda"], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            lines = []
+
+            def read():
+                for line in proc.stdout:
+                    lines.append(line.rstrip())
+
+            reader = threading.Thread(target=read, daemon=True)
+            reader.start()
+            try:
+                rep.update(p16_fleet_drill(np, api, b, proc, lines, y32, x,
+                                           t0))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=30)
+                reader.join(10)
+    finally:
+        restore()
+    return rep
+
+
+def p16_fleet_drill(np, api, b, proc, lines, y32, x, t0):
+    """16(d) once both replicas run. The in-process replica polls the
+    broker without blocking while a batch is in flight and so takes
+    nearly every record it can reach; it is stopped (it drains, acks and
+    deregisters) while the subprocess alone takes a half of the first
+    burst and the whole second one, and started again for the rest."""
+    import signal
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import FrontEnd, schema
+    _, ClusterServing, InputQueue, OutputQueue = api
+    deadline = time.perf_counter() + 180
+    while time.perf_counter() < deadline and \
+            not any(ln.startswith("replica ") for ln in lines):
+        if proc.poll() is not None:
+            raise AssertionError(f"16(d) serving.start exited: {lines}")
+        time.sleep(0.05)
+    up = [ln for ln in lines if ln.startswith("serving up")]
+    rid2 = [ln.split()[1] for ln in lines if ln.startswith("replica ")]
+    if not up or not rid2:
+        raise AssertionError(f"16(d) serving.start did not come up: {lines}")
+    boot_s = time.perf_counter() - t0
+    port2, rid2 = int(up[0].rsplit(":", 1)[1]), rid2[0]
+    im = InferenceModel(device="cuda").load(os.path.join(P16_DIR, "ncf"))
+    rep = dict(boot_s=boot_s, replica2=rid2)
+    _build.reset_launch_counts()
+    eng = ClusterServing(im, b.port, batch_size=SERVE_BATCH,
+                         max_batch_size=SERVE_BATCH, warmup=False)
+    with FrontEnd(b.port, engine=eng) as fe:
+        base1 = f"http://127.0.0.1:{fe.port}"
+        base2 = f"http://127.0.0.1:{port2}"
+
+        def fleet_of(n_live):
+            t1 = time.perf_counter()
+            while p16_get(f"{base1}/healthz")["fleet"]["replicas"] != n_live:
+                if time.perf_counter() - t1 > 30:
+                    raise AssertionError(f"16(d) the fleet never listed "
+                                         f"{n_live}")
+                time.sleep(0.05)
+
+        iq, oq = InputQueue(port=b.port), OutputQueue(port=b.port)
+        c = b.client()
+        try:
+            eng.start()
+            fleet_of(2)
+            before = [p16_records_total(p16_get(
+                f"{u}/metrics?format=snapshot")) for u in (base1, base2)]
+            fleet0 = p16_records_total(p16_get(
+                f"{base1}/metrics?scope=fleet")["metrics"])
+            half = P16_BURST // 2
+            eng.stop()
+            uris = iq.enqueue_batch((f"d{i}", {"x": x[i]})
+                                    for i in range(half))
+            got = oq.query_many(uris, timeout=120, poll_interval=0.002)
+            eng.start()
+            fleet_of(2)
+            more = iq.enqueue_batch((f"d{i}", {"x": x[i]})
+                                    for i in range(half, P16_BURST))
+            got.update(oq.query_many(more, timeout=120,
+                                     poll_interval=0.002))
+            uris = list(uris) + list(more)
+            own = [p16_records_total(p16_get(
+                f"{u}/metrics?format=snapshot")) - before[k]
+                for k, u in enumerate((base1, base2))]
+            view = p16_get(f"{base1}/metrics?scope=fleet")
+            merged = p16_records_total(view["metrics"]) - fleet0
+            rep["first"] = dict(own=own, merged=merged,
+                                partial=view["partial"],
+                                scraped=view["replicas"]["scraped"],
+                                missing=sum(got[u] is None for u in uris))
+            log(f"phase 16(d) fleet of 2 (one from config.yaml, up in "
+                f"{boot_s:.1f} s): {P16_BURST} records, replicas' own "
+                f"counts {own}, merged ?scope=fleet {merged} (partial "
+                f"{view['partial']})")
+            if rep["first"]["missing"] or sum(own) != P16_BURST or \
+                    merged != sum(own) or view["partial"] or min(own) <= 0:
+                raise AssertionError(f"16(d) first burst: {rep['first']}")
+            # the kill: the subprocess alone takes the burst and is
+            # frozen until it holds leased entries, then SIGKILLed; the
+            # in-process replica starts again and reclaims them
+            eng.stop()
+            uris2 = iq.enqueue_batch((f"k{i}", {"x": x[i]})
+                                     for i in range(P16_BURST))
+            held, probes, t_kill = 0, 0, None
+            while t_kill is None and probes < 100_000:
+                probes += 1
+                os.kill(proc.pid, signal.SIGSTOP)
+                held = c.xpending_detail("serving_stream", "serving").get(
+                    rid2, 0)
+                if held:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    t_kill = time.perf_counter()
+                else:
+                    os.kill(proc.pid, signal.SIGCONT)
+                    if probes % 64 == 0 and all(
+                            v is not None for v in
+                            p15_results(c, uris2).values()):
+                        break
+            if t_kill is None:
+                raise AssertionError(f"16(d) replica 2 never held an entry "
+                                     f"in {probes} probes")
+            proc.wait(timeout=30)
+            reclaims0 = eng.lease_reclaims
+            eng.start()
+            got2, seen = p15_arrivals(c, uris2, timeout=120)
+            recover_s = max(seen.values()) - t_kill
+            t2 = time.perf_counter()
+            while c.xpending("serving_stream", "serving") and \
+                    time.perf_counter() - t2 < 30:
+                time.sleep(0.05)
+            pending = c.xpending("serving_stream", "serving")
+            hz = p16_get(f"{base1}/healthz")["fleet"]
+            while (hz["replicas"], hz["stale"]) != (1, 1) and \
+                    time.perf_counter() - t2 < 30:
+                time.sleep(0.1)
+                hz = p16_get(f"{base1}/healthz")["fleet"]
+            m = eng.metrics()
+        finally:
+            eng.stop()
+            iq.close()
+            oq.close()
+            c.close()
+    launches = _build.launch_counts()
+    vals = [got[u] for u in uris] + [
+        None if got2.get(u) is None else schema.decode_result(got2[u])
+        for u in uris2]
+    worst = max(float(np.abs(v - y32[i % P16_BURST]).max())
+                for i, v in enumerate(vals) if v is not None)
+    rep["kill"] = dict(held=held, probes=probes, recover_s=recover_s,
+                       lease_ms=P16_LEASE_MS, pending=pending,
+                       answered=sum(v is not None for v in vals),
+                       lease_reclaims=m["lease_reclaims"] - reclaims0,
+                       records_redelivered=m["records_redelivered"],
+                       healthz_fleet=hz, max_abs_diff=worst)
+    rep["launches"] = launches
+    log(f"phase 16(d) SIGKILL of the config.yaml replica holding {held} "
+        f"leased entries ({probes} freeze probes): every record answered "
+        f"({rep['kill']['answered']} of {2 * P16_BURST}), time to recover "
+        f"{recover_s:.3f} s (lease {P16_LEASE_MS} ms); survivor lease "
+        f"reclaims {rep['kill']['lease_reclaims']}, redelivered "
+        f"{m['records_redelivered']}; /healthz fleet {hz}; max |served - "
+        f"predict| {worst:.3g}; lookup launches {launches}")
+    if rep["kill"]["answered"] != 2 * P16_BURST or pending != 0 or \
+            rep["kill"]["lease_reclaims"] < 1 or \
+            (hz["replicas"], hz["stale"]) != (1, 1) or \
+            worst > SLICE_ATOL or \
+            launches.get("fused_embedding_lookup", 0) <= 0:
+        raise AssertionError(f"16(d) the kill: {rep['kill']}")
+    return rep
+
+
+def p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr, kind):
+    """16(f): fit P16_FIT_STEPS steps of phase 8's BERT-Base bf16
+    classifier at 32 x 128 and of phase 10's NCF at batch 8000 under the
+    step profiler: zoo_step_flops equal to the script's hand count of
+    the step's products, 0 < zoo_mfu <= 1, zoo_hbm_bytes, the phase
+    medians; the ms a step with the profiler and with its sampled fences
+    off, in turns."""
+    from analytics_zoo_tpu_torch.common import profiling, telemetry
+    from analytics_zoo_tpu_torch.common.flax_compat import Dense
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.ops import _build
+    ids, labels = train_inputs(np.random.RandomState(SEED + 1),
+                               TRAIN_BATCH * P16_FIT_STEPS)
+    rep = {}
+
+    def run(label, make_fit, hand):
+        telemetry.reset_for_tests()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        make_fit()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        snap = telemetry.snapshot()
+        phases = {k.split("=")[1]: v["p50"] for k, v in
+                  snap["zoo_train_phase_seconds"].items()}
+        r = dict(step_flops=snap.get("zoo_step_flops"),
+                 hand_flops=float(hand), mfu=snap.get("zoo_mfu"),
+                 hbm_bytes=snap.get("zoo_hbm_bytes"),
+                 phase_p50_s=phases, fit_ms_per_step=dt / P16_FIT_STEPS
+                 * 1e3, launches=_build.launch_counts())
+        log(f"phase 16(f) {label} fit of {P16_FIT_STEPS} steps on {kind}: "
+            f"zoo_step_flops {r['step_flops']} (hand count "
+            f"{r['hand_flops']}), zoo_mfu {r['mfu']}, zoo_hbm_bytes "
+            f"{r['hbm_bytes']}, phase p50 s {phases}, "
+            f"{r['fit_ms_per_step']:.3f} ms a step in the first fit; "
+            f"launches {r['launches']}")
+        if r["step_flops"] != r["hand_flops"] or r["mfu"] is None or \
+                not 0 < r["mfu"] <= 1:
+            raise AssertionError(f"16(f) {label}: {r}")
+        return r
+
+    est = Estimator.from_torch(
+        model=bert_classifier(state, use_flash=True, dtype=torch.bfloat16),
+        loss="sparse_categorical_crossentropy_logits", optimizer="adam",
+        seed=SEED)
+    # the hand count: 2mkn forward and 4mkn backward for each Dense and
+    # projection (the packed QKV is three), attention's QK^T and PV as the
+    # einsum chain computes them, 4bhs^2d forward and twice that backward
+    cfg = est.model.config
+    b, s, hid = TRAIN_BATCH, TRAIN_LEN, cfg.hidden_size
+    m = b * s
+    bert_fwd = cfg.n_block * (
+        2 * m * (4 * hid * hid + 2 * hid * cfg.intermediate_size)
+        + 4 * b * cfg.n_head * s * s * cfg.head_dim) \
+        + 2 * b * hid * hid + 2 * b * hid * BERT_CLASSES
+    rep["bert_bf16"] = run("BERT-Base bf16 32x128", lambda: est.fit(
+        (ids, labels), epochs=1, batch_size=TRAIN_BATCH), 3 * bert_fwd)
+    del est
+    net = train_model("ncf")
+    net.compile(optimizer=Adam(NCF_LR),
+                loss="sparse_categorical_crossentropy")
+    ncf_fwd = sum(2 * BATCH * mod.in_features * mod.out_features
+                  for mod in net.module.modules() if isinstance(mod, Dense))
+    rows = BATCH * P16_FIT_STEPS
+    rep["ncf"] = run("NCF batch 8000", lambda: net.fit(
+        x_tr[:rows], y_tr[:rows], batch_size=BATCH, nb_epoch=1,
+        shuffle=False), 3 * ncf_fwd)
+    for label in ("bert_bf16", "ncf"):
+        need = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv") if label == "bert_bf16" else \
+            ("fused_embedding_lookup", "embedding_scatter_add")
+        if any(rep[label]["launches"].get(k, 0) <= 0 for k in need):
+            raise AssertionError(f"16(f) {label} launches: {rep[label]}")
+    # the sampled fences' cost: the same NCF fit with and without them,
+    # in turns (the flop count is taken already)
+    est = net.estimator
+    secs = {"profiled": [], "no_fences": []}
+    real = profiling.StepProfiler.should_sample
+    for r_ in range(P16_FENCE_ROUNDS):
+        for mode in (("profiled", "no_fences") if r_ % 2 == 0
+                     else ("no_fences", "profiled")):
+            if mode == "no_fences":
+                profiling.StepProfiler.should_sample = lambda self, s: False
+            try:
+                _, _, dt = counted(torch, lambda: est.fit(
+                    (x_tr[:rows], y_tr[:rows]), epochs=1, batch_size=BATCH,
+                    shuffle=False))
+            finally:
+                profiling.StepProfiler.should_sample = real
+            secs[mode].append(dt / P16_FIT_STEPS * 1e3)
+    rep["ncf_fences"] = {k: dict(ms_per_step=float(np.median(v)), each=v)
+                         for k, v in secs.items()}
+    log(f"phase 16(f) NCF fit ms a step, {P16_FENCE_ROUNDS} rounds in "
+        f"turns: with the profiler's sampled fences "
+        f"{rep['ncf_fences']['profiled']['ms_per_step']:.3f}, without "
+        f"{rep['ncf_fences']['no_fences']['ms_per_step']:.3f}")
+    telemetry.reset_for_tests()
+    return rep
+
+
+def phase_a7b(torch, np, api, ncf, state, Estimator, x_tr, y_tr, kind):
+    """Phase 16: the rest of Cluster Serving (ROADMAP A7b); the directory
+    it writes is removed after. Each part zeroes the counts before its
+    paths."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import estimator
+    shutil.rmtree(P16_DIR, ignore_errors=True)
+    os.makedirs(P16_DIR)
+    log_dir = estimator.DEFAULT_LOG_DIR
+    estimator.DEFAULT_LOG_DIR = os.path.join(P16_DIR, "logs")
+    t0 = time.perf_counter()
+    rep = {}
+    try:
+        im8, x, y8, rep["a"] = p16_ncf_int8(torch, np, ncf, kind)
+        rep["b"] = p16_bert_int8(torch, np, state, kind)
+        rep["f"] = p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr,
+                               kind)
+        rep["c_e"] = p16_serve_int8(np, api, im8, x, y8, kind)
+        from analytics_zoo_tpu_torch.inference import InferenceModel
+        y32 = InferenceModel(device="cuda").load_zoo(ncf).predict(
+            x[:P16_BURST], batch_size=SERVE_BATCH)
+        rep["d"] = p16_fleet(np, api, ncf, y32, x, kind)
+    finally:
+        estimator.DEFAULT_LOG_DIR = log_dir
+        shutil.rmtree(P16_DIR, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t0
+    rep["launches"] = {
+        "ncf_int8": {"fused_embedding_lookup": sum(
+            rep["a"][m]["launches"] for m in ("fp32", "weight", "int8"))},
+        "bert_int8": {"flash_attention_fwd": int(sum(
+            rep["b"][d][m]["flash_launches_per_predict"] * 6
+            for d in rep["b"] for m in rep["b"][d]))},
+        "fit_bert_bf16": rep["f"]["bert_bf16"]["launches"],
+        "fit_ncf": rep["f"]["ncf"]["launches"],
+        "served_int8": rep["c_e"]["launches"],
+        "fleet": rep["d"]["launches"]}
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5255,13 +5969,28 @@ def main() -> int:
     a7_counts = report["a7"]["launches"]
     log(f"phase 15: {report['a7']['seconds']:.1f} s; launches by path: "
         f"{a7_counts}")
+    # 16. the rest of Cluster Serving: int8 NCF and BERT-Base, the fits'
+    # MFU, the quantized NCF served, /trace, the fleet from config.yaml
+    # and a killed replica; each part zeroes the counts before its paths
+    report["a7b"] = phase_a7b(
+        torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), ncf,
+        state, Estimator, x_tr, y_tr, kind)
+    a7b_counts = report["a7b"]["launches"]
+    log(f"phase 16: {report['a7b']['seconds']:.1f} s; launches by path: "
+        f"{a7b_counts}")
+    fences = report["a7b"]["f"]["ncf_fences"]
+    log(f"NCF fit ms a step (batch 8000), this call: phase 14's per-step "
+        f"fit {report['a3']['ncf_loops']['per_step']['step_ms']:.3f}; phase "
+        f"16 with the step profiler's sampled fences "
+        f"{fences['profiled']['ms_per_step']:.3f}, without "
+        f"{fences['no_fences']['ms_per_step']:.3f}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
                           "ncf_train": ncf_train_counts,
                           "checkpoints": ckpt_counts, "zoo": zoo_counts,
                           "tcn": tcn_counts, "a3": a3_counts,
-                          "a7": a7_counts}
+                          "a7": a7_counts, "a7b": a7b_counts}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -5406,6 +6135,13 @@ def main() -> int:
                if c.get(row["name"], 0)}
         if p15:
             row["phase15_launches"] = p15
+    # phase 16's paths: int8 NCF, served and in the fleet (B1), int8
+    # BERT-Base (B3), the profiled fits (B1, B1b, B3-B5)
+    for row in kernels["kernels"]:
+        p16 = {path: c.get(row["name"], 0) for path, c in a7b_counts.items()
+               if c.get(row["name"], 0)}
+        if p16:
+            row["phase16_launches"] = p16
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s in all")

@@ -3,7 +3,7 @@ test_priority.py / test_timeseries.py drive theirs: ``POST /predict``
 bitwise the direct predict, its typed answers (429 shed, 504 expired, 400
 bad input), ``GET /metrics`` in JSON, Prometheus text and snapshot form,
 ``/healthz`` (200, and 503 on a lost broker and on backlog), ``/slo``,
-``/query``, ``/metrics/history``, the A7b endpoints answering 404, and
+``/query``, ``/metrics/history``, ``?scope=fleet`` and ``/trace``, and
 ``start`` idempotent with ``stop`` joining the serve thread."""
 
 import json
@@ -149,10 +149,12 @@ def test_predict_typed_answers_metrics_and_health():
         win = _get_json(fe.port, "/metrics/history?format=windows"
                         "&windows=60")
         assert "60s" in win["windows"]
-        for path in ("/trace", "/metrics?scope=fleet"):
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                _get(fe.port, path)
-            assert ei.value.code == 404 and b"A7b" in ei.value.read()
+        # the fleet view and the trace answer (they were 404 before the
+        # fleet was ported): this replica is the fleet's one live member
+        flt = _get_json(fe.port, "/metrics?scope=fleet")
+        assert flt["scope"] == "fleet" and flt["partial"] is False
+        assert flt["replicas"]["scraped"] == [eng.replica_id]
+        assert _get_json(fe.port, "/trace")["displayTimeUnit"] == "ms"
         assert _get_json(fe.port, "/") == {"status": "ok"}
         thread = fe._thread
     assert fe._thread is None and not thread.is_alive()   # stop joined

@@ -59,7 +59,8 @@ def test_importing_every_module_loads_no_jax():
                 "common.telemetry", "common.timeseries", "common.slo",
                 "common.pipeline_io", "common.compile_ahead",
                 "serving.broker", "serving.frontend", "serving.client",
-                "serving.schema"):
+                "serving.schema", "serving.config", "serving.start",
+                "common.profiling", "common.fleet", "observability"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame

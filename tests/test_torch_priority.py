@@ -321,10 +321,10 @@ def test_image_and_arrow_records_get_typed_errors():
             assert out_q.query(ok, timeout=30.0) is not None
             for uri, kind in (("img0", "image"), ("arw0", "arrow")):
                 with pytest.raises(schema.ServingError,
-                                   match=f"{kind} records.*A7b"):
+                                   match=f"{kind} records.*A11"):
                     out_q.query(uri, timeout=30.0)
             assert eng.metrics()["records_failed"] == 2
-    with pytest.raises(ValueError, match="A7b"):
+    with pytest.raises(ValueError, match="A11"):
         ClusterServing(_Track(), 0, image_preprocess=lambda a: a)
 
 
