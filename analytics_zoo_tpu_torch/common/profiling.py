@@ -25,20 +25,42 @@ The port's own copy of ``analytics_zoo_tpu/common/profiling.py``:
 
 Unknown device → no MFU (never a made-up peak); the CPU has none.
 
-**Counting flops.** :func:`step_flops` runs one forward and backward of
-the step under ``torch.utils.flop_counter.FlopCounterMode``, which counts
-the products aten runs. The flash-attention kernels are ctypes launches it
-cannot see, so while it counts, flash attention runs through operators of
-its own (``ops/flash_attention.py``) whose registered count is the einsum
-chain's (forward 4·b·h·s_q·s_k·d for QKᵀ and PV; backward twice that, the
-recompute of S not counted; causal counts the full square, as the masked
-chain computes it) and whose bodies the counter does not see. So a step
-counts the same on the CPU and on the card, by either route.
+**Counting flops.** :func:`step_flops` runs one training step (forward,
+backward and the optimizer's update) under
+``torch.utils.flop_counter.FlopCounterMode`` with the mapping of
+:func:`step_formulas`, which counts what XLA's cost analysis counts of the
+same step in the JAX package (``compiled_step_flops``, ROADMAP C18):
+
+- products at 2 a multiply-add: mm, bmm, and each convolution's taps
+  that fall inside its input (XLA counts no tap on padding, its own or
+  an explicit zero pad's), forward and each gradient it computes; addmm
+  and a convolution's bias add 1 an output element;
+- elementwise arithmetic at 1 an element (add, mul, div, relu's mask,
+  compares, selects, dtype casts, ``_foreach_*`` updates), reductions at
+  1 an input element, transcendentals (exp, log, sqrt, tanh, erf) at 0,
+  as XLA files them apart;
+- composite ops at the cost of XLA's decomposition of the flax or jax.nn
+  op, measured with ``jax.jit(...).lower(...).compile().cost_analysis()``
+  on the CPU (:data:`_COMPOSITE`): batch norm, layer norm, gelu, softmax
+  and log-softmax, forward and backward;
+- random draws at 0: XLA also counts threefry's integer arithmetic (about
+  51 an element, dropout's mask), which the port's draws do not run.
+
+Kernels are ctypes launches the counter cannot see, and their plain
+versions on the CPU are not the card's arithmetic. So while a step is
+counted, a kernel's wrapper hides its body and counts a registered number
+instead (:func:`counted`); flash attention runs through operators of its
+own (``ops/flash_attention.py``) whose registered count is the einsum
+chain's (forward 4·b·h·s_q·s_k·d for QKᵀ and PV; backward twice that;
+causal counts the full square, as the masked chain computes it). So a
+step counts the same on the CPU and on the card, by either route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import signal
 import sys
@@ -50,7 +72,8 @@ from analytics_zoo_tpu_torch.common import telemetry
 from analytics_zoo_tpu_torch.common.telemetry import Span
 
 __all__ = [
-    "PEAK_FLOPS", "device_peak_flops", "step_flops", "hbm_bytes",
+    "PEAK_FLOPS", "device_peak_flops", "step_flops", "step_flop_counts",
+    "step_formulas", "counted", "hbm_bytes",
     "chrome_trace", "chrome_trace_events", "dump_trace", "StepProfiler",
     "FlightRecorder", "get_flight_recorder", "maybe_arm_from_env",
     "backend_state", "DUMP_DIR", "reset_for_tests",
@@ -87,21 +110,315 @@ def device_peak_flops(device=None) -> Optional[float]:
         return None
 
 
-def step_flops(fn: Callable[[], Any]) -> Optional[float]:
-    """The products of one call of ``fn`` (a step's forward and backward)
-    as ``FlopCounterMode`` counts them, flash attention by its registered
-    count (module docstring). None when nothing was counted or ``fn``
-    raised. The caller keeps ``fn`` free of side effects on its state."""
+# ------------------------------------------------------- counting flops
+
+#: elementwise aten ops at 1 flop an output element (their in-place forms
+#: too): XLA's count of the same HLO (add, multiply, compare, select,
+#: maximum, convert, ...)
+_POINTWISE = (
+    "add", "sub", "rsub", "mul", "div", "neg", "relu", "threshold_backward",
+    "where", "clamp_min", "clamp_max", "maximum", "minimum", "eq", "ne",
+    "ge", "gt", "le", "lt", "abs", "sign", "reciprocal", "remainder",
+    "fmod", "logical_and", "logical_or", "logical_not", "logical_xor",
+    "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
+    "masked_fill", "square", "floor", "ceil", "round", "trunc")
+#: composite ops: flops an element of the first input, XLA's count of its
+#: flax / jax.nn decomposition (forward; backward from a VJP with a live
+#: cotangent, its forward subtracted). (training, eval) for batch norm;
+#: (exact, tanh) for gelu.
+_COMPOSITE = {
+    "native_batch_norm": (6, 2), "_native_batch_norm_legit": (6, 2),
+    "native_batch_norm_backward": 7,
+    "native_layer_norm": 7, "native_layer_norm_backward": 14,
+    "gelu": (64, 8), "gelu_backward": (7, 12),
+    "_softmax": 4, "_softmax_backward_data": 5,
+    "_log_softmax": 5, "_log_softmax_backward_data": 1,
+    "sigmoid": 3, "sigmoid_backward": 3, "tanh_backward": 4,
+    "clamp": 2, "lerp": 3, "addcmul": 2, "addcdiv": 2,
+}
+#: reductions at 1 an input element (mean adds its division)
+_REDUCE = ("sum", "mean", "amax", "amin", "max", "min", "prod", "cumsum",
+           "logsumexp", "norm", "linalg_vector_norm")
+#: scatters at 1 an update element
+_SCATTER = {"index_add": 2, "index_add_": 2, "scatter_add": 3,
+            "scatter_add_": 3}
+#: the multi-tensor optimizer ops, flops an element of the first list
+_FOREACH = {"add": 1, "sub": 1, "mul": 1, "div": 1, "neg": 1,
+            "maximum": 1, "minimum": 1, "clamp_min": 1, "clamp_max": 1,
+            "addcmul": 2, "addcdiv": 2, "lerp": 3, "norm": 2, "sign": 1,
+            "abs": 1, "reciprocal": 1, "sqrt": 0, "exp": 0, "log": 0,
+            "pow": 0, "zero": 0, "copy": 0}
+
+_count_lock = threading.Lock()
+_counting: List[List[int]] = []     # one running total per open count
+
+
+@contextlib.contextmanager
+def counted(flops: Callable[[], int]):
+    """Wrap a kernel's launch (or its plain version): while a step is
+    counted (:func:`step_flops`), hide the block's aten ops from the
+    counter and count ``flops()`` for it instead; elsewhere a no-op."""
+    if not _counting:
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        yield
+    n = int(flops())
+    with _count_lock:
+        for total in _counting:
+            total[0] += n
+
+
+def _numel(t) -> int:
+    return int(t.numel()) if hasattr(t, "numel") else 0
+
+
+def _raw(fn):
+    fn._get_raw = True
+    return fn
+
+
+def _each(rate):
+    return _raw(lambda *a, out_val=None, **k: rate * _numel(out_val))
+
+
+def _of_input(rate):
+    return _raw(lambda *a, out_val=None, **k: rate * _numel(a[0]))
+
+
+def _valid_taps(size: int, out: int, k: int, stride: int, pad: int,
+                dil: int) -> int:
+    """Kernel taps over all ``out`` positions of one spatial dim that fall
+    inside an input of ``size`` (XLA's count; padding taps are free)."""
+    taps = 0
+    for o in range(out):
+        lo = o * stride - pad
+        taps += sum(1 for j in range(k) if 0 <= lo + j * dil < size)
+    return taps
+
+
+def _conv_taps(x, w, stride, padding, dilation, out, zero_pads) -> int:
+    """Multiply-adds of a convolution over the taps inside its input.
+    ``zero_pads`` maps a tensor's data pointer to the zero padding
+    ``constant_pad_nd`` gave it (``[batch, *spatial, channels]``: a pair a
+    spatial dim), so taps on an explicit pad are not counted either."""
+    nd = w.dim() - 2
+    pad = list(padding) * nd if len(padding) == 1 else list(padding)
+    st = list(stride) * nd if len(stride) == 1 else list(stride)
+    dl = list(dilation) * nd if len(dilation) == 1 else list(dilation)
+    size = list(x.shape[2:])
+    extra = zero_pads.get(x.data_ptr())
+    if extra is not None and tuple(extra[0]) == tuple(size):
+        for d, (lo, hi) in enumerate(extra[1]):
+            size[d] -= lo + hi
+            pad[d] += lo
+    taps = 1
+    for d in range(nd):
+        taps *= _valid_taps(size[d], out.shape[2 + d], w.shape[2 + d],
+                            st[d], pad[d], dl[d])
+    return x.shape[0] * w.shape[0] * w.shape[1] * taps
+
+
+def _zero_pad(zero_pads):
+    """``constant_pad_nd`` at 0 flops; a zero pad of a ``[batch,
+    *spatial, channels]`` tensor's spatial dims is remembered for the
+    convolution that reads it."""
+    @_raw
+    def count(x, flat, value=0.0, out_val=None, **kw) -> int:
+        flat = list(flat)
+        if not value and out_val is not None and len(flat) >= 4 and \
+                not any(flat[:2]) and len(flat) <= 2 * (x.dim() - 1):
+            pairs = [(flat[i], flat[i + 1]) for i in range(2, len(flat), 2)]
+            spatial = x.dim() - 2
+            pairs = list(reversed(pairs)) + [(0, 0)] * (spatial - len(pairs))
+            zero_pads[out_val.data_ptr()] = (tuple(out_val.shape[1:-1]),
+                                             pairs)
+        return 0
+    return count
+
+
+def _conv_fwd(zero_pads):
+    @_raw
+    def count(x, w, bias, stride, padding, dilation, transposed, _op,
+              groups, out_val=None, **kw) -> int:
+        from torch.utils.flop_counter import conv_flop_count
+        if transposed:
+            return conv_flop_count(x.shape, w.shape, out_val.shape, True)
+        return 2 * _conv_taps(x, w, stride, padding, dilation, out_val,
+                              zero_pads) + (
+            _numel(out_val) if bias is not None else 0)
+    return count
+
+
+def _conv_bwd(zero_pads):
+    @_raw
+    def count(grad_out, x, w, bias_sizes, stride, padding, dilation,
+              transposed, _op, groups, mask, out_val=None, **kw) -> int:
+        from torch.utils.flop_counter import conv_backward_flop
+        if transposed:
+            return conv_backward_flop(grad_out.shape, x.shape, w.shape,
+                                      None, stride, padding, dilation,
+                                      transposed, _op, groups, mask)
+        fwd = 2 * _conv_taps(x, w, stride, padding, dilation, grad_out,
+                             zero_pads)
+        return fwd * (int(mask[0]) + int(mask[1])) + (
+            _numel(grad_out) if mask[2] else 0)
+    return count
+
+
+@_raw
+def _addmm(bias, a, b, *args, out_val=None, **kw) -> int:
+    return 2 * a.shape[0] * a.shape[1] * b.shape[1] + _numel(out_val)
+
+
+@_raw
+def _baddbmm(bias, a, b, *args, out_val=None, **kw) -> int:
+    return 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2] \
+        + _numel(out_val)
+
+
+@_raw
+def _batch_norm(x, *args, out_val=None, **kw) -> int:
+    train = args[4] if len(args) > 4 else kw.get("training", False)
+    if len(args) == 4 and isinstance(args[2], bool):  # _legit (no stats)
+        train = args[2]
+    return _COMPOSITE["native_batch_norm"][0 if train else 1] * _numel(x)
+
+
+@_raw
+def _gelu(x, *args, out_val=None, approximate="none", **kw) -> int:
+    return _COMPOSITE["gelu"][approximate != "none"] * _numel(x)
+
+
+@_raw
+def _gelu_bwd(g, x, *args, out_val=None, approximate="none", **kw) -> int:
+    return _COMPOSITE["gelu_backward"][approximate != "none"] * _numel(x)
+
+
+@_raw
+def _pow(x, exponent=None, *args, out_val=None, **kw) -> int:
+    return _numel(out_val) if exponent == 2 else 0
+
+
+@_raw
+def _convert(x, *args, out_val=None, **kw) -> int:
+    """A dtype cast is XLA's convert (1 an element); a copy is free."""
+    src = args[0] if args and hasattr(args[0], "dtype") else x
+    dst = out_val if hasattr(out_val, "dtype") else x
+    return _numel(dst) if src.dtype != dst.dtype else 0
+
+
+@_raw
+def _mean(x, *args, out_val=None, **kw) -> int:
+    return _numel(x) + _numel(out_val)
+
+
+def _scatter(pos):
+    return _raw(lambda *a, out_val=None, **k: _numel(a[pos]))
+
+
+@_raw
+def _index_put(x, indices, values, accumulate=False, *a, out_val=None,
+               **kw) -> int:
+    """An accumulating index_put is a scatter-add: 1 an updated element."""
+    if not accumulate:
+        return 0
+    idx = [i for i in indices if i is not None]
+    return _numel(idx[0]) * math.prod(x.shape[len(indices):]) if idx else 0
+
+
+def _foreach(rate):
+    return _raw(lambda first, *a, out_val=None, **k:
+                rate * sum(_numel(t) for t in first))
+
+
+def step_formulas() -> Dict[Any, Callable]:
+    """``{aten op: count formula}`` for ``FlopCounterMode(custom_mapping=
+    ...)``: the module docstring's rules (every formula raw)."""
+    import torch
+    aten = torch.ops.aten
+    out: Dict[Any, Callable] = {}
+
+    def put(name, fn):
+        op = getattr(aten, name, None)
+        if op is not None:
+            out[op] = fn
+
+    for name in _POINTWISE:
+        put(name, _each(1))
+        put(name + "_", _each(1))
+    for name in ("native_batch_norm_backward", "native_layer_norm",
+                 "native_layer_norm_backward", "_softmax",
+                 "_softmax_backward_data", "_log_softmax",
+                 "_log_softmax_backward_data", "sigmoid",
+                 "sigmoid_backward", "tanh_backward", "clamp", "lerp",
+                 "addcmul", "addcdiv"):
+        rate = _COMPOSITE[name]
+        put(name, _of_input(rate))
+        put(name + "_", _of_input(rate))
+    put("native_batch_norm", _batch_norm)
+    put("_native_batch_norm_legit", _batch_norm)
+    put("gelu", _gelu)
+    put("gelu_backward", _gelu_bwd)
+    put("pow", _pow)
+    for name in _REDUCE:
+        put(name, _of_input(1))
+    put("mean", _mean)
+    for name, pos in _SCATTER.items():
+        put(name, _scatter(pos))
+    put("index_put_", _index_put)
+    put("index_put", _index_put)
+    put("_to_copy", _convert)
+    put("copy_", _convert)
+    for name, rate in _FOREACH.items():
+        put(f"_foreach_{name}", _foreach(rate))
+        put(f"_foreach_{name}_", _foreach(rate))
+    zero_pads: Dict[int, Any] = {}
+    put("constant_pad_nd", _zero_pad(zero_pads))
+    put("convolution", _conv_fwd(zero_pads))
+    put("convolution_backward", _conv_bwd(zero_pads))
+    put("addmm", _addmm)
+    put("baddbmm", _baddbmm)
+    return out
+
+
+def step_flop_counts(fn: Callable[[], Any]) -> Optional[Dict[str, int]]:
+    """One call of ``fn`` (a training step) counted by the rules of the
+    module docstring: ``{op name: flops}``, the blocks :func:`counted`
+    hides under ``"counted"``. None when ``fn`` raised."""
     try:
         from torch.utils.flop_counter import FlopCounterMode
 
         from analytics_zoo_tpu_torch.ops import flash_attention as fa
-        with fa.counting_flops() as formulas, FlopCounterMode(
-                display=False, custom_mapping=formulas) as mode:
-            fn()
-        return float(mode.get_total_flops()) or None
+        total = [0]
+        with _count_lock:
+            _counting.append(total)
+        try:
+            with fa.counting_flops() as formulas:
+                mapping = {**step_formulas(), **formulas}
+                with FlopCounterMode(display=False,
+                                     custom_mapping=mapping) as mode:
+                    fn()
+        finally:
+            with _count_lock:
+                _counting.remove(total)
+        counts = {str(op): int(n) for op, n in
+                  mode.get_flop_counts().get("Global", {}).items() if n}
+        if total[0]:
+            counts["counted"] = total[0]
+        return counts
     except Exception:
         return None
+
+
+def step_flops(fn: Callable[[], Any]) -> Optional[float]:
+    """The flops of one call of ``fn`` (a training step: forward,
+    backward and the update) as :func:`step_flop_counts` counts them.
+    None when nothing was counted or ``fn`` raised. The caller keeps
+    ``fn`` free of side effects on its state."""
+    counts = step_flop_counts(fn)
+    return float(sum(counts.values())) or None if counts else None
 
 
 def _tensor_bytes(tensors) -> int:

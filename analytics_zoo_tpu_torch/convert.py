@@ -12,8 +12,13 @@
   ``[out]``) all land as 2-D weights. A kernel without a bias has one out
   dim.
 - ``bias`` -> ``bias``, flattened.
-- ``scale`` (LayerNorm) -> ``weight``.
+- ``scale`` (LayerNorm, BatchNorm) -> ``weight``.
 - ``embedding`` stays ``[vocab, dim]``.
+- a convolution's kernel ``[*k, in, out]`` is flattened to ``[prod(k) *
+  in, out]`` and transposed like a Dense kernel (``flax_compat.Conv``).
+- ``mean`` and ``var`` (a BatchNorm's ``batch_stats``) keep their names:
+  ``flax_to_state_dict(variables["batch_stats"])`` gives the buffers
+  ``<layer>.mean`` / ``<layer>.var``.
 - flax's RNN cells (``GRUCell_0``, ``OptimizedLSTMCell_0``,
   ``SimpleCell_0``) are trees of Denses named ``ir``/``iz``/``in``/
   ``hr``/``hz``/``hn`` (GRU), ``ii``/``if``/``ig``/``io``/``hi``/... (LSTM)
@@ -35,9 +40,9 @@ of the port that owns parameters knows its flax leaves (an ``nn.Linear``
 a ``kernel [in, out]`` and a ``bias [out]``, or the shapes its
 ``flax_kernel_shape`` / ``flax_bias_shape`` attributes name, as the
 attention projections' ``[in, h, d]`` and ``[h, d, out]``, or a
-``flax_compat.Conv`` (a 2-D ``weight`` too) its ``[k, in, out]``; a
-LayerNorm a
-``scale`` and a ``bias``; an embedding table its ``embedding``).
+``flax_compat.Conv`` (a 2-D ``weight`` too) its ``[*k, in, out]``; a
+LayerNorm or a BatchNorm a ``scale`` and a ``bias``; an embedding table
+its ``embedding``).
 ``ParamLayout`` uses it to turn the parameters, and anything shaped like
 them (Adam's moments, a momentum trace, L-BFGS's memories with a slot
 axis in front), into the flax tree a checkpoint holds
@@ -55,7 +60,7 @@ from torch import nn
 
 #: flax leaf name -> torch leaf name
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
-           "embedding": "embedding"}
+           "embedding": "embedding", "mean": "mean", "var": "var"}
 
 
 def _linear_weight(kernel: np.ndarray, bias, lead: int = 0) -> np.ndarray:
@@ -126,7 +131,9 @@ def flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
             leaves["bias"] = ("bias", getattr(module, "flax_bias_shape",
                                               (out,)))
         return leaves
-    if isinstance(module, nn.LayerNorm) and set(params) == {"weight", "bias"}:
+    from analytics_zoo_tpu_torch.common.flax_compat import BatchNorm
+    if isinstance(module, (nn.LayerNorm, BatchNorm)) and \
+            set(params) == {"weight", "bias"}:
         shape = tuple(module.weight.shape)
         return {"scale": ("weight", shape), "bias": ("bias", shape)}
     if set(params) == {"embedding"}:
@@ -187,6 +194,21 @@ def flax_layout(module: nn.Module) -> Optional[Dict]:
     return _sort_tree(tree)
 
 
+def buffer_paths(module: nn.Module) -> Dict[str, tuple]:
+    """``{buffer name: its path in the model_state tree}``: a
+    BatchNorm's ``mean`` / ``var`` under ``batch_stats`` at the module's
+    path, any other buffer at its torch name split at the dots."""
+    from analytics_zoo_tpu_torch.common.flax_compat import BatchNorm
+    out: Dict[str, tuple] = {}
+    for mname, mod in module.named_modules():
+        prefix = tuple(mname.split(".")) if mname else ()
+        for bname, _ in mod.named_buffers(recurse=False):
+            key = f"{mname}.{bname}" if mname else bname
+            out[key] = (("batch_stats",) if isinstance(mod, BatchNorm)
+                        else ()) + prefix + (bname,)
+    return out
+
+
 class ParamLayout:
     """How a module's parameters map onto a checkpoint's ``params`` tree:
     flax's names and layouts where ``flax_layout`` knows the module, else
@@ -196,6 +218,8 @@ class ParamLayout:
 
     def __init__(self, module: nn.Module):
         self.names: List[str] = [n for n, _ in module.named_parameters()]
+        #: buffer name -> its path in the model_state tree
+        self.state_paths = buffer_paths(module)
         like = flax_layout(module)
         self.flax = like is not None
         self.like = like if self.flax else nest({
@@ -225,3 +249,15 @@ class ParamLayout:
             return torch.empty(tuple(lead) + tuple(tree.shape),
                                dtype=tree.dtype, device="meta")
         return walk(self.like) if lead else self.like
+
+    def state_tree(self, buffers: Mapping[str, torch.Tensor]) -> Dict:
+        """The ``model_state`` tree of ``buffers`` (keyed like the
+        module's buffers; leaves as given, keys sorted)."""
+        return nest({".".join(self.state_paths[k]): v
+                     for k, v in buffers.items()})
+
+    def state_from_tree(self, tree: Mapping) -> Dict[str, torch.Tensor]:
+        """The inverse of ``state_tree``: tensors keyed by buffer name."""
+        flat = flatten(tree)
+        return {k: torch.as_tensor(flat[".".join(path)])
+                for k, path in self.state_paths.items()}

@@ -27,7 +27,12 @@ Counterpart of ``analytics_zoo_tpu/inference/quantize.py``:
   clipped to ±127), an ``int8 x int8 -> int32`` product (``int_mm``; on
   the card ``torch._int_mm``, zero-padded to its shape rules), rescaled
   by ``s_in * s_w``, plus the bias, in x's dtype. The integer product is
-  exact, so a layer gives JAX's bits for the same input and amax. The
+  exact, so a layer gives JAX's bits for the same input and amax. A 1-D,
+  2-D or 3-D convolution (``_conv_int8_plan``'s ranks; every padding form
+  ``flax_compat.Conv`` takes) is the same product over its input's
+  windows: the int8 input zero-padded (exact: q(0) = 0) and unfolded into
+  ``[b * positions, prod(k) * in]`` rows (a 1x1 kernel is a reshape),
+  against the kernel flattened as ``convert`` holds it. The
   attention projections (JAX's ``DenseGeneral``) stay float, as there.
 - **Paged KV int8** (``ZOO_KV_DTYPE=int8``, its lines 290-342), in numpy
   on the host as there: one float32 symmetric scale per page sits beside
@@ -41,6 +46,7 @@ Denses) is not ported: a model holding one is refused (ROADMAP A11).
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -409,9 +415,35 @@ def _weight_int8(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return wq.to(torch.int8), s_w
 
 
+def im2col(xq: torch.Tensor, kernel, strides, dilation) -> torch.Tensor:
+    """``xq [b, *spatial, c]`` (padded already) as the rows of an
+    implicit GEMM: ``[b * prod(out), prod(k) * c]``, each row one output
+    position's window in the flattened kernel's ``(*k, c)`` order. A 1x1
+    kernel is a strided view, reshaped; otherwise each spatial dim is
+    unfolded (every ``dilation``-th tap of the dilated span) and the taps
+    moved in front of the channels."""
+    nd = len(kernel)
+    c = xq.shape[-1]
+    if all(k == 1 for k in kernel):
+        idx = (slice(None),) + tuple(slice(None, None, s) for s in strides)
+        return xq[idx].reshape(-1, c)
+    win = xq
+    for i, (k, s, d) in enumerate(zip(kernel, strides, dilation)):
+        win = win.unfold(1 + i, (k - 1) * d + 1, s)
+        if d > 1:
+            win = win[..., ::d]
+    # [b, *out, c, *k] -> [b, *out, *k, c]
+    order = tuple(range(nd + 1)) + tuple(range(nd + 2, 2 * nd + 2)) + \
+        (nd + 1,)
+    return win.permute(order).reshape(-1, math.prod(kernel) * c)
+
+
 class _Int8:
     """Mixin of a calibrated Dense or Conv: runs JAX's int8 interceptor
-    (the module docstring) in place of its float forward."""
+    (the module docstring) in place of its float forward. A convolution
+    quantizes its input, zero-pads it in int8 (exact: q(0) = 0, as XLA
+    pads the int8 operand), and runs the same ``int_mm`` over the input's
+    windows (:func:`im2col`)."""
 
     def forward(self, x):
         bufs = self._buffers
@@ -419,13 +451,14 @@ class _Int8:
         s = s_in * bufs["_zoo_ws"]
         lead = x.shape[:-1]
         if self.__dict__["_zoo_kind"] == "conv":
-            k, dil = self.kernel_size, self.dilation
-            xq = quantize_activation(x, s_in)
-            span = (k - 1) * dil + 1
-            # [b, t_out, c, span] -> every dil-th tap -> [b*t_out, k*c]
-            win = xq.unfold(1, span, 1)[..., ::dil]
-            lead = win.shape[:2]
-            a = win.permute(0, 1, 3, 2).reshape(-1, k * x.shape[-1])
+            from analytics_zoo_tpu_torch.common.flax_compat import pad_last
+            pads = self.pads(x.shape[1:-1])
+            xq = pad_last(quantize_activation(x, s_in), pads)
+            a = im2col(xq, self.kernel_size, self.strides, self.dilation)
+            lead = (x.shape[0],) + tuple(
+                (n - (k - 1) * d - 1) // st + 1 for n, k, d, st in zip(
+                    xq.shape[1:-1], self.kernel_size, self.dilation,
+                    self.strides))
         else:
             a = quantize_activation(x, s_in).reshape(-1, x.shape[-1])
         y = int_mm(a, wq.t()).float() * s

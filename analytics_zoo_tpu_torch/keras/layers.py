@@ -7,13 +7,20 @@ table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Lambda``,
 ``SparseEmbedding`` over ``_EmbedTable``,
 ``LayerNormalization``, ``MultiHeadAttention``, ``TransformerLayer``,
 ``BERT``, the recurrent ``LSTM`` / ``GRU`` / ``SimpleRNN`` and
-``TimeDistributed``. Layers are config objects; execution happens inside
+``TimeDistributed``, and the image stack: ``Conv1D`` / ``Conv2D`` /
+``Conv3D``, ``BatchNormalization``, the max and average pools (1-D to
+3-D), the global pools and ``ZeroPadding1D/2D/3D``. Tensors keep JAX's
+channels-last layout (``[batch, *spatial, channels]``); the
+convolutions and pools run on channels-first views of it
+(common/flax_compat.py). Layers are config objects; execution happens inside
 the one ``GraphModule`` (engine.py). Parameter names follow the flax tree:
 ``<dense>.weight`` / ``.bias`` (``nn.Linear``, the flax kernel
-transposed), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``),
+transposed; a convolution's ``[*k, in, out]`` kernel flattened the same
+way), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``) and a
+batch norm's ``<name>.mean`` / ``.var`` buffers (flax's ``batch_stats``),
 the submodule names of text/bert.py under the layer's name, and the flax
 cells' own names for the recurrent layers (``GRUCell_0.ir.weight``). The
-rest of the layer library waits for later slices.
+rest of the layer library waits for later slices (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from analytics_zoo_tpu_torch.common.flax_compat import (_tuple,
+                                                        canonical_padding)
 from analytics_zoo_tpu_torch.keras.engine import KerasLayer as _KerasLayerBase
 from analytics_zoo_tpu_torch.keras.engine import Node, flax_autoname
 
@@ -686,6 +695,327 @@ class LayerNormalization(KerasLayer):
 
     def _infer_shape(self, in_shapes):
         return in_shapes[0]
+
+
+class BatchNormalization(KerasLayer):
+    """(ref keras BatchNormalization; JAX ``nn.BatchNorm`` over the last
+    axis). Train mode (``fit``) normalises by the batch's statistics and
+    moves the running ones; eval mode (``evaluate``, ``predict``) uses the
+    running ones (``flax_compat.BatchNorm``)."""
+
+    def __init__(self, epsilon: float = 1e-3, momentum: float = 0.99,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.epsilon, self.momentum = epsilon, momentum
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.common.flax_compat import BatchNorm
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown")
+        return {self.name: BatchNorm(int(s[-1]), momentum=self.momentum,
+                                     eps=self.epsilon,
+                                     dtype=self.compute_dtype)}
+
+    def apply(self, modules, args, train):
+        return modules[self.name](args[0], train=train)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+# ---------------- convolutions / pooling ----------------
+
+def _window_shape(spatial, window, strides, padding, dilation=None):
+    """The spatial output shape of a window op, None where unknown."""
+    from analytics_zoo_tpu_torch.common.flax_compat import (out_size,
+                                                            resolve_pads)
+    if any(d is None for d in spatial):
+        return None
+    dilation = dilation or (1,) * len(window)
+    pads = resolve_pads(padding, spatial, window, strides, dilation)
+    return tuple(out_size(n, k, s, d, lo, hi) for n, k, s, d, (lo, hi)
+                 in zip(spatial, window, strides, dilation, pads))
+
+
+def _conv_fill(init, weight: torch.Tensor, fan_in: int, fan_out: int,
+               generator: torch.Generator) -> None:
+    """A convolution's initial weight: glorot over the kernel's fans (as
+    flax's initializers count them for ``[*k, in, out]``), any other
+    init as it fills a Dense."""
+    if init is _glorot_uniform:
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        weight.uniform_(-limit, limit, generator=generator)
+    else:
+        init(weight, generator)
+
+
+class _Conv(KerasLayer):
+    """A convolution over ``[batch, *spatial, channels]`` (JAX
+    ``nn.Conv``): subclasses set ``kernel``, ``strides``, ``padding`` and
+    ``dilation``."""
+
+    def _setup(self, nb_filter, kernel, strides, padding, dilation,
+               activation, init, bias, W_regularizer=None,
+               b_regularizer=None):
+        self.nb_filter = int(nb_filter)
+        self.kernel = tuple(int(k) for k in kernel)
+        self.strides = tuple(int(s) for s in strides)
+        self.padding = padding
+        self.dilation = tuple(int(d) for d in dilation)
+        self.activation = get_activation(activation)
+        self.init = get_init(init)
+        self.bias = bias
+        self._set_regularizers(W_regularizer, b_regularizer)
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.common import flax_compat
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown; give the "
+                             "model's Input a shape")
+        conv = flax_compat.Conv(int(s[-1]), self.nb_filter, self.kernel,
+                                self.dilation, bias=self.bias,
+                                dtype=self.compute_dtype,
+                                strides=self.strides, padding=self.padding)
+        area = math.prod(self.kernel)
+        with torch.no_grad():
+            _conv_fill(self.init, conv.weight, area * int(s[-1]),
+                       area * self.nb_filter, generator)
+            if conv.bias is not None:
+                conv.bias.zero_()
+        return {self.name: conv}
+
+    def apply(self, modules, args, train):
+        return self.activation(modules[self.name](args[0]))
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if not s:
+            return None
+        pad = canonical_padding(self.padding, len(self.kernel))
+        out = _window_shape(s[:-1], self.kernel, self.strides, pad,
+                            self.dilation)
+        return None if out is None else out + (self.nb_filter,)
+
+
+class Conv1D(_Conv):
+    """(ref Convolution1D) input ``[batch, steps, channels]``."""
+
+    def __init__(self, nb_filter: int, filter_length: int, activation=None,
+                 border_mode: str = "valid", subsample_length: int = 1,
+                 init="glorot_uniform", bias: bool = True,
+                 dilation_rate: int = 1, W_regularizer=None,
+                 b_regularizer=None, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self._setup(nb_filter, (filter_length,), (subsample_length,),
+                    border_mode.upper(), (dilation_rate,), activation, init,
+                    bias, W_regularizer, b_regularizer)
+
+
+Convolution1D = Conv1D
+
+
+class Conv2D(_Conv):
+    """(ref Convolution2D) input ``[batch, h, w, channels]``;
+    ``border_mode`` "same"/"valid", an int, a pair or ``((top, bottom),
+    (left, right))``."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 activation=None, border_mode="valid", subsample=(1, 1),
+                 init="glorot_uniform", bias: bool = True,
+                 W_regularizer=None, b_regularizer=None, input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self._setup(nb_filter, (nb_row, nb_col), _tuple(subsample, 2),
+                    canonical_padding(border_mode, 2), (1, 1), activation,
+                    init, bias, W_regularizer, b_regularizer)
+
+
+Convolution2D = Conv2D
+
+
+class Conv3D(_Conv):
+    """(ref Convolution3D) input ``[batch, d1, d2, d3, channels]``."""
+
+    def __init__(self, nb_filter: int, kernel_dim1: int, kernel_dim2: int,
+                 kernel_dim3: int, activation=None, border_mode="valid",
+                 subsample=(1, 1, 1), init="glorot_uniform",
+                 bias: bool = True, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self._setup(nb_filter, (kernel_dim1, kernel_dim2, kernel_dim3),
+                    _tuple(subsample, 3), canonical_padding(border_mode, 3),
+                    (1, 1, 1),
+                    activation, init, bias)
+
+
+Convolution3D = Conv3D
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def pool(x: torch.Tensor, op: str, window, strides, padding):
+    """flax ``max_pool`` / ``avg_pool`` (``lax.reduce_window``) on ``[batch,
+    *spatial, channels]``: a max pool's padding is -inf, an average
+    pool's is zeros counted in the mean (the window's full size divides).
+    Symmetric padding of at most half the window rides torch's pool;
+    other padding is ``F.pad`` first."""
+    from analytics_zoo_tpu_torch.common import flax_compat as fc
+    pads = fc.resolve_pads(padding, x.shape[1:-1], window, strides)
+    if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, window)):
+        p = tuple(lo for lo, _ in pads)
+    else:
+        x = fc.pad_last(x, pads, float("-inf") if op == "max" else 0.0)
+        p = 0
+    xc = fc.channels_first(x)
+    if op == "max":
+        y = _MAX_POOL[len(window)](xc, window, strides, padding=p)
+    else:
+        y = _AVG_POOL[len(window)](xc, window, strides, padding=p,
+                                   count_include_pad=True)
+    return fc.channels_last(y)
+
+
+class _Pool(KerasLayer):
+    """JAX ``_Pool``: ``border_mode`` "valid"/"same", an int per side, or
+    ``((lo, hi), ...)`` pairs (ceil-mode parity)."""
+
+    op = "max"
+
+    def __init__(self, pool_size, strides=None, border_mode="valid",
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.pool_size = tuple(pool_size)
+        self.strides = tuple(strides or pool_size)
+        self.padding = canonical_padding(border_mode, len(self.pool_size))
+
+    def apply(self, modules, args, train):
+        return pool(args[0], self.op, self.pool_size, self.strides,
+                    self.padding)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if not s:
+            return None
+        out = _window_shape(s[:-1], self.pool_size, self.strides,
+                            self.padding)
+        return None if out is None else out + (s[-1],)
+
+
+class MaxPooling1D(_Pool):
+    def __init__(self, pool_length: int = 2, stride=None,
+                 border_mode="valid", input_shape=None, name=None):
+        super().__init__((pool_length,), (stride or pool_length,),
+                         border_mode, input_shape=input_shape, name=name)
+
+
+class AveragePooling1D(MaxPooling1D):
+    op = "avg"
+
+
+class MaxPooling2D(_Pool):
+    def __init__(self, pool_size=(2, 2), strides=None, border_mode="valid",
+                 input_shape=None, name=None):
+        super().__init__(_tuple(pool_size, 2),
+                         _tuple(strides or pool_size, 2),
+                         border_mode, input_shape=input_shape, name=name)
+
+
+class AveragePooling2D(MaxPooling2D):
+    op = "avg"
+
+
+class MaxPooling3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None,
+                 border_mode="valid", input_shape=None, name=None):
+        super().__init__(_tuple(pool_size, 3),
+                         _tuple(strides or pool_size, 3),
+                         border_mode, input_shape=input_shape, name=name)
+
+
+class AveragePooling3D(MaxPooling3D):
+    op = "avg"
+
+
+class _GlobalPool(KerasLayer):
+    """A max or mean over the spatial axes ``1 .. rank``."""
+
+    op, rank = "max", 1
+
+    def apply(self, modules, args, train):
+        dims = tuple(range(1, self.rank + 1))
+        x = args[0]
+        return x.amax(dim=dims) if self.op == "max" else x.mean(dim=dims)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return None if not s else (s[-1],)
+
+
+class GlobalMaxPooling1D(_GlobalPool):
+    op, rank = "max", 1
+
+
+class GlobalAveragePooling1D(_GlobalPool):
+    op, rank = "avg", 1
+
+
+class GlobalMaxPooling2D(_GlobalPool):
+    op, rank = "max", 2
+
+
+class GlobalAveragePooling2D(_GlobalPool):
+    op, rank = "avg", 2
+
+
+class GlobalMaxPooling3D(_GlobalPool):
+    op, rank = "max", 3
+
+
+class GlobalAveragePooling3D(_GlobalPool):
+    op, rank = "avg", 3
+
+
+class _ZeroPadding(KerasLayer):
+    """Zeros around the spatial axes: ``pads`` holds a ``(lo, hi)`` pair
+    per spatial dim."""
+
+    pads: Tuple[Tuple[int, int], ...] = ()
+
+    def apply(self, modules, args, train):
+        from analytics_zoo_tpu_torch.common.flax_compat import pad_last
+        return pad_last(args[0], self.pads)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if not s:
+            return None
+        sp = tuple(None if n is None else n + lo + hi
+                   for n, (lo, hi) in zip(s[:-1], self.pads))
+        return sp + (s[-1],)
+
+
+class ZeroPadding1D(_ZeroPadding):
+    def __init__(self, padding: int = 1, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.padding = _tuple(padding, 2)
+        self.pads = (self.padding,)
+
+
+class ZeroPadding2D(_ZeroPadding):
+    def __init__(self, padding=(1, 1), input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.padding = _tuple(padding, 2)
+        self.pads = tuple((p, p) for p in self.padding)
+
+
+class ZeroPadding3D(_ZeroPadding):
+    def __init__(self, padding=(1, 1, 1), input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.padding = _tuple(padding, 3)
+        self.pads = tuple((p, p) for p in self.padding)
 
 
 # ---------------- attention / transformer / BERT ----------------

@@ -39,8 +39,10 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   (learn/checkpoint.py): ``save``/``load`` and the ``model_dir``
   snapshots write ``ckpt-<step>/state.msgpack`` holding ``{"model_state",
   "opt_state", "params", "step"}`` with flax's names and layouts
-  (``convert.ParamLayout``) and the optimizer state as optax's tree
-  (learn/optimizers.py), so each package reads what the other wrote.
+  (``convert.ParamLayout``; a BatchNorm's running statistics in
+  ``model_state`` as flax's ``batch_stats`` collection) and the optimizer
+  state as optax's tree (learn/optimizers.py), so each package reads what
+  the other wrote.
 - **Snapshots and retries** mirror ``JaxEstimator.fit``: with
   ``model_dir`` set, ``checkpoint_trigger`` (default ``EveryEpoch()``) is
   tested after every step with the last loss read back, and again after
@@ -91,9 +93,10 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   step is fenced (``torch.cuda.synchronize``) for its device time, gives
   ``zoo_mfu`` and ``zoo_hbm_bytes`` and its ``train/step-<n>`` spans.
   ``zoo_step_flops`` is counted once per estimator and batch shape
-  (``profiling.step_flops`` over one forward and backward of the batch):
-  under ``fork_rng``, each parameter's ``.grad`` and the buffers put back
-  after, no update applied, so a fit ends bitwise where it would without
+  (``profiling.step_flops`` over one step of the batch: forward, backward
+  and the optimizer's update applied to copies of the parameters and of
+  its state): under ``fork_rng``, each parameter's ``.grad`` and the
+  buffers put back after, so a fit ends bitwise where it would without
   the count. The count's own launches fall in the first fit of a shape.
 
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
@@ -103,6 +106,7 @@ Not ported yet: meshes and strategies other than ``"dp"`` on one device
 
 from __future__ import annotations
 
+import copy
 import inspect
 import itertools
 import logging
@@ -121,7 +125,7 @@ from analytics_zoo_tpu_torch.common.context import active_context
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
 from analytics_zoo_tpu_torch.common.summary import SummaryWriter
-from analytics_zoo_tpu_torch.convert import ParamLayout, flatten, nest
+from analytics_zoo_tpu_torch.convert import ParamLayout
 from analytics_zoo_tpu_torch.data.dataset import (ShardedDataset,
                                                   StreamingShardedDataset,
                                                   to_sharded_dataset,
@@ -367,22 +371,32 @@ class TorchEstimator:
         return loss.detach(), grads
 
     def _step_flops(self, x, y) -> Optional[float]:
-        """The products of one step on batch ``(x, y)``, counted once per
+        """The flops of one step on batch ``(x, y)``, counted once per
         batch signature. The counting pass runs the step's forward and
-        backward under ``fork_rng``, puts back each ``.grad`` and every
-        buffer, and applies no update: the fit does not move."""
+        backward under ``fork_rng`` and the update on copies of the
+        parameters and the optimizer state, then puts back each ``.grad``
+        and every buffer: the fit does not move."""
         key = tuple((tuple(a.shape), str(a.dtype)) for a in
                     _leaves(x) + _leaves(y))
         if key not in self._flops:
             grads = [p.grad for p in self._params]
             bufs = [(b, b.detach().clone()) for b in self.model.buffers()]
+            params = [p.detach().clone() for p in self._params]
+            state = copy.deepcopy(self._opt_state) or {
+                "count": 0, **self.optimizer.init(params)}
+
+            def step():
+                _, g = self._loss_and_grads(x, y)
+                with torch.no_grad():
+                    self.optimizer.step(params, self._clip(g), state,
+                                        state["count"])
+
             cuda = self.device.type == "cuda"
             devices = [self.device.index if self.device.index is not None
                        else torch.cuda.current_device()] if cuda else []
             try:
                 with torch.random.fork_rng(devices=devices):
-                    self._flops[key] = profiling.step_flops(
-                        lambda: self._loss_and_grads(x, y))
+                    self._flops[key] = profiling.step_flops(step)
             finally:
                 with torch.no_grad():
                     for p, g in zip(self._params, grads):
@@ -856,8 +870,8 @@ class TorchEstimator:
             opt = self.optimizer.optax_state(
                 opt_state, lambda _, lead=(): layout.spec(lead))
             params = layout.like
-            model_state = nest({k: v.to("meta")
-                                 for k, v in buffers.items()})
+            model_state = layout.state_tree({k: v.to("meta")
+                                             for k, v in buffers.items()})
         else:
             def tree(tensors, lead=()):
                 given = dict(zip(self._names, tensors))
@@ -867,8 +881,8 @@ class TorchEstimator:
                 return layout.to_tree(given, lead)
             opt = self.optimizer.optax_state(self._ensure_opt_state(), tree)
             params = layout.to_tree(named)
-            model_state = nest({k: v.detach().cpu()
-                                 for k, v in buffers.items()})
+            model_state = layout.state_tree({k: v.detach().cpu()
+                                             for k, v in buffers.items()})
         if self._grad_clip is not None:
             # the JAX _tx() chains the clip in front: {"0": {}, "1": tx}
             opt = {"0": {}, "1": opt}
@@ -884,8 +898,7 @@ class TorchEstimator:
         values = layout.from_tree(state["params"])
         buffers = {k: v for k, v in self.model.state_dict(
             keep_vars=True).items() if k not in named}
-        saved = {k: torch.as_tensor(v) for k, v in
-                 flatten(state["model_state"]).items()}
+        saved = layout.state_from_tree(state["model_state"])
         with torch.no_grad():
             for n, p in named.items():
                 p.copy_(values[n])

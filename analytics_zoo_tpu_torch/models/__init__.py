@@ -3,6 +3,7 @@ models ported so far."""
 
 from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.common import ZooModel, registry
+from analytics_zoo_tpu_torch.models.image import ImageClassifier
 from analytics_zoo_tpu_torch.models.recommendation import (
     ColumnFeatureInfo, NeuralCF, SessionRecommender, WideAndDeep,
 )
@@ -10,4 +11,4 @@ from analytics_zoo_tpu_torch.models.seq2seq import Seq2Seq
 
 __all__ = ["ZooModel", "registry", "NeuralCF", "WideAndDeep",
            "ColumnFeatureInfo", "SessionRecommender", "AnomalyDetector",
-           "Seq2Seq"]
+           "Seq2Seq", "ImageClassifier"]

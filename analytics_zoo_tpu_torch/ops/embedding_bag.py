@@ -56,6 +56,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.common import profiling
 from analytics_zoo_tpu_torch.ops import _build
 
 _COMBINES = ("concat", "sum", "mean", "mul")
@@ -615,6 +616,29 @@ def _bag_forward(table: torch.Tensor, ids: torch.Tensor,
 
 # ------------------------------------------------------- autograd Functions
 
+def _fused_flops(combine: str, batch: int, widths: Sequence[int],
+                 needs: Optional[Sequence[bool]] = None) -> int:
+    """The fused lookup's count while a step is counted
+    (``profiling.counted``): forward (``needs`` None) the combine's
+    elementwise ops on ``[batch, width]``; backward the scatter-add's
+    updates into each table that needs a gradient, with ``mul``'s
+    products of the other rows and ``mean``'s scale."""
+    t, w = len(widths), batch * int(widths[0])
+    if needs is None:
+        if combine == "concat":
+            return 0
+        return (t - 1) * w + (w if combine == "mean" else 0)
+    extra = {"mean": w, "mul": (t - 1) * w}.get(combine, 0)
+    return sum(batch * int(d) + extra for d, n in zip(widths, needs) if n)
+
+
+def _bag_flops(mean: bool, ids: torch.Tensor, width: int) -> int:
+    """The bag's count a pass: its adds over every slot, ``mean``'s
+    division a bag."""
+    b, n = int(ids.shape[0]), int(ids.shape[1])
+    return b * n * width + (b * width if mean else 0)
+
+
 class _FusedLookup(torch.autograd.Function):
     """The fused lookup with its scatter-add backward: kernels on CUDA,
     plain versions on the CPU."""
@@ -623,14 +647,20 @@ class _FusedLookup(torch.autograd.Function):
     def forward(ctx, combine: str, ids: torch.Tensor, *tables: torch.Tensor):
         ctx.combine = combine
         ctx.save_for_backward(ids, *tables)
-        return _fused_forward(tables, ids, combine)
+        widths = [t.shape[1] for t in tables]
+        with profiling.counted(lambda: _fused_flops(
+                combine, ids.shape[0], widths)):
+            return _fused_forward(tables, ids, combine)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         ids, *tables = ctx.saved_tensors
         needs = ctx.needs_input_grad[2:]
         bwd = _fused_bwd_cuda if g.is_cuda else _fused_bwd_ref
-        return (None, None, *bwd(tables, ids, g, ctx.combine, needs))
+        widths = [t.shape[1] for t in tables]
+        with profiling.counted(lambda: _fused_flops(
+                ctx.combine, ids.shape[0], widths, needs)):
+            return (None, None, *bwd(tables, ids, g, ctx.combine, needs))
 
 
 class _Bag(torch.autograd.Function):
@@ -645,19 +675,23 @@ class _Bag(torch.autograd.Function):
         ctx.vocab = int(table.shape[0])
         ctx.dtype = table.dtype
         ctx.save_for_backward(ids, lengths)
-        return _bag_forward(table, ids, lengths, mean)
+        with profiling.counted(lambda: _bag_flops(mean, ids,
+                                                  table.shape[1])):
+            return _bag_forward(table, ids, lengths, mean)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         ids, lengths = ctx.saved_tensors
         if not ctx.needs_input_grad[1]:
             return None, None, None, None
-        if lengths is None:
-            lengths = torch.full((ids.shape[0],), ids.shape[1],
-                                 dtype=torch.int32, device=ids.device)
-        bwd = _bag_bwd_cuda if g.is_cuda else _bag_bwd_ref
-        return (None, bwd(ctx.vocab, ctx.dtype, ids, lengths, g, ctx.mean),
-                None, None)
+        with profiling.counted(lambda: _bag_flops(ctx.mean, ids,
+                                                  g.shape[1])):
+            if lengths is None:
+                lengths = torch.full((ids.shape[0],), ids.shape[1],
+                                     dtype=torch.int32, device=ids.device)
+            bwd = _bag_bwd_cuda if g.is_cuda else _bag_bwd_ref
+            return (None, bwd(ctx.vocab, ctx.dtype, ids, lengths, g,
+                              ctx.mean), None, None)
 
 
 # ------------------------------------------------------------- dispatchers

@@ -23,7 +23,8 @@ Counterpart of ``analytics_zoo_tpu/ops/flash_attention.py``:
   (``common/profiling.step_flops``), the forward and the backward run as
   the operators ``zoo_torch::flash_fwd`` / ``zoo_torch::flash_bwd``, whose
   bodies (kernel launches or plain versions, as always) the counter does
-  not see and whose registered counts are the einsum chain's.
+  not see and whose registered counts are the einsum chain's: its
+  products and its elementwise work on the scores.
 
 All take the public layout ``[b, s, h, d]``; the lse is ``[b*h, sq]``
 fp32. The kernels read q, k, v (and the output's cotangent) through their
@@ -453,16 +454,37 @@ _count_lock = threading.Lock()
 _count_ops = None
 
 
-def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
-    """QK^T and PV as the einsum chain computes them: the full square."""
-    b, sq, h, d = q_shape
-    return 4 * b * h * sq * k_shape[1] * d
+def _chain_elementwise(q, k, causal: bool, backward: bool) -> int:
+    """The einsum chain's elementwise flops on its ``[b, h, sq, sk]``
+    scores (``common/profiling.py``'s rates): the scale's division, the
+    causal mask's select, the softmax (4 forward, 5 backward) and, off
+    fp32, the casts to fp32 and back."""
+    b, sq, h, _ = q.shape
+    n = b * h * sq * k.shape[1]
+    per = (5 if backward else 4) + 1 + int(bool(causal)) + (
+        2 if q.dtype != torch.float32 else 0)
+    return n * per
 
 
-def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
-    """dV, dP, dQ and dK, each the size of a forward product; the
-    kernels' recompute of S is not model work."""
-    return 2 * _fwd_flops(q_shape, k_shape)
+def _fwd_flops(q, k, v, causal, out_val=None, **kwargs) -> int:
+    """QK^T and PV as the einsum chain computes them (the full square),
+    and the chain's elementwise work on the scores."""
+    b, sq, h, d = q.shape
+    return 4 * b * h * sq * k.shape[1] * d + _chain_elementwise(
+        q, k, causal, False)
+
+
+def _bwd_flops(q, k, v, o, lse, do, causal, *args, out_val=None,
+               **kwargs) -> int:
+    """dV, dP, dQ and dK, each the size of a forward product (the
+    kernels' recompute of S is not model work), and the chain's
+    backward elementwise work on the scores."""
+    b, sq, h, d = q.shape
+    return 8 * b * h * sq * k.shape[1] * d + _chain_elementwise(
+        q, k, causal, True)
+
+
+_fwd_flops._get_raw = _bwd_flops._get_raw = True
 
 
 def _counted_ops():

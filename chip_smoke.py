@@ -272,7 +272,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              projections stay float), 12 flash launches a predict; (f)
              20-step fits of phase 8's BERT-Base bf16 (32 x 128) and phase
              10's NCF (batch 8000) under the step profiler: zoo_step_flops
-             equal to the hand count of the step's products, 0 < zoo_mfu
+             at least the hand count of the step's products and within
+             P16_FLOPS_MARGIN above it (C18), NCF's equal to the same
+             step counted on the CPU, 0 < zoo_mfu
              <= 1, zoo_hbm_bytes, the phase medians, and NCF's ms a step
              with and without the sampled fences in turns; (c) (a)'s int8
              model served through ClusterServing on the native broker,
@@ -294,6 +296,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
              lease reclaims above 0, /healthz 1 live and 1 stale, the
              seconds from the kill to the last answer. It writes under
              build/phase16/ and removes it.
+
+17. ResNet-50 (ROADMAP A15), through ImageClassifier's keras entry
+             points, NHWC inputs, weights from a numpy seed: (a) bench.py's
+             measure_resnet50_train window (resnet-50, 2 classes, 224 px,
+             mixed_bfloat16, Adam, batch 32 from default_rng(3) on the card
+             once, 2 warm-up steps, 10 timed on the host clock between two
+             syncs): ms a step, samples/s; the same in fp32 under TF32 (the
+             context's default) and with TF32 off; a 4-step fit under the
+             step profiler: zoo_step_flops at least the hand count of the
+             convolutions' products over the taps inside their inputs and
+             the Dense's, and within P17_FLOPS_MARGIN above it (C18), and
+             0 < zoo_mfu <= 1; (b) one step on 4 rows from the same
+             weights against the same step in float64 on the CPU (TF32
+             off; basis dev/diagnose_resnet50_step.py): in float64 on the
+             card the loss, every gradient of its leaf's largest, the
+             running means and variances and the eval logits at 1e-5,
+             5e-6 (of the leaf's largest), 1e-5 and 1e-5; in fp32 the loss, the train and eval logits
+             (before the softmax), the head's gradient and the running
+             statistics at P17_FP32_*, the whole gradient and the worst
+             leaf within P17_FP32_OVER_CPU of the CPU fp32 step's own
+             distances; in bf16 the loss, the train logits, the head's
+             gradient and the stem convolution's output at P17_BF16_*;
+             save and load bitwise, batch_stats included;
+             (c) measure_int8_predict's ResNet-50 half (1000 classes, 32 x
+             224, calibration x[:8], min_elems 1024): fp32 (TF32 off),
+             bf16 and int8 predict ms (CUDA events), resident bytes,
+             agreement and nrmse against fp32 at JAX's limits on the
+             probabilities and on the logits (the random model's softmax
+             is one-hot), the int8
+             products of a forward by the profiler's kernel names (54),
+             and an int8 3x3 stride-2 and 1x1 convolution each bitwise the
+             same layer on the CPU; (d) a profiled bf16 training step: the
+             top device operations, the shares of cuDNN's convolution
+             kernels, cuBLAS's GEMMs and the batch norms' kernels, the
+             kernels a step, device time against wall time, and the copies
+             of 4-D activations (at most the input's cast). No kernel of queue B runs on this path
+             (cuDNN's convolutions and cuBLAS's products; JAX runs
+             ResNet-50 outside Pallas). It writes under build/phase17/ and
+             removes it.
 
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
@@ -340,9 +381,10 @@ NCF fits, the optimizers, the remat fit, each task fit and the profiled
 fit; phase 15, before each broker turn, after the BERT warm-up, and
 before the deadline, admission, lease and each decode path; phase 16,
 before each int8 model's predicts, each fit, the served int8 model and
-the fleet) and read
+the fleet; phase 17, before its training window, which launches none) and
+read
 right after it: every kernel of the path must have launched there.
-Phases 13's to 16's seconds and the whole run's are printed
+Phases 13's to 17's seconds and the whole run's are printed
 before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -694,7 +736,68 @@ P16_INT8_KERNEL = r"(?i)(imma|igemm|gemm_s8|gemm_i8|i8i32|s8s8|int8gemm)"
 P16_BURST = 512
 P16_LEASE_MS = 300
 P16_FIT_STEPS = 20
+# zoo_step_flops over the hand count of a step's products (ROADMAP C18):
+# the rest is the elementwise work and Adam's update. NCF on the CPU at
+# batch 8000 (tests/test_torch_profiling.py): 141 353 686 over 132 600 000,
+# 1.066; BERT-Base by the per-token count (gelu 71 flops an intermediate
+# element, the norms, the scores' softmax, Adam's 13 a parameter) about
+# 1.01
+P16_FLOPS_MARGIN = {"ncf": 0.08, "bert_bf16": 0.03}
 P16_FENCE_ROUNDS = 4
+# phase 17: ResNet-50 (ROADMAP A15); bench.py's measure_resnet50_train and
+# the ResNet-50 half of measure_int8_predict
+P17_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "phase17")
+P17_IMAGE = 224
+P17_BATCH = 32
+P17_CLASSES = 2
+P17_WARMUP = 2
+P17_TIMED = 10
+P17_FIT_STEPS = 4               # a fit under the step profiler
+# zoo_step_flops over the hand count of the products (ROADMAP C18): the
+# norms (6 flops an element forward, 7 backward), the relus, the residual
+# adds, the bf16 casts and Adam's 13 a parameter, about 1% of the products
+# (tests/test_torch_profiling.py holds resnet-lite's whole count to JAX's)
+P17_FLOPS_MARGIN = 0.03
+P17_CHECK_ROWS = 4              # the card-against-CPU step
+P17_NORMS = 53                  # ResNet-50's batch norms
+# Phase 17(b)'s limits (dev/diagnose_resnet50_step.py on an H100 80GB
+# HBM3 at 700 W, 224 px, 4 rows, each route against the same step in
+# float64 on the CPU). A random ResNet-50's training step amplifies a
+# relative change of its input about 1e5-fold in its gradient even in
+# float64 (1e-7 of the input moves the gradient 0.0101 of its norm), so
+# fp32's rounding alone leaves the CPU's and the card's gradients 0.0232
+# and 0.0231 of the norm from float64, whatever cuDNN's algorithm
+# (deterministic and benchmarked choices read the same). The card's path
+# is held to 1e-5 and 5e-6 in float64, where the same amplification
+# leaves about 1e-11; the fp32 step against float64 at P17_FP32_OVER_CPU
+# times the CPU fp32 step's own distance, and on what the step does not
+# amplify (loss, logits, the head's gradient: the Dense and the last norm)
+# at fixed limits; bf16 against float64 on what its rounding does not
+# scramble. Readings in the comments are that run's.
+P17_LOSS_ATOL = 1e-5            # float64, card against CPU
+P17_GRAD_RTOL = 5e-6            # of each leaf's largest |gradient|
+P17_STATS_ATOL = 1e-5           # the running mean and var
+P17_PREDICT_RTOL = 1e-5         # eval logits, of their norm (fp32: 1.77e-6)
+P17_FP32_OVER_CPU = 1.5         # whole gradient 0.0231 / 0.0232, worst
+#                                 leaf 0.139 / 0.164 (card / CPU)
+P17_FP32_LOSS_ATOL = 5e-5       # 1.57e-5 (CPU 5.19e-6)
+P17_FP32_LOGITS_RTOL = 2e-4     # 5.41e-5 (CPU 3.54e-5)
+P17_FP32_HEAD_RTOL = 2e-4       # 2.69e-5 (CPU 2.43e-5)
+P17_FP32_STATS_ATOL = 5e-5
+P17_FP32_STATS_RTOL = 1e-4
+P17_BF16_LOSS_RTOL = 0.3        # 0.0703 of a loss of 0.914
+P17_BF16_LOGITS_RTOL = 0.6      # 0.289
+P17_BF16_HEAD_RTOL = 0.3        # 0.0643 (0.113 at 16 rows)
+P17_BF16_STEM_RTOL = 0.01       # the first convolution's output, 2.87e-3
+P17_INT8_CLASSES = 1000         # measure_int8_predict's ResNet-50 half
+P17_CALIB = 8
+P17_MIN_ELEMS = 1024
+P17_REPS = 10
+# the products JAX's int8 plan takes in a ResNet-50 forward: every one of
+# its 53 convolutions (padding an int or a pair) and the Dense
+P17_INT8_PRODUCTS = 54
+P17_PROFILE_STEPS = 3
 
 
 def log(msg: str):
@@ -4058,11 +4161,14 @@ def record_updates(est, last_count):
     before the first update, every update's gradients, and the parameters
     and optimizer state before update ``last_count``; returns (the
     parameters, the gradient lists, that [parameters, state]), filled as
-    the fit runs."""
+    the fit runs. The flop count's update, on copies of the parameters,
+    is not the fit's and is not kept."""
     start, grads, last = [], [], []
     real = est.optimizer.step
 
     def step(params, g, state, count):
+        if params[0] is not est._params[0]:
+            return real(params, g, state, count)
         if not start:
             start.extend(p.detach().cpu().clone() for p in params)
         grads.append([t.detach().cpu().clone() for t in g])
@@ -5176,11 +5282,12 @@ def p16_ncf_int8(torch, np, ncf, kind):
     return ims["int8"], x, outs["int8"], rep
 
 
-def p16_int8_products(torch, im, x):
+def p16_int8_products(torch, im, x, batch=None, out_dir=P16_DIR):
     """The int8 products of one forward, by the names of the kernels the
     profiler saw on the card inside the last of three forwards' ranges
     (a trace can miss its first activities, keep_cupti): (count, their
-    distinct names, every kernel name of that forward)."""
+    distinct names, every kernel name of that forward). ``batch``: the
+    predict's batch size (default: the rows of a tuple's first input)."""
     import re
     pat = re.compile(P16_INT8_KERNEL)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -5188,9 +5295,9 @@ def p16_int8_products(torch, im, x):
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(3):
             with torch.profiler.record_function(f"p16_forward_{i}"):
-                im.predict(x, batch_size=len(x[0]))
+                im.predict(x, batch_size=batch or len(x[0]))
         torch.cuda.synchronize()
-    path = os.path.join(P16_DIR, "int8_forward.pt.trace.json")
+    path = os.path.join(out_dir, "int8_forward.pt.trace.json")
     prof.export_chrome_trace(path)
     events = trace_events(path)
     rng = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -5590,10 +5697,12 @@ def p16_fleet_drill(np, api, b, proc, lines, y32, x, t0):
 def p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr, kind):
     """16(f): fit P16_FIT_STEPS steps of phase 8's BERT-Base bf16
     classifier at 32 x 128 and of phase 10's NCF at batch 8000 under the
-    step profiler: zoo_step_flops equal to the script's hand count of
-    the step's products, 0 < zoo_mfu <= 1, zoo_hbm_bytes, the phase
-    medians; the ms a step with the profiler and with its sampled fences
-    off, in turns."""
+    step profiler: zoo_step_flops at least the script's hand count of
+    the step's products (with the Denses' bias adds) and within
+    P16_FLOPS_MARGIN above it (the elementwise work and Adam's update,
+    ROADMAP C18); NCF's equal to the same step counted on the CPU; 0 <
+    zoo_mfu <= 1, zoo_hbm_bytes, the phase medians; the ms a step with
+    the profiler and with its sampled fences off, in turns."""
     from analytics_zoo_tpu_torch.common import profiling, telemetry
     from analytics_zoo_tpu_torch.common.flax_compat import Dense
     from analytics_zoo_tpu_torch.learn.optimizers import Adam
@@ -5602,7 +5711,7 @@ def p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr, kind):
                                TRAIN_BATCH * P16_FIT_STEPS)
     rep = {}
 
-    def run(label, make_fit, hand):
+    def run(label, make_fit, hand, margin, same=None):
         telemetry.reset_for_tests()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -5613,18 +5722,22 @@ def p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr, kind):
         phases = {k.split("=")[1]: v["p50"] for k, v in
                   snap["zoo_train_phase_seconds"].items()}
         r = dict(step_flops=snap.get("zoo_step_flops"),
-                 hand_flops=float(hand), mfu=snap.get("zoo_mfu"),
+                 hand_flops=float(hand), cpu_flops=same,
+                 mfu=snap.get("zoo_mfu"),
                  hbm_bytes=snap.get("zoo_hbm_bytes"),
                  phase_p50_s=phases, fit_ms_per_step=dt / P16_FIT_STEPS
                  * 1e3, launches=_build.launch_counts())
         log(f"phase 16(f) {label} fit of {P16_FIT_STEPS} steps on {kind}: "
-            f"zoo_step_flops {r['step_flops']} (hand count "
-            f"{r['hand_flops']}), zoo_mfu {r['mfu']}, zoo_hbm_bytes "
+            f"zoo_step_flops {r['step_flops']} (hand count of the "
+            f"products {r['hand_flops']}, ratio "
+            f"{r['step_flops'] / r['hand_flops']:.5f}, limit 1 + {margin}; "
+            f"the CPU's count {same}), zoo_mfu {r['mfu']}, zoo_hbm_bytes "
             f"{r['hbm_bytes']}, phase p50 s {phases}, "
             f"{r['fit_ms_per_step']:.3f} ms a step in the first fit; "
             f"launches {r['launches']}")
-        if r["step_flops"] != r["hand_flops"] or r["mfu"] is None or \
-                not 0 < r["mfu"] <= 1:
+        if not r["hand_flops"] <= r["step_flops"] <= r["hand_flops"] * (
+                1 + margin) or (same is not None and r["step_flops"] != same) \
+                or r["mfu"] is None or not 0 < r["mfu"] <= 1:
             raise AssertionError(f"16(f) {label}: {r}")
         return r
 
@@ -5632,9 +5745,10 @@ def p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr, kind):
         model=bert_classifier(state, use_flash=True, dtype=torch.bfloat16),
         loss="sparse_categorical_crossentropy_logits", optimizer="adam",
         seed=SEED)
-    # the hand count: 2mkn forward and 4mkn backward for each Dense and
-    # projection (the packed QKV is three), attention's QK^T and PV as the
-    # einsum chain computes them, 4bhs^2d forward and twice that backward
+    # the hand count of the products: 2mkn forward and 4mkn backward for
+    # each Dense and projection (the packed QKV is three), attention's
+    # QK^T and PV as the einsum chain computes them, 4bhs^2d forward and
+    # twice that backward; each Dense's bias add, one an output element
     cfg = est.model.config
     b, s, hid = TRAIN_BATCH, TRAIN_LEN, cfg.hidden_size
     m = b * s
@@ -5642,18 +5756,28 @@ def p16_fit_mfu(torch, np, state, Estimator, x_tr, y_tr, kind):
         2 * m * (4 * hid * hid + 2 * hid * cfg.intermediate_size)
         + 4 * b * cfg.n_head * s * s * cfg.head_dim) \
         + 2 * b * hid * hid + 2 * b * hid * BERT_CLASSES
+    bert_bias = cfg.n_block * m * (5 * hid + cfg.intermediate_size) \
+        + b * hid + b * BERT_CLASSES
     rep["bert_bf16"] = run("BERT-Base bf16 32x128", lambda: est.fit(
-        (ids, labels), epochs=1, batch_size=TRAIN_BATCH), 3 * bert_fwd)
+        (ids, labels), epochs=1, batch_size=TRAIN_BATCH),
+        3 * bert_fwd + bert_bias, P16_FLOPS_MARGIN["bert_bf16"])
     del est
     net = train_model("ncf")
     net.compile(optimizer=Adam(NCF_LR),
                 loss="sparse_categorical_crossentropy")
-    ncf_fwd = sum(2 * BATCH * mod.in_features * mod.out_features
-                  for mod in net.module.modules() if isinstance(mod, Dense))
+    denses = [mod for mod in net.module.modules() if isinstance(mod, Dense)]
+    ncf_hand = sum(3 * 2 * BATCH * mod.in_features * mod.out_features
+                   + BATCH * mod.out_features for mod in denses)
+    # the same step counted on the CPU: the count holds on any route
+    cpu_net = train_model("ncf")
+    cpu_net.compile(optimizer=Adam(NCF_LR),
+                    loss="sparse_categorical_crossentropy", device="cpu")
+    ncf_cpu = cpu_net.estimator._step_flops(x_tr[:BATCH], y_tr[:BATCH])
+    del cpu_net
     rows = BATCH * P16_FIT_STEPS
     rep["ncf"] = run("NCF batch 8000", lambda: net.fit(
         x_tr[:rows], y_tr[:rows], batch_size=BATCH, nb_epoch=1,
-        shuffle=False), 3 * ncf_fwd)
+        shuffle=False), ncf_hand, P16_FLOPS_MARGIN["ncf"], ncf_cpu)
     for label in ("bert_bf16", "ncf"):
         need = ("flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv") if label == "bert_bf16" else \
@@ -5723,6 +5847,616 @@ def phase_a7b(torch, np, api, ncf, state, Estimator, x_tr, y_tr, kind):
         "fit_ncf": rep["f"]["ncf"]["launches"],
         "served_int8": rep["c_e"]["launches"],
         "fleet": rep["d"]["launches"]}
+    return rep
+
+
+def p17_data(np, n, classes=P17_CLASSES, seed=3):
+    """bench.py's measure_resnet50_train batch: NHWC normal images from
+    ``default_rng(seed)`` and integer labels."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, P17_IMAGE, P17_IMAGE, 3)).astype(np.float32)
+    y = rng.integers(0, classes, n).astype(np.int32)
+    return x, y
+
+
+def p17_weights(np, module, seed):
+    """ResNet-50's weights from a numpy seed: each convolution's and the
+    Dense's He-normal over its fan-in, the norms as flax initialises them
+    (scale 1, bias 0, running mean 0 and variance 1)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    state = {}
+    for key, val in module.state_dict().items():
+        shape = tuple(val.shape)
+        if key.endswith(".weight") and len(shape) == 2:
+            arr = rng.standard_normal(shape) * np.sqrt(2.0 / shape[1])
+        elif key.endswith(".var") or (key.endswith(".weight")
+                                      and len(shape) == 1):
+            arr = np.ones(shape)
+        else:
+            arr = np.zeros(shape)
+        state[key] = torch.from_numpy(arr.astype(np.float32))
+    module.load_state_dict(state)
+
+
+def p17_classifier(np, dtype="float32", classes=P17_CLASSES, state=None,
+                   seed=SEED + 17):
+    """ImageClassifier(resnet-50, 224 px) with weights from the numpy
+    seed, or ``state`` (a state dict) when given."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    clf = ImageClassifier(class_num=classes, model_name="resnet-50",
+                          image_size=P17_IMAGE, dtype=dtype)
+    if state is None:
+        p17_weights(np, clf.model.module, seed)
+    else:
+        clf.model.module.load_state_dict(state)
+    return clf
+
+
+class p17_tf32:
+    """``with p17_tf32(torch, on):`` TF32 on or off for cuBLAS and cuDNN,
+    the flags put back after."""
+
+    def __init__(self, torch, on: bool):
+        self.backends, self.on = torch.backends, on
+
+    def __enter__(self):
+        b = self.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = self.on
+
+    def __exit__(self, *exc):
+        b = self.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = self.saved
+
+
+def p17_window(torch, est, xs, ys) -> float:
+    """bench.py's _measure_step_time: P17_WARMUP steps, then P17_TIMED
+    on the host clock between two syncs; ms a step."""
+    for _ in range(P17_WARMUP):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P17_TIMED):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / P17_TIMED * 1e3
+
+
+def p17_hand_flops(torch, module, x) -> dict:
+    """The hand count of a training step's products at ``x``'s batch:
+    each convolution 2 * out * in * (its taps that fall inside the input,
+    summed over the output positions; XLA counts no tap on padding) and
+    the Dense 2 * in * out + out (its bias add) a row forward; the step
+    three times the forward products less the stem's input gradient,
+    which nothing asks for, and the Dense's bias add once."""
+    from analytics_zoo_tpu_torch.common.flax_compat import Conv, Dense
+    from analytics_zoo_tpu_torch.common.profiling import _valid_taps
+    shapes, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args, out):
+            shapes.setdefault(name, (tuple(args[0].shape),
+                                     tuple(out.shape)))
+        return hook
+
+    for name, mod in module.named_modules():
+        if isinstance(mod, (Conv, Dense)):
+            hooks.append(mod.register_forward_hook(keep(name)))
+    try:
+        with torch.inference_mode():
+            module(x[:1])
+    finally:
+        for h in hooks:
+            h.remove()
+    fwd, stem, bias, n_conv, n_dense = 0, 0, 0, 0, 0
+    for name, mod in module.named_modules():
+        if name not in shapes:
+            continue
+        inp, out = shapes[name]
+        if isinstance(mod, Conv):
+            taps = 1
+            for d, (lo, _) in enumerate(mod.pads(inp[1:-1])):
+                taps *= _valid_taps(inp[1 + d], out[1 + d],
+                                    mod.kernel_size[d], mod.strides[d], lo,
+                                    mod.dilation[d])
+            per = 2 * mod.out_features * mod.in_features * taps
+            n_conv += 1
+            if mod.in_features == x.shape[-1] and not stem:
+                stem = per
+        else:
+            per = 2 * mod.in_features * mod.out_features
+            bias += mod.out_features
+            n_dense += 1
+        fwd += per
+    b = int(x.shape[0])
+    return dict(step=b * (3 * fwd - stem + bias), forward=b * (fwd + bias),
+                convs=n_conv, denses=n_dense)
+
+
+def p17_train(torch, np, kind):
+    """17(a): bench.py's ResNet-50 window in bf16, fp32 under TF32 and
+    fp32 with TF32 off; a fit under the step profiler."""
+    from analytics_zoo_tpu_torch.common import telemetry
+    from analytics_zoo_tpu_torch.ops import _build
+    x, y = p17_data(np, P17_BATCH)
+    rep = {}
+    bf16 = p17_classifier(np, "mixed_bfloat16")
+    state = {k: v.clone() for k, v in bf16.model.module.state_dict().items()}
+    bf16.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    est = bf16.model.estimator
+    xs, ys = est._tensors(x), est._tensors(y)
+    _build.reset_launch_counts()
+    rep["bf16_step_ms"] = p17_window(torch, est, xs, ys)
+    rep["launches"] = {k: v for k, v in _build.launch_counts().items() if v}
+    for label, on in (("fp32_tf32", True), ("fp32_tf32_off", False)):
+        with p17_tf32(torch, on):
+            clf = p17_classifier(np, "float32", state=state)
+            clf.compile(optimizer="adam",
+                        loss="sparse_categorical_crossentropy")
+            e = clf.model.estimator
+            rep[f"{label}_step_ms"] = p17_window(torch, e, e._tensors(x),
+                                                 e._tensors(y))
+            del clf, e
+    for k in ("bf16", "fp32_tf32", "fp32_tf32_off"):
+        rep[f"{k}_samples_per_sec"] = P17_BATCH / rep[f"{k}_step_ms"] * 1e3
+    # a fit under the step profiler: the step's flops, counted once, and
+    # the MFU of its sampled steps
+    xf, yf = p17_data(np, P17_BATCH * P17_FIT_STEPS, seed=4)
+    telemetry.reset_for_tests()
+    t0 = time.perf_counter()
+    bf16.fit(xf, yf, batch_size=P17_BATCH, nb_epoch=1, shuffle=False)
+    torch.cuda.synchronize()
+    rep["fit_ms_per_step"] = (time.perf_counter() - t0) / P17_FIT_STEPS \
+        * 1e3
+    snap = telemetry.snapshot()
+    rep["step_flops"] = snap.get("zoo_step_flops")
+    rep["mfu"] = snap.get("zoo_mfu")
+    hand = p17_hand_flops(torch, bf16.model.module, xs)
+    rep["hand_flops"] = hand
+    telemetry.reset_for_tests()
+    log(f"phase 17(a) ResNet-50 on {kind}, batch {P17_BATCH} x "
+        f"{P17_IMAGE} px, bench.py's window ({P17_WARMUP} warm-up, "
+        f"{P17_TIMED} timed): resnet50_train_step_ms bf16 "
+        f"{rep['bf16_step_ms']:.3f} ({rep['bf16_samples_per_sec']:.1f} "
+        f"samples/s), fp32 TF32 {rep['fp32_tf32_step_ms']:.3f} "
+        f"({rep['fp32_tf32_samples_per_sec']:.1f}), fp32 TF32 off "
+        f"{rep['fp32_tf32_off_step_ms']:.3f} "
+        f"({rep['fp32_tf32_off_samples_per_sec']:.1f}); a "
+        f"{P17_FIT_STEPS}-step bf16 fit, its first (the flop count's pass "
+        f"included) {rep['fit_ms_per_step']:.3f} ms a step: "
+        f"zoo_step_flops {rep['step_flops']} (hand count of the "
+        f"{hand['convs']} convolutions' and {hand['denses']} Dense's "
+        f"products {hand['step']}, ratio "
+        f"{rep['step_flops'] / hand['step']:.5f}, limit 1 + "
+        f"{P17_FLOPS_MARGIN}), zoo_mfu {rep['mfu']}; launches of the "
+        f"port's kernels {rep['launches']}")
+    if not hand["step"] <= rep["step_flops"] <= hand["step"] * (
+            1 + P17_FLOPS_MARGIN) or rep["mfu"] is None or \
+            not 0 < rep["mfu"] <= 1 or hand["convs"] != 53:
+        raise AssertionError(f"17(a): {rep}")
+    return bf16, state, rep
+
+
+def p17_grads(est, x, y):
+    loss, grads = est._loss_and_grads(x, y)
+    return float(loss), {n: g.detach().cpu() for n, g in
+                         zip(est._names, grads)}
+
+
+def p17_norm_rel(got, want, names=None) -> float:
+    """The distance of gradients ``got`` from ``want`` (dicts by parameter
+    name; ``names``, default all): the norm of the difference over the
+    norm of ``want``."""
+    names = list(want) if names is None else names
+    diff = sum(float(((got[n].double() - want[n].double()) ** 2).sum())
+               for n in names)
+    ref = sum(float((want[n].double() ** 2).sum()) for n in names)
+    return math.sqrt(diff / ref) if ref else math.sqrt(diff)
+
+
+def p17_rel(got, want) -> float:
+    """norm(got - want) / norm(want) of two tensors, in float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def p17_stats(module):
+    return {k: v.detach().cpu().clone() for k, v in
+            module.state_dict().items() if k.endswith((".mean", ".var"))}
+
+
+def p17_run(torch, np, state, x, y, device, dtype="float32", f64=False):
+    """One training step's loss and gradients on ``x, y`` from ``state``,
+    the running statistics it leaves, the logits (the Dense's output
+    before the softmax) and the stem convolution's output of its train
+    forward, and the eval-mode logits: the classifier and the readings."""
+    from analytics_zoo_tpu_torch.common.flax_compat import Conv, Dense
+    clf = p17_classifier(np, dtype, state=state)
+    mod = clf.model.module
+    if f64:
+        mod.double()
+    clf.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                device=device)
+    convs = [m for m in mod.modules() if isinstance(m, Conv)]
+    dense = [m for m in mod.modules() if isinstance(m, Dense)][-1]
+    seen = {}
+
+    def keep(key):
+        def hook(m, args, out):
+            seen.setdefault(key, out.detach().double().cpu())
+        return hook
+
+    hooks = [dense.register_forward_hook(keep("logits")),
+             convs[0].register_forward_hook(keep("stem"))]
+    try:
+        loss, grads = p17_grads(clf.model.estimator, x, y)
+        run = dict(loss=loss, grads=grads, stats=p17_stats(mod),
+                   logits=seen.pop("logits"), stem=seen.pop("stem"))
+        clf.predict(x, batch_size=len(x))
+        run["eval_logits"] = seen.pop("logits")
+    finally:
+        for h in hooks:
+            h.remove()
+    return clf, run
+
+
+def p17_correctness(torch, np, state, kind):
+    """17(b): one step on P17_CHECK_ROWS rows from the same weights, in
+    float64 on the card against the CPU at P17_LOSS_ATOL, P17_GRAD_RTOL,
+    P17_STATS_ATOL and P17_PREDICT_RTOL; fp32 (TF32 off) and bf16 on the
+    card against the float64 step; save and load bitwise. The Dense and
+    the last norm make the head."""
+    import shutil
+    x, y = p17_data(np, P17_CHECK_ROWS, seed=5)
+    rep = {}
+    with p17_tf32(torch, False):
+        _, ref = p17_run(torch, np, state, x, y, "cpu", f64=True)
+        _, c64 = p17_run(torch, np, state, x, y, "cuda", f64=True)
+        _, cpu = p17_run(torch, np, state, x, y, "cpu")
+        card_clf, card = p17_run(torch, np, state, x, y, "cuda")
+        _, bf = p17_run(torch, np, state, x, y, "cuda", "mixed_bfloat16")
+        head = [n for n in ref["grads"] if n.startswith((
+            "dense_", f"batchnormalization_{P17_NORMS}."))]
+        # float64: the card against the CPU
+        rep["f64_loss_diff"] = abs(c64["loss"] - ref["loss"])
+        rep["f64_grad_rel"], rep["f64_grad_worst"] = grad_reading(
+            c64["grads"], ref["grads"])
+        rep["f64_grad_norm_rel"] = p17_norm_rel(c64["grads"], ref["grads"])
+        rep["f64_stats_diff"] = max(float((c64["stats"][k] - v).abs().max())
+                                    for k, v in ref["stats"].items())
+        rep["f64_predict_rel"] = p17_rel(c64["eval_logits"],
+                                         ref["eval_logits"])
+        # fp32 on the card and on the CPU against float64
+        for label, run in (("fp32", card), ("cpu_fp32", cpu)):
+            rep[f"{label}_loss_diff"] = abs(run["loss"] - ref["loss"])
+            rep[f"{label}_grad_norm_rel"] = p17_norm_rel(run["grads"],
+                                                         ref["grads"])
+            rep[f"{label}_grad_rel"], rep[f"{label}_grad_worst"] = \
+                grad_reading(run["grads"], ref["grads"])
+            rep[f"{label}_head_rel"] = p17_norm_rel(run["grads"],
+                                                    ref["grads"], head)
+            rep[f"{label}_logits_rel"] = p17_rel(run["logits"],
+                                                 ref["logits"])
+            rep[f"{label}_predict_rel"] = p17_rel(run["eval_logits"],
+                                                  ref["eval_logits"])
+        rep["fp32_stats_within"] = all(bool(
+            ((card["stats"][k].double() - v).abs()
+             <= P17_FP32_STATS_ATOL + P17_FP32_STATS_RTOL * v.abs()).all())
+            for k, v in ref["stats"].items())
+        # bf16 against float64
+        rep["bf16_loss_rel"] = abs(bf["loss"] - ref["loss"]) / abs(
+            ref["loss"])
+        rep["bf16_logits_rel"] = p17_rel(bf["logits"], ref["logits"])
+        rep["bf16_head_rel"] = p17_norm_rel(bf["grads"], ref["grads"], head)
+        rep["bf16_stem_rel"] = p17_rel(bf["stem"], ref["stem"])
+        rep["bf16_grad_norm_rel"] = p17_norm_rel(bf["grads"], ref["grads"])
+        # save and load on the card, bitwise (batch_stats included)
+        path = os.path.join(P17_DIR, "ckpt")
+        card_clf.model.estimator.save(path)
+        back = p17_classifier(np, "float32", seed=SEED + 18)
+        back.compile(optimizer="adam",
+                     loss="sparse_categorical_crossentropy")
+        back.model.estimator.load(path)
+        want = card_clf.model.module.state_dict()
+        got = back.model.module.state_dict()
+        rep["roundtrip_bitwise"] = sorted(got) == sorted(want) and all(
+            torch.equal(got[k], want[k]) for k in want)
+        rep["roundtrip_stats"] = sum(k.endswith((".mean", ".var"))
+                                     for k in got)
+        rep["roundtrip_predict_bitwise"] = same_bits(
+            torch.as_tensor(back.predict(x, batch_size=len(x))),
+            torch.as_tensor(card_clf.predict(x, batch_size=len(x))))
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"phase 17(b) ResNet-50 one training step on {P17_CHECK_ROWS} "
+        f"rows, TF32 off, against the same step in float64 on the CPU. "
+        f"float64 on {kind}: loss {rep['f64_loss_diff']:.3g} apart (limit "
+        f"{P17_LOSS_ATOL}), gradients within {rep['f64_grad_rel']:.3g} of "
+        f"each leaf's largest (worst {rep['f64_grad_worst']}; limit "
+        f"{P17_GRAD_RTOL}), the whole gradient {rep['f64_grad_norm_rel']:.3g}"
+        f" of its norm, running statistics {rep['f64_stats_diff']:.3g} "
+        f"(limit {P17_STATS_ATOL}), eval logits "
+        f"{rep['f64_predict_rel']:.3g} of their norm (limit "
+        f"{P17_PREDICT_RTOL}). fp32 on {kind} (the CPU's fp32 in "
+        f"brackets): loss {rep['fp32_loss_diff']:.3g} "
+        f"({rep['cpu_fp32_loss_diff']:.3g}; limit {P17_FP32_LOSS_ATOL}), "
+        f"the whole gradient {rep['fp32_grad_norm_rel']:.3g} of its norm "
+        f"({rep['cpu_fp32_grad_norm_rel']:.3g}), the worst leaf "
+        f"{rep['fp32_grad_rel']:.3g} ({rep['cpu_fp32_grad_rel']:.3g}; "
+        f"limits {P17_FP32_OVER_CPU} x the CPU's), the head's gradient "
+        f"{rep['fp32_head_rel']:.3g} ({rep['cpu_fp32_head_rel']:.3g}; limit "
+        f"{P17_FP32_HEAD_RTOL}), train logits {rep['fp32_logits_rel']:.3g} "
+        f"({rep['cpu_fp32_logits_rel']:.3g}; limit {P17_FP32_LOGITS_RTOL}),"
+        f" eval logits {rep['fp32_predict_rel']:.3g} "
+        f"({rep['cpu_fp32_predict_rel']:.3g}; limit {P17_PREDICT_RTOL}), "
+        f"running statistics within {P17_FP32_STATS_ATOL} + "
+        f"{P17_FP32_STATS_RTOL} of each: {rep['fp32_stats_within']}. bf16 "
+        f"on {kind}: loss {rep['bf16_loss_rel']:.3g} relative (limit "
+        f"{P17_BF16_LOSS_RTOL}), train logits {rep['bf16_logits_rel']:.3g} "
+        f"(limit {P17_BF16_LOGITS_RTOL}), the head's gradient "
+        f"{rep['bf16_head_rel']:.3g} (limit {P17_BF16_HEAD_RTOL}), the stem "
+        f"convolution's output {rep['bf16_stem_rel']:.3g} (limit "
+        f"{P17_BF16_STEM_RTOL}), the whole gradient "
+        f"{rep['bf16_grad_norm_rel']:.3g} (not held: past 1, as the step "
+        f"amplifies bf16's rounding). Save/load bitwise "
+        f"{rep['roundtrip_bitwise']} ({rep['roundtrip_stats']} running "
+        f"statistics), its predict bitwise "
+        f"{rep['roundtrip_predict_bitwise']}")
+    over = P17_FP32_OVER_CPU
+    if not (rep["f64_loss_diff"] <= P17_LOSS_ATOL
+            and rep["f64_grad_rel"] <= P17_GRAD_RTOL
+            and rep["f64_stats_diff"] <= P17_STATS_ATOL
+            and rep["f64_predict_rel"] <= P17_PREDICT_RTOL
+            and rep["fp32_loss_diff"] <= P17_FP32_LOSS_ATOL
+            and rep["fp32_grad_norm_rel"]
+            <= over * rep["cpu_fp32_grad_norm_rel"]
+            and rep["fp32_grad_rel"] <= over * rep["cpu_fp32_grad_rel"]
+            and rep["fp32_head_rel"] <= P17_FP32_HEAD_RTOL
+            and rep["fp32_logits_rel"] <= P17_FP32_LOGITS_RTOL
+            and rep["fp32_predict_rel"] <= P17_PREDICT_RTOL
+            and rep["fp32_stats_within"]
+            and rep["bf16_loss_rel"] <= P17_BF16_LOSS_RTOL
+            and rep["bf16_logits_rel"] <= P17_BF16_LOGITS_RTOL
+            and rep["bf16_head_rel"] <= P17_BF16_HEAD_RTOL
+            and rep["bf16_stem_rel"] <= P17_BF16_STEM_RTOL
+            and rep["roundtrip_bitwise"]
+            and rep["roundtrip_stats"] == 2 * P17_NORMS
+            and rep["roundtrip_predict_bitwise"]):
+        raise AssertionError(f"17(b): {rep}")
+    return rep
+
+
+def p17_int8_convs_bitwise(torch, im, x):
+    """The first int8 3x3 stride-2 convolution and the first 1x1 one of
+    a forward on the card, each against the same layer on the CPU fed
+    the same input: {layer: bitwise}."""
+    import copy
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    pick = {}
+    for name, mod in im._module.named_modules():
+        if not isinstance(mod, qlib._Int8) or \
+                mod.__dict__.get("_zoo_kind") != "conv":
+            continue
+        key = (tuple(mod.kernel_size), tuple(mod.strides))
+        if key in (((3, 3), (2, 2)), ((1, 1), (1, 1))) and key not in {
+                k for k, _ in pick.values()}:
+            pick[name] = (key, mod)
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args, out):
+            seen.setdefault(name, (args[0].detach().clone(),
+                                   out.detach().clone()))
+        return hook
+
+    for name, (_, mod) in pick.items():
+        hooks.append(mod.register_forward_hook(keep(name)))
+    try:
+        im.predict(x, batch_size=len(x))
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    for name, (a, y) in seen.items():
+        cpu = copy.deepcopy(pick[name][1]).to("cpu")
+        with torch.inference_mode():
+            want = cpu(a.cpu())
+        out[name] = same_bits(y.cpu(), want)
+    return out
+
+
+def p17_predict(torch, np, kind):
+    """17(c): measure_int8_predict's ResNet-50 half, as bench.py runs it:
+    random weights and flax's initial running statistics (mean 0,
+    variance 1). Its eval-mode activations grow block by block, so the
+    softmax is one-hot and JAX's readings on the probabilities (printed)
+    cannot fail; agreement and nrmse are held on the logits, the Dense's
+    output before the softmax, taken by a hook."""
+    from analytics_zoo_tpu_torch.common.flax_compat import Dense
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    x = np.random.default_rng(0).standard_normal(
+        (P17_BATCH, P17_IMAGE, P17_IMAGE, 3)).astype(np.float32)
+    clf = p17_classifier(np, "float32", classes=P17_INT8_CLASSES)
+    state = clf.model.module.state_dict()
+    rep, outs, logits = {}, {}, {}
+    with p17_tf32(torch, False):
+        for mode in ("fp32", "bf16", "int8"):
+            src = clf if mode != "bf16" else p17_classifier(
+                np, "mixed_bfloat16", classes=P17_INT8_CLASSES, state=state)
+            im = InferenceModel(device="cuda").load_zoo(src)
+            if mode == "int8":
+                im.quantize(min_elems=P17_MIN_ELEMS, mode="int8",
+                            calibration_data=x[:P17_CALIB])
+            seen = []
+            head = [m for m in im._module.modules()
+                    if isinstance(m, Dense)][-1]
+            hook = head.register_forward_hook(
+                lambda m, a, out: seen.append(out.detach().float().cpu()))
+            try:
+                outs[mode] = im.predict(x, batch_size=P17_BATCH)
+            finally:
+                hook.remove()
+            logits[mode] = torch.cat(seen).numpy()
+            r = dict(predict_ms=cuda_ms(
+                lambda: im.predict(x, batch_size=P17_BATCH),
+                iters=P17_REPS, warmup=2),
+                resident_bytes=qlib.resident_bytes(im._module))
+            if mode == "fp32":
+                r["mean_top_prob"] = float(outs[mode].max(-1).mean())
+            else:
+                r.update(agreement=p16_agree(np, outs[mode], outs["fp32"]),
+                         nrmse=p16_nrmse(np, outs[mode], outs["fp32"]),
+                         logits_agreement=p16_agree(np, logits[mode],
+                                                    logits["fp32"]),
+                         logits_nrmse=p16_nrmse(np, logits[mode],
+                                                logits["fp32"]))
+            if mode == "int8":
+                r["calibrated"] = len(im._act_ranges)
+                r["products"], r["product_kernels"], _ = p16_int8_products(
+                    torch, im, x, batch=P17_BATCH, out_dir=P17_DIR)
+                r["bitwise"] = p17_int8_convs_bitwise(
+                    torch, im, x[:P17_CHECK_ROWS])
+            rep[mode] = r
+            del im
+    i8 = rep["int8"]
+    log(f"phase 17(c) ResNet-50 predict on {kind}, {P17_BATCH} x "
+        f"{P17_IMAGE} px, {P17_INT8_CLASSES} classes: ms (CUDA events) "
+        + ", ".join(f"{m} {rep[m]['predict_ms']:.3f}" for m in rep)
+        + "; resident bytes " + ", ".join(
+            f"{m} {rep[m]['resident_bytes']}" for m in rep)
+        + f"; fp32's mean top probability {rep['fp32']['mean_top_prob']:.4f}"
+        + "; against fp32 (TF32 off), on the logits (JAX's readings on "
+        "the probabilities in brackets): " + ", ".join(
+            f"{m} agreement {rep[m]['logits_agreement']:.4f} nrmse "
+            f"{rep[m]['logits_nrmse']:.4g} ({rep[m]['agreement']:.4f}, "
+            f"{rep[m]['nrmse']:.4g})" for m in ("bf16", "int8"))
+        + f"; int8: {i8['calibrated']} layers calibrated, {i8['products']} "
+        f"int8 products a forward ({i8['product_kernels']}; JAX's plan "
+        f"takes {P17_INT8_PRODUCTS}); layers bitwise their CPU selves "
+        f"{i8['bitwise']}")
+    if not (np.isfinite(outs["int8"]).all()
+            and i8["agreement"] >= P16_AGREE and i8["nrmse"] < P16_NRMSE
+            and i8["logits_agreement"] >= P16_AGREE
+            and i8["logits_nrmse"] < P16_NRMSE
+            and i8["calibrated"] == P17_INT8_PRODUCTS
+            and i8["products"] == P17_INT8_PRODUCTS
+            and len(i8["bitwise"]) == 2 and all(i8["bitwise"].values())):
+        raise AssertionError(f"17(c): {rep}")
+    return rep
+
+
+# cuDNN's convolution kernels by name (H100, torch 2.11, cuDNN 9:
+# sm90_xmma_{fprop,dgrad,wgrad}_implicit_gemm_..., cutlass ImplicitGemm
+# and s16816fprop kernels, split-k reductions, padding) and the GEMMs of
+# the Dense and of the 1x1 convolutions cuDNN hands to cuBLAS (nvjet,
+# cutlass s16816gemm)
+P17_CONV_KERNEL = (r"(?i)(conv|fprop|dgrad|wgrad|implicit_gemm|"
+                   r"xmma_.*(fprop|dgrad|wgrad)|cudnn)")
+P17_GEMM_KERNEL = r"(?i)(nvjet|gemm)"
+# the one 4-D activation a bf16 step copies: the input batch cast to bf16
+P17_ACTIVATION_COPIES = 1
+
+
+def p17_profile(torch, np, clf, kind):
+    """17(d): where a bf16 training step's time goes, from the profiler's
+    trace of the last of P17_PROFILE_STEPS steps."""
+    import re
+    from collections import Counter
+    x, y = p17_data(np, P17_BATCH, seed=6)
+    est = clf.model.estimator
+    xs, ys = est._tensors(x), est._tensors(y)
+    est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        for i in range(P17_PROFILE_STEPS):
+            with torch.profiler.record_function(f"p17_step_{i}"):
+                est._train_step(xs, ys)
+            torch.cuda.synchronize()
+    path = os.path.join(P17_DIR, "train_step.pt.trace.json")
+    prof.export_chrome_trace(path)
+    events = trace_events(path)
+    last = f"p17_step_{P17_PROFILE_STEPS - 1}"
+    dev_rng = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+               if e.get("cat") == "gpu_user_annotation"
+               and e.get("name") == last]
+    host_rng = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                if e.get("cat") == "user_annotation"
+                and e.get("name") == last]
+    if not dev_rng or not host_rng:
+        raise AssertionError("17(d): the last step's ranges are not in the "
+                             "trace")
+    lo, hi = dev_rng[0]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and lo <= e["ts"] <= hi]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    wall = (host_rng[0][1] - host_rng[0][0]) / 1e3
+    by_name = Counter()
+    for e in kernels:
+        by_name[e["name"]] += e.get("dur", 0) / 1e3
+    conv = re.compile(P17_CONV_KERNEL)
+    gemm = re.compile(P17_GEMM_KERNEL)
+    conv_ms = sum(v for k, v in by_name.items() if conv.search(k))
+    gemm_ms = sum(v for k, v in by_name.items()
+                  if gemm.search(k) and not conv.search(k))
+    norm_ms = sum(v for k, v in by_name.items() if "batch_norm" in k)
+    hlo, hhi = host_rng[0]
+    copies = [e for e in events if e.get("cat") == "cpu_op"
+              and e.get("name") in ("aten::copy_", "aten::clone",
+                                    "aten::contiguous")
+              and hlo <= e["ts"] <= hhi]
+    act_copies = 0
+    for e in copies:
+        dims = (e.get("args") or {}).get("Input Dims") or []
+        if dims and len(dims[0]) == 4 and dims[0][0] == P17_BATCH:
+            act_copies += 1
+    rep = dict(kernels=len(kernels), device_busy_ms=busy, wall_ms=wall,
+               idle_share=max(0.0, 1 - busy / wall) if wall else None,
+               conv_ms=conv_ms, conv_share=conv_ms / busy if busy else None,
+               gemm_ms=gemm_ms, norm_ms=norm_ms,
+               top=[(k, round(v, 4)) for k, v in by_name.most_common(10)],
+               activation_copies=act_copies,
+               conv_kernels=sorted(k for k in by_name if conv.search(k)),
+               by_name={k: round(v, 5) for k, v in by_name.most_common()})
+    log(f"phase 17(d) a bf16 ResNet-50 training step on {kind} "
+        f"(profiler, step {P17_PROFILE_STEPS} of {P17_PROFILE_STEPS}): "
+        f"{rep['kernels']} kernels, {busy:.3f} ms of device time in a "
+        f"{wall:.3f} ms step (idle share {rep['idle_share']:.3f}); "
+        f"cuDNN's convolution kernels {conv_ms:.3f} ms "
+        f"({rep['conv_share']:.3f} of device time), cuBLAS's GEMMs "
+        f"{gemm_ms:.3f} ms, the batch norms' kernels {norm_ms:.3f} ms; "
+        f"copies of 4-D activations {act_copies} (limit "
+        f"{P17_ACTIVATION_COPIES}: the input's cast); top "
+        f"device operations (ms) {rep['top']}")
+    if not rep["kernels"] or not busy or not conv_ms or \
+            act_copies > P17_ACTIVATION_COPIES:
+        raise AssertionError(f"17(d): {rep}")
+    return rep
+
+
+def phase_image(torch, np, kind):
+    """Phase 17: ResNet-50 through ImageClassifier on the card (ROADMAP
+    A15); the directory it writes is removed after."""
+    import shutil
+    shutil.rmtree(P17_DIR, ignore_errors=True)
+    os.makedirs(P17_DIR)
+    t0 = time.perf_counter()
+    rep = {}
+    try:
+        bf16, state, rep["a"] = p17_train(torch, np, kind)
+        rep["d"] = p17_profile(torch, np, bf16, kind)
+        del bf16
+        torch.cuda.empty_cache()
+        rep["b"] = p17_correctness(torch, np, state, kind)
+        torch.cuda.empty_cache()
+        rep["c"] = p17_predict(torch, np, kind)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(P17_DIR, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t0
+    rep["launches"] = {"resnet50_train": rep["a"]["launches"]}
     return rep
 
 
@@ -5984,13 +6718,19 @@ def main() -> int:
         f"16 with the step profiler's sampled fences "
         f"{fences['profiled']['ms_per_step']:.3f}, without "
         f"{fences['no_fences']['ms_per_step']:.3f}")
+    # 17. ResNet-50 (ROADMAP A15): training, correctness, predict and
+    # int8, the profile; no kernel of queue B runs on it
+    report["image"] = phase_image(torch, np, kind)
+    log(f"phase 17: {report['image']['seconds']:.1f} s; launches by path: "
+        f"{report['image']['launches']}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
                           "ncf_train": ncf_train_counts,
                           "checkpoints": ckpt_counts, "zoo": zoo_counts,
                           "tcn": tcn_counts, "a3": a3_counts,
-                          "a7": a7_counts, "a7b": a7b_counts}
+                          "a7": a7_counts, "a7b": a7b_counts,
+                          "image": report["image"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in

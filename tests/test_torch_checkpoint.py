@@ -10,8 +10,10 @@ the CPU.
   steps, saved by JAX and loaded by the port, is written back by the port
   byte for byte as ``flax.serialization.to_bytes`` of the JAX state: NCF
   with adam, with SGD (momentum and weight decay), with adamw, with adam
-  under l2-norm clipping and with adam on a schedule, and a 2-block BERT
-  classifier (hidden 64, 4 heads).
+  under l2-norm clipping and with adam on a schedule, a 2-block BERT
+  classifier (hidden 64, 4 heads), and a ``resnet-lite`` ImageClassifier
+  (its batch norms' running statistics in ``model_state`` as flax's
+  ``batch_stats`` collection).
 - **Cross loading, both ways.** NCF (``save_model``), the NCF with an
   item-history column (``save_weights``), Seq2Seq (``save_model``; greedy
   tokens equal) and the BERT classifier (``save``): predictions within
@@ -33,7 +35,8 @@ the CPU.
   a snapshot and its budget, several-iteration snapshots, retention at
   ``checkpoint_max_to_keep``, a torn or wrong-model version skipped,
   auto-resume bitwise equal to an unfaulted run (epoch and mid-epoch
-  snapshots), ``ZOO_FIT_MAX_RESUMES``, ``set_checkpoint``, weights of a
+  snapshots; also for a model with batch norms, running statistics
+  included), ``ZOO_FIT_MAX_RESUMES``, ``set_checkpoint``, weights of a
   TimeDistributed graph, and full-model ``save``/``load``.
 
 JAX is imported by fixtures only.
@@ -866,3 +869,87 @@ def test_functional_and_diverse_layers_save_load(tmp_path):
     m.save(str(tmp_path / "func"))
     loaded = KerasNet.load(str(tmp_path / "func"))
     np.testing.assert_array_equal(loaded.predict([xa, xi]), want)
+
+
+# ------------------------------------------------- batch norms' statistics
+
+def test_batch_norm_state_bytes_equal_flax(jx, tmp_path):
+    """A ``resnet-lite`` fit by JAX for two steps: its state (the
+    ``batch_stats`` collection in ``model_state`` included) read by the
+    port and written back byte for byte as flax writes it."""
+    from analytics_zoo_tpu.models.image.imageclassification import (
+        ImageClassifier as JImageClassifier,
+    )
+
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    kw = dict(class_num=2, model_name="resnet-lite", image_size=16)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(16, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 2, 16).astype(np.int32)
+    j = JImageClassifier(**kw)
+    j.compile(optimizer="adam", loss=LOSS)
+    j.fit(x, y, batch_size=8, nb_epoch=1)
+    jest = j.model.estimator
+    assert sorted(jest._state["model_state"]) == ["batch_stats"]
+    want = _jax_bytes(jx, jest)
+    j.model.save_weights(str(tmp_path / "j"))
+    assert _state_file(str(tmp_path / "j")) == want
+    t = ImageClassifier(**kw)
+    t.compile(optimizer="adam", loss=LOSS, device="cpu")
+    t.model.load_weights(str(tmp_path / "j"))
+    est = t.model.estimator
+    assert est._py_step == 2
+    assert ckpt.to_bytes(est._state_tree()) == want
+    t.model.save_weights(str(tmp_path / "t"))
+    assert _state_file(str(tmp_path / "t")) == want
+    stats = jx["jax"].device_get(jest._state["model_state"])["batch_stats"]
+    for name, leaves in stats.items():
+        for leaf, v in leaves.items():
+            np.testing.assert_array_equal(
+                getattr(t.model.module, name)._buffers[leaf].numpy(), v)
+    np.testing.assert_allclose(t.predict(x[:8], batch_size=8),
+                               np.asarray(j.predict(x[:8], batch_size=8)),
+                               rtol=0, atol=1e-5)
+
+
+def _bn_net(seed=0):
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras import layers as tl
+    inp = Input(shape=(4,))
+    h = tl.Dense(8)(inp)
+    h = tl.BatchNormalization(momentum=0.9)(h)
+    h = tl.Activation("relu")(h)
+    model = Model(input=inp, output=tl.Dense(1)(h), seed=seed)
+    model.compile(optimizer="adam", loss="mse", device="cpu")
+    return model
+
+
+def test_batch_norm_fit_auto_resume_mid_epoch_bitwise(tmp_path):
+    """A mid-epoch snapshot (SeveralIteration(3)) of a model with a batch
+    norm, a fault two steps later, auto-resume: parameters, running
+    statistics, optimizer state and history bitwise an unfaulted run's."""
+    x, y = _reg_data(64)
+
+    def run(faulted, mdir):
+        resilience.install_plan("wedge@step:11" if faulted else None)
+        model = _bn_net()
+        model.set_checkpoint(mdir)
+        hist = model.fit(x, y, batch_size=16, nb_epoch=3,
+                         checkpoint_trigger=SeveralIteration(3),
+                         auto_resume=faulted)
+        resilience.install_plan(None)
+        return model, hist
+
+    a, ha = run(False, str(tmp_path / "a"))
+    b, hb = run(True, str(tmp_path / "b"))
+    ea, eb_ = a.estimator, b.estimator
+    assert ea._py_step == eb_._py_step == 12
+    assert ha == hb and ea.step_losses == eb_.step_losses
+    sa, sb = a.module.state_dict(), b.module.state_dict()
+    assert sorted(sa) == sorted(sb)
+    assert any(k.endswith(".var") for k in sa)
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+    for k in ("mu", "nu"):
+        for p, q in zip(ea._opt_state[k], eb_._opt_state[k]):
+            assert torch.equal(p, q)

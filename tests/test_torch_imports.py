@@ -60,7 +60,9 @@ def test_importing_every_module_loads_no_jax():
                 "common.pipeline_io", "common.compile_ahead",
                 "serving.broker", "serving.frontend", "serving.client",
                 "serving.schema", "serving.config", "serving.start",
-                "common.profiling", "common.fleet", "observability"):
+                "common.profiling", "common.fleet", "observability",
+                "models.image", "keras.layers",
+                "models.image.imageclassification.image_classifier"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame

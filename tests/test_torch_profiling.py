@@ -197,19 +197,45 @@ def _mlp():
                                torch.nn.Dropout(0.2), torch.nn.Linear(16, 3))
 
 
+def _mlp_hand_counts(m: int) -> dict:
+    """The hand count of ``_mlp``'s forward and backward under mse at
+    batch ``m`` (profiling's rules): the products (2mkn a product; the
+    weight gradient of each layer, the input gradient of all but the
+    first) with addmm's bias adds, and each elementwise op."""
+    return {
+        "aten.addmm": 2 * m * 6 * 16 + 2 * m * 16 * 3 + m * 16 + m * 3,
+        "aten.mm": 2 * m * 6 * 16 + 2 * (2 * m * 16 * 3),
+        "aten.relu": m * 16, "aten.threshold_backward": m * 16,
+        # dropout: the mask's scale, the product forward and backward
+        "aten.div_": m * 16, "aten.mul": 2 * m * 16 + 2 * m * 3,
+        # mse: (y - p) ** 2, mean over 3 then over m; backward the two
+        # means' divisions and the square's 2 * (y - p) * g
+        "aten.sub": m * 3, "aten.pow": m * 3,
+        "aten.mean": (m * 3 + m) + (m + 1), "aten.div": m + m * 3,
+        # the biases' gradients
+        "aten.sum": m * 3 + m * 16,
+    }
+
+
 def test_mlp_step_flops_equal_the_hand_count():
     from analytics_zoo_tpu_torch.learn.estimator import Estimator
     est = Estimator.from_torch(model=_mlp(), loss="mse", device="cpu")
     x = np.random.RandomState(0).randn(32, 6).astype(np.float32)
     y = np.zeros((32, 3), np.float32)
     m = 32
-    # forward 2mkn a product; backward: the weight gradient of each
-    # layer, the input gradient of all but the first (x needs none)
-    hand = (2 * m * 6 * 16) * 2 + (2 * m * 16 * 3) * 3
-    assert profiling.step_flops(lambda: est._loss_and_grads(x, y)) == hand
+    counts = profiling.step_flop_counts(lambda: est._loss_and_grads(x, y))
+    hand = _mlp_hand_counts(m)
+    # the product terms: forward 2mkn a product; backward the weight
+    # gradient of each layer, the input gradient of all but the first
+    products = (2 * m * 6 * 16) * 2 + (2 * m * 16 * 3) * 3
+    assert counts["aten.addmm"] + counts["aten.mm"] == products + m * 19
+    assert counts == hand
+    assert profiling.step_flops(lambda: est._loss_and_grads(x, y)) == \
+        sum(hand.values())
 
 
-def _bert_step_flops(use_flash: bool, causal_seq: int = 16) -> float:
+def _bert_step_flops(use_flash: bool, causal_seq: int = 16,
+                     counts: bool = False):
     from analytics_zoo_tpu_torch.learn.estimator import Estimator
     from analytics_zoo_tpu_torch.text import BertConfig, init_bert_weights
     from analytics_zoo_tpu_torch.text.estimators import _ClassifierModule
@@ -222,21 +248,34 @@ def _bert_step_flops(use_flash: bool, causal_seq: int = 16) -> float:
     ids = np.random.RandomState(0).randint(0, 100, (4, causal_seq)).astype(
         np.int32)
     y = np.zeros(4, np.int64)
-    return profiling.step_flops(lambda: est._loss_and_grads(ids, y))
+    count = profiling.step_flop_counts if counts else profiling.step_flops
+    return count(lambda: est._loss_and_grads(ids, y))
 
 
 @pytest.mark.parametrize("seq", [16, 40])
 def test_bert_step_counts_the_same_by_flash_and_einsum(seq):
     """The flash Function's registered count (forward 4bhsqskd, backward
-    twice that) is the einsum chain's, which FlopCounterMode measures
-    directly; the hand count of the step agrees."""
-    flash, chain = _bert_step_flops(True, seq), _bert_step_flops(False, seq)
+    twice that, and the chain's elementwise work on the scores) is the
+    einsum chain's, which FlopCounterMode measures directly; the chain's
+    products are the hand count, with addmm's bias adds."""
+    flash = _bert_step_flops(True, seq, counts=True)
+    chain = _bert_step_flops(False, seq, counts=True)
+    assert sum(flash.values()) == sum(chain.values())
     b, s, hid, heads, inter, blocks = 4, seq, 64, 4, 128, 2
     m = b * s
     fwd = blocks * (2 * m * (3 * hid * hid + hid * hid + 2 * hid * inter)
                     + 4 * b * heads * s * s * (hid // heads)) \
         + 2 * b * hid * hid + 2 * b * hid * 2
-    assert flash == chain == 3 * fwd
+    bias = blocks * m * (5 * hid + inter) + b * hid + b * 2
+    assert chain["aten.mm"] + chain["aten.addmm"] + chain["aten.bmm"] \
+        == 3 * fwd + bias
+    # the chain's scores: its division, softmax (4 forward, 5 backward),
+    # forward and backward, and flash's registered count of them
+    n = blocks * b * heads * s * s
+    assert chain["aten._softmax"] == 4 * n
+    assert chain["aten._softmax_backward_data"] == 5 * n
+    assert flash["zoo_torch.flash_fwd"] + flash["zoo_torch.flash_bwd"] == \
+        chain["aten.bmm"] + (4 + 5 + 2) * n
 
 
 def test_flash_counted_ops_hide_their_bodies():
@@ -249,7 +288,11 @@ def test_flash_counted_ops_hide_their_bodies():
             display=False, custom_mapping=formulas) as mode:
         out = fa.flash_attention(q, k, v, causal=True)
         out.sum().backward()
-    assert mode.get_total_flops() == 3 * 4 * 2 * 2 * 8 * 8 * 16
+    # the products (forward 4bhsqskd, backward twice that) and the
+    # chain's work on the scores: division, causal select, softmax (4
+    # forward, 5 backward)
+    n = 2 * 2 * 8 * 8
+    assert mode.get_total_flops() == 3 * 4 * n * 16 + (4 + 5 + 2 + 2) * n
     assert not fa.counting()
     want = fa.flash_attention(q.detach(), k.detach(), v.detach(),
                               causal=True)
@@ -266,14 +309,15 @@ def test_fit_publishes_flops_hbm_and_mfu(monkeypatch):
     y = rng.normal(size=(64, 3)).astype(np.float32)
     est.fit((x, y), epochs=2, batch_size=8, summary_interval=4)
     snap = telemetry.snapshot()
-    m = 8
-    assert snap["zoo_step_flops"] == (2 * m * 6 * 16) * 2 + \
-        (2 * m * 16 * 3) * 3
+    # a step at batch 8: the forward and backward, and Adam's update at
+    # 13 flops a parameter (optax's arithmetic, as XLA counts it)
+    n_params = sum(p.numel() for p in est.model.parameters())
+    assert snap["zoo_step_flops"] == sum(_mlp_hand_counts(8).values()) + \
+        13 * n_params
     assert 0 < snap["zoo_mfu"] < 1.0
     # sample_every = max(2, 4 // 2): 16 steps, 8 fenced
     assert snap["zoo_train_phase_seconds"]["phase=device"]["count"] == 8
     assert snap["zoo_train_phase_seconds"]["phase=data_wait"]["count"] == 16
-    n_params = sum(p.numel() for p in est.model.parameters())
     # the parameters, Adam's two moments, its count
     assert snap["zoo_hbm_bytes"]["source=live_tensors"] >= 3 * 4 * n_params
     text = telemetry.prometheus_text()
@@ -466,3 +510,244 @@ def test_trace_and_healthz_backend_over_http():
         body = json.loads(ei.value.read())
         assert body["backend"]["status"] == "ok"
         assert body["backend"]["platform"] == "cpu"
+
+
+# ------------------------------------------- C18: the count against JAX's
+
+#: ROADMAP C18: the port's zoo_step_flops over JAX's compiled_step_flops
+#: for the same step (forward, backward, Adam's update), as measured here.
+#: The port counts each op by XLA's rules (profiling.step_formulas); what
+#: is left is XLA's lowering: BERT's dropout draws threefry's integer
+#: arithmetic (about 53 flops a masked element, 3.1M of its 5.1M gap), and
+#: XLA's count of an elementwise chain moves with its fusion (relu's mask
+#: 4 an element in a keras step, 2 alone; gelu's backward 16 against 7).
+#: NCF and resnet-lite are held within C18_PARITY of JAX's count; each
+#: ratio within C18_TOL of its reading.
+C18_RATIO = {"ncf": 0.97824, "bert": 0.91958, "resnet_lite": 0.98685}
+C18_TOL = 0.002
+C18_PARITY = {"ncf": 0.025, "resnet_lite": 0.025}
+
+
+def _jax_step_flops(model_fit):
+    """JAX's zoo_step_flops after ``model_fit()`` (one keras or estimator
+    fit), which its step profiler takes from ``compiled_step_flops``, on a
+    mesh of one device: over the tests' 8 virtual devices XLA
+    would count one device's share of the partitioned step."""
+    import jax
+
+    from analytics_zoo_tpu.common import telemetry as jtelemetry
+    from analytics_zoo_tpu.parallel import mesh as jmesh
+    jtelemetry.reset_for_tests()
+    jmesh.build_mesh(devices=jax.devices()[:1])
+    try:
+        model_fit()
+    finally:
+        jmesh.build_mesh()
+    flops = jtelemetry.snapshot()["zoo_step_flops"]
+    jtelemetry.reset_for_tests()
+    return float(flops)
+
+
+def _c18_ncf():
+    from analytics_zoo_tpu.learn.optimizers import Adam as JAdam
+    from analytics_zoo_tpu.models.recommendation import NeuralCF as JNCF
+
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    # bench.py's build_ncf: MovieLens-1M width, Adam(1e-3), batch 8000
+    args = dict(user_count=6040, item_count=3706, class_num=5,
+                user_embed=20, item_embed=20, hidden_layers=(40, 20, 10),
+                include_mf=True, mf_embed=20)
+    rng = np.random.default_rng(0)
+    u, i = rng.integers(1, 6041, 8000), rng.integers(1, 3707, 8000)
+    x = np.stack([u, i], 1).astype(np.float32)
+    y = ((u + i) % 5).astype(np.int32)
+    jm = JNCF(**args)
+    jm.compile(optimizer=JAdam(1e-3), loss="sparse_categorical_crossentropy")
+    want = _jax_step_flops(lambda: jm.fit(x, y, batch_size=8000,
+                                          nb_epoch=1))
+    m = NeuralCF(**args)
+    m.compile(optimizer=Adam(1e-3), loss="sparse_categorical_crossentropy",
+              device="cpu")
+    return m.model.estimator._step_flops(x, y), want
+
+
+def _c18_bert():
+    import flax.linen as fnn
+
+    from analytics_zoo_tpu.learn.estimator import Estimator as JEstimator
+    from analytics_zoo_tpu.text.bert import BertConfig as JConfig
+    from analytics_zoo_tpu.text.estimators import (
+        _ClassifierModule as JClassifier,
+    )
+    small = dict(vocab=100, hidden_size=64, n_block=2, n_head=4,
+                 intermediate_size=128, max_position_len=64)
+
+    class Ids(fnn.Module):
+        @fnn.compact
+        def __call__(self, ids, train: bool = False):
+            return JClassifier(JConfig(use_flash=False, **small), 2,
+                               name="clf")(ids, None, None, train=train)
+
+    ids = np.random.RandomState(0).randint(0, 100, (8, 16)).astype(np.int32)
+    y = np.zeros(8, np.int32)
+    jest = JEstimator.from_flax(
+        model=Ids(), loss="sparse_categorical_crossentropy_logits",
+        optimizer="adam", sample_input=ids)
+    want = _jax_step_flops(lambda: jest.fit((ids, y), epochs=1,
+                                            batch_size=8))
+    from analytics_zoo_tpu_torch.learn.estimator import Estimator
+    from analytics_zoo_tpu_torch.text import BertConfig, init_bert_weights
+    from analytics_zoo_tpu_torch.text.estimators import _ClassifierModule
+    est = Estimator.from_torch(
+        model=init_bert_weights(_ClassifierModule(
+            BertConfig(use_flash=True, **small), 2), 0),
+        loss="sparse_categorical_crossentropy_logits", optimizer="adam",
+        device="cpu")
+    return est._step_flops(ids, y.astype(np.int64)), want
+
+
+def _c18_resnet_lite():
+    from analytics_zoo_tpu.models.image.imageclassification import (
+        ImageClassifier as JImageClassifier,
+    )
+
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    kw = dict(class_num=2, model_name="resnet-lite", image_size=32)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 2, 8).astype(np.int32)
+    jclf = JImageClassifier(**kw)
+    jclf.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    want = _jax_step_flops(lambda: jclf.fit(x, y, batch_size=8, nb_epoch=1))
+    clf = ImageClassifier(**kw)
+    clf.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                device="cpu")
+    return clf.model.estimator._step_flops(x, y), want
+
+
+@pytest.mark.parametrize("name", sorted(C18_RATIO))
+def test_step_flops_against_jax_compiled_step_flops(name):
+    """C18: the port's count of a step against JAX's: NCF and resnet-lite
+    at parity within C18_PARITY, every ratio at its reading within
+    C18_TOL (the module comment above says what BERT's gap holds)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    got, want = globals()[f"_c18_{name}"]()
+    print(f"C18 {name}: port {got:.0f}, JAX {want:.0f}, "
+          f"ratio {got / want:.5f}")
+    assert abs(got / want - C18_RATIO[name]) < C18_TOL
+    if name in C18_PARITY:
+        assert abs(got / want - 1) < C18_PARITY[name]
+
+
+# --------------------------------- the counting rules against XLA's own
+
+def _xla_flops(fn, *args) -> float:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    ca = jax.jit(fn).lower(*args).compile().cost_analysis()
+    ca = ca[0] if isinstance(ca, (list, tuple)) else ca
+    return float(ca.get("flops") or 0.0)
+
+
+@pytest.mark.parametrize("k,stride,padding", [
+    (3, 1, "SAME"), (3, 2, "SAME"), (7, 2, ((3, 3), (3, 3))),
+    (1, 1, "VALID"), (3, 1, ((1, 1), (1, 1)))])
+def test_convolution_counts_the_taps_xla_counts(k, stride, padding):
+    """A convolution's forward and its input and weight gradients count 2
+    a multiply-add over the taps inside the input, as XLA's cost analysis
+    of lax.conv_general_dilated and its VJP does (none on padding)."""
+    import jax
+    import jax.numpy as jnp
+
+    from analytics_zoo_tpu_torch.common.flax_compat import Conv
+    conv = Conv(16, 32, (k, k), bias=False, strides=stride,
+                padding=padding)
+    x = torch.randn(8, 32, 32, 16, requires_grad=True)
+    with torch.no_grad():
+        y = conv(x)
+    g = torch.randn_like(y)
+
+    def fwd(a, w):
+        return jax.lax.conv_general_dilated(
+            a, w, (stride, stride), padding,
+            dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+    a, w = jnp.ones((8, 32, 32, 16)), jnp.ones((k, k, 16, 32))
+    want_fwd = _xla_flops(fwd, a, w)
+    want_bwd = _xla_flops(lambda a, w, g: jax.vjp(fwd, a, w)[1](g), a, w,
+                          jnp.ones(tuple(y.shape)))
+    counts = profiling.step_flop_counts(lambda: conv(x).backward(g))
+    assert counts == {"aten.convolution": want_fwd,
+                      "aten.convolution_backward": want_bwd}
+
+
+def test_batch_norm_and_adam_count_as_xla_counts_flax_and_optax():
+    """flax's BatchNorm in training (its forward, and its backward with a
+    live cotangent) and optax's Adam update count what XLA counts of
+    them, the per-channel arithmetic of the statistics (under 32 flops a
+    channel) and Adam's step count aside."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from analytics_zoo_tpu_torch.common.flax_compat import BatchNorm
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    x = jnp.ones((64, 8, 8, 32))
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9)
+    v = bn.init(jax.random.PRNGKey(0), x)
+
+    def f(p, x):
+        return bn.apply({"params": p, "batch_stats": v["batch_stats"]}, x,
+                        mutable=["batch_stats"])[0]
+
+    want_fwd = _xla_flops(f, v["params"], x)
+    want_all = _xla_flops(lambda p, x, g: jax.vjp(f, p, x)[1](g),
+                          v["params"], x, x)
+    mod = BatchNorm(32, momentum=0.9)
+    xt = torch.randn(64, 8, 8, 32, requires_grad=True)
+    with torch.no_grad():
+        yt = mod(xt.detach(), train=True)
+    counts = profiling.step_flop_counts(
+        lambda: mod(xt, train=True).backward(torch.ones_like(yt)))
+    n = xt.numel()
+    assert counts["aten._native_batch_norm_legit"] == 6 * n
+    assert counts["aten.native_batch_norm_backward"] == 7 * n
+    # XLA's forward, and its VJP (which recomputes the forward) less the
+    # forward, within 32 flops a channel of 6 and 7 an element
+    assert abs(want_fwd - 6 * n) <= 32 * 32
+    assert abs(want_all - want_fwd - 7 * n) <= 32 * 32
+    p = {"w": jnp.ones((100, 10))}
+    opt = optax.adam(1e-3)
+    st = opt.init(p)
+
+    def upd(g, st, p):
+        u, st = opt.update(g, st, p)
+        return optax.apply_updates(p, u), st
+
+    want_adam = _xla_flops(upd, p, st, p)
+    params = [torch.ones(100, 10)]
+    adam = Adam(1e-3)
+    state = {"count": 0, **adam.init(params)}
+    got = profiling.step_flops(
+        lambda: adam.step(params, [torch.ones(100, 10)], state, 0))
+    assert abs(got - want_adam) <= 16 and got == 13 * 1000
+
+
+def test_counted_hides_a_kernels_plain_body():
+    """While a step is counted, the lookup's plain version (the CPU's
+    stand-in for the kernel) shows only its registered count: the concat
+    forward none, the scatter-add backward an update a row element."""
+    from analytics_zoo_tpu_torch.ops import embedding_bag as eb
+    tables = [torch.randn(50, 8, requires_grad=True),
+              torch.randn(30, 4, requires_grad=True)]
+    ids = torch.tensor([[1, 2], [3, 4], [49, 29]], dtype=torch.int32)
+
+    def step():
+        out = eb.fused_embedding_lookup(tables, ids, "concat")
+        torch.autograd.grad(out, tables, torch.ones_like(out))
+
+    assert profiling.step_flop_counts(step) == {"counted": 3 * (8 + 4)}
+    assert not profiling._counting

@@ -7,16 +7,22 @@ inputs go through both packages:
 - weight mode: every ``QuantizedLeaf``'s q and scale bitwise equal to
   JAX's ``quantize_tree`` for a small NCF, a 2-block BERT (hidden 64, 4
   heads: the ``[in, h, d]`` projections, the ``[h, d]`` biases, the
-  ``[h, d, out]`` output and the embedding tables) and a TCN (its convs);
+  ``[h, d, out]`` output and the embedding tables), a TCN (its convs) and
+  a ``resnet-lite`` ImageClassifier at 16 px (its 4-D kernels; the batch
+  norms stay float, as in JAX);
   ``tree_nbytes`` and ``dequantize_tree`` equal; predictions within
   1e-5;
 - int8 mode: the calibration dict has JAX's keys (no attention
   projection among them) with values within 1e-6 relative; one int8
-  Dense (with an n that ``int_mm`` pads) and one int8 Conv1D bitwise
-  JAX's interceptor for the same input and amax, from a stored and from
-  an on-the-fly kernel; whole models within 1e-5 of JAX's int8 output
-  with the same argmax (measured on this suite's inputs: NCF 1.5e-8,
-  BERT 3.6e-7, TCN 0; weight mode: NCF 3.0e-8, BERT 7.2e-7, TCN 4.8e-7);
+  Dense (with an n that ``int_mm`` pads), one int8 Conv1D and one int8
+  Conv2D / Conv3D (3x3 at stride 2 under XLA's SAME, 1x1, explicit and
+  asymmetric padding) bitwise JAX's interceptor for the same input and
+  amax, from a stored and from an on-the-fly kernel; whole models within
+  1e-5 of JAX's int8 output with the same argmax (measured on this
+  suite's inputs: NCF 1.5e-8, BERT 3.6e-7, TCN 0; weight mode: NCF
+  3.0e-8, BERT 7.2e-7, TCN 4.8e-7); int8 ``resnet-lite`` against its own
+  float output within JAX's limits (tests/test_inference_net.py: argmax
+  agreement >= 0.97, nrmse < 0.1);
 - JAX's own quantize tests (tests/test_inference_net.py): idempotence,
   the errors, a bare ``torch.nn.Linear`` model refused, the byte shrink.
 
@@ -40,8 +46,13 @@ BERT_SMALL = dict(vocab=100, hidden_size=64, n_block=2, n_head=4,
 BERT_LEN = 16
 TCN_ARGS = dict(future_seq_len=2, num_channels=(8, 8), kernel_size=3,
                 dropout=0.0)
-#: whole int8 models against JAX's int8 output (measured above)
+#: whole int8 models against JAX's int8 output (measured above). An
+#: ImageClassifier's convolutions quantize the outputs of batch norms,
+#: which the packages compute a few fp32 ulps apart, so an activation on
+#: a rounding boundary can land one step apart (about amax / 127) and the
+#: difference rides on: resnet-lite is held within 1e-3 (measured: 2.5e-4)
 INT8_ATOL = 1e-5
+INT8_ATOL_LITE = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -132,9 +143,35 @@ def _tcn(jx):
     return jim, InferenceModel(device="cpu").load_torch(net, x[:2])
 
 
+LITE = dict(class_num=4, model_name="resnet-lite", image_size=16)
+
+
+def _lite_x(n=24, seed=3):
+    return np.random.default_rng(seed).standard_normal(
+        (n, 16, 16, 3)).astype(np.float32)
+
+
+def _lite(jx):
+    """``resnet-lite`` in both packages, its parameters and running
+    statistics JAX's."""
+    from analytics_zoo_tpu.models.image.imageclassification import (
+        ImageClassifier as JImageClassifier,
+    )
+
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    jim = jx["JIM"]().load_zoo(JImageClassifier(**LITE))
+    variables = jx["jax"].device_get(jim._params)
+    clf = ImageClassifier(**LITE)
+    sd = flax_to_state_dict(variables["params"])
+    sd.update(flax_to_state_dict(variables["model_state"]["batch_stats"]))
+    clf.model.module.load_state_dict(sd, strict=True)
+    return jim, InferenceModel(device="cpu").load_zoo(clf)
+
+
 MODELS = {"ncf": (_ncf, lambda: _pairs(64, 1), 64),
           "bert": (_bert, lambda: _bert_ids(24, 1), 64),
-          "tcn": (_tcn, _tcn_x, 16)}
+          "tcn": (_tcn, _tcn_x, 16),
+          "lite": (_lite, _lite_x, 64)}
 
 
 def _jax_tree(name, jim):
@@ -216,7 +253,9 @@ def test_int8_mode_matches_jax(jx, name):
         assert {"bert/block_0/intermediate", "bert/block_1/output",
                 "bert/pooler", "classifier"} <= set(im._act_ranges)
     got, want = _predict(name, im, x), np.asarray(jim.predict(x))
-    np.testing.assert_allclose(got, want, rtol=0, atol=INT8_ATOL)
+    np.testing.assert_allclose(
+        got, want, rtol=0, atol=INT8_ATOL_LITE if name == "lite"
+        else INT8_ATOL)
     assert (got.argmax(-1) == want.argmax(-1)).all()
 
 
@@ -290,6 +329,62 @@ def test_one_int8_conv1d_is_jax_bit_for_bit(jx, stored, kernel, dilation):
     tq.int8_modules(mod, {"c": amax})
     got = mod(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stored", [False, True])
+@pytest.mark.parametrize("kernel,strides,padding", [
+    ((3, 3), (2, 2), "SAME"), ((1, 1), (1, 1), "VALID"),
+    ((1, 1), (2, 2), "SAME"), ((3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((3, 2), (2, 1), ((0, 1), (2, 0))), ((2, 3, 3), (1, 2, 2), "SAME")])
+def test_one_int8_conv2d_and_3d_is_jax_bit_for_bit(jx, stored, kernel,
+                                                   strides, padding):
+    fnn, jnp = jx["nn"], jx["jax"].numpy
+    jq = jx["jq"]
+
+    class J(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return fnn.Conv(6, kernel, strides=strides, padding=padding,
+                            name="c")(x)
+
+    shape = (4,) + (9,) * len(kernel) + (5,)
+    x = np.random.RandomState(len(kernel)).randn(*shape).astype(np.float32)
+    params = J().init(jx["jax"].random.PRNGKey(1), x)["params"]
+    amax = float(np.abs(x).max())
+    qparams = jq.quantize_tree(params, min_elems=1) if stored else None
+    with fnn.intercept_methods(jq.int8_interceptor({"c": amax}, qparams)):
+        want = np.asarray(J().apply({"params": params}, jnp.asarray(x)))
+
+    class T(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c = flax_compat.Conv(5, 6, kernel, strides=strides,
+                                      padding=padding)
+
+        def forward(self, a):
+            return self.c(a)
+
+    mod = T()
+    mod.load_state_dict(flax_to_state_dict(jx["jax"].device_get(params)))
+    if stored:
+        tq.quantize_module(mod, min_elems=1)
+    tq.int8_modules(mod, {"c": amax})
+    got = mod(torch.from_numpy(x)).detach().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_resnet_lite_within_jax_limits(jx):
+    _, im = _lite(jx)
+    x = _lite_x(64, seed=5)
+    want = np.asarray(im.predict(x, batch_size=32))
+    # calibrated on half the rows, as JAX's own limit test does
+    im.quantize(mode="int8", calibration_data=x[:32], min_elems=1024)
+    assert len(im._act_ranges) == 10      # nine convolutions, the Dense
+    got = np.asarray(im.predict(x, batch_size=32))
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    nrmse = float(np.sqrt(np.mean((got - want) ** 2)) / want.std())
+    assert agree >= 0.97 and nrmse < 0.1, (agree, nrmse)
 
 
 def test_int_mm_pads_every_dimension_exactly():
