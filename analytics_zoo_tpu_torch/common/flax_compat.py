@@ -20,6 +20,11 @@
   ``weight [out, prod(k) * in]``, so ``convert`` carries it as it carries
   a Dense kernel. The forward views it as ``[out, *k, in]`` and permutes
   it to torch's ``[out, in, *k]``: a ``channels_last`` tensor, no copy.
+  ``feature_group_count`` (``groups``) splits the input and output
+  features into that many groups as flax's does: the kernel is then
+  ``[*k, in / groups, out]`` (``[out, prod(k) * in / groups]`` here) and
+  the convolution takes ``groups=`` (a depthwise convolution has
+  ``groups = in``).
   The input keeps JAX's channels-last layout: it is permuted to a
   channels-first view (``channels_last`` in memory), the convolution runs
   on cuDNN, and the output is permuted back, so no activation is
@@ -200,7 +205,7 @@ class Conv(nn.Module):
                  dilation: Union[int, Sequence[int]] = 1, bias: bool = True,
                  dtype: Optional[torch.dtype] = None,
                  strides: Union[int, Sequence[int]] = 1,
-                 padding: Padding = "VALID"):
+                 padding: Padding = "VALID", feature_group_count: int = 1):
         super().__init__()
         ks = (int(kernel_size),) if isinstance(kernel_size, int) \
             else tuple(int(k) for k in kernel_size)
@@ -213,12 +218,20 @@ class Conv(nn.Module):
         self.dilation = _tuple(dilation, nd)
         self.strides = _tuple(strides, nd)
         self.padding = canonical_padding(padding, nd)
+        self.groups = int(feature_group_count)
+        if self.in_features % self.groups or self.out_features % self.groups:
+            raise ValueError(
+                f"feature_group_count {self.groups} must divide the input "
+                f"({self.in_features}) and output ({self.out_features}) "
+                "features")
+        #: input features a group's kernel sees
+        self.group_features = self.in_features // self.groups
         self.weight = nn.Parameter(torch.empty(
-            self.out_features, math.prod(ks) * self.in_features))
+            self.out_features, math.prod(ks) * self.group_features))
         self.bias = nn.Parameter(torch.zeros(self.out_features)) \
             if bias else None
         #: the flax kernel's shape (``convert.flax_leaves``)
-        self.flax_kernel_shape = ks + (self.in_features, self.out_features)
+        self.flax_kernel_shape = ks + (self.group_features, self.out_features)
         self.compute_dtype = dtype
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
@@ -228,11 +241,11 @@ class Conv(nn.Module):
                             self.strides, self.dilation)
 
     def torch_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """``[out, in, *k]``: a view of the flattened weight
+        """``[out, in / groups, *k]``: a view of the flattened weight
         (``channels_last`` for 2-D and 3-D kernels)."""
         nd = len(self.kernel_size)
         w = self.weight.to(dtype).view(self.out_features, *self.kernel_size,
-                                       self.in_features)
+                                       self.group_features)
         return w.permute(0, nd + 1, *range(1, nd + 1))
 
     def forward(self, x):
@@ -246,7 +259,8 @@ class Conv(nn.Module):
         y = _CONV[len(self.kernel_size)](
             channels_first(x), self.torch_weight(cd),
             None if self.bias is None else self.bias.to(cd),
-            stride=self.strides, padding=conv_pad, dilation=self.dilation)
+            stride=self.strides, padding=conv_pad, dilation=self.dilation,
+            groups=self.groups)
         return channels_last(y)
 
 

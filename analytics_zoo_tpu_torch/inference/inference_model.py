@@ -10,6 +10,9 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
   (``load`` reads a ``save_model`` directory written by either package)
 - ``load_torch(module, sample_input)`` — any ``nn.Module`` of the port
   (e.g. the BERT classifier of ``text/estimators.py``)
+- ``load_checkpoint(path)`` — the parameters and the model state
+  (``batch_stats``) of a training snapshot, written by either package's
+  estimator (learn/checkpoint.py), into the loaded model
 - ``predict`` — chunked batch predict; with a bucket ladder the tail
   chunk pads to its nearest rung
 - ``predict_async`` / ``predict_fetch`` — the serving engine's staged
@@ -139,6 +142,53 @@ class InferenceModel:
             self._ready_rungs = set()
             self._qtree = self._act_ranges = None
         self._remember_spec(_as_tuple(sample_input), overwrite=True)
+        return self
+
+    def load_checkpoint(self, path: str) -> "InferenceModel":
+        """Restore the weights of a training snapshot into the loaded
+        model (ref doLoadBigDL's weight path): the newest ``ckpt-<n>``
+        under ``path``, or ``path`` itself when it is one, written by
+        either package (``Estimator.save``, a fit's checkpoint trigger,
+        ``save_weights``). The parameters are read from the snapshot's
+        ``params`` tree, and the buffers (a batch norm's running
+        statistics) from its ``model_state`` where the model has them;
+        both are checked against the model's shapes and dtypes first.
+        The optimizer state is not read. The restored module replaces the
+        loaded one whole, so a predict in flight finishes on the old
+        weights."""
+        from analytics_zoo_tpu_torch.convert import ParamLayout
+        from analytics_zoo_tpu_torch.learn import checkpoint as ckpt_lib
+
+        with self._lock:
+            if self._module is None:
+                raise RuntimeError("load a model before load_checkpoint")
+            if self._qtree is not None:
+                raise RuntimeError("load_checkpoint restores float weights: "
+                                   "call it before quantize")
+            module = self._module
+        found = ckpt_lib.find_latest_checkpoint(path)
+        tree, _ = ckpt_lib.read_checkpoint(path if found is None
+                                           else found[0])
+        layout = ParamLayout(module)
+        ckpt_lib.validate_state(tree["params"], layout.like)
+        values = layout.from_tree(tree["params"])
+        buffers = dict(module.named_buffers())
+        saved = {}
+        if buffers and tree.get("model_state"):
+            spec = layout.state_tree({k: v.to("meta")
+                                      for k, v in buffers.items()})
+            ckpt_lib.validate_state(tree["model_state"], spec)
+            saved = layout.state_from_tree(tree["model_state"])
+        module = copy.deepcopy(module)
+        named = dict(module.named_parameters())
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(values[n])
+            for k, b in module.named_buffers():
+                if k in saved:
+                    b.copy_(saved[k])
+        with self._lock:
+            self._module = module
         return self
 
     def quantize(self, min_elems: int = 1024, mode: str = "weight",

@@ -32,7 +32,14 @@ Counterpart of ``analytics_zoo_tpu/inference/quantize.py``:
   ``flax_compat.Conv`` takes) is the same product over its input's
   windows: the int8 input zero-padded (exact: q(0) = 0) and unfolded into
   ``[b * positions, prod(k) * in]`` rows (a 1x1 kernel is a reshape),
-  against the kernel flattened as ``convert`` holds it. The
+  against the kernel flattened as ``convert`` holds it. A grouped
+  convolution (JAX passes ``feature_group_count`` to its int8
+  convolution) sums each output over its group's ``prod(k) * in /
+  groups`` taps: where ``127 * 127`` times that count stays below 2^24
+  (a depthwise 3x3: 9 taps) the int8 values run as a float32 grouped
+  convolution, whose every partial sum is an integer float32 holds
+  exactly, so any order of summation, TF32's inputs included, gives the
+  int32 result; a wider group runs one ``int_mm`` a group. The
   attention projections (JAX's ``DenseGeneral``) stay float, as there.
 - **Paged KV int8** (``ZOO_KV_DTYPE=int8``, its lines 290-342), in numpy
   on the host as there: one float32 symmetric scale per page sits beside
@@ -438,12 +445,44 @@ def im2col(xq: torch.Tensor, kernel, strides, dilation) -> torch.Tensor:
     return win.permute(order).reshape(-1, math.prod(kernel) * c)
 
 
+#: the largest sum of int8 products float32 holds exactly: every integer
+#: of magnitude up to 2^24
+EXACT_FLOAT_SUM = 2 ** 24
+
+
+def grouped_int8_conv(conv, xq: torch.Tensor, wq: torch.Tensor
+                      ) -> torch.Tensor:
+    """The integer sums of a grouped convolution ``conv`` (a
+    ``flax_compat.Conv`` with ``groups > 1``) over the padded int8 input
+    ``xq [b, *spatial, in]`` and kernel ``wq [out, prod(k) * in /
+    groups]``, as exact float32 ``[b * positions, out]`` rows (module
+    docstring: one float32 grouped convolution where its sums stay exact,
+    else one ``int_mm`` a group)."""
+    from analytics_zoo_tpu_torch.common import flax_compat as fc
+    k, g = conv.kernel_size, conv.groups
+    taps = math.prod(k) * conv.group_features
+    if 127 * 127 * taps < EXACT_FLOAT_SUM:
+        y = fc._CONV[len(k)](
+            fc.channels_first(xq.float()),
+            wq.float().view(conv.out_features, *k, conv.group_features)
+            .permute(0, len(k) + 1, *range(1, len(k) + 1)),
+            stride=conv.strides, dilation=conv.dilation, groups=g)
+        return fc.channels_last(y).reshape(-1, conv.out_features)
+    a = im2col(xq, k, conv.strides, conv.dilation)
+    a = a.view(a.shape[0], math.prod(k), g, conv.group_features)
+    og = conv.out_features // g
+    return torch.cat([
+        int_mm(a[:, :, i].reshape(a.shape[0], taps),
+               wq[i * og:(i + 1) * og].t()).float()
+        for i in range(g)], dim=-1)
+
+
 class _Int8:
     """Mixin of a calibrated Dense or Conv: runs JAX's int8 interceptor
     (the module docstring) in place of its float forward. A convolution
     quantizes its input, zero-pads it in int8 (exact: q(0) = 0, as XLA
     pads the int8 operand), and runs the same ``int_mm`` over the input's
-    windows (:func:`im2col`)."""
+    windows (:func:`im2col`); a grouped one :func:`grouped_int8_conv`."""
 
     def forward(self, x):
         bufs = self._buffers
@@ -454,14 +493,19 @@ class _Int8:
             from analytics_zoo_tpu_torch.common.flax_compat import pad_last
             pads = self.pads(x.shape[1:-1])
             xq = pad_last(quantize_activation(x, s_in), pads)
-            a = im2col(xq, self.kernel_size, self.strides, self.dilation)
             lead = (x.shape[0],) + tuple(
                 (n - (k - 1) * d - 1) // st + 1 for n, k, d, st in zip(
                     xq.shape[1:-1], self.kernel_size, self.dilation,
                     self.strides))
+            if self.groups > 1:
+                y = grouped_int8_conv(self, xq, wq) * s
+            else:
+                a = im2col(xq, self.kernel_size, self.strides,
+                           self.dilation)
+                y = int_mm(a, wq.t()).float() * s
         else:
             a = quantize_activation(x, s_in).reshape(-1, x.shape[-1])
-        y = int_mm(a, wq.t()).float() * s
+            y = int_mm(a, wq.t()).float() * s
         if self.bias is not None:
             y = y + self.bias
         return y.reshape(*lead, y.shape[-1]).to(x.dtype)

@@ -9,7 +9,10 @@ table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Lambda``,
 ``BERT``, the recurrent ``LSTM`` / ``GRU`` / ``SimpleRNN`` and
 ``TimeDistributed``, and the image stack: ``Conv1D`` / ``Conv2D`` /
 ``Conv3D``, ``BatchNormalization``, the max and average pools (1-D to
-3-D), the global pools and ``ZeroPadding1D/2D/3D``. Tensors keep JAX's
+3-D), the global pools and ``ZeroPadding1D/2D/3D``, ``SeparableConv2D``
+(``SeparableConvolution2D``), ``LRN2D`` and ``KerasLayerWrapper`` (a
+module of the port, such as a grouped ``flax_compat.Conv``, as a layer).
+Tensors keep JAX's
 channels-last layout (``[batch, *spatial, channels]``); the
 convolutions and pools run on channels-first views of it
 (common/flax_compat.py). Layers are config objects; execution happens inside
@@ -19,8 +22,10 @@ transposed; a convolution's ``[*k, in, out]`` kernel flattened the same
 way), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``) and a
 batch norm's ``<name>.mean`` / ``.var`` buffers (flax's ``batch_stats``),
 the submodule names of text/bert.py under the layer's name, and the flax
-cells' own names for the recurrent layers (``GRUCell_0.ir.weight``). The
-rest of the layer library waits for later slices (ROADMAP A11).
+cells' own names for the recurrent layers (``GRUCell_0.ir.weight``);
+``SeparableConv2D`` nests ``<name>.depthwise`` and ``<name>.pointwise``
+as flax does. The rest of the layer library (``WithinChannelLRN2D`` and
+the others) waits for later slices (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -231,6 +236,65 @@ class Lambda(KerasLayer):
             return None
         return tuple(out.shape[1:]) if isinstance(out, torch.Tensor) \
             else None
+
+
+def _flax_default_fill(module: nn.Module, generator: torch.Generator):
+    """flax's default kernel init for a freshly built module: each weight
+    of two or more dims normal with variance 1 / fan-in (the flattened
+    kernel's second axis, ``[out, prod(k) * in / groups]``); biases stay
+    as the module made them (zeros)."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+
+
+def _meta_shape(module: nn.Module, in_shapes, **kwargs):
+    """The output shape (without the batch) of ``module`` on inputs of
+    ``in_shapes``, found on meta tensors (no data); None where unknown."""
+    import copy
+    if any(s is None or None in s for s in in_shapes):
+        return None
+    try:
+        meta = copy.deepcopy(module).to("meta")
+        out = meta(*[torch.empty((2,) + tuple(s), device="meta")
+                     for s in in_shapes], **kwargs)
+    except Exception:
+        return None
+    return tuple(out.shape[1:]) if isinstance(out, torch.Tensor) else None
+
+
+class KerasLayerWrapper(KerasLayer):
+    """A module of the port as a keras layer (ref wrappers.py:86
+    KerasLayerWrapper; JAX wraps a flax module, the port wraps its
+    counterpart, e.g. ``flax_compat.Conv(..., feature_group_count=c)``).
+    Its parameters train with the rest of the model under the layer's
+    name. Each model built from the layer gets its own copy of the
+    module, its weights drawn by flax's default init from the graph's
+    generator. ``call_with_train=True`` passes the keras train flag as
+    the module's ``train=`` keyword (for modules with dropout or
+    norms)."""
+
+    def __init__(self, module: nn.Module, call_with_train: bool = False,
+                 input_shape=None, name=None):
+        super().__init__(name or getattr(module, "name", None), input_shape)
+        self.module = module
+        self.call_with_train = bool(call_with_train)
+
+    def make_modules(self, in_shapes, generator):
+        import copy
+        mod = copy.deepcopy(self.module)
+        _flax_default_fill(mod, generator)
+        return {self.name: mod}
+
+    def apply(self, modules, args, train):
+        if self.call_with_train:
+            return modules[self.name](*args, train=train)
+        return modules[self.name](*args)
+
+    def _infer_shape(self, in_shapes):
+        kw = {"train": False} if self.call_with_train else {}
+        return _meta_shape(self.module, in_shapes, **kw)
 
 
 # ---------------- embeddings ----------------
@@ -850,6 +914,97 @@ class Conv3D(_Conv):
 
 
 Convolution3D = Conv3D
+
+
+class _Separable(nn.Module):
+    """A depthwise convolution (``c * depth_multiplier`` outputs, one
+    group an input channel) then a 1x1 pointwise one, both with a bias:
+    the flax tree ``{depthwise: {kernel, bias}, pointwise: {...}}``."""
+
+    def __init__(self, depthwise: nn.Module, pointwise: nn.Module):
+        super().__init__()
+        self.depthwise = depthwise
+        self.pointwise = pointwise
+
+    def forward(self, x):
+        return self.pointwise(self.depthwise(x))
+
+
+class SeparableConv2D(KerasLayer):
+    """Depthwise spatial convolution (``depth_multiplier`` outputs an
+    input channel) followed by a 1x1 pointwise mix (ref
+    convolutional.py:313 SeparableConvolution2D); ``border_mode``
+    "same"/"valid"."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 activation=None, border_mode="valid", subsample=(1, 1),
+                 depth_multiplier: int = 1, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.nb_filter, self.kernel = int(nb_filter), (int(nb_row),
+                                                       int(nb_col))
+        self.activation = get_activation(activation)
+        self.padding = border_mode.upper()
+        self.strides = _tuple(subsample, 2)
+        self.depth_multiplier = int(depth_multiplier)
+
+    def make_modules(self, in_shapes, generator):
+        from analytics_zoo_tpu_torch.common import flax_compat
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown; give the "
+                             "model's Input a shape")
+        c = int(s[-1])
+        mid = c * self.depth_multiplier
+        sep = _Separable(
+            flax_compat.Conv(c, mid, self.kernel, dtype=self.compute_dtype,
+                             strides=self.strides, padding=self.padding,
+                             feature_group_count=c),
+            flax_compat.Conv(mid, self.nb_filter, (1, 1),
+                             dtype=self.compute_dtype, padding="SAME"))
+        _flax_default_fill(sep, generator)
+        return {self.name: sep}
+
+    def apply(self, modules, args, train):
+        return self.activation(modules[self.name](args[0]))
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if not s:
+            return None
+        out = _window_shape(s[:-1], self.kernel, self.strides,
+                            canonical_padding(self.padding, 2))
+        return None if out is None else out + (self.nb_filter,)
+
+
+SeparableConvolution2D = SeparableConv2D
+
+
+class LRN2D(KerasLayer):
+    """Cross-channel local response normalization over the last axis
+    (ref convolutional.py LRN2D; BigDL SpatialCrossMapLRN's convention:
+    ``alpha`` is divided by the window ``n``). The squared input is
+    zero-padded on the channel axis and its ``n`` shifted slices are
+    summed from the first, in JAX's order."""
+
+    def __init__(self, alpha: float = 1e-4, k: float = 1.0,
+                 beta: float = 0.75, n: int = 5, input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self.alpha, self.k, self.beta, self.n = alpha, k, beta, n
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        c = x.shape[-1]
+        half = self.n // 2
+        pad = F.pad(torch.square(x), (half, half))
+        win = pad[..., 0:c]
+        for i in range(1, self.n):
+            win = win + pad[..., i:i + c]
+        return x / torch.pow(self.k + (self.alpha / self.n) * win,
+                             self.beta)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}

@@ -429,20 +429,29 @@ def validate_state(state: Any, target: Any) -> None:
                 f"checkpoint leaf {path} dtype mismatch: {sd} != {td}")
 
 
+def read_checkpoint(path: str) -> Tuple[Any, dict]:
+    """The whole state tree of ``path/state.msgpack``, restored against
+    no target, and ``meta.json``: for a reader that takes only part of a
+    snapshot (``InferenceModel.load_checkpoint`` keeps the parameters
+    and the model state, whatever optimizer wrote the rest)."""
+    file = os.path.join(path, "state.msgpack")
+    data = bytearray(os.path.getsize(file))
+    with open(file, "rb") as fh:
+        if fh.readinto(data) != len(data):
+            raise ValueError(f"{file} changed while it was read")
+    with open(os.path.join(path, "meta.json")) as fh:
+        meta = json.load(fh)
+    return msgpack_restore(data), meta
+
+
 def load_checkpoint(path: str, target: Any, validate: bool = True
                     ) -> Tuple[Any, dict]:
     """Restore ``path/state.msgpack`` into the structure of ``target``
     and read ``meta.json``. With ``validate`` the result is checked
     against ``target``'s shapes and dtypes: a complete file holding
     another model must not restore silently."""
-    file = os.path.join(path, "state.msgpack")
-    data = bytearray(os.path.getsize(file))
-    with open(file, "rb") as fh:
-        if fh.readinto(data) != len(data):
-            raise ValueError(f"{file} changed while it was read")
-    state = from_bytes(target, data)
-    with open(os.path.join(path, "meta.json")) as fh:
-        meta = json.load(fh)
+    tree, meta = read_checkpoint(path)
+    state = _restore(target, tree, "")
     if validate:
         validate_state(state, target)
     return state, meta

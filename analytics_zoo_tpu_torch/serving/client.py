@@ -7,8 +7,10 @@ priority lane, with an optional deadline or generate request, and poll the
 result hash for the answer. Records carry the client's dual-clock stamp
 (schema.py), which the engine reads as queue wait and end-to-end latency.
 A lane that admission control is shedding raises :class:`ShedError` at
-once, counted on ``zoo_serving_shed_total{stream,priority}``. Images and
-the reference's Arrow format are ROADMAP A11's.
+once, counted on ``zoo_serving_shed_total{stream,priority}``. Raw
+encoded image bytes (``enqueue(uri, image=bytes)`` or ``enqueue_image``)
+ride the record as an image entry, which the engine decodes and
+preprocesses. The reference's Arrow format is ROADMAP A11's.
 """
 
 from __future__ import annotations
@@ -37,6 +39,21 @@ class InputQueue:
         self.stream = stream
         self.cipher = cipher
         self._tracer = telemetry.get_tracer()
+
+    @staticmethod
+    def _coerce(v):
+        """An ndarray (string tensors too) passes through; raw encoded
+        image bytes become an :class:`~analytics_zoo_tpu_torch.serving.
+        schema.ImageBytes` entry, decoded and preprocessed by the engine
+        (the reference client's image enqueue, client.py:144). File
+        paths go through ``enqueue_image``: a blanket ``str -> open()``
+        here would break string tensors and read arbitrary local
+        files."""
+        if isinstance(v, schema.ImageBytes):
+            return v
+        if isinstance(v, (bytes, bytearray)):
+            return schema.ImageBytes(bytes(v))
+        return np.asarray(v)
 
     def _shed_counter(self, priority: str):
         """Client-observed shed rejections: an XADD the broker refused
@@ -75,8 +92,8 @@ class InputQueue:
         if gen is not None:
             trace["g"] = gen
         payload = schema.encode_record(
-            uri, {k: np.asarray(v) for k, v in inputs.items()}, self.cipher,
-            trace=trace)
+            uri, {k: self._coerce(v) for k, v in inputs.items()},
+            self.cipher, trace=trace)
         return uri, payload, (t_pc, sampled), lane
 
     def enqueue(self, uri: Optional[str] = None,
@@ -112,6 +129,20 @@ class InputQueue:
             self._tracer.record(uri, "client_enqueue", trace[0],
                                 time.perf_counter())
         return uri
+
+    def enqueue_image(self, uri: Optional[str] = None, image=None,
+                      key: str = "image") -> str:
+        """Enqueue one raw encoded image: bytes, or the path of a JPEG or
+        PNG file (the reference client's image enqueue takes local file
+        uris, client.py:144). The engine decodes it and runs its
+        preprocessing chain."""
+        if isinstance(image, str):
+            with open(image, "rb") as f:
+                image = f.read()
+        if not isinstance(image, (bytes, bytearray, schema.ImageBytes)):
+            raise TypeError("enqueue_image takes encoded image bytes or "
+                            "a file path")
+        return self.enqueue(uri, **{key: self._coerce(image)})
 
     def enqueue_batch(self, records, priority: Optional[str] = None,
                       deadline_ms: Optional[float] = None,

@@ -6,10 +6,11 @@ and port, the batch size, the record encryption flag).
 The port's own copy of ``analytics_zoo_tpu/serving/config.py``: parsed
 with PyYAML when it is installed, otherwise with a reader of the
 two-level ``section: / key: value`` shape the serving config uses, into
-the same ``ServingConfig``. Encrypted records and the ``preprocessing:``
-section (image decode) are not served by the port yet (ROADMAP A11):
-``record_encrypted: true`` raises at load, and
-``build_image_preprocess`` raises when the section is there.
+the same ``ServingConfig``. The ``preprocessing:`` section (a ``preset``
+and ``source``, or ``resize`` / ``crop`` / ``mean`` / ``scale``) builds
+the engine's image chain (``build_image_preprocess``). Encrypted records
+are not served by the port yet (ROADMAP A11): ``record_encrypted: true``
+raises at load.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ class ServingConfig:
     stream: str = "serving_stream"
     result_key: str = "result"
     # the engine's raw-image preprocessing (ref PreProcessing.scala): a
-    # preset name, or explicit resize/crop/mean/scale (ROADMAP A11)
+    # preset name, or explicit resize/crop/mean/scale
     image_preset: Optional[str] = None
     image_source: str = "imagenet"
     image_resize: Optional[int] = None
@@ -121,10 +122,28 @@ class ServingConfig:
         return cfg
 
     def build_image_preprocess(self):
-        """The engine's raw-image chain from this config: None without a
-        ``preprocessing:`` section; with one it raises (ROADMAP A11)."""
-        if not (self.image_preset or self.image_resize or self.image_crop
-                or self.image_mean or self.image_scale != 1.0):
+        """The engine's raw-image chain from this config, or None when no
+        ``preprocessing:`` section was given."""
+        if self.image_preset:
+            from analytics_zoo_tpu_torch.serving.engine import image_pipeline
+            return image_pipeline(self.image_preset,
+                                  source=self.image_source)
+        if not (self.image_resize or self.image_crop or self.image_mean
+                or self.image_scale != 1.0):
             return None
-        raise ValueError("the preprocessing: section (image records) is "
-                         "not served by the port yet (ROADMAP A11)")
+        from analytics_zoo_tpu_torch.feature.image import (
+            ChainedPreprocessing, ImageCenterCrop,
+            ImageChannelScaledNormalizer, ImageMatToTensor, ImageResize,
+        )
+        steps = []
+        if self.image_resize:
+            steps.append(ImageResize(self.image_resize, self.image_resize))
+        if self.image_crop:
+            steps.append(ImageCenterCrop(self.image_crop, self.image_crop))
+        if self.image_mean or self.image_scale != 1.0:
+            mean = self.image_mean or (0.0, 0.0, 0.0)
+            steps.append(ImageChannelScaledNormalizer(
+                *mean, self.image_scale))
+        steps.append(ImageMatToTensor())
+        from analytics_zoo_tpu_torch.serving.engine import ndarray_chain
+        return ndarray_chain(ChainedPreprocessing(steps))

@@ -60,10 +60,17 @@ Scheduling and delivery, as in the JAX package:
   runs this replica's next lease sweep at once. ``stop()`` drains and
   acks before the heartbeat deregisters.
 
-Left out, each raising where a caller asks for it: image decode
-(``image_preprocess``) and Arrow records (ROADMAP A11; such records get
-a typed error result); CPU failover (``ZOO_CPU_FALLBACK=1``, ROADMAP
-A10).
+- **Image records.** A record entry of raw encoded image bytes
+  (``InputQueue.enqueue_image``) is decoded on the host (PIL) at intake
+  and run through ``image_preprocess`` (an ndarray -> ndarray chain:
+  ``image_pipeline("resnet-50", source=...)`` from a preset, or
+  config.yaml's ``preprocessing:`` section), then batched as a tensor
+  record. An undecodable image, or a host without PIL, gives the record
+  a typed error result; the loop serves on.
+
+Left out, each raising where a caller asks for it: Arrow records (ROADMAP
+A11; such records get a typed error result); CPU failover
+(``ZOO_CPU_FALLBACK=1``, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -113,6 +120,27 @@ def _parse_lane_map(raw: str, defaults: Dict[str, float]) -> Dict[str, float]:
     return out
 
 
+def ndarray_chain(pipe):
+    """A ChainedPreprocessing over ImageFeature dicts as a plain ndarray
+    -> ndarray callable, the engine's ``image_preprocess`` contract (one
+    definition for the config-driven and the preset-driven paths)."""
+    def run(arr):
+        return pipe.transform({"image": np.asarray(arr, np.float32)}
+                              )["image"]
+    return run
+
+
+def image_pipeline(model_name: str, source: str = "imagenet"):
+    """The ndarray -> ndarray chain of a model's preprocessing preset
+    (ref ImagenetConfig's preprocessors feeding PreProcessing.scala), for
+    ``ClusterServing(image_preprocess=)``. ``source="torchvision"`` is
+    the normalization trained into torchvision checkpoints (with
+    ``ImageClassifier(pretrained=)``)."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification. \
+        image_classifier import preprocessor
+    return ndarray_chain(preprocessor(model_name, source=source))
+
+
 def _cpu_fallback_requested() -> bool:
     return os.environ.get("ZOO_CPU_FALLBACK", "").lower() in (
         "1", "true", "yes", "on")
@@ -132,6 +160,9 @@ class ClusterServing:
     next (0 = fetch each batch before reading the next). ``warmup``: warm
     the ladder's rungs at ``start()`` (models with ``warm_up``).
     ``consumer`` defaults to ``replica_id``, itself a fresh id by default.
+    ``image_preprocess``: the ndarray -> ndarray chain applied to image
+    records after the engine decodes them (ref PreProcessing.scala:36,
+    67-90); without it a decoded image feeds the model as it is.
     """
 
     #: consecutive full dequeues that count as "sustained backlog"
@@ -169,9 +200,6 @@ class ClusterServing:
                  warmup: bool = True,
                  replica_id: Optional[str] = None,
                  draft_model=None, spec_k: int = 4):
-        if image_preprocess is not None:
-            raise ValueError("image records are not served by the port yet "
-                             "(ROADMAP A11): image_preprocess must be None")
         if _cpu_fallback_requested():
             raise ValueError("ZOO_CPU_FALLBACK=1: the port has no CPU "
                              "failover (ROADMAP A10); unset it")
@@ -209,6 +237,7 @@ class ClusterServing:
         self.consumer = consumer or self.replica_id
         self.input_cols = list(input_cols) if input_cols else None
         self.cipher = cipher
+        self.image_preprocess = image_preprocess
         self.postprocess = postprocess
         self.block_ms = int(block_ms)
         # --- lanes
@@ -420,6 +449,24 @@ class ClusterServing:
             with self._state_lock:
                 self.records_failed += n
 
+    def _decode_images(self, inputs):
+        """Each image entry decoded (``transforms.decode_rgb``: PIL on the
+        host) and run through ``image_preprocess`` (ref
+        PreProcessing.scala:67-90: bytes -> image -> resize, crop,
+        normalize -> tensor); other entries as they are."""
+        from analytics_zoo_tpu_torch.feature.image.transforms import (
+            decode_rgb,
+        )
+        out = {}
+        for k, v in inputs.items():
+            if isinstance(v, schema.ImageBytes):
+                arr = np.asarray(decode_rgb(v.data), np.float32)
+                if self.image_preprocess is not None:
+                    arr = self.image_preprocess(arr)
+                v = np.asarray(arr, np.float32)
+            out[k] = v
+        return out
+
     def _error(self, uri: str, message: str, cmds: list):
         cmds.append(("HSET", self.result_key, uri,
                      schema.encode_error(message, self.cipher)))
@@ -508,6 +555,14 @@ class ClusterServing:
                 schema.validate_uri(uri)
             except Exception as e:
                 logger.warning("dropping undecodable record %s: %s", eid, e)
+                term_acks.append(ack)
+                continue
+            try:
+                inputs = self._decode_images(inputs)
+            except Exception as e:
+                # the uri is known: the client gets a typed error result
+                # (an image that does not decode, a host without PIL)
+                self._error(uri, f"image decode failed: {e}", term_cmds)
                 term_acks.append(ack)
                 continue
             try:

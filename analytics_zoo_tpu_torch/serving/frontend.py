@@ -67,8 +67,6 @@ from analytics_zoo_tpu_torch.serving.client import (INPUT_STREAM,
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-_NOT_PORTED = "not served by the port yet (ROADMAP A11)"
-
 #: the result poll's period: a request waits on average half of it past
 #: its result's flush (the JAX frontend polls every 10 ms)
 RESULT_POLL_S = 0.002
@@ -460,9 +458,6 @@ class _Handler(BaseHTTPRequestHandler):
             payload = json.loads(self.rfile.read(n))
             inputs = {k: schema.decode_tensor(v)
                       for k, v in payload["inputs"].items()}
-            if any(isinstance(v, schema.UnsupportedInput)
-                   for v in inputs.values()):
-                raise ValueError(f"image inputs are {_NOT_PORTED}")
             in_q = InputQueue(host=srv.broker_host,
                               port=srv.broker_port, cipher=srv.cipher,
                               stream=(srv.engine.stream if srv.engine

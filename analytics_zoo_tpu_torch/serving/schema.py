@@ -14,9 +14,11 @@ relative ``deadline_ms`` (``"d"``) and a generate request (``"g"``). A
 deadline that lapses before the engine serves the record gets a typed
 expired result, which decodes into :class:`DeadlineExpiredError`.
 
-Image records and the reference client's Arrow records (ROADMAP A11)
-decode into :class:`UnsupportedInput` markers, so the engine answers
-them with a typed error result instead of dropping them.
+An image record carries raw encoded image bytes (``{"image": b64}``),
+which decode into :class:`ImageBytes`; the engine decodes the image and
+runs its preprocessing chain. The reference client's Arrow records
+(ROADMAP A11) decode into an :class:`UnsupportedInput` marker, so the
+engine answers them with a typed error result instead of dropping them.
 """
 
 from __future__ import annotations
@@ -100,10 +102,21 @@ def validate_generate(generate) -> Optional[Dict[str, Any]]:
     return out
 
 
+class ImageBytes:
+    """A raw encoded image (JPEG, PNG) riding a record, decoded and run
+    through the engine's preprocessing chain: the reference's serving
+    flow (client.py:144 enqueues b64 image bytes; the JVM decodes and
+    preprocesses in PreProcessing.scala:67-90)."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes):
+        self.data = bytes(data)
+
+
 class UnsupportedInput:
-    """An input the port does not decode yet: ``kind`` is ``"image"`` (raw
-    encoded image bytes) or ``"arrow"`` (the reference client's Arrow
-    record); both are ROADMAP A11's."""
+    """An input the port does not decode yet: ``kind`` is ``"arrow"``
+    (the reference client's Arrow record, ROADMAP A11)."""
 
     __slots__ = ("kind",)
 
@@ -122,6 +135,8 @@ def validate_uri(uri: str) -> str:
 
 
 def encode_tensor(arr) -> dict:
+    if isinstance(arr, ImageBytes):
+        return {"image": base64.b64encode(arr.data).decode()}
     arr = np.ascontiguousarray(arr)
     return {"dtype": arr.dtype.str, "shape": list(arr.shape),
             "data": base64.b64encode(arr.tobytes()).decode()}
@@ -129,7 +144,7 @@ def encode_tensor(arr) -> dict:
 
 def decode_tensor(obj: dict):
     if "image" in obj:
-        return UnsupportedInput("image")
+        return ImageBytes(base64.b64decode(obj["image"]))
     raw = base64.b64decode(obj["data"])
     return np.frombuffer(raw, dtype=np.dtype(obj["dtype"])).reshape(
         obj["shape"]).copy()
@@ -157,8 +172,10 @@ def encode_record(uri: str, inputs: Dict[str, np.ndarray],
     it; ``"g"`` is a generate request in wire form
     (``validate_generate``)."""
     obj: Dict[str, Any] = {"uri": uri,
-                           "inputs": {k: encode_tensor(np.asarray(v))
-                                      for k, v in inputs.items()}}
+                           "inputs": {k: encode_tensor(
+                               v if isinstance(v, ImageBytes)
+                               else np.asarray(v))
+                               for k, v in inputs.items()}}
     if trace:
         obj["trace"] = trace
     return _wrap(obj, cipher)
@@ -169,7 +186,7 @@ def decode_record_meta(payload_b64: str, cipher: Cipher = None
     """(uri, inputs, meta): the record's uri, its tensors and its side
     channel (``{}`` when absent). An Arrow record (the reference client's
     ``{"uri", "data"}``) decodes to ``{"data": UnsupportedInput("arrow")}``
-    and an image tensor to ``UnsupportedInput("image")``."""
+    and an image entry to :class:`ImageBytes`."""
     obj = _unwrap(payload_b64, cipher)
     if "data" in obj and "inputs" not in obj:
         return obj["uri"], {"data": UnsupportedInput("arrow")}, {}

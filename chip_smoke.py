@@ -336,6 +336,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ResNet-50 outside Pallas). It writes under build/phase17/ and
              removes it.
 
+18. image classification from images to answers (ROADMAP A15's
+             remainder, A11's image part, A16's load_checkpoint), 224 px,
+             1000 classes, batch 32: (a) mobilenet, inception-v1 and
+             mobilenet-v2 (weights from a numpy seed): eval logits on the
+             card in fp32 (TF32 off) and bf16 against the same forward in
+             float64 on the CPU (4 rows) at P18_FP32_RTOL and
+             P18_BF16_RTOL (basis dev/estimate_image_limits.py), predict
+             ms; (b) ImageClassifier(pretrained=twin.state_dict()) for
+             resnet-50, mobilenet-v2, squeezenet, densenet-121, alexnet
+             and vgg-16 against its torchvision-layout twin on the card (8
+             rows, fp32, TF32 off): probabilities within 1e-4 (JAX's),
+             logits within 1e-4 of their largest, top-1 equal; the keras
+             graph's forward ms beside the twin's; (c) 64 uint8 images of
+             375 x 500 and 500 x 375 -> ImageSet.from_arrays -> the
+             torchvision preset -> the imported ResNet-50's
+             predict_image_set -> LabelOutput(top_k=5), held against the
+             twin, the host's preprocessing ms an image beside predict's;
+             (d) that ResNet-50 in ClusterServing on the native broker
+             (batch 32 pinned): 128 tensor records, every answer bitwise
+             the predict at batch 32, records/s and a lone request's p50,
+             then a PNG record by enqueue_image (answered where the host
+             has PIL, the typed error naming PIL where not) and a tensor
+             record after it; (e) int8 mobilenet-v2 calibrated on 8
+             batches: 53 products (36 int8 GEMMs by kernel name, 17
+             depthwise), agreement and nrmse of the logits at JAX's
+             limits, a depthwise layer at stride 1 and 2 and a 1x1 layer
+             bitwise their CPU selves, predict ms fp32 / bf16 / int8; (f)
+             ResNet-50 fit for 2 steps at batch 8 with a checkpoint every
+             step, then InferenceModel.load_checkpoint into a fresh
+             classifier: predict bitwise the fitted estimator's. It
+             writes under build/phase18/ and removes it.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -381,10 +413,11 @@ NCF fits, the optimizers, the remat fit, each task fit and the profiled
 fit; phase 15, before each broker turn, after the BERT warm-up, and
 before the deadline, admission, lease and each decode path; phase 16,
 before each int8 model's predicts, each fit, the served int8 model and
-the fleet; phase 17, before its training window, which launches none) and
+the fleet; phase 17, before its training window, which launches none;
+phase 18, before its paths, which launch none) and
 read
 right after it: every kernel of the path must have launched there.
-Phases 13's to 17's seconds and the whole run's are printed
+Phases 13's to 18's seconds and the whole run's are printed
 before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -798,6 +831,51 @@ P17_REPS = 10
 # its 53 convolutions (padding an int or a pair) and the Dense
 P17_INT8_PRODUCTS = 54
 P17_PROFILE_STEPS = 3
+# phase 18: image classification from images to answers (ROADMAP A15's
+# remainder, A11's image part, A16's load_checkpoint): 224 px, batch 32
+P18_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "phase18")
+P18_IMAGE = 224
+P18_BATCH = 32
+P18_CLASSES = 1000
+P18_ROWS = 4                    # (a): the card against the CPU's float64
+P18_ARCHS = ("mobilenet", "inception-v1", "mobilenet-v2")
+P18_REPS = 10
+# (a)'s limits on the eval logits (the Dense's output before the softmax),
+# each as the norm of the difference over float64's norm; basis: python3
+# dev/estimate_image_limits.py (on the CPU, 224 px, 4 rows, fp32 and bf16
+# against float64), its readings in the comments, the limits about 4x
+# (bf16) and 7x to 90x (fp32) past them
+P18_FP32_RTOL = {"mobilenet": 1e-5,        # CPU: 1.11e-7
+                 "inception-v1": 1e-5,     # CPU: 3.06e-7
+                 "mobilenet-v2": 1e-5}     # CPU: 1.50e-6
+P18_BF16_RTOL = {"mobilenet": 0.02,        # CPU: 4.57e-3
+                 "inception-v1": 0.02,     # CPU: 4.68e-3
+                 "mobilenet-v2": 0.1}      # CPU: 0.0265
+# (b): torchvision-layout twins at 224 (JAX's limit on the probabilities,
+# tests/test_migration_image.py, and the same of the logits' largest)
+P18_TWINS = ("resnet-50", "mobilenet-v2", "squeezenet", "densenet-121",
+             "alexnet", "vgg-16")
+P18_TWIN_ROWS = 8
+P18_TWIN_ATOL = 1e-4
+P18_TWIN_LOGITS_RTOL = 1e-4
+P18_TWIN_TIMED = ("resnet-50", "mobilenet-v2")
+# (c): dogs-vs-cats-like images (375 x 500 and 500 x 375) through the
+# torchvision preset
+P18_IMAGES = 64
+P18_TOP_K = 5
+# (d): the imported ResNet-50 served on the native broker
+P18_BURST = 128
+P18_SINGLE = 20
+# (e): int8 mobilenet-v2, calibrated on 8 batches; JAX's plan takes every
+# Conv (52, the 17 depthwise included) and the Dense
+P18_CALIB_BATCHES = 8
+P18_CALIB_ROWS = 4
+P18_INT8_PRODUCTS = 53
+P18_DEPTHWISE = 17
+# (f): a 2-step ResNet-50 fit at batch 8 with a checkpoint every step
+P18_FIT_ROWS = 16
+P18_FIT_BATCH = 8
 
 
 def log(msg: str):
@@ -6460,6 +6538,537 @@ def phase_image(torch, np, kind):
     return rep
 
 
+def p18_classifier(np, name, dtype="float32", classes=P18_CLASSES,
+                   state=None, seed=SEED + 18, image=None):
+    """ImageClassifier(name) at P18_IMAGE px with weights from the numpy
+    seed (p17_weights' rule), or ``state`` when given."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    clf = ImageClassifier(class_num=classes, model_name=name,
+                          image_size=image or P18_IMAGE, dtype=dtype)
+    if state is None:
+        p17_weights(np, clf.model.module, seed)
+    else:
+        clf.model.module.load_state_dict(state)
+    return clf
+
+
+def p18_images(np, n, seed=SEED):
+    """``n`` normal NHWC images at P18_IMAGE px from ``default_rng``."""
+    return np.random.default_rng(seed).standard_normal(
+        (n, P18_IMAGE, P18_IMAGE, 3)).astype(np.float32)
+
+
+def p18_head(torch, module):
+    """The last Dense of ``module``, or its last Conv (squeezenet's
+    convolutional head)."""
+    from analytics_zoo_tpu_torch.common.flax_compat import Conv, Dense
+    return [m for m in module.modules() if isinstance(m, (Dense, Conv))][-1]
+
+
+class p18_logits:
+    """``with p18_logits(torch, module) as seen:`` the pre-softmax logits
+    of every forward of ``module`` appended to ``seen`` (float64, on the
+    CPU): a Dense head's output, or a conv head's relu pooled."""
+
+    def __init__(self, torch, module):
+        self.torch, self.head, self.seen = torch, p18_head(torch, module), []
+
+    def __enter__(self):
+        def keep(mod, args, out):
+            out = out.detach().double()
+            if out.dim() == 4:
+                out = self.torch.relu(out).mean((1, 2))
+            self.seen.append(out.cpu())
+        self.hook = self.head.register_forward_hook(keep)
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+
+
+def p18_forward(torch, module, x, device, f64=False):
+    """Eval forward of a copy of ``module`` on ``device`` (in float64 with
+    ``f64``): (probabilities, logits) as float64 CPU tensors."""
+    import copy
+    mod = copy.deepcopy(module).to(device).eval()
+    dt = torch.float64 if f64 else torch.float32
+    if f64:
+        mod = mod.double()
+    with p18_logits(torch, mod) as seen, torch.inference_mode():
+        probs = mod(torch.as_tensor(x, dtype=dt, device=device))
+    return probs.double().cpu(), torch.cat(seen)
+
+
+def p18_archs(torch, np, kind, dev="cuda"):
+    """18(a): mobilenet, inception-v1 and mobilenet-v2 at 224 px, 1000
+    classes: eval logits on the card in fp32 (TF32 off) and bf16 against
+    the same forward on the CPU in float64 on P18_ROWS rows, and predict
+    ms of P18_BATCH rows in fp32 and bf16 (CUDA events)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    x = p18_images(np, P18_BATCH, seed=SEED + 1)
+    rep = {}
+    with p17_tf32(torch, False):
+        for name in P18_ARCHS:
+            clf = p18_classifier(np, name)
+            state = clf.model.module.state_dict()
+            bf = p18_classifier(np, name, "mixed_bfloat16", state=state)
+            _, ref = p18_forward(torch, clf.model.module, x[:P18_ROWS],
+                                 "cpu", f64=True)
+            r = {}
+            for label, src in (("fp32", clf), ("bf16", bf)):
+                probs, logits = p18_forward(torch, src.model.module,
+                                            x[:P18_ROWS], dev)
+                r[f"{label}_rel"] = p17_rel(logits, ref)
+                r[f"{label}_finite"] = bool(torch.isfinite(probs).all())
+                im = InferenceModel(device=dev).load_zoo(src)
+                r[f"{label}_ms"] = cuda_ms(
+                    lambda: im.predict(x, batch_size=P18_BATCH),
+                    iters=P18_REPS, warmup=2)
+                del im
+            r["params"] = sum(p.numel()
+                              for p in clf.model.module.parameters())
+            rep[name] = r
+    log(f"phase 18(a) on {kind}, {P18_IMAGE} px, {P18_CLASSES} classes, "
+        f"eval logits against float64 on the CPU ({P18_ROWS} rows; "
+        "limits from dev/estimate_image_limits.py), predict ms of "
+        f"{P18_BATCH} rows (CUDA events): " + "; ".join(
+            f"{n} ({r['params']} parameters): fp32 (TF32 off) "
+            f"{r['fp32_rel']:.3g} (limit {P18_FP32_RTOL[n]}), bf16 "
+            f"{r['bf16_rel']:.3g} (limit {P18_BF16_RTOL[n]}); ms fp32 "
+            f"{r['fp32_ms']:.3f}, bf16 {r['bf16_ms']:.3f}"
+            for n, r in rep.items()))
+    for n, r in rep.items():
+        if not (r["fp32_finite"] and r["bf16_finite"]
+                and r["fp32_rel"] <= P18_FP32_RTOL[n]
+                and r["bf16_rel"] <= P18_BF16_RTOL[n]):
+            raise AssertionError(f"18(a) {n}: {r}")
+    return rep
+
+
+def p18_twin(np, name, seed):
+    """The torchvision-layout twin of ``name`` (1000 classes), torch's
+    default init under ``seed`` and its batch norms moved off their
+    initial state (so an import that dropped the statistics would
+    show)."""
+    import torch
+    from analytics_zoo_tpu_torch.models.migration_image import MAKE_TWINS
+    torch.manual_seed(seed)
+    twin = MAKE_TWINS[name](P18_CLASSES).eval()
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in twin.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                m.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+    return twin
+
+
+def p18_twin_forward(torch, twin, x, dev):
+    """The twin's (probabilities, logits) on NHWC ``x``, float64 on the
+    CPU."""
+    with torch.inference_mode():
+        logits = twin(torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
+                      .contiguous()).double().cpu()
+    return torch.softmax(logits, -1), logits
+
+
+def p18_import(torch, np, kind, dev="cuda"):
+    """18(b): ImageClassifier(pretrained=twin.state_dict()) against its
+    twin on the card, both fp32 with TF32 off, P18_TWIN_ROWS rows; the
+    forwards' ms at P18_BATCH for P18_TWIN_TIMED. Returns the imported
+    ResNet-50 and its twin for (c)-(d)."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    x = p18_images(np, P18_BATCH, seed=SEED + 2)
+    rep, keep = {}, {}
+    with p17_tf32(torch, False):
+        for i, name in enumerate(P18_TWINS):
+            twin = p18_twin(np, name, SEED + 180 + i)
+            clf = ImageClassifier(P18_CLASSES, name, image_size=P18_IMAGE,
+                                  pretrained=twin.state_dict())
+            twin = twin.to(dev)
+            tp, tl = p18_twin_forward(torch, twin, x[:P18_TWIN_ROWS], dev)
+            pp, pl = p18_forward(torch, clf.model.module,
+                                 x[:P18_TWIN_ROWS], dev)
+            r = dict(probs_diff=float((pp - tp).abs().max()),
+                     logits_rel=float((pl - tl).abs().max()
+                                      / tl.abs().max()),
+                     top1_equal=bool((pp.argmax(-1) == tp.argmax(-1))
+                                     .all()),
+                     top_prob=float(tp.max(-1).values.mean()))
+            if name in P18_TWIN_TIMED:
+                mod = clf.model.module.to(dev).eval()
+                xt = torch.as_tensor(x, device=dev)
+                xc = xt.permute(0, 3, 1, 2).contiguous()
+                with torch.inference_mode():
+                    r["port_ms"] = cuda_ms(lambda: mod(xt), iters=P18_REPS,
+                                           warmup=2)
+                    r["twin_ms"] = cuda_ms(lambda: twin(xc),
+                                           iters=P18_REPS, warmup=2)
+            if name == "resnet-50":
+                keep = dict(clf=clf, twin=twin)
+            del twin, clf
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            rep[name] = r
+    log(f"phase 18(b) torchvision-layout import on {kind}, {P18_IMAGE} px, "
+        f"{P18_TWIN_ROWS} rows, fp32 TF32 off, ImageClassifier(pretrained="
+        "twin.state_dict()) against the twin: " + "; ".join(
+            f"{n} probabilities {r['probs_diff']:.3g} (limit "
+            f"{P18_TWIN_ATOL}), logits {r['logits_rel']:.3g} of their "
+            f"largest (limit {P18_TWIN_LOGITS_RTOL}), top-1 equal "
+            f"{r['top1_equal']}, the twin's mean top probability "
+            f"{r['top_prob']:.4f}" + (
+                f", forward ms at {P18_BATCH} rows (CUDA events): port "
+                f"{r['port_ms']:.3f}, twin {r['twin_ms']:.3f}"
+                if "port_ms" in r else "") for n, r in rep.items()))
+    for n, r in rep.items():
+        if not (r["probs_diff"] <= P18_TWIN_ATOL
+                and r["logits_rel"] <= P18_TWIN_LOGITS_RTOL
+                and r["top1_equal"]):
+            raise AssertionError(f"18(b) {n}: {r}")
+    return rep, keep
+
+
+def p18_dogs_and_cats(np, n, seed=SEED + 3):
+    """``n`` uint8 RGB images of dogs-vs-cats' typical sizes, 375 x 500
+    and 500 x 375 in turns, from ``default_rng``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (375, 500, 3) if i % 2 else (500, 375, 3),
+                         dtype=np.uint8) for i in range(n)]
+
+
+def p18_image_set(torch, np, clf, twin, kind, dev="cuda"):
+    """18(c): images -> ImageSet.from_arrays -> the torchvision preset ->
+    the imported ResNet-50's predict_image_set -> LabelOutput(top_k),
+    held against the twin on the same preprocessed arrays; the host's
+    preprocessing ms an image beside the predict's."""
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    from analytics_zoo_tpu_torch.models.image.imageclassification. \
+        image_classifier import LabelOutput, preprocessor
+    raw = p18_dogs_and_cats(np, P18_IMAGES)
+    t0 = time.perf_counter()
+    iset = ImageSet.from_arrays(raw).transform(
+        preprocessor("resnet-50", source="torchvision"))
+    x = np.stack(iset.get_image())
+    host_s = time.perf_counter() - t0
+    with p17_tf32(torch, False):
+        clf.compile(optimizer="adam",
+                    loss="sparse_categorical_crossentropy", device=dev)
+        clf.predict_image_set(iset, batch_size=P18_BATCH)
+        t1 = time.perf_counter()
+        with p18_logits(torch, clf.model.module) as seen:
+            probs = clf.predict_image_set(iset, batch_size=P18_BATCH)
+        predict_s = time.perf_counter() - t1
+        tp, tl = p18_twin_forward(torch, twin, x, dev)
+    logits = torch.cat(seen)
+    labels = {i: f"class_{i}" for i in range(P18_CLASSES)}
+    out = LabelOutput(labels)(probs, top_k=P18_TOP_K)
+    ranked = all(
+        len(o["classes"]) == P18_TOP_K
+        and o["classes"][0] == f"class_{int(np.argmax(p))}"
+        and bool(np.all(np.diff(o["probs"]) <= 0))
+        for o, p in zip(out, probs))
+    rep = dict(images=len(raw), shape=list(x.shape),
+               host_ms_per_image=host_s / len(raw) * 1e3,
+               predict_ms_per_image=predict_s / len(raw) * 1e3,
+               probs_diff=float(np.abs(probs - tp.numpy()).max()),
+               logits_rel=float((logits - tl).abs().max()
+                                / tl.abs().max()),
+               top1_equal=bool((probs.argmax(-1) == tp.numpy().argmax(-1))
+                               .all()),
+               ranked=ranked, first=out[0]["classes"][:2])
+    log(f"phase 18(c) ImageSet on {kind}: {len(raw)} uint8 images (375 x "
+        f"500 and 500 x 375) -> the torchvision preset (host, "
+        f"{rep['host_ms_per_image']:.2f} ms an image) -> {x.shape} -> "
+        f"ResNet-50 predict_image_set ({rep['predict_ms_per_image']:.3f} ms "
+        f"an image, host clock, batch {P18_BATCH}) -> LabelOutput(top_k="
+        f"{P18_TOP_K}): against the twin, probabilities "
+        f"{rep['probs_diff']:.3g} (limit {P18_TWIN_ATOL}), logits "
+        f"{rep['logits_rel']:.3g} of their largest, top-1 equal "
+        f"{rep['top1_equal']}, labels ranked {ranked}")
+    if not (x.shape == (len(raw), 224, 224, 3)
+            and rep["probs_diff"] <= P18_TWIN_ATOL
+            and rep["logits_rel"] <= P18_TWIN_LOGITS_RTOL
+            and rep["top1_equal"] and ranked):
+        raise AssertionError(f"18(c): {rep}")
+    return rep, x
+
+
+def p18_png(np, img) -> bytes:
+    """``img`` (HWC uint8 RGB) as PNG bytes, written with zlib alone (a
+    host may lack PIL, which the engine needs only to decode)."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    h, w, _ = img.shape
+    rows = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def p18_serving(torch, np, api, clf, x, kind, dev="cuda"):
+    """18(d): the imported ResNet-50 in ClusterServing on the native
+    broker (batch pinned at P18_BATCH): a burst of P18_BURST tensor
+    records of (c)'s preprocessed images, every answer bitwise the
+    predict of its rows at that batch; P18_SINGLE lone requests; one PNG
+    record by enqueue_image (on a host with PIL its answer is the
+    predict of the decoded, preprocessed image; without PIL the typed
+    error naming PIL), then a tensor record answered."""
+    from analytics_zoo_tpu_torch.feature.image.transforms import decode_rgb
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import schema
+    from analytics_zoo_tpu_torch.serving.engine import image_pipeline
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    xs = np.concatenate([x, x[::-1]])[:P18_BURST]
+    chain = image_pipeline("resnet-50", source="torchvision")
+    rep = {}
+    with p17_tf32(torch, False):
+        im = InferenceModel(device=dev).load_zoo(clf)
+        refs = im.predict(xs, batch_size=P18_BATCH)
+        with Broker.launch(backend="native") as b, \
+                ClusterServing(im, b.port, batch_size=P18_BATCH,
+                               max_batch_size=P18_BATCH, warmup=False,
+                               image_preprocess=chain) as eng:
+            if b.backend != "native":
+                raise AssertionError(f"18(d): backend {b.backend}")
+            iq, oq = InputQueue(port=b.port), OutputQueue(port=b.port)
+            t0 = time.perf_counter()
+            uris = iq.enqueue_batch((f"p18b{i}", {"x": xs[i]})
+                                    for i in range(len(xs)))
+            got = oq.query_many(uris, timeout=120, poll_interval=0.002)
+            burst_s = time.perf_counter() - t0
+            lat = []
+            for i in range(P18_SINGLE):
+                t1 = time.perf_counter()
+                u = iq.enqueue(f"p18s{i}", x=xs[i])
+                got[u] = oq.query(u, timeout=30, poll_interval=0.0005)
+                lat.append(time.perf_counter() - t1)
+            img = np.random.default_rng(SEED + 4).integers(
+                0, 256, (240, 320, 3), dtype=np.uint8)
+            png = p18_png(np, img)
+            iq.enqueue_image("p18png", png)
+            try:
+                answer = oq.query("p18png", timeout=30)
+                rep["png"] = "answered"
+            except schema.ServingError as e:
+                answer, rep["png"] = None, f"typed error: {e}"
+            after = oq.query(iq.enqueue("p18after", x=xs[0]), timeout=30)
+            metrics = eng.metrics()
+            iq.close()
+            oq.close()
+    rows = {f"p18b{i}": i for i in range(len(xs))}
+    rows.update({f"p18s{i}": i for i in range(P18_SINGLE)})
+    bad = [u for u, i in rows.items() if got.get(u) is None
+           or not np.array_equal(got[u], refs[i])]
+    rep.update(records=len(xs), records_per_s=len(xs) / burst_s,
+               single_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               not_bitwise=len(bad), after_bitwise=bool(
+                   np.array_equal(after, refs[0])),
+               batches=metrics["batches"],
+               records_failed=metrics["records_failed"])
+    if answer is not None:
+        # a host with PIL decodes the PNG: the answer is the predict of
+        # the decoded, preprocessed image
+        want = im.predict(chain(np.asarray(decode_rgb(png), np.float32))[
+            None], batch_size=1)[0]
+        rep["png_diff"] = float(np.abs(answer - want).max())
+    del im
+    log(f"phase 18(d) serving on {kind}: {len(xs)} tensor records of "
+        f"{P18_IMAGE} x {P18_IMAGE} x 3 fp32 on the native broker, batch "
+        f"{P18_BATCH}: {rep['records_per_s']:.1f} records/s, a lone "
+        f"request's p50 {rep['single_p50_ms']:.3f} ms over {P18_SINGLE}; "
+        f"answers not bitwise the predict at batch {P18_BATCH}: "
+        f"{len(bad)}; the PNG record by enqueue_image: {rep['png']}; the "
+        f"tensor record after it bitwise {rep['after_bitwise']}; "
+        f"{metrics['batches']} batches, {metrics['records_failed']} failed")
+    pil_error = answer is None and "PIL" in rep["png"]
+    if not (not bad and rep["after_bitwise"]
+            and (pil_error or rep.get("png_diff", 1.0) <= 1e-5)):
+        raise AssertionError(f"18(d): {rep}, e.g. {bad[:3]}")
+    return rep
+
+
+def p18_int8(torch, np, kind, dev="cuda"):
+    """18(e): InferenceModel.quantize of mobilenet-v2 at 224 px (1000
+    classes), calibrated on P18_CALIB_BATCHES batches: the products
+    quantized against JAX's plan, top-1 agreement and nrmse of the logits
+    against fp32 (JAX's limits), predict ms fp32 / bf16 / int8 (CUDA
+    events), a depthwise and a 1x1 int8 layer bitwise their CPU selves."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    x = p18_images(np, P18_BATCH, seed=SEED + 5)
+    calib = [x[i * P18_CALIB_ROWS:(i + 1) * P18_CALIB_ROWS]
+             for i in range(P18_CALIB_BATCHES)]
+    clf = p18_classifier(np, "mobilenet-v2")
+    state = clf.model.module.state_dict()
+    rep, logits = {}, {}
+    with p17_tf32(torch, False):
+        for mode in ("fp32", "bf16", "int8"):
+            src = clf if mode != "bf16" else p18_classifier(
+                np, "mobilenet-v2", "mixed_bfloat16", state=state)
+            im = InferenceModel(device=dev).load_zoo(src)
+            if mode == "int8":
+                im.quantize(min_elems=P17_MIN_ELEMS, mode="int8",
+                            calibration_data=calib)
+            with p18_logits(torch, im._module) as seen:
+                im.predict(x, batch_size=P18_BATCH)
+            logits[mode] = torch.cat(seen).float().numpy()
+            r = dict(predict_ms=cuda_ms(
+                lambda: im.predict(x, batch_size=P18_BATCH),
+                iters=P18_REPS, warmup=2))
+            if mode != "fp32":
+                r.update(agreement=p16_agree(np, logits[mode],
+                                             logits["fp32"]),
+                         nrmse=p16_nrmse(np, logits[mode], logits["fp32"]))
+            if mode == "int8":
+                int8 = [m for m in im._module.modules()
+                        if isinstance(m, qlib._Int8)]
+                r["calibrated"] = len(im._act_ranges)
+                r["int8_layers"] = len(int8)
+                r["depthwise"] = sum(getattr(m, "groups", 1) > 1
+                                     for m in int8)
+                r["gemm_products"], r["product_kernels"], _ = \
+                    p16_int8_products(torch, im, x, batch=P18_BATCH,
+                                      out_dir=P18_DIR)
+                r["products"] = r["gemm_products"] + r["depthwise"]
+                r["bitwise"] = p18_int8_bitwise(torch, im,
+                                                x[:P17_CHECK_ROWS])
+            rep[mode] = r
+            del im
+    i8 = rep["int8"]
+    log(f"phase 18(e) int8 mobilenet-v2 on {kind}, {P18_BATCH} x "
+        f"{P18_IMAGE} px, calibrated on {P18_CALIB_BATCHES} batches of "
+        f"{P18_CALIB_ROWS}: predict ms (CUDA events) " + ", ".join(
+            f"{m} {rep[m]['predict_ms']:.3f}" for m in rep)
+        + "; against fp32 (TF32 off) on the logits: " + ", ".join(
+            f"{m} agreement {rep[m]['agreement']:.4f} nrmse "
+            f"{rep[m]['nrmse']:.4g}" for m in ("bf16", "int8"))
+        + f"; products quantized {i8['products']} ({i8['gemm_products']} "
+        f"int8 GEMMs by the profiler's kernel names {i8['product_kernels']}"
+        f", {i8['depthwise']} depthwise as exact float32 sums of int8 "
+        f"values) of JAX's plan's {P18_INT8_PRODUCTS}, "
+        f"{i8['calibrated']} layers calibrated; layers bitwise their CPU "
+        f"selves {i8['bitwise']}")
+    if not (np.isfinite(logits["int8"]).all()
+            and i8["agreement"] >= P16_AGREE and i8["nrmse"] < P16_NRMSE
+            and i8["calibrated"] == i8["int8_layers"] == P18_INT8_PRODUCTS
+            and i8["depthwise"] == P18_DEPTHWISE
+            and i8["products"] == P18_INT8_PRODUCTS
+            and len(i8["bitwise"]) == 3 and all(i8["bitwise"].values())):
+        raise AssertionError(f"18(e): {rep}")
+    return rep
+
+
+def p18_int8_bitwise(torch, im, x):
+    """The first int8 depthwise convolution at stride 1 and at stride 2,
+    and the first 1x1, of a forward on the card, each against the same
+    layer on the CPU fed the same input: {layer: bitwise}."""
+    import copy
+    from analytics_zoo_tpu_torch.inference import quantize as qlib
+    pick, keys = {}, set()
+    for name, mod in im._module.named_modules():
+        if not isinstance(mod, qlib._Int8) or \
+                mod.__dict__.get("_zoo_kind") != "conv":
+            continue
+        key = (mod.groups > 1, tuple(mod.kernel_size), tuple(mod.strides))
+        if key in ((True, (3, 3), (1, 1)), (True, (3, 3), (2, 2)),
+                   (False, (1, 1), (1, 1))) and key not in keys:
+            keys.add(key)
+            pick[name] = mod
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args, out):
+            seen.setdefault(name, (args[0].detach().clone(),
+                                   out.detach().clone()))
+        return hook
+
+    for name, mod in pick.items():
+        hooks.append(mod.register_forward_hook(keep(name)))
+    try:
+        im.predict(x, batch_size=len(x))
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    for name, (a, y) in seen.items():
+        cpu = copy.deepcopy(pick[name]).to("cpu")
+        with torch.inference_mode():
+            out[name] = same_bits(y.cpu(), cpu(a.cpu()))
+    return out
+
+
+def p18_snapshot(torch, np, kind, dev="cuda"):
+    """18(f): ResNet-50 (2 classes) fit for 2 steps at batch 8 with a
+    checkpoint every step, then InferenceModel().load_zoo(a fresh
+    classifier).load_checkpoint(dir): its predict bitwise the fitted
+    estimator's at the same batch."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.learn.trigger import SeveralIteration
+    path = os.path.join(P18_DIR, "ckpt")
+    x, y = p17_data(np, P18_FIT_ROWS, seed=8)
+    clf = p17_classifier(np, "float32")
+    clf.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                device=dev)
+    est = clf.model.estimator
+    est.model_dir = path
+    est.fit((x, y), epochs=1, batch_size=P18_FIT_BATCH,
+            checkpoint_trigger=SeveralIteration(1))
+    want = est.predict(x, batch_size=P18_FIT_BATCH)
+    fresh = p17_classifier(np, "float32", seed=SEED + 19)
+    t0 = time.perf_counter()
+    im = InferenceModel(device=dev).load_zoo(fresh).load_checkpoint(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got = im.predict(x, batch_size=P18_FIT_BATCH)
+    rep = dict(steps=est._py_step, bitwise=bool(np.array_equal(got, want)),
+               load_ms=load_ms, versions=sorted(
+                   v for v in os.listdir(path) if v.startswith("ckpt-")))
+    log(f"phase 18(f) a ResNet-50 fit of {rep['steps']} steps at batch "
+        f"{P18_FIT_BATCH} on {kind}, snapshots {rep['versions']}; "
+        f"InferenceModel.load_checkpoint into a fresh classifier "
+        f"({load_ms:.1f} ms, host): predict bitwise the fitted estimator's "
+        f"{rep['bitwise']}")
+    if not (rep["bitwise"] and rep["steps"] == P18_FIT_ROWS // P18_FIT_BATCH):
+        raise AssertionError(f"18(f): {rep}")
+    return rep
+
+
+def phase_image_path(torch, np, api, kind, dev="cuda"):
+    """Phase 18: image classification from images to answers (ROADMAP
+    A15's remainder, A11's image part, A16's load_checkpoint) on the
+    card; the directory it writes is removed after. No kernel of queue B
+    runs on these paths (cuDNN's convolutions, cuBLAS's and cuBLASLt's
+    products; JAX runs them outside Pallas)."""
+    import shutil
+    from analytics_zoo_tpu_torch.ops import _build
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    os.makedirs(P18_DIR)
+    t0 = time.perf_counter()
+    rep = {}
+    _build.reset_launch_counts()
+    try:
+        rep["a"] = p18_archs(torch, np, kind, dev)
+        rep["b"], keep = p18_import(torch, np, kind, dev)
+        rep["c"], x = p18_image_set(torch, np, keep["clf"], keep["twin"],
+                                    kind, dev)
+        rep["d"] = p18_serving(torch, np, api, keep["clf"], x, kind, dev)
+        del keep
+        rep["e"] = p18_int8(torch, np, kind, dev)
+        rep["f"] = p18_snapshot(torch, np, kind, dev)
+    finally:
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+    rep["launches"] = _build.launch_counts()
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6723,6 +7332,14 @@ def main() -> int:
     report["image"] = phase_image(torch, np, kind)
     log(f"phase 17: {report['image']['seconds']:.1f} s; launches by path: "
         f"{report['image']['launches']}")
+    # 18. image classification from images to answers: the three new
+    # architectures, the torchvision import, the ImageSet path, image
+    # records served, int8 mobilenet-v2, a snapshot into InferenceModel;
+    # the counts zeroed before it, no kernel of queue B on its paths
+    report["image_path"] = phase_image_path(
+        torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
+    log(f"phase 18: {report['image_path']['seconds']:.1f} s; the port's "
+        f"kernel launches on its paths: {report['image_path']['launches']}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -6730,7 +7347,8 @@ def main() -> int:
                           "checkpoints": ckpt_counts, "zoo": zoo_counts,
                           "tcn": tcn_counts, "a3": a3_counts,
                           "a7": a7_counts, "a7b": a7b_counts,
-                          "image": report["image"]["launches"]}
+                          "image": report["image"]["launches"],
+                          "image_path": report["image_path"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in

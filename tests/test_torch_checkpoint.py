@@ -11,9 +11,18 @@ the CPU.
   byte for byte as ``flax.serialization.to_bytes`` of the JAX state: NCF
   with adam, with SGD (momentum and weight decay), with adamw, with adam
   under l2-norm clipping and with adam on a schedule, a 2-block BERT
-  classifier (hidden 64, 4 heads), and a ``resnet-lite`` ImageClassifier
-  (its batch norms' running statistics in ``model_state`` as flax's
-  ``batch_stats`` collection).
+  classifier (hidden 64, 4 heads), and a ``resnet-lite``, a
+  ``mobilenet`` and a ``mobilenet-v2`` ImageClassifier (the batch norms'
+  running statistics in ``model_state`` as flax's ``batch_stats``
+  collection; the separable convolutions' nested trees; the grouped
+  kernels).
+- **InferenceModel.load_checkpoint.** A fit's snapshot restored into a
+  fresh classifier's InferenceModel predicts bitwise the fitted
+  estimator (``resnet-lite``, ``mobilenet-v2``); a JAX-written
+  ``resnet-lite`` snapshot restores within 1e-5 of JAX's predict; a torch
+  Sequential from ``Estimator.from_torch`` restores into a fresh module
+  (JAX's tests/test_inference_net.py:322); no model, a quantized model
+  and another model's snapshot are refused.
 - **Cross loading, both ways.** NCF (``save_model``), the NCF with an
   item-history column (``save_weights``), Seq2Seq (``save_model``; greedy
   tokens equal) and the BERT classifier (``save``): predictions within
@@ -877,12 +886,24 @@ def test_batch_norm_state_bytes_equal_flax(jx, tmp_path):
     """A ``resnet-lite`` fit by JAX for two steps: its state (the
     ``batch_stats`` collection in ``model_state`` included) read by the
     port and written back byte for byte as flax writes it."""
+    _image_state_bytes_equal_flax(jx, tmp_path, "resnet-lite")
+
+
+@pytest.mark.parametrize("name", ["mobilenet", "mobilenet-v2"])
+def test_image_snapshot_bytes_equal_flax(jx, tmp_path, name):
+    """The same for ``mobilenet`` (its separable convolutions' nested
+    ``depthwise`` / ``pointwise`` trees) and ``mobilenet-v2`` (its
+    grouped kernels ``[3, 3, 1, c]`` and 52 batch norms)."""
+    _image_state_bytes_equal_flax(jx, tmp_path, name)
+
+
+def _image_state_bytes_equal_flax(jx, tmp_path, name):
     from analytics_zoo_tpu.models.image.imageclassification import (
         ImageClassifier as JImageClassifier,
     )
 
     from analytics_zoo_tpu_torch.models import ImageClassifier
-    kw = dict(class_num=2, model_name="resnet-lite", image_size=16)
+    kw = dict(class_num=2, model_name=name, image_size=16)
     rng = np.random.default_rng(4)
     x = rng.normal(size=(16, 16, 16, 3)).astype(np.float32)
     y = rng.integers(0, 2, 16).astype(np.int32)
@@ -890,7 +911,8 @@ def test_batch_norm_state_bytes_equal_flax(jx, tmp_path):
     j.compile(optimizer="adam", loss=LOSS)
     j.fit(x, y, batch_size=8, nb_epoch=1)
     jest = j.model.estimator
-    assert sorted(jest._state["model_state"]) == ["batch_stats"]
+    assert sorted(jest._state["model_state"]) == (
+        [] if name == "mobilenet" else ["batch_stats"])
     want = _jax_bytes(jx, jest)
     j.model.save_weights(str(tmp_path / "j"))
     assert _state_file(str(tmp_path / "j")) == want
@@ -902,11 +924,12 @@ def test_batch_norm_state_bytes_equal_flax(jx, tmp_path):
     assert ckpt.to_bytes(est._state_tree()) == want
     t.model.save_weights(str(tmp_path / "t"))
     assert _state_file(str(tmp_path / "t")) == want
-    stats = jx["jax"].device_get(jest._state["model_state"])["batch_stats"]
-    for name, leaves in stats.items():
+    stats = jx["jax"].device_get(jest._state["model_state"]).get(
+        "batch_stats", {})
+    for layer, leaves in stats.items():
         for leaf, v in leaves.items():
             np.testing.assert_array_equal(
-                getattr(t.model.module, name)._buffers[leaf].numpy(), v)
+                getattr(t.model.module, layer)._buffers[leaf].numpy(), v)
     np.testing.assert_allclose(t.predict(x[:8], batch_size=8),
                                np.asarray(j.predict(x[:8], batch_size=8)),
                                rtol=0, atol=1e-5)
@@ -953,3 +976,100 @@ def test_batch_norm_fit_auto_resume_mid_epoch_bitwise(tmp_path):
     for k in ("mu", "nu"):
         for p, q in zip(ea._opt_state[k], eb_._opt_state[k]):
             assert torch.equal(p, q)
+
+
+# ------------------------------------- InferenceModel.load_checkpoint
+
+def _lite_data(n=16, size=16, seed=7):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, size, size, 3)).astype(np.float32),
+            rng.integers(0, 2, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("name", ["resnet-lite", "mobilenet-v2"])
+def test_load_checkpoint_restores_a_keras_classifier(tmp_path, name):
+    """A fit's snapshot (a checkpoint trigger every step) restored into
+    a fresh classifier's InferenceModel predicts bitwise the fitted
+    estimator at the same batch, running statistics included; the
+    snapshot's directory and the version under it both load."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    kw = dict(class_num=2, model_name=name, image_size=16)
+    x, y = _lite_data()
+    clf = ImageClassifier(**kw)
+    clf.compile(optimizer="adam", loss=LOSS, device="cpu")
+    d = str(tmp_path / "ckpt")
+    clf.model.estimator.model_dir = d
+    clf.model.estimator.fit((x, y), epochs=1, batch_size=8,
+                            checkpoint_trigger=SeveralIteration(1))
+    want = clf.model.estimator.predict(x, batch_size=8)
+    fresh = ImageClassifier(**kw)
+    for path in (d, ckpt.find_latest_checkpoint(d)[0]):
+        im = InferenceModel(device="cpu").load_zoo(fresh).load_checkpoint(
+            path)
+        np.testing.assert_array_equal(im.predict(x, batch_size=8), want)
+    before = InferenceModel(device="cpu").load_zoo(fresh)
+    assert not np.array_equal(before.predict(x, batch_size=8), want)
+
+
+def test_load_checkpoint_reads_a_jax_written_snapshot(jx, tmp_path):
+    """JAX fits ``resnet-lite`` and saves; the port's InferenceModel of
+    a fresh port classifier restores it (params and ``batch_stats``) and
+    predicts within 1e-5 of JAX's predict."""
+    from analytics_zoo_tpu.models.image.imageclassification import (
+        ImageClassifier as JImageClassifier,
+    )
+
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    kw = dict(class_num=2, model_name="resnet-lite", image_size=16)
+    x, y = _lite_data()
+    j = JImageClassifier(**kw)
+    j.compile(optimizer="sgd", loss=LOSS)
+    j.fit(x, y, batch_size=8, nb_epoch=1)
+    j.model.save_weights(str(tmp_path / "j"))
+    im = InferenceModel(device="cpu").load_zoo(ImageClassifier(**kw))
+    im.load_checkpoint(str(tmp_path / "j"))
+    np.testing.assert_allclose(im.predict(x, batch_size=8),
+                               np.asarray(j.predict(x, batch_size=8)),
+                               rtol=0, atol=1e-5)
+
+
+def test_load_checkpoint_of_a_torch_module(tmp_path):
+    """JAX's tests/test_inference_net.py:322 on the port: a torch
+    Sequential trained through ``Estimator.from_torch`` and saved, then
+    restored into a fresh module of the same shape."""
+    torch.manual_seed(0)
+    m = nn.Sequential(nn.Linear(4, 8), nn.Tanh(), nn.Linear(8, 2))
+    rng = np.random.RandomState(3)
+    x = rng.randn(32, 4).astype(np.float32)
+    y = (x.sum(1) > 0).astype(np.int32)
+    est = Estimator.from_torch(
+        model=m, loss="sparse_categorical_crossentropy_logits",
+        optimizer="adam", device="cpu")
+    est.fit((x, y), epochs=2, batch_size=8)
+    path = str(tmp_path / "ckpt")
+    est.save(path)
+    want = np.asarray(est.predict(x, batch_size=8))
+    fresh = nn.Sequential(nn.Linear(4, 8), nn.Tanh(), nn.Linear(8, 2))
+    im = InferenceModel(device="cpu").load_torch(fresh, x[:1])
+    im.load_checkpoint(path)
+    np.testing.assert_allclose(im.predict(x, batch_size=8), want,
+                               atol=1e-5)
+
+
+def test_load_checkpoint_refuses_what_it_cannot_restore(tmp_path):
+    """Before a load, after quantize, and a snapshot of another model."""
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    with pytest.raises(RuntimeError, match="load a model"):
+        InferenceModel(device="cpu").load_checkpoint(str(tmp_path))
+    x, y = _lite_data(8)
+    clf = ImageClassifier(2, "resnet-lite", image_size=16)
+    clf.compile(optimizer="adam", loss=LOSS, device="cpu")
+    clf.model.save_weights(str(tmp_path / "lite"))
+    other = InferenceModel(device="cpu").load_zoo(
+        ImageClassifier(3, "resnet-lite", image_size=16))
+    with pytest.raises(ValueError, match="shape"):
+        other.load_checkpoint(str(tmp_path / "lite"))
+    im = InferenceModel(device="cpu").load_zoo(clf)
+    im.quantize(min_elems=64)
+    with pytest.raises(RuntimeError, match="before quantize"):
+        im.load_checkpoint(str(tmp_path / "lite"))

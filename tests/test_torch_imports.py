@@ -62,11 +62,16 @@ def test_importing_every_module_loads_no_jax():
                 "serving.schema", "serving.config", "serving.start",
                 "common.profiling", "common.fleet", "observability",
                 "models.image", "keras.layers",
-                "models.image.imageclassification.image_classifier"):
+                "models.image.imageclassification.image_classifier",
+                "models.migration", "models.migration_image", "feature",
+                "feature.image", "feature.image.imageset",
+                "feature.image.transforms"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
-    # pandas is imported inside the functions that handle a DataFrame
+    # pandas is imported inside the functions that handle a DataFrame,
+    # PIL where an image is decoded (a host may lack it)
     assert "pandas" not in loaded
+    assert "PIL" not in loaded
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -303,8 +303,10 @@ def test_every_enqueue_terminates_result_expired_or_shed():
 
 
 def test_image_and_arrow_records_get_typed_errors():
-    """Records the port cannot decode yet end as typed error results;
-    the loop keeps serving."""
+    """Records that end at intake get typed error results and the loop
+    keeps serving: an image whose bytes do not decode (the engine decodes
+    image records now) and an Arrow record (still ROADMAP A11's). An
+    ``image_preprocess`` chain is taken as given."""
     import base64
     import json
     with Broker.launch(backend="python") as b:
@@ -319,13 +321,16 @@ def test_image_and_arrow_records_get_typed_errors():
         with ClusterServing(_Track(), b.port, batch_size=4,
                             max_batch_size=4, warmup=False) as eng:
             assert out_q.query(ok, timeout=30.0) is not None
-            for uri, kind in (("img0", "image"), ("arw0", "arrow")):
-                with pytest.raises(schema.ServingError,
-                                   match=f"{kind} records.*A11"):
+            for uri, pattern in (("img0", "image decode failed"),
+                                 ("arw0", "arrow records.*A11")):
+                with pytest.raises(schema.ServingError, match=pattern):
                     out_q.query(uri, timeout=30.0)
             assert eng.metrics()["records_failed"] == 2
-    with pytest.raises(ValueError, match="A11"):
-        ClusterServing(_Track(), 0, image_preprocess=lambda a: a)
+
+    def chain(a):
+        return a
+    assert ClusterServing(_Track(), 0, image_preprocess=chain) \
+        .image_preprocess is chain
 
 
 def test_cpu_fallback_knob_raises(monkeypatch):

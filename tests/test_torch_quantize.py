@@ -23,6 +23,11 @@ inputs go through both packages:
   3.0e-8, BERT 7.2e-7, TCN 4.8e-7); int8 ``resnet-lite`` against its own
   float output within JAX's limits (tests/test_inference_net.py: argmax
   agreement >= 0.97, nrmse < 0.1);
+- ``mobilenet-v2`` at 32 px in both modes: q and scales bitwise JAX's,
+  its 53 calibrated layers (17 depthwise) JAX's, the output within 1e-6;
+  one grouped int8 Conv2D (depthwise, a depth multiplier of 2, two
+  groups, and groups wide enough to leave float32's exact sums) bitwise
+  JAX's interceptor;
 - JAX's own quantize tests (tests/test_inference_net.py): idempotence,
   the errors, a bare ``torch.nn.Linear`` model refused, the byte shrink.
 
@@ -53,6 +58,8 @@ TCN_ARGS = dict(future_seq_len=2, num_channels=(8, 8), kernel_size=3,
 #: difference rides on: resnet-lite is held within 1e-3 (measured: 2.5e-4)
 INT8_ATOL = 1e-5
 INT8_ATOL_LITE = 1e-3
+INT8_ATOL_MNV2 = 1e-6
+MNV2_RANGE_RTOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
@@ -162,6 +169,31 @@ def _lite(jx):
     jim = jx["JIM"]().load_zoo(JImageClassifier(**LITE))
     variables = jx["jax"].device_get(jim._params)
     clf = ImageClassifier(**LITE)
+    sd = flax_to_state_dict(variables["params"])
+    sd.update(flax_to_state_dict(variables["model_state"]["batch_stats"]))
+    clf.model.module.load_state_dict(sd, strict=True)
+    return jim, InferenceModel(device="cpu").load_zoo(clf)
+
+
+MNV2 = dict(class_num=4, model_name="mobilenet-v2", image_size=32)
+
+
+def _mnv2_x(n=16, seed=4):
+    return np.random.default_rng(seed).standard_normal(
+        (n, 32, 32, 3)).astype(np.float32)
+
+
+def _mnv2(jx):
+    """``mobilenet-v2`` in both packages (its 17 depthwise convolutions
+    grouped, one group a channel), parameters and statistics JAX's."""
+    from analytics_zoo_tpu.models.image.imageclassification import (
+        ImageClassifier as JImageClassifier,
+    )
+
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    jim = jx["JIM"]().load_zoo(JImageClassifier(**MNV2))
+    variables = jx["jax"].device_get(jim._params)
+    clf = ImageClassifier(**MNV2)
     sd = flax_to_state_dict(variables["params"])
     sd.update(flax_to_state_dict(variables["model_state"]["batch_stats"]))
     clf.model.module.load_state_dict(sd, strict=True)
@@ -360,6 +392,88 @@ def test_one_int8_conv2d_and_3d_is_jax_bit_for_bit(jx, stored, kernel,
             super().__init__()
             self.c = flax_compat.Conv(5, 6, kernel, strides=strides,
                                       padding=padding)
+
+        def forward(self, a):
+            return self.c(a)
+
+    mod = T()
+    mod.load_state_dict(flax_to_state_dict(jx["jax"].device_get(params)))
+    if stored:
+        tq.quantize_module(mod, min_elems=1)
+    tq.int8_modules(mod, {"c": amax})
+    got = mod(torch.from_numpy(x)).detach().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["weight", "int8"])
+def test_mobilenet_v2_is_jax_bit_for_bit(jx, mode):
+    """``mobilenet-v2`` at 32 px, calibrated on 8 rows: every quantized
+    leaf's q and scale bitwise JAX's (the depthwise kernels ``[3, 3, 1,
+    c]`` among them where they reach ``min_elems``), the calibrated
+    layers JAX's (52 convolutions, 17 of them depthwise, and the Dense),
+    and the output within ``INT8_ATOL_MNV2`` of JAX's with the same
+    argmax (measured: 4.5e-7 in int8 mode). The activation ranges are
+    held at ``MNV2_RANGE_RTOL``: they are the max |x| after eval-mode
+    batch norms, which the packages compute a few fp32 ulps apart
+    (measured: 1.3e-6)."""
+    jim, im = _mnv2(jx)
+    x = _mnv2_x()
+    if mode == "weight":
+        jim.quantize(min_elems=1024)
+        im.quantize(min_elems=1024)
+    else:
+        jim.quantize(mode="int8", calibration_data=x[:8], min_elems=1024)
+        im.quantize(mode="int8", calibration_data=x[:8], min_elems=1024)
+        assert set(im._act_ranges) == set(jim._act_ranges)
+        assert len(im._act_ranges) == 53
+        assert sum(k.startswith("keraslayerwrapper_")
+                   for k in im._act_ranges) == 17
+        for k, v in jim._act_ranges.items():
+            assert im._act_ranges[k] == pytest.approx(
+                v, rel=MNV2_RANGE_RTOL), k
+    quantized = _compare(jx["jq"], jx["jax"].device_get(
+        jim._params["params"]), im._qtree)
+    assert any(k.startswith("/keraslayerwrapper_") for k in quantized)
+    got, want = _predict("mnv2", im, x), np.asarray(jim.predict(x))
+    np.testing.assert_allclose(got, want, rtol=0, atol=INT8_ATOL_MNV2)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("stored", [False, True])
+@pytest.mark.parametrize("cin,cout,groups,strides,padding", [
+    (6, 6, 6, (1, 1), ((1, 1), (1, 1))), (6, 6, 6, (2, 2), "SAME"),
+    (4, 8, 4, (2, 2), ((1, 1), (1, 1))), (6, 4, 2, (1, 1), "VALID"),
+    # 9 * 120 taps a group: past float32's exact sums, one int_mm a group
+    (240, 8, 2, (1, 1), "SAME")])
+def test_one_int8_grouped_conv_is_jax_bit_for_bit(jx, stored, cin, cout,
+                                                  groups, strides, padding):
+    """A grouped Conv2D (JAX passes ``feature_group_count`` to its int8
+    convolution) bitwise JAX's interceptor: the depthwise and small
+    groups through the exact float32 grouped convolution, the wide
+    groups through ``int_mm``."""
+    fnn, jnp = jx["nn"], jx["jax"].numpy
+    jq = jx["jq"]
+
+    class J(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return fnn.Conv(cout, (3, 3), strides=strides, padding=padding,
+                            feature_group_count=groups, name="c")(x)
+
+    x = np.random.RandomState(cin).randn(3, 9, 9, cin).astype(np.float32)
+    params = J().init(jx["jax"].random.PRNGKey(2), x)["params"]
+    amax = float(np.abs(x).max())
+    qparams = jq.quantize_tree(params, min_elems=1) if stored else None
+    with fnn.intercept_methods(jq.int8_interceptor({"c": amax}, qparams)):
+        want = np.asarray(J().apply({"params": params}, jnp.asarray(x)))
+
+    class T(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c = flax_compat.Conv(cin, cout, (3, 3), strides=strides,
+                                      padding=padding,
+                                      feature_group_count=groups)
 
         def forward(self, a):
             return self.c(a)

@@ -70,13 +70,23 @@ def test_mini_reader_matches_pyyaml_on_the_serving_shape(tmp_path):
 
 
 def test_encrypted_records_and_preprocessing_name_their_item(tmp_path):
+    """``record_encrypted: true`` still names ROADMAP A11; the
+    ``preprocessing:`` section builds the engine's image chain, which
+    equals JAX's on an image; no section builds none."""
+    from analytics_zoo_tpu.serving.config import \
+        ServingConfig as JServingConfig
     with pytest.raises(ValueError, match="record_encrypted.*A11"):
         ServingConfig.load(_write(
             tmp_path, "model:\n  path: m\ndata:\n  record_encrypted: true\n"))
-    cfg = ServingConfig.load(_write(tmp_path, CONFIGS["preprocessing"]))
+    path = _write(tmp_path, CONFIGS["preprocessing"])
+    cfg = ServingConfig.load(path)
     assert cfg.image_resize == 256 and cfg.image_crop == 224
-    with pytest.raises(ValueError, match="preprocessing.*A11"):
-        cfg.build_image_preprocess()
+    img = (np.random.RandomState(0).rand(300, 260, 3) * 255).astype(
+        np.uint8)
+    got = cfg.build_image_preprocess()(img)
+    want = JServingConfig.load(path).build_image_preprocess()(img)
+    assert got.shape == (224, 224, 3) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
     assert ServingConfig.load(_write(
         tmp_path, CONFIGS["defaults"])).build_image_preprocess() is None
 
