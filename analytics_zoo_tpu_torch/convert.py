@@ -197,12 +197,16 @@ def flax_layout(module: nn.Module) -> Optional[Dict]:
 def buffer_paths(module: nn.Module) -> Dict[str, tuple]:
     """``{buffer name: its path in the model_state tree}``: a
     BatchNorm's ``mean`` / ``var`` under ``batch_stats`` at the module's
-    path, any other buffer at its torch name split at the dots."""
+    path, any other buffer at its torch name split at the dots. A buffer
+    left out of the ``state_dict`` (a frozen ``WordEmbedding``'s table)
+    has no path: JAX keeps it outside its trees."""
     from analytics_zoo_tpu_torch.common.flax_compat import BatchNorm
     out: Dict[str, tuple] = {}
     for mname, mod in module.named_modules():
         prefix = tuple(mname.split(".")) if mname else ()
         for bname, _ in mod.named_buffers(recurse=False):
+            if bname in mod._non_persistent_buffers_set:
+                continue
             key = f"{mname}.{bname}" if mname else bname
             out[key] = (("batch_stats",) if isinstance(mod, BatchNorm)
                         else ()) + prefix + (bname,)

@@ -172,7 +172,8 @@ class InferenceModel:
         layout = ParamLayout(module)
         ckpt_lib.validate_state(tree["params"], layout.like)
         values = layout.from_tree(tree["params"])
-        buffers = dict(module.named_buffers())
+        buffers = {k: v for k, v in module.named_buffers()
+                   if k in layout.state_paths}
         saved = {}
         if buffers and tree.get("model_state"):
             spec = layout.state_tree({k: v.to("meta")
@@ -506,7 +507,7 @@ class InferenceModel:
         host-gathered one, so outputs at live positions match the plain
         seam bit for bit. The pool is copied to the device every step (the
         JAX package hands the step the host pool too); keeping it on the
-        device is later speed work (ROADMAP A8)."""
+        device is later speed work (queue B's R6, ROADMAP)."""
         self._decode_module()
 
         def step(enc, pool, scales, table, lengths):

@@ -3,11 +3,14 @@ use.
 
 Counterpart of ``analytics_zoo_tpu/keras/layers.py``: the activation
 table, ``Dense``, ``Activation``, ``Dropout``, ``Flatten``, ``Lambda``,
-``Merge`` / ``merge``, ``FusedEmbeddings``, ``Embedding`` and
-``SparseEmbedding`` over ``_EmbedTable``,
+``Merge`` / ``merge``, ``Narrow``, ``FusedEmbeddings``, ``Embedding``
+and ``SparseEmbedding`` over ``_EmbedTable``, ``WordEmbedding`` (a
+frozen table is a buffer, outside the flax tree, as in JAX),
 ``LayerNormalization``, ``MultiHeadAttention``, ``TransformerLayer``,
-``BERT``, the recurrent ``LSTM`` / ``GRU`` / ``SimpleRNN`` and
-``TimeDistributed``, and the image stack: ``Conv1D`` / ``Conv2D`` /
+``BERT``, the recurrent ``LSTM`` / ``GRU`` / ``SimpleRNN`` (in fp32 or,
+under ``mixed_bfloat16``, flax's mixed precision: bf16 gates, an fp32
+carry and fp32 outputs), ``Bidirectional`` and ``TimeDistributed``, and
+the image stack: ``Conv1D`` / ``Conv2D`` /
 ``Conv3D``, ``BatchNormalization``, the max and average pools (1-D to
 3-D), the global pools and ``ZeroPadding1D/2D/3D``, ``SeparableConv2D``
 (``SeparableConvolution2D``), ``LRN2D`` and ``KerasLayerWrapper`` (a
@@ -22,7 +25,9 @@ transposed; a convolution's ``[*k, in, out]`` kernel flattened the same
 way), ``<table>.embedding``, ``<norm>.weight`` (flax ``scale``) and a
 batch norm's ``<name>.mean`` / ``.var`` buffers (flax's ``batch_stats``),
 the submodule names of text/bert.py under the layer's name, and the flax
-cells' own names for the recurrent layers (``GRUCell_0.ir.weight``);
+cells' own names for the recurrent layers (``GRUCell_0.ir.weight``;
+a ``Bidirectional``'s forward and backward cells ``<name>.GRUCell_0`` and
+``<name>.GRUCell_1``, as flax names them inside the JAX layer);
 ``SeparableConv2D`` nests ``<name>.depthwise`` and ``<name>.pointwise``
 as flax does. The rest of the layer library (``WithinChannelLRN2D`` and
 the others) waits for later slices (ROADMAP A11).
@@ -31,8 +36,9 @@ the others) waits for later slices (ROADMAP A11).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -203,6 +209,30 @@ class Flatten(KerasLayer):
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]
         return (math.prod(s),) if s else None
+
+
+class Narrow(KerasLayer):
+    """``length`` elements from ``offset`` along ``dim`` (ref
+    Narrow.scala; JAX ``lax.slice_in_dim``). ``dim`` counts the batch
+    dimension, as in JAX."""
+
+    def __init__(self, dim: int, offset: int, length: int = 1,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.dim, self.offset, self.length = dim, offset, length
+
+    def apply(self, modules, args, train):
+        return args[0].narrow(self.dim, self.offset, self.length)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        # shapes leave out the batch dimension
+        ax = self.dim - 1 if self.dim >= 0 else len(s) + self.dim
+        out = list(s)
+        out[ax] = self.length
+        return tuple(out)
 
 
 class Lambda(KerasLayer):
@@ -442,6 +472,84 @@ class SparseEmbedding(Embedding):
     columns."""
 
 
+class _FrozenTable(nn.Module):
+    """A frozen word-embedding table: a buffer, not a parameter (no
+    gradient, no optimizer state), and left out of the ``state_dict`` and
+    so of the checkpoint's trees, as JAX keeps it a closure constant."""
+
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.register_buffer("table", table, persistent=False)
+
+
+class WordEmbedding(KerasLayer):
+    """Pretrained word-embedding lookup, frozen by default (ref
+    zoo/.../keras/layers/WordEmbedding.scala:49; JAX ``WordEmbedding``).
+    ``weights``: ``[vocab, dim]``. A frozen table is a buffer of a
+    ``_FrozenTable`` (nothing in the flax tree); a trainable one is a
+    normal ``<name>.embedding`` parameter initialised to ``weights``.
+    ``zero_based_id=False`` subtracts 1 from each id (at least 0)."""
+
+    def __init__(self, weights: np.ndarray, trainable: bool = False,
+                 zero_based_id: bool = True, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.weights = np.asarray(weights, np.float32)
+        self.trainable = trainable
+        self.zero_based_id = zero_based_id
+
+    @classmethod
+    def from_glove(cls, path: str, word_index: dict, dim: int,
+                   trainable: bool = False, **kw) -> "WordEmbedding":
+        """From a GloVe text file and a ``{word: 1-based index}``
+        vocabulary (ref WordEmbedding.scala's loader). Row 0 is the zero
+        pad vector and word k's vector is row k, so ids look up directly
+        (``feature/text.load_glove``'s convention)."""
+        table = np.zeros((max(word_index.values()) + 1, dim), np.float32)
+        with open(path, "r", encoding="utf-8") as fh:
+            for line in fh:
+                parts = line.rstrip().split(" ")
+                if parts[0] in word_index and len(parts) == dim + 1:
+                    table[word_index[parts[0]]] = np.asarray(parts[1:],
+                                                             np.float32)
+        return cls(table, trainable=trainable, zero_based_id=True, **kw)
+
+    def make_modules(self, in_shapes, generator):
+        table = torch.from_numpy(self.weights.copy())
+        if not self.trainable:
+            return {self.name: _FrozenTable(table)}
+        mod = _EmbedTable(*self.weights.shape)
+        with torch.no_grad():
+            mod.embedding.copy_(table)
+        return {self.name: mod}
+
+    def apply(self, modules, args, train):
+        from analytics_zoo_tpu_torch.ops.embedding_bag import (
+            embedding_lookup,
+        )
+        ids = args[0].to(torch.int32)
+        if not self.zero_based_id:
+            ids = torch.clamp(ids - 1, min=0)
+        mod = modules[self.name]
+        if self.trainable:
+            # flax nn.Embed: jnp.take of the table cast to the dtype
+            table = mod.embedding
+            if self.compute_dtype is not None:
+                table = table.to(self.compute_dtype)
+            return embedding_lookup(table, ids)
+        # JAX indexes the constant (ids clamped into the table), then
+        # casts
+        vocab = mod.table.shape[0]
+        ids = torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)
+        out = mod.table[ids.long()]
+        return out if self.compute_dtype is None \
+            else out.to(self.compute_dtype)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return tuple(s) + (self.weights.shape[1],) if s is not None \
+            else None
+
+
 # ---------------- merge ----------------
 
 class Merge(KerasLayer):
@@ -523,6 +631,25 @@ def merge(inputs: List[Node], mode: str = "sum", concat_axis: int = -1
 # positions. The gates of one side (input or recurrent) run as one product
 # of the concatenated weights; flax's OptimizedLSTMCell does the same, its
 # GRUCell does not, so the port agrees with flax within fp32 rounding.
+#
+# Under a compute dtype (keras/policy.py) a cell does what flax's does with
+# ``dtype=bfloat16``, dtype for dtype: each Dense casts its input, kernel
+# and bias to bf16, rounds the product to bf16 and adds the bias in bf16;
+# the gates are bf16; the carry starts in the parameters' dtype (flax's
+# ``initialize_carry`` uses ``param_dtype``), so LSTM's ``f * c + i * g``
+# and GRU's ``(1 - z) * n + z * h`` promote to fp32 and the outputs come
+# out fp32. SimpleCell's new carry is its bf16 activation: flax's scan
+# refuses a carry whose dtype changes, and so does ``run_cell``.
+
+
+def _dense(x, w, b, dtype):
+    """One side's gates: ``x W^T + b``. Under a compute dtype, flax's
+    ``Dense``: the input cast, the product rounded to the dtype, the bias
+    added in it."""
+    if dtype is None:
+        return F.linear(x, w, b)
+    y = F.linear(x.to(dtype), w)
+    return y if b is None else y + b
 
 def _linear(in_f: int, out_f: int, bias: bool,
             generator: torch.Generator) -> nn.Linear:
@@ -544,7 +671,8 @@ class _RNNCell(nn.Module):
     RECURRENT: Tuple[Tuple[str, bool], ...]
 
     def __init__(self, in_features: int, features: int, activation,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         for gates, fan_in in ((self.INPUT, in_features),
                               (self.RECURRENT, features)):
@@ -553,25 +681,37 @@ class _RNNCell(nn.Module):
                                               generator))
         self.features = int(features)
         self.activation = activation
+        #: the compute dtype (None: the parameters' own)
+        self.dtype = dtype
 
     def _side(self, gates):
         mods = [self._modules[n] for n, _ in gates]
         w = torch.cat([m.weight for m in mods])
         if not any(b for _, b in gates):
-            return w, None
-        # a gate without a flax bias (GRU's hr, hz) adds a zero one: x + 0
-        # is x
-        return w, torch.cat([m.bias if m.bias is not None
-                             else torch.zeros_like(m.weight[:, 0])
-                             for m in mods])
+            b = None
+        else:
+            # a gate without a flax bias (GRU's hr, hz) adds a zero one:
+            # x + 0 is x
+            b = torch.cat([m.bias if m.bias is not None
+                           else torch.zeros_like(m.weight[:, 0])
+                           for m in mods])
+        if self.dtype is not None:
+            w = w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
+        return w, b
 
     def weights(self):
         """The concatenated input-side and recurrent weights and biases,
-        made once per forward."""
+        made (and cast to the compute dtype) once per forward."""
         return self._side(self.INPUT), self._side(self.RECURRENT)
 
+    def _zeros(self, x0: torch.Tensor) -> torch.Tensor:
+        # flax's initialize_carry: zeros in the parameters' dtype
+        return torch.zeros((x0.shape[0], self.features), device=x0.device,
+                           dtype=self._modules[self.INPUT[0][0]].weight.dtype)
+
     def init_carry(self, x0: torch.Tensor):
-        return x0.new_zeros((x0.shape[0], self.features))
+        return self._zeros(x0)
 
     def output(self, carry) -> torch.Tensor:
         return carry
@@ -586,8 +726,8 @@ class GRUCellModule(_RNNCell):
 
     def step(self, x, h, w):
         (wi, bi), (wh, bh) = w
-        gi = F.linear(x, wi, bi)
-        gh = F.linear(h, wh, bh)
+        gi = _dense(x, wi, bi, self.dtype)
+        gh = _dense(h, wh, bh, self.dtype)
         f = self.features
         rz = torch.sigmoid(gi[:, :2 * f] + gh[:, :2 * f])
         r, z = rz[:, :f], rz[:, f:]
@@ -604,7 +744,7 @@ class OptimizedLSTMCellModule(_RNNCell):
     RECURRENT = (("hi", True), ("hf", True), ("hg", True), ("ho", True))
 
     def init_carry(self, x0):
-        zero = x0.new_zeros((x0.shape[0], self.features))
+        zero = self._zeros(x0)
         return zero, zero
 
     def output(self, carry):
@@ -613,7 +753,7 @@ class OptimizedLSTMCellModule(_RNNCell):
     def step(self, x, carry, w):
         (wi, _), (wh, bh) = w
         c, h = carry
-        s = F.linear(h, wh, bh) + F.linear(x, wi)
+        s = _dense(h, wh, bh, self.dtype) + _dense(x, wi, None, self.dtype)
         f = self.features
         sig = torch.sigmoid(s)
         g = self.activation(s[:, 2 * f:3 * f])
@@ -629,7 +769,40 @@ class SimpleCellModule(_RNNCell):
 
     def step(self, x, h, w):
         (wi, bi), (wh, _) = w
-        return self.activation(F.linear(x, wi, bi) + F.linear(h, wh))
+        return self.activation(_dense(x, wi, bi, self.dtype) +
+                               _dense(h, wh, None, self.dtype))
+
+
+def _dtypes(carry):
+    return tuple(t.dtype for t in carry) if isinstance(carry, tuple) \
+        else (carry.dtype,)
+
+
+def run_cell(cell: _RNNCell, x: torch.Tensor, reverse: bool = False,
+             keep_order: bool = False) -> torch.Tensor:
+    """flax ``nn.RNN(cell, reverse=, keep_order=)(x)``: every step's
+    output, ``[batch, time, features]``. ``reverse`` reads the sequence
+    from its end; the outputs stay in reading order unless
+    ``keep_order``. A carry whose dtype changes across a step raises
+    ``TypeError``, as flax's scan does."""
+    steps = (torch.flip(x, dims=(1,)) if reverse else x).transpose(
+        0, 1).contiguous()                      # [time, batch, in]
+    w = cell.weights()
+    carry = cell.init_carry(steps[0])
+    want = _dtypes(carry)
+    outs = []
+    for x_t in steps:
+        carry = cell.step(x_t, carry, w)
+        if _dtypes(carry) != want:
+            raise TypeError(
+                f"scan body function carry input and carry output must have "
+                f"equal types, but they differ: the input carry has dtype "
+                f"{want} and the output carry {_dtypes(carry)} "
+                f"({type(cell).__name__} under the compute dtype "
+                f"{cell.dtype}; flax refuses it alike)")
+        outs.append(cell.output(carry))
+    out = torch.stack(outs, dim=1)
+    return torch.flip(out, dims=(1,)) if reverse and keep_order else out
 
 
 class _RNNBase(KerasLayer):
@@ -646,37 +819,26 @@ class _RNNBase(KerasLayer):
         self.return_sequences = return_sequences
         self.go_backwards = go_backwards
 
-    def make_modules(self, in_shapes, generator):
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs in float32 only; a compute "
-                "dtype policy for the recurrent layers waits for a later "
-                "slice")
-        s = in_shapes[0]
-        if not s or s[-1] is None:
+    def make_cell(self, in_shape, generator) -> _RNNCell:
+        """A cell for inputs of ``in_shape``, computing in the layer's
+        compute dtype (flax's cell ``dtype``)."""
+        if not in_shape or in_shape[-1] is None:
             raise ValueError(f"{self.name}: input width unknown; give the "
                              "model's Input a shape")
-        cell = self.cell_cls(int(s[-1]), self.output_dim,
-                             get_activation(self.activation), generator)
-        return {flax_autoname(self.flax_cell): cell}
+        return self.cell_cls(int(in_shape[-1]), self.output_dim,
+                             get_activation(self.activation), generator,
+                             dtype=self.compute_dtype)
+
+    def make_modules(self, in_shapes, generator):
+        return {flax_autoname(self.flax_cell):
+                self.make_cell(in_shapes[0], generator)}
 
     def apply(self, modules, args, train):
         (cell,) = modules.values()
-        x = args[0]
-        if self.go_backwards:
-            # flax RNN(reverse=True, keep_order=False): outputs in the
-            # order the sequence was read
-            x = torch.flip(x, dims=(1,))
-        steps = x.transpose(0, 1).contiguous()     # [time, batch, in]
-        w = cell.weights()
-        carry = cell.init_carry(steps[0])
-        outs = []
-        for x_t in steps:
-            carry = cell.step(x_t, carry, w)
-            outs.append(cell.output(carry))
-        if not self.return_sequences:
-            return outs[-1]
-        return torch.stack(outs, dim=1)
+        # flax RNN(reverse=go_backwards, keep_order=False): outputs in the
+        # order the sequence was read
+        out = run_cell(cell, args[0], reverse=self.go_backwards)
+        return out if self.return_sequences else out[:, -1]
 
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]
@@ -700,6 +862,65 @@ class GRU(_RNNBase):
 class SimpleRNN(_RNNBase):
     cell_cls = SimpleCellModule
     flax_cell = "SimpleCell"
+
+
+class _BiCells(nn.Module):
+    """The two cells of a ``Bidirectional``, named as flax names them
+    inside the JAX layer's module: the forward cell ``<Cell>_0``, the
+    backward one ``<Cell>_1``."""
+
+    def __init__(self, flax_cell: str, forward: _RNNCell,
+                 backward: _RNNCell):
+        super().__init__()
+        self.names = (f"{flax_cell}_0", f"{flax_cell}_1")
+        self.add_module(self.names[0], forward)
+        self.add_module(self.names[1], backward)
+
+    def cells(self):
+        return self._modules[self.names[0]], self._modules[self.names[1]]
+
+
+class Bidirectional(KerasLayer):
+    """(ref keras Bidirectional; JAX ``Bidirectional``) The wrapped
+    recurrent layer's cell run forward and backward over the sequence:
+    the backward outputs come back in the sequence's order (flax's
+    ``keep_order=True``), so without ``return_sequences`` the layer takes
+    the forward's last step and the backward's first. ``merge_mode``:
+    concat, sum, mul or ave."""
+
+    def __init__(self, layer: _RNNBase, merge_mode: str = "concat",
+                 name=None):
+        super().__init__(name)
+        self.layer = layer
+        self.merge_mode = merge_mode
+
+    def make_modules(self, in_shapes, generator):
+        inner = self.layer
+        return {self.name: _BiCells(
+            inner.flax_cell, inner.make_cell(in_shapes[0], generator),
+            inner.make_cell(in_shapes[0], generator))}
+
+    def apply(self, modules, args, train):
+        fwd_cell, bwd_cell = modules[self.name].cells()
+        fwd = run_cell(fwd_cell, args[0])
+        bwd = run_cell(bwd_cell, args[0], reverse=True, keep_order=True)
+        if not self.layer.return_sequences:
+            fwd, bwd = fwd[:, -1], bwd[:, 0]
+        if self.merge_mode == "concat":
+            return torch.cat([fwd, bwd], dim=-1)
+        if self.merge_mode == "sum":
+            return fwd + bwd
+        if self.merge_mode == "mul":
+            return fwd * bwd
+        if self.merge_mode == "ave":
+            return (fwd + bwd) / 2
+        raise ValueError(f"bad merge_mode {self.merge_mode}")
+
+    def _infer_shape(self, in_shapes):
+        inner = self.layer._infer_shape(in_shapes)
+        if inner is None or self.merge_mode != "concat":
+            return inner
+        return tuple(inner[:-1]) + (2 * inner[-1],)
 
 
 class TimeDistributed(KerasLayer):

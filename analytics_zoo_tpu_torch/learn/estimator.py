@@ -99,6 +99,9 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   buffers put back after, so a fit ends bitwise where it would without
   the count. The count's own launches fall in the first fit of a shape.
 
+``Estimator.from_keras`` / ``from_graph`` return a zoo keras model's
+own estimator (its compile settings kept, explicit arguments first).
+
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
 (ROADMAP A9); the registry the JAX package mirrors the summaries into
 (ROADMAP A10).
@@ -245,6 +248,60 @@ class Estimator:
         return TorchEstimator(model, loss=loss, optimizer=optimizer,
                               metrics=metrics, model_dir=model_dir,
                               strategy=strategy, seed=seed, device=device)
+
+    @staticmethod
+    def from_keras(*, keras_model, loss=None, optimizer=None, metrics=None,
+                   model_dir: Optional[str] = None, strategy=None,
+                   param_rules=None, device: DeviceLike = None
+                   ) -> "TorchEstimator":
+        """The estimator of a zoo keras model (ref
+        pyzoo/zoo/orca/learn/tf/estimator.py:335 Estimator.from_keras).
+        Settings already on the model (a ``compile``, a ``set_strategy``)
+        are kept and explicit arguments override them; ``device`` (the
+        port's addition, as in ``from_torch``) likewise. The model's own
+        estimator is returned, so a later ``model.fit`` trains the same
+        state. Strategies other than ``"dp"`` raise (ROADMAP A9)."""
+        from analytics_zoo_tpu_torch.keras.models import KerasNet
+        model = getattr(keras_model, "model", keras_model)  # a ZooModel
+        if not isinstance(model, KerasNet):
+            raise TypeError(
+                f"from_keras expects a zoo keras model, got "
+                f"{type(keras_model).__name__}; use from_torch for torch "
+                "modules")
+        compiled = model._compile_args or {}
+        if loss is None and compiled.get("loss") is None:
+            raise ValueError(
+                "no loss: pass loss=... or compile the model first (every "
+                "other training entry point errors here too)")
+        if strategy is not None or param_rules is not None:
+            model.set_strategy(strategy or model._strategy,
+                               param_rules=param_rules)
+        model.compile(
+            optimizer=optimizer if optimizer is not None
+            else compiled.get("optimizer", "adam"),
+            loss=loss if loss is not None else compiled["loss"],
+            metrics=metrics if metrics is not None
+            else compiled.get("metrics"),
+            device=device if device is not None
+            else compiled.get("device"))
+        est = model._ensure_estimator(for_training=True)
+        if model_dir:
+            est.model_dir = model_dir
+        return est
+
+    @staticmethod
+    def from_graph(*, inputs, outputs, loss, optimizer="adam", metrics=None,
+                   model_dir: Optional[str] = None, strategy="dp",
+                   param_rules=None, device: DeviceLike = None
+                   ) -> "TorchEstimator":
+        """The estimator of a symbolic layer graph, ``Input()`` and layer
+        nodes (ref orca/learn/tf/estimator.py:291 Estimator.from_graph,
+        which takes TF1 graph tensors; here the zoo keras graph)."""
+        from analytics_zoo_tpu_torch.keras.models import Model
+        return Estimator.from_keras(
+            keras_model=Model(inputs, outputs), loss=loss,
+            optimizer=optimizer, metrics=metrics, model_dir=model_dir,
+            strategy=strategy, param_rules=param_rules, device=device)
 
     @staticmethod
     def latest_checkpoint(model_dir: str) -> Optional[str]:

@@ -8,7 +8,9 @@ from analytics_zoo_tpu_torch.models.recommendation import (
     ColumnFeatureInfo, NeuralCF, SessionRecommender, WideAndDeep,
 )
 from analytics_zoo_tpu_torch.models.seq2seq import Seq2Seq
+from analytics_zoo_tpu_torch.models.textclassification import TextClassifier
+from analytics_zoo_tpu_torch.models.textmatching import KNRM
 
 __all__ = ["ZooModel", "registry", "NeuralCF", "WideAndDeep",
            "ColumnFeatureInfo", "SessionRecommender", "AnomalyDetector",
-           "Seq2Seq", "ImageClassifier"]
+           "Seq2Seq", "ImageClassifier", "TextClassifier", "KNRM"]

@@ -11,10 +11,10 @@ architecture the zoo model's) and imported into the zoo model.
   and ``{layer: {"mean" | "var": array}}`` for the running statistics)
   into a built keras model of the port, through ``convert.py``'s layout
   rules, shapes checked against the model's flax tree;
-- the NeuralCF and Wide&Deep twins and importers, as in JAX.
+- the NeuralCF, Wide&Deep and (cnn) TextClassifier twins and
+  importers, as in JAX.
 
-The TextClassifier twin waits for the port's TextClassifier (ROADMAP
-A11). The image twins and importer are ``models/migration_image.py``.
+The image twins and importer are ``models/migration_image.py``.
 """
 
 from __future__ import annotations
@@ -233,3 +233,53 @@ def import_wide_and_deep_from_torch(zoo_wnd, torch_model_or_state):
     updates[f"dense_{n_hidden + 1}"] = _linear(sd, "head")
     assign_layer_params(zoo_wnd.model, updates)
     return zoo_wnd
+
+
+# -------------------------------------------------- Text classifier ----
+
+def make_torch_text_classifier(class_num: int, vocab_size: int,
+                               token_length: int = 200,
+                               encoder_output_dim: int = 256):
+    """Torch twin of the reference TextClassifier with the CNN encoder
+    (ref pyzoo/zoo/models/textclassification/text_classifier.py:
+    Embedding → Conv1d(k=5) + ReLU → global max pool → Dense(128) →
+    softmax head). state_dict keys: ``embed.weight``, ``conv.weight/bias``,
+    ``fc.weight/bias``, ``head.weight/bias``."""
+    import torch.nn as nn
+
+    class TorchTextClassifier(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab_size + 1, token_length)
+            self.conv = nn.Conv1d(token_length, encoder_output_dim, 5)
+            self.fc = nn.Linear(encoder_output_dim, 128)
+            self.head = nn.Linear(128, class_num)
+
+        def forward(self, ids):        # [b, seq]
+            h = self.embed(ids.long()).transpose(1, 2)   # [b, C, seq]
+            h = torch.relu(self.conv(h)).max(dim=2).values
+            h = torch.relu(self.fc(h))
+            return torch.softmax(self.head(h), dim=1)
+
+    return TorchTextClassifier()
+
+
+def import_text_classifier_from_torch(zoo_tc, torch_model_or_state):
+    """Load ``make_torch_text_classifier``-contract weights into a zoo
+    ``TextClassifier`` (encoder='cnn'; LSTM/GRU-encoder models migrate via
+    ``Estimator.from_torch`` translation instead)."""
+    if zoo_tc.encoder != "cnn":
+        raise ValueError(
+            "torch weight import covers the cnn encoder; for lstm/gru "
+            "run the torch model through Estimator.from_torch")
+    sd = _state_dict(torch_model_or_state)
+    # torch Conv1d weight [out, in, k] → zoo Conv1D kernel [k, in, out]
+    conv_k = _np(sd["conv.weight"]).transpose(2, 1, 0)
+    updates = {
+        "word_embedding": {"embedding": _np(sd["embed.weight"])},
+        "conv1d_1": {"kernel": conv_k, "bias": _np(sd["conv.bias"])},
+        "dense_1": _linear(sd, "fc"),
+        "dense_2": _linear(sd, "head"),
+    }
+    assign_layer_params(zoo_tc.model, updates)
+    return zoo_tc

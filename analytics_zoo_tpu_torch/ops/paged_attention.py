@@ -241,7 +241,7 @@ def _check_pool(name: str, pool: torch.Tensor) -> None:
     if pool.dtype not in _POOL_DTYPES:
         raise TypeError(
             f"paged kernels take float32 or int8 {name}s, got {pool.dtype} "
-            "(other KV dtypes wait for ROADMAP A8)")
+            "(the JAX package's KV_DTYPES limit)")
     if pool.ndim != 3 or not pool.is_contiguous():
         raise ValueError(f"{name} must be a contiguous [n_pages, page_size,"
                          f" dim] tensor, got {tuple(pool.shape)}")

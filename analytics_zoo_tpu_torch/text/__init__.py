@@ -11,8 +11,9 @@ from analytics_zoo_tpu_torch.text.bert import (
 from analytics_zoo_tpu_torch.text.estimators import (
     BERTNER, BERTClassifier, BERTSQuAD,
 )
-from analytics_zoo_tpu_torch.text.hf_import import hf_bert_params
+from analytics_zoo_tpu_torch.text.hf_import import (hf_bert_params,
+                                                    load_hf_bert)
 
 __all__ = ["BERTClassifier", "BERTNER", "BERTSQuAD", "BertConfig",
            "BertModule", "EncoderBlock", "TransformerModule",
-           "hf_bert_params", "init_bert_weights"]
+           "hf_bert_params", "init_bert_weights", "load_hf_bert"]

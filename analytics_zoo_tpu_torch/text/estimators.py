@@ -172,16 +172,11 @@ class _BertTaskEstimator:
     def load_hf(self, state_dict_or_path):
         """Initialise the encoder from a HuggingFace-format BERT checkpoint
         (a state dict, a live ``transformers`` module, or a ``torch.save``
-        path); the task head keeps its weights. Fine-tune as usual
-        afterwards."""
-        from analytics_zoo_tpu_torch.text.hf_import import hf_bert_params
-        src = state_dict_or_path
-        if isinstance(src, str):
-            src = torch.load(src, map_location="cpu", weights_only=True)
-        self.estimator.model.bert.load_state_dict(
-            hf_bert_params(src, self.config))
-        # as the JAX estimator does, the optimizer state starts afresh
-        self.estimator._opt_state = None
+        path) through ``hf_import.load_hf_bert``: the task head keeps its
+        weights, the optimizer state, step and epoch restart. Fine-tune
+        as usual afterwards."""
+        from analytics_zoo_tpu_torch.text.hf_import import load_hf_bert
+        load_hf_bert(self, state_dict_or_path)
         return self
 
 

@@ -15,8 +15,8 @@ Counterpart of ``analytics_zoo_tpu/zouwu/model/forecast.py`` (ref
   ``learn/checkpoint.py`` with flax's names, so a forecaster saved by
   either package restores in the other.
 - ``dtype``: "float32" (default) or "mixed_bfloat16" (``keras/policy.py``:
-  bf16 compute with fp32 parameters; the heads and the loss stay fp32).
-  The recurrent forecasters raise under bf16 (ROADMAP A8).
+  bf16 compute with fp32 parameters; the heads and the loss stay fp32;
+  the LSTMs keep flax's fp32 carry).
 - ``device``: ``cuda`` unless the caller passes ``device="cpu"``, or the
   active context's first device.
 

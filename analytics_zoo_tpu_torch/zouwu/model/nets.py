@@ -20,9 +20,9 @@ tree, so checkpoints cross packages):
 All take ``[batch, time, features]`` and give ``[batch, horizon]``;
 ``forward(x, train)`` applies dropout only with ``train=True``. ``dtype``
 (e.g. ``torch.bfloat16``) is the compute dtype with fp32 parameters
-(``keras/policy.py``); the heads stay fp32. The recurrent nets run in fp32
-only and raise under a bf16 dtype, as the keras recurrent layers do
-(ROADMAP A8). ``MTNetModule`` waits for ROADMAP A11.
+(``keras/policy.py``); the heads stay fp32. The LSTMs take it as flax's
+cells do (``keras/layers.py``): bf16 gates, an fp32 carry, fp32 outputs.
+``MTNetModule`` waits for ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.flax_compat import Conv, Dense
-from analytics_zoo_tpu_torch.keras.layers import OptimizedLSTMCellModule
+from analytics_zoo_tpu_torch.keras.layers import (OptimizedLSTMCellModule,
+                                                  run_cell)
 
 # the std of a standard normal truncated to [-2, 2] (flax's
 # variance_scaling divides by it)
@@ -59,26 +60,6 @@ def _flax_init(lin: nn.Module, fan_in: int,
         with torch.no_grad():
             lin.bias.zero_()
     return lin
-
-
-def _check_fp32(net: str, dtype) -> None:
-    if dtype is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            f"{net} runs in float32 only; a compute dtype for the recurrent "
-            "layers waits for a later slice (ROADMAP A8)")
-
-
-def _run_lstm(cell: OptimizedLSTMCellModule, x: torch.Tensor
-              ) -> torch.Tensor:
-    """flax ``nn.RNN(cell)(x)``: every step's output, ``[b, t, units]``."""
-    steps = x.transpose(0, 1)
-    w = cell.weights()
-    carry = cell.init_carry(steps[0])
-    outs = []
-    for x_t in steps:
-        carry = cell.step(x_t, carry, w)
-        outs.append(cell.output(carry))
-    return torch.stack(outs, dim=1)
 
 
 class _TemporalBlock(nn.Module):
@@ -150,21 +131,20 @@ class VanillaLSTMNet(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_fp32("VanillaLSTMNet", dtype)
         gen = generator or torch.Generator().manual_seed(0)
         width = int(in_features)
         self.dropouts = [float(dropouts[min(i, len(dropouts) - 1)])
                          for i in range(len(lstm_units))]
         for i, units in enumerate(lstm_units):
             self.add_module(f"OptimizedLSTMCell_{i}", OptimizedLSTMCellModule(
-                width, int(units), torch.tanh, gen))
+                width, int(units), torch.tanh, gen, dtype=dtype))
             width = int(units)
         self.n_layers = len(lstm_units)
         self.Dense_0 = _flax_init(Dense(width, output_dim), width, generator)
 
     def forward(self, x, train: bool = False):
         for i in range(self.n_layers):
-            x = _run_lstm(self._modules[f"OptimizedLSTMCell_{i}"], x)
+            x = run_cell(self._modules[f"OptimizedLSTMCell_{i}"], x)
             if self.dropouts[i]:
                 x = F.dropout(x, self.dropouts[i], training=train)
         return self.Dense_0(x[:, -1, :].float())
@@ -180,24 +160,23 @@ class Seq2SeqNet(nn.Module):
                  output_dim: int = 1, dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_fp32("Seq2SeqNet", dtype)
         gen = generator or torch.Generator().manual_seed(0)
         self.future_seq_len = int(future_seq_len)
         self.latent_dim = int(latent_dim)
         self.dropout = float(dropout)
         self.output_dim = int(output_dim)
         self.OptimizedLSTMCell_0 = OptimizedLSTMCellModule(
-            int(in_features), self.latent_dim, torch.tanh, gen)
+            int(in_features), self.latent_dim, torch.tanh, gen, dtype=dtype)
         self.OptimizedLSTMCell_1 = OptimizedLSTMCellModule(
-            self.latent_dim, self.latent_dim, torch.tanh, gen)
+            self.latent_dim, self.latent_dim, torch.tanh, gen, dtype=dtype)
         self.Dense_0 = _flax_init(Dense(self.latent_dim, self.output_dim),
                                   self.latent_dim, generator)
 
     def forward(self, x, train: bool = False):
-        ctx = _run_lstm(self.OptimizedLSTMCell_0, x)[:, -1, :]
+        ctx = run_cell(self.OptimizedLSTMCell_0, x)[:, -1, :]
         if self.dropout:
             ctx = F.dropout(ctx, self.dropout, training=train)
         dec_in = ctx[:, None, :].expand(-1, self.future_seq_len, -1)
-        dec = _run_lstm(self.OptimizedLSTMCell_1, dec_in)
+        dec = run_cell(self.OptimizedLSTMCell_1, dec_in)
         out = self.Dense_0(dec.float())
         return out[..., 0] if self.output_dim == 1 else out

@@ -368,6 +368,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
              classifier: predict bitwise the fitted estimator's. It
              writes under build/phase18/ and removes it.
 
+19. text from words to answers (ROADMAP A16's rest, A8, A11's text
+             part): (a) 1000 seeded texts of 50-500 tokens through
+             TextSet (tokenize, normalize, word2idx of the 5000 most
+             frequent words, shape_sequence(500), generate_sample) on the
+             host, ms per 1000 texts, four shards bitwise one; (b)
+             TextClassifier (20 classes, 500 x 200-d, 256-wide encoder;
+             the 20 Newsgroups app's widths) for cnn, lstm and gru, fp32
+             (TF32 off) and mixed_bfloat16: a fit step's ms and samples/s
+             at batch 128 (2 warm-up, 5 timed; the recurrent ones 1),
+             predict ms (CUDA events), kernel launches a step (profiler;
+             the recurrent ones' in fp32),
+             one step on 8 rows against float64 on the CPU (loss, logits,
+             the head's gradient at P19_*_LIMITS, basis
+             dev/estimate_text_limits.py), the recurrent outputs fp32;
+             (c) the cnn classifier imported from its torch twin within
+             1e-6 of it, top-1 equal, then 128 id records served on the
+             native broker bitwise the predict at batch 128; (d) KNRM
+             (WikiQA's 10 x 40 ids, 300-d, 21 kernels, batch 200): fit and
+             predict ms, NDCG@3 and MAP over 16 queries equal to the
+             CPU's, a step against float64; (e) a frozen
+             WordEmbedding.from_glove of a 300-d file the phase writes:
+             after 2 steps bitwise the file, no parameter, no optimizer
+             state; (f) load_hf_bert of a HuggingFace-layout BERT-Base
+             dict (numpy seed 0) into a bf16 BERTClassifier(2) after one
+             fine-tuning step: the encoder bitwise the dict, the head
+             unchanged, the step 0; predict of 32 x 512 within phase 6's
+             limit of the same weights through convert, 12 flash
+             forwards; 2 more steps at 32 x 128 with 12 launches of each
+             flash kernel a step; (g) LSTMForecaster and Seq2SeqForecaster at bench.py's
+             TCN batch in fp32 and mixed_bfloat16: ms a step, predict
+             against float64, fp32 recurrent outputs; (h) NeuralCF through
+             Estimator.from_keras, 20 steps of 8000 with 2 lookups and 4
+             scatter-adds a step, bitwise the compile/fit path. It writes
+             under build/phase19/ and removes it.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -414,10 +449,11 @@ fit; phase 15, before each broker turn, after the BERT warm-up, and
 before the deadline, admission, lease and each decode path; phase 16,
 before each int8 model's predicts, each fit, the served int8 model and
 the fleet; phase 17, before its training window, which launches none;
-phase 18, before its paths, which launch none) and
+phase 18, before its paths, which launch none; phase 19, before each
+of (b)-(h): (b)-(e) and (g) launch none, (f) B3-B5, (h) B1 and B1b) and
 read
 right after it: every kernel of the path must have launched there.
-Phases 13's to 18's seconds and the whole run's are printed
+Phases 13's to 19's seconds and the whole run's are printed
 before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -876,6 +912,68 @@ P18_DEPTHWISE = 17
 # (f): a 2-step ResNet-50 fit at batch 8 with a checkpoint every step
 P18_FIT_ROWS = 16
 P18_FIT_BATCH = 8
+
+# phase 19: text from words to answers (ROADMAP A16's rest, A8 and A11's
+# text part). The TextClassifier of the reference's text-classification
+# app on 20 Newsgroups: the constructor's defaults (20 classes, 500
+# tokens, GloVe's 200-d, a 256-wide encoder), the app's max_words_num
+# 5000 and batch 128
+P19_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "phase19")
+P19_TC = dict(class_num=20, token_length=200, sequence_length=500,
+              encoder_output_dim=256)
+P19_VOCAB = 5000
+P19_BATCH = 128
+P19_TEXTS = 1000                # (a): texts through the pipeline
+P19_WORDS = 20_000              # the seeded word list
+P19_TEXT_TOKENS = (50, 500)     # a text's length, uniform
+P19_ENCODERS = ("cnn", "lstm", "gru")
+P19_WARMUP = 2
+P19_TIMED = {"cnn": 5, "lstm": 1, "gru": 1}   # the 500-step loops: fewer
+P19_PREDICT_REPS = {"cnn": 20, "lstm": 3, "gru": 3}
+P19_CHECK_ROWS = 8              # (b), (d): a step against float64
+# (b)'s and (d)'s limits on one training step against the same step in
+# float64 on the CPU (dropout off), as (loss, logits, head gradient): the
+# loss's absolute difference, the logits' (the last Dense's output before
+# its activation) and the head gradient's distance over float64's norm.
+# Basis: python3 dev/estimate_text_limits.py (the same step on the CPU,
+# 8 rows; its readings in the comments); fp32 (TF32 off) 10x to 50x past
+# them, bf16 about 4x. A float64 loss passes through the loss's float32
+# cast, so fp32's loss reads 0 on the CPU
+P19_FP32_LIMITS = {
+    "cnn": (1e-5, 5e-6, 5e-6),       # 0, 4.40e-7, 3.83e-7
+    "lstm": (1e-5, 5e-6, 5e-6),      # 0, 1.43e-7, 1.37e-7
+    "gru": (1e-5, 5e-6, 5e-6),       # 0, 2.12e-7, 1.43e-7
+    # 0, 8.88e-8, 1.65e-7: random 300-d vectors put no cosine within
+    # exact_sigma of 1 but the exact matches (1 within rounding), where
+    # the exact kernel's slope is nearly 0, so it amplifies nothing here
+    "knrm": (1e-5, 5e-6, 1e-5)}
+P19_BF16_LIMITS = {
+    "cnn": (5e-3, 0.015, 0.02),      # 9.26e-4, 2.93e-3, 3.85e-3
+    "lstm": (5e-3, 0.02, 0.025),     # 1.65e-4, 4.54e-3, 5.96e-3
+    "gru": (5e-3, 0.025, 0.025)}     # 5.10e-5, 5.79e-3, 5.10e-3
+P19_TWIN_ATOL = 1e-6            # (c): the imported cnn against its twin
+# KNRM of the reference's QA-ranker app on WikiQA: text1/text2 lengths 10
+# and 40, GloVe 840B's 300-d, 21 kernels, sigma 0.1, exact sigma 0.001
+# (knrm.py's defaults), batch 200; the vocabulary is this repo's choice
+P19_KNRM = dict(text1_length=10, text2_length=40, vocab_size=30_000,
+                embed_dim=300, kernel_num=21, sigma=0.1, exact_sigma=0.001)
+P19_KNRM_BATCH = 200
+P19_KNRM_HEAD_SCALE = 0.02       # the seeded head's kernel, scaled
+P19_QUERIES = 16                # (d): ranking metrics over 16 queries
+P19_CANDIDATES = 8
+P19_GLOVE_DIM = 300             # (e)
+# (f): BERT-Base, Uncased in HuggingFace's layout through load_hf_bert
+P19_BERT_PREDICT = (32, 512)
+P19_BERT_TRAIN = (32, 128)
+P19_BERT_STEPS = 2
+# (g): the forecasters at bench.py's TCN batch (256 x 96 x 8); predict
+# against float64, as the norm of the difference over float64's norm
+P19_FC_TIMED = 5
+# (the CPU's readings, dev/estimate_text_limits.py: fp32 1.63e-7 and
+# 1.89e-7, bf16 5.55e-3 and 5.98e-3 for the LSTM and the Seq2Seq)
+P19_FC_RTOL = {"float32": 5e-6, "mixed_bfloat16": 0.025}
+P19_NCF_STEPS = 20              # (h)
 
 
 def log(msg: str):
@@ -7069,6 +7167,760 @@ def phase_image_path(torch, np, api, kind, dev="cuda"):
     return rep
 
 
+def p19_texts(np, n, seed=SEED + 19):
+    """``n`` texts over a seeded word list of P19_WORDS words drawn by a
+    Zipf law (rank r with weight 1 / (r + 1)), each of a length uniform in
+    P19_TEXT_TOKENS tokens, with a capital and a full stop; and a label of
+    P19_TC's classes each."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    sizes = rng.integers(2, 10, P19_WORDS)
+    words = np.array(["".join(rng.choice(letters, k)) for k in sizes])
+    weights = 1.0 / np.arange(1, P19_WORDS + 1)
+    weights /= weights.sum()
+    lo, hi = P19_TEXT_TOKENS
+    texts = []
+    for length in rng.integers(lo, hi + 1, n):
+        text = " ".join(words[rng.choice(P19_WORDS, length, p=weights)])
+        texts.append(text[0].upper() + text[1:] + ".")
+    labels = rng.integers(0, P19_TC["class_num"], n).astype(np.int32)
+    return texts, labels
+
+
+def p19_pipeline(texts, labels, num_shards):
+    """The reference app's TextSet path: tokenize, normalize, word2idx
+    (the app's max_words_num), shape_sequence, generate_sample; (the
+    TextSet, its ids, its labels)."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.feature.text import TextSet
+    ts = (TextSet.from_texts(texts, labels, num_shards=num_shards)
+          .tokenize().normalize().word2idx(max_words_num=P19_VOCAB)
+          .shape_sequence(P19_TC["sequence_length"]).generate_sample())
+    parts = ts.to_dataset().collect()
+    return (ts, np.concatenate([p["x"] for p in parts]),
+            np.concatenate([p["y"] for p in parts]))
+
+
+def p19_text_set(torch, np, kind):
+    """19(a): P19_TEXTS texts to samples on the host, timed; the ids of
+    four shards bitwise those of one."""
+    texts, labels = p19_texts(np, P19_TEXTS)
+    t0 = time.perf_counter()
+    ts, ids, ys = p19_pipeline(texts, labels, 4)
+    ms = (time.perf_counter() - t0) * 1e3 * 1000 / P19_TEXTS
+    _, ids1, ys1 = p19_pipeline(texts, labels, 1)
+    vocab = ts.get_word_index()
+    rep = dict(ms_per_1000_texts=ms, texts=P19_TEXTS, vocab=len(vocab),
+               tokens=int(sum(len(t.split()) for t in texts)),
+               shards_bitwise=bool(np.array_equal(ids, ids1)
+                                   and np.array_equal(ys, ys1)),
+               pad_share=float(np.mean(ids == 0)))
+    log(f"phase 19(a) on the host of {kind}: {P19_TEXTS} texts "
+        f"({rep['tokens']} tokens) to samples of "
+        f"{P19_TC['sequence_length']} ids in {ms:.1f} ms per 1000 texts; "
+        f"vocabulary {len(vocab)}; {rep['pad_share']:.1%} padding; four "
+        f"shards bitwise one: {rep['shards_bitwise']}")
+    if not (rep["shards_bitwise"] and len(vocab) == P19_VOCAB
+            and ids.dtype == np.int32 and ids.shape == (
+                P19_TEXTS, P19_TC["sequence_length"])
+            and 0 <= ids.min() and ids.max() <= P19_VOCAB):
+        raise AssertionError(f"19(a): {rep}, ids {ids.shape} {ids.dtype}")
+    return rep, (ts, ids, ys)
+
+
+def p19_no_dropout(zoo):
+    """Every Dropout of ``zoo``'s graph at rate 0 (a step compared across
+    devices: dropout's draws differ between them)."""
+    seen, stack = set(), list(zoo.model._graph()[1])
+    while stack:
+        node = stack.pop()
+        if id(node) not in seen:
+            seen.add(id(node))
+            if type(node.layer).__name__ == "Dropout":
+                node.layer.p = 0.0
+            stack.extend(node.inputs)
+
+
+def p19_model(np, what, dtype="float32", state=None):
+    """The TextClassifier of ``what`` (an encoder) or KNRM, built under
+    ``dtype``'s policy, with weights from the numpy seed or ``state``."""
+    from analytics_zoo_tpu_torch.keras import policy
+    from analytics_zoo_tpu_torch.models import KNRM, TextClassifier
+    with policy.policy_scope(dtype):
+        m = KNRM(**P19_KNRM) if what == "knrm" else TextClassifier(
+            vocab_size=P19_VOCAB, encoder=what, **P19_TC)
+    if state is None:
+        seeded_weights(m.model.module, SEED)
+        if what == "knrm":
+            # random kernel features reach tens, so a glorot head would
+            # saturate the sigmoid (logits near -20) and the step would
+            # have no gradient; scaled, its logits are of order 1
+            import torch
+            with torch.no_grad():
+                m.model.module.dense_1.weight.mul_(P19_KNRM_HEAD_SCALE)
+    else:
+        m.model.module.load_state_dict(state)
+    return m
+
+
+class p19_rnn_dtypes:
+    """``with p19_rnn_dtypes() as seen:`` the dtype of every recurrent
+    layer's outputs inside the block (``keras.layers.run_cell``, which
+    the keras layers and Zouwu's nets call)."""
+
+    def __enter__(self):
+        from analytics_zoo_tpu_torch.keras import layers
+        from analytics_zoo_tpu_torch.zouwu.model import nets
+        self.mods, self.orig, seen = (layers, nets), layers.run_cell, []
+
+        def spy(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            seen.append(out.dtype)
+            return out
+        for mod in self.mods:
+            mod.run_cell = spy
+        return seen
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.run_cell = self.orig
+
+
+def p19_step(torch, np, what, x, y, device, dtype="float32", state=None,
+             f64=False):
+    """One training step of ``what`` on ``x, y`` (dropout off; in float64
+    with ``f64``): the loss, the logits (the last Dense's output before
+    its activation), the head's gradient, the recurrent outputs' dtypes."""
+    from analytics_zoo_tpu_torch.common.flax_compat import Dense
+    m = p19_model(np, what, dtype, state)
+    p19_no_dropout(m)
+    mod = m.model.module
+    if f64:
+        mod.double()
+    loss = "binary_crossentropy" if what == "knrm" else \
+        "sparse_categorical_crossentropy"
+    m.compile(optimizer="adam", loss=loss, device=device)
+    dense = [d for d in mod.modules() if isinstance(d, Dense)][-1]
+    seen = {}
+
+    def keep(_mod, _args, out):
+        # returns None: a hook's return value would replace the output
+        seen.setdefault("logits", out.detach().double().cpu())
+    hook = dense.register_forward_hook(keep)
+    try:
+        with p19_rnn_dtypes() as rnn:
+            value, grads = p17_grads(m.model.estimator, x, y)
+    finally:
+        hook.remove()
+    head = "dense_1.weight" if what == "knrm" else "dense_2.weight"
+    return dict(loss=value, logits=seen["logits"], head=grads[head],
+                rnn_dtypes=sorted({str(d) for d in rnn}))
+
+
+def p19_against_f64(run, ref):
+    return (abs(run["loss"] - ref["loss"]), p17_rel(run["logits"],
+                                                    ref["logits"]),
+            p17_rel(run["head"], ref["head"]))
+
+
+def p19_window(torch, est, xs, ys, timed) -> float:
+    """ms a step: P19_WARMUP steps, then ``timed`` on the host clock
+    between two syncs (bench.py's _measure_step_time)."""
+    for _ in range(P19_WARMUP):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / timed * 1e3
+
+
+def p19_launch_calls(torch, fn) -> int:
+    """The kernel launches the CUDA runtime took during ``fn()`` (the
+    profiler's host-side launch calls)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if "LaunchKernel" in e.key))
+
+
+def p19_classifiers(torch, np, ids, ys, kind, dev="cuda"):
+    """19(b): each encoder in fp32 (TF32 off) and mixed_bfloat16: a fit
+    step's ms and samples/s (the batch on the card), predict ms (CUDA
+    events), the launches a step, and one step on P19_CHECK_ROWS rows
+    against float64 on the CPU. The ids reach the card bitwise."""
+    x, y = ids[:P19_BATCH], ys[:P19_BATCH]
+    xc, yc = x[:P19_CHECK_ROWS], y[:P19_CHECK_ROWS]
+    rep = {}
+    with p17_tf32(torch, False):
+        for enc in P19_ENCODERS:
+            state = p19_model(np, enc).model.module.state_dict()
+            ref = p19_step(torch, np, enc, xc, yc, "cpu", state=state,
+                           f64=True)
+            row = {}
+            for dtype in ("float32", "mixed_bfloat16"):
+                t0 = time.perf_counter()
+                m = p19_model(np, enc, dtype, state)
+                m.compile(optimizer="adam",
+                          loss="sparse_categorical_crossentropy",
+                          device=dev)
+                est = m.model.estimator
+                xs, ys_ = est._tensors(x), est._tensors(y)
+                if not np.array_equal(xs.cpu().numpy(), x):
+                    raise AssertionError("19(b): the ids on the card differ")
+                ms = p19_window(torch, est, xs, ys_, P19_TIMED[enc])
+                # the recurrent encoders' ~20 000 launches a step are
+                # profiled once, in fp32 (bf16 adds its casts)
+                launches = p19_launch_calls(
+                    torch, lambda: est._train_step(xs, ys_)) \
+                    if enc == "cnn" or dtype == "float32" else None
+                mod = m.model.module.eval()
+                with torch.inference_mode():
+                    probs = mod(xs)
+                    pms = cuda_ms(lambda: mod(xs),
+                                  iters=P19_PREDICT_REPS[enc], warmup=1)
+                run = p19_step(torch, np, enc, xc, yc, dev, dtype, state)
+                dist = p19_against_f64(run, ref)
+                limits = (P19_FP32_LIMITS if dtype == "float32"
+                          else P19_BF16_LIMITS)[enc]
+                row[dtype] = dict(
+                    step_ms=ms, samples_per_s=P19_BATCH / ms * 1e3,
+                    timed_steps=P19_TIMED[enc], predict_ms=pms,
+                    launches_per_step=launches,
+                    loss_diff=dist[0], logits_rel=dist[1],
+                    head_grad_rel=dist[2], limits=limits,
+                    rnn_dtypes=run["rnn_dtypes"],
+                    probs_finite=bool(torch.isfinite(probs).all()),
+                    seconds=time.perf_counter() - t0)
+                log(f"phase 19(b) TextClassifier {enc} {dtype} on {kind}: "
+                    f"a fit step of {P19_BATCH} x "
+                    f"{P19_TC['sequence_length']} {ms:.3f} ms "
+                    f"({P19_BATCH / ms * 1e3:.1f} samples/s, "
+                    f"{P19_TIMED[enc]} timed), "
+                    f"{'not profiled:' if launches is None else launches} "
+                    f"kernel launches "
+                    f"a step; predict {pms:.3f} ms (CUDA events); a step "
+                    f"on {P19_CHECK_ROWS} rows against float64: loss "
+                    f"{dist[0]:.3g}, logits {dist[1]:.3g}, head gradient "
+                    f"{dist[2]:.3g} (limits {limits}); recurrent outputs "
+                    f"{run['rnn_dtypes']}")
+                bad = [d > lim for d, lim in zip(dist, limits)]
+                rnn_ok = enc == "cnn" or run["rnn_dtypes"] == [
+                    "torch.float32"]
+                if any(bad) or not rnn_ok or not row[dtype]["probs_finite"]:
+                    raise AssertionError(f"19(b) {enc} {dtype}: {row}")
+                del m, est, mod
+            rep[enc] = row
+    return rep
+
+
+def p19_twin_served(torch, np, api, ids, kind, dev="cuda"):
+    """19(c): the cnn TextClassifier imported from its torch twin
+    (models/migration.py) against the twin on the card, then served as
+    id records on the native broker: every answer bitwise the predict at
+    batch P19_BATCH."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import TextClassifier, migration
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    torch.manual_seed(SEED)
+    twin = migration.make_torch_text_classifier(
+        P19_TC["class_num"], P19_VOCAB, P19_TC["token_length"],
+        P19_TC["encoder_output_dim"])
+    tc = TextClassifier(vocab_size=P19_VOCAB, encoder="cnn", **P19_TC)
+    migration.import_text_classifier_from_torch(tc, twin)
+    x = ids[:P19_BATCH].astype(np.float32)
+    rep = {}
+    with p17_tf32(torch, False):
+        twin = twin.to(dev).eval()
+        with torch.inference_mode():
+            want = twin(torch.as_tensor(x, device=dev)).cpu().numpy()
+        im = InferenceModel(device=dev).load_zoo(tc)
+        refs = im.predict(x, batch_size=P19_BATCH)
+        rep["max_abs_diff"] = float(np.abs(refs - want).max())
+        rep["top1_equal"] = bool((refs.argmax(-1) == want.argmax(-1)).all())
+        with Broker.launch(backend="native") as b, \
+                ClusterServing(im, b.port, batch_size=P19_BATCH,
+                               max_batch_size=P19_BATCH,
+                               warmup=False) as eng:
+            iq, oq = InputQueue(port=b.port), OutputQueue(port=b.port)
+            t0 = time.perf_counter()
+            uris = iq.enqueue_batch((f"p19t{i}", {"x": x[i]})
+                                    for i in range(len(x)))
+            got = oq.query_many(uris, timeout=120, poll_interval=0.002)
+            served_s = time.perf_counter() - t0
+            metrics = eng.metrics()
+            iq.close()
+            oq.close()
+    bad = [i for i in range(len(x)) if got.get(f"p19t{i}") is None
+           or not np.array_equal(got[f"p19t{i}"], refs[i])]
+    rep.update(records=len(x), records_per_s=len(x) / served_s,
+               not_bitwise=len(bad), batches=metrics["batches"])
+    log(f"phase 19(c) the cnn TextClassifier imported from its torch twin "
+        f"on {kind}: max |port - twin| {rep['max_abs_diff']:.3g} (atol "
+        f"{P19_TWIN_ATOL}), top-1 equal {rep['top1_equal']}; {len(x)} id "
+        f"records served at {rep['records_per_s']:.1f} records/s, not "
+        f"bitwise the predict at batch {P19_BATCH}: {len(bad)}")
+    if rep["max_abs_diff"] > P19_TWIN_ATOL or not rep["top1_equal"] or bad:
+        raise AssertionError(f"19(c): {rep}")
+    return rep
+
+
+def p19_knrm_data(np, n, seed):
+    """``n`` rows of query (text1_length) and document (text2_length) ids
+    over KNRM's vocabulary; each document repeats some of its query's
+    words (the exact-match kernel's work); labels 0/1."""
+    rng = np.random.default_rng(seed)
+    t1, t2 = P19_KNRM["text1_length"], P19_KNRM["text2_length"]
+    q = rng.integers(1, P19_KNRM["vocab_size"] + 1, (n, t1))
+    d = rng.integers(1, P19_KNRM["vocab_size"] + 1, (n, t2))
+    for i in range(n):
+        k = int(rng.integers(0, t1 + 1))
+        d[i, rng.choice(t2, k, replace=False)] = q[i, rng.choice(t1, k)]
+    x = np.concatenate([q, d], 1).astype(np.float32)
+    return x, rng.integers(0, 2, (n, 1)).astype(np.float32)
+
+
+def p19_knrm(torch, np, kind, dev="cuda"):
+    """19(d): KNRM's fit ms a step and predict ms; NDCG@3 and MAP over
+    P19_QUERIES queries of P19_CANDIDATES candidates from the card's
+    scores equal to those from the CPU's; one step against float64."""
+    from analytics_zoo_tpu_torch.models.textmatching import (evaluate_map,
+                                                             evaluate_ndcg)
+    x, y = p19_knrm_data(np, P19_KNRM_BATCH, SEED + 20)
+    rep = {}
+    with p17_tf32(torch, False):
+        m = p19_model(np, "knrm")
+        state = m.model.module.state_dict()
+        m.compile(optimizer="adam", loss="binary_crossentropy", device=dev)
+        est = m.model.estimator
+        xs, ys = est._tensors(x), est._tensors(y)
+        rep["step_ms"] = p19_window(torch, est, xs, ys, P19_TIMED["cnn"])
+        mod = m.model.module.eval()
+        with torch.inference_mode():
+            rep["predict_ms"] = cuda_ms(lambda: mod(xs), iters=20, warmup=2)
+        xq, _ = p19_knrm_data(np, P19_QUERIES * P19_CANDIDATES, SEED + 21)
+        labels = np.random.default_rng(SEED + 22).integers(
+            0, 3, (P19_QUERIES, P19_CANDIDATES))
+        card = m.predict(xq, batch_size=len(xq)).reshape(labels.shape)
+        cpu = p19_model(np, "knrm", state=mod.state_dict()).predict(
+            xq, batch_size=len(xq), device="cpu").reshape(labels.shape)
+        metrics = {}
+        for name, scores in (("card", card), ("cpu", cpu)):
+            metrics[name] = (
+                [evaluate_ndcg(labels[i], scores[i], k=3)
+                 for i in range(P19_QUERIES)],
+                [evaluate_map(labels[i], scores[i])
+                 for i in range(P19_QUERIES)])
+        xc, yc = x[:P19_CHECK_ROWS], y[:P19_CHECK_ROWS]
+        ref = p19_step(torch, np, "knrm", xc, yc, "cpu", state=state,
+                       f64=True)
+        run = p19_step(torch, np, "knrm", xc, yc, dev, state=state)
+    dist = p19_against_f64(run, ref)
+    rep.update(ndcg3=float(np.mean(metrics["card"][0])),
+               map=float(np.mean(metrics["card"][1])),
+               metrics_equal=metrics["card"] == metrics["cpu"],
+               score_diff=float(np.abs(card - cpu).max()),
+               loss_diff=dist[0], logits_rel=dist[1], head_grad_rel=dist[2],
+               limits=P19_FP32_LIMITS["knrm"])
+    log(f"phase 19(d) KNRM on {kind} (batch {P19_KNRM_BATCH}, "
+        f"{P19_KNRM['text1_length']} x {P19_KNRM['text2_length']} ids, "
+        f"{P19_KNRM['embed_dim']}-d, {P19_KNRM['kernel_num']} kernels): a "
+        f"fit step {rep['step_ms']:.3f} ms, predict {rep['predict_ms']:.3f}"
+        f" ms (CUDA events); NDCG@3 {rep['ndcg3']:.4f}, MAP "
+        f"{rep['map']:.4f} over {P19_QUERIES} queries, equal to the CPU's: "
+        f"{rep['metrics_equal']} (scores within {rep['score_diff']:.3g}); "
+        f"a step against float64: loss {dist[0]:.3g}, logits {dist[1]:.3g},"
+        f" head gradient {dist[2]:.3g} (limits {rep['limits']})")
+    if not rep["metrics_equal"] or any(
+            d > lim for d, lim in zip(dist, P19_FP32_LIMITS["knrm"])):
+        raise AssertionError(f"19(d): {rep}")
+    return rep
+
+
+def p19_glove(torch, np, ts, ids, ys, kind, dev="cuda"):
+    """19(e): a frozen WordEmbedding.from_glove over a GloVe-format file
+    of (a)'s vocabulary (P19_GLOVE_DIM-d, seeded) under the cnn encoder:
+    after 2 fit steps its table is bitwise what the file gave, and it has
+    no parameter, gradient or optimizer state."""
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras import layers as zl
+    vocab = ts.get_word_index()
+    rng = np.random.default_rng(SEED + 23)
+    vecs = [[f"{v:.6f}" for v in row] for row in rng.normal(
+        0, 0.3, (len(vocab), P19_GLOVE_DIM))]
+    path = os.path.join(P19_DIR, "glove.txt")
+    with open(path, "w") as fh:
+        for (word, _), vec in zip(sorted(vocab.items(), key=lambda w: w[1]),
+                                  vecs):
+            fh.write(word + " " + " ".join(vec) + "\n")
+    inp = Input(shape=(P19_TC["sequence_length"],))
+    emb = zl.WordEmbedding.from_glove(path, vocab, P19_GLOVE_DIM,
+                                      name="glove")
+    h = zl.Conv1D(P19_TC["encoder_output_dim"], 5, activation="relu")(
+        emb(inp))
+    out = zl.Dense(P19_TC["class_num"], activation="softmax")(
+        zl.GlobalMaxPooling1D()(h))
+    model = Model(input=inp, output=out)
+    seeded_weights(model.module, SEED)
+    table = model.module.glove.table.clone()
+    model.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                  device=dev)
+    hist = model.fit(ids[:2 * P19_BATCH], ys[:2 * P19_BATCH],
+                     batch_size=P19_BATCH, nb_epoch=1)
+    est = model.estimator
+    rep = dict(
+        table_bitwise=bool(torch.equal(model.module.glove.table.cpu(),
+                                       table)),
+        from_file=bool(np.array_equal(table.numpy()[1:],
+                                      np.asarray(vecs, np.float32))),
+        trainable=est._names, loss=hist["loss"][0],
+        table_is_parameter=any(p is model.module.glove.table
+                               for p in model.module.parameters()))
+    opt = est._ensure_opt_state()
+    rep["opt_state_leaves"] = sum(len(v) for v in opt.values()
+                                  if isinstance(v, list))
+    log(f"phase 19(e) a frozen WordEmbedding.from_glove ({len(vocab)} x "
+        f"{P19_GLOVE_DIM}) on {kind}: after 2 steps the table is bitwise "
+        f"the file's {rep['table_bitwise'] and rep['from_file']}; trained "
+        f"{rep['trainable']}; optimizer state leaves "
+        f"{rep['opt_state_leaves']}; loss {rep['loss']:.4f}")
+    if not (rep["table_bitwise"] and rep["from_file"]
+            and not rep["table_is_parameter"]
+            and not any(n.startswith("glove") for n in est._names)
+            and np.isfinite(rep["loss"])):
+        raise AssertionError(f"19(e): {rep}")
+    return rep
+
+
+def p19_hf_state(np, cfg):
+    """A HuggingFace ``BertModel`` state dict with BERT-Base, Uncased's
+    names and shapes, from numpy seed 0 (normal(0, 0.02); the norms'
+    scales about 1)."""
+    import torch
+    rng = np.random.default_rng(SEED)
+    H, inter = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"embeddings.word_embeddings.weight": (cfg.vocab, H),
+              "embeddings.position_embeddings.weight":
+                  (cfg.max_position_len, H),
+              "embeddings.token_type_embeddings.weight": (cfg.type_vocab, H),
+              "embeddings.LayerNorm.weight": (H,),
+              "embeddings.LayerNorm.bias": (H,),
+              "pooler.dense.weight": (H, H), "pooler.dense.bias": (H,)}
+    for i in range(cfg.n_block):
+        p = f"encoder.layer.{i}"
+        for name in ("attention.self.query", "attention.self.key",
+                     "attention.self.value", "attention.output.dense"):
+            shapes.update({f"{p}.{name}.weight": (H, H),
+                           f"{p}.{name}.bias": (H,)})
+        shapes.update({
+            f"{p}.attention.output.LayerNorm.weight": (H,),
+            f"{p}.attention.output.LayerNorm.bias": (H,),
+            f"{p}.intermediate.dense.weight": (inter, H),
+            f"{p}.intermediate.dense.bias": (inter,),
+            f"{p}.output.dense.weight": (H, inter),
+            f"{p}.output.dense.bias": (H,),
+            f"{p}.output.LayerNorm.weight": (H,),
+            f"{p}.output.LayerNorm.bias": (H,)})
+    sd = {}
+    for key, shape in shapes.items():
+        arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        if key.endswith("LayerNorm.weight"):
+            arr += np.float32(1.0)
+        sd[key] = torch.from_numpy(arr)
+    return sd
+
+
+def p19_hf_flax(np, sd, cfg):
+    """The same dict as the JAX package's flax tree (its hf_bert_params:
+    q/k/v kernels [hidden, heads, dim], the output [heads, dim, hidden],
+    Dense kernels transposed), for ``convert.flax_to_state_dict``."""
+    h, d, H = cfg.n_head, cfg.head_dim, cfg.hidden_size
+
+    def arr(key):
+        return sd[key].numpy()
+
+    def dense(p):
+        return {"kernel": arr(f"{p}.weight").T, "bias": arr(f"{p}.bias")}
+
+    def norm(p):
+        return {"scale": arr(f"{p}.weight"), "bias": arr(f"{p}.bias")}
+
+    def qkv(p):
+        return {"kernel": arr(f"{p}.weight").T.reshape(H, h, d),
+                "bias": arr(f"{p}.bias").reshape(h, d)}
+    tree = {
+        "word_embeddings": {"embedding": arr(
+            "embeddings.word_embeddings.weight")},
+        "position_embeddings": {"embedding": arr(
+            "embeddings.position_embeddings.weight")},
+        "token_type_embeddings": {"embedding": arr(
+            "embeddings.token_type_embeddings.weight")},
+        "embed_norm": norm("embeddings.LayerNorm"),
+        "pooler": dense("pooler.dense")}
+    for i in range(cfg.n_block):
+        p = f"encoder.layer.{i}"
+        tree[f"block_{i}"] = {
+            "attention": {
+                "query": qkv(f"{p}.attention.self.query"),
+                "key": qkv(f"{p}.attention.self.key"),
+                "value": qkv(f"{p}.attention.self.value"),
+                "out": {"kernel": arr(f"{p}.attention.output.dense.weight"
+                                      ).T.reshape(h, d, H),
+                        "bias": arr(f"{p}.attention.output.dense.bias")}},
+            "attn_norm": norm(f"{p}.attention.output.LayerNorm"),
+            "intermediate": dense(f"{p}.intermediate.dense"),
+            "output": dense(f"{p}.output.dense"),
+            "ffn_norm": norm(f"{p}.output.LayerNorm")}
+    return tree
+
+
+def p19_bert(torch, np, kind, dev="cuda"):
+    """19(f): a HuggingFace-layout BERT-Base dict through load_hf_bert into
+    a bf16 BERTClassifier(2) that has taken one fine-tuning step (the
+    fine-tuning flow, and the step's flop count out of the way): the
+    encoder bitwise the dict, the head unchanged, the step and epoch 0;
+    predict of 32 x 512 against the same weights loaded through convert
+    (phase 6's limit), one flash forward a block (12); then 2 fine-tuning
+    steps at 32 x 128, each launching 12 flash forwards and 12 of each
+    backward. The inputs carry no mask, so attention takes the flash path
+    (an all-ones mask, as BERTClassifier.fit and predict pass, takes the
+    einsum chain)."""
+    from analytics_zoo_tpu_torch.convert import flax_to_state_dict
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.text import (BERTClassifier, BertConfig,
+                                              hf_bert_params)
+    from analytics_zoo_tpu_torch.text.estimators import _ClassifierModule
+    cfg = BertConfig(use_flash=True, dtype=torch.bfloat16)
+    sd = p19_hf_state(np, cfg)
+    rep = {}
+    rng = np.random.RandomState(SEED + 24)
+    b, s = P19_BERT_PREDICT
+    ids = rng.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+    seg = (np.arange(s)[None] >= rng.randint(1, s, (b, 1))).astype(np.int32)
+    bt, st = P19_BERT_TRAIN
+    tid = rng.randint(0, cfg.vocab, (bt * (P19_BERT_STEPS + 1), st)
+                      ).astype(np.int32)
+    tseg = np.zeros_like(tid)
+    lab = rng.randint(0, BERT_CLASSES, len(tid)).astype(np.int32)
+    with p17_tf32(torch, False):
+        clf = BERTClassifier(BERT_CLASSES, seq_len=s, device=dev,
+                             config=cfg)
+        est, model = clf.estimator, clf.estimator.model
+        est.fit(((tid[:bt], tseg[:bt]), lab[:bt]), epochs=1, batch_size=bt)
+        head = {k: v.detach().clone() for k, v in
+                model.classifier.state_dict().items()}
+        t0 = time.perf_counter()
+        clf.load_hf(sd)
+        rep["load_ms"] = (time.perf_counter() - t0) * 1e3
+        got = model.bert.state_dict()
+        mapped = hf_bert_params(sd, cfg)
+        rep["encoder_bitwise"] = all(torch.equal(got[k].cpu(), v)
+                                     for k, v in mapped.items())
+        rep["encoder_leaves"] = len(mapped)
+        rep["head_unchanged"] = all(
+            torch.equal(v, head[k])
+            for k, v in model.classifier.state_dict().items())
+        rep["step_after_load"] = (est._py_step, est._epoch)
+        _build.reset_launch_counts()
+        y16 = est.predict((ids, seg), batch_size=b)
+        rep["predict_flash_launches"] = _build.launch_counts().get(
+            "flash_attention_fwd", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.predict((ids, seg), batch_size=b)
+        rep["bf16_predict_ms"] = (time.perf_counter() - t0) * 1e3
+        with torch.device(dev):
+            # made on the card (torch's default init, overwritten next)
+            ref = _ClassifierModule(cfg, BERT_CLASSES)
+        ref.bert.load_state_dict(flax_to_state_dict(p19_hf_flax(np, sd,
+                                                                cfg)))
+        ref.classifier.load_state_dict(model.classifier.state_dict())
+        with torch.inference_mode():
+            y_conv = ref.eval()(torch.as_tensor(ids, device=dev),
+                                torch.as_tensor(seg, device=dev))
+        rep["bf16_diff_convert"] = float(np.abs(
+            y16 - y_conv.float().cpu().numpy()).max())
+        del ref
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = est.fit(((tid[bt:], tseg[bt:]), lab[bt:]), epochs=1,
+                       batch_size=bt)
+        rep["step_ms"] = (time.perf_counter() - t0) / P19_BERT_STEPS * 1e3
+        counts = _build.launch_counts()
+        rep["loss"] = hist["loss"][0]
+        rep["step_after_fit"] = (est._py_step, est._epoch)
+        del clf, est, model
+        torch.cuda.empty_cache()
+    per_step = {n: counts.get(n, 0) / P19_BERT_STEPS for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}
+    rep["train_launches_per_step"] = per_step
+    log(f"phase 19(f) load_hf_bert of a HuggingFace-layout BERT-Base dict "
+        f"into a bf16 BERTClassifier on {kind}: {rep['encoder_leaves']} "
+        f"encoder tensors bitwise {rep['encoder_bitwise']}, head unchanged "
+        f"{rep['head_unchanged']}, step and epoch after it "
+        f"{rep['step_after_load']}, loaded in {rep['load_ms']:.1f} ms; "
+        f"predict {b} x {s} {rep['bf16_predict_ms']:.3f} ms (host clock), "
+        f"{rep['predict_flash_launches']} flash forwards, max |load_hf - "
+        f"convert| {rep['bf16_diff_convert']:.3g} (atol {BERT_BF16_ATOL}); "
+        f"fine-tuning {bt} x {st}: {rep['step_ms']:.3f} ms a step, loss "
+        f"{rep['loss']:.4f}, flash launches a step {per_step}")
+    if not (rep["encoder_bitwise"] and rep["head_unchanged"]
+            and rep["step_after_load"] == (0, 0)
+            and rep["step_after_fit"] == (P19_BERT_STEPS, 1)
+            and rep["predict_flash_launches"] == cfg.n_block
+            and rep["bf16_diff_convert"] <= BERT_BF16_ATOL
+            and all(v == cfg.n_block for v in per_step.values())
+            and np.isfinite(rep["loss"])):
+        raise AssertionError(f"19(f): {rep}")
+    return rep
+
+
+def p19_forecasters(torch, np, kind, dev="cuda"):
+    """19(g): LSTMForecaster and Seq2SeqForecaster at bench.py's TCN batch
+    in fp32 (TF32 off) and mixed_bfloat16 from the same weights: ms a
+    step (the batch on the card), predict's distance from the fp32 net
+    in float64 on the CPU, the recurrent outputs' dtype."""
+    import copy
+    from analytics_zoo_tpu_torch.zouwu.model.forecast import (
+        LSTMForecaster, Seq2SeqForecaster,
+    )
+    x, y = tcn_bench_data(np)
+    rep = {}
+    with p17_tf32(torch, False):
+        for name, make in (("lstm", LSTMForecaster),
+                           ("seq2seq", Seq2SeqForecaster)):
+            row, ref = {}, None
+            for dtype in ("float32", "mixed_bfloat16"):
+                f = make(dtype=dtype, device=dev)
+                est = f._ensure_est(x)
+                seeded_weights(est.model, SEED)
+                if ref is None:
+                    net = copy.deepcopy(est.model).cpu().double().eval()
+                    with torch.no_grad():
+                        ref = net(torch.from_numpy(x.astype(np.float64)))
+                xs, ys = est._tensors(x), est._tensors(y)
+                ms = p19_window(torch, est, xs, ys, P19_FC_TIMED)
+                seeded_weights(est.model, SEED)
+                with p19_rnn_dtypes() as seen:
+                    pred = f.predict(x, batch_size=len(x))
+                rel = p17_rel(torch.from_numpy(pred), ref)
+                row[dtype] = dict(step_ms=ms, predict_rel_f64=rel,
+                                  limit=P19_FC_RTOL[dtype],
+                                  rnn_dtypes=sorted({str(d) for d in seen}))
+                log(f"phase 19(g) {name} forecaster {dtype} on {kind}: a "
+                    f"step of {TCN_BATCH} x {TCN_LOOKBACK} x {TCN_FEATURES} "
+                    f"{ms:.3f} ms; predict against float64 {rel:.3g} "
+                    f"(limit {P19_FC_RTOL[dtype]}); recurrent outputs "
+                    f"{row[dtype]['rnn_dtypes']}")
+                if rel > P19_FC_RTOL[dtype] or \
+                        row[dtype]["rnn_dtypes"] != ["torch.float32"]:
+                    raise AssertionError(f"19(g) {name}: {row}")
+                del f, est
+            rep[name] = row
+    return rep
+
+
+def p19_ncf_from_keras(torch, np, x, y, kind):
+    """19(h): NeuralCF at MovieLens-1M width through Estimator.from_keras
+    (Adam, batch BATCH): a warm-up step, then P19_NCF_STEPS steps with 2
+    lookups and 4 scatter-adds each; loss and parameters bitwise the same
+    model through compile and fit."""
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    n = BATCH * P19_NCF_STEPS
+    a, b = train_model("ncf"), train_model("ncf")
+    est = Estimator.from_keras(keras_model=a,
+                               loss="sparse_categorical_crossentropy",
+                               optimizer=Adam(NCF_LR))
+    b.compile(optimizer=Adam(NCF_LR), loss="sparse_categorical_crossentropy")
+    est.fit((x[:BATCH], y[:BATCH]), epochs=1, batch_size=BATCH)
+    b.fit(x[:BATCH], y[:BATCH], batch_size=BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    got, launches, fit_s = counted(torch, lambda: est.fit(
+        (x[:n], y[:n]), epochs=1, batch_size=BATCH, shuffle=False))
+    want = b.fit(x[:n], y[:n], batch_size=BATCH, nb_epoch=1, shuffle=False)
+    same = all(torch.equal(p, q) for p, q in zip(
+        a.module.state_dict().values(), b.module.state_dict().values()))
+    per_step = {k: v / P19_NCF_STEPS for k, v in launches.items() if v}
+    rep = dict(step_ms=fit_s / P19_NCF_STEPS * 1e3, loss=got["loss"][0],
+               loss_bitwise=got["loss"] == want["loss"],
+               step_losses_bitwise=est.step_losses[-P19_NCF_STEPS:]
+               == b.estimator.step_losses[-P19_NCF_STEPS:],
+               params_bitwise=same, launches=launches,
+               launches_per_step=per_step, same_estimator=a.estimator is est)
+    log(f"phase 19(h) NeuralCF through Estimator.from_keras on {kind}: "
+        f"{P19_NCF_STEPS} steps of {BATCH} at {rep['step_ms']:.3f} ms/step,"
+        f" loss {rep['loss']:.5f}; loss and parameters bitwise compile/fit:"
+        f" {rep['loss_bitwise'] and rep['step_losses_bitwise']}, "
+        f"{same}; launches a step {per_step}")
+    if not (rep["loss_bitwise"] and rep["step_losses_bitwise"] and same
+            and rep["same_estimator"]
+            and launches.get("fused_embedding_lookup") == 2 * P19_NCF_STEPS
+            and launches.get("embedding_scatter_add") == 4 * P19_NCF_STEPS):
+        raise AssertionError(f"19(h): {rep}")
+    return rep
+
+
+def p19_part(rep, key, fn, no_queue_b=False):
+    """Run one part of phase 19 with the launch counts set to 0 just
+    before it and read just after; ``no_queue_b``: the part fails if any
+    kernel of queue B launched."""
+    from analytics_zoo_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    rep.setdefault("part_seconds", {})[key] = time.perf_counter() - t0
+    rep.setdefault("launches", {})[key] = counts
+    if no_queue_b and counts:
+        raise AssertionError(f"19({key}) launched kernels of queue B: "
+                             f"{counts}")
+    return out
+
+
+def phase_text(torch, np, api, kind, dev="cuda"):
+    """Phase 19: text from words to answers (ROADMAP A16's rest, A8, A11's
+    text part) on the card; the directory it writes is removed after.
+    The counts are zeroed before each of (b)-(h) and read after it: (b)-(e)
+    and (g) launch no kernel of queue B (cuBLAS, cuDNN and PyTorch's
+    kernels, the lookups plain ``embedding_lookup``, as JAX's are jnp.take),
+    (f) launches B3-B5 and (h) B1 and B1b."""
+    import shutil
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    os.makedirs(P19_DIR)
+    t0 = time.perf_counter()
+    rep = {}
+    try:
+        rep["a"], (ts, ids, ys) = p19_text_set(torch, np, kind)
+        rep["b"] = p19_part(rep, "b", lambda: p19_classifiers(
+            torch, np, ids, ys, kind, dev), no_queue_b=True)
+        rep["c"] = p19_part(rep, "c", lambda: p19_twin_served(
+            torch, np, api, ids, kind, dev), no_queue_b=True)
+        rep["d"] = p19_part(rep, "d", lambda: p19_knrm(torch, np, kind, dev),
+                            no_queue_b=True)
+        rep["e"] = p19_part(rep, "e", lambda: p19_glove(
+            torch, np, ts, ids, ys, kind, dev), no_queue_b=True)
+        rep["f"] = p19_part(rep, "f", lambda: p19_bert(torch, np, kind, dev))
+        rep["g"] = p19_part(rep, "g", lambda: p19_forecasters(
+            torch, np, kind, dev), no_queue_b=True)
+        x, y, _ = ncf_train_data(np)
+        rep["h"] = p19_part(rep, "h", lambda: p19_ncf_from_keras(
+            torch, np, x, y, kind))
+    finally:
+        shutil.rmtree(P19_DIR, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"phase 19: no kernel of queue B in (b)-(e) and (g); launches by "
+        f"part {rep['launches']}; seconds by part "
+        f"{ {k: round(v, 1) for k, v in rep['part_seconds'].items()} }")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7340,6 +8192,13 @@ def main() -> int:
         torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
     log(f"phase 18: {report['image_path']['seconds']:.1f} s; the port's "
         f"kernel launches on its paths: {report['image_path']['launches']}")
+    # 19. text from words to answers: the TextSet path, TextClassifier
+    # (cnn, lstm, gru) and KNRM, the twin's import served, a frozen GloVe
+    # table, load_hf_bert into BERT-Base, the bf16 forecasters, NCF through
+    # Estimator.from_keras; the counts zeroed before each part
+    report["text"] = phase_text(
+        torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
+    log(f"phase 19: {report['text']['seconds']:.1f} s")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -7348,7 +8207,8 @@ def main() -> int:
                           "tcn": tcn_counts, "a3": a3_counts,
                           "a7": a7_counts, "a7b": a7b_counts,
                           "image": report["image"]["launches"],
-                          "image_path": report["image_path"]["launches"]}
+                          "image_path": report["image_path"]["launches"],
+                          "text": report["text"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -7500,9 +8360,17 @@ def main() -> int:
                if c.get(row["name"], 0)}
         if p16:
             row["phase16_launches"] = p16
+    # phase 19's paths: NCF through Estimator.from_keras (B1, B1b),
+    # load_hf_bert into BERT-Base (B3-B5)
+    for row in kernels["kernels"]:
+        p19 = {part: c.get(row["name"], 0) for part, c in
+               report["text"]["launches"].items() if c.get(row["name"], 0)}
+        if p19:
+            row["phase19_launches"] = p19
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
-    log(f"chip_smoke: {report['seconds']:.1f} s in all")
+    # the card again, so that the output's tail names it beside the numbers
+    log(f"chip_smoke: {report['seconds']:.1f} s in all on {card}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

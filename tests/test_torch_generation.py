@@ -154,15 +154,6 @@ def test_recurrent_layers_match_jax(layer, return_sequences, go_backwards):
                                               params[cell][gate][leaf])
 
 
-def test_recurrent_dtype_policy_is_refused():
-    from analytics_zoo_tpu_torch.keras import policy
-    x = Input(shape=(3, 2))
-    with policy.policy_scope("mixed_bfloat16"):
-        gru = tl.GRU(4)
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        Model(input=x, output=gru(x)).module
-
-
 # ----------------------------------------------------------------- Seq2Seq
 
 def _seq2seq_pair(rnn_type, num_layers=1, hidden=8, dim=4, enc_len=5):

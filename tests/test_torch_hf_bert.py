@@ -84,3 +84,124 @@ def test_bert_for_classification_dict_accepted():
                                hf.embeddings.word_embeddings.weight,
                                rtol=0, atol=0)
     assert set(got) == set(BertModule(BertConfig(**SMALL)).state_dict())
+
+
+# ------------------------------------------------ load_hf_bert and C19
+#
+# The task estimators' ``load_hf`` against the JAX package's from the same
+# parameters (JAX's initial tree through ``convert``): the encoder takes
+# the source tensors bitwise, the head keeps its weights, a wrong config
+# raises the port's ValueError ("config mismatch?", JAX's text; JAX's own
+# can raise its reshape's first) and a wrong key a KeyError. C19: a fit
+# of 2 steps, ``load_hf``, a fit of 2 more; the
+# losses within rtol 1e-5 and every parameter within 1e-5 of JAX's
+# (Adam, dropout off), and the host step and epoch restart at 0 as JAX's
+# do, so the second fit's dropout seeds and snapshot steps are a fresh
+# fit's.
+
+def _zoo_config(cfg_cls, **over):
+    return cfg_cls(hidden_drop=0.0, attn_drop=0.0, **{**SMALL, **over})
+
+
+@pytest.fixture(scope="module")
+def jtext():
+    pytest.importorskip("jax")
+    import jax
+    from analytics_zoo_tpu.text import estimators
+    from analytics_zoo_tpu.text.bert import BertConfig as JConfig
+    return dict(jax=jax, BERTClassifier=estimators.BERTClassifier,
+                Config=JConfig)
+
+
+def _clf_pair(jtext):
+    from analytics_zoo_tpu_torch.convert import flax_to_state_dict
+    from analytics_zoo_tpu_torch.text import BERTClassifier
+    jclf = jtext["BERTClassifier"](num_classes=3,
+                                   config=_zoo_config(jtext["Config"]),
+                                   seq_len=16)
+    tclf = BERTClassifier(num_classes=3, config=_zoo_config(BertConfig),
+                          seq_len=16, device="cpu")
+    tclf.estimator.model.load_state_dict(flax_to_state_dict(
+        jtext["jax"].device_get(jclf.estimator.adapter.params)))
+    return jclf, tclf
+
+
+def _clf_data(n, seed):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, SMALL["vocab"], (n, 16)).astype(np.int32)
+    return ids, rng.randint(0, 3, n).astype(np.int32)
+
+
+def test_task_load_hf_matches_jax(jtext):
+    from analytics_zoo_tpu_torch.text import BERTClassifier, load_hf_bert
+    hf = _hf_model()
+    sd = hf.state_dict()
+    jclf, tclf = _clf_pair(jtext)
+    head = {k: v.clone() for k, v in
+            tclf.estimator.model.state_dict().items()
+            if not k.startswith("bert.")}
+    jclf.load_hf(sd)
+    assert tclf.load_hf(sd) is tclf
+    got = tclf.estimator.model.state_dict()
+    for k, v in hf_bert_params(sd, BertConfig(**SMALL)).items():
+        assert torch.equal(got[f"bert.{k}"], v), k
+    assert torch.equal(got["bert.word_embeddings.embedding"],
+                       sd["embeddings.word_embeddings.weight"])
+    for k, v in head.items():
+        assert torch.equal(got[k], v), k
+    ids, _ = _clf_data(4, 0)
+    np.testing.assert_allclose(tclf.predict(ids),
+                               np.asarray(jclf.predict(ids)), rtol=0,
+                               atol=1e-5)
+    # a config that does not fit the checkpoint raises before any write
+    wrong = BERTClassifier(num_classes=3, seq_len=16, device="cpu",
+                           config=_zoo_config(BertConfig, hidden_size=16))
+    before = {k: v.clone() for k, v in
+              wrong.estimator.model.state_dict().items()}
+    with pytest.raises(ValueError, match="config mismatch"):
+        wrong.load_hf(sd)
+    for k, v in wrong.estimator.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    jwrong = jtext["BERTClassifier"](
+        num_classes=3, seq_len=16,
+        config=_zoo_config(jtext["Config"], hidden_size=16))
+    with pytest.raises(ValueError, match="config mismatch|shape"):
+        jwrong.load_hf(sd)
+    with pytest.raises(KeyError, match="encoder"):
+        load_hf_bert(tclf, sd, bert_key="encoder")
+
+
+def test_c19_fit_load_hf_fit_matches_jax(jtext, tmp_path, monkeypatch):
+    from analytics_zoo_tpu_torch.convert import state_dict_to_flax
+    from analytics_zoo_tpu_torch.learn import estimator as est_mod
+    monkeypatch.setattr(est_mod, "DEFAULT_LOG_DIR", str(tmp_path))
+    sd = _hf_model().state_dict()
+    jclf, tclf = _clf_pair(jtext)
+    ids, labels = _clf_data(16, 1)
+    losses = []
+    for clf in (jclf, tclf):
+        first = clf.fit(ids, labels, epochs=1, batch_size=8)
+        clf.load_hf(sd)
+        assert (clf.estimator._py_step, clf.estimator._epoch) == (0, 0)
+        if clf is jclf:
+            # JAX's fit does not rebuild the state load_hf dropped (its
+            # predict and evaluate do): ROADMAP C19
+            clf.estimator._init_state()
+        second = clf.fit(ids, labels, epochs=1, batch_size=8)
+        losses.append((first["loss"], second["loss"]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    assert (tclf.estimator._py_step, tclf.estimator._epoch) == \
+        (jclf.estimator._py_step, jclf.estimator._epoch) == (2, 1)
+    jparams = jtext["jax"].device_get(jclf.estimator._state["params"])
+    mine = state_dict_to_flax(tclf.estimator.model.state_dict(), jparams)
+
+    def leaves(tree, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{path}/{k}")
+            else:
+                yield f"{path}/{k}", np.asarray(v)
+    got = dict(leaves(mine))
+    for path, want in leaves(jparams):
+        np.testing.assert_allclose(got[path], want, rtol=0, atol=1e-5,
+                                   err_msg=path)

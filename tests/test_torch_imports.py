@@ -65,7 +65,10 @@ def test_importing_every_module_loads_no_jax():
                 "models.image.imageclassification.image_classifier",
                 "models.migration", "models.migration_image", "feature",
                 "feature.image", "feature.image.imageset",
-                "feature.image.transforms"):
+                "feature.image.transforms", "feature.text",
+                "feature.text.textset",
+                "models.textclassification.text_classifier",
+                "models.textmatching.knrm"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,

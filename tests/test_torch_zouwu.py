@@ -186,15 +186,6 @@ def test_fit_matches_jax_from_flax(jx, kind):
                                rtol=0, atol=1e-5)
 
 
-def test_recurrent_nets_raise_under_bf16():
-    for net in (VanillaLSTMNet, Seq2SeqNet):
-        with pytest.raises(NotImplementedError, match="A8"):
-            net(3, dtype=torch.bfloat16)
-    f = LSTMForecaster(dtype="mixed_bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        f.fit(*_xy(horizon=1), epochs=1, batch_size=16)
-
-
 def test_tcn_init_is_lecun_normal_with_zero_bias():
     net = TemporalConvNet(8, generator=torch.Generator().manual_seed(0),
                           **BENCH_TCN)
