@@ -7,12 +7,19 @@ fallback: asking for CUDA on a machine without it raises.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+#: held while torch's global generators are seeded and drawn from (a
+#: step's dropout, a module's initial weights): threads that train side by
+#: side (``automl.search``'s ``n_parallel``) then draw what each would
+#: draw alone
+RNG_LOCK = threading.RLock()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

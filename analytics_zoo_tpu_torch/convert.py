@@ -26,6 +26,12 @@
   port's cells (keras/layers.py) register their Linears under the same
   names, ``in`` and ``if`` included.
 
+- MTNet's attention weights (``W1``, ``b2``, ``W2``, ``W3``, ``b3``,
+  ``V``: flax ``self.param``s, not Denses) keep their names and shapes.
+- a population's stacked members (``automl.population``): each leaf has
+  the members on a leading axis, which ``lead=1`` passes over; one
+  member's tree is ``member_tree`` of the stacked tree.
+
 ``state_dict_to_flax`` is its inverse: the port's ``state_dict`` as a
 flax tree of numpy arrays, shaped like a given flax tree (a 2-D weight
 cannot say how its dims split into ``[in, h, d]``, so the tree's leaves
@@ -61,6 +67,8 @@ from torch import nn
 #: flax leaf name -> torch leaf name
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
            "embedding": "embedding", "mean": "mean", "var": "var"}
+#: flax leaves held as they are (MTNet's attention GRU)
+_RAW = frozenset(("W1", "b2", "W2", "W3", "b3", "V"))
 
 
 def _linear_weight(kernel: np.ndarray, bias, lead: int = 0) -> np.ndarray:
@@ -81,6 +89,10 @@ def flax_to_state_dict(params: Mapping, prefix: str = "", lead: int = 0
         key = f"{prefix}{name}"
         if isinstance(sub, Mapping):
             out.update(flax_to_state_dict(sub, prefix=key + ".", lead=lead))
+            continue
+        if name in _RAW:
+            out[key] = torch.tensor(np.ascontiguousarray(sub),
+                                    dtype=torch.float32)
             continue
         if name not in _LEAVES:
             raise KeyError(f"no torch counterpart for flax leaf {key!r}")
@@ -106,6 +118,11 @@ def state_dict_to_flax(state_dict: Mapping, like: Mapping, prefix: str = "",
         key = f"{prefix}{name}"
         if isinstance(sub, Mapping):
             out[name] = state_dict_to_flax(state_dict, sub, key + ".", lead)
+            continue
+        if name in _RAW:
+            arr = state_dict[key].detach().cpu().float().numpy()
+            out[name] = np.ascontiguousarray(
+                arr.reshape(tuple(lead) + tuple(sub.shape)))
             continue
         if name not in _LEAVES:
             raise KeyError(f"no torch counterpart for flax leaf {key!r}")
@@ -138,7 +155,25 @@ def flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
         return {"scale": ("weight", shape), "bias": ("bias", shape)}
     if set(params) == {"embedding"}:
         return {"embedding": ("embedding", tuple(params["embedding"].shape))}
+    if params and set(params) <= _RAW:
+        return {n: (n, tuple(p.shape)) for n, p in params.items()}
     return None
+
+
+def member_tree(tree: Mapping, k: int) -> Dict:
+    """Member ``k``'s tree of a stacked tree (every leaf's first axis
+    the members)."""
+    return {n: member_tree(v, k) if isinstance(v, Mapping)
+            else np.asarray(v)[k] for n, v in tree.items()}
+
+
+def stack_trees(trees) -> Dict:
+    """The stacked tree of one tree per member (``member_tree``'s
+    inverse)."""
+    first = trees[0]
+    return {n: stack_trees([t[n] for t in trees]) if isinstance(v, Mapping)
+            else np.stack([np.asarray(t[n]) for t in trees])
+            for n, v in first.items()}
 
 
 def _sort_tree(tree):

@@ -15,7 +15,9 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
   gradients, clipping, the optimizer's update.
   Dropout draws from the device's generator seeded from ``seed`` and the
   step, inside ``torch.random.fork_rng`` so the caller's streams are left
-  as they were (the bits differ from JAX's).
+  as they were (the bits differ from JAX's), and under
+  ``common.device.RNG_LOCK``, so fits on threads side by side draw what
+  each would alone.
 - **Clipping** follows optax: ``clip_by_global_norm`` scales by
   ``max_norm / norm`` unless ``norm < max_norm``; constant clipping clips
   at ``max(|lo|, |hi|)``. Changing it rebuilds the optimizer state, as the
@@ -125,8 +127,9 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.common import profiling, resilience
 from analytics_zoo_tpu_torch.common.context import active_context
-from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
-                                                   resolve_device, to_numpy)
+from analytics_zoo_tpu_torch.common.device import (RNG_LOCK, DeviceLike,
+                                                   as_tensor, resolve_device,
+                                                   to_numpy)
 from analytics_zoo_tpu_torch.common.summary import SummaryWriter
 from analytics_zoo_tpu_torch.convert import ParamLayout
 from analytics_zoo_tpu_torch.data.dataset import (ShardedDataset,
@@ -412,7 +415,7 @@ class TorchEstimator:
         devices = [self.device.index if self.device.index is not None
                    else torch.cuda.current_device()] if cuda else []
         step_seed = (self.seed * 1000003 + self._py_step) & 0x7FFFFFFFFFFF
-        with torch.random.fork_rng(devices=devices):
+        with RNG_LOCK, torch.random.fork_rng(devices=devices):
             torch.random.default_generator.manual_seed(step_seed)
             if cuda:
                 with torch.cuda.device(self.device):
@@ -452,7 +455,9 @@ class TorchEstimator:
             devices = [self.device.index if self.device.index is not None
                        else torch.cuda.current_device()] if cuda else []
             try:
-                with torch.random.fork_rng(devices=devices):
+                # under RNG_LOCK: leaving fork_rng puts the generators
+                # back, which must not land inside another thread's step
+                with RNG_LOCK, torch.random.fork_rng(devices=devices):
                     self._flops[key] = profiling.step_flops(step)
             finally:
                 with torch.no_grad():

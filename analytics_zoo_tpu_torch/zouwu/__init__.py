@@ -1,3 +1,5 @@
-"""Zouwu: time-series forecasting (ref ``pyzoo/zoo/zouwu/``): so far the
-TCN, LSTM and Seq2Seq forecasters (``model/``); the feature transform,
-anomaly detection, AutoTS, MTNet and TCMF are ROADMAP A11."""
+"""Zouwu: time-series analysis (ref ``pyzoo/zoo/zouwu/``; counterpart of
+``analytics_zoo_tpu/zouwu/``): the forecasters (TCN, LSTM, Seq2Seq,
+MTNet, TCMF, ARIMA, Prophet; ``model/``), the feature transform
+(``feature/``), the recipes (``config/``), anomaly detection, and AutoTS
+(``autots/``, ``pipeline.py``, ``regression.py``)."""

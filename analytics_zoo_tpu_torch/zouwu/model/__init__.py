@@ -1,3 +1,7 @@
 from analytics_zoo_tpu_torch.zouwu.model.forecast import (  # noqa: F401
-    Forecaster, LSTMForecaster, Seq2SeqForecaster, TCNForecaster,
+    Forecaster, LSTMForecaster, MTNetForecaster, Seq2SeqForecaster,
+    TCNForecaster,
+)
+from analytics_zoo_tpu_torch.zouwu.model.stats_forecast import (  # noqa: F401
+    ARIMAForecaster, ProphetForecaster,
 )

@@ -20,7 +20,9 @@ Counterpart of ``analytics_zoo_tpu/zouwu/model/forecast.py`` (ref
 - ``device``: ``cuda`` unless the caller passes ``device="cpu"``, or the
   active context's first device.
 
-``MTNetForecaster`` and ``TCMFForecaster`` wait for ROADMAP A11.
+``MTNetForecaster`` takes the reference's names and JAX's legacy
+aliases; ``TCMFForecaster`` (``tcmf.py``) is re-exported here, as JAX
+does.
 """
 
 from __future__ import annotations
@@ -30,12 +32,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.device import DeviceLike
+from analytics_zoo_tpu_torch.common.device import RNG_LOCK, DeviceLike
 from analytics_zoo_tpu_torch.data.dataset import ShardedDataset
 from analytics_zoo_tpu_torch.data.shard import XShards
 from analytics_zoo_tpu_torch.keras.policy import _POLICIES
 from analytics_zoo_tpu_torch.learn.estimator import Estimator
-from analytics_zoo_tpu_torch.zouwu.model.nets import (Seq2SeqNet,
+from analytics_zoo_tpu_torch.zouwu.model.nets import (MTNetModule,
+                                                      Seq2SeqNet,
                                                       TemporalConvNet,
                                                       VanillaLSTMNet)
 
@@ -79,7 +82,11 @@ class Forecaster:
     def _ensure_est(self, data):
         if self._est is None:
             gen = torch.Generator().manual_seed(int(self.seed))
-            module = self._build_module(_feature_count(data), gen)
+            # layers draw their default init from torch's global
+            # generator before ``gen`` overwrites it: under RNG_LOCK, so
+            # no draw lands inside another thread's seeded step
+            with RNG_LOCK:
+                module = self._build_module(_feature_count(data), gen)
             self._est = Estimator.from_torch(
                 model=module, loss=self.loss, optimizer=self.optimizer,
                 model_dir=self.model_dir, seed=self.seed,
@@ -170,3 +177,80 @@ class TCNForecaster(Forecaster):
                                kernel_size=self.kernel_size,
                                dropout=self.dropout, dtype=self._net_dtype,
                                generator=generator)
+
+
+class MTNetForecaster(Forecaster):
+    """(ref forecast/MTNetForecaster over MTNet_keras.py; input seq len
+    must equal (long_num + 1) * time_step — the ref's [long_input,
+    short_input] pair concatenated along time).
+
+    Accepts the REFERENCE hyperparameter names (``time_step``,
+    ``long_num``, ``cnn_height``, ``rnn_hid_sizes`` list, ``cnn_dropout``,
+    ``rnn_dropout`` — MTNet_keras.py apply_config defaults) and keeps the
+    earlier aliases (series_length/long_series_num/cnn_kernel_size/
+    rnn_hid_size/dropout) working."""
+
+    def __init__(self, future_seq_len: int = 1,
+                 time_step: Optional[int] = None,
+                 long_num: Optional[int] = None,
+                 cnn_height: Optional[int] = None,
+                 cnn_hid_size: int = 32,
+                 rnn_hid_sizes: Optional[Sequence[int]] = None,
+                 ar_window: int = 4,
+                 cnn_dropout: Optional[float] = None,
+                 rnn_dropout: Optional[float] = None,
+                 # earlier spellings (None = not passed, so a legacy-alias
+                 # call is detectable)
+                 long_series_num: Optional[int] = None,
+                 series_length: Optional[int] = None,
+                 rnn_hid_size: Optional[int] = None,
+                 cnn_kernel_size: Optional[int] = None,
+                 dropout: Optional[float] = None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        legacy_call = any(v is not None for v in (
+            long_series_num, series_length, cnn_kernel_size, dropout,
+            rnn_hid_size))
+        if rnn_hid_sizes is None:
+            if rnn_hid_size:
+                rnn_hid_sizes = (rnn_hid_size,)
+            elif legacy_call:
+                # a legacy-alias caller that never chose an RNN size gets
+                # the pre-round-4 single 32-unit GRU: the stacked (16, 32)
+                # default changes the param-tree shape, so old scripts
+                # would silently train a different architecture and old
+                # checkpoints would fail to restore
+                rnn_hid_sizes = (32,)
+            else:
+                rnn_hid_sizes = (16, 32)   # MTNet_keras.py apply_config
+        if long_series_num is None:
+            long_series_num = 4
+        if series_length is None:
+            series_length = 8
+        if cnn_kernel_size is None:
+            cnn_kernel_size = 3
+        if dropout is None:
+            dropout = 0.1
+        self.kw = dict(
+            output_dim=future_seq_len,
+            long_num=long_num if long_num is not None else long_series_num,
+            time_step=time_step if time_step is not None else series_length,
+            cnn_hid_size=cnn_hid_size,
+            rnn_hid_sizes=tuple(int(h) for h in rnn_hid_sizes),
+            cnn_height=cnn_height if cnn_height is not None
+            else cnn_kernel_size,
+            ar_window=ar_window,
+            # legacy `dropout` was ONE dropout before the GRU — map it to
+            # cnn_dropout only (mapping it to both would stack two layers
+            # and double the effective rate vs earlier rounds)
+            cnn_dropout=cnn_dropout if cnn_dropout is not None else dropout,
+            rnn_dropout=rnn_dropout if rnn_dropout is not None else 0.0)
+
+    def _build_module(self, in_features, generator):
+        return MTNetModule(in_features, dtype=self._net_dtype,
+                           generator=generator, **self.kw)
+
+
+# High-dimensional panel forecaster (ref zouwu/model/forecast/
+# tcmf_forecaster.py lives beside the per-series forecasters)
+from analytics_zoo_tpu_torch.zouwu.model.tcmf import TCMFForecaster  # noqa: E402,F401,E501

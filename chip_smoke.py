@@ -403,6 +403,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
              scatter-adds a step, bitwise the compile/fit path. It writes
              under build/phase19/ and removes it.
 
+20. Zouwu's AutoTS (ROADMAP A11's Zouwu and AutoML half), TF32 off: a
+             seeded series of NAB nyc_taxi's shape (10 320 half-hourly
+             rows from 2014-07-01, daily and weekly cycles; 8256 / 1032 /
+             1032 in time); (a) AutoTSTrainer with GridRandomRecipe() at
+             its defaults (VanillaLSTM and TCN, look_back 24) but 1 epoch
+             (a cut, P20_GRID_EPOCHS):
+             each trial's config, history, status and seconds, the best
+             trial, the pipeline's predict ms, evaluate (mse, smape), an
+             incremental fit, save -> TSPipeline.load bitwise, each
+             trial's fit step ms and launches (profiler); (b) the saved
+             pipeline on the CPU within 1e-5 of the card's forecasts
+             (relative to the largest); (c) BayesRecipe(num_samples=3,
+             epochs=1), each config the CPU's BayesSearcher's; (d)
+             PopulationSearchEngine over 16 TCNs (30, 30, 30), kernel 3,
+             batch 64, 2 epochs beside LocalSearchEngine over the first
+             4 of its configs serially for 1 epoch (a cut): seconds, ms a
+             member-epoch, the speedup (no timing asserted), every
+             member's first step within 1e-6 of a plain AdamWeightDecay
+             step, the best member within 1e-5 of itself trained alone
+             (both under cudnn.deterministic; the default population
+             printed against them); (e)
+             TCNGridRandomRecipe(num_rand_samples=2, epochs=1), 4 trials
+             (a cut from 4 draws), n_parallel=4 against 1 under
+             cudnn.deterministic: seconds, the histories within 1e-6
+             relative, bitwise or not, and n_parallel=4 with cuDNN's
+             defaults printed against them; (f) MTNet at
+             MTNetGridRandomRecipe's widest (4 x 8 steps, 32 filters,
+             GRUs (16, 32), AR 4), batch 64, fp32 and mixed_bfloat16: ms a
+             step (2 warm-up, 5 timed), launches, predict ms, a step on 8
+             rows against float64 on the CPU at P20_MTNET_*_LIMITS (basis
+             dev/estimate_zouwu_limits.py); (g) TCMFForecaster(rank=64,
+             svd=True) on a seeded panel of DeepGLO's electricity width
+             (370 x 25 968): fit seconds, ms and launches a factorization
+             step, the device's busy share, mse, predict(24) ms,
+             fit_incremental of 24 columns, save/load bitwise, F, X and
+             the mse against the same 300 steps in float64 on the card
+             within P20_TCMF_FACTOR times the CPU's own distance,
+             use_local=True
+             on the first 512 columns with max_TCN_epoch=1 (a cut); (h)
+             AEDetector (roll 24, hidden (16, 8)) on the series: fit ms,
+             scores within 1e-5 of the CPU's from the same weights, equal
+             anomaly indexes and ThresholdDetector indexes,
+             DBScanDetector refused naming scikit-learn where absent.
+             Every trial of (a) and (c)-(e) must end done (or stopped),
+             never in error. It writes under build/phase20/ and removes
+             it.
+
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
 engine's 17-page table, a wide pool of 4096 positions at d 128; lengths 0,
@@ -450,10 +497,10 @@ before the deadline, admission, lease and each decode path; phase 16,
 before each int8 model's predicts, each fit, the served int8 model and
 the fleet; phase 17, before its training window, which launches none;
 phase 18, before its paths, which launch none; phase 19, before each
-of (b)-(h): (b)-(e) and (g) launch none, (f) B3-B5, (h) B1 and B1b) and
-read
+of (b)-(h): (b)-(e) and (g) launch none, (f) B3-B5, (h) B1 and B1b;
+phase 20, before each of (a)-(h), which launch none) and read
 right after it: every kernel of the path must have launched there.
-Phases 13's to 19's seconds and the whole run's are printed
+Phases 13's to 20's seconds and the whole run's are printed
 before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -7867,10 +7914,10 @@ def p19_ncf_from_keras(torch, np, x, y, kind):
     return rep
 
 
-def p19_part(rep, key, fn, no_queue_b=False):
-    """Run one part of phase 19 with the launch counts set to 0 just
-    before it and read just after; ``no_queue_b``: the part fails if any
-    kernel of queue B launched."""
+def p19_part(rep, key, fn, no_queue_b=False, phase=19):
+    """Run one part of phase 19 (or ``phase``) with the launch counts set
+    to 0 just before it and read just after; ``no_queue_b``: the part
+    fails if any kernel of queue B launched."""
     from analytics_zoo_tpu_torch.ops import _build
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -7879,7 +7926,7 @@ def p19_part(rep, key, fn, no_queue_b=False):
     rep.setdefault("part_seconds", {})[key] = time.perf_counter() - t0
     rep.setdefault("launches", {})[key] = counts
     if no_queue_b and counts:
-        raise AssertionError(f"19({key}) launched kernels of queue B: "
+        raise AssertionError(f"{phase}({key}) launched kernels of queue B: "
                              f"{counts}")
     return out
 
@@ -7917,6 +7964,735 @@ def phase_text(torch, np, api, kind, dev="cuda"):
     rep["seconds"] = time.perf_counter() - t0
     log(f"phase 19: no kernel of queue B in (b)-(e) and (g); launches by "
         f"part {rep['launches']}; seconds by part "
+        f"{ {k: round(v, 1) for k, v in rep['part_seconds'].items()} }")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 20: Zouwu's AutoTS (ROADMAP A11's Zouwu and AutoML half): from a
+# time series to a searched, saved and reloaded forecaster, the population
+# search, MTNet, TCMF at the electricity panel's width and the anomaly
+# detectors. No kernel of queue B is on these paths.
+
+P20_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase20")
+# NAB realKnownCause/nyc_taxi.csv: 10 320 half-hourly rows from
+# 2014-07-01, one value column, daily and weekly seasonality; split 80/10/10
+# in time
+P20_ROWS = 10_320
+P20_SPLIT = (8256, 1032)            # train, validation; the rest is test
+# cuts to keep phase 20 under 90 s (its first run took 134 s on the H100,
+# a later one 92.0 s on a slower host): GridRandomRecipe's 2 epochs to 1
+# in (a) (the LSTM trial took 34 s of it), the serial search beside the
+# population to 1 epoch of the first 4 of its 16 configs in (d) (compared
+# by the ms of a member-epoch; 8 before (d) ran its deterministic twin),
+# TCNGridRandomRecipe's 4 draws to 2 in (e) (4 trials, not 8); no width is
+# cut
+P20_GRID_EPOCHS = 1
+P20_POP_K = 16                      # (d): the population
+P20_POP_EPOCHS = 2
+P20_SERIAL_K = 4
+P20_SERIAL_EPOCHS = 1
+P20_POP_BATCH = 64
+P20_POP_TCN = dict(num_channels=(30, 30, 30), kernel_size=3)
+P20_POP_LR = (1e-4, 3e-2)
+P20_PAR_SAMPLES = 2                 # (e): TCNGridRandomRecipe, 2 x 2 trials
+P20_HIST_RTOL = 1e-6                # (e): n_parallel 4 against 1
+P20_PRED_RTOL = 1e-5                # (b), (h): the card against the CPU
+P20_MEMBER_ATOL = 1e-5              # (d): a member against itself alone
+# (d): one step of every member against a plain AdamWeightDecay step, on
+# the parameters whose plain gradient is at least P20_FIRST_GRAD_FLOOR
+# (100 eps). Adam's first update is g / (|g| + eps): where |g| is near eps
+# the gradients' rounding moves it by up to lr (1.8e-3 on the CPU at lr
+# 3e-2). Elsewhere the two agree to 1.2e-7 on the CPU (96% of the
+# parameters); a decay left out moves a parameter by lr·wd·|p| (3.8e-4 on
+# the CPU), one added before scale_by_adam by 5.9e-2
+P20_FIRST_GRAD_FLOOR = 1e-6
+P20_FIRST_ATOL = 1e-6
+# MTNetGridRandomRecipe's widest: 4 memories of 8 steps (40 back)
+P20_MTNET = dict(long_num=4, time_step=8, cnn_height=3, cnn_hid_size=32,
+                 rnn_hid_sizes=(16, 32), ar_window=4, cnn_dropout=0.0,
+                 rnn_dropout=0.0)
+P20_MTNET_BATCH = 64
+P20_TIMED = 5                       # (f): 2 warm-up steps, 5 timed
+P20_CHECK_ROWS = 8
+# (f): one MTNet step on 8 rows against float64 on the CPU, as (loss,
+# output, head gradient): the loss's absolute difference, the output's
+# and the head gradient's distance over float64's norm. Basis: python3
+# dev/estimate_zouwu_limits.py (the same step on the CPU; its readings in
+# the comments); fp32 (TF32 off) 10x to 50x past them, bf16 about 4x
+# (a development machine's CPU; the H100 machine's CPU):
+P20_MTNET_FP32_LIMITS = (1e-5, 5e-6, 5e-6)   # 2.06e-9, 1.82e-7, 6.73e-8;
+#                                              2.68e-9, 7.09e-8, 4.78e-7
+P20_MTNET_BF16_LIMITS = (1e-3, 0.025, 0.03)  # 1.94e-4, 5.62e-3, 3.53e-3;
+#                                              1.34e-6, 8.70e-4, 7.05e-3
+# DeepGLO's electricity panel (Table 1 of the DeepGLO paper): 370 series
+# x 25 968 hourly steps; TCMFForecaster's default rank 64
+P20_TCMF = (370, 25_968)
+P20_TCMF_RANK = 64
+P20_TCMF_STEPS = 300
+P20_TCMF_INCR = 24
+P20_TCMF_LOCAL_COLS = 512           # use_local=True: a cut, named
+P20_TCMF_PROFILED = 10              # steps under the profiler
+# (g): F and X from the SVD start against the same 300 steps in float64,
+# as the largest difference, and the final mse, relative: P20_TCMF_FACTOR times the CPU's own fp32
+# distance (dev/estimate_zouwu_limits.py --part tcmf at the full width,
+# on the H100 machine's CPU: F 0.0150, X 0.00923, mse 2.8e-8 relative),
+# the factor two fp32 routes stood apart on the CPU
+# (tests/test_torch_tcmf.py: 1.8x) with room
+P20_TCMF_CPU_FX = (0.0150, 0.00923)
+P20_TCMF_CPU_MSE = 2.8e-8           # the final mse's, relative
+P20_TCMF_FACTOR = 3.0
+P20_AE = dict(roll_len=24, hidden=(16, 8))
+
+
+def p20_frames(np):
+    """A seeded series of nyc_taxi's length and shape: half-hourly from
+    2014-07-01, a daily and a weekly cycle and noise around 15 000, split
+    80/10/10 in time."""
+    import pandas as pd
+    rng = np.random.default_rng(SEED + 30)
+    t = np.arange(P20_ROWS)
+    v = (15_000 + 7_000 * np.sin(2 * np.pi * t / 48 - 1.9)
+         + 2_500 * np.sin(2 * np.pi * t / 336)
+         + rng.normal(0, 900, P20_ROWS))
+    df = pd.DataFrame({"timestamp": pd.date_range(
+        "2014-07-01", periods=P20_ROWS, freq="30min"), "value": v})
+    a, b = P20_SPLIT
+    return df, df.iloc[:a], df.iloc[a:a + b], df.iloc[a + b:]
+
+
+def p20_panel(np, cols):
+    """A seeded panel of the electricity data's shape: 370 hourly series,
+    each a loading of daily, weekly and slow cycles plus its own level
+    and noise, ``cols`` steps (float32)."""
+    rng = np.random.default_rng(SEED + 31)
+    t = np.arange(cols)
+    basis = [np.sin(2 * np.pi * k * t / p + ph) for p, ks in
+             ((24, (1, 2, 3)), (168, (1, 2)), (8766, (1,)))
+             for k in ks for ph in (0.0, 1.3)]
+    basis = np.stack(basis)
+    n = P20_TCMF[0]
+    load = rng.gamma(2.0, 1.0, (n, len(basis)))
+    y = load @ basis + rng.uniform(2, 10, (n, 1)) \
+        + rng.normal(0, 0.3, (n, cols))
+    return y.astype(np.float32)
+
+
+def p20_part(rep, key, fn):
+    """One part of phase 20: no kernel of queue B may launch in it."""
+    return p19_part(rep, key, fn, no_queue_b=True, phase=20)
+
+
+def p20_trials_ok(trials, part):
+    """Every trial ends done (or stopped by a scheduler), never in error:
+    a CUDA failure inside a trial must fail the phase."""
+    bad = [(t.trial_id, t.status, t.error) for t in trials
+           if t.status not in ("done", "stopped")]
+    if bad:
+        raise AssertionError(f"20({part}) trials did not finish: {bad}")
+
+
+def p20_trial_rows(trials):
+    return [dict(id=t.trial_id, config={k: str(v) for k, v in
+                                        t.config.items()},
+                 history=t.metric_history, status=t.status,
+                 wall_s=t.wall_s) for t in trials]
+
+
+def p20_autots(torch, np, frames, kind, dev="cuda"):
+    """20(a): AutoTSTrainer with GridRandomRecipe() at its defaults
+    (VanillaLSTM and TCN x 1 draw, look_back 24) but for its epochs
+    (P20_GRID_EPOCHS, a cut) on the series;
+    each trial's config, metric history, status and seconds, the best
+    trial; the pipeline's predict ms, evaluate (mse, smape), an
+    incremental fit; save -> TSPipeline.load predicts bitwise the same;
+    each trial's fit step (ms, 2 warm-up and 5 timed at its batch on the
+    card) and its kernel launches (profiler)."""
+    from analytics_zoo_tpu_torch.zouwu.autots import (AutoTSTrainer,
+                                                      TSPipeline)
+    from analytics_zoo_tpu_torch.zouwu.config import GridRandomRecipe
+    _, train, val, test = frames
+    rep = {}
+    t0 = time.perf_counter()
+    trainer = AutoTSTrainer(dt_col="timestamp", target_col="value",
+                            horizon=1, logs_dir=P20_DIR, name="grid",
+                            device=dev)
+    ts = trainer.fit(train, val, recipe=GridRandomRecipe(
+        epochs=P20_GRID_EPOCHS), metric="mse")
+    rep["fit_s"] = time.perf_counter() - t0
+    trials = trainer.engine.trials
+    p20_trials_ok(trials, "a")
+    rep["trials"] = p20_trial_rows(trials)
+    for row in rep["trials"]:
+        log(f"phase 20(a) trial {row['id']} {row['config']}: history "
+            f"{row['history']}, {row['status']}, {row['wall_s']:.2f} s")
+    best = trainer.engine.get_best_trial()
+    rep["best"] = dict(id=best.trial_id, metric=best.best_metric)
+    pred = ts.predict(test)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pred = ts.predict(test)
+    torch.cuda.synchronize()
+    rep["predict_ms"] = (time.perf_counter() - t1) * 1e3
+    rep["evaluate"] = ts.evaluate(test, metrics=["mse", "smape"])
+    t1 = time.perf_counter()
+    ts.fit(val, epochs=1)
+    rep["incremental_fit_s"] = time.perf_counter() - t1
+    rep["evaluate_after_incremental"] = ts.evaluate(test,
+                                                    metrics=["mse", "smape"])
+    path = os.path.join(P20_DIR, "pipeline")
+    ts.save(path)
+    pred = ts.predict(test)
+    loaded = TSPipeline.load(path, device=dev)
+    rep["reload_bitwise"] = bool(np.array_equal(loaded.predict(test), pred))
+    # each trial's step: its model rebuilt, a batch on the card
+    steps = {}
+    for t in trials:
+        m = trainer.builder.build(t.config)
+        x, y = m.transformer.fit_transform(train)
+        est = m.forecaster._ensure_est(x)
+        bs = int(t.config.get("batch_size", 32))
+        xs, ys = est._tensors(x[:bs]), est._tensors(y[:bs])
+        ms = p19_window(torch, est, xs, ys, P20_TIMED)
+        calls = p19_launch_calls(torch, lambda: est._train_step(xs, ys))
+        steps[t.trial_id] = dict(model=t.config["model"], batch=bs,
+                                 step_ms=ms, launches=calls)
+    rep["steps"] = steps
+    log(f"phase 20(a) AutoTS GridRandomRecipe on {kind}: {len(trials)} "
+        f"trials in {rep['fit_s']:.1f} s, best {rep['best']}; predict "
+        f"{len(pred)} windows {rep['predict_ms']:.1f} ms; evaluate "
+        f"{rep['evaluate']}; incremental fit {rep['incremental_fit_s']:.2f} "
+        f"s, then {rep['evaluate_after_incremental']}; reload bitwise "
+        f"{rep['reload_bitwise']}; a fit step by trial {steps}")
+    if not rep["reload_bitwise"]:
+        raise AssertionError("20(a): the reloaded pipeline predicts "
+                             "otherwise")
+    for v in list(rep["evaluate"].values()) + \
+            list(rep["evaluate_after_incremental"].values()):
+        if not np.isfinite(v):
+            raise AssertionError(f"20(a): evaluate {rep['evaluate']}")
+    return rep, path, pred
+
+
+def p20_card_vs_cpu(np, frames, path, pred, kind):
+    """20(b): the saved pipeline loaded on the CPU predicts within
+    P20_PRED_RTOL of the card (relative to the largest forecast; TF32
+    off)."""
+    from analytics_zoo_tpu_torch.zouwu.autots import TSPipeline
+    cpu = TSPipeline.load(path, device="cpu").predict(frames[3])
+    rel = float(np.abs(cpu - pred).max() / np.abs(cpu).max())
+    log(f"phase 20(b) the best pipeline on {kind} against the CPU: "
+        f"{rel:.3g} of the largest forecast (limit {P20_PRED_RTOL})")
+    if rel > P20_PRED_RTOL:
+        raise AssertionError(f"20(b): card against CPU {rel}")
+    return dict(rel=rel)
+
+
+def p20_bayes(np, frames, kind, dev="cuda"):
+    """20(c): BayesRecipe(num_samples=3, epochs=1), sequential; each config
+    the one the CPU's BayesSearcher proposes from the same observed
+    metrics."""
+    from analytics_zoo_tpu_torch.automl.search import BayesSearcher
+    from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer
+    from analytics_zoo_tpu_torch.zouwu.config import BayesRecipe
+    _, train, val, _ = frames
+    recipe = BayesRecipe(num_samples=3, epochs=1)
+    trainer = AutoTSTrainer(dt_col="timestamp", target_col="value",
+                            horizon=1, logs_dir=P20_DIR, name="bayes",
+                            device=dev)
+    t0 = time.perf_counter()
+    trainer.fit(train, val, recipe=recipe)
+    secs = time.perf_counter() - t0
+    trials = trainer.engine.trials
+    p20_trials_ok(trials, "c")
+    searcher = BayesSearcher(recipe.search_space(), "min",
+                             seed=trainer.engine.seed)
+    same = []
+    for t in trials:
+        same.append(searcher.suggest() == t.config)
+        searcher.observe(t.config, t.best_metric)
+    rows = p20_trial_rows(trials)
+    log(f"phase 20(c) BayesRecipe on {kind}: {secs:.1f} s; trials {rows}; "
+        f"configs as the CPU's searcher proposes {same}")
+    if not all(same):
+        raise AssertionError(f"20(c): configs differ from the searcher's "
+                             f"{same}")
+    return dict(seconds=secs, trials=rows, same_configs=same)
+
+
+class p20_deterministic:
+    """``with p20_deterministic(torch):`` cuDNN's deterministic algorithms,
+    the flag put back after."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = self.cudnn.deterministic
+        self.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic = self.saved
+
+
+def p20_first_step(torch, np, creator, x, y, dev):
+    """One step of P20_POP_K members on one batch (lr and weight decay
+    drawn per member) against each member's plain step: its module's mse
+    on the same batch through autograd, then learn.optimizers'
+    AdamWeightDecay (optax's adamw) with the member's rate and decay.
+    Returns the largest parameter difference where the plain gradient is
+    at least P20_FIRST_GRAD_FLOOR, and the share of parameters held."""
+    from analytics_zoo_tpu_torch.automl import PopulationSearchEngine, hp
+    from analytics_zoo_tpu_torch.automl.model_builder import build_module
+    from analytics_zoo_tpu_torch.learn.optimizers import AdamWeightDecay
+    xb, yb = x[:P20_POP_BATCH], y[:P20_POP_BATCH]
+    pop = PopulationSearchEngine(creator, logs_dir=P20_DIR, name="first",
+                                 seed=SEED, device=dev)
+    pop.compile((xb, yb), {"lr": hp.loguniform(*P20_POP_LR),
+                           "weight_decay": hp.uniform(0.0, 1e-2)},
+                n_sampling=P20_POP_K, batch_size=P20_POP_BATCH)
+    pop.run()
+    p20_trials_ok(pop.trials, "d")
+    xs, ys = (torch.from_numpy(np.asarray(a)).to(dev) for a in (xb, yb))
+    errs, kept = [], [0, 0]
+    for k, t in enumerate(pop.trials):
+        module = build_module(creator, t.config).to(dev).eval()
+        names = [n for n, _ in module.named_parameters()]
+        params = [p for _, p in module.named_parameters()]
+        loss = torch.mean((module(xs, train=False) - ys) ** 2)
+        grads = list(torch.autograd.grad(loss, params))
+        opt = AdamWeightDecay(float(t.config["lr"]),
+                              float(t.config["weight_decay"]),
+                              epsilon=1e-8)
+        with torch.no_grad():
+            opt.step(params, grads, opt.init(params), 0)
+        got = pop.member_state_dict(k)
+        for n, p, g in zip(names, params, grads):
+            keep = (g.abs() >= P20_FIRST_GRAD_FLOOR).cpu()
+            d = (got[n] - p.detach().cpu()).abs()
+            errs.append(float(d[keep].max()) if keep.any() else 0.0)
+            kept[0] += int(keep.sum())
+            kept[1] += keep.numel()
+    return max(errs), kept[0] / kept[1]
+
+
+def p20_population(torch, np, frames, kind, dev="cuda"):
+    """20(d): PopulationSearchEngine over P20_POP_K TemporalConvNets at the
+    recipes' widest TCN on the training windows (batch 64, 2 epochs, lr
+    log-uniform), LocalSearchEngine training the same configs serially
+    from the same initial weights (P20_SERIAL_K of them for
+    P20_SERIAL_EPOCHS, a cut: they compare by the ms of a member-epoch);
+    one member against the same member trained alone from the same start
+    (both under cudnn.deterministic, the population once more), and one
+    step of every member against a plain AdamWeightDecay step
+    (p20_first_step)."""
+    from analytics_zoo_tpu_torch.automl import (LocalSearchEngine,
+                                                PopulationSearchEngine, hp)
+    from analytics_zoo_tpu_torch.automl.model_builder import (
+        TorchModelBuilder)
+    from analytics_zoo_tpu_torch.zouwu.feature import (
+        TimeSequenceFeatureTransformer)
+    from analytics_zoo_tpu_torch.zouwu.model.nets import TemporalConvNet
+    _, train, val, _ = frames
+    tf = TimeSequenceFeatureTransformer(past_seq_len=24, dt_col="timestamp",
+                                        target_col="value")
+    x, y = tf.fit_transform(train)
+    vxy = tf.transform(val)
+    feats = x.shape[-1]
+
+    def creator(config):
+        return TemporalConvNet(feats, future_seq_len=1, dropout=0.2,
+                               **P20_POP_TCN)
+
+    space = {"lr": hp.loguniform(*P20_POP_LR)}
+    # torch.func's first vmap imports torch._dynamo and sympy (seconds,
+    # once a process): a one-step run pays it before the clock starts
+    first_err, first_share = p20_first_step(torch, np, creator, x, y, dev)
+    pop = PopulationSearchEngine(creator, logs_dir=P20_DIR, name="pop",
+                                 seed=SEED, device=dev)
+    pop.compile((x, y), space, n_sampling=P20_POP_K, epochs=P20_POP_EPOCHS,
+                validation_data=vxy, metric="mse", batch_size=P20_POP_BATCH)
+    t0 = time.perf_counter()
+    pop.run()
+    pop_s = time.perf_counter() - t0
+    p20_trials_ok(pop.trials, "d")
+    member_ms = sum(pop.epoch_seconds) * 1e3 / (P20_POP_K * P20_POP_EPOCHS)
+    serial = LocalSearchEngine(TorchModelBuilder(creator, device=dev),
+                               logs_dir=P20_DIR, name="serial", seed=SEED,
+                               device=dev)
+    serial.compile((x, y), dict(space, batch_size=P20_POP_BATCH),
+                   n_sampling=P20_SERIAL_K, epochs=P20_SERIAL_EPOCHS,
+                   validation_data=vxy, metric="mse")
+    for s, p in zip(serial.trials, pop.trials):
+        s.config = dict(p.config, batch_size=P20_POP_BATCH)
+    t0 = time.perf_counter()
+    serial.run()
+    serial_s = time.perf_counter() - t0
+    p20_trials_ok(serial.trials, "d")
+    k = pop.get_best_trial().trial_id
+    # member k against itself alone, both under cudnn.deterministic: with
+    # cuDNN's default weight-gradient engine (atomics) one run in five
+    # branches to another outcome (PERF.md, Open questions); the
+    # population as users run it is printed against its deterministic twin
+    with p20_deterministic(torch):
+        twin = PopulationSearchEngine(creator, logs_dir=P20_DIR,
+                                      name="twin", seed=SEED, device=dev)
+        twin.compile((x, y), space, n_sampling=P20_POP_K,
+                     epochs=P20_POP_EPOCHS, validation_data=vxy,
+                     metric="mse", batch_size=P20_POP_BATCH)
+        twin.run()
+        p20_trials_ok(twin.trials, "d")
+        alone = PopulationSearchEngine(creator, logs_dir=P20_DIR,
+                                       name="alone", seed=SEED, device=dev)
+        # the same start: member k is built from its config's seed
+        alone.compile((x, y), {"lr": pop.trials[k].config["lr"],
+                               "seed": pop.trials[k].config["seed"]},
+                      n_sampling=1, epochs=P20_POP_EPOCHS,
+                      validation_data=vxy, metric="mse",
+                      batch_size=P20_POP_BATCH)
+        alone.run()
+    a, b = twin.member_state_dict(k), alone.member_state_dict(0)
+    member_err = max(float((a[n] - b[n]).abs().max()) for n in a)
+    d = pop.member_state_dict(k)
+    default_err = max(float((d[n] - a[n]).abs().max()) for n in a)
+    rep = dict(pop_s=pop_s, serial_s=serial_s,
+               ms_per_member_epoch=member_ms,
+               serial_ms_per_member_epoch=serial_s * 1e3
+               / (P20_SERIAL_K * P20_SERIAL_EPOCHS),
+               best=k,
+               best_metric=pop.trials[k].best_metric,
+               serial_best=serial.get_best_trial().best_metric,
+               member_err=member_err, default_err=default_err,
+               first_step_err=first_err, first_step_share=first_share,
+               histories=[t.metric_history for t in pop.trials])
+    rep["speedup"] = rep["serial_ms_per_member_epoch"] / member_ms
+    log(f"phase 20(d) population of {P20_POP_K} TCNs {P20_POP_TCN} on "
+        f"{len(x)} windows on {kind}: {pop_s:.2f} s "
+        f"({member_ms:.1f} ms a member-epoch), serial {serial_s:.2f} s "
+        f"for {P20_SERIAL_EPOCHS} epoch of {P20_SERIAL_K} configs "
+        f"({rep['serial_ms_per_member_epoch']:.1f} ms a member-epoch), "
+        f"speedup a member-epoch {rep['speedup']:.2f}x; best member {k} "
+        f"{rep['best_metric']:.5g}; member {k} against itself alone, "
+        f"deterministic, {member_err:.3g} (limit {P20_MEMBER_ATOL}); the "
+        f"population with cuDNN's defaults against it deterministic "
+        f"{default_err:.3g} (not held); a first step of "
+        f"each member against a plain AdamWeightDecay {first_err:.3g} "
+        f"(limit {P20_FIRST_ATOL}) on the {first_share:.1%} of parameters "
+        f"whose gradient is at least {P20_FIRST_GRAD_FLOOR}")
+    if member_err > P20_MEMBER_ATOL:
+        raise AssertionError(f"20(d): member against alone {member_err}")
+    if first_err > P20_FIRST_ATOL:
+        raise AssertionError(f"20(d): first step against a plain "
+                             f"AdamWeightDecay {first_err}")
+    return rep
+
+
+def p20_parallel(torch, np, frames, kind, dev="cuda"):
+    """20(e): TCNGridRandomRecipe(num_rand_samples=P20_PAR_SAMPLES,
+    epochs=1): 4 trials (8 with 4 draws, a cut), with
+    n_parallel=4 (four threads on the card, each on its own stream)
+    and n_parallel=1: wall seconds of each, the metric histories within
+    P20_HIST_RTOL relative, and whether they are bitwise, both under
+    cudnn.deterministic; then n_parallel=4 with cuDNN's defaults, as users
+    run it, printed against them. cuDNN's default weight-gradient engine
+    sums with atomics: runs differ by 1e-7 a step, and now and then a
+    trial branches to another outcome (4.88e-2 apart; PERF.md, Open
+    questions; dev/zouwu_path_torch.py --determinism and --population)."""
+    from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer
+    from analytics_zoo_tpu_torch.zouwu.config import TCNGridRandomRecipe
+    _, train, val, _ = frames
+    runs = {}
+
+    def search(n_par, name):
+        trainer = AutoTSTrainer(dt_col="timestamp", target_col="value",
+                                horizon=1, logs_dir=P20_DIR,
+                                name=name, device=dev, n_parallel=n_par)
+        t0 = time.perf_counter()
+        trainer.fit(train, val, recipe=TCNGridRandomRecipe(
+            num_rand_samples=P20_PAR_SAMPLES, epochs=1))
+        secs = time.perf_counter() - t0
+        p20_trials_ok(trainer.engine.trials, "e")
+        return dict(seconds=secs, histories=[
+            t.metric_history for t in trainer.engine.trials])
+
+    with p20_deterministic(torch):
+        for n_par in (1, 4):
+            runs[n_par] = search(n_par, f"par{n_par}")
+    runs["default"] = search(4, "default")
+    h1, h4, hd = (np.asarray(runs[n]["histories"], np.float64)
+                  for n in (1, 4, "default"))
+    rel = float((np.abs(h4 - h1) / np.abs(h1)).max())
+    rel_default = float((np.abs(hd - h1) / np.abs(h1)).max())
+    bitwise = bool(np.array_equal(h1, h4))
+    log(f"phase 20(e) {len(h1)} TCN trials on {kind}, deterministic: "
+        f"n_parallel=1 {runs[1]['seconds']:.2f} s, n_parallel=4 "
+        f"{runs[4]['seconds']:.2f} s; histories {rel:.3g} apart relative "
+        f"(limit {P20_HIST_RTOL}), bitwise {bitwise}; n_parallel=4 with "
+        f"cuDNN's defaults {runs['default']['seconds']:.2f} s, "
+        f"{rel_default:.3g} from n_parallel=1 deterministic (not held)")
+    if rel > P20_HIST_RTOL:
+        raise AssertionError(f"20(e): histories {runs}")
+    return dict(runs=runs, rel=rel, bitwise=bitwise,
+                rel_default=rel_default)
+
+
+def p20_mtnet_step(torch, module, x, y, dev, f64=False):
+    """One MTNet step's loss, output and the head's gradient (train=False,
+    mse), on ``dev``; ``f64``: the module and data in float64."""
+    dt = torch.float64 if f64 else torch.float32
+    module = module.to(dev)
+    xs = torch.from_numpy(x).to(dev, dt)
+    ys = torch.from_numpy(y).to(dev, dt)
+    out = module(xs, train=False)
+    loss = torch.mean((out.to(dt) - ys) ** 2)
+    (grad,) = torch.autograd.grad(loss, [module.head.weight])
+    return dict(loss=float(loss.detach()),
+                logits=out.detach().double().cpu(),
+                head=grad.detach().double().cpu())
+
+
+def p20_mtnet(torch, np, frames, kind, dev="cuda"):
+    """20(f): MTNet at MTNetGridRandomRecipe's widest, batch 64, in fp32
+    (TF32 off) and mixed_bfloat16 from the same weights: a fit step's ms
+    (2 warm-up, 5 timed) and launches, predict ms (CUDA events), and one
+    step on 8 rows against float64 on the CPU (loss, output, head
+    gradient) at P20_MTNET_*_LIMITS."""
+    import copy
+    from analytics_zoo_tpu_torch.zouwu.feature import (
+        TimeSequenceFeatureTransformer)
+    from analytics_zoo_tpu_torch.zouwu.model.forecast import MTNetForecaster
+    _, train, _, _ = frames
+    back = (P20_MTNET["long_num"] + 1) * P20_MTNET["time_step"]
+    x, y = TimeSequenceFeatureTransformer(
+        past_seq_len=back, dt_col="timestamp",
+        target_col="value").fit_transform(train)
+    xc, yc = x[:P20_CHECK_ROWS], y[:P20_CHECK_ROWS]
+    rep, ref, state = {}, None, None
+    for dtype in ("float32", "mixed_bfloat16"):
+        f = MTNetForecaster(future_seq_len=1, dtype=dtype, device=dev,
+                            **P20_MTNET)
+        est = f._ensure_est(x)
+        if state is None:
+            state = copy.deepcopy(est.model.state_dict())
+            net = copy.deepcopy(est.model).cpu().double()
+            ref = p20_mtnet_step(torch, net, xc, yc, "cpu", f64=True)
+        est.model.load_state_dict(state)
+        run = p20_mtnet_step(torch, est.model, xc, yc, dev)
+        got = p19_against_f64(run, ref)
+        xs = est._tensors(x[:P20_MTNET_BATCH])
+        ys = est._tensors(y[:P20_MTNET_BATCH])
+        ms = p19_window(torch, est, xs, ys, P20_TIMED)
+        calls = p19_launch_calls(torch, lambda: est._train_step(xs, ys))
+        xp = x[:1024]
+        pred_ms = cuda_ms(lambda: f.predict(xp, batch_size=1024), iters=3,
+                          warmup=1)
+        limits = (P20_MTNET_FP32_LIMITS if dtype == "float32"
+                  else P20_MTNET_BF16_LIMITS)
+        rep[dtype] = dict(step_ms=ms, launches=calls, predict_ms=pred_ms,
+                          against_f64=got, limits=limits)
+        log(f"phase 20(f) MTNet {dtype} on {kind}: a step of "
+            f"{P20_MTNET_BATCH} x {back} x {x.shape[-1]} {ms:.2f} ms, "
+            f"{calls} launches; predict 1024 rows {pred_ms:.2f} ms; a step "
+            f"on {P20_CHECK_ROWS} rows against float64 (loss, output, head "
+            f"gradient) {tuple(f'{v:.3g}' for v in got)}, limits {limits}")
+        if any(g > lim for g, lim in zip(got, limits)):
+            raise AssertionError(f"20(f) MTNet {dtype}: {got} > {limits}")
+    return rep
+
+
+def p20_tcmf_profile(torch, m, y, f0, x0):
+    """Launches a factorization step and the device's busy share over
+    P20_TCMF_PROFILED steps (the profiler's launch calls and the device
+    time of what ran)."""
+    m._init_factors = lambda _: (f0.copy(), x0.copy())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        m._run_factorization(y, P20_TCMF_PROFILED, None)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    calls = sum(e.count for e in ka if "LaunchKernel" in e.key)
+    busy_us = sum(e.self_device_time_total for e in ka)
+    return calls / P20_TCMF_PROFILED, busy_us * 1e-6 / wall
+
+
+def p20_tcmf(torch, np, kind, dev="cuda"):
+    """20(g): TCMFForecaster(rank=64, svd=True) at the electricity panel's
+    width: fit(num_steps=300) seconds, ms a factorization step (host
+    clock), launches a step and the device's busy share (profiler), the
+    final mse, predict(24) ms, fit_incremental of 24 columns, save/load
+    bitwise; F, X and the final mse against the same steps in float64 on
+    the card from the same SVD start; use_local=True on the first 512 columns with
+    max_TCN_epoch=1 (a cut)."""
+    from analytics_zoo_tpu_torch.zouwu.model.tcmf import TCMFForecaster
+    n, t = P20_TCMF
+    panel = p20_panel(np, t + P20_TCMF_INCR)
+    y = panel[:, :t]
+    m = TCMFForecaster(rank=P20_TCMF_RANK, svd=True, device=dev)
+    kept = {}
+    svd_init = m._init_factors
+
+    def keep(yy):
+        kept["fx"] = svd_init(yy)
+        return tuple(a.copy() for a in kept["fx"])
+
+    m._init_factors = keep
+    t0 = time.perf_counter()
+    mse = m.fit(y, num_steps=P20_TCMF_STEPS)
+    fit_s = time.perf_counter() - t0
+    f0, x0 = kept["fx"]
+    timed = TCMFForecaster(rank=P20_TCMF_RANK, device=dev)
+    timed._init_factors = lambda _: (f0.copy(), x0.copy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed._run_factorization(y, P20_TCMF_STEPS, None)
+    step_ms = (time.perf_counter() - t0) * 1e3 / P20_TCMF_STEPS
+    launches, busy = p20_tcmf_profile(torch, timed, y, f0, x0)
+    ref = TCMFForecaster(rank=P20_TCMF_RANK, device=dev)
+    ref._init_factors = lambda _: (f0.astype(np.float64),
+                                   x0.astype(np.float64))
+    mse64 = ref._run_factorization(y.astype(np.float64), P20_TCMF_STEPS,
+                                   None)
+    fx = (float(np.abs(m.F - ref.F).max()), float(np.abs(m.X - ref.X).max()))
+    limits = tuple(P20_TCMF_FACTOR * c for c in P20_TCMF_CPU_FX)
+    mse_rel = abs(mse - mse64) / abs(mse64)
+    mse_limit = P20_TCMF_FACTOR * P20_TCMF_CPU_MSE
+    t0 = time.perf_counter()
+    pred = m.predict(24)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    m.fit_incremental(panel[:, t:])
+    incr_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(P20_DIR, "tcmf")
+    m.save(path)
+    back = TCMFForecaster.load(path, device=dev)
+    reload_bitwise = bool(np.array_equal(back.predict(24), m.predict(24)))
+    t0 = time.perf_counter()
+    local = TCMFForecaster(rank=P20_TCMF_RANK, svd=True, use_local=True,
+                           device=dev)
+    local.fit(y[:, :P20_TCMF_LOCAL_COLS], num_steps=P20_TCMF_STEPS,
+              max_TCN_epoch=1)
+    local_pred = local.predict(24)
+    local_s = time.perf_counter() - t0
+    rep = dict(fit_s=fit_s, step_ms=step_ms, launches_per_step=launches,
+               device_busy_share=busy, mse=mse, predict_ms=predict_ms,
+               incremental_ms=incr_ms, fx_against_f64=fx, limits=limits,
+               mse_f64=mse64, mse_rel=mse_rel, mse_limit=mse_limit,
+               reload_bitwise=reload_bitwise, local_s=local_s,
+               local_finite=bool(np.isfinite(local_pred).all()),
+               devices_used=m.fit_report["devices_used"])
+    log(f"phase 20(g) TCMF {n} x {t} rank {P20_TCMF_RANK} on {kind}: fit "
+        f"{fit_s:.2f} s ({P20_TCMF_STEPS} steps, the SVD start on the "
+        f"host), {step_ms:.3f} ms a step, {launches:.1f} launches a step, "
+        f"device busy {busy:.1%}; mse {mse:.5g} (float64 {mse64:.5g}, "
+        f"{mse_rel:.3g} relative, limit {mse_limit:.3g}); predict(24) "
+        f"{predict_ms:.1f} ms; fit_incremental({P20_TCMF_INCR}) "
+        f"{incr_ms:.1f} ms; F, X against float64 {fx} (limits {limits}); "
+        f"reload bitwise {reload_bitwise}; use_local on the first "
+        f"{P20_TCMF_LOCAL_COLS} columns (a cut) with max_TCN_epoch=1 "
+        f"{local_s:.2f} s")
+    if not (reload_bitwise and rep["local_finite"] and np.isfinite(mse)
+            and np.isfinite(pred).all()):
+        raise AssertionError(f"20(g): {rep}")
+    if fx[0] > limits[0] or fx[1] > limits[1]:
+        raise AssertionError(f"20(g): F, X against float64 {fx} > {limits}")
+    if mse_rel > mse_limit:
+        raise AssertionError(f"20(g): mse against float64 {mse_rel} > "
+                             f"{mse_limit}")
+    return rep
+
+
+def p20_anomaly(torch, np, frames, kind, dev="cuda"):
+    """20(h): AEDetector (roll_len 24, hidden (16, 8)) on the 10 320-step
+    series: fit ms; scores within P20_PRED_RTOL of the CPU's from the same
+    weights (relative to the largest score) and the same anomaly indexes;
+    ThresholdDetector over the scores alike; DBScanDetector raises
+    ModuleNotFoundError naming scikit-learn where it is absent."""
+    import copy
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.zouwu.model.anomaly import (
+        AEDetector, DBScanDetector, ThresholdDetector)
+    series = frames[0]["value"].to_numpy()
+    det = AEDetector(device=dev, **P20_AE)
+    t0 = time.perf_counter()
+    det.fit(series)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = det.epochs * ((len(series) - det.roll_len + 1) // det.batch_size)
+    card = det.score(series)
+    cpu = AEDetector(device="cpu", **P20_AE)
+    cpu._mu, cpu._sigma = det._mu, det._sigma
+    cpu._est = Estimator.from_torch(model=copy.deepcopy(det._est.model).cpu(),
+                                    loss="mse", device="cpu")
+    host = cpu.score(series)
+    rel = float(np.abs(card - host).max() / np.abs(host).max())
+    same_idx = bool(np.array_equal(det.anomaly_indexes(series),
+                                   cpu.anomaly_indexes(series)))
+    th_card = ThresholdDetector(ratio=3.0).fit(card)
+    th_host = ThresholdDetector(ratio=3.0).fit(host)
+    same_th = bool(np.array_equal(th_card.anomaly_indexes(card),
+                                  th_host.anomaly_indexes(host)))
+    try:
+        DBScanDetector().anomaly_indexes(series[:500])
+        dbscan = "scikit-learn present: ran"
+    except ModuleNotFoundError as e:
+        if "scikit-learn" not in str(e):
+            raise
+        dbscan = f"raises {type(e).__name__}: {e}"
+    rep = dict(fit_s=fit_s, fit_ms_per_step=fit_s * 1e3 / steps,
+               rel=rel, same_indexes=same_idx, same_threshold=same_th,
+               dbscan=dbscan)
+    log(f"phase 20(h) AEDetector on {kind}: fit {fit_s:.2f} s "
+        f"({rep['fit_ms_per_step']:.3f} ms a step); scores against the "
+        f"CPU {rel:.3g} (limit {P20_PRED_RTOL}); anomaly indexes equal "
+        f"{same_idx}, ThresholdDetector's {same_th}; DBScanDetector "
+        f"{dbscan}")
+    if rel > P20_PRED_RTOL or not same_idx or not same_th:
+        raise AssertionError(f"20(h): {rep}")
+    return rep
+
+
+def phase_zouwu(torch, np, kind, dev="cuda"):
+    """Phase 20: Zouwu's AutoTS on the card (ROADMAP A11's Zouwu and AutoML
+    half), TF32 off; the directory it writes is removed after. The counts
+    are zeroed before each of (a)-(h) and read after it: none launches a
+    kernel of queue B (cuBLAS, cuDNN and PyTorch's own kernels)."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import estimator
+    shutil.rmtree(P20_DIR, ignore_errors=True)
+    os.makedirs(P20_DIR)
+    log_dir = estimator.DEFAULT_LOG_DIR
+    estimator.DEFAULT_LOG_DIR = os.path.join(P20_DIR, "tb")
+    t0 = time.perf_counter()
+    rep = {}
+    frames = p20_frames(np)
+    try:
+        with p17_tf32(torch, False):
+            rep["a"], path, pred = p20_part(rep, "a", lambda: p20_autots(
+                torch, np, frames, kind, dev))
+            rep["b"] = p20_part(rep, "b", lambda: p20_card_vs_cpu(
+                np, frames, path, pred, kind))
+            rep["c"] = p20_part(rep, "c", lambda: p20_bayes(
+                np, frames, kind, dev))
+            rep["d"] = p20_part(rep, "d", lambda: p20_population(
+                torch, np, frames, kind, dev))
+            rep["e"] = p20_part(rep, "e", lambda: p20_parallel(
+                torch, np, frames, kind, dev))
+            rep["f"] = p20_part(rep, "f", lambda: p20_mtnet(
+                torch, np, frames, kind, dev))
+            rep["g"] = p20_part(rep, "g", lambda: p20_tcmf(
+                torch, np, kind, dev))
+            rep["h"] = p20_part(rep, "h", lambda: p20_anomaly(
+                torch, np, frames, kind, dev))
+    finally:
+        estimator.DEFAULT_LOG_DIR = log_dir
+        shutil.rmtree(P20_DIR, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"phase 20: no kernel of queue B in (a)-(h); seconds by part "
         f"{ {k: round(v, 1) for k, v in rep['part_seconds'].items()} }")
     return rep
 
@@ -8199,6 +8975,12 @@ def main() -> int:
     report["text"] = phase_text(
         torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
     log(f"phase 19: {report['text']['seconds']:.1f} s")
+    # 20. Zouwu's AutoTS: the grid and bayes searches, the population, the
+    # thread pool, MTNet, TCMF at the electricity panel's width, the
+    # anomaly detectors; the counts zeroed before each part, none of queue
+    # B launched
+    report["zouwu"] = phase_zouwu(torch, np, kind)
+    log(f"phase 20: {report['zouwu']['seconds']:.1f} s")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -8208,7 +8990,8 @@ def main() -> int:
                           "a7": a7_counts, "a7b": a7b_counts,
                           "image": report["image"]["launches"],
                           "image_path": report["image_path"]["launches"],
-                          "text": report["text"]["launches"]}
+                          "text": report["text"]["launches"],
+                          "zouwu": report["zouwu"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in

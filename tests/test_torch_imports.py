@@ -68,7 +68,13 @@ def test_importing_every_module_loads_no_jax():
                 "feature.image.transforms", "feature.text",
                 "feature.text.textset",
                 "models.textclassification.text_classifier",
-                "models.textmatching.knrm"):
+                "models.textmatching.knrm", "automl.hp", "automl.search",
+                "automl.population", "automl.model_builder",
+                "automl.auto_estimator", "automl.xgboost",
+                "zouwu.feature.time_sequence", "zouwu.config.recipe",
+                "zouwu.autots.forecast", "zouwu.pipeline",
+                "zouwu.regression", "zouwu.model.tcmf",
+                "zouwu.model.anomaly", "zouwu.model.stats_forecast"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,
