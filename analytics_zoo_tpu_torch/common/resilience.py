@@ -18,9 +18,15 @@ every run. :func:`is_backend_loss` tells a lost device from a model or
 data bug, and ``ZOO_FIT_MAX_RESUMES`` bounds the resumes.
 :class:`ServingReplicaProc` runs one serving replica (engine and
 frontend over a shared broker, the :class:`Duck` model) in its own
-process, the unit the replica-kill seam strikes. The JAX package's
-backend supervisor and CPU fallback are not here: the port has no CPU
-failover (ROADMAP A10 ports the supervisor).
+process, the unit the replica-kill seam strikes.
+
+:class:`BackendSupervisor` is JAX's health state machine (ok -> suspect
+-> wedged -> recovering -> ok) over ``common/profiling.backend_state``'s
+``torch.cuda`` probe, with the ``zoo_backend_state`` gauge, the
+``zoo_backend_failovers_total`` counter and one flight-recorder dump an
+episode (trigger ``backend-wedged-<episode>``). It only reports: the port
+has no CPU failover, so nothing reroutes when it reads wedged
+(``ZOO_CPU_FALLBACK=1`` still makes ``ClusterServing`` raise).
 """
 
 from __future__ import annotations
@@ -34,14 +40,16 @@ import sys
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 __all__ = ["InjectedFault", "FaultInjector", "get_injector", "install_plan",
            "maybe_fault", "fault_scope", "fault_drill", "Duck",
            "ServingReplicaProc", "maybe_kill_replica", "is_backend_loss",
-           "fit_max_resumes", "note_backend_loss", "reset_for_tests"]
+           "fit_max_resumes", "note_backend_loss", "reset_for_tests",
+           "fault_plan_active",
+           "BackendSupervisor", "get_supervisor", "supervisor_snapshot"]
 
 logger = logging.getLogger(__name__)
 
@@ -154,6 +162,10 @@ def install_plan(plan: Optional[str]) -> Optional[FaultInjector]:
         _INJECTOR = FaultInjector(plan) if plan else None
         _INJ_LOADED = True
     return _INJECTOR
+
+
+def fault_plan_active() -> bool:
+    return get_injector() is not None
 
 
 def _suppressed(site: str) -> bool:
@@ -340,16 +352,227 @@ def fit_max_resumes(default: int) -> int:
         return int(default)
 
 
+# ------------------------------------------------------------ supervisor
+
+class BackendSupervisor:
+    """Health state machine over the backend probe (JAX's, letter for
+    letter but for the probe).
+
+    ``ok -> suspect`` on the first failed probe (or external failure
+    evidence via :meth:`report_failure`); ``suspect -> wedged`` on the
+    confirming failure; ``wedged -> recovering`` on the first healthy
+    probe; ``recovering -> ok`` after ``recover_probes`` consecutive
+    healthy probes (``recovering -> wedged`` again on a relapse, same
+    episode, no second dump). While unhealthy the re-probe interval backs
+    off exponentially from ``interval_s`` to ``backoff_max_s``.
+
+    Every transition into ``wedged`` bumps ``zoo_backend_failovers_total``
+    (JAX's name; here no failover follows) and writes one flight-recorder
+    postmortem through the ``dump_once`` latch (trigger
+    ``backend-wedged-<episode>``); the current state rides the
+    ``zoo_backend_state`` gauge as a numeric code. The default probe is
+    ``profiling.backend_state`` (``torch.cuda``, joined with a timeout).
+    """
+
+    OK, SUSPECT, WEDGED, RECOVERING = "ok", "suspect", "wedged", "recovering"
+    #: gauge encoding: dashboards alert on ``zoo_backend_state >= 2``
+    STATE_CODES = {OK: 0, SUSPECT: 1, WEDGED: 2, RECOVERING: 3}
+
+    def __init__(self, probe: Optional[Callable[[], dict]] = None,
+                 interval_s: float = 0.2, backoff_max_s: float = 2.0,
+                 probe_timeout_s: float = 2.0, recover_probes: int = 2,
+                 registry=None):
+        from analytics_zoo_tpu_torch.common import telemetry
+        self._probe = probe or (lambda: _default_probe(probe_timeout_s))
+        self.interval_s = float(interval_s)
+        self.backoff_max_s = float(backoff_max_s)
+        self.recover_probes = max(1, int(recover_probes))
+        self._lock = threading.Lock()
+        self.state = self.OK
+        self.episodes = 0            # transitions into wedged
+        self.last_probe: dict = {}
+        self._ok_streak = 0
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        reg = registry if registry is not None else telemetry.get_registry()
+        self._g_state = reg.gauge(
+            "zoo_backend_state",
+            "Backend supervisor state: 0 ok, 1 suspect, 2 wedged, "
+            "3 recovering")
+        self._c_failovers = reg.counter(
+            "zoo_backend_failovers_total",
+            "Supervisor transitions into the wedged state")
+        self._g_state.set(0)
+
+    def probe_once(self) -> dict:
+        """One supervised probe: run it, feed the state machine, return
+        the raw probe dict."""
+        try:
+            st = self._probe()
+        except Exception as e:   # a probe that raises is failure evidence
+            st = {"status": "error", "error": repr(e)[:200]}
+        self._observe(st)
+        return st
+
+    def report_failure(self, err: Any = None) -> None:
+        """External failure evidence (a dispatch died with backend loss):
+        advances the machine one failure step and wakes the re-probe loop
+        so confirmation does not wait out a full healthy interval."""
+        self._observe({"status": "error",
+                       "error": repr(err)[:200] if err else "reported"})
+        self._wake.set()
+
+    def force_wedged(self, reason: str = "") -> None:
+        """Drive straight to wedged (evidence already conclusive)."""
+        self._observe({"status": "error", "error": reason or "forced"})
+        self._observe({"status": "wedged", "error": reason or "forced"})
+
+    def _observe(self, st: dict) -> None:
+        healthy = st.get("status") == "ok"
+        newly_wedged = None
+        with self._lock:
+            self.last_probe = dict(st)
+            prev = self.state
+            if healthy:
+                if prev == self.WEDGED:
+                    self.state, self._ok_streak = self.RECOVERING, 1
+                elif prev == self.RECOVERING:
+                    self._ok_streak += 1
+                    if self._ok_streak >= self.recover_probes:
+                        self.state = self.OK
+                elif prev == self.SUSPECT:
+                    self.state = self.OK
+            else:
+                self._ok_streak = 0
+                if prev == self.OK:
+                    self.state = self.SUSPECT
+                elif prev == self.SUSPECT:
+                    self.state = self.WEDGED
+                    self.episodes += 1
+                    newly_wedged = self.episodes
+                elif prev == self.RECOVERING:
+                    # relapse: same episode, the dump_once latch holds
+                    self.state = self.WEDGED
+            state = self.state
+            episode = self.episodes
+        self._g_state.set(self.STATE_CODES[state])
+        if state != prev:
+            logger.warning("backend supervisor: %s -> %s (%s)",
+                           prev, state, st.get("status"))
+        if newly_wedged is not None:
+            self._c_failovers.inc()
+            self._dump_wedge(episode, st)
+        elif state == self.WEDGED and prev == self.RECOVERING:
+            self._dump_wedge(episode, st)   # latched: no second artifact
+
+    def _dump_wedge(self, episode: int, st: dict) -> None:
+        """One postmortem per wedge episode, through the dump_once latch
+        so a SIGTERM arriving later cannot double-write this trigger."""
+        from analytics_zoo_tpu_torch.common import profiling
+        fr = profiling.get_flight_recorder()
+        fr.note(f"backend wedged (episode {episode}): "
+                f"{st.get('status')} {st.get('error', '')}".strip())
+        path = fr.dump_once(trigger=f"backend-wedged-{episode}",
+                            reason="backend-wedged")
+        if path:
+            logger.warning("wedge postmortem: %s", path)
+
+    def ensure_started(self) -> "BackendSupervisor":
+        """Idempotently start (or restart after ``stop``) the re-probe
+        daemon."""
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return self
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="zoo-backend-supervisor")
+            self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        delay = self.interval_s
+        while not self._stop.is_set():
+            woken = self._wake.wait(delay)
+            if self._stop.is_set():
+                return
+            self._wake.clear()
+            self.probe_once()
+            with self._lock:
+                unhealthy = self.state != self.OK
+            # exponential-backoff re-probe while unhealthy; a wake (new
+            # failure evidence) resets to the fast cadence
+            delay = self.interval_s if (not unhealthy or woken) else \
+                min(delay * 2.0, self.backoff_max_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5)
+        with self._lock:
+            self._thread = None
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"state": self.state, "episodes": self.episodes,
+                    "last_probe": dict(self.last_probe)}
+
+
+def _default_probe(timeout_s: float) -> dict:
+    from analytics_zoo_tpu_torch.common import profiling
+    return profiling.backend_state(timeout_s=timeout_s)
+
+
+_SUP_LOCK = threading.Lock()
+_SUPERVISOR: Optional[BackendSupervisor] = None
+
+
+def get_supervisor(**kwargs) -> BackendSupervisor:
+    """Process-wide supervisor (created on first call; ``kwargs`` only
+    apply to that creation)."""
+    global _SUPERVISOR
+    with _SUP_LOCK:
+        if _SUPERVISOR is None:
+            _SUPERVISOR = BackendSupervisor(**kwargs)
+        return _SUPERVISOR
+
+
+def supervisor_snapshot() -> Optional[dict]:
+    """The singleton's state for health endpoints; None when no
+    supervisor was ever started."""
+    with _SUP_LOCK:
+        sup = _SUPERVISOR
+    return None if sup is None else sup.snapshot()
+
+
 def note_backend_loss(err: BaseException) -> None:
-    """Record failure evidence from fit's auto-resume boundary: a lost
-    device is logged (the port has no supervisor to tell)."""
-    if is_backend_loss(err):
-        logger.warning("backend loss during fit: %s", err)
+    """Feed failure evidence to the supervisor if one is running (fit's
+    auto-resume boundary and the serving engine report here without
+    creating one); a lost device is logged either way."""
+    if not is_backend_loss(err):
+        return
+    logger.warning("backend loss: %s", err)
+    with _SUP_LOCK:
+        sup = _SUPERVISOR
+    if sup is not None:
+        sup.report_failure(err)
+
+
+def _drop_supervisor() -> None:
+    global _SUPERVISOR
+    with _SUP_LOCK:
+        sup, _SUPERVISOR = _SUPERVISOR, None
+    if sup is not None:
+        sup.stop()
 
 
 def reset_for_tests() -> None:
-    """Drop the injector so ``ZOO_FAULT_PLAN`` is read again on next use."""
+    """Drop the injector so ``ZOO_FAULT_PLAN`` is read again on next use,
+    and stop the supervisor."""
     global _INJECTOR, _INJ_LOADED
     with _INJ_LOCK:
         _INJECTOR = None
         _INJ_LOADED = False
+    _drop_supervisor()

@@ -1,8 +1,6 @@
 """Telemetry — the process-wide metrics registry and span tracing.
 
-The port's own copy of ``analytics_zoo_tpu/common/telemetry.py``, without
-its XLA hooks (``instrument_jit``, ``traced_device_put`` / ``get``,
-``timed_block_until_ready``: their torch counterparts are ROADMAP A10's):
+The port's own copy of ``analytics_zoo_tpu/common/telemetry.py``:
 
 - **MetricsRegistry** — thread-safe counters, gauges and histograms
   (fixed Prometheus buckets + a bounded quantile reservoir), the
@@ -14,6 +12,14 @@ its XLA hooks (``instrument_jit``, ``traced_device_put`` / ``get``,
   id: the engine's dequeue/preprocess/dispatch/device/postprocess stages
   record spans against it.
 - ``observe_device_block`` — the host time blocked on device results.
+- the four device hooks, JAX's counters and labels: ``instrument_jit``
+  (calls and "recompiles": a call whose signature (tree structure,
+  shapes, dtypes, devices, the values of plain Python arguments) the
+  wrapper has not seen, which is what a ``jax.jit`` cache miss is),
+  ``traced_device_put`` / ``traced_device_get`` (``.to(device)`` /
+  ``.cpu()`` over a tree, with the bytes moved) and
+  ``timed_block_until_ready`` (``torch.cuda.synchronize`` on the
+  tensors' devices, timed).
 - ``dump_trace`` — the span store as Chrome Trace Event JSON
   (common/profiling.py).
 
@@ -37,7 +43,8 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "Span", "Tracer",
     "get_registry", "get_tracer", "prometheus_text", "snapshot",
     "observe_device_block", "set_trace_sampling", "dump_trace",
-    "reset_for_tests",
+    "reset_for_tests", "instrument_jit", "traced_device_put",
+    "traced_device_get", "timed_block_until_ready",
 ]
 
 # latency-shaped default buckets (seconds): 100µs .. 30s
@@ -791,7 +798,7 @@ def reset_for_tests():
         _TRACER._hooks = []
     _TRACER.set_sampling(
         float(os.environ.get("ZOO_TELEMETRY_SAMPLE", "1.0")))
-    for name in ("profiling", "slo", "timeseries"):
+    for name in ("profiling", "slo", "timeseries", "resilience"):
         mod = sys.modules.get(f"analytics_zoo_tpu_torch.common.{name}")
         if mod is not None:
             mod.reset_for_tests()
@@ -806,3 +813,165 @@ def observe_device_block(seconds: float, site: str = ""):
         "zoo_device_block_seconds",
         "Host time blocked in fetch/block_until_ready, by call site",
         ("site",)).labels(site).observe(seconds)
+
+
+# ------------------------------------------------------------ device hooks
+
+def _flatten(tree, leaves: list) -> Any:
+    """The structure of a tree of lists, tuples and dicts (a hashable
+    value), its leaves appended to ``leaves``."""
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,
+                tuple(_flatten(v, leaves) for v in tree))
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _flatten(tree[k], leaves))
+                              for k in sorted(tree, key=repr)))
+    leaves.append(tree)
+    return "*"
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaf_sig(x) -> Tuple:
+    shape = getattr(x, "shape", None)
+    dtype = getattr(x, "dtype", None)
+    if shape is not None and dtype is not None:
+        return ("arr", tuple(shape), str(dtype),
+                str(getattr(x, "device", "cpu")))
+    if isinstance(x, (int, float, bool, str, bytes, type(None))):
+        return ("py", type(x).__name__, x)
+    return ("other", type(x).__name__)
+
+
+class _InstrumentedJit:
+    """A callable wrapper that counts calls and "cache misses" (JAX's
+    ``_InstrumentedJit`` over an eager function).
+
+    The signature (the tree structure plus shape, dtype and device of
+    every array leaf and the value of every plain Python leaf) keys a
+    local set; a signature never seen before increments
+    ``zoo_jit_cache_misses_total{fn=...}``: where JAX would compile, the
+    counter moves, so a steady loop leaves it flat and a shape that
+    changes every call shows. Signatures are read before the call."""
+
+    def __init__(self, fn, name: str, registry: MetricsRegistry):
+        self._fn = fn
+        self.name = name
+        self._lock = threading.Lock()
+        self._signatures: set = set()
+        self._calls = registry.counter(
+            "zoo_jit_calls_total", "Calls into instrumented jitted "
+            "functions", ("fn",)).labels(name)
+        self._misses = registry.counter(
+            "zoo_jit_cache_misses_total", "JIT cache misses (compiles + "
+            "recompiles) per avals signature", ("fn",)).labels(name)
+
+    def signature(self, args, kwargs) -> Tuple:
+        leaves: list = []
+        treedef = _flatten((args, kwargs), leaves)
+        return (treedef, tuple(_leaf_sig(leaf) for leaf in leaves))
+
+    @property
+    def cache_misses(self) -> int:
+        return int(self._misses.value)
+
+    def __call__(self, *args, **kwargs):
+        sig = self.signature(args, kwargs)
+        with self._lock:
+            new = sig not in self._signatures
+            if new:
+                self._signatures.add(sig)
+        self._calls.inc()
+        if new:
+            self._misses.inc()
+        return self._fn(*args, **kwargs)
+
+
+def instrument_jit(fn=None, *, name: Optional[str] = None,
+                   registry: Optional[MetricsRegistry] = None):
+    """JAX's recompile accounting around an eager function. Usable bare
+    (``instrument_jit(f)``) or parameterized
+    (``instrument_jit(name="train_step")(f)``)."""
+    def wrap(f):
+        return _InstrumentedJit(
+            f, name or getattr(f, "__name__", "jit_fn"),
+            registry if registry is not None else get_registry())
+
+    return wrap(fn) if fn is not None else wrap
+
+
+def _nbytes(leaf) -> int:
+    if hasattr(leaf, "element_size"):          # a torch tensor
+        return int(leaf.numel() * leaf.element_size())
+    return int(getattr(leaf, "nbytes", 0))
+
+
+def _tree_nbytes(tree) -> int:
+    leaves: list = []
+    _flatten(tree, leaves)
+    return sum(_nbytes(leaf) for leaf in leaves)
+
+
+def _transfer_counter(direction: str):
+    return get_registry().counter(
+        "zoo_device_transfer_bytes_total",
+        "Bytes explicitly moved across the host-device boundary",
+        ("direction",)).labels(direction)
+
+
+def _transfer_gauge(direction: str):
+    return get_registry().gauge(
+        "zoo_device_last_transfer_bytes",
+        "Size of the most recent explicit host-device transfer",
+        ("direction",)).labels(direction)
+
+
+def traced_device_put(x, device=None):
+    """Every array leaf of ``x`` (torch tensors, numpy arrays) as a tensor
+    on ``device`` (``.to(device)``), with h2d byte accounting."""
+    import numpy as np
+    import torch
+
+    def put(leaf):
+        if isinstance(leaf, np.ndarray):
+            leaf = torch.from_numpy(np.ascontiguousarray(leaf))
+        return leaf.to(device) if isinstance(leaf, torch.Tensor) else leaf
+
+    n = _tree_nbytes(x)
+    _transfer_counter("h2d").inc(n)
+    _transfer_gauge("h2d").set(n)
+    return _map_tree(put, x)
+
+
+def traced_device_get(x):
+    """Every tensor leaf of ``x`` on the host (``.cpu()``), with d2h byte
+    accounting counted from what was fetched."""
+    import torch
+    out = _map_tree(lambda leaf: leaf.cpu() if isinstance(
+        leaf, torch.Tensor) else leaf, x)
+    n = _tree_nbytes(out)
+    _transfer_counter("d2h").inc(n)
+    _transfer_gauge("d2h").set(n)
+    return out
+
+
+def timed_block_until_ready(x, site: str = ""):
+    """Wait for the work behind ``x`` (``torch.cuda.synchronize`` on each
+    CUDA device its tensors are on) and record the blocked time under
+    ``site``; returns ``x``."""
+    import torch
+    leaves: list = []
+    _flatten(x, leaves)
+    devices = {leaf.device for leaf in leaves
+               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+    t0 = perf_counter()
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    observe_device_block(perf_counter() - t0, site)
+    return x

@@ -27,7 +27,15 @@
   names, ``in`` and ``if`` included.
 
 - MTNet's attention weights (``W1``, ``b2``, ``W2``, ``W3``, ``b3``,
-  ``V``: flax ``self.param``s, not Denses) keep their names and shapes.
+  ``V``: flax ``self.param``s, not Denses) keep their names and shapes,
+  as do the keras layers' own ``self.param``s named ``weight``,
+  ``alpha``, ``t_left``, ``a_left``, ``t_right`` and ``a_right``
+  (``CMul``, ``Scale``, ``Mul``, ``PReLU``, ``SReLU``).
+- a module with a ``flax_tree_leaves()`` method names its own leaves
+  (``{flax leaf: (torch leaf, flax shape)}``): SSD's ``L2Norm``
+  (``scale`` as ``weight``), the locally connected layers (a kernel of
+  their own shape, held as the rules above flatten it) and the others
+  whose parameters are flax ``self.param``s.
 - a population's stacked members (``automl.population``): each leaf has
   the members on a leading axis, which ``lead=1`` passes over; one
   member's tree is ``member_tree`` of the stacked tree.
@@ -67,8 +75,10 @@ from torch import nn
 #: flax leaf name -> torch leaf name
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
            "embedding": "embedding", "mean": "mean", "var": "var"}
-#: flax leaves held as they are (MTNet's attention GRU)
-_RAW = frozenset(("W1", "b2", "W2", "W3", "b3", "V"))
+#: flax leaves held as they are (MTNet's attention GRU; the keras
+#: ``CMul`` / ``Scale`` / ``Mul`` weights, ``PReLU``'s and ``SReLU``'s)
+_RAW = frozenset(("W1", "b2", "W2", "W3", "b3", "V", "weight", "alpha",
+                  "t_left", "a_left", "t_right", "a_right"))
 
 
 def _linear_weight(kernel: np.ndarray, bias, lead: int = 0) -> np.ndarray:
@@ -139,6 +149,8 @@ def flax_leaves(module: nn.Module, params: Mapping[str, torch.Tensor]
                  ) -> Optional[Dict[str, tuple]]:
     """``{flax leaf: (torch leaf, flax shape)}`` of the parameters a
     module owns directly, or None when it follows no flax rule."""
+    if hasattr(module, "flax_tree_leaves"):
+        return dict(module.flax_tree_leaves())
     if isinstance(module, nn.Linear) or hasattr(module,
                                                 "flax_kernel_shape"):
         out, inp = module.weight.shape

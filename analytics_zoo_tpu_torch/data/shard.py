@@ -16,10 +16,11 @@ pandas DataFrames or any Python objects, held in this process.
   (workers + 2) so a spill store takes transformed shards as they stream
   out; a failing shard raises :class:`ShardTransformError` with its
   index. ``LAST_RUN_STATS[op]`` holds the last run's shard count, workers
-  and in-flight peak. Where the JAX package records telemetry
-  (``zoo_data_transform_seconds``, ``zoo_data_workers_busy``), the port
-  keeps plain counters (ROADMAP A10): ``OP_TOTALS[op] = [calls, seconds]``
-  and ``workers_busy``.
+  and in-flight peak. Every run is observed on the telemetry registry as
+  JAX's is: ``zoo_data_transform_seconds{op}`` (a histogram of a run's
+  wall seconds) and ``zoo_data_workers_busy`` (the shard tasks in
+  flight). ``OP_TOTALS[op]`` (``[calls, seconds]``) and ``workers_busy``
+  are views of them.
 - **The default shard count** is the active context's ``num_devices``
   (one without a context), as in JAX.
 
@@ -37,6 +38,7 @@ handled: a shard is a DataFrame only if pandas is already loaded.
 from __future__ import annotations
 
 import collections
+import collections.abc
 import functools
 import glob
 import os
@@ -99,10 +101,53 @@ _POOL_SIZE = 0
 #: per-op stats of the most recent run; writes hold _STATS_LOCK
 _STATS_LOCK = threading.Lock()
 LAST_RUN_STATS: Dict[str, Dict[str, Any]] = {}
-#: op -> [calls, wall seconds] over every run (JAX's histogram)
-OP_TOTALS: Dict[str, List[float]] = {}
-#: shard tasks in flight on the pool right now (JAX's gauge)
-workers_busy = 0
+
+
+def _data_metrics():
+    from analytics_zoo_tpu_torch.common import telemetry
+    reg = telemetry.get_registry()
+    return (reg.histogram("zoo_data_transform_seconds",
+                          "wall seconds per data-plane op", ("op",)),
+            reg.gauge("zoo_data_workers_busy",
+                      "in-flight shard tasks in the data pool"))
+
+
+class _OpTotals(collections.abc.Mapping):
+    """``OP_TOTALS[op] -> [calls, wall seconds]``: a view of the
+    registry's ``zoo_data_transform_seconds{op}`` series (count and sum);
+    ``pop(op)`` reads one and drops it."""
+
+    def _series(self) -> Dict[str, Any]:
+        hist, _ = _data_metrics()
+        return {c.labelvalues[0]: c for c in hist.children()}
+
+    def __getitem__(self, op: str) -> List[float]:
+        c = self._series()[op]
+        return [c.count, c.sum]
+
+    def __iter__(self):
+        return iter(self._series())
+
+    def __len__(self) -> int:
+        return len(self._series())
+
+    def pop(self, op: str) -> List[float]:
+        hist, _ = _data_metrics()
+        with hist._lock:
+            c = hist._children.pop((op,))
+        return [c.count, c.sum]
+
+
+#: op -> [calls, wall seconds] over every run (a view of the histogram)
+OP_TOTALS = _OpTotals()
+
+
+def __getattr__(name: str):
+    # ``workers_busy``: shard tasks in flight on the pool right now (a
+    # view of the registry's gauge)
+    if name == "workers_busy":
+        return int(_data_metrics()[1].value)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def data_workers() -> int:
@@ -134,16 +179,12 @@ def get_data_pool() -> ThreadPoolExecutor:
 
 
 def record_op(op: str, seconds: float) -> None:
-    """Add one run of ``op`` to ``OP_TOTALS``."""
-    with _STATS_LOCK:
-        tot = OP_TOTALS.setdefault(op, [0, 0.0])
-        tot[0] += 1
-        tot[1] += seconds
+    """Observe one run of ``op`` on ``zoo_data_transform_seconds``."""
+    _data_metrics()[0].labels(op).observe(seconds)
 
 
 def _set_busy(n: int) -> None:
-    global workers_busy
-    workers_busy = n
+    _data_metrics()[1].set(n)
 
 
 class ShardTransformError(RuntimeError):

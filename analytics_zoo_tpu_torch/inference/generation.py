@@ -14,12 +14,14 @@ independent of the rung (keras/layers.py runs the recurrence and
 ``TimeDistributed`` one time step at a time for that reason).
 
 Generated positions count on the registry's ``zoo_decode_steps_total``
-(common/telemetry.py, the JAX package's name); ``trace_ids`` is accepted
-and ignored (decode spans are ROADMAP A10's).
+(common/telemetry.py, the JAX package's name); each step records a
+``decode_step_<t>`` span (parent ``device``) on every id of
+``trace_ids``, as JAX's loop does.
 """
 
 from __future__ import annotations
 
+from time import perf_counter
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -147,7 +149,8 @@ def decode_loop(predict_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
     reference ``infer`` recurrence. ``ladder=None`` runs the exact-length
     unpadded reference (one shape per step). Returns the generated
     ``[batch, max_new_tokens, dim]`` sequence (raw vectors, or one-hot
-    rows for greedy/sample). ``trace_ids`` is ignored (no telemetry)."""
+    rows for greedy/sample). Each step is a ``decode_step_<t>`` span on
+    every id of ``trace_ids``."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     input_seq = np.asarray(input_seq)
@@ -157,10 +160,12 @@ def decode_loop(predict_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
     if steps < 1:
         raise ValueError("max_new_tokens must be >= 1")
     rng = np.random.default_rng(seed) if mode == "sample" else None
+    tracer = telemetry.get_tracer()
 
     cache = BucketedKVCache(batch, dim, ladder, start)
     gen = np.zeros((batch, steps, dim), np.float32)
     for t in range(1, steps + 1):
+        t0 = perf_counter()
         # the buffer holds positions [0, t) — output t-1 is causal in
         # them, so the rung's zero tail cannot change it
         out = np.asarray(predict_fn(input_seq, cache.view()))
@@ -168,4 +173,7 @@ def decode_loop(predict_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
         cache.append(fed)
         gen[:, t - 1, :] = fed
         count_decode_steps(batch)
+        t1 = perf_counter()
+        for uri in trace_ids:
+            tracer.record(uri, f"decode_step_{t}", t0, t1, parent="device")
     return gen

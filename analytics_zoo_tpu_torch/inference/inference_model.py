@@ -40,6 +40,11 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
   path, ``_qtree`` the quantized parameter tree). Re-quantizing keeps
   what was quantized; the warm rungs are dropped (the forward changed).
 
+Each loaded forward runs under ``telemetry.instrument_jit`` (JAX's name
+``inference_model``, the paged seam's ``inference_model_paged``): a new
+batch signature counts in ``zoo_jit_cache_misses_total``, as a JAX
+recompile does; results come back through ``traced_device_get``.
+
 There is no CPU failover: a model on ``cuda`` runs there or raises.
 Sharding waits for a later slice (ROADMAP A9).
 """
@@ -56,7 +61,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common import compile_ahead
+from analytics_zoo_tpu_torch.common import compile_ahead, telemetry
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
 
@@ -102,6 +107,8 @@ class InferenceModel:
         #: mode, the calibrated activation ranges by flax path
         self._qtree = None
         self._act_ranges = None
+        #: name -> (the module, its instrumented forward): ``_counted``
+        self._jitted = {}
 
     # ------------------------------------------------------------- loaders
     def load_zoo(self, model) -> "InferenceModel":
@@ -407,9 +414,20 @@ class InferenceModel:
                 min(bs, ladder.rung_for(valid))
             yield compile_ahead.pad_to_rung(chunk, rung), valid
 
+    def _counted(self, module, name: str = "inference_model"):
+        """``module`` under ``telemetry.instrument_jit``, one wrapper per
+        loaded module (JAX instruments each installed forward anew)."""
+        with self._lock:
+            cur = self._jitted.get(name)
+            if cur is None or cur[0] is not module:
+                cur = self._jitted[name] = (module, telemetry.instrument_jit(
+                    module, name=name))
+        return cur[1]
+
     def _forward(self, module, xs):
         with torch.inference_mode():
-            return module(*(as_tensor(a, self.device) for a in xs))
+            return self._counted(module)(
+                *(as_tensor(a, self.device) for a in xs))
 
     def predict(self, x, batch_size: Optional[int] = None,
                 pipeline_window: int = 2) -> np.ndarray:
@@ -437,10 +455,12 @@ class InferenceModel:
                 inflight.append((self._forward(module, chunk), valid))
                 if len(inflight) >= window:
                     out, v = inflight.popleft()
-                    outs.append(_head(to_numpy(out), v))
+                    outs.append(_head(to_numpy(
+                        telemetry.traced_device_get(out)), v))
             while inflight:
                 out, v = inflight.popleft()
-                outs.append(_head(to_numpy(out), v))
+                outs.append(_head(to_numpy(
+                    telemetry.traced_device_get(out)), v))
         if not outs:
             raise ValueError("predict called on an empty batch")
         if isinstance(outs[0], tuple):
@@ -471,7 +491,7 @@ class InferenceModel:
             if pending.event is not None:
                 pending.event.synchronize()
             pending = pending.out
-        return to_numpy(pending)
+        return to_numpy(telemetry.traced_device_get(pending))
 
     def predict_classes(self, x, batch_size: Optional[int] = None,
                         zero_based_label: bool = True) -> np.ndarray:
@@ -515,12 +535,13 @@ class InferenceModel:
                 paged_gather,
             )
             module, _ = self._decode_module()
+            fwd = self._counted(module, "inference_model_paged")
             with torch.inference_mode():
                 dec = paged_gather(as_tensor(pool, self.device), table,
                                    lengths, scales=as_tensor(scales,
                                                              self.device))
-                out = module(as_tensor(enc, self.device), dec)
-            return to_numpy(out)
+                out = fwd(as_tensor(enc, self.device), dec)
+            return to_numpy(telemetry.traced_device_get(out))
 
         return step
 

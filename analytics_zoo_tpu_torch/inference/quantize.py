@@ -47,8 +47,22 @@ Counterpart of ``analytics_zoo_tpu/inference/quantize.py``:
   the same ``q.float() * scale`` expression the host read path uses, so
   both see identical bits. Storage drops 4x per page against float32.
 
-Calibrated int8 of the recurrent cells (JAX's flax cells are trees of
-Denses) is not ported: a model holding one is refused (ROADMAP A11).
+- **Calibrated int8 of the recurrent cells**: a flax cell is a tree of
+  Denses (GRU's ``ir``/``iz``/``in``, ``hr``/``hz``/``hn``; LSTM's
+  ``ii``..``io``, ``hi``..``ho``; SimpleCell's ``i``, ``h``), and JAX's
+  interceptor gives each Dense its own per-tensor activation scale and
+  per-output-channel weight scales. The port's cells run one product a
+  side over the concatenated Denses; the Denses of a side all read the
+  same input (``x_t`` or the hidden state), so each has the same
+  calibrated amax (recorded per Dense path, every step of every batch),
+  and the side's integer product with the per-row scales of the
+  concatenated kernel is each Dense's, row for row (``Int8Side``). q and
+  the scales are JAX's bits. (JAX's own calibration cannot reach these
+  Denses: its observer reads ``float(max|x|)`` inside ``nn.RNN``'s scan,
+  which raises for GRU and SimpleRNN models, and flax's
+  ``OptimizedLSTMCell`` holds ``DenseParams``, not ``nn.Dense``: ROADMAP
+  C21. The tests hold the port to JAX's interceptor run step by step
+  over the cells.)
 """
 
 from __future__ import annotations
@@ -319,13 +333,26 @@ def _int8_kind(mod: torch.nn.Module) -> Optional[str]:
     return None
 
 
-def _refuse_recurrent(module: torch.nn.Module) -> None:
+def _cells(module: torch.nn.Module):
+    """``(flax path, cell)`` of every recurrent cell in ``module``."""
     from analytics_zoo_tpu_torch.keras.layers import _RNNCell
-    for name, mod in module.named_modules():
-        if isinstance(mod, _RNNCell):
-            raise ValueError(
-                f"calibrated int8 of recurrent cells ({name}) is not "
-                "ported (ROADMAP A11); quantize(mode='weight') covers them")
+    return [(name.replace(".", "/"), mod)
+            for name, mod in module.named_modules()
+            if isinstance(mod, _RNNCell)]
+
+
+def _cell_observer(amax: Dict[str, float], path: str, cell):
+    """Record a step's input and hidden state as each Dense of that side
+    sees it (``<cell>/<dense>``, max|x| per tensor)."""
+    sides = ((cell.INPUT, 0), (cell.RECURRENT, 1))
+
+    def observe(x, h):
+        for gates, i in sides:
+            m = float((x, h)[i].abs().max())
+            for name, _ in gates:
+                key = f"{path}/{name}"
+                amax[key] = max(amax.get(key, 0.0), m)
+    return observe
 
 
 def calibrate_activations(module: torch.nn.Module, forward, batches
@@ -334,8 +361,8 @@ def calibrate_activations(module: torch.nn.Module, forward, batches
     pre-hooks recording each int8-capable module's max|x| (per tensor),
     keyed by its flax path (``a/b/c``). Raises JAX's error when no module
     qualifies (a model of bare ``torch.nn.Linear`` layers, as JAX refuses
-    torch-translated graphs)."""
-    _refuse_recurrent(module)
+    torch-translated graphs). A recurrent cell records each of its
+    Denses' input at every step (``_cell_observer``)."""
     amax: Dict[str, float] = {}
 
     def hook_for(path):
@@ -348,12 +375,17 @@ def calibrate_activations(module: torch.nn.Module, forward, batches
     handles = [mod.register_forward_pre_hook(hook_for(name.replace(".", "/")))
                for name, mod in module.named_modules()
                if name and _int8_kind(mod) is not None]
+    cells = _cells(module)
+    for path, cell in cells:
+        cell.__dict__["_zoo_observe"] = _cell_observer(amax, path, cell)
     try:
         for b in batches:
             forward(b)
     finally:
         for h in handles:
             h.remove()
+        for _, cell in cells:
+            cell.__dict__.pop("_zoo_observe", None)
     if not amax:
         raise ValueError(
             "calibration saw no flax nn.Dense/nn.Conv layers — activation "
@@ -511,23 +543,80 @@ class _Int8:
         return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 
+class Int8Side:
+    """A calibrated cell side's product: the Denses of the side
+    concatenated, ``x`` quantized by their shared ``s_in``, one ``int8 x
+    int8 -> int32`` product, each row rescaled by ``s_in * s_w`` of its
+    Dense's output channel, plus the bias (a Dense without one adds
+    zeros: ``y + 0`` is ``y``); in x's dtype, as JAX's interceptor."""
+
+    def __init__(self, wq: torch.Tensor, ws: torch.Tensor,
+                 s_in: torch.Tensor):
+        self.wq, self.ws, self.s_in = wq, ws, s_in
+        self.s = s_in * ws
+
+    def __call__(self, x, b):
+        a = quantize_activation(x, self.s_in).reshape(-1, x.shape[-1])
+        y = int_mm(a, self.wq.t()).float() * self.s
+        if b is not None:
+            y = y + b
+        return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
+
+
+def _dense_int8(mod: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel ``[out, in]`` and per-output scales of a Dense (or
+    a cell's Linear): the stored ones where its weight was quantized,
+    else JAX's in-trace rule."""
+    if "weight" in mod.__dict__.get("_zoo_q_leaves", ()):
+        return (mod._buffers["weight_q"],
+                mod._buffers["weight_scale"].reshape(-1))
+    return _weight_int8(mod.weight)
+
+
+class _Int8Cell:
+    """Mixin of a calibrated recurrent cell: ``weights()`` gives each
+    side's ``Int8Side`` and its concatenated float bias."""
+
+    def weights(self):
+        return tuple((self.__dict__["_zoo_sides"][i], self._side(gates)[1])
+                     for i, gates in enumerate((self.INPUT,
+                                                self.RECURRENT)))
+
+
+def _int8_cell(path: str, cell, act_amax: Dict[str, float]) -> List[str]:
+    sides = []
+    names = []
+    for gates in (cell.INPUT, cell.RECURRENT):
+        mods = [cell._modules[n] for n, _ in gates]
+        qs = [_dense_int8(m) for m in mods]
+        wq = torch.cat([q for q, _ in qs])
+        ws = torch.cat([w for _, w in qs]).float().contiguous()
+        # the Denses of a side read one input: one amax, one s_in
+        s_in = _act_scale(act_amax[f"{path}/{gates[0][0]}"]).to(wq.device)
+        sides.append(Int8Side(wq, ws, s_in))
+        names += [f"{path}/{n}" for n, _ in gates]
+    cell.__dict__["_zoo_sides"] = tuple(sides)
+    _swap_class(cell, _Int8Cell)
+    return names
+
+
 def int8_modules(module: torch.nn.Module, act_amax: Dict[str, float]
                  ) -> List[str]:
     """Switch each calibrated module (its flax path in ``act_amax``) to
     the int8 forward, with the stored int8 kernel where the weight was
-    quantized, else the kernel quantized once by JAX's in-trace rule.
-    Returns the switched flax paths."""
+    quantized, else the kernel quantized once by JAX's in-trace rule; a
+    calibrated recurrent cell runs its sides' ``Int8Side`` products.
+    Returns the switched flax paths (a cell's by Dense)."""
     done = []
+    for path, cell in _cells(module):
+        if f"{path}/{cell.INPUT[0][0]}" in act_amax:
+            done += _int8_cell(path, cell, act_amax)
     for name, mod in module.named_modules():
         path = name.replace(".", "/")
         kind = _int8_kind(mod)
         if kind is None or path not in act_amax:
             continue
-        if "weight" in mod.__dict__.get("_zoo_q_leaves", ()):
-            wq = mod._buffers["weight_q"]
-            ws = mod._buffers["weight_scale"].reshape(-1)
-        else:
-            wq, ws = _weight_int8(mod.weight)
+        wq, ws = _dense_int8(mod)
         mod.register_buffer("_zoo_wq", wq)
         mod.register_buffer("_zoo_ws", ws.float().contiguous())
         mod.register_buffer("_zoo_s_in",

@@ -29,8 +29,20 @@ cells' own names for the recurrent layers (``GRUCell_0.ir.weight``;
 a ``Bidirectional``'s forward and backward cells ``<name>.GRUCell_0`` and
 ``<name>.GRUCell_1``, as flax names them inside the JAX layer);
 ``SeparableConv2D`` nests ``<name>.depthwise`` and ``<name>.pointwise``
-as flax does. The rest of the layer library (``WithinChannelLRN2D`` and
-the others) waits for later slices (ROADMAP A11).
+as flax does.
+
+The rest of JAX's library: the shape layers (``Reshape``, ``Permute``,
+``ExpandDim``, ``Squeeze``, ``RepeatVector``, ``Select``,
+``SelectTable``, ``GetShape``, ``Masking``, ``Constant``), cropping,
+upsampling and ``ResizeBilinear``, the elementwise and threshold
+layers, the layers with flax ``self.param`` leaves (``CAdd``, ``CMul``,
+``Scale``, ``Mul``, ``PReLU``, ``SReLU``: ``_Params``, convert.py keeps
+their names), the randomized ones (``RReLU``, ``GaussianNoise``,
+``GaussianDropout``, ``GaussianSampler``, ``SpatialDropout1D/2D/3D``:
+their draws from torch's generator, as ``Dropout``'s), the dilated,
+transposed and shared convolutions, ``LocallyConnected1D/2D`` (a kernel
+of their own shape), ``ConvLSTM2D/3D`` (flax's ``ConvLSTMCell_<n>``),
+``WithinChannelLRN2D``, ``Highway``, ``MaxoutDense`` and ``SparseDense``.
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from analytics_zoo_tpu_torch.common.flax_compat import (_tuple,
+from analytics_zoo_tpu_torch.common.flax_compat import (Conv, _tuple,
                                                         canonical_padding)
 from analytics_zoo_tpu_torch.keras.engine import KerasLayer as _KerasLayerBase
 from analytics_zoo_tpu_torch.keras.engine import Node, flax_autoname
@@ -645,7 +657,11 @@ def merge(inputs: List[Node], mode: str = "sum", concat_axis: int = -1
 def _dense(x, w, b, dtype):
     """One side's gates: ``x W^T + b``. Under a compute dtype, flax's
     ``Dense``: the input cast, the product rounded to the dtype, the bias
-    added in it."""
+    added in it. A calibrated int8 cell's side is not a tensor but its
+    integer product (inference/quantize.py ``Int8Side``), called on ``x``
+    and the bias."""
+    if not isinstance(w, torch.Tensor):
+        return w(x, b)
     if dtype is None:
         return F.linear(x, w, b)
     y = F.linear(x.to(dtype), w)
@@ -716,6 +732,10 @@ class _RNNCell(nn.Module):
     def output(self, carry) -> torch.Tensor:
         return carry
 
+    def hidden(self, carry) -> torch.Tensor:
+        """The recurrent Denses' input (the hidden state) in ``carry``."""
+        return carry
+
 
 class GRUCellModule(_RNNCell):
     """flax ``GRUCell``: ``r = σ(ir x + hr h)``, ``z = σ(iz x + hz h)``,
@@ -748,6 +768,9 @@ class OptimizedLSTMCellModule(_RNNCell):
         return zero, zero
 
     def output(self, carry):
+        return carry[1]
+
+    def hidden(self, carry):
         return carry[1]
 
     def step(self, x, carry, w):
@@ -790,8 +813,12 @@ def run_cell(cell: _RNNCell, x: torch.Tensor, reverse: bool = False,
     w = cell.weights()
     carry = cell.init_carry(steps[0])
     want = _dtypes(carry)
+    # int8 calibration (inference/quantize.py) observes each step's inputs
+    observe = cell.__dict__.get("_zoo_observe")
     outs = []
     for x_t in steps:
+        if observe is not None:
+            observe(x_t, cell.hidden(carry))
         carry = cell.step(x_t, carry, w)
         if _dtypes(carry) != want:
             raise TypeError(
@@ -1507,3 +1534,1122 @@ class BERT(KerasLayer):
         mask = args[2] if len(args) > 2 else None
         seq, pooled = modules[self.name](ids, seg, mask, train=train)
         return pooled if self.output == "pooled" else seq
+
+
+# ---------------- shape layers ----------------
+
+class Reshape(KerasLayer):
+    """``[batch, *target_shape]`` (one entry may be -1)."""
+
+    def __init__(self, target_shape, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.target_shape = tuple(target_shape)
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+    def _infer_shape(self, in_shapes):
+        if -1 not in self.target_shape:
+            return self.target_shape
+        s = in_shapes[0]
+        if s is None or None in s:
+            return None
+        known = math.prod(d for d in self.target_shape if d != -1)
+        return tuple(math.prod(s) // known if d == -1 else d
+                     for d in self.target_shape)
+
+
+class Permute(KerasLayer):
+    """``dims`` 1-based over the non-batch dims (keras convention)."""
+
+    def __init__(self, dims, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.dims = tuple(dims)
+
+    def apply(self, modules, args, train):
+        return args[0].permute((0,) + self.dims)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return tuple(s[d - 1] for d in self.dims) if s else None
+
+
+class RepeatVector(KerasLayer):
+    def __init__(self, n: int, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.n = n
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        return x[:, None, :].expand(x.shape[0], self.n, *x.shape[1:]) \
+            .contiguous()
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (self.n,) + tuple(s) if s else None
+
+
+def _batch_axis(s, dim: int, extra: int = 0) -> int:
+    """The position in the shape without the batch of axis ``dim`` of the
+    batched tensor (``dim`` counts the batch, as JAX's layers do)."""
+    return dim - 1 if dim >= 0 else len(s) + extra + dim
+
+
+class Squeeze(KerasLayer):
+    """``dim`` counts the batch dimension, as in JAX."""
+
+    def __init__(self, dim: int, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.dim = dim
+
+    def apply(self, modules, args, train):
+        return args[0].squeeze(self.dim)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        out = list(s)
+        del out[_batch_axis(s, self.dim)]
+        return tuple(out)
+
+
+class ExpandDim(KerasLayer):
+    """``dim`` counts the batch dimension, as in JAX."""
+
+    def __init__(self, dim: int, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.dim = dim
+
+    def apply(self, modules, args, train):
+        return args[0].unsqueeze(self.dim)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        out = list(s)
+        out.insert(_batch_axis(s, self.dim, extra=1), 1)
+        return tuple(out)
+
+
+class Select(KerasLayer):
+    """One index along ``dim`` (ref Select.scala; ``dim`` counts the
+    batch)."""
+
+    def __init__(self, dim: int, index: int, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.dim, self.index = dim, index
+
+    def apply(self, modules, args, train):
+        return args[0].select(self.dim, self.index)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        out = list(s)
+        del out[_batch_axis(s, self.dim)]
+        return tuple(out)
+
+
+class Constant(KerasLayer):
+    """``value`` as a tensor (fp32 for floats, int32 for integers, as JAX
+    makes it), on the device of the layer's input where it has one."""
+
+    def __init__(self, value, name=None):
+        super().__init__(name)
+        self.value = value
+
+    def apply(self, modules, args, train):
+        arr = np.asarray(self.value)
+        if arr.dtype.kind == "f":
+            arr = arr.astype(np.float32)
+        elif arr.dtype.kind in "iu":
+            arr = arr.astype(np.int32)
+        dev = args[0].device if args and isinstance(args[0], torch.Tensor) \
+            else None
+        return torch.as_tensor(arr, device=dev)
+
+
+class Masking(KerasLayer):
+    """Zero every step whose features all equal ``mask_value``."""
+
+    def __init__(self, mask_value: float = 0.0, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.mask_value = mask_value
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        keep = torch.any(x != self.mask_value, dim=-1, keepdim=True)
+        return x * keep.to(x.dtype)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class GetShape(KerasLayer):
+    """The input's shape as an int32 tensor."""
+
+    def apply(self, modules, args, train):
+        return torch.tensor(tuple(args[0].shape), dtype=torch.int32,
+                            device=args[0].device)
+
+
+class SelectTable(KerasLayer):
+    """The ``index``-th input of a multi-input call (ref torch.py
+    SelectTable)."""
+
+    def __init__(self, index: int, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.index = index
+
+    def apply(self, modules, args, train):
+        return args[self.index]
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[self.index]
+
+
+class Max(KerasLayer):
+    """Max over one dim (``dim`` counts the batch; ref torch.py Max)."""
+
+    def __init__(self, dim: int, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.dim = dim
+
+    def apply(self, modules, args, train):
+        return torch.amax(args[0], dim=self.dim)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        out = list(s)
+        del out[_batch_axis(s, self.dim)]
+        return tuple(out)
+
+
+# ---------------- cropping / upsampling / resizing ----------------
+
+def _crop_pair(c):
+    return (c, c) if isinstance(c, int) else tuple(c)
+
+
+class _Crop(KerasLayer):
+    """Crop ``(lo, hi)`` off each spatial dim."""
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        idx = [slice(None)]
+        for ax, (lo, hi) in enumerate(self.cropping, start=1):
+            idx.append(slice(lo, x.shape[ax] - hi))
+        return x[tuple(idx)]
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        sp = tuple(None if n is None else n - lo - hi
+                   for n, (lo, hi) in zip(s, self.cropping))
+        return sp + tuple(s[len(self.cropping):])
+
+
+class Cropping1D(_Crop):
+    def __init__(self, cropping=(1, 1), input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.cropping = (_crop_pair(cropping),)
+
+
+class Cropping2D(_Crop):
+    def __init__(self, cropping=((0, 0), (0, 0)), input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self.cropping = tuple(_crop_pair(c) for c in cropping)
+
+
+class Cropping3D(_Crop):
+    def __init__(self, cropping=((1, 1), (1, 1), (1, 1)), input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self.cropping = tuple(_crop_pair(c) for c in cropping)
+
+
+class _UpSampling(KerasLayer):
+    """Repeat each spatial element ``size[i]`` times along dim ``i``."""
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        for ax, s in enumerate(self.size, start=1):
+            x = torch.repeat_interleave(x, s, dim=ax)
+        return x
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        sp = tuple(None if n is None else n * k
+                   for n, k in zip(s, self.size))
+        return sp + tuple(s[len(self.size):])
+
+
+class UpSampling1D(_UpSampling):
+    def __init__(self, length: int = 2, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.length = length
+        self.size = (int(length),)
+
+
+class UpSampling2D(_UpSampling):
+    def __init__(self, size=(2, 2), input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.size = _tuple(size, 2)
+
+
+class UpSampling3D(_UpSampling):
+    def __init__(self, size=(2, 2, 2), input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.size = _tuple(size, 3)
+
+
+def _lerp_axis(arr: torch.Tensor, axis: int, out_len: int,
+               in_len: int) -> torch.Tensor:
+    """JAX ``ResizeBilinear``'s align-corners interpolation along one
+    axis: ``in = out * (in_len - 1) / (out_len - 1)``."""
+    dev = arr.device
+    if out_len == 1 or in_len == 1:
+        idx = torch.zeros(out_len, dtype=torch.long, device=dev)
+        return torch.index_select(arr, axis, idx)
+    pos = torch.linspace(0.0, in_len - 1.0, out_len, device=dev)
+    lo = torch.floor(pos).long()
+    hi = torch.clamp(lo + 1, max=in_len - 1)
+    w = (pos - lo).to(arr.dtype)
+    shape = [1] * arr.dim()
+    shape[axis] = out_len
+    w = w.reshape(shape)
+    return torch.index_select(arr, axis, lo) * (1 - w) + \
+        torch.index_select(arr, axis, hi) * w
+
+
+class ResizeBilinear(KerasLayer):
+    """(ref convolutional.py ResizeBilinear) ``[b, h, w, c]`` to ``[b,
+    output_height, output_width, c]``. ``align_corners=False`` is
+    ``jax.image.resize``'s half-pixel bilinear, which widens the triangle
+    filter when it shrinks (torch's ``antialias=True``); ``True`` maps the
+    corner pixels onto the corners."""
+
+    def __init__(self, output_height: int, output_width: int,
+                 align_corners: bool = False, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.oh, self.ow = output_height, output_width
+        self.align_corners = align_corners
+
+    def apply(self, modules, args, train):
+        from analytics_zoo_tpu_torch.common import flax_compat as fc
+        x = args[0]
+        if not self.align_corners:
+            y = F.interpolate(fc.channels_first(x), size=(self.oh, self.ow),
+                              mode="bilinear", align_corners=False,
+                              antialias=True)
+            return fc.channels_last(y)
+        ih, iw = x.shape[1], x.shape[2]
+        return _lerp_axis(_lerp_axis(x, 1, self.oh, ih), 2, self.ow, iw)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (self.oh, self.ow, s[-1]) if s else None
+
+
+# ---------------- elementwise math (ref keras/layers/torch.py) ----------
+
+class _Elementwise(KerasLayer):
+    """Parameter-free elementwise layer; subclasses set ``fn``."""
+
+    def apply(self, modules, args, train):
+        return self.fn(args[0])
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class Identity(_Elementwise):
+    fn = staticmethod(lambda x: x)
+
+
+class Exp(_Elementwise):
+    fn = staticmethod(torch.exp)
+
+
+class Log(_Elementwise):
+    fn = staticmethod(torch.log)
+
+
+class Sqrt(_Elementwise):
+    fn = staticmethod(torch.sqrt)
+
+
+class Square(_Elementwise):
+    fn = staticmethod(torch.square)
+
+
+class Negative(_Elementwise):
+    fn = staticmethod(torch.negative)
+
+
+class AddConstant(_Elementwise):
+    def __init__(self, constant_scalar: float, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: x + constant_scalar
+
+
+class MulConstant(_Elementwise):
+    def __init__(self, constant_scalar: float, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: x * constant_scalar
+
+
+class Power(_Elementwise):
+    """``(shift + scale * x) ** power`` (ref torch.py Power)."""
+
+    def __init__(self, power: float, scale: float = 1.0, shift: float = 0.0,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.pow(shift + scale * x, power)
+
+
+class HardTanh(_Elementwise):
+    def __init__(self, min_value: float = -1.0, max_value: float = 1.0,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.clamp(x, min_value, max_value)
+
+
+class HardShrink(_Elementwise):
+    def __init__(self, value: float = 0.5, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.where(x.abs() > value, x, 0.0)
+
+
+class SoftShrink(_Elementwise):
+    def __init__(self, value: float = 0.5, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.where(
+            x > value, x - value, torch.where(x < -value, x + value, 0.0))
+
+
+class Threshold(_Elementwise):
+    """``x`` where ``x > th``, else ``v``."""
+
+    def __init__(self, th: float = 1e-6, v: float = 0.0, input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.where(x > th, x, float(v))
+
+
+class BinaryThreshold(_Elementwise):
+    def __init__(self, value: float = 1e-6, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: (x > value).to(torch.float32)
+
+
+class LeakyReLU(_Elementwise):
+    def __init__(self, alpha: float = 0.3, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.where(x >= 0, x, alpha * x)
+
+
+class ELU(_Elementwise):
+    def __init__(self, alpha: float = 1.0, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.where(x >= 0, x,
+                                        alpha * (torch.exp(x) - 1.0))
+
+
+class ThresholdedReLU(_Elementwise):
+    def __init__(self, theta: float = 1.0, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.fn = lambda x: torch.where(x > theta, x, 0.0)
+
+
+# ---------------- layers holding flax self.params ----------------
+
+class _Params(nn.Module):
+    """A module whose parameters are flax ``self.param`` leaves of a
+    module named after the layer: ``leaves`` maps each flax leaf to its
+    torch name and flax shape (``convert.flax_leaves``). A ``bias`` is
+    held flattened, other leaves in their flax shape (convert.py's
+    rules). ``fn(mod, x)`` computes the layer."""
+
+    def __init__(self, fn, leaves: Dict[str, Tuple[str, tuple]],
+                 init: Dict[str, Callable], generator: torch.Generator):
+        super().__init__()
+        self.fn = fn
+        self._leaves = dict(leaves)
+        for fname, (tname, shape) in leaves.items():
+            held = (math.prod(shape),) if fname == "bias" else tuple(shape)
+            t = torch.empty(held)
+            with torch.no_grad():
+                init[fname](t, generator)
+            self.register_parameter(tname, nn.Parameter(t))
+
+    def flax_tree_leaves(self):
+        return dict(self._leaves)
+
+    def leaf(self, fname: str) -> torch.Tensor:
+        tname, shape = self._leaves[fname]
+        return getattr(self, tname).reshape(shape)
+
+    def forward(self, x):
+        return self.fn(self, x)
+
+
+def _fill(value):
+    return lambda t, g: t.fill_(value)
+
+
+class _ParamLayer(KerasLayer):
+    """Shape-preserving layer whose work is one ``_Params`` module;
+    subclasses give ``leaves(c)`` (c: the input's last width),
+    ``init_fns()`` and the static ``compute(mod, x)``."""
+
+    def make_modules(self, in_shapes, generator):
+        s = in_shapes[0]
+        c = None if not s else s[-1]
+        return {self.name: _Params(type(self).compute, self.leaves(c),
+                                   self.init_fns(), generator)}
+
+    def apply(self, modules, args, train):
+        return modules[self.name](args[0])
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class CAdd(_ParamLayer):
+    """Learnable broadcast bias of shape ``size`` (batch excluded)."""
+
+    def __init__(self, size, init="zero", input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.size = tuple(size)
+        self.init = get_init(init)
+
+    def leaves(self, c):
+        return {"bias": ("bias", self.size)}
+
+    def init_fns(self):
+        return {"bias": self.init}
+
+    @staticmethod
+    def compute(mod, x):
+        return x + mod.leaf("bias")
+
+
+class CMul(_ParamLayer):
+    """Learnable broadcast scale of shape ``size``."""
+
+    def __init__(self, size, init="one", input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.size = tuple(size)
+        self.init = get_init(init)
+
+    def leaves(self, c):
+        return {"weight": ("weight", self.size)}
+
+    def init_fns(self):
+        return {"weight": self.init}
+
+    @staticmethod
+    def compute(mod, x):
+        return x * mod.leaf("weight")
+
+
+class Scale(_ParamLayer):
+    """``weight * x + bias``, both learnable of shape ``size``."""
+
+    def __init__(self, size, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.size = tuple(size)
+
+    def leaves(self, c):
+        return {"weight": ("weight", self.size),
+                "bias": ("bias", self.size)}
+
+    def init_fns(self):
+        return {"weight": _fill(1.0), "bias": _fill(0.0)}
+
+    @staticmethod
+    def compute(mod, x):
+        return x * mod.leaf("weight") + mod.leaf("bias")
+
+
+class Mul(_ParamLayer):
+    """One learnable scalar multiplier."""
+
+    def leaves(self, c):
+        return {"weight": ("weight", ())}
+
+    def init_fns(self):
+        return {"weight": _fill(1.0)}
+
+    @staticmethod
+    def compute(mod, x):
+        return x * mod.leaf("weight")
+
+
+class PReLU(_ParamLayer):
+    """Learnable per-channel slope below 0, from 0.25."""
+
+    def leaves(self, c):
+        return {"alpha": ("alpha", (c,))}
+
+    def init_fns(self):
+        return {"alpha": _fill(0.25)}
+
+    @staticmethod
+    def compute(mod, x):
+        return torch.where(x >= 0, x, mod.leaf("alpha") * x)
+
+
+class SReLU(_ParamLayer):
+    """S-shaped ReLU, four learnable per-channel parameters: ``t_r + a_r
+    (x - t_r)`` above ``t_r``, ``t_l + a_l (x - t_l)`` below ``t_l``,
+    ``x`` between."""
+
+    def leaves(self, c):
+        return {k: (k, (c,)) for k in ("t_left", "a_left", "t_right",
+                                       "a_right")}
+
+    def init_fns(self):
+        return {"t_left": _fill(0.0), "a_left": _fill(0.0),
+                "t_right": _fill(1.0), "a_right": _fill(1.0)}
+
+    @staticmethod
+    def compute(mod, x):
+        t_l, a_l = mod.leaf("t_left"), mod.leaf("a_left")
+        t_r, a_r = mod.leaf("t_right"), mod.leaf("a_right")
+        y = torch.where(x >= t_r, t_r + a_r * (x - t_r), x)
+        return torch.where(x <= t_l, t_l + a_l * (x - t_l), y)
+
+
+# ---------------- randomized layers ----------------
+#
+# Each draws, in training only, from torch's generator on the input's
+# device, as ``Dropout`` does (the estimator seeds it a step); JAX draws
+# from its "dropout" stream, so the two packages' draws differ and the
+# tests hold their statistics and eval-mode outputs.
+
+class RReLU(_Elementwise):
+    """Randomized leaky ReLU: in training the slope below 0 is uniform in
+    ``[lower, upper]``, in eval their mean."""
+
+    def __init__(self, lower: float = 1.0 / 8, upper: float = 1.0 / 3,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.lower, self.upper = lower, upper
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        if train:
+            u = torch.empty_like(x).uniform_(self.lower, self.upper)
+        else:
+            u = (self.lower + self.upper) / 2.0
+        return torch.where(x >= 0, x, u * x)
+
+
+class GaussianNoise(_Elementwise):
+    """Additive N(0, sigma) noise in training."""
+
+    def __init__(self, sigma: float, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.sigma = sigma
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        if not train or self.sigma <= 0:
+            return x
+        return x + self.sigma * torch.randn_like(x)
+
+
+class GaussianDropout(_Elementwise):
+    """Multiplicative N(1, sqrt(p / (1 - p))) noise in training."""
+
+    def __init__(self, p: float, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        if not 0 <= p < 1:
+            raise ValueError("GaussianDropout needs 0 <= p < 1")
+        self.p = p
+        self.std = float(np.sqrt(p / (1.0 - p))) if p > 0 else 0.0
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        if not train or self.std == 0.0:
+            return x
+        return x * (1.0 + self.std * torch.randn_like(x))
+
+
+class _SpatialDropout(_Elementwise):
+    """Drop whole feature maps (channels-last) in training."""
+
+    spatial_dims = 1
+
+    def __init__(self, p: float = 0.5, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.p = p
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        if not train or self.p <= 0:
+            return x
+        shape = (x.shape[0],) + (1,) * self.spatial_dims + (x.shape[-1],)
+        keep = torch.rand(shape, device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+class SpatialDropout1D(_SpatialDropout):
+    spatial_dims = 1
+
+
+class SpatialDropout2D(_SpatialDropout):
+    spatial_dims = 2
+
+
+class SpatialDropout3D(_SpatialDropout):
+    spatial_dims = 3
+
+
+class GaussianSampler(KerasLayer):
+    """On ``[mean, log_var]``: ``mean + exp(log_var / 2) * eps`` in
+    training, ``mean`` in eval (ref torch.py GaussianSampler)."""
+
+    def apply(self, modules, args, train):
+        mean, log_var = args
+        if not train:
+            return mean
+        return mean + torch.exp(log_var / 2.0) * torch.randn_like(mean)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+# ---------------- convolution extensions (ref convolutional.py) --------
+
+class AtrousConvolution1D(Conv1D):
+    """Dilated ``Conv1D`` (``atrous_rate`` its dilation)."""
+
+    def __init__(self, nb_filter: int, filter_length: int,
+                 atrous_rate: int = 1, activation=None, border_mode="valid",
+                 subsample_length: int = 1, init="glorot_uniform",
+                 bias: bool = True, input_shape=None, name=None):
+        super().__init__(nb_filter, filter_length, activation=activation,
+                         border_mode=border_mode,
+                         subsample_length=subsample_length, init=init,
+                         bias=bias, dilation_rate=atrous_rate,
+                         input_shape=input_shape, name=name)
+
+
+class AtrousConvolution2D(_Conv):
+    """Dilated 2-D convolution (ref AtrousConvolution2D); ``border_mode``
+    as ``Conv2D``'s (SSD300's conv6: rate 6, padding 6)."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 atrous_rate=(1, 1), activation=None, border_mode="valid",
+                 subsample=(1, 1), init="glorot_uniform", bias: bool = True,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self._setup(nb_filter, (nb_row, nb_col), _tuple(subsample, 2),
+                    canonical_padding(border_mode, 2),
+                    _tuple(atrous_rate, 2), activation, init, bias)
+
+
+class ShareConvolution2D(Conv2D):
+    """(ref ShareConvolution2D, BigDL's memory-shared variant) the math
+    of ``Conv2D``."""
+
+
+def _conv_transpose_pads(k: int, s: int, padding: str) -> Tuple[int, int]:
+    """``lax.conv_transpose``'s padding of the stride-dilated input."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else int(math.ceil(pad_len / 2))
+    else:
+        pad_len = k + s - 2 + max(k - s, 0)
+        pad_a = k - 1
+    return pad_a, pad_len - pad_a
+
+
+class _Deconv(Conv):
+    """flax ``nn.ConvTranspose`` (``transpose_kernel=False``): the input
+    dilated by the strides (zeros between its elements), padded by
+    ``lax.conv_transpose``'s rule and convolved with the kernel as it is,
+    not flipped. The kernel is flax's ``[*k, in, out]``, held as
+    ``flax_compat.Conv`` holds it."""
+
+    def __init__(self, *args, dilate_by=(1, 1), **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dilate_by = tuple(dilate_by)
+
+    def forward(self, x):
+        b, *sp, c = x.shape
+        if any(s > 1 for s in self.dilate_by):
+            z = x.new_zeros((b,) + tuple((n - 1) * s + 1 for n, s in
+                                         zip(sp, self.dilate_by)) + (c,))
+            z[(slice(None),) + tuple(slice(None, None, s)
+                                     for s in self.dilate_by)] = x
+            x = z
+        return super().forward(x)
+
+
+class Deconvolution2D(KerasLayer):
+    """Transposed 2-D convolution (ref Deconvolution2D), flax
+    ``nn.ConvTranspose``'s arithmetic; ``border_mode`` "valid"/"same"."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 activation=None, border_mode="valid", subsample=(1, 1),
+                 init="glorot_uniform", bias: bool = True, input_shape=None,
+                 name=None):
+        super().__init__(name, input_shape)
+        self.nb_filter, self.kernel = int(nb_filter), (int(nb_row),
+                                                       int(nb_col))
+        self.activation = get_activation(activation)
+        self.padding = border_mode.upper()
+        if self.padding not in ("VALID", "SAME"):
+            raise ValueError(f"unknown border_mode {border_mode!r}")
+        self.strides = _tuple(subsample, 2)
+        self.init = get_init(init)
+        self.bias = bias
+
+    def _pads(self):
+        return tuple(_conv_transpose_pads(k, s, self.padding)
+                     for k, s in zip(self.kernel, self.strides))
+
+    def make_modules(self, in_shapes, generator):
+        s = in_shapes[0]
+        if not s or s[-1] is None:
+            raise ValueError(f"{self.name}: input width unknown")
+        conv = _Deconv(int(s[-1]), self.nb_filter, self.kernel,
+                       bias=self.bias, dtype=self.compute_dtype,
+                       padding=self._pads(), dilate_by=self.strides)
+        area = math.prod(self.kernel)
+        with torch.no_grad():
+            _conv_fill(self.init, conv.weight, area * int(s[-1]),
+                       area * self.nb_filter, generator)
+            if conv.bias is not None:
+                conv.bias.zero_()
+        return {self.name: conv}
+
+    def apply(self, modules, args, train):
+        return self.activation(modules[self.name](args[0]))
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if not s or None in s:
+            return None
+        out = tuple((n - 1) * st + 1 + lo + hi - k + 1 for n, st, k, (lo, hi)
+                    in zip(s[:-1], self.strides, self.kernel, self._pads()))
+        return out + (self.nb_filter,)
+
+
+class _LocalParams(nn.Module):
+    """An unshared-weight kernel of flax shape ``kshape`` and its bias
+    ``bshape``, held as convert.py flattens them (the kernel ``[in, out]``
+    split where the bias's dims start, transposed; the bias flat)."""
+
+    def __init__(self, kshape: tuple, bshape: Optional[tuple],
+                 generator: torch.Generator):
+        super().__init__()
+        self.kshape, self.bshape = tuple(kshape), bshape
+        n_out = len(bshape) if bshape else 1
+        rows = math.prod(kshape[:len(kshape) - n_out])
+        w = torch.empty(math.prod(kshape) // rows, rows)
+        limit = math.sqrt(6.0 / (kshape[-2] + kshape[-1]))
+        with torch.no_grad():
+            w.uniform_(-limit, limit, generator=generator)
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(math.prod(bshape))) \
+            if bshape else None
+
+    def flax_tree_leaves(self):
+        out = {"kernel": ("weight", self.kshape)}
+        if self.bias is not None:
+            out["bias"] = ("bias", self.bshape)
+        return out
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight.t().reshape(self.kshape)
+
+
+class LocallyConnected1D(KerasLayer):
+    """``Conv1D`` with a weight of its own at each output position (ref
+    local.py:26): the patches ``[b, L', k * c]`` times the kernel ``[L',
+    k * c, f]`` (flax tree ``kernel``, ``bias [L', f]``)."""
+
+    def __init__(self, nb_filter: int, filter_length: int, activation=None,
+                 subsample_length: int = 1, bias: bool = True,
+                 W_regularizer=None, b_regularizer=None,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.nb_filter, self.k = int(nb_filter), int(filter_length)
+        self.activation = get_activation(activation)
+        self.stride = int(subsample_length)
+        self.bias = bias
+        self._set_regularizers(W_regularizer, b_regularizer)
+
+    def _out_len(self, L):
+        return (L - self.k) // self.stride + 1
+
+    def make_modules(self, in_shapes, generator):
+        L, c = in_shapes[0]
+        n = self._out_len(L)
+        return {self.name: _LocalParams(
+            (n, self.k * c, self.nb_filter),
+            (n, self.nb_filter) if self.bias else None, generator)}
+
+    def apply(self, modules, args, train):
+        mod = modules[self.name]
+        x = args[0]
+        b, L, c = x.shape
+        n = self._out_len(L)
+        idx = (torch.arange(n, device=x.device)[:, None] * self.stride
+               + torch.arange(self.k, device=x.device)[None, :])
+        patches = x[:, idx, :].reshape(b, n, self.k * c)
+        y = torch.einsum("blk,lkf->blf", patches, mod.kernel())
+        if mod.bias is not None:
+            y = y + mod.bias.view(n, self.nb_filter)
+        return self.activation(y)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (self._out_len(s[0]), self.nb_filter) if s else None
+
+
+class LocallyConnected2D(KerasLayer):
+    """``Conv2D`` with unshared weights (ref local.py:74): kernel ``[oh,
+    ow, kh * kw * c, f]``, bias ``[oh, ow, f]``; a patch's elements in
+    ``(kh, kw, c)`` order, as JAX gathers them."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 activation=None, subsample=(1, 1), bias: bool = True,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.nb_filter = int(nb_filter)
+        self.kernel = (int(nb_row), int(nb_col))
+        self.activation = get_activation(activation)
+        self.strides = _tuple(subsample, 2)
+        self.bias = bias
+
+    def _out(self, H, W):
+        (kh, kw), (sh, sw) = self.kernel, self.strides
+        return (H - kh) // sh + 1, (W - kw) // sw + 1
+
+    def make_modules(self, in_shapes, generator):
+        H, W, c = in_shapes[0]
+        oh, ow = self._out(H, W)
+        kh, kw = self.kernel
+        return {self.name: _LocalParams(
+            (oh, ow, kh * kw * c, self.nb_filter),
+            (oh, ow, self.nb_filter) if self.bias else None, generator)}
+
+    def apply(self, modules, args, train):
+        mod = modules[self.name]
+        x = args[0]
+        b, H, W, c = x.shape
+        (kh, kw), (sh, sw) = self.kernel, self.strides
+        oh, ow = self._out(H, W)
+        # [b, oh, ow, c, kh, kw] -> (kh, kw, c) order
+        p = x.unfold(1, kh, sh).unfold(2, kw, sw)
+        patches = p.permute(0, 1, 2, 4, 5, 3).reshape(b, oh, ow,
+                                                      kh * kw * c)
+        y = torch.einsum("bhwk,hwkf->bhwf", patches, mod.kernel())
+        if mod.bias is not None:
+            y = y + mod.bias.view(oh, ow, self.nb_filter)
+        return self.activation(y)
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if not s or None in s:
+            return None
+        return self._out(s[0], s[1]) + (self.nb_filter,)
+
+
+class _ConvLSTMCell(nn.Module):
+    """flax ``nn.ConvLSTMCell``: ``gates = ih(x) + hh(h)`` (both SAME
+    convolutions with a bias), split ``i, g, f, o``; ``c' = sigmoid(f + 1)
+    * c + sigmoid(i) * tanh(g)``, ``h' = sigmoid(o) * tanh(c')``."""
+
+    def __init__(self, in_features: int, features: int, kernel: tuple,
+                 dtype):
+        super().__init__()
+        self.features = int(features)
+        self.ih = Conv(in_features, 4 * features, kernel, dtype=dtype,
+                       padding="SAME")
+        self.hh = Conv(features, 4 * features, kernel, dtype=dtype,
+                       padding="SAME")
+
+    def forward(self, x, carry):
+        c, h = carry
+        gates = self.ih(x) + self.hh(h)
+        i, g, f, o = torch.split(gates, self.features, dim=-1)
+        f = torch.sigmoid(f + 1)
+        new_c = f * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return new_c, new_h
+
+
+class ConvLSTM2D(KerasLayer):
+    """Convolutional LSTM over ``[b, t, h, w, c]`` (ref
+    convolutional_recurrent.py:26; JAX ``nn.RNN`` over ``nn.ConvLSTMCell``,
+    whose parameters flax names ``ConvLSTMCell_<n>``, as here). A zero
+    carry; ``go_backwards`` runs the steps in reverse and returns the
+    outputs in the order they were computed, as ``nn.RNN(reverse=True)``
+    does."""
+
+    _kdims = 2
+
+    def __init__(self, nb_filter: int, nb_kernel: int,
+                 return_sequences: bool = False, go_backwards: bool = False,
+                 border_mode: str = "same", input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.nb_filter, self.nb_kernel = int(nb_filter), int(nb_kernel)
+        self.return_sequences = return_sequences
+        self.go_backwards = go_backwards
+        if border_mode != "same":
+            raise ValueError("ConvLSTM2D supports border_mode='same' only "
+                             "(matching the reference's implementation)")
+
+    def make_modules(self, in_shapes, generator):
+        s = in_shapes[0]
+        cell = _ConvLSTMCell(int(s[-1]), self.nb_filter,
+                             (self.nb_kernel,) * self._kdims,
+                             self.compute_dtype)
+        _flax_default_fill(cell, generator)
+        self._cell_key = flax_autoname("ConvLSTMCell")
+        return {self._cell_key: cell}
+
+    def apply(self, modules, args, train):
+        (cell,) = modules.values()
+        x = args[0]
+        steps = range(x.shape[1] - 1, -1, -1) if self.go_backwards \
+            else range(x.shape[1])
+        dt = torch.promote_types(x.dtype, cell.ih.weight.dtype)
+        zero = x.new_zeros(x.shape[:1] + x.shape[2:-1] + (self.nb_filter,),
+                           dtype=dt)
+        carry, outs = (zero, zero), []
+        for t in steps:
+            carry = cell(x[:, t], carry)
+            outs.append(carry[1])
+        return torch.stack(outs, 1) if self.return_sequences else outs[-1]
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        if s is None:
+            return None
+        out = tuple(s[1:-1]) + (self.nb_filter,)
+        return (s[0],) + out if self.return_sequences else out
+
+
+class ConvLSTM3D(ConvLSTM2D):
+    """(ref ConvLSTM3D) input ``[b, t, d1, d2, d3, c]``."""
+
+    _kdims = 3
+
+
+class WithinChannelLRN2D(KerasLayer):
+    """Spatial (within-channel) LRN: ``x / (1 + alpha * mean)^beta``, the
+    mean of ``x^2`` over a ``size x size`` SAME window counting the pad's
+    zeros (ref WithinChannelLRN2D; flax ``avg_pool``)."""
+
+    def __init__(self, size: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.size, self.alpha, self.beta = size, alpha, beta
+
+    def apply(self, modules, args, train):
+        x = args[0]
+        mean = pool(torch.square(x), "avg", (self.size, self.size), (1, 1),
+                    "SAME")
+        return x / torch.pow(1.0 + self.alpha * mean, self.beta)
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+# ---------------- dense variants (ref core.py) ----------------
+
+class _Highway(nn.Module):
+    def __init__(self, d: int, bias: bool, dtype, activation):
+        super().__init__()
+        from analytics_zoo_tpu_torch.common import flax_compat
+        self.transform = flax_compat.Dense(d, d, bias=bias, dtype=dtype)
+        self.h = flax_compat.Dense(d, d, bias=bias, dtype=dtype)
+        self.activation = activation
+
+    def forward(self, x):
+        t = torch.sigmoid(self.transform(x))
+        h = self.activation(self.h(x))
+        return t * h + (1.0 - t) * x.to(t.dtype)
+
+
+class Highway(KerasLayer):
+    """``T * H(x) + (1 - T) * x`` with ``T = sigmoid(W_T x)``, ``H =
+    act(W_H x)`` (ref core.py Highway; flax Denses ``transform`` and
+    ``h``)."""
+
+    def __init__(self, activation="tanh", bias: bool = True,
+                 input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.activation = get_activation(activation)
+        self.bias = bias
+
+    def make_modules(self, in_shapes, generator):
+        mod = _Highway(int(in_shapes[0][-1]), self.bias, self.compute_dtype,
+                       self.activation)
+        _flax_default_fill(mod, generator)
+        return {self.name: mod}
+
+    def apply(self, modules, args, train):
+        return modules[self.name](args[0])
+
+    def _infer_shape(self, in_shapes):
+        return in_shapes[0]
+
+
+class _Maxout(nn.Module):
+    def __init__(self, d: int, od: int, k: int, bias: bool, dtype):
+        super().__init__()
+        from analytics_zoo_tpu_torch.common import flax_compat
+        self.Dense_0 = flax_compat.Dense(d, od * k, bias=bias, dtype=dtype)
+        self.od, self.k = od, k
+
+    def forward(self, x):
+        y = self.Dense_0(x)
+        return y.reshape(y.shape[:-1] + (self.k, self.od)).amax(-2)
+
+
+class MaxoutDense(KerasLayer):
+    """A Dense to ``nb_feature`` parallel outputs, then their max (ref
+    core.py MaxoutDense; flax's Dense ``Dense_0``)."""
+
+    def __init__(self, output_dim: int, nb_feature: int = 4,
+                 bias: bool = True, input_shape=None, name=None):
+        super().__init__(name, input_shape)
+        self.output_dim, self.nb_feature = int(output_dim), int(nb_feature)
+        self.bias = bias
+
+    def make_modules(self, in_shapes, generator):
+        mod = _Maxout(int(in_shapes[0][-1]), self.output_dim,
+                      self.nb_feature, self.bias, self.compute_dtype)
+        _flax_default_fill(mod, generator)
+        return {self.name: mod}
+
+    def apply(self, modules, args, train):
+        return modules[self.name](args[0])
+
+    def _infer_shape(self, in_shapes):
+        s = in_shapes[0]
+        return (s[:-1] + (self.output_dim,)) if s else None
+
+
+class SparseDense(Dense):
+    """(ref core.py SparseDense) a sparse input is densified: the math of
+    ``Dense``."""

@@ -104,9 +104,16 @@ the caller passes ``device="cpu"``; without CUDA that raises), eagerly:
 ``Estimator.from_keras`` / ``from_graph`` return a zoo keras model's
 own estimator (its compile settings kept, explicit arguments first).
 
+Every summary window's scalars are mirrored into the telemetry registry
+(``zoo_training_loss``, ``zoo_training_throughput_samples_per_sec``,
+``zoo_training_step_seconds``, ``zoo_training_learning_rate``), the step
+functions run under ``telemetry.instrument_jit`` with JAX's names
+(``estimator_train_step``, ``_train_scan``, ``_epoch_cached``,
+``_predict``) and the cached dataset's copy and the losses' read-backs go
+through ``traced_device_put`` / ``traced_device_get``, as in JAX.
+
 Not ported yet: meshes and strategies other than ``"dp"`` on one device
-(ROADMAP A9); the registry the JAX package mirrors the summaries into
-(ROADMAP A10).
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -125,7 +132,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from analytics_zoo_tpu_torch.common import profiling, resilience
+from analytics_zoo_tpu_torch.common import (profiling, resilience,
+                                           telemetry)
 from analytics_zoo_tpu_torch.common.context import active_context
 from analytics_zoo_tpu_torch.common.device import (RNG_LOCK, DeviceLike,
                                                    as_tensor, resolve_device,
@@ -363,6 +371,30 @@ class TorchEstimator:
         sig = inspect.signature(self.model.forward)
         self._takes_train = "train" in sig.parameters
         self._n_inputs = _n_inputs(self.model, sig)
+        #: JAX's instrumented step functions, built at first use
+        self._jit: Optional[Dict[str, object]] = None
+
+    def _instrumented(self, which: str):
+        """The step functions under ``telemetry.instrument_jit`` with
+        JAX's names (its learn/estimator.py:551-632): a step, a loop of
+        ``steps_per_loop`` steps, a cached epoch and a predict batch each
+        count their calls and new signatures (JAX's recompiles) in
+        ``zoo_jit_calls_total`` / ``zoo_jit_cache_misses_total``. Built
+        once, on the registry current at first use, as JAX builds its
+        jitted steps once: the three training functions together, the
+        predict function at the first predict."""
+        if self._jit is None:
+            self._jit = {
+                "step": telemetry.instrument_jit(
+                    self._step, name="estimator_train_step"),
+                "scan": telemetry.instrument_jit(
+                    self._loop_steps, name="estimator_train_scan"),
+                "cached": telemetry.instrument_jit(
+                    self._run_epoch_cached, name="estimator_epoch_cached")}
+        if which == "predict" and which not in self._jit:
+            self._jit[which] = telemetry.instrument_jit(
+                self._forward, name="estimator_predict")
+        return self._jit[which]
 
     # ------------- gradient clipping (ref spark_estimator.py:150-180) ----
     def set_constant_gradient_clipping(self, min_value: float,
@@ -628,7 +660,7 @@ class TorchEstimator:
         while self._epoch < target:
             try:
                 if cache == "device":
-                    epoch_loss = self._run_epoch_cached(
+                    epoch_loss = self._instrumented("cached")(
                         ds, batch_size, shuffle, train_writer, window, skip)
                 else:
                     epoch_loss = self._run_epoch(
@@ -698,6 +730,35 @@ class TorchEstimator:
         self._py_step += 1
         return loss
 
+    def _mirror_train_scalars(self, writer: SummaryWriter, step: int,
+                              loss: float, throughput: float,
+                              step_seconds: float) -> None:
+        """One window's training scalars go both ways, as JAX's do: the
+        events file (TensorBoard) and the telemetry registry
+        (``zoo_training_loss``, ``..._throughput_samples_per_sec``,
+        ``..._step_seconds``, ``..._learning_rate``)."""
+        reg = telemetry.get_registry()
+        reg.gauge("zoo_training_loss",
+                  "Last flushed training loss").set(loss)
+        reg.gauge("zoo_training_throughput_samples_per_sec",
+                  "Training throughput over the last summary window"
+                  ).set(throughput)
+        reg.histogram("zoo_training_step_seconds",
+                      "Mean per-step wall time per summary window"
+                      ).observe(step_seconds)
+        lr = self._current_lr(step)
+        if lr is not None:
+            writer.add_scalar("LearningRate", lr, step)
+            reg.gauge("zoo_training_learning_rate",
+                      "Learning rate at the last flushed step").set(lr)
+
+    def _loop_steps(self, x, y, k: int, window: Optional[_ProfileWindow]
+                    ) -> List[torch.Tensor]:
+        """The ``k`` steps of one loop of stacked batches (JAX's scan)."""
+        return [self._step(tree_map(lambda a: a[i], x),
+                           tree_map(lambda a: a[i], y), window)
+                for i in range(k)]
+
     def _run_epoch(self, ds: ShardedDataset, batch_size: int, shuffle: bool,
                    summary_interval: int, trigger: Optional[Trigger],
                    writer: SummaryWriter, skip: int = 0,
@@ -715,17 +776,19 @@ class TorchEstimator:
             nonlocal t_window
             if not pending:
                 return
-            vals = torch.stack(pending).double().cpu().tolist()
+            t_fetch = time.perf_counter()
+            vals = telemetry.traced_device_get(
+                torch.stack(pending)).double().tolist()
+            telemetry.observe_device_block(time.perf_counter() - t_fetch,
+                                           "train_flush")
             self.step_losses.extend(vals)
             step = self._py_step
             writer.add_scalar("Loss", vals[-1], step)
             dt = time.perf_counter() - t_window
-            writer.add_scalar("Throughput",
-                              len(pending) * batch_size / max(dt, 1e-9),
-                              step)
-            lr = self._current_lr(step)
-            if lr is not None:
-                writer.add_scalar("LearningRate", lr, step)
+            throughput = len(pending) * batch_size / max(dt, 1e-9)
+            writer.add_scalar("Throughput", throughput, step)
+            self._mirror_train_scalars(writer, step, vals[-1], throughput,
+                                       dt / max(len(pending), 1))
             t_window = time.perf_counter()
             pending.clear()
 
@@ -756,12 +819,9 @@ class TorchEstimator:
             resilience.maybe_fault("step")
             first = self._py_step
             if steps_per_loop > 1:
-                for i in range(k):
-                    pending.append(self._step(
-                        tree_map(lambda a: a[i], x),
-                        tree_map(lambda a: a[i], y), window))
+                pending.extend(self._instrumented("scan")(x, y, k, window))
             else:
-                pending.append(self._step(x, y, window))
+                pending.append(self._instrumented("step")(x, y, window))
             t2 = time.perf_counter()
             device_s = None
             if sampled:
@@ -811,7 +871,10 @@ class TorchEstimator:
         if self._cached is None or self._cached[0] is not ds:
             # a strong reference: an id() could alias a new dataset made
             # at a freed one's address
-            self._cached = (ds, self._tensors(ds.x), self._tensors(ds.y))
+            cpu = torch.device("cpu")
+            self._cached = (ds, *(telemetry.traced_device_put(
+                tree_map(lambda a: as_tensor(a, cpu), t), self.device)
+                for t in (ds.x, ds.y)))
         _, cx, cy = self._cached
         n_steps = ds.n // batch_size
         if n_steps < 1:
@@ -837,17 +900,20 @@ class TorchEstimator:
                 window.on_step(self._py_step)
             prof.observe_step(self._py_step, t0, t1 - t0, t2 - t1, device_s,
                               time.perf_counter() - t3)
-        vals = torch.stack(losses).double().cpu().tolist() if losses else []
+        t_fetch = time.perf_counter()
+        vals = telemetry.traced_device_get(
+            torch.stack(losses)).double().tolist() if losses else []
+        telemetry.observe_device_block(time.perf_counter() - t_fetch,
+                                       "train_epoch_cached")
         dt = time.perf_counter() - t_epoch
         self.step_losses.extend(vals)
         if vals:
             step = self._py_step
+            throughput = len(vals) * batch_size / max(dt, 1e-9)
             writer.add_scalar("Loss", vals[-1], step)
-            writer.add_scalar("Throughput",
-                              len(vals) * batch_size / max(dt, 1e-9), step)
-            lr = self._current_lr(step)
-            if lr is not None:
-                writer.add_scalar("LearningRate", lr, step)
+            writer.add_scalar("Throughput", throughput, step)
+            self._mirror_train_scalars(writer, step, vals[-1], throughput,
+                                       dt / len(vals))
         done = self.step_losses[len(self.step_losses) - n_steps:]
         return float(np.mean(done)) if done else float("nan")
 
@@ -896,8 +962,9 @@ class TorchEstimator:
         with torch.inference_mode():
             for x, _, mask in ds.iter_batches(batch_size,
                                               drop_remainder=False):
-                preds = to_numpy(self._forward(self._tensors(x),
-                                               train=False))
+                preds = to_numpy(telemetry.traced_device_get(
+                    self._instrumented("predict")(self._tensors(x),
+                                                  train=False)))
                 if mask is not None:
                     valid = int(mask.sum())
                     preds = tree_map(lambda a: a[:valid], preds)

@@ -3,7 +3,9 @@ models ported so far."""
 
 from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.common import ZooModel, registry
-from analytics_zoo_tpu_torch.models.image import ImageClassifier
+from analytics_zoo_tpu_torch.models.image import (
+    ImageClassifier, ObjectDetector, SSD300VGG, SSDLite,
+)
 from analytics_zoo_tpu_torch.models.recommendation import (
     ColumnFeatureInfo, NeuralCF, SessionRecommender, WideAndDeep,
 )
@@ -13,4 +15,5 @@ from analytics_zoo_tpu_torch.models.textmatching import KNRM
 
 __all__ = ["ZooModel", "registry", "NeuralCF", "WideAndDeep",
            "ColumnFeatureInfo", "SessionRecommender", "AnomalyDetector",
-           "Seq2Seq", "ImageClassifier", "TextClassifier", "KNRM"]
+           "Seq2Seq", "ImageClassifier", "TextClassifier", "KNRM",
+           "ObjectDetector", "SSDLite", "SSD300VGG"]

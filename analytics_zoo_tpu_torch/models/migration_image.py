@@ -23,8 +23,13 @@ one ``[ch, 1, kh, kw]`` to ``[kh, kw, 1, ch]``), a linear ``[out, in]``
 to ``[in, out]``, the first linear after a flatten with its input
 permuted from torch's CHW order to the HWC order the port flattens in,
 and a BatchNorm's weight and bias to ``scale`` / ``bias`` and its running
-mean and variance into ``batch_stats``. The SSD300 import waits for
-object detection (ROADMAP A11).
+mean and variance into ``batch_stats``.
+
+SSD300-VGG (``import_ssd300_from_torch``) takes ssd.pytorch's public
+layout (``vgg.{i}``, ``L2Norm.weight``, ``extras.{i}``, ``loc.{i}``,
+``conf.{i}``); ``make_torch_ssd300`` is its twin, with ssd.pytorch's
+L2Norm (``x / (sqrt(sum x^2) + 1e-10) * w``; the model adds the 1e-10
+under the root, as JAX's does).
 """
 
 from __future__ import annotations
@@ -72,9 +77,11 @@ def _param_layers(model) -> List:
     (build) order, the order the specs below are written in."""
     from analytics_zoo_tpu_torch.keras.engine import topo_sort
     from analytics_zoo_tpu_torch.keras.layers import (
-        BatchNormalization, Conv2D, Dense, KerasLayerWrapper,
+        AtrousConvolution2D, BatchNormalization, Conv2D, Dense,
+        KerasLayerWrapper,
     )
-    kinds = (Conv2D, Dense, BatchNormalization, KerasLayerWrapper)
+    kinds = (Conv2D, AtrousConvolution2D, Dense, BatchNormalization,
+             KerasLayerWrapper)
     _, outputs = model._graph()
     seen, out = set(), []
     for node in topo_sort(list(outputs)):
@@ -530,3 +537,140 @@ MAKE_TWINS = {
     "densenet-161": lambda n=1000: make_torch_densenet(161, n),
     "mobilenet-v2": make_torch_mobilenet_v2,
 }
+
+
+# ------------------------------------------------------ SSD300-VGG -----
+# state_dict contract = ssd.pytorch's public layout (vgg.{i}.*,
+# L2Norm.weight, extras.{i}.*, loc.{i}.*, conf.{i}.*).
+
+_SSD_VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28,
+                     31, 33)   # convs in the vgg sequential (incl. 6/7)
+
+
+def make_torch_ssd300(class_num: int = 20):
+    """Torch twin of ``SSD300VGG`` with ssd.pytorch's module and key
+    layout; forward takes ``[b, 3, 300, 300]`` and returns ``[b, 8732, 4 +
+    class_num + 1]`` in the zoo model's anchor order (heads permuted to
+    NHWC, then flattened)."""
+    torch, nn = _torch()
+    import torch.nn.functional as F
+
+    class L2Norm(nn.Module):
+        def __init__(self, ch=512, scale=20.0):
+            super().__init__()
+            self.weight = nn.Parameter(torch.full((ch,), float(scale)))
+
+        def forward(self, x):
+            norm = x.pow(2).sum(dim=1, keepdim=True).sqrt() + 1e-10
+            return x / norm * self.weight[None, :, None, None]
+
+    class TorchSSD300(nn.Module):
+        def __init__(self):
+            super().__init__()
+            layers = []
+            in_ch = 3
+            for v in (64, 64, "M", 128, 128, "M", 256, 256, 256, "C",
+                      512, 512, 512, "M", 512, 512, 512):
+                if v == "M":
+                    layers.append(nn.MaxPool2d(2, 2))
+                elif v == "C":
+                    layers.append(nn.MaxPool2d(2, 2, ceil_mode=True))
+                else:
+                    layers += [nn.Conv2d(in_ch, v, 3, padding=1),
+                               nn.ReLU(inplace=True)]
+                    in_ch = v
+            layers += [nn.MaxPool2d(3, 1, 1),
+                       nn.Conv2d(512, 1024, 3, padding=6, dilation=6),
+                       nn.ReLU(inplace=True),
+                       nn.Conv2d(1024, 1024, 1),
+                       nn.ReLU(inplace=True)]
+            self.vgg = nn.ModuleList(layers)
+            self.L2Norm = L2Norm(512, 20)
+            self.extras = nn.ModuleList([
+                nn.Conv2d(1024, 256, 1), nn.Conv2d(256, 512, 3, 2, 1),
+                nn.Conv2d(512, 128, 1), nn.Conv2d(128, 256, 3, 2, 1),
+                nn.Conv2d(256, 128, 1), nn.Conv2d(128, 256, 3),
+                nn.Conv2d(256, 128, 1), nn.Conv2d(128, 256, 3)])
+            mbox = (4, 6, 6, 6, 4, 4)
+            src_ch = (512, 1024, 512, 256, 256, 256)
+            C1 = class_num + 1
+            self.loc = nn.ModuleList([
+                nn.Conv2d(c, a * 4, 3, padding=1)
+                for c, a in zip(src_ch, mbox)])
+            self.conf = nn.ModuleList([
+                nn.Conv2d(c, a * C1, 3, padding=1)
+                for c, a in zip(src_ch, mbox)])
+            self.C1 = C1
+
+        def forward(self, x):
+            sources = []
+            for i in range(23):
+                x = self.vgg[i](x)
+            sources.append(self.L2Norm(x))      # conv4_3
+            for i in range(23, len(self.vgg)):
+                x = self.vgg[i](x)
+            sources.append(x)                   # conv7
+            for i, ext in enumerate(self.extras):
+                x = F.relu(ext(x), inplace=True)
+                if i % 2 == 1:
+                    sources.append(x)
+            outs = []
+            for src, l, c in zip(sources, self.loc, self.conf):
+                loc = l(src).permute(0, 2, 3, 1).reshape(
+                    src.shape[0], -1, 4)
+                conf = c(src).permute(0, 2, 3, 1).reshape(
+                    src.shape[0], -1, self.C1)
+                outs.append(torch.cat([loc, conf], dim=-1))
+            return torch.cat(outs, dim=1)
+
+    return TorchSSD300()
+
+
+def _spec_ssd300():
+    """ssd.pytorch keys in the model's topological (depth-first from the
+    output) order: conv4_3 -> L2Norm -> head 0 before the deeper
+    backbone, and each extras pair right before its head."""
+    spec = [("conv", f"vgg.{i}") for i in _SSD_VGG_CONV_IDX[:10]]
+    spec += [("l2norm", "L2Norm"),
+             ("conv", "loc.0"), ("conv", "conf.0")]
+    spec += [("conv", f"vgg.{i}") for i in _SSD_VGG_CONV_IDX[10:]]
+    spec += [("conv", "loc.1"), ("conv", "conf.1")]
+    for k in range(4):
+        spec += [("conv", f"extras.{2 * k}"),
+                 ("conv", f"extras.{2 * k + 1}"),
+                 ("conv", f"loc.{k + 2}"), ("conv", f"conf.{k + 2}")]
+    return spec
+
+
+def import_ssd300_from_torch(ssd, torch_model_or_state):
+    """Load an ssd.pytorch-format state dict (or module, or ``torch.save``
+    path) into ``SSD300VGG`` (ref ``ObjectDetector.scala`` pretrained
+    VGG-SSD entries)."""
+    if isinstance(torch_model_or_state, str):
+        import torch
+        torch_model_or_state = torch.load(
+            torch_model_or_state, map_location="cpu", weights_only=True)
+    sd = _state_dict(torch_model_or_state)
+    # building the module canonicalizes the layer names: enumerate after
+    ssd.model.module
+    layers = _param_layers(ssd.model)
+    spec = _spec_ssd300()
+    if len(layers) != len(spec):
+        raise RuntimeError(
+            f"SSD300VGG has {len(layers)} parameterized layers but spec "
+            f"lists {len(spec)} — architecture drift")
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for layer, (kind, prefix) in zip(layers, spec):
+        if kind == "l2norm":
+            if type(layer).__name__ != "KerasLayerWrapper":
+                raise RuntimeError(f"expected L2Norm wrapper, got "
+                                   f"{type(layer).__name__}")
+            params[layer.name] = {"scale": _np(sd[f"{prefix}.weight"])}
+        else:
+            if type(layer).__name__ not in ("Conv2D", "AtrousConvolution2D"):
+                raise RuntimeError(
+                    f"spec expects a conv for {prefix}, model has "
+                    f"{type(layer).__name__} ({layer.name})")
+            params[layer.name] = _conv(sd, prefix)
+    assign_layer_params(ssd.model, params)
+    return ssd

@@ -1,6 +1,8 @@
 """Thin observability helpers over the port's telemetry, profiling and
 fleet layers: the counterpart of ``analytics_zoo_tpu/observability.py``,
-trimmed to what the port has (no XLA hooks, no compile-ahead cache).
+trimmed to what the port has (no compile-ahead cache); the device hooks
+(``instrument_jit``, ``traced_device_put`` / ``get``,
+``timed_block_until_ready``) are common/telemetry.py's torch versions.
 
 One import surface for operators and notebooks::
 
@@ -37,14 +39,16 @@ from analytics_zoo_tpu_torch.common.slo import (  # noqa: F401
 from analytics_zoo_tpu_torch.common.slo import \
     get_monitor as get_slo_monitor  # noqa: F401
 from analytics_zoo_tpu_torch.common.telemetry import (  # noqa: F401
-    MetricsRegistry, Span, Tracer, get_registry, get_tracer,
+    MetricsRegistry, Span, Tracer, get_registry, get_tracer, instrument_jit,
     observe_device_block, prometheus_text, set_trace_sampling, snapshot,
+    timed_block_until_ready, traced_device_get, traced_device_put,
 )
 
 __all__ = [
     "scrape", "metrics", "trace", "trace_table", "get_registry",
-    "get_tracer", "set_trace_sampling", "prometheus_text", "snapshot",
-    "observe_device_block", "chrome_trace", "dump_trace", "StepProfiler",
+    "get_tracer", "instrument_jit", "set_trace_sampling",
+    "prometheus_text", "snapshot", "traced_device_put", "traced_device_get",
+    "observe_device_block", "timed_block_until_ready", "chrome_trace", "dump_trace", "StepProfiler",
     "FlightRecorder", "get_flight_recorder", "maybe_arm_from_env",
     "backend_state", "step_flops", "device_peak_flops", "hbm_bytes",
     "merge_snapshot", "fleet_registry", "ReplicaRegistry", "ReplicaInfo",

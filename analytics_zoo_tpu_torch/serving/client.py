@@ -10,7 +10,10 @@ A lane that admission control is shedding raises :class:`ShedError` at
 once, counted on ``zoo_serving_shed_total{stream,priority}``. Raw
 encoded image bytes (``enqueue(uri, image=bytes)`` or ``enqueue_image``)
 ride the record as an image entry, which the engine decodes and
-preprocesses. The reference's Arrow format is ROADMAP A11's.
+preprocesses. ``InputQueue(arrow=True)`` writes the reference client's
+Arrow records instead (pyarrow; they carry no side channel, so no
+deadline or generate options), and ``cipher=`` (``common/encryption.
+make_cipher``) encrypts every record and decrypts every result.
 """
 
 from __future__ import annotations
@@ -34,10 +37,15 @@ __all__ = ["InputQueue", "OutputQueue", "ShedError", "INPUT_STREAM",
 
 class InputQueue:
     def __init__(self, host: str = "127.0.0.1", port: int = 6399,
-                 stream: str = INPUT_STREAM, cipher: schema.Cipher = None):
+                 stream: str = INPUT_STREAM, cipher: schema.Cipher = None,
+                 arrow: bool = False):
+        """``arrow=True`` encodes records in the reference client's Arrow
+        wire format (ref client.py:149 data_to_b64) instead of the native
+        JSON tensors; the engine reads either."""
         self._client = BrokerClient(host, port)
         self.stream = stream
         self.cipher = cipher
+        self.arrow = bool(arrow)
         self._tracer = telemetry.get_tracer()
 
     @staticmethod
@@ -68,8 +76,10 @@ class InputQueue:
                 priority: Optional[str] = None,
                 deadline_ms: Optional[float] = None,
                 generate: Optional[Dict] = None
-                ) -> "tuple[str, str, tuple, str]":
-        """(uri, payload, (t_enqueue, sampled), lane)."""
+                ) -> "tuple[str, str, Optional[tuple], str]":
+        """(uri, payload, (t_enqueue, sampled), lane); the stamp is None
+        for an Arrow record (its format has no side channel, so it takes
+        a lane but no deadline or generate request)."""
         if not inputs:
             raise ValueError("enqueue needs at least one named tensor")
         lane = schema.validate_priority(priority)
@@ -77,6 +87,15 @@ class InputQueue:
             raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         gen = schema.validate_generate(generate)
         uri = schema.validate_uri(uri or uuid.uuid4().hex)
+        if self.arrow:
+            if gen is not None or deadline_ms is not None:
+                raise ValueError(
+                    "generate requests and deadlines need the native "
+                    "record format: the Arrow format carries no side "
+                    "channel")
+            return uri, schema.encode_record_arrow(
+                uri, {k: self._coerce(v) for k, v in inputs.items()},
+                self.cipher), None, lane
         # dual-clock stamp: perf_counter is CLOCK_MONOTONIC on Linux
         # (comparable across processes on one host — the engine checks
         # plausibility before trusting it); t_wall is the cross-host
@@ -125,7 +144,7 @@ class InputQueue:
         except ShedError:
             self._shed_counter(lane).inc()
             raise
-        if trace[1]:
+        if trace is not None and trace[1]:
             self._tracer.record(uri, "client_enqueue", trace[0],
                                 time.perf_counter())
         return uri
@@ -168,7 +187,7 @@ class InputQueue:
             raise
         t1 = time.perf_counter()
         for uri, trace in zip(uris, traces):
-            if trace[1]:
+            if trace is not None and trace[1]:
                 self._tracer.record(uri, "client_enqueue", trace[0], t1)
         return uris
 

@@ -8,9 +8,14 @@ with PyYAML when it is installed, otherwise with a reader of the
 two-level ``section: / key: value`` shape the serving config uses, into
 the same ``ServingConfig``. The ``preprocessing:`` section (a ``preset``
 and ``source``, or ``resize`` / ``crop`` / ``mean`` / ``scale``) builds
-the engine's image chain (``build_image_preprocess``). Encrypted records
-are not served by the port yet (ROADMAP A11): ``record_encrypted: true``
-raises at load.
+the engine's image chain (``build_image_preprocess``).
+``record_encrypted: true`` (the reference's PPML flag) makes
+``build_cipher`` return the AES-GCM cipher pair of
+``common/encryption.make_cipher``, keyed by the secret passed or
+``ZOO_SERVING_SECRET``; ``python -m
+analytics_zoo_tpu_torch.serving.start`` hands it to the engine and the
+frontend. Without the ``cryptography`` package building it raises
+``ImportError`` naming the package.
 """
 
 from __future__ import annotations
@@ -114,12 +119,22 @@ class ServingConfig:
             image_crop=int(pre["crop"]) if pre.get("crop") else None,
             image_mean=mean,
             image_scale=float(pre.get("scale", 1.0) or 1.0))
-        if cfg.record_encrypted:
-            raise ValueError(
-                "record_encrypted: true is not served by the port yet "
-                "(ROADMAP A11): the card's machine has no cryptography "
-                "package")
         return cfg
+
+    def build_cipher(self, secret: Optional[str] = None):
+        """The AES-GCM (encrypt, decrypt) pair for encrypted records, or
+        None when ``record_encrypted`` is off. ``secret`` defaults to
+        ``ZOO_SERVING_SECRET``, which must then be set."""
+        if not self.record_encrypted:
+            return None
+        import os
+
+        from analytics_zoo_tpu_torch.common.encryption import make_cipher
+        secret = secret or os.environ.get("ZOO_SERVING_SECRET")
+        if not secret:
+            raise ValueError("record_encrypted: true needs a secret "
+                             "(ZOO_SERVING_SECRET)")
+        return make_cipher(secret)
 
     def build_image_preprocess(self):
         """The engine's raw-image chain from this config, or None when no

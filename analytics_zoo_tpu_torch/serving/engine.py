@@ -68,9 +68,14 @@ Scheduling and delivery, as in the JAX package:
   record. An undecodable image, or a host without PIL, gives the record
   a typed error result; the loop serves on.
 
-Left out, each raising where a caller asks for it: Arrow records (ROADMAP
-A11; such records get a typed error result); CPU failover
-(``ZOO_CPU_FALLBACK=1``, ROADMAP A10).
+- **Backend loss.** A batch or decode step that fails with a lost
+  device (``resilience.is_backend_loss``) feeds
+  ``resilience.note_backend_loss``: the backend supervisor, where one
+  runs (``start()`` starts it when a fault plan is armed, as JAX's engine
+  does), moves ok -> suspect -> wedged and dumps the flight recorder
+  once an episode. It only reports: the records get error results.
+
+There is no CPU failover: ``ZOO_CPU_FALLBACK=1`` raises at construction.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from analytics_zoo_tpu_torch.common import compile_ahead, fleet, profiling, \
-    slo, telemetry, timeseries
+    resilience, slo, telemetry, timeseries
 from analytics_zoo_tpu_torch.common.pipeline_io import (  # noqa: F401
     Completed,
     DevicePipeline,
@@ -202,7 +207,8 @@ class ClusterServing:
                  draft_model=None, spec_k: int = 4):
         if _cpu_fallback_requested():
             raise ValueError("ZOO_CPU_FALLBACK=1: the port has no CPU "
-                             "failover (ROADMAP A10); unset it")
+                             "failover (its backend supervisor only "
+                             "reports); unset it")
         if int(batch_size) < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.model = model
@@ -315,6 +321,8 @@ class ClusterServing:
         self._started_wall = 0.0
         self._heartbeater: Optional[fleet.Heartbeater] = None
         self._replica_supervisor: Optional[fleet.ReplicaSupervisor] = None
+        #: the backend supervisor this engine started (a fault drill's)
+        self._supervisor: Optional[resilience.BackendSupervisor] = None
 
     def _register_metrics(self, reg, stream: str):
         self._rec_counter = reg.counter(
@@ -566,12 +574,14 @@ class ClusterServing:
                 term_acks.append(ack)
                 continue
             try:
-                kinds = sorted({v.kind for v in inputs.values()
-                                if isinstance(v, schema.UnsupportedInput)})
-                if kinds:
-                    self._error(uri, f"{' and '.join(kinds)} records are "
-                                "not served by the port yet (ROADMAP A11)",
-                                term_cmds)
+                missing = sorted({(v.kind, v.package) for v in
+                                  inputs.values() if isinstance(
+                                      v, schema.UnsupportedInput)})
+                if missing:
+                    self._error(uri, "; ".join(
+                        f"{kind} records need the {pkg} package, which "
+                        "this host lacks" for kind, pkg in missing),
+                        term_cmds)
                     term_acks.append(ack)
                     continue
                 m = self._queue_wait(meta, t_dq1)
@@ -981,6 +991,7 @@ class ClusterServing:
         except Exception as e:
             logger.error("decode step failed for %d sequences: %s",
                          sched.live, e)
+            resilience.note_backend_loss(e)
             infos = [self._gen_live.pop(s) for s in sched.abort_all()
                      if s in self._gen_live]
             cmds, acks = [], []
@@ -1061,9 +1072,11 @@ class ClusterServing:
         retired batch."""
         uris, err_cmds, ack_cmds, n, trace, metas, gen = comp.ctx
         if comp.error is not None:
-            # every record gets an error result and its entry is acked
+            # every record gets an error result and its entry is acked; a
+            # lost device is failure evidence for the supervisor
             logger.error("inference failed for batch of %d: %s",
                          n, comp.error)
+            resilience.note_backend_loss(comp.error)
             err = schema.encode_error(f"inference failed: {comp.error}",
                                       self.cipher)
             client.pipeline(
@@ -1288,6 +1301,14 @@ class ClusterServing:
         # windowed history for /metrics/history, /query and the SLO
         # monitor's burn windows (idempotent; ZOO_TS_TICK_S=0 opts out)
         timeseries.get_store().start()
+        # supervise the backend when a fault drill wants to observe its
+        # verdicts (JAX also does for its CPU failover, which the port
+        # does not have): plain deployments get no extra thread
+        if resilience.fault_plan_active():
+            sup = resilience.get_supervisor()
+            with self._state_lock:
+                self._supervisor = sup
+            sup.ensure_started()
         if self._warmup_enabled:
             self._kick_warmup()
         self._stop.clear()
@@ -1328,6 +1349,12 @@ class ClusterServing:
         hb, self._heartbeater = self._heartbeater, None
         if hb is not None:
             hb.stop()
+        # the supervisor is a process singleton, but the engine is the
+        # process's deployment unit: stop its probe loop with the serving
+        with self._state_lock:
+            sup, self._supervisor = self._supervisor, None
+        if sup is not None:
+            sup.stop()
 
     def decode_state(self) -> Dict:
         """Decode occupancy at a glance (the /healthz ``decode`` block):

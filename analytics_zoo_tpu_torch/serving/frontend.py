@@ -26,7 +26,10 @@ enqueues it and awaits the result). Endpoints:
   (in all and per lane), the group's backlog, the shed lanes, the
   engine's admission state, the fleet (live and stale replicas, pending
   entries per replica, orphans), SLO burn rates, the decode occupancy and
-  the device backend (``profiling.backend_state``). 503 when the broker
+  the device backend (``profiling.backend_state``) and, where one runs,
+  the backend supervisor's block (``backend_supervisor``: state,
+  episodes, last probe; no ``failover`` key, the port has none). 503
+  when the broker
   is unreachable, when the depth passes ``max_backlog``, or when the SLO
   monitor sheds (every window burning past ``ZOO_SLO_SHED_BURN``);
   ``degraded`` when the backend probe reads wedged.
@@ -57,8 +60,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from analytics_zoo_tpu_torch.common import fleet, profiling, slo, \
-    telemetry, timeseries
+from analytics_zoo_tpu_torch.common import fleet, profiling, resilience, \
+    slo, telemetry, timeseries
 from analytics_zoo_tpu_torch.serving import schema
 from analytics_zoo_tpu_torch.serving.broker import BrokerClient, ShedError
 from analytics_zoo_tpu_torch.serving.client import (INPUT_STREAM,
@@ -358,6 +361,11 @@ class _Handler(BaseHTTPRequestHandler):
         # the device backend, from a probe joined with a timeout: a
         # wedged CUDA runtime can never hang /healthz
         out["backend"] = profiling.backend_state(timeout_s=2.0)
+        # the backend supervisor's state where one runs (it only reports:
+        # there is no failover, so no "failover" key)
+        sup = resilience.supervisor_snapshot()
+        if sup is not None:
+            out["backend_supervisor"] = sup
         if engine is not None and hasattr(engine, "decode_state"):
             try:
                 out["decode"] = engine.decode_state()

@@ -16,9 +16,16 @@ expired result, which decodes into :class:`DeadlineExpiredError`.
 
 An image record carries raw encoded image bytes (``{"image": b64}``),
 which decode into :class:`ImageBytes`; the engine decodes the image and
-runs its preprocessing chain. The reference client's Arrow records
-(ROADMAP A11) decode into an :class:`UnsupportedInput` marker, so the
-engine answers them with a typed error result instead of dropping them.
+runs its preprocessing chain.
+
+The reference client's Arrow records (``{"uri", "data": b64(Arrow
+stream)}``: ``encode_record_arrow`` / ``decode_arrow_inputs``, JAX's
+code) decode with ``pyarrow``, imported where a record is read or
+written. On a host without it an Arrow record decodes into an
+:class:`UnsupportedInput` marker naming the package, and the engine
+answers the record with that typed error instead of dropping it.
+Encrypted records (``record_encrypted``) pass the whole body through
+the cipher pair of ``common/encryption.make_cipher``.
 """
 
 from __future__ import annotations
@@ -115,16 +122,18 @@ class ImageBytes:
 
 
 class UnsupportedInput:
-    """An input the port does not decode yet: ``kind`` is ``"arrow"``
-    (the reference client's Arrow record, ROADMAP A11)."""
+    """An input this host cannot decode: ``kind`` is ``"arrow"`` (the
+    reference client's Arrow record) and ``package`` the one it needs and
+    lacks (``"pyarrow"``)."""
 
-    __slots__ = ("kind",)
+    __slots__ = ("kind", "package")
 
-    def __init__(self, kind: str):
+    def __init__(self, kind: str, package: str):
         self.kind = kind
+        self.package = package
 
     def __repr__(self) -> str:
-        return f"UnsupportedInput({self.kind!r})"
+        return f"UnsupportedInput({self.kind!r}, {self.package!r})"
 
 
 def validate_uri(uri: str) -> str:
@@ -181,15 +190,31 @@ def encode_record(uri: str, inputs: Dict[str, np.ndarray],
     return _wrap(obj, cipher)
 
 
+def _has_pyarrow() -> bool:
+    """Whether this host can read an Arrow record (the answer to one
+    that it cannot read is a typed error naming pyarrow)."""
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def decode_record_meta(payload_b64: str, cipher: Cipher = None
                        ) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
     """(uri, inputs, meta): the record's uri, its tensors and its side
     channel (``{}`` when absent). An Arrow record (the reference client's
-    ``{"uri", "data"}``) decodes to ``{"data": UnsupportedInput("arrow")}``
-    and an image entry to :class:`ImageBytes`."""
+    ``{"uri", "data"}``) decodes through ``decode_arrow_inputs``, or to
+    ``{"data": UnsupportedInput("arrow", "pyarrow")}`` on a host without
+    pyarrow; an image entry decodes to :class:`ImageBytes`."""
     obj = _unwrap(payload_b64, cipher)
     if "data" in obj and "inputs" not in obj:
-        return obj["uri"], {"data": UnsupportedInput("arrow")}, {}
+        # reference-client record shape: {"uri", "data": b64(arrow)}
+        # (ref client.py:144-147 enqueue); no side channel
+        if not _has_pyarrow():
+            return obj["uri"], {"data": UnsupportedInput("arrow",
+                                                         "pyarrow")}, {}
+        return obj["uri"], decode_arrow_inputs(obj["data"]), {}
     meta = obj.get("trace")
     return (obj["uri"],
             {k: decode_tensor(v) for k, v in obj["inputs"].items()},
@@ -200,6 +225,108 @@ def decode_record(payload_b64: str, cipher: Cipher = None
                   ) -> Tuple[str, Dict[str, Any]]:
     uri, inputs, _ = decode_record_meta(payload_b64, cipher)
     return uri, inputs
+
+
+# ------------------------- reference Arrow wire encoding ----------------
+# The reference client serializes records as one Arrow RecordBatch stream,
+# b64-wrapped (ref pyzoo/zoo/serving/client.py:149 data_to_b64): a dense
+# tensor is a struct{indiceData:list<i32>, indiceShape:list<i32>,
+# data:list<f32>, shape:list<i32>} column of 4 one-field rows; a string
+# column is either b64 image bytes or '|'-joined string values.
+
+def encode_record_arrow(uri: str, inputs: Dict[str, Any],
+                        cipher: Cipher = None) -> str:
+    import pyarrow as pa
+    fields, arrays = [], []
+    for key, value in inputs.items():
+        if isinstance(value, ImageBytes):
+            fields.append(pa.field(key, pa.string()))
+            arrays.append(pa.array(
+                [base64.b64encode(value.data).decode()]))
+            continue
+        if isinstance(value, (list, tuple)) and value and \
+                isinstance(value[0], str):
+            fields.append(pa.field(key, pa.string()))
+            arrays.append(pa.array(["|".join(value)]))
+            continue
+        arr = np.asarray(value)
+        if arr.dtype.kind in ("U", "S"):      # string tensor -> '|' join
+            fields.append(pa.field(key, pa.string()))
+            arrays.append(pa.array(
+                ["|".join(str(v) for v in arr.ravel())]))
+            continue
+        t = pa.struct([pa.field("indiceData", pa.list_(pa.int32())),
+                       pa.field("indiceShape", pa.list_(pa.int32())),
+                       pa.field("data", pa.list_(pa.float32())),
+                       pa.field("shape", pa.list_(pa.int32()))])
+        arrays.append(pa.array(
+            [{"indiceData": []}, {"indiceShape": []},
+             {"data": arr.astype("float32").ravel()},
+             {"shape": np.asarray(arr.shape)}], type=t))
+        fields.append(pa.field(key, t))
+    # string and image columns are 1 row, tensor struct columns 4 (the
+    # reference's layout): a RecordBatch needs equal column lengths, so
+    # short columns are null-padded; decoders read row 0
+    n_rows = max(len(a) for a in arrays)
+    arrays = [a if len(a) == n_rows else
+              pa.concat_arrays([a, pa.nulls(n_rows - len(a), a.type)])
+              for a in arrays]
+    sink = pa.BufferOutputStream()
+    batch = pa.RecordBatch.from_arrays(arrays, schema=pa.schema(fields))
+    with pa.RecordBatchStreamWriter(sink, batch.schema) as w:
+        w.write_batch(batch)
+    arrow_b64 = base64.b64encode(sink.getvalue().to_pybytes()).decode()
+    return _wrap({"uri": uri, "data": arrow_b64}, cipher)
+
+
+# strong magics only: a '|'-joined string tensor that happens to be valid
+# b64 must not be misread as an image
+_IMAGE_MAGIC = (b"\xff\xd8\xff", b"\x89PNG\r\n\x1a\n",
+                b"GIF87a", b"GIF89a", b"II*\x00", b"MM\x00*")
+
+
+def _looks_like_image(raw: bytes) -> bool:
+    if raw.startswith(_IMAGE_MAGIC):
+        return True
+    return raw[:4] == b"RIFF" and raw[8:12] == b"WEBP"
+
+
+def decode_arrow_inputs(arrow_b64: str) -> Dict[str, Any]:
+    import pyarrow as pa
+    buf = base64.b64decode(arrow_b64)
+    with pa.ipc.open_stream(pa.py_buffer(buf)) as reader:
+        batch = reader.read_next_batch()
+    out: Dict[str, Any] = {}
+    for name, col in zip(batch.schema.names, batch.columns):
+        if pa.types.is_string(col.type):
+            s = col[0].as_py()
+            try:
+                raw = base64.b64decode(s, validate=True)
+            except ValueError:
+                raw = None
+            if raw is not None and _looks_like_image(raw):
+                out[name] = ImageBytes(raw)       # ref encode_image
+            else:
+                out[name] = np.asarray(s.split("|"))
+            continue
+        rows = col.to_pylist()                    # 4 one-field rows
+        merged: Dict[str, Any] = {}
+        for row in rows:
+            for k, v in (row or {}).items():
+                if v not in (None, []):
+                    merged.setdefault(k, v)
+        data = np.asarray(merged.get("data", []), np.float32)
+        shape = [int(v) for v in merged.get("shape", [])]
+        if merged.get("indiceData"):
+            # sparse: indices [nnz, ndim] + values + dense shape
+            idx = np.asarray(merged["indiceData"], np.int64).reshape(
+                [int(v) for v in merged["indiceShape"]])
+            dense = np.zeros(shape, np.float32)
+            dense[tuple(idx.T)] = data
+            out[name] = dense
+        else:
+            out[name] = data.reshape(shape)
+    return out
 
 
 def encode_result(arr: np.ndarray, cipher: Cipher = None) -> str:

@@ -16,7 +16,9 @@ frontend)::
 - runs ``ClusterServing(model, port, batch_size=params: batch_size,
   stream=, result_key=)`` and a ``FrontEnd`` on ``HTTP_PORT`` (default
   8080; 0 picks a free port) bound to ``BIND_HOST`` (default 0.0.0.0),
-  which advertises its port to the engine's fleet heartbeat;
+  which advertises its port to the engine's fleet heartbeat; with
+  ``data: record_encrypted: true`` both take ``cfg.build_cipher()``
+  (keyed by ``ZOO_SERVING_SECRET``);
 - prints ``serving up: broker <host>:<port> http :<port>`` and then
   ``replica <id>``, and stops on SIGTERM or SIGINT (drain, deregister,
   the broker it launched last).
@@ -73,11 +75,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         b_host = "127.0.0.1"
         if not _answers(b_host, b_port):
             broker = Broker.launch(port=b_port, backend=args.broker)
+    cipher = cfg.build_cipher()
     serving = ClusterServing(model, b_port, batch_size=cfg.batch_size,
                              broker_host=b_host, stream=cfg.stream,
                              result_key=cfg.result_key,
-                             image_preprocess=cfg.build_image_preprocess())
+                             image_preprocess=cfg.build_image_preprocess(),
+                             cipher=cipher)
     front = FrontEnd(b_port, engine=serving, broker_host=b_host,
+                     cipher=cipher,
                      host=os.environ.get("BIND_HOST", "0.0.0.0"),
                      port=int(os.environ.get("HTTP_PORT", "8080")))
     serving.start()

@@ -8697,6 +8697,791 @@ def phase_zouwu(torch, np, kind, dev="cuda"):
     return rep
 
 
+# ---------------------------------------------------------------- phase 21
+P21_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase21")
+P21_CLASSES = 20                    # PASCAL VOC's classes (+ background)
+P21_BATCH = 32
+P21_WARMUP = 2
+P21_TIMED = 5
+P21_FIT_STEPS = 4                   # a fit under the step profiler
+P21_LR, P21_MOMENTUM = 1e-3, 0.9    # ssd.pytorch's train.py defaults
+P21_FLOPS_MARGIN = 0.03
+P21_CONVS = 35                      # SSD300-VGG's convolutions
+P21_CHECK_ROWS = 1                  # (a): the card against the CPU
+P21_F64_LOSS_RTOL = 1e-9            # float64, card against CPU
+P21_F64_HEAD_RTOL = 1e-8            # the heads' gradient, of its norm
+P21_FP32_OVER_CPU = 1.5             # fp32 card: within 1.5x the CPU fp32's
+P21_FP32_FLOOR = 1e-6               # own distance from float64, or this
+#                                     (H100: loss 7.46e-8, heads 6.86e-7;
+#                                     the CPU's 2.14e-7, 6.61e-7)
+# bf16 on the card against float64, about 4x its readings (H100: 2.49e-3,
+# 7.84e-3; the CPU's bf16 2.19e-3, 8.01e-3). Basis: python3
+# dev/estimate_detection_limits.py (the CPU's fp32 and bf16 step)
+P21_BF16_LOSS_RTOL = 0.01
+P21_BF16_HEAD_RTOL = 0.03
+P21_IMAGES = 32                     # (b): ObjectDetector.predict
+P21_PREDICT_REPS = 5
+P21_TWIN_STD = 0.02                 # the twin's kernels, as JAX's test tames
+P21_TWIN_RTOL = 1e-3                # JAX tests/test_migration_image.py:157
+P21_CONF = 0.4                      # (b): 35-36 rows an image, under
+#                                     keep_top_k (at 0.3 every image fills
+#                                     its 100 and the cut splits near-ties)
+P21_ROW_ATOL = 1e-5                 # (b): card rows against the CPU's
+P21_FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "detection")
+P21_OVERFIT_EPOCHS = 400            # (c): JAX tests/test_model_zoo.py:446
+P21_OVERFIT_REPEAT = 8
+P21_OVERFIT_BATCH = 16
+P21_OVERFIT_LR = 3e-3
+P21_OVERFIT_LOOP = 8
+P21_MAP = 0.99
+P21_HOOK_ROWS = 64                  # (d): the hooks' fit, SSDLite(1, 64 px)
+P21_HOOK_BATCH = 16
+P21_INT8_ROWS = 128                 # (e): phase 19's GRU TextClassifier
+P21_INT8_CALIB = 2                  # calibration batches of P21_INT8_ROWS
+P21_INT8_REPS = 3
+P21_INT8_AGREE = 0.9                # argmax agreement with fp32
+P21_INT8_ATOL = 0.05                # of the softmax outputs
+P21_LAYER_ATOL = 1e-5               # (e): the new layers, card vs CPU
+P21_RECORDS = 8                     # (f): records of each kind
+P21_RECORD_ATOL = 1e-5              # (f): served against the direct predict
+
+
+def p21_images(np, n, seed=SEED + 21):
+    """``n`` images uniform in [0, 1) and 1-5 ground-truth boxes each
+    (centres in [0.2, 0.8], sides in [0.1, 0.4], labels 1..20)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 300, 300, 3)).astype(np.float32)
+    boxes, labels = [], []
+    for _ in range(n):
+        g = int(rng.integers(1, 6))
+        c = rng.uniform(0.2, 0.8, (g, 2))
+        wh = rng.uniform(0.1, 0.4, (g, 2))
+        boxes.append(np.clip(np.concatenate([c - wh / 2, c + wh / 2], 1),
+                             0, 1).astype(np.float32))
+        labels.append(rng.integers(1, P21_CLASSES + 1, g))
+    return x, boxes, labels
+
+
+def p21_weights(np, module, seed):
+    """SSD300-VGG's weights from a numpy seed: each convolution He-normal
+    over its fan-in, the biases 0, the L2Norm's scale 20 (its init)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    state = {}
+    for key, val in module.state_dict().items():
+        shape = tuple(val.shape)
+        if key.endswith(".weight") and len(shape) == 2:
+            arr = rng.standard_normal(shape) * np.sqrt(2.0 / shape[1])
+        elif key.endswith(".weight"):
+            arr = np.full(shape, 20.0)
+        else:
+            arr = np.zeros(shape)
+        state[key] = torch.from_numpy(arr.astype(np.float32))
+    module.load_state_dict(state)
+
+
+def p21_ssd(np, dtype="float32", state=None, seed=SEED + 21):
+    """SSD300VGG(20), built under ``dtype``'s policy, its weights from
+    the numpy seed or ``state``."""
+    from analytics_zoo_tpu_torch.keras import policy
+    from analytics_zoo_tpu_torch.models import SSD300VGG
+    with policy.policy_scope(dtype):
+        ssd = SSD300VGG(P21_CLASSES)
+    if state is None:
+        p21_weights(np, ssd.model.module, seed)
+    else:
+        ssd.model.module.load_state_dict(state)
+    return ssd
+
+
+def p21_compile(ssd, device=None):
+    from analytics_zoo_tpu_torch.learn.optimizers import SGD
+    ssd.compile(optimizer=SGD(learningrate=P21_LR, momentum=P21_MOMENTUM),
+                loss=ssd.loss(), device=device)
+    return ssd.model.estimator
+
+
+def p21_window(torch, est, xs, ys) -> float:
+    for _ in range(P21_WARMUP):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P21_TIMED):
+        est._train_step(xs, ys)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / P21_TIMED * 1e3
+
+
+def p21_profile(torch, fn, label):
+    """One call of ``fn`` under the profiler (after a call outside it):
+    its kernels, device-busy ms, host wall ms, the idle share and the
+    device ms of the sorts (the loss's mining) and of the convolutions."""
+    import re
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(label):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(P21_DIR, f"{label}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    events = trace_events(path)
+    host = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+            if e.get("cat") == "user_annotation" and e.get("name") == label]
+    if not host:
+        raise AssertionError(f"21: {label}'s range is not in the trace")
+    lo, hi = host[0]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    end = max((e["ts"] + e.get("dur", 0) for e in kernels), default=hi)
+    wall = (max(hi, end) - lo) / 1e3
+    conv = re.compile(P17_CONV_KERNEL)
+    sort_ms = sum(e.get("dur", 0) for e in kernels
+                  if re.search(r"(?i)sort|radix", e["name"])) / 1e3
+    conv_ms = sum(e.get("dur", 0) for e in kernels
+                  if conv.search(e["name"])) / 1e3
+    return dict(kernels=len(kernels), device_busy_ms=busy, wall_ms=wall,
+                busy_share=busy / wall if wall else None,
+                idle_share=max(0.0, 1 - busy / wall) if wall else None,
+                sort_ms=sort_ms, conv_ms=conv_ms)
+
+
+def p21_train(torch, np, kind):
+    """21(a) the path: SSD300-VGG(20) at batch 32 x 300 x 300 through
+    compile(SGD, ssd.loss()) in fp32 (TF32 off) and mixed_bfloat16: the
+    step window, launches a step, the profiled step's busy share, peak
+    memory, and a fit under the step profiler (zoo_step_flops against the
+    hand count, zoo_mfu)."""
+    from analytics_zoo_tpu_torch.common import telemetry
+    x, boxes, labels = p21_images(np, P21_BATCH)
+    rep = {}
+    states = {}
+    for dtype in ("float32", "mixed_bfloat16"):
+        label = "fp32" if dtype == "float32" else "bf16"
+        ssd = p21_ssd(np, dtype)
+        states[label] = {k: v.clone() for k, v in
+                         ssd.model.module.state_dict().items()}
+        y = ssd.encode_ground_truth(boxes, labels)
+        est = p21_compile(ssd)
+        xs, ys = est._tensors(x), est._tensors(y)
+        torch.cuda.reset_peak_memory_stats()
+        r = dict(step_ms=p21_window(torch, est, xs, ys))
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        r["samples_per_sec"] = P21_BATCH / r["step_ms"] * 1e3
+        r["launches_per_step"] = p19_launch_calls(
+            torch, lambda: est._train_step(xs, ys))
+        r["profile"] = p21_profile(torch, lambda: est._train_step(xs, ys),
+                                   f"p21_{label}_step")
+        xf = np.concatenate([x] * P21_FIT_STEPS)
+        yf = np.concatenate([y] * P21_FIT_STEPS)
+        telemetry.reset_for_tests()
+        t0 = time.perf_counter()
+        hist = ssd.fit(xf, yf, batch_size=P21_BATCH, nb_epoch=1,
+                       shuffle=False)
+        torch.cuda.synchronize()
+        r["fit_ms_per_step"] = (time.perf_counter() - t0) / P21_FIT_STEPS \
+            * 1e3
+        snap = telemetry.snapshot()
+        r["step_flops"] = snap.get("zoo_step_flops")
+        r["mfu"] = snap.get("zoo_mfu")
+        r["fit_loss"] = hist["loss"][-1]
+        telemetry.reset_for_tests()
+        if label == "fp32":
+            rep["hand"] = p17_hand_flops(torch, ssd.model.module, xs)
+        hand = rep["hand"]["step"]
+        r["hand_tflops_per_s"] = hand / r["step_ms"] / 1e9
+        rep[label] = r
+        ok = (hand <= (r["step_flops"] or 0) <= hand * (1 + P21_FLOPS_MARGIN)
+              and r["mfu"] is not None and 0 < r["mfu"] <= 1
+              and np.isfinite(r["fit_loss"])
+              and rep["hand"]["convs"] == P21_CONVS)
+        log(f"phase 21(a) SSD300-VGG({P21_CLASSES}) {label} training on "
+            f"{kind}, batch {P21_BATCH} x 300 px, SGD(lr {P21_LR}, momentum "
+            f"{P21_MOMENTUM}), {P21_WARMUP} warm-up and {P21_TIMED} timed "
+            f"steps: {r['step_ms']:.3f} ms a step "
+            f"({r['samples_per_sec']:.1f} samples/s, "
+            f"{r['hand_tflops_per_s']:.1f} TFLOP/s of the hand count "
+            f"{hand / 1e12:.3f} TFLOP), {r['launches_per_step']} launches a "
+            f"step, profiled step: {r['profile']['device_busy_ms']:.3f} ms "
+            f"busy of {r['profile']['wall_ms']:.3f} (busy share "
+            f"{r['profile']['busy_share']:.3f}; convolutions "
+            f"{r['profile']['conv_ms']:.3f} ms, the mining's sorts "
+            f"{r['profile']['sort_ms']:.3f} ms), peak memory "
+            f"{r['peak_gib']:.2f} GiB; a {P21_FIT_STEPS}-step fit "
+            f"{r['fit_ms_per_step']:.3f} ms a step, zoo_step_flops "
+            f"{r['step_flops']} (over the hand count "
+            f"{(r['step_flops'] or 0) / hand:.5f}), zoo_mfu {r['mfu']}")
+        if not ok:
+            raise AssertionError(f"21(a): {r}")
+        del ssd, est, xs, ys
+        torch.cuda.empty_cache()
+    return states, rep
+
+
+def p21_step(torch, np, state, x, y, device, dtype="float32", f64=False):
+    """One training step's loss and the heads' (loc/conf) gradients."""
+    from analytics_zoo_tpu_torch.common.flax_compat import Conv
+    ssd = p21_ssd(np, dtype, state=state)
+    mod = ssd.model.module
+    if f64:
+        mod.double()
+    est = p21_compile(ssd, device)
+    loss, grads = p17_grads(est, x, y)
+    c1 = P21_CLASSES + 1
+    heads = {name for name, m in mod.named_modules() if isinstance(m, Conv)
+             and m.out_features in (4 * 4, 6 * 4, 4 * c1, 6 * c1)}
+    return loss, {n: g for n, g in grads.items()
+                  if n.rsplit(".", 1)[0] in heads}
+
+
+def p21_correctness(torch, np, state, kind):
+    """21(a)'s check: one step on P21_CHECK_ROWS rows from the same
+    weights. float64 on the card (cudnn.deterministic) against float64 on
+    the CPU; fp32 (TF32 off) on the card within P21_FP32_OVER_CPU of the
+    CPU fp32's own distance from float64 (or P21_FP32_FLOOR); bf16 on the
+    card against float64 at P21_BF16_*. The heads' gradients are the 12
+    loc/conf convolutions' (12 kernels and 12 biases)."""
+    x, boxes, labels = p21_images(np, P21_CHECK_ROWS, seed=SEED + 210)
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        bbox_util,
+    )
+    anchors = bbox_util.ssd_pytorch_priors()
+    y = np.stack([bbox_util.encode_targets(b, lab, anchors)
+                  for b, lab in zip(boxes, labels)])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref_loss, ref = p21_step(torch, np, state["fp32"], x, y, "cpu",
+                                 f64=True)
+        l64, g64 = p21_step(torch, np, state["fp32"], x, y, "cuda",
+                            f64=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cpu_loss, g_cpu = p21_step(torch, np, state["fp32"], x, y, "cpu")
+    l32, g32 = p21_step(torch, np, state["fp32"], x, y, "cuda")
+    lbf, gbf = p21_step(torch, np, state["fp32"], x, y, "cuda",
+                        dtype="mixed_bfloat16")
+    if len(ref) != 24:
+        raise AssertionError(f"21(a): {len(ref)} head gradients, not 24")
+    rep = dict(
+        rows=P21_CHECK_ROWS, loss=ref_loss,
+        f64_loss_rel=abs(l64 - ref_loss) / abs(ref_loss),
+        f64_head_rel=p17_norm_rel(g64, ref),
+        cpu_fp32_loss_rel=abs(cpu_loss - ref_loss) / abs(ref_loss),
+        cpu_fp32_head_rel=p17_norm_rel(g_cpu, ref),
+        fp32_loss_rel=abs(l32 - ref_loss) / abs(ref_loss),
+        fp32_head_rel=p17_norm_rel(g32, ref),
+        bf16_loss_rel=abs(lbf - ref_loss) / abs(ref_loss),
+        bf16_head_rel=p17_norm_rel(gbf, ref))
+    lim_loss = max(P21_FP32_OVER_CPU * rep["cpu_fp32_loss_rel"],
+                   P21_FP32_FLOOR)
+    lim_head = max(P21_FP32_OVER_CPU * rep["cpu_fp32_head_rel"],
+                   P21_FP32_FLOOR)
+    log(f"phase 21(a) one step on {P21_CHECK_ROWS} row(s) against the "
+        f"CPU's float64 step (loss {ref_loss:.6f}; the heads' 24 "
+        f"gradients, distance over their norm): card float64 under "
+        f"cudnn.deterministic loss {rep['f64_loss_rel']:.3g} (limit "
+        f"{P21_F64_LOSS_RTOL}), heads {rep['f64_head_rel']:.3g} (limit "
+        f"{P21_F64_HEAD_RTOL}); CPU fp32 loss "
+        f"{rep['cpu_fp32_loss_rel']:.3g}, heads "
+        f"{rep['cpu_fp32_head_rel']:.3g}; card fp32 (TF32 off) loss "
+        f"{rep['fp32_loss_rel']:.3g} (limit {lim_loss:.3g}), heads "
+        f"{rep['fp32_head_rel']:.3g} (limit {lim_head:.3g}); card bf16 "
+        f"loss {rep['bf16_loss_rel']:.3g} (limit {P21_BF16_LOSS_RTOL}), "
+        f"heads {rep['bf16_head_rel']:.3g} (limit {P21_BF16_HEAD_RTOL}) "
+        f"on {kind}")
+    if not (rep["f64_loss_rel"] <= P21_F64_LOSS_RTOL
+            and rep["f64_head_rel"] <= P21_F64_HEAD_RTOL
+            and rep["fp32_loss_rel"] <= lim_loss
+            and rep["fp32_head_rel"] <= lim_head
+            and rep["bf16_loss_rel"] <= P21_BF16_LOSS_RTOL
+            and rep["bf16_head_rel"] <= P21_BF16_HEAD_RTOL):
+        raise AssertionError(f"21(a) correctness: {rep}")
+    return rep
+
+
+def p21_twin(torch, seed=SEED + 22):
+    """ssd.pytorch's SSD300 (the port's twin), seeded: every convolution's
+    kernel normal with std P21_TWIN_STD, biases as torch makes them."""
+    from analytics_zoo_tpu_torch.models.migration_image import (
+        make_torch_ssd300,
+    )
+    torch.manual_seed(seed)
+    twin = make_torch_ssd300(P21_CLASSES).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in twin.parameters():
+            if p.dim() == 4:
+                p.normal_(0.0, P21_TWIN_STD, generator=gen)
+    return twin
+
+
+def p21_predict(torch, np, kind):
+    """21(b): ObjectDetector.predict of 32 images at 300 px with weights
+    imported from the seeded twin: device forward ms apart from the host's
+    decode + NMS ms; the twin on the card within P21_TWIN_RTOL of the
+    imported model; the rows equal the same model's on the CPU (labels and
+    count exactly, scores and boxes within P21_ROW_ATOL:
+    ``p21_rows_match``)."""
+    from analytics_zoo_tpu_torch.models import ObjectDetector, SSD300VGG
+    from analytics_zoo_tpu_torch.models.migration_image import (
+        import_ssd300_from_torch,
+    )
+    twin = p21_twin(torch)
+    ssd = import_ssd300_from_torch(SSD300VGG(P21_CLASSES), twin)
+    x, _, _ = p21_images(np, P21_IMAGES, seed=SEED + 211)
+    det = ObjectDetector(ssd, conf_threshold=P21_CONF, device="cuda")
+    raw = det.forward(x, batch_size=P21_IMAGES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P21_PREDICT_REPS):
+        raw = det.forward(x, batch_size=P21_IMAGES)
+    forward_ms = (time.perf_counter() - t0) / P21_PREDICT_REPS * 1e3
+    mod = ssd.model.module
+    xd = torch.from_numpy(x).cuda()
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: mod(xd), iters=P21_PREDICT_REPS,
+                            warmup=1)
+    t0 = time.perf_counter()
+    rows = det.post_process(raw)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    twin = twin.cuda()
+    with torch.inference_mode():
+        want = twin(xd.permute(0, 3, 1, 2).contiguous()).cpu().numpy()
+        twin_ms = cuda_ms(lambda: twin(xd.permute(0, 3, 1, 2)),
+                          iters=P21_PREDICT_REPS, warmup=1)
+    twin_rel = float(np.abs(raw - want).max() / np.abs(want).max())
+    del twin, xd
+    torch.cuda.empty_cache()
+    cpu_rows = ObjectDetector(ssd, conf_threshold=P21_CONF,
+                              device="cpu").predict(x, batch_size=P21_IMAGES)
+    n_rows = [len(r) for r in rows]
+    matched = [p21_rows_match(np, a, b, P21_ROW_ATOL)
+               for a, b in zip(rows, cpu_rows)]
+    same = all(m is not None for m in matched)
+    worst = max((m for m in matched if m is not None), default=0.0)
+    rep = dict(images=P21_IMAGES, forward_ms=forward_ms,
+               device_forward_ms=device_ms, host_post_ms=host_ms,
+               host_post_ms_per_image=host_ms / P21_IMAGES,
+               host_share=host_ms / (host_ms + forward_ms),
+               twin_device_ms=twin_ms, twin_rel=twin_rel,
+               rows=int(sum(n_rows)), rows_min=min(n_rows),
+               rows_max=max(n_rows), rows_equal=bool(same),
+               row_max_abs=float(worst))
+    log(f"phase 21(b) ObjectDetector(conf {P21_CONF}).predict of "
+        f"{P21_IMAGES} images at 300 px on {kind} (weights imported from "
+        f"the seeded twin): device forward {device_ms:.3f} ms (CUDA "
+        f"events; the twin's own {twin_ms:.3f} ms), forward with its "
+        f"copies {forward_ms:.3f} ms, the host's decode + NMS "
+        f"{host_ms:.1f} ms ({rep['host_post_ms_per_image']:.2f} ms an "
+        f"image, {rep['host_share']:.3f} of predict); {rep['rows']} rows "
+        f"({rep['rows_min']}-{rep['rows_max']} an image); each image's "
+        f"rows are the CPU's (labels and count exactly, score and box "
+        f"within {P21_ROW_ATOL}, rows whose scores agree within it in "
+        f"either order): {same}, worst {worst:.3g}; twin against the "
+        f"imported model {twin_rel:.3g} of its largest output (limit "
+        f"{P21_TWIN_RTOL})")
+    if not (same and rep["rows"] > 0 and twin_rel <= P21_TWIN_RTOL
+            and np.isfinite(raw).all()):
+        raise AssertionError(f"21(b): {rep}")
+    return rep
+
+
+def p21_rows_match(np, a, b, atol):
+    """The largest score or box distance of rows ``a`` (one image's
+    detections) from ``b`` when each row of ``a`` pairs with a row of
+    ``b`` of its label within ``atol`` in score and box (the same count,
+    each row of ``b`` used once); None where they do not pair. Two rows
+    whose scores agree within ``atol`` may come in either order."""
+    if a.shape != b.shape or (np.sort(a[:, 0]) != np.sort(b[:, 0])).any():
+        return None
+    used = np.zeros(len(b), bool)
+    worst = 0.0
+    for row in a:
+        d = np.abs(b[:, 1:] - row[1:]).max(1)
+        cand = np.where((b[:, 0] == row[0]) & ~used & (d <= atol))[0]
+        if not len(cand):
+            return None
+        j = cand[np.argmin(d[cand])]
+        used[j] = True
+        worst = max(worst, float(d[j]))
+    return worst
+
+
+def p21_fixtures(np):
+    """The two checked-in fixture images in [0, 1] and their boxes."""
+    from PIL import Image
+    with open(os.path.join(P21_FIX, "ground_truth.json")) as fh:
+        gt = json.load(fh)
+    names = sorted(gt)
+    imgs = np.stack([np.asarray(Image.open(os.path.join(P21_FIX, n)))
+                     for n in names]).astype(np.float32) / 255.0
+    gtb = [np.array([g["box"] for g in gt[n]], np.float32) for n in names]
+    gtl = [np.array([g["label"] for g in gt[n]]) for n in names]
+    return imgs, gtb, gtl
+
+
+def p21_overfit(torch, np, kind, dev="cuda"):
+    """21(c) (JAX tests/test_model_zoo.py:446-470): SSDLite(1, 64 px) fit
+    on the two fixture images on the card, then ObjectDetector and
+    mean_average_precision: mAP@0.5 at least P21_MAP."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import ObjectDetector, SSDLite
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        mean_average_precision,
+    )
+    imgs, gtb, gtl = p21_fixtures(np)
+    torch.manual_seed(SEED + 23)
+    ssd = SSDLite(class_num=1, image_size=64)
+    y = ssd.encode_ground_truth(gtb, gtl)
+    ssd.compile(optimizer=Adam(learningrate=P21_OVERFIT_LR),
+                loss=ssd.loss(), device=dev)
+    t0 = time.perf_counter()
+    h = ssd.fit(np.repeat(imgs, P21_OVERFIT_REPEAT, axis=0),
+                np.repeat(y, P21_OVERFIT_REPEAT, axis=0),
+                batch_size=P21_OVERFIT_BATCH, nb_epoch=P21_OVERFIT_EPOCHS,
+                shuffle=False, steps_per_loop=P21_OVERFIT_LOOP)
+    fit_s = time.perf_counter() - t0
+    res = ObjectDetector(ssd, conf_threshold=0.5).predict(imgs)
+    scores = mean_average_precision(res, gtb, gtl, n_classes=1)
+    rep = dict(fit_s=fit_s, final_loss=h["loss"][-1], mAP=scores["mAP"],
+               detections=sum(len(r) for r in res),
+               positives=int((y[..., 4] > 0).sum()))
+    log(f"phase 21(c) SSDLite(1, 64 px) overfit on the two fixture images "
+        f"on {kind}: {P21_OVERFIT_EPOCHS} epochs of "
+        f"{len(imgs) * P21_OVERFIT_REPEAT} rows (Adam {P21_OVERFIT_LR}, "
+        f"steps_per_loop {P21_OVERFIT_LOOP}) in {fit_s:.1f} s, final loss "
+        f"{rep['final_loss']:.4f}; {rep['detections']} detections at "
+        f"conf 0.5, mAP@0.5 {rep['mAP']:.4f} (limit {P21_MAP})")
+    if rep["mAP"] < P21_MAP or rep["detections"] < 3:
+        raise AssertionError(f"21(c): {rep}")
+    return rep
+
+
+def p21_hooks(torch, np, kind, dev="cuda"):
+    """21(d): the backend supervisor on the card (its probe reads ok; two
+    reported failures drive suspect -> wedged, one flight-recorder dump,
+    the gauge at 2; /healthz carries the block and no failover key; two
+    healthy probes bring it back to ok) and the four hooks over a fit
+    (an SSDLite fit of 2 epochs, a cached epoch, a predict): recompiles,
+    transfer bytes and a timed block."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    from analytics_zoo_tpu_torch.common import resilience, telemetry
+    from analytics_zoo_tpu_torch.models import SSDLite
+    from analytics_zoo_tpu_torch.serving import Broker, FrontEnd
+    flight = os.path.join(P21_DIR, "flight")
+    os.environ["ZOO_FLIGHT_RECORDER_DIR"] = flight
+    telemetry.reset_for_tests()
+    rep = {}
+    try:
+        sup = resilience.get_supervisor()
+        probe = sup.probe_once()
+        rep["probe"] = probe
+        states = [sup.state]
+        for _ in range(2):
+            sup.report_failure(RuntimeError("CUDA error: device lost "
+                                            "(reported by phase 21)"))
+            states.append(sup.state)
+        snap = telemetry.snapshot()
+        rep["gauge_wedged"] = snap["zoo_backend_state"]
+        rep["failovers"] = snap["zoo_backend_failovers_total"]
+        rep["dumps"] = len([p for p in os.listdir(flight)
+                            if p.startswith("flightrec")])
+        with Broker.launch(backend="python") as b, FrontEnd(b.port) as fe:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{fe.port}/healthz",
+                        timeout=30) as r:
+                    hz = _json.loads(r.read().decode())
+            except urllib.error.HTTPError as e:
+                hz = _json.loads(e.read().decode())
+        rep["healthz_block"] = hz.get("backend_supervisor")
+        rep["healthz_failover_key"] = "failover" in hz
+        for _ in range(2):
+            sup.probe_once()
+            states.append(sup.state)
+        rep["states"] = states
+        rep["gauge_after"] = telemetry.snapshot()["zoo_backend_state"]
+        # the hooks over a fit on the card
+        telemetry.reset_for_tests()
+        torch.manual_seed(SEED + 24)
+        lite = SSDLite(class_num=1, image_size=64)
+        rng = np.random.default_rng(SEED + 24)
+        x = rng.uniform(0, 1, (P21_HOOK_ROWS, 64, 64, 3)).astype(np.float32)
+        y = lite.encode_ground_truth(
+            [np.array([[0.2, 0.2, 0.6, 0.7]], np.float32)] * P21_HOOK_ROWS,
+            [np.array([1])] * P21_HOOK_ROWS)
+        lite.compile(optimizer="adam", loss=lite.loss(), device=dev)
+        lite.fit(x, y, batch_size=P21_HOOK_BATCH, nb_epoch=2, shuffle=False)
+        lite.fit(x, y, batch_size=P21_HOOK_BATCH, nb_epoch=1,
+                 cache="device", shuffle=False)
+        lite.predict(x[:20], batch_size=P21_HOOK_BATCH)
+        telemetry.timed_block_until_ready(
+            telemetry.traced_device_put(x[:1], dev), site="phase21")
+        snap = telemetry.snapshot()
+        rep["hooks"] = {k: snap.get(k) for k in (
+            "zoo_jit_calls_total", "zoo_jit_cache_misses_total",
+            "zoo_device_transfer_bytes_total")}
+        rep["block_count"] = snap["zoo_device_block_seconds"][
+            "site=phase21"]["count"]
+    finally:
+        resilience.reset_for_tests()
+        telemetry.reset_for_tests()
+        del os.environ["ZOO_FLIGHT_RECORDER_DIR"]
+    steps = P21_HOOK_ROWS // P21_HOOK_BATCH
+    calls, misses = (rep["hooks"]["zoo_jit_calls_total"],
+                     rep["hooks"]["zoo_jit_cache_misses_total"])
+    moved = rep["hooks"]["zoo_device_transfer_bytes_total"]
+    cached = x.nbytes + y.nbytes
+    ok = (probe.get("status") == "ok" and probe.get("platform") == "gpu"
+          and states == ["ok", "suspect", "wedged", "recovering", "ok"]
+          and rep["gauge_wedged"] == 2 and rep["failovers"] == 1
+          and rep["dumps"] == 1 and rep["gauge_after"] == 0
+          and (rep["healthz_block"] or {}).get("state") == "wedged"
+          and not rep["healthz_failover_key"]
+          and calls["fn=estimator_train_step"] == 2 * steps
+          and misses["fn=estimator_train_step"] == 1
+          and calls["fn=estimator_epoch_cached"] == 1
+          and calls["fn=estimator_predict"] == 2
+          and misses["fn=estimator_predict"] == 1
+          and moved["direction=h2d"] == cached + x[:1].nbytes
+          and moved["direction=d2h"] > 0 and rep["block_count"] == 1)
+    log(f"phase 21(d) the runtime hooks on {kind}: the supervisor's torch."
+        f"cuda probe {probe.get('status')} ({probe.get('device_kind')}); "
+        f"states {states} (two reported failures, then two healthy "
+        f"probes), zoo_backend_state 2 then {rep['gauge_after']}, "
+        f"zoo_backend_failovers_total {rep['failovers']}, "
+        f"{rep['dumps']} flight-recorder dump, /healthz block "
+        f"{rep['healthz_block']}, a failover key: "
+        f"{rep['healthz_failover_key']}; an SSDLite fit of 2 x {steps} "
+        f"steps, a cached epoch and a predict of 20 rows: calls {calls}, "
+        f"recompiles {misses}, bytes {moved} (the cached epoch's x and y "
+        f"{cached}), one timed block")
+    if not ok:
+        raise AssertionError(f"21(d): {rep}")
+    return rep
+
+
+def p21_int8(torch, np, kind, dev="cuda"):
+    """21(e): a calibrated int8 GRU TextClassifier at phase 19's widths
+    against its fp32 self (argmax agreement, the largest difference, ms
+    a predict of 128 rows), and ConvLSTM2D and LocallyConnected2D on the
+    card against the CPU from the same weights."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras import layers as zl
+    clf = p19_model(np, "gru")
+    rng = np.random.RandomState(SEED + 25)
+    x = rng.randint(1, P19_VOCAB, (P21_INT8_ROWS * (P21_INT8_CALIB + 1),
+                                   P19_TC["sequence_length"])).astype(
+        np.float32)
+    test, calib = x[:P21_INT8_ROWS], x[P21_INT8_ROWS:]
+    im = InferenceModel(device=dev).load_zoo(clf)
+    want = im.predict(test, batch_size=P21_INT8_ROWS)
+
+    def timed(model):
+        model.predict(test, batch_size=P21_INT8_ROWS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(P21_INT8_REPS):
+            model.predict(test, batch_size=P21_INT8_ROWS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / P21_INT8_REPS * 1e3
+
+    fp32_ms = timed(im)
+    t0 = time.perf_counter()
+    im.quantize(min_elems=1024, mode="int8", calibration_data=[
+        calib[i * P21_INT8_ROWS:(i + 1) * P21_INT8_ROWS]
+        for i in range(P21_INT8_CALIB)])
+    calib_s = time.perf_counter() - t0
+    got = im.predict(test, batch_size=P21_INT8_ROWS)
+    int8_ms = timed(im)
+    cell_paths = sorted(k for k in im._act_ranges if "Cell" in k)
+    rep = dict(rows=P21_INT8_ROWS, fp32_ms=fp32_ms, int8_ms=int8_ms,
+               calibration_s=calib_s, cell_denses=len(cell_paths),
+               agree=float((got.argmax(-1) == want.argmax(-1)).mean()),
+               max_abs=float(np.abs(got - want).max()))
+    # the new layers: the card against the CPU, the same weights
+    layers = {}
+    for name, make, shape in (
+            ("ConvLSTM2D", lambda: zl.ConvLSTM2D(16, 3,
+                                                return_sequences=True),
+             (8, 10, 16, 16, 8)),
+            ("LocallyConnected2D", lambda: zl.LocallyConnected2D(
+                16, 3, 3, activation="relu"), (32, 24, 24, 8))):
+        inp = Input(shape=shape[1:])
+        m = Model(input=inp, output=make()(inp))
+        seeded_weights(m.module, SEED + 26)
+        xs = np.random.RandomState(SEED + 27).randn(*shape).astype(
+            np.float32)
+        cpu = InferenceModel(device="cpu").load_zoo(m).predict(xs)
+        card = InferenceModel(device=dev).load_zoo(m)
+        out = card.predict(xs)
+        layers[name] = dict(max_abs=float(np.abs(out - cpu).max()),
+                            ms=cuda_ms(lambda: card.predict(xs), iters=3,
+                                       warmup=1))
+    rep["layers"] = layers
+    log(f"phase 21(e) calibrated int8 GRU TextClassifier (phase 19's widths: "
+        f"{P19_TC['sequence_length']} steps, {P19_TC['encoder_output_dim']} "
+        f"units, 20 classes) on {kind}: {rep['cell_denses']} cell Denses "
+        f"calibrated in {calib_s:.1f} s, predict of {P21_INT8_ROWS} rows "
+        f"fp32 {fp32_ms:.1f} ms, int8 {int8_ms:.1f} ms; argmax agreement "
+        f"{rep['agree']:.3f} (limit {P21_INT8_AGREE}), largest difference "
+        f"{rep['max_abs']:.3g} (limit {P21_INT8_ATOL}); the card against "
+        f"the CPU: " + ", ".join(
+            f"{n} {v['max_abs']:.3g} ({v['ms']:.2f} ms)"
+            for n, v in layers.items()) + f" (limit {P21_LAYER_ATOL})")
+    if not (rep["cell_denses"] == 6 and rep["agree"] >= P21_INT8_AGREE
+            and rep["max_abs"] <= P21_INT8_ATOL
+            and all(v["max_abs"] <= P21_LAYER_ATOL
+                    for v in layers.values())):
+        raise AssertionError(f"21(e): {rep}")
+    return rep
+
+
+def p21_records(torch, np, api, kind, dev="cuda"):
+    """21(f): Arrow and encrypted records through ClusterServing on the
+    card, each answer the direct predict's; where the card's machine lacks
+    pyarrow or cryptography, the typed error naming the package."""
+    import importlib.util
+
+    from analytics_zoo_tpu_torch.common import encryption
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import schema
+    Broker, ClusterServing, InputQueue, OutputQueue = api
+    have = {pkg: importlib.util.find_spec(pkg) is not None
+            for pkg in ("pyarrow", "cryptography")}
+    clf = p19_model(np, "cnn")
+    im = InferenceModel(device=dev).load_zoo(clf)
+    rng = np.random.RandomState(SEED + 28)
+    x = rng.randint(1, P19_VOCAB, (P21_RECORDS, P19_TC["sequence_length"])
+                    ).astype(np.float32)
+    want = np.stack([im.predict(x[i:i + 1], batch_size=1)[0]
+                     for i in range(P21_RECORDS)])
+    rep = dict(have=have)
+    with Broker.launch(backend="python") as b:
+        with ClusterServing(im, b.port, batch_size=1, max_batch_size=1,
+                            warmup=False):
+            oq = OutputQueue(port=b.port)
+            if have["pyarrow"]:
+                iq = InputQueue(port=b.port, arrow=True)
+                uris = [iq.enqueue(f"arrow{i}", x=x[i])
+                        for i in range(P21_RECORDS)]
+                got = np.stack([oq.query(u, timeout=60.0) for u in uris])
+                rep["arrow_max_abs"] = float(np.abs(got - want).max())
+                iq.close()
+            else:
+                c = b.client()
+                c.xadd("serving_stream", base64_record(
+                    {"uri": "arrow0", "data": "QVJST1c="}))
+                try:
+                    oq.query("arrow0", timeout=60.0)
+                    rep["arrow_error"] = None
+                except schema.ServingError as e:
+                    rep["arrow_error"] = str(e)
+            oq.close()
+        if have["cryptography"]:
+            cipher = encryption.make_cipher("phase21")
+            with ClusterServing(im, b.port, batch_size=1, max_batch_size=1,
+                                warmup=False, cipher=cipher):
+                iq = InputQueue(port=b.port, cipher=cipher)
+                oq = OutputQueue(port=b.port, cipher=cipher)
+                uris = [iq.enqueue(f"enc{i}", x=x[i])
+                        for i in range(P21_RECORDS)]
+                got = np.stack([oq.query(u, timeout=60.0) for u in uris])
+                rep["encrypted_max_abs"] = float(np.abs(got - want).max())
+                iq.close()
+                oq.close()
+        else:
+            try:
+                encryption.make_cipher("phase21")
+                rep["encrypted_error"] = None
+            except ImportError as e:
+                rep["encrypted_error"] = str(e)
+    log(f"phase 21(f) records through ClusterServing on {kind} (the cnn "
+        f"TextClassifier, {P21_RECORDS} records of each kind): the card's "
+        f"machine has pyarrow {have['pyarrow']}, cryptography "
+        f"{have['cryptography']}; Arrow records "
+        + (f"answered, {rep['arrow_max_abs']:.3g} from the direct predict"
+           if have["pyarrow"] else
+           f"answered with the typed error {rep['arrow_error']!r}")
+        + "; encrypted records "
+        + (f"answered, {rep['encrypted_max_abs']:.3g} from the direct "
+           "predict" if have["cryptography"] else
+           f"refused: {rep['encrypted_error']!r}")
+        + f" (limit {P21_RECORD_ATOL})")
+    ok = (rep["arrow_max_abs"] <= P21_RECORD_ATOL if have["pyarrow"]
+          else "pyarrow" in (rep["arrow_error"] or "")) and \
+        (rep["encrypted_max_abs"] <= P21_RECORD_ATOL if have["cryptography"]
+         else "cryptography" in (rep["encrypted_error"] or ""))
+    if not ok:
+        raise AssertionError(f"21(f): {rep}")
+    return rep
+
+
+def base64_record(obj) -> str:
+    """A record payload as the broker carries it: JSON, base64."""
+    import base64
+    return base64.b64encode(json.dumps(obj).encode()).decode()
+
+
+def phase_detection(torch, np, api, kind, dev="cuda"):
+    """Phase 21: object detection on the card (ROADMAP A10 and A11's
+    first part), TF32 off: (a) SSD300-VGG training at batch 32 x 300 px in
+    fp32 and bf16 and its step against the CPU, (b) ObjectDetector's
+    predict of 32 images, (c) the fixture overfit, (d) the backend
+    supervisor and the four hooks, (e) int8 recurrent cells and the new
+    layers, (f) Arrow and encrypted records. The counts are zeroed
+    before each part and read after it: none launches a kernel of queue B
+    (cuDNN's convolutions and PyTorch's own kernels; JAX computes these
+    with XLA, outside any Pallas kernel). The directory it writes is
+    removed after."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import estimator
+    shutil.rmtree(P21_DIR, ignore_errors=True)
+    os.makedirs(P21_DIR)
+    log_dir = estimator.DEFAULT_LOG_DIR
+    estimator.DEFAULT_LOG_DIR = os.path.join(P21_DIR, "tb")
+    t0 = time.perf_counter()
+    rep = {}
+    try:
+        with p17_tf32(torch, False):
+            states, rep["a"] = p21_part(rep, "a", lambda: p21_train(
+                torch, np, kind))
+            rep["a_check"] = p21_part(rep, "a_check", lambda: p21_correctness(
+                torch, np, states, kind))
+            rep["b"] = p21_part(rep, "b", lambda: p21_predict(
+                torch, np, kind))
+            rep["c"] = p21_part(rep, "c", lambda: p21_overfit(
+                torch, np, kind, dev))
+            rep["d"] = p21_part(rep, "d", lambda: p21_hooks(
+                torch, np, kind, dev))
+            rep["e"] = p21_part(rep, "e", lambda: p21_int8(
+                torch, np, kind, dev))
+            rep["f"] = p21_part(rep, "f", lambda: p21_records(
+                torch, np, api, kind, dev))
+    finally:
+        estimator.DEFAULT_LOG_DIR = log_dir
+        shutil.rmtree(P21_DIR, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"phase 21: no kernel of queue B in any part (cuDNN's convolutions "
+        f"and PyTorch's own kernels); seconds by part "
+        f"{ {k: round(v, 1) for k, v in rep['part_seconds'].items()} }")
+    return rep
+
+
+def p21_part(rep, key, fn):
+    """One part of phase 21: no kernel of queue B may launch in it."""
+    return p19_part(rep, key, fn, no_queue_b=True, phase=21)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8981,6 +9766,13 @@ def main() -> int:
     # B launched
     report["zouwu"] = phase_zouwu(torch, np, kind)
     log(f"phase 20: {report['zouwu']['seconds']:.1f} s")
+    # 21. object detection: SSD300-VGG training and ObjectDetector at VOC
+    # width, the fixture overfit, the runtime hooks, int8 recurrent cells
+    # and the new layers, Arrow and encrypted records; the counts zeroed
+    # before each part, none of queue B launched
+    report["detection"] = phase_detection(
+        torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
+    log(f"phase 21: {report['detection']['seconds']:.1f} s")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -8991,7 +9783,8 @@ def main() -> int:
                           "image": report["image"]["launches"],
                           "image_path": report["image_path"]["launches"],
                           "text": report["text"]["launches"],
-                          "zouwu": report["zouwu"]["launches"]}
+                          "zouwu": report["zouwu"]["launches"],
+                          "detection": report["detection"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in

@@ -74,13 +74,22 @@ def test_importing_every_module_loads_no_jax():
                 "zouwu.feature.time_sequence", "zouwu.config.recipe",
                 "zouwu.autots.forecast", "zouwu.pipeline",
                 "zouwu.regression", "zouwu.model.tcmf",
-                "zouwu.model.anomaly", "zouwu.model.stats_forecast"):
+                "zouwu.model.anomaly", "zouwu.model.stats_forecast",
+                "models.image.objectdetection",
+                "models.image.objectdetection.bbox_util",
+                "models.image.objectdetection.evaluation",
+                "models.image.objectdetection.multibox_loss",
+                "models.image.objectdetection.object_detector",
+                "feature.image3d", "feature.image3d.transforms",
+                "common.encryption"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,
-    # PIL where an image is decoded (a host may lack it)
-    assert "pandas" not in loaded
-    assert "PIL" not in loaded
+    # PIL where an image is decoded, pyarrow where an Arrow record is read
+    # or written and cryptography where a record is encrypted (a host may
+    # lack each)
+    for lazy in ("pandas", "PIL", "pyarrow", "cryptography"):
+        assert lazy not in loaded
 
 
 @pytest.mark.parametrize("path", sorted(

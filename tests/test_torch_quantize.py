@@ -572,17 +572,26 @@ def test_bare_torch_linear_model_refused_with_clear_error():
 
 
 def test_recurrent_cells_refused_in_int8_mode():
+    """Recurrent cells are no longer refused in int8 mode: the GRU's six
+    Denses and the head calibrate and run int8 (their parity with JAX's
+    interceptor is tests/test_torch_quantize_recurrent.py's); weight mode
+    still covers them."""
     from analytics_zoo_tpu_torch.keras import Sequential
     from analytics_zoo_tpu_torch.keras import layers as zl
     m = Sequential()
     m.add(zl.GRU(8, input_shape=(5, 4)))
     m.add(zl.Dense(2))
-    x = np.zeros((4, 5, 4), np.float32)
+    x = np.random.RandomState(0).randn(4, 5, 4).astype(np.float32)
     im = InferenceModel(device="cpu").load_zoo(m)
-    with pytest.raises(ValueError, match="recurrent cells.*A11"):
-        im.quantize(mode="int8", calibration_data=x)
-    im.quantize(min_elems=16)       # weight mode covers them
-    assert im.predict(x).shape == (4, 2)
+    want = im.predict(x)
+    im.quantize(mode="int8", calibration_data=x)
+    assert sorted(k for k in im._act_ranges if k.startswith("GRUCell_0")) \
+        == [f"GRUCell_0/{d}" for d in ("hn", "hr", "hz", "in", "ir", "iz")]
+    got = im.predict(x)
+    assert got.shape == (4, 2) and float(np.abs(got - want).max()) < 0.05
+    im2 = InferenceModel(device="cpu").load_zoo(m)
+    im2.quantize(min_elems=16)       # weight mode covers them
+    assert im2.predict(x).shape == (4, 2)
 
 
 def test_weight_int8_shrinks_and_keeps_the_argmax():

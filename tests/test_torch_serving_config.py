@@ -69,15 +69,28 @@ def test_mini_reader_matches_pyyaml_on_the_serving_shape(tmp_path):
         assert mini == load_yaml(path)
 
 
-def test_encrypted_records_and_preprocessing_name_their_item(tmp_path):
-    """``record_encrypted: true`` still names ROADMAP A11; the
-    ``preprocessing:`` section builds the engine's image chain, which
-    equals JAX's on an image; no section builds none."""
+def test_encrypted_records_and_preprocessing_name_their_item(tmp_path,
+                                                            monkeypatch):
+    """``record_encrypted: true`` builds the record cipher (it names its
+    secret when none is given; JAX's ``decrypt_bytes_with_aes_gcm`` reads
+    what it encrypts); the ``preprocessing:`` section builds the engine's
+    image chain, which equals JAX's on an image; no section builds
+    none."""
+    from analytics_zoo_tpu.common import encryption as jenc
     from analytics_zoo_tpu.serving.config import \
         ServingConfig as JServingConfig
-    with pytest.raises(ValueError, match="record_encrypted.*A11"):
-        ServingConfig.load(_write(
-            tmp_path, "model:\n  path: m\ndata:\n  record_encrypted: true\n"))
+    enc_cfg = ServingConfig.load(_write(
+        tmp_path, "model:\n  path: m\ndata:\n  record_encrypted: true\n"))
+    assert enc_cfg.record_encrypted
+    monkeypatch.delenv("ZOO_SERVING_SECRET", raising=False)
+    with pytest.raises(ValueError, match="ZOO_SERVING_SECRET"):
+        enc_cfg.build_cipher()
+    encrypt, decrypt = enc_cfg.build_cipher("s3cret")
+    assert jenc.decrypt_bytes_with_aes_gcm(encrypt(b"rec"), "s3cret") == \
+        b"rec"
+    assert decrypt(encrypt(b"rec")) == b"rec"
+    assert ServingConfig.load(_write(
+        tmp_path, CONFIGS["defaults"])).build_cipher("s") is None
     path = _write(tmp_path, CONFIGS["preprocessing"])
     cfg = ServingConfig.load(path)
     assert cfg.image_resize == 256 and cfg.image_crop == 224
