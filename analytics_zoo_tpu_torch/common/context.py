@@ -6,8 +6,8 @@ Counterpart of ``analytics_zoo_tpu/common/context.py`` (ref
 - ``OrcaContext`` — the config singleton, every knob of JAX's
   ``OrcaContextMeta`` with its name, default and accepted values:
   ``pandas_read_backend`` ("pandas" | "arrow"), ``serialize_data_creator``
-  (bool), ``train_data_store`` ("DRAM" | "DISK_n"; "NATIVE_n" raises,
-  see below), ``shard_size`` (None or an int above 0),
+  (bool), ``train_data_store`` ("DRAM" | "DISK_n" | "NATIVE_n", see
+  below), ``shard_size`` (None or an int above 0),
   ``default_matmul_precision`` ("bfloat16" | "tensorfloat32" | "float32")
   and ``checkpoint_max_to_keep`` (an int above 0). Where JAX asserts, the
   port raises ``ValueError``.
@@ -28,9 +28,10 @@ Counterpart of ``analytics_zoo_tpu/common/context.py`` (ref
   ``torch.backends.cudnn.allow_tf32 = True``, and "float32" to "highest"
   with ``cudnn.allow_tf32 = False`` (ROADMAP C13). ``stop_orca_context``
   puts back the flags ``init_orca_context`` changed.
-- ``train_data_store="NATIVE_n"`` (JAX's C++ arena,
-  ``data/native/zstore.cpp``) is ROADMAP A11 and raises here and in the
-  shard store: it never quietly becomes ``DISK_n``.
+- ``train_data_store="NATIVE_n"`` is the C++ arena
+  (``data/native_store.py``), built by g++ at a store's first use; where
+  g++ is missing or fails, the store raises ``NativeStoreCompileError``: it
+  never quietly becomes ``DISK_n`` as JAX's falls back (ROADMAP C26).
 """
 
 from __future__ import annotations
@@ -61,15 +62,11 @@ PRECISION = {"bfloat16": ("high", True), "tensorfloat32": ("high", True),
 
 
 def check_tier(tier: str) -> str:
-    """``tier`` upper-cased if the port has a store for it: "DRAM" or
-    "DISK_n". "NATIVE_n" raises (ROADMAP A11)."""
+    """``tier`` upper-cased if the port has a store for it: "DRAM",
+    "DISK_n" (spill files) or "NATIVE_n" (the native arena,
+    ``data/native_store.py``, built by g++ at its first use)."""
     tier = tier.upper()
-    if tier.startswith("NATIVE_"):
-        raise NotImplementedError(
-            f"train_data_store={tier!r}: the native shard arena "
-            "(data/native/zstore.cpp) is not ported (ROADMAP A11); use "
-            "'DRAM' or 'DISK_n'")
-    if tier != "DRAM" and not tier.startswith("DISK_"):
+    if tier != "DRAM" and not tier.startswith(("DISK_", "NATIVE_")):
         raise ValueError("train_data_store must be 'DRAM', 'DISK_n' or "
                          f"'NATIVE_n', got {tier!r}")
     return tier

@@ -112,13 +112,19 @@ class DevicePipeline:
 
     def __init__(self, submit_fn: Callable[[Any], Any],
                  fetch_fn: Callable[[Any], Any], window: int = 2,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 trace_id: Optional[str] = None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.window = int(window)
         self._submit_fn = submit_fn
         self._fetch_fn = fetch_fn
         self._timer = timer
+        # with a ``trace_id``, sampled retired batches record their window
+        # residency as tracer spans under "{trace_id}/batch-{n}" (inflight
+        # over dispatch and fetch), as JAX's pipeline does
+        self._trace_id = trace_id
+        self._batch_n = 0
         # (pending_device_value, ctx, t_submit, dispatch_error, dispatch_s)
         self._q: deque = deque()
 
@@ -175,6 +181,17 @@ class DevicePipeline:
             # hidden behind host work, 0.0 = synchronous)
             self._timer.record_value(
                 "overlap_ratio", 1.0 - fetch_s / max(inflight_s, 1e-9))
+        if self._trace_id is not None:
+            n = self._batch_n
+            self._batch_n += 1
+            tracer = telemetry.get_tracer()
+            if tracer.should_sample():
+                tid = f"{self._trace_id}/batch-{n}"
+                tracer.record(tid, "inflight", t0, now)
+                tracer.record(tid, "dispatch", t0, t0 + dispatch_s,
+                              parent="inflight")
+                tracer.record(tid, "fetch", t_fetch, now,
+                              parent="inflight")
         return Completed(host, ctx, err, inflight_s, fetch_s, t0, dispatch_s)
 
     def drain(self) -> List[Completed]:

@@ -4,12 +4,14 @@ The port's own copy of ``analytics_zoo_tpu/data/shard.py`` (ref
 pyzoo/zoo/orca/data/shard.py:25-485): shards are numpy-dict shards,
 pandas DataFrames or any Python objects, held in this process.
 
-- **Tiers** (ref FeatureSet DRAM/DISK_n, FeatureSet.scala:556): "DRAM"
-  keeps shards as live objects; "DISK_n" pickles every shard to a spill
-  file and keeps 1 of every n resident, reading the rest on demand. The
-  tier comes from ``OrcaContext.train_data_store`` unless given. JAX's
-  "NATIVE_n" (the C++ arena, ``data/native/zstore.cpp``) raises: it is
-  ROADMAP A11 and never quietly becomes "DISK_n".
+- **Tiers** (ref FeatureSet DRAM/PMEM/DISK_n, FeatureSet.scala:556):
+  "DRAM" keeps shards as live objects; "DISK_n" pickles every shard to a
+  spill file and keeps 1 of every n resident, reading the rest on demand;
+  "NATIVE_n" keeps them in the C++ arena (``data/native_store.py``), about
+  1/n of their bytes resident, spilling the rest. The tier comes from
+  ``OrcaContext.train_data_store`` unless given. A "NATIVE_n" store whose
+  library g++ cannot build raises ``NativeStoreCompileError``: it never
+  quietly becomes "DISK_n".
 - **The data pool**: shard transforms run on a shared thread pool
   (``ZOO_DATA_WORKERS``, default ``min(8, cpu count)``; <= 1 runs them in
   the caller's thread), in shard order, with a bounded in-flight window
@@ -247,6 +249,18 @@ def _map_shards(fn: Callable[[Any], Any], n: int,
 
 # ------------------------------------------------------------------ stores
 
+def _make_store(shards: Iterable[Any], tier: str):
+    """The store of ``tier``: the native arena for "NATIVE_n", else a DRAM
+    list or spill files."""
+    tier = check_tier(tier)
+    if tier.startswith("NATIVE_"):
+        from analytics_zoo_tpu_torch.data.native_store import \
+            NativeShardStore
+        return NativeShardStore(
+            shards, keep_fraction_denom=max(1, int(tier.split("_", 1)[1])))
+    return _ShardStore(shards, tier)
+
+
 class _ShardStore:
     """Shard storage: a DRAM list, or spill files keeping 1 of every n
     shards resident. Takes its input one shard at a time, so transformed
@@ -357,7 +371,7 @@ class HostXShards(XShards):
                  tier: Optional[str] = None):
         if tier is None:
             tier = OrcaContext.train_data_store
-        self._store = _ShardStore(shards, "DRAM" if transient else tier)
+        self._store = _make_store(shards, "DRAM" if transient else tier)
         self.tier = self._store.tier
 
     # -- core --

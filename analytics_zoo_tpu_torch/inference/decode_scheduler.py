@@ -36,14 +36,16 @@ own (``paged_steps``, ``paged_fallbacks``, ``spec_proposed``,
 ``spec_accepted``; ``zeros_skipped``, ``requants``). A sequence carries
 its lane and its cost (``device_s``, its share of every wide step's wall
 time, and ``pages_held``), which the serving engine settles into the
-``zoo_request_cost_*`` histograms. Without the autotuner (ROADMAP A9),
-``paged="auto"`` takes the paged step wherever a paged step function was
-given; ``tune_paged`` measures both routes but persists nothing.
+``zoo_request_cost_*`` histograms. ``paged="auto"`` reads the autotuner's
+``paged_step`` verdict for the step's shape (``ops/autotune.py``, JAX's
+rule): a miss is measured on the spot in ``ZOO_AUTOTUNE=sync`` mode;
+otherwise it is queued for the warm-up workers and the step takes the host
+gather. Both routes run on the card (the paged step launches the gather
+kernel); ``tune_paged`` measures them and persists the verdict.
 """
 
 from __future__ import annotations
 
-import statistics
 from time import perf_counter
 from typing import Callable, List, Optional, Sequence
 
@@ -51,6 +53,7 @@ import numpy as np
 
 from analytics_zoo_tpu_torch.common import compile_ahead, telemetry
 from analytics_zoo_tpu_torch.inference import generation, quantize
+from analytics_zoo_tpu_torch.ops import autotune, paged_attention
 
 
 # metric handles are resolved from the live registry on every write: a
@@ -493,16 +496,6 @@ class DecodeSequence:
         return fed
 
 
-def _median_ms(fn: Callable[[], object], iters: int) -> float:
-    fn()                                       # first touch outside timing
-    times = []
-    for _ in range(max(1, int(iters))):
-        t0 = perf_counter()
-        fn()
-        times.append((perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 class DecodeScheduler:
     """The persistent step-level decode loop.
 
@@ -512,9 +505,10 @@ class DecodeScheduler:
     sequences decode speculatively and the rest take the one-token step.
     ``paged_step_fn(enc, pool, scales, table, lengths) -> [rung,
     width*page_size, dim]`` is the wide target step over the page pool
-    (``InferenceModel.paged_decode_step_fn()``); with one given, ``paged``
-    ``"force"`` and ``"auto"`` take it for every wide step and ``"off"``
-    takes the host gather (counted in ``paged_fallbacks``).
+    (``InferenceModel.paged_decode_step_fn()``); with one given,
+    ``paged="force"`` takes it for every wide step, ``"off"`` takes the
+    host gather (counted in ``paged_fallbacks``) and ``"auto"`` follows
+    the autotuner's verdict for each step's shape.
 
     One ``step()`` advances chunked prefill, runs ONE wide target step per
     group of at most ``max_batch`` live sequences (padded to the batch and
@@ -590,11 +584,7 @@ class DecodeScheduler:
             prefill = prefill[None, :]
         if prefill.ndim != 2:
             raise ValueError("start must be [dim] or [prefill_len, dim]")
-        if self._alloc is None:
-            self._alloc = PagedKVAllocator(
-                default_pool_pages(self.max_batch, self.max_seq,
-                                   self.spec_k, self.page_size),
-                self.page_size, int(prefill.shape[-1]))
+        self._ensure_allocator(int(prefill.shape[-1]))
         # worst case: prefill + every generated position + a transient
         # speculative draft window past the live length
         need = self._alloc.pages_for(
@@ -609,6 +599,15 @@ class DecodeScheduler:
             raise
         self._prefilling.append(seq)
         return seq
+
+    def _ensure_allocator(self, dim: int) -> None:
+        """The page pool, made at the first need: sized for ``max_batch``
+        sequences of ``max_seq`` positions at width ``dim``."""
+        if self._alloc is None:
+            self._alloc = PagedKVAllocator(
+                default_pool_pages(self.max_batch, self.max_seq,
+                                   self.spec_k, self.page_size),
+                self.page_size, dim)
 
     def abort_all(self) -> List[DecodeSequence]:
         """Drop every live sequence and free its pages."""
@@ -692,8 +691,35 @@ class DecodeScheduler:
             s.cache.gather_into(dec[i])
         return compile_ahead.pad_to_rung((enc, dec), rung, site="decode")
 
-    def _use_paged_step(self) -> bool:
-        return self._paged_step_fn is not None and self._paged != "off"
+    def _use_paged_step(self, seqs: List[DecodeSequence],
+                        seq_rung: int) -> bool:
+        """The paged-or-gather decision for one wide step. ``force`` and
+        ``off`` pin the route; ``auto`` reads the verdict for the step's
+        shape: a miss is measured now in sync mode, else queued for the
+        warm-up workers while this step takes the host gather. A paged
+        step that raised while measured on the card raises here
+        (``autotune.AutotuneFault``), never quietly takes the gather."""
+        if self._paged_step_fn is None or self._paged == "off":
+            return False
+        if self._paged == "force":
+            return True
+        if autotune._mode() == "off":
+            return False
+        rung = self._batch_rung(len(seqs))
+        enc_shape = tuple(seqs[0].enc.shape)
+        key = paged_attention.step_key(
+            rung, seq_rung, self.page_size, self._alloc.dim,
+            self._alloc.n_pages, self._alloc.kv_dtype, enc_shape)
+        autotune.check_fault(key)
+        rec = autotune.get_tuner().lookup(key, "paged_step")
+        if rec is None:
+            thunk = self._paged_tune_thunk(rung, seq_rung, enc_shape, key)
+            if autotune._mode() == "sync":
+                rec = thunk()
+            else:
+                autotune.enqueue_tune(key, thunk)
+                return False
+        return autotune.use_kernel(rec)
 
     def _paged_inputs(self, seqs: List[DecodeSequence], seq_rung: int):
         """``(enc, pool, scales, table, lengths)`` of one paged wide step;
@@ -725,18 +751,65 @@ class DecodeScheduler:
         _m_paged_steps().inc()
         return out
 
+    def _paged_tune_thunk(self, rung: int, seq_rung: int, enc_shape,
+                          key: str, iters: Optional[int] = None
+                          ) -> Callable[[], dict]:
+        """A closure timing one wide step through the host gather (the
+        reference) and through the paged step, end to end
+        (``Autotuner.tune_thunks``: the gather's cost is host work), on
+        SYNTHETIC state at the given shape: a private allocator of the
+        live pool's size, never the live pool."""
+        step_fn, paged_fn = self._step_fn, self._paged_step_fn
+        page_size, dim = self.page_size, self._alloc.dim
+        n_pages, kv_dtype = self._alloc.n_pages, self._alloc.kv_dtype
+
+        def thunk() -> dict:
+            rng = np.random.default_rng(0)
+            alloc = PagedKVAllocator(n_pages, page_size, dim,
+                                     kv_dtype=kv_dtype, sync_gauges=False)
+            width = alloc.pages_for(seq_rung)
+            fill = max(1, seq_rung - 1)
+            caches = []
+            for _ in range(rung):
+                cache = PagedKVCache(alloc, alloc.alloc_pages(width))
+                cache.append_block(
+                    rng.standard_normal((fill, dim)).astype(np.float32))
+                caches.append(cache)
+            enc = rng.standard_normal(
+                (rung,) + tuple(enc_shape)).astype(np.float32)
+            table = np.stack([c.page_table(width) for c in caches])
+            lengths = np.array([c.length for c in caches], np.int32)
+            pool, scales = alloc.pool_view()
+
+            def gather():
+                dec = np.zeros((rung, seq_rung, dim), np.float32)
+                for i, c in enumerate(caches):
+                    c.gather_into(dec[i])
+                return np.asarray(step_fn(enc, dec))
+
+            def paged():
+                return np.asarray(
+                    paged_fn(enc, pool, scales, table, lengths))
+
+            return autotune.get_tuner().tune_thunks(
+                "paged_step", key, {"paged": paged}, gather, iters=iters)
+
+        return thunk
+
     def tune_paged(self, batch_rung: Optional[int] = None,
                    seq_rung: Optional[int] = None, enc_shape=None,
-                   iters: int = 5) -> Optional[dict]:
-        """Time one wide step through the host gather and through the
-        paged step, on SYNTHETIC state at one shape (a private allocator
-        of the live pool's size, never the live pool): the median of
-        ``iters`` host-clock runs of each. Returns ``{"kernel":
-        "paged_step", "speedup", "use_kernel", "best_ms",
-        "reference_ms"}`` (``use_kernel``: the paged step was faster), or
-        None without a paged step or an allocator. Nothing is persisted
-        and ``paged="auto"`` does not read it (no autotuner yet). Shape
-        arguments default to the live sequences'."""
+                   iters: Optional[int] = None,
+                   dim: Optional[int] = None) -> Optional[dict]:
+        """Measure the host gather against the paged step at one step shape
+        (``iters`` timed steps each, default ``ZOO_AUTOTUNE_ITERS``) and
+        persist the verdict ``paged="auto"`` reads, under ``step_key``.
+        Returns JAX's record (``use_kernel``: the paged step was faster),
+        or None without a paged step or an allocator. Shape arguments
+        default to the live sequences'; ``dim`` (the decoder's width) makes
+        the page pool as the first admission would, so verdicts can be
+        built before any sequence arrives."""
+        if dim is not None:
+            self._ensure_allocator(int(dim))
         if self._paged_step_fn is None or self._alloc is None:
             return None
         live = self._prefilling + self._decoding
@@ -751,41 +824,11 @@ class DecodeScheduler:
                     "enc_shape is required when no sequence is live")
             enc_shape = tuple(live[0].enc.shape)
         rung, seq_rung = int(batch_rung), int(seq_rung)
-        rng = np.random.default_rng(0)
-        alloc = PagedKVAllocator(self._alloc.n_pages, self.page_size,
-                                 self._alloc.dim,
-                                 kv_dtype=self._alloc.kv_dtype,
-                                 sync_gauges=False)
-        width = alloc.pages_for(seq_rung)
-        fill = max(1, seq_rung - 1)
-        caches = []
-        for _ in range(rung):
-            cache = PagedKVCache(alloc, alloc.alloc_pages(width))
-            cache.append_block(rng.standard_normal(
-                (fill, alloc.dim)).astype(np.float32))
-            caches.append(cache)
-        enc = rng.standard_normal(
-            (rung,) + tuple(enc_shape)).astype(np.float32)
-        table = np.stack([c.page_table(width) for c in caches])
-        lengths = np.array([c.length for c in caches], np.int32)
-        pool, scales = alloc.pool_view()
-
-        def gather():
-            dec = np.zeros((rung, seq_rung, alloc.dim), np.float32)
-            for i, c in enumerate(caches):
-                c.gather_into(dec[i])
-            return np.asarray(self._step_fn(enc, dec))
-
-        def paged():
-            return np.asarray(
-                self._paged_step_fn(enc, pool, scales, table, lengths))
-
-        ref_ms = _median_ms(gather, iters)
-        paged_ms = _median_ms(paged, iters)
-        return {"kernel": "paged_step", "batch_rung": rung,
-                "seq_rung": seq_rung, "best_ms": paged_ms,
-                "reference_ms": ref_ms, "speedup": ref_ms / paged_ms,
-                "use_kernel": paged_ms < ref_ms}
+        key = paged_attention.step_key(
+            rung, seq_rung, self.page_size, self._alloc.dim,
+            self._alloc.n_pages, self._alloc.kv_dtype, tuple(enc_shape))
+        return self._paged_tune_thunk(rung, seq_rung, tuple(enc_shape), key,
+                                      iters)()
 
     def _step_group(self, seqs: List[DecodeSequence]
                     ) -> List[DecodeSequence]:
@@ -797,7 +840,7 @@ class DecodeScheduler:
             self._propose(spec)
         seq_rung = self._seq_ladder.rung_for(
             max(s.cache.length + 1 for s in seqs))
-        if self._use_paged_step():
+        if self._use_paged_step(seqs, seq_rung):
             # bitwise the gather path: the on-device gather materializes
             # the identical (dequantized, causally zero-tailed) buffer
             out = self._paged_step(seqs, seq_rung)

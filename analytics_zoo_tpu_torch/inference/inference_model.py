@@ -8,7 +8,7 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
 
 - ``load_zoo(model)`` / ``load(path)`` — a zoo keras model or ZooModel
   (``load`` reads a ``save_model`` directory written by either package)
-- ``load_torch(module, sample_input)`` — any ``nn.Module`` of the port
+- ``load_torch(torch_module, sample_input)`` — any ``nn.Module`` of the port
   (e.g. the BERT classifier of ``text/estimators.py``)
 - ``load_checkpoint(path)`` — the parameters and the model state
   (``batch_stats``) of a training snapshot, written by either package's
@@ -64,6 +64,7 @@ import torch
 from analytics_zoo_tpu_torch.common import compile_ahead, telemetry
 from analytics_zoo_tpu_torch.common.device import (DeviceLike, as_tensor,
                                                    resolve_device, to_numpy)
+from analytics_zoo_tpu_torch.ops import autotune
 
 
 logger = logging.getLogger(__name__)
@@ -135,14 +136,14 @@ class InferenceModel:
         from analytics_zoo_tpu_torch.models.common import ZooModel
         return self.load_zoo(ZooModel.load_model(path))
 
-    def load_torch(self, module: torch.nn.Module, sample_input
+    def load_torch(self, torch_module: torch.nn.Module, sample_input
                    ) -> "InferenceModel":
         """Load a PyTorch module of the port (ref doLoadPyTorch,
         InferenceModel.scala:249; the counterpart of the JAX package's
         ``load_flax``). ``sample_input`` (an array or a tuple of arrays)
         fixes how many inputs ``predict`` feeds the module. The module is
         copied, so later changes to it do not reach this model."""
-        copy_ = copy.deepcopy(module).to(self.device).eval()
+        copy_ = copy.deepcopy(torch_module).to(self.device).eval()
         with self._lock:
             self._module = copy_
             self._n_inputs = len(_as_tuple(sample_input))
@@ -308,10 +309,14 @@ class InferenceModel:
         and the caching allocator's growth to the rung's peak then fall
         before the first real request. The forward shares the module with
         the serving thread and writes no shared state, so results served
-        meanwhile keep their bits. ``sample_input`` (batched) records the input
-        spec when the loader did not. ``block=True`` runs on the caller's
-        thread. Returns the thread (None when nothing is left to warm or
-        the spec is unknown); ``wait_warm`` joins them all."""
+        meanwhile keep their bits. After the rungs the worker runs the
+        autotuner's queued measurements (``autotune.tune_pending``, as
+        JAX's warm-up worker does), off the serving thread; it stops when
+        the process begins to exit, and a failed one is logged.
+        ``sample_input`` (batched) records the input spec when the loader
+        did not. ``block=True`` runs on the caller's thread. Returns the
+        thread (None when nothing is left to warm or measure, or the spec
+        is unknown); ``wait_warm`` joins them all."""
         if sample_input is not None:
             self._remember_spec(_as_tuple(sample_input), overwrite=True)
         with self._lock:
@@ -325,7 +330,7 @@ class InferenceModel:
                     if r not in self._ready_rungs
                     and r not in self._warming]
             self._warming.update(todo)
-        if not todo:
+        if not todo and not autotune.pending_count():
             return None
 
         def run():
@@ -344,6 +349,7 @@ class InferenceModel:
             finally:
                 with self._lock:
                     self._warming.difference_update(todo)
+            autotune.drain_after_warmup()
 
         if block:
             run()
@@ -593,8 +599,11 @@ class InferenceModel:
                 enc = np.zeros((r,) + enc_shape, np.float32)
                 for sr in seq_rungs:
                     step(enc, np.zeros((r, sr, dim), np.float32))
-            if paged_pool is None:
-                return
+            if paged_pool is not None:
+                run_paged()
+            autotune.drain_after_warmup()
+
+        def run_paged():
             n_pages, page_size = (int(v) for v in paged_pool)
             pool = np.zeros((n_pages, page_size, dim),
                             quantize.resolve_kv_dtype(None))

@@ -364,15 +364,20 @@ class FusedEmbeddings(KerasLayer):
     per ``combine``: "concat" (side by side, the NCF-MLP pattern) or
     "sum"/"mean"/"mul" (elementwise, equal dims; "mul" is the NCF GMF
     branch). On CUDA the lookup is the kernel of ops/csrc/embedding_bag.cu.
+    ``use_kernel`` goes to ``fused_embedding_lookup`` (True on the CPU and
+    False on CUDA raise there, ROADMAP C26).
 
     Each table is a top-level module named ``table_name``, so the
     ``state_dict`` carries the flax tree's names (``mlp_user_embed.
     embedding``)."""
 
     def __init__(self, specs, combine: str = "concat", init="uniform",
-                 zero_based_id: bool = True, input_shape=None, name=None):
+                 zero_based_id: bool = True,
+                 use_kernel: Optional[bool] = None,
+                 input_shape=None, name=None):
         super().__init__(name, input_shape)
         self.specs = [(str(n), int(v), int(d)) for n, v, d in specs]
+        self.use_kernel = use_kernel
         if not self.specs:
             raise ValueError("FusedEmbeddings needs at least one table")
         if combine not in ("concat", "sum", "mean", "mul"):
@@ -410,7 +415,8 @@ class FusedEmbeddings(KerasLayer):
             if self.compute_dtype is not None:
                 t = t.to(self.compute_dtype)
             tables.append(t)
-        return fused_embedding_lookup(tables, ids, combine=self.combine)
+        return fused_embedding_lookup(tables, ids, combine=self.combine,
+                                      use_kernel=self.use_kernel)
 
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]

@@ -250,12 +250,22 @@ class Estimator:
 
     @staticmethod
     def from_torch(*, model: nn.Module, loss, optimizer="adam", metrics=None,
-                   model_dir: Optional[str] = None, strategy="dp",
-                   seed: int = 0, device: DeviceLike = None
-                   ) -> "TorchEstimator":
+                   sample_input=None, model_dir: Optional[str] = None,
+                   strategy="dp", param_rules=None, seed: int = 0,
+                   device: DeviceLike = None) -> "TorchEstimator":
         """Train a PyTorch ``nn.Module`` (ref
         pyzoo/zoo/orca/learn/pytorch/estimator.py:35
-        Estimator.from_torch)."""
+        Estimator.from_torch). JAX's keywords are taken: the port needs no
+        ``sample_input`` to initialise, so a given one only checks that a
+        copy of the module on the CPU runs on it (in eval mode, without a
+        gradient; ``ValueError`` if it does not). ``param_rules`` other
+        than None raise: sharding rules are ROADMAP A9's second part."""
+        if param_rules is not None:
+            raise NotImplementedError(
+                "param_rules: the port trains on one device; sharding rules "
+                "are ROADMAP A9's second part")
+        if sample_input is not None:
+            _probe(model, sample_input)
         return TorchEstimator(model, loss=loss, optimizer=optimizer,
                               metrics=metrics, model_dir=model_dir,
                               strategy=strategy, seed=seed, device=device)
@@ -319,6 +329,21 @@ class Estimator:
         """The newest ``ckpt-<n>`` under ``model_dir``, or None."""
         found = ckpt_lib.find_latest_checkpoint(model_dir)
         return found[0] if found else None
+
+
+def _probe(model: nn.Module, sample_input) -> None:
+    """Run a CPU copy of ``model`` once on ``sample_input`` (an array or a
+    tuple of arrays), in eval mode and without a gradient; raise
+    ``ValueError`` naming the failure."""
+    xs = sample_input if isinstance(sample_input, (tuple, list)) \
+        else (sample_input,)
+    probe = copy.deepcopy(model).cpu().eval()
+    try:
+        with torch.no_grad():
+            probe(*(torch.as_tensor(np.asarray(a)) for a in xs))
+    except Exception as e:
+        raise ValueError(f"from_torch: the model does not run on "
+                         f"sample_input: {e!r}") from e
 
 
 class TorchEstimator:
@@ -946,10 +971,16 @@ class TorchEstimator:
             out[metric.name] = metric.result(s)
         return out
 
-    def predict(self, data, batch_size: int = 32, feature_cols=None):
+    def predict(self, data, batch_size: int = 32, feature_cols=None,
+                pipeline_window: int = 2):
         """(ref estimator.py predict:598-654) The model's outputs for every
         row, as numpy (a tuple of arrays for a model with several); given
-        XShards, ``HostXShards([{"prediction": outputs}])``."""
+        XShards, ``HostXShards([{"prediction": outputs}])``. Batches go
+        through ``common/pipeline_io.DevicePipeline``: up to
+        ``pipeline_window`` launched batches stay in flight, and a batch
+        is read back only when the window retires it. The outputs are
+        bitwise the synchronous ones (``pipeline_window=1``)."""
+        from analytics_zoo_tpu_torch.common.pipeline_io import DevicePipeline
         was_shards = isinstance(data, XShards)
         if isinstance(data, tuple):
             # predict takes features only: a tuple is a multi-input x
@@ -958,17 +989,30 @@ class TorchEstimator:
         if ds.n == 0:
             raise ValueError("predict called on an empty dataset")
         outs = []
+
+        def take(comp):
+            if comp.error is not None:
+                raise comp.error
+            preds, mask = comp.result, comp.ctx
+            if mask is not None:
+                valid = int(mask.sum())
+                preds = tree_map(lambda a: a[:valid], preds)
+            outs.append(preds)
+
+        forward = self._instrumented("predict")
         self.model.train(False)
         with torch.inference_mode():
+            pipe = DevicePipeline(
+                lambda x: forward(self._tensors(x), train=False),
+                lambda out: to_numpy(telemetry.traced_device_get(out)),
+                window=max(1, int(pipeline_window)),
+                trace_id="estimator_predict")
             for x, _, mask in ds.iter_batches(batch_size,
                                               drop_remainder=False):
-                preds = to_numpy(telemetry.traced_device_get(
-                    self._instrumented("predict")(self._tensors(x),
-                                                  train=False)))
-                if mask is not None:
-                    valid = int(mask.sum())
-                    preds = tree_map(lambda a: a[:valid], preds)
-                outs.append(preds)
+                for comp in pipe.submit(x, ctx=mask):
+                    take(comp)
+            for comp in pipe.drain():
+                take(comp)
         if isinstance(outs[0], tuple):
             merged = tuple(np.concatenate([o[i] for o in outs])
                            for i in range(len(outs[0])))

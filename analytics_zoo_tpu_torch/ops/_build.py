@@ -93,6 +93,22 @@ def reset_launch_counts() -> None:
             c.reset()
 
 
+def check_use_kernel(dev: torch.device, use_kernel, what: str) -> None:
+    """JAX's ``use_kernel=`` on the port's rule (ROADMAP C26): the tensors'
+    device picks the route, so None always passes, True needs a CUDA
+    tensor, and False refuses one (a CUDA tensor never runs a kernel's
+    plain version)."""
+    if use_kernel is None:
+        return
+    if use_kernel and dev.type != "cuda":
+        raise ValueError(f"use_kernel=True: the {what} kernel runs only on "
+                         f"a CUDA tensor, not on {dev}")
+    if not use_kernel and dev.type == "cuda":
+        raise ValueError(f"use_kernel=False on a CUDA tensor: the port never "
+                         f"runs the {what} kernel's plain version on the "
+                         f"card (ROADMAP C26); move the tensors to the CPU")
+
+
 def raw_stream(index: int) -> int:
     """The handle of device ``index``'s current stream, as an int (no
     ``Stream`` object is made), for a C entry point's ``stream``."""

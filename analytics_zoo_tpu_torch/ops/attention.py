@@ -6,10 +6,14 @@ Counterpart of ``analytics_zoo_tpu/ops/attention.py``:
   when asked for or when auto-select picks it, and only without a mask;
   otherwise the plain einsum chain ``_reference_attention``. On CUDA the
   flash path launches the forward kernel with its own tile and, under
-  autograd, the dq and dk/dv backward kernels (there is no autotuner
-  yet, so no verdict: the port's autotuner will choose among kernels,
-  never the plain chain). On the CPU it runs ``blockwise_attention``, as
-  the JAX package does off the TPU, differentiated by autograd.
+  autograd, the dq and dk/dv backward kernels. ``use_flash=None`` reads
+  the autotuner's verdict for the shape first (``ops/autotune.py``), as
+  JAX's ``_flash_ok`` does: the flash kernel where it won its
+  measurement, the einsum chain where it lost (JAX's own non-flash
+  route, never the kernel's plain version); without a verdict the 2 GiB
+  heuristic below. On the CPU it runs ``blockwise_attention`` for the
+  flash path, as the JAX package does off the TPU, differentiated by
+  autograd, and ``use_flash=None`` takes the einsum chain.
 - ``AttentionModule`` — head projections, attention, output projection,
   with the JAX parameter names: ``query`` / ``key`` / ``value`` hold
   ``weight [h*d, in]`` and ``bias [h*d]`` (the flax ``[in, h, d]`` kernel
@@ -29,14 +33,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.flax_compat import Dense, promote
+from analytics_zoo_tpu_torch.ops import autotune
 
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False,
                           use_flash: Optional[bool] = None):
     """q, k, v: [batch, seq, heads, head_dim] -> [batch, seq, heads,
-    head_dim]. ``use_flash=None`` auto-selects (``_flash_ok``); True takes
-    the flash path whenever there is no mask; False pins the einsum
-    chain."""
+    head_dim]. ``use_flash=None`` auto-selects (``_flash_ok``: a persisted
+    verdict first, then the heuristic); True takes the flash path whenever
+    there is no mask (on the card the kernel, whatever a verdict says);
+    False pins the einsum chain."""
     if use_flash is None:
         use_flash = _flash_ok(q, k, mask)
     if use_flash and mask is None:
@@ -50,13 +56,20 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
 
 
 def _flash_ok(q, k, mask) -> bool:
-    """The flash path only without a mask, on CUDA, and (with no autotuner
-    verdict to consult) only where the full [b, h, sq, sk] fp32 score
-    matrix would pass 2 GiB."""
+    """The flash path only without a mask and on CUDA. A verdict for the
+    shape decides (``autotune.attention_decision``: in ``sync`` mode a
+    miss is measured on the spot unless a CUDA graph is being captured,
+    otherwise queued for the warm-up workers); without one, only where
+    the full [b, h, sq, sk] fp32 score matrix would pass 2 GiB. A kernel
+    that raised while measured raises here (``autotune.AutotuneFault``)."""
     if mask is not None or q.device.type != "cuda":
         return False
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
+    rec = autotune.attention_decision(b, sq, sk, h, d, q.dtype, False,
+                                      concrete=not autotune._capturing())
+    if rec is not None:
+        return autotune.use_kernel(rec)
     return 4 * b * h * sq * sk > (1 << 31)
 
 

@@ -37,14 +37,19 @@ the plain versions (``_fused_ref``, ``_bag_ref``, ``_fused_bwd_ref``,
 ``_bag_bwd_ref``) run only for tensors on the CPU, and accumulate in the
 kernels' order and precision, so the two agree bitwise.
 
+``use_kernel`` (JAX's) follows the port's rule (ROADMAP C26): the tensors'
+device picks the route; True on a CPU tensor and False on a CUDA tensor
+raise. ``tune_fused_lookup`` and ``tune_bag`` time each kernel against its
+plain version on the card and persist JAX's record
+(``ops/autotune.py``): a measurement, never a route.
+
 Ids: the fused lookup follows ``jnp.take`` (ids in ``[-V, V)`` index the
 table, negative ones wrapping, any other id gives a NaN row) and its
 backward follows ``.at[ids].add`` (negative ids wrap, ids outside
 ``[-V, V)`` scatter nowhere). The bag clamps its ids into ``[0, V-1]``,
 as the JAX dispatcher does: the CPU route clamps before the plain version,
 the kernel as it reads each id, and the backward's keys (``_bag_keys``)
-from the saved ids. Neither kernel reads outside a table. There is no
-autotuner here.
+from the saved ids. Neither kernel reads outside a table.
 """
 
 from __future__ import annotations
@@ -704,6 +709,7 @@ def _on_kernel_device(dev: torch.device, what: str) -> None:
 def fused_embedding_lookup(tables: Sequence[torch.Tensor],
                            ids: Union[torch.Tensor, np.ndarray],
                            combine: str = "concat",
+                           use_kernel: Optional[bool] = None,
                            device: Optional[Union[str, torch.device]] = None
                            ) -> torch.Tensor:
     """N-table fused lookup: ``ids[b, t]`` indexes ``tables[t]``; rows
@@ -714,7 +720,8 @@ def fused_embedding_lookup(tables: Sequence[torch.Tensor],
     version, CUDA tensors the kernel; gradients reach the tables through
     the scatter-add backward. Without a gradient to keep (grad mode off, or
     no table that requires grad) the call skips autograd: int32 ids on the
-    tables' device make it one kernel launch."""
+    tables' device make it one kernel launch. ``use_kernel``: see the
+    module's note."""
     if combine not in _COMBINES:
         raise ValueError(f"unknown combine {combine!r}; one of {_COMBINES}")
     tables = tuple(tables)
@@ -743,6 +750,7 @@ def fused_embedding_lookup(tables: Sequence[torch.Tensor],
     if ids.ndim != 2 or ids.shape[1] != len(tables):
         raise ValueError(f"ids {tuple(ids.shape)} vs {len(tables)} tables")
     _on_kernel_device(dev, "fused lookup")
+    _build.check_use_kernel(dev, use_kernel, "fused lookup")
     if ids.dtype != torch.int32 or ids.device != dev:
         ids = ids.to(device=dev, dtype=torch.int32)
     if not ids.is_contiguous():
@@ -754,7 +762,8 @@ def fused_embedding_lookup(tables: Sequence[torch.Tensor],
 
 def embedding_bag(table: torch.Tensor, ids: Union[torch.Tensor, np.ndarray],
                   lengths: Union[torch.Tensor, np.ndarray, None] = None,
-                  mode: str = "sum") -> torch.Tensor:
+                  mode: str = "sum", use_kernel: Optional[bool] = None
+                  ) -> torch.Tensor:
     """Pooled multi-hot lookup: ``ids`` ``[batch, bag]`` rows of ``table``
     summed (or averaged) per bag. ``lengths`` ``[batch]`` marks the valid
     prefix of each bag (None: all valid); empty bags give exact zeros
@@ -764,7 +773,8 @@ def embedding_bag(table: torch.Tensor, ids: Union[torch.Tensor, np.ndarray],
     tensors the kernel; the gradient reaches the table through the
     scatter-add backward. Without a gradient to keep (grad mode off, or a
     table that does not require grad) the call skips autograd: int32 ids
-    on the table's device and no lengths make it one kernel launch."""
+    on the table's device and no lengths make it one kernel launch.
+    ``use_kernel``: see the module's note."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
     if table.ndim != 2:
@@ -773,6 +783,7 @@ def embedding_bag(table: torch.Tensor, ids: Union[torch.Tensor, np.ndarray],
         raise ValueError("embedding bag over an empty table")
     dev = table.device
     _on_kernel_device(dev, "embedding bag")
+    _build.check_use_kernel(dev, use_kernel, "embedding bag")
     if not isinstance(ids, torch.Tensor) or ids.device != dev:
         ids = torch.as_tensor(ids, device=dev)
     if ids.ndim != 2:
@@ -795,3 +806,67 @@ def embedding_bag(table: torch.Tensor, ids: Union[torch.Tensor, np.ndarray],
     if torch.is_grad_enabled() and table.requires_grad:
         return _Bag.apply(mean, table, ids, lengths)
     return _bag_forward(table, ids, lengths, mean)
+
+
+# ------------------------------------------------------------ autotuning
+
+def _shapes_key(kind: str, shapes, extra: str, dtype) -> str:
+    """JAX's key for a lookup or bag signature, under the port's platform
+    tag."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    dims = "+".join(f"{v}x{d}" for v, d in shapes)
+    return (f"embedding_bag|{autotune._platform()}|{kind}|{extra}"
+            f"|{dims}|{autotune.dtype_name(dtype)}")
+
+
+def _card_only(fn):
+    """A tuning candidate that launches a kernel: on a CPU tensor it
+    raises, as JAX's Pallas candidates fail off the TPU."""
+    def run(*args):
+        if not args[-1].is_cuda:
+            raise RuntimeError("the kernel runs only on a card")
+        return fn(*args)
+    return run
+
+
+def tune_fused_lookup(table_shapes: Sequence[Tuple[int, int]], batch: int,
+                      combine: str = "concat", dtype=torch.float32,
+                      iters: Optional[int] = None) -> dict:
+    """Time the fused lookup kernel against its plain version on seeded
+    tables and ids at one signature, on the card, and persist JAX's
+    record. The public function launches the kernel on a CUDA tensor
+    whatever the verdict says."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    dev = torch.device("cuda" if autotune.kernels_available() else "cpu")
+    gen = torch.Generator().manual_seed(0)
+    tables = tuple(torch.randn((v, d), generator=gen).to(dev, dtype)
+                   for v, d in table_shapes)
+    ids = torch.stack([torch.randint(0, v, (batch,), generator=gen)
+                       for v, _ in table_shapes], 1).to(dev, torch.int32)
+    return autotune.get_tuner().tune(
+        "embedding_bag",
+        _shapes_key("fused", table_shapes, f"{combine}.b{batch}", dtype),
+        {"cuda": _card_only(lambda ts, ii: _fused_cuda(ts, ii, combine))},
+        lambda ts, ii: _fused_ref(ts, ii, combine),
+        (tables, ids), iters=iters)
+
+
+def tune_bag(vocab: int, dim: int, batch: int, bag: int,
+             mode: str = "sum", dtype=torch.float32,
+             iters: Optional[int] = None) -> dict:
+    """The bag kernel against its plain version, as ``tune_fused_lookup``,
+    on seeded ids in range and lengths in ``[0, bag]``."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    dev = torch.device("cuda" if autotune.kernels_available() else "cpu")
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn((vocab, dim), generator=gen).to(dev, dtype)
+    ids = torch.randint(0, vocab, (batch, bag), generator=gen)
+    lengths = torch.randint(0, bag + 1, (batch,), generator=gen)
+    mean = mode == "mean"
+    return autotune.get_tuner().tune(
+        "embedding_bag",
+        _shapes_key("bag", [(vocab, dim)], f"{mode}.b{batch}l{bag}", dtype),
+        {"cuda": _card_only(lambda t, n, i: _bag_cuda(t, i, n, mean))},
+        lambda t, n, i: _bag_ref(t, i, n, mean),
+        (table, lengths.to(dev, torch.int32), ids.to(dev, torch.int32)),
+        iters=iters)

@@ -67,6 +67,23 @@ launches_bwd_dq = _build.launch_counter("flash_attention_bwd_dq")
 launches_bwd_dkv = _build.launch_counter("flash_attention_bwd_dkv")
 
 
+def kernel_tile(head_dim: int) -> Tuple[int, int]:
+    """The forward kernel's (query rows, keys) tile at ``head_dim``: 128 x
+    64 up to d 64, 64 x 64 up to d 128 (``launch_bf16`` / ``launch_f32``
+    in csrc/flash_attention.cu). It is the one tile the launcher offers,
+    so the autotuner's only candidate."""
+    return (128, BLOCK_K) if head_dim <= 64 else (64, BLOCK_K)
+
+
+def _check_tile(head_dim: int, block_q: Optional[int],
+                block_k: Optional[int]) -> None:
+    bq, bk = kernel_tile(head_dim)
+    if (block_q or bq, block_k or bk) != (bq, bk):
+        raise ValueError(f"the flash kernel's tile at head dim {head_dim} is "
+                         f"{bq}x{bk}; block_q={block_q}, block_k={block_k} "
+                         f"asks for another")
+
+
 def ceil_to(x: int, m: int) -> int:
     """Smallest multiple of ``m`` that is >= ``x``."""
     return ((x + m - 1) // m) * m
@@ -572,18 +589,25 @@ def _flash(q, k, v, causal: bool, return_lse: bool):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """Attention of q [b, sq, h, d] over k, v [b, sk, h, d] -> [b, sq, h, d]
     in q's dtype. CUDA tensors launch the kernels (key tiles of
     BLOCK_K), CPU tensors run the plain versions; differentiable in q, k
-    and v."""
+    and v. ``block_q`` / ``block_k`` take JAX's calls: the kernel has one
+    tile per head dim (``kernel_tile``), and any other tile raises."""
+    _check_tile(q.shape[-1], block_q, block_k)
     return _flash(q, k, v, causal, False)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, causal: bool = False
+                             v: torch.Tensor, causal: bool = False,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like ``flash_attention`` but also returns the per-row logsumexp
     ([b*h, sq] fp32), what ring attention merges its partial softmaxes
-    with; both outputs are differentiable."""
+    with; both outputs are differentiable. ``block_q`` / ``block_k`` as
+    in ``flash_attention``."""
+    _check_tile(q.shape[-1], block_q, block_k)
     return _flash(q, k, v, causal, True)

@@ -36,9 +36,12 @@ launch with one split and two with more (``attention_launches`` and
 Pools are float32, or int8 with one float32 scale per page
 (``ZOO_KV_DTYPE=int8``, inference/quantize.py); both dequantize as
 ``x.float() * scale[page]``. Table entries are clamped into ``[0,
-n_pages)`` as JAX clamps them. There is no autotuner yet (ROADMAP A9):
-the tensors' device picks the route, and ``use_kernel=`` and the tuning
-keys wait for it.
+n_pages)`` as JAX clamps them. The tensors' device picks the route:
+``use_kernel`` (JAX's) True on a CPU pool and False on a CUDA pool raise
+(ROADMAP C26). ``tune_paged_gather`` and ``tune_paged_attention`` time
+each kernel against its plain version on the card and persist JAX's record
+under JAX's keys (``gather_key``, ``attn_key``; ``step_key`` is the
+decode scheduler's): measurements, never a route.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.ops import _build
@@ -330,7 +334,8 @@ def _attention_cuda(q, k_pool, v_pool, table, lengths, k_scales, v_scales,
 # ------------------------------------------------------------ dispatchers
 
 def paged_gather(pool, table, lengths, scales=None,
-                 out_len: Optional[int] = None) -> torch.Tensor:
+                 out_len: Optional[int] = None,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Assemble the wide decode step buffer straight from the page pool.
 
     ``pool`` ``[n_pages, page_size, dim]`` (float32, or int8 with per-page
@@ -339,11 +344,12 @@ def paged_gather(pool, table, lengths, scales=None,
     at positions >= length. ``out_len`` defaults to ``width*page_size``
     and may only shrink it. ``table`` and ``lengths`` move to the pool's
     device; a CPU pool runs the plain version, a CUDA pool the kernel
-    (one launch)."""
+    (one launch). ``use_kernel``: see the module's note."""
     if not isinstance(pool, torch.Tensor):
         pool = torch.as_tensor(pool)
     dev = pool.device
     _on_kernel_device(dev, "paged gather")
+    _build.check_use_kernel(dev, use_kernel, "paged gather")
     table = _on(table, torch.int32, dev)
     lengths = _on(lengths, torch.int32, dev)
     shape = table.shape
@@ -378,7 +384,8 @@ def paged_gather_ref(pool, table, lengths, scales=None,
 
 
 def paged_attention(q, k_pool, v_pool, table, lengths, *, k_scales=None,
-                    v_scales=None, softmax_scale=None) -> torch.Tensor:
+                    v_scales=None, softmax_scale=None,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Single-token decode attention against paged K/V.
 
     ``q`` ``[batch, dim]``; ``k_pool``/``v_pool`` ``[n_pages, page_size,
@@ -387,13 +394,14 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *, k_scales=None,
     context lengths → ``[batch, dim]`` float32. Masked positions get exact
     zero weight and a row of length 0 gives zeros. A CPU pool runs the
     plain version, a CUDA pool the kernels (one launch, or two where the
-    plan splits the rows)."""
+    plan splits the rows). ``use_kernel``: see the module's note."""
     if not isinstance(k_pool, torch.Tensor):
         k_pool = torch.as_tensor(k_pool)
     if not isinstance(v_pool, torch.Tensor):
         v_pool = torch.as_tensor(v_pool)
     dev = k_pool.device
     _on_kernel_device(dev, "paged attention")
+    _build.check_use_kernel(dev, use_kernel, "paged attention")
     q = _on(q, torch.float32, dev)
     table = _on(table, torch.int32, dev)
     lengths = _on(lengths, torch.int32, dev)
@@ -424,3 +432,132 @@ def paged_attention(q, k_pool, v_pool, table, lengths, *, k_scales=None,
         k_scales = v_scales = None
     return _attention_cuda(q, k_pool, v_pool, table, lengths, k_scales,
                            v_scales, sc)
+
+
+# ------------------------------------------------------------ autotuning
+
+def gather_key(batch: int, width: int, page_size: int, dim: int,
+               n_pages: int, dtype) -> str:
+    from analytics_zoo_tpu_torch.ops import autotune
+    return (f"paged_gather|{autotune._platform()}|b{batch}w{width}"
+            f"p{page_size}d{dim}n{n_pages}|{autotune.dtype_name(dtype)}")
+
+
+def attn_key(batch: int, width: int, page_size: int, dim: int,
+             n_pages: int, dtype) -> str:
+    from analytics_zoo_tpu_torch.ops import autotune
+    return (f"paged_attention|{autotune._platform()}|b{batch}w{width}"
+            f"p{page_size}d{dim}n{n_pages}|{autotune.dtype_name(dtype)}")
+
+
+def step_key(batch_rung: int, seq_rung: int, page_size: int, dim: int,
+             n_pages: int, kv_dtype, enc_shape) -> str:
+    """Key of the decode scheduler's paged-step-or-host-gather verdict
+    (host thunks timed end to end: ``Autotuner.tune_thunks``)."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    enc = "x".join(str(int(s)) for s in enc_shape)
+    return (f"paged_step|{autotune._platform()}|b{batch_rung}s{seq_rung}"
+            f"p{page_size}d{dim}n{n_pages}|enc{enc}"
+            f"|{np.dtype(kv_dtype).name}")
+
+
+def _is_int8(dtype) -> bool:
+    from analytics_zoo_tpu_torch.ops import autotune
+    return autotune.dtype_name(dtype) == "int8"
+
+
+def _synth_args(batch: int, width: int, page_size: int, dim: int,
+                n_pages: int, dtype):
+    """Seeded ``(pool, table, lengths, scales)`` at one shape, on the card
+    where there is one: an int8 pool of values in [-127, 127] with scales
+    0.01, or a float32 normal pool with scales 1."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    dev = torch.device("cuda" if autotune.kernels_available() else "cpu")
+    gen = torch.Generator().manual_seed(0)
+    if _is_int8(dtype):
+        pool = torch.randint(-127, 128, (n_pages, page_size, dim),
+                             generator=gen).to(torch.int8)
+        scales = torch.full((n_pages,), 0.01)
+    else:
+        pool = torch.randn((n_pages, page_size, dim), generator=gen)
+        scales = torch.ones((n_pages,))
+    table = torch.randint(0, n_pages, (batch, width), generator=gen)
+    lengths = torch.randint(0, width * page_size + 1, (batch,),
+                            generator=gen)
+    return (pool.to(dev), table.to(dev, torch.int32),
+            lengths.to(dev, torch.int32), scales.to(dev))
+
+
+def _need_card(t: torch.Tensor) -> None:
+    if not t.is_cuda:
+        raise RuntimeError("the kernel runs only on a card")
+
+
+def tune_paged_gather(batch: int, width: int, page_size: int, dim: int,
+                      n_pages: int, dtype=torch.float32,
+                      iters: Optional[int] = None) -> dict:
+    """Time the gather kernel against its plain version on seeded state at
+    one shape, on the card, and persist JAX's record. ``paged_gather``
+    launches the kernel on a CUDA pool whatever the verdict says."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    pool, table, lengths, scales = _synth_args(
+        batch, width, page_size, dim, n_pages, dtype)
+    quantized = _is_int8(dtype)
+    out_len = width * page_size
+
+    def kernel(p, t, ln, sc):
+        _need_card(p)
+        return _gather_cuda(p, t, ln, sc if quantized else None, out_len)
+
+    return autotune.get_tuner().tune(
+        "paged_gather",
+        gather_key(batch, width, page_size, dim, n_pages, dtype),
+        {"cuda": kernel},
+        lambda p, t, ln, sc: _gather_ref_core(p, t, ln, sc, quantized),
+        (pool, table, lengths, scales), iters=iters)
+
+
+def tune_paged_attention(batch: int, width: int, page_size: int, dim: int,
+                         n_pages: int, dtype=torch.float32,
+                         iters: Optional[int] = None) -> dict:
+    """The paged attention kernels (the split kernel and, where the plan
+    splits, the combine) against JAX's float32 reference, as
+    ``tune_paged_gather``; V is K's pool in reverse page order."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    k_pool, table, lengths, scales = _synth_args(
+        batch, width, page_size, dim, n_pages, dtype)
+    v_pool = k_pool.flip(0)
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn((batch, dim), generator=gen).to(k_pool.device)
+    quantized = _is_int8(dtype)
+    sc = 1.0 / math.sqrt(dim)
+
+    def kernel(q, kp, vp, t, ln, ks, vs):
+        _need_card(kp)
+        return _attention_cuda(q, kp, vp, t, ln, ks if quantized else None,
+                               vs if quantized else None, sc)
+
+    return autotune.get_tuner().tune(
+        "paged_attention",
+        attn_key(batch, width, page_size, dim, n_pages, dtype),
+        {"cuda": kernel},
+        lambda q, kp, vp, t, ln, ks, vs: paged_attention_ref(
+            q, kp, vp, t, ln, k_scales=ks if quantized else None,
+            v_scales=vs if quantized else None, softmax_scale=sc),
+        (q, k_pool, v_pool, table, lengths, scales, scales), iters=iters)
+
+
+def gather_decision(pool, table) -> bool:
+    """The persisted gather verdict's ``use_kernel`` for this pool and
+    table (a lookup only: no tuning, no queueing), False without one or
+    with tuning off. JAX routes its in-jit gather by it; on the port it is
+    a reading, since ``paged_gather`` launches the kernel on a CUDA pool
+    whatever it says (ROADMAP C26)."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    if autotune._mode() == "off" or not autotune.kernels_available():
+        return False
+    key = gather_key(int(table.shape[0]), int(table.shape[1]),
+                     int(pool.shape[1]), int(pool.shape[2]),
+                     int(pool.shape[0]), pool.dtype)
+    rec = autotune.get_tuner().lookup(key, "paged_gather")
+    return bool(rec and rec.get("use_kernel"))

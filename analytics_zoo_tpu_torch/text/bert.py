@@ -10,7 +10,10 @@ embeddings, bidirectional blocks, pooled [CLS]) and ``TransformerModule``
 ``text/hf_import.py`` fill them key for key.
 
 Attention goes through ``ops/attention.py``: with ``use_flash=True`` and
-no mask, the flash kernel on CUDA. ``dtype`` is the computation dtype of
+no mask, the flash kernel on CUDA; with ``use_flash=None`` (the default)
+and no mask, the autotuner's verdict for the shape picks the flash kernel
+or the einsum chain (``ops/autotune.py``; a miss is measured or queued,
+and meanwhile the 2 GiB heuristic decides). ``dtype`` is the computation dtype of
 every block, norms included (parameters stay fp32); embeddings are
 looked up and summed in fp32. The modules train under autograd
 (``learn/estimator.py``): dropout runs when ``train=True``, and with
@@ -67,8 +70,10 @@ class BertConfig:
     gelu_exact: bool = True
     # computation dtype (params stay fp32), e.g. torch.bfloat16
     dtype: Optional[torch.dtype] = None
-    # attention: None -> auto-select, True -> the flash path (the kernel on
-    # CUDA) whenever there is no mask, False -> the einsum chain
+    # attention: None -> auto-select (on CUDA without a mask, the
+    # autotuner's verdict, else the 2 GiB heuristic), True -> the flash
+    # path (the kernel on CUDA) whenever there is no mask, False -> the
+    # einsum chain
     use_flash: Optional[bool] = None
     # recompute each encoder block in the backward pass, keeping the
     # products' outputs (the module docstring)

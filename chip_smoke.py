@@ -88,7 +88,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              its plain version (in float64); (f) ClusterServing answers a burst of 32
              generate records (32 tokens, engine batch 8) and 10 single
              ones, each bitwise greedy generate of its row (records/s,
-             tokens/s, single-request p50)
+             tokens/s, single-request p50), its paged="auto" by the step
+             verdicts built first (paged steps and host-gather steps
+             printed)
 10. NCF training — bench.py's measure_ncf (NeuralCF at MovieLens-1M
              width, Adam(1e-3), batch 8000, 400 000 rows, weights from a
              numpy seed) through keras compile/fit: (a) one step on the
@@ -449,6 +451,62 @@ Phases, each of which fails the run (non-zero exit, no result line):
              Every trial of (a) and (c)-(e) must end done (or stopped),
              never in error. It writes under build/phase20/ and removes
              it.
+21. object detection (ROADMAP A10, A11's first part), TF32 off:
+             SSD300-VGG training at batch 32 x 300 px in fp32 and bf16
+             against float64 on the CPU, ObjectDetector's predict, the
+             fixture overfit, the runtime hooks, int8 recurrent cells and
+             the new layers, Arrow and encrypted records (phase_detection)
+22. the autotuner and Friesian (ROADMAP A9's first part, A11's second
+             part, C24), TF32 off: (a) tune_attention at BERT serving's
+             shape (32 x 512, 12 heads, d 64) in bf16 and fp32 with the
+             einsum chain's time beside, then BERT-Base at use_flash=None
+             under ZOO_AUTOTUNE=sync: 12 flash launches a forward where
+             the verdict took the kernel, none where it took the chain,
+             the output within BERT_ATOL / BERT_BF16_ATOL of the
+             use_flash=True model; (b) bench.py's measure_flash_attention
+             (causal bf16 4 x 2048 x 8 x 64, 20 chained calls): blockwise,
+             the kernel, the auto_flash_attention route,
+             flash_vs_blockwise_speedup and flash_kernel_raw_speedup; (c)
+             the lookup's (NCF's tables, batch 8000), the bag's (8000 x 8,
+             d 20, mean), the gather's and the paged attention's (decode's
+             shape) verdicts, each against its plain version, read back by
+             a fresh tuner, then one public call each: one launch,
+             whatever the verdict; (d) in ZOO_AUTOTUNE=on a BERT predict
+             at 16 x 512 queues its shape and takes the chain,
+             warm_up(block=True) drains the queue, the verdict is on disk
+             and the next predict follows it; the zoo_autotune_* values;
+             (e) decode through DecodeScheduler(paged="auto") with every
+             step shape's verdict built first by tune_paged: the route
+             each step took, gathers equal to paged steps, tokens bitwise
+             greedy generate; (f) bench.py's measure_recsys_pipeline
+             (40 000 rows, 8 shards, 600 users, 300 items): the Friesian
+             chain legacy and vectorized (their positive rows equal; their
+             negatives come from other shards by design), the faster one's
+             streaming feed into an NCF fit on the card
+             (recsys_pipeline_samples_per_sec, friesian_transform_speedup,
+             B1 and B1b launches a step), and its first 5 steps against the
+             CPU within P22_FIT_ATOL; (g) the chain at MovieLens-1M's shape
+             (1 000 209 rows, 6040 users, 3706 items; synthetic) under DRAM
+             and NATIVE_4, the tables bitwise equal, NCF at ML-1M width one
+             epoch of batch 8000 from the NATIVE_4 feed within the tier's
+             window bound (samples/s with and without the transforms);
+             (h) TorchEstimator.predict of 80 000 rows at pipeline windows
+             1, 2 and 4, bitwise (ms each). A kernel's verdict against its
+             plain version that the kernel lost is printed as a queue-B
+             finding.
+
+The autotuner: the run keeps its verdicts in a file of its own
+(build/chip_smoke_autotune/, ZOO_AUTOTUNE_CACHE), empty at the start and
+removed at the end, and runs with ZOO_AUTOTUNE=off but where a phase sets
+the mode: 9(f) and 15(g) build the serving engine's step verdicts first
+(tune_paged at every step shape, persisted) and serve under "on", so
+paged="auto" takes the paged step or the host gather as each verdict
+says (the gathers must equal the paged steps, and no shape may miss);
+9(f) then serves one more burst with the engine's scheduler at
+paged="force", so the engine's paged route (B6 inside) runs on every run
+whatever the verdicts picked; phase 22 sets each part's mode. A kernel
+candidate that raises while measured on the card raises
+(autotune.AutotuneFault) and is never saved as a verdict.
 
 Phase 3d holds the paged kernels against their plain versions: the
 gather bitwise (fp32 and int8; the decode slice's shapes, the serving
@@ -498,7 +556,11 @@ before each int8 model's predicts, each fit, the served int8 model and
 the fleet; phase 17, before its training window, which launches none;
 phase 18, before its paths, which launch none; phase 19, before each
 of (b)-(h): (b)-(e) and (g) launch none, (f) B3-B5, (h) B1 and B1b;
-phase 20, before each of (a)-(h), which launch none) and read
+phase 20, before each of (a)-(h), which launch none; phase 21, before
+each of (a)-(f), which launch none; phase 22, before each of (a)-(h):
+(a) and (b) B3 (their measurements too), (c) B1, B2, B6 and B7 (the
+same), (d) B3 where the drained verdict took the kernel, (e) B6 where a
+verdict took the paged step, (f) and (g) B1 and B1b, (h) B1) and read
 right after it: every kernel of the path must have launched there.
 Phases 13's to 20's seconds and the whole run's are printed
 before the kernels line. The
@@ -2577,13 +2639,20 @@ def phase_decode(torch, np, pa, kind):
 def phase_decode_serving(np, im, greedy, inputs, serving_api, kind):
     """Phase 9 (f): generate records through the broker and
     ClusterServing; every answer equals greedy generate of its row."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    from analytics_zoo_tpu_torch.ops import paged_attention as pa
     Broker, ClusterServing, InputQueue, OutputQueue = serving_api
     enc, start = inputs
     gen = {"max_new_tokens": DECODE_STEPS}
     with Broker.launch(backend="python") as broker, \
             ClusterServing(im, broker.port, batch_size=DECODE_BATCH,
                            max_batch_size=DECODE_BATCH,
-                           warmup=False) as serving:
+                           warmup=False) as serving, autotune_mode("on"):
+        # the engine's scheduler takes paged="auto": its verdicts first
+        verdicts = build_step_verdicts(serving._ensure_scheduler(),
+                                       enc[0].shape, DECODE["output_dim"],
+                                       DECODE_STEPS)
+        gathers0 = pa.gather_launches.value
         iq = InputQueue(port=broker.port)
         oq = OutputQueue(port=broker.port)
         t0 = time.perf_counter()
@@ -2602,24 +2671,48 @@ def phase_decode_serving(np, im, greedy, inputs, serving_api, kind):
             got[uri] = oq.query(uri, timeout=60, poll_interval=0.0005)
             lat.append(time.perf_counter() - t1)
         metrics = serving.metrics()
+        sched = serving._decode_sched
+        gather_steps = sched.paged_fallbacks
+        gathers = pa.gather_launches.value - gathers0
+        # the engine's paged route runs on every run, whatever the verdicts
+        # picked: one more burst with its scheduler at paged="force"
+        sched._paged = "force"
+        paged0, gathers0 = sched.paged_steps, pa.gather_launches.value
+        got.update(oq.query_many(iq.enqueue_batch(
+            ((f"f{i}", {"x": enc[i], "start": start[i]})
+             for i in range(DECODE_BATCH)), generate=gen),
+            timeout=300, poll_interval=0.002))
+        forced = dict(paged_steps=sched.paged_steps - paged0,
+                      gather_launches=pa.gather_launches.value - gathers0)
+        sched._paged = "auto"
         iq.close()
         oq.close()
     rows = {f"g{i}": i % DECODE_BATCH for i in range(GEN_BURST)}
     rows.update({f"s{i}": i % DECODE_BATCH for i in range(GEN_SINGLE)})
+    rows.update({f"f{i}": i for i in range(DECODE_BATCH)})
     for uri, i in rows.items():
         if got.get(uri) is None or not np.array_equal(got[uri], greedy[i]):
             raise AssertionError(f"served generation {uri} differs from "
                                  f"greedy generate of row {i}")
+    if autotune.pending_count():
+        raise AssertionError(f"decode (f): a step shape had no verdict: "
+                             f"{autotune.pending_count()} queued")
     rep = dict(records_per_s=GEN_BURST / burst_s,
                tokens_per_s=GEN_BURST * DECODE_STEPS / burst_s,
                single_p50_ms=float(np.percentile(lat, 50)) * 1e3,
-               metrics=metrics)
+               metrics=metrics, step_verdicts=verdicts,
+               gather_steps=gather_steps, gather_launches=gathers,
+               forced=forced)
     log(f"decode (f) serving on {kind}: {GEN_BURST} generate records of "
         f"{DECODE_STEPS} tokens in {burst_s:.3f} s = "
         f"{rep['records_per_s']:.2f} records/s, {rep['tokens_per_s']:.1f} "
         f"tokens/s (engine batch {DECODE_BATCH}); single-request p50 "
         f"{rep['single_p50_ms']:.3f} ms over {GEN_SINGLE}; every answer "
-        f"bitwise greedy generate; {metrics}")
+        f"bitwise greedy generate; paged='auto' by the step verdicts "
+        f"{verdicts}: {metrics['paged_steps']} paged steps, {gather_steps} "
+        f"host-gather steps; then {DECODE_BATCH} records at paged='force': "
+        f"{forced['paged_steps']} paged steps, {forced['gather_launches']} "
+        f"gathers; {metrics}")
     return rep
 
 
@@ -5235,7 +5328,7 @@ def p15_decode(np, api, dec_im, greedy, inputs, kind):
     """15(g): batch-lane generate records with interactive predicts
     interleaved, on the paged path; then self-drafted."""
     from analytics_zoo_tpu_torch.common import telemetry
-    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.ops import _build, autotune
     Broker, ClusterServing, InputQueue, OutputQueue = api
     enc, start = inputs
     b = DECODE_BATCH
@@ -5256,12 +5349,17 @@ def p15_decode(np, api, dec_im, greedy, inputs, kind):
                 ("draft", dict(draft_model=dec_im, spec_k=DECODE_SPEC_K),
                  P15_DRAFT_RECORDS)):
             stream = f"p15_decode_{what}"
-            _build.reset_launch_counts()
             with Broker.launch(backend="native") as bk, \
                     ClusterServing(dec_im, bk.port, batch_size=b,
                                    max_batch_size=b, warmup=False,
                                    input_cols=["x", "y"], stream=stream,
-                                   **kw) as eng:
+                                   **kw) as eng, autotune_mode("on"):
+                # paged="auto" in the engine's scheduler: its verdicts
+                # first, then the counts from 0
+                verdicts = build_step_verdicts(
+                    eng._ensure_scheduler(), enc[0].shape,
+                    DECODE["output_dim"], DECODE_STEPS)
+                _build.reset_launch_counts()
                 iq = InputQueue(port=bk.port, stream=stream)
                 oq = OutputQueue(port=bk.port)
                 t0 = time.perf_counter()
@@ -5294,9 +5392,11 @@ def p15_decode(np, api, dec_im, greedy, inputs, kind):
                 if not np.array_equal(got[u], want[k]):
                     raise AssertionError(f"15(g) predict {u} differs")
             gathers = launches.get("paged_gather", 0)
-            if gathers <= 0 or gathers != m["paged_steps"]:
+            if gathers != m["paged_steps"] or autotune.pending_count():
                 raise AssertionError(f"15(g) {what}: {gathers} gathers for "
-                                     f"{m['paged_steps']} paged steps")
+                                     f"{m['paged_steps']} paged steps; "
+                                     f"{autotune.pending_count()} step "
+                                     f"shapes without a verdict")
             bound = ClusterServing.DECODE_STARVATION_FLOOR * sched.steps_run
             if what == "paged" and not 0 < preempt <= bound:
                 raise AssertionError(f"15(g) preemptions {preempt}, bound "
@@ -5315,6 +5415,8 @@ def p15_decode(np, api, dec_im, greedy, inputs, kind):
                 tokens_per_s=n_gen * DECODE_STEPS / dt,
                 preemptions=preempt, steps=sched.steps_run,
                 paged_steps=m["paged_steps"], gather_launches=gathers,
+                step_verdicts=verdicts,
+                gather_steps=sched.paged_fallbacks,
                 cost_steps_mean=steps_h["sum"] / steps_h["count"],
                 launches=launches)
     finally:
@@ -5325,7 +5427,10 @@ def p15_decode(np, api, dec_im, greedy, inputs, kind):
         f"{p['predicts']} interactive predicts interleaved in "
         f"{p['seconds']:.3f} s ({p['tokens_per_s']:.1f} tokens/s), "
         f"{p['preemptions']} preemptions over {p['steps']} steps, "
-        f"{p['gather_launches']} gathers = paged steps; self-drafted "
+        f"{p['gather_launches']} gathers = paged steps (paged='auto' by "
+        f"the step verdicts {p['step_verdicts']}, {p['gather_steps']} "
+        f"host-gather steps; self-drafted {d['paged_steps']} paged, "
+        f"{d['gather_steps']} host-gather); self-drafted "
         f"{d['generate_records']} records {d['tokens_per_s']:.1f} tokens/s;"
         f" tokens bitwise greedy generate, one cost entry a record")
     return rep
@@ -9482,6 +9587,693 @@ def p21_part(rep, key, fn):
     return p19_part(rep, key, fn, no_queue_b=True, phase=21)
 
 
+# ---------------------------------------------------------------- phase 22
+# the run's own verdict file (ZOO_AUTOTUNE_CACHE), made empty at the start
+AUTOTUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_autotune")
+# bench.py:1374-1375, measure_flash_attention's shape
+FA_BATCH, FA_SEQ, FA_HEADS, FA_DIM = 4, 2048, 8, 64
+FA_ITERS = 20
+# bench.py:1614-1620, measure_recsys_pipeline's sizes
+RECSYS_ROWS = 40_000
+RECSYS_SHARDS = 8
+RECSYS_USERS = 600
+RECSYS_ITEMS = 300
+RECSYS_SEQ = 8
+RECSYS_BATCH = 1024
+RECSYS_EPOCHS = 1
+RECSYS_NCF = dict(user_count=RECSYS_USERS, item_count=RECSYS_ITEMS,
+                  class_num=2, user_embed=16, item_embed=16,
+                  hidden_layers=(32, 16), include_mf=True, mf_embed=16)
+RECSYS_LR = 1e-3
+# MovieLens-1M's shape (ratings.dat's rows, users.dat's and movies.dat's
+# ids in use), synthetic and seeded
+ML1M_ROWS, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6040, 3706
+ML1M_NCF = dict(user_count=ML1M_USERS, item_count=ML1M_ITEMS, class_num=2,
+                user_embed=20, item_embed=20, hidden_layers=(40, 20, 10),
+                include_mf=True, mf_embed=20)
+ML1M_BATCH = 8000
+P22_CHECK_STEPS = 5                 # card-vs-CPU steps of (f)
+P22_FIT_ATOL = 1e-5
+P22_PREDICT_ROWS = 80_000           # (h)
+P22_WINDOWS = (1, 2, 4)
+P22_BERT_QUEUE_BATCH = 16           # (d): a BERT batch no phase tuned
+
+
+def autotune_mode(mode):
+    """A context manager: ``ZOO_AUTOTUNE=mode`` inside, the previous value
+    after."""
+    from contextlib import contextmanager
+
+    @contextmanager
+    def scope():
+        prev = os.environ.get("ZOO_AUTOTUNE")
+        os.environ["ZOO_AUTOTUNE"] = mode
+        try:
+            yield
+        finally:
+            if prev is None:
+                os.environ.pop("ZOO_AUTOTUNE", None)
+            else:
+                os.environ["ZOO_AUTOTUNE"] = prev
+    return scope()
+
+
+def build_step_verdicts(sched, enc_shape, dim: int, max_new: int):
+    """A decode scheduler's paged-or-gather verdict at every step shape a
+    generation of ``max_new`` tokens can reach (every batch rung of 1 to
+    ``max_batch`` sequences, every seq rung up to the last one), through
+    ``tune_paged`` (persisted; ``paged="auto"`` reads them). Built before
+    the first step of phases 9(f), 15(g) and 22(e), so that no step shape
+    misses. Returns ``{"b<rung>s<seq rung>": use_kernel}``."""
+    top = sched._seq_ladder.rung_for(max_new + 1 + sched.spec_k)
+    out = {}
+    with autotune_mode("sync"):
+        for r in sorted({sched._batch_rung(n)
+                         for n in range(1, sched.max_batch + 1)}):
+            for s in sched._seq_ladder.rungs:
+                if s > top:
+                    break
+                rec = sched.tune_paged(batch_rung=r, seq_rung=s,
+                                       enc_shape=enc_shape, dim=dim)
+                out[f"b{r}s{s}"] = bool(rec["use_kernel"])
+    return out
+
+
+def p22_check_record(rec, what: str) -> None:
+    """A measurement on the card: every candidate ran (a candidate that
+    raised is a kernel that did not build or launch)."""
+    if rec is None or rec["errors"] or rec["best"] is None:
+        raise AssertionError(f"22 {what}: a candidate failed: {rec}")
+
+
+def p22_verdict_line(rec) -> str:
+    return (f"best {rec['best']} {rec['best_ms']} ms, reference "
+            f"{rec['reference_ms']} ms, speedup {rec['speedup']}, use_kernel "
+            f"{rec['use_kernel']}, errors {rec['errors'] or 'none'}")
+
+
+def p22_attention_verdicts(torch, np, kind):
+    """22(a): the flash verdicts at BERT serving's shape in bf16 and fp32
+    (TF32 off) beside the einsum chain's time, then BERT-Base at
+    ``BertConfig()``'s ``use_flash=None`` under ``sync``: the route follows
+    the verdict (12 flash launches a forward, or none and the einsum
+    chain), the output within phase 6's limits of the ``use_flash=True``
+    model's."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import _build, autotune
+    from analytics_zoo_tpu_torch.ops import attention as att
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = BERT_BATCH, BERT_LEN, 12, 64
+    rep = {}
+    gen = torch.Generator().manual_seed(SEED)
+    x = bert_inputs(np.random.RandomState(SEED), BERT_BATCH)
+    sample = tuple(a[:BERT_CPU_ROWS] for a in x)
+    state = bert_classifier(None, use_flash=True).state_dict()
+    for dname, dtype, atol in (("float32", torch.float32, BERT_ATOL),
+                               ("bfloat16", torch.bfloat16, BERT_BF16_ATOL)):
+        with autotune_mode("sync"):
+            rec = autotune.tune_attention(b, s, h, d, dtype=dtype)
+        p22_check_record(rec, f"(a) {dname}")
+        q, k, v = (torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
+                   for _ in range(3))
+        chain_ms = cuda_ms(lambda: att._reference_attention(q, k, v),
+                           iters=20)
+        kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=20)
+        cfg = {} if dtype == torch.float32 else dict(dtype=dtype)
+        with autotune_mode("sync"):
+            im = InferenceModel(device="cuda").load_torch(
+                bert_classifier(state, **cfg), sample)
+            im.predict(x, batch_size=BERT_BATCH)            # warm up
+            before = _build.launch_counts().get("flash_attention_fwd", 0)
+            y, fwd_ms = timed_predict(im, x, reps=3)
+            per_fwd = (_build.launch_counts().get("flash_attention_fwd", 0)
+                       - before) / 4
+        y_flash = InferenceModel(device="cuda").load_torch(
+            bert_classifier(state, use_flash=True, **cfg), sample).predict(
+            x, batch_size=BERT_BATCH)
+        diff = float(np.abs(y - y_flash).max())
+        want = 12 if rec["use_kernel"] else 0
+        rep[dname] = dict(record=rec, einsum_chain_ms=chain_ms,
+                          kernel_ms=kernel_ms, predict_ms=fwd_ms,
+                          flash_launches_per_forward=per_fwd,
+                          max_abs_diff_flash_model=diff)
+        log(f"22(a) flash verdict {dname} {b}x{s}x{h}x{d}: "
+            f"{p22_verdict_line(rec)}; einsum chain {chain_ms:.4f} ms, "
+            f"kernel {kernel_ms:.4f} ms (CUDA events, {kind})")
+        log(f"22(a) BERT-Base use_flash=None {dname} predict "
+            f"{b}x{s}: {fwd_ms:.3f} ms/call, {per_fwd:.0f} flash launches a "
+            f"forward (the verdict says {want}); max |y - use_flash=True| "
+            f"{diff:.3g} (atol {atol})")
+        if per_fwd != want or not np.isfinite(y).all() or diff > atol:
+            raise AssertionError(f"22(a) {dname}: route or output: "
+                                 f"{rep[dname]}")
+        if not rec["use_kernel"]:
+            log(f"22(a) QUEUE B FINDING: the flash kernel lost its "
+                f"measurement in {dname} at {b}x{s}: {p22_verdict_line(rec)}")
+    return rep
+
+
+def p22_flash_bench(torch, kind):
+    """22(b): bench.py's ``measure_flash_attention`` on the card: causal
+    bf16 at 4 x 2048, 8 heads, d 64, FA_ITERS chained calls (each call's
+    q the last output) for blockwise_attention, the kernel alone and the
+    ``auto_flash_attention`` route after ``tune_attention``."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn((FA_BATCH, FA_SEQ, FA_HEADS, FA_DIM),
+                           generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(3))
+
+    def timed(fn):
+        with torch.inference_mode():
+            fn(q, k, v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = q
+            for _ in range(FA_ITERS):
+                out = fn(out, k, v)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / FA_ITERS * 1e3
+
+    block_ms = timed(lambda a, b, c: fa.blockwise_attention(a, b, c,
+                                                            causal=True))
+    kernel_ms = timed(lambda a, b, c: fa.flash_attention(a, b, c,
+                                                         causal=True))
+    rec = autotune.tune_attention(FA_BATCH, FA_SEQ, FA_HEADS, FA_DIM,
+                                  dtype=torch.bfloat16, causal=True,
+                                  iters=FA_ITERS)
+    p22_check_record(rec, "(b)")
+    auto_ms = timed(lambda a, b, c: autotune.auto_flash_attention(
+        a, b, c, causal=True))
+    rep = dict(blockwise_attn_seq_ms=block_ms, flash_kernel_ms=kernel_ms,
+               auto_ms=auto_ms, record=rec,
+               flash_kernel_raw_speedup=rec["speedup"],
+               flash_vs_blockwise_speedup=block_ms / auto_ms)
+    log(f"22(b) measure_flash_attention on {kind} (causal bf16 "
+        f"{FA_BATCH}x{FA_SEQ}x{FA_HEADS}x{FA_DIM}, {FA_ITERS} chained "
+        f"calls, host clock): blockwise {block_ms:.4f} ms, kernel "
+        f"{kernel_ms:.4f} ms, auto_flash_attention {auto_ms:.4f} ms; "
+        f"flash_vs_blockwise_speedup {rep['flash_vs_blockwise_speedup']:.3f}"
+        f", flash_kernel_raw_speedup {rec['speedup']}; verdict "
+        f"{p22_verdict_line(rec)}")
+    if not rec["use_kernel"]:
+        log(f"22(b) QUEUE B FINDING: the flash kernel lost to blockwise at "
+            f"bench.py's shape: {p22_verdict_line(rec)}")
+    return rep
+
+
+def p22_kernel_verdicts(torch, np, kind):
+    """22(c): the lookup's, the bag's and the paged kernels' verdicts (the
+    kernel against its plain version on the card) at NCF's tables (batch
+    8000, concat), the history column (8000 x 8, d 20, mean) and decode's
+    shape (measure_decode: batch 8, page size 8); each persisted, read
+    back by a fresh tuner; then one public call of each adds exactly one
+    launch to its kernel's count whatever the verdict."""
+    from analytics_zoo_tpu_torch.inference import decode_scheduler, generation
+    from analytics_zoo_tpu_torch.ops import _build, autotune
+    from analytics_zoo_tpu_torch.ops import embedding_bag as eb
+    from analytics_zoo_tpu_torch.ops import paged_attention as pa
+    users, items = NCF["user_count"] + 1, NCF["item_count"] + 1
+    tables = [(users, NCF["user_embed"]), (items, NCF["item_embed"])]
+    dim = DECODE["output_dim"]
+    n_pages = decode_scheduler.default_pool_pages(
+        DECODE_BATCH, DECODE_STEPS, spec_k=0, page_size=PAGE_SIZE)
+    top = generation.seq_ladder(DECODE_STEPS + 1,
+                                min_rung=PAGE_SIZE).rung_for(DECODE_STEPS + 1)
+    width = -(-top // PAGE_SIZE)
+    recs = {
+        eb._shapes_key("fused", tables, f"concat.b{BATCH}", torch.float32):
+            eb.tune_fused_lookup(tables, BATCH, "concat"),
+        eb._shapes_key("bag", [(items, NCF["item_embed"])],
+                       f"mean.b{BATCH}l{HIST_LEN}", torch.float32):
+            eb.tune_bag(items, NCF["item_embed"], BATCH, HIST_LEN, "mean"),
+        pa.gather_key(DECODE_BATCH, width, PAGE_SIZE, dim, n_pages,
+                      torch.float32):
+            pa.tune_paged_gather(DECODE_BATCH, width, PAGE_SIZE, dim,
+                                 n_pages),
+        pa.attn_key(DECODE_BATCH, width, PAGE_SIZE, dim, n_pages,
+                    torch.float32):
+            pa.tune_paged_attention(DECODE_BATCH, width, PAGE_SIZE, dim,
+                                    n_pages),
+    }
+    autotune.reset_tuner()
+    rep = {"records": recs}
+    for key, rec in recs.items():
+        p22_check_record(rec, f"(c) {key}")
+        back = autotune.get_tuner().lookup(key)
+        if back != rec:
+            raise AssertionError(f"22(c) {key} not read back: {back}")
+        log(f"22(c) {key}: {p22_verdict_line(rec)}")
+        if not rec["use_kernel"]:
+            log(f"22(c) QUEUE B FINDING: {rec['kernel']} lost to its plain "
+                f"version at {key}")
+    rng = np.random.default_rng(SEED)
+    tabs = [torch.randn(shape, device="cuda") for shape in tables]
+    ids = torch.from_numpy(np.stack(
+        [rng.integers(0, users, BATCH), rng.integers(0, items, BATCH)],
+        1).astype(np.int32)).to("cuda")
+    bag_ids = torch.from_numpy(rng.integers(
+        0, items, (BATCH, HIST_LEN)).astype(np.int32)).to("cuda")
+    pool, table, lengths, _ = pa._synth_args(DECODE_BATCH, width, PAGE_SIZE,
+                                             dim, n_pages, torch.float32)
+    q = torch.randn((DECODE_BATCH, dim), device="cuda")
+    calls = {"fused_embedding_lookup": lambda: eb.fused_embedding_lookup(
+                 tabs, ids, "concat"),
+             "embedding_bag": lambda: eb.embedding_bag(tabs[1], bag_ids,
+                                                       mode="mean"),
+             "paged_gather": lambda: pa.paged_gather(pool, table, lengths),
+             "paged_attention": lambda: pa.paged_attention(
+                 q, pool, pool, table, lengths)}
+    rep["public_launches"] = {}
+    with torch.inference_mode():
+        for name, call in calls.items():
+            before = _build.launch_counts()
+            call()
+            torch.cuda.synchronize()
+            n = _build.launch_counts().get(name, 0) - before.get(name, 0)
+            rep["public_launches"][name] = n
+            if n != 1:
+                raise AssertionError(f"22(c) one public {name} made {n} "
+                                     f"launches")
+    log(f"22(c) one public call each after the verdicts: "
+        f"{rep['public_launches']} (kernel on the card whatever the "
+        f"verdict, {kind})")
+    return rep
+
+
+def p22_queue(torch, np, kind):
+    """22(d): in ``on`` mode a BERT-Base predict at a batch no verdict
+    covers queues its shape and takes the 2 GiB heuristic (the einsum
+    chain); ``warm_up(block=True)`` drains the queue: nothing pending,
+    the verdict on disk, and the next predict follows it. The
+    ``zoo_autotune_*`` values are read off the registry."""
+    from analytics_zoo_tpu_torch.common import telemetry
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import _build, autotune
+    n = P22_BERT_QUEUE_BATCH
+    from analytics_zoo_tpu_torch.ops.attention import AttentionModule
+    x = bert_inputs(np.random.RandomState(SEED + 1), n)
+    sample = tuple(a[:BERT_CPU_ROWS] for a in x)
+    model = bert_classifier(None)
+    attn = next(m for m in model.modules() if isinstance(m, AttentionModule))
+    key = autotune.attention_key(n, BERT_LEN, BERT_LEN, attn.num_heads,
+                                 attn.head_dim, torch.float32, False)
+    with autotune_mode("on"):
+        im = InferenceModel(device="cuda").load_torch(model, sample)
+        _build.reset_launch_counts()
+        y0 = im.predict(x, batch_size=n)
+        before = _build.launch_counts().get("flash_attention_fwd", 0)
+        pending = autotune.pending_count()
+        if autotune.get_tuner().lookup(key) is not None or pending < 1 \
+                or before != 0:
+            raise AssertionError(f"22(d) a miss should queue and take the "
+                                 f"einsum chain: pending {pending}, flash "
+                                 f"launches {before}")
+        im.warm_up(block=True)
+        left = autotune.pending_count()
+        with open(autotune.get_tuner().path) as fh:
+            on_disk = json.load(fh).get(key)
+        if left or on_disk is None:
+            raise AssertionError(f"22(d) warm_up left {left} pending; "
+                                 f"verdict on disk: {on_disk}")
+        p22_check_record(on_disk, "(d)")
+        _build.reset_launch_counts()
+        y1 = im.predict(x, batch_size=n)
+        after = _build.launch_counts().get("flash_attention_fwd", 0)
+    if after != (12 if on_disk["use_kernel"] else 0):
+        raise AssertionError(f"22(d) after the drain: {after} flash "
+                             f"launches, verdict {on_disk}")
+    diff = float(np.abs(y1 - y0).max())
+    if diff > BERT_ATOL:
+        raise AssertionError(f"22(d) the routes' outputs differ by {diff}")
+    snap = telemetry.snapshot()
+    metrics = {name: snap.get(f"zoo_autotune_{name}", {}) for name in (
+        "runs_total", "cache_hits_total", "fallbacks_total", "pending",
+        "best_ms", "speedup")}
+    log(f"22(d) on {kind}: a BERT predict of {n}x{BERT_LEN} queued "
+        f"{pending}; warm_up(block=True) drained it (pending {left}); "
+        f"verdict {p22_verdict_line(on_disk)}; flash launches before "
+        f"{before}, after {after}; max |after - before| {diff:.3g}; "
+        f"registry {metrics}")
+    return dict(pending_before=pending, pending_after=left,
+                record=on_disk, launches_before=before,
+                launches_after=after, max_abs_diff=diff, metrics=metrics)
+
+
+def p22_decode(torch, np, kind):
+    """22(e): decode (measure_decode's model and shape) through a
+    DecodeScheduler with ``paged="auto"`` under ``sync``: ``tune_paged``'s
+    verdict persisted at the top rung, every other step shape measured at
+    its first step; the route each step took, gathers equal to paged
+    steps, tokens bitwise greedy generate."""
+    from analytics_zoo_tpu_torch.common.compile_ahead import BucketLadder
+    from analytics_zoo_tpu_torch.inference import (InferenceModel,
+                                                   decode_scheduler,
+                                                   generation)
+    from analytics_zoo_tpu_torch.models import Seq2Seq
+    from analytics_zoo_tpu_torch.ops import _build, autotune
+    from analytics_zoo_tpu_torch.ops import paged_attention as pa
+    b, steps = DECODE_BATCH, DECODE_STEPS
+    m = Seq2Seq(**DECODE)
+    seeded_weights(m.model.module, SEED)
+    rng = np.random.default_rng(7)
+    enc = rng.standard_normal((b, 8, DECODE["input_dim"])).astype(np.float32)
+    start = np.zeros((b, DECODE["output_dim"]), np.float32)
+    im = InferenceModel(device="cuda").load_zoo(m)
+    im.set_ladder(BucketLadder(b, b))
+    greedy = im.generate(enc, start, steps)
+    sched = decode_scheduler.DecodeScheduler(
+        im.decode_step_fn(), max_batch=b, max_seq=steps, spec_k=0,
+        batch_ladder=BucketLadder(b, b),
+        paged_step_fn=im.paged_decode_step_fn(), paged="auto")
+    seqs = [sched.admit(enc[i], start[i], steps, mode="greedy")
+            for i in range(b)]
+    top = generation.seq_ladder(steps + 1, min_rung=PAGE_SIZE).rung_for(
+        steps + 1)
+    verdicts = build_step_verdicts(sched, enc[0].shape, DECODE["output_dim"],
+                                   steps)
+    key = pa.step_key(b, top, PAGE_SIZE, DECODE["output_dim"],
+                      sched.allocator.n_pages, sched.allocator.kv_dtype,
+                      enc[0].shape)
+    autotune.reset_tuner()
+    rec = autotune.get_tuner().lookup(key)
+    with autotune_mode("sync"):
+        _build.reset_launch_counts()
+        sched.drain()
+        gathers = _build.launch_counts().get("paged_gather", 0)
+    for i, s in enumerate(seqs):
+        if not np.array_equal(s.result, greedy[i]):
+            raise AssertionError(f"22(e) sequence {i} differs from greedy")
+    if gathers != sched.paged_steps or rec is None:
+        raise AssertionError(f"22(e) {gathers} gathers for "
+                             f"{sched.paged_steps} paged steps; the top "
+                             f"shape's verdict {rec}")
+    log(f"22(e) decode paged='auto' (sync) on {kind}: tune_paged's "
+        f"persisted verdicts {verdicts}, read back at b{b}s{top}: "
+        f"{p22_verdict_line(rec)}; {sched.paged_steps} paged steps, "
+        f"{sched.paged_fallbacks} host-gather steps, {gathers} gathers; "
+        f"tokens bitwise greedy generate")
+    return dict(tune_paged=rec, key=key, verdicts=verdicts,
+                paged_steps=sched.paged_steps,
+                gather_steps=sched.paged_fallbacks, gathers=gathers)
+
+
+def recsys_raw_df(rows, users, items):
+    """bench.py's ``_recsys_raw_df`` (bench.py:1624) at ``rows``, ``users``
+    and ``items``: string codes, a time stamp, numpy seed 11."""
+    import numpy as np
+    import pandas as pd
+    rng = np.random.default_rng(11)
+    u = rng.integers(0, users, rows)
+    i = rng.integers(0, items, rows)
+    return pd.DataFrame({
+        "user_code": np.char.add("u", u.astype(str)),
+        "item_code": np.char.add("i", i.astype(str)),
+        "time": rng.integers(0, 100_000, rows),
+    })
+
+
+def recsys_transforms(df, items):
+    """bench.py's ``_recsys_transforms`` (bench.py:1636)."""
+    from analytics_zoo_tpu_torch.friesian.feature import FeatureTable
+    t = FeatureTable.from_pandas(df, RECSYS_SHARDS)
+    indices = t.gen_string_idx(["user_code", "item_code"])
+    t = t.encode_string(["user_code", "item_code"], indices)
+    t = t.rename({"user_code": "user", "item_code": "item"})
+    t = t.add_hist_seq("user", ["item"], sort_col="time",
+                       min_len=1, max_len=RECSYS_SEQ)
+    t = t.add_negative_samples(item_size=items, item_col="item",
+                               neg_num=1)
+    t = t.cross_columns([["user", "item"]], [100])
+    t = t.mask_pad(padding_cols=["item_hist_seq"],
+                   mask_cols=["item_hist_seq"], seq_len=RECSYS_SEQ)
+    t = t.add_length("item_hist_seq")
+    return t.merge_cols(["user", "item"], "features")
+
+
+def p22_data_env(**env):
+    """A context manager setting the data plane's env knobs."""
+    from contextlib import contextmanager
+
+    @contextmanager
+    def scope():
+        prev = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            yield
+        finally:
+            for k, v in prev.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return scope()
+
+
+def p22_ncf(config, device):
+    """NeuralCF of ``config`` with weights from the numpy seed, compiled
+    with Adam(1e-3) on ``device``; returns (the model, its estimator)."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    ncf = NeuralCF(**config)
+    seeded_weights(ncf.model.module, SEED)
+    ncf.compile(optimizer=Adam(RECSYS_LR),
+                loss="sparse_categorical_crossentropy", device=device)
+    return ncf, ncf.model._ensure_estimator(for_training=True)
+
+
+def table_arrays(np, table):
+    """A feed-ready table's columns as arrays: list cells stacked."""
+    df = table.to_pandas()
+    out = {}
+    for c in df.columns:
+        col = df[c]
+        out[c] = np.stack(col.to_numpy()) if col.dtype == object \
+            else col.to_numpy()
+    return out
+
+
+def p22_recsys(torch, np, kind):
+    """22(f): bench.py's measure_recsys_pipeline at its size: the transform
+    chain legacy (ZOO_DATA_VECTORIZE=0 ZOO_DATA_WORKERS=0) and vectorized,
+    the faster feeding the streaming dataset of an NCF fit on the card;
+    the positive rows of the two tables equal (their negatives are drawn
+    from other shards, by design); the first steps on the card against
+    the CPU."""
+    from analytics_zoo_tpu_torch.data.dataset import ShardedDataset
+    from analytics_zoo_tpu_torch.ops import _build
+    df = recsys_raw_df(RECSYS_ROWS, RECSYS_USERS, RECSYS_ITEMS)
+    with p22_data_env(ZOO_DATA_VECTORIZE="0", ZOO_DATA_WORKERS="0"):
+        t0 = time.perf_counter()
+        legacy = recsys_transforms(df, RECSYS_ITEMS)
+        t_legacy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = recsys_transforms(df, RECSYS_ITEMS)
+    t_fast = time.perf_counter() - t0
+    use_fast = t_fast <= t_legacy
+    t_chosen = min(t_fast, t_legacy)
+    table = fast if use_fast else legacy
+    a_fast, a_legacy = table_arrays(np, fast), table_arrays(np, legacy)
+
+    def positives(a):
+        keep = a["label"] == 1
+        rows = np.concatenate([a[c][keep].reshape(int(keep.sum()), -1)
+                               for c in sorted(a)], 1)
+        return rows[np.lexsort(rows.T[::-1])]
+
+    same_pos = np.array_equal(positives(a_fast), positives(a_legacy))
+    if not same_pos or len(a_fast["label"]) != len(a_legacy["label"]):
+        raise AssertionError("22(f) legacy and vectorized tables differ "
+                             "beyond their negatives")
+    ds = table.to_streaming_dataset(["features"], "label", prefetch_depth=2)
+    ncf, est = p22_ncf(RECSYS_NCF, "cuda")
+    fit, launches, dt_fit = counted(torch, lambda: est.fit(
+        ds, epochs=RECSYS_EPOCHS, batch_size=RECSYS_BATCH))
+    steps = ds.n // RECSYS_BATCH
+    samples = ds.n * RECSYS_EPOCHS
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    # card against CPU: the first steps from the same start on the same
+    # rows in the same order
+    n = P22_CHECK_STEPS * RECSYS_BATCH
+    check = ShardedDataset(a_fast["features"][:n], a_fast["label"][:n]) \
+        if use_fast else ShardedDataset(a_legacy["features"][:n],
+                                        a_legacy["label"][:n])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m, e = p22_ncf(RECSYS_NCF, dev)
+        e.fit(check, epochs=1, batch_size=RECSYS_BATCH)
+        runs[dev] = (list(e.step_losses), {
+            k: v.detach().cpu() for k, v in m.model.module.state_dict()
+            .items()})
+    loss_diff = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                               runs["cpu"][0]))
+    param_diff = max(float((runs["cuda"][1][k] - v).abs().max())
+                     for k, v in runs["cpu"][1].items())
+    rep = dict(
+        recsys_pipeline_samples_per_sec=samples / (t_chosen + dt_fit),
+        friesian_transform_speedup=t_legacy / t_chosen,
+        recsys_transform_mode="vectorized-parallel" if use_fast
+        else "legacy-serial",
+        recsys_transform_seconds=t_chosen,
+        recsys_transform_legacy_seconds=t_legacy,
+        recsys_transform_vectorized_seconds=t_fast,
+        recsys_pipeline_rows=int(ds.n), fit_seconds=dt_fit,
+        fit_step_ms=dt_fit / steps * 1e3, launches=launches,
+        launches_per_step=per_step, epoch_loss=fit["loss"][0],
+        check_loss_max_abs_diff=loss_diff,
+        check_param_max_abs_diff=param_diff)
+    log(f"22(f) recsys pipeline on {kind}: transforms legacy "
+        f"{t_legacy:.3f} s, vectorized {t_fast:.3f} s "
+        f"(friesian_transform_speedup {rep['friesian_transform_speedup']:.3f}"
+        f", {rep['recsys_transform_mode']}); {ds.n} rows fit in "
+        f"{dt_fit:.3f} s ({rep['fit_step_ms']:.3f} ms a step of "
+        f"{RECSYS_BATCH}); recsys_pipeline_samples_per_sec "
+        f"{rep['recsys_pipeline_samples_per_sec']:.1f}; launches a step "
+        f"{per_step}; positive rows equal across modes; first "
+        f"{P22_CHECK_STEPS} steps card vs CPU: loss {loss_diff:.3g}, "
+        f"parameters {param_diff:.3g} (atol {P22_FIT_ATOL})")
+    for name in ("fused_embedding_lookup", "embedding_scatter_add"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"22(f) the fit launched no {name}")
+    if loss_diff > P22_FIT_ATOL or param_diff > P22_FIT_ATOL \
+            or not np.isfinite(fit["loss"]).all():
+        raise AssertionError(f"22(f) card vs CPU: {rep}")
+    return rep
+
+
+def p22_ml1m(torch, np, kind):
+    """22(g): the chain at MovieLens-1M's shape (vectorized) under DRAM and
+    under NATIVE_4, the tables bitwise equal; NCF at ML-1M width fit one
+    epoch of batch 8000 from the NATIVE_4 table's streaming feed, whose
+    windows stay within the tier's bound."""
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    df = recsys_raw_df(ML1M_ROWS, ML1M_USERS, ML1M_ITEMS)
+    prev = OrcaContext.train_data_store
+    tables, secs = {}, {}
+    try:
+        for tier in ("DRAM", "NATIVE_4"):
+            OrcaContext.train_data_store = tier
+            t0 = time.perf_counter()
+            tables[tier] = recsys_transforms(df, ML1M_ITEMS)
+            secs[tier] = time.perf_counter() - t0
+        dram, native = (table_arrays(np, tables[t])
+                        for t in ("DRAM", "NATIVE_4"))
+        if sorted(dram) != sorted(native) or not all(
+                dram[c].dtype == native[c].dtype
+                and np.array_equal(dram[c], native[c]) for c in dram):
+            raise AssertionError("22(g) NATIVE_4 table differs from DRAM's")
+        table = tables["NATIVE_4"]
+        if table.shards.tier != "NATIVE_4":
+            raise AssertionError(f"22(g) tier {table.shards.tier}")
+        ds = table.to_streaming_dataset(["features"], "label",
+                                        prefetch_depth=2)
+        ncf, est = p22_ncf(ML1M_NCF, "cuda")
+        fit, launches, dt_fit = counted(torch, lambda: est.fit(
+            ds, epochs=1, batch_size=ML1M_BATCH))
+    finally:
+        OrcaContext.train_data_store = prev
+    sizes = [len(s) for s in table.shards._iter_shards()]
+    w = ds.window_shards
+    bound = max(sum(sizes[i:i + w]) for i in range(0, len(sizes), w)) \
+        + ML1M_BATCH
+    steps = ds.n // ML1M_BATCH
+    rep = dict(rows=int(ds.n), transform_seconds=secs,
+               window_shards=w, peak_window_rows=ds.peak_window_rows,
+               window_bound=bound, fit_seconds=dt_fit,
+               fit_step_ms=dt_fit / steps * 1e3,
+               samples_per_sec_with_transform=ds.n / (secs["NATIVE_4"]
+                                                      + dt_fit),
+               samples_per_sec_fit=ds.n / dt_fit, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v}, epoch_loss=fit["loss"][0],
+               native_stats=table.shards._store.stats)
+    log(f"22(g) MovieLens-1M shape ({ML1M_ROWS} rows, {ML1M_USERS} users, "
+        f"{ML1M_ITEMS} items) on {kind}: vectorized transforms DRAM "
+        f"{secs['DRAM']:.3f} s, NATIVE_4 {secs['NATIVE_4']:.3f} s, tables "
+        f"bitwise; {ds.n} rows, NCF (20, (40, 20, 10), GMF 20) one epoch "
+        f"of {ML1M_BATCH} in {dt_fit:.3f} s ({rep['fit_step_ms']:.3f} ms a "
+        f"step): {rep['samples_per_sec_with_transform']:.1f} samples/s with "
+        f"the transforms, {rep['samples_per_sec_fit']:.1f} without; "
+        f"peak_window_rows {ds.peak_window_rows} (bound {bound}); native "
+        f"store {rep['native_stats']}")
+    if not ds.peak_window_rows <= bound or not np.isfinite(
+            fit["loss"]).all():
+        raise AssertionError(f"22(g) {rep}")
+    return rep, est
+
+
+def p22_predict_windows(torch, np, est, kind):
+    """22(h): C24 on the card: TorchEstimator.predict of 80 000 NCF rows
+    (batch 8000) at pipeline windows 1, 2 and 4, bitwise equal."""
+    rng = np.random.default_rng(SEED)
+    x = np.stack([rng.integers(1, ML1M_USERS + 1, P22_PREDICT_ROWS),
+                  rng.integers(1, ML1M_ITEMS + 1, P22_PREDICT_ROWS)],
+                 1).astype(np.int64)
+    outs, ms = {}, {}
+    for w in P22_WINDOWS:
+        est.predict(x, batch_size=ML1M_BATCH, pipeline_window=w)  # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[w] = est.predict(x, batch_size=ML1M_BATCH, pipeline_window=w)
+        ms[w] = (time.perf_counter() - t0) * 1e3
+    for w in P22_WINDOWS[1:]:
+        if not np.array_equal(outs[w], outs[1]):
+            raise AssertionError(f"22(h) window {w} differs from window 1")
+    if outs[1].shape != (P22_PREDICT_ROWS, 2):
+        raise AssertionError(f"22(h) shape {outs[1].shape}")
+    log(f"22(h) TorchEstimator.predict of {P22_PREDICT_ROWS} rows on "
+        f"{kind}, ms by window {ms} (host clock); windows bitwise")
+    return dict(ms=ms)
+
+
+def phase_autotune_friesian(torch, np, kind):
+    """Phase 22: the autotuner's verdicts and the dispatch that reads them,
+    and Friesian into the NCF fit (ROADMAP A9's first part, A11's second
+    part, C24). TF32 off. The counts are zeroed before each part and read
+    after it."""
+    from analytics_zoo_tpu_torch.ops import autotune
+    t0 = time.perf_counter()
+    rep = {}
+    with p17_tf32(torch, False):
+        rep["a"] = p19_part(rep, "a", lambda: p22_attention_verdicts(
+            torch, np, kind), phase=22)
+        with autotune_mode("sync"):
+            rep["b"] = p19_part(rep, "b", lambda: p22_flash_bench(
+                torch, kind), phase=22)
+        rep["c"] = p19_part(rep, "c", lambda: p22_kernel_verdicts(
+            torch, np, kind), phase=22)
+        rep["d"] = p19_part(rep, "d", lambda: p22_queue(torch, np, kind),
+                            phase=22)
+        rep["e"] = p19_part(rep, "e", lambda: p22_decode(torch, np, kind),
+                            phase=22)
+        rep["f"] = p19_part(rep, "f", lambda: p22_recsys(torch, np, kind),
+                            phase=22)
+        rep["g"], est = p19_part(rep, "g", lambda: p22_ml1m(torch, np, kind),
+                                 phase=22)
+        rep["h"] = p19_part(rep, "h", lambda: p22_predict_windows(
+            torch, np, est, kind), phase=22)
+    for part, name in (("a", "flash_attention_fwd"),
+                       ("b", "flash_attention_fwd"),
+                       ("d", None),
+                       ("e", None),
+                       ("f", "fused_embedding_lookup"),
+                       ("f", "embedding_scatter_add"),
+                       ("g", "fused_embedding_lookup"),
+                       ("g", "embedding_scatter_add"),
+                       ("h", "fused_embedding_lookup")):
+        if name is not None and rep["launches"][part].get(name, 0) <= 0:
+            raise AssertionError(f"22({part}) launched no {name}: "
+                                 f"{rep['launches'][part]}")
+    rep["seconds"] = time.perf_counter() - t0
+    rep["verdict_file"] = autotune.get_tuner().path
+    log(f"phase 22: seconds by part "
+        f"{ {k: round(v, 1) for k, v in rep['part_seconds'].items()} }; "
+        f"launches by part {rep['launches']}")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9502,6 +10294,19 @@ def main() -> int:
 
     t_start = time.perf_counter()
     report = {}
+    # the run's verdicts go to a file of its own, empty at the start, so no
+    # phase reads a verdict a former run left; the autotuner reads none in
+    # phases 1-21 but where a phase asks (decode's paged="auto" in 9(f)
+    # and 15(g), after building its verdicts), and phase 22 sets each
+    # part's mode
+    import shutil
+    from analytics_zoo_tpu_torch.ops import autotune
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    os.makedirs(AUTOTUNE_DIR)
+    os.environ["ZOO_AUTOTUNE_CACHE"] = os.path.join(AUTOTUNE_DIR,
+                                                    "autotune.json")
+    os.environ["ZOO_AUTOTUNE"] = "off"
+    autotune.reset_tuner()
     # 1. card
     card = card_line()
     log(card)
@@ -9645,21 +10450,25 @@ def main() -> int:
     _build.reset_launch_counts()
     dec_im, greedy, dec_inputs, report["decode"] = phase_decode(
         torch, np, pa, kind)
-    served_before = pa.gather_launches.value
     report["decode_serving"] = phase_decode_serving(
         np, dec_im, greedy, dec_inputs,
         (Broker, ClusterServing, InputQueue, OutputQueue), kind)
-    served_gathers = pa.gather_launches.value - served_before
+    served_gathers = report["decode_serving"]["gather_launches"]
     decode_counts = _build.launch_counts()
+    served_paged = report["decode_serving"]["metrics"]["paged_steps"]
+    forced = report["decode_serving"]["forced"]
     if report["decode"]["d"]["float32"]["launches"].get("paged_gather", 0) \
-            <= 0 or served_gathers <= 0:
+            <= 0 or served_gathers != served_paged \
+            or forced["gather_launches"] <= 0 \
+            or forced["gather_launches"] != forced["paged_steps"]:
         raise AssertionError(f"the decode path did not launch paged_gather "
-                             f"in (d) and in (f): {report['decode']['d']}, "
-                             f"serving {served_gathers}")
+                             f"in (d) or in (f)'s forced burst {forced}, or "
+                             f"(f)'s {served_gathers} gathers are not its "
+                             f"{served_paged} paged steps: "
+                             f"{report['decode']['d']}")
     if decode_counts.get("paged_attention", 0) <= 0:
         raise AssertionError(f"the live pool launched no paged_attention: "
                              f"{decode_counts}")
-    report["decode_serving"]["gather_launches"] = served_gathers
     # 10. NCF training: (a) compares, (b)-(d) are the path
     x_tr, y_tr, hist_tr = ncf_train_data(np)
     report["ncf_train_step"] = {
@@ -9773,6 +10582,14 @@ def main() -> int:
     report["detection"] = phase_detection(
         torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
     log(f"phase 21: {report['detection']['seconds']:.1f} s")
+    # 22. the autotuner's verdicts and the routes that read them (BERT's
+    # use_flash=None, measure_flash_attention, the kernels' verdicts, the
+    # warm-up queue, decode's paged="auto"), Friesian into the NCF fit at
+    # bench.py's size and at MovieLens-1M's under NATIVE_4, predict's
+    # window; the counts zeroed before each part
+    report["autotune_friesian"] = phase_autotune_friesian(torch, np, kind)
+    log(f"phase 22: {report['autotune_friesian']['seconds']:.1f} s")
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -9784,7 +10601,9 @@ def main() -> int:
                           "image_path": report["image_path"]["launches"],
                           "text": report["text"]["launches"],
                           "zouwu": report["zouwu"]["launches"],
-                          "detection": report["detection"]["launches"]}
+                          "detection": report["detection"]["launches"],
+                          "autotune_friesian":
+                              report["autotune_friesian"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -9943,6 +10762,16 @@ def main() -> int:
                report["text"]["launches"].items() if c.get(row["name"], 0)}
         if p19:
             row["phase19_launches"] = p19
+    # phase 22's paths: BERT by its verdict, measure_flash_attention and
+    # the queue's drain (B3), one public call each after the verdicts (B1,
+    # B2, B6, B7), decode by its verdicts (B6), the recsys and ML-1M fits
+    # (B1, B1b), predict's windows (B1)
+    for row in kernels["kernels"]:
+        p22 = {part: c.get(row["name"], 0) for part, c in
+               report["autotune_friesian"]["launches"].items()
+               if c.get(row["name"], 0)}
+        if p22:
+            row["phase22_launches"] = p22
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     # the card again, so that the output's tail names it beside the numbers

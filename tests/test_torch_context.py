@@ -3,8 +3,9 @@ against the JAX package's, on the CPU.
 
 - Every ``OrcaContext`` knob has JAX's default and accepts and refuses
   the same values (the port raises ValueError where JAX asserts);
-  ``train_data_store="NATIVE_n"`` raises NotImplementedError naming
-  ROADMAP A11, at the knob and at a shard store.
+  ``train_data_store="NATIVE_n"`` is accepted, and a shard store of that
+  tier whose library g++ cannot build raises ``NativeStoreCompileError``
+  naming g++ (never the DISK_n fallback).
 - ``init_orca_context``: the Spark/Ray kwargs warn, a second call warns
   and returns the live context, ``multihost`` / ``tpu_pod`` raise naming
   A9, no CUDA and no ``device="cpu"`` raises, the precision flags are set
@@ -82,11 +83,16 @@ def test_knob_accepts_and_refuses_as_jax(jax_ctx, name, good, bad):
         setattr(jax_ctx.OrcaContext, name, jax_default)
 
 
-def test_native_tier_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A11"):
-        OrcaContext.train_data_store = "NATIVE_2"
-    assert OrcaContext.train_data_store == "DRAM"
-    with pytest.raises(NotImplementedError, match="zstore"):
+def test_native_tier_raises_naming_its_item(monkeypatch, tmp_path):
+    from analytics_zoo_tpu_torch.data import native_store
+    OrcaContext.train_data_store = "NATIVE_2"
+    assert OrcaContext.train_data_store == "NATIVE_2"
+    OrcaContext.train_data_store = "DRAM"
+    # no library built and no g++ on the PATH: the store names g++
+    monkeypatch.setattr(native_store, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native_store, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(native_store.NativeStoreCompileError, match="g\\+\\+"):
         HostXShards([np.arange(4)], tier="native_4")
 
 

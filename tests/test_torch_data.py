@@ -2,7 +2,8 @@
 ``data/pandas``) against the JAX package's, on the CPU.
 
 - The tests of JAX's ``tests/test_data.py`` that need no mesh, mirrored
-  (its native-store fallback test becomes: ``NATIVE_n`` raises).
+  (its native-store fallback test becomes: ``NATIVE_n`` without g++
+  raises ``NativeStoreCompileError`` instead of falling back to DISK_n).
 - Cross-package, bitwise: ``partition`` (``num_shards`` given: JAX's CPU
   context has 8 devices, the port's 1), ``repartition``, ``partition_by``,
   ``split``, ``zip``, ``len``, ``__getitem__`` and ``unique`` give JAX's
@@ -171,11 +172,16 @@ def test_disk_tier():
     assert all(os.path.exists(p) for p in store._paths)
 
 
-def test_native_tier_raises_instead_of_falling_back():
-    with pytest.raises(NotImplementedError, match="A11"):
-        shard_lib._ShardStore([{"a": np.arange(4)}], "NATIVE_2")
-    with pytest.raises(NotImplementedError):
-        OrcaContext.train_data_store = "NATIVE_2"
+def test_native_tier_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    from analytics_zoo_tpu_torch.data import native_store
+    monkeypatch.setattr(native_store, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native_store, "_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(native_store.NativeStoreCompileError, match="g\\+\\+"):
+        shard_lib._make_store([{"a": np.arange(4)}], "NATIVE_2")
+    OrcaContext.train_data_store = "NATIVE_2"
+    with pytest.raises(native_store.NativeStoreCompileError):
+        HostXShards([{"a": np.arange(4)}])
 
 
 def test_streaming_dataset_covers_all_rows_bounded():

@@ -11,6 +11,8 @@ held bitwise to JAX's on the same numpy step function, and the real
 Seq2Seq model's seams to each other and to plain greedy ``generate``.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from analytics_zoo_tpu_torch.inference.decode_scheduler import (
     default_pool_pages,
 )
 from analytics_zoo_tpu_torch.models import Seq2Seq
+from analytics_zoo_tpu_torch.ops import autotune
 from analytics_zoo_tpu_torch.ops import paged_attention as tpa
 from analytics_zoo_tpu_torch.serving import (Broker, ClusterServing,
                                              InputQueue, OutputQueue,
@@ -364,9 +367,13 @@ def test_generate_invariants_on_the_model(s2s):
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
-def test_paged_seam_is_bitwise_the_host_gather(s2s, kv_dtype, monkeypatch):
+def test_paged_seam_is_bitwise_the_host_gather(s2s, kv_dtype, monkeypatch,
+                                               tmp_path):
     im, enc, start, greedy = s2s
     monkeypatch.setenv("ZOO_KV_DTYPE", kv_dtype)
+    # tune_paged persists its verdict: into a file of this test's own
+    monkeypatch.setenv("ZOO_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    autotune.reset_tuner()
 
     def run(paged):
         sched = DecodeScheduler(
@@ -397,6 +404,7 @@ def test_paged_seam_is_bitwise_the_host_gather(s2s, kv_dtype, monkeypatch):
                            iters=1)
     assert rec["kernel"] == "paged_step" and rec["speedup"] > 0
     assert rec["use_kernel"] == (rec["best_ms"] < rec["reference_ms"])
+    autotune.reset_tuner()
 
 
 # ---------------------------------------------------------------- serving
@@ -420,7 +428,21 @@ def test_generate_wire_form_matches_jax():
     assert schema.decode_record(payload)[0] == "v"
 
 
-def test_generate_records_through_cluster_serving(s2s):
+def test_generate_records_through_cluster_serving(s2s, monkeypatch,
+                                                  tmp_path):
+    # paged="auto" follows the autotuner: in sync mode each step shape's
+    # verdict is built at its first step. The verdict is injected (the
+    # paged step wins; no real work is timed), so the engine's paged
+    # route runs
+    cache = tmp_path / "autotune.json"
+    monkeypatch.setenv("ZOO_AUTOTUNE", "sync")
+    monkeypatch.setenv("ZOO_AUTOTUNE_CACHE", str(cache))
+    autotune.reset_tuner()
+
+    def paged_wins(self, kernel, key, candidates, reference, iters=None):
+        return self._finish(kernel, key, 2e-3, {"paged": 1e-3}, {}, 1)
+
+    monkeypatch.setattr(autotune.Autotuner, "tune_thunks", paged_wins)
     im, enc, start, greedy = s2s
     with Broker.launch(backend="python") as broker, \
             ClusterServing(im, broker.port, batch_size=4) as serving:
@@ -443,6 +465,10 @@ def test_generate_records_through_cluster_serving(s2s):
     m = serving.metrics()
     assert m["records_out"] == 10 and m["records_failed"] == 1
     assert m["paged_steps"] > 0
+    verdicts = json.loads(cache.read_text())
+    assert verdicts and all(k.startswith("paged_step|torch-")
+                            and v["use_kernel"] for k, v in verdicts.items())
+    autotune.reset_tuner()
 
 
 class _PredictOnly:

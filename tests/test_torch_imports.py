@@ -81,7 +81,8 @@ def test_importing_every_module_loads_no_jax():
                 "models.image.objectdetection.multibox_loss",
                 "models.image.objectdetection.object_detector",
                 "feature.image3d", "feature.image3d.transforms",
-                "common.encryption"):
+                "common.encryption", "ops.autotune", "data.native_store",
+                "friesian", "friesian.feature", "friesian.feature.table"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,
@@ -147,3 +148,29 @@ def test_native_broker_source_is_the_ports_own_file():
     from analytics_zoo_tpu_torch.serving import broker
     assert broker.NATIVE_SRC.resolve() == own.resolve()
     assert broker.BUILD_DIR == ROOT / "build" / "native"
+
+
+NEW_IN_SLICE_21 = ("ops/autotune.py", "data/native_store.py",
+                   "data/native/zstore.cpp", "friesian/__init__.py",
+                   "friesian/feature/__init__.py",
+                   "friesian/feature/table.py")
+
+
+@pytest.mark.parametrize("rel", NEW_IN_SLICE_21)
+def test_new_sources_name_nothing_of_the_jax_package(rel):
+    """The autotuner, the native store and Friesian are the port's own
+    copies: no source names a module of the JAX package."""
+    text = (PKG / rel).read_text()
+    assert "analytics_zoo_tpu." not in text
+
+
+def test_native_store_source_is_the_ports_own_file():
+    """The port builds its native store from its own zstore.cpp into
+    build/native, never from the JAX package's copy or build dir."""
+    own = PKG / "data" / "native" / "zstore.cpp"
+    jax_src = ROOT / "analytics_zoo_tpu" / "data" / "native" / "zstore.cpp"
+    assert own.is_file() and not own.is_symlink()
+    assert not os.path.samefile(own, jax_src)
+    from analytics_zoo_tpu_torch.data import native_store
+    assert native_store._SRC.resolve() == own.resolve()
+    assert native_store.BUILD_DIR == ROOT / "build" / "native"
