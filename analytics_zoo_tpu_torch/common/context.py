@@ -15,11 +15,32 @@ Counterpart of ``analytics_zoo_tpu/common/context.py`` (ref
   (the name kept): the devices of this process and the default mesh
   (``parallel/mesh.py``). The devices are every CUDA device unless the
   caller passes ``device="cpu"`` (or one device); without CUDA and
-  without that argument ``init_orca_context`` raises. One process drives
-  them: ``cluster_mode="multihost"`` / ``"tpu_pod"`` raise
-  (``torch.distributed`` across hosts is ROADMAP A9); the reference's
+  without that argument ``init_orca_context`` raises. The reference's
   other mode names warn and run locally, and the Spark/Ray resource
   kwargs warn and are ignored, as in JAX.
+- **Across ranks** (JAX ``common/context.py``'s ``jax.distributed``
+  bootstrap). ``cluster_mode="multihost"`` or ``"tpu_pod"`` makes a
+  ``torch.distributed`` process group, one rank a process and one device
+  a rank (ROADMAP C27): ``init_process_group(init_method=
+  f"tcp://{coordinator_address}", world_size=num_processes,
+  rank=process_id)``; without a coordinator, torchrun's environment
+  (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+  ``LOCAL_RANK``), and without that ``ValueError``, as JAX raises where
+  it cannot find its coordinator. The backend is NCCL with the rank on
+  ``cuda:<LOCAL_RANK>`` (else ``cuda:<process_id>``); more ranks on a host
+  than cards raises naming both counts (NCCL refuses two ranks on one
+  card). ``device="cpu"`` makes a gloo group on the host. A process
+  group the caller made already (``parallel/launch.py``, a launcher of
+  its own, several ranks sharing a card over gloo) is adopted as it is,
+  never re-made on another backend; ``stop_orca_context`` destroys a
+  group the context made and leaves an adopted one alone. The default
+  mesh then spans the ranks (``parallel/mesh.py``).
+- **Reproducible convolutions** (ROADMAP C20). ``init_orca_context`` sets
+  ``torch.backends.cudnn.deterministic = True`` and ``benchmark =
+  False``: cuDNN then picks deterministic algorithms, and a fit repeats
+  bit for bit, as JAX's does on a TPU. A caller who wants cuDNN's
+  nondeterministic algorithms sets the flags after ``init_orca_context``;
+  ``stop_orca_context`` puts back what they were.
 - **Precision.** JAX applies ``default_matmul_precision`` through
   ``jax_default_matmul_precision``; on a GPU its "bfloat16" and
   "tensorfloat32" mean TF32 and "float32" full fp32. The port maps
@@ -192,6 +213,8 @@ class ZooTpuContext:
         self._devices = list(devices)
         self.num_processes = num_processes
         self.process_index = process_index
+        #: True where init_orca_context made the process group
+        self.owns_group = False
 
     @property
     def devices(self) -> List[torch.device]:
@@ -226,21 +249,94 @@ def _context_devices(device) -> List[torch.device]:
 
 
 def _apply_precision(name: str) -> None:
+    """``default_matmul_precision``'s flags, and cuDNN's deterministic
+    algorithms (C20)."""
     global _saved_precision
+    cudnn = torch.backends.cudnn
     if _saved_precision is None:
         _saved_precision = (torch.get_float32_matmul_precision(),
-                            torch.backends.cudnn.allow_tf32)
+                            cudnn.allow_tf32, cudnn.deterministic,
+                            cudnn.benchmark)
     matmul, cudnn_tf32 = PRECISION[name]
     torch.set_float32_matmul_precision(matmul)
-    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    cudnn.allow_tf32 = cudnn_tf32
+    cudnn.deterministic = True
+    cudnn.benchmark = False
 
 
 def _restore_precision() -> None:
     global _saved_precision
     if _saved_precision is not None:
+        cudnn = torch.backends.cudnn
         torch.set_float32_matmul_precision(_saved_precision[0])
-        torch.backends.cudnn.allow_tf32 = _saved_precision[1]
+        (cudnn.allow_tf32, cudnn.deterministic,
+         cudnn.benchmark) = _saved_precision[1:]
         _saved_precision = None
+
+
+def _rank_env(coordinator_address, num_processes, process_id):
+    """``(init_method, world size, rank, local rank)`` from the arguments,
+    else from torchrun's environment; ValueError without either."""
+    import os
+    env = os.environ
+    if coordinator_address:
+        if num_processes is None or process_id is None:
+            raise ValueError("cluster_mode='multihost' with a "
+                             "coordinator_address needs num_processes and "
+                             "process_id")
+        local = int(env.get("LOCAL_RANK", process_id))
+        return (f"tcp://{coordinator_address}", int(num_processes),
+                int(process_id), local)
+    if all(k in env for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                              "WORLD_SIZE")):
+        world = int(env["WORLD_SIZE"] if num_processes is None
+                    else num_processes)
+        rank = int(env["RANK"] if process_id is None else process_id)
+        return (f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}", world,
+                rank, int(env.get("LOCAL_RANK", rank)))
+    raise ValueError(
+        "cluster_mode='multihost': no coordinator: pass "
+        "coordinator_address='host0:port', num_processes and process_id, "
+        "or run under torchrun (MASTER_ADDR, MASTER_PORT, RANK, "
+        "WORLD_SIZE)")
+
+
+def _join_ranks(coordinator_address, num_processes, process_id, device):
+    """Make the process group (or adopt the caller's); ``(this rank's
+    device, whether the context made the group, world size, rank)``."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if device is not None:
+            return torch.device(device), False, world, rank
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "init_orca_context: CUDA is not available; pass "
+                "device='cpu' to join the process group on the host")
+        return torch.device("cuda", torch.cuda.current_device()), False, \
+            world, rank
+    init_method, world, rank, local = _rank_env(
+        coordinator_address, num_processes, process_id)
+    if device is not None and torch.device(device).type == "cpu":
+        dist.init_process_group("gloo", init_method=init_method,
+                                world_size=world, rank=rank)
+        return torch.device("cpu"), True, world, rank
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_orca_context: CUDA is not available; pass device='cpu' "
+            "for a gloo group on the host")
+    cards = torch.cuda.device_count()
+    if local >= cards:
+        raise ValueError(
+            f"local rank {local} on a host with {cards} card(s): NCCL "
+            "runs one rank a card; start at most one rank a card, or make "
+            "the process group yourself (gloo) and init_orca_context "
+            "adopts it")
+    dev = torch.device("cuda", local)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=init_method,
+                            world_size=world, rank=rank)
+    return dev, True, world, rank
 
 
 def init_orca_context(cluster_mode: str = "local",
@@ -255,14 +351,17 @@ def init_orca_context(cluster_mode: str = "local",
     memory, ...)``, pyzoo/zoo/orca/common.py:148).
 
     Args:
-        cluster_mode: "local" (default); "multihost" / "tpu_pod" raise
-            (ROADMAP A9); other reference mode names warn and run locally.
+        cluster_mode: "local" (default); "multihost" / "tpu_pod" join the
+            ranks (the module docstring); other reference mode names warn
+            and run locally.
         mesh_axes / mesh_shape: the default mesh's layout, a 1-D
-            ``("data",)`` mesh over the devices by default.
-        coordinator_address, num_processes, process_id: JAX's multi-host
-            bootstrap; accepted for the signature, used by no mode here.
+            ``("data",)`` mesh over the devices (the ranks, across
+            ranks) by default.
+        coordinator_address, num_processes, process_id: the process
+            group's address (``host:port``), world size and this rank.
         device: None or "cuda" for every CUDA device, else one device
-            ("cpu", "cuda:1").
+            ("cpu", "cuda:1"); across ranks, this rank's device ("cpu"
+            makes a gloo group).
     """
     global _active_context
     if _active_context is not None:
@@ -274,17 +373,33 @@ def init_orca_context(cluster_mode: str = "local",
     if legacy:
         warnings.warn(f"Spark/Ray-era kwargs ignored: {legacy}")
 
+    from analytics_zoo_tpu_torch.parallel.mesh import build_mesh
     if cluster_mode in ("multihost", "tpu_pod"):
-        raise NotImplementedError(
-            f"cluster_mode={cluster_mode!r}: the port drives the devices "
-            "of one process; torch.distributed across hosts is ROADMAP A9")
+        own, made, world, rank = _join_ranks(
+            coordinator_address, num_processes, process_id, device)
+        devices = [own]
+        # the mesh reads the context's device: set it first
+        with _context_lock:
+            _active_context = ZooTpuContext(
+                cluster_mode, None, devices, num_processes=world,
+                process_index=rank)
+            _active_context.owns_group = made
+        try:
+            _active_context.mesh = build_mesh(axes=mesh_axes,
+                                              shape=mesh_shape)
+        except Exception:
+            stop_orca_context()
+            raise
+        _apply_precision(OrcaContext.default_matmul_precision)
+        atexit.register(stop_orca_context)
+        logger.info("Initialized %r", _active_context)
+        return _active_context
     if cluster_mode != "local":
         warnings.warn(f"cluster_mode={cluster_mode!r} has no analog here; "
                       "running in local mode")
         cluster_mode = "local"
 
     devices = _context_devices(device)
-    from analytics_zoo_tpu_torch.parallel.mesh import build_mesh
     mesh = build_mesh(axes=mesh_axes, shape=mesh_shape, devices=devices)
     _apply_precision(OrcaContext.default_matmul_precision)
     with _context_lock:
@@ -302,6 +417,11 @@ def stop_orca_context() -> None:
         return
     from analytics_zoo_tpu_torch.parallel import mesh as _mesh_mod
     with _context_lock:
+        made = getattr(_active_context, "owns_group", False)
         _mesh_mod.set_default_mesh(None)
         _active_context = None
+    if made:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
     _restore_precision()

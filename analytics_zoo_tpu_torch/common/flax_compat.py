@@ -55,6 +55,12 @@ from torch import nn
 from analytics_zoo_tpu_torch.ops.embedding_bag import embedding_lookup
 
 
+def _shard_of(param):
+    """The strategy's shard a parameter is the block of (the estimator
+    marks it), or None."""
+    return getattr(param, "_zoo_shard", None)
+
+
 def promote(dtype: Optional[torch.dtype], *tensors) -> torch.dtype:
     """``dtype`` if given, else the promoted dtype of ``tensors``."""
     if dtype is not None:
@@ -74,9 +80,27 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if _shard_of(self.weight) is not None:
+            # split by output features (sharded_params): the rank's
+            # columns, gathered
+            from analytics_zoo_tpu_torch.parallel import tensor_parallel
+            return tensor_parallel.column_linear(x, self.weight, self.bias,
+                                                 self.compute_dtype)
         cd = promote(self.compute_dtype, x, self.weight)
         return F.linear(x.to(cd), self.weight.to(cd),
                         None if self.bias is None else self.bias.to(cd))
+
+    @staticmethod
+    def sharded_params(shards) -> set:
+        """Under a strategy: the weight where it is split by output
+        features (its bias too where split alike); any other shard is
+        gathered for the product."""
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+        axis = tp.covers(shards, ["weight"], 0)
+        if axis is None:
+            return set()
+        return {"weight"} | ({"bias"} if tp.covers(shards, ["bias"], 0, axis)
+                             else set())
 
 
 class LayerNorm(nn.LayerNorm):
@@ -106,7 +130,18 @@ class Embed(nn.Module):
         nn.init.normal_(self.embedding, std=features ** -0.5)
 
     def forward(self, ids):
+        if _shard_of(self.embedding) is not None:
+            from analytics_zoo_tpu_torch.parallel import tensor_parallel
+            return tensor_parallel.lookup_columns(
+                [self.embedding], lambda t: embedding_lookup(t[0], ids))
         return embedding_lookup(self.embedding, ids)
+
+    @staticmethod
+    def sharded_params(shards) -> set:
+        """Under a strategy: the table where it is split by columns (the
+        lookup kernel on the block)."""
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel
+        return tensor_parallel.table_covered(shards)
 
 
 def _tuple(v, n: int) -> Tuple[int, ...]:

@@ -27,7 +27,8 @@
   names, ``in`` and ``if`` included.
 
 - MTNet's attention weights (``W1``, ``b2``, ``W2``, ``W3``, ``b3``,
-  ``V``: flax ``self.param``s, not Denses) keep their names and shapes,
+  ``V``: flax ``self.param``s, not Denses) and the MoE layer's (``gate``,
+  ``w1``, ``b1``, ``w2``, ``b2``) keep their names and shapes,
   as do the keras layers' own ``self.param``s named ``weight``,
   ``alpha``, ``t_left``, ``a_left``, ``t_right`` and ``a_right``
   (``CMul``, ``Scale``, ``Mul``, ``PReLU``, ``SReLU``).
@@ -39,6 +40,12 @@
 - a population's stacked members (``automl.population``): each leaf has
   the members on a leading axis, which ``lead=1`` passes over; one
   member's tree is ``member_tree`` of the stacked tree.
+
+``flax_to_shard_state_dict(params, module, strategy, mesh)`` gives this
+rank's block of that ``state_dict`` under a sharding strategy
+(``shard_plan``: JAX's rules against ``flax_paths``, each flax spec
+mapped onto the torch tensor's dims by ``TorchShard``); gathering every
+rank's blocks gives back the whole, bit for bit.
 
 ``state_dict_to_flax`` is its inverse: the port's ``state_dict`` as a
 flax tree of numpy arrays, shaped like a given flax tree (a 2-D weight
@@ -76,9 +83,11 @@ from torch import nn
 _LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
            "embedding": "embedding", "mean": "mean", "var": "var"}
 #: flax leaves held as they are (MTNet's attention GRU; the keras
-#: ``CMul`` / ``Scale`` / ``Mul`` weights, ``PReLU``'s and ``SReLU``'s)
+#: ``CMul`` / ``Scale`` / ``Mul`` weights, ``PReLU``'s and ``SReLU``'s;
+#: the MoE layer's gate and expert-stacked weights)
 _RAW = frozenset(("W1", "b2", "W2", "W3", "b3", "V", "weight", "alpha",
-                  "t_left", "a_left", "t_right", "a_right"))
+                  "t_left", "a_left", "t_right", "a_right", "gate", "w1",
+                  "b1", "w2"))
 
 
 def _linear_weight(kernel: np.ndarray, bias, lead: int = 0) -> np.ndarray:
@@ -312,3 +321,144 @@ class ParamLayout:
         flat = flatten(tree)
         return {k: torch.as_tensor(flat[".".join(path)])
                 for k, path in self.state_paths.items()}
+
+
+# ------------------------------------------------- shards of a strategy
+
+def flax_paths(module: nn.Module) -> Dict[str, tuple]:
+    """``{torch parameter name: (flax path, flax shape, order)}``: the
+    '/'-joined path the JAX package's rules read, the leaf's flax shape,
+    and the order of flax's dims in which the torch tensor is that leaf
+    (a kernel's out dims, then its in dims; ``torch = flax.transpose(
+    order).reshape(torch shape)``). A module without a flax layout gives
+    its torch names joined by '/' with torch's shapes."""
+    out: Dict[str, tuple] = {}
+    if flax_layout(module) is None:
+        for name, p in module.named_parameters():
+            shape = tuple(p.shape)
+            out[name] = (name.replace(".", "/"), shape,
+                         tuple(range(len(shape))))
+        return out
+    for mname, mod in module.named_modules():
+        direct = dict(mod.named_parameters(recurse=False))
+        if not direct:
+            continue
+        leaves = flax_leaves(mod, direct)
+        prefix = mname.replace(".", "/") + "/" if mname else ""
+        for fname, (tname, shape) in leaves.items():
+            shape = tuple(shape)
+            order = tuple(range(len(shape)))
+            tshape = tuple(direct[tname].shape)
+            if fname == "kernel" and len(tshape) == 2 and len(shape) >= 2:
+                bias = leaves.get("bias")
+                n_out = 1 if bias is None else max(len(bias[1]), 1)
+                n_in = len(shape) - n_out
+                order = tuple(range(n_in, len(shape))) + tuple(range(n_in))
+            key = f"{mname}.{tname}" if mname else tname
+            out[key] = (prefix + fname, shape, order)
+    return out
+
+
+class TorchShard:
+    """How one torch parameter is sharded under a flax spec.
+
+    ``view``: the torch tensor seen with flax's dims (in ``order``);
+    ``dims``: ``{view dim: mesh axes}`` for the sharded dims; ``groups``:
+    for each torch dim, the view dims it flattens. ``torch_dim`` is the
+    torch dim a shard is a contiguous block of (one sharded view dim that
+    leads its group), else None."""
+
+    def __init__(self, name: str, path: str, spec: tuple, shape: tuple,
+                 flax_shape: tuple, order: tuple, mesh):
+        from analytics_zoo_tpu_torch.parallel.strategy import spec_axes
+        self.name, self.path, self.spec = name, path, tuple(spec)
+        self.shape, self.mesh = tuple(shape), mesh
+        self.view = tuple(flax_shape[i] for i in order)
+        self.dims: Dict[int, tuple] = {}
+        for j, entry in enumerate(self.spec):
+            axes = tuple(ax for ax in spec_axes(entry)
+                         if mesh.shape.get(ax, 1) > 1)
+            if axes:
+                self.dims[order.index(j)] = axes
+        # which view dims each torch dim flattens, greedily by size
+        self.groups: List[List[int]] = []
+        v = 0
+        for size in self.shape:
+            group, prod = [], 1
+            while v < len(self.view) and (prod < size or not group or
+                                          self.view[v] == 1) and \
+                    prod * self.view[v] <= size:
+                group.append(v)
+                prod *= self.view[v]
+                v += 1
+            self.groups.append(group)
+        self.local_view = tuple(
+            n // self.ways(d) for d, n in enumerate(self.view))
+        self.local_shape = tuple(
+            int(np.prod([self.local_view[v] for v in g])) if g else 1
+            for g in self.groups)
+        self.torch_dim = None
+        if len(self.dims) == 1:
+            (vd,) = self.dims
+            for t, g in enumerate(self.groups):
+                if vd in g and all(self.view[u] == 1
+                                   for u in g[:g.index(vd)]):
+                    self.torch_dim = t
+
+    def ways(self, view_dim: int) -> int:
+        return int(np.prod([self.mesh.shape[ax]
+                            for ax in self.dims.get(view_dim, ())]))
+
+    @property
+    def axes(self) -> set:
+        return {ax for axes in self.dims.values() for ax in axes}
+
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor, contiguous, in the
+        parameter's torch layout."""
+        t = full.reshape(self.view)
+        for vd, axes in self.dims.items():
+            i = self.mesh.data_index(axes)
+            step = self.view[vd] // self.ways(vd)
+            t = t.narrow(vd, i * step, step)
+        return t.contiguous().reshape(self.local_shape)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's block (differentiable: the
+        backward reduce-scatters)."""
+        from analytics_zoo_tpu_torch.parallel.collectives import gather_axes
+        t = local.reshape(self.local_view)
+        for vd, axes in self.dims.items():
+            t = gather_axes(t, self.mesh, axes, vd)
+        return t.reshape(self.shape)
+
+    def __repr__(self):
+        return (f"TorchShard({self.name}: {self.path} {self.spec}, "
+                f"{self.shape} -> {self.local_shape})")
+
+
+def shard_plan(module: nn.Module, strategy, mesh) -> Dict[str, TorchShard]:
+    """``{torch parameter name: TorchShard}`` of every parameter the
+    strategy shards on ``mesh`` (rules read flax's paths and shapes,
+    ``flax_paths``); the others are replicated."""
+    out: Dict[str, TorchShard] = {}
+    for name, (path, shape, order) in flax_paths(module).items():
+        spec = strategy.param_spec(path, shape, mesh)
+        param = module.get_parameter(name)
+        shard = TorchShard(name, path, spec, tuple(param.shape), shape,
+                           order, mesh)
+        if shard.dims:
+            out[name] = shard
+    return out
+
+
+def flax_to_shard_state_dict(params: Mapping, module: nn.Module, strategy,
+                             mesh) -> Dict[str, torch.Tensor]:
+    """This rank's block of ``flax_to_state_dict(params)`` under
+    ``strategy`` on ``mesh``: the sharded parameters cut to the rank's
+    block, the rest whole. Gathering every rank's blocks gives back the
+    whole ``state_dict`` bit for bit."""
+    sd = flax_to_state_dict(params)
+    for name, shard in shard_plan(module, strategy, mesh).items():
+        sd[name] = shard.block(sd[name])
+    return sd

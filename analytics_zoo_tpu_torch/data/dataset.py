@@ -26,13 +26,19 @@ The port's own copy of ``analytics_zoo_tpu/data/dataset.py``:
   other than DRAM streams), and DataFrames (with ``feature_cols`` /
   ``label_cols``).
 
-One process feeds one device, so a global batch is a host batch.
-``device_scan_iterator`` stacks ``steps_per_loop`` batches into one copy
-to the device for the estimator's ``fit(steps_per_loop=k)``;
-``device_iterator`` (placement on a mesh) waits for ROADMAP A9: the
-estimator moves each batch to its device itself. No module here imports
-pandas at import time; a DataFrame shard is told apart without importing
-it.
+One process feeds one device (a rank, ``parallel/mesh.py``). With
+``process_fraction`` (JAX's per-host feed) ``iter_batches`` cuts each
+rank's batches of ``batch_size * process_fraction`` rows from the rank's
+own data: across ranks a global batch is the ranks' blocks in data-index
+order (``ShardingStrategy.batch_feed_fraction``: ``1 / n`` where the
+batch axes make ``n`` blocks, 1.0 where the batch is replicated).
+``device_iterator(mesh, strategy, batch_size, ...)`` yields those
+batches on the rank's device, and ``device_scan_iterator`` stacks
+``steps_per_loop`` of them into one copy for the estimator's
+``fit(steps_per_loop=k)`` (its one-device form of earlier slices,
+``(device, batch_size, steps_per_loop, ...)``, stays). No module here
+imports pandas at import time; a DataFrame shard is told apart without
+importing it.
 """
 
 from __future__ import annotations
@@ -207,13 +213,31 @@ class ShardedDataset:
             return self.n // batch_size
         return math.ceil(self.n / batch_size)
 
+    @staticmethod
+    def _per_host(batch_size: int, process_fraction: Optional[float]) -> int:
+        """This rank's rows of each global batch: all of them without a
+        fraction (one rank), else ``batch_size * process_fraction``, which
+        must be a whole number."""
+        if process_fraction is None:
+            return batch_size
+        per_host = int(round(batch_size * process_fraction))
+        if abs(per_host - batch_size * process_fraction) > 1e-9 or \
+                per_host < 1:
+            raise ValueError(
+                f"global batch {batch_size} does not divide over the "
+                f"process feed fraction {process_fraction}")
+        return per_host
+
     def iter_batches(self, batch_size: int, shuffle: bool = False,
                      seed: int = 0, epoch: int = 0,
-                     drop_remainder: bool = True
+                     drop_remainder: bool = True,
+                     process_fraction: Optional[float] = None
                      ) -> Iterator[Tuple[Any, Any, Optional[np.ndarray]]]:
-        """Yield (x, y, mask) numpy batches of fixed shape. mask is None for
-        full batches; for a padded final batch it is a float32 {0, 1}
-        vector of valid rows."""
+        """Yield (x, y, mask) numpy batches of fixed shape (``batch_size *
+        process_fraction`` rows of this rank's data with a fraction). mask
+        is None for full batches; for a padded final batch it is a float32
+        {0, 1} vector of valid rows."""
+        batch_size = self._per_host(batch_size, process_fraction)
         _check_batch(batch_size, self.n, drop_remainder)
         order = np.arange(self.n)
         if shuffle:
@@ -229,18 +253,49 @@ class ShardedDataset:
             yield _padded_tail(self.x, self.y, order[full * batch_size:],
                                batch_size)
 
-    def device_scan_iterator(self, device, batch_size: int,
-                             steps_per_loop: int, shuffle: bool = False,
-                             seed: int = 0, epoch: int = 0, skip: int = 0):
-        """(JAX ``device_scan_iterator``) ``steps_per_loop`` full batches,
-        in ``iter_batches``' order, stacked into one ``[k, batch, ...]``
-        copy to ``device``: yields ``(x_stack, y_stack, k)`` with torch
-        tensors (``y_stack`` None without labels). The tail group may have
-        ``k < steps_per_loop``; rows that fill no batch are dropped. The
-        first ``skip`` batches are left out (a resume inside the epoch).
-        A ``StreamingShardedDataset`` groups the batches of its own
-        feed."""
+    def device_iterator(self, mesh, strategy, batch_size: int,
+                        shuffle: bool = False, seed: int = 0,
+                        epoch: int = 0, drop_remainder: bool = True):
+        """(JAX ``device_iterator``) ``iter_batches`` with the strategy's
+        feed fraction on ``mesh``, each batch (x, y and mask) as tensors
+        on this rank's device: its block of the global batch."""
         from analytics_zoo_tpu_torch.common.device import as_tensor
+        _check_divisible(mesh, strategy, batch_size)
+        device = mesh.device
+        for x, y, mask in self.iter_batches(
+                batch_size, shuffle, seed, epoch, drop_remainder,
+                process_fraction=strategy.batch_feed_fraction(mesh)):
+            put = lambda t: None if t is None else tree_map(  # noqa: E731
+                lambda a: as_tensor(a, device), t)
+            yield put(x), put(y), put(mask)
+
+    def device_scan_iterator(self, mesh, strategy, batch_size=None,
+                             steps_per_loop=None, shuffle: bool = False,
+                             seed: int = 0, epoch: int = 0, skip: int = 0):
+        """(JAX ``device_scan_iterator(mesh, strategy, batch_size,
+        steps_per_loop, ...)``) ``steps_per_loop`` full batches of this
+        rank's feed, in ``iter_batches``' order, stacked into one ``[k,
+        batch, ...]`` copy to the rank's device: yields ``(x_stack,
+        y_stack, k)`` with torch tensors (``y_stack`` None without
+        labels). The tail group may have ``k < steps_per_loop``; rows that
+        fill no batch are dropped. The first ``skip`` batches are left out
+        (a resume inside the epoch). A ``StreamingShardedDataset`` groups
+        the batches of its own feed. Given a ``torch.device`` first, the
+        one-device form: ``(device, batch_size, steps_per_loop, shuffle,
+        ...)``."""
+        from analytics_zoo_tpu_torch.common.device import as_tensor
+        from analytics_zoo_tpu_torch.parallel.mesh import DeviceMesh
+        if isinstance(mesh, DeviceMesh):
+            device = mesh.device
+            _check_divisible(mesh, strategy, batch_size)
+            fraction = strategy.batch_feed_fraction(mesh) \
+                if mesh.size > 1 else None
+        else:
+            # (device, batch_size, steps_per_loop[, shuffle])
+            device, fraction = mesh, None
+            if steps_per_loop is not None:
+                shuffle = steps_per_loop
+            batch_size, steps_per_loop = strategy, batch_size
 
         def place(group):
             xs, ys = zip(*group)
@@ -251,7 +306,8 @@ class ShardedDataset:
 
         group = []
         batches = self.iter_batches(batch_size, shuffle, seed, epoch,
-                                    drop_remainder=True)
+                                    drop_remainder=True,
+                                    process_fraction=fraction)
         for x, y, _ in itertools.islice(batches, skip, None):
             group.append((x, y))
             if len(group) == steps_per_loop:
@@ -259,6 +315,16 @@ class ShardedDataset:
                 group = []
         if group:
             yield place(group)
+
+
+def _check_divisible(mesh, strategy, batch_size: int) -> None:
+    """The global batch divides over the mesh's batch axes (ref
+    tf_dataset.py:117)."""
+    divisor = strategy.batch_shards(mesh)
+    if batch_size % divisor:
+        raise ValueError(
+            f"batch_size {batch_size} must be divisible by the mesh "
+            f"batch-axis size {divisor} (axes {strategy.batch_axes()})")
 
 
 def _prefetch_default() -> int:
@@ -322,8 +388,10 @@ class StreamingShardedDataset(ShardedDataset):
 
     def iter_batches(self, batch_size: int, shuffle: bool = False,
                      seed: int = 0, epoch: int = 0,
-                     drop_remainder: bool = True
+                     drop_remainder: bool = True,
+                     process_fraction: Optional[float] = None
                      ) -> Iterator[Tuple[Any, Any, Optional[np.ndarray]]]:
+        batch_size = self._per_host(batch_size, process_fraction)
         _check_batch(batch_size, self.n, drop_remainder)
         n_shards = self._xshards.num_partitions()
         rng = np.random.default_rng((seed * 100003 + epoch) & 0x7FFFFFFF)

@@ -46,7 +46,9 @@ batch signature counts in ``zoo_jit_cache_misses_total``, as a JAX
 recompile does; results come back through ``traced_device_get``.
 
 There is no CPU failover: a model on ``cuda`` runs there or raises.
-Sharding waits for a later slice (ROADMAP A9).
+Sharded serving (``shard``) is ROADMAP A9's third part: ``shard`` raises
+naming it and ``shard_info`` is None (never sharded), as JAX's is
+unsharded.
 """
 
 from __future__ import annotations
@@ -434,6 +436,19 @@ class InferenceModel:
         with torch.inference_mode():
             return self._counted(module)(
                 *(as_tensor(a, self.device) for a in xs))
+
+    def shard(self, strategy, param_rules=None, mesh=None,
+              devices=None) -> "InferenceModel":
+        """(JAX ``InferenceModel.shard``) Serving on a mesh of ranks is
+        ROADMAP A9's third part: raises."""
+        raise NotImplementedError(
+            f"InferenceModel.shard({strategy!r}): sharded serving is "
+            "ROADMAP A9's third part")
+
+    def shard_info(self):
+        """(JAX ``InferenceModel.shard_info``) None: the model is never
+        sharded (``shard`` is ROADMAP A9's third part)."""
+        return None
 
     def predict(self, x, batch_size: Optional[int] = None,
                 pipeline_window: int = 2) -> np.ndarray:

@@ -354,6 +354,27 @@ class _EmbedTable(nn.Module):
     def forward(self):
         return self.embedding
 
+    @staticmethod
+    def sharded_params(shards) -> set:
+        """Under a strategy: the table where it is split by columns; the
+        layers look it up on the block (``_lookup``)."""
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel
+        return tensor_parallel.table_covered(shards)
+
+
+def _lookup(tables, fn, widths=None):
+    """``fn(tables)``, or on column-split tables (a strategy's shards,
+    ``_EmbedTable.sharded_params``) ``fn`` on the blocks and the features
+    gathered (``widths``: each table's local width, side by side)."""
+    from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+    axes = {tp.split_axis(tp.shard_of(t), 1) for t in tables}
+    if axes == {None}:
+        return fn(tables)
+    if len(axes) > 1:
+        raise ValueError("the tables of one lookup are split differently "
+                         f"({axes}): give them one rule")
+    return tp.lookup_columns(tables, fn, widths)
+
 
 class FusedEmbeddings(KerasLayer):
     """N per-column embedding tables served by ONE fused lookup.
@@ -407,16 +428,18 @@ class FusedEmbeddings(KerasLayer):
         ids = args[0].to(torch.int32)
         if not self.zero_based_id:
             ids = ids - 1
-        tables = []
-        for tname, _, _ in self.specs:
-            # the parameter itself: a module call's hook checks cost host
-            # time on every forward
-            t = modules[tname].embedding
-            if self.compute_dtype is not None:
-                t = t.to(self.compute_dtype)
-            tables.append(t)
-        return fused_embedding_lookup(tables, ids, combine=self.combine,
-                                      use_kernel=self.use_kernel)
+        # the parameters themselves: a module call's hook checks cost host
+        # time on every forward
+        tables = [modules[tname].embedding for tname, _, _ in self.specs]
+        dtype = self.compute_dtype
+
+        def lookup(ts):
+            if dtype is not None:
+                ts = [t.to(dtype) for t in ts]
+            return fused_embedding_lookup(ts, ids, combine=self.combine,
+                                          use_kernel=self.use_kernel)
+        return _lookup(tables, lookup, [t.shape[1] for t in tables]
+                       if self.combine == "concat" else None)
 
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]
@@ -464,15 +487,19 @@ class Embedding(KerasLayer):
         ids = args[0].to(torch.int32)
         if not self.zero_based_id:
             ids = ids - 1
-        table = modules[self.name].embedding
-        if self.compute_dtype is not None:
-            table = table.to(self.compute_dtype)
-        if self.pooling is not None:
-            return embedding_bag(table, ids, mode=self.pooling)
-        if self.input_dim == 1:
-            # flax nn.Embed broadcasts a one-row table, whatever the id
-            return table[0].expand(*ids.shape, self.output_dim)
-        return embedding_lookup(table, ids)
+        dtype = self.compute_dtype
+
+        def lookup(tables):
+            table = tables[0]
+            if dtype is not None:
+                table = table.to(dtype)
+            if self.pooling is not None:
+                return embedding_bag(table, ids, mode=self.pooling)
+            if self.input_dim == 1:
+                # flax nn.Embed broadcasts a one-row table, whatever the id
+                return table[0].expand(*ids.shape, table.shape[1])
+            return embedding_lookup(table, ids)
+        return _lookup([modules[self.name].embedding], lookup)
 
     def _infer_shape(self, in_shapes):
         s = in_shapes[0]
@@ -550,10 +577,9 @@ class WordEmbedding(KerasLayer):
         mod = modules[self.name]
         if self.trainable:
             # flax nn.Embed: jnp.take of the table cast to the dtype
-            table = mod.embedding
-            if self.compute_dtype is not None:
-                table = table.to(self.compute_dtype)
-            return embedding_lookup(table, ids)
+            dtype = self.compute_dtype
+            return _lookup([mod.embedding], lambda ts: embedding_lookup(
+                ts[0] if dtype is None else ts[0].to(dtype), ids))
         # JAX indexes the constant (ids clamped into the table), then
         # casts
         vocab = mod.table.shape[0]

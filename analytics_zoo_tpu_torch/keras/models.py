@@ -94,6 +94,7 @@ class KerasNet:
         self._estimator = None
         self._compile_args: Optional[dict] = None
         self._strategy = "dp"
+        self._param_rules = None
         self.model_dir: Optional[str] = None
         self._tensorboard: Optional[Tuple[str, str]] = None
 
@@ -181,13 +182,13 @@ class KerasNet:
         return self
 
     def set_strategy(self, strategy: str, param_rules=None) -> "KerasNet":
-        """Only ``"dp"`` on one device: meshes and sharding rules are
-        ROADMAP A9. Parameters are kept, as in JAX."""
-        if strategy != "dp" or param_rules is not None:
-            raise NotImplementedError(
-                f"strategy {strategy!r}: the port trains on one device; "
-                "meshes and sharding rules are ROADMAP A9")
+        """Parallelism for this model ("dp", "dp2,tp4", ...;
+        ``parallel/strategy.py``). ``param_rules=None`` keeps the rules
+        set before. Parameters (loaded weights, training) are kept, as in
+        JAX: the estimator built next shards them under the new layout."""
         self._strategy = strategy
+        if param_rules is not None:
+            self._param_rules = param_rules
         self._estimator = None
         return self
 
@@ -207,7 +208,11 @@ class KerasNet:
             self._estimator = TorchEstimator(
                 self.module, loss=args["loss"], optimizer=args["optimizer"],
                 metrics=args["metrics"], model_dir=self.model_dir,
-                strategy=self._strategy, device=args["device"],
+                strategy=self._strategy,
+                # (a model pickled before set_strategy kept rules has no
+                # _param_rules)
+                param_rules=getattr(self, "_param_rules", None),
+                device=args["device"],
                 param_penalty=self._param_penalty_fn())
             # (a model pickled before set_tensorboard existed has no
             # _tensorboard)

@@ -112,8 +112,42 @@ functions run under ``telemetry.instrument_jit`` with JAX's names
 ``_predict``) and the cached dataset's copy and the losses' read-backs go
 through ``traced_device_put`` / ``traced_device_get``, as in JAX.
 
-Not ported yet: meshes and strategies other than ``"dp"`` on one device
-(ROADMAP A9).
+**Strategies** (JAX's ``strategy=`` and ``param_rules=``;
+``parallel/strategy.py``). Without a process group the estimator trains
+on its one device, and a strategy that needs more ranks raises. Across
+ranks (``init_orca_context(cluster_mode="multihost")``, torchrun,
+``parallel/launch.py``) every rank builds the same estimator over the
+strategy's mesh of ranks:
+
+- the parameters start as rank 0's; each parameter the strategy shards
+  (``convert.shard_plan``: JAX's rules against flax's paths and shapes)
+  is held as this rank's block, and so is its optimizer state;
+- a module that computes on its blocks (``sharded_params``:
+  ``parallel/tensor_parallel.py``'s paths: a table split by columns,
+  Megatron's pairs, a Dense split by outputs) gets them; every other
+  sharded parameter is all-gathered for the step (backward:
+  reduce-scatter), the FSDP way;
+- each rank feeds its block of every global batch
+  (``batch_feed_fraction``: ``batch_size / n`` rows where the batch axes
+  make ``n`` blocks, the whole batch where the batch is replicated). Each
+  rank's loss is its rows' share of the global mean, divided by the
+  ranks that hold the same rows; the collectives' backwards are their
+  adjoints, so the gradients of the ranks' sum are the global batch's.
+  Each gradient is then summed over the axes its parameter is replicated
+  on (one ``all_reduce`` a group of parameters). The reported loss, the
+  history, ``evaluate``'s metrics and ``predict``'s outputs are the
+  global batch's, the same on every rank (evaluate and predict gather the
+  outputs over the batch axes; a padded final batch counts its valid
+  rows). Every rank must feed the same number of batches;
+- MoE layers (``ops/moe.py``) add their load-balance loss times
+  ``aux_loss_weight`` (0.01) to the objective, as JAX's step does;
+- snapshots gather every leaf into the layout an unsharded fit writes;
+  rank 0 writes, every rank reads, and the blocks are cut again on load.
+  ``get_model()`` returns a copy of the module with the whole parameters.
+- not under sharded parameters: the optimizers whose update reads more
+  than one element (LARS, LAMB, L-BFGS), ``cache="device"`` with a
+  sharded batch, the step's flop count (ROADMAP R17). ``"pp"`` raises
+  (A9's third part).
 """
 
 from __future__ import annotations
@@ -122,6 +156,7 @@ import copy
 import inspect
 import itertools
 import logging
+import math
 import os
 import time
 import warnings
@@ -151,6 +186,9 @@ from analytics_zoo_tpu_torch.learn import metrics as metric_lib
 from analytics_zoo_tpu_torch.learn.optimizers import Optimizer
 from analytics_zoo_tpu_torch.learn.trigger import EveryEpoch, MaxScore, Trigger
 from analytics_zoo_tpu_torch.learn.trigger import fire as _fire_trigger
+from analytics_zoo_tpu_torch.parallel import collectives
+from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+from analytics_zoo_tpu_torch.parallel.strategy import ShardingStrategy
 
 logger = logging.getLogger(__name__)
 
@@ -258,17 +296,17 @@ class Estimator:
         Estimator.from_torch). JAX's keywords are taken: the port needs no
         ``sample_input`` to initialise, so a given one only checks that a
         copy of the module on the CPU runs on it (in eval mode, without a
-        gradient; ``ValueError`` if it does not). ``param_rules`` other
-        than None raise: sharding rules are ROADMAP A9's second part."""
-        if param_rules is not None:
-            raise NotImplementedError(
-                "param_rules: the port trains on one device; sharding rules "
-                "are ROADMAP A9's second part")
+        gradient; ``ValueError`` if it does not). ``strategy`` and
+        ``param_rules`` are JAX's (the module docstring's Strategies); a
+        module of the port is matched by flax's paths and shapes, any
+        other module by its torch parameter names joined by '/' and
+        torch's shapes."""
         if sample_input is not None:
             _probe(model, sample_input)
         return TorchEstimator(model, loss=loss, optimizer=optimizer,
                               metrics=metrics, model_dir=model_dir,
-                              strategy=strategy, seed=seed, device=device)
+                              strategy=strategy, param_rules=param_rules,
+                              seed=seed, device=device)
 
     @staticmethod
     def from_keras(*, keras_model, loss=None, optimizer=None, metrics=None,
@@ -281,7 +319,7 @@ class Estimator:
         are kept and explicit arguments override them; ``device`` (the
         port's addition, as in ``from_torch``) likewise. The model's own
         estimator is returned, so a later ``model.fit`` trains the same
-        state. Strategies other than ``"dp"`` raise (ROADMAP A9)."""
+        state."""
         from analytics_zoo_tpu_torch.keras.models import KerasNet
         model = getattr(keras_model, "model", keras_model)  # a ZooModel
         if not isinstance(model, KerasNet):
@@ -353,11 +391,17 @@ class TorchEstimator:
     def __init__(self, model: nn.Module, loss, optimizer="adam",
                  metrics=None, model_dir: Optional[str] = None,
                  strategy="dp", seed: int = 0, device: DeviceLike = None,
-                 param_penalty=None):
-        if strategy not in (None, "dp"):
+                 param_penalty=None, param_rules=None,
+                 aux_loss_weight: float = 0.01):
+        self.strategy = ShardingStrategy.parse(strategy,
+                                               param_rules=param_rules)
+        if "pp" in self.strategy.uses:
             raise NotImplementedError(
-                f"strategy {strategy!r}: the port trains on one device; "
-                "meshes and sharding strategies are ROADMAP A9")
+                f"strategy {self.strategy}: pipeline parallelism is ROADMAP "
+                "A9's third part")
+        #: weight of the MoE layers' load-balance loss (JAX's
+        #: aux_loss_weight)
+        self.aux_loss_weight = float(aux_loss_weight)
         if device is None and active_context() is not None:
             device = active_context().devices[0]
         self.device = resolve_device(device)
@@ -398,6 +442,162 @@ class TorchEstimator:
         self._n_inputs = _n_inputs(self.model, sig)
         #: JAX's instrumented step functions, built at first use
         self._jit: Optional[Dict[str, object]] = None
+        self._setup_strategy()
+
+    # ------------- strategies (the module docstring's Strategies) -------
+    def _ensure_mesh(self):
+        """The strategy's mesh of ranks (the default mesh where it has
+        the strategy's axes and spans the ranks, as JAX's ``_ensure_mesh``
+        takes it); without a process group a one-rank mesh over the
+        estimator's device."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            for kind, n in self.strategy.sizes:
+                if n > 1:
+                    raise ValueError(
+                        f"strategy {self.strategy} needs {n} ranks on its "
+                        f"{kind} axis; this process is one rank: start the "
+                        "ranks (parallel/launch.py, torchrun) and "
+                        "init_orca_context(cluster_mode='multihost')")
+            shape = [1] * len(self.strategy.sizes)
+            return mesh_lib.build_mesh(self.strategy.axis_names(), shape,
+                                       devices=[self.device],
+                                       set_default=False)
+        cur = mesh_lib._default_mesh
+        if cur is not None and cur.size == dist.get_world_size() and \
+                set(cur.axis_names) >= set(self.strategy.axis_names()):
+            return cur
+        return self.strategy.build_mesh()
+
+    def _setup_strategy(self) -> None:
+        self._mesh = self._ensure_mesh()
+        self._parallel = self._mesh.size > 1
+        #: torch name -> TorchShard, the sharded parameters; of them, the
+        #: names gathered for the step
+        self._shards: Dict[str, object] = {}
+        self._gathered: List[str] = []
+        if not self._parallel:
+            return
+        from analytics_zoo_tpu_torch.convert import shard_plan
+        mesh = self._mesh
+        # the checkpoint layout keeps the whole shapes
+        self._layout = ParamLayout(self.model)
+        with torch.no_grad():
+            # every replica starts from rank 0's values
+            for t in itertools.chain(self.model.parameters(),
+                                     self.model.buffers()):
+                for ax in mesh.axis_names:
+                    collectives.broadcast_(t.data, mesh, ax)
+        self._shards = shard_plan(self.model, self.strategy, mesh)
+        for name, shard in self._shards.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = self.model.get_submodule(owner) if owner else self.model
+            old = getattr(mod, leaf)
+            new = nn.Parameter(shard.block(old.detach()),
+                               requires_grad=old.requires_grad)
+            new._zoo_shard = shard
+            setattr(mod, leaf, new)
+        if self._shards:
+            from analytics_zoo_tpu_torch.learn.optimizers import (LAMB, LARS,
+                                                                  LBFGS)
+            if isinstance(self.optimizer, (LAMB, LARS, LBFGS)):
+                raise NotImplementedError(
+                    f"{type(self.optimizer).__name__} reads more than one "
+                    "element of a parameter at once; under sharded "
+                    "parameters the port trains with the elementwise "
+                    "optimizers (ROADMAP R17)")
+        covered = self._covered_names()
+        self._gathered = [n for n in self._shards if n not in covered]
+        trainable = [(n, p) for n, p in self.model.named_parameters()
+                     if p.requires_grad]
+        self._names = [n for n, _ in trainable]
+        self._params = [p for _, p in trainable]
+        self._by_name = dict(self.model.named_parameters())
+        live = [ax for ax in mesh.axis_names if mesh.shape[ax] > 1]
+        self._reduce_axes = {
+            n: tuple(ax for ax in live if n not in self._shards
+                     or ax not in self._shards[n].axes)
+            for n in self._names}
+        self._batch_shards = self.strategy.batch_shards(mesh)
+        self._feed = self.strategy.batch_feed_fraction(mesh)
+
+    def _covered_names(self) -> set:
+        """The sharded parameters a module computes on as blocks
+        (``sharded_params``, asked top-down: a module that answers speaks
+        for its whole subtree)."""
+        covered, claimed = set(), []
+        for mname, mod in self.model.named_modules():
+            if any(mname == c or mname.startswith(c + ".") for c in claimed):
+                continue
+            ask = getattr(mod, "sharded_params", None)
+            if ask is None:
+                continue
+            prefix = mname + "." if mname else ""
+            sub = {n[len(prefix):]: s for n, s in self._shards.items()
+                   if n.startswith(prefix)}
+            covered |= {prefix + n for n in ask(sub)}
+            if not mname:
+                break
+            claimed.append(mname)
+        return covered
+
+    def _whole(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` (a parameter's block, or state shaped like it) as
+        the whole (collective under a shard)."""
+        shard = self._shards.get(name)
+        return tensor if shard is None else shard.gather(tensor)
+
+    def _block(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        shard = self._shards.get(name)
+        return tensor if shard is None else shard.block(tensor)
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        """Sum each gradient over the axes its parameter is replicated on,
+        one all_reduce a group of parameters with the same axes and
+        dtype."""
+        buckets = defaultdict(list)
+        for i, name in enumerate(self._names):
+            axes = self._reduce_axes[name]
+            if axes:
+                buckets[(axes, grads[i].dtype)].append(i)
+        for (axes, _), idx in buckets.items():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            collectives.all_reduce_(flat, self._mesh, axes)
+            off = 0
+            for i in idx:
+                n = grads[i].numel()
+                grads[i] = flat[off:off + n].view_as(grads[i])
+                off += n
+
+    def _global_sq_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The squared global norm of the gradients, each block counted
+        once over the ranks."""
+        world = self._mesh.size
+        total = sum(torch.sum(g * g) * (int(np.prod(
+            [self._mesh.shape[ax] for ax in self._shards[n].axes]))
+            if n in self._shards else 1) / world
+            for n, g in zip(self._names, grads))
+        return collectives.all_reduce_(total.reshape(1).clone(), self._mesh,
+                                       self._mesh.axis_names)[0]
+
+    def _check_batches(self, n_batches: int) -> None:
+        """Every rank feeds the same number of batches (the collectives of
+        a step pair up across the ranks)."""
+        t = torch.tensor([n_batches, -n_batches], dtype=torch.float64,
+                         device=self.device)
+        collectives.all_reduce_(t, self._mesh, self._mesh.axis_names,
+                                op="max")
+        if int(t[0]) != -int(t[1]):
+            raise ValueError(
+                f"the ranks feed from {-int(t[1])} to {int(t[0])} batches; "
+                "give every rank's data the same number of batches")
+
+    def gathered_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The module's ``state_dict`` with every sharded parameter whole
+        (collective under sharding: every rank calls it)."""
+        with torch.no_grad():
+            return {k: self._whole(k, v.detach())
+                    for k, v in self.model.state_dict(keep_vars=True).items()}
 
     def _instrumented(self, which: str):
         """The step functions under ``telemetry.instrument_jit`` with
@@ -443,7 +643,8 @@ class TorchEstimator:
             return [g.clamp(-mag, mag) for g in grads]
         max_norm = self._grad_clip[1]
         # optax global_norm: the square root of the summed squares
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = torch.sqrt(self._global_sq_norm(grads) if self._parallel
+                          else sum(torch.sum(g * g) for g in grads))
         keep = norm < max_norm
         return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -458,10 +659,30 @@ class TorchEstimator:
     def _tensors(self, tree):
         return tree_map(lambda a: as_tensor(a, self.device), tree)
 
+    def _fraction(self) -> Optional[float]:
+        """The share of each global batch this rank feeds (None: all of
+        it, one rank)."""
+        return self._feed if self._parallel else None
+
+    def _per_rank(self, batch_size: int) -> int:
+        return ShardedDataset._per_host(batch_size, self._fraction())
+
+    def _gather_rows(self, tree):
+        """The global batch's rows of a rank's outputs: gathered over the
+        batch axes, in data-index order."""
+        axes = self.strategy.batch_axes()
+        return tree_map(lambda a: collectives.gather_axes(
+            a, self._mesh, axes, 0), tree)
+
     def _forward(self, x, train: bool):
         args = x if isinstance(x, (tuple, list)) else (x,)
         kwargs = {"train": train} if self._takes_train else {}
-        return self.model(*args, **kwargs)
+        if not self._gathered:
+            return self.model(*args, **kwargs)
+        # the shards no module computes on, whole for this step
+        whole = {n: self._whole(n, self._by_name[n]) for n in self._gathered}
+        return torch.func.functional_call(self.model, whole, tuple(args),
+                                          kwargs, strict=False)
 
     def _loss_and_grads(self, x, y):
         """One batch's loss (the penalty included) and the gradient of
@@ -477,15 +698,56 @@ class TorchEstimator:
             if cuda:
                 with torch.cuda.device(self.device):
                     torch.cuda.manual_seed(step_seed)
-            preds = self._forward(x, train=True)
-        loss = self.loss_fn(y, preds).mean()
+            from analytics_zoo_tpu_torch.ops import moe
+            with moe.collect_aux_losses() as aux:
+                preds = self._forward(x, train=True)
+        per = self.loss_fn(y, preds)
+        if not self._parallel:
+            loss = per.mean()
+            if self.param_penalty is not None:
+                loss = loss + self.param_penalty(dict(zip(self._names,
+                                                          self._params)))
+            if aux:
+                loss = loss + self.aux_loss_weight * sum(aux)
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self._params, grads)]
+            return loss.detach(), grads
+        return self._parallel_loss_and_grads(per, aux)
+
+    def _parallel_loss_and_grads(self, per, aux):
+        """The module docstring's Strategies: this rank's share of the
+        global loss, its gradients summed over the ranks, and the global
+        loss (the same on every rank)."""
+        mesh = self._mesh
+        world = mesh.size
+        copies = world // self._batch_shards
+        # this rank's rows' share of the global mean
+        local = per.sum() / (per.numel() * self._batch_shards)
+        objective = local / copies
+        extra = torch.zeros((), dtype=local.dtype, device=local.device)
         if self.param_penalty is not None:
-            loss = loss + self.param_penalty(dict(zip(self._names,
-                                                      self._params)))
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+            # every rank adds the whole penalty; the ranks' sum counts it
+            # once
+            whole = {n: self._whole(n, p)
+                     for n, p in zip(self._names, self._params)}
+            pen = self.param_penalty(whole)
+            objective = objective + pen / world
+            extra = extra + pen.detach()
+        if aux:
+            term = self.aux_loss_weight * sum(aux)
+            objective = objective + term / world
+            extra = extra + term.detach()
+        grads = torch.autograd.grad(objective, self._params,
+                                    allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._params, grads)]
-        return loss.detach(), grads
+        self._reduce_grads(grads)
+        loss = collectives.all_reduce_(
+            (local.detach() / copies).reshape(1).clone(), mesh,
+            mesh.axis_names)[0] + extra
+        return loss, grads
 
     def _step_flops(self, x, y) -> Optional[float]:
         """The flops of one step on batch ``(x, y)``, counted once per
@@ -495,6 +757,9 @@ class TorchEstimator:
         and every buffer: the fit does not move."""
         key = tuple((tuple(a.shape), str(a.dtype)) for a in
                     _leaves(x) + _leaves(y))
+        if self._parallel:
+            # a counting pass would add collectives to one rank's step
+            return None
         if key not in self._flops:
             grads = [p.grad for p in self._params]
             bufs = [(b, b.detach().clone()) for b in self.model.buffers()]
@@ -633,6 +898,13 @@ class TorchEstimator:
             raise ValueError("cache='device' needs a materialized labelled "
                              "dataset (streaming/tiered feeds stay on the "
                              "standard path)")
+        if cache == "device" and self._parallel and self._batch_shards > 1:
+            raise ValueError(
+                "cache='device' needs an unsharded batch (one rank, or a "
+                "strategy that replicates the batch); use the standard feed "
+                "for data-parallel meshes")
+        if self._parallel:
+            self._check_batches(ds.n // self._per_rank(batch_size))
         val_ds = (self._dataset(validation_data, feature_cols, label_cols)
                   if validation_data is not None else None)
         if checkpoint_trigger is None and self.model_dir:
@@ -648,7 +920,7 @@ class TorchEstimator:
         history: Dict[str, List[float]] = {"loss": []}
         target = self._epoch + epochs
         start = (self._py_step, self._epoch, len(self.step_losses),
-                 ds.n // batch_size)
+                 ds.n // self._per_rank(batch_size))
         window = None
         if profile or profile_steps is not None:
             lo, hi = profile_steps if profile_steps is not None else (0, 20)
@@ -821,12 +1093,13 @@ class TorchEstimator:
         if steps_per_loop > 1:
             # one stacked copy a loop, then its steps
             loops = ds.device_scan_iterator(
-                self.device, batch_size, steps_per_loop, shuffle,
-                seed=self.seed, epoch=self._epoch, skip=skip)
+                self._mesh, self.strategy, batch_size, steps_per_loop,
+                shuffle, seed=self.seed, epoch=self._epoch, skip=skip)
         else:
             loops = ((x, y, 1) for x, y, _ in itertools.islice(
                 ds.iter_batches(batch_size, shuffle, seed=self.seed,
-                                epoch=self._epoch, drop_remainder=True),
+                                epoch=self._epoch, drop_remainder=True,
+                                process_fraction=self._fraction()),
                 skip, None))
         prof = self._step_prof
         loops = iter(loops)
@@ -951,11 +1224,24 @@ class TorchEstimator:
         states = [m.init_state(self.device) for m in self.metrics]
         sums, counts = [], []
         self.model.train(False)
+        if self._parallel:
+            self._check_batches(math.ceil(ds.n / self._per_rank(batch_size)))
         with torch.inference_mode():
-            for x, y, mask in ds.iter_batches(batch_size,
-                                              drop_remainder=False):
+            for x, y, mask in ds.iter_batches(
+                    batch_size, drop_remainder=False,
+                    process_fraction=self._fraction()):
                 preds = self._forward(self._tensors(x), train=False)
                 y = self._tensors(y)
+                if self._parallel:
+                    # the global batch: every rank's rows and masks
+                    n = _leaves(y)[0].shape[0]
+                    mask = self._gather_rows(
+                        torch.ones(n, device=self.device) if mask is None
+                        else as_tensor(mask, self.device))
+                    preds, y = self._gather_rows(preds), \
+                        self._gather_rows(y)
+                    if bool((mask > 0).all()):
+                        mask = None
                 per = self.loss_fn(y, preds)
                 m = torch.ones_like(per) if mask is None else \
                     as_tensor(mask, self.device)
@@ -979,8 +1265,9 @@ class TorchEstimator:
         through ``common/pipeline_io.DevicePipeline``: up to
         ``pipeline_window`` launched batches stay in flight, and a batch
         is read back only when the window retires it. The outputs are
-        bitwise the synchronous ones (``pipeline_window=1``)."""
-        from analytics_zoo_tpu_torch.common.pipeline_io import DevicePipeline
+        bitwise the synchronous ones (``pipeline_window=1``). Across ranks
+        each batch is synchronous and the outputs are the global batch's,
+        on every rank."""
         was_shards = isinstance(data, XShards)
         if isinstance(data, tuple):
             # predict takes features only: a tuple is a multi-input x
@@ -1001,6 +1288,34 @@ class TorchEstimator:
 
         forward = self._instrumented("predict")
         self.model.train(False)
+        if self._parallel:
+            self._check_batches(math.ceil(ds.n / self._per_rank(batch_size)))
+            with torch.inference_mode():
+                for x, _, mask in ds.iter_batches(
+                        batch_size, drop_remainder=False,
+                        process_fraction=self._fraction()):
+                    preds = forward(self._tensors(x), train=False)
+                    n = _leaves(preds)[0].shape[0]
+                    keep = self._gather_rows(
+                        torch.ones(n, device=self.device) if mask is None
+                        else as_tensor(mask, self.device)) > 0
+                    outs.append(to_numpy(tree_map(
+                        lambda a: a[keep], self._gather_rows(preds))))
+        else:
+            self._predict_local(ds, batch_size, forward, pipeline_window,
+                                take)
+        if isinstance(outs[0], tuple):
+            merged = tuple(np.concatenate([o[i] for o in outs])
+                           for i in range(len(outs[0])))
+        else:
+            merged = np.concatenate(outs)
+        if was_shards:
+            return HostXShards([{"prediction": merged}])
+        return merged
+
+    def _predict_local(self, ds, batch_size, forward, pipeline_window,
+                       take) -> None:
+        from analytics_zoo_tpu_torch.common.pipeline_io import DevicePipeline
         with torch.inference_mode():
             pipe = DevicePipeline(
                 lambda x: forward(self._tensors(x), train=False),
@@ -1013,14 +1328,6 @@ class TorchEstimator:
                     take(comp)
             for comp in pipe.drain():
                 take(comp)
-        if isinstance(outs[0], tuple):
-            merged = tuple(np.concatenate([o[i] for o in outs])
-                           for i in range(len(outs[0])))
-        else:
-            merged = np.concatenate(outs)
-        if was_shards:
-            return HostXShards([{"prediction": merged}])
-        return merged
 
     # ------------- persistence (JAX layout, learn/checkpoint.py) -------
     def _param_layout(self) -> ParamLayout:
@@ -1037,6 +1344,11 @@ class TorchEstimator:
         named = dict(self.model.named_parameters())
         buffers = {k: v for k, v in self.model.state_dict(
             keep_vars=True).items() if k not in named}
+        if self._shards and not spec:
+            # every leaf whole, as an unsharded fit writes it
+            with torch.no_grad():
+                named = {n: self._whole(n, p.detach())
+                         for n, p in named.items()}
         if spec:
             opt_state = (self._opt_state if self._opt_state is not None
                          else defaultdict(lambda: None, count=0))
@@ -1047,7 +1359,9 @@ class TorchEstimator:
                                              for k, v in buffers.items()})
         else:
             def tree(tensors, lead=()):
-                given = dict(zip(self._names, tensors))
+                with torch.no_grad():
+                    given = {n: self._whole(n, t.detach()) for n, t in
+                             zip(self._names, tensors)}
                 for n, p in named.items():
                     if n not in given:      # frozen: optax keeps zeros
                         given[n] = p.new_zeros(tuple(lead) + p.shape)
@@ -1074,22 +1388,35 @@ class TorchEstimator:
         saved = layout.state_from_tree(state["model_state"])
         with torch.no_grad():
             for n, p in named.items():
-                p.copy_(values[n])
+                p.copy_(self._block(n, values[n]))
             for k, b in buffers.items():
                 b.copy_(saved[k])
 
         def untree(tree, lead=0):
             vals = layout.from_tree(tree, lead)
-            return [vals[n].to(self.device, named[n].dtype, copy=True)
+            return [self._block(n, vals[n]).to(self.device, named[n].dtype,
+                                               copy=True)
                     for n in self._names]
         opt = state["opt_state"]
         if self._grad_clip is not None:
             opt = opt["1"]
         self._opt_state = self.optimizer.from_optax_state(opt, untree)
 
+    def _write(self, directory: str, **kw) -> str:
+        """The state into ``directory``'s next ``ckpt-<step>``; across
+        ranks every rank gathers, rank 0 writes and the others wait for
+        it."""
+        state = self._state_tree()
+        path = os.path.join(directory, f"ckpt-{self._py_step}")
+        if not self._parallel or self._mesh.rank == 0:
+            path = ckpt_lib.save_checkpoint(directory, state, self._py_step,
+                                            self._epoch, **kw)
+        if self._parallel:
+            collectives.barrier()
+        return path
+
     def _save_snapshot(self) -> str:
-        path = ckpt_lib.save_checkpoint(self.model_dir, self._state_tree(),
-                                        self._py_step, self._epoch)
+        path = self._write(self.model_dir)
         logger.info("checkpoint saved: %s", path)
         return path
 
@@ -1097,8 +1424,7 @@ class TorchEstimator:
         """Weights, optimizer state and step into ``path/ckpt-<step>/``, as
         ``JaxEstimator.save`` writes them (ref spark_estimator.save)."""
         os.makedirs(path, exist_ok=True)
-        ckpt_lib.save_checkpoint(path, self._state_tree(), self._py_step,
-                                 self._epoch, max_to_keep=10 ** 9)
+        self._write(path, max_to_keep=10 ** 9)
         return path
 
     def load(self, path: str) -> "TorchEstimator":
@@ -1134,5 +1460,17 @@ class TorchEstimator:
         return path
 
     def get_model(self) -> nn.Module:
-        """The trained module (ref spark_estimator.get_model)."""
-        return self.model
+        """The trained module (ref spark_estimator.get_model); under
+        sharded parameters a copy with them whole (collective: every rank
+        calls it)."""
+        if not self._shards:
+            return self.model
+        whole = self.gathered_state_dict()
+        model = copy.deepcopy(self.model)
+        for name in self._shards:
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            setattr(mod, leaf, nn.Parameter(
+                whole[name].clone(), requires_grad=getattr(mod, leaf)
+                .requires_grad))
+        return model

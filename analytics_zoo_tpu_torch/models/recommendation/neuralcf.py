@@ -62,6 +62,16 @@ class NeuralCF(Recommender):
             out = zl.Dense(self.class_num, activation="softmax")(linear)
         return Model(input=inp, output=out)
 
+    @staticmethod
+    def tp_param_rules():
+        """JAX's tensor-parallel layout: the embedding tables and the dense
+        kernels shard over the model axis (a tables' columns, a kernel's
+        output features; the head of 5 classes does not divide and stays
+        whole). Give them to ``set_strategy`` / ``Estimator.from_keras``
+        with a ``tp`` strategy."""
+        return [(r"embed.*/embedding$", (None, "model")),
+                (r"dense_\d+/kernel$", (None, "model"))]
+
     def _config(self):
         return dict(user_count=self.user_count, item_count=self.item_count,
                     class_num=self.class_num, user_embed=self.user_embed,

@@ -130,8 +130,9 @@ class WideAndDeep(Recommender):
     @staticmethod
     def tp_param_rules():
         """The JAX package's tensor-parallel layout: the tables and the
-        dense kernels shard over the model axis. The port trains on one
-        device; ``set_strategy`` with rules raises (ROADMAP A9)."""
+        dense kernels shard over the model axis (a table's columns, a
+        kernel's output features). Give them to ``set_strategy`` /
+        ``Estimator.from_keras`` with a ``tp`` strategy."""
         return [(r"embed_\d+/embedding$", (None, "model")),
                 (r"dense_\d+/kernel$", (None, "model"))]
 

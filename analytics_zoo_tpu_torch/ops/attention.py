@@ -128,27 +128,72 @@ class AttentionModule(nn.Module):
             proj.flax_bias_shape = (h, d)
         self.out.flax_kernel_shape = (h, d, q_features)
 
+    def sharded_params(self, shards) -> set:
+        """Under a strategy, Megatron's layout: ``query`` / ``key`` /
+        ``value`` split by heads (their output rows) and ``out`` by its
+        input columns over one axis; the attention then runs on this
+        rank's heads and ``out``'s partial products are summed with one
+        all_reduce. Otherwise every shard here is gathered."""
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+        proj = ["query.weight", "key.weight", "value.weight"]
+        axis = tp.covers(shards, proj, 0)
+        if axis is None or tp.covers(shards, ["out.weight"], 1, axis) is None \
+                or "out.bias" in shards:
+            return set()
+        biases = [f"{n}.bias" for n in ("query", "key", "value")]
+        return set(proj) | {"out.weight"} | {
+            b for b in biases if tp.covers(shards, [b], 0, axis)}
+
+    def _heads(self):
+        """The heads this rank computes: all of them, or its block under
+        Megatron's layout."""
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+        shard = tp.shard_of(self.query.weight)
+        if shard is None:
+            return self.num_heads, None
+        axis = tp.split_axis(shard, 0)
+        return self.num_heads // shard.mesh.shape[axis], shard
+
     def forward(self, q_in, kv_in=None, mask=None, train: bool = False):
         self_attn = (self.self_attention if self.self_attention is not None
                      else kv_in is None or kv_in is q_in)
         kv_in = q_in if kv_in is None else kv_in
-        h, d = self.num_heads, self.head_dim
+        d = self.head_dim
+        h, shard = self._heads()
+        projs = (self.query, self.key, self.value)
+        if shard is not None:
+            from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+            axis = tp.split_axis(shard, 0)
+            biases = [tp.local_bias(p.bias, shard, shard.mesh, axis)
+                      for p in projs]
+        else:
+            biases = [p.bias for p in projs]
         if self_attn:
             # one packed (in -> 3*h*d) matmul instead of three; q, k and v
             # are strided views of its output, which the kernel reads as is
-            w = torch.cat([self.query.weight, self.key.weight,
-                           self.value.weight])
-            b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
+            w = torch.cat([p.weight for p in projs])
+            b = torch.cat(biases)
             cd = promote(self.dtype, q_in, w)
             qkv = F.linear(q_in.to(cd), w.to(cd), b.to(cd))
             q, k, v = qkv.unflatten(-1, (3, h, d)).unbind(-3)
+        elif shard is not None:
+            outs = []
+            for p, b, x in zip(projs, biases, (q_in, kv_in, kv_in)):
+                cd = promote(self.dtype, x, p.weight)
+                outs.append(F.linear(x.to(cd), p.weight.to(cd),
+                                     b.to(cd)).unflatten(-1, (h, d)))
+            q, k, v = outs
         else:
             q = self.query(q_in).unflatten(-1, (h, d))
             k = self.key(kv_in).unflatten(-1, (h, d))
             v = self.value(kv_in).unflatten(-1, (h, d))
         out = dot_product_attention(q, k, v, mask=mask, causal=self.causal,
                                     use_flash=self.use_flash)
-        out = self.out(out.flatten(-2))
+        if shard is not None:
+            out = tp.row_linear(out.flatten(-2), self.out.weight,
+                                self.out.bias, self.dtype)
+        else:
+            out = self.out(out.flatten(-2))
         if self.dropout > 0:
             out = F.dropout(out, self.dropout, training=train)
         return out

@@ -30,8 +30,15 @@ selective policy that keeps the outputs of the weight-stationary products
 included. So the flash forward launches twice a block in a training step
 (its ``out`` and ``lse`` come back through checkpoint's saved-tensor
 hooks, and the recompute writes fresh buffers). Without a gradient to
-take (``torch.no_grad``, inference) the blocks run plainly. The
-tensor-parallel rules are not ported yet (ROADMAP A9).
+take (``torch.no_grad``, inference) the blocks run plainly.
+
+``bert_tp_rules()`` is JAX's tensor-parallel layout, verbatim: under a
+strategy with ``tp`` (learn/estimator.py) each block runs Megatron's
+layout on this rank's shards: query, key, value and intermediate split by
+output features, out and output by input columns, one all_reduce after
+each of the two, the attention (the flash kernels) on ``n_head / tp``
+heads a rank; the word table split by columns is looked up on its block
+and the features gathered.
 """
 
 from __future__ import annotations
@@ -103,6 +110,15 @@ _remat_context = functools.partial(create_selective_checkpoint_contexts,
                                    _remat_policy)
 
 
+def _positions(table, length: int, device) -> torch.Tensor:
+    """The first ``length`` rows of a position table as ``[1, length,
+    hidden]``: a slice, or, for a strategy's column block of the table,
+    its lookup (``Embed``'s gathered path)."""
+    if getattr(table.embedding, "_zoo_shard", None) is None:
+        return table.embedding[:length][None]
+    return table(torch.arange(length, dtype=torch.int32, device=device)[None])
+
+
 def _gelu(x, exact: bool):
     return F.gelu(x, approximate="none" if exact else "tanh")
 
@@ -126,9 +142,36 @@ class EncoderBlock(nn.Module):
         self.output = Dense(intermediate_size, hidden_size, dtype=dtype)
         self.ffn_norm = LayerNorm(hidden_size, eps=1e-12, dtype=dtype)
 
+    def sharded_params(self, shards) -> set:
+        """Under a strategy, Megatron's layout: the attention's
+        (``AttentionModule.sharded_params``), and ``intermediate`` split
+        by its output features with ``output`` by its input columns over
+        one axis (the FFN on this rank's columns, one all_reduce)."""
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+        sub = {n[len("attention."):]: v for n, v in shards.items()
+               if n.startswith("attention.")}
+        out = {"attention." + n for n in self.attention.sharded_params(sub)}
+        axis = tp.covers(shards, ["intermediate.weight"], 0)
+        if axis is not None and "output.bias" not in shards and \
+                tp.covers(shards, ["output.weight"], 1, axis) is not None:
+            out |= {"intermediate.weight", "output.weight"}
+            if tp.covers(shards, ["intermediate.bias"], 0, axis):
+                out.add("intermediate.bias")
+        return out
+
+    def _ffn(self, x):
+        from analytics_zoo_tpu_torch.parallel import tensor_parallel as tp
+        if tp.shard_of(self.intermediate.weight) is None:
+            return self.output(_gelu(self.intermediate(x), self.gelu_exact))
+        h = tp.column_linear(x, self.intermediate.weight,
+                             self.intermediate.bias,
+                             self.intermediate.compute_dtype, gather=False)
+        return tp.row_linear(_gelu(h, self.gelu_exact), self.output.weight,
+                             self.output.bias, self.output.compute_dtype)
+
     def forward(self, x, mask=None, train: bool = False):
         x = self.attn_norm(x + self.attention(x, mask=mask, train=train))
-        h = self.output(_gelu(self.intermediate(x), self.gelu_exact))
+        h = self._ffn(x)
         if self.dropout > 0:
             h = F.dropout(h, self.dropout, training=train)
         return self.ffn_norm(x + h)
@@ -165,7 +208,7 @@ class BertModule(nn.Module):
             raise ValueError(f"sequence length {length} exceeds "
                              f"max_position_len {cfg.max_position_len}")
         emb = self.word_embeddings(ids)
-        emb = emb + self.position_embeddings.embedding[:length][None]
+        emb = emb + _positions(self.position_embeddings, length, ids.device)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(ids)
         emb = emb + self.token_type_embeddings(
@@ -220,12 +263,27 @@ class TransformerModule(nn.Module):
         if length > self.max_position_len:
             raise ValueError(f"sequence length {length} exceeds "
                              f"max_position_len {self.max_position_len}")
-        x = self.wte(ids) + self.wpe.embedding[:length][None]
+        x = self.wte(ids) + _positions(self.wpe, length, ids.device)
         if self.hidden_drop > 0:
             x = F.dropout(x, self.hidden_drop, training=train)
         for i in range(self.n_block):
             x = self._modules[f"block_{i}"](x, train=train)
         return x
+
+
+def bert_tp_rules() -> list:
+    """Tensor-parallel partition rules for the encoder (JAX's, verbatim,
+    against flax's paths and shapes): attention heads and the FFN width
+    over the ``model`` axis, Megatron's layout (column-parallel
+    query/key/value and intermediate, row-parallel out and output), and
+    the word table by columns."""
+    return [
+        (r"attention/(query|key|value)/kernel", (None, "model", None)),
+        (r"attention/out/kernel", ("model", None, None)),
+        (r"intermediate/kernel", (None, "model")),
+        (r"output/kernel", ("model", None)),
+        (r"word_embeddings/embedding", (None, "model")),
+    ]
 
 
 def init_bert_weights(module: nn.Module, seed: int = 0,

@@ -20,7 +20,8 @@ logits. ``save``/``load`` write and read the JAX package's layout
 (``<path>/ckpt-<step>/``, the flax BERT tree with its ``[in, h, d]``
 attention projections, the heads under flax's ``classifier``, ``ner``
 and ``qa``), so an estimator saved by either package loads in the
-other.
+other. Under a strategy with ``tp`` the estimator trains with
+``bert_tp_rules()``, as JAX's does.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from analytics_zoo_tpu_torch.common.flax_compat import Dense
 from analytics_zoo_tpu_torch.learn.estimator import Estimator, TorchEstimator
 from analytics_zoo_tpu_torch.learn.losses import _take_label, logsumexp
 from analytics_zoo_tpu_torch.text.bert import (BertConfig, BertModule,
+                                               bert_tp_rules,
                                                init_bert_weights)
 
 
@@ -126,12 +128,19 @@ class _BertTaskEstimator:
     def __init__(self, module, loss, optimizer, metrics, config: BertConfig,
                  seq_len: int, model_dir, strategy, seed: int,
                  device: DeviceLike):
+        from analytics_zoo_tpu_torch.parallel.strategy import (
+            ShardingStrategy,
+        )
         self.config = config
         self.seq_len = seq_len
+        # JAX's text/estimators.py: the encoder's tensor-parallel rules
+        # whenever the strategy uses tp
+        rules = (bert_tp_rules()
+                 if "tp" in ShardingStrategy.parse(strategy).uses else None)
         self.estimator: TorchEstimator = Estimator.from_torch(
             model=init_bert_weights(module, seed), loss=loss,
             optimizer=optimizer, metrics=metrics, model_dir=model_dir,
-            strategy=strategy, seed=seed, device=device)
+            strategy=strategy, param_rules=rules, seed=seed, device=device)
 
     @staticmethod
     def _xy(input_ids, token_type_ids=None, input_mask=None, labels=None):

@@ -19,7 +19,7 @@ hybrid).
   ``seed`` (JAX's threefry draws differ).
 - ``distributed=True`` (XShards input, ``num_workers > 1``) runs on a
   one-device mesh over ``device``: ``fit_report["devices_used"]`` is 1.
-  Sharding the series over several ranks is ROADMAP A9.
+  Sharding the series over several ranks is ROADMAP A9's third part.
 - The basis forecasts (closed-form AR, or the port's ``TCNForecaster``),
   the DeepGLO local TCN, ``fit_incremental``, ``rolling_evaluate``,
   calendar features, covariates, ``val_len`` and save/load (JAX's files:
@@ -128,10 +128,10 @@ class TCMFForecaster:
         (ref fit input contract). Returns final reconstruction MSE.
 
         ``distributed=True`` (implied by XShards input or ``num_workers``)
-        runs on a one-device mesh (sharding it is ROADMAP A9). Reference epoch knobs
-        map onto ``num_steps`` as the ref's total F/X epoch budget:
-        ``init_FX_epoch + alt_iters * max_FX_epoch`` (DeepGLO.py train_all:
-        initial joint fit, then ``alt_iters`` alternating rounds of
+        runs on a one-device mesh (sharding it is ROADMAP A9's third
+        part). Reference epoch knobs map onto ``num_steps`` as the ref's
+        total F/X epoch budget: ``init_FX_epoch + alt_iters *
+        max_FX_epoch`` (DeepGLO.py train_all: initial joint fit, then ``alt_iters`` alternating rounds of
         ``max_FX_epoch`` each); ``y_iters``/``max_TCN_epoch`` set the local
         residual net's epochs when ``use_local=True``. ``dti`` (or
         ``start_date``+``freq``) derives calendar regressors
@@ -241,7 +241,7 @@ class TCMFForecaster:
 
     def _mesh(self):
         """A one-device mesh over ``device`` (sharding the series over
-        several ranks is ROADMAP A9)."""
+        several ranks is ROADMAP A9's third part)."""
         from analytics_zoo_tpu_torch.parallel.mesh import build_mesh
         return build_mesh(devices=[self.device], set_default=False)
 

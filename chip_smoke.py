@@ -486,7 +486,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (recsys_pipeline_samples_per_sec, friesian_transform_speedup,
              B1 and B1b launches a step), and its first 5 steps against the
              CPU within P22_FIT_ATOL; (g) the chain at MovieLens-1M's shape
-             (1 000 209 rows, 6040 users, 3706 items; synthetic) under DRAM
+             (250 052 rows, a quarter of its ratings, 6040 users, 3706
+             items; synthetic) under DRAM
              and NATIVE_4, the tables bitwise equal, NCF at ML-1M width one
              epoch of batch 8000 from the NATIVE_4 feed within the tier's
              window bound (samples/s with and without the transforms);
@@ -494,6 +495,60 @@ Phases, each of which fails the run (non-zero exit, no result line):
              1, 2 and 4, bitwise (ms each). A kernel's verdict against its
              plain version that the kernel lost is printed as a queue-B
              finding.
+C20. cuDNN's noise (ROADMAP C20): init_orca_context now takes cuDNN's
+             deterministic algorithms; the TCN step (phase 13, fp32, TF32
+             off), the ResNet-50 bf16 step (phase 17) and the SSD300-VGG
+             bf16 step (phase 21) timed at their windows with
+             cudnn.deterministic on and off in turns (on, off, off, on),
+             the ratio printed (over 1.5x named as such); two serial AutoTS
+             TCN searches under init_orca_context held bitwise (c20_cost)
+23. the strategies across ranks (ROADMAP A9's second part, first half),
+             TF32 off, through parallel/launch.py: a group of 2 and a group
+             of 4 ranks share the card over gloo (NCCL refuses two ranks
+             on one card), each rank adopting the launcher's group through
+             init_orca_context(cluster_mode="multihost"), and a one-rank
+             NCCL group made by the context itself (beside the group of
+             4). Every rank of a group
+             runs every part: (a) the collectives against the same data
+             movement on one rank (all_gather, all_to_all, ring_shift
+             bitwise; all_reduce and reduce_scatter within 1 ulp a
+             summand, bitwise at 2 ranks; on the card gloo carries all
+             but ring_shift directly, dev/gloo_cuda_probe.py), the gloo
+             staging table, and on
+             the NCCL group an NCF fit bitwise the fit before the group;
+             (b) BERT-Base fine-tuning (BertConfig's defaults, 2 classes,
+             32 x 128, Adam(2e-5), dropout 0, 5 steps, fp32 and bf16)
+             under "dp", "fsdp" and "dp,tp2" (bert_tp_rules) over 2 ranks
+             and "dp2,tp2" over 4, held to the one-rank fit on the same
+             global batches (loss 1e-5 fp32 / 1e-2 bf16, every parameter
+             1e-5 in fp32), the bytes a rank holds (no sharded leaf
+             whole), 12 launches of B3-B5 a step on 12 / tp heads, ms a
+             step of the last four and the collectives' share; (c) NCF at
+             MovieLens-1M width (batch 8000, Adam(1e-3), 20 steps) under
+             "dp" and "tp2" (NeuralCF.tp_param_rules) over 2 and "dp2,tp2"
+             over 4: the loss of every step within 1e-5 of the one-rank
+             fit, every parameter within 1e-5, or, where a ReLU input
+             took the other side of 0 from the one-rank fit's (a rank's
+             GEMMs see other shapes), all but 0.2% of the elements within
+             1e-5 and all within 5e-4, the first flipped inputs within
+             1e-5 of 0 (P23_NCF_FLIP_*), B1 and B1b on the tables' 10-wide
+             column blocks; (d)
+             ring attention (b 2, s 8192, h 12, d 64, "sp2" / "sp4", fp32
+             and bf16, causal and not) on each rank's sequence block: the
+             output and dq, dk, dv against the one-rank flash kernel over
+             the whole sequence within phase 3's limits (bf16 with p - 1
+             more ulps of the largest element for the block partials'
+             roundings, no share limit), fp32 also against the float64
+             softmax, B3 launches p or causal rank + 1, ms forward and
+             backward; the plain ring on the card too, held alike (no
+             launch); (e) Ulysses at the same shape, held alike, one B3
+             launch a forward on 12 / p heads; (f) MoE at Switch-Base-8's
+             FFN widths (d_model 768, d_ff 3072, 8 experts, top-1,
+             capacity factor 1.25, 8 x 512 tokens) under "ep2" / "ep4":
+             output, aux loss and every gradient within 1e-5 of one rank's
+             (of each one's largest element), the tokens a rank's experts
+             took, and a "dp2,ep2" training step with ep_param_rules
+             within 1e-5 of the one-rank step (phase_parallel)
 
 The autotuner: the run keeps its verdicts in a file of its own
 (build/chip_smoke_autotune/, ZOO_AUTOTUNE_CACHE), empty at the start and
@@ -560,8 +615,10 @@ phase 20, before each of (a)-(h), which launch none; phase 21, before
 each of (a)-(f), which launch none; phase 22, before each of (a)-(h):
 (a) and (b) B3 (their measurements too), (c) B1, B2, B6 and B7 (the
 same), (d) B3 where the drained verdict took the kernel, (e) B6 where a
-verdict took the paged step, (f) and (g) B1 and B1b, (h) B1) and read
-right after it: every kernel of the path must have launched there.
+verdict took the paged step, (f) and (g) B1 and B1b, (h) B1; phase 23,
+in each rank before each part: (b) B3-B5, (c) B1 and B1b, (d) and (e)
+B3-B5, summed over the ranks) and read right after it: every kernel of
+the path must have launched there.
 Phases 13's to 20's seconds and the whole run's are printed
 before the kernels line. The
 second-to-last line is the kernels JSON, the last
@@ -9606,9 +9663,11 @@ RECSYS_NCF = dict(user_count=RECSYS_USERS, item_count=RECSYS_ITEMS,
                   class_num=2, user_embed=16, item_embed=16,
                   hidden_layers=(32, 16), include_mf=True, mf_embed=16)
 RECSYS_LR = 1e-3
-# MovieLens-1M's shape (ratings.dat's rows, users.dat's and movies.dat's
-# ids in use), synthetic and seeded
-ML1M_ROWS, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6040, 3706
+# MovieLens-1M's shape (users.dat's and movies.dat's ids in use),
+# synthetic and seeded; a quarter of ratings.dat's 1 000 209 rows since
+# phase 23 joined the run (its depth cut so the whole run stays near its
+# length before: 22(g) took 80-105 s of it at the full count)
+ML1M_ROWS, ML1M_USERS, ML1M_ITEMS = 1_000_209 // 4, 6040, 3706
 ML1M_NCF = dict(user_count=ML1M_USERS, item_count=ML1M_ITEMS, class_num=2,
                 user_embed=20, item_embed=20, hidden_layers=(40, 20, 10),
                 include_mf=True, mf_embed=20)
@@ -10274,6 +10333,1133 @@ def phase_autotune_friesian(torch, np, kind):
     return rep
 
 
+# ------------------------------------------------- C20: cuDNN's noise
+# cuDNN's deterministic algorithms (init_orca_context's default since
+# ROADMAP C20) against its defaults, in turns (on, off, off, on) within
+# one call: the TCN step (phase 13, fp32, TF32 off), the ResNet-50 bf16
+# step (phase 17) and the SSD300-VGG bf16 step (phase 21), each at its
+# phase's window; a step that slows past C20_SLOWDOWN is printed as such
+# (the default stays: reproducibility is the reference's behaviour)
+C20_SLOWDOWN = 1.5
+C20_TURNS = (True, False, False, True)
+
+
+def c20_cost(torch, np, kind, dev="cuda"):
+    """ms a step with cudnn.deterministic on and off, in turns, and two
+    serial AutoTS TCN searches under init_orca_context's default flags,
+    held bitwise (the case that branched with cuDNN's defaults in slice
+    19, dev/zouwu_path_torch.py --determinism)."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    t0 = time.perf_counter()
+    rep = {}
+
+    def tcn():
+        x, y = tcn_bench_data(np)
+        est = tcn_estimator(device=dev)
+        return lambda: tcn_window(torch, est, x, y)
+
+    def resnet():
+        x, y = p17_data(np, P17_BATCH)
+        clf = p17_classifier(np, "mixed_bfloat16")
+        clf.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                    device=dev)
+        est = clf.model.estimator
+        xs, ys = est._tensors(x), est._tensors(y)
+        return lambda: p17_window(torch, est, xs, ys)
+
+    def ssd():
+        x, boxes, labels = p21_images(np, P21_BATCH)
+        net = p21_ssd(np, "mixed_bfloat16")
+        est = p21_compile(net, device=dev)
+        xs = est._tensors(x)
+        ys = est._tensors(net.encode_ground_truth(boxes, labels))
+        return lambda: p21_window(torch, est, xs, ys)
+
+    try:
+        cudnn.benchmark = False
+        for name, make, tf32 in (("tcn_fp32", tcn, False),
+                                 ("resnet50_bf16", resnet, True),
+                                 ("ssd300_bf16", ssd, True)):
+            with p17_tf32(torch, tf32):
+                window = make()
+                ms = {True: [], False: []}
+                for det in C20_TURNS:
+                    cudnn.deterministic = det
+                    ms[det].append(window())
+            on, off = float(np.mean(ms[True])), float(np.mean(ms[False]))
+            rep[name] = dict(deterministic_ms=ms[True], default_ms=ms[False],
+                             ratio=on / off, slower_than_limit=on / off
+                             > C20_SLOWDOWN)
+            log(f"C20 {name} on {kind}: {on:.3f} ms a step with "
+                f"cudnn.deterministic ({ms[True]}), {off:.3f} with cuDNN's "
+                f"defaults ({ms[False]}), ratio {on / off:.3f}"
+                + (f" (over {C20_SLOWDOWN}x)" if on / off > C20_SLOWDOWN
+                   else ""))
+            del window
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    rep["autots_bitwise"] = c20_autots(torch, np, kind, dev)
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
+
+
+def c20_autots(torch, np, kind, dev="cuda") -> bool:
+    """Two serial AutoTS TCN searches (phase 20(e)'s recipe) under
+    init_orca_context's flags: every trial's metric history bitwise."""
+    import shutil
+    from analytics_zoo_tpu_torch.common.context import (active_context,
+                                                        init_orca_context,
+                                                        stop_orca_context)
+    from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer
+    from analytics_zoo_tpu_torch.zouwu.config import TCNGridRandomRecipe
+    made = active_context() is None
+    if made:
+        init_orca_context(device=dev)
+    cudnn = torch.backends.cudnn
+    _, train, val, _ = p20_frames(np)
+    runs = []
+    try:
+        assert cudnn.deterministic and not cudnn.benchmark
+        for i in range(2):
+            trainer = AutoTSTrainer(dt_col="timestamp", target_col="value",
+                                    horizon=1, logs_dir=P20_DIR,
+                                    name=f"c20_{i}", device=dev,
+                                    n_parallel=1)
+            trainer.fit(train, val, recipe=TCNGridRandomRecipe(
+                num_rand_samples=P20_PAR_SAMPLES, epochs=1))
+            runs.append(np.asarray([t.metric_history
+                                    for t in trainer.engine.trials]))
+    finally:
+        if made:
+            stop_orca_context()
+        shutil.rmtree(P20_DIR, ignore_errors=True)
+    same = bool(np.array_equal(runs[0], runs[1]))
+    log(f"C20 two serial AutoTS TCN searches ({runs[0].shape[0]} trials) "
+        f"on {kind} under init_orca_context's cudnn.deterministic: "
+        f"histories bitwise {same}")
+    if not same:
+        raise AssertionError(f"C20: the AutoTS searches differ: {runs}")
+    return same
+
+
+# ----------------------------------------- phase 23: across ranks
+# Several ranks share the one card over gloo (NCCL refuses two ranks on
+# one card); each rank is a process of parallel/launch.py. Phase 23 runs
+# one group of 2 ranks and one of 4, each through every sub-phase, and
+# one NCCL group of 1 rank through init_orca_context(cluster_mode=
+# "multihost").
+P23_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase23")
+P23_TIMEOUT = 900
+# (b) BERT-Base fine-tuning, BASELINE.json's fifth configuration: 32 x
+# 128 tokens, Adam at BERT fine-tuning's rate, dropout 0, five steps (the
+# last four timed)
+P23_BERT_STEPS = 5
+P23_BERT_LR = 2e-5
+P23_BERT = {2: ("dp", "fsdp", "dp,tp2"), 4: ("dp2,tp2",)}
+P23_PARAM_ATOL = 1e-5
+# (c) NCF at MovieLens-1M width, batch 8000, Adam(1e-3), 20 steps. The
+# loss within P23_PARAM_ATOL at every step; every parameter within it,
+# unless a ReLU input took the other side of 0 from the one-rank fit's:
+# a rank's GEMMs see other shapes than one rank's (4000 rows, or half the
+# columns), so an input within rounding of 0 can flip, and Adam then moves
+# the rows of that sample by up to a step (under "dp2,tp2" from step 14:
+# 5.5e-5 at the flip, 2.92e-4 six steps on, on 332 of 392 745 elements;
+# dev/parallel_ncf_steps.py and chip_smoke.py runs, PERF.md §6).
+# Then the parameters are held within P23_PARAM_ATOL on all but
+# P23_NCF_FLIP_SHARE of the elements and all within P23_NCF_FLIP_ATOL
+# (just above those readings), and the witness must hold: every rank
+# compares each step's ReLU inputs (P23_NCF_RELU) with the one-rank fit's,
+# and each input that flipped at the first step with a flip lies within
+# P23_NCF_FLIP_NEAR of 0 on both sides (inputs' scale 3e-2; up to the
+# flip the parameters sit within 2.5e-7 of one rank's, which moves an
+# input by about 1.4e-6 at most). A fault that moves a parameter by a
+# fraction of a step shows as a flip far from 0, or as no flip at all.
+P23_NCF_STEPS = 20
+P23_NCF_LR = 1e-3
+P23_NCF_FLIP_SHARE = 2e-3
+P23_NCF_FLIP_ATOL = 5e-4
+P23_NCF_FLIP_NEAR = 1e-5
+P23_NCF_RELU = ("dense_1", "dense_2", "dense_3")
+P23_NCF = {2: ("dp", "tp2"), 4: ("dp2,tp2",)}
+# (d), (e) ring and Ulysses attention at BERT-Base's heads: b, s, h, d
+P23_ATTN = (2, 8192, 12, 64)
+# (f) MoE at Switch-Base-8's FFN widths (google/switch-base-8: d_model
+# 768, d_ff 3072, 8 experts, top-1), JAX MoEModule's capacity factor
+# 1.25, 8 x 512 tokens
+P23_MOE = dict(n_experts=8, d_model=768, d_hidden=3072, k=1,
+               capacity_factor=1.25)
+P23_MOE_TOKENS = (8, 512)
+P23_MOE_LAYOUTS = {2: ("ep2",), 4: ("ep4",)}
+P23_MOE_STEP = {4: "dp2,ep2"}
+P23_MOE_RTOL = 1e-5
+
+
+def p23_bert_inputs(np):
+    return train_inputs(np.random.RandomState(SEED + 23),
+                        TRAIN_BATCH * P23_BERT_STEPS)
+
+
+#: BertConfig's fields over BERT-Base's defaults (none: BERT-Base)
+P23_BERT_SIZE = {}
+
+
+def p23_bert_config(dtype):
+    return dict(P23_BERT_SIZE, use_flash=True, hidden_drop=0.0,
+                attn_drop=0.0, dtype=dtype)
+
+
+def p23_bert_estimator(torch, state, dtype, strategy="dp", dev="cuda"):
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.text.bert import bert_tp_rules
+    return Estimator.from_torch(
+        model=bert_classifier(state, **p23_bert_config(dtype)),
+        loss="sparse_categorical_crossentropy_logits",
+        optimizer=Adam(P23_BERT_LR), strategy=strategy,
+        param_rules=bert_tp_rules(), seed=SEED, device=dev)
+
+
+def p23_ncf_data(np):
+    rng = np.random.RandomState(SEED + 230)
+    n = BATCH * P23_NCF_STEPS
+    x = np.stack([rng.randint(1, NCF["user_count"] + 1, n),
+                  rng.randint(1, NCF["item_count"] + 1, n)],
+                 1).astype(np.float32)
+    return x, rng.randint(0, NCF["class_num"], n).astype(np.int32)
+
+
+def p23_relu_hooks(est, fn):
+    """Forward hooks on NCF's ReLU layers (``P23_NCF_RELU``): ``fn(layer,
+    step, pre-activation)`` at each forward with a gradient; the
+    handles."""
+    import torch
+    mods = dict(est.model.named_modules())
+
+    def hook(name):
+        def call(mod, inp, out):
+            if torch.is_grad_enabled() and est._py_step < P23_NCF_STEPS:
+                fn(name, est._py_step, out.detach().float().cpu())
+        return call
+    return [mods[n].register_forward_hook(hook(n)) for n in P23_NCF_RELU]
+
+
+def p23_ncf_model(torch, state, strategy, dev="cuda"):
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    ncf = NeuralCF(**NCF)
+    ncf.model.module.load_state_dict(state)
+    ncf.set_strategy(strategy, param_rules=NeuralCF.tp_param_rules())
+    ncf.compile(optimizer=Adam(P23_NCF_LR),
+                loss="sparse_categorical_crossentropy", device=dev)
+    return ncf
+
+
+class P23MoENet:
+    """The MoE training step's model: the MoE block and a 2-class head
+    over the mean of the sequence (built inside torch's import)."""
+
+    @staticmethod
+    def make(torch):
+        from analytics_zoo_tpu_torch.common.flax_compat import Dense
+        from analytics_zoo_tpu_torch.ops.moe import MoEModule
+
+        class Net(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.moe = MoEModule(**P23_MOE)
+                self.Dense_0 = Dense(P23_MOE["d_model"], 2)
+
+            def forward(self, x, train: bool = False):
+                return self.Dense_0(self.moe(x, train=train).mean(1))
+        net = Net()
+        seeded_weights(net, SEED + 233)
+        return net
+
+
+def p23_moe_data(np):
+    rng = np.random.RandomState(SEED + 232)
+    b, s = P23_MOE_TOKENS
+    x = rng.standard_normal((b, s, P23_MOE["d_model"])).astype(np.float32)
+    return x, rng.randint(0, 2, b).astype(np.int32)
+
+
+def p23_references(torch, np, kind, dev="cuda"):
+    """The one-rank runs every rank is held to, written to P23_DIR: BERT's
+    and NCF's initial weights, their one-rank fits (step losses, the fp32
+    parameters after the last step), the MoE step's; and the one-rank
+    flash kernel's times over the whole sequence of (d)."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    shutil.rmtree(P23_DIR, ignore_errors=True)
+    os.makedirs(P23_DIR)
+    rep = {}
+    state = bert_classifier(None, **p23_bert_config(None)).state_dict()
+    torch.save(state, os.path.join(P23_DIR, "bert_init.pt"))
+    ids, labels = p23_bert_inputs(np)
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        est = p23_bert_estimator(torch, state, dtype, dev=dev)
+        torch.cuda.synchronize() if dev == "cuda" else None
+        t0 = time.perf_counter()
+        est.fit((ids, labels), epochs=1, batch_size=TRAIN_BATCH,
+                shuffle=False)
+        secs = time.perf_counter() - t0
+        ref = {"losses": est.step_losses, "fit_s": secs}
+        if dtype is None:
+            torch.save({k: v.detach().cpu() for k, v in
+                        est.model.state_dict().items()},
+                       os.path.join(P23_DIR, "bert_fp32_after.pt"))
+        rep[f"bert_{label}"] = ref
+        log(f"phase 23 reference: BERT-Base {label} one-rank fit on {kind}, "
+            f"{P23_BERT_STEPS} steps of {TRAIN_BATCH}x{TRAIN_LEN}: losses "
+            f"{[round(v, 6) for v in ref['losses']]} ({secs:.2f} s, the "
+            "first step included)")
+        del est
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    ncf = NeuralCF(**NCF)
+    seeded_weights(ncf.model.module, SEED + 23)
+    nstate = {k: v.clone() for k, v in ncf.model.module.state_dict().items()}
+    torch.save(nstate, os.path.join(P23_DIR, "ncf_init.pt"))
+    x, y = p23_ncf_data(np)
+    one = p23_ncf_model(torch, nstate, "dp", dev)
+    est = one.model._ensure_estimator(for_training=True)
+    relu = {n: torch.zeros((P23_NCF_STEPS, BATCH, u)) for n, u in
+            zip(P23_NCF_RELU, NCF["hidden_layers"])}
+
+    def keep(name, step, pre):
+        # the step's own forward comes last (a flop-counting pass on the
+        # step before's batch may come first)
+        relu[name][step] = pre
+    hooks = p23_relu_hooks(est, keep)
+    one.fit(x, y, batch_size=BATCH, nb_epoch=1, shuffle=False)
+    for h in hooks:
+        h.remove()
+    torch.save(relu, os.path.join(P23_DIR, "ncf_relu.pt"))
+    torch.save({k: v.detach().cpu() for k, v in
+                est.model.state_dict().items()},
+               os.path.join(P23_DIR, "ncf_after.pt"))
+    rep["ncf"] = {"losses": est.step_losses}
+    net = P23MoENet.make(torch)
+    torch.save(net.state_dict(), os.path.join(P23_DIR, "moe_init.pt"))
+    mx, my = p23_moe_data(np)
+    mest = Estimator.from_torch(model=net, loss=(
+        "sparse_categorical_crossentropy_logits"), optimizer="adam",
+        seed=SEED, device=dev)
+    mest.fit((mx, my), epochs=1, batch_size=len(mx), shuffle=False)
+    torch.save({k: v.detach().cpu() for k, v in
+                mest.model.state_dict().items()},
+               os.path.join(P23_DIR, "moe_after.pt"))
+    rep["moe_step"] = {"losses": mest.step_losses}
+    with open(os.path.join(P23_DIR, "refs.json"), "w") as fh:
+        json.dump(rep, fh)
+    # the one-rank kernel over the whole sequence of (d)
+    b, s, h, d = P23_ATTN
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 234)
+        q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        for causal in (False, True):
+            fwd = cuda_ms(lambda: fa.flash_attention(q, k, v, causal),
+                          iters=3, warmup=1) if dev == "cuda" else None
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+
+            def both():
+                out = fa.flash_attention(qq, kk, vv, causal)
+                out.backward(g)
+            both_ms = cuda_ms(both, iters=3, warmup=1) \
+                if dev == "cuda" else None
+            times[f"{str(dtype)[6:]}_{'causal' if causal else 'full'}"] = \
+                dict(fwd_ms=fwd, fwd_bwd_ms=both_ms)
+    rep["one_rank_flash"] = times
+    log(f"phase 23 reference: the one-rank flash kernel over b {b} s {s} "
+        f"h {h} d {d} on {kind}: {times}")
+    return rep
+
+
+def p23_rank(cfg):
+    """One rank of a phase 23 group: (a) the collectives, (b) BERT-Base
+    under each of the group's strategies, (c) NCF, (d) ring attention,
+    (e) Ulysses, (f) MoE; each part's launch counts are its own."""
+    import numpy as np
+    import torch
+    from analytics_zoo_tpu_torch.common.context import (OrcaContext,
+                                                        init_orca_context,
+                                                        stop_orca_context)
+    from analytics_zoo_tpu_torch.learn import estimator
+    # the phase's sizes where the caller cut them (a rehearsal)
+    globals().update(cfg.get("sizes") or {})
+    OrcaContext.default_matmul_precision = "float32"   # TF32 off
+    init_orca_context(cluster_mode="multihost", device=cfg["device"])
+    # each rank's summaries under the phase's directory (removed after)
+    estimator.DEFAULT_LOG_DIR = os.path.join(
+        P23_DIR, f"tb{torch.distributed.get_rank()}")
+    out = {}
+    try:
+        for part, fn in (("a", p23_collectives), ("b", p23_bert),
+                         ("c", p23_ncf), ("d", p23_ring),
+                         ("e", p23_ulysses), ("f", p23_moe)):
+            if part in cfg["parts"]:
+                t0 = time.perf_counter()
+                out[part] = fn(torch, np, cfg)
+                out[part]["seconds"] = time.perf_counter() - t0
+    finally:
+        stop_orca_context()
+    return out
+
+
+def p23_sync(torch, cfg):
+    if cfg["device"].startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def p23_collectives(torch, np, cfg):
+    """(a) each collective against the same data movement on one rank
+    (every rank makes every rank's input from its seed), bitwise; the sums
+    within 1 ulp a summand; the staging table."""
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.parallel import collectives as C
+    from analytics_zoo_tpu_torch.parallel import mesh as M
+    dev = torch.device(cfg["device"])
+    world = dist.get_world_size()
+    mesh = M.build_mesh((M.DATA_AXIS,), (world,))
+    r = mesh.rank
+
+    def inp(rank, shape, salt):
+        gen = torch.Generator(device="cpu").manual_seed(1000 * salt + rank)
+        return torch.randn(shape, generator=gen).to(dev)
+    rows = 256 * world
+    xs = [inp(i, (rows, 1024), 0) for i in range(world)]
+    eps = torch.finfo(torch.float32).eps
+    res = {}
+
+    def timed(fn):
+        p23_sync(torch, cfg)
+        t0 = time.perf_counter()
+        got = fn()
+        p23_sync(torch, cfg)
+        return got, (time.perf_counter() - t0) * 1e3
+    got, ms = timed(lambda: C.all_gather(xs[r], mesh, "data", 1))
+    res["all_gather"] = dict(ok=torch.equal(got, torch.cat(xs, 1)), ms=ms)
+    got, ms = timed(lambda: C.all_to_all(xs[r], mesh, "data", 0, 1))
+    want = torch.cat([x[r * 256:(r + 1) * 256] for x in xs], 1)
+    res["all_to_all"] = dict(ok=torch.equal(got, want), ms=ms)
+    got, ms = timed(lambda: C.ring_shift(xs[r], mesh, "data"))
+    res["ring_shift"] = dict(ok=torch.equal(got, xs[(r - 1) % world]),
+                             ms=ms)
+    got, ms = timed(lambda: C.all_reduce(xs[r], mesh, "data"))
+    total = sum(x.double() for x in xs)
+    mag = sum(x.double().abs() for x in xs)
+    # within 1 ulp a summand: world x eps x the sum of the magnitudes
+    res["all_reduce"] = dict(ok=bool(((got.double() - total).abs()
+                                      <= world * eps * mag).all()), ms=ms)
+    if world == 2:
+        # two summands: one rounding, the one-rank sum's bits
+        res["all_reduce"]["bitwise"] = torch.equal(got, xs[0] + xs[1])
+    got, ms = timed(lambda: C.reduce_scatter(xs[r], mesh, "data", 0))
+    sl = slice(r * 256, (r + 1) * 256)
+    res["reduce_scatter"] = dict(ok=bool(((got.double() - total[sl]).abs()
+                                          <= world * eps * mag[sl]).all()),
+                                 ms=ms)
+    res["table"] = C.staging_table()
+    res["world"] = world
+    bad = [op for op, v in res.items() if isinstance(v, dict)
+           and not v.get("ok", True)]
+    if bad:
+        raise AssertionError(f"23(a) rank {r}: {bad} differ: {res}")
+    return res
+
+
+def p23_bytes(np, est):
+    """(bytes of parameters and optimizer state this rank holds, bytes of
+    the whole, whether a sharded leaf is held whole anywhere)."""
+    held = sum(p.numel() * p.element_size() for p in est._params)
+    whole = sum(int(np.prod(s.shape)) * 4 if (s := est._shards.get(n))
+                else p.numel() * p.element_size()
+                for n, p in zip(est._names, est._params))
+    state = est._opt_state or {}
+    slots = sum(t.numel() * t.element_size() for v in state.values()
+                if isinstance(v, list) for t in v
+                if hasattr(t, "numel"))
+    whole_leaf = any(int(np.prod(s.local_shape)) >= int(np.prod(s.shape))
+                     for s in est._shards.values())
+    return dict(param_bytes=held, whole_param_bytes=whole,
+                opt_state_bytes=slots, sharded_leaf_whole=whole_leaf)
+
+
+def p23_bert(torch, np, cfg):
+    """(b) BERT-Base fine-tuning under each strategy of the group, fp32
+    and bf16: the one-rank fit's losses and (fp32) parameters; bytes
+    held; the flash kernels' launches a step; ms a step and the
+    collectives' share."""
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.parallel import collectives as C
+    with open(os.path.join(P23_DIR, "refs.json")) as fh:
+        refs = json.load(fh)
+    state = torch.load(os.path.join(P23_DIR, "bert_init.pt"))
+    after = torch.load(os.path.join(P23_DIR, "bert_fp32_after.pt"))
+    ids, labels = p23_bert_inputs(np)
+    out = {}
+    for strategy in cfg["bert"]:
+        for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            est = p23_bert_estimator(torch, state, dtype, strategy,
+                                     cfg["device"])
+            blocks = est._batch_shards
+            idx = est._mesh.data_index(est.strategy.batch_axes())
+            rows = p23_rows(np, len(ids), TRAIN_BATCH, idx, blocks)
+            _build.reset_launch_counts()
+            # the first step, then the other four timed, the collectives'
+            # host seconds beside (one fit of five steps, the same bits)
+            first = TRAIN_BATCH // blocks
+            est.fit((ids[rows][:first], labels[rows][:first]), epochs=1,
+                    batch_size=TRAIN_BATCH, shuffle=False)
+            C.reset_stats()
+            p23_sync(torch, cfg)
+            t0 = time.perf_counter()
+            est.fit((ids[rows][first:], labels[rows][first:]), epochs=1,
+                    batch_size=TRAIN_BATCH, shuffle=False)
+            p23_sync(torch, cfg)
+            secs = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            ref = refs[f"bert_{label}"]["losses"]
+            loss_err = float(np.abs(np.asarray(est.step_losses)
+                                    - np.asarray(ref)).max())
+            rec = dict(losses=est.step_losses, loss_err=loss_err,
+                       launches={k: v for k, v in counts.items() if v},
+                       step_ms=secs / (P23_BERT_STEPS - 1) * 1e3,
+                       collective_share=C.stats_seconds() / secs,
+                       collectives={k: list(v) for k, v in C.stats.items()},
+                       **p23_bytes(np, est))
+            if dtype is None:
+                whole = est.gathered_state_dict()
+                rec["param_err"] = max(
+                    float((whole[k].float().cpu() - after[k].float())
+                          .abs().max()) for k in after)
+            n_head = P23_BERT_SIZE.get("n_head", 12)
+            head_dim = P23_BERT_SIZE.get("hidden_size", 768) // n_head
+            heads = [s.local_shape[0] // head_dim
+                     for n, s in est._shards.items()
+                     if n.endswith("block_0.attention.query.weight")]
+            rec["heads_a_rank"] = heads[0] if heads else n_head
+            out[f"{strategy}/{label}"] = rec
+            del est
+            if cfg["device"].startswith("cuda"):
+                torch.cuda.empty_cache()
+    return out
+
+
+def p23_rows(np, n, batch, index, blocks):
+    """The rows of block ``index`` of every global batch."""
+    h = batch // blocks
+    return np.arange((n // batch) * batch).reshape(-1, blocks, h)[
+        :, index, :].ravel()
+
+
+def p23_ncf(torch, np, cfg):
+    """(c) NCF at MovieLens-1M width under each strategy of the group:
+    the one-rank fit's losses and parameters; B1 and B1b launches and the
+    tables' shard shapes."""
+    from analytics_zoo_tpu_torch.ops import _build
+    state = torch.load(os.path.join(P23_DIR, "ncf_init.pt"))
+    after = torch.load(os.path.join(P23_DIR, "ncf_after.pt"))
+    with open(os.path.join(P23_DIR, "refs.json")) as fh:
+        ref = json.load(fh)["ncf"]["losses"]
+    relu = torch.load(os.path.join(P23_DIR, "ncf_relu.pt"))
+    x, y = p23_ncf_data(np)
+    out = {}
+    for strategy in cfg["ncf"]:
+        ncf = p23_ncf_model(torch, state, strategy, cfg["device"])
+        est = ncf.model._ensure_estimator(for_training=True)
+        blocks = est._batch_shards
+        idx = est._mesh.data_index(est.strategy.batch_axes())
+        rows = p23_rows(np, len(x), BATCH, idx, blocks)
+        per = BATCH // blocks
+        flips = {"count": 0, "step": None, "near": 0.0, "first": []}
+
+        def compare(name, step, pre):
+            # this rank's rows of the step against the one-rank fit's
+            at = rows[step * per:(step + 1) * per]
+            want = relu[name][step, torch.from_numpy(at - step * BATCH)]
+            r, u = ((pre > 0) != (want > 0)).nonzero(as_tuple=True)
+            if not len(r):
+                return
+            flips["count"] += len(r)
+            if flips["step"] is None or step < flips["step"]:
+                flips.update(step=step, near=0.0, first=[])
+            if step == flips["step"]:
+                w, g = want[r, u], pre[r, u]
+                flips["near"] = max(flips["near"], float(torch.maximum(
+                    w.abs(), g.abs()).max()))
+                flips["first"] += [
+                    [name, int(at[i]), int(j), float(a), float(b)]
+                    for i, j, a, b in zip(r[:4].tolist(), u[:4].tolist(),
+                                          w[:4].tolist(), g[:4].tolist())]
+        hooks = p23_relu_hooks(est, compare)
+        _build.reset_launch_counts()
+        ncf.fit(x[rows], y[rows], batch_size=BATCH, nb_epoch=1,
+                shuffle=False)
+        counts = _build.launch_counts()
+        for h in hooks:
+            h.remove()
+        whole = est.gathered_state_dict()
+        out[strategy] = dict(
+            loss_err=float(np.abs(np.asarray(est.step_losses)
+                                  - np.asarray(ref)).max()),
+            param_err=max(float((whole[k].float().cpu() - after[k].float())
+                                .abs().max()) for k in after),
+            param_errs={k: float((whole[k].float().cpu() - after[k].float())
+                                 .abs().max()) for k in after},
+            past=sum(int(((whole[k].float().cpu() - after[k].float()).abs()
+                          > P23_PARAM_ATOL).sum()) for k in after),
+            elements=sum(v.numel() for v in after.values()),
+            launches={k: v for k, v in counts.items() if v},
+            shards={n: list(s.local_shape) for n, s in est._shards.items()},
+            covered=sorted(set(est._shards) - set(est._gathered)),
+            relu_flips=flips)
+        del ncf, est
+    return out
+
+
+def p23_qkv(torch, dtype, dev, salt):
+    b, s, h, d = P23_ATTN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 234 + salt)
+    return [torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def p23_f64(torch, q, k, v, g, causal):
+    """The float64 softmax attention and its gradients (out, dq, dk, dv
+    of sum(out * g)), one (batch, head) at a time."""
+    b, s, h, d = q.shape
+    out, dq, dk, dv = (torch.empty((b, s, h, d), dtype=torch.float64,
+                                   device=q.device) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril() \
+        if causal else None
+    for i in range(b):
+        for j in range(h):
+            qq, kk, vv, gg = (t[i, :, j].double() for t in (q, k, v, g))
+            sc = qq @ kk.T * scale
+            if mask is not None:
+                sc = sc.masked_fill(~mask, float("-inf"))
+            p = torch.softmax(sc, -1)
+            out[i, :, j] = p @ vv
+            dp = gg @ vv.T
+            ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+            dq[i, :, j] = ds @ kk * scale
+            dk[i, :, j] = ds.T @ qq * scale
+            dv[i, :, j] = p.T @ gg
+            del sc, p, dp, ds
+    return out, dq, dk, dv
+
+
+def p23_attn_check(torch, got, want, dtype, q_blk, k_pre, v_pre, causal,
+                   lse_blk, grads=False, blocks=1):
+    """A reading of ``got`` against ``want`` under phase 3's flash limits:
+    fp32 FLASH_ATOL (forward) or BWD_ATOL x the largest |want| (each
+    gradient); bf16 FLASH_BF16_* with the flip term (forward) or
+    BWD_BF16_ATOL x the largest |want| with FLASH_BF16_ULPS ulps
+    (gradients), and where ``blocks`` partial results were each rounded
+    to bf16 (the ring: each block's output and gradients leave the kernel
+    in bf16 and are merged or summed) ``blocks - 1`` more bf16 ulps of
+    the largest |want|. Returns (ratio to the limit, share of elements
+    that differ)."""
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        err = float((got.float() - want.float()).abs().max())
+        return (err / (BWD_ATOL * max(top, 1e-30)) if grads
+                else err / FLASH_ATOL), 0.0
+    extra = (blocks - 1) * 2.0 ** -8 * top
+    if grads:
+        return bf16_reading(got, want, BWD_BF16_ATOL * top + extra)
+    flip = bf16_flip_scale(q_blk, k_pre, v_pre, causal, lse_blk)
+    return bf16_reading(got, want, FLASH_BF16_ATOL + extra, flip=flip)
+
+
+def p23_attention(torch, np, cfg, kind):
+    """(d) ring or (e) Ulysses attention over "sp<world>" on this rank's
+    sequence block, fp32 and bf16, causal and not, the flash route (and
+    the ring's plain route): the output and dq, dk, dv held against the
+    one-rank flash kernel over the whole sequence (and in fp32 the
+    float64 softmax); B3-B5 launches; ms forward and backward."""
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.parallel.strategy import ShardingStrategy
+    dev = torch.device(cfg["device"])
+    world = dist.get_world_size()
+    mesh = ShardingStrategy.parse(f"sp{world}").build_mesh()
+    my = mesh.coord("seq")
+    b, s, h, d = P23_ATTN
+    s_loc = s // world
+    blk = slice(my * s_loc, (my + 1) * s_loc)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = p23_qkv(torch, dtype, dev, 0)
+        for causal in (False, True):
+            name = f"{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+            # the one-rank kernel over the whole sequence
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            ref, lse = fa.flash_attention_with_lse(qq, kk, vv, causal)
+            ref.backward(g)
+            want = (ref.detach()[:, blk], qq.grad[:, blk], kk.grad[:, blk],
+                    vv.grad[:, blk])
+            lse_blk = lse.detach().reshape(b, h, s)[:, :, blk].reshape(
+                b * h, s_loc)
+            del qq, kk, vv, ref
+            f64 = p23_f64(torch, q, k, v, g, causal) \
+                if dtype == torch.float32 else None
+            # the flash route, and the ring's plain route too
+            for route, flash in (("", True), ("_plain", False))[
+                    :2 if kind == "ring" else 1]:
+                out[name + route] = p23_route(
+                    torch, cfg, kind, mesh, flash, (q, k, v, g), blk,
+                    causal, want, lse_blk, f64)
+            del f64
+    return out
+
+
+def p23_route(torch, cfg, kind, mesh, flash, qkvg, blk, causal, want,
+              lse_blk, f64):
+    """One route of (d) or (e) on this rank's block: its readings against
+    the one-rank kernel (and float64), launches and ms."""
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.ops.ring_attention import (
+        ring_attention_local)
+    from analytics_zoo_tpu_torch.ops.ulysses import ulysses_attention_local
+    q, k, v, g = qkvg
+    world = dist.get_world_size()
+    my = mesh.coord("seq")
+    s_loc = blk.stop - blk.start
+    lq, lk, lv = (t[:, blk].contiguous().requires_grad_() for t in (q, k, v))
+    dist.barrier()
+    _build.reset_launch_counts()
+    p23_sync(torch, cfg)
+    t0 = time.perf_counter()
+    if kind == "ring":
+        got = ring_attention_local(lq, lk, lv, mesh=mesh, causal=causal,
+                                   use_flash=flash)
+    else:
+        got = ulysses_attention_local(lq, lk, lv, mesh=mesh, causal=causal,
+                                      use_flash=flash)
+    p23_sync(torch, cfg)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_counts = _build.launch_counts()
+    t0 = time.perf_counter()
+    got.backward(g[:, blk])
+    p23_sync(torch, cfg)
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    counts = _build.launch_counts()
+    pre = slice(0, (my + 1) * s_loc) if causal else slice(None)
+    outs = (got.detach(), lq.grad, lk.grad, lv.grad)
+    readings = {}
+    for i, (nm, a, w) in enumerate(zip(("out", "dq", "dk", "dv"), outs,
+                                       want)):
+        readings[nm] = p23_attn_check(
+            torch, a, w, q.dtype, lq.detach() if i == 0 else None,
+            k[:, pre] if i == 0 else None, v[:, pre] if i == 0 else None,
+            causal, lse_blk, grads=i > 0,
+            blocks=world if kind == "ring" else 1)
+    rec = dict(readings=readings, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               fwd_launches=fwd_counts.get("flash_attention_fwd", 0),
+               launches={k: v for k, v in counts.items() if v})
+    if f64 is not None:
+        rec["f64"] = {nm: p23_attn_check(
+            torch, a, w[:, blk], torch.float32, None, None, None, causal,
+            None, grads=i > 0)[0]
+            for i, (nm, a, w) in enumerate(zip(("out", "dq", "dk", "dv"),
+                                               outs, f64))}
+    return rec
+
+
+def p23_ring(torch, np, cfg):
+    return p23_attention(torch, np, cfg, "ring")
+
+
+def p23_ulysses(torch, np, cfg):
+    return p23_attention(torch, np, cfg, "ulysses")
+
+
+def p23_moe(torch, np, cfg):
+    """(f) MoE at Switch-Base-8's FFN widths: the module under each expert
+    layout of the group (the output, the aux loss and every gradient of
+    sum(out * g) + aux against one rank's, within P23_MOE_RTOL of each
+    one's largest element), the tokens a rank's experts took; and where
+    the group has it the "dp2,ep2" training step with ep_param_rules
+    against the one-rank step."""
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.ops import moe
+    from analytics_zoo_tpu_torch.parallel import collectives as C
+    from analytics_zoo_tpu_torch.parallel import mesh as M
+    from analytics_zoo_tpu_torch.parallel.strategy import ShardingStrategy
+    dev = torch.device(cfg["device"])
+    world = dist.get_world_size()
+    init = torch.load(os.path.join(P23_DIR, "moe_init.pt"))
+    mx, my = p23_moe_data(np)
+    x = torch.from_numpy(mx).to(dev)
+    g = torch.from_numpy(np.random.RandomState(SEED + 235).standard_normal(
+        mx.shape).astype(np.float32)).to(dev)
+    out = {}
+
+    def run(net):
+        xx = x.clone().requires_grad_()
+        with moe.collect_aux_losses() as aux:
+            y = net(xx)
+        return y, aux[0], xx
+
+    for layout in cfg["moe"]:
+        net = moe.MoEModule(**P23_MOE).to(dev)
+        net.load_state_dict({k[len("moe."):]: v for k, v in init.items()
+                             if k.startswith("moe.")})
+        saved = M._default_mesh
+        M.set_default_mesh(None)
+        y1, a1, x1 = run(net)
+        ((y1 * g).sum() + a1).backward()
+        ref = (y1.detach(), float(a1), x1.grad,
+               {n: p.grad.clone() for n, p in net.named_parameters()})
+        net.zero_grad()
+        mesh = ShardingStrategy.parse(layout).build_mesh()
+        ep = mesh.shape.get("expert", 1)
+        y2, a2, x2 = run(net)
+        # every rank holds the whole output: the ranks' sum counts it ep
+        # times
+        (((y2 * g).sum() + a2) / ep).backward()
+        grads = {n: C.all_reduce_(p.grad.clone(), mesh, ["expert"])
+                 for n, p in net.named_parameters()}
+        dx = C.all_reduce_(x2.grad.clone(), mesh, ["expert"])
+
+        def rel(a, b):
+            return float((a - b).abs().max() / max(float(b.abs().max()),
+                                                   1e-30))
+        rec = dict(out=rel(y2.detach(), ref[0]), aux=abs(float(a2) - ref[1]),
+                   dx=rel(dx, ref[2]),
+                   grads={n: rel(grads[n], ref[3][n]) for n in grads},
+                   dispatched=net.last_dispatch)
+        out[layout] = rec
+        M.set_default_mesh(saved)
+    if cfg.get("moe_step"):
+        layout = cfg["moe_step"]
+        net = P23MoENet.make(torch)
+        net.load_state_dict(init)
+        est = Estimator.from_torch(
+            model=net, loss="sparse_categorical_crossentropy_logits",
+            optimizer="adam", strategy=layout,
+            param_rules=moe.ep_param_rules(), seed=SEED, device=dev)
+        blocks = est._batch_shards
+        idx = est._mesh.data_index(est.strategy.batch_axes())
+        rows = p23_rows(np, len(mx), len(mx), idx, blocks)
+        est.fit((mx[rows], my[rows]), epochs=1, batch_size=len(mx),
+                shuffle=False)
+        after = torch.load(os.path.join(P23_DIR, "moe_after.pt"))
+        with open(os.path.join(P23_DIR, "refs.json")) as fh:
+            ref_loss = json.load(fh)["moe_step"]["losses"]
+        whole = est.gathered_state_dict()
+        out["step"] = dict(
+            layout=layout, loss=est.step_losses,
+            loss_err=float(np.abs(np.asarray(est.step_losses)
+                                  - np.asarray(ref_loss)).max()),
+            param_err=max(float((whole[k].float().cpu() - after[k].float())
+                                .abs().max()) for k in after),
+            covered=sorted(set(est._shards) - set(est._gathered)),
+            dispatched=est.model.moe.last_dispatch)
+    return out
+
+
+def p23_nccl(cfg):
+    """(a) the NCCL group of one rank: init_orca_context(cluster_mode=
+    "multihost") with a coordinator; an NCF fit under it bitwise the fit
+    of the same model before the group; one all_reduce through NCCL."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.common.context import (OrcaContext,
+                                                        init_orca_context,
+                                                        stop_orca_context)
+    from analytics_zoo_tpu_torch.parallel.launch import free_port
+    globals().update(cfg.get("sizes") or {})
+    from analytics_zoo_tpu_torch.learn import estimator
+    OrcaContext.default_matmul_precision = "float32"
+    estimator.DEFAULT_LOG_DIR = os.path.join(P23_DIR, "tb_nccl")
+    state = torch.load(os.path.join(P23_DIR, "ncf_init.pt"))
+    x, y = p23_ncf_data(np)
+    n = BATCH * 3
+    ends = []
+    for grouped in (False, True):
+        if grouped:
+            ctx = init_orca_context(
+                cluster_mode="multihost",
+                coordinator_address=f"127.0.0.1:{free_port()}",
+                num_processes=1, process_id=0)
+            backend = str(dist.get_backend())
+            t = torch.arange(8, dtype=torch.float32, device="cuda")
+            dist.all_reduce(t)
+            reduced = bool(torch.equal(t, torch.arange(
+                8, dtype=torch.float32, device="cuda")))
+        ncf = p23_ncf_model(torch, state, "dp", "cuda")
+        ncf.fit(x[:n], y[:n], batch_size=BATCH, nb_epoch=1, shuffle=False)
+        ends.append((ncf.model.estimator.step_losses,
+                     {k: v.detach().cpu() for k, v in
+                      ncf.model.module.state_dict().items()}))
+    devices = [str(d) for d in ctx.devices]
+    stop_orca_context()
+    same = ends[0][0] == ends[1][0] and all(
+        torch.equal(ends[0][1][k], ends[1][1][k]) for k in ends[0][1])
+    return dict(backend=backend, devices=devices, all_reduce=reduced,
+                bitwise=bool(same), losses=ends[1][0])
+
+
+def phase_parallel(torch, np, kind, dev="cuda", sizes=None,
+                   parts="abcdef"):
+    """Phase 23: the strategies across ranks, several ranks sharing the
+    card over gloo (a group of 2 and one of 4) and a one-rank NCCL group.
+    ``sizes``: module constants to cut (a rehearsal), in every rank too;
+    ``parts``: the sub-phases the groups run (all by default).
+    Returns the report; fails on any rank's failure or any reading past
+    its limit."""
+    import shutil
+    from analytics_zoo_tpu_torch.learn import estimator
+    globals().update(sizes or {})
+    t0 = time.perf_counter()
+    log_dir = estimator.DEFAULT_LOG_DIR
+    estimator.DEFAULT_LOG_DIR = os.path.join(P23_DIR, "tb_main")
+    try:
+        return p23_groups(torch, np, kind, dev, sizes, parts, t0)
+    finally:
+        estimator.DEFAULT_LOG_DIR = log_dir
+        shutil.rmtree(P23_DIR, ignore_errors=True)
+
+
+def p23_groups(torch, np, kind, dev, sizes, parts, t0):
+    """phase_parallel's body: the references, the groups, the report."""
+    import threading
+    from analytics_zoo_tpu_torch.parallel.launch import launch
+    with p17_tf32(torch, False):
+        rep = {"references": p23_references(torch, np, kind, dev)}
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    gloo_dev = "cuda:0" if dev == "cuda" else "cpu"
+    groups, nccl = {}, {}
+
+    def one_rank_nccl():
+        t1 = time.perf_counter()
+        try:
+            nccl["rec"] = launch(p23_nccl, 1, args=({"sizes": sizes},),
+                                 device="cuda", group=False,
+                                 timeout=P23_TIMEOUT)[0]
+        except BaseException as e:      # raised again below
+            nccl["error"] = e
+        nccl["seconds"] = time.perf_counter() - t1
+
+    # the one-rank NCCL group runs beside the group of 4 (its checks are
+    # bitwise within its own process; the group of 4's ms share the card
+    # with it for its first seconds)
+    runner = threading.Thread(target=one_rank_nccl, name="p23-nccl")
+    for world in (2, 4):
+        cfg = dict(device=gloo_dev, parts=parts, sizes=sizes,
+                   bert=P23_BERT.get(world, ()), ncf=P23_NCF.get(world, ()),
+                   moe=P23_MOE_LAYOUTS.get(world, ()),
+                   moe_step=P23_MOE_STEP.get(world))
+        if world == 4 and dev == "cuda":
+            runner.start()
+        t1 = time.perf_counter()
+        groups[world] = launch(p23_rank, world, args=(cfg,),
+                               device=gloo_dev, backend="gloo",
+                               timeout=P23_TIMEOUT)
+        log(f"phase 23: the group of {world} ranks on {kind} over gloo: "
+            f"{time.perf_counter() - t1:.1f} s")
+    rep["groups"] = {str(w): r for w, r in groups.items()}
+    if dev == "cuda":
+        runner.join()
+        if "error" in nccl:
+            raise nccl["error"]
+        rep["nccl"] = nccl["rec"]
+        log(f"phase 23(a) the one-rank NCCL group on {kind}: "
+            f"{rep['nccl']} ({nccl['seconds']:.1f} s, beside the group of "
+            "4)")
+        if not (rep["nccl"]["bitwise"] and rep["nccl"]["all_reduce"]
+                and rep["nccl"]["backend"] == "nccl"):
+            raise AssertionError(f"23(a) NCCL: {rep['nccl']}")
+    rep["launches"] = p23_report(rep, groups, kind)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"phase 23: {rep['seconds']:.1f} s")
+    return rep
+
+
+def p23_report(rep, groups, kind):
+    """Print each reading at its worst over the ranks (every rank's is in
+    chiprun_out/phase23.json), hold every rank's to its limit, and sum the
+    main paths' launches by kernel and part."""
+    bad = []
+    launches = {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "phase23.json"), "w") as fh:
+        json.dump({str(w): r for w, r in groups.items()}, fh, indent=1)
+
+    def add(part, counts):
+        dst = launches.setdefault(part, {})
+        for k, v in counts.items():
+            dst[k] = dst.get(k, 0) + v
+
+    def worst(recs, key):
+        return max(r[key] for r in recs)
+
+    for world, ranks in groups.items():
+        for part in "abcdef":
+            for r in ranks:
+                r.setdefault(part, {"seconds": 0.0})
+        a = [r["a"] for r in ranks if "table" in r["a"]]
+        if a:
+            log(f"23(a) {world} ranks on {kind}: staging table "
+                f"{a[0]['table']}; ms a call, each rank: " + "; ".join(
+                    f"{op} " + " ".join(f"{x[op]['ms']:.2f}" for x in a)
+                    for op in ("all_reduce", "all_gather", "reduce_scatter",
+                               "all_to_all", "ring_shift"))
+                + (f"; all_reduce bitwise a + b: "
+                   f"{all(x['all_reduce']['bitwise'] for x in a)}"
+                   if world == 2 else ""))
+            if world == 2 and not all(x["all_reduce"]["bitwise"]
+                                      for x in a):
+                bad.append(f"{world}/a all_reduce not bitwise")
+        for key in [k for k in ranks[0]["b"] if k != "seconds"]:
+            recs = [r["b"][key] for r in ranks]
+            lim = 1e-5 if key.endswith("fp32") else TRAIN_BF16_LOSS_ATOL
+            per_step = [{k: v / P23_BERT_STEPS for k, v in
+                         rec["launches"].items()} for rec in recs]
+            flash = {tuple(s.get(n, 0) for n in (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")) for s in per_step}
+            r0 = recs[0]
+            log(f"23(b) BERT-Base {key}, {world} ranks on {kind}: loss err "
+                f"{worst(recs, 'loss_err'):.3g} (limit {lim})"
+                + (f", param err {worst(recs, 'param_err'):.3g} (limit "
+                   f"{P23_PARAM_ATOL})" if "param_err" in r0 else "")
+                + f"; a rank holds {r0['param_bytes'] / 2 ** 20:.1f} MiB of "
+                f"{r0['whole_param_bytes'] / 2 ** 20:.1f} MiB parameters "
+                f"(+{r0['opt_state_bytes'] / 2 ** 20:.1f} MiB optimizer "
+                f"state), a sharded leaf whole "
+                f"{any(r['sharded_leaf_whole'] for r in recs)}; B3, B4, B5 "
+                f"a step {sorted(flash)} on {r0['heads_a_rank']} heads; ms a "
+                f"step " + " ".join(f"{r['step_ms']:.1f}" for r in recs)
+                + ", collectives' share " + " ".join(
+                    f"{r['collective_share']:.3f}" for r in recs))
+            if worst(recs, "loss_err") > lim or max(
+                    r.get("param_err", 0) for r in recs) > P23_PARAM_ATOL \
+                    or any(r["sharded_leaf_whole"] for r in recs) or \
+                    flash != {(12, 12, 12)}:
+                bad.append(f"{world}/b {key}")
+            for rec in recs:
+                add("bert", rec["launches"])
+        for key in [k for k in ranks[0]["c"] if k != "seconds"]:
+            recs = [r["c"][key] for r in ranks]
+            errs = {n: max(r["param_errs"][n] for r in recs)
+                    for n in recs[0]["param_errs"]}
+            share = worst(recs, "past") / recs[0]["elements"]
+            flips = [r["relu_flips"] for r in recs]
+            steps = [f["step"] for f in flips if f["step"] is not None]
+            first = min(steps) if steps else None
+            # the witness: the first flips, on every rank that had them
+            at_first = [f for f in flips if f["step"] == first]
+            witness = first is not None and all(
+                f["near"] <= P23_NCF_FLIP_NEAR for f in at_first)
+            flipped = worst(recs, "past") > 0
+            near = max((f["near"] for f in at_first), default=0.0)
+            shown = [e for f in at_first for e in f["first"]][:4]
+            log(f"23(c) NCF {key}, {world} ranks on {kind}: loss err "
+                f"{worst(recs, 'loss_err'):.3g} (limit {P23_PARAM_ATOL}), "
+                f"param err {worst(recs, 'param_err'):.3g} (limit "
+                f"{P23_PARAM_ATOL if not flipped else P23_NCF_FLIP_ATOL}; "
+                f"by leaf {errs}), past {P23_PARAM_ATOL}: "
+                f"{worst(recs, 'past')} of {recs[0]['elements']} elements "
+                f"(limit {P23_NCF_FLIP_SHARE} of them where a ReLU input "
+                f"flipped); ReLU inputs on the other side of 0 from the "
+                f"one-rank fit's, each rank: "
+                f"{[f['count'] for f in flips]}, the first at step "
+                f"{first}, within {near:.3g} of 0 (limit "
+                f"{P23_NCF_FLIP_NEAR}; [layer, row, unit, one rank, "
+                f"ranks]: {shown}); launches a rank "
+                f"{recs[0]['launches']}; blocks {recs[0]['shards']}; "
+                f"computed on as blocks {recs[0]['covered']}")
+            if worst(recs, "loss_err") > P23_PARAM_ATOL or (
+                    flipped and not witness) or \
+                    worst(recs, "param_err") > P23_NCF_FLIP_ATOL or \
+                    share > P23_NCF_FLIP_SHARE or not all(
+                        r["launches"].get("fused_embedding_lookup") and
+                        r["launches"].get("embedding_scatter_add")
+                        for r in recs):
+                bad.append(f"{world}/c {key}")
+            for rec in recs:
+                add("ncf", rec["launches"])
+        for part, label in (("d", "ring"), ("e", "ulysses")):
+            for key in [k for k in ranks[0][part] if k != "seconds"]:
+                recs = [r[part][key] for r in ranks]
+                readings = {n: [max(r["readings"][n][0] for r in recs),
+                                max(r["readings"][n][1] for r in recs)]
+                            for n in recs[0]["readings"]}
+                f64 = {n: max(r["f64"][n] for r in recs)
+                       for n in recs[0].get("f64", {})}
+                # the ring's bf16 partials round on most elements: no
+                # share limit there (the readings carry the share)
+                within = all(v[0] <= 1.0 and (label == "ring" or v[1] <= (
+                    FLASH_BF16_SHARE if n == "out" else BWD_BF16_SHARE))
+                    for n, v in readings.items()) and all(
+                    v <= 1.0 for v in f64.values())
+                # one launch a forward for Ulysses; the flash ring's visit
+                # its blocks: all of them, or causal those up to its own;
+                # the plain ring's none
+                want = [0 if key.endswith("_plain") else 1
+                        if label == "ulysses" else (
+                            i + 1 if key.endswith("causal") else world)
+                        for i in range(world)]
+                got = [r["fwd_launches"] for r in recs]
+                log(f"23({part}) {label} {key}, {world} ranks on {kind}: "
+                    f"worst readings over their limits {readings}"
+                    + (f", against float64 {f64}" if f64 else "")
+                    + f"; forward launches a rank {got} (expected {want});"
+                    f" ms forward " + " ".join(f"{r['fwd_ms']:.1f}"
+                                               for r in recs)
+                    + ", backward " + " ".join(f"{r['bwd_ms']:.1f}"
+                                               for r in recs))
+                if not within or got != want:
+                    bad.append(f"{world}/{part} {key}")
+                for rec in recs:
+                    add(label, rec["launches"])
+        for key in [k for k in ranks[0]["f"] if k != "seconds"]:
+            recs = [r["f"][key] for r in ranks]
+            if key == "step":
+                ok = worst(recs, "loss_err") <= P23_PARAM_ATOL and \
+                    worst(recs, "param_err") <= P23_PARAM_ATOL
+                log(f"23(f) MoE {recs[0]['layout']} step, {world} ranks on "
+                    f"{kind}: loss err {worst(recs, 'loss_err'):.3g}, param "
+                    f"err {worst(recs, 'param_err'):.3g} (limit "
+                    f"{P23_PARAM_ATOL}); on blocks {recs[0]['covered']}; "
+                    f"tokens a rank's experts took "
+                    f"{[r['dispatched'] for r in recs]}")
+            else:
+                grads = {n: max(r["grads"][n] for r in recs)
+                         for n in recs[0]["grads"]}
+                ok = max(worst(recs, "out"), worst(recs, "aux"),
+                         worst(recs, "dx"), *grads.values()) <= P23_MOE_RTOL
+                log(f"23(f) MoE {key}, {world} ranks on {kind}: out "
+                    f"{worst(recs, 'out'):.3g}, aux {worst(recs, 'aux'):.3g},"
+                    f" dx {worst(recs, 'dx'):.3g}, gradients {grads} (limit "
+                    f"{P23_MOE_RTOL} of each one's largest element); tokens a "
+                    f"rank's experts took {[r['dispatched'] for r in recs]}")
+            if not ok or not all(r["dispatched"] for r in recs):
+                bad.append(f"{world}/f {key}")
+        secs = {p: round(max(r[p]["seconds"] for r in ranks), 1)
+                for p in "abcdef"}
+        log(f"phase 23 group of {world}: seconds by part {secs}")
+    log(f"phase 23 launches on its paths, summed over the ranks: {launches}")
+    if bad:
+        raise AssertionError(f"phase 23: {bad}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -10590,6 +11776,32 @@ def main() -> int:
     report["autotune_friesian"] = phase_autotune_friesian(torch, np, kind)
     log(f"phase 22: {report['autotune_friesian']['seconds']:.1f} s")
     shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    # C20: the steps of phases 13, 17 and 21 with cuDNN's deterministic
+    # algorithms (init_orca_context's default) and its defaults, in turns;
+    # two AutoTS searches bitwise
+    report["c20"] = c20_cost(torch, np, kind)
+    log(f"C20: {report['c20']['seconds']:.1f} s")
+    # 23. the strategies across ranks: groups of 2 and 4 ranks sharing the
+    # card over gloo, a one-rank NCCL group; each part of each rank zeroes
+    # the counts before its path and reads them after
+    torch.cuda.empty_cache()
+    report["parallel"] = phase_parallel(torch, np, kind)
+    p23 = report["parallel"]["launches"]
+    for path, names in (("bert", ("flash_attention_fwd",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")),
+                        ("ncf", ("fused_embedding_lookup",
+                                 "embedding_scatter_add")),
+                        ("ring", ("flash_attention_fwd",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")),
+                        ("ulysses", ("flash_attention_fwd",
+                                     "flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv"))):
+        for name in names:
+            if p23.get(path, {}).get(name, 0) <= 0:
+                raise AssertionError(f"phase 23's {path} path launched no "
+                                     f"{name}: {p23}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -10603,7 +11815,8 @@ def main() -> int:
                           "zouwu": report["zouwu"]["launches"],
                           "detection": report["detection"]["launches"],
                           "autotune_friesian":
-                              report["autotune_friesian"]["launches"]}
+                              report["autotune_friesian"]["launches"],
+                          "parallel": report["parallel"]["launches"]}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -10772,6 +11985,15 @@ def main() -> int:
                if c.get(row["name"], 0)}
         if p22:
             row["phase22_launches"] = p22
+    # phase 23's paths, summed over the ranks of its groups: BERT-Base
+    # under dp / fsdp / tp (B3-B5), NCF under dp / tp on the tables'
+    # column blocks (B1, B1b), the ring and Ulysses (B3-B5)
+    for row in kernels["kernels"]:
+        p23 = {part: c.get(row["name"], 0) for part, c in
+               report["parallel"]["launches"].items()
+               if c.get(row["name"], 0)}
+        if p23:
+            row["phase23_launches"] = p23
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     # the card again, so that the output's tail names it beside the numbers

@@ -7,9 +7,11 @@ against the JAX package's, on the CPU.
   tier whose library g++ cannot build raises ``NativeStoreCompileError``
   naming g++ (never the DISK_n fallback).
 - ``init_orca_context``: the Spark/Ray kwargs warn, a second call warns
-  and returns the live context, ``multihost`` / ``tpu_pod`` raise naming
-  A9, no CUDA and no ``device="cpu"`` raises, the precision flags are set
-  as ``default_matmul_precision`` says and put back by
+  and returns the live context, ``multihost`` / ``tpu_pod`` with a
+  coordinator but no world size and rank raise (the ranks themselves are
+  in ``tests/test_torch_strategy.py``), no CUDA and no ``device="cpu"``
+  raises, the precision flags (and cuDNN's deterministic algorithms) are
+  set as ``default_matmul_precision`` says and put back by
   ``stop_orca_context``.
 - ``build_mesh`` infers ``-1`` and refuses shapes as JAX's does over the
   same number of devices; the default shard count and the estimator's
@@ -136,7 +138,9 @@ def test_reference_mode_names_run_locally():
 
 @pytest.mark.parametrize("mode", ["multihost", "tpu_pod"])
 def test_multihost_raises(mode):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """Across ranks a coordinator needs the world size and the rank (JAX's
+    jax.distributed takes them the same way); nothing is left behind."""
+    with pytest.raises(ValueError, match="num_processes and process_id"):
         init_orca_context(mode, device="cpu",
                           coordinator_address="localhost:1234")
     assert ctx_mod.active_context() is None

@@ -306,9 +306,12 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Estimator.from_torch(model=MLP(), loss=LOSS, strategy="fsdp",
+    # pipeline parallelism is not ported; fsdp on one rank shards nothing
+    with pytest.raises(NotImplementedError, match="ROADMAP A9's third"):
+        Estimator.from_torch(model=MLP(), loss=LOSS, strategy="pp",
                              device="cpu")
+    assert Estimator.from_torch(model=MLP(), loss=LOSS, strategy="fsdp",
+                                device="cpu")._shards == {}
     # model_dir is ported: fit snapshots there (EveryEpoch by default)
     est = Estimator.from_torch(model=MLP(), loss=LOSS, device="cpu",
                                model_dir=str(tmp_path / "m"))

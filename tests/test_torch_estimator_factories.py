@@ -4,8 +4,10 @@ package's, on the CPU (mirrors JAX ``tests/test_estimator_factories.py``).
 Both factories return the model's own estimator: settings compiled on
 the model are kept and explicit arguments override them, a ``ZooModel``
 is unwrapped through ``.model``, anything else raises ``TypeError`` and a
-missing loss ``ValueError``. Strategies other than ``"dp"`` raise as the
-port's ``set_strategy`` does (ROADMAP A9). From the same parameters
+missing loss ``ValueError``. Rules are kept; a layout needing more
+ranks than this process raises ``ValueError`` and ``"pp"`` raises naming
+ROADMAP A9's third part (the ranks' fits are in
+``tests/test_torch_multirank.py``). From the same parameters
 (``convert.flax_to_state_dict``), the port's fit through ``from_keras``
 and ``from_graph`` matches JAX's: each epoch's loss within rtol 1e-5 and
 every parameter within 1e-6 after SGD, 1e-5 after Adam; and it is
@@ -190,15 +192,22 @@ def test_rejections():
     m.add(tl.Dense(2, input_shape=(4,), activation="softmax"))
     with pytest.raises(ValueError, match="no loss"):
         Estimator.from_keras(keras_model=m)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Estimator.from_keras(keras_model=m, loss=LOSS, strategy="dp2,tp4")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Estimator.from_keras(keras_model=m, loss=LOSS,
-                             param_rules=[(r"kernel", (None, "model"))])
+    # rules alone are kept; on one rank nothing divides over "model"
+    rules = [(r"kernel", (None, "model"))]
+    est = Estimator.from_keras(keras_model=m, loss=LOSS, param_rules=rules,
+                               device="cpu")
+    assert est.strategy.param_rules == rules and est._shards == {}
+    # a layout of more ranks than this process needs the ranks started
+    with pytest.raises(ValueError, match="ranks"):
+        Estimator.from_keras(keras_model=m, loss=LOSS, strategy="dp2,tp4",
+                             device="cpu")
     x = Input(shape=(4,))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="ranks"):
         Estimator.from_graph(inputs=x, outputs=tl.Dense(2)(x), loss="mse",
-                             strategy="dp,tp2")
+                             strategy="dp,tp2", device="cpu")
+    with pytest.raises(NotImplementedError, match="A9's third part"):
+        Estimator.from_graph(inputs=x, outputs=tl.Dense(2)(x), loss="mse",
+                             strategy="pp", device="cpu")
 
 
 def test_entry_points_run_on_cuda_unless_told(monkeypatch):

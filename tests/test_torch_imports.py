@@ -82,7 +82,10 @@ def test_importing_every_module_loads_no_jax():
                 "models.image.objectdetection.object_detector",
                 "feature.image3d", "feature.image3d.transforms",
                 "common.encryption", "ops.autotune", "data.native_store",
-                "friesian", "friesian.feature", "friesian.feature.table"):
+                "friesian", "friesian.feature", "friesian.feature.table",
+                "parallel.strategy", "parallel.collectives",
+                "parallel.launch", "parallel.tensor_parallel",
+                "ops.ring_attention", "ops.ulysses", "ops.moe"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,

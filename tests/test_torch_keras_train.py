@@ -220,9 +220,14 @@ def test_zoo_model_delegates_training(jax_api):
     assert ncf.compile(optimizer=SGD(0.5), loss=LOSS, device="cpu") \
         is ncf.model
     assert ncf.set_strategy("dp") is ncf.model
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ncf.set_strategy("dp2,tp4")
+    # a layout is kept with JAX's rules; training under it needs its ranks
+    rules = NeuralCF.tp_param_rules()
+    assert ncf.set_strategy("dp2,tp4", param_rules=rules) is ncf.model
     x, y = _pairs(128, 4)
+    with pytest.raises(ValueError, match="ranks"):
+        ncf.fit(x, y, batch_size=BATCH, nb_epoch=1)
+    assert ncf.set_strategy("dp") is ncf.model
+    assert ncf.model._param_rules == rules      # None keeps the rules
     want = jncf.fit(x, y, batch_size=BATCH, nb_epoch=1)
     got = ncf.fit(x, y, batch_size=BATCH, nb_epoch=1)
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)

@@ -6,13 +6,14 @@ each package) and, for each public function and each public method of a
 public class defined there, checks that every parameter name of JAX's is
 a parameter of the port's (or that the port's takes ``**kwargs``). The
 stated exceptions live in ``EXCEPTIONS`` below, each with its reason:
-A9's meshes and process fractions, the flax- and jax-only names, the
+the flax- and jax-only names, the
 port's ground rule of no CPU failover, and JAX options that no caller in
 either package needs and the port leaves out (a tile list where the
 kernel has one tile, a timer prefix, a partial drain, an unused
 ``validation``, a forced rebuild). Also held: ``Estimator.from_torch``
 with JAX's ``sample_input`` (checked on a CPU copy) and ``param_rules``
-(raising, naming ROADMAP A9's second part), and
+(JAX's rules, kept; ``"pp"`` raising, naming ROADMAP A9's third part),
+and
 ``InferenceModel.load_torch(torch_module=...)``.
 """
 
@@ -38,16 +39,6 @@ EXCEPTIONS = {
         "window"),
     ("common.resilience", "fault_drill"): (
         {"cpu_fallback"}, "no CPU failover (the port's ground rules)"),
-    ("data.dataset", "ShardedDataset.device_scan_iterator"): (
-        {"mesh", "strategy"}, "meshes are ROADMAP A9's second part"),
-    ("data.dataset", "StreamingShardedDataset.device_scan_iterator"): (
-        {"mesh", "strategy"}, "meshes are ROADMAP A9's second part"),
-    ("data.dataset", "ShardedDataset.iter_batches"): (
-        {"process_fraction"}, "multi-host feeds are ROADMAP A9's second "
-        "part"),
-    ("data.dataset", "StreamingShardedDataset.iter_batches"): (
-        {"process_fraction"}, "multi-host feeds are ROADMAP A9's second "
-        "part"),
     ("data.dataset", "to_sharded_dataset"): (
         {"validation"}, "unneeded: JAX's body never reads it"),
     ("inference.quantize", "calibrate_activations"): (
@@ -193,9 +184,15 @@ def test_from_torch_takes_sample_input_and_param_rules():
         Estimator.from_torch(model=_MLP(), loss="mse",
                              sample_input=np.zeros((2, 3), np.float32),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A9's second part"):
-        Estimator.from_torch(model=_MLP(), loss="mse",
-                             param_rules=[("lin", None)], device="cpu")
+    # JAX's rules are taken (flax's paths: an nn.Linear is a Dense); on
+    # one rank nothing divides over "model"
+    rules = [(r"lin/kernel", (None, "model"))]
+    est = Estimator.from_torch(model=_MLP(), loss="mse", param_rules=rules,
+                               device="cpu")
+    assert est.strategy.param_rules == rules and est._shards == {}
+    with pytest.raises(NotImplementedError, match="A9's third part"):
+        Estimator.from_torch(model=_MLP(), loss="mse", strategy="pp2",
+                             device="cpu")
 
 
 def test_flash_attention_takes_only_the_kernel_tile():

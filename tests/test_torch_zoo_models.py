@@ -215,8 +215,10 @@ def test_wide_and_deep_graph_and_layout(jax_api):
     assert WideAndDeep.tp_param_rules() == \
         jax_api["WideAndDeep"].tp_param_rules()
     assert registry.get("WideAndDeep") is WideAndDeep
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        wnd.set_strategy("dp2,tp4", WideAndDeep.tp_param_rules())
+    # JAX's rules are kept; training under the layout needs its ranks
+    assert wnd.set_strategy("dp2,tp4", WideAndDeep.tp_param_rules()) \
+        is wnd.model
+    assert wnd.model._param_rules == WideAndDeep.tp_param_rules()
     with pytest.raises(TypeError, match="model_type"):
         WideAndDeep(2, info, model_type="narrow")
     with pytest.raises(ValueError):
