@@ -552,6 +552,7 @@ class DecodeScheduler:
         self.paged_steps = 0
         self.paged_fallbacks = 0
         self.steps_run = 0
+        self._tracer = telemetry.get_tracer()
 
     # ---------------------------------------------------------- admission
     @property
@@ -858,6 +859,12 @@ class DecodeScheduler:
             else:
                 s._feed(out[i, s.cache.length - 1, :])
             generation.count_decode_steps(s.generated - before)
+            t1 = perf_counter()
+            if s.trace_uri is not None:
+                # JAX's per-token spans of a sampled generate record
+                for g in range(before + 1, s.generated + 1):
+                    self._tracer.record(s.trace_uri, f"decode_step_{g}",
+                                        t0, t1, parent="device")
             if s.done:
                 s.pages_held = max(s.pages_held, s.cache.n_pages)
                 s.cache.close()

@@ -45,10 +45,17 @@ Each loaded forward runs under ``telemetry.instrument_jit`` (JAX's name
 batch signature counts in ``zoo_jit_cache_misses_total``, as a JAX
 recompile does; results come back through ``traced_device_get``.
 
+- ``shard(strategy, param_rules)`` — serve the model sharded over a group
+  of ranks (``parallel/sharded_executable.py``, ROADMAP C28): every rank
+  loads the same model and calls ``shard``; rank 0 then serves, and every
+  predict, warm-up and decode step dispatches through the sharded
+  executable, while ranks 1..n-1 call ``follow()`` until rank 0 calls
+  ``unshard()`` (or loads another model). ``shard_info()`` is JAX's:
+  strategy, shard count, whole and per-rank parameter bytes. Any
+  ``load_*``, ``load_checkpoint`` or ``quantize`` drops the sharding (the
+  latter two on the whole parameters, gathered first).
+
 There is no CPU failover: a model on ``cuda`` runs there or raises.
-Sharded serving (``shard``) is ROADMAP A9's third part: ``shard`` raises
-naming it and ``shard_info`` is None (never sharded), as JAX's is
-unsharded.
 """
 
 from __future__ import annotations
@@ -112,6 +119,8 @@ class InferenceModel:
         self._act_ranges = None
         #: name -> (the module, its instrumented forward): ``_counted``
         self._jitted = {}
+        #: after ``shard``: the sharded executable every forward takes
+        self._sharded = None
 
     # ------------------------------------------------------------- loaders
     def load_zoo(self, model) -> "InferenceModel":
@@ -123,6 +132,7 @@ class InferenceModel:
         net = model.model if isinstance(getattr(model, "model", None),
                                         KerasNet) else model
         module = copy.deepcopy(net.module).to(self.device).eval()
+        self._drop_sharding()
         with self._lock:
             self._module = module
             self._n_inputs = len(module.graph_inputs)
@@ -146,6 +156,7 @@ class InferenceModel:
         fixes how many inputs ``predict`` feeds the module. The module is
         copied, so later changes to it do not reach this model."""
         copy_ = copy.deepcopy(torch_module).to(self.device).eval()
+        self._drop_sharding()
         with self._lock:
             self._module = copy_
             self._n_inputs = len(_as_tuple(sample_input))
@@ -169,6 +180,7 @@ class InferenceModel:
         from analytics_zoo_tpu_torch.convert import ParamLayout
         from analytics_zoo_tpu_torch.learn import checkpoint as ckpt_lib
 
+        self._drop_sharding(whole=True)
         with self._lock:
             if self._module is None:
                 raise RuntimeError("load a model before load_checkpoint")
@@ -218,6 +230,7 @@ class InferenceModel:
 
         if mode not in ("weight", "int8"):
             raise ValueError(f"mode must be 'weight' or 'int8', got {mode!r}")
+        self._drop_sharding(whole=True)
         with self._lock:
             if self._module is None:
                 raise RuntimeError("load a model before quantize")
@@ -291,8 +304,9 @@ class InferenceModel:
             return as_tensor(np.zeros((rung,) + tuple(shape), dtype),
                              self.device)
 
+        fwd = self._sharded if self._sharded is not None else module
         with torch.inference_mode():
-            module(*(zeros(shape, dtype) for shape, dtype in spec))
+            fwd(*(zeros(shape, dtype) for shape, dtype in spec))
         if self.device.type == "cuda":
             # the default stream, not one of the warm thread's own: the
             # caching allocator keeps a freed block for the stream that
@@ -433,22 +447,93 @@ class InferenceModel:
         return cur[1]
 
     def _forward(self, module, xs):
+        se = self._sharded
+        if se is not None:
+            return se(*xs)
         with torch.inference_mode():
             return self._counted(module)(
                 *(as_tensor(a, self.device) for a in xs))
 
     def shard(self, strategy, param_rules=None, mesh=None,
               devices=None) -> "InferenceModel":
-        """(JAX ``InferenceModel.shard``) Serving on a mesh of ranks is
-        ROADMAP A9's third part: raises."""
-        raise NotImplementedError(
-            f"InferenceModel.shard({strategy!r}): sharded serving is "
-            "ROADMAP A9's third part")
+        """Partition the loaded model over a group of ranks by the
+        ``ShardingStrategy`` (e.g. ``"tp2"``, ``"dp2,tp2"``); collective:
+        every rank loads the same model and calls it. Afterwards rank 0's
+        predicts, warm-ups and decode steps dispatch through the sharded
+        executable and the other ranks call ``follow()``. The warm rungs
+        start over. A sharded model is sharded again only from its whole
+        parameters: ``unshard`` (rank 0) or load the model again first."""
+        from analytics_zoo_tpu_torch.parallel.sharded_executable import (
+            ShardedExecutable,
+        )
+        with self._lock:
+            if self._sharded is not None:
+                raise RuntimeError(
+                    "the model is sharded: unshard() on rank 0 (the "
+                    "followers' follow() returns) and load the model again "
+                    "on the others before shard")
+            if self._module is None:
+                raise RuntimeError("load a model before shard")
+            module = self._module
+        se = ShardedExecutable(module, None, strategy,
+                               param_rules=param_rules, mesh=mesh,
+                               devices=devices, name="inference_model",
+                               device=self.device)
+        with self._lock:
+            # the rank holds its blocks only: the whole module goes
+            self._module = se.module
+            self._sharded = se
+            self._ready_rungs = set()
+        return self
 
     def shard_info(self):
-        """(JAX ``InferenceModel.shard_info``) None: the model is never
-        sharded (``shard`` is ROADMAP A9's third part)."""
-        return None
+        """Per-rank parameter bytes of the sharded model (None when
+        unsharded): ``{"strategy", "n_shards", "total_param_bytes",
+        "shard_hbm_bytes"}``, the ``/healthz`` block showing that no rank
+        holds the whole model (the bytes every rank counted when it
+        sharded: no rank is asked again)."""
+        se = self._sharded
+        if se is None:
+            return None
+        return {"strategy": str(se.strategy), "n_shards": se.n_shards,
+                "total_param_bytes": se.total_param_bytes(),
+                "shard_hbm_bytes": se.shard_hbm_bytes()}
+
+    def follow(self) -> int:
+        """Ranks 1..n-1 of a sharded model: run rank 0's dispatches until
+        it calls ``unshard`` or loads another model, then drop the
+        sharding and the model here too (the rank held its blocks only:
+        load a model to predict or shard again); the forwards run."""
+        se = self._sharded
+        if se is None:
+            raise RuntimeError("shard the model before follow")
+        served = se.follow()
+        with self._lock:
+            if self._sharded is se:
+                self._sharded = None
+                self._module = None
+                self._ready_rungs = set()
+        return served
+
+    def unshard(self) -> "InferenceModel":
+        """Rank 0: gather the whole parameters back, release the
+        followers and serve unsharded."""
+        self._drop_sharding(whole=True)
+        return self
+
+    def _drop_sharding(self, whole: bool = False) -> None:
+        """Release the followers; with ``whole``, the module with every
+        parameter whole first (gathered over the ranks)."""
+        with self._lock:
+            se, self._sharded = self._sharded, None
+            if se is None:
+                return
+            self._ready_rungs = set()
+        if whole:
+            module = se.whole_module()
+            with self._lock:
+                self._module = module
+        se.close()
 
     def predict(self, x, batch_size: Optional[int] = None,
                 pipeline_window: int = 2) -> np.ndarray:
@@ -556,7 +641,8 @@ class InferenceModel:
                 paged_gather,
             )
             module, _ = self._decode_module()
-            fwd = self._counted(module, "inference_model_paged")
+            fwd = self._sharded if self._sharded is not None else \
+                self._counted(module, "inference_model_paged")
             with torch.inference_mode():
                 dec = paged_gather(as_tensor(pool, self.device), table,
                                    lengths, scales=as_tensor(scales,

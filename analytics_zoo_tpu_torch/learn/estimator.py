@@ -146,8 +146,16 @@ strategy's mesh of ranks:
   ``get_model()`` returns a copy of the module with the whole parameters.
 - not under sharded parameters: the optimizers whose update reads more
   than one element (LARS, LAMB, L-BFGS), ``cache="device"`` with a
-  sharded batch, the step's flop count (ROADMAP R17). ``"pp"`` raises
-  (A9's third part).
+  sharded batch, the step's flop count (ROADMAP R17).
+- **pipeline parallelism** (``"pp"``, ``"dp2,pp4"``): a model of
+  ``parallel/pipeline.py`` through ``Estimator.from_fn``, its stage
+  parameters on the ``pipe`` axis by its ``param_rules``. Each rank holds
+  its stage's row and runs only its stage; the row's gradient is summed
+  over ``data`` alone. Every pipe rank of a data index feeds the same
+  block and computes the same loss (the output is replicated over
+  ``pipe``), so the rule above (divided by the ranks that hold the same
+  rows) is the pipe axis's loss scaling: the all_reduce that replicates
+  the output sums the S ranks' cotangents back into one.
 """
 
 from __future__ import annotations
@@ -188,6 +196,7 @@ from analytics_zoo_tpu_torch.learn.trigger import EveryEpoch, MaxScore, Trigger
 from analytics_zoo_tpu_torch.learn.trigger import fire as _fire_trigger
 from analytics_zoo_tpu_torch.parallel import collectives
 from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+from analytics_zoo_tpu_torch.parallel import tensor_parallel
 from analytics_zoo_tpu_torch.parallel.strategy import ShardingStrategy
 
 logger = logging.getLogger(__name__)
@@ -221,6 +230,8 @@ def _n_inputs(model: nn.Module, sig: inspect.Signature) -> Optional[int]:
     graph_inputs = getattr(model, "graph_inputs", None)
     if graph_inputs is not None:
         return len(graph_inputs)
+    if isinstance(model, FnModule):
+        return model.n_inputs
     n = 0
     for p in sig.parameters.values():
         if p.kind == p.VAR_POSITIONAL:
@@ -363,6 +374,21 @@ class Estimator:
             strategy=strategy, param_rules=param_rules, device=device)
 
     @staticmethod
+    def from_fn(*, apply_fn, params, loss, optimizer="adam", metrics=None,
+                n_inputs: int = 1, model_dir: Optional[str] = None,
+                strategy="dp", param_rules=None, seed: int = 0,
+                device: DeviceLike = None) -> "TorchEstimator":
+        """Any pure ``apply_fn(params, *inputs)`` over a nested dict of
+        tensors (JAX ``Estimator.from_fn``'s escape hatch; ``FnModule``).
+        ``params`` holds numpy arrays or tensors, the initial values;
+        ``param_rules`` read their '/'-joined dict paths (JAX's)."""
+        return TorchEstimator(FnModule(apply_fn, params, n_inputs),
+                              loss=loss, optimizer=optimizer,
+                              metrics=metrics, model_dir=model_dir,
+                              strategy=strategy, param_rules=param_rules,
+                              seed=seed, device=device)
+
+    @staticmethod
     def latest_checkpoint(model_dir: str) -> Optional[str]:
         """The newest ``ckpt-<n>`` under ``model_dir``, or None."""
         found = ckpt_lib.find_latest_checkpoint(model_dir)
@@ -384,6 +410,60 @@ def _probe(model: nn.Module, sample_input) -> None:
                          f"sample_input: {e!r}") from e
 
 
+class _ParamTree(nn.Module):
+    """One dict level of ``FnModule``'s parameters: a leaf is a parameter
+    under its key, a dict a child module under its key."""
+
+    def __init__(self, tree):
+        super().__init__()
+        for key, value in tree.items():
+            key = str(key)
+            if hasattr(self, key) or "." in key:
+                raise ValueError(f"from_fn: parameter key {key!r} cannot "
+                                 "name a module attribute")
+            if isinstance(value, dict):
+                setattr(self, key, _ParamTree(value))
+                continue
+            t = torch.as_tensor(np.asarray(value) if not isinstance(
+                value, torch.Tensor) else value).detach().clone()
+            if t.dtype == torch.float64:
+                t = t.float()
+            self.register_parameter(key, nn.Parameter(
+                t, requires_grad=t.is_floating_point()))
+        self._keys = list(tree)
+
+    def tree(self) -> Dict:
+        """The dict of the current tensors (the ones ``functional_call``
+        substitutes included)."""
+        return {k: (v.tree() if isinstance(v := getattr(self, k),
+                                           _ParamTree) else v)
+                for k in self._keys}
+
+
+class FnModule(_ParamTree):
+    """A pure ``apply_fn(params, *inputs)`` as a module (JAX
+    ``FnModelAdapter`` without buffers). The parameters sit under their
+    dict keys, one child module a dict level, so the torch names are the
+    dict paths joined by '.' and the rules read them joined by '/' as
+    JAX's ``param_rules`` do; a checkpoint's ``params`` tree is the dict
+    itself. A parameter the strategy puts on the ``pipe`` axis reaches
+    ``apply_fn`` as this rank's block (``parallel/pipeline.py`` computes
+    on it); every other sharded one is whole for the step."""
+
+    def __init__(self, apply_fn, params, n_inputs: int = 1):
+        super().__init__(params)
+        self._apply_fn = apply_fn
+        #: inputs ``forward`` takes (``from_fn``'s ``n_inputs``)
+        self.n_inputs = int(n_inputs)
+
+    def forward(self, *inputs):
+        return self._apply_fn(self.tree(), *inputs)
+
+    def sharded_params(self, shards) -> set:
+        from analytics_zoo_tpu_torch.parallel.mesh import PIPE_AXIS
+        return {n for n, s in shards.items() if s.axes == {PIPE_AXIS}}
+
+
 class TorchEstimator:
     """The engine (ref Scala Estimator zoo/.../pipeline/estimator/
     Estimator.scala:68-309), on one device."""
@@ -395,10 +475,6 @@ class TorchEstimator:
                  aux_loss_weight: float = 0.01):
         self.strategy = ShardingStrategy.parse(strategy,
                                                param_rules=param_rules)
-        if "pp" in self.strategy.uses:
-            raise NotImplementedError(
-                f"strategy {self.strategy}: pipeline parallelism is ROADMAP "
-                "A9's third part")
         #: weight of the MoE layers' load-balance loss (JAX's
         #: aux_loss_weight)
         self.aux_loss_weight = float(aux_loss_weight)
@@ -486,17 +562,9 @@ class TorchEstimator:
             # every replica starts from rank 0's values
             for t in itertools.chain(self.model.parameters(),
                                      self.model.buffers()):
-                for ax in mesh.axis_names:
-                    collectives.broadcast_(t.data, mesh, ax)
+                collectives.broadcast_mesh_(t.data, mesh)
         self._shards = shard_plan(self.model, self.strategy, mesh)
-        for name, shard in self._shards.items():
-            owner, _, leaf = name.rpartition(".")
-            mod = self.model.get_submodule(owner) if owner else self.model
-            old = getattr(mod, leaf)
-            new = nn.Parameter(shard.block(old.detach()),
-                               requires_grad=old.requires_grad)
-            new._zoo_shard = shard
-            setattr(mod, leaf, new)
+        tensor_parallel.install_shards(self.model, self._shards)
         if self._shards:
             from analytics_zoo_tpu_torch.learn.optimizers import (LAMB, LARS,
                                                                   LBFGS)
@@ -506,7 +574,7 @@ class TorchEstimator:
                     "element of a parameter at once; under sharded "
                     "parameters the port trains with the elementwise "
                     "optimizers (ROADMAP R17)")
-        covered = self._covered_names()
+        covered = tensor_parallel.covered_names(self.model, self._shards)
         self._gathered = [n for n in self._shards if n not in covered]
         trainable = [(n, p) for n, p in self.model.named_parameters()
                      if p.requires_grad]
@@ -520,26 +588,6 @@ class TorchEstimator:
             for n in self._names}
         self._batch_shards = self.strategy.batch_shards(mesh)
         self._feed = self.strategy.batch_feed_fraction(mesh)
-
-    def _covered_names(self) -> set:
-        """The sharded parameters a module computes on as blocks
-        (``sharded_params``, asked top-down: a module that answers speaks
-        for its whole subtree)."""
-        covered, claimed = set(), []
-        for mname, mod in self.model.named_modules():
-            if any(mname == c or mname.startswith(c + ".") for c in claimed):
-                continue
-            ask = getattr(mod, "sharded_params", None)
-            if ask is None:
-                continue
-            prefix = mname + "." if mname else ""
-            sub = {n[len(prefix):]: s for n, s in self._shards.items()
-                   if n.startswith(prefix)}
-            covered |= {prefix + n for n in ask(sub)}
-            if not mname:
-                break
-            claimed.append(mname)
-        return covered
 
     def _whole(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
         """``tensor`` (a parameter's block, or state shaped like it) as

@@ -17,7 +17,10 @@ them itself, each on the subgroup of one mesh axis
   of what the ranks return (learn/estimator.py scales each rank's loss
   so that this sum is the global loss).
 - ``all_reduce_(tensor, mesh, axes)``: an in-place sum over several axes,
-  outside autograd (the gradients' reduction).
+  outside autograd (the gradients' reduction); ``broadcast_`` over one
+  axis, ``broadcast_mesh_`` from rank 0 to the whole mesh, and
+  ``broadcast_object`` (a picklable header, the sharded replica's
+  dispatch, ``parallel/sharded_executable.py``).
 - On an axis of one rank every call returns its input.
 
 **gloo and CUDA tensors.** NCCL carries every call directly. gloo
@@ -364,4 +367,26 @@ def broadcast_(t: torch.Tensor, mesh, axis: str, src_index: int = 0
     with torch.no_grad():
         t.copy_(_run("broadcast", group, fn, t))
     _note("broadcast", t0)
+    return t
+
+
+def broadcast_object(obj, mesh, src_rank: int = 0):
+    """A picklable object from global rank ``src_rank`` to every rank of
+    the mesh (the whole process group); the object on every rank."""
+    import torch.distributed as dist
+    if mesh is None or not mesh.distributed:
+        return obj
+    t0 = time.perf_counter()
+    box = [obj]
+    dist.broadcast_object_list(box, src=src_rank)
+    _note("broadcast", t0)
+    return box[0]
+
+
+def broadcast_mesh_(t: torch.Tensor, mesh) -> torch.Tensor:
+    """In place: global rank 0's ``t`` to every rank of the mesh (one
+    broadcast an axis, each from the axis's first rank: after the last,
+    every rank holds what rank 0, first on every axis, held)."""
+    for ax in mesh.axis_names:
+        broadcast_(t, mesh, ax)
     return t

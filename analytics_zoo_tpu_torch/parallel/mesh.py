@@ -41,8 +41,7 @@ FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
-#: parsed by ShardingStrategy; pipeline parallelism is ROADMAP A9's
-#: third part
+#: the stages of parallel/pipeline.py
 PIPE_AXIS = "pipe"
 
 _default_mesh = None

@@ -13,10 +13,11 @@ grammar and rules. A strategy is a mesh layout over the ranks
 - SP    — the sequence over ``seq`` (``ops/ring_attention.py``,
           ``ops/ulysses.py``).
 - EP    — experts over ``expert`` (``ops/moe.py``).
+- PP    — pipeline stages over ``pipe`` (``parallel/pipeline.py``; the
+          batch replicated over the stages).
 
-Spell: ``"dp"``, ``"fsdp"``, ``"dp2,tp4"``, ``"dp2,sp2,tp2"``: sizes
-omitted or ``-1`` absorb the remaining ranks. ``"pp"`` parses; training
-under it raises (pipeline parallelism is ROADMAP A9's third part).
+Spell: ``"dp"``, ``"fsdp"``, ``"dp2,tp4"``, ``"dp2,sp2,tp2"``,
+``"dp2,pp4"``: sizes omitted or ``-1`` absorb the remaining ranks.
 
 A spec here is JAX's ``PartitionSpec`` as a tuple: one entry per dim,
 None, an axis name, or a tuple of axis names (the first major); ``()``

@@ -139,3 +139,40 @@ def table_covered(shards: Dict[str, object]) -> set:
     """``sharded_params`` of a module owning one ``embedding`` table:
     the table where it is split by columns over one axis."""
     return {"embedding"} if covers(shards, ["embedding"], 1) else set()
+
+
+def install_shards(model, shards: Dict[str, object],
+                   blocks: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Replace each parameter of ``shards`` (``convert.shard_plan``) in
+    ``model`` by this rank's block of it (cut from the whole parameter,
+    or taken from ``blocks``), marked with its shard."""
+    for name, shard in shards.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        old = getattr(mod, leaf)
+        data = shard.block(old.detach()) if blocks is None \
+            else blocks[name].to(device=old.device, dtype=old.dtype)
+        new = torch.nn.Parameter(data, requires_grad=old.requires_grad)
+        new._zoo_shard = shard
+        setattr(mod, leaf, new)
+
+
+def covered_names(model, shards: Dict[str, object]) -> set:
+    """The sharded parameters a module computes on as blocks
+    (``sharded_params``, asked top-down: a module that answers speaks for
+    its whole subtree); every other one is gathered for the forward."""
+    covered, claimed = set(), []
+    for mname, mod in model.named_modules():
+        if any(mname == c or mname.startswith(c + ".") for c in claimed):
+            continue
+        ask = getattr(mod, "sharded_params", None)
+        if ask is None:
+            continue
+        prefix = mname + "." if mname else ""
+        sub = {n[len(prefix):]: s for n, s in shards.items()
+               if n.startswith(prefix)}
+        covered |= {prefix + n for n in ask(sub)}
+        if not mname:
+            break
+        claimed.append(mname)
+    return covered

@@ -1388,6 +1388,16 @@ class ClusterServing:
         out["decode_steps"] = 0 if sched is None else sched.steps_run
         out["paged_steps"] = 0 if sched is None else sched.paged_steps
         out.update(self.timer.summary())
+        # model-parallel placement: strategy, shard count and per-rank
+        # parameter bytes when the model was sharded (InferenceModel.shard)
+        fn = getattr(self.model, "shard_info", None)
+        if fn is not None:
+            try:
+                info = fn()
+            except Exception:
+                info = None
+            if info:
+                out["sharding"] = info
         return out
 
     def __enter__(self):

@@ -361,6 +361,16 @@ class _Handler(BaseHTTPRequestHandler):
         # the device backend, from a probe joined with a timeout: a
         # wedged CUDA runtime can never hang /healthz
         out["backend"] = profiling.backend_state(timeout_s=2.0)
+        # model-parallel placement when the engine's model is sharded:
+        # strategy, shard count, whole and per-rank parameter bytes
+        si = getattr(getattr(engine, "model", None), "shard_info", None)
+        if si is not None:
+            try:
+                info = si()
+            except Exception:
+                info = None
+            if info:
+                out["sharding"] = info
         # the backend supervisor's state where one runs (it only reports:
         # there is no failover, so no "failover" key)
         sup = resilience.supervisor_snapshot()

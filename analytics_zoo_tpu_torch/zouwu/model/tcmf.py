@@ -17,9 +17,18 @@ hybrid).
   numpy's SVD, as JAX does (the same start bit for bit); ``svd=False``
   draws ``0.1 * N(0, 1)`` from a ``torch.Generator`` seeded from
   ``seed`` (JAX's threefry draws differ).
-- ``distributed=True`` (XShards input, ``num_workers > 1``) runs on a
-  one-device mesh over ``device``: ``fit_report["devices_used"]`` is 1.
-  Sharding the series over several ranks is ROADMAP A9's third part.
+- ``distributed=True`` (XShards input, ``num_workers > 1``): across
+  ranks (a process group, ``init_orca_context(cluster_mode=
+  "multihost")``; every rank fits the same panel) the series are blocked
+  by rows over the ranks, JAX's layout: each rank holds its rows of Y and
+  F (the first ``n % ranks`` ranks one row more), X is replicated and its
+  gradient summed over the ranks (one ``all_reduce`` a step), and Adam on
+  F stays rowwise and local. Each rank's loss terms are scaled so that
+  their sum over the ranks is JAX's global ``mse + lam * (smooth + l2)``:
+  F's terms divided by the global counts, X's counted once.
+  ``fit_report["devices_used"]`` is the number of ranks, and F is
+  gathered whole on every rank after the fit. Without a process group it
+  runs on a one-device mesh over ``device`` (``devices_used`` 1).
 - The basis forecasts (closed-form AR, or the port's ``TCNForecaster``),
   the DeepGLO local TCN, ``fit_incremental``, ``rolling_evaluate``,
   calendar features, covariates, ``val_len`` and save/load (JAX's files:
@@ -128,8 +137,8 @@ class TCMFForecaster:
         (ref fit input contract). Returns final reconstruction MSE.
 
         ``distributed=True`` (implied by XShards input or ``num_workers``)
-        runs on a one-device mesh (sharding it is ROADMAP A9's third
-        part). Reference epoch knobs map onto ``num_steps`` as the ref's
+        blocks the series over the ranks of the process group, or runs on
+        a one-device mesh without one (the module docstring). Reference epoch knobs map onto ``num_steps`` as the ref's
         total F/X epoch budget: ``init_FX_epoch + alt_iters *
         max_FX_epoch`` (DeepGLO.py train_all: initial joint fit, then ``alt_iters`` alternating rounds of
         ``max_FX_epoch`` each); ``y_iters``/``max_TCN_epoch`` set the local
@@ -240,9 +249,13 @@ class TCMFForecaster:
         return mse
 
     def _mesh(self):
-        """A one-device mesh over ``device`` (sharding the series over
-        several ranks is ROADMAP A9's third part)."""
+        """A 1-D data mesh over the ranks of the process group, or a
+        one-device mesh over ``device`` without one."""
+        import torch.distributed as dist
         from analytics_zoo_tpu_torch.parallel.mesh import build_mesh
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            return build_mesh(set_default=False)
         return build_mesh(devices=[self.device], set_default=False)
 
     def _init_factors(self, y: np.ndarray):
@@ -268,6 +281,8 @@ class TCMFForecaster:
 
         n, t = y.shape
         f0, x0 = self._init_factors(y)
+        if mesh is not None and mesh.size > 1:
+            return self._run_sharded(y, f0, x0, num_steps, mesh)
         dev = self.device
         y_dev = torch.from_numpy(np.ascontiguousarray(y)).to(dev)
         params = [torch.from_numpy(f0).to(dev), torch.from_numpy(x0).to(dev)]
@@ -293,6 +308,55 @@ class TCMFForecaster:
             "n_series": n, "t": t, "num_steps": num_steps,
         }
         self.F = params[0].cpu().numpy()
+        self.X = params[1].cpu().numpy()
+        return float(final_mse)
+
+    def _run_sharded(self, y: np.ndarray, f0: np.ndarray, x0: np.ndarray,
+                     num_steps: int, mesh) -> float:
+        """The factorization with the series blocked over the ranks of
+        ``mesh`` (the module docstring); the global final mse."""
+        from analytics_zoo_tpu_torch.learn.optimizers import Adam
+        from analytics_zoo_tpu_torch.parallel import collectives
+
+        n, t = y.shape
+        k = f0.shape[1]
+        axis = mesh.axis_names[0]
+        p, r = mesh.size, mesh.coord(axis)
+        counts = [len(b) for b in np.array_split(np.arange(n), p)]
+        lo = sum(counts[:r])
+        hi = lo + counts[r]
+        dev = self.device
+        y_dev = torch.from_numpy(np.ascontiguousarray(y[lo:hi])).to(dev)
+        params = [torch.from_numpy(np.ascontiguousarray(f0[lo:hi])).to(dev),
+                  torch.from_numpy(np.ascontiguousarray(x0)).to(dev)]
+        opt = Adam(learningrate=self.lr)
+        state = opt.init(params)
+        lam = self.lam
+        for step in range(int(num_steps)):
+            f, x = (q.detach().requires_grad_(True) for q in params)
+            # this rank's share of each global mean; X's terms once over
+            # the ranks
+            mse = torch.sum((f @ x - y_dev) ** 2) / (n * t)
+            smooth = torch.mean(torch.diff(x, dim=1) ** 2) / p
+            l2 = torch.sum(f ** 2) / (n * k) + torch.mean(x ** 2) / p
+            gf, gx = torch.autograd.grad(mse + lam * (smooth + l2), (f, x))
+            collectives.all_reduce_(gx, mesh, (axis,))
+            with torch.no_grad():
+                opt.step(params, [gf, gx], state, step)
+        with torch.no_grad():
+            sq = torch.sum((params[0] @ params[1] - y_dev) ** 2).reshape(1)
+            collectives.all_reduce_(sq, mesh, (axis,))
+            final_mse = sq[0] / (n * t)
+            # F whole on every rank: the blocks padded to the largest
+            pad = torch.zeros((max(counts), k), dtype=params[0].dtype,
+                              device=dev)
+            pad[:counts[r]] = params[0]
+            blocks = collectives.all_gather(pad, mesh, axis, 0)
+            whole = torch.cat([blocks[i * max(counts):i * max(counts) + c]
+                               for i, c in enumerate(counts)])
+        self.fit_report = {"sharded": True, "devices_used": int(p),
+                           "n_series": n, "t": t, "num_steps": num_steps}
+        self.F = whole.cpu().numpy()
         self.X = params[1].cpu().numpy()
         return float(final_mse)
 

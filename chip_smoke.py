@@ -11460,6 +11460,662 @@ def p23_report(rep, groups, kind):
     return launches
 
 
+# ------------------------------- phase 24: pipelines and sharded serving
+# Ranks share the one card over gloo, as in phase 23: a group of 4 runs
+# (a) pipeline parallelism and the MLP served "tp4", a group of 2 runs
+# (b) sharded serving, (c) sharded generate and (d) TCMF across ranks.
+# Every reference is computed on the card by a rank of its own group, on
+# one rank's worth of the model (no process group involved).
+P24_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase24")
+P24_TIMEOUT = 600
+# (a) the pipelined MLP (hidden 1024 a stage, batch 256, 4 microbatches)
+# under "pp4" (4 stages) and "dp2,pp2" (2 stages), and the LM at
+# BERT-Base's block widths (d_model 768, 12 heads, d_ff 3072, seq 128,
+# vocab 30 522, one block a stage) under "pp4", batch 32, 4 microbatches.
+# fp32 with TF32 off; limits of phase 23: the loss within 1e-5, each
+# leaf's gradient within 1e-5 of its largest element.
+P24_MLP = dict(f_in=64, hidden=1024, out_dim=16, batch=256, micro=4)
+P24_MLP_LAYOUTS = {"pp4": 4, "dp2,pp2": 2}
+P24_LM = dict(vocab=30522, d_model=768, n_heads=12, d_ff=3072, seq_len=128,
+              n_stages=4, n_microbatches=4, batch=32)
+P24_STEPS = 3                # timed steps after the first, each layout
+P24_LOSS_ATOL = 1e-5
+P24_GRAD_RTOL = 1e-5
+# (b) bench.py's measure_serving_sharded: 3 x Dense(256), in 16, out 8,
+# the bottom rung a quarter of the top (64), 24 bottom rungs of records
+P24_SERVE = dict(hidden=256, f_in=16, out=8, top=64)
+P24_BERT_SIZE = {}           # BERT-Base (a rehearsal cuts it)
+P24_NCF_ROWS = 8000
+P24_NCF_ATOL = 1e-5
+# (d) TCMF at phase 20's width from the SVD start, the series split over
+# two ranks (X's gradient and the mse summed in two parts), against the
+# one-rank fp32 fit from the same start. The limits are twice the
+# distances the two fp32 routes read on the H100 (P24_TCMF_ROUTES: F, X
+# as the largest difference, the final mse relative; PR 23's runs 1 and 2
+# read the same bits: the fit is deterministic on one card, and the room
+# is for another library's sum order). Each fault that
+# dev/tcmf_rank_faults.py plants (X's terms once a rank, X's gradient
+# unsummed, the mse over a rank's own count) fails at least one (PERF.md
+# section 2). The float64 run's distances are printed beside.
+P24_TCMF_STEPS = 300
+P24_TCMF_ROUTES = (4.97e-3, 2.43e-3, 1.03e-7)
+P24_TCMF_ROOM = 2.0
+
+
+def p24_tcmf_limits():
+    f, x, mse = (P24_TCMF_ROOM * c for c in P24_TCMF_ROUTES)
+    return (f, x), mse
+
+
+def phase_pipeline_serving(torch, np, kind, dev="cuda", sizes=None,
+                           parts="abcd"):
+    """Phase 24: pipeline parallelism (a), sharded serving (b), sharded
+    generate (c) and TCMF across ranks (d), ranks sharing the card over
+    gloo. ``sizes``: module constants to cut (a rehearsal), in every rank
+    too. Returns the report; fails on any rank's failure or any reading
+    past its limit."""
+    import shutil
+    from analytics_zoo_tpu_torch.parallel.launch import launch
+    globals().update(sizes or {})
+    t0 = time.perf_counter()
+    gloo_dev = "cuda:0" if dev == "cuda" else "cpu"
+    groups = {}
+    try:
+        for world, mine in ((4, "ab"), (2, "bcd")):
+            todo = "".join(p for p in mine if p in parts)
+            if not todo:
+                continue
+            cfg = dict(device=gloo_dev, parts=todo, sizes=sizes)
+            t1 = time.perf_counter()
+            groups[world] = launch(p24_rank, world, args=(cfg,),
+                                   device=gloo_dev, backend="gloo",
+                                   timeout=P24_TIMEOUT)
+            log(f"phase 24: the group of {world} ranks on {kind} over gloo:"
+                f" {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(P24_DIR, ignore_errors=True)
+    rep = {"groups": {str(w): r for w, r in groups.items()}}
+    rep["launches"] = p24_report(groups, kind)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"phase 24: {rep['seconds']:.1f} s")
+    return rep
+
+
+def p24_rank(cfg):
+    """One rank of a phase 24 group: each of its parts, their launch
+    counts its own."""
+    import numpy as np
+    import torch
+    from analytics_zoo_tpu_torch.common.context import (OrcaContext,
+                                                        init_orca_context,
+                                                        stop_orca_context)
+    from analytics_zoo_tpu_torch.learn import estimator
+    from analytics_zoo_tpu_torch.ops import _build
+    globals().update(cfg.get("sizes") or {})
+    OrcaContext.default_matmul_precision = "float32"   # TF32 off
+    init_orca_context(cluster_mode="multihost", device=cfg["device"])
+    rank = torch.distributed.get_rank()
+    estimator.DEFAULT_LOG_DIR = os.path.join(P24_DIR, f"tb{rank}")
+    world = torch.distributed.get_world_size()
+    fns = {"a": p24_pipeline, "b": p24_serving, "c": p24_generate,
+           "d": p24_tcmf}
+    out = {}
+    try:
+        for part in cfg["parts"]:
+            t0 = time.perf_counter()
+            _build.reset_launch_counts()
+            out[part] = fns[part](torch, np, cfg, world)
+            out[part]["launches"] = {k: v for k, v in
+                                     _build.launch_counts().items() if v}
+            out[part]["seconds"] = time.perf_counter() - t0
+    finally:
+        stop_orca_context()
+    return out
+
+
+def p24_sync(torch, cfg):
+    if cfg["device"].startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def p24_grad_reading(torch, est, grads, seq_grads, idx):
+    """Each leaf's largest difference over its largest element: a stage
+    leaf against the sequential gradient's row of this rank's stage."""
+    out = {}
+    for name, g in zip(est._names, grads):
+        want = seq_grads[name.replace(".", "/")]
+        if name in est._shards:
+            want = want[idx:idx + 1]
+        scale = max(float(want.abs().max()), 1e-30)
+        out[name] = float((g - want).abs().max()) / scale
+    return out
+
+
+def p24_pipeline_case(torch, np, cfg, model, params, x, y, strategy):
+    """One layout: one batch's loss and gradients through the estimator
+    against ``apply_sequential`` on this rank, then ms a step and the
+    ring shift's share over P24_STEPS steps."""
+    from analytics_zoo_tpu_torch.learn import Estimator
+    from analytics_zoo_tpu_torch.learn import losses
+    from analytics_zoo_tpu_torch.parallel import collectives as C
+    dev = torch.device(cfg["device"])
+    loss = "sparse_categorical_crossentropy_logits"
+    est = Estimator.from_fn(apply_fn=model.apply, params=params, loss=loss,
+                            optimizer="adam", strategy=strategy,
+                            param_rules=model.param_rules(), device=dev)
+    mesh = est._mesh
+    blocks = est._batch_shards
+    di = mesh.data_index(est.strategy.batch_axes())
+    per = len(x) // blocks
+    xl, yl = x[di * per:(di + 1) * per], y[di * per:(di + 1) * per]
+    got, grads = est._loss_and_grads(xl, yl)
+    seq = {}
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                leaves(v, f"{prefix}{k}/")
+            else:
+                seq[prefix + k] = v.detach().to(dev).requires_grad_()
+    leaves(params)
+    nested = {}
+    for k, v in seq.items():
+        node = nested
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    out = model.apply_sequential(nested, torch.as_tensor(x, device=dev))
+    want = losses.get(loss)(torch.as_tensor(y, device=dev), out).mean()
+    gs = dict(zip(seq, torch.autograd.grad(want, list(seq.values()))))
+    del out
+    reading = p24_grad_reading(torch, est, grads, gs,
+                               mesh.coord("pipe"))
+    loss_err = abs(float(got) - float(want))
+    del gs, grads, seq, nested
+    # the steps: the first (untimed), then P24_STEPS timed
+    est.fit((xl[:per], yl[:per]), epochs=1, batch_size=len(x),
+            shuffle=False)
+    C.reset_stats()
+    p24_sync(torch, cfg)
+    t0 = time.perf_counter()
+    for _ in range(P24_STEPS):
+        est.fit((xl[:per], yl[:per]), epochs=1, batch_size=len(x),
+                shuffle=False)
+    p24_sync(torch, cfg)
+    secs = time.perf_counter() - t0
+    stats = {k: list(v) for k, v in C.stats.items()}
+    rec = dict(loss=float(got), loss_err=loss_err, grads=reading,
+               step_ms=secs / P24_STEPS * 1e3,
+               ring_share=C.stats.get("ring_shift", [0, 0.0])[1] / secs,
+               collective_share=C.stats_seconds() / secs,
+               collectives=stats,
+               held={n: list(s.local_shape) for n, s in est._shards.items()},
+               mesh=mesh.shape)
+    del est
+    if cfg["device"].startswith("cuda"):
+        torch.cuda.empty_cache()
+    return rec
+
+
+def p24_pipeline(torch, np, cfg, world):
+    """(a) the pipelined MLP under each layout, the LM at BERT-Base's
+    block widths under "pp4"."""
+    from analytics_zoo_tpu_torch.parallel import mesh as M
+    from analytics_zoo_tpu_torch.parallel.pipeline import (
+        PipelinedMLP, PipelinedTransformerLM)
+    out = {}
+    rng = np.random.RandomState(SEED + 240)
+    c = P24_MLP
+    x = rng.standard_normal((c["batch"], c["f_in"])).astype(np.float32)
+    y = rng.randint(0, c["out_dim"], c["batch"]).astype(np.int32)
+    for strategy, stages in P24_MLP_LAYOUTS.items():
+        mesh = M.build_mesh(axes=(M.DATA_AXIS, M.PIPE_AXIS),
+                            shape=[world // stages, stages])
+        model = PipelinedMLP(hidden=c["hidden"], out_dim=c["out_dim"],
+                             n_stages=stages, n_microbatches=c["micro"],
+                             mesh=mesh)
+        params = model.init(SEED + 241, x[:1])
+        out[f"mlp/{strategy}"] = p24_pipeline_case(
+            torch, np, cfg, model, params, x, y, strategy)
+    lm = P24_LM
+    mesh = M.build_mesh(axes=(M.DATA_AXIS, M.PIPE_AXIS),
+                        shape=[1, lm["n_stages"]])
+    model = PipelinedTransformerLM(
+        **{k: v for k, v in lm.items() if k != "batch"}, mesh=mesh)
+    params = model.init(SEED + 242, None)
+    tokens = rng.randint(0, lm["vocab"], (lm["batch"], lm["seq_len"])) \
+        .astype(np.int32)
+    out["lm/pp4"] = p24_pipeline_case(torch, np, cfg, model, params,
+                                      tokens, np.roll(tokens, -1, axis=1),
+                                      "pp4")
+    return out
+
+
+def p24_healthz(port):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read())
+
+
+def p24_lead(im, body):
+    """Rank 0 runs ``body()`` and unshards; the others follow. Each
+    rank's record: rank 0's body's, the others' forwards served."""
+    import torch
+    if torch.distributed.get_rank() == 0:
+        try:
+            return body()
+        finally:
+            im.unshard()
+    return {"served": im.follow()}
+
+
+def p24_mlp_serving(torch, np, cfg, world):
+    """bench.py's measure_serving_sharded under "tp<world>": its readings
+    under bench.py's names."""
+    from analytics_zoo_tpu_torch.common import telemetry
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.keras import Sequential
+    from analytics_zoo_tpu_torch.keras.layers import Dense
+    from analytics_zoo_tpu_torch.serving import (Broker, ClusterServing,
+                                                 InputQueue, OutputQueue)
+    s = P24_SERVE
+    m = Sequential()
+    m.add(Dense(s["hidden"], input_shape=(s["f_in"],), activation="relu"))
+    for _ in range(2):
+        m.add(Dense(s["hidden"], activation="relu"))
+    m.add(Dense(s["out"]))
+    seeded_weights(m.module, SEED + 243)
+    im = InferenceModel(device=cfg["device"]).load_zoo(m)
+    # the input spec warm-up builds its batches from (bench.py's model
+    # is loaded with a sample input)
+    im.warm_up(rungs=(), sample_input=np.zeros((1, s["f_in"]), np.float32))
+    im.shard(f"tp{world}", param_rules=[(r"kernel", (None, "model"))])
+
+    def misses():
+        fam = telemetry.snapshot().get("zoo_jit_cache_misses_total", {})
+        return float(fam.get("fn=inference_model", 0.0)) \
+            if isinstance(fam, dict) else 0.0
+
+    def body():
+        info = im.shard_info()
+        frac = max(info["shard_hbm_bytes"].values()) / max(
+            info["total_param_bytes"], 1)
+        min_rung = max(2, s["top"] // 4)
+        n = 24 * min_rung
+        payloads = np.random.default_rng(21).standard_normal(
+            (n, s["f_in"])).astype(np.float32)
+        with Broker.launch(backend="python") as broker:
+            eng = ClusterServing(im, broker.port, batch_size=min_rung,
+                                 min_batch_size=min_rung,
+                                 max_batch_size=s["top"], pipeline_window=2)
+            start_rung = eng.batch_size
+            in_q, out_q = InputQueue(port=broker.port), \
+                OutputQueue(port=broker.port)
+            eng.start()
+            eng.wait_warm(timeout=240.0)
+            base = misses()
+            t0 = time.perf_counter()
+            uris = in_q.enqueue_batch(
+                (f"sh{i}", {"x": payloads[i]}) for i in range(n))
+            res = out_q.query_many(uris, timeout=240.0)
+            dt = time.perf_counter() - t0
+            peak = eng.batch_size
+            eng.stop()
+        recompiles = int(misses() - base)
+        missing = [u for u, v in res.items() if v is None]
+        want = InferenceModel(device=cfg["device"]).load_zoo(m).predict(
+            payloads)
+        err = max(float(np.abs(np.asarray(res[f"sh{i}"]) - want[i]).max())
+                  for i in range(n) if res.get(f"sh{i}") is not None)
+        return {"serving_sharded_records_per_sec": n / dt,
+                "serving_sharded_n_shards": int(info["n_shards"]),
+                "serving_sharded_max_shard_fraction": frac,
+                "serving_sharded_post_warmup_recompiles": recompiles,
+                "serving_sharded_bucket_growth":
+                    eng.ladder.rungs.index(peak)
+                    - eng.ladder.rungs.index(start_rung),
+                "missing": len(missing), "max_abs_err": err}
+    return p24_lead(im, body)
+
+
+def p24_serving(torch, np, cfg, world):
+    """(b) on 4 ranks the MLP; on 2 BERT-Base "tp2" through ClusterServing
+    and the FrontEnd (fp32) and its bf16 predict, NCF "tp2", the MLP, the
+    /healthz sharding block; each rank's B3 and B1 launches."""
+    from analytics_zoo_tpu_torch.ops import _build
+    out = {"mlp": p24_mlp_serving(torch, np, cfg, world)}
+    if world != 2:
+        return out
+    out["bert"] = p24_bert_serving(torch, np, cfg)
+    out["ncf"] = p24_ncf_serving(torch, np, cfg)
+    out["ncf"]["launches"] = {k: v for k, v in
+                              _build.launch_counts().items() if v}
+    return out
+
+
+def p24_bert_serving(torch, np, cfg):
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import _build
+    from analytics_zoo_tpu_torch.serving import (Broker, ClusterServing,
+                                                 FrontEnd, InputQueue,
+                                                 OutputQueue)
+    from analytics_zoo_tpu_torch.text.bert import bert_tp_rules
+    rank = torch.distributed.get_rank()
+    x = bert_inputs(np.random.RandomState(SEED), BERT_BATCH)
+    sample = tuple(a[:1] for a in x)
+    out = {}
+    for label, extra in (("fp32", {}), ("bf16", {"dtype": torch.bfloat16})):
+        module = bert_classifier(None, use_flash=True, **P24_BERT_SIZE,
+                                 **extra)
+        want = None
+        if rank == 0:
+            want = InferenceModel(device=cfg["device"]).load_torch(
+                module, sample).predict(x, batch_size=BERT_BATCH)
+        im = InferenceModel(device=cfg["device"]).load_torch(module,
+                                                             sample)
+        del module
+        im.shard("tp2", param_rules=bert_tp_rules())
+        n_head = P24_BERT_SIZE.get("n_head", 12)
+        head_dim = P24_BERT_SIZE.get("hidden_size", 768) // n_head
+        heads = [int(p.shape[0]) // head_dim for n, p in
+                 im._sharded.module.named_parameters()
+                 if n.endswith("block_0.attention.query.weight")]
+        _build.reset_launch_counts()
+        limit = BERT_ATOL if label == "fp32" else BERT_BF16_ATOL
+
+        def body(im=im, want=want, label=label, limit=limit):
+            rec = {"limit": limit, "info": im.shard_info()}
+            p24_sync(torch, cfg)
+            t0 = time.perf_counter()
+            got = im.predict(x, batch_size=BERT_BATCH)
+            p24_sync(torch, cfg)
+            rec["predict_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["predict_err"] = float(np.abs(got - want).max())
+            if label != "fp32":
+                return rec
+            ids, seg = x
+            with Broker.launch(backend="python") as broker:
+                eng = ClusterServing(im, broker.port, batch_size=BERT_BATCH,
+                                     max_batch_size=BERT_BATCH,
+                                     warmup=False)
+                eng.start()
+                fe = FrontEnd(broker.port, engine=eng).start()
+                try:
+                    iq, oq = InputQueue(port=broker.port), \
+                        OutputQueue(port=broker.port)
+                    t0 = time.perf_counter()
+                    uris = iq.enqueue_batch(
+                        (f"b{i}", {"input_ids": ids[i],
+                                   "token_type_ids": seg[i]})
+                        for i in range(BERT_BATCH))
+                    res = oq.query_many(uris, timeout=300)
+                    rec["served_s"] = time.perf_counter() - t0
+                    hz = p24_healthz(fe.port)
+                    rec["metrics_sharding"] = eng.metrics().get("sharding")
+                finally:
+                    fe.stop()
+                    eng.stop()
+            rec["served_err"] = max(
+                float(np.abs(np.asarray(res[f"b{i}"]) - want[i]).max())
+                if res.get(f"b{i}") is not None else float("inf")
+                for i in range(BERT_BATCH))
+            rec["healthz_sharding"] = hz.get("sharding")
+            return rec
+        rec = p24_lead(im, body)
+        rec["heads_a_rank"] = heads[0] if heads else None
+        rec["heads"] = n_head
+        rec["forward_launches"] = {k: v for k, v in
+                                   _build.launch_counts().items() if v}
+        out[label] = rec
+        del im
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.empty_cache()
+    return out
+
+
+def p24_ncf_serving(torch, np, cfg):
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.ops import _build
+    ncf = NeuralCF(**NCF)
+    seeded_weights(ncf.model.module, SEED + 244)
+    x, _ = p23_ncf_data(np)
+    x = x[:P24_NCF_ROWS]
+    want = None
+    if torch.distributed.get_rank() == 0:
+        want = InferenceModel(device=cfg["device"]).load_zoo(ncf).predict(
+            x, batch_size=len(x))
+    # the sharded path's launches alone
+    _build.reset_launch_counts()
+    im = InferenceModel(device=cfg["device"]).load_zoo(ncf)
+    im.shard("tp2", param_rules=NeuralCF.tp_param_rules())
+    tables = {n: list(p.shape) for n, p in
+              im._sharded.module.named_parameters()
+              if n.endswith("embedding")}
+
+    def body():
+        got = im.predict(x, batch_size=len(x))
+        return {"err": float(np.abs(got - want).max()),
+                "covered": sorted(set(im._sharded.shards)
+                                  - set(im._sharded.gathered))}
+    rec = p24_lead(im, body)
+    rec["tables"] = tables
+    return rec
+
+
+def p24_generate(torch, np, cfg, world):
+    """(c) the decode Seq2Seq "tp2": greedy bitwise and raw within 1e-5 of
+    the one-rank generate."""
+    from analytics_zoo_tpu_torch.common.compile_ahead import BucketLadder
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import Seq2Seq
+    b, steps = DECODE_BATCH, DECODE_STEPS
+    m = Seq2Seq(**DECODE)
+    seeded_weights(m.model.module, SEED)
+    rng = np.random.default_rng(7)
+    enc = rng.standard_normal((b, 8, DECODE["input_dim"])).astype(np.float32)
+    start = np.zeros((b, DECODE["output_dim"]), np.float32)
+    ref = None
+    if torch.distributed.get_rank() == 0:
+        one = InferenceModel(device=cfg["device"]).load_zoo(m)
+        one.set_ladder(BucketLadder(b, b))
+        ref = (one.generate(enc, start, steps),
+               one.generate(enc, start, steps, mode="raw"))
+    im = InferenceModel(device=cfg["device"]).load_zoo(m)
+    im.set_ladder(BucketLadder(b, b))
+    im.shard("tp2")
+
+    def body():
+        p24_sync(torch, cfg)
+        t0 = time.perf_counter()
+        greedy = im.generate(enc, start, steps)
+        p24_sync(torch, cfg)
+        ms = (time.perf_counter() - t0) * 1e3
+        raw = im.generate(enc, start, steps, mode="raw")
+        return {"greedy_bitwise": bool(np.array_equal(greedy, ref[0])),
+                "raw_err": float(np.abs(raw - ref[1]).max()),
+                "greedy_ms": ms, "steps": steps}
+    return p24_lead(im, body)
+
+
+def p24_tcmf(torch, np, cfg, world):
+    """(d) TCMF at the electricity panel's width over the ranks, from the
+    SVD start, against the one-rank fp32 fit and the same steps in float64
+    (rank 0, no group); ms a step."""
+    from analytics_zoo_tpu_torch.zouwu.model.tcmf import TCMFForecaster
+    n, t = P20_TCMF
+    y = p20_panel(np, t)[:, :t]
+    dev = cfg["device"]
+    m = TCMFForecaster(rank=P20_TCMF_RANK, svd=True, device=dev)
+    f0, x0 = m._init_factors(y)
+    m._init_factors = lambda _y: (f0.copy(), x0.copy())
+    p24_sync(torch, cfg)
+    t0 = time.perf_counter()
+    mse = m.fit(y, num_steps=P24_TCMF_STEPS, distributed=True)
+    p24_sync(torch, cfg)
+    secs = time.perf_counter() - t0
+    rec = dict(mse=mse, step_ms=secs / P24_TCMF_STEPS * 1e3,
+               devices_used=m.fit_report["devices_used"])
+    if torch.distributed.get_rank() == 0:
+        one = TCMFForecaster(rank=P20_TCMF_RANK, device=dev)
+        one._init_factors = lambda _y: (f0.copy(), x0.copy())
+        p24_sync(torch, cfg)
+        t0 = time.perf_counter()
+        mse1 = one._run_factorization(y, P24_TCMF_STEPS, None)
+        p24_sync(torch, cfg)
+        rec.update(one_rank_step_ms=(time.perf_counter() - t0)
+                   / P24_TCMF_STEPS * 1e3, mse_one=mse1,
+                   f_err=float(np.abs(m.F - one.F).max()),
+                   x_err=float(np.abs(m.X - one.X).max()),
+                   mse_rel=abs(mse - mse1) / abs(mse1))
+        ref = TCMFForecaster(rank=P20_TCMF_RANK, device=dev)
+        ref._init_factors = lambda _y: (f0.astype(np.float64),
+                                        x0.astype(np.float64))
+        mse64 = ref._run_factorization(y.astype(np.float64),
+                                       P24_TCMF_STEPS, None)
+        rec.update(mse64=mse64, f64_err=float(np.abs(m.F - ref.F).max()),
+                   x64_err=float(np.abs(m.X - ref.X).max()),
+                   mse64_rel=abs(mse - mse64) / abs(mse64))
+    return rec
+
+
+def p24_report(groups, kind):
+    """Print each reading (every rank's is in chiprun_out/phase24.json),
+    hold it to its limit, and sum the paths' launches by part."""
+    bad = []
+    launches = {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "phase24.json"), "w") as fh:
+        json.dump({str(w): r for w, r in groups.items()}, fh, indent=1)
+
+    def add(path, counts):
+        dst = launches.setdefault(path, {})
+        for k, v in counts.items():
+            dst[k] = dst.get(k, 0) + v
+
+    for world, ranks in groups.items():
+        if "a" in ranks[0]:
+            for key in [k for k in ranks[0]["a"]
+                        if k not in ("seconds", "launches")]:
+                recs = [r["a"][key] for r in ranks]
+                loss_err = max(r["loss_err"] for r in recs)
+                grads = {}
+                for r in recs:
+                    for n, v in r["grads"].items():
+                        grads[n] = max(grads.get(n, 0.0), v)
+                log(f"24(a) {key}, {world} ranks on {kind}: loss "
+                    f"{recs[0]['loss']:.6g}, err {loss_err:.3g} (limit "
+                    f"{P24_LOSS_ATOL}); gradients over each leaf's largest "
+                    f"{ {n: float(f'{v:.3g}') for n, v in grads.items()} } "
+                    f"(limit {P24_GRAD_RTOL}); a rank holds "
+                    f"{recs[-1]['held']}; ms a step " + " ".join(
+                        f"{r['step_ms']:.1f}" for r in recs)
+                    + ", the ring shift's share " + " ".join(
+                        f"{r['ring_share']:.3f}" for r in recs)
+                    + ", all collectives' " + " ".join(
+                        f"{r['collective_share']:.3f}" for r in recs)
+                    + " (rehearsal costs: gloo on one card)")
+                if loss_err > P24_LOSS_ATOL or \
+                        max(grads.values()) > P24_GRAD_RTOL:
+                    bad.append(f"{world}/a {key}")
+        b = ranks[0].get("b")
+        if b is None:
+            continue
+        mlp = b["mlp"]
+        log(f"24(b) measure_serving_sharded's MLP under tp{world} on {kind}:"
+            f" " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                             else f"{k} {v}" for k, v in mlp.items()
+                             if k != "launches"))
+        if mlp["missing"] or mlp["serving_sharded_max_shard_fraction"] >= 1 \
+                or mlp["serving_sharded_post_warmup_recompiles"] != 0 \
+                or mlp["serving_sharded_bucket_growth"] < 1 \
+                or mlp["serving_sharded_n_shards"] != world \
+                or mlp["max_abs_err"] > 1e-5:
+            bad.append(f"{world}/b mlp")
+        if world != 2:
+            continue
+        for label in ("fp32", "bf16"):
+            rec = b["bert"][label]
+            per_fwd = [r["b"]["bert"][label]["forward_launches"].get(
+                "flash_attention_fwd", 0) for r in ranks]
+            served = [r["b"]["bert"][label].get("served", 0) for r in ranks]
+            log(f"24(b) BERT-Base {label} tp2 on {kind}: predict err "
+                f"{rec['predict_err']:.3g}"
+                + (f", served err {rec['served_err']:.3g}"
+                   if label == "fp32" else "")
+                + f" (limit {rec['limit']}); {rec['heads_a_rank']} heads a "
+                f"rank; B3 launches each rank {per_fwd} over {served[1]} "
+                f"forwards; predict "
+                f"{rec['predict_ms']:.1f} ms; shard bytes "
+                f"{rec['info']['shard_hbm_bytes']} of "
+                f"{rec['info']['total_param_bytes']}")
+            forwards = served[1]
+            ok = rec["predict_err"] <= rec["limit"] and \
+                2 * ranks[1]["b"]["bert"][label]["heads_a_rank"] == \
+                ranks[1]["b"]["bert"][label]["heads"] and \
+                all(c == 12 * forwards for c in per_fwd)
+            if label == "fp32":
+                ok = ok and rec["served_err"] <= rec["limit"] and \
+                    (rec["healthz_sharding"] or {}).get("n_shards") == 2 \
+                    and (rec["metrics_sharding"] or {}).get("n_shards") == 2
+                log(f"24(b) /healthz sharding block: "
+                    f"{rec['healthz_sharding']}; {BERT_BATCH} records "
+                    f"served in {rec['served_s']:.2f} s")
+            if not ok:
+                bad.append(f"2/b bert {label}")
+            for r in ranks:
+                add("bert", r["b"]["bert"][label]["forward_launches"])
+        ncf = b["ncf"]
+        lk = [r["b"]["ncf"]["launches"].get("fused_embedding_lookup", 0)
+              for r in ranks]
+        log(f"24(b) NCF tp2 on {kind}: err {ncf['err']:.3g} (limit "
+            f"{P24_NCF_ATOL}); B1 launches each rank {lk}; tables a rank "
+            f"{ranks[1]['b']['ncf']['tables']}")
+        if ncf["err"] > P24_NCF_ATOL or not all(lk) or len(set(lk)) != 1:
+            bad.append("2/b ncf")
+        for r in ranks:
+            add("ncf", r["b"]["ncf"]["launches"])
+        c = ranks[0]["c"]
+        log(f"24(c) Seq2Seq tp2 generate on {kind}: greedy bitwise "
+            f"{c['greedy_bitwise']}, raw err {c['raw_err']:.3g} (limit "
+            f"1e-5); {c['greedy_ms']:.1f} ms for {c['steps']} greedy steps;"
+            f" forwards the follower served {ranks[1]['c']['served']}")
+        if not c["greedy_bitwise"] or c["raw_err"] > 1e-5:
+            bad.append("2/c")
+        d = ranks[0]["d"]
+        (lf, lx), lm = p24_tcmf_limits()
+        log(f"24(d) TCMF {P20_TCMF[0]} x {P20_TCMF[1]} rank {P20_TCMF_RANK} "
+            f"over {d['devices_used']} ranks on {kind}, against the one-rank "
+            f"fit: F {d['f_err']:.3g} (limit {lf:.3g}), X {d['x_err']:.3g} "
+            f"(limit {lx:.3g}), mse {d['mse']:.6g} vs {d['mse_one']:.6g} "
+            f"({d['mse_rel']:.3g} relative, limit {lm:.3g}); against "
+            f"float64: F {d['f64_err']:.3g}, X {d['x64_err']:.3g}, mse "
+            f"{d['mse64_rel']:.3g} relative; ms a step "
+            + " ".join(f"{r['d']['step_ms']:.3f}" for r in ranks)
+            + f" (one rank {d['one_rank_step_ms']:.3f})")
+        if d["f_err"] > lf or d["x_err"] > lx or d["mse_rel"] > lm or \
+                d["devices_used"] != 2:
+            bad.append("2/d")
+        secs = {p: round(max(r[p]["seconds"] for r in ranks), 1)
+                for p in ranks[0] if isinstance(ranks[0][p], dict)}
+        log(f"phase 24 group of {world}: seconds by part {secs}")
+    for world, ranks in groups.items():
+        for r in ranks:
+            if "a" in r:
+                add("pipeline", r["a"]["launches"])
+    log(f"phase 24 launches on its paths, summed over the ranks: {launches}")
+    if bad:
+        raise AssertionError(f"phase 24: {bad}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -11802,6 +12458,14 @@ def main() -> int:
             if p23.get(path, {}).get(name, 0) <= 0:
                 raise AssertionError(f"phase 23's {path} path launched no "
                                      f"{name}: {p23}")
+    torch.cuda.empty_cache()
+    report["pipeline_serving"] = phase_pipeline_serving(torch, np, kind)
+    p24 = report["pipeline_serving"]["launches"]
+    for path, name in (("bert", "flash_attention_fwd"),
+                       ("ncf", "fused_embedding_lookup")):
+        if p24.get(path, {}).get(name, 0) <= 0:
+            raise AssertionError(f"phase 24's sharded {path} path launched "
+                                 f"no {name}: {p24}")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -11816,7 +12480,8 @@ def main() -> int:
                           "detection": report["detection"]["launches"],
                           "autotune_friesian":
                               report["autotune_friesian"]["launches"],
-                          "parallel": report["parallel"]["launches"]}
+                          "parallel": report["parallel"]["launches"],
+                          "pipeline_serving": p24}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -11994,6 +12659,14 @@ def main() -> int:
                if c.get(row["name"], 0)}
         if p23:
             row["phase23_launches"] = p23
+    # phase 24's paths, summed over the ranks of its groups: BERT-Base
+    # served "tp2" on 6 heads a rank (B3), NCF served "tp2" on the tables'
+    # column blocks (B1)
+    for row in kernels["kernels"]:
+        got = {part: c.get(row["name"], 0) for part, c in p24.items()
+               if c.get(row["name"], 0)}
+        if got:
+            row["phase24_launches"] = got
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     # the card again, so that the output's tail names it beside the numbers

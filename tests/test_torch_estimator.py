@@ -306,10 +306,13 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    # pipeline parallelism is not ported; fsdp on one rank shards nothing
-    with pytest.raises(NotImplementedError, match="ROADMAP A9's third"):
-        Estimator.from_torch(model=MLP(), loss=LOSS, strategy="pp",
+    # pipeline parallelism trains across ranks (test_torch_pipeline.py):
+    # two stages need two ranks; fsdp and pp on one rank shard nothing
+    with pytest.raises(ValueError, match="ranks"):
+        Estimator.from_torch(model=MLP(), loss=LOSS, strategy="pp2",
                              device="cpu")
+    assert Estimator.from_torch(model=MLP(), loss=LOSS, strategy="pp",
+                                device="cpu")._shards == {}
     assert Estimator.from_torch(model=MLP(), loss=LOSS, strategy="fsdp",
                                 device="cpu")._shards == {}
     # model_dir is ported: fit snapshots there (EveryEpoch by default)

@@ -5,9 +5,9 @@ Both factories return the model's own estimator: settings compiled on
 the model are kept and explicit arguments override them, a ``ZooModel``
 is unwrapped through ``.model``, anything else raises ``TypeError`` and a
 missing loss ``ValueError``. Rules are kept; a layout needing more
-ranks than this process raises ``ValueError`` and ``"pp"`` raises naming
-ROADMAP A9's third part (the ranks' fits are in
-``tests/test_torch_multirank.py``). From the same parameters
+ranks than this process raises ``ValueError``, ``"pp2"`` too (the ranks'
+fits are in ``tests/test_torch_multirank.py`` and
+``tests/test_torch_pipeline.py``). From the same parameters
 (``convert.flax_to_state_dict``), the port's fit through ``from_keras``
 and ``from_graph`` matches JAX's: each epoch's loss within rtol 1e-5 and
 every parameter within 1e-6 after SGD, 1e-5 after Adam; and it is
@@ -205,9 +205,11 @@ def test_rejections():
     with pytest.raises(ValueError, match="ranks"):
         Estimator.from_graph(inputs=x, outputs=tl.Dense(2)(x), loss="mse",
                              strategy="dp,tp2", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9's third part"):
+    # pipeline parallelism trains across ranks (test_torch_pipeline.py):
+    # its stages need as many ranks
+    with pytest.raises(ValueError, match="ranks"):
         Estimator.from_graph(inputs=x, outputs=tl.Dense(2)(x), loss="mse",
-                             strategy="pp", device="cpu")
+                             strategy="pp2", device="cpu")
 
 
 def test_entry_points_run_on_cuda_unless_told(monkeypatch):

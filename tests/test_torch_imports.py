@@ -85,7 +85,8 @@ def test_importing_every_module_loads_no_jax():
                 "friesian", "friesian.feature", "friesian.feature.table",
                 "parallel.strategy", "parallel.collectives",
                 "parallel.launch", "parallel.tensor_parallel",
-                "ops.ring_attention", "ops.ulysses", "ops.moe"):
+                "ops.ring_attention", "ops.ulysses", "ops.moe",
+                "parallel.pipeline", "parallel.sharded_executable"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,
@@ -177,3 +178,28 @@ def test_native_store_source_is_the_ports_own_file():
     from analytics_zoo_tpu_torch.data import native_store
     assert native_store._SRC.resolve() == own.resolve()
     assert native_store.BUILD_DIR == ROOT / "build" / "native"
+
+
+def test_pipeline_and_sharded_serving_import_without_jax():
+    """Pipeline parallelism, ``from_fn`` and sharded serving load in a
+    process that never saw JAX, and a pipelined MLP's sequential forward
+    runs there."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from analytics_zoo_tpu_torch.learn.estimator import Estimator, "
+        "FnModule\n"
+        "from analytics_zoo_tpu_torch.parallel.pipeline import "
+        "PipelinedMLP, PipelinedTransformerLM, gpipe, gpipe_hetero\n"
+        "from analytics_zoo_tpu_torch.parallel.sharded_executable import "
+        "ShardedExecutable\n"
+        "m = PipelinedMLP(hidden=4, out_dim=2, n_stages=2)\n"
+        "p = m.init(0, torch.zeros(1, 3))\n"
+        "print(tuple(m.apply_sequential(p, torch.zeros(5, 3)).shape))\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=120)
+    assert out.stdout.strip() == "(5, 2)"

@@ -12,9 +12,11 @@ either package needs and the port leaves out (a tile list where the
 kernel has one tile, a timer prefix, a partial drain, an unused
 ``validation``, a forced rebuild). Also held: ``Estimator.from_torch``
 with JAX's ``sample_input`` (checked on a CPU copy) and ``param_rules``
-(JAX's rules, kept; ``"pp"`` raising, naming ROADMAP A9's third part),
-and
-``InferenceModel.load_torch(torch_module=...)``.
+(JAX's rules, kept; a strategy needing more ranks than one process
+raising, naming the ranks: ``"pp"`` trains across ranks,
+``tests/test_torch_pipeline.py``), ``InferenceModel.load_torch(
+torch_module=...)``, and JAX's keywords in ``Estimator.from_fn``,
+``InferenceModel.shard`` and the pipeline functions.
 """
 
 import importlib
@@ -48,6 +50,10 @@ EXCEPTIONS = {
     ("ops.autotune", "tune_attention"): (
         {"blocks"}, "the flash launcher has one tile per head dim "
         "(flash_attention.kernel_tile): there is no other to time"),
+    ("parallel.sharded_executable", "ShardedExecutable.__init__"): (
+        {"apply_fn"}, "the port's first argument is a module or a "
+        "function (module_or_fn): a served model of the port is an "
+        "nn.Module, JAX's a flax apply function"),
     ("serving.broker", "build_native_broker"): (
         {"force"}, "unneeded: the binary's name carries its source's "
         "digest, so a changed source builds anew"),
@@ -152,6 +158,19 @@ def test_each_exception_is_still_a_gap(gaps, key):
     ("ops.paged_attention", "paged_attention", {"use_kernel"}),
     ("ops.flash_attention", "flash_attention", {"block_q", "block_k"}),
     ("learn.estimator", "TorchEstimator.predict", {"pipeline_window"}),
+    ("learn.estimator", "Estimator.from_fn",
+     {"apply_fn", "params", "loss", "optimizer", "metrics", "n_inputs",
+      "model_dir", "strategy", "param_rules", "seed"}),
+    ("inference.inference_model", "InferenceModel.shard",
+     {"strategy", "param_rules", "mesh", "devices"}),
+    ("parallel.pipeline", "gpipe",
+     {"stage_fn", "stacked_params", "x", "mesh", "n_microbatches", "axis"}),
+    ("parallel.pipeline", "gpipe_hetero",
+     {"stage_fns", "unravels", "sizes", "packed", "feed", "mesh",
+      "n_microbatches", "act_shape", "out_shape", "act_dtype", "out_dtype",
+      "axis"}),
+    ("parallel.sharded_executable", "ShardedExecutable.warm",
+     {"spec", "rungs", "block", "cpu_also"}),
 ])
 def test_c25_keywords_present(module, name, keywords):
     mod = importlib.import_module(f"analytics_zoo_tpu_torch.{module}")
@@ -190,7 +209,8 @@ def test_from_torch_takes_sample_input_and_param_rules():
     est = Estimator.from_torch(model=_MLP(), loss="mse", param_rules=rules,
                                device="cpu")
     assert est.strategy.param_rules == rules and est._shards == {}
-    with pytest.raises(NotImplementedError, match="A9's third part"):
+    # one process is one rank: two pipe stages need two ranks
+    with pytest.raises(ValueError, match="ranks"):
         Estimator.from_torch(model=_MLP(), loss="mse", strategy="pp2",
                              device="cpu")
 

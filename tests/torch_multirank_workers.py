@@ -429,3 +429,26 @@ def environment():
                                        "MASTER_ADDR")} | {
         "backend": str(dist.get_backend()),
         "threads": torch.get_num_threads()}
+
+
+def tcmf_group(cases):
+    """TCMF's ``distributed=True`` fits of ``tests/test_torch_tcmf_ranks.
+    py``: the series blocked over the ranks, from the given start."""
+    _context()
+    try:
+        return {c["name"]: tcmf_fit(c) for c in cases}
+    finally:
+        _stop()
+
+
+def tcmf_fit(case):
+    from analytics_zoo_tpu_torch.zouwu.model.tcmf import TCMFForecaster
+    y = np.asarray(case["y"], np.float32)
+    f0 = np.asarray(case["f0"], np.float32)
+    x0 = np.asarray(case["x0"], np.float32)
+    m = TCMFForecaster(k=f0.shape[1], ar_order=24, lr=0.05, device="cpu")
+    m._init_factors = lambda _y: (f0.copy(), x0.copy())
+    mse = m.fit(y, num_steps=case["steps"], distributed=True)
+    return {"mse": mse, "report": m.fit_report,
+            "pred": m.predict(8).tolist(), "F": m.F.tolist(),
+            "X": m.X.tolist()}
