@@ -27,9 +27,9 @@ and Zouwu's forecasters):
   attention
 - ``data``      — fixed-shape minibatches in the JAX package's order,
   the streaming feed over ``DISK_n`` stores, XShards (tiers, the data
-  pool) and the pandas readers
+  pool), the pandas readers, TFRecord, Elasticsearch and image parquet
 - ``learn``     — ``Estimator.from_torch``, losses, metrics, optimizers,
-  checkpoints and triggers, the training summaries
+  checkpoints and triggers, the training summaries, ``GANEstimator``
 - ``keras``     — graph engine, the layers NCF, BERT, Seq2Seq and the
   zoo models use, ``Embedding``, the weight regularizers,
   ``Model``/``Sequential`` with ``compile``/``fit``/``evaluate``/
@@ -44,7 +44,12 @@ and Zouwu's forecasters):
   ``ClusterServing`` (predict and generate records)
 - ``zouwu``     — the TCN, LSTM and Seq2Seq forecasters
 - ``automl``    — the metrics ``Evaluator``
-- ``convert``   — flax parameter trees to torch state dicts and back
+- ``convert``   — flax parameter trees to torch state dicts and back,
+  and JAX's ``torch_to_jax`` names of a foreign module
+- ``net``       — ``TorchNet`` (a foreign module on the port's attention
+  core), ONNX and OpenVINO IR graphs run op by op
+- ``keras2``, ``nnframes`` — Keras-2 spellings, ML-pipeline stages over
+  DataFrames
 """
 
 from analytics_zoo_tpu_torch.version import __version__  # noqa: F401

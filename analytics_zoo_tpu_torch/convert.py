@@ -250,6 +250,308 @@ def flax_layout(module: nn.Module) -> Optional[Dict]:
     return _sort_tree(tree)
 
 
+# ------------------------------------- JAX's names for a foreign module
+
+class _NoTreeRule(Exception):
+    """JAX's ``torch_to_jax`` has no rule for a module's type."""
+
+
+class _TreeRefused(Exception):
+    """JAX's rule for a module's type refuses its configuration."""
+
+
+#: tensor methods JAX's translation covers (net/torch_net.py ``_METHODS``)
+_TREE_METHODS = frozenset((
+    "view", "reshape", "permute", "transpose", "flatten", "mean", "sum",
+    "size", "contiguous", "squeeze", "unsqueeze"))
+
+
+def _tree_functions():
+    """The functions JAX's translation covers (its ``_FN_MAP``)."""
+    import operator
+    import torch.nn.functional as F
+    return {torch.relu, F.relu, torch.tanh, torch.sigmoid, F.gelu,
+            F.softmax, F.log_softmax, torch.add, operator.add, operator.sub,
+            operator.mul, operator.truediv, operator.getitem,
+            operator.matmul, torch.matmul, torch.flatten, torch.cat,
+            torch.mean, torch.sum}
+
+
+def _tree_rule(mod: nn.Module, prefix: str = ""):
+    """JAX's rule for one module (net/torch_net.py
+    ``_ModuleRule.translate``) as ``(params, buffers, needs_ctx)``: trees
+    whose leaves are ``(torch name, transposed)`` (``prefix`` is the
+    module's name in the whole), and whether JAX's rule reads the train
+    flag (a BatchNorm, a live Dropout). ``_NoTreeRule`` where JAX has no
+    rule, ``_TreeRefused`` where it raises."""
+    def leaf(name, transposed=False):
+        return (prefix + name, transposed)
+
+    def refuse(why):
+        raise _TreeRefused(f"{type(mod).__name__}: {why}")
+
+    def sub(child, name):
+        # a composite rule's part: JAX refuses one without a rule, or
+        # with state or ctx
+        try:
+            p, b, ctx = _tree_rule(child, prefix + name + ".")
+        except _NoTreeRule as e:
+            raise _TreeRefused(str(e)) from e
+        if b or ctx:
+            refuse(f"{name} has frozen state or train-time randomness")
+        return p
+
+    def affine(m, names=("scale", "bias")):
+        if m.weight is None or m.bias is None:
+            refuse("no affine weight and bias")
+        return {names[0]: leaf("weight"), names[1]: leaf("bias")}
+
+    def with_bias(out):
+        if mod.bias is not None:
+            out["bias"] = leaf("bias")
+        return out
+
+    if isinstance(mod, nn.Linear):
+        return with_bias({"kernel": leaf("weight", True)}), {}, False
+    if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+        if any(d != 1 for d in np.atleast_1d(mod.dilation)) or \
+                mod.groups != 1:
+            refuse("dilated/grouped conv")
+        return with_bias({"kernel": leaf("weight")}), {}, False
+    if isinstance(mod, nn.ConvTranspose2d):
+        if any(d != 1 for d in np.atleast_1d(mod.dilation)) or \
+                mod.groups != 1 or \
+                any(p != 0 for p in np.atleast_1d(mod.output_padding)):
+            refuse("dilated/grouped/output-padded")
+        return with_bias({"kernel": leaf("weight")}), {}, False
+    if isinstance(mod, nn.GroupNorm):
+        # without affine JAX makes its own ones and zeros: no torch leaf
+        return affine(mod), {}, False
+    if isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
+        if mod.running_mean is None:
+            refuse("no running statistics")
+        return affine(mod), {"mean": leaf("running_mean"),
+                             "var": leaf("running_var")}, True
+    if isinstance(mod, nn.LayerNorm):
+        return affine(mod), {}, False
+    if isinstance(mod, nn.Embedding):
+        return {"embedding": leaf("weight")}, {}, False
+    if isinstance(mod, nn.MultiheadAttention):
+        if mod.in_proj_weight is None:
+            refuse("distinct q/k/v embed dims")
+        if mod.bias_k is not None or mod.add_zero_attn:
+            refuse("add_bias_kv / add_zero_attn")
+        p = {"in_w": leaf("in_proj_weight"),
+             "out_w": leaf("out_proj.weight")}
+        if mod.in_proj_bias is not None:
+            p["in_b"] = leaf("in_proj_bias")
+        if mod.out_proj.bias is not None:
+            p["out_b"] = leaf("out_proj.bias")
+        return p, {}, False
+    if isinstance(mod, nn.TransformerEncoderLayer):
+        import torch.nn.functional as F
+        p = {"attn": sub(mod.self_attn, "self_attn"),
+             "lin1": sub(mod.linear1, "linear1"),
+             "lin2": sub(mod.linear2, "linear2"),
+             "norm1": sub(mod.norm1, "norm1"),
+             "norm2": sub(mod.norm2, "norm2")}
+        act = mod.activation
+        if isinstance(act, nn.Module):
+            sub(act, "activation")
+        elif act not in (F.relu, F.gelu, torch.relu):
+            refuse(f"activation {act}")
+        return p, {}, False
+    if isinstance(mod, nn.TransformerEncoder):
+        p = {f"layer{i}": sub(layer, f"layers.{i}")
+             for i, layer in enumerate(mod.layers)}
+        if mod.norm is not None:
+            p["final_norm"] = sub(mod.norm, "norm")
+        return p, {}, False
+    if isinstance(mod, (nn.LSTM, nn.GRU)):
+        if mod.bidirectional or (mod.dropout and mod.num_layers > 1) or \
+                getattr(mod, "proj_size", 0):
+            refuse("bidirectional, inter-layer dropout or proj_size")
+        p = {}
+        for i in range(mod.num_layers):
+            p[f"wi{i}"] = leaf(f"weight_ih_l{i}")
+            p[f"wh{i}"] = leaf(f"weight_hh_l{i}")
+            if mod.bias:
+                p[f"bi{i}"] = leaf(f"bias_ih_l{i}")
+                p[f"bh{i}"] = leaf(f"bias_hh_l{i}")
+        return p, {}, False
+    if isinstance(mod, nn.Dropout):
+        return {}, {}, float(mod.p) > 0.0
+    if isinstance(mod, (nn.MaxPool2d, nn.AvgPool2d)):
+        if getattr(mod, "ceil_mode", False) or (
+                isinstance(mod, nn.AvgPool2d) and
+                not mod.count_include_pad):
+            refuse("ceil_mode or count_include_pad=False")
+        return {}, {}, False
+    if isinstance(mod, nn.AdaptiveAvgPool2d):
+        if mod.output_size not in (1, (1, 1)):
+            refuse("output size other than (1, 1)")
+        return {}, {}, False
+    if isinstance(mod, (nn.Identity, nn.Flatten, nn.ReLU, nn.LeakyReLU,
+                        nn.ELU, nn.Softplus, nn.Hardtanh, nn.SiLU, nn.GELU,
+                        nn.Tanh, nn.Sigmoid, nn.Softmax, nn.LogSoftmax)):
+        return {}, {}, False
+    raise _NoTreeRule(f"torch module {type(mod).__name__} has no rule")
+
+
+def torch_tree_plan(module: nn.Module):
+    """JAX's ``torch_to_jax`` naming of ``module``: ``(params, buffers)``
+    trees whose leaves are ``(torch state_dict name, transposed)``, or
+    None where JAX cannot translate the module.
+
+    As JAX: a module with a rule of its own (an ``nn.LSTM``, an
+    ``nn.TransformerEncoder`` passed alone) is the tree under ``root``;
+    any other is traced by ``torch.fx``, each module call under its
+    target with the dots kept (``"layers.0"``), each tensor attribute the
+    forward reads under ``"attr.<target>"`` (a parameter in ``params``,
+    any other tensor in ``buffers``). A Linear's ``kernel`` is its weight
+    transposed; every other leaf is the torch tensor as it is (a
+    convolution's ``kernel`` OIHW, an attention's ``in_w`` / ``out_w``)."""
+    try:
+        p, b, _ = _tree_rule(module)
+        return {"root": p}, {"root": b}
+    except _TreeRefused:
+        return None
+    except _NoTreeRule:
+        pass                    # a container: JAX traces it
+    import torch.fx as fx
+
+    class Tracer(fx.Tracer):
+        # a module standing in for a torch one (net/torch_net.py's
+        # attention) is the leaf the torch one would be
+        def is_leaf_module(self, m, qualname):
+            return getattr(type(m), "_zoo_stands_for", None) is not None \
+                or super().is_leaf_module(m, qualname)
+
+    try:
+        graph = Tracer().trace(module)
+    except Exception:
+        return None
+    functions = _tree_functions()
+    mods = dict(module.named_modules())
+    params: Dict = {}
+    buffers: Dict = {}
+    for node in graph.nodes:
+        try:
+            if node.op == "call_module":
+                p, b, _ = _tree_rule(mods[node.target], node.target + ".")
+                if p:
+                    params[node.target] = p
+                if b:
+                    buffers[node.target] = b
+            elif node.op == "get_attr":
+                t = module
+                for part in node.target.split("."):
+                    t = getattr(t, part)
+                key = "attr." + node.target
+                if isinstance(t, nn.Parameter):
+                    params[key] = (node.target, False)
+                elif isinstance(t, torch.Tensor):
+                    buffers[key] = (node.target, False)
+                else:
+                    return None
+            elif node.op == "call_function" and node.target not in functions:
+                return None
+            elif node.op == "call_method" and \
+                    node.target not in _TREE_METHODS:
+                return None
+        except (_NoTreeRule, _TreeRefused):
+            return None
+    return params, buffers
+
+
+def _tree_leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _tree_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _tree_from_leaves(pairs) -> Dict:
+    tree: Dict = {}
+    for path, v in pairs:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return _sort_tree(tree)
+
+
+def _tree_value(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    t = t.detach()
+    return t.transpose(-1, -2) if transposed else t
+
+
+def torch_to_jax_tree(module: nn.Module) -> Dict:
+    """``{"params", "buffers"}``: JAX's ``torch_to_jax(module)[1]`` for a
+    module its rules cover, numpy arrays keyed and laid out as there
+    (``torch_tree_plan``); ``ValueError`` for one they do not."""
+    plan = torch_tree_plan(module)
+    if plan is None:
+        raise ValueError(f"JAX's torch_to_jax has no translation of "
+                         f"{type(module).__name__}")
+    sd = module.state_dict()
+
+    def arrays(tree):
+        return _tree_from_leaves(
+            (path, np.array(_tree_value(sd[name], tr).cpu().numpy(),
+                            copy=True))
+            for path, (name, tr) in _tree_leaves(tree))
+    return {"params": arrays(plan[0]), "buffers": arrays(plan[1])}
+
+
+def jax_tree_to_state_dict(module: nn.Module, variables: Mapping
+                           ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``torch_to_jax_tree``: JAX's ``{"params",
+    "buffers"}`` of ``module`` as tensors keyed by the module's
+    state_dict names, for ``load_state_dict(..., strict=False)``."""
+    plan = torch_tree_plan(module)
+    if plan is None:
+        raise ValueError(f"JAX's torch_to_jax has no translation of "
+                         f"{type(module).__name__}")
+    out: Dict[str, torch.Tensor] = {}
+    for part, tree in zip(("params", "buffers"), plan):
+        given = dict(_tree_leaves(variables[part]))
+        for path, (name, tr) in _tree_leaves(tree):
+            if path in given:
+                t = torch.as_tensor(np.ascontiguousarray(given[path]))
+                out[name] = _tree_value(t, tr).contiguous()
+    return out
+
+
+def _foreign(module: nn.Module) -> bool:
+    """A module the JAX package would take through ``from_torch``: none
+    of its classes is the port's own (a port module mirrors a flax module
+    and keeps flax's names), save the torch twins of
+    ``models/migration*.py``."""
+    for m in module.modules():
+        name = type(m).__module__
+        if getattr(type(m), "_zoo_stands_for", None) is not None:
+            continue
+        if name.startswith("analytics_zoo_tpu_torch") and \
+                not name.startswith("analytics_zoo_tpu_torch.models."
+                                    "migration"):
+            return False
+    return True
+
+
+def _covering_tree_plan(module: nn.Module):
+    """``torch_tree_plan`` where it names every parameter exactly once,
+    else None."""
+    plan = torch_tree_plan(module)
+    if plan is None:
+        return None
+    names = [name for _, (name, _) in _tree_leaves(plan[0])]
+    if sorted(names) != sorted(n for n, _ in module.named_parameters()):
+        return None
+    return plan
+
+
 def buffer_paths(module: nn.Module) -> Dict[str, tuple]:
     """``{buffer name: its path in the model_state tree}``: a
     BatchNorm's ``mean`` / ``var`` under ``batch_stats`` at the module's
@@ -270,35 +572,77 @@ def buffer_paths(module: nn.Module) -> Dict[str, tuple]:
 
 
 class ParamLayout:
-    """How a module's parameters map onto a checkpoint's ``params`` tree:
-    flax's names and layouts where ``flax_layout`` knows the module, else
-    the torch names nested at the dots. ``to_tree`` takes tensors keyed
-    like the parameters (the parameters themselves, or optimizer state
-    shaped like them) and gives host arrays; ``from_tree`` inverts it."""
+    """How a module's parameters map onto a checkpoint's ``params`` tree,
+    as the JAX package names them:
+
+    - a module of the port by flax's names and layouts (``flax_layout``);
+    - a foreign module (``_foreign``: plain ``torch.nn`` building blocks,
+      as a user hands ``Estimator.from_torch``) that JAX's
+      ``torch_to_jax`` translates, by that translation's tree
+      (``torch_tree_plan``), its buffers in ``model_state`` likewise;
+    - anything else by the torch names nested at the dots.
+
+    ``kind`` says which (``"flax"``, ``"torch_tree"`` or ``"torch"``).
+    ``to_tree`` takes tensors keyed like the parameters (the parameters
+    themselves, or optimizer state shaped like them) and gives host
+    arrays; ``from_tree`` inverts it."""
 
     def __init__(self, module: nn.Module):
         self.names: List[str] = [n for n, _ in module.named_parameters()]
-        #: buffer name -> its path in the model_state tree
-        self.state_paths = buffer_paths(module)
-        like = flax_layout(module)
-        self.flax = like is not None
-        self.like = like if self.flax else nest({
+        plan = _covering_tree_plan(module) if _foreign(module) else None
+        like = None if plan is not None else flax_layout(module)
+        self.kind = "torch_tree" if plan is not None else \
+            "flax" if like is not None else "torch"
+        self.flax = self.kind == "flax"
+        if self.kind == "torch_tree":
+            self._leaves = dict(_tree_leaves(plan[0]))
+            #: buffer name -> its path in the model_state tree
+            self.state_paths = {name: path for path, (name, _) in
+                                _tree_leaves(plan[1])}
+            shapes = dict(module.named_parameters())
+            like = _tree_from_leaves(
+                (path, torch.empty(tuple(_tree_value(
+                    shapes[name], tr).shape), dtype=shapes[name].dtype,
+                    device="meta"))
+                for path, (name, tr) in self._leaves.items())
+        else:
+            self.state_paths = buffer_paths(module)
+        self.like = like if like is not None else nest({
             n: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta")
             for n, p in module.named_parameters()})
+
+    def torch_name(self, path) -> str:
+        """The parameter name of the tree leaf at ``path`` (a sequence of
+        keys)."""
+        path = tuple(path)
+        if self.kind == "torch_tree":
+            return self._leaves[path][0]
+        if self.kind == "flax":
+            return ".".join(path[:-1] + (_LEAVES.get(path[-1], path[-1]),))
+        return ".".join(path)
 
     def to_tree(self, tensors: Mapping[str, torch.Tensor],
                 lead: tuple = ()) -> Dict:
         """``lead``: leading axes each tensor has in front of its
         parameter's shape (L-BFGS's memories); the layout applies past
         them."""
-        if self.flax:
+        if self.kind == "flax":
             return state_dict_to_flax(tensors, self.like, lead=lead)
+        if self.kind == "torch_tree":
+            return _tree_from_leaves(
+                (path, _tree_value(tensors[name], tr).cpu().contiguous())
+                for path, (name, tr) in self._leaves.items())
         return nest({n: tensors[n].detach().cpu() for n in self.names})
 
     def from_tree(self, tree: Mapping, lead: int = 0
                   ) -> Dict[str, torch.Tensor]:
-        if self.flax:
+        if self.kind == "flax":
             return flax_to_state_dict(tree, lead=lead)
+        if self.kind == "torch_tree":
+            given = dict(_tree_leaves(tree))
+            return {name: _tree_value(torch.as_tensor(
+                np.asarray(given[path])), tr).contiguous()
+                for path, (name, tr) in self._leaves.items()}
         return {n: torch.as_tensor(v) for n, v in flatten(tree).items()}
 
     def spec(self, lead: tuple = ()) -> Dict:
@@ -312,14 +656,17 @@ class ParamLayout:
 
     def state_tree(self, buffers: Mapping[str, torch.Tensor]) -> Dict:
         """The ``model_state`` tree of ``buffers`` (keyed like the
-        module's buffers; leaves as given, keys sorted)."""
-        return nest({".".join(self.state_paths[k]): v
-                     for k, v in buffers.items()})
+        module's buffers; leaves as given, keys sorted). A buffer outside
+        the JAX package's tree (a torch BatchNorm's
+        ``num_batches_tracked``) is left out."""
+        return _tree_from_leaves((self.state_paths[k], v)
+                                 for k, v in buffers.items()
+                                 if k in self.state_paths)
 
     def state_from_tree(self, tree: Mapping) -> Dict[str, torch.Tensor]:
         """The inverse of ``state_tree``: tensors keyed by buffer name."""
-        flat = flatten(tree)
-        return {k: torch.as_tensor(flat[".".join(path)])
+        flat = dict(_tree_leaves(tree))
+        return {k: torch.as_tensor(flat[tuple(path)])
                 for k, path in self.state_paths.items()}
 
 
@@ -330,10 +677,20 @@ def flax_paths(module: nn.Module) -> Dict[str, tuple]:
     '/'-joined path the JAX package's rules read, the leaf's flax shape,
     and the order of flax's dims in which the torch tensor is that leaf
     (a kernel's out dims, then its in dims; ``torch = flax.transpose(
-    order).reshape(torch shape)``). A module without a flax layout gives
-    its torch names joined by '/' with torch's shapes."""
+    order).reshape(torch shape)``). A foreign module JAX translates gives
+    the paths of that translation's tree (``ParamLayout``), any other
+    module without a flax layout its torch names joined by '/' with
+    torch's shapes."""
     out: Dict[str, tuple] = {}
-    if flax_layout(module) is None:
+    layout = ParamLayout(module)
+    if layout.kind == "torch_tree":
+        for path, (name, tr) in layout._leaves.items():
+            shape = tuple(_tree_value(module.get_parameter(name),
+                                      tr).shape)
+            order = (1, 0) if tr else tuple(range(len(shape)))
+            out[name] = ("/".join(path), shape, order)
+        return out
+    if layout.kind == "torch":
         for name, p in module.named_parameters():
             shape = tuple(p.shape)
             out[name] = (name.replace(".", "/"), shape,

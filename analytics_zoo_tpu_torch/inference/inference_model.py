@@ -8,8 +8,12 @@ in-flight predicts at ``concurrent_num``, the reference's backpressure.
 
 - ``load_zoo(model)`` / ``load(path)`` — a zoo keras model or ZooModel
   (``load`` reads a ``save_model`` directory written by either package)
-- ``load_torch(torch_module, sample_input)`` — any ``nn.Module`` of the port
-  (e.g. the BERT classifier of ``text/estimators.py``)
+- ``load_torch(torch_module, sample_input)`` — any ``nn.Module`` (the
+  BERT classifier of ``text/estimators.py``, or a foreign one, whose
+  ``nn.MultiheadAttention``s take the port's attention core where JAX's
+  translation would)
+- ``load_openvino(model_path, weight_path)`` — an OpenVINO IR, parsed and
+  run with torch (net/openvino_net.py)
 - ``load_checkpoint(path)`` — the parameters and the model state
   (``batch_stats``) of a training snapshot, written by either package's
   estimator (learn/checkpoint.py), into the loaded model
@@ -148,14 +152,39 @@ class InferenceModel:
         from analytics_zoo_tpu_torch.models.common import ZooModel
         return self.load_zoo(ZooModel.load_model(path))
 
+    def load_openvino(self, model_path: str, weight_path: str,
+                      batch_size: int = 0) -> "InferenceModel":
+        """Load an OpenVINO IR model (ref
+        pyzoo/zoo/pipeline/inference/inference_model.py:69 load_openvino
+        -> the native OpenVINO engine): the IR is parsed and run layer by
+        layer with torch on this model's device (net/openvino_net.py), so
+        the same published artifacts serve here. ``batch_size`` is taken
+        for the reference's API (batching is dynamic here)."""
+        from analytics_zoo_tpu_torch.net.openvino_net import IRModule
+        module = IRModule(model_path, weight_path).to(self.device).eval()
+        self._drop_sharding()
+        with self._lock:
+            self._module = module
+            self._n_inputs = module.n_inputs
+            self._sample_spec = None
+            self._ready_rungs = set()
+            self._qtree = self._act_ranges = None
+        return self
+
     def load_torch(self, torch_module: torch.nn.Module, sample_input
                    ) -> "InferenceModel":
-        """Load a PyTorch module of the port (ref doLoadPyTorch,
+        """Load a PyTorch module (ref doLoadPyTorch,
         InferenceModel.scala:249; the counterpart of the JAX package's
-        ``load_flax``). ``sample_input`` (an array or a tuple of arrays)
-        fixes how many inputs ``predict`` feeds the module. The module is
-        copied, so later changes to it do not reach this model."""
+        ``load_flax`` and ``load_torch``). ``sample_input`` (an array or a
+        tuple of arrays) fixes how many inputs ``predict`` feeds the
+        module. The module is copied, so later changes to it do not reach
+        this model; in the copy, each ``nn.MultiheadAttention`` of JAX's
+        domain runs the port's attention core where JAX's translation
+        would (``net.torch_net.swap_attention``: a foreign transformer
+        served here launches the flash kernel)."""
+        from analytics_zoo_tpu_torch.net.torch_net import swap_attention
         copy_ = copy.deepcopy(torch_module).to(self.device).eval()
+        swap_attention(copy_)
         self._drop_sharding()
         with self._lock:
             self._module = copy_

@@ -233,13 +233,6 @@ def _minimal_scale(s: torch.Tensor) -> torch.Tensor:
     return s.contiguous()
 
 
-def _flax_torch_name(path: List[str], flax: bool) -> str:
-    from analytics_zoo_tpu_torch.convert import _LEAVES
-    if not flax:
-        return ".".join(path)
-    return ".".join(path[:-1] + [_LEAVES[path[-1]]])
-
-
 def _walk(tree, path=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -282,13 +275,13 @@ def quantize_module(module: torch.nn.Module, min_elems: int = 1024):
         floats[name] = getattr(module.get_submodule(mod_name), attr)
     tree = layout.to_tree(floats)
     for path, _ in list(_walk(tree)):
-        name = _flax_torch_name(path, layout.flax)
+        name = layout.torch_name(path)
         if name in prior:
             _set_path(tree, path, prior[name])
     qtree = quantize_tree(tree, min_elems)
-    fresh = {_flax_torch_name(p, layout.flax): leaf
+    fresh = {layout.torch_name(p): leaf
              for p, leaf in _walk(qtree) if isinstance(leaf, QuantizedLeaf)
-             and _flax_torch_name(p, layout.flax) not in prior}
+             and layout.torch_name(p) not in prior}
     if fresh:
         # back to the torch layout through the layout's own map: q as
         # exact floats, the scales broadcast to the leaf, then narrowed

@@ -66,6 +66,57 @@ class Node:
         self.shape = shape  # without batch dim, may be None
         self.name = name
 
+    # ---- autograd-style operator sugar (ref
+    # pyzoo/zoo/pipeline/api/autograd.py Variable operators: +, -, *, / on
+    # symbolic tensors), as the JAX engine's: a number becomes a Constant
+    # node and the pair a Merge of the mode ----
+    def __add__(self, other):
+        return _sugar("add", self, _const(other, self))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return _sugar("sub", self, _const(other, self))
+
+    def __rsub__(self, other):
+        return _sugar("sub", _const(other, self), self)
+
+    def __mul__(self, other):
+        return _sugar("mul", self, _const(other, self))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return _sugar("div", self, _const(other, self))
+
+    def __rtruediv__(self, other):
+        return _sugar("div", _const(other, self), self)
+
+    def __neg__(self):
+        return self * -1.0
+
+
+def _const(v, like: Node) -> Node:
+    """``v`` as a node: a Node as it is, anything else a ``Constant``
+    placed on the device of ``like``'s tensor (its input)."""
+    if isinstance(v, Node):
+        return v
+    from analytics_zoo_tpu_torch.keras.layers import Constant
+    return Constant(v)([like])
+
+
+def _sugar(mode: str, a: Node, b: Node) -> Node:
+    """``merge_op(mode)`` of ``a`` and ``b``. A Constant has no inferred
+    shape, so the result takes the symbolic side's, which the constant
+    broadcasts against."""
+    from analytics_zoo_tpu_torch.keras.layers import Constant, merge_op
+    out = merge_op(mode)([a, b])
+    if out.shape is None:
+        known = [n.shape for n in (a, b)
+                 if not isinstance(n.layer, Constant)]
+        out.shape = known[0] if known else None
+    return out
+
 
 def Input(shape: Sequence[int], name: str = "") -> Node:
     """Symbolic input (shape excludes the batch dimension)."""

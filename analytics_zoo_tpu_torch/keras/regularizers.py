@@ -24,7 +24,9 @@ class Regularizer:
         w = w.float()
         total = 0.0
         if self.l1:
-            total += self.l1 * torch.sum(torch.abs(w))
+            # |w| with jnp.abs's derivative: +1 at w == 0 (torch.abs has
+            # 0 there, so a zero bias would not move as JAX's does)
+            total += self.l1 * torch.sum(torch.where(w >= 0, w, -w))
         if self.l2:
             total += self.l2 * torch.sum(torch.square(w))
         return total

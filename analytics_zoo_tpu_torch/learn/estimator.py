@@ -309,9 +309,12 @@ class Estimator:
         copy of the module on the CPU runs on it (in eval mode, without a
         gradient; ``ValueError`` if it does not). ``strategy`` and
         ``param_rules`` are JAX's (the module docstring's Strategies); a
-        module of the port is matched by flax's paths and shapes, any
-        other module by its torch parameter names joined by '/' and
-        torch's shapes."""
+        module of the port is matched by flax's paths and shapes, a
+        foreign module JAX's ``torch_to_jax`` translates by that
+        translation's paths (``layers.0/kernel``, ``attn/in_w``), any
+        other by its torch parameter names joined by '/' and torch's
+        shapes (``convert.ParamLayout``); checkpoints use the same
+        names."""
         if sample_input is not None:
             _probe(model, sample_input)
         return TorchEstimator(model, loss=loss, optimizer=optimizer,
@@ -1438,7 +1441,8 @@ class TorchEstimator:
             for n, p in named.items():
                 p.copy_(self._block(n, values[n]))
             for k, b in buffers.items():
-                b.copy_(saved[k])
+                if k in saved:      # JAX's tree may leave a buffer out
+                    b.copy_(saved[k])
 
         def untree(tree, lead=0):
             vals = layout.from_tree(tree, lead)

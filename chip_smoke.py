@@ -517,7 +517,7 @@ C20. cuDNN's noise (ROADMAP C20): init_orca_context now takes cuDNN's
              staging table, and on
              the NCCL group an NCF fit bitwise the fit before the group;
              (b) BERT-Base fine-tuning (BertConfig's defaults, 2 classes,
-             32 x 128, Adam(2e-5), dropout 0, 5 steps, fp32 and bf16)
+             32 x 128, Adam(2e-5), dropout 0, 2 steps, fp32 and bf16)
              under "dp", "fsdp" and "dp,tp2" (bert_tp_rules) over 2 ranks
              and "dp2,tp2" over 4, held to the one-rank fit on the same
              global batches (loss 1e-5 fp32 / 1e-2 bf16, every parameter
@@ -549,6 +549,33 @@ C20. cuDNN's noise (ROADMAP C20): init_orca_context now takes cuDNN's
              (of each one's largest element), the tokens a rank's experts
              took, and a "dp2,ep2" training step with ep_param_rules
              within 1e-5 of the one-rank step (phase_parallel)
+24. pipelines and sharded serving (ROADMAP A9's third part), ranks
+             sharing the card over gloo: the pipelined MLP and the LM at
+             BERT-Base's block widths (phase_pipeline_serving)
+25. the readers, autograd, keras2, nnframes, the GAN and the model
+             importers (ROADMAP A11's third part, A13), TF32 off: (a) 80
+             000 ratings in MovieLens-1M's id ranges written as TFRecords
+             (8 files), read back and fit by NCF (measure_ncf's batch,
+             10 steps), every loss bitwise the fit from the arrays, 2 B1
+             and 4 B1b launches a step; (b) the ratings through an
+             in-process stub of Elasticsearch's REST API (write_df, then
+             read_df by scroll), frames and dtypes equal, NCF predict of
+             the read rows bitwise, 2 B1 launches; (c) image parquet
+             (MNIST-shaped ndarrays and PNGs) read back bitwise, a
+             LeNet-5-sized fit from read_as_dataset; (d) a keras2 model
+             with a Lambda and the Node sugar, a CustomLoss of mean
+             absolute error against loss="mae" step by step; (e)
+             NNClassifier fit and transform (prediction = argmax of
+             predict), NNImageReader; (f) an MLP GAN at MNIST width,
+             minimax and lsgan, step 0 against plain autograd; (g) a
+             BERT-Base-wide nn.TransformerEncoder served through
+             Net.load_torch and InferenceModel.load_torch: 12 B3
+             launches a forward at use_flash=None after the shape's
+             verdict, within P25_ENCODER_ATOL of torch's own run; ResNet-
+             50's twin bitwise itself; (h) the twin written as ONNX and
+             as IR v10 by the phase's own writers, served by
+             Net.load_onnx and InferenceModel.load_openvino within
+             P25_IMPORT_RTOL of the module (phase_readers_importers)
 
 The autotuner: the run keeps its verdicts in a file of its own
 (build/chip_smoke_autotune/, ZOO_AUTOTUNE_CACHE), empty at the start and
@@ -795,8 +822,9 @@ JAX_CKPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # (c): the card against JAX's CPU predictions, fp32 sums in other orders
 # (the NCF parity tests' limit)
 CKPT_JAX_ATOL = 1e-5
-# (e): write and read repeated, the median kept
-CKPT_IO_REPS = 3
+# (e): write and read once each (3 times, the median kept, until phase 25
+# joined the run)
+CKPT_IO_REPS = 1
 # phase 12: the keras training surface and the zoo models. (a) is bench.py's
 # measure_widedeep_train (WND_DIMS, batch 1024, Adam, sparse CE, 2
 # classes; its data from numpy seed 4), its one batch tiled for the fit's
@@ -9664,10 +9692,11 @@ RECSYS_NCF = dict(user_count=RECSYS_USERS, item_count=RECSYS_ITEMS,
                   hidden_layers=(32, 16), include_mf=True, mf_embed=16)
 RECSYS_LR = 1e-3
 # MovieLens-1M's shape (users.dat's and movies.dat's ids in use),
-# synthetic and seeded; a quarter of ratings.dat's 1 000 209 rows since
-# phase 23 joined the run (its depth cut so the whole run stays near its
-# length before: 22(g) took 80-105 s of it at the full count)
-ML1M_ROWS, ML1M_USERS, ML1M_ITEMS = 1_000_209 // 4, 6040, 3706
+# synthetic and seeded; a sixteenth of ratings.dat's 1 000 209 rows since
+# phase 25 joined the run (a quarter since phase 23: each phase's depth
+# cut so the whole run stays near its length before; 22(g) took 80-105 s
+# at the full count, 45-76 s at a quarter)
+ML1M_ROWS, ML1M_USERS, ML1M_ITEMS = 1_000_209 // 16, 6040, 3706
 ML1M_NCF = dict(user_count=ML1M_USERS, item_count=ML1M_ITEMS, class_num=2,
                 user_embed=20, item_embed=20, hidden_layers=(40, 20, 10),
                 include_mf=True, mf_embed=20)
@@ -10457,7 +10486,7 @@ P23_TIMEOUT = 900
 # (b) BERT-Base fine-tuning, BASELINE.json's fifth configuration: 32 x
 # 128 tokens, Adam at BERT fine-tuning's rate, dropout 0, five steps (the
 # last four timed)
-P23_BERT_STEPS = 5
+P23_BERT_STEPS = 2          # 5 until phase 25 joined the run
 P23_BERT_LR = 2e-5
 P23_BERT = {2: ("dp", "fsdp", "dp,tp2"), 4: ("dp2,tp2",)}
 P23_PARAM_ATOL = 1e-5
@@ -10697,7 +10726,8 @@ def p23_rank(cfg):
     init_orca_context(cluster_mode="multihost", device=cfg["device"])
     # each rank's summaries under the phase's directory (removed after)
     estimator.DEFAULT_LOG_DIR = os.path.join(
-        P23_DIR, f"tb{torch.distributed.get_rank()}")
+        P23_DIR, f"tb{torch.distributed.get_world_size()}_"
+        f"{torch.distributed.get_rank()}")
     out = {}
     try:
         for part, fn in (("a", p23_collectives), ("b", p23_bert),
@@ -11234,6 +11264,37 @@ def phase_parallel(torch, np, kind, dev="cuda", sizes=None,
         shutil.rmtree(P23_DIR, ignore_errors=True)
 
 
+def launch_side_by_side(launch, fn, jobs, device, timeout):
+    """Launch the rank groups of ``jobs`` ({world: cfg}) at once, each on
+    a thread of its own: ``({world: the ranks' results}, {world:
+    seconds})``. A group's failure is raised once every group has ended.
+    The groups share the card (and its host's cores), so their ms are
+    rehearsal costs of ranks sharing one card (ROADMAP R18, R20); run in
+    turn they took half of phases 23 and 24."""
+    import threading
+    results, secs, errors = {}, {}, {}
+
+    def one(world, cfg):
+        t1 = time.perf_counter()
+        try:
+            results[world] = launch(fn, world, args=(cfg,), device=device,
+                                    backend="gloo", timeout=timeout)
+        except BaseException as e:      # raised below, after the others
+            errors[world] = e
+        secs[world] = time.perf_counter() - t1
+
+    threads = [threading.Thread(target=one, args=(w, c), name=f"ranks-{w}")
+               for w, c in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for world in jobs:
+        if world in errors:
+            raise errors[world]
+    return {w: results[w] for w in jobs}, secs
+
+
 def p23_groups(torch, np, kind, dev, sizes, parts, t0):
     """phase_parallel's body: the references, the groups, the report."""
     import threading
@@ -11243,7 +11304,7 @@ def p23_groups(torch, np, kind, dev, sizes, parts, t0):
     if dev == "cuda":
         torch.cuda.empty_cache()
     gloo_dev = "cuda:0" if dev == "cuda" else "cpu"
-    groups, nccl = {}, {}
+    nccl = {}
 
     def one_rank_nccl():
         t1 = time.perf_counter()
@@ -11255,32 +11316,35 @@ def p23_groups(torch, np, kind, dev, sizes, parts, t0):
             nccl["error"] = e
         nccl["seconds"] = time.perf_counter() - t1
 
-    # the one-rank NCCL group runs beside the group of 4 (its checks are
-    # bitwise within its own process; the group of 4's ms share the card
-    # with it for its first seconds)
+    # the one-rank NCCL group runs beside the gloo groups, which run side
+    # by side (its checks are bitwise within its own process; the groups'
+    # ms share the card)
     runner = threading.Thread(target=one_rank_nccl, name="p23-nccl")
-    for world in (2, 4):
-        cfg = dict(device=gloo_dev, parts=parts, sizes=sizes,
-                   bert=P23_BERT.get(world, ()), ncf=P23_NCF.get(world, ()),
-                   moe=P23_MOE_LAYOUTS.get(world, ()),
-                   moe_step=P23_MOE_STEP.get(world))
-        if world == 4 and dev == "cuda":
-            runner.start()
-        t1 = time.perf_counter()
-        groups[world] = launch(p23_rank, world, args=(cfg,),
-                               device=gloo_dev, backend="gloo",
-                               timeout=P23_TIMEOUT)
+    if dev == "cuda":
+        runner.start()
+    jobs = {world: dict(device=gloo_dev, parts=parts, sizes=sizes,
+                        bert=P23_BERT.get(world, ()),
+                        ncf=P23_NCF.get(world, ()),
+                        moe=P23_MOE_LAYOUTS.get(world, ()),
+                        moe_step=P23_MOE_STEP.get(world))
+            for world in (2, 4)}
+    try:
+        groups, secs = launch_side_by_side(launch, p23_rank, jobs, gloo_dev,
+                                           P23_TIMEOUT)
+    finally:
+        if dev == "cuda":
+            runner.join()
+    for world in groups:
         log(f"phase 23: the group of {world} ranks on {kind} over gloo: "
-            f"{time.perf_counter() - t1:.1f} s")
+            f"{secs[world]:.1f} s (beside the other group)")
     rep["groups"] = {str(w): r for w, r in groups.items()}
     if dev == "cuda":
-        runner.join()
         if "error" in nccl:
             raise nccl["error"]
         rep["nccl"] = nccl["rec"]
         log(f"phase 23(a) the one-rank NCCL group on {kind}: "
-            f"{rep['nccl']} ({nccl['seconds']:.1f} s, beside the group of "
-            "4)")
+            f"{rep['nccl']} ({nccl['seconds']:.1f} s, beside the gloo "
+            "groups)")
         if not (rep["nccl"]["bitwise"] and rep["nccl"]["all_reduce"]
                 and rep["nccl"]["backend"] == "nccl"):
             raise AssertionError(f"23(a) NCCL: {rep['nccl']}")
@@ -11479,7 +11543,8 @@ P24_MLP = dict(f_in=64, hidden=1024, out_dim=16, batch=256, micro=4)
 P24_MLP_LAYOUTS = {"pp4": 4, "dp2,pp2": 2}
 P24_LM = dict(vocab=30522, d_model=768, n_heads=12, d_ff=3072, seq_len=128,
               n_stages=4, n_microbatches=4, batch=32)
-P24_STEPS = 3                # timed steps after the first, each layout
+P24_STEPS = 1                # timed steps after the first, each layout
+                             # (3 until phase 25 joined the run)
 P24_LOSS_ATOL = 1e-5
 P24_GRAD_RTOL = 1e-5
 # (b) bench.py's measure_serving_sharded: 3 x Dense(256), in 16, out 8,
@@ -11520,19 +11585,17 @@ def phase_pipeline_serving(torch, np, kind, dev="cuda", sizes=None,
     globals().update(sizes or {})
     t0 = time.perf_counter()
     gloo_dev = "cuda:0" if dev == "cuda" else "cpu"
-    groups = {}
+    jobs = {}
+    for world, mine in ((4, "ab"), (2, "bcd")):
+        todo = "".join(p for p in mine if p in parts)
+        if todo:
+            jobs[world] = dict(device=gloo_dev, parts=todo, sizes=sizes)
     try:
-        for world, mine in ((4, "ab"), (2, "bcd")):
-            todo = "".join(p for p in mine if p in parts)
-            if not todo:
-                continue
-            cfg = dict(device=gloo_dev, parts=todo, sizes=sizes)
-            t1 = time.perf_counter()
-            groups[world] = launch(p24_rank, world, args=(cfg,),
-                                   device=gloo_dev, backend="gloo",
-                                   timeout=P24_TIMEOUT)
+        groups, secs = launch_side_by_side(launch, p24_rank, jobs, gloo_dev,
+                                           P24_TIMEOUT)
+        for world in groups:
             log(f"phase 24: the group of {world} ranks on {kind} over gloo:"
-                f" {time.perf_counter() - t1:.1f} s")
+                f" {secs[world]:.1f} s (beside the other group)")
     finally:
         shutil.rmtree(P24_DIR, ignore_errors=True)
     rep = {"groups": {str(w): r for w, r in groups.items()}}
@@ -11556,8 +11619,8 @@ def p24_rank(cfg):
     OrcaContext.default_matmul_precision = "float32"   # TF32 off
     init_orca_context(cluster_mode="multihost", device=cfg["device"])
     rank = torch.distributed.get_rank()
-    estimator.DEFAULT_LOG_DIR = os.path.join(P24_DIR, f"tb{rank}")
     world = torch.distributed.get_world_size()
+    estimator.DEFAULT_LOG_DIR = os.path.join(P24_DIR, f"tb{world}_{rank}")
     fns = {"a": p24_pipeline, "b": p24_serving, "c": p24_generate,
            "d": p24_tcmf}
     out = {}
@@ -12116,6 +12179,1129 @@ def p24_report(groups, kind):
     return launches
 
 
+P25_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase25")
+# (a), (b): 80 000 ratings in MovieLens-1M's id ranges, 8 TFRecord files,
+# bench.py's measure_ncf configuration (batch 8000, Adam(1e-3)), one
+# epoch of 10 steps, shuffle off; the stub's scroll pages of 1000
+P25_RATINGS = 80_000
+P25_FILES = 8
+P25_ES_BATCH = 1000
+# (c): MNIST-shaped images, a LeNet-5-sized keras model at batch 128
+P25_IMAGES = 8192
+P25_PNGS = 256
+P25_IMAGE_BATCH = 128
+# (d): keras2 Conv1D / Dense with a CustomLoss of mean absolute error
+# against loss="mae", 10 steps of 256; the two losses differ only in the
+# order of one mean's sum (a few fp32 ulps of losses of order 1)
+P25_K2 = dict(rows=2560, seq=16, feat=8, batch=256)
+P25_K2_ATOL = 1e-6
+# (e): NNClassifier over 16 384 rows of 64-wide features, 10 classes
+P25_NN = dict(rows=16384, width=64, classes=10, batch=256, epochs=2)
+# (f): an MLP GAN at MNIST width, batch 64, 20 steps of each loss; step 0
+# against the same step in plain autograd with optax's Adam written out
+# (p25_plain_adam; on the CPU the two read the same bits)
+P25_GAN = dict(noise=100, g=(256, 512), d=(512, 256), out=784, batch=64,
+               steps=20)
+P25_GAN_ATOL = 1e-5
+# (g): a BERT-Base-wide nn.TransformerEncoder (12 layers of d 768, 12
+# heads, FFN 3072, gelu, batch_first) at 32 x 512 fp32, TF32 off, held
+# against the same module run by torch itself through its own
+# nn.MultiheadAttention, and against that run in float64 on the card.
+# The flash kernel is held to its plain version within FLASH_ATOL (1e-5,
+# phase 3) at this attention shape; dev/estimate_torchnet_limits.py
+# (CPU, 12 layers at d 768, 2 x 128, seeds 0-2) puts an error of that
+# size, with a random sign, in every element of every layer's attention
+# output and reads how far the encoder's output moves: 6.44e-5 to
+# 7.43e-5 (a gain of at most 7.43 over FLASH_ATOL; fp32 alone reads
+# 1.5e-6 from float64 on the CPU). The limit is twice the gain's
+# reading, rounded up. Torch's own eval forward takes its fused fast
+# path (torch._transformer_encoder_layer_fwd), whose gelu read 1.05e-3
+# from float64 on an NVIDIA H100 80GB HBM3 at 700.00 W, where its unfused
+# path read 4.7e-6 (relu: both 4.0e-6): the fused run's distances are
+# printed beside, not held.
+P25_ENCODER = dict(d_model=768, nhead=12, dim_ff=3072, layers=12, batch=32,
+                   seq=512)
+P25_ENCODER_GAIN = 7.5
+P25_ENCODER_ATOL = 2 * P25_ENCODER_GAIN * FLASH_ATOL
+# (h): ResNet-50's torch twin, seeded, eval, 32 x 3 x 224 x 224, fp32 with
+# TF32 off. The ONNX and IR interpreters call cuDNN and cuBLAS as the
+# module does but may take other algorithms, so each output is held to
+# the module's relative to the largest logit: within twice P25_IMPORT_F64
+# (each fp32 route within P25_IMPORT_F64 of the float64 module, which the
+# card also checks). dev/estimate_torchnet_limits.py --resnet (CPU, 224
+# px, 2 images, seeds 0-1): the fp32 module 2.11e-7 to 2.45e-7 of the
+# largest logit from float64; P25_IMPORT_F64 leaves 20x that for cuDNN's
+# algorithms.
+P25_RESNET_BATCH = 32
+P25_IMPORT_F64 = 5e-6
+P25_IMPORT_RTOL = 2 * P25_IMPORT_F64
+
+
+def p25_ratings(np):
+    """(users, items, labels): the ratings of (a) and (b), seeded."""
+    rng = np.random.default_rng(SEED + 25)
+    u = rng.integers(1, NCF["user_count"] + 1, P25_RATINGS)
+    i = rng.integers(1, NCF["item_count"] + 1, P25_RATINGS)
+    y = rng.integers(0, NCF["class_num"], P25_RATINGS)
+    return u, i, y
+
+
+def p25_ncf_fit(torch, np, x, y, dev):
+    """bench.py's measure_ncf fit, one epoch without shuffling, from the
+    seeded weights; (per-step losses, host ms a step, each step's kernel
+    launches: the optimizer steps' alone, not the step profiler's counting
+    pass)."""
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.ops import _build
+    ncf = NeuralCF(**NCF)
+    seeded_weights(ncf.model.module, SEED)
+    ncf.compile(optimizer=Adam(1e-3), loss="sparse_categorical_crossentropy",
+                device=dev)
+    est = ncf.model._ensure_estimator(for_training=True)
+    step, per_step = est._train_step, []
+
+    def counted_step(bx, by):
+        before = _build.launch_counts()
+        out = step(bx, by)
+        per_step.append({n: c - before.get(n, 0) for n, c in
+                         _build.launch_counts().items()
+                         if c - before.get(n, 0)})
+        return out
+    est._train_step = counted_step
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ncf.fit(x, y, batch_size=BATCH, nb_epoch=1, shuffle=False)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = np.asarray(est.step_losses)
+    return losses, secs / len(losses) * 1e3, per_step
+
+
+def p25_tfrecord(torch, np, kind, dev, rep):
+    """25(a): ratings written with write_tfrecords into P25_FILES files,
+    read back through read_tfrecords_as_shards, NCF fit from them and from
+    the arrays: every step's loss bitwise; B1 2 and B1b 4 launches a
+    step."""
+    from analytics_zoo_tpu_torch.data import tfrecord
+    from analytics_zoo_tpu_torch.ops import _build
+    u, i, y = p25_ratings(np)
+    recs = [{"pair": np.asarray([a, b], np.int64),
+             "label": np.asarray([c], np.int64)} for a, b, c in zip(u, i, y)]
+    out = os.path.join(P25_DIR, "tfrecord")
+    per = P25_RATINGS // P25_FILES
+    t0 = time.perf_counter()
+    for f in range(P25_FILES):
+        tfrecord.write_tfrecords(os.path.join(out, f"part-{f:05d}.tfrecord"),
+                                 recs[f * per:(f + 1) * per])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = tfrecord.read_tfrecords_as_shards(out, num_shards=P25_FILES)
+    back = [r for s in shards.collect() for r in s]
+    read_s = time.perf_counter() - t0
+    x = np.stack([r["pair"] for r in back]).astype(np.float32)
+    lab = np.asarray([r["label"][0] for r in back], np.int32)
+    _build.reset_launch_counts()
+    losses, step_ms, per_step = p25_ncf_fit(torch, np, x, lab, dev)
+    counts = {}
+    for c in per_step:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    want, want_ms, _ = p25_ncf_fit(
+        torch, np, np.stack([u, i], 1).astype(np.float32),
+        y.astype(np.int32), dev)
+    steps = len(losses)
+    a = dict(records=len(back), write_records_per_s=P25_RATINGS / write_s,
+             parse_records_per_s=P25_RATINGS / read_s, write_s=write_s,
+             read_s=read_s, steps=steps, step_ms=step_ms,
+             arrays_step_ms=want_ms, losses=losses.tolist(),
+             bitwise=bool(np.array_equal(losses, want)), launches=counts,
+             launches_per_step=per_step,
+             bytes=sum(os.path.getsize(os.path.join(out, f))
+                       for f in os.listdir(out)))
+    rep["a"] = a
+    log(f"25(a) TFRecord -> NCF on {kind}: {P25_RATINGS} ratings written to "
+        f"{P25_FILES} files ({a['bytes']} bytes) at "
+        f"{a['write_records_per_s']:.1f} records/s, parsed at "
+        f"{a['parse_records_per_s']:.1f} records/s (pure-Python CRC32C and "
+        f"protobuf); NCF fit {steps} steps of {BATCH}: {step_ms:.3f} ms a "
+        f"step (the arrays' fit {want_ms:.3f}); every loss bitwise the "
+        f"arrays' fit: {a['bitwise']}; launches over its {len(per_step)} "
+        f"optimizer steps {counts}")
+    if len(back) != P25_RATINGS or not a["bitwise"] or \
+            not np.isfinite(losses).all() or steps != P25_RATINGS // BATCH \
+            or len(per_step) != steps:
+        raise AssertionError(f"25(a) {a}")
+    return x, lab
+
+
+class P25EsStub:
+    """An in-process stub of Elasticsearch's REST API on 127.0.0.1 (the
+    routes of the JAX package's tests/test_elastic_search.py: _bulk, a
+    _search that opens a scroll, _search/scroll, its DELETE)."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+        stub = self
+        self.store, self.scrolls, self.deleted, self.bulk_calls = {}, {}, \
+            [], 0
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _json(self, payload):
+                body = json.dumps(payload).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _body(self):
+                n = int(self.headers.get("Content-Length", 0))
+                return self.rfile.read(n).decode()
+
+            def do_DELETE(self):
+                stub.deleted.append(json.loads(self._body())["scroll_id"])
+                self._json({"succeeded": True})
+
+            def do_POST(self):
+                raw = self._body()
+                if self.path.endswith("/_bulk"):
+                    stub.bulk_calls += 1
+                    docs = stub.store.setdefault(self.path.split("/")[1], [])
+                    lines = [ln for ln in raw.splitlines() if ln.strip()]
+                    items = []
+                    for k in range(0, len(lines), 2):
+                        action = json.loads(lines[k])["index"]
+                        _id = action.get("_id", str(len(docs)))
+                        docs.append({"_id": _id,
+                                     "_source": json.loads(lines[k + 1])})
+                        items.append({"index": {"_id": _id, "status": 201}})
+                    self._json({"errors": False, "items": items})
+                elif "/_search/scroll" in self.path:
+                    sid = json.loads(raw)["scroll_id"]
+                    index, cursor, size = stub.scrolls[sid]
+                    page = stub.store.get(index, [])[cursor:cursor + size]
+                    stub.scrolls[sid] = (index, cursor + size, size)
+                    self._json({"_scroll_id": sid, "hits": {"hits": page}})
+                else:
+                    index = self.path.split("/")[1]
+                    size = int(json.loads(raw or "{}").get("size", 10))
+                    sid = f"scroll-{index}-{len(stub.scrolls)}"
+                    stub.scrolls[sid] = (index, size, size)
+                    self._json({"_scroll_id": sid, "hits": {
+                        "hits": stub.store.get(index, [])[:size]}})
+
+        self.server = HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="p25-es", daemon=True)
+        self.thread.start()
+        self.config = {"host": "127.0.0.1",
+                       "port": self.server.server_address[1]}
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def p25_elastic(torch, np, kind, dev, rep):
+    """25(b): the ratings through the stub (write_df, then read_df by
+    scroll): frames and dtypes equal; NCF predict on the read rows bitwise
+    predict on the originals, B1 2 launches a predict."""
+    import pandas as pd
+    from analytics_zoo_tpu_torch.data.elastic_search import EsTable
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.ops import _build
+    u, i, y = p25_ratings(np)
+    df = pd.DataFrame({"user": u, "item": i, "label": y})
+    stub = P25EsStub()
+    try:
+        t0 = time.perf_counter()
+        n = EsTable.write_df(stub.config, "ratings", df)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = EsTable.read_df(stub.config, "ratings",
+                              batch_size=P25_ES_BATCH).to_pandas()
+        read_s = time.perf_counter() - t0
+        released = list(stub.deleted)
+        bulk_calls = stub.bulk_calls
+    finally:
+        stub.close()
+    got = got.drop(columns="_id").reset_index(drop=True)
+    same = list(got.columns) == list(df.columns) and all(
+        got[c].dtype == df[c].dtype and np.array_equal(got[c], df[c])
+        for c in df.columns)
+    ncf = NeuralCF(**NCF)
+    seeded_weights(ncf.model.module, SEED)
+    im = InferenceModel(device=dev).load_zoo(ncf)
+    x_read = got[["user", "item"]].to_numpy().astype(np.float32)
+    x_orig = df[["user", "item"]].to_numpy().astype(np.float32)
+    want = im.predict(x_orig, batch_size=len(x_orig))
+    _build.reset_launch_counts()
+    pred = im.predict(x_read, batch_size=len(x_read))
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    b = dict(rows=len(got), written=n, write_s=write_s, read_s=read_s,
+             write_rows_per_s=n / write_s, read_rows_per_s=len(got) / read_s,
+             bulk_calls=bulk_calls, scrolls_released=len(released),
+             frames_equal=bool(same),
+             predict_bitwise=bool(np.array_equal(pred, want)),
+             launches=counts)
+    rep["b"] = b
+    log(f"25(b) Elasticsearch stub on 127.0.0.1 ({kind}): write_df of "
+        f"{n} rows in {bulk_calls} bulk requests at "
+        f"{b['write_rows_per_s']:.1f} rows/s; read_df by scroll of "
+        f"{P25_ES_BATCH} at {b['read_rows_per_s']:.1f} rows/s, the scroll "
+        f"released ({len(released)}); frames and dtypes equal: {same}; NCF "
+        f"predict of the {len(got)} read rows bitwise the originals': "
+        f"{b['predict_bitwise']}; launches {counts}")
+    if not (same and b["predict_bitwise"] and n == P25_RATINGS
+            and len(released) == 1):
+        raise AssertionError(f"25(b) {b}")
+
+
+def p25_lenet():
+    """A LeNet-5-sized keras model over uint8 28 x 28 images (scaled in an
+    autograd Lambda)."""
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    from analytics_zoo_tpu_torch.keras import autograd as A
+    from analytics_zoo_tpu_torch.keras import layers as kl
+    inp = Input(shape=(28, 28))
+    h = A.Lambda(lambda a: a.float().unsqueeze(-1) / 255.0,
+                 out_shape=(28, 28, 1))(inp)
+    h = kl.Conv2D(6, 5, 5, activation="tanh", border_mode="same",
+                  name="lenet_c1")(h)
+    h = kl.MaxPooling2D()(h)
+    h = kl.Conv2D(16, 5, 5, activation="tanh", name="lenet_c2")(h)
+    h = kl.Flatten()(kl.MaxPooling2D()(h))
+    h = kl.Dense(120, activation="tanh", name="lenet_f1")(h)
+    h = kl.Dense(84, activation="tanh", name="lenet_f2")(h)
+    out = kl.Dense(10, activation="softmax", name="lenet_out")(h)
+    m = Model(inp, out)
+    seeded_weights(m.module, SEED + 38)
+    return m
+
+
+def p25_parquet(torch, np, kind, dev, rep):
+    """25(c): write_ndarrays of MNIST-shaped images and write_from_directory
+    over seeded PNGs, both read back bitwise; read_as_dataset feeds one
+    epoch of a LeNet-5-sized keras model. Returns the PNG directory."""
+    from PIL import Image
+    from analytics_zoo_tpu_torch.data.image import (ParquetDataset,
+                                                    write_from_directory,
+                                                    write_ndarrays)
+    rng = np.random.default_rng(SEED + 26)
+    images = rng.integers(0, 256, (P25_IMAGES, 28, 28), dtype=np.uint8)
+    labels = rng.integers(0, 10, P25_IMAGES).astype(np.int64)
+    nd = os.path.join(P25_DIR, "ndarrays")
+    t0 = time.perf_counter()
+    write_ndarrays(images, labels, nd, block_size=1024)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = ParquetDataset.read_as_xshards(nd).collect()
+    read_s = time.perf_counter() - t0
+    nd_same = np.array_equal(np.concatenate([s["image"] for s in shards]),
+                             images) and np.array_equal(
+        np.concatenate([s["label"] for s in shards]), labels)
+    png_dir = os.path.join(P25_DIR, "pngs")
+    pngs = {}
+    for k in range(P25_PNGS):
+        cls = ("cat", "dog")[k % 2]
+        os.makedirs(os.path.join(png_dir, cls), exist_ok=True)
+        arr = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+        path = os.path.join(png_dir, cls, f"{k:04d}.png")
+        Image.fromarray(arr).save(path)
+        pngs[path] = (arr, k % 2)
+    pq = os.path.join(P25_DIR, "png_parquet")
+    write_from_directory(png_dir, {"cat": 0, "dog": 1}, pq, block_size=64)
+    t0 = time.perf_counter()
+    back = ParquetDataset.read_as_xshards(pq).collect()
+    png_read_s = time.perf_counter() - t0
+    got_imgs = np.concatenate([s["image"] for s in back])
+    got_labels = np.concatenate([s["label"] for s in back])
+    want = sorted((a.tobytes(), lab) for a, lab in pngs.values())
+    png_same = len(got_imgs) == P25_PNGS and sorted(
+        (a.tobytes(), int(lab)) for a, lab in zip(got_imgs, got_labels)) \
+        == want
+    ds = ParquetDataset.read_as_dataset(nd, "image", "label")
+    m = p25_lenet()
+    m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+              device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = m.estimator.fit(ds, epochs=1, batch_size=P25_IMAGE_BATCH)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = P25_IMAGES // P25_IMAGE_BATCH
+    c = dict(write_rows_per_s=P25_IMAGES / write_s,
+             read_rows_per_s=P25_IMAGES / read_s,
+             png_read_rows_per_s=P25_PNGS / png_read_s,
+             ndarrays_bitwise=bool(nd_same), pngs_bitwise=bool(png_same),
+             fit_steps=steps, fit_ms_per_step=fit_s / steps * 1e3,
+             epoch_loss=float(hist["loss"][0]))
+    rep["c"] = c
+    log(f"25(c) image parquet on {kind}: {P25_IMAGES} 28x28 uint8 images "
+        f"written at {c['write_rows_per_s']:.1f} rows/s, read at "
+        f"{c['read_rows_per_s']:.1f} rows/s, bitwise {nd_same}; "
+        f"{P25_PNGS} PNGs through write_from_directory read (decoded) at "
+        f"{c['png_read_rows_per_s']:.1f} rows/s, bitwise {png_same}; "
+        f"LeNet-5 one epoch from read_as_dataset, {steps} steps of "
+        f"{P25_IMAGE_BATCH}: {c['fit_ms_per_step']:.3f} ms a step, loss "
+        f"{c['epoch_loss']:.4f}")
+    if not (nd_same and png_same and np.isfinite(c["epoch_loss"])):
+        raise AssertionError(f"25(c) {c}")
+    return png_dir
+
+
+def p25_keras2_model(k2, A, seed_module):
+    """keras2 Conv1D -> Lambda -> Node sugar -> Flatten -> Dense."""
+    from analytics_zoo_tpu_torch.keras import Input, Model
+    inp = Input(shape=(P25_K2["seq"], P25_K2["feat"]))
+    h = k2.Conv1D(16, 3, padding="same", activation="relu",
+                  name="k2_conv")(inp)
+    h = A.Lambda(lambda a: a * 0.5)(h) + 0.1
+    h = k2.Flatten()(h)
+    h = k2.Dense(32, activation="tanh", name="k2_hidden")(h)
+    out = k2.Dense(1, name="k2_out")(1.0 - (-h) * 0.5)
+    m = Model(inp, out)
+    seeded_weights(m.module, seed_module)
+    return m
+
+
+def p25_autograd_keras2(torch, np, kind, dev, rep):
+    """25(d): a keras2 model with a Lambda and the Node sugar, compiled
+    with a CustomLoss of mean absolute error and with loss="mae" from the
+    same weights: each of 10 steps' losses within P25_K2_ATOL."""
+    from analytics_zoo_tpu_torch.keras import autograd as A
+    from analytics_zoo_tpu_torch.keras2 import layers as k2
+    from analytics_zoo_tpu_torch.learn.optimizers import Adam
+    rng = np.random.default_rng(SEED + 27)
+    x = rng.standard_normal((P25_K2["rows"], P25_K2["seq"], P25_K2["feat"]),
+                            dtype=np.float32)
+    y = x.mean((1, 2))[:, None].astype(np.float32)
+    losses = {}
+    for name, loss in (
+            ("custom", A.CustomLoss(lambda yt, yp: A.mean(A.abs(yt - yp),
+                                                          axis=1), (1,))),
+            ("mae", "mae")):
+        m = p25_keras2_model(k2, A, SEED + 28)
+        m.compile(optimizer=Adam(1e-3), loss=loss, device=dev)
+        m.fit(x, y, batch_size=P25_K2["batch"], nb_epoch=1, shuffle=False)
+        losses[name] = np.asarray(m.estimator.step_losses)
+    err = float(np.abs(losses["custom"] - losses["mae"]).max())
+    d = dict(steps=len(losses["mae"]), max_abs_err=err,
+             losses=losses["custom"].tolist())
+    rep["d"] = d
+    log(f"25(d) keras2 Conv1D/Dense with a Lambda and Node sugar on {kind}: "
+        f"CustomLoss (autograd MAE) against loss='mae', {d['steps']} steps "
+        f"of {P25_K2['batch']}: max |loss diff| {err:.3g} (limit "
+        f"{P25_K2_ATOL})")
+    if d["steps"] != P25_K2["rows"] // P25_K2["batch"] or err > P25_K2_ATOL \
+            or not np.isfinite(losses["custom"]).all():
+        raise AssertionError(f"25(d) {d}")
+
+
+def p25_nnframes(torch, np, kind, dev, rep, png_dir):
+    """25(e): NNClassifier over a DataFrame of 64-wide feature arrays, fit
+    then transform: the prediction column is the argmax of predict;
+    NNImageReader over (c)'s PNGs."""
+    import pandas as pd
+    from analytics_zoo_tpu_torch.keras import Sequential
+    from analytics_zoo_tpu_torch.keras import layers as kl
+    from analytics_zoo_tpu_torch.nnframes import NNClassifier, NNImageReader
+    rng = np.random.default_rng(SEED + 29)
+    n, w, k = P25_NN["rows"], P25_NN["width"], P25_NN["classes"]
+    x = rng.standard_normal((n, w), dtype=np.float32)
+    y = (x[:, :k].argmax(1)).astype(np.int64)
+    df = pd.DataFrame({"features": list(x), "label": y})
+    m = Sequential()
+    m.add(kl.Dense(128, input_shape=(w,), activation="relu", name="nn_h"))
+    m.add(kl.Dense(k, activation="softmax", name="nn_out"))
+    seeded_weights(m.module, SEED + 30)
+    clf = (NNClassifier(m, "sparse_categorical_crossentropy",
+                        optimizer="adam", device=dev)
+           .setBatchSize(P25_NN["batch"]).setMaxEpoch(P25_NN["epochs"]))
+    t0 = time.perf_counter()
+    model = clf.fit(df)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(df)
+    transform_s = time.perf_counter() - t0
+    probs = model.estimator.predict(x, batch_size=model.batch_size)
+    argmax_equal = bool(np.array_equal(out["prediction"].to_numpy(),
+                                       probs.argmax(-1).astype(np.float64)))
+    acc = float((out["prediction"].to_numpy() == y).mean())
+    imgs = NNImageReader.read_images(png_dir)
+    e = dict(fit_s=fit_s, transform_s=transform_s,
+             argmax_equal=argmax_equal, train_accuracy=acc,
+             images_read=len(imgs),
+             image_shape=list(imgs["image"][0].shape))
+    rep["e"] = e
+    log(f"25(e) NNClassifier on {kind}: {n} rows x {w}, {k} classes, "
+        f"{P25_NN['epochs']} epochs of {P25_NN['batch']} in {fit_s:.2f} s, "
+        f"transform {transform_s:.2f} s; prediction column = argmax of "
+        f"predict: {argmax_equal}; train accuracy {acc:.3f}; NNImageReader "
+        f"{len(imgs)} images of {e['image_shape']}")
+    if not argmax_equal or len(imgs) != P25_PNGS or \
+            e["image_shape"] != [32, 32, 3]:
+        raise AssertionError(f"25(e) {e}")
+
+
+def p25_gan_nets(torch):
+    from torch import nn
+    g = P25_GAN
+    gen = nn.Sequential(nn.Linear(g["noise"], g["g"][0]), nn.ReLU(),
+                        nn.Linear(g["g"][0], g["g"][1]), nn.ReLU(),
+                        nn.Linear(g["g"][1], g["out"]), nn.Tanh())
+
+    class Disc(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = nn.Sequential(
+                nn.Linear(g["out"], g["d"][0]), nn.LeakyReLU(0.2),
+                nn.Linear(g["d"][0], g["d"][1]), nn.LeakyReLU(0.2),
+                nn.Linear(g["d"][1], 1))
+
+        def forward(self, x):
+            return self.net(x)[:, 0]
+    disc = Disc()
+    seeded_weights(gen, SEED + 31)
+    seeded_weights(disc, SEED + 32)
+    return gen, disc
+
+
+def p25_plain_adam(torch, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
+    """optax's first Adam update from zero moments, tensor by tensor in
+    its order of rounding: Adam's first step is about lr x sign(g), so a
+    gradient near eps (1e-8) moves by up to the rate on another order of
+    rounding (torch.optim.Adam's reads up to 7e-5 from this one)."""
+    import numpy as np
+    c1 = float(1 - np.float32(b1) ** np.float32(1))
+    c2 = float(1 - np.float32(b2) ** np.float32(1))
+    with torch.no_grad():
+        for p in params:
+            g = p.grad
+            mu = torch.zeros_like(g) * b1 + g * (1 - b1)
+            nu = torch.zeros_like(g) * b2 + (g * g) * (1 - b2)
+            p.add_((mu / c1) / (torch.sqrt(nu / c2) + eps) * -lr)
+            p.grad = None
+
+
+def p25_plain_gan_step(torch, gen, disc, x, z, lsgan):
+    """One GAN step in plain autograd and optax's Adam, in the JAX
+    package's order: D on real and fake, then G through the updated D."""
+    import torch.nn.functional as F
+    with torch.no_grad():
+        fake = gen(z)
+    real_l, fake_l = disc(x), disc(fake)
+    if lsgan:
+        d_loss = (((real_l - 1) ** 2).mean() + (fake_l ** 2).mean()) / 2
+    else:
+        d_loss = -(F.logsigmoid(real_l).mean()
+                   + F.logsigmoid(-fake_l).mean())
+    d_loss.backward()
+    p25_plain_adam(torch, list(disc.parameters()))
+    for p in gen.parameters():
+        p.grad = None
+    fl = disc(gen(z))
+    g_loss = ((fl - 1) ** 2).mean() if lsgan else -F.logsigmoid(fl).mean()
+    g_loss.backward()
+    p25_plain_adam(torch, list(gen.parameters()))
+    return float(d_loss.detach()), float(g_loss.detach())
+
+
+def p25_gan(torch, np, kind, dev, rep):
+    """25(f): 20 steps each of minimax and lsgan at MNIST width with
+    finite losses, step 0 against the plain autograd step from the same z
+    and parameters, generate(64)."""
+    import copy
+    from analytics_zoo_tpu_torch.learn.gan import GANEstimator
+    g = P25_GAN
+    rng = np.random.default_rng(SEED + 33)
+    data = torch.from_numpy(rng.uniform(
+        -1, 1, (g["batch"] * g["steps"], g["out"])).astype(np.float32)).to(
+        dev)
+    f = {}
+    for loss in ("minimax", "lsgan"):
+        gen, disc = p25_gan_nets(torch)
+        gan = GANEstimator(gen, disc, noise_dim=g["noise"], loss=loss,
+                           seed=SEED, device=dev)
+        pgen, pdisc = copy.deepcopy(gan.generator), \
+            copy.deepcopy(gan.discriminator)
+        d_losses, g_losses = [], []
+        t0 = time.perf_counter()
+        for s in range(g["steps"]):
+            x = data[s * g["batch"]:(s + 1) * g["batch"]]
+            z = gan._draw(g["batch"], gan._noise)
+            if s == 0:
+                plain = p25_plain_gan_step(torch, pgen, pdisc, x, z,
+                                           loss == "lsgan")
+            d, gl = gan._step(x, z)
+            d_losses.append(float(d))
+            g_losses.append(float(gl))
+            if s == 0:
+                step0 = max(
+                    [abs(d_losses[0] - plain[0]), abs(g_losses[0] - plain[1])]
+                    + [float((p.detach() - q.detach()).abs().max())
+                       for p, q in zip(
+                        list(gan.generator.parameters())
+                        + list(gan.discriminator.parameters()),
+                        list(pgen.parameters()) + list(pdisc.parameters()))])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / g["steps"] * 1e3
+        out = gan.generate(64)
+        f[loss] = dict(d_losses=d_losses, g_losses=g_losses,
+                       step0_max_abs_err=step0, step_ms=step_ms,
+                       generate_shape=list(out.shape),
+                       finite=bool(np.isfinite(d_losses + g_losses).all()
+                                   and np.isfinite(out).all()))
+        log(f"25(f) GAN {loss} at MNIST width on {kind} (noise "
+            f"{g['noise']}, G {g['g']} -> {g['out']}, D {g['d']} -> 1, "
+            f"batch {g['batch']}): {g['steps']} steps, {step_ms:.3f} ms a "
+            f"step (host clock, the noise drawn on the card), last D/G "
+            f"loss {d_losses[-1]:.4f} / {g_losses[-1]:.4f}; step 0 against "
+            f"plain autograd and optax's Adam from the same z: "
+            f"{step0:.3g} (limit {P25_GAN_ATOL}); generate(64) "
+            f"{f[loss]['generate_shape']}")
+        if not f[loss]["finite"] or step0 > P25_GAN_ATOL or \
+                f[loss]["generate_shape"] != [64, g["out"]]:
+            raise AssertionError(f"25(f) {loss}: {f[loss]}")
+    rep["f"] = f
+
+
+def p25_encoder(torch):
+    from torch import nn
+    e = P25_ENCODER
+    torch.manual_seed(SEED + 34)
+    layer = nn.TransformerEncoderLayer(e["d_model"], e["nhead"], e["dim_ff"],
+                                       dropout=0.0, activation="gelu",
+                                       batch_first=True)
+    return nn.TransformerEncoder(layer, e["layers"],
+                                 enable_nested_tensor=False).eval()
+
+
+def p25_forward_ms(torch, fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def p25_torchnet(torch, np, kind, dev, rep, resnet):
+    """25(g): the BERT-Base-wide TransformerEncoder served through
+    Net.load_torch and InferenceModel.load_torch at use_flash=None after
+    the shape's verdict: 12 B3 launches a forward, the output within
+    P25_ENCODER_ATOL of torch's own run; ResNet-50's twin bitwise itself
+    through Net.load_torch."""
+    import copy
+    import shutil
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.net import Net
+    from analytics_zoo_tpu_torch.ops import _build, autotune
+    e = P25_ENCODER
+    d = e["d_model"] // e["nhead"]
+    g = {}
+    # the verdict in a file of the phase's own, removed after
+    prev_cache = os.environ.get("ZOO_AUTOTUNE_CACHE")
+    os.makedirs(AUTOTUNE_DIR, exist_ok=True)
+    os.environ["ZOO_AUTOTUNE_CACHE"] = os.path.join(AUTOTUNE_DIR,
+                                                    "autotune.json")
+    autotune.reset_tuner()
+    try:
+        with autotune_mode("sync"):
+            rec = autotune.tune_attention(e["batch"], e["seq"], e["nhead"], d,
+                                          dtype=torch.float32)
+        p22_check_record(rec, "25(g) verdict")
+        module = p25_encoder(torch).to(dev)
+        x = torch.from_numpy(np.random.default_rng(SEED + 35)
+                             .standard_normal((e["batch"], e["seq"],
+                                               e["d_model"]),
+                                              dtype=np.float32)).to(dev)
+        # torch's unfused path: a hook on each attention keeps the layer
+        # off its fused fast path (as net/torch_net.py's swap does)
+        unfused = copy.deepcopy(module)
+        for layer in unfused.layers:
+            layer.self_attn.register_forward_pre_hook(lambda *a: None)
+        with torch.inference_mode():
+            fused = module(x).float().cpu().numpy()
+            torch_ms = p25_forward_ms(torch, lambda: module(x))
+            want = unfused(x).float().cpu().numpy()
+            unfused_ms = p25_forward_ms(torch, lambda: unfused(x))
+            ref64 = unfused.double()(x.double()).cpu().numpy()
+        del unfused
+        xs = x.cpu().numpy()
+        with autotune_mode("sync"):
+            net = Net.load_torch(module, device=dev)
+            im = InferenceModel(device=dev).load_torch(module, xs[:2])
+            for name, run in (("net", lambda: net.predict(xs)),
+                              ("inference_model",
+                               lambda: im.predict(xs, batch_size=e["batch"]))):
+                _build.reset_launch_counts()
+                got = run()
+                per = _build.launch_counts().get("flash_attention_fwd", 0)
+                ms = p25_forward_ms(torch, run)
+                g[name] = dict(flash_launches_per_forward=per, ms=ms,
+                               max_abs_err=float(np.abs(got - want).max()),
+                               f64_err=float(np.abs(got - ref64).max()),
+                               fused_err=float(np.abs(got - fused).max()),
+                               finite=bool(np.isfinite(got).all()))
+        g.update(verdict=rec, torch_ms=torch_ms, unfused_ms=unfused_ms,
+                 swapped=net.swapped,
+                 unfused_f64_err=float(np.abs(want - ref64).max()),
+                 fused_f64_err=float(np.abs(fused - ref64).max()))
+    finally:
+        shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+        if prev_cache is None:
+            os.environ.pop("ZOO_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["ZOO_AUTOTUNE_CACHE"] = prev_cache
+        autotune.reset_tuner()
+    twin = Net.load_torch(resnet["module"], device=dev)
+    twin_out = twin.predict(resnet["x"])
+    g["resnet_twin_bitwise"] = bool(np.array_equal(twin_out,
+                                                   resnet["want"]))
+    g["resnet_twin_swapped"] = twin.swapped
+    rep["g"] = g
+    log(f"25(g) TorchNet on {kind}: nn.TransformerEncoder of {e['layers']} "
+        f"layers (d {e['d_model']}, {e['nhead']} heads, FFN {e['dim_ff']}, "
+        f"gelu) at {e['batch']} x {e['seq']} fp32, TF32 off; verdict "
+        f"{p22_verdict_line(rec)}; {net.swapped} attentions swapped")
+    for name, label in (("net", "Net.load_torch"),
+                        ("inference_model", "InferenceModel.load_torch")):
+        r = g[name]
+        log(f"25(g) {label}: {r['ms']:.3f} ms a forward, "
+            f"{r['flash_launches_per_forward']} B3 launches; "
+            f"{r['max_abs_err']:.3g} from torch's own unfused run, "
+            f"{r['f64_err']:.3g} from it in float64 (limit "
+            f"{P25_ENCODER_ATOL:.3g}: twice dev/estimate_torchnet_"
+            f"limits.py's reading for FLASH_ATOL); {r['fused_err']:.3g} "
+            f"from torch's fused fast path (not held)")
+    log(f"25(g) torch itself: fused fast path {torch_ms:.3f} ms a forward, "
+        f"{g['fused_f64_err']:.3g} from float64; unfused {unfused_ms:.3f} "
+        f"ms, {g['unfused_f64_err']:.3g} from float64; ResNet-50's twin "
+        f"through Net.load_torch bitwise itself: "
+        f"{g['resnet_twin_bitwise']} ({twin.swapped} swapped)")
+    for name in ("net", "inference_model"):
+        r = g[name]
+        if r["flash_launches_per_forward"] != e["layers"] or not r["finite"] \
+                or r["max_abs_err"] > P25_ENCODER_ATOL \
+                or r["f64_err"] > P25_ENCODER_ATOL:
+            raise AssertionError(f"25(g) {name}: {g}")
+    if not g["resnet_twin_bitwise"] or twin.swapped:
+        raise AssertionError(f"25(g) ResNet-50 twin: {g}")
+
+
+# ---- 25(h)'s writers: ResNet-50's twin as ONNX and as IR v10 ----------
+
+def p25_pb_varint(v: int) -> bytes:
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def p25_pb_len(field: int, payload: bytes) -> bytes:
+    return p25_pb_varint((field << 3) | 2) + p25_pb_varint(len(payload)) \
+        + payload
+
+
+def p25_pb_int(field: int, v: int) -> bytes:
+    return p25_pb_varint(field << 3) + p25_pb_varint(v)
+
+
+def p25_onnx_attr(name: str, value) -> bytes:
+    """An AttributeProto: INT (type 2), INTS (7) or FLOAT (1)."""
+    import struct
+    out = p25_pb_len(1, name.encode())
+    if isinstance(value, float):
+        return out + p25_pb_varint((3 << 3) | 5) + struct.pack("<f", value) \
+            + p25_pb_int(20, 1)
+    if isinstance(value, int):
+        return out + p25_pb_int(4, value) + p25_pb_int(20, 2)
+    for v in value:
+        out += p25_pb_int(8, int(v))
+    return out + p25_pb_int(20, 7)
+
+
+def p25_onnx_tensor(name: str, arr) -> bytes:
+    import numpy as np
+    code = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
+    out = b"".join(p25_pb_int(1, d) for d in arr.shape)
+    return out + p25_pb_int(2, code) + p25_pb_len(8, name.encode()) \
+        + p25_pb_len(9, np.ascontiguousarray(arr).tobytes())
+
+
+def p25_onnx_node(op, inputs, outputs, attrs=()) -> bytes:
+    out = b"".join(p25_pb_len(1, i.encode()) for i in inputs)
+    out += b"".join(p25_pb_len(2, o.encode()) for o in outputs)
+    out += p25_pb_len(4, op.encode())
+    return out + b"".join(p25_pb_len(5, p25_onnx_attr(k, v))
+                          for k, v in attrs)
+
+
+def p25_trace(torch, module):
+    """The twin's fx graph as (op, name, module or function, input names)
+    in order: every layer a Conv2d, BatchNorm2d, ReLU, MaxPool2d,
+    AdaptiveAvgPool2d(1) or Linear, the residual adds and the flatten."""
+    import operator
+    import torch.fx as fx
+    gm = fx.symbolic_trace(module)
+    mods = dict(gm.named_modules())
+    out = []
+    for n in gm.graph.nodes:
+        args = [a.name for a in n.args if isinstance(a, fx.Node)]
+        if n.op == "call_module":
+            out.append(("module", n.name, mods[n.target], args))
+        elif n.op == "call_function":
+            if n.target in (operator.add, torch.add):
+                out.append(("add", n.name, None, args))
+            elif n.target is torch.flatten:
+                out.append(("flatten", n.name, None, args))
+            else:
+                raise ValueError(f"25(h) writer: no rule for {n.target}")
+        elif n.op in ("placeholder", "output"):
+            out.append((n.op, n.name, None, args))
+        else:
+            raise ValueError(f"25(h) writer: no rule for {n.op}")
+    return out
+
+
+def p25_write_onnx(torch, np, module, path):
+    """ResNet-50's twin as an ONNX ModelProto (Conv, BatchNormalization,
+    Relu, MaxPool, Add, GlobalAveragePool, Flatten, Gemm)."""
+    from torch import nn
+    nodes, inits, inputs, output = [], [], [], None
+
+    def init(name, t):
+        inits.append(p25_onnx_tensor(name, t.detach().cpu().numpy()
+                                     .astype(np.float32)))
+        inputs.append(name)
+        return name
+
+    def pair(v):
+        return list(v) if isinstance(v, tuple) else [v, v]
+
+    for kind, name, mod, args in p25_trace(torch, module):
+        if kind == "placeholder":
+            inputs.insert(0, name)
+            continue
+        if kind == "output":
+            output = args[0]
+            continue
+        if kind == "add":
+            nodes.append(p25_onnx_node("Add", args, [name]))
+        elif kind == "flatten":
+            nodes.append(p25_onnx_node("Flatten", args, [name],
+                                       [("axis", 1)]))
+        elif isinstance(mod, nn.Conv2d):
+            ins = args + [init(f"{name}.w", mod.weight)]
+            if mod.bias is not None:
+                ins.append(init(f"{name}.b", mod.bias))
+            p = pair(mod.padding)
+            nodes.append(p25_onnx_node("Conv", ins, [name], [
+                ("kernel_shape", pair(mod.kernel_size)),
+                ("strides", pair(mod.stride)), ("pads", p + p)]))
+        elif isinstance(mod, nn.BatchNorm2d):
+            ins = args + [init(f"{name}.{k}", getattr(mod, a)) for k, a in (
+                ("scale", "weight"), ("bias", "bias"),
+                ("mean", "running_mean"), ("var", "running_var"))]
+            nodes.append(p25_onnx_node("BatchNormalization", ins, [name],
+                                       [("epsilon", float(mod.eps))]))
+        elif isinstance(mod, nn.ReLU):
+            nodes.append(p25_onnx_node("Relu", args, [name]))
+        elif isinstance(mod, nn.MaxPool2d):
+            p = pair(mod.padding)
+            nodes.append(p25_onnx_node("MaxPool", args, [name], [
+                ("kernel_shape", pair(mod.kernel_size)),
+                ("strides", pair(mod.stride)), ("pads", p + p)]))
+        elif isinstance(mod, nn.AdaptiveAvgPool2d):
+            nodes.append(p25_onnx_node("GlobalAveragePool", args, [name]))
+        elif isinstance(mod, nn.Linear):
+            ins = args + [init(f"{name}.w", mod.weight),
+                          init(f"{name}.b", mod.bias)]
+            nodes.append(p25_onnx_node("Gemm", ins, [name],
+                                       [("transB", 1)]))
+        else:
+            raise ValueError(f"25(h) ONNX writer: {type(mod).__name__}")
+    graph = b"".join(p25_pb_len(1, n) for n in nodes)
+    graph += p25_pb_len(2, b"resnet50")
+    graph += b"".join(p25_pb_len(5, t) for t in inits)
+    graph += b"".join(p25_pb_len(11, p25_pb_len(1, i.encode()))
+                      for i in inputs)
+    graph += p25_pb_len(12, p25_pb_len(1, output.encode()))
+    data = p25_pb_int(1, 8) + p25_pb_len(7, graph)
+    with open(path, "wb") as fh:
+        fh.write(data)
+    return len(nodes)
+
+
+def p25_write_ir(torch, np, module, in_shape, xml_path, bin_path):
+    """ResNet-50's twin as OpenVINO IR v10 (Parameter, Const,
+    Convolution, BatchNormInference (opset5), ReLU, MaxPool, Add,
+    ReduceMean, Reshape, MatMul, Result)."""
+    from torch import nn
+    layers, edges, blob = [], [], bytearray()
+    ids = {}
+
+    def layer(typ, n_in, attrs=None, version="opset1", extra=""):
+        lid = len(layers)
+        data = "" if not attrs else "<data " + " ".join(
+            f'{k}="{v}"' for k, v in attrs.items()) + "/>"
+        ins = "" if not n_in else "<input>" + "".join(
+            f'<port id="{p}"/>' for p in range(n_in)) + "</input>"
+        out = "" if typ == "Result" else \
+            f'<output><port id="{n_in}" precision="FP32"/></output>'
+        layers.append(f'<layer id="{lid}" name="l{lid}" type="{typ}" '
+                      f'version="{version}">{data}{ins}{out}</layer>')
+        return lid, n_in
+
+    def edge(src, dst, port):
+        edges.append(f'<edge from-layer="{src[0]}" from-port="{src[1]}" '
+                     f'to-layer="{dst[0]}" to-port="{port}"/>')
+
+    def const(arr):
+        arr = np.ascontiguousarray(arr)
+        off = len(blob)
+        blob.extend(arr.tobytes())
+        et = {np.dtype("float32"): "f32", np.dtype("int64"): "i64"}[
+            arr.dtype]
+        return layer("Const", 0, {"element_type": et, "offset": off,
+                                  "size": arr.nbytes,
+                                  "shape": ",".join(map(str, arr.shape))})
+
+    def op(typ, srcs, attrs=None, version="opset1"):
+        lid = layer(typ, len(srcs), attrs, version)
+        for port, s in enumerate(srcs):
+            edge(s, lid, port)
+        return lid
+
+    def t(x):
+        return x.detach().cpu().numpy().astype(np.float32)
+
+    def pair(v):
+        return tuple(v) if isinstance(v, tuple) else (v, v)
+
+    for kind, name, mod, args in p25_trace(torch, module):
+        src = [ids[a] for a in args]
+        if kind == "placeholder":
+            ids[name] = layer("Parameter", 0, {
+                "shape": ",".join(map(str, in_shape)), "element_type": "f32"})
+            continue
+        if kind == "output":
+            op("Result", src)
+            continue
+        if kind == "add":
+            ids[name] = op("Add", src)
+        elif kind == "flatten":
+            ids[name] = op("Reshape", src + [const(np.array([0, -1],
+                                                              np.int64))],
+                           {"special_zero": "true"})
+        elif isinstance(mod, nn.Conv2d):
+            p, s = pair(mod.padding), pair(mod.stride)
+            y = op("Convolution", src + [const(t(mod.weight))], {
+                "strides": f"{s[0]},{s[1]}", "dilations": "1,1",
+                "pads_begin": f"{p[0]},{p[1]}", "pads_end": f"{p[0]},{p[1]}",
+                "auto_pad": "explicit"})
+            if mod.bias is not None:
+                y = op("Add", [y, const(t(mod.bias).reshape(1, -1, 1, 1))])
+            ids[name] = y
+        elif isinstance(mod, nn.BatchNorm2d):
+            ids[name] = op("BatchNormInference", src + [
+                const(t(mod.weight)), const(t(mod.bias)),
+                const(t(mod.running_mean)), const(t(mod.running_var))],
+                {"epsilon": mod.eps}, version="opset5")
+        elif isinstance(mod, nn.ReLU):
+            ids[name] = op("ReLU", src)
+        elif isinstance(mod, nn.MaxPool2d):
+            k, s, p = pair(mod.kernel_size), pair(mod.stride), \
+                pair(mod.padding)
+            ids[name] = op("MaxPool", src, {
+                "kernel": f"{k[0]},{k[1]}", "strides": f"{s[0]},{s[1]}",
+                "pads_begin": f"{p[0]},{p[1]}", "pads_end": f"{p[0]},{p[1]}",
+                "rounding_type": "floor"})
+        elif isinstance(mod, nn.AdaptiveAvgPool2d):
+            ids[name] = op("ReduceMean", src + [const(np.array([2, 3],
+                                                               np.int64))],
+                           {"keep_dims": "true"})
+        elif isinstance(mod, nn.Linear):
+            y = op("MatMul", src + [const(t(mod.weight))],
+                   {"transpose_a": "false", "transpose_b": "true"})
+            ids[name] = op("Add", [y, const(t(mod.bias))])
+        else:
+            raise ValueError(f"25(h) IR writer: {type(mod).__name__}")
+    xml = ('<?xml version="1.0"?><net name="resnet50" version="10">'
+           "<layers>" + "".join(layers) + "</layers><edges>"
+           + "".join(edges) + "</edges></net>")
+    with open(xml_path, "w") as fh:
+        fh.write(xml)
+    with open(bin_path, "wb") as fh:
+        fh.write(bytes(blob))
+    return len(layers)
+
+
+def p25_resnet(torch, np, dev):
+    """ResNet-50's torch twin (1000 classes), seeded: the default
+    initialisation from a torch seed, the batch norms' running statistics
+    drawn from the numpy seed; eval; and its input batch."""
+    from analytics_zoo_tpu_torch.models.migration_image import \
+        make_torch_resnet50
+    torch.manual_seed(SEED + 36)
+    module = make_torch_resnet50()
+    rng = np.random.default_rng(SEED + 37)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 1.0, c).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy(rng.uniform(
+                    -0.1, 0.1, c).astype(np.float32)))
+                m.running_mean.copy_(torch.from_numpy(rng.uniform(
+                    -0.1, 0.1, c).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 1.5, c).astype(np.float32)))
+    module = module.eval().to(dev)
+    x = rng.standard_normal((P25_RESNET_BATCH, 3, 224, 224),
+                            dtype=np.float32)
+    with torch.inference_mode():
+        want = module(torch.from_numpy(x).to(dev)).float().cpu().numpy()
+    return {"module": module, "x": x, "want": want}
+
+
+def p25_importers(torch, np, kind, dev, rep, resnet):
+    """25(h): the twin written as ONNX and as IR by the writers above;
+    Net.load_onnx and InferenceModel.load_openvino predict the batch on
+    the card, each within P25_IMPORT_RTOL of the module (of its largest
+    logit), each within P25_IMPORT_F64 of the float64 module."""
+    import copy
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.net import Net
+    module, x, want = resnet["module"], resnet["x"], resnet["want"]
+    onnx_path = os.path.join(P25_DIR, "resnet50.onnx")
+    xml_path = os.path.join(P25_DIR, "resnet50.xml")
+    bin_path = os.path.join(P25_DIR, "resnet50.bin")
+    t0 = time.perf_counter()
+    n_onnx = p25_write_onnx(torch, np, module, onnx_path)
+    n_ir = p25_write_ir(torch, np, module, x.shape, xml_path, bin_path)
+    write_s = time.perf_counter() - t0
+    f64 = copy.deepcopy(module).double()
+    with torch.inference_mode():
+        ref64 = f64(torch.from_numpy(x).double().to(dev)).cpu().numpy()
+    del f64
+    scale = float(np.abs(ref64).max())
+    onnx = Net.load_onnx(onnx_path, device=dev)
+    im = InferenceModel(device=dev).load_openvino(xml_path, bin_path,
+                                                  batch_size=len(x))
+    xd = torch.from_numpy(x).to(dev)
+    with torch.inference_mode():
+        module_ms = p25_forward_ms(torch, lambda: module(xd))
+    h = dict(onnx_nodes=n_onnx, ir_layers=n_ir, write_s=write_s,
+             module_ms=module_ms, scale=scale,
+             module_f64_rel=float(np.abs(want - ref64).max()) / scale,
+             onnx_bytes=os.path.getsize(onnx_path),
+             ir_bytes=os.path.getsize(bin_path))
+    for name, run in (("onnx", lambda: onnx.predict(x)),
+                      ("openvino", lambda: im.predict(x,
+                                                      batch_size=len(x)))):
+        got = run()
+        h[name] = dict(ms=p25_forward_ms(torch, run),
+                       rel_err=float(np.abs(got - want).max()) / scale,
+                       f64_rel=float(np.abs(got - ref64).max()) / scale,
+                       finite=bool(np.isfinite(got).all()))
+    rep["h"] = h
+    log(f"25(h) ResNet-50's twin as ONNX ({n_onnx} nodes, {h['onnx_bytes']} "
+        f"bytes) and IR v10 ({n_ir} layers, {h['ir_bytes']} bytes), written "
+        f"in {write_s:.2f} s; predict {P25_RESNET_BATCH} x 3 x 224 x 224 "
+        f"fp32 on {kind} (TF32 off): the module {module_ms:.3f} ms, "
+        f"Net.load_onnx {h['onnx']['ms']:.3f} ms ({h['onnx']['rel_err']:.3g} "
+        f"of the largest logit from the module, {h['onnx']['f64_rel']:.3g} "
+        f"from float64), InferenceModel.load_openvino "
+        f"{h['openvino']['ms']:.3f} ms ({h['openvino']['rel_err']:.3g}, "
+        f"{h['openvino']['f64_rel']:.3g}); the module "
+        f"{h['module_f64_rel']:.3g} from float64 (limits "
+        f"{P25_IMPORT_RTOL:.3g} from the module, {P25_IMPORT_F64:.3g} from "
+        f"float64)")
+    for name in ("onnx", "openvino"):
+        r = h[name]
+        if not r["finite"] or r["rel_err"] > P25_IMPORT_RTOL or \
+                r["f64_rel"] > P25_IMPORT_F64:
+            raise AssertionError(f"25(h) {name}: {h}")
+    if h["module_f64_rel"] > P25_IMPORT_F64:
+        raise AssertionError(f"25(h) the module: {h}")
+
+
+def phase_readers_importers(torch, np, kind, dev="cuda", sizes=None,
+                            parts="abcdefgh"):
+    """Phase 25: the readers feeding fits (a) TFRecord, (b) Elasticsearch,
+    (c) image parquet; (d) autograd and keras2; (e) nnframes; (f) the GAN;
+    (g) TorchNet's attention on the flash kernel; (h) ONNX and OpenVINO
+    at ResNet-50. TF32 off; the files go under build/phase25/ and are
+    removed after. ``sizes``: module constants to cut (a rehearsal).
+    Each part's launches are counted from 0 just before it."""
+    import shutil
+    globals().update(sizes or {})
+    t0 = time.perf_counter()
+    rep = {}
+    shutil.rmtree(P25_DIR, ignore_errors=True)
+    os.makedirs(P25_DIR)
+    try:
+        with p17_tf32(torch, False):
+            if "a" in parts:
+                p19_part(rep, "a", lambda: p25_tfrecord(
+                    torch, np, kind, dev, rep), phase=25)
+            if "b" in parts:
+                p19_part(rep, "b", lambda: p25_elastic(
+                    torch, np, kind, dev, rep), phase=25)
+            png_dir = None
+            if "c" in parts:
+                png_dir = p19_part(rep, "c", lambda: p25_parquet(
+                    torch, np, kind, dev, rep), no_queue_b=True, phase=25)
+            if "d" in parts:
+                p19_part(rep, "d", lambda: p25_autograd_keras2(
+                    torch, np, kind, dev, rep), no_queue_b=True, phase=25)
+            if "e" in parts and png_dir is not None:
+                p19_part(rep, "e", lambda: p25_nnframes(
+                    torch, np, kind, dev, rep, png_dir), no_queue_b=True,
+                    phase=25)
+            if "f" in parts:
+                p19_part(rep, "f", lambda: p25_gan(
+                    torch, np, kind, dev, rep), no_queue_b=True, phase=25)
+            resnet = p25_resnet(torch, np, dev) if set("gh") & set(parts) \
+                else None
+            if "g" in parts:
+                p19_part(rep, "g", lambda: p25_torchnet(
+                    torch, np, kind, dev, rep, resnet), phase=25)
+            if "h" in parts:
+                p19_part(rep, "h", lambda: p25_importers(
+                    torch, np, kind, dev, rep, resnet), no_queue_b=True,
+                    phase=25)
+    finally:
+        shutil.rmtree(P25_DIR, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"phase 25: {rep['seconds']:.1f} s; launches by part: "
+        f"{rep['launches']}")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -12136,6 +13322,12 @@ def main() -> int:
 
     t_start = time.perf_counter()
     report = {}
+
+    def mark(phase):
+        """The run's seconds when ``phase`` ended (report["marks"])."""
+        at = time.perf_counter() - t_start
+        report.setdefault("marks", {})[phase] = at
+        log(f"elapsed: phase {phase} done at {at:.1f} s")
     # the run's verdicts go to a file of its own, empty at the start, so no
     # phase reads a verdict a former run left; the autotuner reads none in
     # phases 1-21 but where a phase asks (decode's paged="auto" in 9(f)
@@ -12186,6 +13378,7 @@ def main() -> int:
     bag_cases, scatter_cases = phase_bag(torch, eb)
     report["bag_cases"] = bag_cases
     report["scatter_cases"] = scatter_cases
+    mark("3")
 
     # 4. slice — the NCF path starts here
     ncf = NeuralCF(**NCF)
@@ -12263,6 +13456,7 @@ def main() -> int:
     if ncf_counts.get("fused_embedding_lookup", 0) <= 0:
         raise AssertionError(
             f"NCF path launched no lookup kernel: {ncf_counts}")
+    mark("5")
 
     # 6. BERT slice, 7. BERT serving — the BERT path
     _build.reset_launch_counts()
@@ -12275,6 +13469,7 @@ def main() -> int:
     if bert_counts.get("flash_attention_fwd", 0) <= 0:
         raise AssertionError(
             f"BERT path launched no flash attention kernel: {bert_counts}")
+    mark("7")
     # 8. BERT fine-tuning: (a) compares, (b) is the path
     torch.cuda.reset_peak_memory_stats()
     state = bert_classifier(None, use_flash=True).state_dict()
@@ -12287,6 +13482,7 @@ def main() -> int:
         if train_counts.get(name, 0) <= 0:
             raise AssertionError(f"the fine-tuning path launched no {name}:"
                                  f" {train_counts}")
+    mark("8")
     # 9. decode: (a)-(e) through InferenceModel and DecodeScheduler, (f)
     # through ClusterServing
     _build.reset_launch_counts()
@@ -12311,6 +13507,7 @@ def main() -> int:
     if decode_counts.get("paged_attention", 0) <= 0:
         raise AssertionError(f"the live pool launched no paged_attention: "
                              f"{decode_counts}")
+    mark("9")
     # 10. NCF training: (a) compares, (b)-(d) are the path
     x_tr, y_tr, hist_tr = ncf_train_data(np)
     report["ncf_train_step"] = {
@@ -12326,6 +13523,7 @@ def main() -> int:
         if ncf_train_counts.get(name, 0) <= 0:
             raise AssertionError(f"the NCF training path launched no "
                                  f"{name}: {ncf_train_counts}")
+    mark("10")
     # 11. checkpoints: every part is the path
     _build.reset_launch_counts()
     report["checkpoints"] = phase_checkpoints(
@@ -12337,6 +13535,7 @@ def main() -> int:
         if ckpt_counts.get(name, 0) <= 0:
             raise AssertionError(f"the checkpoint paths launched no {name}:"
                                  f" {ckpt_counts}")
+    mark("11")
     # 12. the zoo models: (a)'s kernel cases and one-step comparisons come
     # first, then the counts restart and the Wide&Deep path runs, then
     # (b)-(f)
@@ -12346,6 +13545,7 @@ def main() -> int:
         if zoo_counts.get(name, 0) <= 0:
             raise AssertionError(f"the zoo paths launched no {name}: "
                                  f"{zoo_counts}")
+    mark("12")
     # 13. Zouwu's TCN through init_orca_context, XShards under DISK_4 and
     # the streaming feed, the forecasters: no kernel of the port on its
     # path (cuDNN's convolutions, as JAX's TCN runs outside Pallas)
@@ -12356,6 +13556,7 @@ def main() -> int:
     tcn_counts = _build.launch_counts()
     log(f"phase 13: {report['tcn']['seconds']:.1f} s; the port's kernel "
         f"launches on the TCN path: {tcn_counts}")
+    mark("13")
     # 14. the estimator's loop modes at measure_ncf, the eight optimizers,
     # remat, the BERT task estimators and the profile window: each part
     # zeroes the counts before its paths
@@ -12367,6 +13568,7 @@ def main() -> int:
     a3_counts = report["a3"]["launches"]
     log(f"phase 14: {report['a3']['seconds']:.1f} s; launches by path: "
         f"{a3_counts}")
+    mark("14")
     # 15. Cluster Serving's scheduling and delivery: the native broker,
     # lanes, warm-up, deadlines, admission, leases, preemption and the
     # frontend; each part zeroes the counts before its paths
@@ -12376,6 +13578,7 @@ def main() -> int:
     a7_counts = report["a7"]["launches"]
     log(f"phase 15: {report['a7']['seconds']:.1f} s; launches by path: "
         f"{a7_counts}")
+    mark("15")
     # 16. the rest of Cluster Serving: int8 NCF and BERT-Base, the fits'
     # MFU, the quantized NCF served, /trace, the fleet from config.yaml
     # and a killed replica; each part zeroes the counts before its paths
@@ -12391,11 +13594,13 @@ def main() -> int:
         f"16 with the step profiler's sampled fences "
         f"{fences['profiled']['ms_per_step']:.3f}, without "
         f"{fences['no_fences']['ms_per_step']:.3f}")
+    mark("16")
     # 17. ResNet-50 (ROADMAP A15): training, correctness, predict and
     # int8, the profile; no kernel of queue B runs on it
     report["image"] = phase_image(torch, np, kind)
     log(f"phase 17: {report['image']['seconds']:.1f} s; launches by path: "
         f"{report['image']['launches']}")
+    mark("17")
     # 18. image classification from images to answers: the three new
     # architectures, the torchvision import, the ImageSet path, image
     # records served, int8 mobilenet-v2, a snapshot into InferenceModel;
@@ -12404,6 +13609,7 @@ def main() -> int:
         torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
     log(f"phase 18: {report['image_path']['seconds']:.1f} s; the port's "
         f"kernel launches on its paths: {report['image_path']['launches']}")
+    mark("18")
     # 19. text from words to answers: the TextSet path, TextClassifier
     # (cnn, lstm, gru) and KNRM, the twin's import served, a frozen GloVe
     # table, load_hf_bert into BERT-Base, the bf16 forecasters, NCF through
@@ -12411,12 +13617,14 @@ def main() -> int:
     report["text"] = phase_text(
         torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
     log(f"phase 19: {report['text']['seconds']:.1f} s")
+    mark("19")
     # 20. Zouwu's AutoTS: the grid and bayes searches, the population, the
     # thread pool, MTNet, TCMF at the electricity panel's width, the
     # anomaly detectors; the counts zeroed before each part, none of queue
     # B launched
     report["zouwu"] = phase_zouwu(torch, np, kind)
     log(f"phase 20: {report['zouwu']['seconds']:.1f} s")
+    mark("20")
     # 21. object detection: SSD300-VGG training and ObjectDetector at VOC
     # width, the fixture overfit, the runtime hooks, int8 recurrent cells
     # and the new layers, Arrow and encrypted records; the counts zeroed
@@ -12424,6 +13632,7 @@ def main() -> int:
     report["detection"] = phase_detection(
         torch, np, (Broker, ClusterServing, InputQueue, OutputQueue), kind)
     log(f"phase 21: {report['detection']['seconds']:.1f} s")
+    mark("21")
     # 22. the autotuner's verdicts and the routes that read them (BERT's
     # use_flash=None, measure_flash_attention, the kernels' verdicts, the
     # warm-up queue, decode's paged="auto"), Friesian into the NCF fit at
@@ -12431,12 +13640,14 @@ def main() -> int:
     # window; the counts zeroed before each part
     report["autotune_friesian"] = phase_autotune_friesian(torch, np, kind)
     log(f"phase 22: {report['autotune_friesian']['seconds']:.1f} s")
+    mark("22")
     shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
     # C20: the steps of phases 13, 17 and 21 with cuDNN's deterministic
     # algorithms (init_orca_context's default) and its defaults, in turns;
     # two AutoTS searches bitwise
     report["c20"] = c20_cost(torch, np, kind)
     log(f"C20: {report['c20']['seconds']:.1f} s")
+    mark("C20")
     # 23. the strategies across ranks: groups of 2 and 4 ranks sharing the
     # card over gloo, a one-rank NCCL group; each part of each rank zeroes
     # the counts before its path and reads them after
@@ -12458,6 +13669,7 @@ def main() -> int:
             if p23.get(path, {}).get(name, 0) <= 0:
                 raise AssertionError(f"phase 23's {path} path launched no "
                                      f"{name}: {p23}")
+    mark("23")
     torch.cuda.empty_cache()
     report["pipeline_serving"] = phase_pipeline_serving(torch, np, kind)
     p24 = report["pipeline_serving"]["launches"]
@@ -12466,6 +13678,31 @@ def main() -> int:
         if p24.get(path, {}).get(name, 0) <= 0:
             raise AssertionError(f"phase 24's sharded {path} path launched "
                                  f"no {name}: {p24}")
+    mark("24")
+    # 25. the readers feeding fits, autograd and keras2, nnframes, the
+    # GAN, TorchNet's attention on the flash kernel, ONNX and OpenVINO at
+    # ResNet-50; each path's counts zeroed just before it
+    torch.cuda.empty_cache()
+    report["readers_importers"] = phase_readers_importers(torch, np, kind)
+    r25 = report["readers_importers"]
+    steps25 = r25["a"]["steps"]
+    p25 = {"a_tfrecord_fit": r25["a"]["launches"],
+           "b_predict": r25["b"]["launches"],
+           "g_net_forward": {"flash_attention_fwd": r25["g"]["net"][
+               "flash_launches_per_forward"]},
+           "g_inference_model_forward": {"flash_attention_fwd": r25["g"][
+               "inference_model"]["flash_launches_per_forward"]}}
+    for path, name, want in (
+            ("a_tfrecord_fit", "fused_embedding_lookup", 2 * steps25),
+            ("a_tfrecord_fit", "embedding_scatter_add", 4 * steps25),
+            ("b_predict", "fused_embedding_lookup", 2),
+            ("g_net_forward", "flash_attention_fwd", 12),
+            ("g_inference_model_forward", "flash_attention_fwd", 12)):
+        if p25[path].get(name, 0) != want:
+            raise AssertionError(f"phase 25's {path} launched "
+                                 f"{p25[path].get(name, 0)} {name}, not "
+                                 f"{want}: {p25}")
+    mark("25")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -12481,7 +13718,8 @@ def main() -> int:
                           "autotune_friesian":
                               report["autotune_friesian"]["launches"],
                           "parallel": report["parallel"]["launches"],
-                          "pipeline_serving": p24}
+                          "pipeline_serving": p24,
+                          "readers_importers": p25}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -12667,6 +13905,14 @@ def main() -> int:
                if c.get(row["name"], 0)}
         if got:
             row["phase24_launches"] = got
+    # phase 25's paths: NCF fit from TFRecords (B1, B1b), NCF predict of
+    # the rows read from Elasticsearch (B1), a forward of the foreign
+    # TransformerEncoder through Net.load_torch and InferenceModel (B3)
+    for row in kernels["kernels"]:
+        got = {part: c.get(row["name"], 0) for part, c in p25.items()
+               if c.get(row["name"], 0)}
+        if got:
+            row["phase25_launches"] = got
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     # the card again, so that the output's tail names it beside the numbers

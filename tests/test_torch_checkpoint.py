@@ -51,6 +51,7 @@ the CPU.
 JAX is imported by fixtures only.
 """
 
+import copy
 import json
 import os
 
@@ -346,8 +347,12 @@ def test_flax_layout_names_the_jax_tree(jx):
     flat = jax.tree_util.tree_flatten_with_path
     assert [(str(p), tuple(v.shape)) for p, v in flat(like)[0]] == \
         [(str(p), tuple(np.shape(v))) for p, v in flat(jtree)[0]]
-    # modules outside the flax rules keep their torch names
+    # a foreign module takes JAX's torch_to_jax names where JAX
+    # translates it, else keeps its torch names
     layout = ParamLayout(nn.Sequential(nn.Conv1d(2, 3, 1)))
+    assert layout.kind == "torch_tree" and \
+        set(layout.like["0"]) == {"kernel", "bias"}
+    layout = ParamLayout(nn.Sequential(nn.Conv3d(2, 3, 1)))
     assert not layout.flax and set(layout.like["0"]) == {"weight", "bias"}
 
 
@@ -607,29 +612,41 @@ def _params(est):
 
 
 def test_module_outside_the_flax_rules_keeps_torch_names(tmp_path):
-    """``from_torch`` of a module with no flax layout: the JAX layout
-    with ``params`` nested by the torch names, and back."""
-    def make(seed):
-        torch.manual_seed(seed)
-        return Estimator.from_torch(
-            model=nn.Sequential(nn.Conv1d(2, 3, 1), nn.Flatten(),
-                                nn.Linear(12, 1)),
-            loss="mse", optimizer=topt.SGD(0.1, momentum=0.9),
-            device="cpu")
-    x = np.random.RandomState(3).randn(16, 2, 4).astype(np.float32)
-    y = x.sum((1, 2))[:, None]
-    a = make(0)
-    a.fit((x, y), epochs=1, batch_size=8)
-    a.save(str(tmp_path / "m"))
-    state = ckpt.msgpack_restore(_state_file(str(tmp_path / "m")))
-    assert sorted(state["params"]) == ["0", "2"]
-    assert sorted(state["params"]["0"]) == ["bias", "weight"]
-    assert sorted(state["opt_state"]["0"]["0"]["trace"]) == ["0", "2"]
-    b = make(1).load(str(tmp_path / "m"))
-    for p, q in zip(_params(a), _params(b)):
-        assert torch.equal(p, q)
-    np.testing.assert_array_equal(b.fit((x, y), batch_size=8)["loss"],
-                                  a.fit((x, y), batch_size=8)["loss"])
+    """``from_torch`` of a module with no flax layout: the JAX layout with
+    ``params`` named as JAX's ``torch_to_jax`` names a module it
+    translates (a Linear's ``kernel`` transposed, a convolution's as it
+    is), or nested by the torch names where JAX has no rule (a Conv3d);
+    and back."""
+    cases = ((nn.Conv1d(2, 3, 1), (16, 2, 4), {"bias", "kernel"}),
+             (nn.Conv3d(2, 3, 1), (16, 2, 4, 1, 1), {"bias", "weight"}))
+    for conv, shape, leaves in cases:
+        def make(seed):
+            torch.manual_seed(seed)
+            return Estimator.from_torch(
+                model=nn.Sequential(copy.deepcopy(conv), nn.Flatten(),
+                                    nn.Linear(12, 1)),
+                loss="mse", optimizer=topt.SGD(0.1, momentum=0.9),
+                device="cpu")
+        x = np.random.RandomState(3).randn(*shape).astype(np.float32)
+        y = x.reshape(16, -1).sum(1)[:, None]
+        a = make(0)
+        a.fit((x, y), epochs=1, batch_size=8)
+        path = str(tmp_path / type(conv).__name__)
+        a.save(path)
+        state = ckpt.msgpack_restore(_state_file(path))
+        assert sorted(state["params"]) == ["0", "2"]
+        assert set(state["params"]["0"]) == set(state["params"]["2"]) \
+            == leaves
+        assert sorted(state["opt_state"]["0"]["0"]["trace"]) == ["0", "2"]
+        if "kernel" in leaves:
+            np.testing.assert_array_equal(
+                state["params"]["2"]["kernel"],
+                a.model[2].weight.detach().numpy().T)
+        b = make(1).load(path)
+        for p, q in zip(_params(a), _params(b)):
+            assert torch.equal(p, q)
+        np.testing.assert_array_equal(b.fit((x, y), batch_size=8)["loss"],
+                                      a.fit((x, y), batch_size=8)["loss"])
 
 
 def test_checkpoint_resume(tmp_path):

@@ -86,7 +86,12 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.strategy", "parallel.collectives",
                 "parallel.launch", "parallel.tensor_parallel",
                 "ops.ring_attention", "ops.ulysses", "ops.moe",
-                "parallel.pipeline", "parallel.sharded_executable"):
+                "parallel.pipeline", "parallel.sharded_executable",
+                "common.protowire", "data.tfrecord", "data.elastic_search",
+                "data.image", "data.image.parquet_dataset",
+                "keras.autograd", "keras2", "keras2.layers", "nnframes",
+                "nnframes.nn_classifier", "learn.gan", "net", "net.net",
+                "net.torch_net", "net.onnx_net", "net.openvino_net"):
         assert f"analytics_zoo_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     # pandas is imported inside the functions that handle a DataFrame,
@@ -160,9 +165,20 @@ NEW_IN_SLICE_21 = ("ops/autotune.py", "data/native_store.py",
                    "friesian/feature/table.py")
 
 
-@pytest.mark.parametrize("rel", NEW_IN_SLICE_21)
+NEW_IN_SLICE_24 = ("common/protowire.py", "data/tfrecord.py",
+                   "data/elastic_search.py", "data/image/__init__.py",
+                   "data/image/parquet_dataset.py", "keras/autograd.py",
+                   "keras2/__init__.py", "keras2/layers.py",
+                   "nnframes/__init__.py", "nnframes/nn_classifier.py",
+                   "learn/gan.py", "net/__init__.py", "net/net.py",
+                   "net/torch_net.py", "net/onnx_net.py",
+                   "net/openvino_net.py")
+
+
+@pytest.mark.parametrize("rel", NEW_IN_SLICE_21 + NEW_IN_SLICE_24)
 def test_new_sources_name_nothing_of_the_jax_package(rel):
-    """The autotuner, the native store and Friesian are the port's own
+    """The autotuner, the native store, Friesian, the readers, autograd,
+    keras2, nnframes, the GAN and the model importers are the port's own
     copies: no source names a module of the JAX package."""
     text = (PKG / rel).read_text()
     assert "analytics_zoo_tpu." not in text

@@ -16,7 +16,10 @@ with JAX's ``sample_input`` (checked on a CPU copy) and ``param_rules``
 raising, naming the ranks: ``"pp"`` trains across ranks,
 ``tests/test_torch_pipeline.py``), ``InferenceModel.load_torch(
 torch_module=...)``, and JAX's keywords in ``Estimator.from_fn``,
-``InferenceModel.shard`` and the pipeline functions.
+``InferenceModel.shard`` and the pipeline functions; the
+importers' and the new estimators' ``device`` beside JAX's keywords, and
+``InferenceModel.load_openvino``. TorchNet, ONNXNet and OpenVINONet take
+no ``jit``: the port runs torch, with nothing to compile.
 """
 
 import importlib
@@ -57,6 +60,15 @@ EXCEPTIONS = {
     ("serving.broker", "build_native_broker"): (
         {"force"}, "unneeded: the binary's name carries its source's "
         "digest, so a changed source builds anew"),
+    ("net.torch_net", "TorchNet.__init__"): (
+        {"jit"}, "jax-only: the port runs the module itself, there is "
+        "no translation to jit"),
+    ("net.onnx_net", "ONNXNet.__init__"): (
+        {"jit"}, "jax-only: the graph runs op by op in torch, there is "
+        "nothing to jit"),
+    ("net.openvino_net", "OpenVINONet.__init__"): (
+        {"jit"}, "jax-only: the IR runs layer by layer in torch, there "
+        "is nothing to jit"),
 }
 
 
@@ -171,6 +183,22 @@ def test_each_exception_is_still_a_gap(gaps, key):
       "axis"}),
     ("parallel.sharded_executable", "ShardedExecutable.warm",
      {"spec", "rungs", "block", "cpu_also"}),
+    ("inference.inference_model", "InferenceModel.load_openvino",
+     {"model_path", "weight_path", "batch_size"}),
+    ("net.net", "Net.load_torch", {"module", "device"}),
+    ("net.net", "Net.load_onnx", {"path", "device"}),
+    ("net.net", "Net.load_openvino", {"model_path", "weight_path",
+                                      "device"}),
+    ("net.torch_net", "TorchNet", {"module", "device"}),
+    ("learn.gan", "GANEstimator",
+     {"generator", "discriminator", "noise_dim", "generator_optimizer",
+      "discriminator_optimizer", "loss", "seed", "device"}),
+    ("nnframes.nn_classifier", "NNEstimator",
+     {"model", "loss", "optimizer", "feature_preprocessing",
+      "label_preprocessing", "device"}),
+    ("keras.autograd", "batch_dot", {"x", "y", "axes"}),
+    ("data.image.parquet_dataset", "ParquetDataset.write",
+     {"path", "generator", "schema", "block_size", "write_mode"}),
 ])
 def test_c25_keywords_present(module, name, keywords):
     mod = importlib.import_module(f"analytics_zoo_tpu_torch.{module}")
