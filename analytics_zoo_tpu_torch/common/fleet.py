@@ -79,7 +79,7 @@ class ReplicaInfo:
 
     def age_s(self, now: Optional[float] = None) -> float:
         if now is None:
-            now = time.time()  # wallclock: ok
+            now = time.time()  # zoolint: disable=wallclock-hotpath
         return max(0.0, now - self.last_heartbeat)
 
     def stale(self, stale_s: Optional[float] = None,
@@ -161,7 +161,7 @@ class ReplicaRegistry:
         """(live, stale) split of :meth:`list`, and publish the
         ``zoo_fleet_replicas`` gauge pair while at it — every caller of
         the fleet view keeps the gauge current."""
-        now = time.time()  # wallclock: ok
+        now = time.time()  # zoolint: disable=wallclock-hotpath
         live, stale = [], []
         for r in self.list():
             (stale if r.stale(stale_s, now) else live).append(r)

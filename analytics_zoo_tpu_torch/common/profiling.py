@@ -403,7 +403,7 @@ def step_flop_counts(fn: Callable[[], Any]) -> Optional[Dict[str, int]]:
         finally:
             with _count_lock:
                 _counting.remove(total)
-        counts = {str(op): int(n) for op, n in
+        counts = {str(op): int(n) for op, n in  # zoolint: disable=hotpath-host-sync (host flop counts)
                   mode.get_flop_counts().get("Global", {}).items() if n}
         if total[0]:
             counts["counted"] = total[0]
@@ -709,7 +709,7 @@ class FlightRecorder:
                     self._seq += 1
                     seq = self._seq
                 import time
-                stamp = int(time.time())   # wallclock: ok (file name)
+                stamp = int(time.time())   # zoolint: disable=wallclock-hotpath (dump filename)
                 base = (self.dump_dir
                         or os.environ.get("ZOO_FLIGHT_RECORDER_DIR")
                         or DUMP_DIR)

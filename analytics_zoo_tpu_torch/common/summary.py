@@ -90,7 +90,7 @@ def _event(step: int, tag: Optional[str] = None,
     """An ``Event``: wall_time (field 1, double), step (2, int64),
     file_version (3, string) or summary (5): ``Summary.value`` (1) holding
     tag (1, string) and simple_value (2, float)."""
-    out = _pb_double(1, time.time())
+    out = _pb_double(1, time.time())  # zoolint: disable=wallclock-hotpath (event timestamp)
     out += _pb_int64(2, step)
     if file_version is not None:
         out += _pb_string(3, file_version.encode())
@@ -125,8 +125,8 @@ class SummaryWriter:
                  flush_every: int = FLUSH_EVERY):
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
-        fname = f"events.out.tfevents.{int(time.time())}." \
-            f"{socket.gethostname()}"
+        fname = (f"events.out.tfevents.{int(time.time())}."  # zoolint: disable=wallclock-hotpath
+                 f"{socket.gethostname()}")
         self._path = os.path.join(log_dir, fname)
         self._lock = threading.RLock()
         self._flush_bytes = int(flush_bytes)

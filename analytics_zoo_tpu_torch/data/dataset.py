@@ -52,6 +52,7 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common import telemetry
 from analytics_zoo_tpu_torch.data import shard as shard_lib
 from analytics_zoo_tpu_torch.data.shard import (HostXShards, XShards,
                                                 _flatten, _is_dataframe)
@@ -408,13 +409,19 @@ class StreamingShardedDataset(ShardedDataset):
             shard_lib.record_op("stream_window", time.perf_counter() - t0)
             return out
 
+        # window assembly runs on the shared data pool, up to
+        # prefetch_depth windows ahead of the device
+        depth = self.prefetch_depth
+        telemetry.get_registry().gauge(
+            "zoo_data_prefetch_depth",
+            "streaming-feed windows loading ahead of the device").set(depth)
         pool = shard_lib.get_data_pool()
         pending: deque = deque()
         nxt = 0
 
         def top_up():
             nonlocal nxt
-            while nxt < len(windows) and len(pending) < self.prefetch_depth:
+            while nxt < len(windows) and len(pending) < depth:
                 pending.append(pool.submit(load_window, windows[nxt]))
                 nxt += 1
 

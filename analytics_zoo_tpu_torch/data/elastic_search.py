@@ -123,7 +123,7 @@ class EsTable:
             for k in sorted(keys):
                 # dict-typed JSON cells: object traversal, not numeric rows —
                 # there is no vectorized form of nested-doc flattening
-                out[f"{col}.{k}"] = df[col].map(
+                out[f"{col}.{k}"] = df[col].map(  # zoolint: disable=rowwise-map-in-data-plane
                     lambda v, kk=k: v.get(kk) if isinstance(v, dict)
                     else None)
         return pd.DataFrame(out)

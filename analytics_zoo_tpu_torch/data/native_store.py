@@ -119,9 +119,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 class NativeBlobStore:
     """Raw byte-blob store over the native arena.
 
-    ``close()`` frees the handle, so callers keep one store per owning
-    thread or serialize ``close`` against gets in flight (the arena locks
-    its own state)."""
+    Not thread-safe: the arena locks its own state, but ``close()`` frees
+    the handle, so callers keep one store per owning thread or serialize
+    ``close`` against gets in flight."""
 
     def __init__(self, capacity_bytes: int, directory: str = None):
         self._lib = load_native_lib()

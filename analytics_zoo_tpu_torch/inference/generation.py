@@ -47,6 +47,13 @@ def _m_decode_steps():
         "per batch dispatch)")
 
 
+def _m_kv_rung():
+    return telemetry.get_registry().gauge(
+        "zoo_kv_cache_rung",
+        "Current seq-length rung of the bucketed decode/KV cache — climbs "
+        "power-of-two rungs as generation proceeds, never per-step shapes")
+
+
 def decode_steps() -> int:
     """Generated positions so far, over every decode loop and scheduler
     (``zoo_decode_steps_total``)."""
@@ -77,6 +84,7 @@ class BucketedKVCache:
         self._buf = np.zeros((int(batch), int(rung), self.dim), dtype)
         if start is not None:
             self.append(np.asarray(start, dtype))
+        _m_kv_rung().set(self.rung)
 
     @property
     def rung(self) -> int:
@@ -92,6 +100,7 @@ class BucketedKVCache:
                              self._buf.dtype)
             grown[:, :self.length, :] = self._buf
             self._buf = grown
+            _m_kv_rung().set(self.rung)
         self._buf[:, self.length, :] = vec
         self.length += 1
 

@@ -360,7 +360,7 @@ def save_checkpoint(ckpt_dir: str, state: Any, iteration: int, epoch: int,
             fh.write(part)
     with open(os.path.join(tmp, "meta.json"), "w") as fh:
         json.dump({"iteration": iteration, "epoch": epoch,
-                   "time": time.time()}, fh)
+                   "time": time.time()}, fh)  # zoolint: disable=wallclock-hotpath (metadata)
     if os.path.exists(path):
         shutil.rmtree(path)
     os.replace(tmp, path)

@@ -102,7 +102,7 @@ class InputQueue:
         # fallback
         sampled = self._tracer.should_sample()
         t_pc = time.perf_counter()
-        trace = {"id": uri, "t_pc": t_pc, "t_wall": time.time(),
+        trace = {"id": uri, "t_pc": t_pc, "t_wall": time.time(),  # zoolint: disable=wallclock-hotpath
                  "s": int(sampled)}
         if lane != schema.DEFAULT_PRIORITY:
             trace["p"] = lane

@@ -314,17 +314,7 @@ class ClusterServing:
         self.records_redelivered = 0
         self.lease_reclaims = 0
         self._tracer = telemetry.get_tracer()
-        self._register_metrics(telemetry.get_registry(), stream)
-        # --- the fleet: where peers scrape this replica (set by its
-        # frontend; port 0 = headless), its heartbeat and supervisor
-        self._advertise = ("127.0.0.1", 0)
-        self._started_wall = 0.0
-        self._heartbeater: Optional[fleet.Heartbeater] = None
-        self._replica_supervisor: Optional[fleet.ReplicaSupervisor] = None
-        #: the backend supervisor this engine started (a fault drill's)
-        self._supervisor: Optional[resilience.BackendSupervisor] = None
-
-    def _register_metrics(self, reg, stream: str):
+        reg = telemetry.get_registry()
         self._rec_counter = reg.counter(
             "zoo_serving_records_total",
             "Records with a flushed result", ("stream",)).labels(stream)
@@ -401,6 +391,14 @@ class ClusterServing:
         self._cost_pages_hist = {
             lane: cost_pages.labels(stream, lane, "generate")
             for lane in schema.PRIORITIES}
+        # --- the fleet: where peers scrape this replica (set by its
+        # frontend; port 0 = headless), its heartbeat and supervisor
+        self._advertise = ("127.0.0.1", 0)
+        self._started_wall = 0.0
+        self._heartbeater: Optional[fleet.Heartbeater] = None
+        self._replica_supervisor: Optional[fleet.ReplicaSupervisor] = None
+        #: the backend supervisor this engine started (a fault drill's)
+        self._supervisor: Optional[resilience.BackendSupervisor] = None
 
     # --------------------------------------------------- lane scheduling
     def _lane_order(self) -> str:
@@ -728,7 +726,7 @@ class ClusterServing:
         if wait is None:
             t_wall = meta.get("t_wall")
             if isinstance(t_wall, (int, float)):
-                wait = min(max(0.0, time.time() - float(t_wall)), 3600.0)
+                wait = min(max(0.0, time.time() - float(t_wall)), 3600.0)  # zoolint: disable=wallclock-hotpath
         if wait is None:
             return None
         self._wait_hist.observe(wait)
@@ -840,7 +838,10 @@ class ClusterServing:
                          else 0), block=False, **kw)
         if t is not None:
             compile_ahead.register_warmup_thread(t)
-            self._decode_warm_thread = t
+            # a re-kick from the serve loop publishes to wait_warm on
+            # another thread
+            with self._state_lock:
+                self._decode_warm_thread = t
 
     def wait_warm(self, timeout: Optional[float] = None
                   ) -> "ClusterServing":
@@ -850,7 +851,8 @@ class ClusterServing:
         fn = getattr(self.model, "wait_warm", None)
         if fn is not None:
             fn(timeout=timeout)
-        t = self._decode_warm_thread
+        with self._state_lock:
+            t = self._decode_warm_thread
         if t is not None:
             t.join(None if timeout is None
                    else max(0.0, timeout - (time.monotonic() - t0)))
@@ -1279,7 +1281,7 @@ class ClusterServing:
             started = self._started_wall
         # wall clock by design: heartbeat ages are compared across
         # processes and hosts (common/fleet.py)
-        now = time.time()  # wallclock: ok
+        now = time.time()  # zoolint: disable=wallclock-hotpath
         return fleet.ReplicaInfo(
             replica_id=self.replica_id, host=host, port=port,
             started_at=started, last_heartbeat=now,
@@ -1320,7 +1322,7 @@ class ClusterServing:
         # replica's lease sweep when a peer's entries are orphaned
         if self._heartbeater is None and fleet.heartbeat_interval_s() > 0:
             with self._state_lock:
-                self._started_wall = time.time()  # wallclock: ok
+                self._started_wall = time.time()  # zoolint: disable=wallclock-hotpath
             registry = fleet.ReplicaRegistry(self.broker_host,
                                              self.broker_port)
             self._heartbeater = fleet.Heartbeater(registry,

@@ -576,6 +576,12 @@ C20. cuDNN's noise (ROADMAP C20): init_orca_context now takes cuDNN's
              as IR v10 by the phase's own writers, served by
              Net.load_onnx and InferenceModel.load_openvino within
              P25_IMPORT_RTOL of the module (phase_readers_importers)
+  26. zoolint for the port, on the card's host (no JAX there): the CLI
+      over analytics_zoo_tpu_torch with dev/zoolint-torch-baseline.json
+      must exit 0, over tests/fixtures/zoolint_torch without a baseline
+      must exit 1 with every rule family tripped, and the analyser must
+      load no JAX and nothing of the JAX package; the counts and seconds
+      are printed (phase_zoolint)
 
 The autotuner: the run keeps its verdicts in a file of its own
 (build/chip_smoke_autotune/, ZOO_AUTOTUNE_CACHE), empty at the start and
@@ -646,8 +652,8 @@ verdict took the paged step, (f) and (g) B1 and B1b, (h) B1; phase 23,
 in each rank before each part: (b) B3-B5, (c) B1 and B1b, (d) and (e)
 B3-B5, summed over the ranks) and read right after it: every kernel of
 the path must have launched there.
-Phases 13's to 20's seconds and the whole run's are printed
-before the kernels line. The
+Phases 13's to 20's seconds, phase 26's and the whole run's are
+printed before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -896,6 +902,9 @@ TCN_STEP_PARAM_ATOL = 1e-5
 # 16 shards under DISK_4 (a window of 4 shards, 2560 rows)
 TCN_STREAM_ROWS, TCN_STREAM_SHARDS = 10_240, 16
 TCN_STREAM_TIER = "DISK_4"
+#: 13(d)'s feed depth: not the default of 1, so that C33's gauge reads
+#: this feed's own setting
+TCN_STREAM_PREFETCH = 3
 TCN_STREAM_EPOCHS = 2
 # (e): the CPU tests' small forecasters (tests/test_torch_zouwu.py)
 FC_ROWS, FC_LOOKBACK, FC_FEATURES, FC_BATCH, FC_EPOCHS = 96, 16, 3, 16, 2
@@ -2544,6 +2553,7 @@ def counted(torch, fn):
 def phase_decode(torch, np, pa, kind):
     """Phase 9 (a)-(e). Returns (the InferenceModel, its greedy
     generation, the inputs, the report)."""
+    from analytics_zoo_tpu_torch.common import telemetry
     from analytics_zoo_tpu_torch.common.compile_ahead import BucketLadder
     from analytics_zoo_tpu_torch.inference import (InferenceModel,
                                                    decode_scheduler,
@@ -2582,6 +2592,14 @@ def phase_decode(torch, np, pa, kind):
         timed_step, enc, start, steps, ladder=ladder, mode="greedy"))
     if not np.array_equal(greedy, im.generate(enc, start, steps)):
         raise AssertionError("generate differs from its own decode loop")
+    # C32: the cache publishes its live rung; after generate's loop the
+    # start token and `steps` positions sit on seq_ladder(steps + 1)
+    final_rung = generation.seq_ladder(steps + 1).rung_for(steps + 1)
+    rep["kv_cache_rung"] = telemetry.snapshot().get("zoo_kv_cache_rung")
+    if rep["kv_cache_rung"] != final_rung:
+        raise AssertionError(f"decode (a): zoo_kv_cache_rung reads "
+                             f"{rep['kv_cache_rung']}, the cache's final "
+                             f"rung is {final_rung}")
     raw = im.generate(enc, start, steps, mode="raw", ladder=ladder)
     raw_exact = generation.decode_loop(step, enc, start, steps, ladder=None,
                                        mode="raw")
@@ -2603,7 +2621,8 @@ def phase_decode(torch, np, pa, kind):
         f"{rep['a']['p50_step_ms']:.3f} / p99 {rep['a']['p99_step_ms']:.3f} "
         f"ms (host clock); raw over the rungs bitwise exact-length, max "
         f"|cuda - cpu| {rep['a']['raw_max_abs_diff_cpu']:.3g} (atol "
-        f"{DECODE_RAW_ATOL}); warm_decode {rep['warm_decode_s']:.2f} s")
+        f"{DECODE_RAW_ATOL}); warm_decode {rep['warm_decode_s']:.2f} s; "
+        f"zoo_kv_cache_rung {rep['kv_cache_rung']} after generate")
 
     # (b) streams through one scheduler, interleaved vs one at a time
     def run_streams(interleaved):
@@ -4080,6 +4099,7 @@ def tcn_stream_fit(torch, np, x, y, card):
     """(d): TCNForecaster.fit through the streaming feed under DISK_4,
     every row once an epoch, the residency bound; then shuffle=False
     against DRAM, bitwise."""
+    from analytics_zoo_tpu_torch.common import telemetry
     from analytics_zoo_tpu_torch.common.context import OrcaContext
     from analytics_zoo_tpu_torch.data import (StreamingShardedDataset,
                                               XShards, to_sharded_dataset)
@@ -4092,6 +4112,12 @@ def tcn_stream_fit(torch, np, x, y, card):
     ds = to_sharded_dataset(shards)
     if not isinstance(ds, StreamingShardedDataset):
         raise AssertionError(f"phase 13(d): {type(ds).__name__}")
+    ds.prefetch(TCN_STREAM_PREFETCH)
+    # C33: zeroed here, the gauge must read this feed's depth after the fit
+    telemetry.get_registry().gauge(
+        "zoo_data_prefetch_depth",
+        "streaming-feed windows loading ahead of the device").set(0)
+    gauge_before = telemetry.snapshot().get("zoo_data_prefetch_depth")
     seen = []
     feed = ds.iter_batches
 
@@ -4114,17 +4140,31 @@ def tcn_stream_fit(torch, np, x, y, card):
                for k in seen)
     bound = TCN_STREAM_ROWS // TCN_STREAM_SHARDS * math.ceil(
         TCN_STREAM_SHARDS / int(TCN_STREAM_TIER.split("_")[1])) + TCN_BATCH
+    # C33: the feed publishes its depth before its pool starts
+    depth_gauge = telemetry.snapshot().get("zoo_data_prefetch_depth")
     rep = dict(fit_step_ms=fit_ms, fit_steps=steps, loss=hist["loss"],
                epochs_seen=len(seen), every_row_once=once,
                peak_window_rows=ds.peak_window_rows, bound_rows=bound,
-               window_shards=ds.window_shards, spill_s=spill_s)
+               window_shards=ds.window_shards, spill_s=spill_s,
+               prefetch_depth=ds.prefetch_depth,
+               prefetch_depth_gauge_before=gauge_before,
+               prefetch_depth_gauge=depth_gauge)
     log(f"  TCN streaming fit on {card}: {TCN_STREAM_ROWS} windows in "
         f"{TCN_STREAM_SHARDS} shards under {TCN_STREAM_TIER} (spilled in "
         f"{spill_s:.3f} s), {TCN_STREAM_EPOCHS} epochs of "
         f"{steps // TCN_STREAM_EPOCHS} steps after a warm-up epoch: "
         f"{fit_ms:.3f} ms a step (host clock, the feed included); loss "
         f"{hist['loss']}; every row once an epoch {once} ({len(seen)} "
-        f"epochs); peak_window_rows {ds.peak_window_rows} (bound {bound})")
+        f"epochs); peak_window_rows {ds.peak_window_rows} (bound {bound}); "
+        f"zoo_data_prefetch_depth {gauge_before} before the fit, "
+        f"{depth_gauge} after (the feed's depth {ds.prefetch_depth})")
+    if gauge_before != 0 or depth_gauge != ds.prefetch_depth or \
+            ds.prefetch_depth != TCN_STREAM_PREFETCH:
+        raise AssertionError(f"phase 13(d): zoo_data_prefetch_depth reads "
+                             f"{gauge_before} before the fit and "
+                             f"{depth_gauge} after, the feed's depth is "
+                             f"{ds.prefetch_depth} (set "
+                             f"{TCN_STREAM_PREFETCH})")
     if not once or ds.peak_window_rows > bound or \
             not np.isfinite(hist["loss"]).all() or \
             not hist["loss"][-1] < hist["loss"][0]:
@@ -13302,6 +13342,94 @@ def phase_readers_importers(torch, np, kind, dev="cuda", sizes=None,
     return rep
 
 
+#: phase 26's seeded tree and the rule ids it must trip: every rule but
+#: metric-undeclared, whose doc rows are checked only on a scan of the
+#: whole package
+ZOOLINT_FIXTURE = os.path.join("tests", "fixtures", "zoolint_torch")
+ZOOLINT_FIXTURE_RULES = frozenset({
+    "wallclock-hotpath", "hotpath-host-sync", "jit-in-loop",
+    "jit-call-inline", "jit-static-unhashable",
+    "jit-compile-in-serve-loop", "engine-unlocked-write", "lock-order",
+    "cross-thread-unlocked-state", "lock-order-inversion",
+    "blocking-under-lock", "thread-leak", "metric-undocumented",
+    "envvar-undocumented", "rowwise-map-in-data-plane", "record-ack-leak",
+    "lock-release-path", "span-pairing", "tainted-host-sync",
+    "shape-dependent-branch-in-jit", "kv-page-leak"})
+#: phase 26's limit on each CLI run (seconds)
+ZOOLINT_TIMEOUT_S = 120
+
+
+def phase_zoolint(kind):
+    """Phase 26: the port's zoolint stands alone on the card's host. Three
+    processes side by side from the checkout's root: the CLI over the
+    port with its baseline (exit 0), the CLI over the seeded fixture with
+    no baseline (exit 1, every rule family tripped), and the analyser's
+    import (no JAX, nothing of the JAX package loaded)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = [sys.executable, "-m", "analytics_zoo_tpu_torch.analysis"]
+    probe = ("import sys, analytics_zoo_tpu_torch.analysis as a\n"
+             "a.all_rules()\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'analytics_zoo_tpu'))\n"
+             "print(bad)\n")
+    runs = {"tree": tool + ["--timing", "analytics_zoo_tpu_torch"],
+            "fixture": tool + ["--timing", "--no-baseline",
+                               "--format=json", ZOOLINT_FIXTURE],
+            "imports": [sys.executable, "-c", probe]}
+
+    def run(cmd):
+        t1 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=ZOOLINT_TIMEOUT_S)
+        return r.returncode, r.stdout, r.stderr, time.perf_counter() - t1
+
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+        futs = {k: pool.submit(run, cmd) for k, cmd in runs.items()}
+        done = {k: f.result() for k, f in futs.items()}
+    rep = {"seconds": time.perf_counter() - t0}
+    out = {}
+    for k, (rc, o, e, sec) in done.items():
+        out[k] = (rc, o, e)
+        rep[f"{k}_s"] = sec
+    rc, o, e = out["tree"]
+    rep["tree"] = dict(rc=rc, summary=o.strip().splitlines()[-1:],
+                       timing=e.strip().splitlines()[-1:])
+    log(f"phase 26 (a) zoolint over analytics_zoo_tpu_torch on the host of "
+        f"{kind}: exit {rc}; {' '.join(rep['tree']['summary'])}; "
+        f"{' '.join(rep['tree']['timing'])}")
+    if rc != 0:
+        raise AssertionError(f"phase 26 (a): zoolint exited {rc}:\n{o}\n{e}")
+    rc, o, e = out["fixture"]
+    if rc != 1:
+        raise AssertionError(f"phase 26 (b): zoolint over the seeded "
+                             f"fixture exited {rc}, not 1:\n{o[-2000:]}\n"
+                             f"{e[-2000:]}")
+    summary = json.loads(o)["summary"]
+    rep["fixture"] = dict(rc=rc, total=summary["total"],
+                          by_rule=summary["by_rule"],
+                          timing=e.strip().splitlines()[-1:])
+    missing = sorted(ZOOLINT_FIXTURE_RULES - set(summary["by_rule"]))
+    log(f"phase 26 (b) zoolint over {ZOOLINT_FIXTURE}: exit {rc}, "
+        f"{summary['total']} findings over {len(summary['by_rule'])} rules "
+        f"{summary['by_rule']}; {' '.join(rep['fixture']['timing'])}")
+    if missing:
+        raise AssertionError(f"phase 26 (b): the fixture tripped no "
+                             f"{missing}")
+    rc, o, e = out["imports"]
+    loaded = o.strip().splitlines()[-1:] if rc == 0 else None
+    rep["imports"] = dict(rc=rc, forbidden=loaded)
+    log(f"phase 26 (c) the analyser's import loads of JAX and the JAX "
+        f"package: {loaded}")
+    if loaded != ["[]"]:
+        raise AssertionError(f"phase 26 (c): exit {rc}, loaded {loaded}\n"
+                             f"{e[-2000:]}")
+    log(f"phase 26: {rep['seconds']:.1f} s (the three processes side by "
+        f"side; (a) {rep['tree_s']:.1f} s, (b) {rep['fixture_s']:.1f} s)")
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -13703,6 +13831,11 @@ def main() -> int:
                                  f"{p25[path].get(name, 0)} {name}, not "
                                  f"{want}: {p25}")
     mark("25")
+    # 26. zoolint for the port on the card's host: the tree clean with its
+    # baseline, the seeded fixture tripping every family, no JAX loaded by
+    # the analyser; no kernel on its path
+    report["zoolint"] = phase_zoolint(kind)
+    mark("26")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,

@@ -175,11 +175,24 @@ NEW_IN_SLICE_24 = ("common/protowire.py", "data/tfrecord.py",
                    "net/openvino_net.py")
 
 
-@pytest.mark.parametrize("rel", NEW_IN_SLICE_21 + NEW_IN_SLICE_24)
+NEW_IN_SLICE_25 = ("analysis/__init__.py", "analysis/__main__.py",
+                   "analysis/baseline.py", "analysis/cli.py",
+                   "analysis/core.py", "analysis/ownership.py",
+                   "analysis/report.py", "analysis/rules_catalog.py",
+                   "analysis/rules_compile.py",
+                   "analysis/rules_concurrency.py",
+                   "analysis/rules_dataplane.py",
+                   "analysis/rules_hotpath.py", "analysis/rules_jit.py",
+                   "analysis/rules_lifecycle.py", "analysis/rules_locks.py",
+                   "analysis/rules_ownership.py", "analysis/rules_taint.py")
+
+
+@pytest.mark.parametrize("rel", NEW_IN_SLICE_21 + NEW_IN_SLICE_24
+                         + NEW_IN_SLICE_25)
 def test_new_sources_name_nothing_of_the_jax_package(rel):
     """The autotuner, the native store, Friesian, the readers, autograd,
-    keras2, nnframes, the GAN and the model importers are the port's own
-    copies: no source names a module of the JAX package."""
+    keras2, nnframes, the GAN, the model importers and zoolint are the
+    port's own copies: no source names a module of the JAX package."""
     text = (PKG / rel).read_text()
     assert "analytics_zoo_tpu." not in text
 
