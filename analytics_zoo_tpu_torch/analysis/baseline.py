@@ -10,7 +10,8 @@ stripped, whitespace collapsed, plus an occurrence index for duplicates)
 file, and even re-wrapping the offending statement across lines, never
 invalidate the baseline, while any semantic edit to the statement itself
 retires the entry (the finding resurfaces and must be re-justified or
-fixed).
+fixed). Version-1 files (single raw-line fingerprints) are upgraded in
+place with ``--migrate-baseline``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,16 @@ def _read_lines(root: Optional[str], finding: Finding,
     return lines
 
 
+def _line_text(root: Optional[str], finding: Finding,
+               cache: Dict[str, List[str]]) -> str:
+    """Version-1 fingerprint text: the raw stripped source line."""
+    lines = _read_lines(root, finding, cache)
+    try:
+        return lines[finding.line - 1].strip()
+    except IndexError:
+        return ""
+
+
 def _strip_comment(line: str) -> str:
     """Drop a trailing ``#`` comment, respecting string literals (a naive
     quote-state scan — good enough for fingerprint normalization; an
@@ -72,7 +83,7 @@ def _strip_comment(line: str) -> str:
 
 def _stmt_text(root: Optional[str], finding: Finding,
                cache: Dict[str, List[str]]) -> str:
-    """Fingerprint text: the whole logical statement starting
+    """Version-2 fingerprint text: the whole logical statement starting
     at the finding's line — physical lines joined while brackets stay
     open or a backslash continuation is pending — with comments stripped
     and whitespace runs collapsed. Re-wrapping the statement over more or
@@ -116,7 +127,8 @@ def _stmt_text(root: Optional[str], finding: Finding,
     return " ".join(" ".join(parts).split())
 
 
-def fingerprints(findings: Iterable[Finding], root: Optional[str]
+def fingerprints(findings: Iterable[Finding], root: Optional[str],
+                 version: int = BASELINE_VERSION
                  ) -> List[Tuple[Finding, str]]:
     """Stable fingerprint per finding. Identical (rule, path, text)
     triples get an occurrence counter so N copies of the same offending
@@ -124,10 +136,11 @@ def fingerprints(findings: Iterable[Finding], root: Optional[str]
     # file cache scoped to this call: callers may edit sources between
     # fingerprint passes (the round-trip tests do)
     cache: Dict[str, List[str]] = {}
+    text_fn = _line_text if version == 1 else _stmt_text
     counts: Dict[str, int] = {}
     out = []
     for f in sorted(findings, key=lambda f: (f.path, f.line, f.col, f.rule)):
-        base = f"{f.rule}\x00{f.path}\x00{_stmt_text(root, f, cache)}"
+        base = f"{f.rule}\x00{f.path}\x00{text_fn(root, f, cache)}"
         n = counts.get(base, 0)
         counts[base] = n + 1
         digest = hashlib.sha256(
@@ -143,6 +156,11 @@ def load(path: str) -> Dict[str, dict]:
     with open(path, "r", encoding="utf-8") as fh:
         data = json.load(fh)
     version = data.get("version")
+    if version == 1:
+        raise ValueError(
+            f"baseline {path} uses the version-1 (raw line) fingerprint "
+            f"format — run `python -m analytics_zoo_tpu_torch.analysis "
+            f"--migrate-baseline` once to rewrite it")
     if version != BASELINE_VERSION:
         raise ValueError(
             f"baseline {path}: unsupported version {version!r}")
@@ -210,3 +228,44 @@ def apply(findings: List[Finding], baseline: Dict[str, dict],
             out.append(f)
     stale = [e for fp, e in baseline.items() if fp not in matched]
     return out, stale
+
+
+def migrate(path: str, findings: List[Finding],
+            root: Optional[str]) -> Optional[Tuple[int, List[dict]]]:
+    """One-shot version-1 → version-2 rewrite of the baseline at
+    ``path``. Each current finding is fingerprinted under BOTH schemes;
+    a v1 entry matched by its old fingerprint is rewritten with the new
+    one (justification, message, and line refreshed). Returns
+    ``(migrated_count, dropped_entries)`` — dropped entries matched no
+    current finding (already stale) and are removed — or ``None`` when
+    nothing was rewritten (missing file or already version 2)."""
+    if not os.path.isfile(path):
+        return None
+    with open(path, "r", encoding="utf-8") as fh:
+        data = json.load(fh)
+    version = data.get("version")
+    if version == BASELINE_VERSION:
+        return None
+    if version != 1:
+        raise ValueError(
+            f"baseline {path}: cannot migrate version {version!r}")
+    old = {e["fingerprint"]: e for e in data.get("entries", ())}
+    entries = []
+    matched = set()
+    pairs = zip(fingerprints(findings, root, version=1),
+                fingerprints(findings, root, version=2))
+    for (f, fp1), (_f, fp2) in pairs:
+        e = old.get(fp1)
+        if e is None:
+            continue
+        matched.add(fp1)
+        entries.append({"fingerprint": fp2, "rule": f.rule, "path": f.path,
+                        "line": f.line, "message": f.message,
+                        "justification": e.get("justification",
+                                               "TODO: justify or fix")})
+    dropped = [e for fp, e in old.items() if fp not in matched]
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump({"version": BASELINE_VERSION, "entries": entries},
+                  fh, indent=2, sort_keys=False)
+        fh.write("\n")
+    return len(entries), dropped

@@ -34,9 +34,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("paths", nargs="*", default=["analytics_zoo_tpu_torch"],
                    help="files/directories to scan "
                         "(default: analytics_zoo_tpu_torch)")
-    p.add_argument("--format", choices=("human", "json"),
+    p.add_argument("--format", choices=("human", "json", "github"),
                    default="human",
-                   help="human (default) or json (stable schema)")
+                   help="human (default), json (stable schema), or "
+                        "github (workflow-annotation lines)")
     p.add_argument("--rules", metavar="ID[,ID...]",
                    help="run only these rule ids")
     p.add_argument("--list-rules", action="store_true",
@@ -57,6 +58,9 @@ def _parser() -> argparse.ArgumentParser:
                         "no finding in this scan; --prune-baseline=fix "
                         "also deletes them from the file (exit 0 either "
                         "way)")
+    p.add_argument("--migrate-baseline", action="store_true",
+                   help="one-shot rewrite of a version-1 baseline to the "
+                        "line-drift-stable version-2 fingerprints")
     p.add_argument("--timing", action="store_true",
                    help="print scan wall time and CFG cache statistics "
                         "to stderr")
@@ -139,6 +143,22 @@ def _run(args) -> int:
         n = baseline_lib.save(baseline_path, findings, root)
         print(f"baseline written: {baseline_path} ({n} entries)")
         return 0
+    if args.migrate_baseline:
+        if baseline_path is None:
+            print("--migrate-baseline needs --baseline or a repo root",
+                  file=sys.stderr)
+            return 2
+        migrated = baseline_lib.migrate(baseline_path, findings, root)
+        if migrated is None:
+            print(f"baseline already version "
+                  f"{baseline_lib.BASELINE_VERSION}: {baseline_path}")
+        else:
+            n, dropped = migrated
+            print(f"baseline migrated: {baseline_path} ({n} entries)")
+            for e in dropped:
+                print(f"  dropped stale entry {e['fingerprint']} "
+                      f"({e['rule']} at {e['path']})")
+        return 0
     if args.prune_baseline:
         if baseline_path is None or not os.path.isfile(baseline_path):
             print("--prune-baseline: no baseline file to prune")
@@ -189,6 +209,8 @@ def _run(args) -> int:
 
     if args.format == "json":
         print(report.json_report(findings, stale, root))
+    elif args.format == "github":
+        print(report.github_report(findings, stale))
     else:
         print(report.human_report(findings, stale))
     return 1 if findings else 0

@@ -1,6 +1,7 @@
-"""zoolint reporters — human (one finding per line, grep/editor-friendly)
-and JSON (stable schema for CI tooling; schema changes bump
-``JSON_SCHEMA_VERSION`` and are asserted by tests/test_torch_zoolint.py)."""
+"""zoolint reporters — human (one finding per line, grep/editor-friendly),
+GitHub workflow annotations, and JSON (stable schema for CI tooling;
+schema changes bump ``JSON_SCHEMA_VERSION`` and are asserted by
+tests/test_torch_zoolint.py)."""
 
 from __future__ import annotations
 
@@ -27,6 +28,25 @@ def human_report(findings: List[Finding], stale: List[dict]) -> str:
         lines.append(f"zoolint: {len(findings)} finding(s) ({summary})")
     else:
         lines.append("zoolint: clean")
+    return "\n".join(lines)
+
+
+def github_report(findings: List[Finding], stale: List[dict]) -> str:
+    """GitHub Actions workflow-annotation lines — `--format=github` in
+    CI makes every finding a review annotation on the touched line."""
+    def esc(msg: str) -> str:
+        # the annotation grammar reserves %, \r, \n in the message part
+        return (msg.replace("%", "%25").replace("\r", "%0D")
+                   .replace("\n", "%0A"))
+
+    lines = [f"::error file={f.path},line={f.line},col={f.col + 1},"
+             f"title=zoolint {f.rule}::{esc(f.message)}"
+             for f in findings]
+    lines += [f"::warning file={e['path']},title=zoolint stale baseline::"
+              f"baseline entry {e['fingerprint']} ({e['rule']}) no longer "
+              f"matches - delete it" for e in stale]
+    if not lines:
+        lines.append("::notice title=zoolint::clean")
     return "\n".join(lines)
 
 

@@ -8,10 +8,15 @@ Pure same-file syntactic nesting is left to the per-file ``lock-order``
 rule (no double report).
 
 ``blocking-under-lock`` flags a blocking call (socket ops, ``join``,
-``time.sleep``, ``block_until_ready``/``device_get``, future
-``.result()``, event ``.wait()``, broker RPC) made while a *contended*
-lock is held — one that at least two thread roots acquire — because the
-block then stalls every thread queued on that lock, serve loop included.
+``time.sleep``, a device wait, future ``.result()``, event ``.wait()``,
+broker RPC) made while a *contended* lock is held — one that at least
+two thread roots acquire — because the block then stalls every thread
+queued on that lock, serve loop included. The device waits are PyTorch's
+(``torch.cuda.synchronize``, ``traced_device_get``, and the argument-less
+``.item()`` / ``.tolist()`` / ``.cpu()`` / ``.synchronize()`` that
+``rules_hotpath`` reads too, in a module that imports torch) and JAX's
+(``block_until_ready``, ``jax.device_get``), so the rule reads both
+packages' trees alike.
 """
 
 from __future__ import annotations
@@ -25,6 +30,16 @@ from analytics_zoo_tpu_torch.analysis.core import (
 
 _SOCKET_METHODS = frozenset({"recv", "recv_into", "accept", "sendall",
                              "connect"})
+#: argument-less methods that wait for the card or copy a tensor to the
+#: host (a tensor's ``.item()``, an event's ``.synchronize()``), read in
+#: a module that imports torch: elsewhere ``.item()`` / ``.tolist()`` are
+#: numpy's or pandas', on the host
+_DEVICE_WAIT_METHODS = frozenset({"item", "tolist", "cpu", "synchronize"})
+
+
+def _imports_torch(imports) -> bool:
+    return any(name == "torch" or name.startswith("torch.")
+               for name in imports.names.values())
 
 
 def _num_const(node) -> bool:
@@ -37,12 +52,17 @@ def _blocking_desc(call: ast.Call, fn, model) -> Optional[str]:
     d = fn.ctx.imports.resolve(call.func)
     if d == "time.sleep":
         return "time.sleep"
-    if d and (d.endswith(".block_until_ready") or d == "jax.device_get"):
-        return d.rsplit(".", 1)[-1]
+    if d and (d.endswith(".block_until_ready") or d == "jax.device_get"
+              or d == "torch.cuda.synchronize"
+              or d.rsplit(".", 1)[-1] == "traced_device_get"):
+        return d if d.startswith("torch.") else d.rsplit(".", 1)[-1]
     if not isinstance(call.func, ast.Attribute):
         return None
     attr = call.func.attr
     base = call.func.value
+    if attr in _DEVICE_WAIT_METHODS and not call.args \
+            and not call.keywords and _imports_torch(fn.ctx.imports):
+        return f".{attr}()"
     if attr in _SOCKET_METHODS:
         return f"socket .{attr}()"
     if attr == "join":

@@ -423,5 +423,25 @@ def stop_orca_context() -> None:
     if made:
         import torch.distributed as dist
         if dist.is_initialized():
+            if dist.get_backend() == "gloo":
+                _teardown_barrier(dist)
             dist.destroy_process_group()
     _restore_precision()
+
+
+#: how long a rank's teardown waits for its peers (seconds)
+TEARDOWN_WAIT = 10.0
+
+
+def _teardown_barrier(dist) -> None:
+    """Wait at most ``TEARDOWN_WAIT`` seconds for every rank of a gloo
+    group to reach the teardown: a rank whose peer dropped the group
+    first can abort at exit (ROADMAP C38). A peer that does not come (an
+    error path, a rank stuck in a collective) is logged, not waited
+    for."""
+    import datetime
+    try:
+        dist.monitored_barrier(
+            timeout=datetime.timedelta(seconds=TEARDOWN_WAIT))
+    except RuntimeError as e:
+        logger.warning("stop_orca_context: ranks missing at teardown: %s", e)

@@ -467,12 +467,18 @@ class InferenceModel:
 
     def _counted(self, module, name: str = "inference_model"):
         """``module`` under ``telemetry.instrument_jit``, one wrapper per
-        loaded module (JAX instruments each installed forward anew)."""
+        loaded module (JAX instruments each installed forward anew). The
+        wrapper is built outside the lock (ROADMAP C34): the lock guards
+        the table alone, and a racing caller's spare wrapper is dropped."""
+        with self._lock:
+            cur = self._jitted.get(name)
+        if cur is not None and cur[0] is module:
+            return cur[1]
+        wrapped = telemetry.instrument_jit(module, name=name)
         with self._lock:
             cur = self._jitted.get(name)
             if cur is None or cur[0] is not module:
-                cur = self._jitted[name] = (module, telemetry.instrument_jit(
-                    module, name=name))
+                cur = self._jitted[name] = (module, wrapped)
         return cur[1]
 
     def _forward(self, module, xs):

@@ -218,7 +218,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              batch's loss and gradients at full width with 2 blocks on the
              card against the CPU (ZOO_GRAD_RTOL of each leaf's largest;
              SQuAD SQUAD_GRAD_RTOL),
-             then a 10-step fit at full depth (SQuAD with remat off and
+             then a 5-step fit at full depth (SQuAD with remat off and
              on: peak memory, ms a step); (e) a profile_steps=(2, 5) fit
              writes a trace holding exactly steps 2-4, its kernels inside
              those steps' ranges on the card. It writes under
@@ -356,7 +356,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              predict_image_set -> LabelOutput(top_k=5), held against the
              twin, the host's preprocessing ms an image beside predict's;
              (d) that ResNet-50 in ClusterServing on the native broker
-             (batch 32 pinned): 128 tensor records, every answer bitwise
+             (batch 32 pinned): 64 tensor records, every answer bitwise
              the predict at batch 32, records/s and a lone request's p50,
              then a PNG record by enqueue_image (answered where the host
              has PIL, the typed error naming PIL where not) and a tensor
@@ -419,8 +419,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (relative to the largest); (c) BayesRecipe(num_samples=3,
              epochs=1), each config the CPU's BayesSearcher's; (d)
              PopulationSearchEngine over 16 TCNs (30, 30, 30), kernel 3,
-             batch 64, 2 epochs beside LocalSearchEngine over the first
-             4 of its configs serially for 1 epoch (a cut): seconds, ms a
+             batch 64, 1 epoch (a cut) beside LocalSearchEngine over
+             the first 4 of its configs serially for 1 epoch (a cut):
+             seconds, ms a
              member-epoch, the speedup (no timing asserted), every
              member's first step within 1e-6 of a plain AdamWeightDecay
              step, the best member within 1e-5 of itself trained alone
@@ -443,7 +444,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the mse against the same 300 steps in float64 on the card
              within P20_TCMF_FACTOR times the CPU's own distance,
              use_local=True
-             on the first 512 columns with max_TCN_epoch=1 (a cut); (h)
+             on the first 256 columns with max_TCN_epoch=1 (a cut); (h)
              AEDetector (roll 24, hidden (16, 8)) on the series: fit ms,
              scores within 1e-5 of the CPU's from the same weights, equal
              anomaly indexes and ThresholdDetector indexes,
@@ -579,9 +580,19 @@ C20. cuDNN's noise (ROADMAP C20): init_orca_context now takes cuDNN's
   26. zoolint for the port, on the card's host (no JAX there): the CLI
       over analytics_zoo_tpu_torch with dev/zoolint-torch-baseline.json
       must exit 0, over tests/fixtures/zoolint_torch without a baseline
-      must exit 1 with every rule family tripped, and the analyser must
+      must exit 1 with every rule family tripped (and, in --format
+      github, print one ::error line a finding), and the analyser must
       load no JAX and nothing of the JAX package; the counts and seconds
       are printed (phase_zoolint)
+  27. the examples: every script of examples_torch/ (one per JAX example,
+      tests/test_examples.py's order) on the card with its default
+      device; distributed_training and multihost_launch start their
+      ranks as subprocesses (the ranks share the card over gloo), started
+      first and run beside the others, which run in this process through
+      runpy with the launch counts zeroed just before each and read just
+      after; each must exit
+      0 (its own asserts hold), and recommendation_ncf and wide_and_deep
+      must launch B1 and B1b (phase_examples)
 
 The autotuner: the run keeps its verdicts in a file of its own
 (build/chip_smoke_autotune/, ZOO_AUTOTUNE_CACHE), empty at the start and
@@ -652,8 +663,8 @@ verdict took the paged step, (f) and (g) B1 and B1b, (h) B1; phase 23,
 in each rank before each part: (b) B3-B5, (c) B1 and B1b, (d) and (e)
 B3-B5, summed over the ranks) and read right after it: every kernel of
 the path must have launched there.
-Phases 13's to 20's seconds, phase 26's and the whole run's are
-printed before the kernels line. The
+Phases 13's to 20's seconds, phase 26's, phase 27's (and each
+example's) and the whole run's are printed before the kernels line. The
 second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -666,6 +677,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
@@ -942,13 +954,15 @@ OPTIMIZER_ARGS = [("rmsprop", "RMSprop", {}), ("adagrad", "Adagrad", {}),
                   ("lamb", "LAMB", {}), ("lbfgs", "LBFGS", {})]
 BERT_SCAN_STEPS = 16
 BERT_SWEEP = (32, 64, 128)
-MEM_STEPS = 5
+# steps timed a batch size and remat setting (5 until slice 26; the peak
+# comes in the first)
+MEM_STEPS = 3
 # CoNLL-2003's BIO tags (O and B-/I- of PER, ORG, LOC, MISC) at 32 x 128;
 # SQuAD at google-research/bert run_squad.py's BERT-Base setting, 12 x 384
 NER_ENTITIES = 9
 NER_BATCH, NER_LEN = 32, 128
 SQUAD_BATCH, SQUAD_LEN = 12, 384
-TASK_STEPS = 10
+TASK_STEPS = 5                  # 10 until slice 26
 TASK_CPU_BLOCKS = 2
 # one batch's gradients on the card against the CPU, each leaf within its
 # task's limit of its largest |gradient| on the CPU: NER at ZOO_GRAD_RTOL
@@ -992,7 +1006,7 @@ P16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 P16_NCF_ROWS = 4096             # bench.py measure_int8_predict's NCF half
 P16_CALIB = 256
 P16_MIN_ELEMS = 1024
-P16_REPS = 20
+P16_REPS = 10                   # 20 until slice 26
 P16_BERT_CALIB = 8              # rows of the 32 x 512 batch
 # JAX's int8 limits (tests/test_inference_net.py test_int8_predictions_
 # match_fp32): argmax agreement with the float model, nrmse
@@ -1104,7 +1118,7 @@ P18_TWIN_TIMED = ("resnet-50", "mobilenet-v2")
 P18_IMAGES = 64
 P18_TOP_K = 5
 # (d): the imported ResNet-50 served on the native broker
-P18_BURST = 128
+P18_BURST = 64                  # 128 until slice 26: still two batches
 P18_SINGLE = 20
 # (e): int8 mobilenet-v2, calibrated on 8 batches; JAX's plan takes every
 # Conv (52, the 17 depthwise included) and the Dense
@@ -4817,7 +4831,9 @@ def phase_bert_remat(torch, np, state, Estimator, kind):
     if not np.isfinite(rep["remat_fit"]["losses"]).all():
         raise AssertionError(f"remat fit losses: {rep['remat_fit']}")
     del est
-    # peak memory and ms a step, remat off and on, bf16
+    # peak memory and ms a step, remat off and on, bf16; a fresh estimator
+    # each: one reused across the batch sizes carries what the earlier
+    # sizes left resident into the peak
     rep["memory"] = {}
     for b in BERT_SWEEP:
         for remat in (False, True):
@@ -4838,23 +4854,24 @@ def phase_bert_remat(torch, np, state, Estimator, kind):
             log(f"  bf16 batch {b} remat {remat}: peak {peak:.3f} GB, "
                 f"{ms:.3f} ms/step")
             del est, xs, ys
-    # the scan sweep: fit(steps_per_loop=BERT_SCAN_STEPS), bf16
+    # the scan sweep: fit(steps_per_loop=BERT_SCAN_STEPS), bf16, one
+    # estimator; a loop at each batch size warms it, the next is timed
     rep["scan"] = {}
+    est = make(torch.bfloat16, False)
+    k = BERT_SCAN_STEPS
     for b in BERT_SWEEP:
-        est = make(torch.bfloat16, False)
-        k = BERT_SCAN_STEPS
         est.fit((ids[:k * b], labels[:k * b]), epochs=1, batch_size=b,
                 steps_per_loop=k)                            # warm up
         torch.cuda.synchronize()
         _, _, dt = counted(torch, lambda: est.fit(
-            (ids[:2 * k * b], labels[:2 * k * b]), epochs=1, batch_size=b,
-            steps_per_loop=k))
-        rep["scan"][str(b)] = dict(step_ms=dt / (2 * k) * 1e3,
-                                   samples_per_s=2 * k * b / dt)
+            (ids[k * b:2 * k * b], labels[k * b:2 * k * b]), epochs=1,
+            batch_size=b, steps_per_loop=k))
+        rep["scan"][str(b)] = dict(step_ms=dt / k * 1e3,
+                                   samples_per_s=k * b / dt)
         log(f"  steps_per_loop={k} bf16 batch {b}: "
             f"{rep['scan'][str(b)]['step_ms']:.3f} ms/step, "
             f"{rep['scan'][str(b)]['samples_per_s']:.1f} samples/s")
-        del est
+    del est
     est = make(torch.bfloat16, False, LAMB(1e-4))
     est.fit(b0, epochs=1, batch_size=TRAIN_BATCH)
     _, _, dt = counted(torch, lambda: est.fit(rows, epochs=1,
@@ -5605,22 +5622,36 @@ def phase_a3(torch, np, eb, state, Estimator, x, y, kind, card):
     os.makedirs(PHASE14_DIR)
     log_dir = estimator.DEFAULT_LOG_DIR
     estimator.DEFAULT_LOG_DIR = os.path.join(PHASE14_DIR, "logs")
-    rep, counts = {}, {}
+    rep, counts, secs = {}, {}, {}
+    t0 = time.perf_counter()
+
+    def took(part):
+        nonlocal t0
+        secs[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
     try:
         rep["ncf_loops"] = phase_ncf_loops(torch, np, x, y, kind)
         counts["ncf_loops"] = {m: rep["ncf_loops"][m]["launches"]
                                for m in ("per_step", "staged", "cached")}
+        took("ncf_loops")
         _build.reset_launch_counts()
         rep["optimizers"] = phase_optimizers(torch, np, x, y, card)
         counts["optimizers"] = _build.launch_counts()
+        took("optimizers")
         rep["bert"] = phase_bert_remat(torch, np, state, Estimator, kind)
         counts["bert_remat"] = rep["bert"]["remat_fit"]["launches"]
+        took("bert_remat")
         rep["tasks"] = phase_bert_tasks(torch, np, card)
         counts["tasks"] = {t: rep["tasks"][t]["fit_remat_false"]["launches"]
                            for t in ("ner", "squad")}
+        took("tasks")
         _build.reset_launch_counts()
         rep["profile"] = phase_profile(torch, np, x, y, card)
         counts["profile"] = _build.launch_counts()
+        took("profile")
+        rep["seconds_by_part"] = secs
+        log(f"phase 14: seconds by part "
+            f"{ {k: round(v, 1) for k, v in secs.items()} }")
         for name in ("fused_embedding_lookup", "embedding_scatter_add"):
             if counts["optimizers"].get(name, 0) <= 0 or \
                     counts["profile"].get(name, 0) <= 0:
@@ -7615,9 +7646,11 @@ def p19_window(torch, est, xs, ys, timed) -> float:
 
 def p19_launch_calls(torch, fn) -> int:
     """The kernel launches the CUDA runtime took during ``fn()`` (the
-    profiler's host-side launch calls)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    profiler's host-side launch calls). The CUDA activity alone records
+    them: the CPU activity's operator events add nothing to the count and
+    took a recurrent TextClassifier step's count from 7.2-7.7 s to
+    18.1-19.9 s (dev/launch_count_probe.py)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -8220,7 +8253,7 @@ P20_SPLIT = (8256, 1032)            # train, validation; the rest is test
 # cut
 P20_GRID_EPOCHS = 1
 P20_POP_K = 16                      # (d): the population
-P20_POP_EPOCHS = 2
+P20_POP_EPOCHS = 1                  # 2 until slice 26 (129 steps an epoch)
 P20_SERIAL_K = 4
 P20_SERIAL_EPOCHS = 1
 P20_POP_BATCH = 64
@@ -8262,7 +8295,8 @@ P20_TCMF = (370, 25_968)
 P20_TCMF_RANK = 64
 P20_TCMF_STEPS = 300
 P20_TCMF_INCR = 24
-P20_TCMF_LOCAL_COLS = 512           # use_local=True: a cut, named
+P20_TCMF_LOCAL_COLS = 256           # use_local=True: a cut, named (512
+#                                     until slice 26)
 P20_TCMF_PROFILED = 10              # steps under the profiler
 # (g): F and X from the SVD start against the same 300 steps in float64,
 # as the largest difference, and the final mse, relative: P20_TCMF_FACTOR times the CPU's own fp32
@@ -8509,7 +8543,7 @@ def p20_first_step(torch, np, creator, x, y, dev):
 
 def p20_population(torch, np, frames, kind, dev="cuda"):
     """20(d): PopulationSearchEngine over P20_POP_K TemporalConvNets at the
-    recipes' widest TCN on the training windows (batch 64, 2 epochs, lr
+    recipes' widest TCN on the training windows (batch 64, 1 epoch, lr
     log-uniform), LocalSearchEngine training the same configs serially
     from the same initial weights (P20_SERIAL_K of them for
     P20_SERIAL_EPOCHS, a cut: they compare by the ms of a member-epoch);
@@ -8756,7 +8790,7 @@ def p20_tcmf(torch, np, kind, dev="cuda"):
     clock), launches a step and the device's busy share (profiler), the
     final mse, predict(24) ms, fit_incremental of 24 columns, save/load
     bitwise; F, X and the final mse against the same steps in float64 on
-    the card from the same SVD start; use_local=True on the first 512 columns with
+    the card from the same SVD start; use_local=True on the first 256 columns with
     max_TCN_epoch=1 (a cut)."""
     from analytics_zoo_tpu_torch.zouwu.model.tcmf import TCMFForecaster
     n, t = P20_TCMF
@@ -13360,11 +13394,12 @@ ZOOLINT_TIMEOUT_S = 120
 
 
 def phase_zoolint(kind):
-    """Phase 26: the port's zoolint stands alone on the card's host. Three
+    """Phase 26: the port's zoolint stands alone on the card's host. Four
     processes side by side from the checkout's root: the CLI over the
     port with its baseline (exit 0), the CLI over the seeded fixture with
-    no baseline (exit 1, every rule family tripped), and the analyser's
-    import (no JAX, nothing of the JAX package loaded)."""
+    no baseline (exit 1, every rule family tripped), the same in
+    ``--format github`` (exit 1, one ``::error`` line a finding), and the
+    analyser's import (no JAX, nothing of the JAX package loaded)."""
     root = os.path.dirname(os.path.abspath(__file__))
     tool = [sys.executable, "-m", "analytics_zoo_tpu_torch.analysis"]
     probe = ("import sys, analytics_zoo_tpu_torch.analysis as a\n"
@@ -13375,6 +13410,8 @@ def phase_zoolint(kind):
     runs = {"tree": tool + ["--timing", "analytics_zoo_tpu_torch"],
             "fixture": tool + ["--timing", "--no-baseline",
                                "--format=json", ZOOLINT_FIXTURE],
+            "github": tool + ["--no-baseline", "--format=github",
+                              ZOOLINT_FIXTURE],
             "imports": [sys.executable, "-c", probe]}
 
     def run(cmd):
@@ -13417,6 +13454,16 @@ def phase_zoolint(kind):
     if missing:
         raise AssertionError(f"phase 26 (b): the fixture tripped no "
                              f"{missing}")
+    rc, o, e = out["github"]
+    errors = sum(1 for line in o.splitlines() if line.startswith("::error "))
+    rep["github"] = dict(rc=rc, errors=errors)
+    log(f"phase 26 (b) --format github over the fixture: exit {rc}, "
+        f"{errors} ::error lines for {summary['total']} findings")
+    if rc != 1 or errors != summary["total"]:
+        raise AssertionError(f"phase 26 (b): --format github exited {rc} "
+                             f"with {errors} ::error lines for "
+                             f"{summary['total']} findings:\n{o[-2000:]}\n"
+                             f"{e[-2000:]}")
     rc, o, e = out["imports"]
     loaded = o.strip().splitlines()[-1:] if rc == 0 else None
     rep["imports"] = dict(rc=rc, forbidden=loaded)
@@ -13425,9 +13472,154 @@ def phase_zoolint(kind):
     if loaded != ["[]"]:
         raise AssertionError(f"phase 26 (c): exit {rc}, loaded {loaded}\n"
                              f"{e[-2000:]}")
-    log(f"phase 26: {rep['seconds']:.1f} s (the three processes side by "
+    log(f"phase 26: {rep['seconds']:.1f} s (the four processes side by "
         f"side; (a) {rep['tree_s']:.1f} s, (b) {rep['fixture_s']:.1f} s)")
     return rep
+
+
+#: phase 27: the port's examples, in tests/test_examples.py's order
+EXAMPLES_DIR = "examples_torch"
+EXAMPLES = ("recommendation_ncf.py", "anomaly_detection.py",
+            "autots_forecast.py", "cluster_serving.py", "torch_migration.py",
+            "distributed_training.py", "dogs_vs_cats_transfer.py",
+            "sentiment_analysis.py", "vae.py", "fraud_detection.py",
+            "image_similarity.py", "wide_and_deep.py", "object_detection.py",
+            "image_augmentation.py", "model_inference.py",
+            "automl_hp_search.py", "qa_ranker.py", "multihost_launch.py",
+            "image_classification_serving.py")
+#: the examples that start ranks: subprocesses, run beside the others
+#: inside phase 27 (no earlier phase's timed reading shares the card
+#: with their ranks)
+EXAMPLES_RANKS = ("distributed_training.py", "multihost_launch.py")
+#: the kernels whose launches each in-process example reports (B1, B1b,
+#: B3), and the examples that must launch some of them
+EXAMPLES_KERNELS = ("fused_embedding_lookup", "embedding_scatter_add",
+                    "flash_attention_fwd")
+EXAMPLES_MUST = {"recommendation_ncf.py": ("fused_embedding_lookup",
+                                           "embedding_scatter_add"),
+                 "wide_and_deep.py": ("fused_embedding_lookup",
+                                      "embedding_scatter_add")}
+#: the limit on each example that starts ranks (seconds)
+EXAMPLES_TIMEOUT_S = 300
+
+
+def start_rank_examples(device: str = "cuda"):
+    """Phase 27's two examples that start ranks, as subprocesses of their
+    own (their ranks share the card over gloo): ``{name: (start time,
+    Popen, stdout file, stderr file)}`` for ``phase_examples``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [] if device == "cuda" else ["--device", device]
+    # the ranks' processes (8 + 2 on the host's cores beside this one)
+    # take one intra-op thread each
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    for name in EXAMPLES_RANKS:
+        # their output goes to files: nothing reads a pipe while the
+        # in-process examples run
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.join(root, EXAMPLES_DIR, name)] + args,
+            cwd=root, stdout=out, stderr=err, text=True, env=env), out, err)
+    return procs
+
+
+def phase_examples(kind, device: str = "cuda"):
+    """Phase 27: every script of examples_torch/ on the card with its
+    default device (``device`` other than "cuda" passes ``--device``).
+    The two that start ranks run as subprocesses, started first and run
+    beside the others; every other runs in this process through runpy,
+    with the launch counts zeroed just before it and read just after, and
+    no context left from an earlier phase. Each line: the wall seconds, the exit status or the
+    exception, and the launches of B1, B1b and B3. Any example that
+    raises or exits non-zero fails the phase, and so does
+    recommendation_ncf or wide_and_deep without a B1 and a B1b launch."""
+    import contextlib
+    import io
+    import runpy
+    from analytics_zoo_tpu_torch.common.context import stop_orca_context
+    from analytics_zoo_tpu_torch.ops import _build
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [] if device == "cuda" else ["--device", device]
+    t0 = time.perf_counter()
+    procs = start_rank_examples(device)
+    rep, failed = {}, []
+    try:
+        for name in EXAMPLES:
+            if name in procs:
+                continue
+            stop_orca_context()
+            path = os.path.join(root, EXAMPLES_DIR, name)
+            out = io.StringIO()
+            argv = sys.argv
+            sys.argv = [path] + args
+            _build.reset_launch_counts()
+            t1 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    runpy.run_path(path, run_name="__main__")
+                status = "exit 0"
+            except SystemExit as e:
+                status = f"exit {e.code if e.code is not None else 0}"
+            except BaseException as e:  # noqa: BLE001 - reported below
+                status = f"raised {type(e).__name__}: {e}"
+            finally:
+                sys.argv = argv
+                stop_orca_context()
+            sec = time.perf_counter() - t1
+            counts = _build.launch_counts()
+            launches = {k: counts.get(k, 0) for k in EXAMPLES_KERNELS}
+            lines = out.getvalue().strip().splitlines()
+            rep[name] = dict(seconds=sec, status=status, launches=launches,
+                             stdout=lines)
+            if status not in ("exit 0", "exit None"):
+                failed.append(name)
+            missing = [k for k in EXAMPLES_MUST.get(name, ())
+                       if launches[k] <= 0]
+            if missing:
+                failed.append(name)
+                status += f"; no launch of {missing}"
+            log(f"phase 27 {name}: {sec:.1f} s, {status}, launches "
+                f"{launches}")
+            for line in lines[-6:]:
+                log(f"  | {line}")
+    finally:
+        ended = {}
+        while len(ended) < len(procs):
+            for name, (t1, p, _, _) in procs.items():
+                if name in ended:
+                    continue
+                if p.poll() is not None:
+                    ended[name] = (time.perf_counter() - t1,
+                                   f"exit {p.returncode}")
+                elif time.perf_counter() - t1 > EXAMPLES_TIMEOUT_S:
+                    p.kill()
+                    p.wait()
+                    ended[name] = (time.perf_counter() - t1,
+                                   f"killed after {EXAMPLES_TIMEOUT_S} s")
+            time.sleep(0.05)
+        for name, (t1, p, out, err) in procs.items():
+            sec, status = ended[name]
+            out.seek(0)
+            err.seek(0)
+            o, e = out.read(), err.read()
+            out.close()
+            err.close()
+            lines = o.strip().splitlines()
+            rep[name] = dict(seconds=sec, status=status, stdout=lines,
+                             stderr=e.strip().splitlines()[-20:])
+            if p.returncode != 0:
+                failed.append(name)
+            log(f"phase 27 {name} (ranks in subprocesses): {sec:.1f} s "
+                f"from its start to its end, {status}")
+            for line in (lines if p.returncode == 0 else
+                         rep[name]["stderr"])[-8:]:
+                log(f"  | {line}")
+    seconds = time.perf_counter() - t0
+    log(f"phase 27: {len(EXAMPLES)} examples on {kind} in {seconds:.1f} s "
+        f"of wall time; failed: {failed}")
+    if failed:
+        raise AssertionError(f"phase 27: examples failed: {failed}")
+    return {"seconds": seconds, "examples": rep}
 
 
 def main() -> int:
@@ -13836,6 +14028,11 @@ def main() -> int:
     # the analyser; no kernel on its path
     report["zoolint"] = phase_zoolint(kind)
     mark("26")
+    # 27. the examples of examples_torch/ on the card, each with its
+    # default device; each in-process example's counts zeroed just before
+    # it and read just after
+    report["examples"] = phase_examples(kind)
+    mark("27")
     report["launches"] = {"ncf": ncf_counts, "bert": bert_counts,
                           "bert_train": train_counts,
                           "decode": decode_counts,
@@ -13852,7 +14049,11 @@ def main() -> int:
                               report["autotune_friesian"]["launches"],
                           "parallel": report["parallel"]["launches"],
                           "pipeline_serving": p24,
-                          "readers_importers": p25}
+                          "readers_importers": p25,
+                          "examples": {
+                              name: ex["launches"] for name, ex in
+                              report["examples"]["examples"].items()
+                              if "launches" in ex}}
 
     # kernels line: each kernel's times at its path's headline shape, its
     # largest error over every case it was checked in
@@ -14038,6 +14239,13 @@ def main() -> int:
                if c.get(row["name"], 0)}
         if got:
             row["phase24_launches"] = got
+    # phase 27's paths: each example run in this process (B1, B1b, B3)
+    for row in kernels["kernels"]:
+        got = {name: ex["launches"][row["name"]] for name, ex in
+               report["examples"]["examples"].items()
+               if ex.get("launches", {}).get(row["name"], 0)}
+        if got:
+            row["phase27_launches"] = got
     # phase 25's paths: NCF fit from TFRecords (B1, B1b), NCF predict of
     # the rows read from Elasticsearch (B1), a forward of the foreign
     # TransformerEncoder through Net.load_torch and InferenceModel (B3)

@@ -1,6 +1,7 @@
 """The port stands alone: importing analytics_zoo_tpu_torch (every
 module) loads no jax, flax or optax and nothing of analytics_zoo_tpu, and
-no source of the port or of chip_smoke.py imports them. Nor msgpack or
+no source of the port, of its examples (examples_torch/) or of
+chip_smoke.py imports them. Nor msgpack or
 ml_dtypes, which the card's machine lacks: the port writes and reads
 flax's checkpoint encoding itself (learn/checkpoint.py)."""
 
@@ -16,6 +17,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "analytics_zoo_tpu_torch"
+EXAMPLES = ROOT / "examples_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu",
              "msgpack", "ml_dtypes")
 
@@ -104,7 +106,8 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+    list(PKG.rglob("*.py")) + list(EXAMPLES.glob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     bad = []
@@ -232,3 +235,14 @@ def test_pipeline_and_sharded_serving_import_without_jax():
                          check=True, capture_output=True, text=True,
                          timeout=120)
     assert out.stdout.strip() == "(5, 2)"
+
+
+def test_examples_cover_every_jax_example():
+    """One script of examples_torch/ for each JAX example, by name, and
+    none of them names a module of the JAX package."""
+    jax = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    mine = sorted(p.name for p in EXAMPLES.glob("*.py"))
+    assert len(jax) == 19 and mine == jax
+    for name in mine:
+        assert "analytics_zoo_tpu." not in (EXAMPLES / name).read_text(), \
+            name

@@ -599,11 +599,15 @@ def test_baseline_preserves_justifications(tmp_path):
 
 @pytest.mark.parametrize("version", [1, 99])
 def test_baseline_rejects_unknown_version(tmp_path, version):
-    """Only version 2 loads: the port's baseline began at version 2, so
-    a version-1 (raw line) file is as unknown as any other."""
+    """Only version 2 loads. A version-1 (raw line) file is refused with
+    JAX's pointer to ``--migrate-baseline``, which rewrites it
+    (tests/test_torch_zoolint_parity.py); any other version is
+    unsupported."""
     bl = tmp_path / "baseline.json"
     bl.write_text('{"version": %d, "entries": []}' % version)
-    with pytest.raises(ValueError, match="unsupported version"):
+    want = ("analytics_zoo_tpu_torch.analysis --migrate-baseline"
+            if version == 1 else "unsupported version")
+    with pytest.raises(ValueError, match=want):
         baseline_lib.load(str(bl))
 
 

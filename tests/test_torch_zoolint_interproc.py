@@ -7,6 +7,8 @@ import json
 import os
 import textwrap
 
+import pytest
+
 from analytics_zoo_tpu_torch.analysis import analyze_paths, build_project
 from analytics_zoo_tpu_torch.analysis import ownership
 from analytics_zoo_tpu_torch.analysis.core import build_model_for_paths
@@ -379,3 +381,100 @@ def test_concurrency_torch_doc_has_no_drift(tmp_path):
         assert expected in root_ids
     assert "analytics_zoo_tpu_torch.data.native_store.NativeBlobStore" in \
         js["confined_classes"]
+
+
+# --------------------------------------- C34: the port's device waits
+
+_CONTENDED = '''
+import threading
+
+import torch
+from analytics_zoo_tpu_torch.common import telemetry
+
+
+class Stepper:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.x = torch.zeros(2)
+        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t.start()
+
+    def _loop(self):
+        while True:
+            with self._lock:
+                {call}
+
+    def submit(self):
+        with self._lock:
+            self.x += 1
+'''
+
+
+@pytest.mark.parametrize("call,desc", [
+    ("torch.cuda.synchronize()", "torch.cuda.synchronize"),
+    ("telemetry.traced_device_get(self.x)", "traced_device_get"),
+    ("self.x.item()", ".item()"),
+    ("self.x.tolist()", ".tolist()"),
+    ("self.x.cpu()", ".cpu()"),
+    ("torch.cuda.current_stream().synchronize()", ".synchronize()"),
+    ("self.x.block_until_ready()", "block_until_ready"),
+])
+def test_blocking_under_lock_reads_device_waits(tmp_path, call, desc):
+    """C34: a device wait under a lock two thread roots take is a
+    finding, PyTorch's spellings and JAX's alike."""
+    (tmp_path / "mod.py").write_text(_CONTENDED.format(call=call))
+    fs = [f for f in analyze_paths([str(tmp_path)], root=str(tmp_path))
+          if f.rule == "blocking-under-lock"]
+    assert [(f.line, f"({desc})" in f.message) for f in fs] == [(18, True)]
+
+
+@pytest.mark.parametrize("call", [
+    "self.x.cpu().add_(1)", "self.x.to('cpu', non_blocking=True)",
+    "self.x.tolist  # not called", "self.x.item(0)"])
+def test_blocking_under_lock_passes_what_does_not_wait(tmp_path, call):
+    """An argument-taking ``.item(i)`` (numpy's), a non-blocking copy and
+    an attribute read are no device wait; a chained ``.cpu()`` still is
+    (the control below)."""
+    (tmp_path / "mod.py").write_text(_CONTENDED.format(call=call))
+    fs = [f for f in analyze_paths([str(tmp_path)], root=str(tmp_path))
+          if f.rule == "blocking-under-lock"]
+    assert len(fs) == (1 if call.startswith("self.x.cpu()") else 0)
+
+
+def test_blocking_under_lock_passes_host_arrays(tmp_path):
+    """In a module that imports no torch, an argument-less ``.tolist()``
+    or ``.item()`` is numpy's or pandas' (a host array's): no device wait,
+    so no finding; the same calls in a module importing torch are."""
+    src = _CONTENDED.replace("import torch\n", "import numpy as np\n")
+    src = src.replace("torch.zeros(2)", "np.zeros(2)")
+    for call in ("self.x.tolist()", "self.x.item()"):
+        (tmp_path / "mod.py").write_text(src.format(call=call))
+        fs = [f for f in analyze_paths([str(tmp_path)], root=str(tmp_path))
+              if f.rule == "blocking-under-lock"]
+        assert fs == [], call
+
+
+def test_device_wait_fixture_fires():
+    """tests/fixtures/zoolint_torch/scheduling/bad_device_wait.py: the
+    synchronize under the contended lock, at its VIOLATION line."""
+    path = os.path.join(REPO, "tests", "fixtures", "zoolint_torch",
+                        "scheduling", "bad_device_wait.py")
+    with open(path, encoding="utf-8") as fh:
+        want = [i for i, line in enumerate(fh, 1)
+                if "VIOLATION blocking-under-lock" in line]
+    fs = [f for f in analyze_paths([path], root=REPO)
+          if f.rule == "blocking-under-lock"]
+    assert [(f.line, "torch.cuda.synchronize" in f.message) for f in fs] \
+        == [(want[0], True)]
+
+
+def test_counted_wraps_outside_the_lock():
+    """C34's repair: ``InferenceModel._counted`` builds its
+    ``instrument_jit`` wrapper outside ``InferenceModel._lock``, so the
+    lock reaches none of the functions other callers hand
+    ``instrument_jit`` (the estimator's device waits): the port's tree
+    has no ``blocking-under-lock`` finding under that lock."""
+    fs = analyze_paths([os.path.join(REPO, "analytics_zoo_tpu_torch")],
+                       root=REPO, jobs=4)
+    assert [f.format() for f in fs if f.rule == "blocking-under-lock"
+            and "InferenceModel._lock" in f.message] == []
